@@ -1,0 +1,232 @@
+"""Per-tree leaf values through the hand-written Hopper kernel
+(``csrc/forest_leaves.cu``): the port of ``ops/trees_pallas.py``, whose
+Pallas ``_kernel`` it replaces. ``ForestConfig.kernel="pallas"`` keeps its
+name and selects this module.
+
+Numerics are those of the TPU kernel: each node slot's feature is rounded to
+bf16 and compared in f32 against its f32 threshold. A vote can differ from
+the exact f32 compare of ``ops/trees_gemm.py`` only where a feature lies
+within bf16 rounding of a threshold; each form is held against its own
+reference.
+
+Routes, each with its own counter:
+
+- a CUDA tensor within the kernel's tile limits launches the kernel
+  (``launches``), or raises;
+- a CPU tensor takes the plain PyTorch version of the same function
+  (:func:`predict_leaves_plain`, the bf16-compare dense-count form);
+- a forest past the limits (depth > 8, or more than 512 features) takes the
+  exact gemm form (``gemm_route_calls``), the same boundary as the JAX
+  package's. That route compares in f32, so it is a named branch, not a
+  silent fallback: no configuration of the main path (depth 8, d = 30)
+  reaches it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import torch
+
+from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.ops.trees_gemm import (
+    GemmForest,
+    _auto_chunk,
+    predict_leaves_gemm,
+    tree_mean,
+)
+
+# Launches of csrc/forest_leaves.cu, counted where the kernel is launched.
+launches = 0
+# Calls routed to the gemm form because the forest exceeds the tile limits.
+gemm_route_calls = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PallasForest:
+    """Marker wrapper selecting the hand-written leaf kernels: the same
+    path-matrix data as :class:`GemmForest`; the wrapper type is what
+    ``ops.forest_eval`` dispatches on. The kernels' packed operands are
+    built at the first launch and kept, so the round's launches (score or
+    megakernel, then test accuracy) pack and check the forest once."""
+
+    gf: GemmForest
+
+    @property
+    def n_trees(self) -> int:
+        return self.gf.n_trees
+
+    @functools.cached_property
+    def operands(self) -> "KernelOperands":
+        return forest_operands(self.gf)
+
+
+# The JAX package's tile limits, kept so both packages route the same
+# forests to the gemm form.
+_BT = 8
+_MAX_I_PAD = 256
+_MAX_D_PAD = 512
+
+
+def tile_dims(gf: GemmForest, n: int, d: int):
+    """The JAX kernel's padded tile dimensions ``(i_pad, l_pad, d_pad, bn)``,
+    or ``None`` past its tiling budget (depth > 8 or d_pad > 512), where
+    evaluation takes the gemm form."""
+    T, I = gf.feat_ids.shape
+    L = gf.value.shape[1]
+    i_pad = max(-(-I // 128) * 128, 128)
+    l_pad = max(-(-L // 128) * 128, 128)
+    d_pad = max(-(-d // 128) * 128, 128)
+    if i_pad > _MAX_I_PAD or d_pad > _MAX_D_PAD:
+        return None
+    bn = 2048 if n >= 1536 else 512
+    return i_pad, l_pad, d_pad, bn
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelOperands:
+    """The forest in the CUDA kernels' layout (csrc/forest_eval.cuh)."""
+
+    feat: torch.Tensor   # [T, i_pad] int32, padded slots select feature 0...
+    thr: torch.Tensor    # [T, i_pad] f32, ...and compare False (-inf)
+    plus: torch.Tensor   # [T, L, i_pad // 32] int32 bits of path == +1
+    minus: torch.Tensor  # [T, L, i_pad // 32] int32 bits of path == -1
+    tgt: torch.Tensor    # [T, L] f32
+    val: torch.Tensor    # [T, L] f32
+
+    @property
+    def i_pad(self) -> int:
+        return self.feat.shape[1]
+
+    @property
+    def n_leaves(self) -> int:
+        return self.tgt.shape[1]
+
+
+def _bits(cols: torch.Tensor) -> torch.Tensor:
+    """``[..., L, i_pad]`` booleans -> ``[..., L, i_pad // 32]`` int32 words
+    (bit b of word w is node slot 32 w + b)."""
+    *lead, L, i_pad = cols.shape
+    shifts = torch.arange(32, device=cols.device, dtype=torch.int64)
+    words = (cols.reshape(*lead, L, i_pad // 32, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def forest_operands(gf: GemmForest) -> KernelOperands:
+    """Pad and pack a path-matrix forest for the kernels: node slots padded
+    to a multiple of 32, each leaf column of the path matrix as a plus and a
+    minus bit mask. Raises unless every path entry is -1, 0 or +1 (the masks
+    are exact only then). A device-fit forest's path is one constant
+    broadcast over trees, packed once."""
+    T, I = gf.feat_ids.shape
+    i_pad = -(-I // 32) * 32
+    path = gf.path
+    shared = path.stride(0) == 0  # heap forests: one matrix, broadcast
+    src = path[:1] if shared else path
+    if not bool(((src == 1) | (src == 0) | (src == -1)).all()):
+        raise ValueError("path matrix entries must be -1, 0 or +1")
+    cols = torch.nn.functional.pad(src.transpose(1, 2), (0, i_pad - I))  # [T', L, i_pad]
+    plus, minus = _bits(cols == 1), _bits(cols == -1)
+    if shared:
+        plus, minus = plus.expand(T, -1, -1), minus.expand(T, -1, -1)
+    pad = (0, i_pad - I)
+    return KernelOperands(
+        feat=torch.nn.functional.pad(gf.feat_ids.to(torch.int32), pad).contiguous(),
+        thr=torch.nn.functional.pad(gf.thresholds.to(torch.float32), pad, value=float("-inf")).contiguous(),
+        plus=plus.contiguous(),
+        minus=minus.contiguous(),
+        tgt=gf.target.to(torch.float32).contiguous(),
+        val=gf.value.to(torch.float32).contiguous(),
+    )
+
+
+def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the kernel: ``[n, T]`` leaf values from
+    bf16-rounded features compared in f32, dense ancestor counts
+    ``c . path`` (small integers, exact in f32), ``hit = (count ==
+    target)``, ``hit . value`` — chunked over rows like the gemm form."""
+    T, I = gf.feat_ids.shape
+    feat = gf.feat_ids.reshape(-1).long()
+    thr = gf.thresholds.reshape(-1).to(torch.float32)
+    out = []
+    for xb in torch.split(x, _auto_chunk(gf)):
+        fv = xb.to(torch.bfloat16).to(torch.float32)[:, feat]
+        c = (fv <= thr).to(torch.float32).reshape(-1, T, I)
+        s = torch.einsum("nti,til->ntl", c, gf.path)
+        hit = (s == gf.target[None]).to(torch.float32)
+        out.append(torch.einsum("ntl,tl->nt", hit, gf.value))
+    return torch.cat(out)
+
+
+def _check_x(x: torch.Tensor, ops: KernelOperands, *others: torch.Tensor) -> torch.Tensor:
+    """Refuse what the kernels do not take: x must be ``[n, d]`` float32 and
+    every operand must lie on x's device (a pointer to another device's
+    memory would fault inside the kernel)."""
+    if x.dtype != torch.float32 or x.ndim != 2:
+        raise ValueError(f"x must be a [n, d] float32 tensor, got {x.dtype} {tuple(x.shape)}")
+    if x.shape[1] > _MAX_D_PAD:
+        raise ValueError(f"the kernels take at most {_MAX_D_PAD} features, got {x.shape[1]}")
+    tensors = (ops.feat, ops.thr, ops.plus, ops.minus, ops.tgt, ops.val, *others)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"forest operands must lie on {x.device} with x")
+    return x.contiguous()
+
+
+def _launch_leaves(ops: KernelOperands, x: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/forest_leaves.cu: ``[T, n]`` f32 leaf values."""
+    global launches
+    x = _check_x(x, ops)
+    n, d = x.shape
+    T = ops.feat.shape[0]
+    out = torch.empty(T, n, dtype=torch.float32, device=x.device)
+    lib = kernels.load("forest_leaves")
+    with torch.cuda.device(x.device):
+        err = lib.forest_leaves(
+            x.data_ptr(), n, d,
+            ops.feat.data_ptr(), ops.thr.data_ptr(), ops.plus.data_ptr(), ops.minus.data_ptr(),
+            ops.tgt.data_ptr(), ops.val.data_ptr(), T, ops.i_pad, ops.n_leaves,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check("forest_leaves", err)
+    launches += 1
+    return out
+
+
+def _unwrap(f) -> GemmForest:
+    return f.gf if isinstance(f, PallasForest) else f
+
+
+def operands_of(f) -> KernelOperands:
+    """The kernels' operands of a forest: kept on a :class:`PallasForest`,
+    packed anew for a bare :class:`GemmForest`."""
+    return f.operands if isinstance(f, PallasForest) else forest_operands(f)
+
+
+def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
+    """Per-tree leaf values ``[n, T]`` of a :class:`GemmForest` or
+    :class:`PallasForest`: the CUDA kernel for a CUDA tensor, its plain
+    version for a CPU tensor, the gemm form past the tile limits."""
+    global gemm_route_calls
+    gf = _unwrap(f)
+    n, d = x.shape
+    if tile_dims(gf, n, d) is None:
+        gemm_route_calls += 1
+        return predict_leaves_gemm(gf, x)
+    if x.device.type == "cuda":
+        return _launch_leaves(operands_of(f), x).T
+    if x.device.type == "cpu":
+        return predict_leaves_plain(gf, x)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def predict_leaves(f, x: torch.Tensor) -> torch.Tensor:
+    return predict_leaves_pallas(f, x)
+
+
+def predict_proba(f, x: torch.Tensor) -> torch.Tensor:
+    return tree_mean(predict_leaves(f, x))
+
+
+def predict_votes(f, x: torch.Tensor) -> torch.Tensor:
+    return (predict_leaves(f, x) > 0.5).sum(dim=1, dtype=torch.int32)

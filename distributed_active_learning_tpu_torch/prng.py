@@ -1,0 +1,101 @@
+"""``jax.random``'s threefry2x32 in PyTorch, partitionable mode, bit for bit.
+
+The JAX package pins ``jax_threefry_partitionable`` (its ``__init__.py``),
+and every pick, mask and bootstrap weight of the AL loop is a function of
+that stream. Reproducing it exactly is what lets the port's runs equal the
+JAX package's end to end. Definitions follow ``jax/_src/prng.py``
+(``threefry_2x32``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
+``_threefry_random_bits_partitionable``, ``iota_2x32_shape``) and
+``jax/_src/random.py::_uniform``.
+
+A key is an ``int64`` tensor whose last axis holds the two ``uint32`` words
+of ``jax.random.key_data`` (leading axes batch several keys). Keys live on
+the CPU: they are a few words, and keeping them off the card spares a
+launch per hash round; draws are generated on the requested device. The
+32-bit arithmetic runs in ``int64`` masked to 32 bits, so it is the same on
+every backend (PyTorch has no full unsigned 32-bit arithmetic on all of
+them).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Key = torch.Tensor
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 hash of counter pairs ``(x1, x2)`` under key
+    ``(k1, k2)``; all broadcastable ``int64`` tensors holding uint32 values.
+    Five groups of four rounds with key injection, as
+    ``_threefry2x32_lowering``."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _MASK
+    b = (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _MASK
+            b = _rotl(b, r) ^ a
+        a = (a + ks[(i + 1) % 3]) & _MASK
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return a, b
+
+
+def key(seed: int) -> Key:
+    """``jax.random.key(seed)``'s key data: the seed's high and low words."""
+    seed = int(seed)
+    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64)
+
+
+def _words(k: Key, extra_dims: int, device=None):
+    k = k.to(device) if device is not None else k
+    shape = k.shape[:-1] + (1,) * extra_dims
+    return k[..., 0].reshape(shape), k[..., 1].reshape(shape)
+
+
+def split(k: Key, num: int = 2) -> Key:
+    """``jax.random.split``: ``[..., 2] -> [..., num, 2]``."""
+    k1, k2 = _words(k, 1)
+    lo = torch.arange(num, dtype=torch.int64, device=k.device)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(k: Key, data: Union[int, torch.Tensor]) -> Key:
+    """``jax.random.fold_in``: hash the counter pair ``(0, uint32(data))``."""
+    k1, k2 = k[..., 0], k[..., 1]
+    d = torch.as_tensor(data, dtype=torch.int64) & _MASK
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """32 random bits per element (``int64`` holding uint32): the threefry
+    hash of the element's row-major position, ``bits1 ^ bits2``. Batched
+    keys ``[*B, 2]`` give ``[*B, *shape]``."""
+    shape = tuple(int(s) for s in shape)
+    device = k.device if device is None else torch.device(device)
+    k1, k2 = _words(k, len(shape), device)
+    n = math.prod(shape)
+    counts = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    b1, b2 = threefry2x32(k1, k2, counts >> 32, counts & _MASK)
+    return b1 ^ b2
+
+
+def uniform(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
+    23 bits as the mantissa of a float in ``[1, 2)``, minus one."""
+    bits = random_bits(k, shape, device)
+    one_bits = 0x3F800000
+    f = ((bits >> 9) | one_bits).to(torch.int32).view(torch.float32)
+    return f - 1.0

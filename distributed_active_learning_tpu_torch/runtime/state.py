@@ -1,0 +1,123 @@
+"""Device-resident active-learning pool state (the port of
+``runtime/state.py``).
+
+The pool is one dense tensor on the device and the labeled/unlabeled split is
+a boolean mask over it: fixed shapes, no per-round host round-trips. The
+streaming fill watermark (``n_filled``) waits for the serving slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import numpy as np
+import torch
+
+from distributed_active_learning_tpu_torch import prng
+from distributed_active_learning_tpu_torch.ops.topk import stable_top_k
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolState:
+    """Full state of one AL experiment's pool.
+
+    ``oracle_y`` holds every label; strategies may only consume labels where
+    ``labeled_mask`` is True. ``key`` is the PRNG key threaded through rounds
+    (kept on the CPU, see :mod:`..prng`); ``round`` the round counter.
+    """
+
+    x: torch.Tensor             # [n, d] float32 — pool features
+    oracle_y: torch.Tensor      # [n] int32
+    labeled_mask: torch.Tensor  # [n] bool
+    key: prng.Key               # [2] int64 key words
+    round: int = 0
+    n_valid_static: int = -1
+
+    def replace(self, **kw) -> "PoolState":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def n_pool(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def n_valid(self) -> int:
+        return self.n_pool if self.n_valid_static < 0 else self.n_valid_static
+
+    @property
+    def valid_mask(self) -> torch.Tensor:
+        return torch.arange(self.n_pool, device=self.x.device) < self.n_valid
+
+    @property
+    def unlabeled_mask(self) -> torch.Tensor:
+        return ~self.labeled_mask
+
+
+def labeled_count(state: PoolState) -> torch.Tensor:
+    """Number of real labeled points, as a device scalar."""
+    if state.n_valid == state.n_pool:
+        return state.labeled_mask.sum(dtype=torch.int32)
+    return (state.labeled_mask & state.valid_mask).sum(dtype=torch.int32)
+
+
+def init_pool_state(x, y, key: prng.Key, device) -> PoolState:
+    """Wrap arrays into a fresh all-unlabeled PoolState on ``device``."""
+    x = torch.as_tensor(np.asarray(x, dtype=np.float32)).to(device)
+    y = torch.as_tensor(np.asarray(y, dtype=np.int32)).to(device)
+    return PoolState(
+        x=x,
+        oracle_y=y,
+        labeled_mask=torch.zeros(x.shape[0], dtype=torch.bool, device=device),
+        key=key,
+    )
+
+
+def set_start_state(state: PoolState, n_start: int, n_classes: int = 2) -> PoolState:
+    """Seed the labeled set: one point per present class plus random extras
+    (``Dataset.setStartState``), drawing the same priorities as the JAX
+    package from the same key."""
+    n = state.n_pool
+    if n_start > n:
+        raise ValueError(f"n_start={n_start} exceeds pool size {n}")
+    y = state.oracle_y.cpu().numpy()
+    present = [bool((y == c).any()) for c in range(n_classes)]
+    if sum(present) < 2:
+        raise ValueError(
+            "set_start_state needs at least two classes present in the pool "
+            "(the reference's take(1) on an empty class RDD would fail the "
+            "same way: dataset.py:90-106)"
+        )
+    keys = prng.split(state.key, n_classes + 2)
+    key, k_rest, k_classes = keys[0], keys[1], keys[2:]
+    dev = state.x.device
+
+    mask = torch.zeros(n, dtype=torch.bool, device=dev)
+    neg = torch.full((n,), -1.0, device=dev)
+    n_seeded = 0
+    for c in range(n_classes):
+        if not present[c]:
+            continue
+        pri = prng.uniform(k_classes[c], (n,), dev)
+        # argmax returns the first maximum, as jnp.argmax does.
+        pick = torch.argmax(torch.where(state.oracle_y == c, pri, neg))
+        mask[pick] = True
+        n_seeded += 1
+
+    n_extra = max(n_start - n_seeded, 0)
+    if n_extra > 0:
+        pri_rest = prng.uniform(k_rest, (n,), dev)
+        _, extra_idx = stable_top_k(torch.where(mask, neg, pri_rest), n_extra)
+        mask[extra_idx] = True
+    return state.replace(labeled_mask=mask, key=key)
+
+
+def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
+    """Label the picked pool indices (the oracle call) and advance the round.
+
+    Indices past the pool (a short tile's padding candidates, reachable only
+    when fewer than ``window`` rows remain selectable) are dropped, as the
+    JAX scatter drops out-of-bounds updates.
+    """
+    n = state.n_pool
+    ext = torch.cat([state.labeled_mask, state.labeled_mask.new_zeros(1)])
+    ext[torch.clamp(picked_idx.long(), max=n)] = True
+    return state.replace(labeled_mask=ext[:n], round=state.round + 1)
