@@ -5,31 +5,49 @@
 Run from the root of a checkout. Phases, in order; any failure exits nonzero
 and prints no result:
 
-1. build the CUDA kernels from ``distributed_active_learning_tpu_torch/csrc``
-   (one nvcc per source, started together) and print the card's name and
-   power limit;
-2. the leaf kernel (csrc/forest_leaves.cu) against its plain PyTorch version
-   at full width (284,807 x 30 pool, 100-tree depth-8 device-fit forest,
-   32 bins) and at one ragged shape (13 trees, 1,700 rows): bit-equal;
-3. the round megakernel (csrc/round_megakernel.cu) against its plain version
-   for uncertainty, entropy, full_entropy and margin (5,000-row labeled
-   mask, k = 100): per-tile candidates and merged picks bit-equal;
+1. build the four CUDA kernels from ``distributed_active_learning_tpu_torch/
+   csrc`` (one nvcc per source, started together) and print the card's name
+   and power limit;
+2. the leaf kernel K1 (csrc/forest_leaves.cu) against its plain PyTorch
+   version at full width (284,807 x 30 pool, 100-tree depth-8 device-fit
+   forest, 32 bins) and at one ragged shape (13 trees, 1,700 rows):
+   bit-equal;
+2b. the vote kernel K3 (csrc/fused_votes.cu) against its plain version at
+   full width, at one 50-tree model shard of the 4 x 2 mesh (71,202 rows)
+   and at the ragged shape: bit-equal;
+3. the round megakernel K2 (csrc/round_megakernel.cu) against its plain
+   version for uncertainty, entropy, full_entropy and margin (5,000-row
+   labeled mask, k = 100): per-tile candidates and merged picks bit-equal;
+3b. the ring hop K4 (csrc/ring_hop.cu): a 4-shard ring of k = 100 windows on
+   the card (four shards on cuda:0), each hop bit-equal to its plain copy and
+   the merge equal to the global stable top-k; the same ring across two cards
+   (peer stores) when two are visible, else a line saying it did not run;
 4. the main path: ``run_experiment`` at the benchmark width (pool 284,807 x
    30, test draw 85,443 rows, 100 trees, depth 8, 32 bins, device fit,
    kernel "pallas", uncertainty, window 100, n_start 5,000, 3 rounds), once
    with ``fused_round`` and once without, the launch counts set to 0 just
-   before each run and read just after it: the fused run must launch the
-   megakernel and the leaf kernel once a round each, the unfused run the leaf
-   kernel twice a round. The two runs' records and final labeled masks must
-   be identical. Then a small
+   before each run and read just after it: the fused run must launch K2 and
+   K1 once a round each, the unfused run K1 twice a round. The two runs'
+   records and final labeled masks must be identical. Then a small
    checkerboard run on the card must equal the same run on the CPU (plain
    versions);
-5. per-kernel median times at the phase-2 and phase-3 shapes beside the
-   plain versions' and the bound; one fused and one unfused main-path round
-   under torch.profiler (device time by kernel, device busy share).
+4b. the mesh path: the phase-4 configuration with ``MeshConfig(data=4,
+   model=2)`` on ``devices=[cuda:0] * 8`` (284,807 rows padded to 284,808;
+   100 trees as 2 x 50), fused and unfused, counted from 0 per run: fused
+   K3 8, K4 12 and K1 8 launches a round and no K2; unfused K1 16 a round
+   and no K3 or K4. Records and final masks must equal phase 4's. With two
+   or more visible cards the same mesh runs again spread over them (shard
+   (s, m) on card (s + m) mod n), else a line says it did not run. Then a
+   small checkerboard mesh run on the card must equal the same mesh on the
+   CPU;
+5. per-kernel median times at the phase-2/2b/3/3b shapes beside the plain
+   versions', the bound and (K4) ``Tensor.copy_`` of the same window; one
+   fused and one unfused main-path round under torch.profiler (device time
+   by kernel, device busy share).
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
-is the fused run's count, ``launches_by_path`` each run's), the card's name
+is the count of the kernel's main path, single-device fused for K1 and K2,
+mesh fused for K3 and K4; ``launches_by_path`` every path's), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a CUDA device, and when the port's package is not
@@ -39,6 +57,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -64,9 +83,10 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of ``fn`` over ``reps`` calls (CUDA events), after
-    one warm-up call."""
+def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Median device time of ``fn`` over ``reps`` timings of ``inner``
+    back-to-back calls each (CUDA events), per call, after one warm-up
+    call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -74,10 +94,11 @@ def cuda_ms(fn, reps: int = 5) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -97,19 +118,17 @@ def labels(x: np.ndarray) -> np.ndarray:
     return (x[:, 0] + 0.3 * x[:, 1] > 0).astype(np.int32)
 
 
-def profile_round(loop, cfg, bundle, dev, label: str) -> None:
+def profile_round(loop, cfg, bundle, dev, label: str, devices=None) -> None:
     """One main-path round under torch.profiler: device time by kernel and
     the device's busy share of the round's wall time."""
-    import dataclasses
-
     from torch.profiler import ProfilerActivity, profile
 
     one = dataclasses.replace(cfg, max_rounds=1)
-    loop.run_experiment(one, bundle=bundle, device=dev)  # warm
+    loop.run_experiment(one, bundle=bundle, device=dev, devices=devices)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        loop.run_experiment(one, bundle=bundle, device=dev)
+        loop.run_experiment(one, bundle=bundle, device=dev, devices=devices)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []
@@ -145,12 +164,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distributed_active_learning_tpu_torch import kernels, prng
     from distributed_active_learning_tpu_torch.config import (
-        DataConfig, ExperimentConfig, ForestConfig, StrategyConfig,
+        DataConfig, ExperimentConfig, ForestConfig, MeshConfig, StrategyConfig,
     )
     from distributed_active_learning_tpu_torch.data.datasets import DataBundle
     from distributed_active_learning_tpu_torch.device import resolve_device
-    from distributed_active_learning_tpu_torch.ops import round_fused, trees_pallas, trees_train
-    from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk
+    from distributed_active_learning_tpu_torch.ops import (
+        ring_topk, round_fused, trees_pallas, trees_train,
+    )
+    from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk, stable_top_k
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
     from distributed_active_learning_tpu_torch.runtime import loop
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
 
@@ -203,6 +225,20 @@ def main() -> int:
         k1_err = max(k1_err, float((got - ref).abs().max()))
         print(f"# forest_leaves {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain")
 
+    # -- phase 2b: K3 against its plain version ----------------------------
+    n_shard = -(-N_POOL // 4)  # one data shard of the 4 x 2 mesh (284,808 / 4)
+    gf_shard = mesh_lib.shard_forest(gf, mesh_lib.make_mesh(1, 2, devices=[dev, dev]))[0][0]
+    k3_shapes = {"full": (gf, pool), "shard": (gf_shard, pool[:n_shard]),
+                 "ragged": (gf13, pool[:1700])}
+    for label, (g, x) in k3_shapes.items():
+        got = round_fused.fused_votes(g, x)
+        ref = round_fused.fused_votes_plain(g, x)
+        torch.cuda.synchronize()
+        if got.dtype != torch.int32 or not torch.equal(got, ref):
+            fail(f"fused_votes != plain at {label} n={x.shape[0]} T={g.n_trees}")
+        print(f"# fused_votes {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain")
+    k3_err = 0.0  # integer votes, compared for equality above
+
     # -- phase 3: the megakernel against its plain version -----------------
     labeled = torch.zeros(N_POOL, dtype=torch.bool)
     labeled[torch.from_numpy(rng.choice(N_POOL, size=N_START, replace=False))] = True
@@ -224,47 +260,113 @@ def main() -> int:
         k2_err = max(k2_err, float(torch.where(finite, tv - pv, 0.0).abs().max()))
         print(f"# round_megakernel {strategy}: per-tile (vals, idx) bit-equal to plain")
 
+    # -- phase 3b: K4 and the ring -----------------------------------------
+    def ring_windows(devs, scores, sel):
+        n_local = scores.shape[0] // len(devs)
+        out = []
+        for s_, d_ in enumerate(devs):
+            blk = slice(s_ * n_local, (s_ + 1) * n_local)
+            work = torch.where(sel[blk], scores[blk], float("-inf"))
+            v, i = stable_top_k(work, min(WINDOW, n_local))
+            out.append(ring_topk.pad_window(v.to(d_), (i + s_ * n_local).to(torch.int32).to(d_),
+                                            WINDOW))
+        return out
+
+    def check_ring(devs, label):
+        # Hard-vote scores tie everywhere: 101 levels over 4 x 71,202 rows.
+        g = torch.Generator().manual_seed(args.seed)
+        scores = torch.randint(0, TREES + 1, (4 * n_shard,), generator=g).float() / TREES
+        sel = torch.rand(4 * n_shard, generator=g) < 0.9
+        windows = ring_windows(devs, scores, sel)
+        for s_, (v, i) in enumerate(windows):
+            right = devs[(s_ + 1) % len(devs)]
+            hv, hi = ring_topk.hop(v, i, right)
+            pv, pi = ring_topk.hop_plain(v, i, right)
+            torch.cuda.synchronize()
+            if not (torch.equal(hv, pv) and torch.equal(hi, pi)):
+                fail(f"ring_hop != plain copy ({label}, shard {s_})")
+        want_v, want_i = stable_top_k(torch.where(sel, scores, float("-inf")), WINDOW)
+        for s_, (v, i) in enumerate(ring_topk.ring_topk(windows, WINDOW)):
+            if not (torch.equal(v.cpu(), want_v) and torch.equal(i.cpu().long(), want_i)):
+                fail(f"ring_topk != global stable top-k ({label}, shard {s_})")
+        print(f"# ring_hop {label}: every hop bit-equal to its copy; ring_topk (k={WINDOW}) "
+              "== global stable top-k on every shard")
+        return windows
+
+    ring_dev = [dev] * 4
+    hop_windows = check_ring(ring_dev, "4 shards on one card")
+    k4_err = 0.0  # copies, compared for equality above
+    if torch.cuda.device_count() >= 2:
+        two = [torch.device("cuda", 0), torch.device("cuda", 1)] * 2
+        mesh_lib.make_mesh(4, 1, devices=two)  # enables peer access on the ring
+        check_ring(two, "4 shards on two cards (peer stores)")
+        peer_run = True
+    else:
+        print("# ring_hop across two cards: NOT RUN (one card visible); the peer path "
+              "is unverified here")
+        peer_run = False
+
     # -- phase 4: the main path ------------------------------------------
     bundle = DataBundle(
         train_x=pool_np, train_y=labels(pool_np), test_x=test_np, test_y=labels(test_np),
         name="bench_pool",
     )
 
-    def cfg(fused: bool) -> ExperimentConfig:
+    def cfg(fused: bool, mesh=(1, 1)) -> ExperimentConfig:
         return ExperimentConfig(
             forest=ForestConfig(n_trees=TREES, max_depth=DEPTH, max_bins=BINS,
                                 fit="device", kernel="pallas"),
             strategy=StrategyConfig(name="uncertainty", window_size=WINDOW),
+            mesh=MeshConfig(*mesh),
             n_start=N_START, max_rounds=ROUNDS, fused_round=fused, seed=args.seed,
         )
 
-    # Each path's launches are counted from 0 over its own run: the fused
-    # round launches the megakernel to score and the leaf kernel for test
-    # accuracy; the unfused round launches the leaf kernel for both.
+    def counts():
+        return {"forest_leaves": trees_pallas.launches, "round_megakernel": round_fused.launches,
+                "fused_votes": round_fused.votes_launches, "ring_hop": ring_topk.launches}
+
+    def zero_counts():
+        trees_pallas.launches = round_fused.launches = 0
+        round_fused.votes_launches = ring_topk.launches = 0
+
+    # Each path's launches are counted from 0 over its own run. Single
+    # device: the fused round launches K2 to score and K1 for test accuracy,
+    # the unfused round K1 for both. Mesh 4 x 2: the fused round launches K3
+    # on each of the 8 shards, 4 x 3 ring hops and K1 per shard for accuracy;
+    # the unfused round K1 per shard to score and again for accuracy.
     want_launches = {
-        "fused": {"forest_leaves": ROUNDS, "round_megakernel": ROUNDS},
-        "unfused": {"forest_leaves": 2 * ROUNDS, "round_megakernel": 0},
+        "fused": {"forest_leaves": ROUNDS, "round_megakernel": ROUNDS,
+                  "fused_votes": 0, "ring_hop": 0},
+        "unfused": {"forest_leaves": 2 * ROUNDS, "round_megakernel": 0,
+                    "fused_votes": 0, "ring_hop": 0},
+        "mesh_fused": {"forest_leaves": 8 * ROUNDS, "round_megakernel": 0,
+                       "fused_votes": 8 * ROUNDS, "ring_hop": 12 * ROUNDS},
+        "mesh_unfused": {"forest_leaves": 16 * ROUNDS, "round_megakernel": 0,
+                         "fused_votes": 0, "ring_hop": 0},
     }
     launches = {}
     runs = {}
-    for fused in (True, False):
-        path = "fused" if fused else "unfused"
+
+    def drive(path: str, fused: bool, mesh=(1, 1), devices=None):
         dbg = Debugger(enabled=False)
-        trees_pallas.launches = 0
-        round_fused.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
-        res = loop.run_experiment(cfg(fused), bundle=bundle, debugger=dbg, device=dev)
+        res = loop.run_experiment(cfg(fused, mesh), bundle=bundle, debugger=dbg, device=dev,
+                                  devices=devices)
         wall = time.perf_counter() - t0
-        launches[path] = {"forest_leaves": trees_pallas.launches,
-                          "round_megakernel": round_fused.launches}
-        runs[fused] = res
+        launches[path] = counts()
+        runs[path] = res
         print(f"# main path {path}: {wall:.2f}s wall, launches {launches[path]}")
         if launches[path] != want_launches[path]:
             fail(f"main path {path} launched {launches[path]}, want {want_launches[path]}")
         for r in res.records:
             print(f"#   round {r.round}: n_labeled={r.n_labeled} accuracy={r.accuracy:.6f} "
                   f"fit={r.train_time:.4f}s round={r.score_time:.4f}s eval={r.eval_time:.4f}s")
-    recs = {f: [(r.round, r.n_labeled, r.accuracy) for r in runs[f].records] for f in runs}
+
+    for fused in (True, False):
+        drive("fused" if fused else "unfused", fused)
+    recs = {f: [(r.round, r.n_labeled, r.accuracy) for r in runs["fused" if f else "unfused"].records]
+            for f in (True, False)}
     if recs[True] != recs[False]:
         fail(f"fused and unfused records differ: {recs[True]} vs {recs[False]}")
     want = [N_START + i * WINDOW for i in range(ROUNDS)]
@@ -272,7 +374,7 @@ def main() -> int:
         fail(f"n_labeled {[r[1] for r in recs[True]]} != {want}")
     if not all(np.isfinite(r[2]) and 0.0 <= r[2] <= 1.0 for r in recs[True]):
         fail("accuracy records are not finite fractions")
-    masks = {f: runs[f].final_labeled_mask for f in runs}
+    masks = {f: runs["fused" if f else "unfused"].final_labeled_mask for f in (True, False)}
     n_final = N_START + ROUNDS * WINDOW
     if not torch.equal(masks[True], masks[False]) or int(masks[True].sum()) != n_final:
         fail(f"fused and unfused final labeled masks differ or do not hold {n_final} rows")
@@ -290,6 +392,43 @@ def main() -> int:
     if on_card != on_cpu:
         fail(f"small run on the card != plain CPU run:\n{on_card}\n{on_cpu}")
     print("# small checkerboard run: card == CPU plain versions")
+
+    # -- phase 4b: the mesh path -------------------------------------------
+    one_card = [dev] * 8
+    for fused in (True, False):
+        path = "mesh_fused" if fused else "mesh_unfused"
+        drive(path, fused, mesh=(4, 2), devices=one_card)
+        got = [(r.round, r.n_labeled, r.accuracy) for r in runs[path].records]
+        if got != recs[True]:
+            fail(f"{path} records differ from the single-device run: {got} vs {recs[True]}")
+        if not torch.equal(runs[path].final_labeled_mask, masks[True]):
+            fail(f"{path} final labeled mask differs from the single-device run")
+    print("# mesh 4 x 2 on one card: fused and unfused == single device (records and final "
+          f"{N_POOL}-row mask)")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        # The same mesh spread over the visible cards, shard (s, m) on card
+        # (s + m) mod n: ring hops and model-shard sums cross cards.
+        spread = [torch.device("cuda", (s_ + m) % n_cards) for s_ in range(4) for m in range(2)]
+        for fused in (True, False):
+            path = "mesh_cards_fused" if fused else "mesh_cards_unfused"
+            want_launches[path] = want_launches["mesh_fused" if fused else "mesh_unfused"]
+            drive(path, fused, mesh=(4, 2), devices=spread)
+            got = [(r.round, r.n_labeled, r.accuracy) for r in runs[path].records]
+            if got != recs[True] or not torch.equal(
+                    runs[path].final_labeled_mask.to(dev), masks[True]):
+                fail(f"{path} differs from the single-device run")
+        print(f"# mesh 4 x 2 across {n_cards} cards: fused and unfused == single device")
+    else:
+        print("# mesh 4 x 2 across cards: NOT RUN (one card visible)")
+    small_mesh = dataclasses.replace(small, mesh=MeshConfig(4, 2), fused_round=True)
+    for fused in (True, False):
+        c = dataclasses.replace(small_mesh, fused_round=fused)
+        on_card = loop.run_experiment(c, device=dev, devices=one_card).to_reference_log()
+        on_cpu = loop.run_experiment(c, device="cpu").to_reference_log()
+        if on_card != on_cpu:
+            fail(f"small mesh run (fused={fused}) on the card != CPU mesh:\n{on_card}\n{on_cpu}")
+    print("# small checkerboard mesh run 4 x 2: card == CPU plain versions, fused and unfused")
 
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
@@ -315,8 +454,35 @@ def main() -> int:
                                      ("round_megakernel", k2_ms, k2_plain, k2_bound, k2_by)):
         print(f"# time {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain, bound {lim:.4f} ms "
               f"by {by} ({100 * lim / ms:.3f}% of it; {kind}, {smi})")
+    # K3 at the mesh's per-shard shape (its main path: 71,202 rows x 50
+    # trees) and at the full width; its least work is the walk and the vote
+    # per (row, tree), its bytes the rows, the forest and [n] int32 votes.
+    k3 = {}
+    for label, (g, x) in (("shard", (gf_shard, pool[:n_shard].contiguous())),
+                          ("full", (gf, x_full))):
+        o = trees_pallas.forest_operands(g)
+        ms = cuda_ms(lambda: round_fused._launch_votes(o, x))
+        plain = cuda_ms(lambda: round_fused.fused_votes_plain(g, x), reps=3)
+        o_bytes = nbytes(o.feat, o.thr, o.plus, o.minus, o.tgt, o.val)
+        lim, by = bound(nbytes(x) + o_bytes + 4 * x.shape[0], x.shape[0] * g.n_trees * (depth + 1))
+        k3[label] = (ms, plain, lim, by)
+        print(f"# time fused_votes {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel, "
+              f"{plain:.4f} ms plain, bound {lim:.4f} ms by {by} ({100 * lim / ms:.3f}% of it; "
+              f"{kind}, {smi})")
+    # K4: one hop of a k = 100 window (800 bytes read, 800 written) between
+    # two shards on the card, timed over 100 back-to-back hops; the library
+    # yardstick is Tensor.copy_ of the same window into buffers there.
+    hv, hi = hop_windows[0]
+    k4_ms = cuda_ms(lambda: ring_topk._launch_hop(hv, hi, dev), inner=100)
+    k4_plain = cuda_ms(lambda: ring_topk.hop_plain(hv, hi, dev), inner=100)
+    dst_v, dst_i = torch.empty_like(hv), torch.empty_like(hi)
+    k4_lib = cuda_ms(lambda: (dst_v.copy_(hv), dst_i.copy_(hi)), inner=100)
+    k4_bound, k4_by = bound(2 * nbytes(hv, hi), 0)
+    print(f"# time ring_hop (k={WINDOW}): {k4_ms:.4f} ms kernel, {k4_plain:.4f} ms plain, "
+          f"{k4_lib:.4f} ms Tensor.copy_, bound {k4_bound:.7f} ms by {k4_by} ({kind}, {smi})")
     for fused in (True, False):
         profile_round(loop, cfg(fused), bundle, dev, "fused" if fused else "unfused")
+    profile_round(loop, cfg(True, (4, 2)), bundle, dev, "mesh 4 x 2 fused", devices=one_card)
     print(f"# total {time.perf_counter() - t_all:.1f}s")
 
     pkg = "distributed_active_learning_tpu_torch/csrc"
@@ -333,6 +499,20 @@ def main() -> int:
          "launches_by_path": {p: launches[p]["round_megakernel"] for p in launches},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "fused_votes", "route": "cuda", "source": f"{pkg}/fused_votes.cu",
+         "replaces": "distributed_active_learning_tpu/ops/round_fused.py:286",
+         "launches": launches["mesh_fused"]["fused_votes"],
+         "launches_by_path": {p: launches[p]["fused_votes"] for p in launches},
+         "max_abs_err": k3_err, "ms": k3["shard"][0], "plain_ms": k3["shard"][1],
+         "bound_ms": k3["shard"][2], "bound_by": k3["shard"][3], "library_ms": None,
+         "full_width": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), k3["full"]))},
+        {"name": "ring_hop", "route": "cuda", "source": f"{pkg}/ring_hop.cu",
+         "replaces": "distributed_active_learning_tpu/ops/ring_topk.py:109",
+         "launches": launches["mesh_fused"]["ring_hop"],
+         "launches_by_path": {p: launches[p]["ring_hop"] for p in launches},
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib,
+         "peer_path_run": peer_run},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

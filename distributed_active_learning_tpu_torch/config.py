@@ -81,7 +81,8 @@ class ScenarioConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout; only the 1 x 1 single-device layout is ported."""
+    """Device mesh layout: pool rows over ``data``, trees over ``model``
+    (``parallel/``)."""
 
     data: int = 1
     model: int = 1

@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("forest_leaves", "round_megakernel")
+SOURCES = ("forest_leaves", "round_megakernel", "fused_votes", "ring_hop")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -34,10 +34,15 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures (argument types) of the entry points, one per source.
+# C signatures (argument types) of each source's entry points; the first is
+# named after the source.
 _SIGNATURES = {
-    "forest_leaves": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    "round_megakernel": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+    "forest_leaves": {"forest_leaves": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
+    "round_megakernel": {
+        "round_megakernel": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+    },
+    "fused_votes": {"fused_votes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
+    "ring_hop": {"ring_hop": [_P, _P, _P, _P, _I, _P], "ring_hop_enable_peer": [_I, _I]},
 }
 
 _lock = threading.Lock()
@@ -113,9 +118,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _loaded:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn = getattr(lib, name)
-            fn.argtypes = _SIGNATURES[name]
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _loaded[name] = lib
         return _loaded[name]
 

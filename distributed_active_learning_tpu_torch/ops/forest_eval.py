@@ -3,8 +3,9 @@
 The forest's wrapper type selects the implementation, so the kernel choice
 is a config knob (``ForestConfig.kernel``), not a code path:
 :class:`~.trees_gemm.GemmForest` takes the plain path-matrix form,
-:class:`~.trees_pallas.PallasForest` the hand-written leaf kernel. The
-gather form (``PackedForest``) is not ported yet.
+:class:`~.trees_pallas.PallasForest` the hand-written leaf kernel, and
+:class:`~.trees_pallas.ShardedPallasForest` that kernel once per shard of a
+device mesh. The gather form (``PackedForest``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,20 +16,21 @@ import torch
 
 from distributed_active_learning_tpu_torch.ops import trees_gemm, trees_pallas
 
-Forest = Union[trees_gemm.GemmForest, trees_pallas.PallasForest]
+Forest = Union[trees_gemm.GemmForest, trees_pallas.PallasForest, trees_pallas.ShardedPallasForest]
 
 # Deepest forest converted to path-matrix form (the JAX package's limit).
 _GEMM_MAX_DEPTH = 10
 
 
 def _kind(forest) -> str:
-    if isinstance(forest, trees_pallas.PallasForest):
+    if isinstance(forest, (trees_pallas.PallasForest, trees_pallas.ShardedPallasForest)):
         return "pallas"
     if isinstance(forest, trees_gemm.GemmForest):
         return "gemm"
     raise TypeError(
         f"unsupported forest {type(forest).__name__}: the port evaluates "
-        "GemmForest and PallasForest (the gather form is not ported yet)"
+        "GemmForest, PallasForest and ShardedPallasForest (the gather form is "
+        "not ported yet)"
     )
 
 

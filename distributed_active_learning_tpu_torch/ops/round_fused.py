@@ -11,6 +11,12 @@ in one pass over the pool (the port of ``ops/round_fused.py``).
   tile).
 - ``GemmForest`` (and pallas forests past the tile limits):
   :func:`_xla_streamed`, the exact gemm tile body per row tile.
+- ``ShardedPallasForest`` (a device mesh): :func:`_sharded_score_select`.
+  Each (data, model) shard counts its tree shard's votes on its row block
+  with ``csrc/fused_votes.cu`` (K3, replacing the Pallas ``_votes_kernel``),
+  a sum over ``model`` completes them, each data shard scores its block and
+  keeps its stable top-k window, and the windows merge on the data ring
+  (``ops/ring_topk.py``, K4 per hop).
 
 The merge is exact for any tile width as long as each tile gives its
 ``min(k, tile rows)`` best in (value descending, index ascending) order, so
@@ -31,13 +37,24 @@ from typing import Dict, Tuple
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
-from distributed_active_learning_tpu_torch.ops import scoring, trees_pallas
+from distributed_active_learning_tpu_torch.ops import ring_topk, scoring, trees_pallas
 from distributed_active_learning_tpu_torch.ops.topk import NEG_INF, merge_tile_topk, stable_top_k
-from distributed_active_learning_tpu_torch.ops.trees_gemm import GemmForest, _predict_chunk
-from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest
+from distributed_active_learning_tpu_torch.ops.trees_gemm import (
+    GemmForest,
+    _predict_chunk,
+    predict_leaves_gemm,
+)
+from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest, ShardedPallasForest
+from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+from distributed_active_learning_tpu_torch.parallel.collectives import vector_accumulate
+from distributed_active_learning_tpu_torch.parallel.kernels import join_blocks, per_shard
 
 # Launches of csrc/round_megakernel.cu, counted where the kernel is launched.
 launches = 0
+# Launches of csrc/fused_votes.cu (K3), counted where the kernel is launched.
+votes_launches = 0
+# K3 calls routed to the gemm form because the forest exceeds the tile limits.
+votes_gemm_route_calls = 0
 # Calls routed to the gemm stream (gemm forests, or past the tile limits).
 stream_route_calls = 0
 
@@ -59,13 +76,12 @@ def supports(strategy_name: str) -> bool:
 
 
 def _score_from_votes(votes_f32: torch.Tensor, n_trees: int, strategy_name: str):
-    """Vote counts -> directed score: ``p = votes / T`` (f32, in the JAX
-    package's reciprocal form, :func:`.scoring.div_const`), the strategy's
-    scoring function, negated for ascending strategies so every caller
-    maximizes."""
+    """Vote counts -> directed score: ``p = votes / T`` as a
+    :class:`.scoring.VoteFraction` (the unfused strategies' spelling), the
+    strategy's scoring function, negated for ascending strategies so every
+    caller maximizes."""
     score_fn, higher = FUSED_STRATEGIES[strategy_name]
-    p = scoring.div_const(votes_f32, n_trees)
-    s = score_fn(p)
+    s = score_fn(scoring.VoteFraction(votes_f32, n_trees))
     return (s if higher else -s), higher
 
 
@@ -179,6 +195,93 @@ def _megakernel(forest: PallasForest, x, selectable, strategy_name: str, k: int)
     raise ValueError(f"unsupported device {x.device}")
 
 
+def fused_votes_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K3: ``[n]`` int32 hard votes from the
+    plain K1 leaves."""
+    return (trees_pallas.predict_leaves_plain(gf, x) > 0.5).sum(dim=1, dtype=torch.int32)
+
+
+def _launch_votes(ops, x: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/fused_votes.cu: ``[n]`` int32 hard votes."""
+    global votes_launches
+    x = trees_pallas._check_x(x, ops)
+    n, d = x.shape
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    lib = kernels.load("fused_votes")
+    with torch.cuda.device(x.device):
+        err = lib.fused_votes(
+            x.data_ptr(), n, d,
+            ops.feat.data_ptr(), ops.thr.data_ptr(), ops.plus.data_ptr(), ops.minus.data_ptr(),
+            ops.tgt.data_ptr(), ops.val.data_ptr(), ops.feat.shape[0], ops.i_pad, ops.n_leaves,
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check("fused_votes", err)
+    votes_launches += 1
+    return out
+
+
+def fused_votes(forest, x: torch.Tensor) -> torch.Tensor:
+    """Hard vote counts ``[n]`` int32 of a :class:`PallasForest` (or a bare
+    :class:`GemmForest`) without the ``[n, T]`` leaf matrix: K3 for a CUDA
+    tensor, its plain version for a CPU one, and past the tile limits the
+    JAX package's named branch, the exact gemm eval (votes are integers, so
+    every route agrees bit for bit)."""
+    global votes_gemm_route_calls
+    gf = forest.gf if isinstance(forest, PallasForest) else forest
+    n, d = x.shape
+    if trees_pallas.tile_dims(gf, n, d) is None:
+        votes_gemm_route_calls += 1
+        return (predict_leaves_gemm(gf, x) > 0.5).sum(dim=1, dtype=torch.int32)
+    if x.device.type == "cuda":
+        return _launch_votes(trees_pallas.operands_of(forest), x)
+    if x.device.type == "cpu":
+        return fused_votes_plain(gf, x)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def _vote_blocks(f: ShardedPallasForest, x):
+    """K3 on each (row block, tree shard), one sum over ``model`` per row
+    block: the votes of each data shard on its first device, and the
+    logical row count."""
+    grid, n = per_shard(f, x, fused_votes)
+    return [vector_accumulate(row) for row in grid], n
+
+
+def _sharded_fused_votes(f: ShardedPallasForest, x) -> torch.Tensor:
+    """Global vote counts ``[n]`` on the mesh's first device, the blocks
+    joined in shard order."""
+    blocks, n = _vote_blocks(f, x)
+    return join_blocks(blocks, f.mesh, n)
+
+
+def _sharded_score_select(f: ShardedPallasForest, x, selectable, strategy_name: str, k: int):
+    """Fully distributed fused selection: per-shard K3 votes, one sum over
+    ``model``, then per data shard the score (the strategy's table), the
+    masked stable top-``min(k, n_local)`` of its block with global indices,
+    ``pad_window`` to ``k`` rows, and the ring merge over ``data``.
+
+    In the JAX package every model column runs its own ring, because
+    ``out_specs=P()`` replicates the result on every device; the port needs
+    the result once, so one ring runs, over model column 0's devices.
+    Returns DIRECTED ``(vals [k], idx [k])`` on the mesh's first device.
+    The blocks are contiguous index ranges in shard order, so the result
+    equals the stable top-k of the global masked score vector, ties and the
+    ``(-inf, IDX_SENTINEL)`` tail included.
+    """
+    sel = mesh_lib.shard_rows(selectable, f.mesh)  # pads False: unselectable
+    blocks, _ = _vote_blocks(f, x)
+    n_local = sel.n_local
+    kk = min(k, n_local)
+    table = score_table(f.n_trees, strategy_name, f.mesh.first)
+    windows = []
+    for s, votes in enumerate(blocks):
+        work = torch.where(sel.block(s), table.to(votes.device)[votes.long()], NEG_INF)
+        loc_v, loc_i = stable_top_k(work, kk)
+        glob_i = (loc_i + s * n_local).to(torch.int32)
+        windows.append(ring_topk.pad_window(loc_v, glob_i, k))
+    return ring_topk.ring_topk(windows, k)[0]
+
+
 def fused_score_select(
     forest, x: torch.Tensor, selectable_mask: torch.Tensor, strategy_name: str, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,6 +294,9 @@ def fused_score_select(
             f"{sorted(FUSED_STRATEGIES)}"
         )
     _, higher = FUSED_STRATEGIES[strategy_name]
+    if isinstance(forest, ShardedPallasForest):
+        vals, idx = _sharded_score_select(forest, x, selectable_mask, strategy_name, k)
+        return (vals, idx) if higher else (-vals, idx)
     gf = forest.gf if isinstance(forest, PallasForest) else forest
     if not isinstance(gf, GemmForest):
         raise TypeError(

@@ -61,7 +61,7 @@ def tree_mean(leaves: torch.Tensor) -> torch.Tensor:
     """Mean over the tree axis of ``[n, T]`` leaves: trees summed in
     ascending order (a fixed order, so CPU and CUDA give the same bits), then
     divided by T in the JAX package's reciprocal form."""
-    from distributed_active_learning_tpu_torch.ops.scoring import div_const
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const
 
     acc = leaves[:, 0].clone()
     for t in range(1, leaves.shape[1]):

@@ -20,6 +20,9 @@ Routes, each with its own counter:
   package's. That route compares in f32, so it is a named branch, not a
   silent fallback: no configuration of the main path (depth 8, d = 30)
   reaches it.
+
+On a device mesh a :class:`ShardedPallasForest` launches the kernel once per
+(data, model) shard, each on its own device (:func:`_predict_leaves_sharded`).
 """
 
 from __future__ import annotations
@@ -60,6 +63,37 @@ class PallasForest:
     @functools.cached_property
     def operands(self) -> "KernelOperands":
         return forest_operands(self.gf)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPallasForest:
+    """Mesh-aware twin of :class:`PallasForest`: ``shards[s][m]`` is model
+    shard ``m``'s trees on ``mesh.devices[s][m]`` (``parallel.mesh.
+    shard_forest``), and evaluation launches the kernel per shard on the
+    shard's row block, as the JAX package's ``shard_map`` does."""
+
+    shards: tuple
+    mesh: object
+
+    @property
+    def n_trees(self) -> int:
+        return sum(f.n_trees for f in self.shards[0])
+
+
+def attach_mesh(forest, mesh):
+    """Wrap pallas forests for per-shard evaluation on ``mesh``: a
+    ``[data][model]`` grid from ``parallel.mesh.shard_forest``, a global
+    :class:`PallasForest` (sharded here), or a :class:`ShardedPallasForest`
+    (re-wrapped); other forests pass through untouched."""
+    from distributed_active_learning_tpu_torch.parallel.mesh import shard_forest
+
+    if isinstance(forest, ShardedPallasForest):
+        return ShardedPallasForest(shards=forest.shards, mesh=mesh)
+    if isinstance(forest, PallasForest):
+        forest = shard_forest(forest, mesh)
+    if isinstance(forest, tuple) and isinstance(forest[0][0], PallasForest):
+        return ShardedPallasForest(shards=forest, mesh=mesh)
+    return forest
 
 
 # The JAX package's tile limits, kept so both packages route the same
@@ -220,7 +254,24 @@ def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported device {x.device}")
 
 
+def _predict_leaves_sharded(f: ShardedPallasForest, x) -> torch.Tensor:
+    """``[n, T]`` leaves on the mesh's first device, one kernel launch per
+    (data, model) shard. Each row block's model shards are joined in tree
+    order before the blocks are joined in row order, so a reduction over
+    trees afterwards (``proba``) adds in the single-device order and gives
+    its bits. ``x`` is a row-sharded pool or a plain tensor (the test set),
+    padded to the data axis here and cut back."""
+    from distributed_active_learning_tpu_torch.parallel.kernels import per_shard
+
+    grid, n = per_shard(f, x, predict_leaves_pallas)
+    first = f.mesh.first
+    rows = [torch.cat([leaves.to(row[0].device) for leaves in row], dim=1) for row in grid]
+    return torch.cat([r.to(first) for r in rows])[:n]
+
+
 def predict_leaves(f, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(f, ShardedPallasForest):
+        return _predict_leaves_sharded(f, x)
     return predict_leaves_pallas(f, x)
 
 
@@ -229,4 +280,8 @@ def predict_proba(f, x: torch.Tensor) -> torch.Tensor:
 
 
 def predict_votes(f, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(f, ShardedPallasForest):
+        from distributed_active_learning_tpu_torch.parallel.kernels import sharded_votes
+
+        return sharded_votes(f.mesh)(f, x)
     return (predict_leaves(f, x) > 0.5).sum(dim=1, dtype=torch.int32)

@@ -32,6 +32,7 @@ import torch
 
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.ops.trees_gemm import GemmForest
+from distributed_active_learning_tpu_torch.ops.xla_f32 import fma_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,34 +43,11 @@ class BinnedPool:
     codes: torch.Tensor  # [n, d] int32
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32, as a fused multiply-add.
-
-    The JAX package's ``jnp.quantile`` ends in ``low * w_low + high * w_high``
-    and XLA contracts that into one FMA, so an edge is
-    ``fma(low, w_low, high * w_high)``. In float64 the product is exact; the
-    sum is rounded to float64 and then to float32, which differs from one
-    rounding only when the float64 sum lands exactly halfway between two
-    float32 values; that case is resolved by the sign of the float64 sum's
-    exact error term (TwoSum).
-    """
-    p = a.double() * b.double()
-    cd = c.double()
-    r = p + cd
-    bv = r - p
-    err = (p - (r - bv)) + (cd - bv)
-    r32 = r.float()
-    toward = torch.where(r > r32.double(), torch.full_like(r32, math.inf), torch.full_like(r32, -math.inf))
-    other = torch.nextafter(r32, toward)
-    midpoint = (r32.double() + other.double()) * 0.5 == r
-    pick_other = midpoint & (((err > 0) & (other > r32)) | ((err < 0) & (other < r32)))
-    return torch.where(pick_other, other, r32)
-
-
 def _quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """``jnp.quantile(x, qs, axis=0)`` with method "linear", written out
     (``torch.quantile`` interpolates with ``lerp``, which rounds differently):
-    sort, ``q * (n - 1)``, floor and ceil, then the FMA-contracted blend."""
+    sort, ``q * (n - 1)``, floor and ceil, then the blend
+    ``low * w_low + high * w_high``, which XLA contracts into one FMA."""
     n = x.shape[0]
     s, _ = torch.sort(x, dim=0)
     q = qs * float(n - 1)
@@ -81,7 +59,7 @@ def _quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     high_i = torch.clamp(high, 0, n - 1).long()
     low_v = s[low_i]    # [Q, d]
     high_v = s[high_i]
-    return _fma_f32(low_v, low_w[:, None].expand_as(low_v), high_v * high_w[:, None])
+    return fma_f32(low_v, low_w[:, None].expand_as(low_v), high_v * high_w[:, None])
 
 
 def make_bins(x: torch.Tensor, n_bins: int = 32, quantize: str = "none") -> BinnedPool:
@@ -303,3 +281,28 @@ def gather_fit_window(
     idx = idx[:budget]
     sel = torch.arange(budget, device=dev) < n_labeled
     return codes[idx], y[idx], sel.to(torch.float32)
+
+
+def gather_fit_window_sharded(codes, y, labeled, n_valid: int, budget: int):
+    """:func:`gather_fit_window` over a row-sharded pool (``Sharded`` codes,
+    labels and labeled mask; rows past ``n_valid`` are padding and never
+    enter): each data shard's labeled rows, in index order, move to the
+    mesh's first device, and the shards are joined in shard order, which is
+    global index order. The window, unfilled slots included (global row 0 at
+    weight 0), equals the single-device window bit for bit."""
+    dev = codes.device
+    n_local = codes.n_local
+    parts_c, parts_y = [], []
+    for s in range(len(codes.blocks)):
+        m = labeled.block(s)
+        m = m & (torch.arange(s * n_local, (s + 1) * n_local, device=m.device) < n_valid)
+        parts_c.append(codes.block(s)[m].to(dev))
+        parts_y.append(y.block(s)[m].to(dev))
+    c = torch.cat(parts_c)
+    yy = torch.cat(parts_y)
+    n_labeled = c.shape[0]
+    fill = max(budget - n_labeled, 0)
+    c = torch.cat([c[:budget], codes.block(0)[:1].to(dev).expand(fill, -1)])
+    yy = torch.cat([yy[:budget], y.block(0)[:1].to(dev).expand(fill)])
+    sel = torch.arange(budget, device=dev) < n_labeled
+    return c, yy, sel.to(torch.float32)

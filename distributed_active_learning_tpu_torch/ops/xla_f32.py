@@ -1,0 +1,108 @@
+"""float32 arithmetic as the JAX package's CPU code computes it.
+
+XLA's CPU code is not IEEE arithmetic operation by operation, and the port's
+results must equal the JAX package's bit for bit, so three of its habits are
+written out here:
+
+- a division by a constant becomes a multiplication by the constant's
+  float32 reciprocal (:func:`div_const`);
+- LLVM contracts a multiply followed by an add into one fused multiply-add
+  (:func:`fma_f32`, exact in float64 with a TwoSum correction);
+- ``log`` is XLA's own float32 polynomial (Cephes' ``logf``, with its FMAs),
+  not the C library's, and ``log2(x)`` is ``log(x) * f32(1 / ln 2)``
+  (:func:`log_f32`, :func:`log2_f32`).
+
+Each spelling was found by holding the jitted JAX expression against the
+candidates over every input the port feeds it (``tests/test_torch_scoring.py``
+checks the score tables for every tree count from 1 to 256). Every function
+works on any device: the card computes the same bits as the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+
+def div_const(x: torch.Tensor, c) -> torch.Tensor:
+    """``x / c`` for a constant ``c``: ``x * f32(1 / c)``, which differs from
+    a true division in the last place when ``1/c`` is inexact (e.g. 13)."""
+    return x * recip_f32(c)
+
+
+def recip_f32(c) -> float:
+    """The float32 reciprocal XLA folds a division by ``c`` into."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add.
+
+    In float64 the product of two float32 values is exact; the sum is
+    rounded to float64 and then to float32, which differs from one rounding
+    only when the float64 sum lands exactly halfway between two float32
+    values; that case is resolved by the sign of the float64 sum's exact
+    error term (TwoSum). Python numbers broadcast against the tensors.
+    """
+    ref = next(t for t in (a, b, c) if torch.is_tensor(t))
+    a, b, c = (t if torch.is_tensor(t) else torch.tensor(t, dtype=torch.float32, device=ref.device)
+               for t in (a, b, c))
+    a, b, c = torch.broadcast_tensors(a, b, c)
+    p = a.double() * b.double()
+    cd = c.double()
+    r = p + cd
+    bv = r - p
+    err = (p - (r - bv)) + (cd - bv)
+    r32 = r.float()
+    toward = torch.where(r > r32.double(), torch.full_like(r32, math.inf), torch.full_like(r32, -math.inf))
+    other = torch.nextafter(r32, toward)
+    midpoint = (r32.double() + other.double()) * 0.5 == r
+    pick_other = midpoint & (((err > 0) & (other > r32)) | ((err < 0) & (other < r32)))
+    return torch.where(pick_other, other, r32)
+
+
+# Cephes' logf coefficients, as XLA's CPU code carries them.
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+_LOG_Q1 = -2.12194440e-4
+_LOG_Q2 = 0.693359375
+_SQRT_HALF = 0.707106781186547524
+_MIN_NORMAL = float(np.float32(2.0) ** -126)
+_INV_LN2 = float(np.float32(1.0 / math.log(2.0)))
+
+
+def log_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log``: split ``x = m * 2^e`` with ``m`` in
+    ``[sqrt(1/2), sqrt(2))``, a degree-9 polynomial in ``t = m - 1`` evaluated
+    with FMAs, and ``e * ln 2`` added in two parts. Subnormals are flushed to
+    the smallest normal; 0 gives -inf, negatives and NaN give NaN, +inf
+    gives +inf."""
+    x = x.to(torch.float32)
+    xc = torch.clamp_min(x, _MIN_NORMAL)
+    bits = xc.view(torch.int32)
+    e = ((bits >> 23) - 0x7F).to(torch.float32) + 1.0
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < _SQRT_HALF
+    e = e - low.to(torch.float32)
+    t = (m - 1.0) + torch.where(low, m, 0.0)
+    x2 = t * t
+    x3 = x2 * t
+    p = _LOG_P
+    y = fma_f32(fma_f32(t, p[0], p[1]), t, p[2])
+    y1 = fma_f32(fma_f32(t, p[3], p[4]), t, p[5])
+    y2 = fma_f32(fma_f32(t, p[6], p[7]), t, p[8])
+    y = fma_f32(fma_f32(y, x3, y1), x3, y2)
+    y = fma_f32(y, x3, e * _LOG_Q1)
+    out = ((t - 0.5 * x2) + y) + e * _LOG_Q2
+    out = torch.where(x == 0.0, -math.inf, out)
+    out = torch.where(x == math.inf, math.inf, out)
+    return torch.where((x < 0.0) | torch.isnan(x), math.nan, out)
+
+
+def log2_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log2`` on XLA's CPU: ``log(x) / log(2)``, the division folded
+    into a multiplication by ``f32(1 / ln 2)``."""
+    return log_f32(x) * _INV_LN2

@@ -1,0 +1,34 @@
+"""Distribution layer of the port: device meshes, placement, collectives
+and the sharded round (the port of ``parallel/``).
+
+Axes, as in the JAX package:
+  ``data``  — pool rows (the reference's RDD partitioning of the pool)
+  ``model`` — the tree (ensemble) axis
+
+One process drives every shard of the mesh, as JAX's single controller does.
+``multihost.py`` (``torch.distributed`` across processes), ``global_put``,
+``constrain_forest``, ``sharded_similarity_mass``, ``masked_mean``,
+``gather_fills`` and ``exchange_blocks`` wait for their slices (ROADMAP).
+"""
+
+from distributed_active_learning_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_MODEL,
+    Mesh,
+    Sharded,
+    forest_tree_specs,
+    gather,
+    make_mesh,
+    shard_forest,
+    shard_pool_state,
+    shard_rows,
+)
+from distributed_active_learning_tpu_torch.parallel.kernels import (
+    make_sharded_round_fn,
+    per_shard,
+    sharded_votes,
+)
+from distributed_active_learning_tpu_torch.parallel.collectives import (
+    global_count,
+    vector_accumulate,
+)

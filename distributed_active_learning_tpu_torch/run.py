@@ -7,7 +7,9 @@
 
 Prints the reference-format log on stdout; ``--out`` writes it to a file.
 ``--device`` defaults to cuda and the run refuses to start without a card
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given. ``--mesh-data D --mesh-model M`` shards
+the pool's rows over D and the trees over M: on the first D x M cards, or
+every shard on the CPU with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from distributed_active_learning_tpu_torch.config import (
     DataConfig,
     ExperimentConfig,
     ForestConfig,
+    MeshConfig,
     StrategyConfig,
 )
 
@@ -51,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="score + select through the round megakernel (--kernel pallas) "
         "or the gemm tile stream (--kernel gemm); bit-identical picks",
     )
+    # Device mesh for the sharded round (1x1 = single device). Pool rows ride
+    # the data axis, trees the model axis; non-divisible pools are padded.
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--n-start", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -81,6 +88,7 @@ def main(argv=None) -> int:
             n_trees=args.trees, max_depth=args.depth, kernel=args.kernel, fit=args.fit,
         ),
         strategy=StrategyConfig(name=args.strategy, window_size=args.window),
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         n_start=args.n_start,
         max_rounds=args.rounds,
         fused_round=args.fused_round,

@@ -6,10 +6,16 @@ the round megakernel, ``fused_round``), reveal, and measure test accuracy.
 The PRNG stream, the fit, the picks and the records equal the JAX package's
 bit for bit on the same configuration (``tests/test_torch_loop.py``).
 
+With ``ExperimentConfig.mesh`` of ``data x model > 1`` the pool's rows
+shard over ``data`` and the trees over ``model`` (``parallel/``): the pool is
+padded to the data axis, every fit is sharded by trees, and the round runs
+per shard (:func:`~..parallel.kernels.make_sharded_round_fn`). The records
+and the final mask equal the single-device run's.
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
 slice bringing them: the chunked driver (``rounds_per_launch > 1``), the
-host (sklearn) fit, meshes, scenarios, checkpoints, metrics writers,
-quantized storage, multiclass pools and the gather kernel.
+host (sklearn) fit, ``kernel="gemm"`` under a mesh, scenarios, checkpoints,
+metrics writers, quantized storage, multiclass pools and the gather kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from distributed_active_learning_tpu_torch.data.datasets import DataBundle, get_
 from distributed_active_learning_tpu_torch.device import resolve_device, synchronize
 from distributed_active_learning_tpu_torch.ops import forest_eval
 from distributed_active_learning_tpu_torch.ops.topk import select_bottom_k, select_top_k
+from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult, RoundRecord
@@ -55,6 +62,7 @@ def _round_core(
         scores = None
     else:
         scores = strategy.score(forest, state, k_score, aux)
+        unlabeled = gather(unlabeled)  # a mesh's global select runs on its first device
         if strategy.higher_is_better:
             vals, picked = select_top_k(scores, unlabeled, window_size)
         else:
@@ -129,8 +137,9 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
         (cfg.forest.fit == "host",
          "the host (sklearn) fit is not ported: the port does not depend on "
          "scikit-learn; use fit='device'"),
-        (cfg.mesh.data * cfg.mesh.model > 1,
-         "device meshes come with the mesh slice"),
+        (cfg.mesh.data * cfg.mesh.model > 1 and cfg.forest.kernel == "gemm",
+         "kernel 'gemm' under a device mesh (GSPMD-partitioned plain XLA in "
+         "the JAX package, no kernel) is not ported yet; use kernel 'pallas'"),
         (cfg.scenario is not None and cfg.scenario.active,
          "scenarios come with the scenario slice"),
         (bool(cfg.checkpoint_dir and cfg.checkpoint_every),
@@ -151,9 +160,10 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
             raise NotImplementedError(why)
 
 
-def _accuracy(forest, test_x: torch.Tensor, test_y: torch.Tensor) -> torch.Tensor:
-    """Test accuracy on the device (``uncertainty_sampling.py:79-83``)."""
-    from distributed_active_learning_tpu_torch.ops.scoring import div_const
+def _accuracy(forest, test_x, test_y: torch.Tensor) -> torch.Tensor:
+    """Test accuracy on the device (``uncertainty_sampling.py:79-83``); on a
+    mesh ``test_x`` is the test set placed on every shard."""
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const
 
     pred = (forest_eval.proba(forest, test_x) > 0.5).to(torch.int32)
     return div_const((pred == test_y).to(torch.float32).sum(), test_y.shape[0])
@@ -180,8 +190,12 @@ def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
     fc = cfg.forest
 
     def fit_body(codes, edges, state: state_lib.PoolState, key: prng.Key):
-        mask = state.labeled_mask & state.valid_mask
-        c, yy, w = trees_train.gather_fit_window(codes, state.oracle_y, mask, budget)
+        if isinstance(codes, Sharded):
+            c, yy, w = trees_train.gather_fit_window_sharded(
+                codes, state.oracle_y, state.labeled_mask, state.n_valid, budget)
+        else:
+            mask = state.labeled_mask & state.valid_mask
+            c, yy, w = trees_train.gather_fit_window(codes, state.oracle_y, mask, budget)
         f, th, v = trees_train.fit_forest_device(
             c, yy, w, edges, key,
             n_trees=fc.n_trees, max_depth=fc.max_depth, n_bins=fc.max_bins,
@@ -214,10 +228,13 @@ def run_experiment(
     debugger: Optional[Debugger] = None,
     metrics=None,
     device=None,
+    devices=None,
 ) -> ExperimentResult:
     """Run a full AL experiment on ``device`` (default CUDA; raises without a
     card unless ``device="cpu"``); returns per-round records and the final
-    labeled mask."""
+    labeled mask. A mesh config takes its devices from ``devices`` (passed to
+    ``parallel.mesh.make_mesh``; a list may repeat a card), or by default the
+    first ``data * model`` cards, or every shard on the CPU."""
     dev = resolve_device(device)
     _not_ported(cfg, metrics)
     if cfg.forest.fit != "device":
@@ -241,17 +258,61 @@ def run_experiment(
         reason = _fused_round_reason(cfg, False, n_classes)
         if reason is not None:
             raise ValueError(f"fused_round unavailable: {reason}")
-    round_fn = make_round_fn(strategy, cfg.strategy.window_size, fused=cfg.fused_round)
-    aux = build_aux(cfg, state)
-    result = ExperimentResult()
 
     from distributed_active_learning_tpu_torch.ops import trees_train
 
     binned = trees_train.make_bins(state.x, cfg.forest.max_bins, quantize=cfg.forest.quantize)
-    codes = binned.codes
+    codes, edges = binned.codes, binned.edges
     fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
-    device_fit = make_device_fit(cfg, binned.edges, fit_budget, n_classes)
+
+    mesh = None
+    if cfg.mesh.data * cfg.mesh.model > 1:
+        # Pad the pool to the data axis, place its rows over data (codes
+        # too) and the test set on every shard; each fit lands on the mesh's
+        # first device and is sharded by trees.
+        from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
+        from distributed_active_learning_tpu_torch.parallel import (
+            make_mesh,
+            make_sharded_round_fn,
+            shard_forest,
+            shard_pool_state,
+            shard_rows,
+        )
+
+        if cfg.forest.n_trees % cfg.mesh.model:
+            raise ValueError(
+                f"n_trees={cfg.forest.n_trees} not divisible by mesh "
+                f"model axis {cfg.mesh.model}"
+            )
+        mesh = make_mesh(data=cfg.mesh.data, model=cfg.mesh.model, devices=devices, device=dev)
+        if mesh.first.type != dev.type:
+            raise ValueError(f"mesh devices {mesh.devices} do not match device {dev}")
+        state = state_lib.pad_for_sharding(state, cfg.mesh.data)
+        state = shard_pool_state(state, mesh)
+        codes = shard_rows(codes, mesh)  # zero codes for the padding rows
+        edges = edges.to(mesh.first)
+        test_x = shard_rows(test_x, mesh, replicate=True)
+        test_y = test_y.to(mesh.first)
+        round_fn = make_sharded_round_fn(
+            strategy, cfg.strategy.window_size, mesh, fused=cfg.fused_round)
+
+        def place_forest(f):
+            return attach_mesh(shard_forest(f, mesh), mesh)
+    else:
+        round_fn = make_round_fn(strategy, cfg.strategy.window_size, fused=cfg.fused_round)
+
+        def place_forest(f):
+            return f
+
+    aux = build_aux(cfg, state)
+    result = ExperimentResult()
+    device_fit = make_device_fit(cfg, edges, fit_budget, n_classes)
     fit_key = prng.key(cfg.seed + 0x5EED)
+    sync_devs = {d for row in mesh.devices for d in row} if mesh else {dev}
+
+    def sync():  # keep phase timings honest
+        for d in sync_devs:
+            synchronize(d)
 
     n_pool = state.n_valid
     round_idx = state.round
@@ -272,13 +333,13 @@ def run_experiment(
                     f"{n_labeled} labeled rows exceed the device fit "
                     f"window ({fit_budget}); raise ForestConfig.fit_budget"
                 )
-            forest = device_fit(codes, state, prng.fold_in(fit_key, round_idx))
-            synchronize(dev)  # keep phase timings honest
+            forest = place_forest(device_fit(codes, state, prng.fold_in(fit_key, round_idx)))
+            sync()
         train_time = dbg.records[-1][1]
 
         with dbg.phase("round"):
             state, picked, _ = round_fn(forest, state, aux)
-            synchronize(dev)
+            sync()
         score_time = dbg.records[-1][1]
         with dbg.phase("eval"):
             acc = float(_accuracy(forest, test_x, test_y))
@@ -299,7 +360,7 @@ def run_experiment(
         if cfg.log_every and round_idx % cfg.log_every == 0:
             dbg.debug(f"Iteration {round_idx} -- labeled={n_labeled} accu={acc * 100:.2f}")
 
-    result.final_labeled_mask = state.labeled_mask
+    result.final_labeled_mask = state_lib.global_labeled_mask(state)
     if cfg.results_path:
         result.save(cfg.results_path, fmt="reference")
     return result

@@ -2,8 +2,11 @@
 ``runtime/state.py``).
 
 The pool is one dense tensor on the device and the labeled/unlabeled split is
-a boolean mask over it: fixed shapes, no per-round host round-trips. The
-streaming fill watermark (``n_filled``) waits for the serving slice.
+a boolean mask over it: fixed shapes, no per-round host round-trips. On a
+device mesh the pool's arrays are :class:`~..parallel.mesh.Sharded` row
+blocks (``parallel.mesh.shard_pool_state``, after :func:`pad_for_sharding`);
+the functions here take either form. The streaming fill watermark
+(``n_filled``) waits for the serving slice.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ import torch
 
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.ops.topk import stable_top_k
+from distributed_active_learning_tpu_torch.parallel.collectives import global_count
+from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,15 +53,26 @@ class PoolState:
         return torch.arange(self.n_pool, device=self.x.device) < self.n_valid
 
     @property
-    def unlabeled_mask(self) -> torch.Tensor:
+    def unlabeled_mask(self):
+        if isinstance(self.labeled_mask, Sharded):
+            return self.labeled_mask.map(torch.logical_not)
         return ~self.labeled_mask
 
 
 def labeled_count(state: PoolState) -> torch.Tensor:
-    """Number of real labeled points, as a device scalar."""
+    """Number of real labeled points, as a device scalar (padding rows are
+    labeled and not counted; on a mesh, one count per shard is added up)."""
+    mask = state.labeled_mask
+    if isinstance(mask, Sharded):
+        n_local = mask.n_local
+        return global_count([
+            mask.block(s) & (torch.arange(s * n_local, (s + 1) * n_local, device=mask.block(s).device)
+                             < state.n_valid)
+            for s in range(len(mask.blocks))
+        ])
     if state.n_valid == state.n_pool:
-        return state.labeled_mask.sum(dtype=torch.int32)
-    return (state.labeled_mask & state.valid_mask).sum(dtype=torch.int32)
+        return mask.sum(dtype=torch.int32)
+    return (mask & state.valid_mask).sum(dtype=torch.int32)
 
 
 def init_pool_state(x, y, key: prng.Key, device) -> PoolState:
@@ -110,14 +126,54 @@ def set_start_state(state: PoolState, n_start: int, n_classes: int = 2) -> PoolS
     return state.replace(labeled_mask=mask, key=key)
 
 
+def _reveal_rows(mask: torch.Tensor, picked_idx: torch.Tensor, base: int = 0) -> torch.Tensor:
+    """``mask`` holds global rows ``[base, base + len(mask))``: set the picked
+    ones, drop the rest."""
+    n = mask.shape[0]
+    local = picked_idx.to(mask.device).long() - base
+    keep = (local >= 0) & (local < n)
+    ext = torch.cat([mask, mask.new_zeros(1)])
+    ext[torch.where(keep, local, n)] = True
+    return ext[:n]
+
+
 def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
     """Label the picked pool indices (the oracle call) and advance the round.
 
-    Indices past the pool (a short tile's padding candidates, reachable only
-    when fewer than ``window`` rows remain selectable) are dropped, as the
-    JAX scatter drops out-of-bounds updates.
+    Indices past the pool (a short tile's padding candidates or the ring's
+    ``IDX_SENTINEL``, reachable only when fewer than ``window`` rows remain
+    selectable) are dropped, as the JAX scatter drops out-of-bounds updates.
+    On a mesh, global index ``i`` lands in shard ``i // n_local``.
     """
+    mask = state.labeled_mask
+    if isinstance(mask, Sharded):
+        n_local = mask.n_local
+        new = Sharded(tuple((_reveal_rows(mask.block(s), picked_idx, s * n_local),)
+                            for s in range(len(mask.blocks))), mask.n_rows)
+    else:
+        new = _reveal_rows(mask, picked_idx)
+    return state.replace(labeled_mask=new, round=state.round + 1)
+
+
+def global_labeled_mask(state: PoolState) -> torch.Tensor:
+    """The real rows' labeled mask as one tensor (gathered from the shards
+    on a mesh, padding rows dropped)."""
+    return gather(state.labeled_mask)[: state.n_valid]
+
+
+def pad_for_sharding(state: PoolState, multiple: int) -> PoolState:
+    """Pad the pool to a row count divisible by ``multiple`` (a mesh data
+    axis), so every shard holds an equal block. Padding rows carry zero
+    features, label 0 and ``labeled_mask=True``: the masked top-k never
+    selects them, and every real-row count filters through ``valid_mask``.
+    The real row count is kept in ``n_valid_static``."""
     n = state.n_pool
-    ext = torch.cat([state.labeled_mask, state.labeled_mask.new_zeros(1)])
-    ext[torch.clamp(picked_idx.long(), max=n)] = True
-    return state.replace(labeled_mask=ext[:n], round=state.round + 1)
+    pad = (-n) % multiple
+    if pad == 0:
+        return state
+    return state.replace(
+        x=torch.cat([state.x, state.x.new_zeros((pad, state.x.shape[1]))]),
+        oracle_y=torch.cat([state.oracle_y, state.oracle_y.new_zeros(pad)]),
+        labeled_mask=torch.cat([state.labeled_mask, state.labeled_mask.new_ones(pad)]),
+        n_valid_static=n,
+    )

@@ -13,10 +13,11 @@ from distributed_active_learning_tpu_torch.ops import forest_eval, scoring
 from distributed_active_learning_tpu_torch.strategies.base import Strategy, register_strategy
 
 
-def _vote_fraction(forest, state) -> torch.Tensor:
-    """Positive-vote fraction per pool point (votes / T, f32)."""
+def _vote_fraction(forest, state) -> scoring.VoteFraction:
+    """Positive-vote fraction per pool point (votes / T, f32), kept as its
+    operands so the scores write out XLA's contraction."""
     votes = forest_eval.votes(forest, state.x)
-    return scoring.div_const(votes.to(torch.float32), forest.n_trees)
+    return scoring.VoteFraction(votes.to(torch.float32), forest.n_trees)
 
 
 @register_strategy("random")

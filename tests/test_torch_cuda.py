@@ -15,8 +15,9 @@ import pytest
 import torch
 
 from distributed_active_learning_tpu_torch import prng
-from distributed_active_learning_tpu_torch.ops import round_fused, trees_pallas, trees_train
+from distributed_active_learning_tpu_torch.ops import ring_topk, round_fused, trees_pallas, trees_train
 from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk
+from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +77,52 @@ def test_round_megakernel_matches_plain(cuda):
         vals, idx = round_fused.fused_score_select(
             trees_pallas.PallasForest(gf=gf), x, sel, name, 50)
         assert bool(sel[idx.long()].all()) and bool(torch.isfinite(vals).all())
+
+
+def test_mesh_kernels_match_plain(cuda):
+    """K3 (csrc/fused_votes.cu) and K4 (csrc/ring_hop.cu) against their plain
+    versions, and the 4 x 2 mesh on one card against the CPU mesh."""
+    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700)):
+        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
+        x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+        before = round_fused.votes_launches
+        got = round_fused.fused_votes(trees_pallas.PallasForest(gf=gf), x)
+        assert round_fused.votes_launches == before + 1
+        assert torch.equal(got, round_fused.fused_votes_plain(gf, x)), (n_trees, n)
+
+    rng = np.random.default_rng(1)
+    k = 24
+    windows = []
+    for s in range(4):  # 16 rows a shard, k past them: sentinel-padded windows
+        v = torch.from_numpy(rng.choice(np.float32([-1.5, 0.0, 0.25, 3.0]), size=16))
+        sv, si = torch.sort(v, descending=True, stable=True)
+        windows.append(ring_topk.pad_window(sv.to(cuda), (si + 16 * s).to(torch.int32).to(cuda), k))
+    before = ring_topk.launches
+    hv, hi = ring_topk.hop(*windows[0], cuda)
+    assert ring_topk.launches == before + 1
+    pv, pi = ring_topk.hop_plain(*windows[0], cuda)
+    assert torch.equal(hv, pv) and torch.equal(hi, pi)
+    merged = ring_topk.ring_topk(windows, k)
+    assert ring_topk.launches == before + 1 + 4 * 3
+    cpu = ring_topk.ring_topk([(v.cpu(), i.cpu()) for v, i in windows], k)
+    for (mv, mi), (cv, ci) in zip(merged, cpu):
+        assert torch.equal(mv.cpu(), cv) and torch.equal(mi.cpu(), ci)
+
+    # The fused mesh selection: 4 x 2 shards on one card against the CPU mesh.
+    gf, rng = _forest(8, 4, 5, cuda, seed=2)
+    x = torch.from_numpy(rng.normal(size=(999, 5)).astype(np.float32))
+    sel = torch.from_numpy(rng.random(999) < 0.7)
+    on_card = trees_pallas.attach_mesh(
+        trees_pallas.PallasForest(gf=gf), mesh_lib.make_mesh(4, 2, devices=[cuda] * 8))
+    on_cpu = trees_pallas.attach_mesh(
+        trees_pallas.PallasForest(gf=_to_cpu(gf)), mesh_lib.make_mesh(4, 2, device="cpu"))
+    cv, ci = round_fused.fused_score_select(on_card, x.to(cuda), sel.to(cuda), "uncertainty", 40)
+    pv, pi = round_fused.fused_score_select(on_cpu, x, sel, "uncertainty", 40)
+    assert torch.equal(cv.cpu(), pv) and torch.equal(ci.cpu(), pi)
+
+
+def _to_cpu(gf):
+    import dataclasses
+
+    return dataclasses.replace(
+        gf, **{f.name: getattr(gf, f.name).cpu() for f in dataclasses.fields(gf)})

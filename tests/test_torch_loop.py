@@ -104,9 +104,15 @@ def test_run_experiment_matches_jax(fused):
 
 _ISOLATION = """
 import sys
-from distributed_active_learning_tpu_torch import run
+from distributed_active_learning_tpu_torch import parallel, run
+from distributed_active_learning_tpu_torch.ops import ring_topk
+from distributed_active_learning_tpu_torch.parallel import collectives, kernels, mesh
 rc = run.main(["--device", "cpu", "--fit", "device", "--kernel", "pallas",
                "--fused-round", "--n-samples", "200", "--trees", "4",
+               "--window", "5", "--rounds", "2", "--quiet"])
+assert rc == 0
+rc = run.main(["--device", "cpu", "--fit", "device", "--kernel", "pallas",
+               "--mesh-data", "2", "--n-samples", "201", "--trees", "4",
                "--window", "5", "--rounds", "2", "--quiet"])
 assert rc == 0
 try:
@@ -128,7 +134,7 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 2
+    assert out.stdout.count("Iteration") == 4
     assert "not ported yet" in out.stderr
 
 
@@ -137,7 +143,8 @@ def test_unported_features_are_refused_by_name():
     cases = [
         (dict(rounds_per_launch=4), "chunked-driver slice"),
         (dict(forest=dataclasses.replace(base.forest, fit="host")), "scikit-learn"),
-        (dict(mesh=t_config.MeshConfig(data=2)), "mesh slice"),
+        (dict(mesh=t_config.MeshConfig(data=2),
+              forest=dataclasses.replace(base.forest, kernel="gemm")), "under a device mesh"),
         (dict(forest=dataclasses.replace(base.forest, quantize="bf16")), "quantization"),
         (dict(forest=dataclasses.replace(base.forest, kernel="gather")), "gather-kernel"),
         (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoint slice"),

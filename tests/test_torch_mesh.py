@@ -1,0 +1,274 @@
+"""The port's single-process device mesh against the JAX package's mesh.
+
+On the CPU every shard of the port's 4 x 2 mesh lies on ``cpu``; the JAX
+package's mesh is 4 x 2 forced host devices (tests/conftest.py). Inputs are
+numpy arrays made from a seed and handed to both packages.
+
+- K3's plain version equals JAX's ``fused_votes_pallas`` in interpret mode,
+  and the sharded vote count (per-shard K3, one sum over ``model``) equals
+  JAX's ``_sharded_fused_votes``;
+- the ring merge over duplicate-heavy scores, with ``k`` past a shard's rows,
+  equals JAX's ring and the global stable top-k, on every shard;
+- ``fused_score_select`` on a sharded forest equals JAX's, values and picks;
+- ``run_experiment`` on a 4 x 2 mesh (250 rows padded to 252), fused and
+  unfused, equals the JAX single-device run exactly (records, final mask)
+  and the port's single-device run, with a fit that is bit-identical to the
+  single-device fit.
+"""
+
+import dataclasses
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax import lax
+from jax.sharding import PartitionSpec as P
+
+from distributed_active_learning_tpu import config as j_config
+from distributed_active_learning_tpu.data import get_dataset as j_get_dataset
+from distributed_active_learning_tpu.ops import ring_topk as j_ring
+from distributed_active_learning_tpu.ops import round_fused as j_fused
+from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
+from distributed_active_learning_tpu.ops import trees_train as j_train
+from distributed_active_learning_tpu.parallel import make_mesh as j_make_mesh
+from distributed_active_learning_tpu.parallel import shard_forest as j_shard_forest
+from distributed_active_learning_tpu.runtime import loop as j_loop
+from distributed_active_learning_tpu.runtime import state as j_state
+from distributed_active_learning_tpu.strategies import get_strategy as j_strategy
+from distributed_active_learning_tpu.utils.compat import shard_map
+from distributed_active_learning_tpu_torch import config as t_config
+from distributed_active_learning_tpu_torch import interop, prng
+from distributed_active_learning_tpu_torch.data import get_dataset as t_get_dataset
+from distributed_active_learning_tpu_torch.ops import ring_topk as t_ring
+from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
+from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
+from distributed_active_learning_tpu_torch.ops import trees_train as t_train
+from distributed_active_learning_tpu_torch.ops.topk import NEG_INF
+from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
+from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+from distributed_active_learning_tpu_torch.runtime import state as t_state
+
+
+def _forest(n_trees, depth, seed, n_fit=400, d=5):
+    """A JAX device-fit forest (heap layout) and the port's copy of it."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_fit, d)).astype(np.float32)
+    y = (x[:, 0] + 0.3 * x[:, 1] + 0.5 * rng.normal(size=n_fit) > 0).astype(np.int32)
+    b = j_train.make_bins(jnp.asarray(x), 32)
+    mask = jnp.asarray(rng.random(n_fit) < 0.4)
+    c, yy, w = j_train.gather_fit_window(b.codes, jnp.asarray(y), mask, n_fit)
+    f, th, v = j_train.fit_forest_device(
+        c, yy, w, b.edges, jax.random.key(seed), n_trees=n_trees, max_depth=depth)
+    gf = j_train.heap_gemm_forest(f, th, v, depth)
+    arrays = [np.array(a) for a in (gf.feat_ids, gf.thresholds, gf.path, gf.target, gf.value)]
+    return gf, interop.gemm_forest_from_numpy(*arrays), rng
+
+
+def _meshes(data, model):
+    j_mesh = j_make_mesh(data=data, model=model)
+    return j_mesh, t_mesh.make_mesh(data, model, device="cpu")
+
+
+def _sharded_pair(gf, tf, j_mesh, t_m):
+    j_sh = j_pallas.ShardedPallasForest(gf=j_shard_forest(gf, j_mesh), mesh=j_mesh)
+    t_sh = t_pallas.attach_mesh(t_mesh.shard_forest(t_pallas.PallasForest(gf=tf), t_m), t_m)
+    return j_sh, t_sh
+
+
+def _duplicate_heavy(rng, n):
+    levels = np.array([-1.5, 0.0, 0.25, 0.25, 3.0], np.float32)
+    return levels[rng.integers(0, len(levels), size=n)]
+
+
+def _jax_ring(j_mesh, scores, sel, k):
+    """JAX's window pipeline under shard_map: every shard's merged window."""
+    S = j_mesh.shape["data"]
+    n_local = scores.shape[0] // S
+
+    def body(s_blk, m_blk):
+        kk = min(k, n_local)
+        work = jnp.where(m_blk, s_blk, NEG_INF)
+        loc_v, loc_i = lax.top_k(work, kk)
+        glob_i = (lax.axis_index("data") * n_local + loc_i).astype(jnp.int32)
+        win_v, win_i = j_ring.pad_window(loc_v, glob_i, k)
+        acc_v, acc_i = j_ring.ring_topk(win_v, win_i, k, "data", mesh_axis_names=j_mesh.axis_names)
+        return acc_v[None], acc_i[None]
+
+    out = shard_map(body, mesh=j_mesh, in_specs=(P("data"), P("data")),
+                    out_specs=(P("data"), P("data")), check_vma=False)(scores, sel)
+    return [np.asarray(a).reshape(S, k) for a in out]
+
+
+def _port_ring(scores, sel, k, n_shards):
+    n_local = scores.shape[0] // n_shards
+    windows = []
+    for s in range(n_shards):
+        blk = slice(s * n_local, (s + 1) * n_local)
+        work = torch.where(torch.from_numpy(sel[blk]), torch.from_numpy(scores[blk]), NEG_INF)
+        v, i = torch.sort(work, descending=True, stable=True)
+        kk = min(k, n_local)
+        windows.append(t_ring.pad_window(v[:kk], (i[:kk] + s * n_local).to(torch.int32), k))
+    return t_ring.ring_topk(windows, k)
+
+
+def test_mesh_kernels_match_jax(devices):
+    j_mesh, t_m = _meshes(4, 2)
+
+    # K3's plain version at 13 trees (not a multiple of the TPU kernel's
+    # 8-tree block), 1,700 rows (past its 1,536-row tile switch).
+    gf13, tf13, rng = _forest(13, 4, seed=13)
+    x = rng.normal(size=(1700, 5)).astype(np.float32)
+    want = np.asarray(j_fused.fused_votes_pallas(gf13, jnp.asarray(x), interpret=True))
+    got = t_fused.fused_votes(t_pallas.PallasForest(gf=tf13), torch.from_numpy(x))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(want, got.numpy())
+    # Past the tile limits (depth 9) both packages take the exact gemm form.
+    gf9, tf9, rng9 = _forest(3, 9, seed=9)
+    x9 = rng9.normal(size=(257, 5)).astype(np.float32)
+    before = t_fused.votes_gemm_route_calls
+    got9 = t_fused.fused_votes(t_pallas.PallasForest(gf=tf9), torch.from_numpy(x9))
+    assert t_fused.votes_gemm_route_calls == before + 1
+    np.testing.assert_array_equal(
+        np.asarray(j_fused.fused_votes_pallas(gf9, jnp.asarray(x9), interpret=True)),
+        got9.numpy())
+
+    # The sharded vote count and the sharded fused selection, 1,702 rows
+    # (padded to 1,704: 426 a shard). At 16 trees (8 per model shard, exact
+    # 1/T) the port equals JAX's mesh selection. At 14 trees (inexact 1/T)
+    # JAX's mesh round divides by T where its single-device round multiplies
+    # by f32(1/T) and contracts (ROADMAP queue 3); the port keeps the
+    # single-device spelling on every path and equals JAX's single-device
+    # selection.
+    for n_trees in (16, 14):
+        gf, tf, rng = _forest(n_trees, 4, seed=n_trees)
+        x = rng.normal(size=(1702, 5)).astype(np.float32)
+        sel = rng.random(1702) < 0.8
+        j_sh, t_sh = _sharded_pair(gf, tf, j_mesh, t_m)
+        np.testing.assert_array_equal(
+            np.asarray(j_fused._sharded_fused_votes(j_sh, jnp.asarray(x))),
+            t_fused._sharded_fused_votes(t_sh, torch.from_numpy(x)).numpy())
+        j_ref = j_sh if n_trees == 16 else j_pallas.PallasForest(gf=gf)
+        for name in ("uncertainty", "margin"):
+            for k in (10, 600):  # 600 > the 426 rows of a shard: padded windows
+                vj, ij = j_fused.fused_score_select(
+                    j_ref, jnp.asarray(x), jnp.asarray(sel), name, k)
+                vt, it = t_fused.fused_score_select(
+                    t_sh, torch.from_numpy(x), torch.from_numpy(sel), name, k)
+                np.testing.assert_array_equal(np.asarray(ij), it.numpy())
+                np.testing.assert_array_equal(
+                    np.asarray(vj).view(np.int32), vt.numpy().view(np.int32))
+
+    # The ring merge: duplicate-heavy scores, k past a shard's 16 rows.
+    rng = np.random.default_rng(7)
+    scores = _duplicate_heavy(rng, 64)
+    mask = rng.integers(0, 2, size=64).astype(bool)
+    host = np.where(mask, scores, NEG_INF)
+    order = np.lexsort((np.arange(64), -host))  # (value desc, index asc)
+    for k in (5, 24):
+        j_v, j_i = _jax_ring(j_mesh, jnp.asarray(scores), jnp.asarray(mask), k)
+        merged = _port_ring(scores, mask, k, 4)
+        want_i = np.concatenate([order, np.full(max(k - 64, 0), t_ring.IDX_SENTINEL)])[:k]
+        for s, (v, i) in enumerate(merged):  # every shard converges
+            np.testing.assert_array_equal(i.numpy(), j_i[s])
+            np.testing.assert_array_equal(v.numpy(), j_v[s])
+            np.testing.assert_array_equal(i.numpy(), want_i)
+            np.testing.assert_array_equal(v.numpy(), host[order][:k])
+
+
+def _cfgs(mesh, fused, strategy="uncertainty", window=10):
+    j = j_config.ExperimentConfig(
+        data=j_config.DataConfig(name="checkerboard2x2", n_samples=250, seed=2),
+        forest=j_config.ForestConfig(n_trees=8, max_depth=4, kernel="pallas", fit="device"),
+        strategy=j_config.StrategyConfig(name=strategy, window_size=window),
+        mesh=j_config.MeshConfig(*mesh),
+        n_start=10, max_rounds=3, seed=7, fused_round=fused,
+    )
+    return j, t_config.from_dict(dataclasses.asdict(j))
+
+
+def _jax_final_mask(cfg):
+    """The JAX package's single-device loop, driven round by round, for its
+    final labeled mask (``run_experiment`` returns records only)."""
+    b = j_get_dataset(cfg.data)
+    st = j_state.set_start_state(
+        j_state.init_pool_state(b.train_x, b.train_y, jax.random.key(cfg.seed)), cfg.n_start)
+    binned = j_train.make_bins(jnp.asarray(b.train_x), cfg.forest.max_bins)
+    window = cfg.strategy.window_size
+    fit = j_loop.make_device_fit(cfg, binned.edges, cfg.n_start + cfg.max_rounds * window)
+    round_fn = j_loop.make_round_fn(j_strategy(cfg.strategy), window, fused=cfg.fused_round)
+    aux = j_loop.build_aux(cfg, st)
+    fit_key = jax.random.key(cfg.seed + 0x5EED)
+    for r in range(1, cfg.max_rounds + 1):
+        forest = fit(binned.codes, st, jax.random.fold_in(fit_key, r))
+        st, _, _ = round_fn(forest, st, aux)
+    return np.asarray(st.labeled_mask)
+
+
+def _records(res):
+    return [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+
+
+def _fit_matches_single_device(tcfg, mesh_shape):
+    """One fit on the padded, sharded start state against the same fit on
+    the single-device state: window and forest arrays bit-identical."""
+    b = t_get_dataset(tcfg.data)
+    st = t_state.set_start_state(
+        t_state.init_pool_state(b.train_x, b.train_y, prng.key(tcfg.seed), "cpu"), tcfg.n_start)
+    binned = t_train.make_bins(st.x, 32)
+    m = t_mesh.make_mesh(*mesh_shape, device="cpu")
+    sh = t_mesh.shard_pool_state(t_state.pad_for_sharding(st, mesh_shape[0]), m)
+    codes = t_mesh.shard_rows(binned.codes, m)
+    budget = 40
+    single = t_train.gather_fit_window(binned.codes, st.oracle_y, st.labeled_mask, budget)
+    sharded = t_train.gather_fit_window_sharded(codes, sh.oracle_y, sh.labeled_mask, sh.n_valid,
+                                                budget)
+    for a, c in zip(single, sharded):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+    fit = t_loop.make_device_fit(tcfg, binned.edges, budget)
+    key = prng.fold_in(prng.key(1), 1)
+    f1 = fit(binned.codes, st, key).gf
+    f2 = fit(codes, sh, key).gf
+    for field in ("feat_ids", "thresholds", "path", "target", "value"):
+        assert torch.equal(getattr(f1, field), getattr(f2, field)), field
+
+
+def _check_mesh_run(fused, strategy="uncertainty", mesh=(4, 2), window=10):
+    jcfg, tcfg = _cfgs((1, 1), fused, strategy, window)
+    want = j_loop.run_experiment(jcfg)
+    single = t_loop.run_experiment(tcfg, device="cpu")
+    _, tmesh_cfg = _cfgs(mesh, fused, strategy, window)
+    got = t_loop.run_experiment(tmesh_cfg, device="cpu")
+    assert _records(got) == _records(want) == _records(single)
+    assert got.final_labeled_mask.shape == (250,)
+    assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
+    np.testing.assert_array_equal(got.final_labeled_mask.numpy(), _jax_final_mask(jcfg))
+
+
+def test_mesh_run_experiment_matches_jax(devices):
+    for fused in (False, True):
+        _check_mesh_run(fused)
+    _fit_matches_single_device(_cfgs((4, 2), False)[1], (4, 2))
+    # `random` draws over the padded pool, as the JAX mesh run does: in
+    # partitionable threefry element i's bits depend on i alone.
+    key = prng.key(3)
+    assert torch.equal(prng.uniform(key, (252,))[:250], prng.uniform(key, (250,)))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("strategy", ["random", "soft_uncertainty", "entropy", "full_entropy",
+                                      "margin"])
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2), (4, 2)])
+def test_mesh_run_matrix_matches_jax(devices, strategy, mesh):
+    fused_options = (False, True) if strategy in t_fused.FUSED_STRATEGIES else (False,)
+    for fused in fused_options:
+        _check_mesh_run(fused, strategy, mesh)
+
+
+@pytest.mark.slow
+def test_mesh_window_past_shard_rows_matches_jax(devices):
+    # 8 shards of 32 rows (250 padded to 256) and a 40-row window: every
+    # shard's window is padded with sentinels before the ring merge.
+    for fused in (False, True):
+        _check_mesh_run(fused, mesh=(8, 1), window=40)
