@@ -5,7 +5,7 @@
 Run from the root of a checkout. Phases, in order; any failure exits nonzero
 and prints no result:
 
-1. build the four CUDA kernels from ``distributed_active_learning_tpu_torch/
+1. build the six CUDA kernels from ``distributed_active_learning_tpu_torch/
    csrc`` (one nvcc per source, started together) and print the card's name
    and power limit;
 2. the leaf kernel K1 (csrc/forest_leaves.cu) against its plain PyTorch
@@ -15,6 +15,12 @@ and prints no result:
 2b. the vote kernel K3 (csrc/fused_votes.cu) against its plain version at
    full width, at one 50-tree model shard of the 4 x 2 mesh (71,202 rows)
    and at the ragged shape: bit-equal;
+2c. the layout variants K5 (csrc/forest_leaves_transposed.cu) and K6
+   (csrc/forest_leaves_segmented.cu) against their plain versions at full
+   width: K5 for both leaf payloads (hi + lo, exact f32), tree_outer on and
+   off, at (bn, bt) = (512, 16) and (2048, 8), and each ablation stage; K6 at
+   (2048, 8) and (1024, 8); all bit-equal, and K5 with the f32 payload equal
+   to K1's leaves;
 3. the round megakernel K2 (csrc/round_megakernel.cu) against its plain
    version for uncertainty, entropy, full_entropy and margin (5,000-row
    labeled mask, k = 100): per-tile candidates and merged picks bit-equal;
@@ -40,14 +46,29 @@ and prints no result:
    (s, m) on card (s + m) mod n), else a line says it did not run. Then a
    small checkerboard mesh run on the card must equal the same mesh on the
    CPU;
-5. per-kernel median times at the phase-2/2b/3/3b shapes beside the plain
+4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
+   ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
+   ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
+   per-round run of the same configuration; each run must capture one CUDA
+   graph and replay it twice (kernel launches: one eager warm-up round plus 4
+   rounds per replay). The chunk body runs once eagerly under
+   ``torch.cuda.set_sync_debug_mode("error")``: it must not sync with the
+   host. Then seconds per round of the per-round driver and of the chunked
+   driver at depth 1 and 2 over 12 rounds (rounds 5-12: the first chunk holds
+   the capture);
+5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions', the bound and (K4) ``Tensor.copy_`` of the same window; one
    fused and one unfused main-path round under torch.profiler (device time
-   by kernel, device busy share).
+   by kernel, device busy share);
+6. the port's bench at the benchmark width: ``--mode score``, ``--mode
+   round`` and ``--mode variants`` (K1, two K5 tilings, one K6), each JSON
+   line printed on a line of its own. K5's and K6's launch counts are read
+   over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
 is the count of the kernel's main path, single-device fused for K1 and K2,
-mesh fused for K3 and K4; ``launches_by_path`` every path's), the card's name
+mesh fused for K3 and K4, the bench's variants mode for K5 and K6;
+``launches_by_path`` every path's), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a CUDA device, and when the port's package is not
@@ -57,7 +78,9 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -162,7 +185,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script measures the card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from distributed_active_learning_tpu_torch import kernels, prng
+    from distributed_active_learning_tpu_torch import bench, kernels, prng
+    from distributed_active_learning_tpu_torch.benches import pallas_variants as lv
     from distributed_active_learning_tpu_torch.config import (
         DataConfig, ExperimentConfig, ForestConfig, MeshConfig, StrategyConfig,
     )
@@ -174,6 +198,8 @@ def main() -> int:
     from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk, stable_top_k
     from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
     from distributed_active_learning_tpu_torch.runtime import loop
+    from distributed_active_learning_tpu_torch.runtime import state as state_lib
+    from distributed_active_learning_tpu_torch.strategies import StrategyAux, get_strategy
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
 
     dev = resolve_device("cuda")
@@ -238,6 +264,45 @@ def main() -> int:
             fail(f"fused_votes != plain at {label} n={x.shape[0]} T={g.n_trees}")
         print(f"# fused_votes {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain")
     k3_err = 0.0  # integer votes, compared for equality above
+
+    # -- phase 2c: K5 and K6 against their plain versions -------------------
+    k1_leaves = trees_pallas.predict_leaves_pallas(gf, pool)
+    k5_err = 0.0
+    for leaf_f32 in (False, True):
+        want = lv.predict_leaves_transposed_plain(gf, pool, leaf_f32=leaf_f32)
+        for tree_outer in (False, True):
+            for bn, bt in ((512, 16), (2048, 8)):
+                got = lv.predict_leaves_transposed(
+                    gf, pool, bn=bn, bt=bt, tree_outer=tree_outer, leaf_f32=leaf_f32)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    fail(f"forest_leaves_transposed != plain (leaf_f32={leaf_f32}, "
+                         f"tree_outer={tree_outer}, bn={bn}, bt={bt})")
+                k5_err = max(k5_err, float((got - want).abs().max()))
+                if leaf_f32 and not torch.equal(got, k1_leaves):
+                    fail("forest_leaves_transposed with the f32 payload != forest_leaves")
+        del want
+    for stage in lv.ABLATE[1:]:
+        got = lv.predict_leaves_transposed(gf, pool, bn=4096, bt=8, ablate=stage)
+        want = lv.predict_leaves_transposed_plain(gf, pool, ablate=stage)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"forest_leaves_transposed != plain at ablation stage {stage}")
+    print("# forest_leaves_transposed full width: bit-equal to plain for hi + lo and f32 "
+          "payloads, tree_outer on and off, (bn, bt) = (512, 16) and (2048, 8), and the "
+          "stages sel, cmp, main, eq; the f32 payload == forest_leaves")
+    k6_err = 0.0
+    for bn, bt in ((2048, 8), (1024, 8)):
+        got = lv.predict_leaves_segmented(gf, pool, bn=bn, bt=bt)
+        want = lv.predict_leaves_segmented_plain(gf, pool, bn=bn, bt=bt)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"forest_leaves_segmented != plain (bn={bn}, bt={bt})")
+        k6_err = max(k6_err, float((got - want).abs().max()))
+    seg_S = lv._segmented_operands(gf, pool, 2048, 8).S
+    print(f"# forest_leaves_segmented full width (S = {seg_S} slots a feature): bit-equal to "
+          "plain at (bn, bt) = (2048, 8) and (1024, 8)")
+    del got, want, k1_leaves
 
     # -- phase 3: the megakernel against its plain version -----------------
     labeled = torch.zeros(N_POOL, dtype=torch.bool)
@@ -312,7 +377,10 @@ def main() -> int:
         name="bench_pool",
     )
 
-    def cfg(fused: bool, mesh=(1, 1)) -> ExperimentConfig:
+    def cfg(fused: bool, mesh=(1, 1), **kw) -> ExperimentConfig:
+        return dataclasses.replace(_cfg(fused, mesh), **kw)
+
+    def _cfg(fused: bool, mesh=(1, 1)) -> ExperimentConfig:
         return ExperimentConfig(
             forest=ForestConfig(n_trees=TREES, max_depth=DEPTH, max_bins=BINS,
                                 fit="device", kernel="pallas"),
@@ -347,11 +415,11 @@ def main() -> int:
     launches = {}
     runs = {}
 
-    def drive(path: str, fused: bool, mesh=(1, 1), devices=None):
+    def drive(path: str, fused: bool, mesh=(1, 1), devices=None, **kw):
         dbg = Debugger(enabled=False)
         zero_counts()
         t0 = time.perf_counter()
-        res = loop.run_experiment(cfg(fused, mesh), bundle=bundle, debugger=dbg, device=dev,
+        res = loop.run_experiment(cfg(fused, mesh, **kw), bundle=bundle, debugger=dbg, device=dev,
                                   devices=devices)
         wall = time.perf_counter() - t0
         launches[path] = counts()
@@ -430,6 +498,91 @@ def main() -> int:
             fail(f"small mesh run (fused={fused}) on the card != CPU mesh:\n{on_card}\n{on_cpu}")
     print("# small checkerboard mesh run 4 x 2: card == CPU plain versions, fused and unfused")
 
+    # -- phase 4c: the chunked driver ---------------------------------------
+    K, CHUNK_ROUNDS = 4, 6
+    n_chunks = -(-CHUNK_ROUNDS // K)
+    for fused in (True, False):
+        name = "fused" if fused else "unfused"
+        per_kernel = 1 if fused else 2  # K1 launches a round; K2 launches once when fused
+        ref_path = f"per_round_{name}_{CHUNK_ROUNDS}"
+        want_launches[ref_path] = {
+            "forest_leaves": per_kernel * CHUNK_ROUNDS,
+            "round_megakernel": CHUNK_ROUNDS if fused else 0, "fused_votes": 0, "ring_hop": 0}
+        drive(ref_path, fused, max_rounds=CHUNK_ROUNDS)
+        ref = runs[ref_path]
+        ref_recs = [(r.round, r.n_labeled, r.accuracy) for r in ref.records]
+        for depth in (1, 2):
+            path = f"chunked_{name}_depth{depth}"
+            # One eager warm-up round, then K rounds per replay (a replay is
+            # counted as the launches its capture recorded).
+            rounds_run = 1 + n_chunks * K
+            want_launches[path] = {
+                "forest_leaves": per_kernel * rounds_run,
+                "round_megakernel": rounds_run if fused else 0, "fused_votes": 0, "ring_hop": 0}
+            drive(path, fused, max_rounds=CHUNK_ROUNDS, rounds_per_launch=K, pipeline_depth=depth)
+            res = runs[path]
+            got = [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+            if got != ref_recs:
+                fail(f"{path} records differ from the per-round run: {got} vs {ref_recs}")
+            if not torch.equal(res.final_labeled_mask, ref.final_labeled_mask):
+                fail(f"{path} final labeled mask differs from the per-round run")
+            g = res.graph_stats
+            if g is None or g["captures"] != 1 or g["replays"] != n_chunks:
+                fail(f"{path}: graph captures/replays {g}, want 1 capture and {n_chunks} replays")
+            st = res.pipeline_stats
+            print(f"#   {path}: graph captures {g['captures']}, replays {g['replays']}, private "
+                  f"pool {g['pool_bytes'] / 2**20:.0f} MiB, launches per replay "
+                  f"{g['launches_per_replay']}; chunks {st.chunks}, vetoed {st.vetoed}, "
+                  f"touchdown hidden {st.touchdown_hidden_fraction:.3f}")
+    print(f"# chunked driver (K = {K}, max_rounds = {CHUNK_ROUNDS}): fused and unfused, depth 1 "
+          f"and 2 == per-round (records and final {N_POOL}-row mask); each chunk a graph replay")
+
+    # The chunk body, eagerly, with host syncs turned into errors.
+    st0 = state_lib.set_start_state(
+        state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev),
+        N_START)
+    binned0 = trees_train.make_bins(st0.x, BINS)
+    tx_dev = torch.from_numpy(test_np).to(dev)
+    ty_dev = torch.from_numpy(labels(test_np)).to(dev)
+    for fused in (True, False):
+        c = cfg(fused)
+        body = loop.make_chunk_fn(
+            get_strategy(c.strategy), WINDOW, 2,
+            loop.make_device_fit(c, binned0.edges, N_START + 4 * WINDOW), N_POOL, fused_round=fused)
+        body_args = (binned0.codes, state_lib.as_carry(st0),
+                     StrategyAux(seed_mask=st0.labeled_mask.clone()), prng.key(7, dev),
+                     tx_dev, ty_dev, torch.as_tensor(99, dtype=torch.int32).to(dev))
+        body(*body_args)  # constants cached, kernels loaded
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, extras, _ = body(*body_args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if int(extras.n_active) != 2:
+            fail("the eager chunk body did not run two active rounds")
+    del st0, binned0, tx_dev, ty_dev, body_args
+    print("# chunk body, eager, torch.cuda.set_sync_debug_mode('error'): no host sync, fused "
+          "and unfused")
+
+    # Seconds per round, steady state: rounds 5-12 of a 12-round run (chunks 2
+    # and 3 of 3; the first chunk holds the warm-up round and the capture).
+    TIMED = 12
+    chunk_times = {}
+    for fused in (True, False):
+        name = "fused" if fused else "unfused"
+        for label, kw in (("per_round", {}),
+                          ("chunked_depth1", dict(rounds_per_launch=K, pipeline_depth=1)),
+                          ("chunked_depth2", dict(rounds_per_launch=K, pipeline_depth=2))):
+            t0 = time.perf_counter()
+            res = loop.run_experiment(cfg(fused, max_rounds=TIMED, **kw), bundle=bundle, device=dev)
+            wall = time.perf_counter() - t0
+            steady = [r.total_time for r in res.records[K:]]
+            chunk_times[f"{name}_{label}"] = sum(steady) / len(steady)
+            print(f"# seconds per round, {name} {label}: {chunk_times[f'{name}_{label}']:.5f} "
+                  f"(rounds {K + 1}-{TIMED}; whole run {wall:.2f}s incl. set-up; {kind}, {smi})")
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -480,9 +633,55 @@ def main() -> int:
     k4_bound, k4_by = bound(2 * nbytes(hv, hi), 0)
     print(f"# time ring_hop (k={WINDOW}): {k4_ms:.4f} ms kernel, {k4_plain:.4f} ms plain, "
           f"{k4_lib:.4f} ms Tensor.copy_, bound {k4_bound:.7f} ms by {k4_by} ({kind}, {smi})")
+    # K5 and K6 on packed operands at (bn, bt) = (2048, 8), the hi + lo
+    # payload: bytes are x^T once, the forest's operands once and the [T, n]
+    # f32 output once; the least work is K1's walk.
+    p5 = lv._prep_transposed(gf, x_full, 2048, 8)
+    k5_ms = cuda_ms(lambda: lv._launch_transposed(p5, 2048, 8))
+    k5_outer_ms = cuda_ms(lambda: lv._launch_transposed(p5, 2048, 8, tree_outer=True))
+    k5_plain = cuda_ms(lambda: lv.predict_leaves_transposed_plain(gf, x_full), reps=3)
+    k5_bound, k5_by = bound(
+        nbytes(p5.xT, p5.feat, p5.thr, p5.plus, p5.minus, p5.tgt, p5.val_hi, p5.val_lo) + out_bytes,
+        k1_ops)
+    p6 = lv._segmented_operands(gf, pool, 2048, 8)
+    k6_ms = cuda_ms(lambda: lv._launch_segmented(p6, 2048, 8))
+    k6_plain = cuda_ms(lambda: lv._segmented_plain(p6), reps=3)
+    k6_bound, k6_by = bound(
+        nbytes(p6.xT, p6.thr, p6.plus, p6.minus, p6.tgt, p6.val_hi, p6.val_lo) + out_bytes, k1_ops)
+    print(f"# time forest_leaves_transposed (bn 2048, bt 8): {k5_ms:.4f} ms kernel "
+          f"({k5_outer_ms:.4f} ms tree_outer), {k5_plain:.4f} ms plain, bound {k5_bound:.4f} ms "
+          f"by {k5_by} ({100 * k5_bound / k5_ms:.3f}% of it; {kind}, {smi})")
+    print(f"# time forest_leaves_segmented (bn 2048, bt 8, S = {p6.S}): {k6_ms:.4f} ms kernel, "
+          f"{k6_plain:.4f} ms plain, bound {k6_bound:.4f} ms by {k6_by} "
+          f"({100 * k6_bound / k6_ms:.3f}% of it; {kind}, {smi})")
+    del p5
     for fused in (True, False):
         profile_round(loop, cfg(fused), bundle, dev, "fused" if fused else "unfused")
     profile_round(loop, cfg(True, (4, 2)), bundle, dev, "mesh 4 x 2 fused", devices=one_card)
+
+    # -- phase 6: the port's bench ------------------------------------------
+    for mode, extra in (("score", []), ("round", []), ("variants", ["--variants", "v0,v1,v8,r1"])):
+        if mode == "variants":
+            lv.transposed_launches = lv.segmented_launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(["--mode", mode, *extra])
+        lines = out.getvalue().splitlines()
+        if rc != 0 or len(lines) != 1:
+            fail(f"bench --mode {mode} exited {rc} and printed {len(lines)} lines: {lines[-1:]}")
+        print(lines[0])
+        payload = json.loads(lines[0])
+        if "error" in payload or not payload.get("value", 0) > 0 or payload.get("card") != smi:
+            fail(f"bench --mode {mode}: bad line")
+        print(f"# bench --mode {mode}: {time.perf_counter() - t0:.1f}s, {payload['metric']} = "
+              f"{payload['value']}")
+    variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
+                        "forest_leaves_segmented": lv.segmented_launches}
+    print(f"# bench --mode variants launches, counted from 0: {variant_launches}")
+    if not (lv.transposed_launches > 0 and lv.segmented_launches > 0):
+        fail(f"the variants bench launched K5 {lv.transposed_launches} and K6 "
+             f"{lv.segmented_launches} times")
     print(f"# total {time.perf_counter() - t_all:.1f}s")
 
     pkg = "distributed_active_learning_tpu_torch/csrc"
@@ -513,7 +712,21 @@ def main() -> int:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib,
          "peer_path_run": peer_run},
-    ]}))
+        {"name": "forest_leaves_transposed", "route": "cuda",
+         "source": f"{pkg}/forest_leaves_transposed.cu",
+         "replaces": "benches/pallas_variants.py:116",
+         "launches": variant_launches["forest_leaves_transposed"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain,
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
+         "tree_outer_ms": k5_outer_ms},
+        {"name": "forest_leaves_segmented", "route": "cuda",
+         "source": f"{pkg}/forest_leaves_segmented.cu",
+         "replaces": "benches/pallas_variants.py:359",
+         "launches": variant_launches["forest_leaves_segmented"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
+         "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
+         "segment_slots": seg_S},
+    ], "seconds_per_round": chunk_times}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

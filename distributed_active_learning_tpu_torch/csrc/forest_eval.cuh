@@ -1,5 +1,7 @@
-// Shared eval body of the two forest kernels (forest_leaves.cu and
-// round_megakernel.cu), the Hopper counterpart of the JAX package's
+// Shared eval body of the forest kernels (forest_leaves.cu,
+// round_megakernel.cu, fused_votes.cu; the layout variants
+// forest_leaves_transposed.cu and forest_leaves_segmented.cu reuse its
+// staging and its popcount), the Hopper counterpart of the JAX package's
 // trees_pallas._leaf_rows: for each (row, tree), the leaf value reached when
 // every node slot's feature, rounded to bf16, is compared against its f32
 // threshold.
@@ -103,7 +105,9 @@ __device__ inline void stage_rows(const float* __restrict__ x, int n, int d, int
   }
 }
 
-__device__ inline void stage_tree(const Forest& F, int t, Smem s) {
+// Tree t's node arrays, path masks, targets and nonzero-word masks; the leaf
+// payload is staged by the caller (stage_tree adds the f32 values).
+__device__ inline void stage_nodes(const Forest& F, int t, Smem s) {
   const int nw = F.L * F.W;
   for (int i = threadIdx.x; i < F.i_pad; i += blockDim.x) {
     s.feat[i] = F.feat[(size_t)t * F.i_pad + i];
@@ -115,7 +119,6 @@ __device__ inline void stage_tree(const Forest& F, int t, Smem s) {
   }
   for (int l = threadIdx.x; l < F.L; l += blockDim.x) {
     s.tgt[l] = F.tgt[(size_t)t * F.L + l];
-    s.val[l] = F.val[(size_t)t * F.L + l];
     uint32_t m = 0;
     for (int w = 0; w < F.W; ++w) {
       const size_t k = (size_t)t * nw + (size_t)l * F.W + w;
@@ -123,6 +126,29 @@ __device__ inline void stage_tree(const Forest& F, int t, Smem s) {
     }
     s.nz[l] = m;
   }
+}
+
+__device__ inline void stage_tree(const Forest& F, int t, Smem s) {
+  stage_nodes(F, t, s);
+  for (int l = threadIdx.x; l < F.L; l += blockDim.x) {
+    s.val[l] = F.val[(size_t)t * F.L + l];
+  }
+}
+
+// Ancestor-agreement count of leaf l of the staged tree from the compare bits
+// c (W <= MAX_W words, held in registers).
+__device__ inline int ancestor_count(const Smem& s, int W, int l, const uint32_t (&c)[MAX_W]) {
+  const uint32_t nz = s.nz[l];
+  const uint32_t* p = s.plus + l * W;
+  const uint32_t* m = s.minus + l * W;
+  int count = 0;
+#pragma unroll
+  for (int w = 0; w < MAX_W; ++w) {
+    if (nz & (1u << w)) {
+      count += __popc(c[w] & p[w]) - __popc(c[w] & m[w]);
+    }
+  }
+  return count;
 }
 
 // Leaf value of the staged tree for this thread's row.
@@ -143,17 +169,7 @@ __device__ inline float eval_tree(const Forest& F, Smem s) {
   }
   float acc = 0.0f;
   for (int l = 0; l < F.L; ++l) {
-    const uint32_t nz = s.nz[l];
-    const uint32_t* p = s.plus + l * F.W;
-    const uint32_t* m = s.minus + l * F.W;
-    int count = 0;
-#pragma unroll
-    for (int w = 0; w < MAX_W; ++w) {
-      if (nz & (1u << w)) {
-        count += __popc(c[w] & p[w]) - __popc(c[w] & m[w]);
-      }
-    }
-    if ((float)count == s.tgt[l]) acc += s.val[l];
+    if ((float)ancestor_count(s, F.W, l, c) == s.tgt[l]) acc += s.val[l];
   }
   return acc;
 }

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("forest_leaves", "round_megakernel", "fused_votes", "ring_hop")
+SOURCES = ("forest_leaves", "round_megakernel", "fused_votes", "ring_hop",
+           "forest_leaves_transposed", "forest_leaves_segmented")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -43,6 +44,14 @@ _SIGNATURES = {
     },
     "fused_votes": {"fused_votes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
     "ring_hop": {"ring_hop": [_P, _P, _P, _P, _I, _P], "ring_hop_enable_peer": [_I, _I]},
+    "forest_leaves_transposed": {
+        "forest_leaves_transposed": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    },
+    "forest_leaves_segmented": {
+        "forest_leaves_segmented": [_P, _I, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

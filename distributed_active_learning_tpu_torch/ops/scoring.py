@@ -21,7 +21,8 @@ from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const, fma_f32
 
 @dataclasses.dataclass(frozen=True)
 class VoteFraction:
-    """``votes / n_trees`` kept as its operands (``votes`` float32)."""
+    """``votes / n_trees`` kept as its operands (``votes`` float32: hard vote
+    counts, or the sum of the trees' leaf values for the soft mean)."""
 
     votes: torch.Tensor
     n_trees: int

@@ -58,15 +58,13 @@ def predict_leaves_gemm(gf: GemmForest, x: torch.Tensor, chunk: int | None = Non
 
 
 def tree_mean(leaves: torch.Tensor) -> torch.Tensor:
-    """Mean over the tree axis of ``[n, T]`` leaves: trees summed in
-    ascending order (a fixed order, so CPU and CUDA give the same bits), then
+    """Mean over the tree axis of ``[n, T]`` leaves: the trees summed in the
+    order XLA's CPU reduce adds them (``xla_f32.row_sum``: one fixed order,
+    so CPU and CUDA give the same bits, and they are the JAX package's),
     divided by T in the JAX package's reciprocal form."""
-    from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const, row_sum
 
-    acc = leaves[:, 0].clone()
-    for t in range(1, leaves.shape[1]):
-        acc += leaves[:, t]
-    return div_const(acc, leaves.shape[1])
+    return div_const(row_sum(leaves), leaves.shape[1])
 
 
 def predict_proba_gemm(gf: GemmForest, x: torch.Tensor, chunk: int | None = None) -> torch.Tensor:

@@ -147,23 +147,39 @@ def _bits(cols: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+def _path_masks(src: torch.Tensor, i_pad: int):
+    """Plus and minus bit masks ``[T', L, i_pad // 32]`` of path matrices
+    ``[T', I, L]``; raises unless every entry is -1, 0 or +1 (the masks are
+    exact only then; the check reads one boolean back from the device)."""
+    if not bool(((src == 1) | (src == 0) | (src == -1)).all()):
+        raise ValueError("path matrix entries must be -1, 0 or +1")
+    cols = torch.nn.functional.pad(src.transpose(1, 2), (0, i_pad - src.shape[1]))
+    return _bits(cols == 1).contiguous(), _bits(cols == -1).contiguous()
+
+
+# Masks of broadcast (heap) path matrices, keyed by the matrix's storage: a
+# device-fit forest's path is one constant per (depth, device), so it is
+# checked and packed once, not once per fit (the check syncs with the
+# device). Each entry holds its matrix, so a key is never reused.
+_shared_masks: dict = {}
+
+
 def forest_operands(gf: GemmForest) -> KernelOperands:
     """Pad and pack a path-matrix forest for the kernels: node slots padded
     to a multiple of 32, each leaf column of the path matrix as a plus and a
-    minus bit mask. Raises unless every path entry is -1, 0 or +1 (the masks
-    are exact only then). A device-fit forest's path is one constant
-    broadcast over trees, packed once."""
+    minus bit mask. A device-fit forest's path is one constant broadcast
+    over trees: checked and packed at its first use and kept."""
     T, I = gf.feat_ids.shape
     i_pad = -(-I // 32) * 32
     path = gf.path
-    shared = path.stride(0) == 0  # heap forests: one matrix, broadcast
-    src = path[:1] if shared else path
-    if not bool(((src == 1) | (src == 0) | (src == -1)).all()):
-        raise ValueError("path matrix entries must be -1, 0 or +1")
-    cols = torch.nn.functional.pad(src.transpose(1, 2), (0, i_pad - I))  # [T', L, i_pad]
-    plus, minus = _bits(cols == 1), _bits(cols == -1)
-    if shared:
+    if path.stride(0) == 0:  # heap forests: one matrix, broadcast
+        key = (path.data_ptr(), tuple(path.shape[1:]), path.device)
+        if key not in _shared_masks:
+            _shared_masks[key] = (path, *_path_masks(path[:1], i_pad))
+        _, plus, minus = _shared_masks[key]
         plus, minus = plus.expand(T, -1, -1), minus.expand(T, -1, -1)
+    else:
+        plus, minus = _path_masks(path, i_pad)
     pad = (0, i_pad - I)
     return KernelOperands(
         feat=torch.nn.functional.pad(gf.feat_ids.to(torch.int32), pad).contiguous(),

@@ -89,11 +89,18 @@ _POISSON1_CDF = np.cumsum(
 ).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _poisson1_cdf(device: torch.device) -> torch.Tensor:
+    """The CDF table on ``device``, uploaded once (not per fit: an upload
+    from pageable memory cannot be captured into a CUDA graph)."""
+    return torch.as_tensor(_POISSON1_CDF, device=device)
+
+
 def poisson1(key: prng.Key, shape, device=None) -> torch.Tensor:
     """Poisson(1) draws by inverse CDF on one uniform per element (batched
     keys ``[*B, 2]`` give ``[*B, *shape]``)."""
     u = prng.uniform(key, shape, device)
-    cdf = torch.as_tensor(_POISSON1_CDF, device=u.device)
+    cdf = _poisson1_cdf(u.device)
     return torch.searchsorted(cdf, u, right=True).to(torch.int32)
 
 
@@ -214,7 +221,8 @@ def fit_forest_device(
         cnt = values[level]
         tot = cnt.sum(-1, keepdim=True)
         v = cnt / torch.clamp_min(tot, 1e-9)
-        parent_v = torch.repeat_interleave(vals[level - 1], 2, dim=1)
+        prev = vals[level - 1]  # each parent twice, as repeat(2, axis=1), with no host sync
+        parent_v = prev[:, :, None, :].expand(-1, -1, 2, -1).reshape(prev.shape[0], -1, C)
         vals.append(torch.where(tot > 0, v, parent_v))
     value = torch.cat(vals, dim=1)
     return feature[:n_trees], threshold[:n_trees], value[:n_trees]
@@ -239,6 +247,14 @@ def _heap_path_target(depth: int) -> Tuple[np.ndarray, np.ndarray]:
     return path, target
 
 
+@functools.lru_cache(maxsize=None)
+def heap_path_target(depth: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_heap_path_target` on ``device``, uploaded once per (depth,
+    device) and shared by every forest fitted there."""
+    path_np, target_np = _heap_path_target(depth)
+    return torch.as_tensor(path_np, device=device), torch.as_tensor(target_np, device=device)
+
+
 def heap_gemm_forest(
     feature: torch.Tensor, threshold: torch.Tensor, value: torch.Tensor, max_depth: int
 ) -> GemmForest:
@@ -254,13 +270,12 @@ def heap_gemm_forest(
         value = value[..., 1]
     T, I = feature.shape
     L = I + 1
-    path_np, target_np = _heap_path_target(max_depth)
-    dev = feature.device
+    path, target = heap_path_target(max_depth, feature.device)
     return GemmForest(
         feat_ids=feature,
         thresholds=threshold,
-        path=torch.as_tensor(path_np, device=dev).expand(T, I, L),
-        target=torch.as_tensor(target_np, device=dev).expand(T, L),
+        path=path.expand(T, I, L),
+        target=target.expand(T, L),
         value=value[:, I:].to(torch.float32),
     )
 

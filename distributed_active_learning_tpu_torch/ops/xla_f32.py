@@ -1,13 +1,15 @@
 """float32 arithmetic as the JAX package's CPU code computes it.
 
 XLA's CPU code is not IEEE arithmetic operation by operation, and the port's
-results must equal the JAX package's bit for bit, so three of its habits are
+results must equal the JAX package's bit for bit, so four of its habits are
 written out here:
 
 - a division by a constant becomes a multiplication by the constant's
   float32 reciprocal (:func:`div_const`);
 - LLVM contracts a multiply followed by an add into one fused multiply-add
   (:func:`fma_f32`, exact in float64 with a TwoSum correction);
+- a sum over a row of more than 32 terms is not added in ascending order: XLA
+  rewrites the reduce into windows of 32 (:func:`row_sum`);
 - ``log`` is XLA's own float32 polynomial (Cephes' ``logf``, with its FMAs),
   not the C library's, and ``log2(x)`` is ``log(x) * f32(1 / ln 2)``
   (:func:`log_f32`, :func:`log2_f32`).
@@ -37,6 +39,34 @@ def recip_f32(c) -> float:
     return float(np.float32(1.0) / np.float32(c))
 
 
+_REDUCE_WINDOW = 32
+
+
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(x, axis=1)`` of ``[n, T]`` float32 in the order XLA's CPU
+    code adds the T terms (read off the compiled HLO and held against the
+    jitted sum for every T up to 299 and 512, 1000, 1024, 1025, 2000). Up to 32 terms
+    are added to 0 in ascending order. Longer rows are rewritten before code
+    generation (so the order is the same under every vector instruction set:
+    checked under SSE4.2, AVX, AVX2 and AVX-512): the row is padded with
+    zeros to a multiple of 32, ``pad // 2`` of them in front, each window of
+    32 is added in ascending order, and the window sums are reduced the same
+    way again. Elementwise adds only, so the card gives the CPU's bits."""
+    n, T = x.shape
+    W = _REDUCE_WINDOW
+    if T > W:
+        pad = -T % W
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).reshape(n, -1, W)
+        acc = torch.zeros_like(x[..., 0])
+        for t in range(W):
+            acc = acc + x[..., t]
+        return row_sum(acc)
+    acc = torch.zeros_like(x[:, 0])
+    for t in range(T):
+        acc = acc + x[:, t]
+    return acc
+
+
 def fma_f32(a, b, c) -> torch.Tensor:
     """``a * b + c`` rounded once to float32, as a fused multiply-add.
 
@@ -47,7 +77,9 @@ def fma_f32(a, b, c) -> torch.Tensor:
     error term (TwoSum). Python numbers broadcast against the tensors.
     """
     ref = next(t for t in (a, b, c) if torch.is_tensor(t))
-    a, b, c = (t if torch.is_tensor(t) else torch.tensor(t, dtype=torch.float32, device=ref.device)
+    # torch.full fills on the device: no host-to-device copy, so the call can
+    # be captured into a CUDA graph.
+    a, b, c = (t if torch.is_tensor(t) else torch.full((), t, dtype=torch.float32, device=ref.device)
                for t in (a, b, c))
     a, b, c = torch.broadcast_tensors(a, b, c)
     p = a.double() * b.double()

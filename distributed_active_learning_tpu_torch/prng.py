@@ -9,10 +9,12 @@ JAX package's end to end. Definitions follow ``jax/_src/prng.py``
 ``jax/_src/random.py::_uniform``.
 
 A key is an ``int64`` tensor whose last axis holds the two ``uint32`` words
-of ``jax.random.key_data`` (leading axes batch several keys). Keys live on
-the CPU: they are a few words, and keeping them off the card spares a
-launch per hash round; draws are generated on the requested device. The
-32-bit arithmetic runs in ``int64`` masked to 32 bits, so it is the same on
+of ``jax.random.key_data`` (leading axes batch several keys). A key may
+live on the CPU (a few words; the per-round driver keeps it there, which
+spares a launch per hash round) or on the device: the chunked driver carries
+its key on the card, because whether a round is active is known only there,
+and no function here copies a device key to the host. Draws are generated on
+the requested device. The 32-bit arithmetic runs in ``int64`` masked to 32 bits, so it is the same on
 every backend (PyTorch has no full unsigned 32-bit arithmetic on all of
 them).
 """
@@ -51,10 +53,11 @@ def threefry2x32(k1, k2, x1, x2):
     return a, b
 
 
-def key(seed: int) -> Key:
-    """``jax.random.key(seed)``'s key data: the seed's high and low words."""
+def key(seed: int, device=None) -> Key:
+    """``jax.random.key(seed)``'s key data: the seed's high and low words
+    (on the CPU unless ``device`` is given)."""
     seed = int(seed)
-    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64)
+    return torch.tensor([(seed >> 32) & _MASK, seed & _MASK], dtype=torch.int64, device=device)
 
 
 def _words(k: Key, extra_dims: int, device=None):
@@ -72,10 +75,16 @@ def split(k: Key, num: int = 2) -> Key:
 
 
 def fold_in(k: Key, data: Union[int, torch.Tensor]) -> Key:
-    """``jax.random.fold_in``: hash the counter pair ``(0, uint32(data))``."""
+    """``jax.random.fold_in``: hash the counter pair ``(0, uint32(data))``.
+    ``data`` is a Python int or an integer tensor on the key's device (the
+    chunked driver's round counter); neither is copied between host and
+    device."""
     k1, k2 = k[..., 0], k[..., 1]
-    d = torch.as_tensor(data, dtype=torch.int64) & _MASK
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    if torch.is_tensor(data):
+        d = data.to(torch.int64) & _MASK
+    else:
+        d = int(data) & _MASK
+    b1, b2 = threefry2x32(k1, k2, 0, d)
     return torch.stack([b1, b2], dim=-1)
 
 

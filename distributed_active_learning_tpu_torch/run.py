@@ -60,6 +60,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--n-start", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument(
+        "--rounds-per-launch", type=int, default=1,
+        help="run this many AL rounds per launch (one CUDA graph per chunk "
+        "on the card; the host touches down only at chunk boundaries; results "
+        "identical, stopping exact). 1 = per-round driver",
+    )
+    ap.add_argument(
+        "--pipeline-depth", type=int, default=2,
+        help="chunk launches allowed in flight at once (with "
+        "--rounds-per-launch > 1): 2 overlaps each chunk's host touchdown "
+        "with the next chunk's device execution, results bit-identical; "
+        "1 = strict serial launch -> block -> touchdown order",
+    )
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the reference-format results log")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -91,6 +104,8 @@ def main(argv=None) -> int:
         mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         n_start=args.n_start,
         max_rounds=args.rounds,
+        rounds_per_launch=args.rounds_per_launch,
+        pipeline_depth=args.pipeline_depth,
         fused_round=args.fused_round,
         seed=args.seed,
     )

@@ -1,4 +1,5 @@
-"""The AL driver loop (the port of ``runtime/loop.py``, per-round branch).
+"""The AL driver loop (the port of ``runtime/loop.py``): the per-round branch
+and the chunked branch.
 
 Each round: fit the forest on the labeled window on the device
 (``ops/trees_train.py``), score the pool and take the masked top-k (or run
@@ -12,14 +13,24 @@ padded to the data axis, every fit is sharded by trees, and the round runs
 per shard (:func:`~..parallel.kernels.make_sharded_round_fn`). The records
 and the final mask equal the single-device run's.
 
+With ``rounds_per_launch = K > 1`` the run is chunked
+(:func:`make_chunk_fn`): K rounds per launch, each a masked no-op once the
+label cap or the round quota is reached, driven by
+``runtime/pipeline.py::run_pipelined`` with up to ``pipeline_depth`` chunks
+in flight. On CUDA a chunk is one CUDA graph (:class:`GraphedChunk`),
+captured at the first call and replayed by every later one; on the CPU the
+same body runs eagerly. Records and the final mask equal the per-round run's.
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing them: the chunked driver (``rounds_per_launch > 1``), the
+slice bringing them: the chunked driver under a mesh, the
 host (sklearn) fit, ``kernel="gemm"`` under a mesh, scenarios, checkpoints,
 metrics writers, quantized storage, multiclass pools and the gather kernel.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 from typing import Optional
 
 import numpy as np
@@ -131,9 +142,10 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
 def _not_ported(cfg: ExperimentConfig, metrics) -> None:
     """Refuse what this slice does not carry, naming the slice that will."""
     refusals = [
-        (cfg.rounds_per_launch > 1,
-         "rounds_per_launch > 1 (the chunked driver, make_chunk_fn and "
-         "runtime/pipeline.py) comes with the chunked-driver slice"),
+        (cfg.rounds_per_launch > 1 and cfg.mesh.data * cfg.mesh.model > 1,
+         "rounds_per_launch > 1 under a device mesh needs constrain_forest "
+         "(the fit sharded by trees inside the chunk); it comes with the "
+         "mesh-and-pod slice"),
         (cfg.forest.fit == "host",
          "the host (sklearn) fit is not ported: the port does not depend on "
          "scikit-learn; use fit='device'"),
@@ -215,6 +227,244 @@ def make_device_fit(cfg: ExperimentConfig, edges: torch.Tensor, budget: int, n_c
         return fit_body(codes, edges, state, key)
 
     return fit
+
+
+def make_chunk_fn(
+    strategy: Strategy,
+    window_size: int,
+    chunk_size: int,
+    fit_fn,
+    label_cap: int,
+    fused_round: bool = False,
+):
+    """``chunk_size`` AL rounds as one launch, on a single device.
+
+    ``chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round) ->
+    (new_state, extras, (rounds, n_labeled, accuracy, picked, active))``:
+    ``state`` is the carry form of the pool state (:func:`~.state.as_carry`:
+    key and round counter on the device), ``end_round`` a 0-d int32 tensor
+    there, each y is stacked ``[chunk_size, ...]``, ``n_labeled`` is the
+    pre-reveal count (what the evaluated forest was trained on), and
+    ``extras`` is a :class:`~.pipeline.ChunkExtras` of two 0-d int32 tensors,
+    the only values ``run_pipelined`` blocks on per chunk.
+
+    Stopping stays exact, not quantized to chunks: each step computes
+    ``active = (labeled < label_cap) & (round < end_round)`` on the device
+    and an inactive step is a masked no-op (:func:`~.state.select_state`), so
+    a chunk may overrun the stopping point and the final state still equals
+    the per-round driver's bit for bit. Inactive steps still compute a
+    (discarded) fit and score: wasted work bounded by one chunk's tail.
+
+    The body reads nothing back to the host and uploads nothing: that is
+    what lets :class:`GraphedChunk` capture it into a CUDA graph. Metrics,
+    scenarios, the in-chunk stream callback and a device mesh wait for their
+    slices.
+    """
+    from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
+
+    round_fn = make_round_fn(strategy, window_size, fused=fused_round)
+
+    def step(codes, carry: state_lib.PoolState, aux, fit_key, test_x, test_y, end_round):
+        n_labeled = state_lib.labeled_count(carry)
+        active = (n_labeled < label_cap) & (carry.round < end_round)
+        forest = fit_fn(codes, carry, prng.fold_in(fit_key, carry.round + 1))
+        new_state, picked, _ = round_fn(forest, carry, aux)
+        acc = _accuracy(forest, test_x, test_y)
+        out = state_lib.select_state(active, new_state, carry)
+        return out, (carry.round + 1, n_labeled, acc, picked.to(torch.int32), active)
+
+    def chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round):
+        ys = []
+        for _ in range(chunk_size):
+            state, y = step(codes, state, aux, fit_key, test_x, test_y, end_round)
+            ys.append(y)
+        ys = tuple(torch.stack(col) for col in zip(*ys))
+        extras = ChunkExtras(
+            n_labeled_after=state_lib.labeled_count(state),
+            n_active=ys[4].sum(dtype=torch.int32),
+        )
+        return state, extras, ys
+
+    chunk_fn.step = step
+    return chunk_fn
+
+
+def _kernel_launch_counts() -> dict:
+    """The wrappers' launch counters this module's paths can advance."""
+    from distributed_active_learning_tpu_torch.ops import round_fused, trees_pallas
+
+    return {(trees_pallas, "launches"): trees_pallas.launches,
+            (round_fused, "launches"): round_fused.launches}
+
+
+class GraphedChunk:
+    """A chunk function as one CUDA graph: the counterpart of the jitted
+    launch with a donated carry.
+
+    The first call runs one step of the body eagerly (it builds and loads
+    the kernels and fills the per-device constant caches, none of which may
+    happen while capturing), copies the carry into static buffers and
+    captures the whole chunk on them; that call and every later one replay
+    the graph. The graph ends by writing the new carry back into the static
+    buffers, so the returned state aliases the one passed to the next call
+    (pass it on; any other state is copied in first). The ys and extras are
+    static buffers too, overwritten by every replay: copy them out on the
+    same stream before the next call (``pipeline.start_host_copy``).
+
+    A capture that fails raises: nothing here falls back to the eager body.
+
+    Counters. ``captures`` and ``replays`` count this object's graph
+    captures and replays. The kernel wrappers count a launch where they
+    launch, which during a capture records the launch into the graph instead
+    of running it: the capture's counts are therefore taken back, kept as
+    ``launches_per_replay``, and added to the wrappers' counters at every
+    replay, which is where the kernels really run (K rounds' worth per
+    replay).
+    """
+
+    def __init__(self, chunk_fn):
+        self._fn = chunk_fn
+        self._graph = None
+        self.captures = 0
+        self.replays = 0
+        self.pool_bytes = 0  # device memory the graph's private pool reserved
+        self.launches_per_replay: dict = {}
+
+    def _capture(self, codes, state, aux, fit_key, test_x, test_y, end_round):
+        dev = state.x.device
+        self._fn.step(codes, state, aux, fit_key, test_x, test_y, end_round)  # warm-up
+        self._mask = state.labeled_mask.clone()
+        self._key = state.key.clone()
+        self._round = state.round.clone()
+        self._end = end_round.clone()
+        static = state.replace(labeled_mask=self._mask, key=self._key, round=self._round)
+        torch.cuda.synchronize(dev)
+        before = _kernel_launch_counts()
+        # Entering the capture empties the allocator's cache; do it first, so
+        # that what is reserved afterwards is the graph's private pool.
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, extras, ys = self._fn(codes, static, aux, fit_key, test_x, test_y, self._end)
+            self._mask.copy_(out.labeled_mask)
+            self._key.copy_(out.key)
+            self._round.copy_(out.round)
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        for (mod, name), n in before.items():
+            self.launches_per_replay[(mod, name)] = getattr(mod, name) - n
+            setattr(mod, name, n)
+        self._graph, self._static, self._extras, self._ys = graph, static, extras, ys
+        self.captures += 1
+
+    def stats(self) -> dict:
+        """Counts for a report: captures, replays, the private pool's bytes,
+        and the kernel launches one replay stands for."""
+        return {
+            "captures": self.captures,
+            "replays": self.replays,
+            "pool_bytes": self.pool_bytes,
+            "launches_per_replay": {f"{mod.__name__.rsplit('.', 1)[-1]}.{name}": n
+                                    for (mod, name), n in self.launches_per_replay.items()},
+        }
+
+    def __call__(self, codes, state, aux, fit_key, test_x, test_y, end_round):
+        if self._graph is None:
+            self._capture(codes, state, aux, fit_key, test_x, test_y, end_round)
+        elif state.labeled_mask.data_ptr() != self._mask.data_ptr():
+            self._mask.copy_(state.labeled_mask)
+            self._key.copy_(state.key)
+            self._round.copy_(state.round)
+        self._end.copy_(end_round)
+        self._graph.replay()
+        self.replays += 1
+        for (mod, name), n in self.launches_per_replay.items():
+            setattr(mod, name, getattr(mod, name) + n)
+        return self._static, self._extras, self._ys
+
+
+def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
+                 fit_budget, result, dbg, start_round):
+    """The chunked branch of :func:`run_experiment`: K rounds per launch
+    through ``pipeline.run_pipelined``. Returns the final state."""
+    from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
+
+    dev = state.x.device
+    n_pool = state.n_valid
+    K, window = cfg.rounds_per_launch, cfg.strategy.window_size
+    label_cap = n_pool if cfg.label_budget is None else min(cfg.label_budget, n_pool)
+    depth = max(int(cfg.pipeline_depth or 1), 1)
+    chunk_fn = make_chunk_fn(strategy, window, K, device_fit, label_cap,
+                             fused_round=cfg.fused_round)
+    if dev.type == "cuda":
+        chunk_fn = GraphedChunk(chunk_fn)
+    # The chunk updates the carried mask in place; at round 0 aux.seed_mask
+    # is that mask, so it gets its own copy once up front.
+    if aux.seed_mask is not None:
+        aux = dataclasses.replace(aux, seed_mask=aux.seed_mask.clone())
+    end_round = (start_round + cfg.max_rounds if cfg.max_rounds is not None
+                 else int(np.iinfo(np.int32).max))
+    # One sync at loop entry; afterwards the loop blocks only on each
+    # chunk's two stop scalars.
+    n_known = int(state_lib.labeled_count(state))
+    ctl = pipeline_lib.ChunkDriveControl(K, window, label_cap, cfg.max_rounds, n_known, start_round)
+    if ctl.already_done:
+        return state
+    # Projected upper bound on any ACTIVE fit's labeled rows over the whole
+    # run, raised here instead of mid-round: a fit inside a chunk cannot
+    # raise, and a silently truncated window would corrupt the curve.
+    # Pre-reveal counts advance on the n_known + j * window lattice and an
+    # active round needs its count < label_cap, so the largest reachable
+    # active fit size is the last lattice point under the cap, further
+    # capped by max_rounds.
+    j_cap = -(-(label_cap - n_known) // window) - 1
+    if cfg.max_rounds is not None:
+        j_cap = min(cfg.max_rounds - 1, j_cap)
+    projected = n_known + max(j_cap, 0) * window
+    if projected > fit_budget:
+        raise ValueError(
+            f"up to {projected} labeled rows would exceed the device fit window "
+            f"({fit_budget}); raise ForestConfig.fit_budget or lower "
+            "label_budget/max_rounds"
+        )
+
+    carry = state_lib.as_carry(state)
+    fit_key_dev = fit_key.to(dev)
+    end_dev = torch.as_tensor(end_round, dtype=torch.int32).to(dev)
+
+    def dispatch(st, _idx):
+        return chunk_fn(codes, st, aux, fit_key_dev, test_x, test_y, end_dev)
+
+    def touchdown(_idx, _n_labeled_after, n_active, ys, _out_state, wall):
+        # ys are this chunk's host copies. Runs overlapped with the next
+        # chunk's execution when depth > 1.
+        if n_active == 0:
+            return  # a wholly inactive (speculative tail) chunk
+        rounds_y, labeled_y, acc_y, _picked_y, active_y = ys
+        active_np = active_y.numpy()
+        rounds_np = rounds_y.numpy()[active_np]
+        labeled_np = labeled_y.numpy()[active_np]
+        acc_np = acc_y.numpy()[active_np]
+        result.extend_from_arrays(
+            rounds_np, labeled_np, n_pool - labeled_np, acc_np, total_time=wall / n_active)
+        if cfg.log_every and dbg.enabled:
+            for r, nl, a in zip(rounds_np, labeled_np, acc_np):
+                if int(r) % cfg.log_every == 0:
+                    dbg.debug(f"Iteration {int(r)} -- labeled={int(nl)} accu={float(a) * 100:.2f}")
+
+    carry, stats = pipeline_lib.run_pipelined(
+        carry,
+        dispatch=dispatch,
+        touchdown=touchdown,
+        continue_after=ctl.continue_after,
+        depth=depth,
+        may_dispatch=ctl.may_dispatch,
+    )
+    result.pipeline_stats = stats
+    if isinstance(chunk_fn, GraphedChunk):
+        result.graph_stats = chunk_fn.stats()
+    return carry
 
 
 def build_aux(cfg: ExperimentConfig, state: state_lib.PoolState) -> StrategyAux:
@@ -317,6 +567,14 @@ def run_experiment(
     n_pool = state.n_valid
     round_idx = state.round
     start_round = round_idx
+    if cfg.rounds_per_launch > 1:
+        state = _run_chunked(
+            cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
+            fit_budget, result, dbg, start_round)
+        result.final_labeled_mask = state_lib.global_labeled_mask(state).clone()
+        if cfg.results_path:
+            result.save(cfg.results_path, fmt="reference")
+        return result
     while True:
         n_labeled = int(state_lib.labeled_count(state))
         if n_labeled >= n_pool:

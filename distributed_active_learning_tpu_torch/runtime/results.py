@@ -26,9 +26,36 @@ class ExperimentResult:
     # The pool's labeled mask after the last round ([n] bool, on the run's
     # device): the picks of every round together.
     final_labeled_mask: Optional[Any] = None
+    # A chunked run's overlap accounting (runtime.pipeline.PipelineStats) and,
+    # on CUDA, its graph's counts (runtime.loop.GraphedChunk.stats: captures,
+    # replays, pool bytes); None after a per-round run.
+    pipeline_stats: Optional[Any] = None
+    graph_stats: Optional[Dict[str, Any]] = None
 
     def append(self, rec: RoundRecord) -> None:
         self.records.append(rec)
+
+    def extend_from_arrays(self, rounds, n_labeled, n_unlabeled, accuracy, total_time=None) -> None:
+        """Bulk append from stacked per-round arrays: the chunked driver's
+        touchdown, where one launch returns K rounds of outputs and the host
+        appends them at once. ``total_time`` (a scalar or one per round)
+        lands in ``total_time`` with the per-phase splits zero: attributing
+        phases inside a chunk would need the per-round host syncs the chunk
+        exists to avoid. Per-round metrics wait for the telemetry slice."""
+        n = len(rounds)
+        times = total_time
+        if times is None:
+            times = [0.0] * n
+        elif not hasattr(times, "__len__"):
+            times = [float(times)] * n
+        for i in range(n):
+            self.append(RoundRecord(
+                round=int(rounds[i]),
+                n_labeled=int(n_labeled[i]),
+                n_unlabeled=int(n_unlabeled[i]),
+                accuracy=float(accuracy[i]),
+                total_time=float(times[i]),
+            ))
 
     @property
     def final_accuracy(self) -> Optional[float]:

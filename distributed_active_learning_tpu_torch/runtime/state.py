@@ -12,6 +12,8 @@ the functions here take either form. The streaming fill watermark
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
+
 import numpy as np
 import torch
 
@@ -27,14 +29,17 @@ class PoolState:
 
     ``oracle_y`` holds every label; strategies may only consume labels where
     ``labeled_mask`` is True. ``key`` is the PRNG key threaded through rounds
-    (kept on the CPU, see :mod:`..prng`); ``round`` the round counter.
+    and ``round`` the round counter. The per-round driver keeps the key on
+    the CPU (see :mod:`..prng`) and the counter as a Python int; the chunked
+    driver carries both on the device (:func:`as_carry`), where a round that
+    turns out inactive keeps them through :func:`select_state`.
     """
 
     x: torch.Tensor             # [n, d] float32 — pool features
     oracle_y: torch.Tensor      # [n] int32
     labeled_mask: torch.Tensor  # [n] bool
     key: prng.Key               # [2] int64 key words
-    round: int = 0
+    round: Union[int, torch.Tensor] = 0  # a 0-d int32 device tensor in the carry form
     n_valid_static: int = -1
 
     def replace(self, **kw) -> "PoolState":
@@ -133,7 +138,7 @@ def _reveal_rows(mask: torch.Tensor, picked_idx: torch.Tensor, base: int = 0) ->
     local = picked_idx.to(mask.device).long() - base
     keep = (local >= 0) & (local < n)
     ext = torch.cat([mask, mask.new_zeros(1)])
-    ext[torch.where(keep, local, n)] = True
+    ext.index_fill_(0, torch.where(keep, local, n), True)
     return ext[:n]
 
 
@@ -153,6 +158,30 @@ def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
     else:
         new = _reveal_rows(mask, picked_idx)
     return state.replace(labeled_mask=new, round=state.round + 1)
+
+
+def as_carry(state: PoolState) -> PoolState:
+    """The chunked driver's carry form of a single-device state: the key and
+    the round counter (0-d int32) as tensors on the pool's device, so that a
+    chunk can advance or freeze them without asking the host."""
+    dev = state.x.device
+    return state.replace(
+        key=state.key.to(dev),
+        round=torch.as_tensor(state.round, dtype=torch.int32).to(dev),
+    )
+
+
+def select_state(active: torch.Tensor, new: PoolState, old: PoolState) -> PoolState:
+    """``new`` if the 0-d boolean ``active`` else ``old``, for the fields a
+    round changes (mask, key, round): the chunked driver's masked no-op.
+    Rounds past the label cap or the round quota inside a chunk leave the
+    carried state exactly unchanged, so stopping is exact and not quantized
+    to chunks. A select on the device, never a host branch."""
+    return old.replace(
+        labeled_mask=torch.where(active, new.labeled_mask, old.labeled_mask),
+        key=torch.where(active, new.key, old.key),
+        round=torch.where(active, new.round, old.round),
+    )
 
 
 def global_labeled_mask(state: PoolState) -> torch.Tensor:

@@ -10,6 +10,7 @@ import torch
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import StrategyConfig
 from distributed_active_learning_tpu_torch.ops import forest_eval, scoring
+from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.strategies.base import Strategy, register_strategy
 
 
@@ -44,11 +45,14 @@ def _uncertainty(cfg: StrategyConfig) -> Strategy:
 
 @register_strategy("soft_uncertainty")
 def _soft_uncertainty(cfg: StrategyConfig) -> Strategy:
-    """Least-confidence over the mean leaf probability, ascending."""
+    """Least-confidence over the mean leaf probability, ascending. The mean
+    is kept as its operands (the tree sum and T), because XLA contracts
+    ``1 - sum * (1/T)`` into one FMA as it does for the vote fraction."""
 
     def score(forest, state, key, aux):
         del key, aux
-        return scoring.uncertainty_score(forest_eval.proba(forest, state.x))
+        total = row_sum(forest_eval.leaves(forest, state.x))
+        return scoring.uncertainty_score(scoring.VoteFraction(total, forest.n_trees))
 
     return Strategy(name="soft_uncertainty", score=score, higher_is_better=False)
 

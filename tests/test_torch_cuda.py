@@ -7,7 +7,10 @@ card and without JAX, run them as
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-(the repo's conftest.py configures JAX). The file imports no JAX.
+(the repo's conftest.py configures JAX). The file imports no JAX. The module
+also carries the ``slow`` marker: every test here skips without a card, so in
+the CPU suite's ``-m 'not slow'`` run it would only spend the collection's
+time budget; the command above passes no ``-m`` and runs them all.
 """
 
 import numpy as np
@@ -19,7 +22,7 @@ from distributed_active_learning_tpu_torch.ops import ring_topk, round_fused, tr
 from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk
 from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
 
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda, pytest.mark.slow]
 
 
 @pytest.fixture
@@ -119,6 +122,59 @@ def test_mesh_kernels_match_plain(cuda):
     cv, ci = round_fused.fused_score_select(on_card, x.to(cuda), sel.to(cuda), "uncertainty", 40)
     pv, pi = round_fused.fused_score_select(on_cpu, x, sel, "uncertainty", 40)
     assert torch.equal(cv.cpu(), pv) and torch.equal(ci.cpu(), pi)
+
+
+def test_variant_kernels_match_plain(cuda):
+    """K5 (csrc/forest_leaves_transposed.cu) and K6
+    (csrc/forest_leaves_segmented.cu) against their plain versions."""
+    from distributed_active_learning_tpu_torch.benches import pallas_variants as pv
+
+    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700)):
+        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
+        x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+        k1 = trees_pallas.predict_leaves_pallas(gf, x)
+        before = pv.transposed_launches
+        flag_sets = [dict(), dict(bn=1024, bt=8), dict(bn=2048, bt=4, tree_outer=True),
+                     dict(leaf_f32=True)] + [dict(ablate=a) for a in pv.ABLATE[1:]]
+        for flags in flag_sets:
+            got = pv.predict_leaves_transposed(gf, x, **flags)
+            want = pv.predict_leaves_transposed_plain(
+                gf, x, flags.get("leaf_f32", False), flags.get("ablate", "full"))
+            assert got.shape == (n, n_trees) and torch.equal(got, want), flags
+            if flags.get("leaf_f32"):
+                assert torch.equal(got, k1)
+        assert pv.transposed_launches == before + len(flag_sets)
+        before = pv.segmented_launches
+        for bn in (1024, 4096):
+            got = pv.predict_leaves_segmented(gf, x, bn=bn, bt=8)
+            assert torch.equal(got, pv.predict_leaves_segmented_plain(gf, x, bn=bn, bt=8)), bn
+        assert pv.segmented_launches == before + 2
+
+
+def test_chunked_graph_matches_per_round(cuda):
+    """The chunked driver on the card (one CUDA graph per chunk, replayed)
+    against the per-round driver there and the eager chunk on the CPU."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        n_start=10, max_rounds=5)
+    for fused in (False, True):
+        per_round = loop.run_experiment(dataclasses.replace(base, fused_round=fused), device=cuda)
+        for depth in (1, 2):
+            c = dataclasses.replace(base, fused_round=fused, rounds_per_launch=3,
+                                    pipeline_depth=depth)
+            got = loop.run_experiment(c, device=cuda)
+            assert got.to_reference_log() == per_round.to_reference_log()
+            assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask)
+            assert got.graph_stats["captures"] == 1 and got.graph_stats["replays"] == 2
+            on_cpu = loop.run_experiment(c, device="cpu")
+            assert on_cpu.to_reference_log() == got.to_reference_log()
 
 
 def _to_cpu(gf):

@@ -4,8 +4,9 @@ fit, kernel "pallas", uncertainty, window 15, n_start 10, 3 rounds), with the
 fused round on and off. Records, the reference-format log, every round's
 picks and the final mask are identical; the test-set probabilities agree to
 rtol 1e-6 (a mean over trees). Also: the port runs in a fresh interpreter
-without importing JAX or the JAX package, and refuses what it does not carry
-yet by name."""
+without importing JAX or the JAX package (the bench, the pipeline and the
+kernel-variant sweep included), and refuses what it does not carry yet by
+name."""
 
 import dataclasses
 import subprocess
@@ -104,9 +105,11 @@ def test_run_experiment_matches_jax(fused):
 
 _ISOLATION = """
 import sys
-from distributed_active_learning_tpu_torch import parallel, run
+from distributed_active_learning_tpu_torch import bench, parallel, run
+from distributed_active_learning_tpu_torch.benches import pallas_variants
 from distributed_active_learning_tpu_torch.ops import ring_topk
 from distributed_active_learning_tpu_torch.parallel import collectives, kernels, mesh
+from distributed_active_learning_tpu_torch.runtime import pipeline
 rc = run.main(["--device", "cpu", "--fit", "device", "--kernel", "pallas",
                "--fused-round", "--n-samples", "200", "--trees", "4",
                "--window", "5", "--rounds", "2", "--quiet"])
@@ -114,6 +117,10 @@ assert rc == 0
 rc = run.main(["--device", "cpu", "--fit", "device", "--kernel", "pallas",
                "--mesh-data", "2", "--n-samples", "201", "--trees", "4",
                "--window", "5", "--rounds", "2", "--quiet"])
+assert rc == 0
+rc = run.main(["--device", "cpu", "--fit", "device", "--kernel", "pallas",
+               "--rounds-per-launch", "3", "--pipeline-depth", "2", "--n-samples", "200",
+               "--trees", "4", "--window", "5", "--rounds", "2", "--quiet"])
 assert rc == 0
 try:
     run.main(["--device", "cpu", "--fit", "host"])
@@ -134,14 +141,15 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 4
+    assert out.stdout.count("Iteration") == 6
     assert "not ported yet" in out.stderr
 
 
 def test_unported_features_are_refused_by_name():
     _, base = _cfgs(False)
     cases = [
-        (dict(rounds_per_launch=4), "chunked-driver slice"),
+        (dict(rounds_per_launch=4, mesh=t_config.MeshConfig(data=2)), "under a device mesh needs"),
+        (dict(rounds_per_launch=4, checkpoint_dir="ckpt", checkpoint_every=1), "checkpoint slice"),
         (dict(forest=dataclasses.replace(base.forest, fit="host")), "scikit-learn"),
         (dict(mesh=t_config.MeshConfig(data=2),
               forest=dataclasses.replace(base.forest, kernel="gemm")), "under a device mesh"),
@@ -152,6 +160,9 @@ def test_unported_features_are_refused_by_name():
     for change, why in cases:
         with pytest.raises(NotImplementedError, match=why):
             t_loop.run_experiment(dataclasses.replace(base, **change), device="cpu")
+    # The chunked driver itself is carried: 3 rounds in one launch of 4.
+    chunked = t_loop.run_experiment(dataclasses.replace(base, rounds_per_launch=4), device="cpu")
+    assert [r.n_labeled for r in chunked.records] == [10, 25, 40]
     with pytest.raises(ValueError, match="fused_round unavailable"):
         t_loop.run_experiment(
             dataclasses.replace(base, fused_round=True,

@@ -8,7 +8,8 @@ bit, JAX's jitted ``round_fused._score_from_votes`` and its strategies' path
 votes reach the jitted function as an argument, so XLA compiles the
 arithmetic instead of folding it as constants. Also: the round megakernel's
 plain version at 13 trees (an inexact 1/T) picks what JAX's megakernel picks
-in interpret mode.
+in interpret mode. And the tree mean and the soft uncertainty score equal
+the jitted ``jnp.mean`` expressions at 100 trees and four more tree counts.
 """
 
 import numpy as np
@@ -22,6 +23,9 @@ from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu_torch import interop
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
+from distributed_active_learning_tpu_torch.ops import scoring as t_scoring
+from distributed_active_learning_tpu_torch.ops import trees_gemm as t_gemm
+from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
 
 _MAX_T = 256
@@ -73,6 +77,21 @@ def test_score_tables_match_jax():
         got = torch.cat([t_fused.score_table(T, strategy, "cpu") for T in range(1, _MAX_T + 1)])
         bad = np.flatnonzero(got.numpy().view(np.int32) != j_fused_t.view(np.int32))
         assert bad.size == 0, (strategy, bad[:10])
+
+    # The tree mean and the soft score at 100 trees (XLA adds more than 32
+    # terms in windows of 32, not in ascending order) and on both sides of
+    # the window: bit-equal to the jitted JAX expressions.
+    j_mean = jax.jit(lambda a: jnp.mean(a, axis=1))
+    j_soft = jax.jit(lambda a: j_scoring.uncertainty_score(jnp.mean(a, axis=1)))
+    rng = np.random.default_rng(100)
+    for T in (13, 32, 33, 100, 200):
+        lv = rng.random((4000, T)).astype(np.float32)
+        tl = torch.from_numpy(lv)
+        np.testing.assert_array_equal(
+            t_gemm.tree_mean(tl).numpy().view(np.int32), np.asarray(j_mean(lv)).view(np.int32))
+        soft = t_scoring.uncertainty_score(t_scoring.VoteFraction(row_sum(tl), T))
+        np.testing.assert_array_equal(
+            soft.numpy().view(np.int32), np.asarray(j_soft(lv)).view(np.int32))
 
     # The megakernel's plain version at 13 trees: picks and values equal the
     # JAX megakernel's in interpret mode.
