@@ -8,10 +8,14 @@ and prints no result:
 1. build the six CUDA kernels from ``distributed_active_learning_tpu_torch/
    csrc`` (one nvcc per source, started together) and print the card's name
    and power limit;
-2. the leaf kernel K1 (csrc/forest_leaves.cu) against its plain PyTorch
-   version at full width (284,807 x 30 pool, 100-tree depth-8 device-fit
-   forest, 32 bins) and at one ragged shape (13 trees, 1,700 rows):
-   bit-equal;
+2. the leaf kernel K1 (csrc/forest_leaves.cu, a heap walk over the forest
+   staged in shared memory) against both plain PyTorch versions, the
+   path-matrix form and the walk over the heap operands, at full width
+   (284,807 x 30 pool, 100-tree depth-8 device-fit forest, 32 bins), on the
+   85,443-row test draw, on one 50-tree model shard of the 4 x 2 mesh
+   (71,202 rows), at one ragged shape (13 trees, 1,700 rows) and over a
+   depth sweep 1-8 on rows that hold NaN, infinities and features on node
+   thresholds: bit-equal; a path matrix that is not a heap is refused;
 2b. the vote kernel K3 (csrc/fused_votes.cu) against its plain version at
    full width, at one 50-tree model shard of the 4 x 2 mesh (71,202 rows)
    and at the ragged shape: bit-equal;
@@ -24,10 +28,11 @@ and prints no result:
 3. the round megakernel K2 (csrc/round_megakernel.cu) against its plain
    version for uncertainty, entropy, full_entropy and margin (5,000-row
    labeled mask, k = 100): per-tile candidates and merged picks bit-equal;
-3b. the ring hop K4 (csrc/ring_hop.cu): a 4-shard ring of k = 100 windows on
-   the card (four shards on cuda:0), each hop bit-equal to its plain copy and
-   the merge equal to the global stable top-k; the same ring across two cards
-   (peer stores) when two are visible, else a line saying it did not run;
+3b. the ring copy K4 (csrc/ring_hop.cu): a 4-shard ring of k = 100 windows
+   on the card (four shards on cuda:0), each hop and one ring step of all
+   four windows (one launch) bit-equal to the plain copies and the merge
+   equal to the global stable top-k; the same across two cards (peer
+   stores) when two are visible, else a line saying it did not run;
 4. the main path: ``run_experiment`` at the benchmark width (pool 284,807 x
    30, test draw 85,443 rows, 100 trees, depth 8, 32 bins, device fit,
    kernel "pallas", uncertainty, window 100, n_start 5,000, 3 rounds), once
@@ -40,7 +45,8 @@ and prints no result:
 4b. the mesh path: the phase-4 configuration with ``MeshConfig(data=4,
    model=2)`` on ``devices=[cuda:0] * 8`` (284,807 rows padded to 284,808;
    100 trees as 2 x 50), fused and unfused, counted from 0 per run: fused
-   K3 8, K4 12 and K1 8 launches a round and no K2; unfused K1 16 a round
+   K3 8, K4 3 (one a ring step) and K1 8 launches a round and no K2;
+   unfused K1 16 a round
    and no K3 or K4. Records and final masks must equal phase 4's. With two
    or more visible cards the same mesh runs again spread over them (shard
    (s, m) on card (s + m) mod n), else a line says it did not run. Then a
@@ -57,9 +63,12 @@ and prints no result:
    driver at depth 1 and 2 over 12 rounds (rounds 5-12: the first chunk holds
    the capture);
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
-   versions', the bound and (K4) ``Tensor.copy_`` of the same window; one
-   fused and one unfused main-path round under torch.profiler (device time
-   by kernel, device busy share);
+   versions' and the bound: K1 at the pool, the test draw and one mesh
+   shard; a K4 ring step of four k = 100 windows beside four
+   ``Tensor.copy_`` pairs into preallocated buffers; ``merge_tile_topk`` at
+   the fused round's shape; then one fused and one unfused main-path round
+   and one mesh fused round under torch.profiler (device time by kernel,
+   device busy share);
 6. the port's bench at the benchmark width: ``--mode score``, ``--mode
    round`` and ``--mode variants`` (K1, two K5 tilings, one K6), each JSON
    line printed on a line of its own. K5's and K6's launch counts are read
@@ -139,6 +148,25 @@ def bound(n_bytes: float, n_ops: float):
 
 def labels(x: np.ndarray) -> np.ndarray:
     return (x[:, 0] + 0.3 * x[:, 1] > 0).astype(np.int32)
+
+
+def edge_rows(gf, rng, n: int) -> torch.Tensor:
+    """Normal rows of N_FEAT features in which every eighth row is all NaN,
+    +inf or -inf (or one feature of it is), and others hold a node's
+    threshold exactly or the bf16 tie above its rounding."""
+    x = rng.normal(size=(n, N_FEAT)).astype(np.float32)
+    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.cpu().numpy()
+    for r in range(n):
+        kind = r % 8
+        if kind < 3:
+            x[r, rng.integers(N_FEAT) if r % 16 >= 8 else slice(None)] = (np.nan, np.inf, -np.inf)[kind]
+        elif kind < 5:
+            t, i = rng.integers(feat.shape[0]), rng.integers(feat.shape[1])
+            v = thr[t, i:i + 1]
+            if kind == 4:
+                v = (((v.view(np.uint32) + 0x7FFF) & 0xFFFF0000) | 0x8000).view(np.float32)
+            x[r, feat[t, i]] = v[0]
+    return torch.from_numpy(x)
 
 
 def profile_round(loop, cfg, bundle, dev, label: str, devices=None) -> None:
@@ -239,21 +267,51 @@ def main() -> int:
 
     gf = fit(TREES)
     gf13 = fit(13)
-    shapes = {"full": (gf, pool), "ragged": (gf13, pool[:1700])}
-    k1_err = 0.0
-    for label, (g, x) in shapes.items():
-        got = trees_pallas.predict_leaves_pallas(g, x)
-        ref = trees_pallas.predict_leaves_plain(g, x)
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or not torch.equal(got, ref):
-            bad = (got != ref).sum().item() if got.shape == ref.shape else "shape"
-            fail(f"forest_leaves != plain at {label} {tuple(x.shape)}: {bad} entries differ")
-        k1_err = max(k1_err, float((got - ref).abs().max()))
-        print(f"# forest_leaves {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain")
-
-    # -- phase 2b: K3 against its plain version ----------------------------
+    test_x = torch.from_numpy(test_np).to(dev)
     n_shard = -(-N_POOL // 4)  # one data shard of the 4 x 2 mesh (284,808 / 4)
     gf_shard = mesh_lib.shard_forest(gf, mesh_lib.make_mesh(1, 2, devices=[dev, dev]))[0][0]
+    k1_err = 0.0
+
+    def check_k1(g, x, label):
+        nonlocal k1_err
+        got = trees_pallas.predict_leaves_pallas(g, x)
+        ref = trees_pallas.predict_leaves_plain(g, x)
+        walked = trees_pallas.walk_leaves_plain(trees_pallas.heap_operands(g), x)
+        torch.cuda.synchronize()
+        for name, want_ in (("plain", ref), ("walk_leaves_plain", walked)):
+            if got.shape != want_.shape or not torch.equal(got, want_):
+                bad = (got != want_).sum().item() if got.shape == want_.shape else "shape"
+                fail(f"forest_leaves != {name} at {label} {tuple(x.shape)}: {bad} entries differ")
+        k1_err = max(k1_err, float((got - ref).abs().max()))
+
+    for label, (g, x) in {"full": (gf, pool), "test": (gf, test_x),
+                          "mesh shard": (gf_shard, pool[:n_shard]),
+                          "ragged": (gf13, pool[:1700])}.items():
+        check_k1(g, x, label)
+        print(f"# forest_leaves {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain and to "
+              "walk_leaves_plain")
+    for depth_ in range(1, DEPTH + 1):
+        binned = trees_train.make_bins(train_x, BINS)
+        f, th, v = trees_train.fit_forest_device(
+            binned.codes, train_y, torch.ones(N_START, device=dev), binned.edges,
+            prng.key(args.seed + depth_), n_trees=16, max_depth=depth_, n_bins=BINS)
+        g = trees_train.heap_gemm_forest(f, th, v, depth_)
+        check_k1(g, edge_rows(g, rng, 4099).to(dev), f"depth {depth_}")
+    print(f"# forest_leaves depths 1-{DEPTH} (16 trees, 4,099 rows with NaN, +-inf and features "
+          "on node thresholds): bit-equal to plain and to walk_leaves_plain")
+    swapped = dataclasses.replace(gf13, path=gf13.path[:, :, [1, 0, *range(2, 2 ** DEPTH)]])
+    before = trees_pallas.launches
+    try:
+        trees_pallas.predict_leaves_pallas(swapped, pool[:10])
+        fail("forest_leaves took a path matrix that is not a heap")
+    except ValueError as e:
+        if "host fit" not in str(e) or trees_pallas.launches != before:
+            fail(f"a non-heap path matrix was not refused by name: {e}")
+    print("# forest_leaves: a non-heap path matrix is refused (ValueError), no launch")
+    k1_cfg = trees_pallas.leaves_launch_config(trees_pallas.heap_operands(gf), N_POOL, N_FEAT, dev)
+    print(f"# forest_leaves launch at full width: {k1_cfg}")
+
+    # -- phase 2b: K3 against its plain version ----------------------------
     k3_shapes = {"full": (gf, pool), "shard": (gf_shard, pool[:n_shard]),
                  "ragged": (gf13, pool[:1700])}
     for label, (g, x) in k3_shapes.items():
@@ -350,12 +408,32 @@ def main() -> int:
             torch.cuda.synchronize()
             if not (torch.equal(hv, pv) and torch.equal(hi, pi)):
                 fail(f"ring_hop != plain copy ({label}, shard {s_})")
+        # One ring step: each shard's window into a buffer on its right
+        # neighbour, one launch per sending card.
+        def buffers():
+            return [(torch.full((WINDOW,), float("nan"), device=devs[(s_ + 1) % len(devs)]),
+                     torch.full((WINDOW,), -1, dtype=torch.int32,
+                                device=devs[(s_ + 1) % len(devs)])) for s_ in range(len(devs))]
+        got_, ref_ = buffers(), buffers()
+        before = ring_topk.launches
+        for d_ in dict.fromkeys(devs):
+            shards = [s_ for s_ in range(len(devs)) if devs[s_] == d_]
+            ring_topk.ring_step([windows[s_] for s_ in shards], [got_[s_] for s_ in shards])
+        step_launches = ring_topk.launches - before
+        ring_topk.ring_step_plain(windows, ref_)
+        torch.cuda.synchronize()
+        if step_launches != len(set(devs)):
+            fail(f"a ring step launched {step_launches} times over {len(set(devs))} sending cards")
+        for s_, ((gv, gi), (rv, ri)) in enumerate(zip(got_, ref_)):
+            if not (torch.equal(gv, rv) and torch.equal(gi, ri)):
+                fail(f"ring_step != plain copy ({label}, shard {s_})")
         want_v, want_i = stable_top_k(torch.where(sel, scores, float("-inf")), WINDOW)
         for s_, (v, i) in enumerate(ring_topk.ring_topk(windows, WINDOW)):
             if not (torch.equal(v.cpu(), want_v) and torch.equal(i.cpu().long(), want_i)):
                 fail(f"ring_topk != global stable top-k ({label}, shard {s_})")
-        print(f"# ring_hop {label}: every hop bit-equal to its copy; ring_topk (k={WINDOW}) "
-              "== global stable top-k on every shard")
+        print(f"# ring_hop {label}: every hop and a ring step ({step_launches} launch(es)) "
+              f"bit-equal to the plain copies; ring_topk (k={WINDOW}) == global stable top-k on "
+              "every shard")
         return windows
 
     ring_dev = [dev] * 4
@@ -400,7 +478,8 @@ def main() -> int:
     # Each path's launches are counted from 0 over its own run. Single
     # device: the fused round launches K2 to score and K1 for test accuracy,
     # the unfused round K1 for both. Mesh 4 x 2: the fused round launches K3
-    # on each of the 8 shards, 4 x 3 ring hops and K1 per shard for accuracy;
+    # on each of the 8 shards, one K4 per ring step (3 steps, every sender
+    # on the one card) and K1 per shard for accuracy;
     # the unfused round K1 per shard to score and again for accuracy.
     want_launches = {
         "fused": {"forest_leaves": ROUNDS, "round_megakernel": ROUNDS,
@@ -408,7 +487,7 @@ def main() -> int:
         "unfused": {"forest_leaves": 2 * ROUNDS, "round_megakernel": 0,
                     "fused_votes": 0, "ring_hop": 0},
         "mesh_fused": {"forest_leaves": 8 * ROUNDS, "round_megakernel": 0,
-                       "fused_votes": 8 * ROUNDS, "ring_hop": 12 * ROUNDS},
+                       "fused_votes": 8 * ROUNDS, "ring_hop": 3 * ROUNDS},
         "mesh_unfused": {"forest_leaves": 16 * ROUNDS, "round_megakernel": 0,
                          "fused_votes": 0, "ring_hop": 0},
     }
@@ -480,7 +559,9 @@ def main() -> int:
         spread = [torch.device("cuda", (s_ + m) % n_cards) for s_ in range(4) for m in range(2)]
         for fused in (True, False):
             path = "mesh_cards_fused" if fused else "mesh_cards_unfused"
-            want_launches[path] = want_launches["mesh_fused" if fused else "mesh_unfused"]
+            want_launches[path] = dict(want_launches["mesh_fused" if fused else "mesh_unfused"])
+            if fused:  # one K4 per sending card and ring step (model column 0 sends)
+                want_launches[path]["ring_hop"] = 3 * len({spread[2 * s_] for s_ in range(4)}) * ROUNDS
             drive(path, fused, mesh=(4, 2), devices=spread)
             got = [(r.round, r.n_labeled, r.accuracy) for r in runs[path].records]
             if got != recs[True] or not torch.equal(
@@ -594,19 +675,42 @@ def main() -> int:
     k1_ops = N_POOL * T * depth
     k2_ops = N_POOL * T * (depth + 1)
     op_bytes = nbytes(ops.feat, ops.thr, ops.plus, ops.minus, ops.tgt, ops.val)
-    k1_ms = cuda_ms(lambda: trees_pallas._launch_leaves(ops, x_full))
-    k1_plain = cuda_ms(lambda: trees_pallas.predict_leaves_plain(gf, x_full), reps=3)
-    k1_bound, k1_by = bound(nbytes(x_full) + op_bytes + out_bytes, k1_ops)
+    # K1 counts the forest in its heap form; the path-matrix operands it read
+    # before give the old bound beside it.
+    k1 = {}
+    for label, (g, x) in (("pool", (gf, x_full)), ("test", (gf, test_x.contiguous())),
+                          ("mesh shard", (gf_shard, pool[:n_shard].contiguous()))):
+        h = trees_pallas.heap_operands(g)
+        ms = cuda_ms(lambda: trees_pallas._launch_leaves(h, x), reps=9)
+        plain = cuda_ms(lambda: trees_pallas.predict_leaves_plain(g, x), reps=3)
+        walk_plain = cuda_ms(lambda: trees_pallas.walk_leaves_plain(h, x), reps=3)
+        o_bytes = nbytes(x) + g.n_trees * x.shape[0] * 4
+        lim, by = bound(o_bytes + nbytes(h.nodes, h.val), x.shape[0] * g.n_trees * depth)
+        o = trees_pallas.forest_operands(g)
+        old_lim, _ = bound(o_bytes + nbytes(o.feat, o.thr, o.plus, o.minus, o.tgt, o.val),
+                           x.shape[0] * g.n_trees * depth)
+        k1[label] = dict(ms=ms, plain_ms=plain, walk_plain_ms=walk_plain, bound_ms=lim,
+                         bound_by=by, path_matrix_bound_ms=old_lim)
+        print(f"# time forest_leaves {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel, "
+              f"{plain:.4f} ms plain, {walk_plain:.4f} ms walk_leaves_plain, bound {lim:.4f} ms "
+              f"by {by} ({100 * lim / ms:.3f}% of it; path-matrix operands' bound "
+              f"{old_lim:.4f} ms; launch {trees_pallas.leaves_launch_config(h, *x.shape, dev)}; "
+              f"{kind}, {smi})")
+    k1_ms, k1_plain = k1["pool"]["ms"], k1["pool"]["plain_ms"]
+    k1_bound, k1_by = k1["pool"]["bound_ms"], k1["pool"]["bound_by"]
     table = round_fused.score_table(TREES, "uncertainty", dev)
     k2_ms = cuda_ms(lambda: round_fused._launch_megakernel(ops, x_full, selectable, table, WINDOW))
     k2_plain = cuda_ms(
         lambda: round_fused.megakernel_plain(gf, x_full, selectable, table, WINDOW), reps=3)
     ni = -(-N_POOL // round_fused.TILE_ROWS)
     k2_bound, k2_by = bound(nbytes(x_full, selectable, table) + op_bytes + ni * WINDOW * 8, k2_ops)
-    for name, ms, plain, lim, by in (("forest_leaves", k1_ms, k1_plain, k1_bound, k1_by),
-                                     ("round_megakernel", k2_ms, k2_plain, k2_bound, k2_by)):
-        print(f"# time {name}: {ms:.4f} ms kernel, {plain:.4f} ms plain, bound {lim:.4f} ms "
-              f"by {by} ({100 * lim / ms:.3f}% of it; {kind}, {smi})")
+    print(f"# time round_megakernel: {k2_ms:.4f} ms kernel, {k2_plain:.4f} ms plain, bound "
+          f"{k2_bound:.4f} ms by {k2_by} ({100 * k2_bound / k2_ms:.3f}% of it; {kind}, {smi})")
+    # The fused round's tile merge: a stable sort of ni x k candidates.
+    tv, ti = round_fused._launch_megakernel(ops, x_full, selectable, table, WINDOW)
+    merge_ms = cuda_ms(lambda: merge_tile_topk(tv, ti, WINDOW), reps=9)
+    print(f"# time merge_tile_topk ({tv.shape[0]} tiles x {tv.shape[1]} candidates, k={WINDOW}): "
+          f"{merge_ms:.4f} ms ({kind}, {smi})")
     # K3 at the mesh's per-shard shape (its main path: 71,202 rows x 50
     # trees) and at the full width; its least work is the walk and the vote
     # per (row, tree), its bytes the rows, the forest and [n] int32 votes.
@@ -622,17 +726,29 @@ def main() -> int:
         print(f"# time fused_votes {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel, "
               f"{plain:.4f} ms plain, bound {lim:.4f} ms by {by} ({100 * lim / ms:.3f}% of it; "
               f"{kind}, {smi})")
-    # K4: one hop of a k = 100 window (800 bytes read, 800 written) between
-    # two shards on the card, timed over 100 back-to-back hops; the library
-    # yardstick is Tensor.copy_ of the same window into buffers there.
+    # K4: one ring step of the mesh on the card, four k = 100 windows (800
+    # bytes read and 800 written each) into preallocated buffers, timed over
+    # 100 back-to-back steps; the library yardstick is four Tensor.copy_
+    # pairs into the same buffers. A hop is a quarter of a step.
+    step_dst = [(torch.empty_like(v), torch.empty_like(i)) for v, i in hop_windows]
+    step_ms = cuda_ms(lambda: ring_topk.ring_step(hop_windows, step_dst), reps=9, inner=100)
+    step_plain = cuda_ms(lambda: ring_topk.ring_step_plain(hop_windows, step_dst), reps=9,
+                         inner=100)
+    lib_step_ms = cuda_ms(lambda: [(dv.copy_(v), di.copy_(i))
+                                   for (v, i), (dv, di) in zip(hop_windows, step_dst)],
+                          reps=9, inner=100)
     hv, hi = hop_windows[0]
-    k4_ms = cuda_ms(lambda: ring_topk._launch_hop(hv, hi, dev), inner=100)
-    k4_plain = cuda_ms(lambda: ring_topk.hop_plain(hv, hi, dev), inner=100)
-    dst_v, dst_i = torch.empty_like(hv), torch.empty_like(hi)
-    k4_lib = cuda_ms(lambda: (dst_v.copy_(hv), dst_i.copy_(hi)), inner=100)
+    hop_ms = cuda_ms(lambda: ring_topk.hop(hv, hi, dev), reps=9, inner=100)
+    n_win = len(hop_windows)
+    k4_ms, k4_plain, k4_lib = step_ms / n_win, step_plain / n_win, lib_step_ms / n_win
     k4_bound, k4_by = bound(2 * nbytes(hv, hi), 0)
-    print(f"# time ring_hop (k={WINDOW}): {k4_ms:.4f} ms kernel, {k4_plain:.4f} ms plain, "
-          f"{k4_lib:.4f} ms Tensor.copy_, bound {k4_bound:.7f} ms by {k4_by} ({kind}, {smi})")
+    print(f"# time ring_step ({n_win} windows, k={WINDOW}, one launch): step_ms {step_ms:.4f}, "
+          f"ms a hop {k4_ms:.4f}; plain copies {step_plain:.4f} ms a step; {n_win} Tensor.copy_ "
+          f"pairs {lib_step_ms:.4f} ms; a lone hop (fresh buffers) {hop_ms:.4f} ms; bound "
+          f"{k4_bound:.7f} ms a hop by {k4_by} ({kind}, {smi})")
+    if step_ms > lib_step_ms:
+        print(f"# NOTE ring_step ({step_ms:.4f} ms) is slower than {n_win} Tensor.copy_ pairs "
+              f"({lib_step_ms:.4f} ms) in this run")
     # K5 and K6 on packed operands at (bn, bt) = (2048, 8), the hi + lo
     # payload: bytes are x^T once, the forest's operands once and the [T, n]
     # f32 output once; the least work is K1's walk.
@@ -691,7 +807,8 @@ def main() -> int:
          "launches": launches["fused"]["forest_leaves"],
          "launches_by_path": {p: launches[p]["forest_leaves"] for p in launches},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "by_shape": k1, "launch_config": k1_cfg},
         {"name": "round_megakernel", "route": "cuda", "source": f"{pkg}/round_megakernel.cu",
          "replaces": "distributed_active_learning_tpu/ops/round_fused.py:166",
          "launches": launches["fused"]["round_megakernel"],
@@ -711,6 +828,7 @@ def main() -> int:
          "launches_by_path": {p: launches[p]["ring_hop"] for p in launches},
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib,
+         "step_ms": step_ms, "library_step_ms": lib_step_ms, "hop_ms": hop_ms,
          "peer_path_run": peer_run},
         {"name": "forest_leaves_transposed", "route": "cuda",
          "source": f"{pkg}/forest_leaves_transposed.cu",
@@ -726,7 +844,7 @@ def main() -> int:
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "segment_slots": seg_S},
-    ], "seconds_per_round": chunk_times}))
+    ], "seconds_per_round": chunk_times, "merge_tile_topk_ms": merge_ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

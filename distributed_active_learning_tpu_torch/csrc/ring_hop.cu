@@ -1,44 +1,75 @@
-// One hop of the ring top-k merge: the Hopper port of the JAX package's
+// One step of the ring top-k merge: the Hopper port of the JAX package's
 // ops/ring_topk.py::_hop_kernel (launched by _hop_pallas there, by
-// ops/ring_topk.py::_launch_hop here).
+// ops/ring_topk.py::_launch_ring_step here).
 //
 // The TPU kernel signals a barrier semaphore on both ring neighbours, waits
 // for theirs, then DMAs its k-row window (k f32 values, k i32 indices) into
-// the right neighbour's output buffers over ICI. Here one process drives
-// every shard, so the handshake is stream ordering done by the wrapper
-// (events on the sender's and the receiver's streams), and the copy is this
-// kernel: it runs on the sender's device and stream and stores the window
-// straight into buffers that live on the receiver's device, through a peer
-// pointer under unified addressing on distinct cards (peer access is enabled
-// once per neighbour pair by ring_hop_enable_peer), or on the same card when
-// the mesh repeats it.
+// the right neighbour's output buffers over ICI; the ring runs S - 1 such
+// hops per shard. Here one process drives every shard, so the handshake is
+// stream order kept by the wrapper (events only between distinct cards),
+// and one launch copies every window that the shards on one card send in
+// one ring step: a mesh on one card runs one launch per step, a mesh over
+// cards one launch per card per step. A receiving buffer on another card is
+// written through a peer pointer under unified addressing (peer access is
+// enabled once per neighbour pair by ring_hop_enable_peer).
 //
-// What bounds it on an H100: it reads 8 k bytes and writes 8 k (1,600 at
-// k = 100), half a nanosecond at 3.35 TB/s, so its time is launch and
-// enqueue overhead (PERF.md has the measurement); one thread per row, one
-// block per 256 rows.
+// What bounds it on an H100: a hop reads 8 k bytes and writes 8 k (1,600
+// at k = 100), half a nanosecond at 3.35 TB/s, so a step costs its launch
+// and the host's enqueue. The design keeps both to one per step: the
+// window pointers travel by value in the kernel's parameters (at most
+// MAX_WINDOWS a launch), one block copies one window with 16-byte vector
+// loads and stores where the four buffers allow it, and the wrapper
+// allocates nothing and records no event on one card.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__global__ void ring_hop_kernel(const float* __restrict__ src_v, const int* __restrict__ src_i,
-                                float* __restrict__ dst_v, int* __restrict__ dst_i, int k) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < k) {
-    dst_v[j] = src_v[j];
-    dst_i[j] = src_i[j];
+constexpr int MAX_WINDOWS = 16;
+constexpr int THREADS = 128;
+
+struct Windows {
+  const float* src_v[MAX_WINDOWS];
+  const int* src_i[MAX_WINDOWS];
+  float* dst_v[MAX_WINDOWS];
+  int* dst_i[MAX_WINDOWS];
+};
+
+__global__ void __launch_bounds__(THREADS) ring_step_kernel(const Windows w, int k) {
+  const int b = blockIdx.x;
+  const float* sv = w.src_v[b];
+  const int* si = w.src_i[b];
+  float* dv = w.dst_v[b];
+  int* di = w.dst_i[b];
+  const bool vec = ((reinterpret_cast<uintptr_t>(sv) | reinterpret_cast<uintptr_t>(si) |
+                     reinterpret_cast<uintptr_t>(dv) | reinterpret_cast<uintptr_t>(di)) & 15) == 0;
+  const int n_vec = vec ? k / 4 : 0;
+  for (int j = threadIdx.x; j < n_vec; j += THREADS) {
+    reinterpret_cast<float4*>(dv)[j] = reinterpret_cast<const float4*>(sv)[j];
+    reinterpret_cast<int4*>(di)[j] = reinterpret_cast<const int4*>(si)[j];
+  }
+  for (int j = 4 * n_vec + threadIdx.x; j < k; j += THREADS) {
+    dv[j] = sv[j];
+    di[j] = si[j];
   }
 }
 
 }  // namespace
 
-extern "C" int ring_hop(const float* src_v, const int* src_i, float* dst_v, int* dst_i, int k,
-                        void* stream) {
-  if (k <= 0) return (int)cudaErrorInvalidValue;
-  constexpr int kThreads = 256;
-  ring_hop_kernel<<<(k + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-      src_v, src_i, dst_v, dst_i, k);
+// Copy n_windows k-row windows in one launch. ptrs holds 4 * n_windows
+// pointers: every source's values, then every source's indices, then every
+// destination's values, then every destination's indices.
+extern "C" int ring_step(void* const* ptrs, int n_windows, int k, void* stream) {
+  if (k <= 0 || n_windows <= 0 || n_windows > MAX_WINDOWS) return (int)cudaErrorInvalidValue;
+  Windows w = {};
+  for (int j = 0; j < n_windows; ++j) {
+    w.src_v[j] = static_cast<const float*>(ptrs[j]);
+    w.src_i[j] = static_cast<const int*>(ptrs[n_windows + j]);
+    w.dst_v[j] = static_cast<float*>(ptrs[2 * n_windows + j]);
+    w.dst_i[j] = static_cast<int*>(ptrs[3 * n_windows + j]);
+  }
+  ring_step_kernel<<<n_windows, THREADS, 0, (cudaStream_t)stream>>>(w, k);
   return (int)cudaGetLastError();
 }
 

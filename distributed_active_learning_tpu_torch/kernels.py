@@ -35,15 +35,17 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures (argument types) of each source's entry points; the first is
-# named after the source.
+# C signatures (argument types) of each source's entry points.
 _SIGNATURES = {
-    "forest_leaves": {"forest_leaves": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
+    "forest_leaves": {
+        "forest_leaves": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+        "forest_leaves_config": [_I, _I, _I, _I, _I, _I, _P],
+    },
     "round_megakernel": {
         "round_megakernel": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
     },
     "fused_votes": {"fused_votes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
-    "ring_hop": {"ring_hop": [_P, _P, _P, _P, _I, _P], "ring_hop_enable_peer": [_I, _I]},
+    "ring_hop": {"ring_step": [_P, _I, _I, _P], "ring_hop_enable_peer": [_I, _I]},
     "forest_leaves_transposed": {
         "forest_leaves_transposed": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

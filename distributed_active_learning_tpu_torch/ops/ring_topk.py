@@ -10,24 +10,26 @@ ranges, so the merged window is the global stable top-k, on every shard.
 Padding rows (``k > n_local``) carry ``(-inf, IDX_SENTINEL)`` and lose every
 tie.
 
-The hop (K4) is ``csrc/ring_hop.cu``, which replaces the Pallas
+The copy (K4) is ``csrc/ring_hop.cu``, which replaces the Pallas
 ``_hop_kernel`` (a barrier-semaphore handshake with both neighbours, then a
 remote DMA of the window to the right neighbour). Here one process drives
-every shard, so the handshake becomes stream ordering: the copy kernel runs
-on the sending shard's device and current stream and stores the window
-straight into buffers on the right neighbour's device (a peer pointer under
-UVA on distinct cards; the same device when the mesh repeats a card). The
-sender's stream first waits on an event the neighbour's stream records once
-the buffers are allocated and every earlier merge there has been enqueued;
-the neighbour's stream then waits on an event recorded after the copy, and
-``record_stream`` keeps the caching allocator from handing the buffers out
-before the copy is done. A CPU tensor takes the plain version, a tensor copy
-to the neighbour's device. ``remap_indices`` waits for serving's rebalance.
+every shard, so the handshake becomes stream order, and one launch per
+(sending device, ring step) copies every window that device's shards send
+(:func:`ring_step`): a mesh on one card runs ``S - 1`` launches per merge,
+not ``S (S - 1)``. :func:`ring_topk` allocates one ``[S, k]`` receive pair
+per device and ping-pongs between two across steps; it records and waits on
+events only between distinct cards (the sender's stream waits until the
+receiver's has enqueued every earlier merge, the receiver's waits for the
+copy), and on one card stream order is the whole handshake. A window on
+another card is stored through a peer pointer under UVA. CPU windows take
+the plain version, tensor copies (:func:`ring_step_plain`).
+``remap_indices`` waits for serving's rebalance.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import ctypes
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +43,8 @@ IDX_SENTINEL = int(np.iinfo(np.int32).max)
 
 # Launches of csrc/ring_hop.cu, counted where the kernel is launched.
 launches = 0
+# Windows one launch takes (the kernel's parameter table).
+MAX_WINDOWS = 16
 
 Window = Tuple[torch.Tensor, torch.Tensor]
 
@@ -71,59 +75,95 @@ def merge_windows(a_vals, a_idx, b_vals, b_idx, k: int) -> Window:
 
 
 def hop_plain(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
-    """The plain version of the hop: a tensor copy to ``dst`` (a fresh copy
+    """The plain version of a hop: a tensor copy to ``dst`` (a fresh copy
     on the same device too, as the kernel writes fresh buffers)."""
     return vals.to(dst, copy=True), idx.to(dst, copy=True)
 
 
-def _launch_hop(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
-    """Launch csrc/ring_hop.cu on the sender's stream, writing the window
-    into fresh buffers on ``dst``, ordered by events on both streams."""
+def ring_step_plain(src: Sequence[Window], dst: Sequence[Window]) -> None:
+    """The plain version of a ring step: each source window copied into its
+    destination buffers (across devices where they differ)."""
+    for (sv, si), (dv, di) in zip(src, dst):
+        dv.copy_(sv)
+        di.copy_(si)
+
+
+def _launch_ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
+    """Launch csrc/ring_hop.cu on the sending device's current stream: every
+    window of ``src`` (all on one CUDA device) into its ``dst`` buffers (on
+    that card or a peer), ``MAX_WINDOWS`` to a launch. It orders no stream:
+    :func:`ring_step` does, where devices differ."""
     global launches
-    k = vals.shape[0]
-    if vals.dtype != torch.float32 or idx.dtype != torch.int32 or idx.shape != (k,) or vals.ndim != 1:
-        raise ValueError("a window is [k] float32 values and [k] int32 indices")
-    if idx.device != vals.device or dst.type != "cuda":
-        raise ValueError(f"a hop copies a CUDA window to a CUDA device, got {vals.device} -> {dst}")
-    vals, idx = vals.contiguous(), idx.contiguous()
-    src_stream = torch.cuda.current_stream(vals.device)
-    dst_stream = torch.cuda.current_stream(dst)
-    with torch.cuda.device(dst):
-        out_v = torch.empty(k, dtype=torch.float32, device=dst)
-        out_i = torch.empty(k, dtype=torch.int32, device=dst)
-        free = torch.cuda.Event()
-        free.record(dst_stream)
-    src_stream.wait_event(free)
+    dev = src[0][0].device
+    k = src[0][0].shape[0]
+    for v, i in (*src, *dst):
+        if (v.dtype != torch.float32 or i.dtype != torch.int32 or v.shape != (k,)
+                or i.shape != (k,) or not (v.is_contiguous() and i.is_contiguous())
+                or v.device.type != "cuda" or i.device != v.device):
+            raise ValueError("a ring step copies contiguous CUDA windows of [k] float32 values "
+                             "and [k] int32 indices")
+    if any(v.device != dev for v, _ in src) or len(src) != len(dst):
+        raise ValueError("a ring step launches for the windows one device sends")
     lib = kernels.load("ring_hop")
-    with torch.cuda.device(vals.device):
-        err = lib.ring_hop(vals.data_ptr(), idx.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                           k, src_stream.cuda_stream)
-        kernels.check("ring_hop", err)
-        out_v.record_stream(src_stream)
-        out_i.record_stream(src_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for lo in range(0, len(src), MAX_WINDOWS):
+        s_, d_ = src[lo:lo + MAX_WINDOWS], dst[lo:lo + MAX_WINDOWS]
+        m = len(s_)
+        ptrs = (ctypes.c_void_p * (4 * m))(
+            *[v.data_ptr() for v, _ in s_], *[i.data_ptr() for _, i in s_],
+            *[v.data_ptr() for v, _ in d_], *[i.data_ptr() for _, i in d_])
+        with torch.cuda.device(dev):
+            err = lib.ring_step(ptrs, m, k, stream)
+        kernels.check("ring_step", err)
+        launches += 1
+
+
+def ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
+    """Copy the windows one device sends into their receiving buffers. On
+    CUDA: one kernel launch on the sender's stream, after the stream of
+    every receiving card other than the sender's has enqueued its earlier
+    work (merges that read the buffers), and before those streams go on. On
+    the CPU: the plain copies."""
+    if len(src) != len(dst) or not src:
+        raise ValueError("a ring step needs one destination per source window")
+    dev = src[0][0].device
+    if dev.type == "cpu":
+        ring_step_plain(src, dst)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    others = sorted({v.device for v, _ in dst} - {dev}, key=str)
+    sender = torch.cuda.current_stream(dev)
+    for d in others:
+        free = torch.cuda.Event()
+        free.record(torch.cuda.current_stream(d))
+        sender.wait_event(free)
+    _launch_ring_step(src, dst)
+    if others:
         done = torch.cuda.Event()
-        done.record(src_stream)
-    dst_stream.wait_event(done)
-    launches += 1
-    return out_v, out_i
+        done.record(sender)
+        for d in others:
+            torch.cuda.current_stream(d).wait_event(done)
 
 
 def hop(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
-    """One ring hop of a window to ``dst``: the CUDA kernel for a CUDA
-    window, the plain copy for a CPU one."""
-    if vals.device.type == "cuda":
-        return _launch_hop(vals, idx, torch.device(dst))
-    if vals.device.type == "cpu":
-        return hop_plain(vals, idx, torch.device(dst))
-    raise ValueError(f"unsupported device {vals.device}")
+    """One ring hop of a window into fresh buffers on ``dst``: the
+    one-window ring step."""
+    k = vals.shape[0]
+    out = (torch.empty(k, dtype=torch.float32, device=dst),
+           torch.empty(k, dtype=torch.int32, device=dst))
+    ring_step([(vals, idx)], [out])
+    return out
 
 
 def ring_topk(windows: Sequence[Window], k: int) -> List[Window]:
     """Merge the shards' ``k``-row windows (``pad_window``-normalized,
     global indices; shard ``s``'s on the ring's device ``s``) into the global
-    top-k: each shard sends its original window right ``S - 1`` times,
-    merging each arriving window into its accumulator. Returns every shard's
-    merged window, all equal; with one shard, the window itself."""
+    top-k: each shard's original window travels right ``S - 1`` steps, and
+    each shard merges every window that arrives into its accumulator. Each
+    step is one :func:`ring_step` per sending device into that step's
+    receive buffers. Returns every shard's merged window, all equal; with
+    one shard, the window itself."""
     for v, i in windows:
         if v.shape != (k,) or i.shape != (k,):
             raise ValueError(
@@ -131,13 +171,24 @@ def ring_topk(windows: Sequence[Window], k: int) -> List[Window]:
                 f"for k={k}; normalize with pad_window first"
             )
     n = len(windows)
+    if n == 1:
+        return list(windows)
+    devs = [v.device for v, _ in windows]
+    # Two [S, k] receive pairs per device; shard s's row receives on s's device.
+    recv: Dict[torch.device, tuple] = {}
+    for d in devs:
+        if d not in recv:
+            recv[d] = tuple((torch.empty(n, k, dtype=torch.float32, device=d),
+                             torch.empty(n, k, dtype=torch.int32, device=d)) for _ in range(2))
+    senders: Dict[torch.device, List[int]] = {}
+    for s, d in enumerate(devs):
+        senders.setdefault(d, []).append(s)
     acc = list(windows)
-    cur = list(windows)
-    for _ in range(n - 1):
-        nxt = [None] * n
-        for s in range(n):
-            right = (s + 1) % n
-            nxt[right] = hop(*cur[s], windows[right][0].device)
+    cur = [(v.contiguous(), i.contiguous()) for v, i in windows]
+    for step in range(n - 1):
+        nxt = [(recv[devs[r]][step % 2][0][r], recv[devs[r]][step % 2][1][r]) for r in range(n)]
+        for shards in senders.values():
+            ring_step([cur[s] for s in shards], [nxt[(s + 1) % n] for s in shards])
         for s in range(n):
             acc[s] = merge_windows(*acc[s], *nxt[s], k)
         cur = nxt

@@ -16,7 +16,7 @@ in one pass over the pool (the port of ``ops/round_fused.py``).
   with ``csrc/fused_votes.cu`` (K3, replacing the Pallas ``_votes_kernel``),
   a sum over ``model`` completes them, each data shard scores its block and
   keeps its stable top-k window, and the windows merge on the data ring
-  (``ops/ring_topk.py``, K4 per hop).
+  (``ops/ring_topk.py``, K4 once per sending device and ring step).
 
 The merge is exact for any tile width as long as each tile gives its
 ``min(k, tile rows)`` best in (value descending, index ascending) order, so

@@ -3,6 +3,14 @@
 Pallas ``_kernel`` it replaces. ``ForestConfig.kernel="pallas"`` keeps its
 name and selects this module.
 
+The kernel walks each tree from the root (``csrc/heap_walk.cuh``), so it
+takes complete heap trees, the form every device fit grows: the forest's
+heap form (:class:`HeapOperands`) is built once per forest, and a path
+matrix of another shape is refused on the card. On a heap tree the walk is
+the path-matrix function exactly. The path-matrix operands
+(:class:`KernelOperands`) stay for the kernels that count ancestors (K2,
+K3, K5, K6).
+
 Numerics are those of the TPU kernel: each node slot's feature is rounded to
 bf16 and compared in f32 against its f32 threshold. A vote can differ from
 the exact f32 compare of ``ops/trees_gemm.py`` only where a feature lies
@@ -12,7 +20,8 @@ reference.
 Routes, each with its own counter:
 
 - a CUDA tensor within the kernel's tile limits launches the kernel
-  (``launches``), or raises;
+  (``launches``), or raises (a forest that is not a heap raises
+  ``ValueError``);
 - a CPU tensor takes the plain PyTorch version of the same function
   (:func:`predict_leaves_plain`, the bf16-compare dense-count form);
 - a forest past the limits (depth > 8, or more than 512 features) takes the
@@ -39,6 +48,7 @@ from distributed_active_learning_tpu_torch.ops.trees_gemm import (
     predict_leaves_gemm,
     tree_mean,
 )
+from distributed_active_learning_tpu_torch.ops.trees_train import heap_constant, heap_path_target
 
 # Launches of csrc/forest_leaves.cu, counted where the kernel is launched.
 launches = 0
@@ -50,9 +60,10 @@ gemm_route_calls = 0
 class PallasForest:
     """Marker wrapper selecting the hand-written leaf kernels: the same
     path-matrix data as :class:`GemmForest`; the wrapper type is what
-    ``ops.forest_eval`` dispatches on. The kernels' packed operands are
-    built at the first launch and kept, so the round's launches (score or
-    megakernel, then test accuracy) pack and check the forest once."""
+    ``ops.forest_eval`` dispatches on. The kernels' packed operands (the
+    heap form for K1, the path masks for K2 and K3) are built at their first
+    launch and kept, so the round's launches (score or megakernel, then test
+    accuracy) pack and check the forest once."""
 
     gf: GemmForest
 
@@ -63,6 +74,10 @@ class PallasForest:
     @functools.cached_property
     def operands(self) -> "KernelOperands":
         return forest_operands(self.gf)
+
+    @functools.cached_property
+    def heap(self) -> "HeapOperands":
+        return heap_operands(self.gf)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +152,10 @@ class KernelOperands:
     def n_leaves(self) -> int:
         return self.tgt.shape[1]
 
+    @property
+    def tensors(self):
+        return (self.feat, self.thr, self.plus, self.minus, self.tgt, self.val)
+
 
 def _bits(cols: torch.Tensor) -> torch.Tensor:
     """``[..., L, i_pad]`` booleans -> ``[..., L, i_pad // 32]`` int32 words
@@ -191,6 +210,101 @@ def forest_operands(gf: GemmForest) -> KernelOperands:
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class HeapOperands:
+    """A complete heap forest in K1's layout (csrc/heap_walk.cuh): node
+    ``v`` of tree ``t`` is the 8-byte word ``nodes[t, v] = (feature id,
+    threshold bits)``, children at ``2v + 1`` and ``2v + 2``; leaf ``l``'s
+    value is ``val[t, l]``. Feature ids fit 16 bits (``d <= 512``) and are
+    kept in the word's 32-bit half. The trailing slots (node ``2^depth - 1``
+    at every depth, leaves padded to a multiple of 4) keep each tree's
+    arrays whole 16-byte pieces for the kernel's asynchronous copies and are
+    never read."""
+
+    nodes: torch.Tensor  # [T, N] int64 words: N = max(2^depth, 2)
+    val: torch.Tensor    # [T, Lp] f32: Lp = 2^depth rounded up to 4
+    depth: int
+
+    @property
+    def n_trees(self) -> int:
+        return self.nodes.shape[0]
+
+    @property
+    def n_internal(self) -> int:
+        return (1 << self.depth) - 1
+
+    @property
+    def feat(self) -> torch.Tensor:
+        """``[T, I]`` int32 feature ids."""
+        return self.nodes.view(torch.int32)[:, 0:2 * self.n_internal:2]
+
+    @property
+    def thr(self) -> torch.Tensor:
+        """``[T, I]`` f32 thresholds."""
+        return self.nodes.view(torch.int32)[:, 1:2 * self.n_internal:2].view(torch.float32)
+
+    @property
+    def tensors(self):
+        return (self.nodes, self.val)
+
+
+def _not_a_heap(why: str) -> ValueError:
+    return ValueError(
+        f"K1 on the card walks complete heap trees, and this forest is not one ({why}). "
+        "The device fit grows heap trees; forests of another shape come from the host fit, "
+        "which is not ported yet: the host-fit slice packs its trees into heaps for the walk."
+    )
+
+
+def heap_operands(gf: GemmForest) -> HeapOperands:
+    """The heap form of a path-matrix forest, or ``ValueError`` when the
+    forest is not made of complete heap trees. A device-fit forest's path
+    and targets are broadcasts of ``heap_path_target``'s constant, which is
+    recognized from storage alone (no host sync: the test runs inside a
+    captured chunk); any other path matrix is compared with that constant
+    by value, which reads one boolean back from the device."""
+    T, I = gf.feat_ids.shape
+    L = gf.value.shape[1]
+    depth = L.bit_length() - 1
+    if L != 1 << depth or I != L - 1:
+        raise _not_a_heap(f"{I} nodes and {L} leaves a tree")
+    if tuple(gf.path.shape) != (T, I, L) or tuple(gf.target.shape) != (T, L):
+        raise _not_a_heap(f"path {tuple(gf.path.shape)}, targets {tuple(gf.target.shape)}")
+    if heap_constant(gf.path) != (depth, 0) or heap_constant(gf.target) != (depth, 1):
+        path, target = heap_path_target(depth, gf.path.device)
+        if not (torch.equal(gf.path, path.expand_as(gf.path))
+                and torch.equal(gf.target, target.expand_as(gf.target))):
+            raise _not_a_heap("its path matrix is not the heap constant of its depth")
+    N = max(L, 2)
+    words = torch.zeros(T, N, 2, dtype=torch.int32, device=gf.feat_ids.device)
+    words[:, :I, 0] = gf.feat_ids.to(torch.int32)
+    words[:, :I, 1] = gf.thresholds.to(torch.float32).view(torch.int32)
+    Lp = -(-L // 4) * 4
+    return HeapOperands(
+        nodes=words.view(torch.int64).reshape(T, N),
+        val=torch.nn.functional.pad(gf.value.to(torch.float32), (0, Lp - L)).contiguous(),
+        depth=depth,
+    )
+
+
+def walk_leaves_plain(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: ``[n, T]`` leaf values by
+    ``depth`` rounds of gathers from the heap operands, features rounded to
+    bf16 and compared ``<=`` in f32 (a NaN goes right)."""
+    T, I = ops.n_trees, ops.n_internal
+    feat, thr = ops.feat.long(), ops.thr
+    tree = torch.arange(T, device=x.device)
+    out = []
+    for xb in torch.split(x, 1 << 14):
+        xf = xb.to(torch.bfloat16).to(torch.float32)
+        v = torch.zeros(xb.shape[0], T, dtype=torch.int64, device=x.device)
+        for _ in range(ops.depth):
+            xv = torch.gather(xf, 1, feat[tree, v])
+            v = 2 * v + 1 + (~(xv <= thr[tree, v])).long()
+        out.append(ops.val[tree, v - I])
+    return torch.cat(out)
+
+
 def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the kernel: ``[n, T]`` leaf values from
     bf16-rounded features compared in f32, dense ancestor counts
@@ -209,7 +323,7 @@ def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(out)
 
 
-def _check_x(x: torch.Tensor, ops: KernelOperands, *others: torch.Tensor) -> torch.Tensor:
+def _check_x(x: torch.Tensor, ops, *others: torch.Tensor) -> torch.Tensor:
     """Refuse what the kernels do not take: x must be ``[n, d]`` float32 and
     every operand must lie on x's device (a pointer to another device's
     memory would fault inside the kernel)."""
@@ -217,30 +331,42 @@ def _check_x(x: torch.Tensor, ops: KernelOperands, *others: torch.Tensor) -> tor
         raise ValueError(f"x must be a [n, d] float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if x.shape[1] > _MAX_D_PAD:
         raise ValueError(f"the kernels take at most {_MAX_D_PAD} features, got {x.shape[1]}")
-    tensors = (ops.feat, ops.thr, ops.plus, ops.minus, ops.tgt, ops.val, *others)
-    if any(t.device != x.device for t in tensors):
+    if any(t.device != x.device for t in (*ops.tensors, *others)):
         raise ValueError(f"forest operands must lie on {x.device} with x")
     return x.contiguous()
 
 
-def _launch_leaves(ops: KernelOperands, x: torch.Tensor) -> torch.Tensor:
+def _launch_leaves(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/forest_leaves.cu: ``[T, n]`` f32 leaf values."""
     global launches
     x = _check_x(x, ops)
     n, d = x.shape
-    T = ops.feat.shape[0]
-    out = torch.empty(T, n, dtype=torch.float32, device=x.device)
+    out = torch.empty(ops.n_trees, n, dtype=torch.float32, device=x.device)
     lib = kernels.load("forest_leaves")
     with torch.cuda.device(x.device):
         err = lib.forest_leaves(
-            x.data_ptr(), n, d,
-            ops.feat.data_ptr(), ops.thr.data_ptr(), ops.plus.data_ptr(), ops.minus.data_ptr(),
-            ops.tgt.data_ptr(), ops.val.data_ptr(), T, ops.i_pad, ops.n_leaves,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), n, d, ops.nodes.data_ptr(), ops.val.data_ptr(), ops.n_trees, ops.depth,
+            ops.nodes.shape[1], ops.val.shape[1], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("forest_leaves", err)
     launches += 1
     return out
+
+
+def leaves_launch_config(ops: HeapOperands, n: int, d: int, device) -> dict:
+    """The configuration csrc/forest_leaves.cu launches with for ``n`` rows
+    of ``d`` features on ``device``: rows a tile (threads a block), trees a
+    chunk, shared memory bytes a block, and the persistent grid."""
+    import ctypes
+
+    got = (ctypes.c_int * 4)()
+    lib = kernels.load("forest_leaves")
+    with torch.cuda.device(device):
+        err = lib.forest_leaves_config(n, d, ops.n_trees, ops.depth, ops.nodes.shape[1],
+                                       ops.val.shape[1], got)
+    kernels.check("forest_leaves_config", err)
+    return dict(zip(("rows", "trees_per_chunk", "smem_bytes", "grid"), list(got)))
 
 
 def _unwrap(f) -> GemmForest:
@@ -251,6 +377,11 @@ def operands_of(f) -> KernelOperands:
     """The kernels' operands of a forest: kept on a :class:`PallasForest`,
     packed anew for a bare :class:`GemmForest`."""
     return f.operands if isinstance(f, PallasForest) else forest_operands(f)
+
+
+def heap_operands_of(f) -> HeapOperands:
+    """K1's heap operands of a forest, kept or packed as :func:`operands_of`."""
+    return f.heap if isinstance(f, PallasForest) else heap_operands(f)
 
 
 def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
@@ -264,7 +395,7 @@ def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
         gemm_route_calls += 1
         return predict_leaves_gemm(gf, x)
     if x.device.type == "cuda":
-        return _launch_leaves(operands_of(f), x).T
+        return _launch_leaves(heap_operands_of(f), x).T
     if x.device.type == "cpu":
         return predict_leaves_plain(gf, x)
     raise ValueError(f"unsupported device {x.device}")

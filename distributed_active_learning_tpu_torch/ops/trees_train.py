@@ -247,12 +247,48 @@ def _heap_path_target(depth: int) -> Tuple[np.ndarray, np.ndarray]:
     return path, target
 
 
-@functools.lru_cache(maxsize=None)
+# heap_path_target's constants, one pair per (depth, device).
+_heap_constants: dict = {}
+
+
 def heap_path_target(depth: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_heap_path_target` on ``device``, uploaded once per (depth,
     device) and shared by every forest fitted there."""
-    path_np, target_np = _heap_path_target(depth)
-    return torch.as_tensor(path_np, device=device), torch.as_tensor(target_np, device=device)
+    key = (depth, torch.device(device))
+    if key not in _heap_constants:
+        path_np, target_np = _heap_path_target(depth)
+        _heap_constants[key] = (torch.as_tensor(path_np, device=key[1]),
+                                torch.as_tensor(target_np, device=key[1]))
+    return _heap_constants[key]
+
+
+def heap_constant(t: torch.Tensor):
+    """``(depth, 0)`` when ``t`` is :func:`heap_path_target`'s path matrix
+    of its device broadcast over trees, ``(depth, 1)`` for its targets,
+    else ``None``: a test of storage that reads no value from the device."""
+    if t.ndim < 2 or t.stride(0) != 0:
+        return None
+    L = t.shape[-1]
+    depth = L.bit_length() - 1
+    consts = _heap_constants.get((depth, t.device))
+    if L != 1 << depth or consts is None:
+        return None
+    for which, c in enumerate(consts):
+        if (t.shape[1:] == c.shape and t.stride()[1:] == c.stride()
+                and t.data_ptr() == c.data_ptr()):
+            return depth, which
+    return None
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``; a broadcast heap constant (:func:`heap_constant`)
+    is expanded from ``device``'s own copy, where a copy would make it a
+    full tensor that only a check by value could recognize again."""
+    hit = heap_constant(t)
+    if hit is None:
+        return t.to(device)
+    depth, which = hit
+    return heap_path_target(depth, device)[which].expand(t.shape)
 
 
 def heap_gemm_forest(

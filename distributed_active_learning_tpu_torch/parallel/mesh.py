@@ -23,6 +23,8 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
+from distributed_active_learning_tpu_torch.ops.trees_train import to_device
+
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
 
@@ -209,10 +211,12 @@ def _map_fields(forest, fn):
 def shard_forest(forest, mesh: Mesh):
     """A ``[data][model]`` grid of forests: model shard ``m``'s trees on
     ``mesh.devices[s][m]`` for every data shard ``s`` (replicated over
-    data, as ``P(model, None)``)."""
+    data, as ``P(model, None)``). A device-fit forest's heap path and
+    targets stay broadcasts of each device's own constant
+    (``trees_train.to_device``), so no device checks them by value."""
     specs = forest_tree_specs(forest, mesh)
     return tuple(
-        tuple(_map_fields(forest, lambda t, sl=specs[m], d=dev: t[sl].to(d))
+        tuple(_map_fields(forest, lambda t, sl=specs[m], d=dev: to_device(t[sl], d))
               for m, dev in enumerate(row))
         for row in mesh.devices
     )

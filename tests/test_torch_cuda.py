@@ -48,17 +48,65 @@ def _forest(n_trees, depth, d, dev, seed=0, m=2000):
     return trees_train.heap_gemm_forest(f, th, v, depth), rng
 
 
+def _edge_rows(gf, rng, n, d):
+    """Normal rows, then rows of NaN, +inf and -inf (whole rows and single
+    features), then rows whose features sit exactly on node thresholds (the
+    f32 threshold and the bf16 tie above its rounding)."""
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.cpu().numpy()
+    for r in range(n):
+        kind = r % 8
+        if kind < 3:
+            x[r, rng.integers(d) if r % 16 >= 8 else slice(None)] = (np.nan, np.inf, -np.inf)[kind]
+        elif kind < 5 and feat.shape[1]:
+            t, i = rng.integers(feat.shape[0]), rng.integers(feat.shape[1])
+            v = thr[t, i:i + 1]
+            if kind == 4:
+                v = (((v.view(np.uint32) + 0x7FFF) & 0xFFFF0000) | 0x8000).view(np.float32)
+            x[r, feat[t, i]] = v[0]
+    return torch.from_numpy(x)
+
+
 def test_forest_leaves_kernel_matches_plain(cuda):
-    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700), (5, 5, 3, 100)):
-        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
-        x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
-        before = trees_pallas.launches
-        got = trees_pallas.predict_leaves_pallas(gf, x)
-        assert trees_pallas.launches == before + 1
-        want = trees_pallas.predict_leaves_plain(gf, x)
-        torch.cuda.synchronize()
-        assert got.shape == want.shape == (n, n_trees)
-        assert torch.equal(got, want), (n_trees, depth, d, n)
+    """K1 (csrc/forest_leaves.cu) against both plain versions: the path-
+    matrix form and the heap walk, at depths 1-8, on edge rows, at row
+    counts around a tile and one past a full persistent wave."""
+    cases = [(20, 8, 30, 3001), (13, 4, 7, 1700), (5, 5, 3, 100), (7, 8, 300, 2000)]
+    cases += [(9, depth, 6, 1000) for depth in range(1, 9)]
+    cases += [(12, 8, 30, n) for n in (1, 127, 129)]
+    for n_trees, depth, d, n in cases:
+        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees + depth)
+        x = _edge_rows(gf, rng, n, d).to(cuda)
+        _check_leaves(gf, x, (n_trees, depth, d, n))
+    # One row past a full wave of the persistent grid: the last tile's unit
+    # falls to a block that already ran one.
+    gf, rng = _forest(20, 8, 30, cuda, seed=7)
+    cfg = trees_pallas.leaves_launch_config(trees_pallas.heap_operands(gf), 10**7, 30, cuda)
+    n = cfg["grid"] * cfg["rows"] + 1
+    _check_leaves(gf, _edge_rows(gf, rng, n, 30).to(cuda), ("wave", cfg, n))
+
+
+def _check_leaves(gf, x, label):
+    before = trees_pallas.launches
+    got = trees_pallas.predict_leaves_pallas(gf, x)
+    assert trees_pallas.launches == before + 1
+    want = trees_pallas.predict_leaves_plain(gf, x)
+    walked = trees_pallas.walk_leaves_plain(trees_pallas.heap_operands(gf), x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (x.shape[0], gf.n_trees)
+    assert torch.equal(got, want) and torch.equal(got, walked), label
+
+
+def test_non_heap_forest_is_refused_on_the_card(cuda):
+    import dataclasses
+
+    gf, rng = _forest(4, 3, 5, cuda)
+    swapped = dataclasses.replace(gf, path=gf.path[:, :, [1, 0, *range(2, 8)]].contiguous())
+    x = torch.from_numpy(rng.normal(size=(10, 5)).astype(np.float32)).to(cuda)
+    before = trees_pallas.launches
+    with pytest.raises(ValueError, match="host fit"):
+        trees_pallas.predict_leaves_pallas(swapped, x)
+    assert trees_pallas.launches == before
 
 
 def test_round_megakernel_matches_plain(cuda):
@@ -83,8 +131,9 @@ def test_round_megakernel_matches_plain(cuda):
 
 
 def test_mesh_kernels_match_plain(cuda):
-    """K3 (csrc/fused_votes.cu) and K4 (csrc/ring_hop.cu) against their plain
-    versions, and the 4 x 2 mesh on one card against the CPU mesh."""
+    """K3 (csrc/fused_votes.cu) and K4 (csrc/ring_hop.cu: a hop and the ring
+    step) against their plain versions, and the 4 x 2 mesh on one card
+    against the CPU mesh."""
     for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700)):
         gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
         x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
@@ -106,10 +155,27 @@ def test_mesh_kernels_match_plain(cuda):
     pv, pi = ring_topk.hop_plain(*windows[0], cuda)
     assert torch.equal(hv, pv) and torch.equal(hi, pi)
     merged = ring_topk.ring_topk(windows, k)
-    assert ring_topk.launches == before + 1 + 4 * 3
+    assert ring_topk.launches == before + 1 + 3  # one launch a step on one card
     cpu = ring_topk.ring_topk([(v.cpu(), i.cpu()) for v, i in windows], k)
     for (mv, mi), (cv, ci) in zip(merged, cpu):
         assert torch.equal(mv.cpu(), cv) and torch.equal(mi.cpu(), ci)
+
+    # The ring step: 1-4 windows in one launch against the plain copies.
+    for kk in (1, 100, 300):
+        for m in range(1, 5):
+            src = [(torch.randn(kk, device=cuda),
+                    torch.randint(0, 2**31 - 1, (kk,), dtype=torch.int32, device=cuda))
+                   for _ in range(m)]
+            dst = [(torch.full((kk,), float("nan"), device=cuda),
+                    torch.full((kk,), -1, dtype=torch.int32, device=cuda)) for _ in range(m)]
+            ref = [(torch.empty_like(v), torch.empty_like(i)) for v, i in src]
+            before = ring_topk.launches
+            ring_topk.ring_step(src, dst)
+            assert ring_topk.launches == before + 1
+            ring_topk.ring_step_plain(src, ref)
+            torch.cuda.synchronize()
+            for (dv, di), (rv, ri) in zip(dst, ref):
+                assert torch.equal(dv, rv) and torch.equal(di, ri), (kk, m)
 
     # The fused mesh selection: 4 x 2 shards on one card against the CPU mesh.
     gf, rng = _forest(8, 4, 5, cuda, seed=2)
@@ -122,6 +188,59 @@ def test_mesh_kernels_match_plain(cuda):
     cv, ci = round_fused.fused_score_select(on_card, x.to(cuda), sel.to(cuda), "uncertainty", 40)
     pv, pi = round_fused.fused_score_select(on_cpu, x, sel, "uncertainty", 40)
     assert torch.equal(cv.cpu(), pv) and torch.equal(ci.cpu(), pi)
+
+
+def test_ring_and_mesh_across_cards(cuda):
+    """K4 across cards (peer stores, events between distinct cards only):
+    the ring over two and over every visible card equals the CPU ring, one
+    launch per sending card and step; a ring step into another card's
+    buffers equals the plain copies; and the 4 x 2 mesh spread over the
+    cards equals the CPU mesh, fused and unfused."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more cards: the ring's peer stores cross cards")
+    rng = np.random.default_rng(5)
+    k = 100
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    for ring in ([cards[0], cards[1]] * 2, cards):
+        mesh_lib.make_mesh(len(ring), 1, devices=ring)  # enables peer access on the ring
+        windows = []
+        for s, d in enumerate(ring):
+            v = torch.from_numpy(rng.choice(np.float32([-1.5, 0.0, 0.25, 3.0]), size=300))
+            sv, si = torch.sort(v, descending=True, stable=True)
+            windows.append((sv[:k].to(d), (si[:k] + 300 * s).to(torch.int32).to(d)))
+        before = ring_topk.launches
+        merged = ring_topk.ring_topk(windows, k)
+        assert ring_topk.launches == before + (len(ring) - 1) * len(set(ring))
+        cpu = ring_topk.ring_topk([(v.cpu(), i.cpu()) for v, i in windows], k)
+        for (mv, mi), (cv, ci) in zip(merged, cpu):
+            assert torch.equal(mv.cpu(), cv) and torch.equal(mi.cpu(), ci)
+        dst = [(torch.empty(k, device=ring[(s + 1) % len(ring)]),
+                torch.empty(k, dtype=torch.int32, device=ring[(s + 1) % len(ring)]))
+               for s in range(len(ring))]
+        for d in dict.fromkeys(ring):
+            shards = [s for s in range(len(ring)) if ring[s] == d]
+            ring_topk.ring_step([windows[s] for s in shards], [dst[s] for s in shards])
+        torch.cuda.synchronize()
+        for (v, i), (dv, di) in zip(windows, dst):
+            assert torch.equal(v.cpu(), dv.cpu()) and torch.equal(i.cpu(), di.cpu())
+
+    spread = [torch.device("cuda", (s + m) % n_cards) for s in range(4) for m in range(2)]
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        mesh=config.MeshConfig(4, 2), n_start=10, max_rounds=3)
+    for fused in (True, False):
+        c = dataclasses.replace(base, fused_round=fused)
+        on_cards = loop.run_experiment(c, device=cards[0], devices=spread)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        assert on_cards.to_reference_log() == on_cpu.to_reference_log(), fused
 
 
 def test_variant_kernels_match_plain(cuda):

@@ -5,10 +5,15 @@ kernels in interpret mode on the same forest and pool:
   ``trees_pallas.predict_leaves_pallas(..., interpret=True)`` bit for bit;
   past the tile limits both packages take the exact gemm form;
 - the kernels' packed operands (bit masks of the path matrix) reproduce the
-  plain version when the kernel's arithmetic is emulated from them;
+  plain version when the kernel's arithmetic is emulated from them, and so
+  does K1's heap walk over its heap operands (``walk_leaves_plain``), on
+  rows with NaN, infinities and features equal to thresholds; a path matrix
+  that is not a heap is refused;
 - K2 (ops/round_fused.py): ``fused_score_select`` on a pallas forest equals
   the JAX megakernel's ``(vals, idx)``.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -92,6 +97,48 @@ def test_kernel_operands_reproduce_the_plain_version():
         np.zeros((1, 2)))
     with pytest.raises(ValueError, match="-1, 0 or \\+1"):
         t_pallas.forest_operands(bad)
+
+    # K1's heap form: the walk over it equals the plain version bit for bit.
+    # These forests arrive as full path tensors, so the heap check runs by
+    # value.
+    _, tf1, _ = _forest(4, 1, seed=6)
+    # Thresholds that bf16 represents, so that a feature set to one compares
+    # equal after rounding (the <= of the walk, not <).
+    tf8_b = dataclasses.replace(tf8, thresholds=tf8.thresholds.to(torch.bfloat16).float())
+    for gf, depth in ((tf, 5), (tf8, 8), (tf1, 1), (tf8_b, 8)):
+        heap = t_pallas.heap_operands(gf)
+        assert heap.depth == depth and heap.nodes.dtype == torch.int64
+        assert torch.equal(heap.feat, gf.feat_ids.to(torch.int32))
+        assert torch.equal(heap.thr, gf.thresholds)
+        x = _edge_rows(gf, rng)
+        want = t_pallas.predict_leaves_plain(gf, x)
+        got = t_pallas.walk_leaves_plain(heap, x)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), depth
+    swapped = interop.gemm_forest_from_numpy(
+        tf8.feat_ids.numpy(), tf8.thresholds.numpy(), tf8.path.numpy()[:, :, [1, 0, *range(2, 256)]],
+        tf8.target.numpy(), tf8.value.numpy())
+    with pytest.raises(ValueError, match="not a complete heap|host fit"):
+        t_pallas.heap_operands(swapped)
+
+
+def _edge_rows(gf, rng, n=300):
+    """Normal rows, then rows of NaN, +inf and -inf (whole rows and single
+    features), and rows whose features sit exactly on node thresholds: the
+    f32 threshold itself and the bf16 tie just above its bf16 rounding."""
+    d = 5
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    for j, v in enumerate((np.nan, np.inf, -np.inf)):
+        x[j] = v
+        x[3 + j, j % d] = v
+    feat = gf.feat_ids.numpy()
+    thr = gf.thresholds.numpy()
+    T, I = feat.shape
+    for r in range(6, n, 2):
+        t, i = rng.integers(T), rng.integers(I)
+        x[r, feat[t, i]] = thr[t, i]
+        tie = ((thr[t, i:i + 1].view(np.uint32) + 0x7FFF) & 0xFFFF0000) | 0x8000
+        x[r + 1, feat[t, i]] = tie.view(np.float32)[0]
+    return torch.from_numpy(x)
 
 
 def _fused_pair(gf, tf, x, sel, name, k):
