@@ -16,18 +16,25 @@ and prints no result:
    (71,202 rows), at one ragged shape (13 trees, 1,700 rows) and over a
    depth sweep 1-8 on rows that hold NaN, infinities and features on node
    thresholds: bit-equal; a path matrix that is not a heap is refused;
-2b. the vote kernel K3 (csrc/fused_votes.cu) against its plain version at
-   full width, at one 50-tree model shard of the 4 x 2 mesh (71,202 rows)
-   and at the ragged shape: bit-equal;
+2b. the vote kernel K3 (csrc/fused_votes.cu, a heap walk over the forest
+   held in shared memory, csrc/heap_votes.cuh) against both plain versions,
+   the path-matrix form and the walk over the heap operands with packed vote
+   bits, at full width, at one 50-tree model shard of the 4 x 2 mesh (71,202
+   rows), at the ragged shape, over phase 2's depth sweep on edge rows and at
+   one streamed shape (256 trees of depth 8 over the pool, too many to stay
+   resident): bit-equal, each with its launch configuration and mode;
 2c. the layout variants K5 (csrc/forest_leaves_transposed.cu) and K6
    (csrc/forest_leaves_segmented.cu) against their plain versions at full
    width: K5 for both leaf payloads (hi + lo, exact f32), tree_outer on and
    off, at (bn, bt) = (512, 16) and (2048, 8), and each ablation stage; K6 at
    (2048, 8) and (1024, 8); all bit-equal, and K5 with the f32 payload equal
    to K1's leaves;
-3. the round megakernel K2 (csrc/round_megakernel.cu) against its plain
-   version for uncertainty, entropy, full_entropy and margin (5,000-row
-   labeled mask, k = 100): per-tile candidates and merged picks bit-equal;
+3. the round megakernel K2 (csrc/round_megakernel.cu, the same walk as K3)
+   against both plain versions for uncertainty, entropy, full_entropy and
+   margin at full width (5,000-row labeled mask, k = 100), then for
+   uncertainty at phase 2b's other shapes: per-tile candidates and merged
+   picks bit-equal; a path matrix that is not a heap is refused by K2 and K3
+   before any launch;
 3b. the ring copy K4 (csrc/ring_hop.cu): a 4-shard ring of k = 100 windows
    on the card (four shards on cuda:0), each hop and one ring step of all
    four windows (one launch) bit-equal to the plain copies and the merge
@@ -63,8 +70,12 @@ and prints no result:
    driver at depth 1 and 2 over 12 rounds (rounds 5-12: the first chunk holds
    the capture);
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
-   versions' and the bound: K1 at the pool, the test draw and one mesh
-   shard; a K4 ring step of four k = 100 windows beside four
+   versions' and the bound (one call between CUDA events; for K1, K2 and
+   K3 also the device time of the call captured in a CUDA graph and
+   replayed back to back): K1 at the pool, the test draw and one mesh
+   shard; K2 at the pool and K3 at a mesh shard and the pool, each also at
+   other thread-group counts a block than its own choice, and both at the
+   streamed shape; a K4 ring step of four k = 100 windows beside four
    ``Tensor.copy_`` pairs into preallocated buffers; ``merge_tile_topk`` at
    the fused round's shape; then one fused and one unfused main-path round
    and one mesh fused round under torch.profiler (device time by kernel,
@@ -77,7 +88,8 @@ and prints no result:
 The last three lines are a JSON object of per-kernel numbers (``launches``
 is the count of the kernel's main path, single-device fused for K1 and K2,
 mesh fused for K3 and K4, the bench's variants mode for K5 and K6;
-``launches_by_path`` every path's), the card's name
+``launches_by_path`` every path's; ``launch_config`` for K1, K2 and K3),
+the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a CUDA device, and when the port's package is not
@@ -132,6 +144,19 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps: int = 9, inner: int = 20) -> float:
+    """Median device time of ``fn`` captured once in a CUDA graph and
+    replayed ``inner`` times back to back: the kernel's own time, without
+    the host work of its wrapper between launches (which ``cuda_ms`` of one
+    call includes when the kernel is shorter than that work)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return cuda_ms(g.replay, reps=reps, inner=inner)
 
 
 def nbytes(*tensors) -> int:
@@ -290,13 +315,15 @@ def main() -> int:
         check_k1(g, x, label)
         print(f"# forest_leaves {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain and to "
               "walk_leaves_plain")
+    sweep = {}  # depth -> (16-tree forest, edge rows), for K1, K2 and K3
     for depth_ in range(1, DEPTH + 1):
         binned = trees_train.make_bins(train_x, BINS)
         f, th, v = trees_train.fit_forest_device(
             binned.codes, train_y, torch.ones(N_START, device=dev), binned.edges,
             prng.key(args.seed + depth_), n_trees=16, max_depth=depth_, n_bins=BINS)
         g = trees_train.heap_gemm_forest(f, th, v, depth_)
-        check_k1(g, edge_rows(g, rng, 4099).to(dev), f"depth {depth_}")
+        sweep[depth_] = (g, edge_rows(g, rng, 4099).to(dev))
+        check_k1(*sweep[depth_], f"depth {depth_}")
     print(f"# forest_leaves depths 1-{DEPTH} (16 trees, 4,099 rows with NaN, +-inf and features "
           "on node thresholds): bit-equal to plain and to walk_leaves_plain")
     swapped = dataclasses.replace(gf13, path=gf13.path[:, :, [1, 0, *range(2, 2 ** DEPTH)]])
@@ -311,16 +338,36 @@ def main() -> int:
     k1_cfg = trees_pallas.leaves_launch_config(trees_pallas.heap_operands(gf), N_POOL, N_FEAT, dev)
     print(f"# forest_leaves launch at full width: {k1_cfg}")
 
-    # -- phase 2b: K3 against its plain version ----------------------------
-    k3_shapes = {"full": (gf, pool), "shard": (gf_shard, pool[:n_shard]),
-                 "ragged": (gf13, pool[:1700])}
-    for label, (g, x) in k3_shapes.items():
+    # -- phase 2b: K3 against both plain versions ---------------------------
+    gf256 = fit(256)  # 270,336 bytes of packed heap form: the streamed mode
+    # 60,000 depth-1 trees, drawn at random: more trees than a [T + 1] score
+    # table beside the tile would leave room for, so K2 must read it where
+    # it lies.
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 60_000)
+    gf60k = trees_train.heap_gemm_forest(
+        torch.randint(0, N_FEAT, (60_000, 1), generator=gen, device=dev, dtype=torch.int32),
+        torch.randn(60_000, 1, generator=gen, device=dev),
+        torch.rand(60_000, 3, generator=gen, device=dev), 1)
+    vote_shapes = {"full": (gf, pool), "shard": (gf_shard, pool[:n_shard]),
+                   "ragged": (gf13, pool[:1700]),
+                   **{f"depth {d_} edge rows": sweep[d_] for d_ in sweep},
+                   "streamed 256 trees": (gf256, pool),
+                   "streamed 60,000 depth-1 trees": (gf60k, pool[:1025])}
+    walked_votes = {}
+    for label, (g, x) in vote_shapes.items():
+        h = trees_pallas.heap_operands(g)
         got = round_fused.fused_votes(g, x)
+        walked_votes[label] = round_fused.walk_votes_plain(h, x)
         ref = round_fused.fused_votes_plain(g, x)
         torch.cuda.synchronize()
-        if got.dtype != torch.int32 or not torch.equal(got, ref):
-            fail(f"fused_votes != plain at {label} n={x.shape[0]} T={g.n_trees}")
-        print(f"# fused_votes {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain")
+        for name, want_ in (("plain", ref), ("walk_votes_plain", walked_votes[label])):
+            if got.dtype != torch.int32 or not torch.equal(got, want_):
+                fail(f"fused_votes != {name} at {label} n={x.shape[0]} T={g.n_trees}")
+        cfg_ = round_fused.launch_config("fused_votes", h, *x.shape, dev)
+        if (cfg_["mode"] == "streamed") != label.startswith("streamed"):
+            fail(f"fused_votes at {label} launches in {cfg_['mode']} mode")
+        print(f"# fused_votes {label} n={x.shape[0]} T={g.n_trees}: bit-equal to plain and to "
+              f"walk_votes_plain; launch {cfg_}")
     k3_err = 0.0  # integer votes, compared for equality above
 
     # -- phase 2c: K5 and K6 against their plain versions -------------------
@@ -366,22 +413,63 @@ def main() -> int:
     labeled = torch.zeros(N_POOL, dtype=torch.bool)
     labeled[torch.from_numpy(rng.choice(N_POOL, size=N_START, replace=False))] = True
     selectable = (~labeled).to(dev)
-    ops = trees_pallas.forest_operands(gf)
+    heap = trees_pallas.heap_operands(gf)
     k2_err = 0.0
-    for strategy in ("uncertainty", "entropy", "full_entropy", "margin"):
-        table = round_fused.score_table(TREES, strategy, dev)
-        tv, ti = round_fused._launch_megakernel(ops, pool, selectable, table, WINDOW)
-        pv, pi = round_fused.megakernel_plain(gf, pool, selectable, table, WINDOW)
+
+    def check_k2(g, x, sel, strategy, label):
+        nonlocal k2_err
+        h = trees_pallas.heap_operands(g)
+        table = round_fused.score_table(g.n_trees, strategy, dev)
+        tv, ti = round_fused._launch_megakernel(h, x, sel, table, WINDOW)
+        pv, pi = round_fused.megakernel_plain(g, x, sel, table, WINDOW)
+        wv, wi = round_fused.tile_topk_plain(walked_votes[label], sel, table, WINDOW)
         torch.cuda.synchronize()
-        if not (torch.equal(tv, pv) and torch.equal(ti, pi)):
-            fail(f"round_megakernel != plain per-tile candidates for {strategy}")
+        for name, (rv, ri) in (("plain", (pv, pi)), ("walk_votes_plain", (wv, wi))):
+            if not (torch.equal(tv, rv) and torch.equal(ti, ri)):
+                fail(f"round_megakernel != {name} per-tile candidates for {strategy} at {label}")
         mv, mi = merge_tile_topk(tv, ti, WINDOW)
         rv, ri = merge_tile_topk(pv, pi, WINDOW)
         if not (torch.equal(mv, rv) and torch.equal(mi, ri)) or not torch.isfinite(mv).all():
-            fail(f"round_megakernel merged picks differ or are not finite for {strategy}")
+            fail(f"round_megakernel merged picks differ or are not finite for {strategy} at {label}")
         finite = torch.isfinite(pv)
         k2_err = max(k2_err, float(torch.where(finite, tv - pv, 0.0).abs().max()))
-        print(f"# round_megakernel {strategy}: per-tile (vals, idx) bit-equal to plain")
+
+    for strategy in ("uncertainty", "entropy", "full_entropy", "margin"):
+        check_k2(gf, pool, selectable, strategy, "full")
+        print(f"# round_megakernel full {strategy}: per-tile (vals, idx) bit-equal to plain and "
+              "to walk_votes_plain")
+    for label, (g, x) in vote_shapes.items():
+        if label == "full":
+            continue
+        check_k2(g, x, selectable[:x.shape[0]], "uncertainty", label)
+        cfg_ = round_fused.launch_config("round_megakernel", trees_pallas.heap_operands(g),
+                                         *x.shape, dev)
+        if (cfg_["mode"] == "streamed") != label.startswith("streamed"):
+            fail(f"round_megakernel at {label} launches in {cfg_['mode']} mode")
+        print(f"# round_megakernel {label} n={x.shape[0]} T={g.n_trees} uncertainty: bit-equal "
+              f"to plain and to walk_votes_plain; launch {cfg_}")
+    k2_cfg = round_fused.launch_config("round_megakernel", heap, N_POOL, N_FEAT, dev)
+    k3_cfg = round_fused.launch_config("fused_votes", trees_pallas.heap_operands(gf_shard),
+                                       n_shard, N_FEAT, dev)
+    print(f"# round_megakernel launch at full width: {k2_cfg}; fused_votes at a mesh shard: "
+          f"{k3_cfg}")
+    before = (round_fused.launches, round_fused.votes_launches)
+    for name, call in (
+            ("round_megakernel", lambda: round_fused.fused_score_select(
+                trees_pallas.PallasForest(gf=swapped), pool[:10], selectable[:10], "uncertainty",
+                5)),
+            ("fused_votes", lambda: round_fused.fused_votes(
+                trees_pallas.PallasForest(gf=swapped), pool[:10]))):
+        try:
+            call()
+            fail(f"{name} took a path matrix that is not a heap")
+        except ValueError as e:
+            if "host fit" not in str(e) or (round_fused.launches,
+                                             round_fused.votes_launches) != before:
+                fail(f"a non-heap path matrix was not refused by name by {name}: {e}")
+    print("# round_megakernel, fused_votes: a non-heap path matrix is refused (ValueError), "
+          "no launch")
+    del walked_votes, gf60k, vote_shapes
 
     # -- phase 3b: K4 and the ring -----------------------------------------
     def ring_windows(devs, scores, sel):
@@ -670,18 +758,16 @@ def main() -> int:
     T = gf.n_trees
     depth = gf.value.shape[1].bit_length() - 1  # a heap forest: L = 2 ** depth
     # The least work of the leaf function: a row reaches its leaf in a tree
-    # by one compare per level of its root-to-leaf path. The megakernel adds
-    # one vote compare per (row, tree).
+    # by one compare per level of its root-to-leaf path; K1 reads the forest
+    # in its heap form, and the path-matrix operands it read before PR 4 give
+    # the old bound beside it.
     k1_ops = N_POOL * T * depth
-    k2_ops = N_POOL * T * (depth + 1)
-    op_bytes = nbytes(ops.feat, ops.thr, ops.plus, ops.minus, ops.tgt, ops.val)
-    # K1 counts the forest in its heap form; the path-matrix operands it read
-    # before give the old bound beside it.
     k1 = {}
     for label, (g, x) in (("pool", (gf, x_full)), ("test", (gf, test_x.contiguous())),
                           ("mesh shard", (gf_shard, pool[:n_shard].contiguous()))):
         h = trees_pallas.heap_operands(g)
         ms = cuda_ms(lambda: trees_pallas._launch_leaves(h, x), reps=9)
+        dev_ms = graph_ms(lambda: trees_pallas._launch_leaves(h, x))
         plain = cuda_ms(lambda: trees_pallas.predict_leaves_plain(g, x), reps=3)
         walk_plain = cuda_ms(lambda: trees_pallas.walk_leaves_plain(h, x), reps=3)
         o_bytes = nbytes(x) + g.n_trees * x.shape[0] * 4
@@ -689,43 +775,70 @@ def main() -> int:
         o = trees_pallas.forest_operands(g)
         old_lim, _ = bound(o_bytes + nbytes(o.feat, o.thr, o.plus, o.minus, o.tgt, o.val),
                            x.shape[0] * g.n_trees * depth)
-        k1[label] = dict(ms=ms, plain_ms=plain, walk_plain_ms=walk_plain, bound_ms=lim,
-                         bound_by=by, path_matrix_bound_ms=old_lim)
-        print(f"# time forest_leaves {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel, "
+        del o
+        k1[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, walk_plain_ms=walk_plain,
+                         bound_ms=lim, bound_by=by, path_matrix_bound_ms=old_lim)
+        print(f"# time forest_leaves {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel "
+              f"({dev_ms:.4f} ms device, graph-replayed), "
               f"{plain:.4f} ms plain, {walk_plain:.4f} ms walk_leaves_plain, bound {lim:.4f} ms "
-              f"by {by} ({100 * lim / ms:.3f}% of it; path-matrix operands' bound "
-              f"{old_lim:.4f} ms; launch {trees_pallas.leaves_launch_config(h, *x.shape, dev)}; "
-              f"{kind}, {smi})")
+              f"by {by} ({100 * lim / dev_ms:.3f}% of it in device time; launch "
+              f"{trees_pallas.leaves_launch_config(h, *x.shape, dev)}; {kind}, {smi})")
     k1_ms, k1_plain = k1["pool"]["ms"], k1["pool"]["plain_ms"]
     k1_bound, k1_by = k1["pool"]["bound_ms"], k1["pool"]["bound_by"]
+    # K2 and K3: bytes are x once, the forest's heap form once (nodes, and
+    # the leaf values the vote bits come from), the mask and the table (K2)
+    # and what is written (K2's per-tile candidates, K3's [n] int32 votes);
+    # the least work is the walk and the vote per (row, tree). Each is also
+    # timed at the streamed shape.
     table = round_fused.score_table(TREES, "uncertainty", dev)
-    k2_ms = cuda_ms(lambda: round_fused._launch_megakernel(ops, x_full, selectable, table, WINDOW))
-    k2_plain = cuda_ms(
-        lambda: round_fused.megakernel_plain(gf, x_full, selectable, table, WINDOW), reps=3)
-    ni = -(-N_POOL // round_fused.TILE_ROWS)
-    k2_bound, k2_by = bound(nbytes(x_full, selectable, table) + op_bytes + ni * WINDOW * 8, k2_ops)
-    print(f"# time round_megakernel: {k2_ms:.4f} ms kernel, {k2_plain:.4f} ms plain, bound "
-          f"{k2_bound:.4f} ms by {k2_by} ({100 * k2_bound / k2_ms:.3f}% of it; {kind}, {smi})")
-    # The fused round's tile merge: a stable sort of ni x k candidates.
-    tv, ti = round_fused._launch_megakernel(ops, x_full, selectable, table, WINDOW)
+    kk = min(WINDOW, round_fused.TILE_ROWS)
+
+    def time_votes(name, g, x):
+        h = trees_pallas.heap_operands(g)
+        sel = selectable[:x.shape[0]]
+        tab = round_fused.score_table(g.n_trees, "uncertainty", dev)
+        if name == "round_megakernel":
+            def launch():
+                return round_fused._launch_megakernel(h, x, sel, tab, WINDOW)
+            plain = cuda_ms(lambda: round_fused.megakernel_plain(g, x, sel, tab, WINDOW), reps=3)
+            walk_plain = cuda_ms(lambda: round_fused.tile_topk_plain(
+                round_fused.walk_votes_plain(h, x), sel, tab, WINDOW), reps=3)
+            io = nbytes(sel, tab) + -(-x.shape[0] // round_fused.TILE_ROWS) * kk * 8
+        else:
+            def launch():
+                return round_fused._launch_votes(h, x)
+            plain = cuda_ms(lambda: round_fused.fused_votes_plain(g, x), reps=3)
+            walk_plain = cuda_ms(lambda: round_fused.walk_votes_plain(h, x), reps=3)
+            io = 4 * x.shape[0]
+        lim, by = bound(nbytes(x, h.nodes, h.val) + io, x.shape[0] * g.n_trees * (depth + 1))
+        ms = cuda_ms(launch, reps=9)
+        dev_ms = graph_ms(launch)
+        cfg0 = round_fused.launch_config(name, h, *x.shape, dev)
+        print(f"# time {name} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel ({dev_ms:.4f} "
+              f"ms device, graph-replayed), {plain:.4f} ms plain, {walk_plain:.4f} ms walk plain, "
+              f"bound {lim:.4f} ms by {by} ({100 * lim / dev_ms:.3f}% of it in device time); "
+              f"launch {cfg0} ({kind}, {smi})")
+        return dict(ms=ms, device_ms=dev_ms, plain_ms=plain, walk_plain_ms=walk_plain,
+                    bound_ms=lim, bound_by=by, launch_config=cfg0)
+
+    k2 = {"pool": time_votes("round_megakernel", gf, x_full),
+          "streamed 256 trees": time_votes("round_megakernel", gf256, x_full)}
+    k2_ms, k2_plain = k2["pool"]["ms"], k2["pool"]["plain_ms"]
+    k2_bound, k2_by = k2["pool"]["bound_ms"], k2["pool"]["bound_by"]
+    # The fused round's tile merge: a stable sort of n_tiles x k candidates.
+    tv, ti = round_fused._launch_megakernel(heap, x_full, selectable, table, WINDOW)
     merge_ms = cuda_ms(lambda: merge_tile_topk(tv, ti, WINDOW), reps=9)
+    merge_dev = graph_ms(lambda: merge_tile_topk(tv, ti, WINDOW))
+    k2_dev = k2["pool"]["device_ms"]
     print(f"# time merge_tile_topk ({tv.shape[0]} tiles x {tv.shape[1]} candidates, k={WINDOW}): "
-          f"{merge_ms:.4f} ms ({kind}, {smi})")
+          f"{merge_ms:.4f} ms ({merge_dev:.4f} ms device, graph-replayed: "
+          f"{100 * merge_dev / (merge_dev + k2_dev):.1f}% of K2 + merge in device time) "
+          f"({kind}, {smi})")
     # K3 at the mesh's per-shard shape (its main path: 71,202 rows x 50
-    # trees) and at the full width; its least work is the walk and the vote
-    # per (row, tree), its bytes the rows, the forest and [n] int32 votes.
-    k3 = {}
-    for label, (g, x) in (("shard", (gf_shard, pool[:n_shard].contiguous())),
-                          ("full", (gf, x_full))):
-        o = trees_pallas.forest_operands(g)
-        ms = cuda_ms(lambda: round_fused._launch_votes(o, x))
-        plain = cuda_ms(lambda: round_fused.fused_votes_plain(g, x), reps=3)
-        o_bytes = nbytes(o.feat, o.thr, o.plus, o.minus, o.tgt, o.val)
-        lim, by = bound(nbytes(x) + o_bytes + 4 * x.shape[0], x.shape[0] * g.n_trees * (depth + 1))
-        k3[label] = (ms, plain, lim, by)
-        print(f"# time fused_votes {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel, "
-              f"{plain:.4f} ms plain, bound {lim:.4f} ms by {by} ({100 * lim / ms:.3f}% of it; "
-              f"{kind}, {smi})")
+    # trees), at the full width and at the streamed shape.
+    k3 = {"shard": time_votes("fused_votes", gf_shard, pool[:n_shard].contiguous()),
+          "full": time_votes("fused_votes", gf, x_full),
+          "streamed 256 trees": time_votes("fused_votes", gf256, x_full)}
     # K4: one ring step of the mesh on the card, four k = 100 windows (800
     # bytes read and 800 written each) into preallocated buffers, timed over
     # 100 back-to-back steps; the library yardstick is four Tensor.copy_
@@ -814,14 +927,17 @@ def main() -> int:
          "launches": launches["fused"]["round_megakernel"],
          "launches_by_path": {p: launches[p]["round_megakernel"] for p in launches},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "by_shape": k2, "launch_config": k2["pool"]["launch_config"]},
         {"name": "fused_votes", "route": "cuda", "source": f"{pkg}/fused_votes.cu",
          "replaces": "distributed_active_learning_tpu/ops/round_fused.py:286",
          "launches": launches["mesh_fused"]["fused_votes"],
          "launches_by_path": {p: launches[p]["fused_votes"] for p in launches},
-         "max_abs_err": k3_err, "ms": k3["shard"][0], "plain_ms": k3["shard"][1],
-         "bound_ms": k3["shard"][2], "bound_by": k3["shard"][3], "library_ms": None,
-         "full_width": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), k3["full"]))},
+         "max_abs_err": k3_err, "ms": k3["shard"]["ms"], "plain_ms": k3["shard"]["plain_ms"],
+         "bound_ms": k3["shard"]["bound_ms"], "bound_by": k3["shard"]["bound_by"],
+         "library_ms": None, "by_shape": k3, "launch_config": k3["shard"]["launch_config"],
+         "full_width": {key: k3["full"][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                        "bound_by")}},
         {"name": "ring_hop", "route": "cuda", "source": f"{pkg}/ring_hop.cu",
          "replaces": "distributed_active_learning_tpu/ops/ring_topk.py:109",
          "launches": launches["mesh_fused"]["ring_hop"],
@@ -844,7 +960,8 @@ def main() -> int:
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "segment_slots": seg_S},
-    ], "seconds_per_round": chunk_times, "merge_tile_topk_ms": merge_ms}))
+    ], "seconds_per_round": chunk_times, "merge_tile_topk_ms": merge_ms,
+        "merge_tile_topk_device_ms": merge_dev}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

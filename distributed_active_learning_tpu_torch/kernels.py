@@ -42,9 +42,13 @@ _SIGNATURES = {
         "forest_leaves_config": [_I, _I, _I, _I, _I, _I, _P],
     },
     "round_megakernel": {
-        "round_megakernel": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+        "round_megakernel": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P],
+        "round_megakernel_config": [_I, _I, _I, _I, _I, _I, _P],
     },
-    "fused_votes": {"fused_votes": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P]},
+    "fused_votes": {
+        "fused_votes": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+        "fused_votes_config": [_I, _I, _I, _I, _I, _I, _P],
+    },
     "ring_hop": {"ring_step": [_P, _I, _I, _P], "ring_hop_enable_peer": [_I, _I]},
     "forest_leaves_transposed": {
         "forest_leaves_transposed": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,

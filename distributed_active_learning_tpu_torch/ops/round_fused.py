@@ -2,18 +2,23 @@
 in one pass over the pool (the port of ``ops/round_fused.py``).
 
 - ``PallasForest`` on a CUDA tensor: ``csrc/round_megakernel.cu``, which
-  replaces the Pallas ``_mega_kernel``. Votes stay in registers; neither the
-  ``[n, T]`` leaf matrix nor the score vector reaches device memory. Each
-  128-row tile yields its top ``min(k, 128)`` candidates, merged by
-  ``ops.topk.merge_tile_topk`` (plain PyTorch, as it is plain XLA there).
+  replaces the Pallas ``_mega_kernel``. It walks the forest's heap form
+  (``trees_pallas.HeapOperands``, shared with K1) held in shared memory
+  (``csrc/heap_votes.cuh``); votes stay on chip, and neither the ``[n, T]``
+  leaf matrix nor the score vector reaches device memory. Each 128-row tile
+  yields its top ``min(k, 128)`` candidates, merged by
+  ``ops.topk.merge_tile_topk`` (plain PyTorch, as it is plain XLA there). A
+  forest that is not made of complete heap trees raises ``ValueError``.
 - ``PallasForest`` on a CPU tensor: :func:`megakernel_plain`, the same
   function in plain PyTorch (plain K1, votes, score, mask, a stable top-k per
-  tile).
+  tile). :func:`walk_votes_plain` is the kernels' own arithmetic (the walk,
+  then the packed vote bits), for holding them on the card.
 - ``GemmForest`` (and pallas forests past the tile limits):
   :func:`_xla_streamed`, the exact gemm tile body per row tile.
 - ``ShardedPallasForest`` (a device mesh): :func:`_sharded_score_select`.
   Each (data, model) shard counts its tree shard's votes on its row block
-  with ``csrc/fused_votes.cu`` (K3, replacing the Pallas ``_votes_kernel``),
+  with ``csrc/fused_votes.cu`` (K3, replacing the Pallas ``_votes_kernel``:
+  the same heap walk as K2, its votes stored as ``[n]`` int32),
   a sum over ``model`` completes them, each data shard scores its block and
   keeps its stable top-k window, and the windows merge on the data ring
   (``ops/ring_topk.py``, K4 once per sending device and ring step).
@@ -58,7 +63,8 @@ votes_gemm_route_calls = 0
 # Calls routed to the gemm stream (gemm forests, or past the tile limits).
 stream_route_calls = 0
 
-# Rows per megakernel tile (csrc/forest_eval.cuh ROWS).
+# Rows per megakernel tile, each giving its top min(k, TILE_ROWS) candidates:
+# the kernel's row tile (csrc/heap_votes.cuh TILE) and megakernel_plain's.
 TILE_ROWS = 128
 
 #: Strategies the fused round serves: binary scores that are pure functions
@@ -132,20 +138,82 @@ def _tile_work(votes: torch.Tensor, selectable: torch.Tensor, table: torch.Tenso
     return work.reshape(-1, TILE_ROWS)
 
 
-def megakernel_plain(gf: GemmForest, x, selectable, table: torch.Tensor, k: int):
-    """The plain PyTorch version of the megakernel: plain K1 leaves, hard
-    votes, the score table, the selectable mask, then a stable top-``k``
-    per 128-row tile with pool-level indices."""
-    leaves = trees_pallas.predict_leaves_plain(gf, x)
-    votes = (leaves > 0.5).sum(dim=1)
+def tile_topk_plain(votes: torch.Tensor, selectable, table: torch.Tensor, k: int):
+    """The megakernel's select in plain PyTorch: the score table at the
+    votes, the selectable mask, then a stable top-``k`` per 128-row tile
+    with pool-level indices."""
     work = _tile_work(votes, selectable, table)
     kk = min(k, TILE_ROWS)
     v, i = stable_top_k(work, kk)
-    base = torch.arange(work.shape[0], device=x.device)[:, None] * TILE_ROWS
+    base = torch.arange(work.shape[0], device=votes.device)[:, None] * TILE_ROWS
     return v, (i + base).to(torch.int32)
 
 
-def _launch_megakernel(ops, x, selectable, table, k: int):
+def megakernel_plain(gf: GemmForest, x, selectable, table: torch.Tensor, k: int):
+    """The plain PyTorch version of the megakernel: plain K1 leaves, hard
+    votes, then :func:`tile_topk_plain`."""
+    return tile_topk_plain(fused_votes_plain(gf, x), selectable, table, k)
+
+
+def vote_bits(ops: trees_pallas.HeapOperands) -> torch.Tensor:
+    """``[T, W]`` int64 words of vote bits, ``W = ceil(2^depth / 32)``: bit
+    ``l % 32`` of word ``l // 32`` is ``val[t, l] > 0.5``, as the kernels
+    pack them with one ballot per 32 leaves while they stage a tree."""
+    L = 1 << ops.depth
+    W = -(-L // 32)
+    hit = torch.nn.functional.pad(ops.val[:, :L] > 0.5, (0, 32 * W - L))
+    shifts = torch.arange(32, device=hit.device, dtype=torch.int64)
+    return (hit.reshape(ops.n_trees, W, 32).to(torch.int64) << shifts).sum(-1)
+
+
+def packed_thresholds(ops: trees_pallas.HeapOperands) -> torch.Tensor:
+    """``[T, I]`` f32: each threshold as the kernels pack it into a 4-byte
+    node, the largest bf16 value not above it (a NaN stays a NaN). A bf16
+    feature compares ``<=`` with it exactly as with the threshold."""
+    t = ops.thr.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    hi = t & 0xFFFF0000
+    hi = torch.where(((t & 0x80000000) != 0) & ((t & 0xFFFF) != 0), hi + 0x10000, hi)
+    hi = torch.where((t & 0x7FFFFFFF) > 0x7F800000, 0x7FC00000, hi)
+    return torch.where(hi >= 2**31, hi - 2**32, hi).to(torch.int32).view(torch.float32)
+
+
+def walk_votes_plain(ops: trees_pallas.HeapOperands, x: torch.Tensor) -> torch.Tensor:
+    """K2's and K3's arithmetic in plain PyTorch: ``[n]`` int32 hard votes
+    from the walk over the heap operands with the thresholds packed as the
+    kernels pack them (:func:`packed_thresholds`) and the vote bits of the
+    leaves it reaches (:func:`vote_bits`)."""
+    bits = vote_bits(ops)
+    tree = torch.arange(ops.n_trees, device=x.device)
+    out = [((bits[tree, leaf >> 5] >> (leaf & 31)) & 1).sum(dim=1, dtype=torch.int32)
+           for leaf in trees_pallas.walk_leaf_ids(ops, x, packed_thresholds(ops))]
+    return torch.cat(out)
+
+
+def _heap_args(ops: trees_pallas.HeapOperands):
+    return (ops.nodes.data_ptr(), ops.val.data_ptr(), ops.n_trees, ops.depth,
+            ops.nodes.shape[1], ops.val.shape[1])
+
+
+def launch_config(name: str, ops: trees_pallas.HeapOperands, n: int, d: int, device) -> dict:
+    """The configuration ``name`` ("round_megakernel" or "fused_votes")
+    launches with for ``n`` rows of ``d`` features on ``device``: its mode
+    (the forest resident in shared memory, or streamed in tree chunks), the
+    groups of 128 threads a block, trees a chunk, shared memory bytes a
+    block, the persistent grid and the blocks a multiprocessor holds."""
+    import ctypes
+
+    got = (ctypes.c_int * 6)()
+    lib = kernels.load(name)
+    with torch.cuda.device(device):
+        err = getattr(lib, f"{name}_config")(n, d, *_heap_args(ops)[2:], got)
+    kernels.check(f"{name}_config", err)
+    cfg = dict(zip(("mode", "groups", "trees_per_chunk", "smem_bytes", "grid", "blocks_per_sm"),
+                   list(got)))
+    cfg["mode"] = ("resident", "streamed")[cfg["mode"]]
+    return cfg
+
+
+def _launch_megakernel(ops: trees_pallas.HeapOperands, x, selectable, table, k: int):
     """Launch csrc/round_megakernel.cu: ``([n_tiles, kk] f32, [n_tiles, kk]
     int32)`` per-tile candidates."""
     global launches
@@ -153,21 +221,17 @@ def _launch_megakernel(ops, x, selectable, table, k: int):
     table = table.to(torch.float32).contiguous()
     x = trees_pallas._check_x(x, ops, sel, table)
     n, d = x.shape
-    T = ops.feat.shape[0]
     kk = min(k, TILE_ROWS)
     ni = -(-n // TILE_ROWS)
-    if sel.shape != (n,) or table.shape != (T + 1,):
+    if sel.shape != (n,) or table.shape != (ops.n_trees + 1,):
         raise ValueError("selectable must be [n] and the score table [T + 1]")
     vals = torch.empty(ni, kk, dtype=torch.float32, device=x.device)
     idx = torch.empty(ni, kk, dtype=torch.int32, device=x.device)
     lib = kernels.load("round_megakernel")
     with torch.cuda.device(x.device):
         err = lib.round_megakernel(
-            x.data_ptr(), n, d,
-            ops.feat.data_ptr(), ops.thr.data_ptr(), ops.plus.data_ptr(), ops.minus.data_ptr(),
-            ops.tgt.data_ptr(), ops.val.data_ptr(), T, ops.i_pad, ops.n_leaves,
-            sel.data_ptr(), table.data_ptr(), kk, vals.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), n, d, *_heap_args(ops), sel.data_ptr(), table.data_ptr(), kk,
+            vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("round_megakernel", err)
     launches += 1
@@ -189,7 +253,7 @@ def _megakernel(forest: PallasForest, x, selectable, strategy_name: str, k: int)
         raise ValueError(f"window {k} exceeds the row tile ({bn})")
     table = score_table(gf.n_trees, strategy_name, x.device)
     if x.device.type == "cuda":
-        return _launch_megakernel(forest.operands, x, selectable, table, k)
+        return _launch_megakernel(forest.heap, x, selectable, table, k)
     if x.device.type == "cpu":
         return megakernel_plain(gf, x, selectable, table, k)
     raise ValueError(f"unsupported device {x.device}")
@@ -201,7 +265,7 @@ def fused_votes_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     return (trees_pallas.predict_leaves_plain(gf, x) > 0.5).sum(dim=1, dtype=torch.int32)
 
 
-def _launch_votes(ops, x: torch.Tensor) -> torch.Tensor:
+def _launch_votes(ops: trees_pallas.HeapOperands, x: torch.Tensor):
     """Launch csrc/fused_votes.cu: ``[n]`` int32 hard votes."""
     global votes_launches
     x = trees_pallas._check_x(x, ops)
@@ -210,10 +274,8 @@ def _launch_votes(ops, x: torch.Tensor) -> torch.Tensor:
     lib = kernels.load("fused_votes")
     with torch.cuda.device(x.device):
         err = lib.fused_votes(
-            x.data_ptr(), n, d,
-            ops.feat.data_ptr(), ops.thr.data_ptr(), ops.plus.data_ptr(), ops.minus.data_ptr(),
-            ops.tgt.data_ptr(), ops.val.data_ptr(), ops.feat.shape[0], ops.i_pad, ops.n_leaves,
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), n, d, *_heap_args(ops), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("fused_votes", err)
     votes_launches += 1
@@ -233,7 +295,7 @@ def fused_votes(forest, x: torch.Tensor) -> torch.Tensor:
         votes_gemm_route_calls += 1
         return (predict_leaves_gemm(gf, x) > 0.5).sum(dim=1, dtype=torch.int32)
     if x.device.type == "cuda":
-        return _launch_votes(trees_pallas.operands_of(forest), x)
+        return _launch_votes(trees_pallas.heap_operands_of(forest), x)
     if x.device.type == "cpu":
         return fused_votes_plain(gf, x)
     raise ValueError(f"unsupported device {x.device}")

@@ -5,11 +5,12 @@ name and selects this module.
 
 The kernel walks each tree from the root (``csrc/heap_walk.cuh``), so it
 takes complete heap trees, the form every device fit grows: the forest's
-heap form (:class:`HeapOperands`) is built once per forest, and a path
-matrix of another shape is refused on the card. On a heap tree the walk is
-the path-matrix function exactly. The path-matrix operands
-(:class:`KernelOperands`) stay for the kernels that count ancestors (K2,
-K3, K5, K6).
+heap form (:class:`HeapOperands`) is built once per forest and shared with
+the vote kernels K2 and K3 (``ops/round_fused.py``), which walk the same
+trees, and a path matrix of another shape is refused on the card. On a heap
+tree the walk is the path-matrix function exactly. The path-matrix operands
+(:class:`KernelOperands`) stay for the layout variant K5, which counts
+ancestors (``benches/pallas_variants.py``).
 
 Numerics are those of the TPU kernel: each node slot's feature is rounded to
 bf16 and compared in f32 against its f32 threshold. A vote can differ from
@@ -60,20 +61,16 @@ gemm_route_calls = 0
 class PallasForest:
     """Marker wrapper selecting the hand-written leaf kernels: the same
     path-matrix data as :class:`GemmForest`; the wrapper type is what
-    ``ops.forest_eval`` dispatches on. The kernels' packed operands (the
-    heap form for K1, the path masks for K2 and K3) are built at their first
-    launch and kept, so the round's launches (score or megakernel, then test
-    accuracy) pack and check the forest once."""
+    ``ops.forest_eval`` dispatches on. The kernels' heap form (K1, K2 and
+    K3 walk it) is built at their first launch and kept, so the round's
+    launches (score or megakernel, then test accuracy) pack and check the
+    forest once."""
 
     gf: GemmForest
 
     @property
     def n_trees(self) -> int:
         return self.gf.n_trees
-
-    @functools.cached_property
-    def operands(self) -> "KernelOperands":
-        return forest_operands(self.gf)
 
     @functools.cached_property
     def heap(self) -> "HeapOperands":
@@ -135,7 +132,7 @@ def tile_dims(gf: GemmForest, n: int, d: int):
 
 @dataclasses.dataclass(frozen=True)
 class KernelOperands:
-    """The forest in the CUDA kernels' layout (csrc/forest_eval.cuh)."""
+    """The forest in the path-matrix layout of csrc/forest_eval.cuh (K5)."""
 
     feat: torch.Tensor   # [T, i_pad] int32, padded slots select feature 0...
     thr: torch.Tensor    # [T, i_pad] f32, ...and compare False (-inf)
@@ -184,7 +181,7 @@ _shared_masks: dict = {}
 
 
 def forest_operands(gf: GemmForest) -> KernelOperands:
-    """Pad and pack a path-matrix forest for the kernels: node slots padded
+    """Pad and pack a path-matrix forest for K5: node slots padded
     to a multiple of 32, each leaf column of the path matrix as a plus and a
     minus bit mask. A device-fit forest's path is one constant broadcast
     over trees: checked and packed at its first use and kept."""
@@ -212,7 +209,8 @@ def forest_operands(gf: GemmForest) -> KernelOperands:
 
 @dataclasses.dataclass(frozen=True)
 class HeapOperands:
-    """A complete heap forest in K1's layout (csrc/heap_walk.cuh): node
+    """A complete heap forest in the walking kernels' layout (K1, K2 and K3;
+    csrc/heap_walk.cuh): node
     ``v`` of tree ``t`` is the 8-byte word ``nodes[t, v] = (feature id,
     threshold bits)``, children at ``2v + 1`` and ``2v + 2``; leaf ``l``'s
     value is ``val[t, l]``. Feature ids fit 16 bits (``d <= 512``) and are
@@ -250,7 +248,8 @@ class HeapOperands:
 
 def _not_a_heap(why: str) -> ValueError:
     return ValueError(
-        f"K1 on the card walks complete heap trees, and this forest is not one ({why}). "
+        f"The forest kernels on the card (K1, K2, K3) walk complete heap trees, and this "
+        f"forest is not one ({why}). "
         "The device fit grows heap trees; forests of another shape come from the host fit, "
         "which is not ported yet: the host-fit slice packs its trees into heaps for the walk."
     )
@@ -287,22 +286,29 @@ def heap_operands(gf: GemmForest) -> HeapOperands:
     )
 
 
-def walk_leaves_plain(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: ``[n, T]`` leaf values by
-    ``depth`` rounds of gathers from the heap operands, features rounded to
-    bf16 and compared ``<=`` in f32 (a NaN goes right)."""
-    T, I = ops.n_trees, ops.n_internal
-    feat, thr = ops.feat.long(), ops.thr
+def walk_leaf_ids(ops: HeapOperands, x: torch.Tensor, thr=None):
+    """The walk of csrc/heap_walk.cuh in plain PyTorch, over row chunks:
+    yields ``[rows, T]`` int64 leaf indices, reached by ``depth`` rounds of
+    gathers from the heap operands, features rounded to bf16 and compared
+    ``<=`` in f32 (a NaN goes right) with the ``[T, I]`` thresholds ``thr``
+    (the operands' own by default)."""
+    T = ops.n_trees
+    feat, thr = ops.feat.long(), (ops.thr if thr is None else thr)
     tree = torch.arange(T, device=x.device)
-    out = []
     for xb in torch.split(x, 1 << 14):
         xf = xb.to(torch.bfloat16).to(torch.float32)
         v = torch.zeros(xb.shape[0], T, dtype=torch.int64, device=x.device)
         for _ in range(ops.depth):
             xv = torch.gather(xf, 1, feat[tree, v])
             v = 2 * v + 1 + (~(xv <= thr[tree, v])).long()
-        out.append(ops.val[tree, v - I])
-    return torch.cat(out)
+        yield v - ops.n_internal
+
+
+def walk_leaves_plain(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
+    """K1's arithmetic in plain PyTorch: ``[n, T]`` leaf values at the
+    leaves :func:`walk_leaf_ids` reaches."""
+    tree = torch.arange(ops.n_trees, device=x.device)
+    return torch.cat([ops.val[tree, leaf] for leaf in walk_leaf_ids(ops, x)])
 
 
 def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
@@ -373,14 +379,9 @@ def _unwrap(f) -> GemmForest:
     return f.gf if isinstance(f, PallasForest) else f
 
 
-def operands_of(f) -> KernelOperands:
-    """The kernels' operands of a forest: kept on a :class:`PallasForest`,
-    packed anew for a bare :class:`GemmForest`."""
-    return f.operands if isinstance(f, PallasForest) else forest_operands(f)
-
-
 def heap_operands_of(f) -> HeapOperands:
-    """K1's heap operands of a forest, kept or packed as :func:`operands_of`."""
+    """The heap operands of a forest: kept on a :class:`PallasForest`,
+    packed anew for a bare :class:`GemmForest`."""
     return f.heap if isinstance(f, PallasForest) else heap_operands(f)
 
 

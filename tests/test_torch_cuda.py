@@ -98,27 +98,65 @@ def _check_leaves(gf, x, label):
 
 
 def test_non_heap_forest_is_refused_on_the_card(cuda):
+    """K1, K2 and K3 raise on a path matrix that is not a heap, before any
+    launch."""
     import dataclasses
 
     gf, rng = _forest(4, 3, 5, cuda)
     swapped = dataclasses.replace(gf, path=gf.path[:, :, [1, 0, *range(2, 8)]].contiguous())
     x = torch.from_numpy(rng.normal(size=(10, 5)).astype(np.float32)).to(cuda)
-    before = trees_pallas.launches
-    with pytest.raises(ValueError, match="host fit"):
-        trees_pallas.predict_leaves_pallas(swapped, x)
-    assert trees_pallas.launches == before
+    sel = torch.ones(10, dtype=torch.bool, device=cuda)
+    calls = (lambda: trees_pallas.predict_leaves_pallas(swapped, x),
+             lambda: round_fused.fused_score_select(
+                 trees_pallas.PallasForest(gf=swapped), x, sel, "uncertainty", 5),
+             lambda: round_fused.fused_votes(trees_pallas.PallasForest(gf=swapped), x))
+    for call in calls:
+        before = (trees_pallas.launches, round_fused.launches, round_fused.votes_launches)
+        with pytest.raises(ValueError, match="host fit"):
+            call()
+        assert (trees_pallas.launches, round_fused.launches, round_fused.votes_launches) == before
+
+
+def _check_votes(gf, x, sel, label, mode=None):
+    """K3 and K2 (for two strategies, k below and above the tile) against
+    both plain versions: the path-matrix form and the walk over the heap
+    operands with packed vote bits; ``mode`` is the launch mode expected."""
+    heap = trees_pallas.heap_operands(gf)
+    for name in ("fused_votes", "round_megakernel"):
+        cfg = round_fused.launch_config(name, heap, *x.shape, x.device)
+        assert mode is None or cfg["mode"] == mode, (label, name, cfg)
+    before = round_fused.votes_launches
+    got = round_fused.fused_votes(trees_pallas.PallasForest(gf=gf), x)
+    assert round_fused.votes_launches == before + 1
+    walked = round_fused.walk_votes_plain(heap, x)
+    assert torch.equal(got, round_fused.fused_votes_plain(gf, x)), label
+    assert torch.equal(got, walked), label
+    for name in ("uncertainty", "entropy"):
+        table = round_fused.score_table(gf.n_trees, name, x.device)
+        for k in (50, 200):  # 200 > the 128-row tile: each tile gives all rows
+            before = round_fused.launches
+            tv, ti = round_fused._launch_megakernel(heap, x, sel, table, k)
+            assert round_fused.launches == before + 1
+            pv, pi = round_fused.megakernel_plain(gf, x, sel, table, k)
+            wv, wi = round_fused.tile_topk_plain(walked, sel, table, k)
+            torch.cuda.synchronize()
+            assert torch.equal(tv, pv) and torch.equal(ti, pi), (label, name, k)
+            assert torch.equal(tv, wv) and torch.equal(ti, wi), (label, name, k)
 
 
 def test_round_megakernel_matches_plain(cuda):
+    """K2 (csrc/round_megakernel.cu) and K3 (csrc/fused_votes.cu) against
+    both plain versions: every strategy, a depth sweep 1-8 on edge rows, and
+    the streamed mode (wide rows, many trees)."""
     gf, rng = _forest(16, 8, 30, cuda, seed=3)
     n = 5000
     x = torch.from_numpy(rng.normal(size=(n, 30)).astype(np.float32)).to(cuda)
     sel = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
-    ops = trees_pallas.forest_operands(gf)
+    heap = trees_pallas.heap_operands(gf)
     for name in ("uncertainty", "entropy", "full_entropy", "margin"):
         table = round_fused.score_table(gf.n_trees, name, cuda)
-        for k in (50, 200):  # 200 > the 128-row tile: each tile gives all rows
-            tv, ti = round_fused._launch_megakernel(ops, x, sel, table, k)
+        for k in (50, 200):
+            tv, ti = round_fused._launch_megakernel(heap, x, sel, table, k)
             pv, pi = round_fused.megakernel_plain(gf, x, sel, table, k)
             torch.cuda.synchronize()
             assert torch.equal(tv, pv) and torch.equal(ti, pi), (name, k)
@@ -128,19 +166,40 @@ def test_round_megakernel_matches_plain(cuda):
         vals, idx = round_fused.fused_score_select(
             trees_pallas.PallasForest(gf=gf), x, sel, name, 50)
         assert bool(sel[idx.long()].all()) and bool(torch.isfinite(vals).all())
+    for depth in range(1, 9):
+        gf, rng = _forest(9, depth, 6, cuda, seed=20 + depth)
+        x = _edge_rows(gf, rng, 1000, 6).to(cuda)
+        _check_votes(gf, x, torch.from_numpy(rng.random(1000) < 0.7).to(cuda), ("depth", depth),
+                     mode="resident")
+    # Streamed: a 128-row tile of 512 features leaves room for ~95 resident
+    # depth-8 trees (1,056 bytes each), and 256 such trees take 270,336 bytes.
+    for n_trees, d, n in ((120, 512, 700), (256, 30, 3001)):
+        gf, rng = _forest(n_trees, 8, d, cuda, seed=n_trees)
+        x = _edge_rows(gf, rng, n, d).to(cuda)
+        _check_votes(gf, x, torch.from_numpy(rng.random(n) < 0.7).to(cuda), (n_trees, d),
+                     mode="streamed")
+    # Trees past the count whose [T + 1] score table would fit in shared
+    # memory beside a 512-feature tile (~23,000) or a 30-feature one
+    # (~54,000): a random depth-1 heap forest at each width.
+    for n_trees, d in ((24_000, 512), (60_000, 30)):
+        rng = np.random.default_rng(n_trees)
+        f = torch.from_numpy(rng.integers(0, d, size=(n_trees, 1), dtype=np.int32))
+        th = torch.from_numpy(rng.normal(size=(n_trees, 1)).astype(np.float32))
+        v = torch.from_numpy(rng.random((n_trees, 3), dtype=np.float32))
+        gf = trees_train.heap_gemm_forest(f.to(cuda), th.to(cuda), v.to(cuda), 1)
+        x = _edge_rows(gf, rng, 300, d).to(cuda)
+        _check_votes(gf, x, torch.from_numpy(rng.random(300) < 0.7).to(cuda), (n_trees, d),
+                     mode="streamed")
 
 
 def test_mesh_kernels_match_plain(cuda):
     """K3 (csrc/fused_votes.cu) and K4 (csrc/ring_hop.cu: a hop and the ring
     step) against their plain versions, and the 4 x 2 mesh on one card
     against the CPU mesh."""
-    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700)):
+    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700), (50, 8, 30, 1)):
         gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
         x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
-        before = round_fused.votes_launches
-        got = round_fused.fused_votes(trees_pallas.PallasForest(gf=gf), x)
-        assert round_fused.votes_launches == before + 1
-        assert torch.equal(got, round_fused.fused_votes_plain(gf, x)), (n_trees, n)
+        _check_votes(gf, x, torch.from_numpy(rng.random(n) < 0.7).to(cuda), (n_trees, n))
 
     rng = np.random.default_rng(1)
     k = 24

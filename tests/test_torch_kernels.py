@@ -7,8 +7,10 @@ kernels in interpret mode on the same forest and pool:
 - the kernels' packed operands (bit masks of the path matrix) reproduce the
   plain version when the kernel's arithmetic is emulated from them, and so
   does K1's heap walk over its heap operands (``walk_leaves_plain``), on
-  rows with NaN, infinities and features equal to thresholds; a path matrix
-  that is not a heap is refused;
+  rows with NaN, infinities and features equal to thresholds; so do K2's
+  and K3's walk and packed vote bits (``walk_votes_plain``): the plain
+  versions' votes and per-tile candidates; a path matrix that is not a heap
+  is refused;
 - K2 (ops/round_fused.py): ``fused_score_select`` on a pallas forest equals
   the JAX megakernel's ``(vals, idx)``.
 """
@@ -76,9 +78,11 @@ def _unpack(words, i_pad):
 
 
 def test_kernel_operands_reproduce_the_plain_version():
-    """The CUDA kernels read the forest as padded node slots and plus/minus
-    bit masks; counting from those operands exactly as csrc/forest_eval.cuh
-    does must give the plain version's leaves."""
+    """K5 reads the forest as padded node slots and plus/minus bit masks;
+    counting from those operands exactly as csrc/forest_eval.cuh does must
+    give the plain version's leaves. K1, K2 and K3 walk the heap form: K1's
+    leaves, and K2's and K3's votes from the vote bits they pack, must give
+    the plain versions' leaves, votes and per-tile candidates."""
     _, tf, rng = _forest(11, 5, seed=4)  # I = 31 slots -> one 32-bit word
     _, tf8, _ = _forest(5, 8, seed=5)    # I = 255 slots -> eight words
     for gf in (tf, tf8):
@@ -114,6 +118,18 @@ def test_kernel_operands_reproduce_the_plain_version():
         want = t_pallas.predict_leaves_plain(gf, x)
         got = t_pallas.walk_leaves_plain(heap, x)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), depth
+        # K2 and K3: one vote bit a leaf (value > 0.5), 32 to a word.
+        assert t_fused.vote_bits(heap).shape == (gf.n_trees, -(-(1 << depth) // 32))
+        votes = t_fused.walk_votes_plain(heap, x)
+        assert votes.dtype == torch.int32
+        assert torch.equal(votes, t_fused.fused_votes_plain(gf, x)), depth
+        sel = torch.from_numpy(rng.random(x.shape[0]) < 0.7)
+        for name in ("uncertainty", "entropy"):
+            table = t_fused.score_table(gf.n_trees, name, "cpu")
+            for k in (10, 200):  # 200 > the 128-row tile: each tile gives all rows
+                tv, ti = t_fused.tile_topk_plain(votes, sel, table, k)
+                pv, pi = t_fused.megakernel_plain(gf, x, sel, table, k)
+                assert torch.equal(tv, pv) and torch.equal(ti, pi), (depth, name, k)
     swapped = interop.gemm_forest_from_numpy(
         tf8.feat_ids.numpy(), tf8.thresholds.numpy(), tf8.path.numpy()[:, :, [1, 0, *range(2, 256)]],
         tf8.target.numpy(), tf8.value.numpy())
