@@ -24,11 +24,17 @@ and prints no result:
    one streamed shape (256 trees of depth 8 over the pool, too many to stay
    resident): bit-equal, each with its launch configuration and mode;
 2c. the layout variants K5 (csrc/forest_leaves_transposed.cu) and K6
-   (csrc/forest_leaves_segmented.cu) against their plain versions at full
-   width: K5 for both leaf payloads (hi + lo, exact f32), tree_outer on and
-   off, at (bn, bt) = (512, 16) and (2048, 8), and each ablation stage; K6 at
-   (2048, 8) and (1024, 8); all bit-equal, and K5 with the f32 payload equal
-   to K1's leaves;
+   (csrc/forest_leaves_segmented.cu), heap walks on csrc/heap_tiles.cuh,
+   against their plain versions at full width: K5 for both leaf payloads
+   (hi + lo, exact f32), tree_outer on and off, at (bn, bt) = (512, 16) and
+   (2048, 8), and each ablation stage; K6 at (2048, 8) and (1024, 8); all
+   bit-equal, and K5 with the f32 payload equal to K1's leaves. Both also
+   bit-equal to the walks of their own arithmetic at full width, and to
+   their plain versions over phase 2's depth sweep 1-8 on edge rows, at the
+   ragged 13-tree shape, and on a forest with -inf and NaN thresholds against
+   rows that are -inf there (where K6, which gives such nodes no slot, must
+   differ from K5); a path matrix that is not a heap is refused by both with
+   no launch;
 3. the round megakernel K2 (csrc/round_megakernel.cu, the same walk as K3)
    against both plain versions for uncertainty, entropy, full_entropy and
    margin at full width (5,000-row labeled mask, k = 100), then for
@@ -70,13 +76,14 @@ and prints no result:
    driver at depth 1 and 2 over 12 rounds (rounds 5-12: the first chunk holds
    the capture);
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
-   versions' and the bound (one call between CUDA events; for K1, K2 and
-   K3 also the device time of the call captured in a CUDA graph and
+   versions' and the bound (one call between CUDA events; for K1, K2, K3,
+   K5 and K6 also the device time of the call captured in a CUDA graph and
    replayed back to back): K1 at the pool, the test draw and one mesh
    shard; K2 at the pool and K3 at a mesh shard and the pool, each also at
    other thread-group counts a block than its own choice, and both at the
    streamed shape; a K4 ring step of four k = 100 windows beside four
-   ``Tensor.copy_`` pairs into preallocated buffers; ``merge_tile_topk`` at
+   ``Tensor.copy_`` pairs into preallocated buffers; K5 and K6 at (bn, bt) =
+   (2048, 8) on the pool; ``merge_tile_topk`` at
    the fused round's shape; then one fused and one unfused main-path round
    and one mesh fused round under torch.profiler (device time by kernel,
    device busy share);
@@ -408,6 +415,68 @@ def main() -> int:
     print(f"# forest_leaves_segmented full width (S = {seg_S} slots a feature): bit-equal to "
           "plain at (bn, bt) = (2048, 8) and (1024, 8)")
     del got, want, k1_leaves
+
+    def bits_equal(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def check_k5_k6(g, x, label, k5_tilings, k6_tilings):
+        for bn, bt, tree_outer in k5_tilings:
+            for leaf_f32 in (False, True):
+                got = lv.predict_leaves_transposed(g, x, bn=bn, bt=bt, tree_outer=tree_outer,
+                                                   leaf_f32=leaf_f32)
+                if not bits_equal(got, lv.predict_leaves_transposed_plain(g, x, leaf_f32)):
+                    fail(f"forest_leaves_transposed != plain at {label} (bn={bn}, bt={bt}, "
+                         f"tree_outer={tree_outer}, leaf_f32={leaf_f32})")
+            for stage in lv.ABLATE[1:]:
+                got = lv.predict_leaves_transposed(g, x, bn=bn, bt=bt, ablate=stage)
+                if not bits_equal(got, lv.predict_leaves_transposed_plain(g, x, ablate=stage)):
+                    fail(f"forest_leaves_transposed != plain at {label}, stage {stage}")
+        for bn, bt in k6_tilings:
+            got = lv.predict_leaves_segmented(g, x, bn=bn, bt=bt)
+            if not bits_equal(got, lv.predict_leaves_segmented_plain(g, x, bn=bn, bt=bt)):
+                fail(f"forest_leaves_segmented != plain at {label} (bn={bn}, bt={bt})")
+        torch.cuda.synchronize()
+
+    # The walks of the kernels' own arithmetic at full width, then depths
+    # 1-8 on edge rows (16 trees, 4,099 rows: ragged against every tile), the
+    # ragged 13-tree shape, and -inf/NaN thresholds against -inf rows.
+    p5 = lv._prep_transposed(gf, pool, 2048, 8)
+    if not bits_equal(lv._launch_transposed(p5, 2048, 8), lv.walk_transposed_plain(p5).T):
+        fail("forest_leaves_transposed != walk_transposed_plain at full width")
+    p6 = lv._segmented_operands(gf, pool, 2048, 8)
+    if not bits_equal(lv._launch_segmented(p6, 2048, 8), lv.walk_segmented_plain(p6).T):
+        fail("forest_leaves_segmented != walk_segmented_plain at full width")
+    del p5, p6
+    for depth_, (g, x) in sweep.items():
+        check_k5_k6(g, x, f"depth {depth_} edge rows", [(2048, 8, False), (512, 16, True)],
+                    [(2048, 8)])
+    check_k5_k6(gf13, pool[:1700], "13 trees x 1,700 rows", [(512, 8, False)], [(1024, 8)])
+    g8, x8 = sweep[DEPTH]
+    thr_odd = g8.thresholds.clone()
+    thr_odd[:, 1::5], thr_odd[:, 3::7] = float("-inf"), float("nan")
+    g_odd = dataclasses.replace(g8, thresholds=thr_odd)
+    x_odd = x8.clone()
+    rows = torch.arange(3, x_odd.shape[0], 2, device=dev)
+    x_odd[rows, g8.feat_ids[rows % g8.n_trees, 1 + 5 * (rows % 50)].long()] = float("-inf")
+    check_k5_k6(g_odd, x_odd, "-inf/NaN thresholds, -inf rows", [(2048, 8, False)], [(2048, 8)])
+    if torch.equal(lv.predict_leaves_segmented(g_odd, x_odd),
+                   lv.predict_leaves_transposed(g_odd, x_odd)):
+        fail("K6 sent -inf rows left at -inf thresholds (no node was dropped)")
+    before = (lv.transposed_launches, lv.segmented_launches)
+    for fn in (lv.predict_leaves_transposed, lv.predict_leaves_segmented):
+        try:
+            fn(swapped, pool[:10])
+            fail(f"{fn.__name__} took a path matrix that is not a heap")
+        except ValueError as e:
+            if "host fit" not in str(e):
+                fail(f"{fn.__name__}: a non-heap path matrix was not refused by name: {e}")
+    if (lv.transposed_launches, lv.segmented_launches) != before:
+        fail("a non-heap forest launched K5 or K6")
+    print(f"# forest_leaves_transposed / _segmented: bit-equal to walk_*_plain at full width; "
+          f"to plain at depths 1-{DEPTH} on edge rows ((2048, 8) and (512, 16) tree_outer for "
+          "K5, both payloads, every stage; (2048, 8) for K6), at 13 trees x 1,700 rows, and "
+          "with -inf/NaN thresholds against -inf rows (K6 != K5 there, as its slots drop "
+          "those nodes); a non-heap path matrix is refused by both, no launch")
 
     # -- phase 3: the megakernel against its plain version -----------------
     labeled = torch.zeros(N_POOL, dtype=torch.bool)
@@ -758,9 +827,8 @@ def main() -> int:
     T = gf.n_trees
     depth = gf.value.shape[1].bit_length() - 1  # a heap forest: L = 2 ** depth
     # The least work of the leaf function: a row reaches its leaf in a tree
-    # by one compare per level of its root-to-leaf path; K1 reads the forest
-    # in its heap form, and the path-matrix operands it read before PR 4 give
-    # the old bound beside it.
+    # by one compare per level of its root-to-leaf path; the bytes count the
+    # forest in its heap form.
     k1_ops = N_POOL * T * depth
     k1 = {}
     for label, (g, x) in (("pool", (gf, x_full)), ("test", (gf, test_x.contiguous())),
@@ -770,14 +838,10 @@ def main() -> int:
         dev_ms = graph_ms(lambda: trees_pallas._launch_leaves(h, x))
         plain = cuda_ms(lambda: trees_pallas.predict_leaves_plain(g, x), reps=3)
         walk_plain = cuda_ms(lambda: trees_pallas.walk_leaves_plain(h, x), reps=3)
-        o_bytes = nbytes(x) + g.n_trees * x.shape[0] * 4
-        lim, by = bound(o_bytes + nbytes(h.nodes, h.val), x.shape[0] * g.n_trees * depth)
-        o = trees_pallas.forest_operands(g)
-        old_lim, _ = bound(o_bytes + nbytes(o.feat, o.thr, o.plus, o.minus, o.tgt, o.val),
-                           x.shape[0] * g.n_trees * depth)
-        del o
+        lim, by = bound(nbytes(x, h.nodes, h.val) + g.n_trees * x.shape[0] * 4,
+                        x.shape[0] * g.n_trees * depth)
         k1[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain, walk_plain_ms=walk_plain,
-                         bound_ms=lim, bound_by=by, path_matrix_bound_ms=old_lim)
+                         bound_ms=lim, bound_by=by)
         print(f"# time forest_leaves {label} (n={x.shape[0]}, T={g.n_trees}): {ms:.4f} ms kernel "
               f"({dev_ms:.4f} ms device, graph-replayed), "
               f"{plain:.4f} ms plain, {walk_plain:.4f} ms walk_leaves_plain, bound {lim:.4f} ms "
@@ -863,27 +927,46 @@ def main() -> int:
         print(f"# NOTE ring_step ({step_ms:.4f} ms) is slower than {n_win} Tensor.copy_ pairs "
               f"({lib_step_ms:.4f} ms) in this run")
     # K5 and K6 on packed operands at (bn, bt) = (2048, 8), the hi + lo
-    # payload: bytes are x^T once, the forest's operands once and the [T, n]
-    # f32 output once; the least work is K1's walk.
+    # payload. The bound is the function's, as K1's: x^T read once, the
+    # forest once in its heap form, the [T, n] f32 output written once; the
+    # least work is K1's walk. The bound of the earlier ancestor-count kernels
+    # counted the path-matrix operands they read (node slots padded to 32,
+    # plus and minus masks, targets, the two payload planes; K6's over 32 S
+    # slots), printed beside.
+    heap_bytes = nbytes(heap.nodes, heap.val)
+    t_pad, L = -(-T // 8) * 8, 2 ** depth
     p5 = lv._prep_transposed(gf, x_full, 2048, 8)
     k5_ms = cuda_ms(lambda: lv._launch_transposed(p5, 2048, 8))
+    k5_dev = graph_ms(lambda: lv._launch_transposed(p5, 2048, 8))
     k5_outer_ms = cuda_ms(lambda: lv._launch_transposed(p5, 2048, 8, tree_outer=True))
+    k5_outer_dev = graph_ms(lambda: lv._launch_transposed(p5, 2048, 8, tree_outer=True))
+    k5_call_ms = cuda_ms(lambda: lv.predict_leaves_transposed(gf, x_full, bn=2048, bt=8))
     k5_plain = cuda_ms(lambda: lv.predict_leaves_transposed_plain(gf, x_full), reps=3)
-    k5_bound, k5_by = bound(
-        nbytes(p5.xT, p5.feat, p5.thr, p5.plus, p5.minus, p5.tgt, p5.val_hi, p5.val_lo) + out_bytes,
-        k1_ops)
+    k5_walk_plain = cuda_ms(lambda: lv.walk_transposed_plain(p5), reps=3)
+    k5_bound, k5_by = bound(nbytes(p5.xT) + heap_bytes + out_bytes, k1_ops)
+    i_pad = -(-(L - 1) // 32) * 32
+    k5_count_bound, _ = bound(nbytes(p5.xT) + out_bytes + t_pad * (
+        8 * i_pad + 8 * L * i_pad // 32 + 4 * L + 4 * L), k1_ops)
     p6 = lv._segmented_operands(gf, pool, 2048, 8)
     k6_ms = cuda_ms(lambda: lv._launch_segmented(p6, 2048, 8))
+    k6_dev = graph_ms(lambda: lv._launch_segmented(p6, 2048, 8))
     k6_plain = cuda_ms(lambda: lv._segmented_plain(p6), reps=3)
-    k6_bound, k6_by = bound(
-        nbytes(p6.xT, p6.thr, p6.plus, p6.minus, p6.tgt, p6.val_hi, p6.val_lo) + out_bytes, k1_ops)
-    print(f"# time forest_leaves_transposed (bn 2048, bt 8): {k5_ms:.4f} ms kernel "
-          f"({k5_outer_ms:.4f} ms tree_outer), {k5_plain:.4f} ms plain, bound {k5_bound:.4f} ms "
-          f"by {k5_by} ({100 * k5_bound / k5_ms:.3f}% of it; {kind}, {smi})")
-    print(f"# time forest_leaves_segmented (bn 2048, bt 8, S = {p6.S}): {k6_ms:.4f} ms kernel, "
-          f"{k6_plain:.4f} ms plain, bound {k6_bound:.4f} ms by {k6_by} "
-          f"({100 * k6_bound / k6_ms:.3f}% of it; {kind}, {smi})")
-    del p5
+    k6_walk_plain = cuda_ms(lambda: lv.walk_segmented_plain(p6), reps=3)
+    k6_bound, k6_by = bound(nbytes(p6.xT) + heap_bytes + out_bytes, k1_ops)
+    k6_count_bound, _ = bound(nbytes(p6.xT) + out_bytes + t_pad * (
+        4 * 32 * p6.S + 8 * L * p6.S + 4 * L + 4 * L), k1_ops)
+    print(f"# time forest_leaves_transposed (bn 2048, bt 8): {k5_ms:.4f} ms kernel ({k5_dev:.4f} "
+          f"ms device, graph-replayed), tree_outer {k5_outer_ms:.4f} ({k5_outer_dev:.4f} device); "
+          f"{k5_call_ms:.4f} ms a predict_leaves_transposed call (x^T relayout included); "
+          f"{k5_plain:.4f} ms plain, {k5_walk_plain:.4f} ms walk_transposed_plain; bound "
+          f"{k5_bound:.4f} ms by {k5_by} ({100 * k5_bound / k5_dev:.3f}% of it in device time; "
+          f"ancestor-count operand bound {k5_count_bound:.4f} ms; {kind}, {smi})")
+    print(f"# time forest_leaves_segmented (bn 2048, bt 8, S = {p6.S}): {k6_ms:.4f} ms kernel "
+          f"({k6_dev:.4f} ms device, graph-replayed), {k6_plain:.4f} ms plain, "
+          f"{k6_walk_plain:.4f} ms walk_segmented_plain; bound {k6_bound:.4f} ms by {k6_by} "
+          f"({100 * k6_bound / k6_dev:.3f}% of it in device time; ancestor-count operand bound "
+          f"{k6_count_bound:.4f} ms; {kind}, {smi})")
+    del p5, p6
     for fused in (True, False):
         profile_round(loop, cfg(fused), bundle, dev, "fused" if fused else "unfused")
     profile_round(loop, cfg(True, (4, 2)), bundle, dev, "mesh 4 x 2 fused", devices=one_card)
@@ -950,16 +1033,17 @@ def main() -> int:
          "source": f"{pkg}/forest_leaves_transposed.cu",
          "replaces": "benches/pallas_variants.py:116",
          "launches": variant_launches["forest_leaves_transposed"],
-         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain,
+         "max_abs_err": k5_err, "ms": k5_ms, "device_ms": k5_dev, "plain_ms": k5_plain,
          "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
-         "tree_outer_ms": k5_outer_ms},
+         "tree_outer_ms": k5_outer_ms, "tree_outer_device_ms": k5_outer_dev,
+         "call_ms": k5_call_ms, "walk_plain_ms": k5_walk_plain},
         {"name": "forest_leaves_segmented", "route": "cuda",
          "source": f"{pkg}/forest_leaves_segmented.cu",
          "replaces": "benches/pallas_variants.py:359",
          "launches": variant_launches["forest_leaves_segmented"],
-         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
+         "max_abs_err": k6_err, "ms": k6_ms, "device_ms": k6_dev, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
-         "segment_slots": seg_S},
+         "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
     ], "seconds_per_round": chunk_times, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))
     print(smi)

@@ -14,14 +14,19 @@ each a hand-written CUDA kernel, timed side by side on one forest and pool.
   reads feature ``slot // S`` and no feature-id array exists; ``hi + lo``
   payload; at most 32 features.
 
-Beside each kernel stands its plain PyTorch version (``*_plain``): what a
-CPU tensor gets, and the kernel's oracle on the card. A CUDA tensor launches
-the kernel or raises.
+Both kernels walk each tree from the root (``csrc/heap_tiles.cuh``, as K1
+does), so on the card they take forests of complete heap trees, the form
+every device fit grows, and refuse any other forest with ``ValueError``
+before a launch. Beside each kernel stand its plain PyTorch version
+(``*_plain``, the path-matrix function, for any forest): what a CPU tensor
+gets, and the kernel's oracle on the card; and a mirror of the kernel's own
+arithmetic on its packed operands (``walk_*_plain``). A CUDA tensor
+launches the kernel or raises.
 
 The JAX script also takes flags that only choose the matrix unit's operand
 type or how its products are batched (``int8``, ``batched``, ``blockdiag``,
 ``leaf_vpu``, ``fv_bf16``, ``main_bf16``, ``relu_hit``, ``bigsel``). They all
-compute the same function; a kernel that gathers and popcounts has no such
+compute the same function; a kernel that walks the trees has no such
 product, so the port does not take them and its :data:`VARIANTS` keeps one
 name per distinct ``(bn, bt, tree_outer, payload, ablate)``.
 
@@ -64,7 +69,6 @@ _BT = 16
 ABLATE = ("full", "sel", "cmp", "main", "eq")
 _TGT_PAD = 1.0e6  # a count no leaf reaches: padded trees and leaves never hit
 _SEG_FEATURES = 32
-_SEG_MAX_S = 256  # csrc/forest_leaves_segmented.cu MAX_S
 
 
 def _pad_to(a: torch.Tensor, axis: int, multiple: int, value=0) -> torch.Tensor:
@@ -85,45 +89,44 @@ def _hi_lo(val: torch.Tensor):
     return hi, lo
 
 
+def _check_tile(bn: int) -> None:
+    """The kernels stage rows 16 bytes at a time: ``bn`` is a multiple of 8."""
+    if bn <= 0 or bn % 8:
+        raise ValueError(f"the row tile bn must be a positive multiple of 8, got {bn}")
+
+
 # ---------------------------------------------------------------- transposed
 @dataclasses.dataclass(frozen=True)
 class TransposedOperands:
     """The transposed kernel's operands (trees padded to ``bt``, rows to
-    ``bn``, features to 32, node slots to 32)."""
+    ``bn``, features to 32): the pool feature-major, the forest as K1's heap
+    words, the leaf payload."""
 
     xT: torch.Tensor      # [d_pad, n_pad] bf16
-    feat: torch.Tensor    # [t_pad, i_pad] int32
-    thr: torch.Tensor     # [t_pad, i_pad] f32, -inf in padded slots and trees
-    plus: torch.Tensor    # [t_pad, L, i_pad // 32] int32 bits of path == +1
-    minus: torch.Tensor   # [t_pad, L, i_pad // 32] int32 bits of path == -1
-    tgt: torch.Tensor     # [t_pad, L] f32
+    nodes: torch.Tensor   # [t_pad, N] int64 heap words (trees_pallas.HeapOperands)
     val_hi: torch.Tensor  # [t_pad, L] f32 (leaf_f32) or bf16
     val_lo: torch.Tensor  # [t_pad, L] bf16 (zeros with leaf_f32)
     n: int
     n_trees: int
+    depth: int
     leaf_f32: bool
 
 
 def _prep_transposed(gf: GemmForest, x: torch.Tensor, bn: int, bt: int,
                      leaf_f32: bool = False) -> TransposedOperands:
     """Device-side packing of the transposed variants: one relayout of the
-    pool per call, the forest in K1's bit-mask form padded to the tree tile."""
-    n, d = x.shape
-    ops = trees_pallas.forest_operands(gf)
+    pool per call, the forest in K1's heap form padded to the tree tile;
+    ``ValueError`` when the forest is not made of complete heap trees."""
+    heap = trees_pallas.heap_operands(gf)
     xT = _pad_to(_pad_to(x.to(torch.bfloat16), 1, 32), 0, bn).T.contiguous()
-    val = _pad_to(ops.val, 0, bt)
+    val = _pad_to(gf.value.to(torch.float32), 0, bt)
     if leaf_f32:
         val_hi, val_lo = val.contiguous(), torch.zeros_like(val, dtype=torch.bfloat16)
     else:
         val_hi, val_lo = (t.contiguous() for t in _hi_lo(val))
     return TransposedOperands(
-        xT=xT,
-        feat=_pad_to(ops.feat, 0, bt).contiguous(),
-        thr=_pad_to(ops.thr, 0, bt, value=float("-inf")).contiguous(),
-        plus=_pad_to(ops.plus, 0, bt).contiguous(),
-        minus=_pad_to(ops.minus, 0, bt).contiguous(),
-        tgt=_pad_to(ops.tgt, 0, bt, value=_TGT_PAD).contiguous(),
-        val_hi=val_hi, val_lo=val_lo, n=n, n_trees=gf.n_trees, leaf_f32=leaf_f32,
+        xT=xT, nodes=_pad_to(heap.nodes, 0, bt).contiguous(), val_hi=val_hi, val_lo=val_lo,
+        n=x.shape[0], n_trees=gf.n_trees, depth=heap.depth, leaf_f32=leaf_f32,
     )
 
 
@@ -131,11 +134,12 @@ def _launch_transposed(p: TransposedOperands, bn: int, bt: int, tree_outer: bool
                        ablate: str = "full") -> torch.Tensor:
     """Launch csrc/forest_leaves_transposed.cu: ``[T, n]`` f32."""
     global transposed_launches
+    _check_tile(bn)
     dev = p.xT.device
-    tensors = (p.feat, p.thr, p.plus, p.minus, p.tgt, p.val_hi, p.val_lo)
+    tensors = (p.nodes, p.val_hi, p.val_lo)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"every operand must lie on one CUDA device, got {dev}")
-    if p.xT.shape[1] % bn or p.feat.shape[0] % bt:
+    if p.xT.shape[1] % bn or p.nodes.shape[0] % bt:
         raise ValueError("operands were packed for another (bn, bt)")
     out = torch.empty(p.n_trees, p.n, dtype=torch.float32, device=dev)
     lib = kernels.load("forest_leaves_transposed")
@@ -143,16 +147,50 @@ def _launch_transposed(p: TransposedOperands, bn: int, bt: int, tree_outer: bool
     hi = None if p.leaf_f32 else p.val_hi.data_ptr()
     with torch.cuda.device(dev):
         err = lib.forest_leaves_transposed(
-            p.xT.data_ptr(), p.n, p.xT.shape[1],
-            p.feat.data_ptr(), p.thr.data_ptr(), p.plus.data_ptr(), p.minus.data_ptr(),
-            p.tgt.data_ptr(), val, hi, p.val_lo.data_ptr(),
-            p.n_trees, p.feat.shape[1], p.tgt.shape[1], bn, bt, int(tree_outer),
+            p.xT.data_ptr(), p.n, p.xT.shape[1], p.xT.shape[0],
+            p.nodes.data_ptr(), val, hi, p.val_lo.data_ptr(),
+            p.n_trees, p.depth, p.nodes.shape[1], bn, bt, int(tree_outer),
             int(p.leaf_f32), ABLATE.index(ablate),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("forest_leaves_transposed", err)
     transposed_launches += 1
     return out
+
+
+def _walk_payload(ops: trees_pallas.HeapOperands, x: torch.Tensor, hi: torch.Tensor,
+                  lo: torch.Tensor) -> torch.Tensor:
+    """``[n, T]``: ``hi + lo`` in f32 at the leaf each row reaches in each
+    tree of ``ops`` (``trees_pallas.walk_leaf_ids``)."""
+    tree = torch.arange(ops.n_trees, device=x.device)
+    hi, lo = hi.to(torch.float32), lo.to(torch.float32)
+    return torch.cat([hi[tree, leaf] + lo[tree, leaf]
+                      for leaf in trees_pallas.walk_leaf_ids(ops, x)])
+
+
+def walk_transposed_plain(p: TransposedOperands, ablate: str = "full") -> torch.Tensor:
+    """The transposed kernel's own arithmetic in plain PyTorch, ``[n, T]``,
+    from its packed operands: the heap walk and the payload word (the exact
+    f32 value with ``leaf_f32``, else ``hi + lo``), or an ablation stage:
+    the root's bf16 feature (``sel``) or compare (``cmp``), the true
+    compares on the left spine 0, 1, 3, 7, ... (``main``), whether all of
+    them are true (``eq``)."""
+    T = p.n_trees
+    ops = trees_pallas.HeapOperands(nodes=p.nodes[:T], val=p.val_hi[:T], depth=p.depth)
+    x = p.xT[:, : p.n].T
+    if ablate == "full" and p.leaf_f32:
+        return trees_pallas.walk_leaves_plain(ops, x)
+    if ablate == "full":
+        return _walk_payload(ops, x, p.val_hi[:T], p.val_lo[:T])
+    spine = [(1 << k) - 1 for k in range(p.depth)]
+    xv = x.to(torch.float32)[:, ops.feat.long()[:, spine]]  # [n, T, depth]
+    c = xv <= ops.thr[:, spine]
+    if ablate == "sel":
+        return xv[:, :, 0]
+    if ablate == "cmp":
+        return c[:, :, 0].to(torch.float32)
+    count = c.sum(-1).to(torch.float32)
+    return count if ablate == "main" else (count == p.depth).to(torch.float32)
 
 
 def predict_leaves_transposed_plain(gf: GemmForest, x: torch.Tensor, leaf_f32: bool = False,
@@ -197,7 +235,8 @@ def predict_leaves_transposed(gf: GemmForest, x: torch.Tensor, bn: int = _BN, bt
                               tree_outer: bool = False, leaf_f32: bool = False,
                               ablate: str = "full") -> torch.Tensor:
     """Per-tree leaf values ``[n, T]`` through the transposed layout: the
-    CUDA kernel for a CUDA tensor, its plain version for a CPU tensor."""
+    CUDA kernel for a CUDA tensor (a forest of complete heap trees, else
+    ``ValueError``), its plain version for a CPU tensor."""
     if ablate not in ABLATE:
         raise ValueError(f"ablate must be one of {ABLATE}, got {ablate!r}")
     if trees_pallas.tile_dims(gf, *x.shape) is None:
@@ -214,30 +253,37 @@ def predict_leaves_transposed(gf: GemmForest, x: torch.Tensor, bn: int = _BN, bt
 @dataclasses.dataclass(frozen=True)
 class SegmentedOperands:
     """The segmented kernel's operands: node (t, feature f, rank r) at slot
-    ``f * S + r``."""
+    ``f * S + r``; only nodes with a threshold above -inf have a slot."""
 
     xT: torch.Tensor      # [32, n_pad] bf16
     thr: torch.Tensor     # [t_pad, 32 S] f32, -inf in empty slots
-    path: torch.Tensor    # [t_pad, L, 32 S] int8 in {-1, 0, +1}
-    plus: torch.Tensor    # [t_pad, L, S] int32 bits of path == +1
-    minus: torch.Tensor   # [t_pad, L, S] int32 bits of path == -1
-    tgt: torch.Tensor     # [t_pad, L] f32
+    slot: torch.Tensor    # [t_pad, I] int32: node i's slot, -1 where it has none
+    path: torch.Tensor    # [t_pad, L, 32 S] int8 in {-1, 0, +1} (the plain version's)
+    tgt: torch.Tensor     # [t_pad, L] f32 (the plain version's)
     val_hi: torch.Tensor  # [t_pad, L] bf16
     val_lo: torch.Tensor  # [t_pad, L] bf16
     n: int
     n_trees: int
     S: int
+    depth: int
+    not_a_heap: str       # why the kernel refuses the forest; "" for a heap forest
 
 
 def _prep_segmented(gf: GemmForest, x: torch.Tensor, bn: int, bt: int) -> SegmentedOperands:
     """Feature-segmented slot layout, packed on the host (a Python loop over
     every node of the forest): ``S`` is the most nodes of one tree that share
-    a feature, rounded up to 4."""
+    a feature, rounded up to 4. The kernel reads the slot of each heap node
+    (``slot``); the plain version reads the slots' path matrix."""
     n, d = x.shape
     T, I = gf.feat_ids.shape
     L = gf.value.shape[1]
     if d > _SEG_FEATURES:
         raise ValueError(f"the segmented layout takes at most {_SEG_FEATURES} features, got {d}")
+    try:
+        trees_pallas.heap_depth(gf)
+        not_a_heap = ""
+    except ValueError as e:
+        not_a_heap = str(e)
     feat = gf.feat_ids.cpu().numpy()
     thr_in = gf.thresholds.cpu().numpy()
     path_in = gf.path.cpu().numpy()
@@ -259,45 +305,45 @@ def _prep_segmented(gf: GemmForest, x: torch.Tensor, bn: int, bt: int) -> Segmen
     t_pad = -(-T // bt) * bt
     thr = np.full((t_pad, i_seg), -np.inf, dtype=np.float32)
     path = np.zeros((t_pad, L, i_seg), dtype=np.int8)
+    slot = np.full((t_pad, I), -1, dtype=np.int32)
     for t, slots in enumerate(per_tree):
         for i, f, r in slots:
             k = f * S + r
             thr[t, k] = thr_in[t, i]
             path[t, :, k] = path_in[t, i, :].astype(np.int8)
+            slot[t, i] = k
     dev = x.device
-    path_t = torch.from_numpy(path).to(dev)
     val = _pad_to(gf.value.to(torch.float32), 0, bt)
     hi, lo = _hi_lo(val)
     return SegmentedOperands(
         xT=_pad_to(_pad_to(x.to(torch.bfloat16), 1, _SEG_FEATURES), 0, bn).T.contiguous(),
         thr=torch.from_numpy(thr).to(dev),
-        path=path_t,
-        plus=trees_pallas._bits(path_t == 1).contiguous(),
-        minus=trees_pallas._bits(path_t == -1).contiguous(),
+        slot=torch.from_numpy(slot).to(dev),
+        path=torch.from_numpy(path).to(dev),
         tgt=_pad_to(gf.target.to(torch.float32), 0, bt, value=_TGT_PAD).contiguous(),
         val_hi=hi.contiguous(), val_lo=lo.contiguous(), n=n, n_trees=T, S=S,
+        depth=L.bit_length() - 1, not_a_heap=not_a_heap,
     )
 
 
 def _launch_segmented(p: SegmentedOperands, bn: int, bt: int) -> torch.Tensor:
     """Launch csrc/forest_leaves_segmented.cu: ``[T, n]`` f32."""
     global segmented_launches
+    if p.not_a_heap:
+        raise ValueError(p.not_a_heap)
+    _check_tile(bn)
     dev = p.xT.device
-    tensors = (p.thr, p.plus, p.minus, p.tgt, p.val_hi, p.val_lo)
+    tensors = (p.thr, p.slot, p.val_hi, p.val_lo)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"every operand must lie on one CUDA device, got {dev}")
-    if p.S > _SEG_MAX_S:
-        raise ValueError(f"segment width S = {p.S} exceeds the kernel's {_SEG_MAX_S} words a row")
     if p.xT.shape[1] % bn or p.thr.shape[0] % bt:
         raise ValueError("operands were packed for another (bn, bt)")
     out = torch.empty(p.n_trees, p.n, dtype=torch.float32, device=dev)
     lib = kernels.load("forest_leaves_segmented")
     with torch.cuda.device(dev):
         err = lib.forest_leaves_segmented(
-            p.xT.data_ptr(), p.n, p.xT.shape[1],
-            p.thr.data_ptr(), p.plus.data_ptr(), p.minus.data_ptr(),
-            p.tgt.data_ptr(), p.val_hi.data_ptr(), p.val_lo.data_ptr(),
-            p.n_trees, p.tgt.shape[1], p.S, bn, bt,
+            p.xT.data_ptr(), p.n, p.xT.shape[1], p.slot.data_ptr(), p.thr.data_ptr(),
+            p.val_hi.data_ptr(), p.val_lo.data_ptr(), p.n_trees, p.depth, p.S, bn, bt,
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("forest_leaves_segmented", err)
@@ -324,6 +370,20 @@ def _segmented_plain(p: SegmentedOperands, chunk: int = 2048) -> torch.Tensor:
     return torch.cat(out)
 
 
+def walk_segmented_plain(p: SegmentedOperands) -> torch.Tensor:
+    """The segmented kernel's own arithmetic in plain PyTorch, ``[n, T]``,
+    from its packed operands (a heap forest): node ``i``'s word is
+    ``(slot // S, thr[slot])``, or a NaN threshold (every row goes right)
+    where the node has no slot; then the heap walk and ``hi + lo``."""
+    T = p.n_trees
+    slot = p.slot[:T].long()
+    has = slot >= 0
+    feat = torch.where(has, slot // p.S, 0)
+    thr = torch.where(has, p.thr[:T].gather(1, slot.clamp(min=0)), float("nan"))
+    ops = trees_pallas.pack_heap(feat, thr, p.val_hi[:T], p.depth)
+    return _walk_payload(ops, p.xT[:, : p.n].T, p.val_hi[:T], p.val_lo[:T])
+
+
 def predict_leaves_segmented_plain(gf: GemmForest, x: torch.Tensor, bn: int = 2048,
                                    bt: int = 8) -> torch.Tensor:
     """The plain PyTorch version of the segmented kernel, ``[n, T]``."""
@@ -347,7 +407,8 @@ def _segmented_operands(gf: GemmForest, x: torch.Tensor, bn: int, bt: int) -> Se
 def predict_leaves_segmented(gf: GemmForest, x: torch.Tensor, bn: int = 2048,
                              bt: int = 8) -> torch.Tensor:
     """Per-tree leaf values ``[n, T]`` through the segmented layout: the CUDA
-    kernel for a CUDA tensor, its plain version for a CPU tensor."""
+    kernel for a CUDA tensor (a forest of complete heap trees, else
+    ``ValueError``), its plain version for a CPU tensor."""
     p = _segmented_operands(gf, x, bn, bt)
     if x.device.type == "cuda":
         return _launch_segmented(p, bn, bt).T

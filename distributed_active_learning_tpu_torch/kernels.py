@@ -51,11 +51,11 @@ _SIGNATURES = {
     },
     "ring_hop": {"ring_step": [_P, _I, _I, _P], "ring_hop_enable_peer": [_I, _I]},
     "forest_leaves_transposed": {
-        "forest_leaves_transposed": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+        "forest_leaves_transposed": [_P, _I, _I, _I, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "forest_leaves_segmented": {
-        "forest_leaves_segmented": [_P, _I, _I, _P, _P, _P, _P, _P, _P,
+        "forest_leaves_segmented": [_P, _I, _I, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P, _P],
     },
 }

@@ -8,9 +8,8 @@ takes complete heap trees, the form every device fit grows: the forest's
 heap form (:class:`HeapOperands`) is built once per forest and shared with
 the vote kernels K2 and K3 (``ops/round_fused.py``), which walk the same
 trees, and a path matrix of another shape is refused on the card. On a heap
-tree the walk is the path-matrix function exactly. The path-matrix operands
-(:class:`KernelOperands`) stay for the layout variant K5, which counts
-ancestors (``benches/pallas_variants.py``).
+tree the walk is the path-matrix function exactly. The layout variants K5
+and K6 (``benches/pallas_variants.py``) walk the same heap words.
 
 Numerics are those of the TPU kernel: each node slot's feature is rounded to
 bf16 and compared in f32 against its f32 threshold. A vote can differ from
@@ -131,86 +130,9 @@ def tile_dims(gf: GemmForest, n: int, d: int):
 
 
 @dataclasses.dataclass(frozen=True)
-class KernelOperands:
-    """The forest in the path-matrix layout of csrc/forest_eval.cuh (K5)."""
-
-    feat: torch.Tensor   # [T, i_pad] int32, padded slots select feature 0...
-    thr: torch.Tensor    # [T, i_pad] f32, ...and compare False (-inf)
-    plus: torch.Tensor   # [T, L, i_pad // 32] int32 bits of path == +1
-    minus: torch.Tensor  # [T, L, i_pad // 32] int32 bits of path == -1
-    tgt: torch.Tensor    # [T, L] f32
-    val: torch.Tensor    # [T, L] f32
-
-    @property
-    def i_pad(self) -> int:
-        return self.feat.shape[1]
-
-    @property
-    def n_leaves(self) -> int:
-        return self.tgt.shape[1]
-
-    @property
-    def tensors(self):
-        return (self.feat, self.thr, self.plus, self.minus, self.tgt, self.val)
-
-
-def _bits(cols: torch.Tensor) -> torch.Tensor:
-    """``[..., L, i_pad]`` booleans -> ``[..., L, i_pad // 32]`` int32 words
-    (bit b of word w is node slot 32 w + b)."""
-    *lead, L, i_pad = cols.shape
-    shifts = torch.arange(32, device=cols.device, dtype=torch.int64)
-    words = (cols.reshape(*lead, L, i_pad // 32, 32).to(torch.int64) << shifts).sum(-1)
-    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
-
-
-def _path_masks(src: torch.Tensor, i_pad: int):
-    """Plus and minus bit masks ``[T', L, i_pad // 32]`` of path matrices
-    ``[T', I, L]``; raises unless every entry is -1, 0 or +1 (the masks are
-    exact only then; the check reads one boolean back from the device)."""
-    if not bool(((src == 1) | (src == 0) | (src == -1)).all()):
-        raise ValueError("path matrix entries must be -1, 0 or +1")
-    cols = torch.nn.functional.pad(src.transpose(1, 2), (0, i_pad - src.shape[1]))
-    return _bits(cols == 1).contiguous(), _bits(cols == -1).contiguous()
-
-
-# Masks of broadcast (heap) path matrices, keyed by the matrix's storage: a
-# device-fit forest's path is one constant per (depth, device), so it is
-# checked and packed once, not once per fit (the check syncs with the
-# device). Each entry holds its matrix, so a key is never reused.
-_shared_masks: dict = {}
-
-
-def forest_operands(gf: GemmForest) -> KernelOperands:
-    """Pad and pack a path-matrix forest for K5: node slots padded
-    to a multiple of 32, each leaf column of the path matrix as a plus and a
-    minus bit mask. A device-fit forest's path is one constant broadcast
-    over trees: checked and packed at its first use and kept."""
-    T, I = gf.feat_ids.shape
-    i_pad = -(-I // 32) * 32
-    path = gf.path
-    if path.stride(0) == 0:  # heap forests: one matrix, broadcast
-        key = (path.data_ptr(), tuple(path.shape[1:]), path.device)
-        if key not in _shared_masks:
-            _shared_masks[key] = (path, *_path_masks(path[:1], i_pad))
-        _, plus, minus = _shared_masks[key]
-        plus, minus = plus.expand(T, -1, -1), minus.expand(T, -1, -1)
-    else:
-        plus, minus = _path_masks(path, i_pad)
-    pad = (0, i_pad - I)
-    return KernelOperands(
-        feat=torch.nn.functional.pad(gf.feat_ids.to(torch.int32), pad).contiguous(),
-        thr=torch.nn.functional.pad(gf.thresholds.to(torch.float32), pad, value=float("-inf")).contiguous(),
-        plus=plus.contiguous(),
-        minus=minus.contiguous(),
-        tgt=gf.target.to(torch.float32).contiguous(),
-        val=gf.value.to(torch.float32).contiguous(),
-    )
-
-
-@dataclasses.dataclass(frozen=True)
 class HeapOperands:
-    """A complete heap forest in the walking kernels' layout (K1, K2 and K3;
-    csrc/heap_walk.cuh): node
+    """A complete heap forest in the walking kernels' layout (K1, K2, K3, K5
+    and K6; csrc/heap_walk.cuh): node
     ``v`` of tree ``t`` is the 8-byte word ``nodes[t, v] = (feature id,
     threshold bits)``, children at ``2v + 1`` and ``2v + 2``; leaf ``l``'s
     value is ``val[t, l]``. Feature ids fit 16 bits (``d <= 512``) and are
@@ -248,20 +170,20 @@ class HeapOperands:
 
 def _not_a_heap(why: str) -> ValueError:
     return ValueError(
-        f"The forest kernels on the card (K1, K2, K3) walk complete heap trees, and this "
-        f"forest is not one ({why}). "
+        "The forest kernels on the card (K1, K2, K3, K5, K6) walk complete heap trees, and "
+        f"this forest is not one ({why}). "
         "The device fit grows heap trees; forests of another shape come from the host fit, "
         "which is not ported yet: the host-fit slice packs its trees into heaps for the walk."
     )
 
 
-def heap_operands(gf: GemmForest) -> HeapOperands:
-    """The heap form of a path-matrix forest, or ``ValueError`` when the
-    forest is not made of complete heap trees. A device-fit forest's path
-    and targets are broadcasts of ``heap_path_target``'s constant, which is
-    recognized from storage alone (no host sync: the test runs inside a
-    captured chunk); any other path matrix is compared with that constant
-    by value, which reads one boolean back from the device."""
+def heap_depth(gf: GemmForest) -> int:
+    """The depth of a forest of complete heap trees, or ``ValueError`` when
+    the forest is not one. A device-fit forest's path and targets are
+    broadcasts of ``heap_path_target``'s constant, which is recognized from
+    storage alone (no host sync: the test runs inside a captured chunk); any
+    other path matrix is compared with that constant by value, which reads
+    one boolean back from the device."""
     T, I = gf.feat_ids.shape
     L = gf.value.shape[1]
     depth = L.bit_length() - 1
@@ -274,16 +196,31 @@ def heap_operands(gf: GemmForest) -> HeapOperands:
         if not (torch.equal(gf.path, path.expand_as(gf.path))
                 and torch.equal(gf.target, target.expand_as(gf.target))):
             raise _not_a_heap("its path matrix is not the heap constant of its depth")
+    return depth
+
+
+def pack_heap(feat: torch.Tensor, thr: torch.Tensor, value: torch.Tensor,
+              depth: int) -> HeapOperands:
+    """Heap words of ``[T, 2^depth - 1]`` feature ids and f32 thresholds in
+    heap order, with ``[T, 2^depth]`` leaf values."""
+    T, I = feat.shape
+    L = 1 << depth
     N = max(L, 2)
-    words = torch.zeros(T, N, 2, dtype=torch.int32, device=gf.feat_ids.device)
-    words[:, :I, 0] = gf.feat_ids.to(torch.int32)
-    words[:, :I, 1] = gf.thresholds.to(torch.float32).view(torch.int32)
+    words = torch.zeros(T, N, 2, dtype=torch.int32, device=feat.device)
+    words[:, :I, 0] = feat.to(torch.int32)
+    words[:, :I, 1] = thr.to(torch.float32).view(torch.int32)
     Lp = -(-L // 4) * 4
     return HeapOperands(
         nodes=words.view(torch.int64).reshape(T, N),
-        val=torch.nn.functional.pad(gf.value.to(torch.float32), (0, Lp - L)).contiguous(),
+        val=torch.nn.functional.pad(value.to(torch.float32), (0, Lp - L)).contiguous(),
         depth=depth,
     )
+
+
+def heap_operands(gf: GemmForest) -> HeapOperands:
+    """The heap form of a path-matrix forest, or ``ValueError`` when the
+    forest is not made of complete heap trees (:func:`heap_depth`)."""
+    return pack_heap(gf.feat_ids, gf.thresholds, gf.value, heap_depth(gf))
 
 
 def walk_leaf_ids(ops: HeapOperands, x: torch.Tensor, thr=None):

@@ -304,29 +304,80 @@ def test_ring_and_mesh_across_cards(cuda):
 
 def test_variant_kernels_match_plain(cuda):
     """K5 (csrc/forest_leaves_transposed.cu) and K6
-    (csrc/forest_leaves_segmented.cu) against their plain versions."""
+    (csrc/forest_leaves_segmented.cu) against their plain versions and the
+    walks of their own arithmetic, bit for bit: four tilings of K5 (one with
+    bn not a multiple of the 256-row sub-tile) with each payload and
+    ablation stage, three of K6, at depths 1-8 on edge rows and ragged
+    shapes; K5 on rows of 200 and 300 features; then a forest with -inf and
+    NaN thresholds against
+    rows that are -inf at those nodes (K6 gives such nodes no slot); a
+    forest that is not a heap is refused by both with no launch."""
+    import dataclasses
+
     from distributed_active_learning_tpu_torch.benches import pallas_variants as pv
 
-    for n_trees, depth, d, n in ((20, 8, 30, 3001), (13, 4, 7, 1700)):
-        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees)
-        x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    def same(got, want):
+        return got.shape == want.shape and torch.equal(got.view(torch.int32),
+                                                        want.view(torch.int32))
+
+    cases = [(20, 8, 30, 3001), (13, 4, 7, 1700)] + [(9, depth, 6, 1000) for depth in range(1, 9)]
+    for n_trees, depth, d, n in cases:
+        gf, rng = _forest(n_trees, depth, d, cuda, seed=n_trees + depth)
+        x = _edge_rows(gf, rng, n, d).to(cuda)
         k1 = trees_pallas.predict_leaves_pallas(gf, x)
         before = pv.transposed_launches
         flag_sets = [dict(), dict(bn=1024, bt=8), dict(bn=2048, bt=4, tree_outer=True),
-                     dict(leaf_f32=True)] + [dict(ablate=a) for a in pv.ABLATE[1:]]
+                     dict(bn=1000, bt=5), dict(leaf_f32=True)]
+        flag_sets += [dict(ablate=a) for a in pv.ABLATE[1:]]
         for flags in flag_sets:
             got = pv.predict_leaves_transposed(gf, x, **flags)
             want = pv.predict_leaves_transposed_plain(
                 gf, x, flags.get("leaf_f32", False), flags.get("ablate", "full"))
-            assert got.shape == (n, n_trees) and torch.equal(got, want), flags
+            assert got.shape == (n, n_trees) and same(got, want), (depth, flags)
             if flags.get("leaf_f32"):
                 assert torch.equal(got, k1)
         assert pv.transposed_launches == before + len(flag_sets)
         before = pv.segmented_launches
-        for bn in (1024, 4096):
+        for bn in (1000, 1024, 4096):
             got = pv.predict_leaves_segmented(gf, x, bn=bn, bt=8)
-            assert torch.equal(got, pv.predict_leaves_segmented_plain(gf, x, bn=bn, bt=8)), bn
-        assert pv.segmented_launches == before + 2
+            assert same(got, pv.predict_leaves_segmented_plain(gf, x, bn=bn, bt=8)), (depth, bn)
+        assert pv.segmented_launches == before + 3
+        assert same(got, pv.walk_segmented_plain(pv._segmented_operands(gf, x, 4096, 8)))
+
+    # Wide rows: sub-tiles of 128 and 64 rows, the block's threads split over
+    # two and four groups of trees.
+    for trees_w, depth_w, d_w, n_w in ((9, 6, 200, 1500), (7, 8, 300, 2000)):
+        g, rng_w = _forest(trees_w, depth_w, d_w, cuda, seed=d_w)
+        xw = _edge_rows(g, rng_w, n_w, d_w).to(cuda)
+        for flags in (dict(), dict(bn=1000, bt=5, tree_outer=True), dict(ablate="main")):
+            got = pv.predict_leaves_transposed(g, xw, **flags)
+            want = pv.predict_leaves_transposed_plain(g, xw, ablate=flags.get("ablate", "full"))
+            assert same(got, want), (d_w, flags)
+
+    # -inf and NaN thresholds; rows -inf at those nodes' features.
+    thr = gf.thresholds.clone()
+    thr[:, 1::5], thr[:, 3::7] = float("-inf"), float("nan")
+    odd = dataclasses.replace(gf, thresholds=thr)
+    x = _edge_rows(gf, rng, 1000, 6)
+    feat = gf.feat_ids.cpu()
+    for r in range(3, 1000, 2):
+        x[r, feat[r % feat.shape[0], 1 + 5 * (r % 50)]] = float("-inf")
+    x = x.to(cuda)
+    for leaf_f32 in (False, True):
+        got = pv.predict_leaves_transposed(odd, x, bn=1024, bt=8, leaf_f32=leaf_f32)
+        assert same(got, pv.predict_leaves_transposed_plain(odd, x, leaf_f32)), leaf_f32
+    seg = pv.predict_leaves_segmented(odd, x, bn=1024, bt=8)
+    assert same(seg, pv.predict_leaves_segmented_plain(odd, x, bn=1024, bt=8))
+    assert not torch.equal(seg, pv.predict_leaves_transposed_plain(odd, x))
+
+    # Not a heap: refused before any launch.
+    swapped = dataclasses.replace(gf, path=gf.path[:, :, [1, 0, *range(2, 2 ** depth)]])
+    before = (pv.transposed_launches, pv.segmented_launches)
+    with pytest.raises(ValueError, match="host fit"):
+        pv.predict_leaves_transposed(swapped, x)
+    with pytest.raises(ValueError, match="host fit"):
+        pv.predict_leaves_segmented(swapped, x)
+    assert (pv.transposed_launches, pv.segmented_launches) == before
 
 
 def test_chunked_graph_matches_per_round(cuda):

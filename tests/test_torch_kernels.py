@@ -4,13 +4,13 @@ kernels in interpret mode on the same forest and pool:
 - K1 (ops/trees_pallas.py): the plain version of csrc/forest_leaves.cu equals
   ``trees_pallas.predict_leaves_pallas(..., interpret=True)`` bit for bit;
   past the tile limits both packages take the exact gemm form;
-- the kernels' packed operands (bit masks of the path matrix) reproduce the
-  plain version when the kernel's arithmetic is emulated from them, and so
-  does K1's heap walk over its heap operands (``walk_leaves_plain``), on
-  rows with NaN, infinities and features equal to thresholds; so do K2's
-  and K3's walk and packed vote bits (``walk_votes_plain``): the plain
-  versions' votes and per-tile candidates; a path matrix that is not a heap
-  is refused;
+- the kernels' packed operands reproduce the plain versions when the
+  kernels' arithmetic is emulated from them: K5's heap words and payload
+  (``walk_transposed_plain``), K1's heap walk (``walk_leaves_plain``), K2's
+  and K3's walk and packed vote bits (``walk_votes_plain``: the plain
+  versions' votes and per-tile candidates), on rows with NaN, infinities
+  and features equal to thresholds; a path matrix that is not a heap is
+  refused;
 - K2 (ops/round_fused.py): ``fused_score_select`` on a pallas forest equals
   the JAX megakernel's ``(vals, idx)``.
 """
@@ -27,6 +27,7 @@ from distributed_active_learning_tpu.ops import round_fused as j_fused
 from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu_torch import interop
+from distributed_active_learning_tpu_torch.benches import pallas_variants as t_var
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
 
@@ -72,35 +73,27 @@ def test_k1_depth9_takes_the_gemm_route_in_both_packages():
     np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
 
 
-def _unpack(words, i_pad):
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    return ((w[..., None] >> torch.arange(32)) & 1).reshape(*words.shape[:-1], i_pad).float()
-
-
 def test_kernel_operands_reproduce_the_plain_version():
-    """K5 reads the forest as padded node slots and plus/minus bit masks;
-    counting from those operands exactly as csrc/forest_eval.cuh does must
-    give the plain version's leaves. K1, K2 and K3 walk the heap form: K1's
-    leaves, and K2's and K3's votes from the vote bits they pack, must give
-    the plain versions' leaves, votes and per-tile candidates."""
-    _, tf, rng = _forest(11, 5, seed=4)  # I = 31 slots -> one 32-bit word
-    _, tf8, _ = _forest(5, 8, seed=5)    # I = 255 slots -> eight words
+    """K5 reads the forest as K1's heap words padded to its tree tile, with
+    the leaf payload beside them: walking those operands as the kernel does
+    (``walk_transposed_plain``) must give the plain version's leaves for both
+    payloads on rows with NaN, infinities and features on thresholds. K1, K2
+    and K3 walk the heap form: K1's leaves, and K2's and K3's votes from the
+    vote bits they pack, must give the plain versions' leaves, votes and
+    per-tile candidates. A path matrix that is not a heap is refused by every
+    walking kernel's packing (K5's before any operand is built, K6's at its
+    launch)."""
+    _, tf, rng = _forest(11, 5, seed=4)
+    _, tf8, _ = _forest(5, 8, seed=5)
     for gf in (tf, tf8):
-        x = torch.from_numpy(rng.normal(size=(300, 5)).astype(np.float32))
-        ops = t_pallas.forest_operands(gf)
-        assert ops.i_pad % 32 == 0 and ops.plus.dtype == torch.int32
-        fv = x.to(torch.bfloat16).float()[:, ops.feat.long()]
-        c = (fv <= ops.thr[None]).float()
-        count = (torch.einsum("nti,tli->ntl", c, _unpack(ops.plus, ops.i_pad))
-                 - torch.einsum("nti,tli->ntl", c, _unpack(ops.minus, ops.i_pad)))
-        hit = (count == ops.tgt[None]).float()
-        got = torch.einsum("ntl,tl->nt", hit, ops.val)
-        assert torch.equal(got, t_pallas.predict_leaves_plain(gf, x))
-    bad = interop.gemm_forest_from_numpy(
-        np.zeros((1, 1)), np.zeros((1, 1)), np.full((1, 1, 2), 2.0), np.zeros((1, 2)),
-        np.zeros((1, 2)))
-    with pytest.raises(ValueError, match="-1, 0 or \\+1"):
-        t_pallas.forest_operands(bad)
+        x = _edge_rows(gf, rng)
+        for leaf_f32 in (False, True):
+            p = t_var._prep_transposed(gf, x, 256, 4, leaf_f32)
+            assert p.nodes.dtype == torch.int64 and p.nodes.shape[0] % 4 == 0
+            assert torch.equal(p.nodes[:gf.n_trees], t_pallas.heap_operands(gf).nodes)
+            want = t_var.predict_leaves_transposed_plain(gf, x, leaf_f32)
+            got = t_var.walk_transposed_plain(p)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), leaf_f32
 
     # K1's heap form: the walk over it equals the plain version bit for bit.
     # These forests arrive as full path tensors, so the heap check runs by
@@ -135,6 +128,13 @@ def test_kernel_operands_reproduce_the_plain_version():
         tf8.target.numpy(), tf8.value.numpy())
     with pytest.raises(ValueError, match="not a complete heap|host fit"):
         t_pallas.heap_operands(swapped)
+    x = torch.zeros(3, 5)
+    with pytest.raises(ValueError, match="host fit"):
+        t_var._prep_transposed(swapped, x, 256, 4)
+    with pytest.raises(ValueError, match="host fit"):
+        t_var._launch_segmented(t_var._prep_segmented(swapped, x, 256, 8), 256, 8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        t_var._launch_transposed(t_var._prep_transposed(tf, x, 100, 4), 100, 4)
 
 
 def _edge_rows(gf, rng, n=300):

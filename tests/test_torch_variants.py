@@ -4,8 +4,16 @@ interpret mode, on one seeded numpy forest and pool per width (13 complete
 trees of depth 4; 700 rows; 5 and 30 features): bit-equal, tolerance 0 (the
 ``hi + lo`` payload is an exact f32 sum of a one-hot product). The flags of
 the JAX kernel that only choose an operand type (``int8``) must give the same
-bits as the port's one function; ``leaf_f32`` must equal K1's leaves."""
+bits as the port's one function; ``leaf_f32`` must equal K1's leaves.
 
+The CUDA kernels walk each heap tree from the root; their arithmetic in
+plain PyTorch (``walk_transposed_plain``, ``walk_segmented_plain``) must
+equal the plain versions bit for bit on the same forests and rows, and on
+rows of NaN, +-inf and -inf at nodes whose threshold is -inf or NaN: K6
+gives such nodes no slot, so every row goes right there, where K5 sends a
+-inf feature left at a -inf threshold."""
+
+import dataclasses
 import importlib.util
 import os
 
@@ -90,3 +98,29 @@ def test_k5_k6_plain_match_pallas_interpret():
         assert p.S == jp["dims"][6] and p.S % 4 == 0
         np.testing.assert_array_equal(p.thr.numpy(), np.asarray(jp["thr"]))
         np.testing.assert_array_equal(p.path.numpy(), np.asarray(jp["path"])[:, :16])
+
+        # The kernels' walks, on these rows and on a forest with -inf and NaN
+        # thresholds against rows of NaN, +-inf and -inf at those nodes.
+        thr_odd = np.asarray(jgf.thresholds).copy()
+        thr_odd[:, 1::5], thr_odd[:, 3::7] = -np.inf, np.nan
+        tgf_odd = dataclasses.replace(tgf, thresholds=torch.from_numpy(thr_odd))
+        x_odd = x.copy()
+        x_odd[:3] = np.array([np.nan, np.inf, -np.inf], dtype=np.float32)[:, None]
+        for r in range(3, 200):
+            x_odd[r, feat0[1 + 5 * (r % 3)]] = -np.inf
+        for g, xx in ((tgf, tx), (tgf_odd, torch.from_numpy(x_odd))):
+            for leaf_f32 in (False, True):
+                p5 = t_var._prep_transposed(g, xx, 256, 4, leaf_f32)
+                _same_bits(t_var.walk_transposed_plain(p5),
+                           t_var.predict_leaves_transposed_plain(g, xx, leaf_f32).numpy(),
+                           (d, "walk", leaf_f32))
+            p5 = t_var._prep_transposed(g, xx, 256, 4)
+            for a in t_var.ABLATE[1:]:
+                _same_bits(t_var.walk_transposed_plain(p5, a),
+                           t_var.predict_leaves_transposed_plain(g, xx, ablate=a).numpy(),
+                           (d, "walk", a))
+            p6 = t_var._prep_segmented(g, xx, 256, 8)
+            seg = t_var._segmented_plain(p6)
+            _same_bits(t_var.walk_segmented_plain(p6), seg.numpy(), (d, "walk segmented"))
+        assert (p6.slot[:13, 1::5] == -1).all() and (p6.slot[:13, 3::7] == -1).all()
+        assert not torch.equal(seg, t_var.predict_leaves_transposed_plain(g, xx))
