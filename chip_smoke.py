@@ -35,6 +35,14 @@ and prints no result:
    rows that are -inf there (where K6, which gives such nodes no slot, must
    differ from K5); a path matrix that is not a heap is refused by both with
    no launch;
+2d. K1 on a host-fit-shaped forest: 100 trees of max_depth 8 made with numpy
+   in the shapes a scikit-learn fit packs into (leaves at depths 1-8,
+   single-leaf trees; the card's machine has no scikit-learn), written with
+   ``save_forest`` and loaded onto the card with ``load_forest``, then
+   ``for_kernel(..., "pallas")`` (its trees packed into complete heaps): K1
+   at the pool plus 4,099 edge rows bit-equal to ``predict_leaves_plain`` on
+   the depth-first path matrix and to the walk of the heaps, and on the
+   bf16-exact pool equal to the gather form; its launch is printed;
 3. the round megakernel K2 (csrc/round_megakernel.cu, the same walk as K3)
    against both plain versions for uncertainty, entropy, full_entropy and
    margin at full width (5,000-row labeled mask, k = 100), then for
@@ -72,9 +80,21 @@ and prints no result:
    graph and replay it twice (kernel launches: one eager warm-up round plus 4
    rounds per replay). The chunk body runs once eagerly under
    ``torch.cuda.set_sync_debug_mode("error")``: it must not sync with the
-   host. Then seconds per round of the per-round driver and of the chunked
-   driver at depth 1 and 2 over 12 rounds (rounds 5-12: the first chunk holds
-   the capture);
+   host (also the bodies of phases 4d and 4e). Then seconds per round of the
+   per-round driver and of the chunked driver at depth 1 and 2 over 12 rounds
+   (rounds 5-12: the first chunk holds the capture);
+4d. the deep gather path: phase 4's configuration at ``max_depth=12`` with
+   ``kernel="gather"`` (the device fit emits the gather form; no kernel of
+   the port runs on it, so every launch count stays 0), unfused, 3 rounds,
+   per round and chunked (K = 4): records and final mask equal, one graph
+   capture and one replay; small checkerboard runs at depth 12, per round
+   and chunked, equal on the card and on the CPU;
+4e. density: phase 4's configuration with ``strategy="density"``, unfused,
+   3 rounds, per round and chunked (K = 4), K1 counted from 0 (twice a
+   round): records and final mask equal; small checkerboard runs equal on
+   the card and on the CPU (picks, records, mask), and the similarity mass
+   of the card within ``similarity.MASS_RTOL`` of the largest |mass| of the
+   CPU's, on the small pool and the bench pool;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -84,9 +104,11 @@ and prints no result:
    streamed shape; a K4 ring step of four k = 100 windows beside four
    ``Tensor.copy_`` pairs into preallocated buffers; K5 and K6 at (bn, bt) =
    (2048, 8) on the pool; ``merge_tile_topk`` at
-   the fused round's shape; then one fused and one unfused main-path round
-   and one mesh fused round under torch.profiler (device time by kernel,
-   device busy share);
+   the fused round's shape; ``forest_eval.votes`` of a depth-12 gather form
+   and ``similarity_mass`` at the pool beside their byte bounds, and the
+   host milliseconds of packing phase 2d's forest into heaps; then one fused
+   and one unfused main-path round and one mesh fused round under
+   torch.profiler (device time by kernel, device busy share);
 6. the port's bench at the benchmark width: ``--mode score``, ``--mode
    round`` and ``--mode variants`` (K1, two K5 tilings, one K6), each JSON
    line printed on a line of its own. K5's and K6's launch counts are read
@@ -95,7 +117,9 @@ and prints no result:
 The last three lines are a JSON object of per-kernel numbers (``launches``
 is the count of the kernel's main path, single-device fused for K1 and K2,
 mesh fused for K3 and K4, the bench's variants mode for K5 and K6;
-``launches_by_path`` every path's; ``launch_config`` for K1, K2 and K3),
+``launches_by_path`` every path's, phases 4d and 4e included;
+``launch_config`` for K1, K2 and K3; ``new_paths`` phase 5's new times and
+the fit / round / eval split of each round of phases 4d and 4e),
 the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -127,6 +151,7 @@ FP32_OPS_PER_S = 67e12
 
 N_POOL, N_TEST, N_FEAT = 284_807, 85_443, 30
 TREES, DEPTH, BINS = 100, 8, 32
+DEEP = 12  # the deep device fit's depth (the gather form), phase 4d
 WINDOW, N_START, ROUNDS = 100, 5_000, 3
 
 
@@ -250,11 +275,14 @@ def main() -> int:
     from distributed_active_learning_tpu_torch.config import (
         DataConfig, ExperimentConfig, ForestConfig, MeshConfig, StrategyConfig,
     )
-    from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle, get_dataset
     from distributed_active_learning_tpu_torch.device import resolve_device
+    from distributed_active_learning_tpu_torch.models import forest as forest_lib
+    from distributed_active_learning_tpu_torch.models import forest_io
     from distributed_active_learning_tpu_torch.ops import (
-        ring_topk, round_fused, trees_pallas, trees_train,
+        forest_eval, ring_topk, round_fused, similarity, trees_pallas, trees_train,
     )
+    from distributed_active_learning_tpu_torch.ops import trees as trees_lib
     from distributed_active_learning_tpu_torch.ops.topk import merge_tile_topk, stable_top_k
     from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
     from distributed_active_learning_tpu_torch.runtime import loop
@@ -477,6 +505,61 @@ def main() -> int:
           "K5, both payloads, every stage; (2048, 8) for K6), at 13 trees x 1,700 rows, and "
           "with -inf/NaN thresholds against -inf rows (K6 != K5 there, as its slots drop "
           "those nodes); a non-heap path matrix is refused by both, no launch")
+
+    # -- phase 2d: host-fit-shaped forests through K1 -----------------------
+    t_phase = time.perf_counter()
+    # The card's machine has no scikit-learn: the forest is made with numpy
+    # in the shapes a host fit packs into (depth-first node ids, leaves at
+    # depths 1-8, single-leaf trees) and reaches the card as a forest file.
+    host_packed = forest_lib.synthetic_forest(
+        np.random.default_rng(args.seed + 2), TREES, DEPTH, N_FEAT, single_leaf_every=9)
+    forest_file = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               "chip_smoke_host_forest.npz")
+    forest_io.save_forest(forest_file, host_packed, meta=f"synthetic, seed {args.seed + 2}")
+    host_loaded, meta = forest_io.load_forest(forest_file, device=dev)
+    if meta != f"synthetic, seed {args.seed + 2}" or not all(
+            torch.equal(getattr(host_loaded, f).cpu(), getattr(host_packed, f))
+            for f in ("feature", "threshold", "left", "right", "value")):
+        fail("the forest file did not round-trip")
+    host_pf = forest_eval.for_kernel(host_loaded, "pallas")
+    if host_pf.prepacked is None or host_pf.heap.depth != DEPTH:
+        fail("for_kernel(..., 'pallas') did not pack the host-fit forest into heaps")
+    leaf = host_packed.feature == -1
+    reached = set()
+    for t in range(TREES):  # the depth of every reachable leaf
+        todo = [(0, 0)]
+        while todo:
+            v, dd = todo.pop()
+            if leaf[t, v]:
+                reached.add(dd)
+            else:
+                todo += [(int(host_packed.left[t, v]), dd + 1), (int(host_packed.right[t, v]), dd + 1)]
+    x_2d = torch.cat([pool, edge_rows(host_pf.gf, rng, 4099).to(dev)])
+    before = trees_pallas.launches
+    got = trees_pallas.predict_leaves_pallas(host_pf, x_2d)
+    if trees_pallas.launches != before + 1:
+        fail("K1 did not launch on the host-fit forest")
+    for name, want_ in (("predict_leaves_plain (depth-first path matrix)",
+                         trees_pallas.predict_leaves_plain(host_pf.gf, x_2d)),
+                        ("walk_leaves_plain", trees_pallas.walk_leaves_plain(host_pf.heap, x_2d))):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want_):
+            fail(f"forest_leaves on the host-fit heaps != {name}: "
+                 f"{(got != want_).sum().item()} entries differ")
+        k1_err = max(k1_err, float((got - want_).abs().max()))
+    x_bf16 = pool.to(torch.bfloat16).float()
+    if not torch.equal(trees_pallas.predict_leaves_pallas(host_pf, x_bf16),
+                       trees_lib.predict_leaves(host_loaded, x_bf16)):
+        fail("forest_leaves on the host-fit heaps != the gather form on bf16-exact rows")
+    host_cfg = trees_pallas.leaves_launch_config(host_pf.heap, *x_2d.shape, dev)
+    print(f"# forest_leaves on a host-fit-shaped forest ({TREES} trees, max_depth {DEPTH}, leaves "
+          f"at depths {sorted(reached)}, {int(leaf[:, 0].sum())} single-leaf trees; through "
+          f"save_forest/load_forest and for_kernel(..., 'pallas')) at {x_2d.shape[0]} rows "
+          "(the pool and 4,099 edge rows): bit-equal to predict_leaves_plain on the depth-first "
+          "path matrix and to walk_leaves_plain on the packed heaps; on the bf16-exact pool "
+          f"equal to the gather form; launch {host_cfg}")
+    del got, want_, x_2d, x_bf16
+    print(f"# phase 2d: {time.perf_counter() - t_phase:.1f}s")
 
     # -- phase 3: the megakernel against its plain version -----------------
     labeled = torch.zeros(N_POOL, dtype=torch.bool)
@@ -782,8 +865,12 @@ def main() -> int:
     binned0 = trees_train.make_bins(st0.x, BINS)
     tx_dev = torch.from_numpy(test_np).to(dev)
     ty_dev = torch.from_numpy(labels(test_np)).to(dev)
-    for fused in (True, False):
-        c = cfg(fused)
+    deep_forest = ForestConfig(n_trees=TREES, max_depth=DEEP, max_bins=BINS, fit="device",
+                               kernel="gather")
+    density = StrategyConfig(name="density", window_size=WINDOW)
+    for c in (cfg(True), cfg(False), cfg(False, forest=deep_forest),
+              cfg(False, strategy=density)):
+        fused = c.fused_round
         body = loop.make_chunk_fn(
             get_strategy(c.strategy), WINDOW, 2,
             loop.make_device_fit(c, binned0.edges, N_START + 4 * WINDOW), N_POOL, fused_round=fused)
@@ -801,8 +888,8 @@ def main() -> int:
         if int(extras.n_active) != 2:
             fail("the eager chunk body did not run two active rounds")
     del st0, binned0, tx_dev, ty_dev, body_args
-    print("# chunk body, eager, torch.cuda.set_sync_debug_mode('error'): no host sync, fused "
-          "and unfused")
+    print("# chunk body, eager, torch.cuda.set_sync_debug_mode('error'): no host sync, fused, "
+          f"unfused, the depth-{DEEP} gather form and density")
 
     # Seconds per round, steady state: rounds 5-12 of a 12-round run (chunks 2
     # and 3 of 3; the first chunk holds the warm-up round and the capture).
@@ -820,6 +907,83 @@ def main() -> int:
             chunk_times[f"{name}_{label}"] = sum(steady) / len(steady)
             print(f"# seconds per round, {name} {label}: {chunk_times[f'{name}_{label}']:.5f} "
                   f"(rounds {K + 1}-{TIMED}; whole run {wall:.2f}s incl. set-up; {kind}, {smi})")
+
+    # -- phase 4d: the deep gather path --------------------------------------
+    t_phase = time.perf_counter()
+    # Depth 12 is past the path-matrix limit (10): the device fit emits the
+    # gather form and no kernel of the port runs on this path. The fit window
+    # is the label cap, N_START + ROUNDS * WINDOW rows, in both drivers.
+    zero = {"forest_leaves": 0, "round_megakernel": 0, "fused_votes": 0, "ring_hop": 0}
+    want_launches["gather_deep"] = dict(zero)
+    drive("gather_deep", False, forest=deep_forest)
+    # One eager warm-up round, then one replay of a K-round chunk.
+    want_launches["gather_deep_chunked"] = dict(zero)
+    drive("gather_deep_chunked", False, forest=deep_forest, rounds_per_launch=K)
+
+    def check_chunked(path, ref_path):
+        got = [(r.round, r.n_labeled, r.accuracy) for r in runs[path].records]
+        want_ = [(r.round, r.n_labeled, r.accuracy) for r in runs[ref_path].records]
+        if got != want_ or [r[1] for r in got] != [N_START + i * WINDOW for i in range(ROUNDS)]:
+            fail(f"{path} records differ from the per-round run: {got} vs {want_}")
+        if not torch.equal(runs[path].final_labeled_mask, runs[ref_path].final_labeled_mask):
+            fail(f"{path} final labeled mask differs from the per-round run")
+        g = runs[path].graph_stats
+        if g is None or g["captures"] != 1 or g["replays"] != 1:
+            fail(f"{path}: graph captures/replays {g}, want 1 and 1")
+        print(f"#   {path}: == per-round (records and final mask); graph private pool "
+              f"{g['pool_bytes'] / 2**20:.0f} MiB, launches per replay {g['launches_per_replay']}")
+
+    check_chunked("gather_deep_chunked", "gather_deep")
+    window_rows = loop._resolve_fit_budget(cfg(False, forest=deep_forest), N_POOL, N_START)
+    small_deep = dataclasses.replace(
+        small, fused_round=False,
+        forest=dataclasses.replace(small.forest, kernel="gather", max_depth=DEEP))
+    for c in (small_deep, dataclasses.replace(small_deep, rounds_per_launch=2)):
+        on_card = loop.run_experiment(c, device=dev)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+            fail(f"small depth-{DEEP} gather run (rounds_per_launch "
+                 f"{c.rounds_per_launch}) on the card != CPU")
+    print(f"# deep gather path (depth {DEEP}, kernel 'gather', fit window {window_rows} rows): "
+          f"chunked (K = {K}) == per-round; small checkerboard runs, per round and chunked: "
+          "card == CPU")
+    print(f"# phase 4d: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4e: density ----------------------------------------------------
+    t_phase = time.perf_counter()
+    # K1 scores (votes) and evaluates: twice a round; chunked, one eager
+    # warm-up round and one replay of K rounds.
+    want_launches["density"] = dict(zero, forest_leaves=2 * ROUNDS)
+    drive("density", False, strategy=density)
+    want_launches["density_chunked"] = dict(zero, forest_leaves=2 * (1 + K))
+    drive("density_chunked", False, strategy=density, rounds_per_launch=K)
+    check_chunked("density_chunked", "density")
+    small_dens = dataclasses.replace(small, fused_round=False,
+                                     strategy=StrategyConfig(name="density", window_size=15))
+    for c in (small_dens, dataclasses.replace(small_dens, rounds_per_launch=2)):
+        on_card = loop.run_experiment(c, device=dev)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+            fail(f"small density run (rounds_per_launch {c.rounds_per_launch}) on the card != CPU")
+    small_x = torch.from_numpy(np.ascontiguousarray(
+        get_dataset(small.data).train_x, dtype=np.float32))
+    mass_err = {}
+    for label, (x_, mask_) in {"small pool": (small_x, torch.arange(small_x.shape[0]) % 3 > 0),
+                               "bench pool": (pool, selectable)}.items():
+        on_card = similarity.similarity_mass(x_.to(dev), mask_.to(dev)).cpu()
+        on_cpu = similarity.similarity_mass(x_.cpu(), mask_.cpu())
+        scale = float(on_cpu.abs().max())
+        mass_err[label] = float((on_card - on_cpu).abs().max()) / scale
+        if not mass_err[label] <= similarity.MASS_RTOL:
+            fail(f"similarity_mass at the {label}: card - CPU reaches {mass_err[label]:.3g} of "
+                 f"the largest |mass|, over MASS_RTOL = {similarity.MASS_RTOL}")
+    print(f"# density: chunked (K = {K}) == per-round at the bench width; small checkerboard runs, "
+          "per round and chunked: card == CPU (picks, records, final mask); similarity_mass card "
+          f"vs CPU, largest difference over the largest |mass|: {mass_err} (MASS_RTOL "
+          f"{similarity.MASS_RTOL})")
+    print(f"# phase 4e: {time.perf_counter() - t_phase:.1f}s")
 
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
@@ -847,6 +1011,17 @@ def main() -> int:
               f"{plain:.4f} ms plain, {walk_plain:.4f} ms walk_leaves_plain, bound {lim:.4f} ms "
               f"by {by} ({100 * lim / dev_ms:.3f}% of it in device time; launch "
               f"{trees_pallas.leaves_launch_config(h, *x.shape, dev)}; {kind}, {smi})")
+    # K1 on phase 2d's host-fit heaps: the same kernel and shapes as the
+    # device-fit forest at the pool, other trees.
+    hh = host_pf.heap
+    h_ms = cuda_ms(lambda: trees_pallas._launch_leaves(hh, x_full), reps=9)
+    h_dev = graph_ms(lambda: trees_pallas._launch_leaves(hh, x_full))
+    h_plain = cuda_ms(lambda: trees_pallas.predict_leaves_plain(host_pf.gf, x_full), reps=3)
+    k1["host-fit heaps"] = dict(ms=h_ms, device_ms=h_dev, plain_ms=h_plain,
+                                bound_ms=k1["pool"]["bound_ms"], bound_by=k1["pool"]["bound_by"])
+    print(f"# time forest_leaves on the host-fit heaps (n={N_POOL}, T={TREES}, depth {DEPTH}): "
+          f"{h_ms:.4f} ms kernel ({h_dev:.4f} ms device, graph-replayed; the device-fit forest "
+          f"{k1['pool']['device_ms']:.4f}), {h_plain:.4f} ms plain ({kind}, {smi})")
     k1_ms, k1_plain = k1["pool"]["ms"], k1["pool"]["plain_ms"]
     k1_bound, k1_by = k1["pool"]["bound_ms"], k1["pool"]["bound_by"]
     # K2 and K3: bytes are x once, the forest's heap form once (nodes, and
@@ -967,6 +1142,51 @@ def main() -> int:
           f"({100 * k6_bound / k6_dev:.3f}% of it in device time; ancestor-count operand bound "
           f"{k6_count_bound:.4f} ms; {kind}, {smi})")
     del p5, p6
+    t_phase = time.perf_counter()
+    # The new paths' evaluation: votes of the depth-12 gather form at the
+    # pool (plain PyTorch, no kernel: bytes are x, the five node arrays and
+    # the [n] votes; the least work one compare a level per (row, tree)),
+    # the similarity mass (x, the mask and the [n] mass), and the host's
+    # packing of a host-fit forest into heaps (from the card and back).
+    binned_d = trees_train.make_bins(train_x, BINS)
+    deep_f = trees_train.heap_packed_forest(*trees_train.fit_forest_device(
+        binned_d.codes, train_y, torch.ones(N_START, device=dev), binned_d.edges,
+        prng.key(args.seed + DEEP), n_trees=TREES, max_depth=DEEP, n_bins=BINS), DEEP)
+    gather_ms = cuda_ms(lambda: forest_eval.votes(deep_f, x_full), reps=5)
+    gather_dev = graph_ms(lambda: forest_eval.votes(deep_f, x_full), reps=5, inner=5)
+    node_bytes = sum(nbytes(getattr(deep_f, f).contiguous())
+                     for f in ("feature", "threshold", "left", "right", "value"))
+    gather_bound, gather_by = bound(nbytes(x_full) + node_bytes + 4 * N_POOL, N_POOL * TREES * DEEP)
+    print(f"# time forest_eval.votes, gather form (n={N_POOL}, T={TREES}, depth {DEEP}, plain "
+          f"PyTorch): {gather_ms:.4f} ms ({gather_dev:.4f} ms device, graph-replayed), bound "
+          f"{gather_bound:.4f} ms by {gather_by} ({100 * gather_bound / gather_dev:.3f}% of it in "
+          f"device time; {kind}, {smi})")
+    mass_ms = cuda_ms(lambda: similarity.similarity_mass(x_full, selectable), reps=9)
+    mass_dev = graph_ms(lambda: similarity.similarity_mass(x_full, selectable))
+    mass_bound, mass_by = bound(nbytes(x_full, selectable) + 4 * N_POOL, 7 * N_POOL * N_FEAT)
+    print(f"# time similarity_mass (n={N_POOL}, d={N_FEAT}): {mass_ms:.4f} ms ({mass_dev:.4f} ms "
+          f"device, graph-replayed), bound {mass_bound:.4f} ms by {mass_by} "
+          f"({100 * mass_bound / mass_dev:.3f}% of it in device time; {kind}, {smi})")
+    pack_times = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        trees_pallas.heap_from_packed(host_loaded)
+        torch.cuda.synchronize()
+        pack_times.append(1e3 * (time.perf_counter() - t0))
+    pack_ms = statistics.median(pack_times)
+    print(f"# time heap_from_packed ({TREES} host-fit-shaped trees, max_depth {DEPTH}, from the "
+          f"card to numpy and back): {pack_ms:.3f} ms host, median of 7 ({kind}, {smi})")
+    new_paths = {
+        "gather_votes": dict(ms=gather_ms, device_ms=gather_dev, bound_ms=gather_bound,
+                             bound_by=gather_by, depth=DEEP),
+        "similarity_mass": dict(ms=mass_ms, device_ms=mass_dev, bound_ms=mass_bound,
+                                bound_by=mass_by, card_vs_cpu_over_max=mass_err),
+        "heap_pack_host_ms": pack_ms,
+        "rounds": {p: [dict(fit=r.train_time, round=r.score_time, eval=r.eval_time)
+                       for r in runs[p].records] for p in ("gather_deep", "density")},
+    }
+    del deep_f, binned_d
+    print(f"# phase 5, the new paths' times: {time.perf_counter() - t_phase:.1f}s")
     for fused in (True, False):
         profile_round(loop, cfg(fused), bundle, dev, "fused" if fused else "unfused")
     profile_round(loop, cfg(True, (4, 2)), bundle, dev, "mesh 4 x 2 fused", devices=one_card)
@@ -1044,7 +1264,7 @@ def main() -> int:
          "max_abs_err": k6_err, "ms": k6_ms, "device_ms": k6_dev, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
-    ], "seconds_per_round": chunk_times, "merge_tile_topk_ms": merge_ms,
+    ], "seconds_per_round": chunk_times, "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,13 @@ module layout and function names so each port module has an obvious
 counterpart (``ops/trees_pallas.py`` here mirrors ``ops/trees_pallas.py``
 there). It imports ``torch`` and never ``jax`` or anything of the JAX package.
 
-What is ported: the device-fit forest AL loop, one round per host step
-(``runtime.loop.run_experiment``), with the two Pallas kernels on its path
-rewritten as hand-written CUDA C++ for ``sm_90a``:
+What is ported: the forest AL loop (``runtime.loop.run_experiment``) with
+the device fit or the host (scikit-learn) fit, per round or chunked, on one
+device or a ``(data, model)`` mesh; the gather, path-matrix and kernel forms
+of a forest (``ops/trees.py``, ``ops/trees_gemm.py``, ``ops/trees_pallas.py``)
+and forest files (``models/forest_io.py``); the core strategies and density;
+and the port's bench. Every Pallas kernel of the JAX package is rewritten as
+hand-written CUDA C++ for ``sm_90a`` (``csrc/``), among them:
 
 - ``csrc/forest_leaves.cu``: per-tree leaf values (``ForestConfig.kernel=
   "pallas"``), replacing ``trees_pallas._kernel``;

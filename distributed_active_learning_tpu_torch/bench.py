@@ -1,13 +1,19 @@
 """The port's own bench: one JSON line on stdout, always.
 
-    python -m distributed_active_learning_tpu_torch.bench --mode score|round|variants
-        [--device cpu] [--pool N] [--trees T] [--rounds-per-launch K] ...
+    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants
+        [--device cpu] [--kernel pallas|gemm|gather] [--pool N] [--trees T] ...
 
 The counterpart of the repo-root ``bench.py`` (the JAX package's, which stays
 as it is) for what the port carries:
 
 - ``--mode score``: votes, uncertainty score and masked bottom-k over the
   pool (``bench_score``). ``value`` is scores per second from device time.
+  ``--kernel gather`` scores through the gather form (``ops/trees.py``).
+- ``--mode density``: the density acquisition (``bench_density``): votes,
+  one-sided entropy times the similarity mass over the unlabeled pool, then
+  the masked top-k; ``value`` is scores per second from device time. Its
+  forest is the device fit's, as in score mode, where the JAX bench fits
+  with scikit-learn: the machine with the card has no scikit-learn.
 - ``--mode round``: one full AL round with the device fit (``bench_round``:
   ``round_seconds``, ``round_fit_seconds``, ``round_score_seconds``); the
   chunked driver against the per-round driver over the same K rounds
@@ -33,11 +39,13 @@ have. Wall times are the host clock around a call that ends in a
 synchronize. The line carries the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit`` prints them.
 
-Not carried yet, each with the slice it waits for: the host-fit leg (a
-non-sklearn fitter), the roofline section (pre-flight slice), the
+Not carried yet, each with the slice it waits for: the host-fit leg (the
+bench runs where the card is, which has no scikit-learn; a host-fit forest
+would come as a forest file), the roofline section (pre-flight slice), the
 metrics-on chunk and the flight recorder (telemetry slice), the pod legs
 (mesh-and-pod slice), ``--audit`` and ``--compare-to`` (pre-flight slice),
-and the modes density, lal, neural, sweep, grid, serve* (their own slices).
+and the modes lal, neural, sweep, grid, serve* (their own slices).
+``--kernel gather`` is carried by the score and density modes.
 """
 
 from __future__ import annotations
@@ -108,19 +116,28 @@ def _wrap(gf, kernel: str):
     return PallasForest(gf=gf) if kernel == "pallas" else gf
 
 
-def bench_score(args, dev) -> dict:
+def _fit_bench_forest(args, dev, train_x, train_y):
+    """The device fit on the bench's labeled rows, in ``--kernel``'s form."""
     from distributed_active_learning_tpu_torch import prng
-    from distributed_active_learning_tpu_torch.ops import forest_eval, scoring, trees_train
-    from distributed_active_learning_tpu_torch.ops.topk import select_bottom_k
+    from distributed_active_learning_tpu_torch.ops import trees_train
 
-    rng = np.random.default_rng(0)
-    pool, train_x, train_y = _make_pool(args, rng)
     tx = torch.from_numpy(train_x).to(dev)
     binned = trees_train.make_bins(tx, 32)
     f, th, v = trees_train.fit_forest_device(
         binned.codes, torch.from_numpy(train_y).to(dev), torch.ones(args.train_rows, device=dev),
         binned.edges, prng.key(0), n_trees=args.trees, max_depth=args.depth)
-    forest = _wrap(trees_train.heap_gemm_forest(f, th, v, args.depth), args.kernel)
+    if args.kernel == "gather":
+        return trees_train.heap_packed_forest(f, th, v, args.depth)
+    return _wrap(trees_train.heap_gemm_forest(f, th, v, args.depth), args.kernel)
+
+
+def bench_score(args, dev) -> dict:
+    from distributed_active_learning_tpu_torch.ops import forest_eval, scoring
+    from distributed_active_learning_tpu_torch.ops.topk import select_bottom_k
+
+    rng = np.random.default_rng(0)
+    pool, train_x, train_y = _make_pool(args, rng)
+    forest = _fit_bench_forest(args, dev, train_x, train_y)
     pool_dev = torch.from_numpy(pool).to(dev)
     unlabeled = torch.ones(args.pool, dtype=torch.bool, device=dev)
 
@@ -144,6 +161,44 @@ def bench_score(args, dev) -> dict:
         "device_seconds_per_query": device_sec,
         "wall_seconds_per_query": round(wall_sec, 6),
         "wall_scores_per_sec": round(args.pool / wall_sec, 1),
+    }
+
+
+def bench_density(args, dev) -> dict:
+    """Density-weighted acquisition over the whole unlabeled pool: the
+    density strategy's score (votes, one-sided entropy, similarity mass to
+    the power beta = 1) and the masked top-k."""
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.config import StrategyConfig
+    from distributed_active_learning_tpu_torch.ops.topk import select_top_k
+    from distributed_active_learning_tpu_torch.runtime.state import PoolState
+    from distributed_active_learning_tpu_torch.strategies import StrategyAux, get_strategy
+
+    rng = np.random.default_rng(0)
+    pool, train_x, train_y = _make_pool(args, rng)
+    forest = _fit_bench_forest(args, dev, train_x, train_y)
+    pool_dev = torch.from_numpy(pool).to(dev)
+    state = PoolState(x=pool_dev, oracle_y=torch.zeros(args.pool, dtype=torch.int32, device=dev),
+                      labeled_mask=torch.zeros(args.pool, dtype=torch.bool, device=dev),
+                      key=prng.key(0))
+    strategy = get_strategy(StrategyConfig(name="density", window_size=args.window))
+
+    def acquisition():
+        scores = strategy.score(forest, state, None, StrategyAux())
+        return select_top_k(scores, state.unlabeled_mask, args.window)
+
+    _wall(acquisition, dev)  # builds and warms
+    wall_sec = _median_wall(acquisition, args.iters, dev)
+    device_sec = _median_device(acquisition, args.iters, dev)
+    return {
+        "metric": "density_scores_per_sec",
+        "value": round(args.pool / device_sec, 1),
+        "unit": f"scores/s from device time ({args.pool}x{args.features} pool, {args.trees} "
+                f"trees, depth {args.depth}, {args.kernel} kernel, device fit)",
+        "kernel": args.kernel,
+        "density_time_method": "cuda_events" if dev.type == "cuda" else "host_clock",
+        "device_seconds_per_query": device_sec,
+        "density_wall_scores_per_sec": round(args.pool / wall_sec, 1),
     }
 
 
@@ -407,7 +462,8 @@ def bench_variants(args, dev) -> dict:
     }
 
 
-_MODES = {"score": bench_score, "round": bench_round, "variants": bench_variants}
+_MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
+          "variants": bench_variants}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -424,9 +480,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--window", type=int, default=100)
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--train-rows", type=int, default=None)
-    ap.add_argument("--kernel", choices=["gemm", "pallas"], default="pallas",
-                    help="forest evaluation: pallas (the hand-written CUDA kernels) or gemm "
-                    "(the plain path-matrix form)")
+    ap.add_argument("--kernel", choices=["gemm", "pallas", "gather"], default="pallas",
+                    help="forest evaluation: pallas (the hand-written CUDA kernels), gemm "
+                    "(the plain path-matrix form) or gather (the traversal form; score and "
+                    "density modes)")
     ap.add_argument("--rounds-per-launch", type=int, default=None,
                     help="round mode: AL rounds per chunk launch (default 8 on CUDA, 4 under "
                     "--device cpu)")
@@ -444,6 +501,9 @@ def main(argv=None) -> int:
         from distributed_active_learning_tpu_torch.device import resolve_device
 
         dev = resolve_device(args.device)
+        if args.kernel == "gather" and args.mode not in ("score", "density"):
+            raise ValueError(f"--kernel gather is carried by --mode score and density, "
+                             f"not by --mode {args.mode}")
         cpu = dev.type == "cpu"
         for name, value in (_CPU_SIZES if cpu else _CUDA_SIZES).items():
             if getattr(args, name) is None:

@@ -25,16 +25,24 @@ class ForestConfig:
     criterion: str = "gini"
     # Evaluation form: "gemm" is the plain path-matrix form
     # (ops/trees_gemm.py); "pallas" selects the hand-written leaf kernel
-    # (ops/trees_pallas.py, csrc/forest_leaves.cu; features compare in bf16).
-    # "gather" is not ported yet.
+    # (ops/trees_pallas.py, csrc/forest_leaves.cu; features compare in bf16);
+    # "gather" keeps the traversal form (ops/trees.py; f32 compares), which
+    # every forest deeper than 10 takes.
     kernel: str = "gemm"
-    # "device" runs the histogram trainer (ops/trees_train.py); "host"
-    # (sklearn) is not ported: the port does not depend on scikit-learn.
+    # "host" fits scikit-learn's RandomForestClassifier on the labeled rows
+    # (models/forest.py; scikit-learn is imported only there); "device" runs
+    # the histogram trainer (ops/trees_train.py).
     fit: str = "host"
     fit_budget: Optional[int] = None
     node_budget: Optional[int] = None
     quantize: str = "none"
     seed: int = 0
+
+    @property
+    def resolved_node_budget(self) -> int:
+        if self.node_budget is not None:
+            return self.node_budget
+        return 2 ** (self.max_depth + 1) - 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+# Target of a padded leaf slot: no ancestor count reaches it, so it never hits.
+_PAD_TARGET = 1.0e6
+
 
 @dataclasses.dataclass(frozen=True)
 class GemmForest:
@@ -27,6 +32,70 @@ class GemmForest:
     @property
     def n_trees(self) -> int:
         return self.feat_ids.shape[0]
+
+    def to(self, device) -> "GemmForest":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)})
+
+
+def gemm_forest_from_packed(packed, n_internal: int | None = None,
+                            n_leaves: int | None = None) -> GemmForest:
+    """The path-matrix form of a :class:`~.trees.PackedForest`, built on the
+    host with numpy (the JAX package's function, the same arrays bit for
+    bit): each tree's reachable nodes in depth-first order (right subtree
+    first), internal nodes in the order they are met, leaves likewise.
+    ``n_internal``/``n_leaves`` pad the I/L axes to fixed sizes (default:
+    the forest's largest tree); padded leaves carry an unreachable target.
+    The result lies on the packed forest's device."""
+    from distributed_active_learning_tpu_torch.ops.trees import LEAF
+
+    feature, threshold, left, right, value = (
+        getattr(packed, f).cpu().numpy() for f in ("feature", "threshold", "left", "right", "value"))
+    T = feature.shape[0]
+    per_tree = []
+    max_I = max_L = 1
+    for t in range(T):
+        internal, leaves = [], []
+        stack = [(0, [])]  # (node, [(internal index, went left), ...])
+        while stack:
+            node, path_list = stack.pop()
+            if feature[t, node] == LEAF:
+                leaves.append((node, path_list))
+            else:
+                i = len(internal)
+                internal.append(node)
+                stack.append((int(left[t, node]), path_list + [(i, True)]))
+                stack.append((int(right[t, node]), path_list + [(i, False)]))
+        per_tree.append((internal, leaves))
+        max_I = max(max_I, len(internal))
+        max_L = max(max_L, len(leaves))
+    if n_internal is not None:
+        if max_I > n_internal:
+            raise ValueError(f"forest has {max_I} internal nodes > budget {n_internal}")
+        max_I = n_internal
+    if n_leaves is not None:
+        if max_L > n_leaves:
+            raise ValueError(f"forest has {max_L} leaves > budget {n_leaves}")
+        max_L = n_leaves
+
+    feat_ids = np.zeros((T, max_I), dtype=np.int32)
+    thresholds = np.full((T, max_I), -np.inf, dtype=np.float32)
+    path = np.zeros((T, max_I, max_L), dtype=np.float32)
+    target = np.full((T, max_L), _PAD_TARGET, dtype=np.float32)
+    leaf_value = np.zeros((T, max_L), dtype=np.float32)
+    for t, (internal, leaves) in enumerate(per_tree):
+        for i, node in enumerate(internal):
+            feat_ids[t, i] = feature[t, node]
+            thresholds[t, i] = threshold[t, node]
+        for leaf, (node, path_list) in enumerate(leaves):
+            leaf_value[t, leaf] = value[t, node]
+            for i, went_left in path_list:
+                path[t, i, leaf] = 1.0 if went_left else -1.0
+            target[t, leaf] = float(sum(went_left for _, went_left in path_list))
+
+    dev = packed.feature.device
+    return GemmForest(*(torch.from_numpy(a).to(dev)
+                        for a in (feat_ids, thresholds, path, target, leaf_value)))
 
 
 def _predict_chunk(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,10 @@ The kernel walks each tree from the root (``csrc/heap_walk.cuh``), so it
 takes complete heap trees, the form every device fit grows: the forest's
 heap form (:class:`HeapOperands`) is built once per forest and shared with
 the vote kernels K2 and K3 (``ops/round_fused.py``), which walk the same
-trees, and a path matrix of another shape is refused on the card. On a heap
+trees, and a path matrix of another shape is refused on the card. A host
+fit's trees are packed into complete heaps of the forest's depth from their
+gather form (:func:`heap_from_packed`, called by
+``forest_eval.for_kernel``) and kept on the :class:`PallasForest`. On a heap
 tree the walk is the path-matrix function exactly. The layout variants K5
 and K6 (``benches/pallas_variants.py``) walk the same heap words.
 
@@ -39,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
@@ -66,6 +70,10 @@ class PallasForest:
     forest once."""
 
     gf: GemmForest
+    # The heap form when it was built elsewhere: a host-fit forest's trees
+    # are packed into heaps from their gather form (heap_from_packed), which
+    # its path matrix (depth-first, not heap order) cannot give back.
+    prepacked: "HeapOperands | None" = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def n_trees(self) -> int:
@@ -73,7 +81,13 @@ class PallasForest:
 
     @functools.cached_property
     def heap(self) -> "HeapOperands":
-        return heap_operands(self.gf)
+        return self.prepacked if self.prepacked is not None else heap_operands(self.gf)
+
+    def to(self, device) -> "PallasForest":
+        heap = self.prepacked
+        if heap is not None:
+            heap = dataclasses.replace(heap, nodes=heap.nodes.to(device), val=heap.val.to(device))
+        return PallasForest(gf=self.gf.to(device), prepacked=heap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,8 +186,8 @@ def _not_a_heap(why: str) -> ValueError:
     return ValueError(
         "The forest kernels on the card (K1, K2, K3, K5, K6) walk complete heap trees, and "
         f"this forest is not one ({why}). "
-        "The device fit grows heap trees; forests of another shape come from the host fit, "
-        "which is not ported yet: the host-fit slice packs its trees into heaps for the walk."
+        "The device fit grows heap trees; a host fit's trees reach the kernels packed into "
+        "heaps from their gather form: forest_eval.for_kernel(packed, 'pallas')."
     )
 
 
@@ -215,6 +229,37 @@ def pack_heap(feat: torch.Tensor, thr: torch.Tensor, value: torch.Tensor,
         val=torch.nn.functional.pad(value.to(torch.float32), (0, Lp - L)).contiguous(),
         depth=depth,
     )
+
+
+def heap_from_packed(packed) -> HeapOperands:
+    """The heap form of a :class:`~.trees.PackedForest` whose trees are no
+    deeper than its ``max_depth`` D (a host fit's): every tree becomes a
+    complete heap of depth D. A leaf met above the last level stands for all
+    the heap slots below it: those internal slots get feature 0 and the
+    leaf's own threshold, and every heap leaf under it gets its value, so
+    the walk reaches that value whatever their compares give. Built level
+    by level with numpy on the host, then placed on the forest's device."""
+    from distributed_active_learning_tpu_torch.ops.trees import LEAF
+
+    feature, threshold, left, right, value = (
+        getattr(packed, f).cpu().numpy() for f in ("feature", "threshold", "left", "right", "value"))
+    depth = max(packed.max_depth, 1)
+    tree = np.arange(feature.shape[0])[:, None]
+    node = np.zeros((feature.shape[0], 1), dtype=np.int64)  # packed node of each heap slot
+    feats, thrs = [], []
+    for _ in range(depth):
+        feat = feature[tree, node]
+        leaf = feat == LEAF
+        feats.append(np.where(leaf, 0, feat))
+        thrs.append(threshold[tree, node])
+        children = (np.where(leaf, node, left[tree, node]), np.where(leaf, node, right[tree, node]))
+        node = np.stack(children, axis=2).reshape(feature.shape[0], -1)
+    if (feature[tree, node] != LEAF).any():
+        raise ValueError(f"a tree of this forest is deeper than its max_depth {packed.max_depth}")
+    dev = packed.feature.device
+    return pack_heap(torch.from_numpy(np.concatenate(feats, axis=1).astype(np.int32)).to(dev),
+                     torch.from_numpy(np.concatenate(thrs, axis=1).astype(np.float32)).to(dev),
+                     torch.from_numpy(value[tree, node].astype(np.float32)).to(dev), depth)
 
 
 def heap_operands(gf: GemmForest) -> HeapOperands:

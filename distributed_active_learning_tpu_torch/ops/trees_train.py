@@ -291,12 +291,9 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return heap_path_target(depth, device)[which].expand(t.shape)
 
 
-def heap_gemm_forest(
-    feature: torch.Tensor, threshold: torch.Tensor, value: torch.Tensor, max_depth: int
-) -> GemmForest:
-    """Path-matrix form of a device-fit (complete heap) forest: slicing plus
-    a constant per depth. Binary forests only; multiclass value tensors
-    wait for the multiclass slice."""
+def _binary_value(value: torch.Tensor) -> torch.Tensor:
+    """The P(class 1) plane of a fit's ``[T, nodes, C]`` value tensor (a
+    rank-2 tensor is that plane already); multiclass forests are refused."""
     if value.ndim == 3:
         if value.shape[-1] != 2:
             raise NotImplementedError(
@@ -304,6 +301,16 @@ def heap_gemm_forest(
                 "brings MultiForest)"
             )
         value = value[..., 1]
+    return value
+
+
+def heap_gemm_forest(
+    feature: torch.Tensor, threshold: torch.Tensor, value: torch.Tensor, max_depth: int
+) -> GemmForest:
+    """Path-matrix form of a device-fit (complete heap) forest: slicing plus
+    a constant per depth. Binary forests only; multiclass value tensors
+    wait for the multiclass slice."""
+    value = _binary_value(value)
     T, I = feature.shape
     L = I + 1
     path, target = heap_path_target(max_depth, feature.device)
@@ -313,6 +320,30 @@ def heap_gemm_forest(
         path=path.expand(T, I, L),
         target=target.expand(T, L),
         value=value[:, I:].to(torch.float32),
+    )
+
+
+def heap_packed_forest(
+    feature: torch.Tensor, threshold: torch.Tensor, value: torch.Tensor, max_depth: int
+):
+    """The gather form (:class:`~.trees.PackedForest`) of a device-fit heap
+    forest: ``2I + 1`` nodes, node ``v``'s children at ``2v + 1`` and
+    ``2v + 2``, the ``I + 1`` leaves self-looping; ``left``/``right`` are one
+    row broadcast over the trees."""
+    from distributed_active_learning_tpu_torch.ops.trees import LEAF, PackedForest
+
+    value = _binary_value(value)
+    T, I = feature.shape
+    n_nodes = 2 * I + 1  # 2^(D+1) - 1
+    node = torch.arange(n_nodes, dtype=torch.int32, device=feature.device)
+    internal = node < I
+    return PackedForest(
+        feature=torch.cat([feature, feature.new_full((T, n_nodes - I), LEAF)], dim=1),
+        threshold=torch.cat([threshold, threshold.new_zeros((T, n_nodes - I))], dim=1),
+        left=torch.where(internal, 2 * node + 1, node).expand(T, n_nodes),
+        right=torch.where(internal, 2 * node + 2, node).expand(T, n_nodes),
+        value=value.to(torch.float32),
+        max_depth=max_depth,
     )
 
 

@@ -5,6 +5,11 @@
         --dataset checkerboard2x2 --fit device --kernel pallas --fused-round \\
         --strategy uncertainty --window 10 --rounds 5 --device cuda
 
+``--fit host`` fits scikit-learn's forest on the host every round (the
+JAX package's default; it needs scikit-learn) and evaluates it in the
+``--kernel`` form on the device; ``--strategy density`` weights the
+one-sided entropy by the similarity mass.
+
 Prints the reference-format log on stdout; ``--out`` writes it to a file.
 ``--device`` defaults to cuda and the run refuses to start without a card
 unless ``--device cpu`` is given. ``--mesh-data D --mesh-model M`` shards
@@ -41,13 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument(
         "--kernel", choices=["gemm", "pallas", "gather"], default="gemm",
-        help="forest evaluation: gemm (plain path-matrix form, default) or "
-        "pallas (the hand-written CUDA leaf kernel; bf16 feature compares); "
-        "gather is not ported yet",
+        help="forest evaluation: gemm (plain path-matrix form, default), "
+        "pallas (the hand-written CUDA leaf kernel; bf16 feature compares) "
+        "or gather (the traversal form; f32 compares). Depths past 10 always "
+        "evaluate in the gather form",
     )
     ap.add_argument(
         "--fit", choices=["host", "device"], default="host",
-        help="forest training; only device (the histogram trainer) is ported",
+        help="forest training: host (scikit-learn on the labeled rows, one "
+        "round per host step; needs scikit-learn) or device (the histogram "
+        "trainer)",
     )
     ap.add_argument(
         "--fused-round", action="store_true",
@@ -84,13 +92,6 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     args.strategy = _STRATEGY_ALIASES.get(args.strategy, args.strategy)
-    if args.fit == "host":
-        ap.error(
-            "--fit host is not ported yet: the host fit calls scikit-learn, "
-            "which the port does not depend on; use --fit device"
-        )
-    if args.kernel == "gather":
-        ap.error("--kernel gather is not ported yet; use gemm or pallas")
 
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import run_experiment

@@ -2,8 +2,12 @@
 and the chunked branch.
 
 Each round: fit the forest on the labeled window on the device
-(``ops/trees_train.py``), score the pool and take the masked top-k (or run
-the round megakernel, ``fused_round``), reveal, and measure test accuracy.
+(``ops/trees_train.py``) or on the host with scikit-learn
+(``models/forest.py``, then ``forest_eval.for_kernel`` and placement on the
+device), score the pool and take the masked top-k (or run the round
+megakernel, ``fused_round``), reveal, and measure test accuracy. A device
+fit gives the path-matrix form (``kernel`` "gemm" or "pallas", depth <= 10)
+or the gather form (``kernel="gather"``, or any depth > 10).
 The PRNG stream, the fit, the picks and the records equal the JAX package's
 bit for bit on the same configuration (``tests/test_torch_loop.py``).
 
@@ -21,10 +25,14 @@ in flight. On CUDA a chunk is one CUDA graph (:class:`GraphedChunk`),
 captured at the first call and replayed by every later one; on the CPU the
 same body runs eagerly. Records and the final mask equal the per-round run's.
 
+The host fit re-enters the host every round, so it always takes the
+per-round driver, whatever ``rounds_per_launch`` says (as in the JAX
+package).
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing them: the chunked driver under a mesh, the
-host (sklearn) fit, ``kernel="gemm"`` under a mesh, scenarios, checkpoints,
-metrics writers, quantized storage, multiclass pools and the gather kernel.
+slice bringing them: under a mesh the chunked driver, ``kernel`` "gemm" and
+"gather", depths past 10, the host fit and the density strategy; scenarios,
+checkpoints, metrics writers, quantized storage and multiclass pools.
 """
 
 from __future__ import annotations
@@ -139,19 +147,30 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
     return None
 
 
+# Where what a mesh does not carry yet is queued.
+_MESH_SLICE = "the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and pod\")"
+
+
 def _not_ported(cfg: ExperimentConfig, metrics) -> None:
     """Refuse what this slice does not carry, naming the slice that will."""
+    mesh = cfg.mesh.data * cfg.mesh.model > 1
     refusals = [
-        (cfg.rounds_per_launch > 1 and cfg.mesh.data * cfg.mesh.model > 1,
+        (cfg.rounds_per_launch > 1 and mesh,
          "rounds_per_launch > 1 under a device mesh needs constrain_forest "
-         "(the fit sharded by trees inside the chunk); it comes with the "
-         "mesh-and-pod slice"),
-        (cfg.forest.fit == "host",
-         "the host (sklearn) fit is not ported: the port does not depend on "
-         "scikit-learn; use fit='device'"),
-        (cfg.mesh.data * cfg.mesh.model > 1 and cfg.forest.kernel == "gemm",
+         "(the fit sharded by trees inside the chunk); it comes with "
+         f"{_MESH_SLICE}"),
+        (mesh and cfg.forest.kernel == "gemm",
          "kernel 'gemm' under a device mesh (GSPMD-partitioned plain XLA in "
          "the JAX package, no kernel) is not ported yet; use kernel 'pallas'"),
+        (mesh and (cfg.forest.kernel == "gather"
+                   or cfg.forest.max_depth > forest_eval._GEMM_MAX_DEPTH),
+         "the gather form (kernel 'gather', or max_depth > "
+         f"{forest_eval._GEMM_MAX_DEPTH}) under a device mesh comes with {_MESH_SLICE}"),
+        (mesh and cfg.forest.fit == "host",
+         f"the host fit under a device mesh comes with {_MESH_SLICE}; use fit='device'"),
+        (mesh and cfg.strategy.name == "density",
+         "the density strategy under a device mesh (sharded_similarity_mass) "
+         f"comes with {_MESH_SLICE}"),
         (cfg.scenario is not None and cfg.scenario.active,
          "scenarios come with the scenario slice"),
         (bool(cfg.checkpoint_dir and cfg.checkpoint_every),
@@ -160,12 +179,6 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
          "metrics writers and RoundMetrics come with the telemetry slice"),
         (cfg.forest.quantize != "none",
          "quantized forest storage comes with the quantization slice"),
-        (cfg.forest.kernel not in ("gemm", "pallas"),
-         f"kernel {cfg.forest.kernel!r} (the gather form) comes with the "
-         "gather-kernel slice; use 'gemm' or 'pallas'"),
-        (cfg.forest.max_depth > forest_eval._GEMM_MAX_DEPTH,
-         f"max_depth {cfg.forest.max_depth} needs the gather form, which "
-         "comes with the gather-kernel slice"),
     ]
     for refused, why in refusals:
         if refused:
@@ -195,11 +208,14 @@ def _resolve_fit_budget(cfg: ExperimentConfig, n_pool: int, n_labeled: int) -> i
 
 
 def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
-    """Labeled-window gather + histogram fit + kernel-form conversion."""
+    """Labeled-window gather + histogram fit + kernel-form conversion: the
+    path-matrix form for kernels "gemm" and "pallas" up to depth 10, the
+    gather form otherwise."""
     from distributed_active_learning_tpu_torch.ops import trees_train
     from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest
 
     fc = cfg.forest
+    to_gemm = fc.kernel in ("gemm", "pallas") and fc.max_depth <= forest_eval._GEMM_MAX_DEPTH
 
     def fit_body(codes, edges, state: state_lib.PoolState, key: prng.Key):
         if isinstance(codes, Sharded):
@@ -213,6 +229,8 @@ def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
             n_trees=fc.n_trees, max_depth=fc.max_depth, n_bins=fc.max_bins,
             n_classes=n_classes,
         )
+        if not to_gemm:
+            return trees_train.heap_packed_forest(f, th, v, fc.max_depth)
         gf = trees_train.heap_gemm_forest(f, th, v, fc.max_depth)
         return PallasForest(gf=gf) if fc.kernel == "pallas" else gf
 
@@ -467,6 +485,31 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     return carry
 
 
+def _labeled_subset(state: state_lib.PoolState, host_x: np.ndarray, host_y: np.ndarray):
+    """The labeled rows of the host-side pool arrays, for the host fit: only
+    the mask crosses from the device."""
+    mask = state.labeled_mask.cpu().numpy()[: state.n_valid]
+    return host_x[mask], host_y[mask]
+
+
+def make_host_fit(cfg: ExperimentConfig, host_x: np.ndarray, host_y: np.ndarray,
+                  n_classes: int, device):
+    """The host train phase ``fit(state, round_idx) -> forest``: scikit-learn
+    on the labeled rows with ``random_state = cfg.seed + round_idx``, the
+    packed forest in the configured kernel's form, placed on ``device``."""
+    from distributed_active_learning_tpu_torch.models import forest as forest_lib
+
+    forest_lib.require_sklearn()  # fail by name before the first round
+
+    def fit(state, round_idx):
+        lx, ly = _labeled_subset(state, host_x, host_y)
+        packed = forest_lib.fit_forest_classifier(
+            lx, ly, cfg.forest, seed=cfg.seed + round_idx, n_classes=n_classes)
+        return forest_eval.for_kernel(packed, cfg.forest.kernel).to(device)
+
+    return fit
+
+
 def build_aux(cfg: ExperimentConfig, state: state_lib.PoolState) -> StrategyAux:
     """Strategy aux inputs: the seed mask (the LAL regressor is not ported)."""
     return StrategyAux(seed_mask=state.labeled_mask)
@@ -487,7 +530,7 @@ def run_experiment(
     first ``data * model`` cards, or every shard on the CPU."""
     dev = resolve_device(device)
     _not_ported(cfg, metrics)
-    if cfg.forest.fit != "device":
+    if cfg.forest.fit not in ("host", "device"):
         raise ValueError(f"unknown ForestConfig.fit {cfg.forest.fit!r}; use 'host' or 'device'")
     dbg = debugger or Debugger(enabled=False)
     if bundle is None:
@@ -509,11 +552,16 @@ def run_experiment(
         if reason is not None:
             raise ValueError(f"fused_round unavailable: {reason}")
 
-    from distributed_active_learning_tpu_torch.ops import trees_train
+    host_fit = None
+    if cfg.forest.fit == "host":
+        host_fit = make_host_fit(cfg, host_x, host_y, n_classes, dev)
+        codes = edges = None
+    else:
+        from distributed_active_learning_tpu_torch.ops import trees_train
 
-    binned = trees_train.make_bins(state.x, cfg.forest.max_bins, quantize=cfg.forest.quantize)
-    codes, edges = binned.codes, binned.edges
-    fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
+        binned = trees_train.make_bins(state.x, cfg.forest.max_bins, quantize=cfg.forest.quantize)
+        codes, edges = binned.codes, binned.edges
+        fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
 
     mesh = None
     if cfg.mesh.data * cfg.mesh.model > 1:
@@ -556,7 +604,8 @@ def run_experiment(
 
     aux = build_aux(cfg, state)
     result = ExperimentResult()
-    device_fit = make_device_fit(cfg, edges, fit_budget, n_classes)
+    if host_fit is None:
+        device_fit = make_device_fit(cfg, edges, fit_budget, n_classes)
     fit_key = prng.key(cfg.seed + 0x5EED)
     sync_devs = {d for row in mesh.devices for d in row} if mesh else {dev}
 
@@ -567,7 +616,7 @@ def run_experiment(
     n_pool = state.n_valid
     round_idx = state.round
     start_round = round_idx
-    if cfg.rounds_per_launch > 1:
+    if cfg.rounds_per_launch > 1 and host_fit is None:
         state = _run_chunked(
             cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
             fit_budget, result, dbg, start_round)
@@ -586,12 +635,15 @@ def run_experiment(
         round_idx += 1
 
         with dbg.phase("train"):
-            if n_labeled > fit_budget:
-                raise ValueError(
-                    f"{n_labeled} labeled rows exceed the device fit "
-                    f"window ({fit_budget}); raise ForestConfig.fit_budget"
-                )
-            forest = place_forest(device_fit(codes, state, prng.fold_in(fit_key, round_idx)))
+            if host_fit is not None:
+                forest = place_forest(host_fit(state, round_idx))
+            else:
+                if n_labeled > fit_budget:
+                    raise ValueError(
+                        f"{n_labeled} labeled rows exceed the device fit "
+                        f"window ({fit_budget}); raise ForestConfig.fit_budget"
+                    )
+                forest = place_forest(device_fit(codes, state, prng.fold_in(fit_key, round_idx)))
             sync()
         train_time = dbg.records[-1][1]
 

@@ -1,7 +1,6 @@
 """Core strategies over binary forests (the port of ``strategies/core.py``):
-random, uncertainty, soft_uncertainty, entropy, full_entropy, margin.
-``density`` waits for ``ops/similarity.py``; the multiclass branches wait for
-the multiclass slice."""
+random, uncertainty, soft_uncertainty, entropy, full_entropy, margin and
+density. The multiclass branches wait for the multiclass slice."""
 
 from __future__ import annotations
 
@@ -9,7 +8,7 @@ import torch
 
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import StrategyConfig
-from distributed_active_learning_tpu_torch.ops import forest_eval, scoring
+from distributed_active_learning_tpu_torch.ops import forest_eval, scoring, similarity
 from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.strategies.base import Strategy, register_strategy
 
@@ -88,3 +87,28 @@ def _margin(cfg: StrategyConfig) -> Strategy:
         return scoring.margin_score(_vote_fraction(forest, state))
 
     return Strategy(name="margin", score=score, higher_is_better=False)
+
+
+@register_strategy("density")
+def _density(cfg: StrategyConfig) -> Strategy:
+    """Information density: the one-sided entropy times the similarity mass
+    to the power ``beta``, descending (``density_weighting.py:148-168``).
+    The mass counts the current unlabeled rows; ``options={"mass_over":
+    "non_seed"}`` (with ``aux.seed_mask``) counts every row but the initial
+    seeds, as the reference does."""
+    mass_over = dict(cfg.options).get("mass_over", "unlabeled")
+    beta = cfg.beta
+
+    def score(forest, state, key, aux):
+        del key
+        ent = scoring.positive_entropy(_vote_fraction(forest, state))
+        if mass_over == "non_seed" and aux.seed_mask is not None:
+            count_mask = ~aux.seed_mask
+        else:
+            count_mask = ~state.labeled_mask
+        # The mass can dip below 0 for adversarial rows; clamp so the power
+        # is defined.
+        mass = torch.clamp_min(similarity.similarity_mass(state.x, count_mask), 0.0)
+        return ent * torch.pow(mass, beta)
+
+    return Strategy(name="density", score=score, higher_is_better=True)

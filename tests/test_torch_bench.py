@@ -1,5 +1,5 @@
 """The port's bench prints one parseable JSON line per mode (``--device cpu``
-at tiny sizes) with the keys the JAX bench uses for the same legs, and the
+at tiny sizes; score and density also under ``--kernel gather``) with the keys the JAX bench uses for the same legs, and the
 port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
 of ``tests/test_pipeline.py`` on a fake, host-only dispatch)."""
 
@@ -64,6 +64,16 @@ def test_bench_modes_print_one_json_line():
     assert score["value"] > 0 and score["kernel"] == "pallas"
     assert score["wall_seconds_per_query"] > 0
     assert score["device"] == "cpu" and score["card"] is None and score["cpu_smoke_sizes"]
+
+    rc, gather = _line(["--mode", "score", *_TINY, "--kernel", "gather"])
+    assert rc == 0 and gather["kernel"] == "gather" and gather["value"] > 0
+    for kernel in ("pallas", "gather"):
+        rc, dens = _line(["--mode", "density", *_TINY, "--kernel", kernel])
+        assert rc == 0 and dens["metric"] == "density_scores_per_sec", dens
+        assert dens["value"] > 0 and dens["kernel"] == kernel
+        assert dens["density_wall_scores_per_sec"] > 0
+    rc, bad = _line(["--mode", "round", *_TINY, "--kernel", "gather"])
+    assert rc == 1 and "carried by --mode score and density" in bad["error"]
 
     rc, rnd = _line(["--mode", "round", "--rounds-per-launch", "2", *_TINY])
     assert rc == 0 and rnd["metric"] == "al_round_seconds"

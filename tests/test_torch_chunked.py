@@ -5,7 +5,8 @@ depth 4, device fit, kernel "pallas", uncertainty, window 15, n_start 10,
 three, the final mask across the port's two drivers (the JAX result does not
 carry one), fused and unfused, at pipeline depth 1 and 2, with ``max_rounds``
 not a multiple of the chunk and with a ``label_budget`` that stops inside a
-chunk. Also the raw chunk program: its stacked ys and its carried-out state
+chunk; unfused also with a depth-11 device fit (the gather form) and with
+the density strategy. Also the raw chunk program: its stacked ys and its carried-out state
 (picked, active, mask, key data, round) equal the JAX chunk's."""
 
 import dataclasses
@@ -34,11 +35,12 @@ from distributed_active_learning_tpu_torch.strategies import get_strategy as t_s
 K = 3
 
 
-def _cfgs(fused, **kw):
+def _cfgs(fused, max_depth=4, strategy="uncertainty", **kw):
     j = j_config.ExperimentConfig(
         data=j_config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
-        forest=j_config.ForestConfig(n_trees=8, max_depth=4, kernel="pallas", fit="device"),
-        strategy=j_config.StrategyConfig(name="uncertainty", window_size=15),
+        forest=j_config.ForestConfig(n_trees=8, max_depth=max_depth, kernel="pallas",
+                                     fit="device"),
+        strategy=j_config.StrategyConfig(name=strategy, window_size=15),
         n_start=10, fused_round=fused, **kw,
     )
     return j, t_config.from_dict(dataclasses.asdict(j))
@@ -122,3 +124,16 @@ def test_chunked_matches_jax():
             assert _key(got) == _key(want), (fused, what)
             assert got.to_reference_log() == want.to_reference_log()
         _raw_chunk_parity(fused)
+
+    # The gather form (a depth-11 device fit) and the density strategy inside
+    # the chunk: equal to the per-round driver and to the JAX chunked driver.
+    for what, kw in {"depth 11 (gather form)": dict(max_depth=11),
+                     "density": dict(strategy="density")}.items():
+        jcfg, tcfg = _cfgs(False, max_rounds=5, **kw)
+        per_round = t_loop.run_experiment(tcfg, device="cpu")
+        got = t_loop.run_experiment(dataclasses.replace(tcfg, rounds_per_launch=K), device="cpu")
+        assert _key(got) == _key(per_round), what
+        assert [r.n_labeled for r in got.records] == [10, 25, 40, 55, 70], what
+        assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask), what
+        want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K))
+        assert got.to_reference_log() == want.to_reference_log(), what

@@ -406,6 +406,64 @@ def test_chunked_graph_matches_per_round(cuda):
             assert on_cpu.to_reference_log() == got.to_reference_log()
 
 
+def test_host_fit_heaps_through_k1_match_plain(cuda, tmp_path):
+    """Host-fit-shaped forests (made with numpy: the machine with the card
+    has no scikit-learn), carried to the card through a forest file:
+    ``for_kernel(..., "pallas")`` packs their trees into heaps, and K1 on
+    those equals the plain version on the depth-first path matrix and the
+    walk of the heaps, at depths 1-8 on edge rows; on bf16-exact rows it
+    also equals the gather form."""
+    from distributed_active_learning_tpu_torch.models import forest as forest_lib
+    from distributed_active_learning_tpu_torch.models import forest_io
+    from distributed_active_learning_tpu_torch.ops import forest_eval, trees
+
+    rng = np.random.default_rng(3)
+    for depth in range(1, 9):
+        packed = forest_lib.synthetic_forest(rng, 23, depth, 30, single_leaf_every=5)
+        forest_io.save_forest(str(tmp_path / "f.npz"), packed)
+        packed, _ = forest_io.load_forest(str(tmp_path / "f.npz"), device=cuda)
+        pf = forest_eval.for_kernel(packed, "pallas")
+        assert pf.prepacked is not None and pf.heap.nodes.device.type == "cuda"
+        x = _edge_rows(pf.gf, rng, 3001, 30).to(cuda)
+        before = trees_pallas.launches
+        got = trees_pallas.predict_leaves_pallas(pf, x)
+        assert trees_pallas.launches == before + 1
+        assert torch.equal(got, trees_pallas.predict_leaves_plain(pf.gf, x)), depth
+        assert torch.equal(got, trees_pallas.walk_leaves_plain(pf.heap, x)), depth
+        xb = x[torch.isfinite(x).all(dim=1)].to(torch.bfloat16).float()
+        assert torch.equal(trees_pallas.predict_leaves_pallas(pf, xb),
+                           trees.predict_leaves(packed, xb)), depth
+    # A bare path matrix of such a forest is no heap: refused, no launch.
+    before = trees_pallas.launches
+    with pytest.raises(ValueError, match="host fit"):
+        trees_pallas.predict_leaves_pallas(pf.gf, x)
+    assert trees_pallas.launches == before
+
+
+def test_gather_and_density_on_the_card_match_the_cpu(cuda):
+    """The gather form (a depth-11 device fit) and the density strategy on
+    the card against the same runs on the CPU, per round and chunked (one
+    CUDA graph per chunk): records, logs and final masks equal."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        n_start=10, max_rounds=5)
+    for change in (dict(forest=dataclasses.replace(base.forest, kernel="gather", max_depth=11)),
+                   dict(strategy=config.StrategyConfig(name="density", window_size=15))):
+        cfg = dataclasses.replace(base, **change)
+        on_cpu = loop.run_experiment(cfg, device="cpu")
+        for k in (1, 3):
+            got = loop.run_experiment(dataclasses.replace(cfg, rounds_per_launch=k), device=cuda)
+            assert got.to_reference_log() == on_cpu.to_reference_log(), (change, k)
+            assert torch.equal(got.final_labeled_mask.cpu(), on_cpu.final_labeled_mask)
+
+
 def _to_cpu(gf):
     import dataclasses
 

@@ -3,7 +3,9 @@ kernels in interpret mode on the same forest and pool:
 
 - K1 (ops/trees_pallas.py): the plain version of csrc/forest_leaves.cu equals
   ``trees_pallas.predict_leaves_pallas(..., interpret=True)`` bit for bit;
-  past the tile limits both packages take the exact gemm form;
+  past the tile limits both packages take the exact gemm form; host-fit
+  forests (scikit-learn packing, forest files, the gather and path-matrix
+  forms, K1 through their heap packing) equal the JAX package's;
 - the kernels' packed operands reproduce the plain versions when the
   kernels' arithmetic is emulated from them: K5's heap words and payload
   (``walk_transposed_plain``), K1's heap walk (``walk_leaves_plain``), K2's
@@ -23,12 +25,23 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from distributed_active_learning_tpu import config as j_config
+from distributed_active_learning_tpu.models import forest as j_forest
+from distributed_active_learning_tpu.models import forest_io as j_io
+from distributed_active_learning_tpu.ops import forest_eval as j_eval
 from distributed_active_learning_tpu.ops import round_fused as j_fused
+from distributed_active_learning_tpu.ops import trees as j_trees
+from distributed_active_learning_tpu.ops import trees_gemm as j_gemm
 from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
 from distributed_active_learning_tpu.ops import trees_train as j_train
+from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch import interop
 from distributed_active_learning_tpu_torch.benches import pallas_variants as t_var
+from distributed_active_learning_tpu_torch.models import forest as t_forest
+from distributed_active_learning_tpu_torch.models import forest_io as t_io
+from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
+from distributed_active_learning_tpu_torch.ops import trees as t_trees
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
 
 
@@ -63,7 +76,18 @@ def test_k1_plain_matches_pallas_interpret(n_trees, n):
     np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
 
 
-def test_k1_depth9_takes_the_gemm_route_in_both_packages():
+def test_k1_depth9_takes_the_gemm_route_in_both_packages(tmp_path):
+    """Past K1's tile limits both packages take the exact gemm form. Then
+    host-fit forests, which are no heaps: scikit-learn fits packed by both
+    packages are the same arrays (depths 4 and 8, and a single-class fit),
+    and forest files cross both ways; from there the port's path-matrix
+    form (``gemm_forest_from_packed``), its gather form (leaves, proba,
+    votes, value, ``pad_forest``) and K1 through ``for_kernel(..., "pallas")``
+    equal the JAX package's (K1 against JAX's Pallas kernel in interpret
+    mode on finite rows, against its gemm form on bf16-rounded rows with a
+    NaN or an infinity; gather and gemm exact in f32 on every row) on rows
+    with NaN, infinities and features on thresholds, and walking the heaps that ``heap_from_packed``
+    builds gives K1's plain version exactly."""
     gf, tf, rng = _forest(3, 9, seed=9)
     x = rng.normal(size=(257, 5)).astype(np.float32)
     want = np.asarray(j_pallas.predict_leaves_pallas(gf, jnp.asarray(x), interpret=True))
@@ -71,6 +95,87 @@ def test_k1_depth9_takes_the_gemm_route_in_both_packages():
     got = t_pallas.predict_leaves_pallas(tf, torch.from_numpy(x))
     assert t_pallas.gemm_route_calls == before + 1
     np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+
+    x_fit = rng.normal(size=(150, 5)).astype(np.float32)
+    y_fit = (x_fit[:, 0] + 0.3 * x_fit[:, 1] + 0.4 * rng.normal(size=150) > 0).astype(np.int32)
+    fits = [(4, y_fit), (8, y_fit), (3, np.zeros(150, dtype=np.int32))]
+    packed = None
+    for depth, y in fits:
+        jp = j_forest.fit_forest_classifier(
+            x_fit, y, j_config.ForestConfig(n_trees=9, max_depth=depth), seed=depth)
+        tp = t_forest.fit_forest_classifier(
+            x_fit, y, t_config.ForestConfig(n_trees=9, max_depth=depth), seed=depth)
+        _packed_equal(jp, tp)
+        # Forest files both ways: the JAX package's file loads in the port
+        # and the port's in the JAX package, with their meta strings.
+        j_io.save_forest(str(tmp_path / "j.npz"), jp, meta=f"jax {depth}")
+        tp_file, meta = t_io.load_forest(str(tmp_path / "j.npz"), device="cpu")
+        assert meta == f"jax {depth}"
+        _packed_equal(jp, tp_file)
+        t_io.save_forest(str(tmp_path / "t.npz"), tp, meta="port")
+        jp_file, meta = j_io.load_forest(str(tmp_path / "t.npz"))
+        assert meta == "port"
+        _packed_equal(jp_file, tp)
+        # load_or_train: trains and saves when the file is missing or its
+        # meta differs, loads otherwise.
+        calls = []
+
+        def train(tp=tp):
+            calls.append(1)
+            return tp
+
+        path = str(tmp_path / f"lot{depth}.npz")
+        for meta in ("a", "a", "b"):
+            _packed_equal(jp, t_io.load_or_train(path, train, meta=meta, device="cpu"))
+        assert len(calls) == 2
+
+        jg = j_gemm.gemm_forest_from_packed(jp, 2**depth - 1, 2**depth)
+        tg = t_eval.for_kernel(tp_file, "gemm")
+        for field in ("feat_ids", "thresholds", "path", "target", "value"):
+            _bits_equal(getattr(jg, field), getattr(tg, field))
+        x = np.concatenate([_edge_rows(tg, rng).numpy(),
+                            rng.normal(size=(64, 5)).astype(np.float32)])
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+        for fn in ("leaves", "proba", "votes", "value"):
+            for jf, tf_ in ((jp, tp_file), (jp_file, tp), (jg, tg)):
+                _bits_equal(getattr(j_eval, fn)(jf, xj), getattr(t_eval, fn)(tf_, xt))
+        _packed_equal(j_trees.pad_forest(jp, 700), t_trees.pad_forest(tp, 700))
+        # K1: on finite rows against JAX's Pallas kernel. Its one-hot
+        # selection product turns a row with any non-finite feature into NaN
+        # at every node (0 * inf), a fault of the TPU kernel (ROADMAP queue
+        # 3); such rows are held against JAX's gemm form on bf16 rows, the
+        # function the kernel stands for.
+        tpf = t_eval.for_kernel(tp_file, "pallas")
+        got = t_pallas.predict_leaves_pallas(tpf, xt).numpy()
+        fin = np.isfinite(x).all(axis=1)
+        want = j_pallas.predict_leaves_pallas(j_eval.for_kernel(jp, "pallas").gf, xj[fin],
+                                              interpret=True)
+        _bits_equal(want, got[fin])
+        x_bf16 = xj[~fin].astype(jnp.bfloat16).astype(jnp.float32)
+        _bits_equal(j_gemm.predict_leaves_gemm(jg, x_bf16), got[~fin])
+        heap = tpf.heap
+        assert heap.depth == depth and heap is tpf.prepacked
+        _bits_equal(t_pallas.predict_leaves_plain(tg, xt), t_pallas.walk_leaves_plain(heap, xt))
+        if not y.any():  # a single-class fit: every heap leaf holds the root's value, 0
+            assert not heap.val.any() and not t_eval.votes(tpf, xt).any()
+        packed = tp if depth == 8 else packed
+    # A tree deeper than the forest's max_depth has no heap of that depth.
+    with pytest.raises(ValueError, match="deeper than its max_depth"):
+        t_pallas.heap_from_packed(dataclasses.replace(packed, max_depth=1))
+
+
+def _bits_equal(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape, a.dtype, b.dtype)
+    np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def _packed_equal(jp, tp):
+    """A JAX ``PackedForest`` and the port's: the same five arrays, bit for
+    bit, and the same depth."""
+    for field in ("feature", "threshold", "left", "right", "value"):
+        _bits_equal(getattr(jp, field), getattr(tp, field))
+    assert jp.max_depth == tp.max_depth
 
 
 def test_kernel_operands_reproduce_the_plain_version():

@@ -10,6 +10,9 @@ arithmetic instead of folding it as constants. Also: the round megakernel's
 plain version at 13 trees (an inexact 1/T) picks what JAX's megakernel picks
 in interpret mode. And the tree mean and the soft uncertainty score equal
 the jitted ``jnp.mean`` expressions at 100 trees and four more tree counts.
+The density strategy's similarity mass, the cosine matrix and its blocked
+reduction agree with the JAX package's to ``similarity.MASS_RTOL`` of the
+largest magnitude (float sums in another order).
 """
 
 import numpy as np
@@ -19,11 +22,13 @@ import torch
 
 from distributed_active_learning_tpu.ops import round_fused as j_fused
 from distributed_active_learning_tpu.ops import scoring as j_scoring
+from distributed_active_learning_tpu.ops import similarity as j_sim
 from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu_torch import interop
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
 from distributed_active_learning_tpu_torch.ops import scoring as t_scoring
+from distributed_active_learning_tpu_torch.ops import similarity as t_sim
 from distributed_active_learning_tpu_torch.ops import trees_gemm as t_gemm
 from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
@@ -92,6 +97,27 @@ def test_score_tables_match_jax():
         soft = t_scoring.uncertainty_score(t_scoring.VoteFraction(row_sum(tl), T))
         np.testing.assert_array_equal(
             soft.numpy().view(np.int32), np.asarray(j_soft(lv)).view(np.int32))
+
+    # The density strategy's similarity mass, the cosine matrix and its
+    # blocked reduction: float sums in another order than XLA's, held to
+    # MASS_RTOL of the largest magnitude (a zero row takes the eps path).
+    rtol = t_sim.MASS_RTOL
+    for n, d in ((3000, 7), (20000, 30)):
+        xs = rng.normal(size=(n, d)).astype(np.float32)
+        xs[7] = 0.0
+        m = rng.random(n) < 0.6
+        want = np.asarray(jax.jit(j_sim.similarity_mass)(jnp.asarray(xs), jnp.asarray(m)))
+        got = t_sim.similarity_mass(torch.from_numpy(xs), torch.from_numpy(m)).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+    xs = xs[:700]
+    want = np.asarray(j_sim.pairwise_cosine(jnp.asarray(xs)))
+    np.testing.assert_allclose(t_sim.pairwise_cosine(torch.from_numpy(xs)).numpy(), want,
+                               rtol=0, atol=rtol)
+    row_max = np.asarray(j_sim.blocked_pairwise_cosine_reduce(
+        jnp.asarray(xs), lambda s_: jnp.max(s_, axis=1), block=256))
+    got = t_sim.blocked_pairwise_cosine_reduce(
+        torch.from_numpy(xs), lambda s_: s_.max(dim=1).values, block=256).numpy()
+    np.testing.assert_allclose(got, row_max, rtol=0, atol=rtol)
 
     # The megakernel's plain version at 13 trees: picks and values equal the
     # JAX megakernel's in interpret mode.
