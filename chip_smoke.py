@@ -80,7 +80,7 @@ and prints no result:
    graph and replay it twice (kernel launches: one eager warm-up round plus 4
    rounds per replay). The chunk body runs once eagerly under
    ``torch.cuda.set_sync_debug_mode("error")``: it must not sync with the
-   host (also the bodies of phases 4d and 4e). Then seconds per round of the
+   host (also the bodies of phases 4d, 4e and 4f). Then seconds per round of the
    per-round driver and of the chunked driver at depth 1 and 2 over 12 rounds
    (rounds 5-12: the first chunk holds the capture);
 4d. the deep gather path: phase 4's configuration at ``max_depth=12`` with
@@ -95,6 +95,24 @@ and prints no result:
    the card and on the CPU (picks, records, mask), and the similarity mass
    of the card within ``similarity.MASS_RTOL`` of the largest |mass| of the
    CPU's, on the small pool and the bench pool;
+4f. telemetry and checkpoints: phase 4's configuration, unfused, chunked
+   (K = 4, depth 2), its fit window pinned to the 12-round label cap. A
+   12-round run with RoundMetrics, a ``MetricsWriter`` to a temporary
+   JSONL, the flight recorder, an ``OpsServer`` on an ephemeral port
+   (``/metrics`` must hold ``dal_launches_total`` and
+   ``dal_recompiles_after_warmup_total 0``, ``/healthz`` answer 200) and a
+   checkpoint every 4 rounds: its records and final mask equal the same run
+   without metrics; every metric is finite, ``picked_hist`` sums to the
+   window, ``labeled_frac`` times the pool is ``n_labeled``; its metrics
+   equal the per-round driver's; the JSONL holds one ``round`` event a round
+   and one ``launch`` event a chunk; K1 launches twice a round. A run
+   stopped at 4 rounds and resumed to 8, chunked and per round from the
+   chunk's checkpoint, equals the uninterrupted run (records, and the mask of
+   its round-8 checkpoint). Printed: seconds per round with and without
+   metrics (rounds 5-12), K1 launches per round, the metrics epilogue's and
+   the pool entropy's device time at the pool (graph-replayed), the
+   dispatch snapshot's device time, ``checkpoint.save``'s host time and
+   ``device_memory_gauges``;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -117,9 +135,10 @@ and prints no result:
 The last three lines are a JSON object of per-kernel numbers (``launches``
 is the count of the kernel's main path, single-device fused for K1 and K2,
 mesh fused for K3 and K4, the bench's variants mode for K5 and K6;
-``launches_by_path`` every path's, phases 4d and 4e included;
-``launch_config`` for K1, K2 and K3; ``new_paths`` phase 5's new times and
-the fit / round / eval split of each round of phases 4d and 4e),
+``launches_by_path`` every path's, phases 4d, 4e and 4f included;
+``launch_config`` for K1, K2 and K3; K1's ``metrics_path_launches`` from
+phase 4f; ``telemetry`` phase 4f's numbers; ``new_paths`` phase 5's new
+times and the fit / round / eval split of each round of phases 4d and 4e),
 the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -135,10 +154,13 @@ import dataclasses
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -869,11 +891,12 @@ def main() -> int:
                                kernel="gather")
     density = StrategyConfig(name="density", window_size=WINDOW)
     for c in (cfg(True), cfg(False), cfg(False, forest=deep_forest),
-              cfg(False, strategy=density)):
+              cfg(False, strategy=density), cfg(False, collect_metrics=True)):
         fused = c.fused_round
         body = loop.make_chunk_fn(
             get_strategy(c.strategy), WINDOW, 2,
-            loop.make_device_fit(c, binned0.edges, N_START + 4 * WINDOW), N_POOL, fused_round=fused)
+            loop.make_device_fit(c, binned0.edges, N_START + 4 * WINDOW), N_POOL, fused_round=fused,
+            with_metrics=c.collect_metrics)
         body_args = (binned0.codes, state_lib.as_carry(st0),
                      StrategyAux(seed_mask=st0.labeled_mask.clone()), prng.key(7, dev),
                      tx_dev, ty_dev, torch.as_tensor(99, dtype=torch.int32).to(dev))
@@ -889,7 +912,7 @@ def main() -> int:
             fail("the eager chunk body did not run two active rounds")
     del st0, binned0, tx_dev, ty_dev, body_args
     print("# chunk body, eager, torch.cuda.set_sync_debug_mode('error'): no host sync, fused, "
-          f"unfused, the depth-{DEEP} gather form and density")
+          f"unfused, the depth-{DEEP} gather form, density and unfused with RoundMetrics")
 
     # Seconds per round, steady state: rounds 5-12 of a 12-round run (chunks 2
     # and 3 of 3; the first chunk holds the warm-up round and the capture).
@@ -984,6 +1007,188 @@ def main() -> int:
           f"vs CPU, largest difference over the largest |mass|: {mass_err} (MASS_RTOL "
           f"{similarity.MASS_RTOL})")
     print(f"# phase 4e: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4f: telemetry and checkpoints ----------------------------------
+    t_phase = time.perf_counter()
+    from distributed_active_learning_tpu_torch.runtime import checkpoint as ckpt_lib
+    from distributed_active_learning_tpu_torch.runtime import obs, telemetry
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_4f_")
+    # Every run of this phase fits the same window (the 12-round label cap),
+    # so that a run stopped and resumed fits what the uninterrupted run fits.
+    budget = N_START + TIMED * WINDOW
+    tel_forest = dataclasses.replace(cfg(False).forest, fit_budget=budget)
+
+    def tel_cfg(**kw):
+        return cfg(False, forest=tel_forest, rounds_per_launch=K, pipeline_depth=2, **kw)
+
+    def run_4f(path, c, metrics=None):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = loop.run_experiment(c, bundle=bundle, device=dev, metrics=metrics)
+        wall = time.perf_counter() - t0
+        launches[path] = counts()
+        runs[path] = res
+        print(f"# telemetry {path}: {wall:.2f}s wall, launches {launches[path]}")
+        return res
+
+    def rec4(res):
+        return [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+
+    def ckpt_mask(d, step):
+        with np.load(os.path.join(d, f"alstate_{step}.npz")) as z:
+            return torch.from_numpy(z["labeled_mask"].copy()), z["key"].copy(), int(z["round"])
+
+    # The metrics-on run: a MetricsWriter, the flight recorder, the ops
+    # plane on an ephemeral port, a checkpoint every 4 rounds (at each chunk
+    # boundary), 12 rounds of K = 4 at depth 2.
+    jsonl = os.path.join(work, "metrics.jsonl")
+    recorder = telemetry.install_flight_recorder(os.path.join(work, "flight.json"), signals=False)
+    ops = obs.OpsServer(port=0).start()
+    ck_full = os.path.join(work, "ck_full")
+    writer = telemetry.MetricsWriter(jsonl)
+    on = run_4f("metrics_chunked", tel_cfg(max_rounds=TIMED, checkpoint_dir=ck_full,
+                                           checkpoint_every=K), metrics=writer)
+    writer.close()
+    # The eager warm-up round, then K rounds a replay: K1 scores and
+    # evaluates the pool once a round (metrics reuse the scoring pass's
+    # leaves) and evaluates the test draw once.
+    n_replays = TIMED // K
+    k1_per_round = launches["metrics_chunked"]["forest_leaves"] / (1 + n_replays * K)
+    want_launches["metrics_chunked"] = dict(zero, forest_leaves=2 * (1 + n_replays * K))
+    if launches["metrics_chunked"] != want_launches["metrics_chunked"]:
+        fail(f"the metrics-on chunked run launched {launches['metrics_chunked']}, want "
+             f"{want_launches['metrics_chunked']}")
+    g = on.graph_stats
+    if g is None or g["captures"] != 1 or g["replays"] != n_replays:
+        fail(f"metrics-on chunked run: graph {g}, want 1 capture and {n_replays} replays")
+    scrape = {}
+    for route in ("metrics", "healthz"):
+        with urllib.request.urlopen(f"http://127.0.0.1:{ops.port}/{route}", timeout=10) as r:
+            scrape[route] = (r.status, r.read().decode())
+    ops.stop()
+    prom = scrape["metrics"][1]
+    if scrape["metrics"][0] != 200 or "dal_launches_total" not in prom or \
+            "dal_recompiles_after_warmup_total 0" not in prom.splitlines():
+        fail(f"/metrics: {scrape['metrics'][0]}, launches or zero recompiles missing")
+    if scrape["healthz"][0] != 200 or not json.loads(scrape["healthz"][1])["ok"]:
+        fail(f"/healthz: {scrape['healthz']}")
+    flight = json.load(open(recorder.dump("chip_smoke")))
+    telemetry.uninstall_flight_recorder()
+    if not {"dispatch", "touchdown", "launch"} <= {e["kind"] for e in flight["events"]}:
+        fail("the flight recorder holds no dispatch/touchdown/launch events")
+    events = [json.loads(line) for line in open(jsonl)]
+    kinds = [e["kind"] for e in events]
+    if kinds.count("round") != TIMED or kinds.count("launch") != n_replays or kinds[0] != "meta":
+        fail(f"metrics JSONL: {kinds.count('round')} round and {kinds.count('launch')} launch "
+             f"events, first {kinds[0]!r}; want {TIMED}, {n_replays} and 'meta'")
+    for r in on.records:
+        m = r.metrics
+        floats = [v for k, v in m.items() if k != "picked_hist"]
+        if not all(np.isfinite(floats)) or sum(m["picked_hist"]) != WINDOW:
+            fail(f"round {r.round} metrics not finite or picked_hist does not sum to {WINDOW}: {m}")
+        if round(m["labeled_frac"] * N_POOL) != r.n_labeled:
+            fail(f"round {r.round}: labeled_frac {m['labeled_frac']} x {N_POOL} != {r.n_labeled}")
+    # The same run without metrics picks exactly the same.
+    off = run_4f("metrics_off_chunked", tel_cfg(max_rounds=TIMED))
+    if rec4(off) != rec4(on) or not torch.equal(off.final_labeled_mask, on.final_labeled_mask):
+        fail("metrics changed a pick: the metrics-on run's records or final mask differ")
+    # The per-round driver with metrics: the same metrics, K1 twice a round.
+    per_round_m = run_4f("metrics_per_round", cfg(False, forest=tel_forest, max_rounds=K,
+                                                  collect_metrics=True))
+    if launches["metrics_per_round"]["forest_leaves"] != 2 * K:
+        fail(f"the per-round metrics run launched K1 {launches['metrics_per_round']} times")
+    if [r.metrics for r in per_round_m.records] != [r.metrics for r in on.records[:K]]:
+        fail("the graphed chunk's RoundMetrics differ from the per-round driver's")
+    # Stop at 4 rounds, resume to 8: chunked, and per round from the chunk's
+    # checkpoint. Both equal the uninterrupted run (records, and the mask of
+    # its round-8 checkpoint).
+    ck_stop = os.path.join(work, "ck_stop")
+    run_4f("stopped_at_4", tel_cfg(max_rounds=K, checkpoint_dir=ck_stop, checkpoint_every=K))
+    m4, key4, r4 = ckpt_mask(ck_stop, K)
+    fm4, fkey4, fr4 = ckpt_mask(ck_full, K)
+    if not (torch.equal(m4, fm4) and np.array_equal(key4, fkey4) and r4 == fr4 == K):
+        fail("the stopped run's round-4 checkpoint differs from the uninterrupted run's")
+    ck_round = os.path.join(work, "ck_per_round")
+    os.makedirs(ck_round)
+    shutil.copy(os.path.join(ck_stop, f"alstate_{K}.npz"), ck_round)
+    mask8 = ckpt_mask(ck_full, 2 * K)[0]
+    for path, c in (("resumed_chunked", tel_cfg(max_rounds=K, checkpoint_dir=ck_stop,
+                                                checkpoint_every=K)),
+                    ("resumed_per_round", cfg(False, forest=tel_forest, max_rounds=K,
+                                              checkpoint_dir=ck_round, checkpoint_every=K))):
+        res = run_4f(path, c)
+        if rec4(res) != rec4(on)[:2 * K]:
+            fail(f"{path}: records differ from the uninterrupted run: {rec4(res)}")
+        if not torch.equal(res.final_labeled_mask.cpu(), mask8):
+            fail(f"{path}: final mask differs from the uninterrupted run's round-{2 * K} mask")
+    # Seconds per round, rounds 5-12 (as phase 4c): metrics on against off.
+    tel_times = {name: sum(r.total_time for r in res.records[K:]) / (TIMED - K)
+                 for name, res in (("metrics_on", on), ("metrics_off", off))}
+    # The dispatch-time snapshot (device time, CUDA events) and a save (host).
+    st0_4f = state_lib.set_start_state(
+        state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev),
+        N_START)
+    st_bench = state_lib.as_carry(st0_4f)
+    snap_ms = cuda_ms(lambda: loop.ckpt_snapshot(st_bench.labeled_mask, st_bench.key,
+                                                 st_bench.round), reps=9)
+    save_times = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        ckpt_lib.save(os.path.join(work, "ck_time"), st0_4f.replace(round=100 + i), on,
+                      fingerprint=ckpt_lib.config_fingerprint(tel_cfg()),
+                      kernel=ckpt_lib.kernel_ident(tel_cfg()))
+        save_times.append(1e3 * (time.perf_counter() - t0))
+    save_ms = statistics.median(save_times)
+    # The metrics epilogue alone at the pool, graph-replayed (device time),
+    # on leaves already computed (as in the round): all of it, the pool
+    # entropy's share (the tree mean, the entropy and the sum, native), and
+    # for comparison what the epilogue used before: forest_eval.proba (the
+    # trees added in XLA's order) through the XLA-spelled
+    # scoring.full_entropy, without the sum.
+    from distributed_active_learning_tpu_torch.ops import scoring
+    from distributed_active_learning_tpu_torch.ops.topk import select_bottom_k
+
+    ev = forest_eval.evaluated(trees_pallas.PallasForest(gf=gf), st0_4f.x)
+    ev_scores = scoring.uncertainty_score(
+        scoring.VoteFraction(forest_eval.votes(ev, st0_4f.x).to(torch.float32), TREES))
+    ev_vals, ev_picked = select_bottom_k(ev_scores, st0_4f.unlabeled_mask, WINDOW)
+    epilogue_ms = graph_ms(lambda: telemetry.compute_round_metrics(
+        ev, st0_4f, ev_picked, ev_vals, ev_scores, higher_is_better=False, n_classes=2))
+    entropy_ms = graph_ms(lambda: telemetry._entropy_sum(forest_eval.leaves(ev, st0_4f.x),
+                                                         st0_4f.valid_mask))
+    xla_entropy_ms = graph_ms(lambda: scoring.full_entropy(forest_eval.proba(ev, st0_4f.x)))
+    del ev, ev_scores, ev_vals, ev_picked
+    mem = telemetry.device_memory_gauges()
+    telemetry_numbers = dict(
+        seconds_per_round=tel_times, k1_launches_per_round=k1_per_round,
+        epilogue_device_ms=epilogue_ms, entropy_device_ms=entropy_ms,
+        xla_spelled_entropy_device_ms=xla_entropy_ms,
+        snapshot_ms=snap_ms, save_ms=save_ms,
+        save_bytes=os.path.getsize(os.path.join(work, "ck_time", "alstate_104.npz")),
+        device_memory=mem, graph=g)
+    del st_bench, st0_4f
+    shutil.rmtree(work)
+    print(f"# telemetry and checkpoints (K = {K}, depth 2, {TIMED} rounds, fit window {budget}): "
+          "metrics on == off (records, final mask); every RoundMetrics field finite, "
+          f"picked_hist sums to {WINDOW}, labeled_frac x {N_POOL} == n_labeled; graphed chunk "
+          "metrics == per-round driver's; stopped at 4 and resumed to 8 == uninterrupted, "
+          "chunked and per round; JSONL one round event a round and one launch event a chunk; "
+          "/metrics and /healthz answer; flight recorder holds the drive")
+    print(f"# seconds per round, metrics on {tel_times['metrics_on']:.5f} vs off "
+          f"{tel_times['metrics_off']:.5f} (rounds {K + 1}-{TIMED}, chunked K = {K}, depth 2; "
+          f"{kind}, {smi})")
+    print(f"# K1 launches per round on the metrics path: {k1_per_round:g} (chunked: "
+          f"{launches['metrics_chunked']['forest_leaves']} over {1 + n_replays * K} rounds incl. "
+          f"the warm-up; per round: {launches['metrics_per_round']['forest_leaves']} over {K})")
+    print(f"# metrics epilogue at the pool: {epilogue_ms:.4f} ms device, graph-replayed, of which "
+          f"the pool entropy (tree mean, entropy and sum, native) {entropy_ms:.4f} ms; the "
+          f"spelling it replaced (XLA-spelled proba and scoring.full_entropy) "
+          f"{xla_entropy_ms:.4f} ms ({kind}, {smi})")
+    print(f"# dispatch snapshot {snap_ms:.4f} ms device; checkpoint.save {save_ms:.3f} ms host "
+          f"({telemetry_numbers['save_bytes']} bytes, median of 5); device_memory_gauges {mem} "
+          f"({kind}, {smi})")
+    print(f"# phase 4f: {time.perf_counter() - t_phase:.1f}s")
 
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
@@ -1222,6 +1427,8 @@ def main() -> int:
          "replaces": "distributed_active_learning_tpu/ops/trees_pallas.py:204",
          "launches": launches["fused"]["forest_leaves"],
          "launches_by_path": {p: launches[p]["forest_leaves"] for p in launches},
+         "metrics_path_launches": launches["metrics_chunked"]["forest_leaves"],
+         "metrics_path_launches_per_round": k1_per_round,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "by_shape": k1, "launch_config": k1_cfg},
@@ -1264,7 +1471,8 @@ def main() -> int:
          "max_abs_err": k6_err, "ms": k6_ms, "device_ms": k6_dev, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
-    ], "seconds_per_round": chunk_times, "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
+    ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
+        "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

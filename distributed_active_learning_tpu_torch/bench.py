@@ -19,8 +19,11 @@ as it is) for what the port carries:
   chunked driver against the per-round driver over the same K rounds
   (``rounds_per_launch``, ``scan_seconds_per_round``,
   ``per_round_driver_seconds_per_round``, ``scan_fusion_speedup``,
-  ``chunk_first_call_seconds``); three chunks through ``run_pipelined`` at
-  depth 1 and 2 (``pipelined_seconds_per_round``,
+  ``chunk_first_call_seconds``). As in the JAX bench the chunk computes its
+  RoundMetrics (``scan_metrics_enabled: true``); the same chunk without them
+  is timed beside it (``scan_seconds_per_round_metrics_off``,
+  ``scan_metrics_overhead``). Then three metrics-on chunks through
+  ``run_pipelined`` at depth 1 and 2 (``pipelined_seconds_per_round``,
   ``pipelined_serial_seconds_per_round``, ``touchdown_hidden_fraction``); and
   the fused round against the unfused one through the same chunk program
   (``fused_scan_seconds_per_round``, ``unfused_scan_seconds_per_round``,
@@ -39,12 +42,20 @@ have. Wall times are the host clock around a call that ends in a
 synchronize. The line carries the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit`` prints them.
 
+``--metrics-out PATH`` appends JSONL events of the round mode's depth-2
+pipelined drive (a ``meta`` event, one ``round`` event per round with its
+RoundMetrics, one ``launch`` event per chunk) for
+``benches/summarize_metrics.py``. ``--flight-recorder PATH`` installs the
+flight recorder (off by default): mode and timing marks (``bench_start``,
+``bench_compile``, ``bench_timing_start``/``_end`` with the timed program's
+label) and the drive's launches, dumped on SIGTERM, SIGUSR1, a crash and a
+normal exit.
+
 Not carried yet, each with the slice it waits for: the host-fit leg (the
 bench runs where the card is, which has no scikit-learn; a host-fit forest
 would come as a forest file), the roofline section (pre-flight slice), the
-metrics-on chunk and the flight recorder (telemetry slice), the pod legs
-(mesh-and-pod slice), ``--audit`` and ``--compare-to`` (pre-flight slice),
-and the modes lal, neural, sweep, grid, serve* (their own slices).
+pod legs (mesh-and-pod slice), ``--audit`` and ``--compare-to`` (pre-flight
+slice), and the modes lal, neural, sweep, grid, serve* (their own slices).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -78,6 +89,14 @@ def card_line(dev: torch.device) -> Optional[str]:
     ).stdout.strip()
 
 
+def _flight(kind: str, **fields) -> None:
+    """Record into the flight recorder when one is installed (a no-op
+    otherwise)."""
+    from distributed_active_learning_tpu_torch.runtime.telemetry import flight_record
+
+    flight_record(kind, **fields)
+
+
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -91,8 +110,15 @@ def _wall(fn: Callable[[], object], dev: torch.device) -> float:
     return time.perf_counter() - t0
 
 
-def _median_wall(fn, iters: int, dev) -> float:
-    return statistics.median(_wall(fn, dev) for _ in range(max(iters, 1)))
+def _median_wall(fn, iters: int, dev, label: Optional[str] = None) -> float:
+    """Median host seconds of ``fn``; ``label`` names the timed program in
+    the flight recorder, so a killed bench's artifact says what was running."""
+    if label:
+        _flight("bench_timing_start", label=label, iters=iters)
+    times = [_wall(fn, dev) for _ in range(max(iters, 1))]
+    if label:
+        _flight("bench_timing_end", label=label, seconds=round(sum(times), 4))
+    return statistics.median(times)
 
 
 def _median_device(fn, iters: int, dev) -> float:
@@ -202,7 +228,7 @@ def bench_density(args, dev) -> dict:
     }
 
 
-def _chunk_setup(args, dev, pool, pool_y, mask0, binned, fused: bool):
+def _chunk_setup(args, dev, pool, pool_y, mask0, binned, fused: bool, with_metrics: bool = False):
     """The production chunk program on the bench pool: ``(chunk_fn, carry,
     aux, fit_key, tx, ty, device_fit, strategy)``; a CUDA graph on the card."""
     from distributed_active_learning_tpu_torch import prng
@@ -228,7 +254,7 @@ def _chunk_setup(args, dev, pool, pool_y, mask0, binned, fused: bool):
     strategy = get_strategy(ecfg.strategy)
     aux = StrategyAux(seed_mask=state0.labeled_mask.clone())
     chunk_fn = loop.make_chunk_fn(strategy, window, K, device_fit, label_cap=state0.n_valid,
-                                  fused_round=fused)
+                                  fused_round=fused, with_metrics=with_metrics)
     if dev.type == "cuda":
         chunk_fn = loop.GraphedChunk(chunk_fn)
     # A small held-out set, so the chunk includes the accuracy eval that
@@ -241,22 +267,29 @@ def _end_round(value: int, dev) -> torch.Tensor:
     return torch.as_tensor(value, dtype=torch.int32).to(dev)
 
 
-def _bench_scan_fusion(args, dev, pool, pool_y, mask0, binned) -> dict:
+def _bench_scan_fusion(args, dev, pool, pool_y, mask0, binned, writer=None) -> dict:
     """K rounds in one launch and one touchdown against the per-round
     driver's three syncs a round (fit, round, accuracy) over the same K
-    rounds from the same state."""
+    rounds from the same state. The chunk computes its RoundMetrics, as the
+    JAX bench's does; the metrics-off chunk is timed beside it, its reps
+    interleaved with the metrics-on chunk's."""
     from distributed_active_learning_tpu_torch import prng
-    from distributed_active_learning_tpu_torch.runtime import loop, pipeline
+    from distributed_active_learning_tpu_torch.runtime import loop, pipeline, telemetry
 
     K = args.rounds_per_launch
     chunk_fn, state0, aux, fit_key, tx, ty, device_fit, strategy = _chunk_setup(
-        args, dev, pool, pool_y, mask0, binned, fused=False)
+        args, dev, pool, pool_y, mask0, binned, fused=False, with_metrics=True)
+    off_fn = _chunk_setup(args, dev, pool, pool_y, mask0, binned, fused=False)[0]
     round_fn = loop.make_round_fn(strategy, args.window)
     end = _end_round(np.iinfo(np.int32).max, dev)
 
-    def run_chunked():
-        _, extras, ys = chunk_fn(binned.codes, state0, aux, fit_key, tx, ty, end)
-        pipeline.start_host_copy((extras, ys)).wait()  # the one touchdown per chunk
+    def chunked(fn):
+        def run():
+            _, extras, ys = fn(binned.codes, state0, aux, fit_key, tx, ty, end)
+            pipeline.start_host_copy((extras, ys)).wait()  # the one touchdown per chunk
+        return run
+
+    run_chunked, run_off = chunked(chunk_fn), chunked(off_fn)
 
     def run_per_round():
         st = state0
@@ -267,30 +300,51 @@ def _bench_scan_fusion(args, dev, pool, pool_y, mask0, binned) -> dict:
             _sync(dev)
             float(loop._accuracy(forest, tx, ty))
 
+    _flight("bench_compile", label="round/chunk_scan")
     chunk_first_call = _wall(run_chunked, dev)  # warm-up step, capture and first replay
+    _flight("bench_compile", label="round/chunk_scan_metrics_off")
+    _wall(run_off, dev)
     run_per_round()
     reps = max(min(args.iters, 5), 2)
-    chunk_sec = _median_wall(run_chunked, reps, dev) / K
-    per_round_sec = _median_wall(run_per_round, reps, dev) / K
+    _flight("bench_timing_start", label="round/chunk_scan/interleaved", iters=reps)
+    on_times, off_times = [], []
+    for _ in range(reps):
+        on_times.append(_wall(run_chunked, dev))
+        off_times.append(_wall(run_off, dev))
+    _flight("bench_timing_end", label="round/chunk_scan/interleaved",
+            seconds=round(sum(on_times) + sum(off_times), 4))
+    chunk_sec = statistics.median(on_times) / K
+    off_sec = statistics.median(off_times) / K
+    per_round_sec = _median_wall(run_per_round, reps, dev, label="round/per_round_driver") / K
     out = {
         "rounds_per_launch": K,
         "scan_seconds_per_round": round(chunk_sec, 6),
+        "scan_seconds_per_round_metrics_off": round(off_sec, 6),
+        "scan_metrics_overhead": round(chunk_sec / off_sec - 1.0, 4),
         "per_round_driver_seconds_per_round": round(per_round_sec, 6),
         "scan_fusion_speedup": round(per_round_sec / chunk_sec, 3),
-        "scan_metrics_enabled": False,
+        "scan_metrics_enabled": True,
         "chunk_first_call_seconds": round(chunk_first_call, 4),
         "chunk_capture_overhead_seconds": round(max(chunk_first_call - chunk_sec * K, 0.0), 4),
     }
     if isinstance(chunk_fn, loop.GraphedChunk):
         out["chunk_graph"] = chunk_fn.stats()
-    out.update(_bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty))
+        out["chunk_graph_metrics_off"] = off_fn.stats()
+    del off_fn
+    out.update(_bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty,
+                                writer=writer))
+    out.update(telemetry.device_memory_gauges())
     return out
 
 
-def _bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty) -> dict:
+def _bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty,
+                     writer=None) -> dict:
     """Three chunks through ``run_pipelined`` at depth 2 and depth 1 with the
-    production touchdown body. ``touchdown_hidden_fraction`` > 0 means chunk
-    touchdowns ran while another chunk executed; depth 1 pins it at 0."""
+    production touchdown body (record append, metrics dict conversion).
+    ``touchdown_hidden_fraction`` > 0 means chunk touchdowns ran while
+    another chunk executed; depth 1 pins it at 0. ``writer`` gets the depth-2
+    drive's round and launch events."""
+    from distributed_active_learning_tpu_torch.runtime import telemetry
     from distributed_active_learning_tpu_torch.runtime.pipeline import run_pipelined
     from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
 
@@ -300,9 +354,10 @@ def _bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty) 
     total = chunks * K
     end = _end_round(total, dev)
 
-    def drive(depth):
+    def drive(depth, writer=None):
         result = ExperimentResult()
         done = {"rounds": 0}
+        tracker = telemetry.LaunchTracker(writer, "chunk_scan", fn=chunk_fn)
 
         def dispatch(st, _idx):
             return chunk_fn(binned.codes, st, aux, fit_key, tx, ty, end)
@@ -314,17 +369,22 @@ def _bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty) 
         def touchdown(_idx, _nla, n_active, ys, _out_state, wall):
             if n_active == 0:
                 return
-            rounds_y, labeled_y, acc_y, _picked_y, active_y = ys
+            rounds_y, labeled_y, acc_y, _picked_y, active_y = ys[:5]
             active_np = active_y.numpy()
             labeled_np = labeled_y.numpy()[active_np]
+            dicts = telemetry.stacked_metrics_to_dicts(ys[5], active_np) if len(ys) > 5 else None
             result.extend_from_arrays(
                 rounds_y.numpy()[active_np], labeled_np, labeled_np * 0,
-                acc_y.numpy()[active_np], total_time=wall / n_active)
+                acc_y.numpy()[active_np], total_time=wall / n_active, metrics=dicts)
+            if writer is not None:
+                for rec in result.records[-len(labeled_np):]:
+                    writer.round(round=rec.round, n_labeled=rec.n_labeled,
+                                 accuracy=rec.accuracy, **(rec.metrics or {}))
 
         t0 = time.perf_counter()
         _, stats = run_pipelined(
             state0, dispatch=dispatch, touchdown=touchdown, continue_after=continue_after,
-            depth=depth, may_dispatch=lambda idx: idx * K < total)
+            depth=depth, on_launch=tracker.record, may_dispatch=lambda idx: idx * K < total)
         _sync(dev)
         wall = time.perf_counter() - t0
         if len(result.records) != total:
@@ -332,7 +392,7 @@ def _bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty) 
         return wall / total, stats
 
     serial_spr, serial_stats = drive(1)
-    piped_spr, piped_stats = drive(2)
+    piped_spr, piped_stats = drive(2, writer)
     return {
         "pipeline_depth": 2,
         "pipelined_seconds_per_round": round(piped_spr, 6),
@@ -364,12 +424,16 @@ def _bench_fused_round(args, dev, pool, pool_y, mask0, binned) -> dict:
             pipeline.start_host_copy((extras, ys)).wait()
 
         runs[name] = run
+        _flight("bench_compile", label=f"round/fused_round/{name}")
         legs[name] = {"first_call": _wall(run, dev)}
     reps = 5
     times = {name: [] for name in runs}
+    _flight("bench_timing_start", label="round/fused_round/interleaved", iters=reps)
     for _ in range(reps):
         for name, run in runs.items():
             times[name].append(_wall(run, dev))
+    _flight("bench_timing_end", label="round/fused_round/interleaved",
+            seconds=round(sum(map(sum, times.values())), 4))
     for name in runs:
         legs[name]["seconds_per_round"] = min(times[name]) / K
     speedup = statistics.median(u / f for u, f in zip(times["unfused"], times["fused"]))
@@ -416,10 +480,11 @@ def bench_round(args, dev) -> dict:
         _, idx = select_bottom_k(scores, ~mask_dev, window)
         return mask_dev.index_fill(0, idx, True)
 
+    _flight("bench_compile", label="round/device_round")
     _wall(device_round, dev)  # builds and warms
-    round_sec = _median_wall(device_round, args.iters, dev)
+    round_sec = _median_wall(device_round, args.iters, dev, label="round/device_round")
     round_dev_sec = _median_device(device_round, args.iters, dev)
-    fit_sec = _median_wall(fit_heap, args.iters, dev)
+    fit_sec = _median_wall(fit_heap, args.iters, dev, label="round/fit")
     result = {
         "metric": "al_round_seconds",
         "value": round(round_sec, 6),
@@ -432,11 +497,26 @@ def bench_round(args, dev) -> dict:
         "round_score_seconds": round(max(round_sec - fit_sec, 0.0), 6),
     }
     del pool_dev, y_dev, mask_dev
-    for leg in (_bench_scan_fusion, _bench_fused_round):
-        result.update(leg(args, dev, pool, pool_y, mask0, binned))
-        gc.collect()  # drop the leg's graphs and their memory pools
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+    writer = None
+    if args.metrics_out:
+        from distributed_active_learning_tpu_torch.runtime.telemetry import MetricsWriter
+
+        writer = MetricsWriter(args.metrics_out)
+        writer.meta(bench_mode="round", sizes={k: getattr(args, k) for k in (
+            "pool", "features", "trees", "depth", "window", "train_rows", "rounds_per_launch")},
+            backend=dev.type, n_devices=1, process_count=1)
+    try:
+        result.update(_bench_scan_fusion(args, dev, pool, pool_y, mask0, binned, writer=writer))
+    finally:
+        if writer is not None:
+            writer.close()
+    gc.collect()  # drop the scan legs' graphs and their memory pools
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    result.update(_bench_fused_round(args, dev, pool, pool_y, mask0, binned))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return result
 
 
@@ -487,6 +567,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds-per-launch", type=int, default=None,
                     help="round mode: AL rounds per chunk launch (default 8 on CUDA, 4 under "
                     "--device cpu)")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="round mode: append JSONL events of the depth-2 pipelined drive "
+                    "(meta, one round event per round with its RoundMetrics, one launch event "
+                    "per chunk) for benches/summarize_metrics.py")
+    ap.add_argument("--flight-recorder", default=None, metavar="PATH",
+                    help="install the launch flight recorder: mode, compile and timing marks and "
+                    "the drive's launches in a bounded ring, dumped as one JSON artifact at PATH "
+                    "on SIGTERM, SIGUSR1, a crash and a normal exit (default: off)")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")
@@ -497,6 +585,11 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     payload = {"mode": args.mode}
     rc = 0
+    from distributed_active_learning_tpu_torch.runtime import telemetry
+
+    if args.flight_recorder:
+        telemetry.install_flight_recorder(args.flight_recorder)
+        _flight("bench_start", mode=args.mode)
     try:
         from distributed_active_learning_tpu_torch.device import resolve_device
 
@@ -520,6 +613,9 @@ def main(argv=None) -> int:
         payload["metric"] = "bench_failed"
         payload["error"] = f"{type(e).__name__}: {e}"
         rc = 1
+    if args.flight_recorder:
+        payload["flight_recorder"] = telemetry.flight_dump(
+            "exit" if rc == 0 else f"crash:{payload['error'].split(':', 1)[0]}")
     print(json.dumps(payload))
     sys.stdout.flush()
     return rc

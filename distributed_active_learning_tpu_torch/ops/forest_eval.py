@@ -12,6 +12,7 @@ forest file's) into the form a kernel names.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Union
 
 import torch
@@ -30,6 +31,51 @@ Forest = Union[
 _GEMM_MAX_DEPTH = 10
 
 
+@dataclasses.dataclass(frozen=True)
+class EvaluatedForest:
+    """A forest together with its per-tree leaf values on one input ``x``.
+
+    :func:`leaves`, :func:`votes` and :func:`proba` of the wrapper on that
+    same tensor ``x`` reduce the stored leaves instead of evaluating the
+    forest again. Any other input, or any other entry point, raises: a
+    wrapper that evaluated again would cost the launch it exists to save,
+    and nothing but a launch count would show it. Every
+    single-device form defines its votes as ``(leaves > 0.5)`` summed and its
+    probability as :func:`~.trees_gemm.tree_mean` of the leaves, so the
+    reductions are bit-identical to a fresh evaluation. A round with metrics
+    evaluates the pool once this way and both its score and its pool entropy
+    read it (:func:`evaluated`).
+    """
+
+    forest: object
+    x: torch.Tensor
+    leaf_values: torch.Tensor
+
+    @property
+    def n_trees(self) -> int:
+        return self.forest.n_trees
+
+
+def evaluated(forest: Forest, x: torch.Tensor) -> EvaluatedForest:
+    """``forest`` with its leaf values on ``x`` computed once. A mesh's
+    sharded forest counts votes per shard and is refused."""
+    if isinstance(forest, trees_pallas.ShardedPallasForest):
+        raise TypeError("a sharded forest evaluates per shard; evaluated() takes one device's form")
+    return EvaluatedForest(forest, x, leaves(forest, x))
+
+
+def _cached_leaves(forest, x):
+    """The stored leaves when ``forest`` is an :class:`EvaluatedForest` of
+    this very ``x``, else ``(None, forest)``."""
+    if not isinstance(forest, EvaluatedForest):
+        return None, forest
+    if x is not forest.x:
+        raise ValueError(
+            "an EvaluatedForest holds the leaf values of one input tensor and was given "
+            "another: pass the very tensor it was evaluated on, or the wrapped forest")
+    return forest.leaf_values, forest.forest
+
+
 def _kind(forest) -> str:
     if isinstance(forest, (trees_pallas.PallasForest, trees_pallas.ShardedPallasForest)):
         return "pallas"
@@ -37,6 +83,8 @@ def _kind(forest) -> str:
         return "gemm"
     if isinstance(forest, trees.PackedForest):
         return "gather"
+    if isinstance(forest, EvaluatedForest):
+        raise TypeError("an EvaluatedForest serves leaves, votes and proba of its own input only")
     raise TypeError(
         f"unsupported forest {type(forest).__name__}: the port evaluates PackedForest, "
         "GemmForest, PallasForest and ShardedPallasForest"
@@ -45,6 +93,9 @@ def _kind(forest) -> str:
 
 def leaves(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     """Per-tree leaf values ``[n, T]``."""
+    cached, forest = _cached_leaves(forest, x)
+    if cached is not None:
+        return cached
     kind = _kind(forest)
     if kind == "pallas":
         return trees_pallas.predict_leaves(forest, x)
@@ -55,6 +106,9 @@ def leaves(forest: Forest, x: torch.Tensor) -> torch.Tensor:
 
 def proba(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     """P(class 1) per point ``[n]``: the mean of per-tree leaf values."""
+    cached, forest = _cached_leaves(forest, x)
+    if cached is not None:
+        return trees_gemm.tree_mean(cached)
     kind = _kind(forest)
     if kind == "pallas":
         return trees_pallas.predict_proba(forest, x)
@@ -65,6 +119,9 @@ def proba(forest: Forest, x: torch.Tensor) -> torch.Tensor:
 
 def votes(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     """Hard positive-vote count per point ``[n]`` int32."""
+    cached, forest = _cached_leaves(forest, x)
+    if cached is not None:
+        return (cached > 0.5).sum(dim=1, dtype=torch.int32)
     kind = _kind(forest)
     if kind == "pallas":
         return trees_pallas.predict_votes(forest, x)

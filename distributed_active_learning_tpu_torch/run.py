@@ -15,6 +15,14 @@ Prints the reference-format log on stdout; ``--out`` writes it to a file.
 unless ``--device cpu`` is given. ``--mesh-data D --mesh-model M`` shards
 the pool's rows over D and the trees over M: on the first D x M cards, or
 every shard on the CPU with ``--device cpu``.
+
+Observability and resume, as in the JAX package's CLI: ``--metrics-out``
+(JSONL events with per-round RoundMetrics; render with
+``benches/summarize_metrics.py``), ``--stream-rounds``, ``--profile-dir``
+(a ``torch.profiler`` Chrome trace), ``--flight-recorder``, ``--ops-port``
+(``/metrics``, ``/healthz``, ``/varz``, ``/flightz`` on localhost) and
+``--checkpoint-dir`` with ``--checkpoint-every`` (a checkpoint of either
+package resumes in the other). ``--roofline`` is refused by name.
 """
 
 from __future__ import annotations
@@ -82,6 +90,43 @@ def build_parser() -> argparse.ArgumentParser:
         "1 = strict serial launch -> block -> touchdown order",
     )
     ap.add_argument("--seed", type=int, default=0)
+    # Observability (runtime/telemetry.py, runtime/obs.py) and resume
+    # (runtime/checkpoint.py).
+    ap.add_argument(
+        "--metrics-out", default=None, metavar="PATH",
+        help="write rank-tagged JSONL telemetry events: one 'round' event per AL round (with "
+        "the device-computed score/entropy/histogram metrics; a chunked run computes them "
+        "inside its CUDA graph), plus launch accounting, transfer counters and memory "
+        "gauges; summarize with benches/summarize_metrics.py",
+    )
+    ap.add_argument(
+        "--stream-rounds", action="store_true",
+        help="with --metrics-out and --rounds-per-launch > 1: one 'round_stream' JSONL event "
+        "per round, emitted at the chunk's touchdown (a callback cannot run inside a "
+        "replayed CUDA graph)",
+    )
+    ap.add_argument(
+        "--profile-dir", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the whole run into DIR (a Chrome trace; open "
+        "in Perfetto); phases are named al_phase/train|round|eval",
+    )
+    ap.add_argument(
+        "--roofline", action="store_true",
+        help="roofline attribution of the chunk program; not ported (refused by name)",
+    )
+    ap.add_argument(
+        "--flight-recorder", default=None, metavar="PATH",
+        help="record launch/touchdown/veto/recompile events into a bounded in-process ring "
+        "and dump the last N as one JSON artifact at PATH on SIGUSR1, SIGTERM, an unhandled "
+        "crash and normal exit",
+    )
+    ap.add_argument(
+        "--ops-port", type=int, default=0, metavar="PORT",
+        help="serve the live ops plane (runtime/obs.py) on localhost:PORT for the run: "
+        "/metrics (Prometheus text), /healthz, /varz, /flightz; 0 (default) = off",
+    )
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the reference-format results log")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--quiet", action="store_true")
@@ -93,8 +138,31 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     args.strategy = _STRATEGY_ALIASES.get(args.strategy, args.strategy)
 
+    from distributed_active_learning_tpu_torch.runtime import telemetry
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
+
+    if args.roofline:
+        ap.error("--roofline needs analysis/roofline.py, which comes with the pre-flight slice "
+                 "(ROADMAP queue 1, \"Pre-flight equivalents\")")
+    # Both drivers gate persistence on dir AND interval; half a request
+    # would be silently ignored.
+    if bool(args.checkpoint_dir) != bool(args.checkpoint_every):
+        ap.error("checkpointing needs both --checkpoint-dir and --checkpoint-every")
+    if args.profile_dir:
+        try:
+            telemetry.prepare_profile_dir(args.profile_dir)
+        except ValueError as e:
+            ap.error(str(e))
+    if args.flight_recorder:
+        telemetry.install_flight_recorder(args.flight_recorder)
+    ops_server = None
+    if args.ops_port:
+        from distributed_active_learning_tpu_torch.runtime.obs import OpsServer
+
+        ops_server = OpsServer(port=args.ops_port).start()
+        print(f"# ops plane: http://127.0.0.1:{ops_server.port}/metrics (/healthz /varz /flightz)",
+              file=sys.stderr, flush=True)
 
     cfg = ExperimentConfig(
         data=DataConfig(name=args.dataset, n_samples=args.n_samples, seed=args.seed),
@@ -107,14 +175,27 @@ def main(argv=None) -> int:
         max_rounds=args.rounds,
         rounds_per_launch=args.rounds_per_launch,
         pipeline_depth=args.pipeline_depth,
+        stream_round_events=args.stream_rounds,
         fused_round=args.fused_round,
         seed=args.seed,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
     )
     dbg = Debugger(
         enabled=not args.quiet,
         printer=lambda *a: print(*a, file=sys.stderr),
     )
-    result = run_experiment(cfg, debugger=dbg, device=args.device)
+    writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
+    try:
+        with telemetry.profile_session(args.profile_dir):
+            result = run_experiment(cfg, debugger=dbg, metrics=writer, device=args.device)
+    finally:
+        if writer is not None:
+            writer.close()
+        if ops_server is not None:
+            ops_server.stop()
+    if args.flight_recorder:
+        telemetry.flight_dump("exit")
     sys.stdout.write(result.to_reference_log())
     if args.out:
         result.save(args.out, fmt="reference")

@@ -29,10 +29,21 @@ The host fit re-enters the host every round, so it always takes the
 per-round driver, whatever ``rounds_per_launch`` says (as in the JAX
 package).
 
+Telemetry and checkpoints (``runtime/telemetry.py``,
+``runtime/checkpoint.py``): with ``collect_metrics`` or a
+:class:`~.telemetry.MetricsWriter` every round computes a
+:class:`~.telemetry.RoundMetrics` on the device, the chunked driver as the
+chunk's sixth y inside its graph; the writer gets one ``round`` event a
+round, one ``launch`` event a chunk, transfer counters and memory gauges.
+With ``checkpoint_dir`` and ``checkpoint_every`` a run resumes from the
+newest ``alstate_<round>.npz`` (either package's) and writes one every
+``checkpoint_every`` rounds, at chunk boundaries in the chunked driver.
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing them: under a mesh the chunked driver, ``kernel`` "gemm" and
-"gather", depths past 10, the host fit and the density strategy; scenarios,
-checkpoints, metrics writers, quantized storage and multiclass pools.
+slice bringing them: under a mesh the chunked driver, round metrics,
+``kernel`` "gemm" and "gather", depths past 10, the host fit and the density
+strategy; roofline attribution, scenarios, quantized storage and multiclass
+pools.
 """
 
 from __future__ import annotations
@@ -60,14 +71,22 @@ from distributed_active_learning_tpu_torch.strategies import Strategy, StrategyA
 def _round_core(
     strategy: Strategy,
     window_size: int,
+    with_metrics: bool,
+    n_classes: int,
     forest: forest_eval.Forest,
     state: state_lib.PoolState,
     aux: StrategyAux,
     fused: bool = False,
 ):
     """One AL round: split the key, score + select (or the fused round),
-    reveal. The key is split even when the round is fused, so the carried
-    stream is the unfused round's."""
+    reveal, and with ``with_metrics`` the round's
+    :class:`~.telemetry.RoundMetrics`. The key is split even when the round
+    is fused, so the carried stream is the unfused round's.
+
+    With metrics the pool's leaf values are computed once
+    (:func:`~..ops.forest_eval.evaluated`) and read by both the score and
+    the pool entropy: the JAX package gets the same sharing from XLA, which
+    merges the two identical evaluations of one program."""
     keys = prng.split(state.key)
     key, k_score = keys[0], keys[1]
     state = state.replace(key=key)
@@ -80,22 +99,45 @@ def _round_core(
         )
         scores = None
     else:
+        if with_metrics:
+            forest = forest_eval.evaluated(forest, state.x)
         scores = strategy.score(forest, state, k_score, aux)
         unlabeled = gather(unlabeled)  # a mesh's global select runs on its first device
         if strategy.higher_is_better:
             vals, picked = select_top_k(scores, unlabeled, window_size)
         else:
             vals, picked = select_bottom_k(scores, unlabeled, window_size)
-    return state_lib.reveal(state, picked), picked, scores
+    new_state = state_lib.reveal(state, picked)
+    if not with_metrics:
+        return new_state, picked, scores
+    from distributed_active_learning_tpu_torch.runtime import telemetry
+
+    rm = telemetry.compute_round_metrics(
+        forest, state, picked, vals, scores,
+        higher_is_better=strategy.higher_is_better, n_classes=n_classes,
+    )
+    return new_state, picked, scores, rm
 
 
-def make_round_fn(strategy: Strategy, window_size: int, fused: bool = False):
+def make_round_fn(strategy: Strategy, window_size: int, with_metrics: bool = False,
+                  n_classes: int = 2, fused: bool = False):
     """The AL round ``round_fn(forest, state, aux) -> (new_state, picked,
-    scores)``; ``fused`` routes score + select through the round megakernel
-    (``scores`` is then None). RoundMetrics wait for the telemetry slice."""
+    scores)``; with ``with_metrics`` a fourth output, the round's
+    :class:`~.telemetry.RoundMetrics` (both drivers run this same body, so
+    their metrics agree bit for bit). ``fused`` routes score + select
+    through the round megakernel (``scores`` is then None); it cannot
+    compute metrics, which reduce the full score vector the megakernel never
+    materializes."""
+    if fused and with_metrics:
+        raise ValueError(
+            "fused_round cannot compute RoundMetrics: the metrics reductions "
+            "consume the full score vector the megakernel avoids "
+            "materializing; drop collect_metrics/--metrics-out or fused_round"
+        )
 
     def round_fn(forest, state, aux):
-        return _round_core(strategy, window_size, forest, state, aux, fused=fused)
+        return _round_core(strategy, window_size, with_metrics, n_classes, forest, state, aux,
+                           fused=fused)
 
     return round_fn
 
@@ -171,12 +213,15 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
         (mesh and cfg.strategy.name == "density",
          "the density strategy under a device mesh (sharded_similarity_mass) "
          f"comes with {_MESH_SLICE}"),
+        (mesh and (metrics is not None or cfg.collect_metrics),
+         "RoundMetrics under a device mesh (the metrics reductions over the "
+         f"sharded pool) come with {_MESH_SLICE}; per-round records and "
+         "checkpoints do run on the mesh"),
+        (bool(cfg.roofline) and metrics is not None,
+         "roofline attribution (--roofline) comes with the pre-flight slice "
+         "(ROADMAP queue 1, \"Pre-flight equivalents\")"),
         (cfg.scenario is not None and cfg.scenario.active,
          "scenarios come with the scenario slice"),
-        (bool(cfg.checkpoint_dir and cfg.checkpoint_every),
-         "checkpoints come with the checkpoint slice"),
-        (metrics is not None or cfg.collect_metrics,
-         "metrics writers and RoundMetrics come with the telemetry slice"),
         (cfg.forest.quantize != "none",
          "quantized forest storage comes with the quantization slice"),
     ]
@@ -254,11 +299,15 @@ def make_chunk_fn(
     fit_fn,
     label_cap: int,
     fused_round: bool = False,
+    with_metrics: bool = False,
+    n_classes: int = 2,
+    stream_cb=None,
 ):
     """``chunk_size`` AL rounds as one launch, on a single device.
 
     ``chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round) ->
-    (new_state, extras, (rounds, n_labeled, accuracy, picked, active))``:
+    (new_state, extras, (rounds, n_labeled, accuracy, picked, active[,
+    metrics]))``:
     ``state`` is the carry form of the pool state (:func:`~.state.as_carry`:
     key and round counter on the device), ``end_round`` a 0-d int32 tensor
     there, each y is stacked ``[chunk_size, ...]``, ``n_labeled`` is the
@@ -273,38 +322,72 @@ def make_chunk_fn(
     the per-round driver's bit for bit. Inactive steps still compute a
     (discarded) fit and score: wasted work bounded by one chunk's tail.
 
+    With ``with_metrics`` a stacked :class:`~.telemetry.RoundMetrics` rides
+    as a sixth y, computed in the graph like the rest (a few hundred bytes
+    more in the touchdown copy, no extra sync).
+
     The body reads nothing back to the host and uploads nothing: that is
-    what lets :class:`GraphedChunk` capture it into a CUDA graph. Metrics,
-    scenarios, the in-chunk stream callback and a device mesh wait for their
-    slices.
+    what lets :class:`GraphedChunk` capture it into a CUDA graph. A Python
+    callback cannot run inside a replayed graph, so ``stream_cb(round,
+    n_labeled, accuracy, active)`` (the JAX package calls it from inside
+    the scan) is called at the chunk's touchdown instead, once per round in
+    round order: ``chunk_fn.stream(ys)`` on the host copies of the ys.
+    Scenarios and a device mesh wait for their slices.
     """
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
-    round_fn = make_round_fn(strategy, window_size, fused=fused_round)
+    round_fn = make_round_fn(strategy, window_size, with_metrics=with_metrics,
+                             n_classes=n_classes, fused=fused_round)
 
     def step(codes, carry: state_lib.PoolState, aux, fit_key, test_x, test_y, end_round):
         n_labeled = state_lib.labeled_count(carry)
         active = (n_labeled < label_cap) & (carry.round < end_round)
         forest = fit_fn(codes, carry, prng.fold_in(fit_key, carry.round + 1))
-        new_state, picked, _ = round_fn(forest, carry, aux)
+        new_state, picked, _, *rm = round_fn(forest, carry, aux)
         acc = _accuracy(forest, test_x, test_y)
         out = state_lib.select_state(active, new_state, carry)
-        return out, (carry.round + 1, n_labeled, acc, picked.to(torch.int32), active)
+        return out, (carry.round + 1, n_labeled, acc, picked.to(torch.int32), active, *rm)
 
     def chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round):
         ys = []
         for _ in range(chunk_size):
             state, y = step(codes, state, aux, fit_key, test_x, test_y, end_round)
             ys.append(y)
-        ys = tuple(torch.stack(col) for col in zip(*ys))
+        cols = list(zip(*ys))
+        ys = tuple(torch.stack(col) for col in cols[:5])
+        if with_metrics:
+            from distributed_active_learning_tpu_torch.runtime.telemetry import stack_metrics
+
+            ys = ys + (stack_metrics(list(cols[5])),)
         extras = ChunkExtras(
             n_labeled_after=state_lib.labeled_count(state),
             n_active=ys[4].sum(dtype=torch.int32),
         )
         return state, extras, ys
 
+    def stream(ys) -> None:
+        if stream_cb is None:
+            return
+        for r, nl, acc, act in zip(*(y.tolist() for y in (ys[0], ys[1], ys[2], ys[4]))):
+            stream_cb(r, nl, acc, act)
+
     chunk_fn.step = step
+    chunk_fn.stream = stream
     return chunk_fn
+
+
+def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
+    """Fresh-buffer copies of the carry fields a checkpoint needs, queued on
+    the current stream.
+
+    A :class:`GraphedChunk` writes its new carry into the same static
+    buffers at every replay, and with ``pipeline_depth > 1`` the driver
+    dispatches chunk N + 1 before chunk N's touchdown runs, so a
+    checkpointing touchdown cannot read the carry itself. This copy, made
+    right after chunk N's dispatch and ordered by the stream before chunk
+    N + 1's replay, holds chunk N's (mask, key, round) (the JAX package's
+    ``ckpt_snapshot`` does the same against buffer donation)."""
+    return mask.clone(), key.clone(), rnd.clone()
 
 
 def _kernel_launch_counts() -> dict:
@@ -403,24 +486,33 @@ class GraphedChunk:
 
 
 def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
-                 fit_budget, result, dbg, start_round):
+                 fit_budget, result, dbg, start_round, metrics=None, n_classes=2, ckpt=None):
     """The chunked branch of :func:`run_experiment`: K rounds per launch
-    through ``pipeline.run_pipelined``. Returns the final state."""
+    through ``pipeline.run_pipelined``. ``ckpt`` is ``(fingerprint,
+    kernel)`` when the run checkpoints. Returns the final state."""
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
+    from distributed_active_learning_tpu_torch.runtime import telemetry
 
     dev = state.x.device
     n_pool = state.n_valid
     K, window = cfg.rounds_per_launch, cfg.strategy.window_size
     label_cap = n_pool if cfg.label_budget is None else min(cfg.label_budget, n_pool)
     depth = max(int(cfg.pipeline_depth or 1), 1)
-    chunk_fn = make_chunk_fn(strategy, window, K, device_fit, label_cap,
-                             fused_round=cfg.fused_round)
-    if dev.type == "cuda":
-        chunk_fn = GraphedChunk(chunk_fn)
+    want_metrics = metrics is not None or cfg.collect_metrics
+    stream_cb = None
+    if metrics is not None and cfg.stream_round_events:
+        def stream_cb(round_, n_labeled_cb, acc_cb, active_cb):
+            if bool(active_cb):
+                metrics.event("round_stream", round=int(round_), n_labeled=int(n_labeled_cb),
+                              accuracy=float(acc_cb))
+    body = make_chunk_fn(strategy, window, K, device_fit, label_cap, fused_round=cfg.fused_round,
+                         with_metrics=want_metrics, n_classes=n_classes, stream_cb=stream_cb)
+    chunk_fn = GraphedChunk(body) if dev.type == "cuda" else body
     # The chunk updates the carried mask in place; at round 0 aux.seed_mask
     # is that mask, so it gets its own copy once up front.
     if aux.seed_mask is not None:
         aux = dataclasses.replace(aux, seed_mask=aux.seed_mask.clone())
+    launches = telemetry.LaunchTracker(metrics, "chunk_scan", fn=chunk_fn)
     end_round = (start_round + cfg.max_rounds if cfg.max_rounds is not None
                  else int(np.iinfo(np.int32).max))
     # One sync at loop entry; afterwards the loop blocks only on each
@@ -450,26 +542,66 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     carry = state_lib.as_carry(state)
     fit_key_dev = fit_key.to(dev)
     end_dev = torch.as_tensor(end_round, dtype=torch.int32).to(dev)
+    # The graph rewrites its carry buffers at every replay, so a
+    # checkpointing drive copies (mask, key, round) at each dispatch and the
+    # touchdown writes the copy, never the carry (ckpt_snapshot).
+    snapshots = pipeline_lib.CarrySnapshots(ckpt_snapshot)
 
-    def dispatch(st, _idx):
-        return chunk_fn(codes, st, aux, fit_key_dev, test_x, test_y, end_dev)
+    def dispatch(st, idx):
+        out = chunk_fn(codes, st, aux, fit_key_dev, test_x, test_y, end_dev)
+        if ckpt is not None:
+            new_state = out[0]
+            snapshots.take(idx, new_state.labeled_mask, new_state.key, new_state.round)
+        return out
 
-    def touchdown(_idx, _n_labeled_after, n_active, ys, _out_state, wall):
+    def touchdown(idx, _n_labeled_after, n_active, ys, _out_state, wall):
         # ys are this chunk's host copies. Runs overlapped with the next
         # chunk's execution when depth > 1.
+        snap = snapshots.pop(idx)
         if n_active == 0:
             return  # a wholly inactive (speculative tail) chunk
-        rounds_y, labeled_y, acc_y, _picked_y, active_y = ys
+        body.stream(ys)
+        rounds_y, labeled_y, acc_y, _picked_y, active_y = ys[:5]
         active_np = active_y.numpy()
         rounds_np = rounds_y.numpy()[active_np]
         labeled_np = labeled_y.numpy()[active_np]
         acc_np = acc_y.numpy()[active_np]
+        round_dicts = (telemetry.stacked_metrics_to_dicts(ys[5], active_np)
+                       if want_metrics else None)
         result.extend_from_arrays(
-            rounds_np, labeled_np, n_pool - labeled_np, acc_np, total_time=wall / n_active)
+            rounds_np, labeled_np, n_pool - labeled_np, acc_np, total_time=wall / n_active,
+            metrics=round_dicts)
+        ctl.note_round(int(rounds_np[-1]))
+        if metrics is not None:
+            # Bytes this touchdown copied to the host (shape times item
+            # size: counting the transfer must not add one), then one round
+            # event per active round.
+            fetched = sum(y.numel() * y.element_size()
+                          for y in (active_y, rounds_y, labeled_y, acc_y))
+            if want_metrics:
+                fetched += telemetry.metrics_nbytes(ys[5])
+            metrics.counter("host_transfer_bytes", int(fetched))
+            for i in range(len(rounds_np)):
+                metrics.round(round=int(rounds_np[i]), n_labeled=int(labeled_np[i]),
+                              accuracy=float(acc_np[i]),
+                              **(round_dicts[i] if round_dicts else {}))
+            mem = telemetry.device_memory_gauges()
+            if mem:
+                metrics.gauges(mem)
         if cfg.log_every and dbg.enabled:
             for r, nl, a in zip(rounds_np, labeled_np, acc_np):
                 if int(r) % cfg.log_every == 0:
                     dbg.debug(f"Iteration {int(r)} -- labeled={int(nl)} accu={float(a) * 100:.2f}")
+        if ckpt is not None and ctl.checkpoint_due(cfg.checkpoint_every):
+            # Saved at the first touchdown after each checkpoint_every
+            # multiple, from the dispatch-time snapshot.
+            from distributed_active_learning_tpu_torch.runtime import checkpoint as ckpt_lib
+
+            s_mask, s_key, s_rnd = snap
+            ckpt_state = state.replace(labeled_mask=s_mask, key=s_key, round=int(s_rnd))
+            ckpt_lib.save(cfg.checkpoint_dir, ckpt_state, result, fingerprint=ckpt[0],
+                          kernel=ckpt[1])
+            ctl.checkpoint_done()
 
     carry, stats = pipeline_lib.run_pipelined(
         carry,
@@ -477,7 +609,9 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
         touchdown=touchdown,
         continue_after=ctl.continue_after,
         depth=depth,
+        on_launch=launches.record,
         may_dispatch=ctl.may_dispatch,
+        on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)),
     )
     result.pipeline_stats = stats
     if isinstance(chunk_fn, GraphedChunk):
@@ -527,7 +661,14 @@ def run_experiment(
     card unless ``device="cpu"``); returns per-round records and the final
     labeled mask. A mesh config takes its devices from ``devices`` (passed to
     ``parallel.mesh.make_mesh``; a list may repeat a card), or by default the
-    first ``data * model`` cards, or every shard on the CPU."""
+    first ``data * model`` cards, or every shard on the CPU.
+
+    ``metrics`` (a :class:`~.telemetry.MetricsWriter`, or None) turns on the
+    JSONL event stream (one ``round`` event per round with its
+    RoundMetrics, launch accounting, transfer counters, memory gauges) and
+    implies ``cfg.collect_metrics``. With ``cfg.checkpoint_dir`` and
+    ``cfg.checkpoint_every`` the run resumes from the newest checkpoint
+    there and writes new ones (``runtime/checkpoint.py``)."""
     dev = resolve_device(device)
     _not_ported(cfg, metrics)
     if cfg.forest.fit not in ("host", "device"):
@@ -535,6 +676,7 @@ def run_experiment(
     dbg = debugger or Debugger(enabled=False)
     if bundle is None:
         bundle = get_dataset(cfg.data)
+    want_metrics = metrics is not None or cfg.collect_metrics
 
     test_x = torch.as_tensor(np.asarray(bundle.test_x, dtype=np.float32)).to(dev)
     test_y = torch.as_tensor(np.asarray(bundle.test_y, dtype=np.int32)).to(dev)
@@ -548,7 +690,7 @@ def run_experiment(
     state = state_lib.set_start_state(state, cfg.n_start, n_classes=n_classes)
     strategy = get_strategy(cfg.strategy)
     if cfg.fused_round:
-        reason = _fused_round_reason(cfg, False, n_classes)
+        reason = _fused_round_reason(cfg, want_metrics, n_classes)
         if reason is not None:
             raise ValueError(f"fused_round unavailable: {reason}")
 
@@ -561,7 +703,6 @@ def run_experiment(
 
         binned = trees_train.make_bins(state.x, cfg.forest.max_bins, quantize=cfg.forest.quantize)
         codes, edges = binned.codes, binned.edges
-        fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
 
     mesh = None
     if cfg.mesh.data * cfg.mesh.model > 1:
@@ -597,14 +738,43 @@ def run_experiment(
         def place_forest(f):
             return attach_mesh(shard_forest(f, mesh), mesh)
     else:
-        round_fn = make_round_fn(strategy, cfg.strategy.window_size, fused=cfg.fused_round)
+        round_fn = make_round_fn(strategy, cfg.strategy.window_size, with_metrics=want_metrics,
+                                 n_classes=n_classes, fused=cfg.fused_round)
 
         def place_forest(f):
             return f
 
     aux = build_aux(cfg, state)
+    if metrics is not None:
+        metrics.meta(
+            config=dataclasses.asdict(cfg),
+            backend=dev.type,
+            n_devices=torch.cuda.device_count() if dev.type == "cuda" else 1,
+            process_count=1,
+        )
     result = ExperimentResult()
+    start_round = state.round
+
+    ckpt = None
+    if cfg.checkpoint_dir and cfg.checkpoint_every:
+        from distributed_active_learning_tpu_torch.runtime import checkpoint as ckpt_lib
+
+        ckpt = (ckpt_lib.config_fingerprint(cfg), ckpt_lib.kernel_ident(cfg))
+        restored = ckpt_lib.restore_latest(
+            cfg.checkpoint_dir, state, result,
+            fingerprint=ckpt_lib.accepted_fingerprints(cfg), kernel=ckpt[1],
+        )
+        if restored is not None:
+            state, result = restored
+            if mesh is not None:
+                state = shard_pool_state(state, mesh)  # re-place the restored mask
+            start_round = state.round
+            dbg.debug(f"resumed at round {start_round}")
+
+    # The fit window is sized after any restore, so it counts the labels the
+    # resumed run already holds.
     if host_fit is None:
+        fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
         device_fit = make_device_fit(cfg, edges, fit_budget, n_classes)
     fit_key = prng.key(cfg.seed + 0x5EED)
     sync_devs = {d for row in mesh.devices for d in row} if mesh else {dev}
@@ -614,12 +784,12 @@ def run_experiment(
             synchronize(d)
 
     n_pool = state.n_valid
-    round_idx = state.round
-    start_round = round_idx
+    round_idx = start_round
     if cfg.rounds_per_launch > 1 and host_fit is None:
         state = _run_chunked(
             cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
-            fit_budget, result, dbg, start_round)
+            fit_budget, result, dbg, start_round, metrics=metrics, n_classes=n_classes,
+            ckpt=ckpt)
         result.final_labeled_mask = state_lib.global_labeled_mask(state).clone()
         if cfg.results_path:
             result.save(cfg.results_path, fmt="reference")
@@ -648,12 +818,17 @@ def run_experiment(
         train_time = dbg.records[-1][1]
 
         with dbg.phase("round"):
-            state, picked, _ = round_fn(forest, state, aux)
+            state, picked, _, *rm = round_fn(forest, state, aux)
             sync()
         score_time = dbg.records[-1][1]
         with dbg.phase("eval"):
             acc = float(_accuracy(forest, test_x, test_y))
         eval_time = dbg.records[-1][1]
+        round_dict = None
+        if want_metrics:
+            from distributed_active_learning_tpu_torch.runtime import telemetry
+
+            round_dict = telemetry.metrics_to_dict(rm[0])
 
         # The record pairs the accuracy with the labeled count the evaluated
         # forest was trained on (pre-reveal), the reference's print order.
@@ -666,10 +841,25 @@ def run_experiment(
             score_time=score_time,
             eval_time=eval_time,
             total_time=train_time + score_time + eval_time,
+            metrics=round_dict,
         ))
+        if metrics is not None:
+            metrics.round(round=round_idx, n_labeled=n_labeled, accuracy=acc,
+                          train_time=train_time, score_time=score_time, eval_time=eval_time,
+                          **(round_dict or {}))
         if cfg.log_every and round_idx % cfg.log_every == 0:
             dbg.debug(f"Iteration {round_idx} -- labeled={n_labeled} accu={acc * 100:.2f}")
+        if ckpt is not None and round_idx % cfg.checkpoint_every == 0:
+            from distributed_active_learning_tpu_torch.runtime import checkpoint as ckpt_lib
 
+            ckpt_lib.save(cfg.checkpoint_dir, state, result, fingerprint=ckpt[0], kernel=ckpt[1])
+
+    if metrics is not None:
+        from distributed_active_learning_tpu_torch.runtime import telemetry
+
+        mem = telemetry.device_memory_gauges()
+        if mem:
+            metrics.gauges(mem)
     result.final_labeled_mask = state_lib.global_labeled_mask(state)
     if cfg.results_path:
         result.save(cfg.results_path, fmt="reference")

@@ -29,9 +29,14 @@ launch; this module drives those launches:
 
 The chunk's carry is updated in place by the next launch (the graph's static
 buffers), so a touchdown must not read the carry it is handed once a later
-chunk was dispatched. The live gauges and the flight recorder of the JAX
-module wait for the telemetry slice; ``CarrySnapshots`` (checkpoint-safe
-copies of the carry) waits for the checkpoint slice.
+chunk was dispatched. A checkpointing driver copies the carry's mask, key
+and round into fresh buffers at dispatch instead (:class:`CarrySnapshots`)
+and writes the copy at the touchdown.
+
+The drive feeds the ops plane (``runtime/obs.py``: the in-flight depth, the
+``pipeline_touchdown`` heartbeat, the touchdown-hidden fraction, the chunk
+count) and the flight recorder (``dispatch`` and ``touchdown`` events), as
+the JAX module does.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from collections import deque
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+
+from distributed_active_learning_tpu_torch.runtime import obs, telemetry
 
 
 class ChunkExtras(NamedTuple):
@@ -218,6 +225,35 @@ class ChunkDriveControl:
         self._ckpt_mark = self.round_idx
 
 
+class CarrySnapshots:
+    """Dispatch-time copies of the carry fields a checkpoint needs, keyed by
+    chunk index.
+
+    A CUDA graph writes its new carry back into the same static buffers at
+    every replay, so with ``depth = 2`` chunk N + 1 has overwritten chunk
+    N's mask, key and round before chunk N's touchdown runs. ``take`` runs
+    right after chunk N's dispatch: ``snap_fn`` (``runtime.loop.
+    ckpt_snapshot``) clones the fields into fresh buffers on the chunk's
+    stream, which orders the copy after chunk N and before chunk N + 1, and
+    their host copy is queued behind it. ``pop`` at chunk N's touchdown
+    hands back the host tensors.
+    """
+
+    def __init__(self, snap_fn):
+        self._snap = snap_fn
+        self._held: dict = {}
+
+    def take(self, index: int, *leaves) -> None:
+        self._held[index] = start_host_copy(self._snap(*leaves))
+
+    def pop(self, index: int):
+        """The host copy of the snapshot taken at ``index``'s dispatch (None
+        if none was taken). Call from EVERY touchdown, also those that do
+        not checkpoint, so each snapshot is released."""
+        copy = self._held.pop(index, None)
+        return None if copy is None else copy.wait()
+
+
 def run_pipelined(
     state: Any,
     *,
@@ -298,6 +334,9 @@ def run_pipelined(
         # launch, before a later dispatch can overwrite the device buffers.
         copy = start_host_copy((extras, ys))
         inflight.append(_InFlight(next_index, copy, state, t0))
+        # Live ops plane: the in-flight depth a /metrics scrape shows moving.
+        obs.gauge("pipeline_inflight", "chunk launches currently in flight").set(len(inflight))
+        telemetry.flight_record("dispatch", index=next_index, inflight=len(inflight), depth=depth)
         next_index += 1
 
     while True:
@@ -341,6 +380,8 @@ def run_pipelined(
         while depth > 1 and len(inflight) < depth and _can_dispatch():
             _dispatch_one()
         t_td = time.perf_counter()
+        telemetry.flight_record("touchdown", index=head.index, n_active=n_active,
+                                n_labeled_after=n_labeled_after, inflight=len(inflight))
         touchdown(
             head.index, n_labeled_after, n_active, ys, head.out_state,
             launch_wall,
@@ -351,6 +392,14 @@ def run_pipelined(
         stats.launch_seconds += launch_wall
         stats.touchdown_seconds += td_wall
         stats.overlap_seconds += overlapped
+        # Live ops plane: a fresh pipeline_touchdown heartbeat is /healthz's
+        # proof the driver completes work, not only dispatches it.
+        obs.heartbeat("pipeline_touchdown")
+        obs.gauge("pipeline_inflight", "chunk launches currently in flight").set(len(inflight))
+        obs.gauge("touchdown_hidden_ratio",
+                  "fraction of host-touchdown wall hidden under device execution",
+                  ).set(round(stats.touchdown_hidden_fraction, 6))
+        obs.counter("pipeline_chunks", "chunk touchdowns completed").inc()
         if on_launch is not None:
             on_launch(
                 seconds=launch_wall,

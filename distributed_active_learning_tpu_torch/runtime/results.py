@@ -35,19 +35,26 @@ class ExperimentResult:
     def append(self, rec: RoundRecord) -> None:
         self.records.append(rec)
 
-    def extend_from_arrays(self, rounds, n_labeled, n_unlabeled, accuracy, total_time=None) -> None:
+    def extend_from_arrays(self, rounds, n_labeled, n_unlabeled, accuracy, total_time=None,
+                           metrics: Optional[List[Dict[str, Any]]] = None) -> None:
         """Bulk append from stacked per-round arrays: the chunked driver's
         touchdown, where one launch returns K rounds of outputs and the host
         appends them at once. ``total_time`` (a scalar or one per round)
         lands in ``total_time`` with the per-phase splits zero: attributing
         phases inside a chunk would need the per-round host syncs the chunk
-        exists to avoid. Per-round metrics wait for the telemetry slice."""
+        exists to avoid. ``metrics`` (optional) is one plain dict per round,
+        the chunk's RoundMetrics already converted
+        (``telemetry.stacked_metrics_to_dicts``)."""
         n = len(rounds)
         times = total_time
         if times is None:
             times = [0.0] * n
         elif not hasattr(times, "__len__"):
             times = [float(times)] * n
+        if metrics is not None and len(metrics) != n:
+            raise ValueError(
+                f"{len(metrics)} metric dicts for {n} rounds: the active-row filter must be "
+                "applied to both before appending")
         for i in range(n):
             self.append(RoundRecord(
                 round=int(rounds[i]),
@@ -55,7 +62,18 @@ class ExperimentResult:
                 n_unlabeled=int(n_unlabeled[i]),
                 accuracy=float(accuracy[i]),
                 total_time=float(times[i]),
+                metrics=None if metrics is None else metrics[i],
             ))
+
+    @classmethod
+    def from_record_dicts(cls, records: List[Dict[str, Any]]) -> "ExperimentResult":
+        """Rebuild the records of a checkpoint's ``records_json`` (either
+        package's), dropping keys this :class:`RoundRecord` does not know: a
+        field a newer writer added is observability, never loop state, so
+        dropping it is lossless for the resume."""
+        known = {f.name for f in dataclasses.fields(RoundRecord)}
+        return cls(records=[RoundRecord(**{k: v for k, v in r.items() if k in known})
+                            for r in records])
 
     @property
     def final_accuracy(self) -> Optional[float]:

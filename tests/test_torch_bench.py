@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from distributed_active_learning_tpu_torch import bench
+from distributed_active_learning_tpu_torch.runtime import telemetry
 from distributed_active_learning_tpu_torch.runtime.pipeline import (
     ChunkDriveControl,
     ChunkExtras,
@@ -58,7 +59,7 @@ def _drive(depth, total_rounds, k=3, may_dispatch=None, on_veto=None):
     return calls, touched, final, stats
 
 
-def test_bench_modes_print_one_json_line():
+def test_bench_modes_print_one_json_line(tmp_path):
     rc, score = _line(["--mode", "score", *_TINY])
     assert rc == 0 and score["metric"] == "acquisition_scores_per_sec"
     assert score["value"] > 0 and score["kernel"] == "pallas"
@@ -75,8 +76,24 @@ def test_bench_modes_print_one_json_line():
     rc, bad = _line(["--mode", "round", *_TINY, "--kernel", "gather"])
     assert rc == 1 and "carried by --mode score and density" in bad["error"]
 
-    rc, rnd = _line(["--mode", "round", "--rounds-per-launch", "2", *_TINY])
+    m_out, fr = str(tmp_path / "m.jsonl"), str(tmp_path / "flight.json")
+    try:
+        rc, rnd = _line(["--mode", "round", "--rounds-per-launch", "2", *_TINY,
+                         "--metrics-out", m_out, "--flight-recorder", fr])
+    finally:
+        telemetry.uninstall_flight_recorder()
     assert rc == 0 and rnd["metric"] == "al_round_seconds"
+    # The metrics stream of the depth-2 drive, and the flight recorder's
+    # mode and timing marks, dumped at exit.
+    with open(m_out) as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    assert kinds[0] == "meta" and "round" in kinds and "launch" in kinds, kinds
+    assert rnd["flight_recorder"] == fr
+    with open(fr) as f:
+        flight = json.load(f)
+    assert flight["reason"] == "exit"
+    assert {"bench_start", "bench_timing_start", "bench_timing_end", "launch"} <= {
+        e["kind"] for e in flight["events"]}
     for key in ("round_seconds", "round_fit_seconds", "round_score_seconds",
                 "scan_seconds_per_round", "per_round_driver_seconds_per_round",
                 "scan_fusion_speedup", "chunk_first_call_seconds",
@@ -85,6 +102,10 @@ def test_bench_modes_print_one_json_line():
                 "unfused_scan_seconds_per_round", "fused_round_speedup"):
         assert isinstance(rnd[key], float) and rnd[key] >= 0.0, key
     assert rnd["rounds_per_launch"] == 2
+    # The chunk computes its RoundMetrics, as the JAX bench's does; the
+    # metrics-off chunk is timed beside it.
+    assert rnd["scan_metrics_enabled"] is True
+    assert rnd["scan_seconds_per_round_metrics_off"] > 0.0
     assert rnd["serial_touchdown_hidden_fraction"] == 0.0  # depth 1 hides nothing
     assert 0.0 <= rnd["touchdown_hidden_fraction"] <= 1.0
 

@@ -7,18 +7,31 @@ carry one), fused and unfused, at pipeline depth 1 and 2, with ``max_rounds``
 not a multiple of the chunk and with a ``label_budget`` that stops inside a
 chunk; unfused also with a depth-11 device fit (the gather form) and with
 the density strategy. Also the raw chunk program: its stacked ys and its carried-out state
-(picked, active, mask, key data, round) equal the JAX chunk's."""
+(picked, active, mask, key data, round) equal the JAX chunk's.
+
+Telemetry and checkpoints: the metrics-on chunk's RoundMetrics equal the
+per-round driver's, and the JAX chunked driver's (pool_entropy to
+``telemetry.POOL_ENTROPY_RTOL``; depth 1 and 2, K = 3), and
+metrics change no pick; ``config_fingerprint`` is the same in both packages;
+a checkpoint written by the JAX chunked driver resumes in the port and one
+written by the port resumes in JAX, each resumed curve and final mask equal
+to the other package's uninterrupted run; a chunked checkpoint resumes under
+the per-round driver; and a checkpoint written on a 2 x 1 mesh resumes on
+one device."""
 
 import dataclasses
+import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from distributed_active_learning_tpu import config as j_config
 from distributed_active_learning_tpu.data import get_dataset as j_get_dataset
 from distributed_active_learning_tpu.ops import trees_train as j_train
+from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
 from distributed_active_learning_tpu.runtime import loop as j_loop
 from distributed_active_learning_tpu.runtime import state as j_state
 from distributed_active_learning_tpu.strategies import StrategyAux as JAux
@@ -27,6 +40,7 @@ from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.data import get_dataset as t_get_dataset
 from distributed_active_learning_tpu_torch.ops import trees_train as t_train
+from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
 from distributed_active_learning_tpu_torch.runtime import state as t_state
 from distributed_active_learning_tpu_torch.strategies import StrategyAux as TAux
@@ -35,11 +49,11 @@ from distributed_active_learning_tpu_torch.strategies import get_strategy as t_s
 K = 3
 
 
-def _cfgs(fused, max_depth=4, strategy="uncertainty", **kw):
+def _cfgs(fused, max_depth=4, strategy="uncertainty", fit_budget=None, **kw):
     j = j_config.ExperimentConfig(
         data=j_config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
         forest=j_config.ForestConfig(n_trees=8, max_depth=max_depth, kernel="pallas",
-                                     fit="device"),
+                                     fit="device", fit_budget=fit_budget),
         strategy=j_config.StrategyConfig(name=strategy, window_size=15),
         n_start=10, fused_round=fused, **kw,
     )
@@ -94,7 +108,114 @@ def _raw_chunk_parity(fused):
     assert int(j_out.round) == int(t_out.round) == 2
 
 
-def test_chunked_matches_jax():
+def _metrics_chunk_parity():
+    """Metrics on: the chunk (depth 1 and 2) == the per-round driver == the
+    JAX chunked driver, field by field (pool_entropy, the port's native
+    log2, to ``POOL_ENTROPY_RTOL`` of JAX's); picks and records as without
+    metrics."""
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    jcfg, tcfg = _cfgs(False, max_rounds=5, collect_metrics=True)
+    plain = t_loop.run_experiment(dataclasses.replace(tcfg, collect_metrics=False), device="cpu")
+    per_round = t_loop.run_experiment(tcfg, device="cpu")
+    assert _key(per_round) == _key(plain)
+    assert torch.equal(per_round.final_labeled_mask, plain.final_labeled_mask)
+    want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K))
+    for a, b in zip(per_round.records, want.records, strict=True):
+        assert {k: v for k, v in a.metrics.items() if k != "pool_entropy"} == {
+            k: v for k, v in b.metrics.items() if k != "pool_entropy"}, a.round
+        assert abs(a.metrics["pool_entropy"] - b.metrics["pool_entropy"]) <= (
+            POOL_ENTROPY_RTOL * abs(b.metrics["pool_entropy"])), a.round
+    for depth in (1, 2):
+        got = t_loop.run_experiment(
+            dataclasses.replace(tcfg, rounds_per_launch=K, pipeline_depth=depth), device="cpu")
+        assert _key(got) == _key(plain), depth
+        assert [r.metrics for r in got.records] == [r.metrics for r in per_round.records], depth
+        assert torch.equal(got.final_labeled_mask, plain.final_labeled_mask)
+    assert all(sum(r.metrics["picked_hist"]) == 15 for r in got.records)
+
+
+def _fingerprints_agree():
+    """The same experiment hashes to the same fingerprint in both packages."""
+    variants = [
+        {},
+        dict(max_depth=11),
+        dict(strategy="density"),
+        dict(fit_budget=96, max_rounds=7, rounds_per_launch=3, label_budget=70),
+    ]
+    for kw in variants:
+        jcfg, tcfg = _cfgs(False, **kw)
+        assert t_ckpt.config_fingerprint(tcfg) == j_ckpt.config_fingerprint(jcfg), kw
+        assert t_ckpt.accepted_fingerprints(tcfg) == j_ckpt.accepted_fingerprints(jcfg), kw
+        assert t_ckpt.kernel_ident(tcfg) == j_ckpt.kernel_ident(jcfg)
+    # Loop controls stay out of the identity; the strategy is in it.
+    assert (t_ckpt.config_fingerprint(_cfgs(False, max_rounds=3)[1])
+            == t_ckpt.config_fingerprint(_cfgs(False, max_rounds=9, rounds_per_launch=3)[1]))
+    assert (t_ckpt.config_fingerprint(_cfgs(False)[1])
+            != t_ckpt.config_fingerprint(_cfgs(False, strategy="margin")[1]))
+
+
+def _final_mask(ckpt_dir):
+    with np.load(os.path.join(ckpt_dir, f"alstate_{j_ckpt.latest_step(ckpt_dir)}.npz")) as z:
+        return z["labeled_mask"]
+
+
+def _checkpoints_cross_packages(tmp_path):
+    """Stop at 2 rounds, resume to 5, across the packages, chunked (K = 3):
+    JAX writes and the port resumes, the port writes and JAX resumes; a
+    chunk's checkpoint resumes under the per-round driver and a 2 x 1 mesh
+    checkpoint on one device. The fit window is pinned (fit_budget), so that
+    every run fits the same window; final masks of the JAX runs are read
+    from their last checkpoint."""
+    jcfg, tcfg = _cfgs(False, fit_budget=96, rounds_per_launch=K, pipeline_depth=2)
+    ckd = lambda name: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1)
+    t_full = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=5), device="cpu")
+    j_full = j_loop.run_experiment(dataclasses.replace(jcfg, max_rounds=5, **ckd("j_full")))
+    assert _key(t_full) == _key(j_full)
+    np.testing.assert_array_equal(_final_mask(tmp_path / "j_full"),
+                                  t_full.final_labeled_mask.numpy())
+
+    # JAX writes, the port resumes.
+    j_loop.run_experiment(dataclasses.replace(jcfg, max_rounds=2, **ckd("j2t")))
+    resumed = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=3, **ckd("j2t")),
+                                    device="cpu")
+    assert _key(resumed) == _key(j_full)
+    np.testing.assert_array_equal(resumed.final_labeled_mask.numpy(),
+                                  _final_mask(tmp_path / "j_full"))
+    # The port writes, JAX resumes.
+    first = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=2, **ckd("t2j")),
+                                  device="cpu")
+    assert sorted(os.listdir(tmp_path / "t2j")) == ["alstate_2.npz"]  # one chunk boundary
+    resumed = j_loop.run_experiment(dataclasses.replace(jcfg, max_rounds=3, **ckd("t2j")))
+    assert _key(resumed) == _key(t_full)
+    np.testing.assert_array_equal(_final_mask(tmp_path / "t2j"), t_full.final_labeled_mask.numpy())
+    # The port's chunk checkpoint resumes under its per-round driver.
+    per_round = dataclasses.replace(tcfg, rounds_per_launch=1)
+    t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=2, **ckd("chunk2round")),
+                          device="cpu")
+    resumed = t_loop.run_experiment(
+        dataclasses.replace(per_round, max_rounds=3, **ckd("chunk2round")), device="cpu")
+    assert _key(resumed) == _key(t_full) and _key(first) == _key(t_full)[:2]
+    assert torch.equal(resumed.final_labeled_mask, t_full.final_labeled_mask)
+    # A 2 x 1 mesh checkpoint (per round: the chunk under a mesh is not
+    # ported) resumes on one device.
+    mesh = dataclasses.replace(per_round, mesh=t_config.MeshConfig(data=2), max_rounds=2,
+                               **ckd("mesh"))
+    t_loop.run_experiment(mesh, device="cpu")
+    assert _final_mask(tmp_path / "mesh").shape == (300,)
+    resumed = t_loop.run_experiment(
+        dataclasses.replace(tcfg, max_rounds=3, **ckd("mesh")), device="cpu")
+    assert _key(resumed) == _key(t_full)
+    assert torch.equal(resumed.final_labeled_mask, t_full.final_labeled_mask)
+    # Another experiment's checkpoint is refused.
+    other = dataclasses.replace(tcfg, strategy=t_config.StrategyConfig(name="margin",
+                                                                        window_size=15))
+    with pytest.raises(ValueError, match="refusing to resume a different experiment"):
+        t_loop.run_experiment(dataclasses.replace(other, max_rounds=1, **ckd("mesh")),
+                              device="cpu")
+
+
+def test_chunked_matches_jax(tmp_path):
     cases = {
         "max_rounds 5 (not a multiple of 3)": dict(max_rounds=5),
         "label_budget 70 (stops inside the second chunk)": dict(label_budget=70),
@@ -137,3 +258,7 @@ def test_chunked_matches_jax():
         assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask), what
         want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K))
         assert got.to_reference_log() == want.to_reference_log(), what
+
+    _metrics_chunk_parity()
+    _fingerprints_agree()
+    _checkpoints_cross_packages(tmp_path)

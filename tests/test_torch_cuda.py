@@ -406,6 +406,58 @@ def test_chunked_graph_matches_per_round(cuda):
             assert on_cpu.to_reference_log() == got.to_reference_log()
 
 
+def test_metrics_chunk_and_resume_on_the_card(cuda, tmp_path):
+    """RoundMetrics in the graphed chunk (depth 1 and 2) equal the per-round
+    driver's on the card, and the CPU's (pool_entropy, a sum in another
+    order, to ``telemetry.POOL_ENTROPY_RTOL``), and metrics change no pick; a run
+    stopped at 2 rounds and resumed to 5 on the card, chunked and per round
+    from the chunk's checkpoint, equals the uninterrupted run."""
+    import dataclasses
+    import os
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.runtime import loop
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas",
+                                   fit_budget=96),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        n_start=10, max_rounds=5, collect_metrics=True)
+    per_round = loop.run_experiment(base, device=cuda)
+    on_cpu = loop.run_experiment(base, device="cpu")
+    plain = loop.run_experiment(dataclasses.replace(base, collect_metrics=False), device=cuda)
+    assert per_round.to_reference_log() == plain.to_reference_log() == on_cpu.to_reference_log()
+    for a, b in zip(per_round.records, on_cpu.records, strict=True):
+        assert {k: v for k, v in a.metrics.items() if k != "pool_entropy"} == {
+            k: v for k, v in b.metrics.items() if k != "pool_entropy"}, a.round
+        assert abs(a.metrics["pool_entropy"] - b.metrics["pool_entropy"]) <= (
+            POOL_ENTROPY_RTOL * abs(b.metrics["pool_entropy"])), a.round
+    for depth in (1, 2):
+        c = dataclasses.replace(base, rounds_per_launch=3, pipeline_depth=depth)
+        before = trees_pallas.launches
+        got = loop.run_experiment(c, device=cuda)
+        # One eager warm-up round and two replays of 3: K1 twice a round.
+        assert trees_pallas.launches - before == 2 * (1 + 2 * 3)
+        assert got.graph_stats["captures"] == 1 and got.graph_stats["replays"] == 2
+        assert [r.metrics for r in got.records] == [r.metrics for r in per_round.records]
+        assert torch.equal(got.final_labeled_mask, plain.final_labeled_mask)
+    ck = str(tmp_path / "ck")
+    chunked = dataclasses.replace(base, rounds_per_launch=3, checkpoint_dir=ck,
+                                  checkpoint_every=1)
+    loop.run_experiment(dataclasses.replace(chunked, max_rounds=2), device=cuda)
+    assert os.listdir(ck) == ["alstate_2.npz"]
+    os.makedirs(tmp_path / "ck2")
+    os.link(os.path.join(ck, "alstate_2.npz"), tmp_path / "ck2" / "alstate_2.npz")
+    for c in (chunked, dataclasses.replace(chunked, rounds_per_launch=1,
+                                           checkpoint_dir=str(tmp_path / "ck2"))):
+        resumed = loop.run_experiment(dataclasses.replace(c, max_rounds=3), device=cuda)
+        assert resumed.to_reference_log() == plain.to_reference_log()
+        assert [r.metrics for r in resumed.records] == [r.metrics for r in per_round.records]
+        assert torch.equal(resumed.final_labeled_mask, plain.final_labeled_mask)
+
+
 def test_host_fit_heaps_through_k1_match_plain(cuda, tmp_path):
     """Host-fit-shaped forests (made with numpy: the machine with the card
     has no scikit-learn), carried to the card through a forest file:

@@ -5,12 +5,20 @@ fused round on and off; unfused also with the host (scikit-learn) fit under
 kernels gemm, pallas and gather, a depth-11 device fit (the gather form) and
 the density strategy. Records, the reference-format log, every round's
 picks, the final mask and the test-set probabilities (a mean over trees in
-XLA's summation order) are identical. Also: the port runs in a fresh
-interpreter without importing JAX or the JAX package (the bench, the
-pipeline and the kernel-variant sweep included), and refuses what it does
-not carry yet by name."""
+XLA's summation order) are identical. Unfused, the RoundMetrics of every
+round equal the JAX package's field by field (bit-equal), the MetricsWriter
+JSONL has the JAX writer's event kinds and keys, and a checkpointed run
+resumes to the uninterrupted run's records, metrics and final mask. Also:
+the port runs in a fresh interpreter without importing JAX or the JAX
+package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
+the kernel-variant sweep included; its metrics JSONL renders through
+``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
+registry's Prometheus text, and it refuses what it does not carry yet by
+name."""
 
 import dataclasses
+import json
+import os
 import subprocess
 import sys
 
@@ -26,7 +34,9 @@ from distributed_active_learning_tpu.models import forest as j_forest
 from distributed_active_learning_tpu.ops import forest_eval as j_eval
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu.runtime import loop as j_loop
+from distributed_active_learning_tpu.runtime import obs as j_obs
 from distributed_active_learning_tpu.runtime import state as j_state
+from distributed_active_learning_tpu.runtime import telemetry as j_telemetry
 from distributed_active_learning_tpu.strategies import get_strategy as j_strategy
 from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch import prng
@@ -34,7 +44,9 @@ from distributed_active_learning_tpu_torch.data import get_dataset as t_get_data
 from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
 from distributed_active_learning_tpu_torch.ops import trees_train as t_train
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+from distributed_active_learning_tpu_torch.runtime import obs as t_obs
 from distributed_active_learning_tpu_torch.runtime import state as t_state
+from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
 
 
@@ -115,12 +127,105 @@ def _drive_port(cfg):
         forest = fit(st, r)
         st, picked, _ = round_fn(forest, st, aux)
         picks.append(picked.numpy())
-    proba = t_eval.proba(forest, torch.from_numpy(b.test_x)).numpy()
+    test_x = torch.from_numpy(b.test_x)
+    proba = t_eval.proba(forest, test_x).numpy()
+    # A forest evaluated once (the metrics path's) gives the same bits, and
+    # refuses any other input than its own instead of evaluating again.
+    ev = t_eval.evaluated(forest, test_x)
+    np.testing.assert_array_equal(t_eval.proba(ev, test_x).numpy(), proba)
+    with pytest.raises(ValueError, match="another"):
+        t_eval.votes(ev, test_x.clone())
     return picks, st.labeled_mask.numpy(), proba
 
 
+def _events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _metrics_match_jax(tmp_path):
+    """RoundMetrics, per round, against the JAX package's: bit-equal in
+    every field (score_mean included: its sum takes XLA's reduce order
+    through ``xla_f32.row_sum``) but pool_entropy, which the port computes
+    with the native log2 and holds to ``telemetry.POOL_ENTROPY_RTOL`` of
+    JAX's value. Lower- and higher-is-better
+    strategies, the host fit, and a window of 40 picks (a sum past 32
+    terms). The density score itself is the JAX package's only to
+    ``similarity.MASS_RTOL`` of the largest |mass| (its picks are equal), so
+    under density the four score fields are held to twice that of the
+    largest |score| (a margin is a difference of two scores); the other
+    fields stay bit-equal. The writers' event streams have the same kinds
+    and keys."""
+    from distributed_active_learning_tpu_torch.ops.similarity import MASS_RTOL
+
+    score_fields = ("score_min", "score_mean", "score_max", "score_margin")
+    cases = {
+        "device fit, pallas": ({}, 15),
+        "density (higher is better)": (dict(strategy="density"), 15),
+        "host fit, gemm": (dict(fit="host", kernel="gemm"), 15),
+        "window 40": ({}, 40),
+    }
+    for i, (what, (change, window)) in enumerate(cases.items()):
+        jcfg, _ = _cfgs(False, **change)
+        jcfg = dataclasses.replace(jcfg, max_rounds=2 if window > 15 else 3, strategy=(
+            dataclasses.replace(jcfg.strategy, window_size=window)))
+        tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+        jw = j_telemetry.MetricsWriter(str(tmp_path / f"j{i}.jsonl"))
+        want = j_loop.run_experiment(jcfg, metrics=jw)
+        jw.close()
+        tw = t_telemetry.MetricsWriter(str(tmp_path / f"t{i}.jsonl"))
+        got = t_loop.run_experiment(tcfg, metrics=tw, device="cpu")
+        tw.close()
+        assert got.to_reference_log() == want.to_reference_log(), what
+        for a, b in zip(got.records, want.records):
+            assert list(a.metrics) == list(b.metrics), what
+            scale = max(abs(b.metrics["score_min"]), abs(b.metrics["score_max"]))
+            for field in b.metrics:  # floats from float32: == is bit-equality
+                if "density" in what and field in score_fields:
+                    assert abs(a.metrics[field] - b.metrics[field]) <= 2 * MASS_RTOL * scale, (
+                        what, a.round, field)
+                elif field == "pool_entropy":
+                    assert abs(a.metrics[field] - b.metrics[field]) <= (
+                        t_telemetry.POOL_ENTROPY_RTOL * abs(b.metrics[field])), (what, a.round)
+                else:
+                    assert a.metrics[field] == b.metrics[field], (what, a.round, field)
+        assert sum(got.records[0].metrics["picked_hist"]) == window
+        j_ev, t_ev = _events(tmp_path / f"j{i}.jsonl"), _events(tmp_path / f"t{i}.jsonl")
+        assert [e["kind"] for e in t_ev] == [e["kind"] for e in j_ev], what
+        assert [sorted(e) for e in t_ev] == [sorted(e) for e in j_ev], what
+        for te, je in zip(t_ev, j_ev):
+            if te["kind"] == "round":
+                assert te["train_time"] > 0 and te["eval_time"] > 0
+                assert {k: te[k] for k in ("round", "n_labeled", "accuracy")} == {
+                    k: je[k] for k in ("round", "n_labeled", "accuracy")}
+
+
+def _per_round_resume(tmp_path):
+    """A checkpointed per-round run stopped at 2 rounds and resumed to 5
+    equals the uninterrupted 5-round run: records with their metrics (the
+    first two from the checkpoint's records_json), final mask. The fit
+    window is pinned, so that both runs fit the same window."""
+    _, tcfg = _cfgs(False, fit_budget=96)
+    tcfg = dataclasses.replace(tcfg, collect_metrics=True)
+    full = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=5), device="cpu")
+    ck = str(tmp_path / "ckpt")
+    resumable = dataclasses.replace(tcfg, checkpoint_dir=ck, checkpoint_every=1)
+    first = t_loop.run_experiment(dataclasses.replace(resumable, max_rounds=2), device="cpu")
+    assert sorted(os.listdir(ck)) == ["alstate_1.npz", "alstate_2.npz"]
+    with np.load(os.path.join(ck, "alstate_2.npz")) as z:
+        assert z["labeled_mask"].dtype == np.bool_ and z["labeled_mask"].shape == (300,)
+        assert z["key"].dtype == np.uint32 and z["round"].dtype == np.int32
+    resumed = t_loop.run_experiment(dataclasses.replace(resumable, max_rounds=3), device="cpu")
+    key = lambda res: [(r.round, r.n_labeled, r.accuracy, r.metrics) for r in res.records]
+    assert key(resumed) == key(full) and key(first) == key(full)[:2]
+    assert torch.equal(resumed.final_labeled_mask, full.final_labeled_mask)
+    # A finished run resumes to itself: nothing left to do.
+    again = t_loop.run_experiment(dataclasses.replace(resumable, max_rounds=0), device="cpu")
+    assert key(again) == key(full)
+
+
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
-def test_run_experiment_matches_jax(fused):
+def test_run_experiment_matches_jax(fused, tmp_path):
     cases = {"device fit, pallas": {}, **({} if fused else _UNFUSED_ONLY)}
     for what, change in cases.items():
         jcfg, tcfg = _cfgs(fused, **change)
@@ -138,18 +243,40 @@ def test_run_experiment_matches_jax(fused):
         np.testing.assert_array_equal(j_mask, t_mask, what)
         np.testing.assert_array_equal(got.final_labeled_mask.numpy(), j_mask, what)
         np.testing.assert_array_equal(t_proba, j_proba, what)
+    if not fused:
+        _metrics_match_jax(tmp_path)
+        _per_round_resume(tmp_path)
 
 
 _ISOLATION = """
-import sys
+import contextlib, io, json, os, runpy, sys, tempfile
 from distributed_active_learning_tpu_torch import bench, parallel, run
 from distributed_active_learning_tpu_torch.benches import pallas_variants
 from distributed_active_learning_tpu_torch.models import forest_io
 from distributed_active_learning_tpu_torch.ops import ring_topk
 from distributed_active_learning_tpu_torch.parallel import collectives, kernels, mesh
-from distributed_active_learning_tpu_torch.runtime import pipeline
+from distributed_active_learning_tpu_torch.runtime import checkpoint, obs, pipeline, telemetry
 small = ["--device", "cpu", "--n-samples", "200", "--trees", "4", "--window", "5",
          "--rounds", "2", "--quiet"]
+tmp = tempfile.mkdtemp()
+m_out, ck, fr = (os.path.join(tmp, p) for p in ("m.jsonl", "ckpt", "flight.json"))
+observed = ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "2",
+            "--metrics-out", m_out, "--checkpoint-dir", ck, "--checkpoint-every", "1",
+            "--flight-recorder", fr]
+assert run.main(small + observed) == 0
+assert os.listdir(ck) == ["alstate_2.npz"]  # one chunk, one touchdown
+assert json.load(open(fr))["reasons"] == ["exit"]
+kinds = [json.loads(line)["kind"] for line in open(m_out)]
+assert kinds.count("round") == 2 and kinds.count("launch") == 1, kinds
+summary = io.StringIO()
+with contextlib.redirect_stdout(summary):
+    sys.argv = ["summarize_metrics.py", m_out]
+    try:
+        runpy.run_path(os.path.join("benches", "summarize_metrics.py"), run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+assert "== rounds ==" in summary.getvalue() and "chunk_scan" in summary.getvalue()
+telemetry.uninstall_flight_recorder()
 for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round"],
               ["--fit", "device", "--kernel", "pallas", "--mesh-data", "2", "--n-samples", "201"],
               ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "3",
@@ -181,20 +308,37 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 12
+    assert out.stdout.count("Iteration") == 14
     assert "REFUSED" in out.stdout and "mesh-and-pod slice" in out.stdout
+    # The ops plane: one sequence of counter, gauge, histogram and heartbeat
+    # calls renders the same Prometheus text in both packages (JAX's obs.py
+    # imports no JAX, but its package does: this runs outside the isolated
+    # interpreter).
+    renders = []
+    for obs in (j_obs, t_obs):
+        reg = obs.Registry()
+        reg.counter("launches", "jitted program launches", program="chunk_scan").inc(3)
+        reg.counter("recompiles_after_warmup", "jit-cache growths past each program's first call")
+        reg.gauge("pipeline_inflight", "chunk launches currently in flight").set(2)
+        h = reg.histogram("launch_seconds", "per-launch wall seconds", program="chunk_scan")
+        for v in (3e-5, 0.0021, 0.0226, 0.5, 250.0):
+            h.observe(v)
+        reg.heartbeat("pipeline_touchdown", max_age_seconds=60)
+        renders.append(reg.render_prometheus())
+        assert obs.PROM_PREFIX == "dal_" and obs.LATENCY_BUCKETS == j_obs.LATENCY_BUCKETS
+    assert renders[0] == renders[1]
+    assert "dal_recompiles_after_warmup_total 0" in renders[1]
 
 
-def test_unported_features_are_refused_by_name():
+def test_unported_features_are_refused_by_name(tmp_path, capsys):
     _, base = _cfgs(False)
     mesh = t_config.MeshConfig(data=2)
     cases = [
         (dict(rounds_per_launch=4, mesh=mesh), "under a device mesh needs"),
-        (dict(rounds_per_launch=4, checkpoint_dir="ckpt", checkpoint_every=1), "checkpoint slice"),
+        (dict(mesh=mesh, collect_metrics=True), "RoundMetrics under a device mesh .* mesh-and-pod"),
         (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gemm")),
          "under a device mesh"),
         (dict(forest=dataclasses.replace(base.forest, quantize="bf16")), "quantization"),
-        (dict(checkpoint_dir="ckpt", checkpoint_every=1), "checkpoint slice"),
         # The mesh halves of the gather form, the host fit and density.
         (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gather")),
          "gather form .* mesh-and-pod slice"),
@@ -208,6 +352,28 @@ def test_unported_features_are_refused_by_name():
     for change, why in cases:
         with pytest.raises(NotImplementedError, match=why):
             t_loop.run_experiment(dataclasses.replace(base, **change), device="cpu")
+    # With a writer: metrics under a mesh, and --roofline (the pre-flight
+    # slice), in the loop and in the CLI.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.chdir(tmp_path)
+        writer = t_telemetry.MetricsWriter("m.jsonl")
+        for change, why in ((dict(mesh=mesh), "RoundMetrics under a device mesh"),
+                            (dict(roofline=True, rounds_per_launch=4), "pre-flight slice")):
+            with pytest.raises(NotImplementedError, match=why):
+                t_loop.run_experiment(dataclasses.replace(base, **change), metrics=writer,
+                                      device="cpu")
+        writer.close()
+        from distributed_active_learning_tpu_torch import run as t_run
+
+        for argv, why in ((["--roofline"], "pre-flight slice"),
+                          (["--checkpoint-dir", "ck"], "both --checkpoint-dir and")):
+            with pytest.raises(SystemExit):
+                t_run.main(["--device", "cpu", *argv])
+            assert why in capsys.readouterr().err
+    # The fused round refuses metrics with the JAX package's reason.
+    with pytest.raises(ValueError, match="fused_round unavailable: RoundMetrics consume"):
+        t_loop.run_experiment(dataclasses.replace(base, fused_round=True, collect_metrics=True),
+                              device="cpu")
     # The chunked driver itself is carried: 3 rounds in one launch of 4.
     chunked = t_loop.run_experiment(dataclasses.replace(base, rounds_per_launch=4), device="cpu")
     assert [r.n_labeled for r in chunked.records] == [10, 25, 40]
