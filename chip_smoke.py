@@ -49,6 +49,12 @@ and prints no result:
    uncertainty at phase 2b's other shapes: per-tile candidates and merged
    picks bit-equal; a path matrix that is not a heap is refused by K2 and K3
    before any launch;
+3c. K1, K2 and K3 on quantized payloads: for int8 and bf16 storage
+   (``quantize_forest`` of fits on bf16-snapped bin edges) at full width,
+   the test draw, a mesh shard, depths 1, 2, 3 and 8 on edge rows and the
+   streamed 256-tree shape, each kernel bit-equal to its plain version and
+   its walk; printed: the rows whose votes move against f32 storage of the
+   same fit, and the leaves at exactly 0.5 of the f32 forest;
 3b. the ring copy K4 (csrc/ring_hop.cu): a 4-shard ring of k = 100 windows
    on the card (four shards on cuda:0), each hop and one ring step of all
    four windows (one launch) bit-equal to the plain copies and the merge
@@ -113,6 +119,24 @@ and prints no result:
    the pool entropy's device time at the pool (graph-replayed), the
    dispatch snapshot's device time, ``checkpoint.save``'s host time and
    ``device_memory_gauges``;
+4g. quantized storage: phase 4's configuration at ``quantize`` int8
+   (fused, unfused, chunked fused, the 4 x 2 mesh fused on the one card) and
+   bf16 (fused, unfused, chunked unfused, the mesh fused), launches counted
+   as phase 4's: all runs of a payload equal in records and final mask;
+   small checkerboard runs (fused, unfused, chunked, mesh) card == CPU;
+4h. multiclass: the pool's labels as four classes by quartile of x0 +
+   0.3 x1, unfused, uncertainty (the top-2 margin) with RoundMetrics and
+   entropy, per round and chunked (K = 4), and uncertainty on the 4 x 2 mesh:
+   chunked == per round (records, masks, metrics), mesh == single device;
+   K1 launches 2 x 4 a round (8 x 2 x 4 on the mesh); the fit's time at
+   C = 4 beside phase 4's C = 2;
+4i. LAL: phase 4's configuration with ``strategy="lal"``, its regressor
+   200 trees of depth 10 (numpy trees in a scikit-learn fit's shapes,
+   thresholds inside each feature's range) through a forest file with the
+   meta ``load_or_train_lal_regressor`` expects, per round and chunked:
+   chunked == per round, K1 twice a round (the regressor is the gather
+   form); small checkerboard LAL runs card == CPU; printed: the regressor's
+   time over the pool's features and the chunk graph's private pool;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -124,13 +148,18 @@ and prints no result:
    (2048, 8) on the pool; ``merge_tile_topk`` at
    the fused round's shape; ``forest_eval.votes`` of a depth-12 gather form
    and ``similarity_mass`` at the pool beside their byte bounds, and the
-   host milliseconds of packing phase 2d's forest into heaps; then one fused
+   host milliseconds of packing phase 2d's forest into heaps; K1, K2 and K3
+   at the int8 and bf16 payloads at the same shapes (bounds count the payload
+   at its width), and K1 on a 2,000-tree depth-8 regressor over the pool's
+   [284,807, 5] LAL features; then one fused
    and one unfused main-path round and one mesh fused round under
    torch.profiler (device time by kernel, device busy share);
 6. the port's bench at the benchmark width: ``--mode score``, ``--mode
-   round`` and ``--mode variants`` (K1, two K5 tilings, one K6), each JSON
-   line printed on a line of its own. K5's and K6's launch counts are read
-   over the variants run, counted from 0.
+   round``, ``--mode variants`` (K1, two K5 tilings, one K6) and ``--mode
+   lal`` (``--lal-model``: a 2,000-tree depth-8 regressor file; K1 twice a
+   query; the host-fit leg reported skipped without scikit-learn), each
+   JSON line printed on a line of its own. K5's and K6's launch counts are
+   read over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
 is the count of the kernel's main path, single-device fused for K1 and K2,
@@ -138,7 +167,10 @@ mesh fused for K3 and K4, the bench's variants mode for K5 and K6;
 ``launches_by_path`` every path's, phases 4d, 4e and 4f included;
 ``launch_config`` for K1, K2 and K3; K1's ``metrics_path_launches`` from
 phase 4f; ``telemetry`` phase 4f's numbers; ``new_paths`` phase 5's new
-times and the fit / round / eval split of each round of phases 4d and 4e),
+times and the fit / round / eval split of each round of phases 4d and 4e;
+``by_payload`` for K1, K2 and K3 the int8 and bf16 times, bounds, launch
+configurations and largest differences; ``multiclass`` and ``lal`` phases
+4h and 4i's numbers),
 the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -234,7 +266,7 @@ def edge_rows(gf, rng, n: int) -> torch.Tensor:
     +inf or -inf (or one feature of it is), and others hold a node's
     threshold exactly or the bf16 tie above its rounding."""
     x = rng.normal(size=(n, N_FEAT)).astype(np.float32)
-    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.cpu().numpy()
+    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.float().cpu().numpy()
     for r in range(n):
         kind = r % 8
         if kind < 3:
@@ -645,6 +677,84 @@ def main() -> int:
           "no launch")
     del walked_votes, gf60k, vote_shapes
 
+    # -- phase 3c: K1, K2 and K3 on quantized payloads ------------------------
+    t_phase = time.perf_counter()
+    PAYLOADS = ("int8", "bf16")
+
+    def fit_q(n_trees: int, mode: str, depth_: int = DEPTH, seed_off: int = 1):
+        """A device fit on bf16-snapped bin edges: the forest with f32 storage
+        and with ``mode``'s storage (bf16 thresholds, narrow leaves)."""
+        binned = trees_train.make_bins(train_x, BINS, quantize=mode)
+        f, th, v = trees_train.fit_forest_device(
+            binned.codes, train_y, torch.ones(N_START, device=dev), binned.edges,
+            prng.key(args.seed + seed_off), n_trees=n_trees, max_depth=depth_, n_bins=BINS)
+        wide = trees_train.heap_gemm_forest(f, th, v, depth_)
+        return wide, trees_train.quantize_forest(wide, mode)
+
+    qf = {}  # payload -> its forests: the pool's, a mesh shard's, the streamed one
+    payload_err = {m: dict(forest_leaves=0.0, round_megakernel=0.0, fused_votes=0.0)
+                   for m in PAYLOADS}
+    half_leaves = int((gf.value == 0.5).sum())
+    for mode in PAYLOADS:
+        wide, g = fit_q(TREES, mode)
+        g_shard = mesh_lib.shard_forest(g, mesh_lib.make_mesh(1, 2, devices=[dev, dev]))[0][0]
+        g256 = fit_q(256, mode)[1]
+        qf[mode] = {"pool": g, "shard": g_shard, "streamed": g256, "wide": wide}
+        h = trees_pallas.heap_operands(g)
+        if h.val.dtype != {"int8": torch.int8, "bf16": torch.bfloat16}[mode]:
+            fail(f"{mode} heap payload is {h.val.dtype}")
+        shapes = {"full": (g, pool), "test": (g, test_x), "mesh shard": (g_shard, pool[:n_shard])}
+        for d_ in (1, 2, 3, 8):
+            g_d = fit_q(16, mode, d_, d_)[1]
+            shapes[f"depth {d_} edge rows"] = (g_d, edge_rows(g_d, rng, 4099).to(dev))
+        shapes["streamed 256 trees"] = (g256, pool)
+        for label, (g_, x) in shapes.items():
+            h_ = trees_pallas.heap_operands(g_)
+            if label != "streamed 256 trees":
+                got = trees_pallas.predict_leaves_pallas(g_, x)
+                ref = trees_pallas.predict_leaves_plain(g_, x)
+                walked = trees_pallas.walk_leaves_plain(h_, x)
+                torch.cuda.synchronize()
+                if not (torch.equal(got, ref) and torch.equal(got, walked)):
+                    fail(f"forest_leaves on the {mode} payload != plain at {label}")
+                payload_err[mode]["forest_leaves"] = max(
+                    payload_err[mode]["forest_leaves"], float((got - ref).abs().max()))
+                del got, ref, walked
+            if label == "test":
+                continue
+            votes = round_fused.fused_votes(g_, x)
+            walked_v = round_fused.walk_votes_plain(h_, x)
+            if not (torch.equal(votes, round_fused.fused_votes_plain(g_, x))
+                    and torch.equal(votes, walked_v)):
+                fail(f"fused_votes on the {mode} payload != plain at {label}")
+            sel = selectable[:x.shape[0]]
+            table = round_fused.score_table(g_.n_trees, "uncertainty", dev)
+            tv, ti = round_fused._launch_megakernel(h_, x, sel, table, WINDOW)
+            pv, pi = round_fused.megakernel_plain(g_, x, sel, table, WINDOW)
+            wv, wi = round_fused.tile_topk_plain(walked_v, sel, table, WINDOW)
+            torch.cuda.synchronize()
+            if not (torch.equal(tv, pv) and torch.equal(ti, pi) and torch.equal(tv, wv)
+                    and torch.equal(ti, wi)):
+                fail(f"round_megakernel on the {mode} payload != plain at {label}")
+            finite = torch.isfinite(pv)
+            payload_err[mode]["round_megakernel"] = max(
+                payload_err[mode]["round_megakernel"],
+                float(torch.where(finite, tv - pv, 0.0).abs().max()))
+            modes = {name: round_fused.launch_config(name, h_, *x.shape, dev)["mode"]
+                     for name in ("fused_votes", "round_megakernel")}
+            if any((m_ == "streamed") != label.startswith("streamed") for m_ in modes.values()):
+                fail(f"{mode} payload at {label}: launch modes {modes}")
+        # The payload changes votes only where a leaf's stored value falls on
+        # the other side of 0.5: int8 stores 0.5 as 64, and 64 / 127 > 0.5.
+        moved = int((round_fused.fused_votes(g, pool) != round_fused.fused_votes(wide, pool)).sum())
+        print(f"# {mode} payload (thresholds bf16, leaves {h.val.dtype}, {h.val.shape[1]} a tree): "
+              "K1 (full, test, mesh shard, depths 1/2/3/8 on edge rows), K3 and K2 (full, shard, "
+              "depths, streamed 256 trees) bit-equal to their plain versions and walks; rows "
+              f"whose votes move against f32 storage of the same fit: {moved} of {N_POOL}")
+    print(f"# leaves at exactly 0.5 in the f32 bench forest: {half_leaves} "
+          f"(int8 stores them as 64 / 127 > 0.5)")
+    print(f"# phase 3c: {time.perf_counter() - t_phase:.1f}s")
+
     # -- phase 3b: K4 and the ring -----------------------------------------
     def ring_windows(devs, scores, sel):
         n_local = scores.shape[0] // len(devs)
@@ -756,12 +866,12 @@ def main() -> int:
     launches = {}
     runs = {}
 
-    def drive(path: str, fused: bool, mesh=(1, 1), devices=None, **kw):
+    def drive(path: str, fused: bool, mesh=(1, 1), devices=None, data=None, **kw):
         dbg = Debugger(enabled=False)
         zero_counts()
         t0 = time.perf_counter()
-        res = loop.run_experiment(cfg(fused, mesh, **kw), bundle=bundle, debugger=dbg, device=dev,
-                                  devices=devices)
+        res = loop.run_experiment(cfg(fused, mesh, **kw), bundle=data or bundle, debugger=dbg,
+                                  device=dev, devices=devices)
         wall = time.perf_counter() - t0
         launches[path] = counts()
         runs[path] = res
@@ -1190,6 +1300,176 @@ def main() -> int:
           f"({kind}, {smi})")
     print(f"# phase 4f: {time.perf_counter() - t_phase:.1f}s")
 
+    # -- phase 4g: quantized storage on the main path -------------------------
+    t_phase = time.perf_counter()
+    quant_runs = {"int8": ("fused", "unfused", "chunked_fused", "mesh_fused"),
+                  "bf16": ("fused", "unfused", "chunked_unfused", "mesh_fused")}
+    for mode, paths in quant_runs.items():
+        qforest = dataclasses.replace(cfg(False).forest, quantize=mode)
+        for kind_ in paths:
+            path = f"{mode}_{kind_}"
+            fused = kind_.endswith("_fused") or kind_ == "fused"
+            if kind_.startswith("chunked"):
+                # One eager warm-up round, then one replay of K rounds.
+                want_launches[path] = dict(zero, forest_leaves=(1 + K) * (1 if fused else 2),
+                                           round_megakernel=(1 + K) if fused else 0)
+                drive(path, fused, forest=qforest, rounds_per_launch=K)
+                check_chunked(path, f"{mode}_{'fused' if fused else 'unfused'}")
+            elif kind_.startswith("mesh"):
+                want_launches[path] = dict(want_launches["mesh_fused"])
+                drive(path, True, mesh=(4, 2), devices=one_card, forest=qforest)
+            else:
+                want_launches[path] = dict(want_launches[kind_])
+                drive(path, fused, forest=qforest)
+        ref = runs[f"{mode}_fused"]
+        ref_recs = [(r.round, r.n_labeled, r.accuracy) for r in ref.records]
+        for other in (f"{mode}_unfused", f"{mode}_mesh_fused"):
+            got = [(r.round, r.n_labeled, r.accuracy) for r in runs[other].records]
+            if got != ref_recs or not torch.equal(runs[other].final_labeled_mask,
+                                                  ref.final_labeled_mask):
+                fail(f"{other} differs from {mode}_fused: {got} vs {ref_recs}")
+        small_q = dataclasses.replace(small, forest=dataclasses.replace(small.forest,
+                                                                        quantize=mode))
+        for c in (small_q, dataclasses.replace(small_q, fused_round=False),
+                  dataclasses.replace(small_q, rounds_per_launch=2),
+                  dataclasses.replace(small_q, mesh=MeshConfig(4, 2))):
+            on_card = loop.run_experiment(c, device=dev, devices=one_card if c.mesh.data > 1
+                                          else None)
+            on_cpu = loop.run_experiment(c, device="cpu")
+            if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                    on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+                fail(f"small {mode} run ({c.fused_round=}, {c.rounds_per_launch=}, "
+                     f"{c.mesh=}) on the card != CPU")
+        same = ref_recs == recs[True] and torch.equal(ref.final_labeled_mask, masks[True])
+        print(f"# quantized storage {mode}: fused == unfused == 4 x 2 mesh fused (K3 and K4 on the "
+              f"{mode} payload) == chunked (K = {K}), records and final mask; small checkerboard "
+              f"runs, fused, unfused, chunked and on the mesh: card == CPU. Picks against f32 "
+              f"storage: {'equal' if same else 'differ'} (bf16-snapped edges, and {half_leaves} "
+              f"leaves at 0.5 in the f32 forest of phase 3c)")
+    print(f"# phase 4g: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4h: multiclass ----------------------------------------------
+    t_phase = time.perf_counter()
+    C = 4
+    s_pool, s_test = (a[:, 0] + 0.3 * a[:, 1] for a in (pool_np, test_np))
+    quart = np.quantile(s_pool, [0.25, 0.5, 0.75])
+    four = DataBundle(train_x=pool_np, train_y=np.digitize(s_pool, quart).astype(np.int32),
+                      test_x=test_np, test_y=np.digitize(s_test, quart).astype(np.int32),
+                      name="bench_pool_4_classes")
+    # K1 once a plane to score (read again by the pool entropy) and once a
+    # plane for test accuracy; chunked, one eager warm-up round and one
+    # replay of K rounds; on the mesh once a plane a shard for each.
+    mc_paths = {"mc_uncertainty": (dict(collect_metrics=True), 2 * C * ROUNDS),
+                "mc_uncertainty_chunked": (dict(collect_metrics=True, rounds_per_launch=K),
+                                           2 * C * (1 + K)),
+                "mc_entropy": (dict(strategy=StrategyConfig(name="entropy", window_size=WINDOW)),
+                               2 * C * ROUNDS),
+                "mc_entropy_chunked": (dict(strategy=StrategyConfig(name="entropy",
+                                                                    window_size=WINDOW),
+                                            rounds_per_launch=K), 2 * C * (1 + K)),
+                "mc_mesh": (dict(mesh=(4, 2), devices=one_card), 2 * C * 8 * ROUNDS)}
+    for path, (kw, k1_want) in mc_paths.items():
+        want_launches[path] = dict(zero, forest_leaves=k1_want)
+        drive(path, False, data=four, **kw)
+    for path, ref_path in (("mc_uncertainty_chunked", "mc_uncertainty"),
+                           ("mc_entropy_chunked", "mc_entropy")):
+        check_chunked(path, ref_path)
+    mc_metrics = [r.metrics for r in runs["mc_uncertainty"].records]
+    if [r.metrics for r in runs["mc_uncertainty_chunked"].records] != mc_metrics:
+        fail("4-class RoundMetrics: chunked != per round")
+    if any(len(m_["picked_hist"]) != C or sum(m_["picked_hist"]) != WINDOW for m_ in mc_metrics):
+        fail(f"4-class picked_hist: {[m_['picked_hist'] for m_ in mc_metrics]}")
+    mesh_recs = [(r.round, r.n_labeled, r.accuracy) for r in runs["mc_mesh"].records]
+    if mesh_recs != [(r.round, r.n_labeled, r.accuracy) for r in
+                     runs["mc_uncertainty"].records] or not torch.equal(
+                         runs["mc_mesh"].final_labeled_mask,
+                         runs["mc_uncertainty"].final_labeled_mask):
+        fail("4-class 4 x 2 mesh run != single device")
+    fit_c4 = statistics.median(r.train_time for r in runs["mc_entropy"].records)
+    fit_c2 = statistics.median(r.train_time for r in runs["unfused"].records)
+    mc_numbers = dict(
+        k1_launches_per_round={p: launches[p]["forest_leaves"] / (
+            ROUNDS if "chunked" not in p else 1 + K) for p in mc_paths},
+        fit_seconds_c4=fit_c4, fit_seconds_c2=fit_c2,
+        rounds={p: [dict(fit=r.train_time, round=r.score_time, eval=r.eval_time)
+                    for r in runs[p].records] for p in ("mc_uncertainty", "mc_entropy")},
+        graph_pool_bytes=runs["mc_uncertainty_chunked"].graph_stats["pool_bytes"])
+    print(f"# multiclass (C = {C}, quartiles of x0 + 0.3 x1): uncertainty (top-2 margin, "
+          f"RoundMetrics on) and entropy, chunked (K = {K}) == per round, records, masks and "
+          f"metrics; 4 x 2 mesh unfused == single device. K1 launches a round "
+          f"{mc_numbers['k1_launches_per_round']}; fit median {fit_c4:.4f}s at C = 4 against "
+          f"{fit_c2:.4f}s at C = 2 ({kind}, {smi})")
+    print(f"# phase 4h: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4i: LAL -------------------------------------------------------
+    t_phase = time.perf_counter()
+    from distributed_active_learning_tpu_torch.models import lal_training
+    from distributed_active_learning_tpu_torch.strategies.lal import lal_features
+
+    # The five features' ranges on this pool: vote fraction, vote SD, the
+    # positive share, the mean SD, the labeled count over the run.
+    lal_ranges = ((0.0, 1.0), (0.0, 0.5), (0.0, 1.0), (0.0, 0.5),
+                  (float(N_START), float(N_START + ROUNDS * WINDOW)))
+
+    def regressor(n_trees: int, depth_: int, seed: int, ranges=lal_ranges):
+        """A regressor in a scikit-learn fit's shapes (the card's machine has
+        no scikit-learn), its thresholds drawn inside each feature's range."""
+        g_rng = np.random.default_rng(seed)
+        packed = forest_lib.synthetic_forest(g_rng, n_trees, depth_, 5)
+        feat = packed.feature.numpy()
+        lo, hi = (np.array([r[i] for r in ranges], dtype=np.float32) for i in (0, 1))
+        f_ = np.clip(feat, 0, 4)
+        thr = (lo[f_] + g_rng.random(feat.shape) * (hi[f_] - lo[f_])).astype(np.float32)
+        return dataclasses.replace(packed, threshold=torch.from_numpy(
+            np.where(feat >= 0, thr, packed.threshold.numpy())))
+
+    def lal_file(name, n_trees, depth_, seed, ranges=lal_ranges):
+        path = os.path.join(work, name)
+        forest_io.save_forest(path, regressor(n_trees, depth_, seed, ranges),
+                              meta=lal_training.lal_meta({"lal_model_path": path}))
+        return path
+
+    # JAX's load_or_train_lal_regressor defaults: 200 trees of depth 10.
+    lal_path = lal_file("lal_200x10.npz", 200, 10, args.seed + 200)
+    lal_cfg = StrategyConfig(name="lal", window_size=WINDOW, options={"lal_model_path": lal_path})
+    # K1: the base forest's votes and the test accuracy; the regressor is
+    # the gather form (plain PyTorch, no kernel), as in the JAX loop.
+    want_launches["lal"] = dict(zero, forest_leaves=2 * ROUNDS)
+    drive("lal", False, strategy=lal_cfg)
+    want_launches["lal_chunked"] = dict(zero, forest_leaves=2 * (1 + K))
+    drive("lal_chunked", False, strategy=lal_cfg, rounds_per_launch=K)
+    check_chunked("lal_chunked", "lal")
+    small_path = lal_file("lal_small.npz", 12, 6, args.seed + 12,
+                          ((0, 1), (0, 0.5), (0, 1), (0, 0.5), (10, 60)))
+    small_lal = dataclasses.replace(small, fused_round=False, strategy=StrategyConfig(
+        name="lal", window_size=15, options={"lal_model_path": small_path}))
+    for c in (small_lal, dataclasses.replace(small_lal, rounds_per_launch=2)):
+        on_card = loop.run_experiment(c, device=dev)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+            fail(f"small lal run (rounds_per_launch {c.rounds_per_launch}) on the card != CPU")
+    # The regressor's gather form at the pool: 200 trees x 10 steps of
+    # [284,807, 200] gathers.
+    reg_dev = forest_io.load_forest(lal_path, dev)[0]
+    st_lal = state_lib.set_start_state(
+        state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev),
+        N_START)
+    feats = lal_features(trees_pallas.PallasForest(gf=gf), st_lal)
+    reg_ms = cuda_ms(lambda: forest_eval.value(reg_dev, feats), reps=3)
+    feat_ms = cuda_ms(lambda: lal_features(trees_pallas.PallasForest(gf=gf), st_lal), reps=5)
+    lal_numbers = dict(
+        regressor_gather_ms=reg_ms, features_ms=feat_ms,
+        graph_pool_bytes=runs["lal_chunked"].graph_stats["pool_bytes"],
+        rounds=[dict(fit=r.train_time, round=r.score_time, eval=r.eval_time)
+                for r in runs["lal"].records])
+    print(f"# lal (regressor 200 trees of depth 10 from a forest file, gather form): chunked "
+          f"(K = {K}) == per round; small checkerboard runs, per round and chunked: card == CPU. "
+          f"Regressor over the pool's [{N_POOL}, 5] features {reg_ms:.3f} ms, the features "
+          f"{feat_ms:.3f} ms (K1 votes included); chunk graph private pool "
+          f"{lal_numbers['graph_pool_bytes'] / 2**20:.0f} MiB ({kind}, {smi})")
+    print(f"# phase 4i: {time.perf_counter() - t_phase:.1f}s")
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -1237,22 +1517,26 @@ def main() -> int:
     table = round_fused.score_table(TREES, "uncertainty", dev)
     kk = min(WINDOW, round_fused.TILE_ROWS)
 
-    def time_votes(name, g, x):
+    def time_votes(name, g, x, with_plain=True):
         h = trees_pallas.heap_operands(g)
         sel = selectable[:x.shape[0]]
         tab = round_fused.score_table(g.n_trees, "uncertainty", dev)
+        plain = walk_plain = float("nan")
         if name == "round_megakernel":
             def launch():
                 return round_fused._launch_megakernel(h, x, sel, tab, WINDOW)
-            plain = cuda_ms(lambda: round_fused.megakernel_plain(g, x, sel, tab, WINDOW), reps=3)
-            walk_plain = cuda_ms(lambda: round_fused.tile_topk_plain(
-                round_fused.walk_votes_plain(h, x), sel, tab, WINDOW), reps=3)
+            if with_plain:
+                plain = cuda_ms(lambda: round_fused.megakernel_plain(g, x, sel, tab, WINDOW),
+                                reps=3)
+                walk_plain = cuda_ms(lambda: round_fused.tile_topk_plain(
+                    round_fused.walk_votes_plain(h, x), sel, tab, WINDOW), reps=3)
             io = nbytes(sel, tab) + -(-x.shape[0] // round_fused.TILE_ROWS) * kk * 8
         else:
             def launch():
                 return round_fused._launch_votes(h, x)
-            plain = cuda_ms(lambda: round_fused.fused_votes_plain(g, x), reps=3)
-            walk_plain = cuda_ms(lambda: round_fused.walk_votes_plain(h, x), reps=3)
+            if with_plain:
+                plain = cuda_ms(lambda: round_fused.fused_votes_plain(g, x), reps=3)
+                walk_plain = cuda_ms(lambda: round_fused.walk_votes_plain(h, x), reps=3)
             io = 4 * x.shape[0]
         lim, by = bound(nbytes(x, h.nodes, h.val) + io, x.shape[0] * g.n_trees * (depth + 1))
         ms = cuda_ms(launch, reps=9)
@@ -1283,6 +1567,63 @@ def main() -> int:
     k3 = {"shard": time_votes("fused_votes", gf_shard, pool[:n_shard].contiguous()),
           "full": time_votes("fused_votes", gf, x_full),
           "streamed 256 trees": time_votes("fused_votes", gf256, x_full)}
+    # K1, K2 and K3 on the quantized payloads at the same shapes, in this
+    # run beside the f32 times above; the bound counts the payload at its
+    # width (the nodes stay 8-byte words).
+    by_payload = {"forest_leaves": {}, "round_megakernel": {}, "fused_votes": {}}
+    for mode in PAYLOADS:
+        g, g_shard, g256 = qf[mode]["pool"], qf[mode]["shard"], qf[mode]["streamed"]
+        k1q = {}
+        for label, (g_, x) in (("pool", (g, x_full)), ("test", (g, test_x.contiguous())),
+                               ("mesh shard", (g_shard, pool[:n_shard].contiguous()))):
+            h = trees_pallas.heap_operands(g_)
+            ms = cuda_ms(lambda: trees_pallas._launch_leaves(h, x), reps=9)
+            dev_ms = graph_ms(lambda: trees_pallas._launch_leaves(h, x))
+            lim, by = bound(nbytes(x, h.nodes, h.val) + g_.n_trees * x.shape[0] * 4,
+                            x.shape[0] * g_.n_trees * depth)
+            k1q[label] = dict(ms=ms, device_ms=dev_ms, bound_ms=lim, bound_by=by,
+                              launch_config=trees_pallas.leaves_launch_config(h, *x.shape, dev))
+            if label == "pool":
+                k1q[label]["plain_ms"] = cuda_ms(
+                    lambda: trees_pallas.predict_leaves_plain(g_, x), reps=3)
+            print(f"# time forest_leaves {mode} payload {label} (n={x.shape[0]}, T={g_.n_trees}): "
+                  f"{ms:.4f} ms kernel ({dev_ms:.4f} ms device; f32 {k1[label]['device_ms']:.4f}), "
+                  f"bound {lim:.4f} ms by {by}; launch {k1q[label]['launch_config']} ({kind}, "
+                  f"{smi})")
+        by_payload["forest_leaves"][mode] = dict(
+            k1q, max_abs_err=payload_err[mode]["forest_leaves"])
+        by_payload["round_megakernel"][mode] = dict(
+            pool=time_votes("round_megakernel", g, x_full),
+            streamed=time_votes("round_megakernel", g256, x_full, with_plain=False),
+            max_abs_err=payload_err[mode]["round_megakernel"])
+        by_payload["fused_votes"][mode] = dict(
+            shard=time_votes("fused_votes", g_shard, pool[:n_shard].contiguous()),
+            full=time_votes("fused_votes", g, x_full, with_plain=False),
+            streamed=time_votes("fused_votes", g256, x_full, with_plain=False),
+            max_abs_err=payload_err[mode]["fused_votes"])
+    # K1 on the bench's LAL regressor shape: 2,000 trees of depth 8 over the
+    # pool's [284,807, 5] features (the JAX bench converts its regressor for
+    # the Pallas kernel; a host fit's trees, packed into heaps).
+    h2k = trees_pallas.heap_from_packed(regressor(2000, 8, args.seed + 2000).to(dev))
+    feats_c = feats.contiguous()
+    got2k = trees_pallas._launch_leaves(h2k, feats_c)
+    rows_chk = slice(0, 20_000)
+    if not torch.equal(got2k.T[rows_chk], trees_pallas.walk_leaves_plain(h2k, feats_c[rows_chk])):
+        fail("forest_leaves on the 2000-tree regressor != walk_leaves_plain")
+    del got2k
+    r2k_ms = cuda_ms(lambda: trees_pallas._launch_leaves(h2k, feats_c), reps=5)
+    r2k_dev = graph_ms(lambda: trees_pallas._launch_leaves(h2k, feats_c), reps=5, inner=5)
+    r2k_plain = cuda_ms(lambda: trees_pallas.walk_leaves_plain(h2k, feats_c), reps=1)
+    r2k_bound, r2k_by = bound(nbytes(feats_c, h2k.nodes, h2k.val) + 2000 * N_POOL * 4,
+                              N_POOL * 2000 * 8)
+    k1["lal regressor 2000 x 8"] = dict(
+        ms=r2k_ms, device_ms=r2k_dev, plain_ms=r2k_plain, bound_ms=r2k_bound, bound_by=r2k_by,
+        launch_config=trees_pallas.leaves_launch_config(h2k, *feats_c.shape, dev))
+    print(f"# time forest_leaves, LAL regressor (2000 trees of depth 8 over [{N_POOL}, 5] "
+          f"features): {r2k_ms:.4f} ms kernel ({r2k_dev:.4f} ms device), {r2k_plain:.1f} ms "
+          f"walk_leaves_plain, bound {r2k_bound:.4f} ms by {r2k_by}; launch "
+          f"{k1['lal regressor 2000 x 8']['launch_config']} ({kind}, {smi})")
+    del h2k
     # K4: one ring step of the mesh on the card, four k = 100 windows (800
     # bytes read and 800 written each) into preallocated buffers, timed over
     # 100 back-to-back steps; the library yardstick is four Tensor.copy_
@@ -1397,7 +1738,13 @@ def main() -> int:
     profile_round(loop, cfg(True, (4, 2)), bundle, dev, "mesh 4 x 2 fused", devices=one_card)
 
     # -- phase 6: the port's bench ------------------------------------------
-    for mode, extra in (("score", []), ("round", []), ("variants", ["--variants", "v0,v1,v8,r1"])):
+    # The lal mode's regressor at the JAX bench's shape (2,000 trees of depth
+    # 8) as a forest file: the card's machine has no scikit-learn to fit it.
+    bench_lal_path = lal_file("lal_bench_2000x8.npz", 2000, 8, args.seed + 2008,
+                              ((0, 1), (0, 0.5), (0, 1), (0, 0.5), (50, 150)))
+    lal_bench_launches = None
+    for mode, extra in (("score", []), ("round", []), ("variants", ["--variants", "v0,v1,v8,r1"]),
+                        ("lal", ["--lal-model", bench_lal_path])):
         if mode == "variants":
             lv.transposed_launches = lv.segmented_launches = 0
         out = io.StringIO()
@@ -1413,6 +1760,14 @@ def main() -> int:
             fail(f"bench --mode {mode}: bad line")
         print(f"# bench --mode {mode}: {time.perf_counter() - t0:.1f}s, {payload['metric']} = "
               f"{payload['value']}")
+        if mode == "lal":
+            lal_bench_launches = payload["lal_k1_launches_per_query"]
+            skipped = payload.get("lal_host_fit_skipped")
+            if payload["lal_trees"] != 2000 or lal_bench_launches != 2 or (
+                    payload["lal_query_seconds_host_fit"] is None and not skipped):
+                fail(f"bench --mode lal: {payload}")
+            print(f"# bench --mode lal: K1 {lal_bench_launches} launches a query; host-fit leg: "
+                  f"{skipped or payload['lal_query_seconds_host_fit']}")
     variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
                         "forest_leaves_segmented": lv.segmented_launches}
     print(f"# bench --mode variants launches, counted from 0: {variant_launches}")
@@ -1431,14 +1786,15 @@ def main() -> int:
          "metrics_path_launches_per_round": k1_per_round,
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "by_shape": k1, "launch_config": k1_cfg},
+         "by_shape": k1, "launch_config": k1_cfg, "by_payload": by_payload["forest_leaves"]},
         {"name": "round_megakernel", "route": "cuda", "source": f"{pkg}/round_megakernel.cu",
          "replaces": "distributed_active_learning_tpu/ops/round_fused.py:166",
          "launches": launches["fused"]["round_megakernel"],
          "launches_by_path": {p: launches[p]["round_megakernel"] for p in launches},
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
-         "by_shape": k2, "launch_config": k2["pool"]["launch_config"]},
+         "by_shape": k2, "launch_config": k2["pool"]["launch_config"],
+         "by_payload": by_payload["round_megakernel"]},
         {"name": "fused_votes", "route": "cuda", "source": f"{pkg}/fused_votes.cu",
          "replaces": "distributed_active_learning_tpu/ops/round_fused.py:286",
          "launches": launches["mesh_fused"]["fused_votes"],
@@ -1447,7 +1803,8 @@ def main() -> int:
          "bound_ms": k3["shard"]["bound_ms"], "bound_by": k3["shard"]["bound_by"],
          "library_ms": None, "by_shape": k3, "launch_config": k3["shard"]["launch_config"],
          "full_width": {key: k3["full"][key] for key in ("ms", "plain_ms", "bound_ms",
-                                                        "bound_by")}},
+                                                        "bound_by")},
+         "by_payload": by_payload["fused_votes"]},
         {"name": "ring_hop", "route": "cuda", "source": f"{pkg}/ring_hop.cu",
          "replaces": "distributed_active_learning_tpu/ops/ring_topk.py:109",
          "launches": launches["mesh_fused"]["ring_hop"],
@@ -1472,6 +1829,8 @@ def main() -> int:
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
          "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
     ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
+        "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
+        "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))
     print(smi)

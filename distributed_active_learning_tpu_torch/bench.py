@@ -30,6 +30,17 @@ as it is) for what the port carries:
   ``fused_round_speedup``).
 - ``--mode variants``: the leaf-eval kernel variants side by side
   (``benches/pallas_variants.py``).
+- ``--mode lal``: one LAL query at the reference's scale (``bench_lal``: a
+  50-tree depth-8 base forest, a 2,000-tree depth-8 regressor, a 1,000-row
+  pool, 100 labeled): the base fit on the device, the five features, the
+  regressor over them and the top-1 pick with its reveal
+  (``lal_query_seconds`` wall, ``lal_query_device_seconds`` from CUDA
+  events, ``vs_baseline`` against the reference's 1,654.16 s query). The
+  regressor is ``--lal-model PATH`` (a forest file) or, where scikit-learn
+  is installed, fitted from the committed reference-format fixture. The
+  host-fit leg (``lal_query_seconds_host_fit``: the base forest fitted with
+  scikit-learn each query) needs scikit-learn; where it is missing the line
+  says so under ``lal_host_fit_skipped``.
 
 Sizes default to the JAX bench's: its accelerator table on CUDA (pool
 284,807 x 30, 100 trees, 5,000 labeled rows, 10 iterations, 8 rounds per
@@ -51,11 +62,12 @@ flight recorder (off by default): mode and timing marks (``bench_start``,
 label) and the drive's launches, dumped on SIGTERM, SIGUSR1, a crash and a
 normal exit.
 
-Not carried yet, each with the slice it waits for: the host-fit leg (the
-bench runs where the card is, which has no scikit-learn; a host-fit forest
-would come as a forest file), the roofline section (pre-flight slice), the
-pod legs (mesh-and-pod slice), ``--audit`` and ``--compare-to`` (pre-flight
-slice), and the modes lal, neural, sweep, grid, serve* (their own slices).
+Not carried yet, each with the slice it waits for: the score mode's
+host-fit leg (the bench runs where the card is, which has no scikit-learn; a
+host-fit forest would come as a forest file), the roofline section
+(pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
+``--compare-to`` (pre-flight slice), and the modes neural, sweep, grid,
+serve* (their own slices).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -73,8 +85,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-_CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8)
-_CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4)
+_CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8,
+                   lal_trees=2000, lal_pool=1000)
+_CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4,
+                  lal_trees=50, lal_pool=200)
+# The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
+# bench's baseline.
+SPARK_LAL_QUERY_SEC = 1654.16
 
 
 def card_line(dev: torch.device) -> Optional[str]:
@@ -542,8 +559,108 @@ def bench_variants(args, dev) -> dict:
     }
 
 
+def _lal_regressor(args, dev):
+    """The bench's LAL regressor (depth 8): the forest file ``--lal-model``,
+    or fitted with scikit-learn from the committed reference-format fixture
+    (``lal_trees`` trees, the JAX bench's options)."""
+    import os
+
+    if args.lal_model:
+        from distributed_active_learning_tpu_torch.models.forest_io import load_forest
+
+        return load_forest(args.lal_model, dev)[0]
+    from distributed_active_learning_tpu_torch.models.lal_training import (
+        load_or_train_lal_regressor,
+    )
+
+    fixture = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tests",
+                           "fixtures", "lal_simulatedunbalanced_big.txt")
+    return load_or_train_lal_regressor(
+        {"lal_trees": args.lal_trees, "lal_depth": 8, "lal_experiments": 20,
+         "lal_data_path": fixture}, dev)
+
+
+def bench_lal(args, dev) -> dict:
+    """One LAL query at the reference's scale: a 50-tree depth-8 base forest
+    fitted on the device over 100 labeled rows of a ``lal_pool``-row
+    checkerboard pool, the five features, the regressor over them (in
+    ``--kernel``'s form) and the top-1 pick with its reveal."""
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.config import ForestConfig
+    from distributed_active_learning_tpu_torch.ops import forest_eval, trees_pallas, trees_train
+    from distributed_active_learning_tpu_torch.ops.topk import select_top_k
+    from distributed_active_learning_tpu_torch.runtime import state as state_lib
+    from distributed_active_learning_tpu_torch.strategies.lal import lal_features
+
+    lal_forest = forest_eval.for_kernel(_lal_regressor(args, dev), args.kernel)
+    rng = np.random.default_rng(0)
+    pool_x = rng.uniform(size=(args.lal_pool, 2)).astype(np.float32)
+    pool_y = ((pool_x[:, 0] > 0.5) ^ (pool_x[:, 1] > 0.5)).astype(np.int32)
+    state = state_lib.set_start_state(
+        state_lib.init_pool_state(pool_x, pool_y, prng.key(0), dev), 100)
+    base_cfg = ForestConfig(n_trees=50, max_depth=8)
+
+    def lal_query(forest):
+        scores = forest_eval.value(lal_forest, lal_features(forest, state))
+        _, picked = select_top_k(scores, ~state.labeled_mask, 1)
+        return state_lib.reveal(state, picked), scores
+
+    binned = trees_train.make_bins(state.x, base_cfg.max_bins)
+    budget = 1 << (127).bit_length()  # 100 labeled rows and headroom
+    key = prng.key(1)
+
+    def lal_query_device():
+        c, yy, w = trees_train.gather_fit_window(binned.codes, state.oracle_y,
+                                                 state.labeled_mask, budget)
+        f, th, v = trees_train.fit_forest_device(
+            c, yy, w, binned.edges, key, n_trees=base_cfg.n_trees,
+            max_depth=base_cfg.max_depth, n_bins=base_cfg.max_bins)
+        return lal_query(_wrap(trees_train.heap_gemm_forest(f, th, v, base_cfg.max_depth),
+                               args.kernel))
+
+    _wall(lal_query_device, dev)  # builds and warms
+    before = trees_pallas.launches
+    _wall(lal_query_device, dev)
+    k1_launches = trees_pallas.launches - before
+    device_sec = _median_wall(lal_query_device, args.iters, dev, label="lal_query_device")
+    lal_dev_sec = _median_device(lal_query_device, args.iters, dev)
+    out = {
+        "metric": "lal_query_seconds",
+        "value": device_sec,
+        "unit": f"s/query ({args.lal_pool} pool, 50-tree base, {args.lal_trees}-tree "
+                f"regressor, device fit, {args.kernel} kernel)",
+        "lal_query_seconds": device_sec,
+        "lal_query_device_seconds": lal_dev_sec,
+        "lal_time_method": "cuda_events" if dev.type == "cuda" else "host_clock",
+        "vs_baseline": round(SPARK_LAL_QUERY_SEC / device_sec, 1),
+        "vs_baseline_device": round(SPARK_LAL_QUERY_SEC / lal_dev_sec, 1),
+        "lal_trees": lal_forest.n_trees,
+        "lal_k1_launches_per_query": k1_launches,
+        "spark_lal_query_seconds": SPARK_LAL_QUERY_SEC,
+    }
+    try:
+        from distributed_active_learning_tpu_torch.models import forest as forest_lib
+
+        forest_lib.require_sklearn()
+    except ImportError as e:
+        out["lal_query_seconds_host_fit"] = None
+        out["lal_host_fit_skipped"] = str(e)
+        return out
+    mask_host = state.labeled_mask.cpu().numpy()
+
+    def run_host():
+        # The reference's leg: the base forest fitted on the host each query.
+        packed = forest_lib.fit_forest_classifier(pool_x[mask_host], pool_y[mask_host], base_cfg)
+        return lal_query(forest_eval.for_kernel(packed, args.kernel).to(dev))
+
+    _wall(run_host, dev)
+    out["lal_query_seconds_host_fit"] = _median_wall(run_host, args.iters, dev,
+                                                     label="lal_query_host_fit")
+    return out
+
+
 _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
-          "variants": bench_variants}
+          "variants": bench_variants, "lal": bench_lal}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -575,6 +692,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="install the launch flight recorder: mode, compile and timing marks and "
                     "the drive's launches in a bounded ring, dumped as one JSON artifact at PATH "
                     "on SIGTERM, SIGUSR1, a crash and a normal exit (default: off)")
+    ap.add_argument("--lal-trees", type=int, default=None,
+                    help="lal mode: regressor trees when it is fitted here (default 2000 on "
+                    "CUDA, 50 under --device cpu)")
+    ap.add_argument("--lal-pool", type=int, default=None,
+                    help="lal mode: pool rows (default 1000 on CUDA, 200 under --device cpu)")
+    ap.add_argument("--lal-model", default=None, metavar="PATH",
+                    help="lal mode: the regressor as a forest file (models/forest_io.py); "
+                    "without it the regressor is fitted with scikit-learn")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")

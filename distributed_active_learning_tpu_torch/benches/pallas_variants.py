@@ -112,11 +112,21 @@ class TransposedOperands:
     leaf_f32: bool
 
 
+def _refuse_quantized(gf: GemmForest) -> None:
+    """The variants take f32 storage only, as in the JAX package (its
+    variant kernels have no quantized payload)."""
+    if gf.value.dtype != torch.float32 or gf.thresholds.dtype != torch.float32:
+        raise ValueError(
+            f"the leaf-eval variants (K5, K6) take f32 forests, not {gf.value.dtype} leaves and "
+            f"{gf.thresholds.dtype} thresholds; quantized forests run through K1, K2 and K3")
+
+
 def _prep_transposed(gf: GemmForest, x: torch.Tensor, bn: int, bt: int,
                      leaf_f32: bool = False) -> TransposedOperands:
     """Device-side packing of the transposed variants: one relayout of the
     pool per call, the forest in K1's heap form padded to the tree tile;
     ``ValueError`` when the forest is not made of complete heap trees."""
+    _refuse_quantized(gf)
     heap = trees_pallas.heap_operands(gf)
     xT = _pad_to(_pad_to(x.to(torch.bfloat16), 1, 32), 0, bn).T.contiguous()
     val = _pad_to(gf.value.to(torch.float32), 0, bt)
@@ -274,6 +284,7 @@ def _prep_segmented(gf: GemmForest, x: torch.Tensor, bn: int, bt: int) -> Segmen
     every node of the forest): ``S`` is the most nodes of one tree that share
     a feature, rounded up to 4. The kernel reads the slot of each heap node
     (``slot``); the plain version reads the slots' path matrix."""
+    _refuse_quantized(gf)
     n, d = x.shape
     T, I = gf.feat_ids.shape
     L = gf.value.shape[1]

@@ -7,7 +7,10 @@
 // row reaches in tree t when each node compares the row's feature, rounded
 // to bf16, against its f32 threshold (heap_walk.cuh). On a complete heap
 // tree that is the TPU kernel's function exactly; forests of another shape
-// are refused by the wrapper.
+// are refused by the wrapper. The leaf values are read in their storage
+// type, f32, bf16 or int8 (a quantized forest), and widened to f32 in
+// registers before the store (leaf_payload.cuh): the kernel is one
+// instantiation a payload type, and the f32 one is the kernel as it was.
 //
 // What bounds it on an H100. The function needs one compare per level of a
 // row's root-to-leaf path: n * T * depth = 2.3e8 compares at the benchmark
@@ -36,7 +39,9 @@
 //   KB at the bench width) does not fit, so chunks of trees stream through
 //   a two-stage ring of cp.async copies (commit groups): chunk c + 1 arrives
 //   while chunk c is walked. Node reads diverge at deep levels and cost a
-//   few-way bank conflict.
+//   few-way bank conflict. A quantized payload shrinks only the leaf half
+//   of a tree's bytes (1 KB of f32 values at depth 8 becomes 512 or 256
+//   bytes), so more trees fit a chunk; the walk itself is unchanged.
 // - Persistent blocks. The work is (row tile, tree chunk) units in
 //   tile-major order; the grid is the multiprocessors times the resident
 //   blocks (occupancy API), and each block takes one contiguous range of
@@ -48,6 +53,7 @@
 //   contiguous bytes.
 
 #include "heap_walk.cuh"
+#include "leaf_payload.cuh"
 
 namespace {
 
@@ -60,16 +66,17 @@ struct Config {
   int rows, ct, smem, grid;
 };
 
+template <class P>
 __global__ void __launch_bounds__(MAX_THREADS, 2) forest_leaves_kernel(
     const float* __restrict__ x, int n, int d, const int2* __restrict__ nodes,
-    const float* __restrict__ val, int T, int depth, int N, int Lp, int ct,
+    const P* __restrict__ val, int T, int depth, int N, int Lp, int ct,
     float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int rows = blockDim.x;
   uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
   unsigned char* stages = smem + heap::align16(size_t(rows) * d * sizeof(uint16_t));
   const int node_bytes = ct * N * 8;
-  const int stage_bytes = node_bytes + ct * Lp * 4;
+  const int stage_bytes = node_bytes + ct * Lp * (int)sizeof(P);
   const int n_chunks = (T + ct - 1) / ct;
   const long long n_tiles = (n + rows - 1) / rows;
   const long long units = n_tiles * n_chunks;
@@ -83,7 +90,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) forest_leaves_kernel(
     const int nt = min(ct, T - t0);
     unsigned char* s = stages + buf * stage_bytes;
     heap::copy_async_16(s, nodes + (size_t)t0 * N, nt * N * 8);
-    heap::copy_async_16(s + node_bytes, val + (size_t)t0 * Lp, nt * Lp * 4);
+    heap::copy_async_16(s + node_bytes, val + (size_t)t0 * Lp, nt * Lp * (int)sizeof(P));
   };
 
   if (u0 < u1) issue(u0, 0);
@@ -102,7 +109,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) forest_leaves_kernel(
     __syncthreads();
     const unsigned char* s = stages + buf * stage_bytes;
     const int2* nodes_s = reinterpret_cast<const int2*>(s);
-    const float* val_s = reinterpret_cast<const float*>(s + node_bytes);
+    const P* val_s = reinterpret_cast<const P*>(s + node_bytes);
     const int t0 = (int)(u % n_chunks) * ct;
     const int nt = min(ct, T - t0);
     const long long row = tile * rows + threadIdx.x;
@@ -119,7 +126,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) forest_leaves_kernel(
 #pragma unroll
         for (int j = 0; j < TREE_ILP; ++j) {
           if (tt + j < nt) {
-            out[(size_t)(t0 + tt + j) * n + row] = val_s[(tt + j) * Lp + leaf[j]];
+            out[(size_t)(t0 + tt + j) * n + row] = payload::widen(val_s[(tt + j) * Lp + leaf[j]]);
           }
         }
       }
@@ -129,24 +136,26 @@ __global__ void __launch_bounds__(MAX_THREADS, 2) forest_leaves_kernel(
 }
 
 // The launch configuration for n rows of d features and T trees of the
-// given depth: tile rows, trees per chunk, shared memory, grid.
+// given depth, leaf values of type P: tile rows, trees per chunk, shared
+// memory, grid. A tree's leaf values must be whole 16-byte pieces.
+template <class P>
 cudaError_t configure(int n, int d, int T, int depth, int N, int Lp, Config* c) {
   if (n <= 0 || d <= 0 || d > 1024 || T <= 0 || depth < 0 || depth > heap::MAX_DEPTH ||
-      N < (1 << depth) || N % 2 != 0 || Lp < (1 << depth) || Lp % 4 != 0) {
+      N < (1 << depth) || N % 2 != 0 || Lp < (1 << depth) || (Lp * sizeof(P)) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   int rows = (X_TILE_BYTES / (2 * d)) / 32 * 32;
   c->rows = rows < 32 ? 32 : (rows > MAX_THREADS ? MAX_THREADS : rows);
-  const int tree_bytes = N * 8 + Lp * 4;
+  const int tree_bytes = N * 8 + Lp * (int)sizeof(P);
   int ct = STAGE_BYTES / tree_bytes;
   ct = ct < 1 ? 1 : (ct > T ? T : ct);
   if (ct >= TREE_ILP) ct -= ct % TREE_ILP;
   c->ct = ct;
   c->smem = (int)(heap::align16(size_t(c->rows) * d * sizeof(uint16_t)) + 2 * size_t(ct) * tree_bytes);
   cudaError_t err = cudaFuncSetAttribute(
-      forest_leaves_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c->smem);
+      forest_leaves_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, c->smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(forest_leaves_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+  err = cudaFuncSetAttribute(forest_leaves_kernel<P>, cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -154,7 +163,7 @@ cudaError_t configure(int n, int d, int T, int depth, int N, int Lp, Config* c) 
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
     return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, forest_leaves_kernel, c->rows,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, forest_leaves_kernel<P>, c->rows,
                                                        c->smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -168,23 +177,31 @@ cudaError_t configure(int n, int d, int T, int depth, int N, int Lp, Config* c) 
 
 // The configuration forest_leaves would launch with: rows per tile (=
 // threads per block), trees per chunk, dynamic shared memory bytes, grid.
-extern "C" int forest_leaves_config(int n, int d, int T, int depth, int N, int Lp, int* out4) {
-  Config c;
-  const cudaError_t err = configure(n, d, T, depth, N, Lp, &c);
-  if (err != cudaSuccess) return (int)err;
-  out4[0] = c.rows;
-  out4[1] = c.ct;
-  out4[2] = c.smem;
-  out4[3] = c.grid;
-  return 0;
+// `payload` is the leaf type's code (leaf_payload.cuh).
+extern "C" int forest_leaves_config(int n, int d, int payload, int T, int depth, int N, int Lp,
+                                    int* out4) {
+  return payload::dispatch(payload, [&](auto tag) {
+    Config c;
+    const cudaError_t err = configure<decltype(tag)>(n, d, T, depth, N, Lp, &c);
+    if (err != cudaSuccess) return (int)err;
+    out4[0] = c.rows;
+    out4[1] = c.ct;
+    out4[2] = c.smem;
+    out4[3] = c.grid;
+    return 0;
+  });
 }
 
-extern "C" int forest_leaves(const float* x, int n, int d, const int2* nodes, const float* val,
-                             int T, int depth, int N, int Lp, float* out, void* stream) {
-  Config c;
-  const cudaError_t err = configure(n, d, T, depth, N, Lp, &c);
-  if (err != cudaSuccess) return (int)err;
-  forest_leaves_kernel<<<c.grid, c.rows, c.smem, (cudaStream_t)stream>>>(
-      x, n, d, nodes, val, T, depth, N, Lp, c.ct, out);
-  return (int)cudaGetLastError();
+extern "C" int forest_leaves(const float* x, int n, int d, const int2* nodes, const void* val,
+                             int payload, int T, int depth, int N, int Lp, float* out,
+                             void* stream) {
+  return payload::dispatch(payload, [&](auto tag) {
+    using P = decltype(tag);
+    Config c;
+    const cudaError_t err = configure<P>(n, d, T, depth, N, Lp, &c);
+    if (err != cudaSuccess) return (int)err;
+    forest_leaves_kernel<P><<<c.grid, c.rows, c.smem, (cudaStream_t)stream>>>(
+        x, n, d, nodes, static_cast<const P*>(val), T, depth, N, Lp, c.ct, out);
+    return (int)cudaGetLastError();
+  });
 }

@@ -43,13 +43,21 @@ struct Store {
 
 // The configuration fused_votes would launch with (as
 // round_megakernel_config).
-extern "C" int fused_votes_config(int n, int d, int T, int depth, int N, int Lp, int* out6) {
-  const hv::Forest F{nullptr, nullptr, T, depth, N, Lp};
-  return hv::config_out<Store>(n, d, F, out6);
+extern "C" int fused_votes_config(int n, int d, int payload, int T, int depth, int N, int Lp,
+                                  int* out6) {
+  return payload::dispatch(payload, [&](auto tag) {
+    using P = decltype(tag);
+    const hv::Forest<P> F{nullptr, nullptr, T, depth, N, Lp};
+    return hv::config_out<P, Store>(n, d, F, out6);
+  });
 }
 
-extern "C" int fused_votes(const float* x, int n, int d, const int2* nodes, const float* val,
-                           int T, int depth, int N, int Lp, int* votes, void* stream) {
-  const hv::Forest F{nodes, val, T, depth, N, Lp};
-  return (int)hv::launch(x, n, d, F, Store{votes, n}, (cudaStream_t)stream);
+extern "C" int fused_votes(const float* x, int n, int d, const int2* nodes, const void* val,
+                           int payload, int T, int depth, int N, int Lp, int* votes,
+                           void* stream) {
+  return payload::dispatch(payload, [&](auto tag) {
+    using P = decltype(tag);
+    const hv::Forest<P> F{nodes, static_cast<const P*>(val), T, depth, N, Lp};
+    return (int)hv::launch(x, n, d, F, Store{votes, n}, (cudaStream_t)stream);
+  });
 }

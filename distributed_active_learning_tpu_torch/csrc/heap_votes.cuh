@@ -24,11 +24,17 @@
 //   0.5) per 32 leaves, so neither is an operand or costs a launch. The
 //   block then walks its contiguous range of row tiles without restaging
 //   the forest.
-// - Streamed mode (wide rows or many trees): chunks of trees, nodes and f32
+// - Streamed mode (wide rows or many trees): chunks of trees, nodes and
 //   leaf values (the vote is the same value > 0.5 compare), stream through a
 //   two-stage ring of cp.async copies over (row tile, tree chunk) units, as
 //   in forest_leaves.cu, and heap_walk.cuh's walk reads them as they are; a
 //   thread's votes stay in a register across the chunks of its tile.
+// - Leaf payloads. The leaf values are f32, or a quantized forest's bf16 or
+//   int8 (leaf_payload.cuh), a template parameter of the body: the ballot
+//   and the streamed compare read the stored type and widen it in registers,
+//   so a leaf's vote bit is widen(value) > 0.5. The resident forest holds
+//   vote bits either way, so the payload changes only the bytes the ballot
+//   reads once a block and the streamed stage's leaf half.
 // - The walk. A tile holds 128 rows, one a thread of a group of 128
 //   threads; the trees are split over the block's groups (eight at the
 //   benchmark width, 1,024 threads), each thread walking four trees at once,
@@ -52,6 +58,7 @@
 #include <mutex>
 
 #include "heap_walk.cuh"
+#include "leaf_payload.cuh"
 
 namespace hv {
 
@@ -63,9 +70,10 @@ constexpr int ROW_BATCH = 8;                   // x values a thread loads at onc
 
 enum Mode { RESIDENT = 0, STREAMED = 1 };
 
+template <class P>
 struct Forest {
   const int2* nodes;  // [T, N] node words (feature id, threshold bits), heap order
-  const float* val;   // [T, Lp] leaf values
+  const P* val;       // [T, Lp] leaf values (f32, bf16 or int8)
   int T, depth, N, Lp;
 };
 
@@ -88,7 +96,8 @@ struct Layout {
   size_t votes, scratch, forest, stage, bytes;
 };
 
-__host__ __device__ inline Layout layout(int d, const Forest& F, bool resident, int ct,
+template <class P>
+__host__ __device__ inline Layout layout(int d, const Forest<P>& F, bool resident, int ct,
                                          int scratch_bytes) {
   Layout lo;
   lo.votes = heap::align16(size_t(d) * TILE * sizeof(uint16_t));
@@ -99,7 +108,7 @@ __host__ __device__ inline Layout layout(int d, const Forest& F, bool resident, 
     lo.bytes = lo.forest + heap::align16(size_t(F.T) * F.N * 4) +
                heap::align16(size_t(F.T) * vote_words(F.depth) * 4);
   } else {
-    lo.stage = size_t(ct) * (size_t(F.N) * 8 + size_t(F.Lp) * 4);
+    lo.stage = size_t(ct) * (size_t(F.N) * 8 + size_t(F.Lp) * sizeof(P));
     lo.bytes = lo.forest + 2 * lo.stage;
   }
   return lo;
@@ -151,10 +160,10 @@ __device__ __forceinline__ void walk_packed(const uint32_t* const (&nodes)[R],
 // on. Resident chunks read packed nodes and the vote bits (`bits`,
 // vote_words a tree), streamed ones node words and the leaf values (`val`,
 // Lp a tree).
-template <bool RESIDENT>
+template <bool RESIDENT, class P>
 __device__ __forceinline__ int count_votes(const void* nodes_v, const uint32_t* __restrict__ bits,
-                                           const float* __restrict__ val, int nt,
-                                           const Forest& F, const uint16_t* __restrict__ xs,
+                                           const P* __restrict__ val, int nt,
+                                           const Forest<P>& F, const uint16_t* __restrict__ xs,
                                            int g, int G, int r) {
   const int W = vote_words(F.depth);
   const int col = row_col(r);
@@ -184,7 +193,7 @@ __device__ __forceinline__ int count_votes(const void* nodes_v, const uint32_t* 
         if (RESIDENT) {
           cnt += (int)((bits[(tt + j) * W + (leaf[j] >> 5)] >> (leaf[j] & 31)) & 1u);
         } else {
-          cnt += val[(tt + j) * F.Lp + leaf[j]] > 0.5f ? 1 : 0;
+          cnt += payload::widen(val[(tt + j) * F.Lp + leaf[j]]) > 0.5f ? 1 : 0;
         }
       }
     }
@@ -219,9 +228,9 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ x, long lon
 // shared memory: epi(tile, votes, scratch) runs on every thread of the block
 // once a tile's votes are complete (votes[r] for row tile * TILE + r); the
 // call may hold block barriers.
-template <bool RESIDENT, class Epi>
+template <bool RESIDENT, class P, class Epi>
 __global__ void __launch_bounds__(MAX_THREADS) vote_tiles(
-    const float* __restrict__ x, int n, int d, Forest F, int ct, Epi epi) {
+    const float* __restrict__ x, int n, int d, Forest<P> F, int ct, Epi epi) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lo = layout(d, F, RESIDENT, ct, Epi::SCRATCH_BYTES);
   uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
@@ -246,7 +255,8 @@ __global__ void __launch_bounds__(MAX_THREADS) vote_tiles(
     const int nt = min(ct, F.T - t0);
     unsigned char* s = forest + buf * lo.stage;
     heap::copy_async_16(s, F.nodes + (size_t)t0 * F.N, nt * F.N * 8);
-    heap::copy_async_16(s + size_t(ct) * F.N * 8, F.val + (size_t)t0 * F.Lp, nt * F.Lp * 4);
+    heap::copy_async_16(s + size_t(ct) * F.N * 8, F.val + (size_t)t0 * F.Lp,
+                        nt * F.Lp * (int)sizeof(P));
   };
 
   if (RESIDENT) {
@@ -260,7 +270,7 @@ __global__ void __launch_bounds__(MAX_THREADS) vote_tiles(
     for (int p = threadIdx.x >> 5; p < F.T * W; p += blockDim.x >> 5) {
       const int t = p / W;
       const int leaf = (p - t * W) * 32 + lane;
-      const bool v = leaf < L && F.val[(size_t)t * F.Lp + leaf] > 0.5f;
+      const bool v = leaf < L && payload::widen(F.val[(size_t)t * F.Lp + leaf]) > 0.5f;
       const uint32_t word = __ballot_sync(0xffffffffu, v);
       if (lane == 0) res_bits[p] = word;
     }
@@ -286,12 +296,12 @@ __global__ void __launch_bounds__(MAX_THREADS) vote_tiles(
     if (!RESIDENT) heap::wait_async<1>();  // this unit's chunk has landed (the next may not)
     __syncthreads();
     if (RESIDENT) {
-      cnt = count_votes<true>(forest, res_bits, nullptr, F.T, F, xs, g, G, r);
+      cnt = count_votes<true, P>(forest, res_bits, nullptr, F.T, F, xs, g, G, r);
     } else {
       const unsigned char* s = forest + buf * lo.stage;
-      cnt += count_votes<false>(s, nullptr,
-                                reinterpret_cast<const float*>(s + size_t(ct) * F.N * 8),
-                                min(ct, F.T - c * ct), F, xs, g, G, r);
+      cnt += count_votes<false, P>(s, nullptr,
+                                   reinterpret_cast<const P*>(s + size_t(ct) * F.N * 8),
+                                   min(ct, F.T - c * ct), F, xs, g, G, r);
     }
     if (c == nc - 1) {
       atomicAdd(&votes[r], cnt);
@@ -312,15 +322,16 @@ struct Config {
 // the least time at the benchmark width, see PERF.md), trees a chunk, shared
 // memory, the persistent grid and the blocks a multiprocessor holds, for the
 // kernel of epilogue Epi. All but the grid depend on the device and the
-// forest's shape only and are cached per (device, d, T, depth, N, Lp), so a
-// launch of a shape seen before makes no CUDA call but cudaGetDevice; the
-// kernels' shared-memory limit is raised to the device's opt-in maximum once,
-// so every cached configuration stays launchable.
-template <class Epi>
-cudaError_t configure(int n, int d, const Forest& F, Config* c) {
+// forest's shape only and are cached per (device, d, T, depth, N, Lp) of
+// each payload type P, so a launch of a shape seen before makes no CUDA call
+// but cudaGetDevice; the kernels' shared-memory limit is raised to the
+// device's opt-in maximum once, so every cached configuration stays
+// launchable. A tree's leaf values must be whole 16-byte pieces.
+template <class P, class Epi>
+cudaError_t configure(int n, int d, const Forest<P>& F, Config* c) {
   if (n <= 0 || d <= 0 || d > 1024 || F.T <= 0 || F.depth < 0 || F.depth > heap::MAX_DEPTH ||
       F.N < (1 << F.depth) || F.N < 2 || F.N % 2 != 0 || F.Lp < (1 << F.depth) ||
-      F.Lp % 4 != 0) {
+      (F.Lp * sizeof(P)) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   struct Entry {
@@ -368,7 +379,7 @@ cudaError_t configure(int n, int d, const Forest& F, Config* c) {
   } else {
     lo = layout(d, F, false, 0, scratch);
     if (lo.forest >= (size_t)optin) return cudaErrorInvalidValue;
-    const size_t tree_bytes = size_t(F.N) * 8 + size_t(F.Lp) * 4;
+    const size_t tree_bytes = size_t(F.N) * 8 + size_t(F.Lp) * sizeof(P);
     int ct = (int)(((size_t)optin - lo.forest) / (2 * tree_bytes));
     if (ct < 1) return cudaErrorInvalidValue;
     ct = ct > F.T ? F.T : ct;
@@ -379,7 +390,7 @@ cudaError_t configure(int n, int d, const Forest& F, Config* c) {
   e.c.smem = (int)lo.bytes;
   const int batches = (e.c.ct + TREE_ILP - 1) / TREE_ILP;
   e.c.groups = batches < MAX_GROUPS ? batches : MAX_GROUPS;
-  auto kernel = resident ? vote_tiles<true, Epi> : vote_tiles<false, Epi>;
+  auto kernel = resident ? vote_tiles<true, P, Epi> : vote_tiles<false, P, Epi>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -393,21 +404,21 @@ cudaError_t configure(int n, int d, const Forest& F, Config* c) {
   return finish(e);
 }
 
-template <class Epi>
-cudaError_t launch(const float* x, int n, int d, const Forest& F, const Epi& epi,
+template <class P, class Epi>
+cudaError_t launch(const float* x, int n, int d, const Forest<P>& F, const Epi& epi,
                    cudaStream_t stream) {
   Config c;
-  const cudaError_t err = configure<Epi>(n, d, F, &c);
+  const cudaError_t err = configure<P, Epi>(n, d, F, &c);
   if (err != cudaSuccess) return err;
-  auto kernel = c.mode == RESIDENT ? vote_tiles<true, Epi> : vote_tiles<false, Epi>;
+  auto kernel = c.mode == RESIDENT ? vote_tiles<true, P, Epi> : vote_tiles<false, P, Epi>;
   kernel<<<c.grid, c.groups * TILE, c.smem, stream>>>(x, n, d, F, c.ct, epi);
   return cudaGetLastError();
 }
 
-template <class Epi>
-int config_out(int n, int d, const Forest& F, int* out6) {
+template <class P, class Epi>
+int config_out(int n, int d, const Forest<P>& F, int* out6) {
   Config c;
-  const cudaError_t err = configure<Epi>(n, d, F, &c);
+  const cudaError_t err = configure<P, Epi>(n, d, F, &c);
   if (err != cudaSuccess) return (int)err;
   out6[0] = c.mode;
   out6[1] = c.groups;

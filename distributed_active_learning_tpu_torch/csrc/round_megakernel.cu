@@ -78,19 +78,26 @@ struct Select {
 
 // The configuration round_megakernel would launch with: mode (0 resident,
 // 1 streamed), groups of 128 threads a block, trees a chunk, dynamic
-// shared memory bytes, grid, blocks a multiprocessor.
-extern "C" int round_megakernel_config(int n, int d, int T, int depth, int N, int Lp,
-                                       int* out6) {
-  const hv::Forest F{nullptr, nullptr, T, depth, N, Lp};
-  return hv::config_out<Select>(n, d, F, out6);
+// shared memory bytes, grid, blocks a multiprocessor. `payload` is the leaf
+// type's code (leaf_payload.cuh).
+extern "C" int round_megakernel_config(int n, int d, int payload, int T, int depth, int N,
+                                       int Lp, int* out6) {
+  return payload::dispatch(payload, [&](auto tag) {
+    using P = decltype(tag);
+    const hv::Forest<P> F{nullptr, nullptr, T, depth, N, Lp};
+    return hv::config_out<P, Select>(n, d, F, out6);
+  });
 }
 
-extern "C" int round_megakernel(const float* x, int n, int d, const int2* nodes, const float* val,
-                                int T, int depth, int N, int Lp, const unsigned char* selectable,
-                                const float* table, int kk, float* out_vals,
-                                int* out_idx, void* stream) {
+extern "C" int round_megakernel(const float* x, int n, int d, const int2* nodes, const void* val,
+                                int payload, int T, int depth, int N, int Lp,
+                                const unsigned char* selectable, const float* table, int kk,
+                                float* out_vals, int* out_idx, void* stream) {
   if (kk < 1 || kk > hv::TILE) return (int)cudaErrorInvalidValue;
-  const hv::Forest F{nodes, val, T, depth, N, Lp};
   const Select epi{selectable, table, n, kk, out_vals, out_idx};
-  return (int)hv::launch(x, n, d, F, epi, (cudaStream_t)stream);
+  return payload::dispatch(payload, [&](auto tag) {
+    using P = decltype(tag);
+    const hv::Forest<P> F{nodes, static_cast<const P*>(val), T, depth, N, Lp};
+    return (int)hv::launch(x, n, d, F, epi, (cudaStream_t)stream);
+  });
 }

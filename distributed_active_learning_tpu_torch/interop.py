@@ -14,20 +14,33 @@ from distributed_active_learning_tpu_torch.runtime.state import PoolState
 
 
 def _t(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(np.asarray(a, dtype=dtype))).to(device)
+    return torch.as_tensor(np.array(a, dtype=dtype, order="C")).to(device)
+
+
+def _stored(a, device) -> torch.Tensor:
+    """A threshold or leaf array in its storage dtype: a quantized forest's
+    bfloat16 (numpy's ``ml_dtypes`` type) or int8 is kept, anything else
+    becomes float32."""
+    a = np.array(a, order="C")
+    if a.dtype == np.int8:
+        return torch.from_numpy(a).to(device)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return _t(a, np.float32, device)
 
 
 def gemm_forest_from_numpy(
     feat_ids, thresholds, path, target, value, device="cpu", pallas: bool = False
 ):
     """A :class:`GemmForest` (or a :class:`PallasForest` with ``pallas``)
-    from the arrays of a JAX ``GemmForest``."""
+    from the arrays of a JAX ``GemmForest``; a quantized forest keeps its
+    storage dtypes."""
     gf = GemmForest(
         feat_ids=_t(feat_ids, np.int32, device),
-        thresholds=_t(thresholds, np.float32, device),
+        thresholds=_stored(thresholds, device),
         path=_t(path, np.float32, device),
         target=_t(target, np.float32, device),
-        value=_t(value, np.float32, device),
+        value=_stored(value, device),
     )
     return PallasForest(gf=gf) if pallas else gf
 

@@ -7,12 +7,19 @@ form the configured kernel evaluates.
 scikit-learn is imported only inside these functions, so the rest of the
 port runs without it; where it is missing they raise an ``ImportError`` that
 names it (a forest fitted elsewhere reaches such a machine as a forest file,
-``models/forest_io.py``). Binary forests only: multiclass packing waits for
-the multiclass slice, quantized leaves for the quantization slice.
+``models/forest_io.py``). A fit of more than two classes packs one value
+plane per class over the one fitted structure (a
+:class:`~..ops.trees_multi.MultiForest`).
+
+It also holds the storage formats of quantized forests
+(:func:`quantize_leaf_values`, :func:`dequantize_leaf_values`): leaf
+probabilities stored as bf16 or on a fixed int8 grid, widened back to f32
+where a kernel reads them, never between the fit and the store.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -20,6 +27,18 @@ import torch
 
 from distributed_active_learning_tpu_torch.config import ForestConfig
 from distributed_active_learning_tpu_torch.ops.trees import LEAF, PackedForest, predict_proba
+
+#: Fixed int8 scale of class-probability leaves: ``q = round(p * 127)`` maps
+#: [0, 1] onto [0, 127], a worst-case error of 1/254. Only classifier leaves
+#: quantize to int8; a regressor's payload (the LAL regressor) is unbounded
+#: and stays f32.
+INT8_LEAF_SCALE = 127.0
+
+VALID_QUANTIZE_MODES = ("none", "bf16", "int8")
+
+# The int8 rescale, f32(1/127): a multiply by the f32 reciprocal, the JAX
+# package's spelling (a division by 127 differs in the last bit).
+_INT8_STEP = float(np.float32(1.0 / INT8_LEAF_SCALE))
 
 
 def require_sklearn():
@@ -36,28 +55,44 @@ def require_sklearn():
     return ensemble
 
 
-def _refuse_multiclass(n_classes: int) -> None:
-    if n_classes > 2:
-        raise NotImplementedError(
-            f"a {n_classes}-class host fit needs multiclass packing, which comes with the "
-            "multiclass slice (MultiForest)"
-        )
+def quantize_leaf_values(value: torch.Tensor, mode: str) -> torch.Tensor:
+    """Leaf probabilities in their storage format: ``"bf16"`` a cast
+    (round to nearest even), ``"int8"`` ``round(v * 127)`` (half to even,
+    as ``jnp.round``), ``"none"`` unchanged. Elementwise, so the device fit
+    quantizes inside its own pass (and inside a captured chunk)."""
+    if mode == "none":
+        return value
+    if mode == "bf16":
+        return value.to(torch.bfloat16)
+    if mode == "int8":
+        return torch.round(value * INT8_LEAF_SCALE).to(torch.int8)
+    raise ValueError(f"unknown quantize mode {mode!r}; one of {VALID_QUANTIZE_MODES}")
+
+
+def dequantize_leaf_values(value: torch.Tensor) -> torch.Tensor:
+    """f32 leaf probabilities from their storage dtype, at the point of use:
+    int8 times f32(1/127), bf16 widened (exact), f32 as it is."""
+    if value.dtype == torch.int8:
+        return value.to(torch.float32) * _INT8_STEP
+    if value.dtype == torch.bfloat16:
+        return value.to(torch.float32)
+    return value
 
 
 def pack_sklearn_forest(model, node_budget: Optional[int] = None,
-                        max_depth: Optional[int] = None) -> PackedForest:
+                        max_depth: Optional[int] = None,
+                        class_plane: Optional[int] = None) -> PackedForest:
     """A fitted scikit-learn forest as dense node tensors (on the CPU).
 
     A classifier's ``value`` is P(class 1) at each node (class 1's share of
     the node's class weights; a single-class fit holds that class at every
-    node); a regressor's is the node mean. Trees are padded with self-looping
+    node), or with ``class_plane`` P(that class) (0 where the fit never saw
+    it); a regressor's is the node mean. Trees are padded with self-looping
     leaves to the largest node count, or to ``node_budget``. The traversal
     depth is ``max(max_depth, 1)`` when given (the config's bound, so shapes
     do not move from fit to fit), else the deepest fitted tree's.
     """
     is_classifier = isinstance(model, require_sklearn().RandomForestClassifier)
-    if is_classifier:
-        _refuse_multiclass(len(model.classes_))
     estimators = model.estimators_
     n_nodes = max(e.tree_.node_count for e in estimators)
     if node_budget is not None:
@@ -88,7 +123,9 @@ def pack_sklearn_forest(model, node_budget: Optional[int] = None,
         if is_classifier:
             counts = tr.value[:, 0, :]  # [m, n_classes]
             totals = counts.sum(axis=1)
-            if counts.shape[1] == 1:  # single-class fit (a small labeled set)
+            if class_plane is not None:
+                value[t, :m] = _class_share(model, counts, class_plane)
+            elif counts.shape[1] == 1:  # single-class fit (a small labeled set)
                 value[t, :m] = float(model.classes_[0])
             else:
                 pos_col = int(np.flatnonzero(model.classes_ == 1)[0]) if 1 in model.classes_ else 1
@@ -106,17 +143,28 @@ def pack_sklearn_forest(model, node_budget: Optional[int] = None,
     )
 
 
+def _class_share(model, counts: np.ndarray, c: int) -> np.ndarray:
+    """Class ``c``'s share of each node's class weights, 0 where the fit
+    never saw ``c``."""
+    cols = np.flatnonzero(model.classes_ == c)
+    if not len(cols):
+        return np.zeros(counts.shape[0], dtype=np.float32)
+    return counts[:, int(cols[0])] / np.maximum(counts.sum(axis=1), 1e-9)
+
+
 def fit_forest_classifier(x: np.ndarray, y: np.ndarray, cfg: ForestConfig,
                           seed: Optional[int] = None,
-                          n_classes: Optional[int] = None) -> PackedForest:
+                          n_classes: Optional[int] = None):
     """Fit a random-forest classifier on the labeled rows and pack it
     (``RandomForest.trainClassifier(numTrees, maxDepth, 'gini')`` in the
     reference): ``cfg.n_trees`` trees of depth at most ``cfg.max_depth``,
-    ``random_state`` = ``seed`` (default ``cfg.seed``)."""
+    ``random_state`` = ``seed`` (default ``cfg.seed``). With more than two
+    classes (``n_classes``, or inferred from ``y``) the result is a
+    :class:`~..ops.trees_multi.MultiForest`: the structure packed once, one
+    value plane per class."""
     y = np.asarray(y)
     if n_classes is None:
         n_classes = int(y.max()) + 1 if y.size else 2
-    _refuse_multiclass(n_classes)
     model = require_sklearn().RandomForestClassifier(
         n_estimators=cfg.n_trees,
         max_depth=cfg.max_depth,
@@ -125,8 +173,22 @@ def fit_forest_classifier(x: np.ndarray, y: np.ndarray, cfg: ForestConfig,
         n_jobs=-1,
     )
     model.fit(np.asarray(x), y)
-    return pack_sklearn_forest(model, node_budget=cfg.resolved_node_budget,
-                               max_depth=cfg.max_depth)
+    if n_classes <= 2:
+        return pack_sklearn_forest(model, node_budget=cfg.resolved_node_budget,
+                                   max_depth=cfg.max_depth)
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    base = pack_sklearn_forest(model, node_budget=cfg.resolved_node_budget,
+                               max_depth=cfg.max_depth, class_plane=0)
+
+    def plane(c: int) -> torch.Tensor:
+        value = np.zeros(tuple(base.value.shape), dtype=np.float32)
+        for t, est in enumerate(model.estimators_):
+            value[t, :est.tree_.node_count] = _class_share(model, est.tree_.value[:, 0, :], c)
+        return torch.from_numpy(value)
+
+    return MultiForest(planes=(base, *(dataclasses.replace(base, value=plane(c))
+                                       for c in range(1, n_classes))))
 
 
 def fit_forest_regressor(x: np.ndarray, y: np.ndarray, cfg: ForestConfig,

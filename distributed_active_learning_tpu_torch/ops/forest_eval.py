@@ -7,7 +7,9 @@ is a config knob (``ForestConfig.kernel``), not a code path:
 :class:`~.trees_pallas.PallasForest` the hand-written leaf kernel, and
 :class:`~.trees_pallas.ShardedPallasForest` that kernel once per shard of a
 device mesh. :func:`for_kernel` turns a packed forest (a host fit's, a
-forest file's) into the form a kernel names.
+forest file's) into the form a kernel names. A multiclass
+:class:`~.trees_multi.MultiForest` is evaluated plane by plane by
+``ops/trees_multi.py``; the entry points here take one plane.
 """
 
 from __future__ import annotations
@@ -57,8 +59,13 @@ class EvaluatedForest:
 
 
 def evaluated(forest: Forest, x: torch.Tensor) -> EvaluatedForest:
-    """``forest`` with its leaf values on ``x`` computed once. A mesh's
-    sharded forest counts votes per shard and is refused."""
+    """``forest`` with its leaf values on ``x`` computed once (a
+    :class:`~.trees_multi.MultiForest` plane by plane, one evaluation a
+    plane). A mesh's sharded forest counts votes per shard and is refused."""
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    if isinstance(forest, MultiForest):
+        return MultiForest(planes=tuple(evaluated(p, x) for p in forest.planes))
     if isinstance(forest, trees_pallas.ShardedPallasForest):
         raise TypeError("a sharded forest evaluates per shard; evaluated() takes one device's form")
     return EvaluatedForest(forest, x, leaves(forest, x))
@@ -85,6 +92,12 @@ def _kind(forest) -> str:
         return "gather"
     if isinstance(forest, EvaluatedForest):
         raise TypeError("an EvaluatedForest serves leaves, votes and proba of its own input only")
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    if isinstance(forest, MultiForest):
+        raise TypeError(
+            f"a {forest.n_classes}-class MultiForest is evaluated plane by plane: use "
+            "ops.trees_multi (proba_multi, predict_class), or one of its planes")
     raise TypeError(
         f"unsupported forest {type(forest).__name__}: the port evaluates PackedForest, "
         "GemmForest, PallasForest and ShardedPallasForest"
@@ -132,6 +145,8 @@ def votes(forest: Forest, x: torch.Tensor) -> torch.Tensor:
 
 def value(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     """Regression prediction per point ``[n]`` (mean of leaf values)."""
+    if isinstance(forest, EvaluatedForest):
+        return proba(forest, x)
     if _kind(forest) == "gather":
         return trees.predict_value(forest, x)
     return proba(forest, x)
@@ -147,8 +162,13 @@ def for_kernel(forest: trees.PackedForest, kernel: str) -> Forest:
     walks (:func:`~.trees_pallas.heap_from_packed`; only where the kernel
     takes the depth, D <= 8: deeper forests take the gemm form there, as in
     the JAX package). Past depth 10 both keep the gather form, which
-    ``"gather"`` always keeps.
+    ``"gather"`` always keeps. A :class:`~.trees_multi.MultiForest` is
+    converted plane by plane.
     """
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    if isinstance(forest, MultiForest):
+        return MultiForest(planes=tuple(for_kernel(p, kernel) for p in forest.planes))
     if kernel == "gather":
         return forest
     if kernel not in ("gemm", "pallas"):

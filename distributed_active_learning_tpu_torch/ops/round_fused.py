@@ -157,11 +157,12 @@ def megakernel_plain(gf: GemmForest, x, selectable, table: torch.Tensor, k: int)
 
 def vote_bits(ops: trees_pallas.HeapOperands) -> torch.Tensor:
     """``[T, W]`` int64 words of vote bits, ``W = ceil(2^depth / 32)``: bit
-    ``l % 32`` of word ``l // 32`` is ``val[t, l] > 0.5``, as the kernels
-    pack them with one ballot per 32 leaves while they stage a tree."""
+    ``l % 32`` of word ``l // 32`` is ``val[t, l] > 0.5`` (the value widened
+    from its storage dtype), as the kernels pack them with one ballot per 32
+    leaves while they stage a tree."""
     L = 1 << ops.depth
     W = -(-L // 32)
-    hit = torch.nn.functional.pad(ops.val[:, :L] > 0.5, (0, 32 * W - L))
+    hit = torch.nn.functional.pad(ops.values()[:, :L] > 0.5, (0, 32 * W - L))
     shifts = torch.arange(32, device=hit.device, dtype=torch.int64)
     return (hit.reshape(ops.n_trees, W, 32).to(torch.int64) << shifts).sum(-1)
 
@@ -190,7 +191,7 @@ def walk_votes_plain(ops: trees_pallas.HeapOperands, x: torch.Tensor) -> torch.T
 
 
 def _heap_args(ops: trees_pallas.HeapOperands):
-    return (ops.nodes.data_ptr(), ops.val.data_ptr(), ops.n_trees, ops.depth,
+    return (ops.nodes.data_ptr(), ops.val.data_ptr(), ops.payload, ops.n_trees, ops.depth,
             ops.nodes.shape[1], ops.val.shape[1])
 
 
@@ -199,7 +200,8 @@ def launch_config(name: str, ops: trees_pallas.HeapOperands, n: int, d: int, dev
     launches with for ``n`` rows of ``d`` features on ``device``: its mode
     (the forest resident in shared memory, or streamed in tree chunks), the
     groups of 128 threads a block, trees a chunk, shared memory bytes a
-    block, the persistent grid and the blocks a multiprocessor holds."""
+    block, the persistent grid and the blocks a multiprocessor holds, at the
+    forest's leaf payload (a streamed stage holds the payload at its width)."""
     import ctypes
 
     got = (ctypes.c_int * 6)()

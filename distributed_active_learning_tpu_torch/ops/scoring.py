@@ -79,6 +79,9 @@ def margin_score(p_pos: Prob) -> torch.Tensor:
 
 
 def vote_sd(votes: torch.Tensor, n_trees: int) -> torch.Tensor:
-    """Standard deviation of per-tree Bernoulli votes (LAL feature f_2)."""
-    p = votes / n_trees
+    """Standard deviation of per-tree Bernoulli votes, ``sqrt(p (1 - p))``
+    with ``p = votes * f32(1/T)`` (LAL feature f_2). ``p`` is read twice, so
+    XLA does not contract ``1 - p`` into an FMA here (it does where the
+    product has one use, :meth:`VoteFraction.one_minus`)."""
+    p = div_const(votes, n_trees)
     return torch.sqrt(p * (1.0 - p))

@@ -6,6 +6,11 @@
 ``pred = hit . value``. Counts are small integers, exact in float32; the leaf
 contraction has one hit per (row, tree), so it is exact too. Rows are
 chunked so the ``[chunk, T, I]`` intermediates stay bounded.
+
+A quantized forest (``ops/trees_train.quantize_forest``) keeps its storage
+dtypes here and is widened at the point of use: bf16 thresholds before the
+compare (exact: they are bf16-snapped bin edges), bf16 or int8 leaf values
+inside the leaf contraction (``models.forest.dequantize_leaf_values``).
 """
 
 from __future__ import annotations
@@ -24,10 +29,10 @@ class GemmForest:
     """Forest in path-matrix form: T trees, I internal-node slots, L leaves."""
 
     feat_ids: torch.Tensor    # [T, I] int32 (0 for padded slots)
-    thresholds: torch.Tensor  # [T, I] float32
+    thresholds: torch.Tensor  # [T, I] float32 (bfloat16 when quantized)
     path: torch.Tensor        # [T, I, L] float32 in {-1, 0, +1}
     target: torch.Tensor      # [T, L] float32 — required S value (left-ancestor count)
-    value: torch.Tensor       # [T, L] float32 — leaf payload (P(class 1))
+    value: torch.Tensor       # [T, L] leaf payload (P(class 1)): float32, bfloat16 or int8
 
     @property
     def n_trees(self) -> int:
@@ -100,13 +105,15 @@ def gemm_forest_from_packed(packed, n_internal: int | None = None,
 
 def _predict_chunk(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     """Leaf values for one pool chunk: ``[chunk, d] -> [chunk, T]``."""
+    from distributed_active_learning_tpu_torch.models.forest import dequantize_leaf_values
+
     T, I = gf.feat_ids.shape
     feat_vals = x[:, gf.feat_ids.reshape(-1).long()]  # [chunk, T*I]
-    c = (feat_vals <= gf.thresholds.reshape(-1)).to(torch.float32)
+    c = (feat_vals <= gf.thresholds.reshape(-1).to(torch.float32)).to(torch.float32)
     c = c.reshape(-1, T, I)
     s = torch.einsum("nti,til->ntl", c, gf.path)
     hit = (s == gf.target[None]).to(torch.float32)
-    return torch.einsum("ntl,tl->nt", hit, gf.value)
+    return torch.einsum("ntl,tl->nt", hit, dequantize_leaf_values(gf.value))
 
 
 def _auto_chunk(gf: GemmForest) -> int:

@@ -20,6 +20,14 @@ the exact f32 compare of ``ops/trees_gemm.py`` only where a feature lies
 within bf16 rounding of a threshold; each form is held against its own
 reference.
 
+Quantized storage (``ops/trees_train.quantize_forest``): bf16 thresholds are
+widened into the f32 half of the node words (exact), and the leaf payload
+keeps its storage dtype (f32, bf16 or int8) in :class:`HeapOperands`. The
+kernels read the narrow payload and widen it in registers, as the TPU
+kernel's ``_leaf_rows`` dequantizes in its body
+(``models.forest.dequantize_leaf_values``: int8 times f32(1/127), bf16
+widened).
+
 Routes, each with its own counter:
 
 - a CUDA tensor within the kernel's tile limits launches the kernel
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.models.forest import dequantize_leaf_values
 from distributed_active_learning_tpu_torch.ops.trees_gemm import (
     GemmForest,
     _auto_chunk,
@@ -90,6 +99,11 @@ class PallasForest:
         return PallasForest(gf=self.gf.to(device), prepacked=heap)
 
 
+#: The payload code each kernel entry point takes for a leaf dtype
+#: (csrc/leaf_payload.cuh): a dtype not listed raises before any launch.
+PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedPallasForest:
     """Mesh-aware twin of :class:`PallasForest`: ``shards[s][m]`` is model
@@ -109,9 +123,14 @@ def attach_mesh(forest, mesh):
     """Wrap pallas forests for per-shard evaluation on ``mesh``: a
     ``[data][model]`` grid from ``parallel.mesh.shard_forest``, a global
     :class:`PallasForest` (sharded here), or a :class:`ShardedPallasForest`
-    (re-wrapped); other forests pass through untouched."""
+    (re-wrapped), and each plane of a multiclass
+    :class:`~.trees_multi.MultiForest`; other forests pass through
+    untouched."""
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
     from distributed_active_learning_tpu_torch.parallel.mesh import shard_forest
 
+    if isinstance(forest, MultiForest):
+        return MultiForest(planes=tuple(attach_mesh(p, mesh) for p in forest.planes))
     if isinstance(forest, ShardedPallasForest):
         return ShardedPallasForest(shards=forest.shards, mesh=mesh)
     if isinstance(forest, PallasForest):
@@ -148,15 +167,16 @@ class HeapOperands:
     """A complete heap forest in the walking kernels' layout (K1, K2, K3, K5
     and K6; csrc/heap_walk.cuh): node
     ``v`` of tree ``t`` is the 8-byte word ``nodes[t, v] = (feature id,
-    threshold bits)``, children at ``2v + 1`` and ``2v + 2``; leaf ``l``'s
-    value is ``val[t, l]``. Feature ids fit 16 bits (``d <= 512``) and are
-    kept in the word's 32-bit half. The trailing slots (node ``2^depth - 1``
-    at every depth, leaves padded to a multiple of 4) keep each tree's
-    arrays whole 16-byte pieces for the kernel's asynchronous copies and are
-    never read."""
+    f32 threshold bits)``, children at ``2v + 1`` and ``2v + 2``; leaf
+    ``l``'s value is ``val[t, l]``, in the forest's storage dtype (f32, bf16
+    or int8). Feature ids fit 16 bits (``d <= 512``) and are kept in the
+    word's 32-bit half. The trailing slots (node ``2^depth - 1`` at every
+    depth; leaves padded to 16 bytes a tree: a multiple of 4 f32, 8 bf16 or
+    16 int8 values) keep each tree's arrays whole 16-byte pieces for the
+    kernels' asynchronous copies and are never read."""
 
     nodes: torch.Tensor  # [T, N] int64 words: N = max(2^depth, 2)
-    val: torch.Tensor    # [T, Lp] f32: Lp = 2^depth rounded up to 4
+    val: torch.Tensor    # [T, Lp] payload: Lp = 2^depth rounded up to 16 bytes
     depth: int
 
     @property
@@ -180,6 +200,19 @@ class HeapOperands:
     @property
     def tensors(self):
         return (self.nodes, self.val)
+
+    @property
+    def payload(self) -> int:
+        """The kernels' code of the leaf dtype (:data:`PAYLOAD_CODES`)."""
+        if self.val.dtype not in PAYLOAD_CODES:
+            raise ValueError(f"the forest kernels take f32, bf16 or int8 leaf values, "
+                             f"not {self.val.dtype}")
+        return PAYLOAD_CODES[self.val.dtype]
+
+    def values(self) -> torch.Tensor:
+        """``[T, Lp]`` f32 leaf values, widened from the storage dtype as the
+        kernels widen them."""
+        return dequantize_leaf_values(self.val)
 
 
 def _not_a_heap(why: str) -> ValueError:
@@ -215,18 +248,23 @@ def heap_depth(gf: GemmForest) -> int:
 
 def pack_heap(feat: torch.Tensor, thr: torch.Tensor, value: torch.Tensor,
               depth: int) -> HeapOperands:
-    """Heap words of ``[T, 2^depth - 1]`` feature ids and f32 thresholds in
-    heap order, with ``[T, 2^depth]`` leaf values."""
+    """Heap words of ``[T, 2^depth - 1]`` feature ids and thresholds (f32,
+    or bf16 widened into the word's f32 half) in heap order, with
+    ``[T, 2^depth]`` leaf values kept in their dtype (f32, bf16 or int8),
+    each tree's padded to whole 16-byte pieces."""
     T, I = feat.shape
     L = 1 << depth
     N = max(L, 2)
     words = torch.zeros(T, N, 2, dtype=torch.int32, device=feat.device)
     words[:, :I, 0] = feat.to(torch.int32)
     words[:, :I, 1] = thr.to(torch.float32).view(torch.int32)
-    Lp = -(-L // 4) * 4
+    if value.dtype not in PAYLOAD_CODES:
+        value = value.to(torch.float32)
+    per16 = 16 // value.element_size()
+    Lp = -(-L // per16) * per16
     return HeapOperands(
         nodes=words.view(torch.int64).reshape(T, N),
-        val=torch.nn.functional.pad(value.to(torch.float32), (0, Lp - L)).contiguous(),
+        val=torch.nn.functional.pad(value, (0, Lp - L)).contiguous(),
         depth=depth,
     )
 
@@ -290,14 +328,16 @@ def walk_leaves_plain(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
     """K1's arithmetic in plain PyTorch: ``[n, T]`` leaf values at the
     leaves :func:`walk_leaf_ids` reaches."""
     tree = torch.arange(ops.n_trees, device=x.device)
-    return torch.cat([ops.val[tree, leaf] for leaf in walk_leaf_ids(ops, x)])
+    val = ops.values()
+    return torch.cat([val[tree, leaf] for leaf in walk_leaf_ids(ops, x)])
 
 
 def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the kernel: ``[n, T]`` leaf values from
     bf16-rounded features compared in f32, dense ancestor counts
     ``c . path`` (small integers, exact in f32), ``hit = (count ==
-    target)``, ``hit . value`` — chunked over rows like the gemm form."""
+    target)``, ``hit . value`` (the value widened from its storage dtype) —
+    chunked over rows like the gemm form."""
     T, I = gf.feat_ids.shape
     feat = gf.feat_ids.reshape(-1).long()
     thr = gf.thresholds.reshape(-1).to(torch.float32)
@@ -307,7 +347,7 @@ def predict_leaves_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
         c = (fv <= thr).to(torch.float32).reshape(-1, T, I)
         s = torch.einsum("nti,til->ntl", c, gf.path)
         hit = (s == gf.target[None]).to(torch.float32)
-        out.append(torch.einsum("ntl,tl->nt", hit, gf.value))
+        out.append(torch.einsum("ntl,tl->nt", hit, dequantize_leaf_values(gf.value)))
     return torch.cat(out)
 
 
@@ -333,8 +373,8 @@ def _launch_leaves(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
     lib = kernels.load("forest_leaves")
     with torch.cuda.device(x.device):
         err = lib.forest_leaves(
-            x.data_ptr(), n, d, ops.nodes.data_ptr(), ops.val.data_ptr(), ops.n_trees, ops.depth,
-            ops.nodes.shape[1], ops.val.shape[1], out.data_ptr(),
+            x.data_ptr(), n, d, ops.nodes.data_ptr(), ops.val.data_ptr(), ops.payload,
+            ops.n_trees, ops.depth, ops.nodes.shape[1], ops.val.shape[1], out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("forest_leaves", err)
@@ -344,15 +384,16 @@ def _launch_leaves(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
 
 def leaves_launch_config(ops: HeapOperands, n: int, d: int, device) -> dict:
     """The configuration csrc/forest_leaves.cu launches with for ``n`` rows
-    of ``d`` features on ``device``: rows a tile (threads a block), trees a
-    chunk, shared memory bytes a block, and the persistent grid."""
+    of ``d`` features on ``device`` (at the forest's payload dtype): rows a
+    tile (threads a block), trees a chunk, shared memory bytes a block, and
+    the persistent grid."""
     import ctypes
 
     got = (ctypes.c_int * 4)()
     lib = kernels.load("forest_leaves")
     with torch.cuda.device(device):
-        err = lib.forest_leaves_config(n, d, ops.n_trees, ops.depth, ops.nodes.shape[1],
-                                       ops.val.shape[1], got)
+        err = lib.forest_leaves_config(n, d, ops.payload, ops.n_trees, ops.depth,
+                                       ops.nodes.shape[1], ops.val.shape[1], got)
     kernels.check("forest_leaves_config", err)
     return dict(zip(("rows", "trees_per_chunk", "smem_bytes", "grid"), list(got)))
 

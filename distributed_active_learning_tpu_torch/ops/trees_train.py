@@ -64,15 +64,17 @@ def _quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
 
 def make_bins(x: torch.Tensor, n_bins: int = 32, quantize: str = "none") -> BinnedPool:
     """Quantile-bin the pool once per experiment (interior quantiles of a
-    float32 ``linspace``)."""
-    if quantize != "none":
-        raise NotImplementedError(
-            "quantized forest storage is not ported yet (the quantization "
-            "slice brings it); use quantize='none'"
-        )
+    float32 ``linspace``).
+
+    ``quantize != "none"`` snaps the edges onto the bf16 grid (round to
+    nearest even, as XLA) before the codes are computed: a fitted threshold
+    is always a bin edge, so bf16 threshold storage is then lossless and the
+    quantized forest's decision paths are those of the f32 forest."""
     x = x.to(torch.float32)
     qs = torch.linspace(0.0, 1.0, n_bins + 1, dtype=torch.float32, device=x.device)[1:-1]
     edges = _quantile_linear(x, qs).T.contiguous()  # [d, n_bins-1]
+    if quantize != "none":
+        edges = edges.to(torch.bfloat16).to(torch.float32)
     return BinnedPool(edges=edges, codes=code_features(x, edges))
 
 
@@ -291,26 +293,31 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return heap_path_target(depth, device)[which].expand(t.shape)
 
 
-def _binary_value(value: torch.Tensor) -> torch.Tensor:
-    """The P(class 1) plane of a fit's ``[T, nodes, C]`` value tensor (a
-    rank-2 tensor is that plane already); multiclass forests are refused."""
-    if value.ndim == 3:
-        if value.shape[-1] != 2:
-            raise NotImplementedError(
-                "multiclass forests are not ported yet (the multiclass slice "
-                "brings MultiForest)"
-            )
-        value = value[..., 1]
-    return value
+def _scalar_value_planes(value: torch.Tensor):
+    """``(C, value)``: a fit's value tensor as scalar planes. Rank 2 is the
+    P(class 1) plane already and ``[T, nodes, 2]`` gives its class-1 plane
+    (``C`` None); ``[T, nodes, C]`` with C > 2 keeps every plane, one a class
+    of a :class:`~.trees_multi.MultiForest`."""
+    if value.ndim == 2:
+        return None, value
+    C = value.shape[-1]
+    if C == 2:
+        return None, value[..., 1]
+    return C, value
 
 
 def heap_gemm_forest(
     feature: torch.Tensor, threshold: torch.Tensor, value: torch.Tensor, max_depth: int
-) -> GemmForest:
+):
     """Path-matrix form of a device-fit (complete heap) forest: slicing plus
-    a constant per depth. Binary forests only; multiclass value tensors
-    wait for the multiclass slice."""
-    value = _binary_value(value)
+    a constant per depth. A multiclass value tensor gives a
+    :class:`~.trees_multi.MultiForest` of one such form a class."""
+    C, value = _scalar_value_planes(value)
+    if C is not None:
+        from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+        return MultiForest(planes=tuple(
+            heap_gemm_forest(feature, threshold, value[..., c], max_depth) for c in range(C)))
     T, I = feature.shape
     L = I + 1
     path, target = heap_path_target(max_depth, feature.device)
@@ -329,10 +336,16 @@ def heap_packed_forest(
     """The gather form (:class:`~.trees.PackedForest`) of a device-fit heap
     forest: ``2I + 1`` nodes, node ``v``'s children at ``2v + 1`` and
     ``2v + 2``, the ``I + 1`` leaves self-looping; ``left``/``right`` are one
-    row broadcast over the trees."""
+    row broadcast over the trees. A multiclass value tensor gives a
+    :class:`~.trees_multi.MultiForest` of one such form a class."""
     from distributed_active_learning_tpu_torch.ops.trees import LEAF, PackedForest
 
-    value = _binary_value(value)
+    C, value = _scalar_value_planes(value)
+    if C is not None:
+        from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+        return MultiForest(planes=tuple(
+            heap_packed_forest(feature, threshold, value[..., c], max_depth) for c in range(C)))
     T, I = feature.shape
     n_nodes = 2 * I + 1  # 2^(D+1) - 1
     node = torch.arange(n_nodes, dtype=torch.int32, device=feature.device)
@@ -344,6 +357,45 @@ def heap_packed_forest(
         right=torch.where(internal, 2 * node + 2, node).expand(T, n_nodes),
         value=value.to(torch.float32),
         max_depth=max_depth,
+    )
+
+
+def quantize_forest(forest, mode: str):
+    """The forest with quantized storage: ``"bf16"`` stores thresholds and
+    leaf values in bfloat16, ``"int8"`` thresholds in bfloat16 and leaf
+    probabilities on the fixed int8 grid (``models.forest.INT8_LEAF_SCALE``).
+    The evaluation forms widen them where they read them (``trees_gemm``,
+    and the kernels K1, K2 and K3 in their own bodies). Elementwise casts,
+    so the device fit quantizes inside its own pass.
+
+    Only the path-matrix forms quantize (:class:`GemmForest`, and its pallas
+    and multiclass wrappers); bf16 thresholds are lossless only when they are
+    bf16-snapped bin edges (``make_bins(quantize=...)``)."""
+    from distributed_active_learning_tpu_torch.models.forest import (
+        VALID_QUANTIZE_MODES,
+        quantize_leaf_values,
+    )
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest
+
+    if mode not in VALID_QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {mode!r}; one of {VALID_QUANTIZE_MODES}")
+    if mode == "none":
+        return forest
+    if isinstance(forest, MultiForest):
+        return MultiForest(planes=tuple(quantize_forest(p, mode) for p in forest.planes))
+    if isinstance(forest, PallasForest):
+        return PallasForest(gf=quantize_forest(forest.gf, mode))
+    if not isinstance(forest, GemmForest):
+        raise ValueError(
+            "quantized storage applies to the path-matrix (gemm/pallas) "
+            f"forms only, got {type(forest).__name__}; use kernel='gemm' or "
+            "'pallas' with a depth within the path-matrix budget"
+        )
+    return dataclasses.replace(
+        forest,
+        thresholds=forest.thresholds.to(torch.bfloat16),
+        value=quantize_leaf_values(forest.value, mode),
     )
 
 

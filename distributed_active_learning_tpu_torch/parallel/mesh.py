@@ -213,7 +213,13 @@ def shard_forest(forest, mesh: Mesh):
     ``mesh.devices[s][m]`` for every data shard ``s`` (replicated over
     data, as ``P(model, None)``). A device-fit forest's heap path and
     targets stay broadcasts of each device's own constant
-    (``trees_train.to_device``), so no device checks them by value."""
+    (``trees_train.to_device``), so no device checks them by value. A
+    multiclass :class:`~..ops.trees_multi.MultiForest` shards plane by
+    plane (a ``MultiForest`` of grids)."""
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    if isinstance(forest, MultiForest):
+        return MultiForest(planes=tuple(shard_forest(p, mesh) for p in forest.planes))
     specs = forest_tree_specs(forest, mesh)
     return tuple(
         tuple(_map_fields(forest, lambda t, sl=specs[m], d=dev: to_device(t[sl], d))

@@ -8,7 +8,11 @@
 ``--fit host`` fits scikit-learn's forest on the host every round (the
 JAX package's default; it needs scikit-learn) and evaluates it in the
 ``--kernel`` form on the device; ``--strategy density`` weights the
-one-sided entropy by the similarity mass.
+one-sided entropy by the similarity mass. ``--quantize bf16|int8`` stores
+the device fit's forest narrow (the kernels widen it where they read it);
+``--strategy lal`` scores with a LAL regressor its options name
+(``--strategy-option lal_data_path=...`` or ``lal_model_path=...``). A pool
+of more than two classes fits one forest plane a class.
 
 Prints the reference-format log on stdout; ``--out`` writes it to a file.
 ``--device`` defaults to cuda and the run refuses to start without a card
@@ -50,6 +54,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-samples", type=int, default=None, help="pool size")
     ap.add_argument("--strategy", default="uncertainty")
     ap.add_argument("--window", type=int, default=10)
+    ap.add_argument(
+        "--strategy-option", action="append", default=[], metavar="K=V",
+        help="per-strategy option (repeatable), e.g. --strategy-option "
+        "lal_model_path=/tmp/lal.npz; values parse as int/float when they "
+        "look like one",
+    )
     ap.add_argument("--trees", type=int, default=10)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument(
@@ -69,6 +79,13 @@ def build_parser() -> argparse.ArgumentParser:
         "--fused-round", action="store_true",
         help="score + select through the round megakernel (--kernel pallas) "
         "or the gemm tile stream (--kernel gemm); bit-identical picks",
+    )
+    ap.add_argument(
+        "--quantize", choices=["none", "bf16", "int8"], default="none",
+        help="quantized forest storage (device fit only): bf16 thresholds and "
+        "bf16 or int8 leaf values, widened inside the kernels; bf16 decision "
+        "paths are those of f32 storage (the thresholds are bf16-snapped bin "
+        "edges), int8 moves leaf probabilities by at most 1/254",
     )
     # Device mesh for the sharded round (1x1 = single device). Pool rows ride
     # the data axis, trees the model axis; non-divisible pools are padded.
@@ -133,6 +150,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _parse_strategy_options(pairs) -> dict:
+    """Repeated ``K=V`` flags as a dict; values that parse as an int or a
+    float become one (the LAL knobs are ints, paths stay strings)."""
+    options = {}
+    for pair in pairs:
+        if "=" not in pair:
+            raise SystemExit(f"--strategy-option needs K=V, got {pair!r}")
+        k, v = pair.split("=", 1)
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        options[k] = v
+    return options
+
+
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -168,8 +203,10 @@ def main(argv=None) -> int:
         data=DataConfig(name=args.dataset, n_samples=args.n_samples, seed=args.seed),
         forest=ForestConfig(
             n_trees=args.trees, max_depth=args.depth, kernel=args.kernel, fit=args.fit,
+            quantize=args.quantize,
         ),
-        strategy=StrategyConfig(name=args.strategy, window_size=args.window),
+        strategy=StrategyConfig(name=args.strategy, window_size=args.window,
+                                options=_parse_strategy_options(args.strategy_option)),
         mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         n_start=args.n_start,
         max_rounds=args.rounds,

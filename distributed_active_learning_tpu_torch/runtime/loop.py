@@ -7,7 +7,14 @@ Each round: fit the forest on the labeled window on the device
 device), score the pool and take the masked top-k (or run the round
 megakernel, ``fused_round``), reveal, and measure test accuracy. A device
 fit gives the path-matrix form (``kernel`` "gemm" or "pallas", depth <= 10)
-or the gather form (``kernel="gather"``, or any depth > 10).
+or the gather form (``kernel="gather"``, or any depth > 10). With
+``ForestConfig.quantize`` ("bf16" or "int8") the fit stores thresholds and
+leaf values narrow before the forest leaves it, and every evaluation form
+widens them where it reads them (K1, K2 and K3 in their own bodies). A pool
+of more than two classes fits a :class:`~..ops.trees_multi.MultiForest`, one
+value plane per class; the ``lal`` strategy scores the pool with the LAL
+regressor its options name (``models/lal_training.py``), held fixed for the
+run.
 The PRNG stream, the fit, the picks and the records equal the JAX package's
 bit for bit on the same configuration (``tests/test_torch_loop.py``).
 
@@ -42,8 +49,9 @@ newest ``alstate_<round>.npz`` (either package's) and writes one every
 Not ported yet, and refused with a ``NotImplementedError`` that names the
 slice bringing them: under a mesh the chunked driver, round metrics,
 ``kernel`` "gemm" and "gather", depths past 10, the host fit and the density
-strategy; roofline attribution, scenarios, quantized storage and multiclass
-pools.
+and lal strategies; roofline attribution and scenarios. What the JAX package
+refuses of quantized storage (:func:`_validate_quantize`) the port refuses
+with the same reasons.
 """
 
 from __future__ import annotations
@@ -213,6 +221,8 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
         (mesh and cfg.strategy.name == "density",
          "the density strategy under a device mesh (sharded_similarity_mass) "
          f"comes with {_MESH_SLICE}"),
+        (mesh and cfg.strategy.name == "lal",
+         f"the lal strategy under a device mesh comes with {_MESH_SLICE}"),
         (mesh and (metrics is not None or cfg.collect_metrics),
          "RoundMetrics under a device mesh (the metrics reductions over the "
          f"sharded pool) come with {_MESH_SLICE}; per-round records and "
@@ -222,20 +232,55 @@ def _not_ported(cfg: ExperimentConfig, metrics) -> None:
          "(ROADMAP queue 1, \"Pre-flight equivalents\")"),
         (cfg.scenario is not None and cfg.scenario.active,
          "scenarios come with the scenario slice"),
-        (cfg.forest.quantize != "none",
-         "quantized forest storage comes with the quantization slice"),
     ]
     for refused, why in refusals:
         if refused:
             raise NotImplementedError(why)
 
 
+def _validate_quantize(cfg: ExperimentConfig) -> None:
+    """Quantized storage needs the device fit (bf16-snapped bin-edge
+    thresholds are what make bf16 storage lossless) and a path-matrix
+    kernel form (the dequantizing eval bodies live in trees_gemm and the
+    kernels K1, K2 and K3): the JAX package's refusals and reasons."""
+    from distributed_active_learning_tpu_torch.models.forest import VALID_QUANTIZE_MODES
+
+    q = cfg.forest.quantize
+    if q not in VALID_QUANTIZE_MODES:
+        raise ValueError(f"unknown ForestConfig.quantize {q!r}; one of {VALID_QUANTIZE_MODES}")
+    if q == "none":
+        return
+    if cfg.forest.fit != "device":
+        raise ValueError(
+            "quantized forest storage requires the device fit (host-fit "
+            "sklearn midpoints are not bf16-snapped bin edges, so bf16 "
+            "threshold storage would silently move decision boundaries); "
+            "use --fit device or quantize='none'"
+        )
+    if cfg.forest.kernel not in ("gemm", "pallas"):
+        raise ValueError(
+            f"quantized storage applies to the path-matrix kernels, not "
+            f"{cfg.forest.kernel!r}; use kernel='gemm' or 'pallas'"
+        )
+    if cfg.forest.max_depth > forest_eval._GEMM_MAX_DEPTH:
+        raise ValueError(
+            f"max_depth {cfg.forest.max_depth} exceeds the path-matrix "
+            f"budget ({forest_eval._GEMM_MAX_DEPTH}); quantized storage "
+            "has no gather-form dequantizer"
+        )
+
+
 def _accuracy(forest, test_x, test_y: torch.Tensor) -> torch.Tensor:
-    """Test accuracy on the device (``uncertainty_sampling.py:79-83``); on a
+    """Test accuracy on the device (``uncertainty_sampling.py:79-83``): the
+    most probable class of a multiclass forest, else P(class 1) > 0.5; on a
     mesh ``test_x`` is the test set placed on every shard."""
+    from distributed_active_learning_tpu_torch.ops import trees_multi
     from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const
 
-    pred = (forest_eval.proba(forest, test_x) > 0.5).to(torch.int32)
+    if trees_multi.is_multi(forest):
+        pred = trees_multi.predict_class(forest, test_x)
+    else:
+        pred = (forest_eval.proba(forest, test_x) > 0.5).to(torch.int32)
     return div_const((pred == test_y).to(torch.float32).sum(), test_y.shape[0])
 
 
@@ -254,13 +299,20 @@ def _resolve_fit_budget(cfg: ExperimentConfig, n_pool: int, n_labeled: int) -> i
 
 def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
     """Labeled-window gather + histogram fit + kernel-form conversion: the
-    path-matrix form for kernels "gemm" and "pallas" up to depth 10, the
-    gather form otherwise."""
+    path-matrix form for kernels "gemm" and "pallas" up to depth 10 (its
+    storage quantized inside the fit when ``quantize`` says so), the gather
+    form otherwise; a multiclass fit gives one plane a class."""
     from distributed_active_learning_tpu_torch.ops import trees_train
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
     from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest
 
     fc = cfg.forest
     to_gemm = fc.kernel in ("gemm", "pallas") and fc.max_depth <= forest_eval._GEMM_MAX_DEPTH
+
+    def wrap_pallas(forest):
+        if isinstance(forest, MultiForest):
+            return MultiForest(planes=tuple(PallasForest(gf=p) for p in forest.planes))
+        return PallasForest(gf=forest)
 
     def fit_body(codes, edges, state: state_lib.PoolState, key: prng.Key):
         if isinstance(codes, Sharded):
@@ -277,7 +329,10 @@ def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
         if not to_gemm:
             return trees_train.heap_packed_forest(f, th, v, fc.max_depth)
         gf = trees_train.heap_gemm_forest(f, th, v, fc.max_depth)
-        return PallasForest(gf=gf) if fc.kernel == "pallas" else gf
+        # Storage narrows inside the fit, so the forest leaves it (and a
+        # captured chunk's fit) at the narrow dtypes.
+        gf = trees_train.quantize_forest(gf, fc.quantize)
+        return wrap_pallas(gf) if fc.kernel == "pallas" else gf
 
     return fit_body
 
@@ -645,8 +700,18 @@ def make_host_fit(cfg: ExperimentConfig, host_x: np.ndarray, host_y: np.ndarray,
 
 
 def build_aux(cfg: ExperimentConfig, state: state_lib.PoolState) -> StrategyAux:
-    """Strategy aux inputs: the seed mask (the LAL regressor is not ported)."""
-    return StrategyAux(seed_mask=state.labeled_mask)
+    """Strategy aux inputs: the LAL regressor that the ``lal`` strategy's
+    options name (a :class:`~..ops.trees.PackedForest` on the pool's
+    device, evaluated in the gather form as in the JAX package) and the
+    seed mask."""
+    lal_forest = None
+    if cfg.strategy.name == "lal":
+        from distributed_active_learning_tpu_torch.models.lal_training import (
+            load_or_train_lal_regressor,
+        )
+
+        lal_forest = load_or_train_lal_regressor(dict(cfg.strategy.options), state.x.device)
+    return StrategyAux(lal_forest=lal_forest, seed_mask=state.labeled_mask)
 
 
 def run_experiment(
@@ -671,6 +736,7 @@ def run_experiment(
     there and writes new ones (``runtime/checkpoint.py``)."""
     dev = resolve_device(device)
     _not_ported(cfg, metrics)
+    _validate_quantize(cfg)
     if cfg.forest.fit not in ("host", "device"):
         raise ValueError(f"unknown ForestConfig.fit {cfg.forest.fit!r}; use 'host' or 'device'")
     dbg = debugger or Debugger(enabled=False)
@@ -683,8 +749,6 @@ def run_experiment(
     host_x = np.ascontiguousarray(bundle.train_x, dtype=np.float32)
     host_y = np.asarray(bundle.train_y, dtype=np.int32)
     n_classes = max(int(host_y.max()) + 1, 2) if host_y.size else 2
-    if n_classes > 2:
-        raise NotImplementedError("multiclass pools come with the multiclass slice")
 
     state = state_lib.init_pool_state(host_x, host_y, prng.key(cfg.seed), dev)
     state = state_lib.set_start_state(state, cfg.n_start, n_classes=n_classes)

@@ -98,7 +98,7 @@ def compute_round_metrics(
     probabilities then come from the leaf values the score was computed
     from, with no second pass over the pool.
     """
-    from distributed_active_learning_tpu_torch.ops import forest_eval
+    from distributed_active_learning_tpu_torch.ops import forest_eval, trees_multi
     from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const, row_sum
     from distributed_active_learning_tpu_torch.runtime import state as state_lib
 
@@ -133,7 +133,11 @@ def compute_round_metrics(
     # for the serving slice): the JAX code divides by a constant, which XLA
     # turns into a multiplication by its f32 reciprocal.
     n_real = state.n_valid
-    ent_mean = div_const(_entropy_sum(forest_eval.leaves(forest, state.x), valid), n_real)
+    if trees_multi.is_multi(forest):
+        ent = _entropy_sum_multi([forest_eval.leaves(p, state.x) for p in forest.planes], valid)
+    else:
+        ent = _entropy_sum(forest_eval.leaves(forest, state.x), valid)
+    ent_mean = div_const(ent, n_real)
     # A one-hot sum into a fixed [n_classes] buffer (no bincount: its length
     # would depend on the data); sentinel picks count nothing.
     classes = torch.arange(n_classes, device=picked.device, dtype=torch.int32)
@@ -170,6 +174,16 @@ def _entropy_sum(leaves: torch.Tensor, valid: torch.Tensor, eps: float = 1e-6) -
     p = torch.clamp(leaves.mean(dim=1), eps, 1.0 - eps)
     q = 1.0 - p
     return -torch.where(valid, p * torch.log2(p) + q * torch.log2(q), 0.0).sum()
+
+
+def _entropy_sum_multi(plane_leaves: List[torch.Tensor], valid: torch.Tensor) -> torch.Tensor:
+    """The multiclass form of :func:`_entropy_sum`: each class's probability
+    the mean leaf value of its plane, ``-sum_c p_c log2(p_c + 1e-12)`` a
+    row (``trees_multi.entropy_multi``'s formula in native float32), summed
+    over the valid rows."""
+    p = torch.stack([leaves.mean(dim=1) for leaves in plane_leaves], dim=-1)
+    ent = -(p * torch.log2(p + 1e-12)).sum(dim=-1)
+    return torch.where(valid, ent, 0.0).sum()
 
 
 def stack_metrics(per_round: List[RoundMetrics]) -> RoundMetrics:

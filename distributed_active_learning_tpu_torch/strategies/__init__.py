@@ -10,6 +10,7 @@ from distributed_active_learning_tpu_torch.strategies.base import (
 
 # Import for registration side effects.
 from distributed_active_learning_tpu_torch.strategies import core as _core  # noqa: F401
+from distributed_active_learning_tpu_torch.strategies import lal as _lal  # noqa: F401
 
 __all__ = [
     "Strategy",

@@ -13,8 +13,9 @@ from distributed_active_learning_tpu_torch.config import StrategyConfig
 
 @dataclasses.dataclass(frozen=True)
 class StrategyAux:
-    """Optional per-round auxiliary inputs (the LAL regressor waits for the
-    LAL slice; ``seed_mask`` is the initially labeled mask)."""
+    """Optional per-round auxiliary inputs: the LAL regressor
+    (``lal_forest``, a forest the ``lal`` strategy evaluates over its
+    features) and ``seed_mask``, the initially labeled mask."""
 
     lal_forest: Optional[object] = None
     seed_mask: Optional[torch.Tensor] = None

@@ -1,6 +1,9 @@
-"""Core strategies over binary forests (the port of ``strategies/core.py``):
-random, uncertainty, soft_uncertainty, entropy, full_entropy, margin and
-density. The multiclass branches wait for the multiclass slice."""
+"""Core strategies (the port of ``strategies/core.py``): random, uncertainty,
+soft_uncertainty, entropy, full_entropy, margin and density. Over a binary
+forest they score the vote fraction (or the mean leaf value); over a
+multiclass :class:`~..ops.trees_multi.MultiForest` the class probabilities:
+uncertainty, soft_uncertainty and margin take the top-2 margin, entropy and
+full_entropy the full entropy, density its entropy term likewise."""
 
 from __future__ import annotations
 
@@ -8,9 +11,17 @@ import torch
 
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import StrategyConfig
-from distributed_active_learning_tpu_torch.ops import forest_eval, scoring, similarity
+from distributed_active_learning_tpu_torch.ops import forest_eval, scoring, similarity, trees_multi
 from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.strategies.base import Strategy, register_strategy
+
+
+def _multi_margin(forest, state) -> torch.Tensor:
+    return trees_multi.margin_score_multi(trees_multi.proba_multi(forest, state.x))
+
+
+def _multi_entropy(forest, state) -> torch.Tensor:
+    return trees_multi.entropy_multi(trees_multi.proba_multi(forest, state.x))
 
 
 def _vote_fraction(forest, state) -> scoring.VoteFraction:
@@ -37,6 +48,8 @@ def _uncertainty(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key, aux
+        if trees_multi.is_multi(forest):  # least confident: the smallest top-2 margin
+            return _multi_margin(forest, state)
         return scoring.uncertainty_score(_vote_fraction(forest, state))
 
     return Strategy(name="uncertainty", score=score, higher_is_better=False)
@@ -50,6 +63,8 @@ def _soft_uncertainty(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key, aux
+        if trees_multi.is_multi(forest):
+            return _multi_margin(forest, state)
         total = row_sum(forest_eval.leaves(forest, state.x))
         return scoring.uncertainty_score(scoring.VoteFraction(total, forest.n_trees))
 
@@ -62,6 +77,8 @@ def _entropy(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key, aux
+        if trees_multi.is_multi(forest):
+            return _multi_entropy(forest, state)
         return scoring.positive_entropy(_vote_fraction(forest, state))
 
     return Strategy(name="entropy", score=score, higher_is_better=True)
@@ -73,6 +90,8 @@ def _full_entropy(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key, aux
+        if trees_multi.is_multi(forest):
+            return _multi_entropy(forest, state)
         return scoring.full_entropy(_vote_fraction(forest, state))
 
     return Strategy(name="full_entropy", score=score, higher_is_better=True)
@@ -84,6 +103,8 @@ def _margin(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key, aux
+        if trees_multi.is_multi(forest):
+            return _multi_margin(forest, state)
         return scoring.margin_score(_vote_fraction(forest, state))
 
     return Strategy(name="margin", score=score, higher_is_better=False)
@@ -101,7 +122,10 @@ def _density(cfg: StrategyConfig) -> Strategy:
 
     def score(forest, state, key, aux):
         del key
-        ent = scoring.positive_entropy(_vote_fraction(forest, state))
+        if trees_multi.is_multi(forest):
+            ent = _multi_entropy(forest, state)
+        else:
+            ent = scoring.positive_entropy(_vote_fraction(forest, state))
         if mass_over == "non_seed" and aux.seed_mask is not None:
             count_mask = ~aux.seed_mask
         else:

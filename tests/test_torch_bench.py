@@ -1,5 +1,7 @@
 """The port's bench prints one parseable JSON line per mode (``--device cpu``
-at tiny sizes; score and density also under ``--kernel gather``) with the keys the JAX bench uses for the same legs, and the
+at tiny sizes; score and density also under ``--kernel gather``; lal with
+its regressor fitted from the fixture, and from a forest file with and
+without scikit-learn) with the keys the JAX bench uses for the same legs, and the
 port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
 of ``tests/test_pipeline.py`` on a fake, host-only dispatch)."""
 
@@ -108,6 +110,28 @@ def test_bench_modes_print_one_json_line(tmp_path):
     assert rnd["scan_seconds_per_round_metrics_off"] > 0.0
     assert rnd["serial_touchdown_hidden_fraction"] == 0.0  # depth 1 hides nothing
     assert 0.0 <= rnd["touchdown_hidden_fraction"] <= 1.0
+
+    # lal: the regressor fitted from the committed fixture, then read from a
+    # forest file (the card's way: it has no scikit-learn), and without
+    # scikit-learn the host-fit leg is reported skipped by name.
+    lal_argv = ["--mode", "lal", *_TINY, "--lal-trees", "8", "--lal-pool", "150"]
+    rc, lal = _line(lal_argv)
+    assert rc == 0 and lal["metric"] == "lal_query_seconds", lal
+    for key in ("lal_query_seconds", "lal_query_device_seconds", "lal_query_seconds_host_fit",
+                "vs_baseline"):
+        assert lal[key] > 0, key
+    assert lal["lal_trees"] == 8
+    from distributed_active_learning_tpu_torch.models import forest as forest_lib
+    from distributed_active_learning_tpu_torch.models import forest_io
+
+    path = str(tmp_path / "lal.npz")
+    forest_io.save_forest(path, forest_lib.synthetic_forest(np.random.default_rng(0), 11, 8, 5))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(__import__("sys").modules, "sklearn", None)
+        rc, lal = _line(lal_argv + ["--lal-model", path])
+    assert rc == 0 and lal["lal_trees"] == 11 and lal["lal_query_seconds"] > 0, lal
+    assert lal["lal_query_seconds_host_fit"] is None
+    assert "scikit-learn" in lal["lal_host_fit_skipped"]
 
     rc, var = _line(["--mode", "variants", "--variants", "v0,v1,w12,r1,wf", *_TINY])
     assert rc == 0 and [r["variant"] for r in var["variants"]] == ["v0", "v1", "w12", "r1", "wf"]

@@ -5,8 +5,10 @@ depth 4, device fit, kernel "pallas", uncertainty, window 15, n_start 10,
 three, the final mask across the port's two drivers (the JAX result does not
 carry one), fused and unfused, at pipeline depth 1 and 2, with ``max_rounds``
 not a multiple of the chunk and with a ``label_budget`` that stops inside a
-chunk; unfused also with a depth-11 device fit (the gather form) and with
-the density strategy. Also the raw chunk program: its stacked ys and its carried-out state
+chunk; unfused also with a depth-11 device fit (the gather form), the
+density strategy, bf16 storage, a 4-class pool and the lal strategy (its
+regressor fitted from the committed fixture), fused with int8 storage. Also
+the raw chunk program: its stacked ys and its carried-out state
 (picked, active, mask, key data, round) equal the JAX chunk's.
 
 Telemetry and checkpoints: the metrics-on chunk's RoundMetrics equal the
@@ -16,8 +18,9 @@ metrics change no pick; ``config_fingerprint`` is the same in both packages;
 a checkpoint written by the JAX chunked driver resumes in the port and one
 written by the port resumes in JAX, each resumed curve and final mask equal
 to the other package's uninterrupted run; a chunked checkpoint resumes under
-the per-round driver; and a checkpoint written on a 2 x 1 mesh resumes on
-one device."""
+the per-round driver; a checkpoint written on a 2 x 1 mesh resumes on
+one device; and an int8-storage chunked run stopped and resumed equals its
+uninterrupted run (the fingerprint holds the storage mode, as JAX's)."""
 
 import dataclasses
 import os
@@ -30,6 +33,7 @@ import torch
 
 from distributed_active_learning_tpu import config as j_config
 from distributed_active_learning_tpu.data import get_dataset as j_get_dataset
+from distributed_active_learning_tpu.data.datasets import DataBundle as JBundle
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
 from distributed_active_learning_tpu.runtime import loop as j_loop
@@ -39,6 +43,7 @@ from distributed_active_learning_tpu.strategies import get_strategy as j_strateg
 from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.data import get_dataset as t_get_dataset
+from distributed_active_learning_tpu_torch.data.datasets import DataBundle as TBundle
 from distributed_active_learning_tpu_torch.ops import trees_train as t_train
 from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
@@ -49,12 +54,13 @@ from distributed_active_learning_tpu_torch.strategies import get_strategy as t_s
 K = 3
 
 
-def _cfgs(fused, max_depth=4, strategy="uncertainty", fit_budget=None, **kw):
+def _cfgs(fused, max_depth=4, strategy="uncertainty", fit_budget=None, quantize="none",
+          options=None, **kw):
     j = j_config.ExperimentConfig(
         data=j_config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
         forest=j_config.ForestConfig(n_trees=8, max_depth=max_depth, kernel="pallas",
-                                     fit="device", fit_budget=fit_budget),
-        strategy=j_config.StrategyConfig(name=strategy, window_size=15),
+                                     fit="device", fit_budget=fit_budget, quantize=quantize),
+        strategy=j_config.StrategyConfig(name=strategy, window_size=15, options=options or {}),
         n_start=10, fused_round=fused, **kw,
     )
     return j, t_config.from_dict(dataclasses.asdict(j))
@@ -143,6 +149,7 @@ def _fingerprints_agree():
         dict(strategy="density"),
         dict(fit_budget=96, max_rounds=7, rounds_per_launch=3, label_budget=70),
     ]
+    variants += [dict(quantize="int8"), dict(strategy="lal", options=_LAL_OPTIONS)]
     for kw in variants:
         jcfg, tcfg = _cfgs(False, **kw)
         assert t_ckpt.config_fingerprint(tcfg) == j_ckpt.config_fingerprint(jcfg), kw
@@ -246,19 +253,57 @@ def test_chunked_matches_jax(tmp_path):
             assert got.to_reference_log() == want.to_reference_log()
         _raw_chunk_parity(fused)
 
-    # The gather form (a depth-11 device fit) and the density strategy inside
-    # the chunk: equal to the per-round driver and to the JAX chunked driver.
-    for what, kw in {"depth 11 (gather form)": dict(max_depth=11),
-                     "density": dict(strategy="density")}.items():
-        jcfg, tcfg = _cfgs(False, max_rounds=5, **kw)
-        per_round = t_loop.run_experiment(tcfg, device="cpu")
-        got = t_loop.run_experiment(dataclasses.replace(tcfg, rounds_per_launch=K), device="cpu")
+    # The gather form (a depth-11 device fit), density, quantized storage, a
+    # 4-class pool and lal inside the chunk: equal to the per-round driver
+    # and to the JAX chunked driver.
+    four = _four_classes()
+    for what, (fused, kw) in {
+            "depth 11 (gather form)": (False, dict(max_depth=11)),
+            "density": (False, dict(strategy="density")),
+            "int8 storage, fused": (True, dict(quantize="int8")),
+            "bf16 storage": (False, dict(quantize="bf16")),
+            "4 classes": (False, dict(bundle=four)),
+            "lal": (False, dict(strategy="lal", options=_LAL_OPTIONS))}.items():
+        kw = dict(kw)
+        bundle = kw.pop("bundle", None)
+        jb, tb = (JBundle(*bundle), TBundle(*bundle)) if bundle else (None, None)
+        jcfg, tcfg = _cfgs(fused, max_rounds=5, **kw)
+        per_round = t_loop.run_experiment(tcfg, bundle=tb, device="cpu")
+        got = t_loop.run_experiment(dataclasses.replace(tcfg, rounds_per_launch=K), bundle=tb,
+                                    device="cpu")
         assert _key(got) == _key(per_round), what
         assert [r.n_labeled for r in got.records] == [10, 25, 40, 55, 70], what
         assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask), what
-        want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K))
+        want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K), bundle=jb)
         assert got.to_reference_log() == want.to_reference_log(), what
 
     _metrics_chunk_parity()
     _fingerprints_agree()
     _checkpoints_cross_packages(tmp_path)
+    _quantized_resume(tmp_path)
+
+
+def _quantized_resume(tmp_path):
+    """int8 storage, chunked (K = 3): stopped at 2 rounds and resumed to 5,
+    equal to the uninterrupted run (the fit window pinned)."""
+    _, tcfg = _cfgs(False, fit_budget=96, rounds_per_launch=K, quantize="int8")
+    full = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=5), device="cpu")
+    ck = dict(checkpoint_dir=str(tmp_path / "q"), checkpoint_every=1)
+    t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=2, **ck), device="cpu")
+    resumed = t_loop.run_experiment(dataclasses.replace(tcfg, max_rounds=3, **ck), device="cpu")
+    assert _key(resumed) == _key(full)
+    assert torch.equal(resumed.final_labeled_mask, full.final_labeled_mask)
+
+
+def _four_classes(seed=3, n=300, m=128):
+    """A 4-class pool made with numpy: classes by quartile of x0 + 0.3 x1."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + m, 4)).astype(np.float32)
+    s = x[:, 0] + 0.3 * x[:, 1]
+    y = np.digitize(s, np.quantile(s, [0.25, 0.5, 0.75])).astype(np.int32)
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+_LAL_OPTIONS = {"lal_data_path": os.path.join(os.path.dirname(__file__), "fixtures",
+                                              "lal_simulatedunbalanced_big.txt"),
+                "lal_trees": 12, "lal_depth": 6}

@@ -37,15 +37,16 @@ def cuda():
     return resolve_device("cuda")
 
 
-def _forest(n_trees, depth, d, dev, seed=0, m=2000):
+def _forest(n_trees, depth, d, dev, seed=0, m=2000, quantize="none"):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).to(dev)
     y = (x[:, 0] + 0.3 * x[:, 1] > 0).to(torch.int32)
-    b = trees_train.make_bins(x, 32)
+    b = trees_train.make_bins(x, 32, quantize=quantize)
     f, th, v = trees_train.fit_forest_device(
         b.codes, y, torch.ones(m, device=dev), b.edges, prng.key(seed),
         n_trees=n_trees, max_depth=depth)
-    return trees_train.heap_gemm_forest(f, th, v, depth), rng
+    gf = trees_train.heap_gemm_forest(f, th, v, depth)
+    return trees_train.quantize_forest(gf, quantize), rng
 
 
 def _edge_rows(gf, rng, n, d):
@@ -53,7 +54,7 @@ def _edge_rows(gf, rng, n, d):
     features), then rows whose features sit exactly on node thresholds (the
     f32 threshold and the bf16 tie above its rounding)."""
     x = rng.normal(size=(n, d)).astype(np.float32)
-    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.cpu().numpy()
+    feat, thr = gf.feat_ids.cpu().numpy(), gf.thresholds.float().cpu().numpy()
     for r in range(n):
         kind = r % 8
         if kind < 3:
@@ -514,6 +515,102 @@ def test_gather_and_density_on_the_card_match_the_cpu(cuda):
             got = loop.run_experiment(dataclasses.replace(cfg, rounds_per_launch=k), device=cuda)
             assert got.to_reference_log() == on_cpu.to_reference_log(), (change, k)
             assert torch.equal(got.final_labeled_mask.cpu(), on_cpu.final_labeled_mask)
+
+
+def test_quantized_payloads_match_plain(cuda):
+    """K1, K2 and K3 on quantized forests (``quantize_forest``: thresholds
+    bf16, leaf values bf16 or on the int8 grid) read the narrow payload in
+    their own bodies: leaves, votes and per-tile candidates bit-equal to
+    their plain versions at depths 1-8 on edge rows (an int8 depth-1 tree's
+    two leaves padded to 16 bytes), resident and streamed; the streamed
+    stage's bytes follow the payload's width. A payload dtype the kernels
+    were not built for raises before any launch."""
+    import dataclasses
+
+    widths = {"int8": (torch.int8, 16), "bf16": (torch.bfloat16, 8)}
+    for mode, (dtype, per16) in widths.items():
+        for depth in range(1, 9):
+            gf, rng = _forest(9, depth, 6, cuda, seed=40 + depth, quantize=mode)
+            heap = trees_pallas.heap_operands(gf)
+            assert heap.val.dtype == dtype and heap.val.shape[1] % per16 == 0
+            assert gf.thresholds.dtype == torch.bfloat16
+            x = _edge_rows(gf, rng, 1000, 6).to(cuda)
+            _check_leaves(gf, x, (mode, depth))
+            _check_votes(gf, x, torch.from_numpy(rng.random(1000) < 0.7).to(cuda),
+                         (mode, depth), mode="resident")
+        for n_trees, d, n in ((120, 512, 700), (256, 30, 3001)):
+            gf, rng = _forest(n_trees, 8, d, cuda, seed=n_trees, quantize=mode)
+            x = _edge_rows(gf, rng, n, d).to(cuda)
+            _check_leaves(gf, x, (mode, n_trees, d))
+            _check_votes(gf, x, torch.from_numpy(rng.random(n) < 0.7).to(cuda),
+                         (mode, n_trees, d), mode="streamed")
+            heap = trees_pallas.heap_operands(gf)
+            f32 = dataclasses.replace(heap, val=heap.values().contiguous())
+            for name in ("fused_votes", "round_megakernel"):
+                narrow = round_fused.launch_config(name, heap, n, d, cuda)
+                wide = round_fused.launch_config(name, f32, n, d, cuda)
+                assert narrow["trees_per_chunk"] >= wide["trees_per_chunk"], (mode, name)
+    gf, rng = _forest(4, 3, 5, cuda)
+    heap = trees_pallas.heap_operands(gf)
+    half = dataclasses.replace(heap, val=heap.val.to(torch.float16))
+    x = torch.zeros(10, 5, device=cuda)
+    before = (trees_pallas.launches, round_fused.votes_launches)
+    for call in (lambda: trees_pallas._launch_leaves(half, x),
+                 lambda: round_fused._launch_votes(half, x)):
+        with pytest.raises(ValueError, match="f32, bf16 or int8"):
+            call()
+    assert (trees_pallas.launches, round_fused.votes_launches) == before
+
+
+def test_quantized_multiclass_and_lal_runs_match_the_cpu(cuda, tmp_path):
+    """Quantized storage (fused and unfused, per round and chunked, and the
+    fused 2 x 2 mesh on the one card), a 4-class pool (per round with
+    RoundMetrics, chunked, and the unfused mesh) and the lal strategy (its
+    regressor from a forest file, per round and chunked) on the card
+    against the same runs on the CPU: logs and final masks equal. K1
+    launches 2 x 4 times a round on the 4-class metrics path."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+    from distributed_active_learning_tpu_torch.models import forest as forest_lib
+    from distributed_active_learning_tpu_torch.models import forest_io, lal_training
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        n_start=10, max_rounds=5)
+    rng = np.random.default_rng(4)
+    xs = rng.normal(size=(400, 4)).astype(np.float32)
+    s = xs[:, 0] + 0.3 * xs[:, 1]
+    ys = np.digitize(s, np.quantile(s, [0.25, 0.5, 0.75])).astype(np.int32)
+    four = DataBundle(xs[:300], ys[:300], xs[300:], ys[300:])
+    path = str(tmp_path / "lal.npz")
+    forest_io.save_forest(path, forest_lib.synthetic_forest(rng, 12, 6, 5),
+                          meta=lal_training.lal_meta({"lal_model_path": path}))
+    mesh = config.MeshConfig(data=2, model=2)
+    runs = []
+    for q in ("int8", "bf16"):
+        forest = dataclasses.replace(base.forest, quantize=q)
+        runs += [(dict(forest=forest, fused_round=f, rounds_per_launch=k), None)
+                 for f in (False, True) for k in (1, 3)]
+        runs.append((dict(forest=forest, fused_round=True, mesh=mesh), None))
+    runs += [(dict(collect_metrics=True), four), (dict(rounds_per_launch=3), four),
+             (dict(mesh=mesh), four)]
+    lal = config.StrategyConfig(name="lal", window_size=15, options={"lal_model_path": path})
+    runs += [(dict(strategy=lal, rounds_per_launch=k), None) for k in (1, 3)]
+    for change, bundle in runs:
+        cfg = dataclasses.replace(base, **change)
+        on_cpu = loop.run_experiment(cfg, bundle=bundle, device="cpu")
+        devices = [cuda] * 4 if "mesh" in change else None
+        before = trees_pallas.launches
+        got = loop.run_experiment(cfg, bundle=bundle, device=cuda, devices=devices)
+        assert got.to_reference_log() == on_cpu.to_reference_log(), change
+        assert torch.equal(got.final_labeled_mask.cpu(), on_cpu.final_labeled_mask), change
+        if change == dict(collect_metrics=True):
+            assert trees_pallas.launches - before == 2 * 4 * 5
 
 
 def _to_cpu(gf):

@@ -2,7 +2,10 @@
 kernels in interpret mode on the same forest and pool:
 
 - K1 (ops/trees_pallas.py): the plain version of csrc/forest_leaves.cu equals
-  ``trees_pallas.predict_leaves_pallas(..., interpret=True)`` bit for bit;
+  ``trees_pallas.predict_leaves_pallas(..., interpret=True)`` bit for bit,
+  also on quantized forests (int8 and bf16 leaves, bf16 thresholds), where
+  K3's and K2's plain versions equal JAX's ``fused_votes_pallas`` and
+  megakernel in interpret mode too;
   past the tile limits both packages take the exact gemm form; host-fit
   forests (scikit-learn packing, forest files, the gather and path-matrix
   forms, K1 through their heap packing) equal the JAX package's;
@@ -11,8 +14,9 @@ kernels in interpret mode on the same forest and pool:
   (``walk_transposed_plain``), K1's heap walk (``walk_leaves_plain``), K2's
   and K3's walk and packed vote bits (``walk_votes_plain``: the plain
   versions' votes and per-tile candidates), on rows with NaN, infinities
-  and features equal to thresholds; a path matrix that is not a heap is
-  refused;
+  and features equal to thresholds, at every leaf payload (f32, bf16,
+  int8: each tree's leaves padded to 16 bytes); a path matrix that is not a
+  heap is refused;
 - K2 (ops/round_fused.py): ``fused_score_select`` on a pallas forest equals
   the JAX megakernel's ``(vals, idx)``.
 """
@@ -74,6 +78,23 @@ def test_k1_plain_matches_pallas_interpret(n_trees, n):
     got = t_pallas.predict_leaves_pallas(tf, torch.from_numpy(x))
     assert got.shape == (n, n_trees)
     np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32))
+    # Quantized storage: JAX's kernels dequantize in their shared body; the
+    # plain versions of K1, K3 and K2 widen the payload where they read it.
+    sel = rng.random(n) < 0.8
+    for mode in ("int8", "bf16"):
+        qj = j_train.quantize_forest(gf, mode)
+        qt = interop.gemm_forest_from_numpy(
+            *(np.asarray(a) for a in (qj.feat_ids, qj.thresholds, qj.path, qj.target, qj.value)))
+        assert qt.value.dtype == {"int8": torch.int8, "bf16": torch.bfloat16}[mode]
+        want = np.asarray(j_pallas.predict_leaves_pallas(qj, jnp.asarray(x), interpret=True))
+        got = t_pallas.predict_leaves_pallas(qt, torch.from_numpy(x))
+        np.testing.assert_array_equal(want.view(np.int32), got.numpy().view(np.int32), mode)
+        np.testing.assert_array_equal(
+            np.asarray(j_fused.fused_votes_pallas(qj, jnp.asarray(x), interpret=True)),
+            t_fused.fused_votes(t_pallas.PallasForest(gf=qt), torch.from_numpy(x)).numpy())
+        vj, ij, vt, it = _fused_pair(qj, qt, x, sel, "uncertainty", 10)
+        np.testing.assert_array_equal(ij, it)
+        np.testing.assert_array_equal(vj, vt)
 
 
 def test_k1_depth9_takes_the_gemm_route_in_both_packages(tmp_path):
@@ -228,6 +249,35 @@ def test_kernel_operands_reproduce_the_plain_version():
                 tv, ti = t_fused.tile_topk_plain(votes, sel, table, k)
                 pv, pi = t_fused.megakernel_plain(gf, x, sel, table, k)
                 assert torch.equal(tv, pv) and torch.equal(ti, pi), (depth, name, k)
+    # Quantized payloads: thresholds bf16 (widened exactly into the node
+    # words), leaves int8 or bf16 kept narrow and padded to whole 16-byte
+    # pieces a tree (at depth 1 two int8 leaves become 16); the walk and the
+    # vote bits read them widened, as the kernels do.
+    from distributed_active_learning_tpu_torch.models.forest import dequantize_leaf_values
+    from distributed_active_learning_tpu_torch.ops import trees_train as t_train
+
+    for mode, dtype, per16 in (("int8", torch.int8, 16), ("bf16", torch.bfloat16, 8)):
+        for gf, depth in ((tf1, 1), (tf, 5), (tf8, 8)):
+            q = t_train.quantize_forest(gf, mode)
+            heap = t_pallas.heap_operands(q)
+            L = 1 << depth
+            assert heap.val.dtype == dtype and heap.val.shape[1] == -(-L // per16) * per16
+            assert heap.payload == t_pallas.PAYLOAD_CODES[dtype]
+            assert torch.equal(heap.thr, q.thresholds.float())
+            assert torch.equal(heap.values()[:, :L], dequantize_leaf_values(q.value))
+            x = _edge_rows(gf, rng)
+            want = t_pallas.predict_leaves_plain(q, x)
+            assert torch.equal(t_pallas.walk_leaves_plain(heap, x).view(torch.int32),
+                               want.view(torch.int32)), (mode, depth)
+            bits = t_fused.vote_bits(heap)
+            hit = ((bits[:, :, None] >> torch.arange(32)) & 1).reshape(gf.n_trees, -1)[:, :L]
+            assert torch.equal(hit.bool(), dequantize_leaf_values(q.value) > 0.5)
+            assert torch.equal(t_fused.walk_votes_plain(heap, x), t_fused.fused_votes_plain(q, x))
+        # The layout variants K5 and K6 take f32 forests only (as JAX's).
+        for prep in (lambda: t_var._prep_transposed(q, x, 256, 4),
+                     lambda: t_var._prep_segmented(q, x, 256, 8)):
+            with pytest.raises(ValueError, match="take f32 forests"):
+                prep()
     swapped = interop.gemm_forest_from_numpy(
         tf8.feat_ids.numpy(), tf8.thresholds.numpy(), tf8.path.numpy()[:, :, [1, 0, *range(2, 256)]],
         tf8.target.numpy(), tf8.value.numpy())

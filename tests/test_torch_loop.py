@@ -1,9 +1,11 @@
 """End to end: the port's per-round AL loop against the JAX package's on the
 same configuration (checkerboard2x2, 300-row pool, 8 trees of depth 4, device
 fit, kernel "pallas", uncertainty, window 15, n_start 10, 3 rounds), with the
-fused round on and off; unfused also with the host (scikit-learn) fit under
-kernels gemm, pallas and gather, a depth-11 device fit (the gather form) and
-the density strategy. Records, the reference-format log, every round's
+fused round on and off, each also with int8 and bf16 forest storage; unfused
+also with the host (scikit-learn) fit under kernels gemm, pallas and gather,
+a depth-11 device fit (the gather form), the density strategy, a 4-class
+pool (device and host fit) and the lal strategy (a regressor fitted from the
+committed reference-format fixture, and one read from a forest file). Records, the reference-format log, every round's
 picks, the final mask and the test-set probabilities (a mean over trees in
 XLA's summation order) are identical. Unfused, the RoundMetrics of every
 round equal the JAX package's field by field (bit-equal), the MetricsWriter
@@ -30,8 +32,10 @@ import torch
 
 from distributed_active_learning_tpu import config as j_config
 from distributed_active_learning_tpu.data import get_dataset as j_get_dataset
+from distributed_active_learning_tpu.data.datasets import DataBundle as JBundle
 from distributed_active_learning_tpu.models import forest as j_forest
 from distributed_active_learning_tpu.ops import forest_eval as j_eval
+from distributed_active_learning_tpu.ops import trees_multi as j_multi
 from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu.runtime import loop as j_loop
 from distributed_active_learning_tpu.runtime import obs as j_obs
@@ -41,7 +45,9 @@ from distributed_active_learning_tpu.strategies import get_strategy as j_strateg
 from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.data import get_dataset as t_get_dataset
+from distributed_active_learning_tpu_torch.data.datasets import DataBundle as TBundle
 from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
+from distributed_active_learning_tpu_torch.ops import trees_multi as t_multi
 from distributed_active_learning_tpu_torch.ops import trees_train as t_train
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
 from distributed_active_learning_tpu_torch.runtime import obs as t_obs
@@ -62,9 +68,26 @@ def _cfgs(fused, strategy="uncertainty", options=None, **forest):
     return j, t_config.from_dict(dataclasses.asdict(j))
 
 
+def _four_classes(seed=3, n=300, m=128):
+    """A 4-class pool made with numpy: classes by quartile of x0 + 0.3 x1."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + m, 4)).astype(np.float32)
+    s = x[:, 0] + 0.3 * x[:, 1]
+    y = np.digitize(s, np.quantile(s, [0.25, 0.5, 0.75])).astype(np.int32)
+    return x[:n], y[:n], x[n:], y[n:]
+
+
+_FOUR = _four_classes()
+_LAL_OPTIONS = {"lal_data_path": os.path.join(os.path.dirname(__file__), "fixtures",
+                                              "lal_simulatedunbalanced_big.txt"),
+                "lal_trees": 12, "lal_depth": 6}
+
+# Configurations both cases hold against the JAX package: quantized storage.
+_QUANTIZED = {"int8 storage": dict(quantize="int8"), "bf16 storage": dict(quantize="bf16")}
+
 # Configurations the unfused case also holds against the JAX package: the
 # host (scikit-learn) fit under each kernel, a deep device fit in the gather
-# form, and the density strategy.
+# form, the density strategy, a 4-class pool (``bundle``) and lal.
 _UNFUSED_ONLY = {
     "host fit, gemm": dict(fit="host", kernel="gemm"),
     "host fit, pallas": dict(fit="host", kernel="pallas"),
@@ -73,23 +96,40 @@ _UNFUSED_ONLY = {
     "density, pallas": dict(strategy="density"),
     "density, mass over the non-seed rows, host fit": dict(
         strategy="density", options={"mass_over": "non_seed"}, fit="host"),
+    "4 classes, device fit": dict(bundle=_FOUR),
+    "4 classes, host fit, entropy": dict(bundle=_FOUR, fit="host", strategy="entropy"),
+    "lal, regressor fitted from the fixture": dict(strategy="lal", options=_LAL_OPTIONS),
 }
 
 
-def _drive_jax(cfg):
-    b = j_get_dataset(cfg.data)
+def _n_classes(y):
+    return max(int(y.max()) + 1, 2)
+
+
+def _jax_proba(forest, x):
+    if j_multi.is_multi(forest):
+        return np.asarray(j_multi.proba_multi(forest, x))
+    return np.asarray(j_eval.proba(forest, x))
+
+
+def _drive_jax(cfg, bundle=None):
+    b = JBundle(*bundle) if bundle else j_get_dataset(cfg.data)
+    C = _n_classes(b.train_y)
     st = j_state.set_start_state(
-        j_state.init_pool_state(b.train_x, b.train_y, jax.random.key(cfg.seed)), cfg.n_start)
+        j_state.init_pool_state(b.train_x, b.train_y, jax.random.key(cfg.seed)), cfg.n_start,
+        n_classes=C)
     window = cfg.strategy.window_size
     if cfg.forest.fit == "host":
         def fit(st, r):
             lx, ly = j_loop._labeled_subset(st, b.train_x, b.train_y)
-            packed = j_forest.fit_forest_classifier(lx, ly, cfg.forest, seed=cfg.seed + r)
+            packed = j_forest.fit_forest_classifier(lx, ly, cfg.forest, seed=cfg.seed + r,
+                                                    n_classes=C)
             return j_eval.for_kernel(packed, cfg.forest.kernel)
     else:
-        binned = j_train.make_bins(jnp.asarray(b.train_x), cfg.forest.max_bins)
+        binned = j_train.make_bins(jnp.asarray(b.train_x), cfg.forest.max_bins,
+                                   quantize=cfg.forest.quantize)
         device_fit = j_loop.make_device_fit(
-            cfg, binned.edges, cfg.n_start + cfg.max_rounds * window)
+            cfg, binned.edges, cfg.n_start + cfg.max_rounds * window, n_classes=C)
         fit_key = jax.random.key(cfg.seed + 0x5EED)
 
         def fit(st, r):
@@ -101,21 +141,22 @@ def _drive_jax(cfg):
         forest = fit(st, r)
         st, picked, _ = round_fn(forest, st, aux)
         picks.append(np.asarray(picked))
-    proba = np.asarray(j_eval.proba(forest, jnp.asarray(b.test_x)))
-    return picks, np.asarray(st.labeled_mask), proba
+    return picks, np.asarray(st.labeled_mask), _jax_proba(forest, jnp.asarray(b.test_x))
 
 
-def _drive_port(cfg):
-    b = t_get_dataset(cfg.data)
+def _drive_port(cfg, bundle=None):
+    b = TBundle(*bundle) if bundle else t_get_dataset(cfg.data)
+    C = _n_classes(b.train_y)
     st = t_state.set_start_state(
-        t_state.init_pool_state(b.train_x, b.train_y, prng.key(cfg.seed), "cpu"), cfg.n_start)
+        t_state.init_pool_state(b.train_x, b.train_y, prng.key(cfg.seed), "cpu"), cfg.n_start,
+        n_classes=C)
     window = cfg.strategy.window_size
     if cfg.forest.fit == "host":
-        fit = t_loop.make_host_fit(cfg, b.train_x, b.train_y, 2, "cpu")
+        fit = t_loop.make_host_fit(cfg, b.train_x, b.train_y, C, "cpu")
     else:
-        binned = t_train.make_bins(st.x, cfg.forest.max_bins)
+        binned = t_train.make_bins(st.x, cfg.forest.max_bins, quantize=cfg.forest.quantize)
         device_fit = t_loop.make_device_fit(
-            cfg, binned.edges, cfg.n_start + cfg.max_rounds * window)
+            cfg, binned.edges, cfg.n_start + cfg.max_rounds * window, n_classes=C)
         fit_key = prng.key(cfg.seed + 0x5EED)
 
         def fit(st, r):
@@ -128,11 +169,19 @@ def _drive_port(cfg):
         st, picked, _ = round_fn(forest, st, aux)
         picks.append(picked.numpy())
     test_x = torch.from_numpy(b.test_x)
-    proba = t_eval.proba(forest, test_x).numpy()
-    # A forest evaluated once (the metrics path's) gives the same bits, and
-    # refuses any other input than its own instead of evaluating again.
+    # A forest evaluated once (the metrics path's; a multiclass forest plane
+    # by plane) gives the same bits, and refuses any other input than its
+    # own instead of evaluating again.
     ev = t_eval.evaluated(forest, test_x)
-    np.testing.assert_array_equal(t_eval.proba(ev, test_x).numpy(), proba)
+    if t_multi.is_multi(forest):
+        proba = t_multi.proba_multi(forest, test_x).numpy()
+        np.testing.assert_array_equal(t_multi.proba_multi(ev, test_x).numpy(), proba)
+        with pytest.raises(TypeError, match="trees_multi"):
+            t_eval.proba(forest, test_x)
+        ev = ev.planes[0]
+    else:
+        proba = t_eval.proba(forest, test_x).numpy()
+        np.testing.assert_array_equal(t_eval.proba(ev, test_x).numpy(), proba)
     with pytest.raises(ValueError, match="another"):
         t_eval.votes(ev, test_x.clone())
     return picks, st.labeled_mask.numpy(), proba
@@ -149,8 +198,8 @@ def _metrics_match_jax(tmp_path):
     through ``xla_f32.row_sum``) but pool_entropy, which the port computes
     with the native log2 and holds to ``telemetry.POOL_ENTROPY_RTOL`` of
     JAX's value. Lower- and higher-is-better
-    strategies, the host fit, and a window of 40 picks (a sum past 32
-    terms). The density score itself is the JAX package's only to
+    strategies, the host fit, a window of 40 picks (a sum past 32
+    terms) and a 4-class pool. The density score itself is the JAX package's only to
     ``similarity.MASS_RTOL`` of the largest |mass| (its picks are equal), so
     under density the four score fields are held to twice that of the
     largest |score| (a margin is a difference of two scores); the other
@@ -164,17 +213,21 @@ def _metrics_match_jax(tmp_path):
         "density (higher is better)": (dict(strategy="density"), 15),
         "host fit, gemm": (dict(fit="host", kernel="gemm"), 15),
         "window 40": ({}, 40),
+        "4 classes (the multiclass pool entropy, a 4-bin picked_hist)": (dict(bundle=_FOUR), 15),
     }
     for i, (what, (change, window)) in enumerate(cases.items()):
+        change = dict(change)
+        bundle = change.pop("bundle", None)
         jcfg, _ = _cfgs(False, **change)
         jcfg = dataclasses.replace(jcfg, max_rounds=2 if window > 15 else 3, strategy=(
             dataclasses.replace(jcfg.strategy, window_size=window)))
         tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
         jw = j_telemetry.MetricsWriter(str(tmp_path / f"j{i}.jsonl"))
-        want = j_loop.run_experiment(jcfg, metrics=jw)
+        want = j_loop.run_experiment(jcfg, metrics=jw, bundle=JBundle(*bundle) if bundle else None)
         jw.close()
         tw = t_telemetry.MetricsWriter(str(tmp_path / f"t{i}.jsonl"))
-        got = t_loop.run_experiment(tcfg, metrics=tw, device="cpu")
+        got = t_loop.run_experiment(tcfg, metrics=tw, device="cpu",
+                                    bundle=TBundle(*bundle) if bundle else None)
         tw.close()
         assert got.to_reference_log() == want.to_reference_log(), what
         for a, b in zip(got.records, want.records):
@@ -190,6 +243,7 @@ def _metrics_match_jax(tmp_path):
                 else:
                     assert a.metrics[field] == b.metrics[field], (what, a.round, field)
         assert sum(got.records[0].metrics["picked_hist"]) == window
+        assert len(got.records[0].metrics["picked_hist"]) == (4 if bundle else 2)
         j_ev, t_ev = _events(tmp_path / f"j{i}.jsonl"), _events(tmp_path / f"t{i}.jsonl")
         assert [e["kind"] for e in t_ev] == [e["kind"] for e in j_ev], what
         assert [sorted(e) for e in t_ev] == [sorted(e) for e in j_ev], what
@@ -226,18 +280,33 @@ def _per_round_resume(tmp_path):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 def test_run_experiment_matches_jax(fused, tmp_path):
-    cases = {"device fit, pallas": {}, **({} if fused else _UNFUSED_ONLY)}
+    cases = {"device fit, pallas": {}, **_QUANTIZED, **({} if fused else _UNFUSED_ONLY)}
+    if not fused:
+        # LAL with its regressor from a forest file (the card's way: it has
+        # no scikit-learn), written by the port and read by both packages.
+        from distributed_active_learning_tpu_torch.models import forest as t_forest
+        from distributed_active_learning_tpu_torch.models import forest_io as t_io
+        from distributed_active_learning_tpu_torch.models.lal_training import lal_meta
+
+        path = str(tmp_path / "lal.npz")
+        t_io.save_forest(path, t_forest.synthetic_forest(np.random.default_rng(9), 12, 6, 5),
+                         meta=lal_meta({"lal_model_path": path}))
+        cases["lal, regressor from a forest file"] = dict(
+            strategy="lal", options={"lal_model_path": path})
     for what, change in cases.items():
+        change = dict(change)
+        bundle = change.pop("bundle", None)
         jcfg, tcfg = _cfgs(fused, **change)
-        want = j_loop.run_experiment(jcfg)
-        got = t_loop.run_experiment(tcfg, device="cpu")
+        want = j_loop.run_experiment(jcfg, bundle=JBundle(*bundle) if bundle else None)
+        got = t_loop.run_experiment(tcfg, bundle=TBundle(*bundle) if bundle else None,
+                                    device="cpu")
         key = lambda res: [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
         assert key(got) == key(want), what
         assert [r.n_labeled for r in got.records] == [10, 25, 40]
         assert got.to_reference_log() == want.to_reference_log()
 
-        j_picks, j_mask, j_proba = _drive_jax(jcfg)
-        t_picks, t_mask, t_proba = _drive_port(tcfg)
+        j_picks, j_mask, j_proba = _drive_jax(jcfg, bundle)
+        t_picks, t_mask, t_proba = _drive_port(tcfg, bundle)
         for a, b in zip(j_picks, t_picks):
             np.testing.assert_array_equal(a, b, what)
         np.testing.assert_array_equal(j_mask, t_mask, what)
@@ -283,7 +352,11 @@ for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round"],
                "--pipeline-depth", "2"],
               ["--fit", "host", "--kernel", "pallas"],
               ["--fit", "device", "--kernel", "gather", "--depth", "11"],
-              ["--fit", "device", "--kernel", "pallas", "--strategy", "density"]):
+              ["--fit", "device", "--kernel", "pallas", "--strategy", "density"],
+              ["--fit", "device", "--kernel", "pallas", "--quantize", "int8", "--fused-round"],
+              ["--fit", "device", "--kernel", "pallas", "--strategy", "lal",
+               "--strategy-option", "lal_data_path=tests/fixtures/lal_simulatedunbalanced_big.txt",
+               "--strategy-option", "lal_trees=4", "--strategy-option", "lal_depth=4"]):
     assert run.main(small + extra) == 0, extra
 assert "sklearn" in sys.modules  # the host fit ran
 try:
@@ -301,14 +374,14 @@ print("ISOLATED")
 
 def test_port_runs_without_jax_in_a_fresh_interpreter():
     """The CLI's paths (fused, mesh, chunked, host fit, deep gather form,
-    density) run in a fresh interpreter, and neither the port nor
+    density, int8 storage, lal) run in a fresh interpreter, and neither the port nor
     scikit-learn pulls in JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 14
+    assert out.stdout.count("Iteration") == 18
     assert "REFUSED" in out.stdout and "mesh-and-pod slice" in out.stdout
     # The ops plane: one sequence of counter, gauge, histogram and heartbeat
     # calls renders the same Prometheus text in both packages (JAX's obs.py
@@ -338,7 +411,13 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
         (dict(mesh=mesh, collect_metrics=True), "RoundMetrics under a device mesh .* mesh-and-pod"),
         (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gemm")),
          "under a device mesh"),
-        (dict(forest=dataclasses.replace(base.forest, quantize="bf16")), "quantization"),
+        (dict(mesh=mesh, strategy=t_config.StrategyConfig(
+            name="lal", window_size=15, options=_LAL_OPTIONS)),
+         "lal strategy under a device mesh .* mesh-and-pod slice"),
+        # A LAL run names its regressor's source: synthesizing the training
+        # rows comes with the data slice.
+        (dict(strategy=t_config.StrategyConfig(name="lal", window_size=15)),
+         "lal_data_path.*Data, the rest"),
         # The mesh halves of the gather form, the host fit and density.
         (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gather")),
          "gather form .* mesh-and-pod slice"),
@@ -352,6 +431,16 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     for change, why in cases:
         with pytest.raises(NotImplementedError, match=why):
             t_loop.run_experiment(dataclasses.replace(base, **change), device="cpu")
+    # Quantized storage: what the JAX package refuses, the port refuses with
+    # the same reasons.
+    for change, why in ((dict(fit="host"), "requires the device fit"),
+                        (dict(kernel="gather"), "path-matrix kernels, not 'gather'"),
+                        (dict(max_depth=11), "no gather-form dequantizer"),
+                        (dict(quantize="fp4"), "unknown ForestConfig.quantize")):
+        jcfg, tcfg = _cfgs(False, **{"quantize": "int8", **change})
+        for run in (j_loop.run_experiment, lambda c: t_loop.run_experiment(c, device="cpu")):
+            with pytest.raises(ValueError, match=why):
+                run(jcfg if run is j_loop.run_experiment else tcfg)
     # With a writer: metrics under a mesh, and --roofline (the pre-flight
     # slice), in the loop and in the CLI.
     with pytest.MonkeyPatch.context() as mp:

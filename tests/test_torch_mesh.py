@@ -13,7 +13,9 @@ numpy arrays made from a seed and handed to both packages.
 - ``run_experiment`` on a 4 x 2 mesh (250 rows padded to 252), fused and
   unfused, equals the JAX single-device run exactly (records, final mask)
   and the port's single-device run, with a fit that is bit-identical to the
-  single-device fit.
+  single-device fit; so do int8 and bf16 storage on the fused mesh (K3 on
+  the narrow payloads) and a 4-class pool on the unfused mesh (K1 per shard
+  and plane), whose records also equal the JAX package's 4 x 2 mesh run.
 """
 
 import dataclasses
@@ -28,6 +30,7 @@ from jax.sharding import PartitionSpec as P
 
 from distributed_active_learning_tpu import config as j_config
 from distributed_active_learning_tpu.data import get_dataset as j_get_dataset
+from distributed_active_learning_tpu.data.datasets import DataBundle as JBundle
 from distributed_active_learning_tpu.ops import ring_topk as j_ring
 from distributed_active_learning_tpu.ops import round_fused as j_fused
 from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
@@ -177,10 +180,11 @@ def test_mesh_kernels_match_jax(devices):
             np.testing.assert_array_equal(v.numpy(), host[order][:k])
 
 
-def _cfgs(mesh, fused, strategy="uncertainty", window=10):
+def _cfgs(mesh, fused, strategy="uncertainty", window=10, quantize="none"):
     j = j_config.ExperimentConfig(
         data=j_config.DataConfig(name="checkerboard2x2", n_samples=250, seed=2),
-        forest=j_config.ForestConfig(n_trees=8, max_depth=4, kernel="pallas", fit="device"),
+        forest=j_config.ForestConfig(n_trees=8, max_depth=4, kernel="pallas", fit="device",
+                                     quantize=quantize),
         strategy=j_config.StrategyConfig(name=strategy, window_size=window),
         mesh=j_config.MeshConfig(*mesh),
         n_start=10, max_rounds=3, seed=7, fused_round=fused,
@@ -249,6 +253,27 @@ def _check_mesh_run(fused, strategy="uncertainty", mesh=(4, 2), window=10):
 def test_mesh_run_experiment_matches_jax(devices):
     for fused in (False, True):
         _check_mesh_run(fused)
+    # Quantized storage on the fused mesh; a 4-class pool on the unfused one
+    # (the fused round refuses multiclass pools, as in the JAX package).
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle as TBundle
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(378, 4)).astype(np.float32)
+    s = x[:, 0] + 0.3 * x[:, 1]
+    y = np.digitize(s, np.quantile(s, [0.25, 0.5, 0.75])).astype(np.int32)
+    four = (x[:250], y[:250], x[250:], y[250:])
+    for fused, quantize, bundle in ((True, "int8", None), (True, "bf16", None),
+                                    (False, "none", four)):
+        jb, tb = (JBundle(*bundle), TBundle(*bundle)) if bundle else (None, None)
+        jcfg, tcfg = _cfgs((1, 1), fused, quantize=quantize)
+        want = j_loop.run_experiment(jcfg, bundle=jb)
+        single = t_loop.run_experiment(tcfg, bundle=tb, device="cpu")
+        jm_cfg, tm_cfg = _cfgs((4, 2), fused, quantize=quantize)
+        got = t_loop.run_experiment(tm_cfg, bundle=tb, device="cpu")
+        assert _records(got) == _records(want) == _records(single), (quantize, bundle is None)
+        assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
+        if bundle is not None:
+            assert _records(j_loop.run_experiment(jm_cfg, bundle=jb)) == _records(got)
     _fit_matches_single_device(_cfgs((4, 2), False)[1], (4, 2))
     # `random` draws over the padded pool, as the JAX mesh run does: in
     # partitionable threefry element i's bits depend on i alone.

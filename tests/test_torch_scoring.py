@@ -12,7 +12,11 @@ in interpret mode. And the tree mean and the soft uncertainty score equal
 the jitted ``jnp.mean`` expressions at 100 trees and four more tree counts.
 The density strategy's similarity mass, the cosine matrix and its blocked
 reduction agree with the JAX package's to ``similarity.MASS_RTOL`` of the
-largest magnitude (float sums in another order).
+largest magnitude (float sums in another order). The multiclass scores
+(``trees_multi``: class probabilities, top-2 margin, entropy in XLA's
+spelling) at C = 3, 4, 10 and 32, the LAL features, and a LAL regressor
+fitted from the committed fixture (its values in the gather form and through
+K1's plain version) are bit-equal to the jitted JAX expressions.
 """
 
 import numpy as np
@@ -25,6 +29,11 @@ from distributed_active_learning_tpu.ops import scoring as j_scoring
 from distributed_active_learning_tpu.ops import similarity as j_sim
 from distributed_active_learning_tpu.ops import trees_pallas as j_pallas
 from distributed_active_learning_tpu.ops import trees_train as j_train
+from distributed_active_learning_tpu.ops import forest_eval as j_eval
+from distributed_active_learning_tpu.ops import trees_multi as j_multi
+from distributed_active_learning_tpu.models import lal_training as j_lal
+from distributed_active_learning_tpu.runtime import state as j_state
+from distributed_active_learning_tpu.strategies import lal as j_lal_strategy
 from distributed_active_learning_tpu_torch import interop
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
 from distributed_active_learning_tpu_torch.ops import scoring as t_scoring
@@ -32,6 +41,10 @@ from distributed_active_learning_tpu_torch.ops import similarity as t_sim
 from distributed_active_learning_tpu_torch.ops import trees_gemm as t_gemm
 from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
+from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
+from distributed_active_learning_tpu_torch.ops import trees_multi as t_multi
+from distributed_active_learning_tpu_torch.models import lal_training as t_lal
+from distributed_active_learning_tpu_torch.strategies import lal as t_lal_strategy
 
 _MAX_T = 256
 _STRATEGY_FN = {
@@ -132,3 +145,68 @@ def test_score_tables_match_jax():
             "uncertainty", k)
         np.testing.assert_array_equal(np.asarray(ij), it.numpy())
         np.testing.assert_array_equal(np.asarray(vj).view(np.int32), vt.numpy().view(np.int32))
+
+    _multiclass_and_lal_match_jax()
+
+
+def _bits(a):
+    return np.ascontiguousarray(np.asarray(a)).view(np.int32)
+
+
+def _multiclass_and_lal_match_jax():
+    """The multiclass scores from C probability planes (leaf-like values,
+    pure 0s and 1s among them, and their tree means), then the LAL features
+    of a pool and a regressor fitted from the fixture: bit-equal to jitted
+    JAX."""
+    rng = np.random.default_rng(7)
+    j_scores = jax.jit(lambda p: (j_multi.margin_score_multi(p), j_multi.entropy_multi(p)))
+    for C in (3, 4, 10, 32):
+        raw = rng.random((3000, C)).astype(np.float32)
+        raw[:500] = raw[:500] > 0.7
+        raw[500:1000] = np.round(raw[500:1000] * 8) / 8
+        probs = (raw / np.maximum(raw.sum(1, keepdims=True), 1e-9)).astype(np.float32)
+        probs[1000:1010] = 0.0
+        tp = torch.from_numpy(probs)
+        jm, je = j_scores(jnp.asarray(probs))
+        np.testing.assert_array_equal(_bits(jm), _bits(t_multi.margin_score_multi(tp)), C)
+        np.testing.assert_array_equal(_bits(je), _bits(t_multi.entropy_multi(tp)), C)
+    # proba_multi and predict_class over the planes of fitted forests.
+    planes = [_forest(13, 4, seed=60 + c) for c in range(3)]
+    jmf = j_multi.MultiForest(planes=tuple(p[0] for p in planes))
+    tmf = t_multi.MultiForest(planes=tuple(p[1] for p in planes))
+    x = rng.normal(size=(700, 5)).astype(np.float32)
+    np.testing.assert_array_equal(
+        _bits(jax.jit(j_multi.proba_multi)(jmf, jnp.asarray(x))),
+        _bits(t_multi.proba_multi(tmf, torch.from_numpy(x))))
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(j_multi.predict_class)(jmf, jnp.asarray(x))),
+        t_multi.predict_class(tmf, torch.from_numpy(x)).numpy())
+
+    # The LAL features of a 700-row pool under a 13-tree base forest, with
+    # 137 rows labeled.
+    gf, tf, _ = planes[0]
+    y = (x[:, 0] > 0).astype(np.int32)
+    mask = np.zeros(700, dtype=bool)
+    mask[rng.choice(700, 137, replace=False)] = True
+    js = j_state.init_pool_state(x, y, jax.random.key(0)).replace(labeled_mask=jnp.asarray(mask))
+    ts = interop.pool_state_from_numpy(x, y, mask, np.zeros(2, np.uint32))
+    jf = jax.jit(j_lal_strategy.lal_features)(gf, js)
+    tfeat = t_lal_strategy.lal_features(tf, ts)
+    np.testing.assert_array_equal(_bits(jf), _bits(tfeat))
+    # The regressor, fitted from the fixture by both packages (scikit-learn),
+    # scored over those features in the gather form, and through K1's plain
+    # version (the heap packing of its trees) against JAX's Pallas kernel.
+    fixture = "tests/fixtures/lal_simulatedunbalanced_big.txt"
+    raw = t_lal._text_to_matrix(fixture)
+    jreg = j_lal.train_lal_regressor(raw[:, :-1], raw[:, -1], n_trees=9, max_depth=7)
+    treg = t_lal.train_lal_regressor(raw[:, :-1], raw[:, -1], n_trees=9, max_depth=7)
+    for field in ("feature", "threshold", "left", "right", "value"):
+        np.testing.assert_array_equal(np.asarray(getattr(jreg, field)),
+                                      getattr(treg, field).numpy())
+    np.testing.assert_array_equal(_bits(j_eval.value(jreg, jf)), _bits(t_eval.value(treg, tfeat)))
+    jk = j_eval.for_kernel(jreg, "pallas")
+    tk = t_eval.for_kernel(treg, "pallas")
+    np.testing.assert_array_equal(
+        _bits(j_pallas.predict_leaves_pallas(jk.gf, jf, interpret=True)),
+        _bits(t_pallas.predict_leaves_pallas(tk, tfeat)))
+    np.testing.assert_array_equal(_bits(j_eval.value(jk, jf)), _bits(t_eval.value(tk, tfeat)))
