@@ -137,6 +137,28 @@ and prints no result:
    chunked == per round, K1 twice a round (the regressor is the gather
    form); small checkerboard LAL runs card == CPU; printed: the regressor's
    time over the pool's features and the chunk graph's private pool;
+4j. the sweep: phase 4's configuration (unfused, RoundMetrics on) as
+   ``runtime.sweep.run_sweep`` of 8 seeds, K = 4, 8 rounds, one CUDA graph a
+   chunk: K1 launches 2 x (1 + 8) times over the run (once on the pool and
+   once on the test set a round step, for all 8 forests: 2 x K a replay),
+   one capture and two replays; each seed's records, RoundMetrics and final
+   mask equal its serial chunked ``run_experiment``; printed: experiments x
+   rounds per second of the sweep and of the 8 serial runs (capture
+   included), ``sweep_speedup``, the steady seconds an experiment-round
+   against a serial chunked round, the device time of one round step's 8
+   fits (graph-replayed) and its share of the experiment-round, the
+   capture's seconds and the graph's
+   private pool; a small checkerboard sweep (windows 15, 10, 15) card ==
+   CPU;
+4k. the grid: ``run_grid`` of uncertainty, margin and density x 4 seeds at
+   the same width (K = 4, 8 rounds), every cell equal to its serial chunked
+   run (records, RoundMetrics, final mask), ``recompiles_after_warmup`` 0,
+   K1 2 x K a replay; then a grid of two datasets of unequal widths (the
+   pool and a 142,403-row draw: the fill watermark), K1 4 x K a replay, each
+   cell's records and mask equal to its serial run's and its RoundMetrics
+   too, but for ``labeled_frac`` and ``pool_entropy``, which the watermark
+   divides by its count (JAX's spelling) and which agree to one f32 ulp;
+   printed: ``grid_cells_rounds_per_second`` beside the serial cells';
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -150,15 +172,20 @@ and prints no result:
    and ``similarity_mass`` at the pool beside their byte bounds, and the
    host milliseconds of packing phase 2d's forest into heaps; K1, K2 and K3
    at the int8 and bf16 payloads at the same shapes (bounds count the payload
-   at its width), and K1 on a 2,000-tree depth-8 regressor over the pool's
-   [284,807, 5] LAL features; then one fused
+   at its width), K1 on a 2,000-tree depth-8 regressor over the pool's
+   [284,807, 5] LAL features, and K1 over a sweep's stacked forest (8 fits of
+   100 trees as one of 800, bit-equal to the 8 single calls) beside the 8
+   single calls and its bound; then one fused
    and one unfused main-path round and one mesh fused round under
    torch.profiler (device time by kernel, device busy share);
 6. the port's bench at the benchmark width: ``--mode score``, ``--mode
    round``, ``--mode variants`` (K1, two K5 tilings, one K6) and ``--mode
    lal`` (``--lal-model``: a 2,000-tree depth-8 regressor file; K1 twice a
-   query; the host-fit leg reported skipped without scikit-learn), each
-   JSON line printed on a line of its own. K5's and K6's launch counts are
+   query; the host-fit leg reported skipped without scikit-learn), ``--mode
+   sweep`` and ``--mode grid`` (``--no-baseline``: the batched arm alone,
+   since phases 4j and 4k hold it against its serial runs and time both;
+   the grid's ``recompiles_after_warmup`` must be 0), each JSON line printed
+   on a line of its own. K5's and K6's launch counts are
    read over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
@@ -170,7 +197,9 @@ phase 4f; ``telemetry`` phase 4f's numbers; ``new_paths`` phase 5's new
 times and the fit / round / eval split of each round of phases 4d and 4e;
 ``by_payload`` for K1, K2 and K3 the int8 and bf16 times, bounds, launch
 configurations and largest differences; ``multiclass`` and ``lal`` phases
-4h and 4i's numbers),
+4h and 4i's numbers; K1's ``sweep_launches`` and ``grid_launches`` and its
+stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
+numbers; ``bench_batched`` phase 6's sweep and grid lines),
 the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -1470,6 +1499,210 @@ def main() -> int:
           f"{lal_numbers['graph_pool_bytes'] / 2**20:.0f} MiB ({kind}, {smi})")
     print(f"# phase 4i: {time.perf_counter() - t_phase:.1f}s")
 
+    # -- phase 4j: the sweep ----------------------------------------------------
+    t_phase = time.perf_counter()
+    from distributed_active_learning_tpu_torch.runtime import sweep as sweep_lib
+
+    E_SWEEP, SWEEP_ROUNDS = 8, 8
+    n_sweep_chunks = SWEEP_ROUNDS // K
+    sweep_cfg = cfg(False, collect_metrics=True, rounds_per_launch=K, max_rounds=SWEEP_ROUNDS)
+    sweep_seeds = [args.seed + i for i in range(E_SWEEP)]
+
+    def full_records(res):
+        return [(r.round, r.n_labeled, r.accuracy, r.metrics) for r in res.records]
+
+    def steady(res):  # seconds per (experiment-)round after the capturing chunk
+        return statistics.mean(r.total_time for r in res.records[K:])
+
+    zero_counts()
+    t0 = time.perf_counter()
+    swept = sweep_lib.run_sweep(sweep_cfg, sweep_seeds, bundle=bundle, device=dev)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    launches["sweep"] = counts()
+    # One eager warm-up round step (K1 on the pool and on the test set for
+    # all 8 forests), then K round steps a replay: 2 launches a step.
+    want_launches["sweep"] = dict(zero, forest_leaves=2 * (1 + n_sweep_chunks * K))
+    g_sweep = swept[0].graph_stats
+    print(f"# sweep (E = {E_SWEEP}, K = {K}, {SWEEP_ROUNDS} rounds, metrics on): {sweep_wall:.2f}s "
+          f"wall, launches {launches['sweep']}, graph {g_sweep}")
+    if launches["sweep"] != want_launches["sweep"]:
+        fail(f"sweep launched {launches['sweep']}, want {want_launches['sweep']}")
+    if (g_sweep["captures"] != 1 or g_sweep["replays"] != n_sweep_chunks
+            or g_sweep["launches_per_replay"]["trees_pallas.launches"] != 2 * K):
+        fail(f"sweep graph {g_sweep}: want 1 capture, {n_sweep_chunks} replays, K1 {2 * K} a "
+             "replay")
+    serial_walls, serial_steady = [], []
+    launches["sweep_serial"] = dict(zero)
+    for s_, res in zip(sweep_seeds, swept):
+        zero_counts()
+        t0 = time.perf_counter()
+        ser = loop.run_experiment(dataclasses.replace(sweep_cfg, seed=s_), bundle=bundle,
+                                  device=dev)
+        torch.cuda.synchronize()
+        serial_walls.append(time.perf_counter() - t0)
+        serial_steady.append(steady(ser))
+        for name_, n_ in counts().items():
+            launches["sweep_serial"][name_] += n_
+        if full_records(res) != full_records(ser) or not torch.equal(
+                res.final_labeled_mask, ser.final_labeled_mask):
+            fail(f"sweep seed {s_} differs from its serial chunked run")
+        if [r.n_labeled for r in res.records] != [N_START + i * WINDOW for i in range(SWEEP_ROUNDS)]:
+            fail(f"sweep seed {s_}: n_labeled {[r.n_labeled for r in res.records]}")
+    er = E_SWEEP * SWEEP_ROUNDS
+    sweep_numbers = dict(
+        experiments=E_SWEEP, rounds=SWEEP_ROUNDS, rounds_per_launch=K, wall_seconds=sweep_wall,
+        serial_wall_seconds=sum(serial_walls),
+        sweep_experiments_rounds_per_second=er / sweep_wall,
+        serial_experiments_rounds_per_second=er / sum(serial_walls),
+        sweep_speedup=sum(serial_walls) / sweep_wall,
+        steady_seconds_per_experiment_round=steady(swept[0]),
+        serial_steady_seconds_per_round=statistics.mean(serial_steady),
+        k1_launches=launches["sweep"]["forest_leaves"],
+        k1_launches_serial=launches["sweep_serial"]["forest_leaves"],
+        k1_launches_per_replay=g_sweep["launches_per_replay"]["trees_pallas.launches"],
+        capture_seconds=g_sweep["capture_seconds"], pool_bytes=g_sweep["pool_bytes"])
+    sweep_numbers["steady_speedup"] = (sweep_numbers["serial_steady_seconds_per_round"]
+                                       / sweep_numbers["steady_seconds_per_experiment_round"])
+    # The fit's share of a sweep round: one round step's 8 device fits alone
+    # (the sweep's fit window, each seed's start mask), captured in a CUDA
+    # graph and replayed, against the steady experiment-round.
+    st_fit = state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev)
+    binned_fit = trees_train.make_bins(st_fit.x, BINS)
+    sweep_fit = loop.make_device_fit(sweep_cfg, binned_fit.edges, sweep_lib._resolve_sweep_fit_budget(
+        sweep_cfg, N_POOL, N_START, WINDOW))
+    fit_states = [state_lib.set_start_state(st_fit.replace(key=prng.key(s_)), N_START)
+                  for s_ in sweep_seeds]
+    fit_key = prng.key(args.seed + 0x5EED, dev)
+    fits_ms = graph_ms(lambda: [sweep_fit(binned_fit.codes, st_, fit_key) for st_ in fit_states],
+                       reps=5, inner=3)
+    sweep_numbers["fit_device_ms_per_experiment"] = fits_ms / E_SWEEP
+    sweep_numbers["fit_share_of_experiment_round"] = (
+        fits_ms / E_SWEEP / 1e3 / sweep_numbers["steady_seconds_per_experiment_round"])
+    del st_fit, binned_fit, fit_states
+    small_sweep = dataclasses.replace(small, fused_round=False, collect_metrics=True,
+                                      rounds_per_launch=2, forest=dataclasses.replace(
+                                          small.forest, fit_budget=128))
+    on_card = sweep_lib.run_sweep(small_sweep, [0, 1, 2], windows=[15, 10, 15], device=dev)
+    on_cpu = sweep_lib.run_sweep(small_sweep, [0, 1, 2], windows=[15, 10, 15], device="cpu")
+    for a, b in zip(on_card, on_cpu):
+        if a.to_reference_log() != b.to_reference_log() or not torch.equal(
+                a.final_labeled_mask.cpu(), b.final_labeled_mask):
+            fail("small sweep (windows 15, 10, 15) on the card != CPU")
+    print(f"# sweep == {E_SWEEP} serial chunked runs (records, RoundMetrics, final masks); K1 "
+          f"{sweep_numbers['k1_launches']} launches against {sweep_numbers['k1_launches_serial']} "
+          f"serial ({sweep_numbers['k1_launches_per_replay']} a replay of {K} rounds); "
+          f"experiments x rounds per second {sweep_numbers['sweep_experiments_rounds_per_second']:.2f}"
+          f" against {sweep_numbers['serial_experiments_rounds_per_second']:.2f} serial "
+          f"(sweep_speedup {sweep_numbers['sweep_speedup']:.3f}, capture included); steady "
+          f"{sweep_numbers['steady_seconds_per_experiment_round']:.5f} s an experiment-round "
+          f"against {sweep_numbers['serial_steady_seconds_per_round']:.5f} s a serial chunked "
+          f"round ({sweep_numbers['steady_speedup']:.3f}x), of which the fit "
+          f"{sweep_numbers['fit_device_ms_per_experiment']:.3f} ms device "
+          f"({100 * sweep_numbers['fit_share_of_experiment_round']:.1f}%); graph capture "
+          f"{sweep_numbers['capture_seconds']:.2f}s, private pool "
+          f"{sweep_numbers['pool_bytes'] / 2**20:.0f} MiB; small sweep card == CPU ({kind}, {smi})")
+    print(f"# phase 4j: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4k: the grid -----------------------------------------------------
+    t_phase = time.perf_counter()
+    GRID_STRATEGIES, GRID_ROUNDS = ["uncertainty", "margin", "density"], 8
+    grid_seeds = sweep_seeds[:4]
+    n_grid_chunks = GRID_ROUNDS // K
+    grid_cfg = cfg(False, collect_metrics=True, rounds_per_launch=K, max_rounds=GRID_ROUNDS,
+                   data=DataConfig(name="bench_pool"))
+
+    def watermark_close(a, b):
+        """Records equal, and RoundMetrics equal but for the two fields a
+        fill watermark divides by its count of valid rows (a true division,
+        as the JAX package's grid does, where a run without one multiplies
+        by the f32 reciprocal of a constant): within one f32 ulp."""
+        if [(r.round, r.n_labeled, r.accuracy) for r in a.records] != [
+                (r.round, r.n_labeled, r.accuracy) for r in b.records]:
+            return False
+        for ra, rb in zip(a.records, b.records):
+            for field, v in rb.metrics.items():
+                if field in ("labeled_frac", "pool_entropy"):
+                    if abs(ra.metrics[field] - v) > float(np.spacing(np.float32(v))):
+                        return False
+                elif ra.metrics[field] != v:
+                    return False
+        return True
+
+    def drive_grid(path, strategies_, seeds_, datasets_, bundles_, n_chunks_, rounds_):
+        zero_counts()
+        t0 = time.perf_counter()
+        grid = sweep_lib.run_grid(dataclasses.replace(grid_cfg, max_rounds=rounds_), strategies_,
+                                  seeds_, datasets=datasets_, bundles=bundles_, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = counts()
+        want_launches[path] = dict(zero, forest_leaves=2 * len(datasets_) * (1 + n_chunks_ * K))
+        g = grid.graph_stats
+        print(f"# {path}: {len(grid.cells)} cells, {wall:.2f}s wall, launches {launches[path]}, "
+              f"graph {g}")
+        if launches[path] != want_launches[path] or grid.recompiles_after_warmup != 0 or (
+                g["captures"], g["replays"]) != (1, n_chunks_):
+            fail(f"{path}: launches {launches[path]} (want {want_launches[path]}), graph {g}, "
+                 f"recompiles_after_warmup {grid.recompiles_after_warmup}")
+        serial_sec = 0.0
+        for cell in grid.cells:
+            t0 = time.perf_counter()
+            ser = loop.run_experiment(dataclasses.replace(
+                grid_cfg, seed=cell.seed, max_rounds=rounds_,
+                data=DataConfig(name=cell.dataset),
+                strategy=dataclasses.replace(grid_cfg.strategy, name=cell.strategy)),
+                bundle=bundles_[cell.dataset], device=dev)
+            torch.cuda.synchronize()
+            serial_sec += time.perf_counter() - t0
+            same = (watermark_close(cell.result, ser) if len(datasets_) > 1
+                    else full_records(cell.result) == full_records(ser))
+            if not same or not torch.equal(cell.result.final_labeled_mask, ser.final_labeled_mask):
+                fail(f"{path} cell {cell.strategy}/{cell.dataset}/seed {cell.seed} differs from "
+                     f"its serial chunked run: {full_records(cell.result)} vs {full_records(ser)}")
+        cr = len(grid.cells) * rounds_
+        return dict(cells=len(grid.cells), rounds=rounds_, wall_seconds=wall,
+                    serial_wall_seconds=serial_sec,
+                    grid_cells_rounds_per_second=cr / wall,
+                    serial_cells_rounds_per_second=cr / serial_sec,
+                    grid_speedup=serial_sec / wall,
+                    steady_seconds_per_cell_round=(statistics.mean(
+                        steady(c.result) for c in grid.cells) if n_chunks_ > 1 else None),
+                    recompiles_after_warmup=grid.recompiles_after_warmup,
+                    k1_launches=launches[path]["forest_leaves"],
+                    k1_launches_per_replay=g["launches_per_replay"]["trees_pallas.launches"],
+                    capture_seconds=g["capture_seconds"], pool_bytes=g["pool_bytes"])
+
+    grid_numbers = drive_grid("grid", GRID_STRATEGIES, grid_seeds, ["bench_pool"],
+                              {"bench_pool": bundle}, n_grid_chunks, GRID_ROUNDS)
+    # Two pools of unequal widths: padded to one slab, the real rows marked by
+    # the fill watermark. The test sets share one width, so the accuracy is
+    # the serial run's (a masked accuracy divides by its count, as the JAX
+    # package's does; tests/test_torch_cuda.py holds that one card == CPU).
+    half_rng = np.random.default_rng(args.seed + 142_403)
+    half_x = half_rng.normal(size=(142_403, N_FEAT)).astype(np.float32)
+    half_tx = half_rng.normal(size=(N_TEST, N_FEAT)).astype(np.float32)
+    half = DataBundle(train_x=half_x, train_y=labels(half_x), test_x=half_tx,
+                      test_y=labels(half_tx), name="half_pool")
+    grid_numbers["two_datasets"] = drive_grid(
+        "grid_two_datasets", ["uncertainty"], grid_seeds[:2], ["bench_pool", "half_pool"],
+        {"bench_pool": bundle, "half_pool": half}, 1, K)
+    print(f"# grid ({len(GRID_STRATEGIES)} strategies x {len(grid_seeds)} seeds, K = {K}, "
+          f"{GRID_ROUNDS} rounds, metrics on) == its serial chunked cells (records, RoundMetrics, "
+          f"final masks); grid_cells_rounds_per_second "
+          f"{grid_numbers['grid_cells_rounds_per_second']:.2f} against "
+          f"{grid_numbers['serial_cells_rounds_per_second']:.2f} serial (grid_speedup "
+          f"{grid_numbers['grid_speedup']:.3f}); steady "
+          f"{grid_numbers['steady_seconds_per_cell_round']:.5f} s a cell-round; "
+          f"recompiles_after_warmup {grid_numbers['recompiles_after_warmup']}; K1 "
+          f"{grid_numbers['k1_launches_per_replay']} a replay; capture "
+          f"{grid_numbers['capture_seconds']:.2f}s, private pool "
+          f"{grid_numbers['pool_bytes'] / 2**20:.0f} MiB. Two datasets ({N_POOL} and 142,403 "
+          f"rows, the fill watermark) == their serial cells (records, masks; labeled_frac and "
+          f"pool_entropy, divided by the watermark's count, within one f32 ulp), K1 "
+          f"{grid_numbers['two_datasets']['k1_launches_per_replay']} a replay ({kind}, {smi})")
+    print(f"# phase 4k: {time.perf_counter() - t_phase:.1f}s")
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -1507,6 +1740,42 @@ def main() -> int:
     print(f"# time forest_leaves on the host-fit heaps (n={N_POOL}, T={TREES}, depth {DEPTH}): "
           f"{h_ms:.4f} ms kernel ({h_dev:.4f} ms device, graph-replayed; the device-fit forest "
           f"{k1['pool']['device_ms']:.4f}), {h_plain:.4f} ms plain ({kind}, {smi})")
+    # K1 over the stacked forest of a sweep's round step: 8 forests of 100
+    # trees as one of 800 (one launch) against 8 single calls; the stacked
+    # leaves must equal each single call's bit for bit.
+    binned_s = trees_train.make_bins(train_x, BINS)
+    heaps8 = []
+    for i in range(8):
+        f, th, v = trees_train.fit_forest_device(
+            binned_s.codes, train_y, torch.ones(N_START, device=dev), binned_s.edges,
+            prng.key(args.seed + 100 + i), n_trees=TREES, max_depth=DEPTH, n_bins=BINS)
+        heaps8.append(trees_pallas.heap_operands(trees_train.heap_gemm_forest(f, th, v, DEPTH)))
+    stacked = trees_pallas.stack_heaps(heaps8)
+    got_stacked = trees_pallas._launch_leaves(stacked, x_full)
+    for i, h in enumerate(heaps8):
+        if not torch.equal(got_stacked[i * TREES:(i + 1) * TREES],
+                           trees_pallas._launch_leaves(h, x_full)):
+            fail(f"stacked forest_leaves != the single call of forest {i}")
+    if not torch.equal(got_stacked.T, trees_pallas.walk_leaves_plain(stacked, x_full)):
+        fail("stacked forest_leaves != walk_leaves_plain of the stacked heaps")
+    del got_stacked
+    s_ms = cuda_ms(lambda: trees_pallas._launch_leaves(stacked, x_full), reps=9)
+    s_dev = graph_ms(lambda: trees_pallas._launch_leaves(stacked, x_full))
+    sep_ms = cuda_ms(lambda: [trees_pallas._launch_leaves(h, x_full) for h in heaps8], reps=9)
+    sep_dev = graph_ms(lambda: [trees_pallas._launch_leaves(h, x_full) for h in heaps8], inner=5)
+    s_plain = cuda_ms(lambda: trees_pallas.walk_leaves_plain(stacked, x_full), reps=3)
+    s_lim, s_by = bound(nbytes(x_full, stacked.nodes, stacked.val) + 8 * TREES * N_POOL * 4,
+                        N_POOL * 8 * TREES * depth)
+    k1["stacked 8 x 100"] = dict(ms=s_ms, device_ms=s_dev, eight_single_ms=sep_ms,
+                                 eight_single_device_ms=sep_dev, plain_ms=s_plain,
+                                 bound_ms=s_lim, bound_by=s_by,
+                                 launch_config=trees_pallas.leaves_launch_config(
+                                     stacked, N_POOL, N_FEAT, dev))
+    print(f"# time forest_leaves stacked (8 forests of {TREES} trees as {8 * TREES}, n={N_POOL}): "
+          f"{s_ms:.4f} ms kernel ({s_dev:.4f} ms device, graph-replayed) against 8 single calls "
+          f"{sep_ms:.4f} ms ({sep_dev:.4f} ms device); {s_plain:.4f} ms walk_leaves_plain; bound "
+          f"{s_lim:.4f} ms by {s_by}; bit-equal to the single calls ({kind}, {smi})")
+    del heaps8, stacked
     k1_ms, k1_plain = k1["pool"]["ms"], k1["pool"]["plain_ms"]
     k1_bound, k1_by = k1["pool"]["bound_ms"], k1["pool"]["bound_by"]
     # K2 and K3: bytes are x once, the forest's heap form once (nodes, and
@@ -1743,8 +2012,10 @@ def main() -> int:
     bench_lal_path = lal_file("lal_bench_2000x8.npz", 2000, 8, args.seed + 2008,
                               ((0, 1), (0, 0.5), (0, 1), (0, 0.5), (50, 150)))
     lal_bench_launches = None
+    bench_batched = {}
     for mode, extra in (("score", []), ("round", []), ("variants", ["--variants", "v0,v1,v8,r1"]),
-                        ("lal", ["--lal-model", bench_lal_path])):
+                        ("lal", ["--lal-model", bench_lal_path]), ("sweep", ["--no-baseline"]),
+                        ("grid", ["--no-baseline"])):
         if mode == "variants":
             lv.transposed_launches = lv.segmented_launches = 0
         out = io.StringIO()
@@ -1768,6 +2039,11 @@ def main() -> int:
                 fail(f"bench --mode lal: {payload}")
             print(f"# bench --mode lal: K1 {lal_bench_launches} launches a query; host-fit leg: "
                   f"{skipped or payload['lal_query_seconds_host_fit']}")
+        if mode in ("sweep", "grid"):
+            bench_batched[mode] = payload
+            if payload.get("baseline_skipped") != {"reason": "no_baseline_flag"} or (
+                    mode == "grid" and payload["recompiles_after_warmup"] != 0):
+                fail(f"bench --mode {mode}: {payload}")
     variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
                         "forest_leaves_segmented": lv.segmented_launches}
     print(f"# bench --mode variants launches, counted from 0: {variant_launches}")
@@ -1784,6 +2060,12 @@ def main() -> int:
          "launches_by_path": {p: launches[p]["forest_leaves"] for p in launches},
          "metrics_path_launches": launches["metrics_chunked"]["forest_leaves"],
          "metrics_path_launches_per_round": k1_per_round,
+         "sweep_launches": launches["sweep"]["forest_leaves"],
+         "sweep_launches_per_replay": sweep_numbers["k1_launches_per_replay"],
+         "sweep_serial_launches": launches["sweep_serial"]["forest_leaves"],
+         "grid_launches": launches["grid"]["forest_leaves"],
+         "grid_launches_per_replay": grid_numbers["k1_launches_per_replay"],
+         "grid_two_datasets_launches": launches["grid_two_datasets"]["forest_leaves"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "by_shape": k1, "launch_config": k1_cfg, "by_payload": by_payload["forest_leaves"]},
@@ -1830,6 +2112,7 @@ def main() -> int:
          "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
     ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
+        "sweep": sweep_numbers, "grid": grid_numbers, "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))

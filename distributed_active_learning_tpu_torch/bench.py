@@ -42,6 +42,24 @@ as it is) for what the port carries:
   scikit-learn each query) needs scikit-learn; where it is missing the line
   says so under ``lal_host_fit_skipped``.
 
+- ``--mode sweep``: E experiments (``--sweep-experiments``, default 8) over
+  one shared pool (``--sweep-pool``, default the bench pool) for K rounds
+  (one chunk of ``--rounds-per-launch``) through ``runtime.sweep.run_sweep``
+  against the E serial ``run_experiment`` calls it replaces, each arm
+  whole, graph capture included, as the JAX bench times its compiles
+  (``sweep_experiments_rounds_per_second``,
+  ``serial_experiments_rounds_per_second``, ``sweep_speedup``). At the
+  bench width: 100 trees of depth 8, kernel "pallas", where the JAX bench's
+  depth 4 and 100,000 rows are smoke sizes of its own.
+- ``--mode grid``: the ``--grid-strategies`` x ``--grid-experiments``
+  seeds grid (2 chunks of K = 2) through ``runtime.sweep.run_grid`` against
+  the serial cells (``grid_cells_rounds_per_second``,
+  ``serial_cells_rounds_per_second``, ``grid_speedup``,
+  ``recompiles_after_warmup``: graph captures after the first, must be 0).
+  The JAX bench's scenario leg is reported skipped by name
+  (``scenario_skipped``). ``--no-baseline`` skips the serial arm of both
+  modes (``baseline_skipped`` says so).
+
 Sizes default to the JAX bench's: its accelerator table on CUDA (pool
 284,807 x 30, 100 trees, 5,000 labeled rows, 10 iterations, 8 rounds per
 launch) and its smoke table under ``--device cpu`` (``cpu_smoke_sizes`` is
@@ -66,14 +84,15 @@ Not carried yet, each with the slice it waits for: the score mode's
 host-fit leg (the bench runs where the card is, which has no scikit-learn; a
 host-fit forest would come as a forest file), the roofline section
 (pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
-``--compare-to`` (pre-flight slice), and the modes neural, sweep, grid,
-serve* (their own slices).
+``--compare-to`` (pre-flight slice), the grid's scenario leg (scenario
+slice), and the modes neural and serve* (their own slices).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import statistics
@@ -86,9 +105,11 @@ import numpy as np
 import torch
 
 _CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8,
-                   lal_trees=2000, lal_pool=1000)
+                   lal_trees=2000, lal_pool=1000, sweep_experiments=8, sweep_pool=284_807,
+                   grid_experiments=8)
 _CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4,
-                  lal_trees=50, lal_pool=200)
+                  lal_trees=50, lal_pool=200, sweep_experiments=8, sweep_pool=500,
+                  grid_experiments=8)
 # The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
 # bench's baseline.
 SPARK_LAL_QUERY_SEC = 1654.16
@@ -659,8 +680,144 @@ def bench_lal(args, dev) -> dict:
     return out
 
 
+def _batched_setup(args, n: int, window: int, rounds: int, K: int, name: str, strategy: str):
+    """The sweep and grid modes' pool (normal rows, labels ``x0 + 0.3 x1 >
+    0``, a test set of up to 2,048 rows) and base configuration: n_start one
+    window, the fit window pinned to cover every round."""
+    from distributed_active_learning_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ForestConfig, StrategyConfig,
+    )
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+
+    rng = np.random.default_rng(0)
+    pool = rng.normal(size=(n, args.features)).astype(np.float32)
+    test = rng.normal(size=(min(n, 2048), args.features)).astype(np.float32)
+    bundle = DataBundle(train_x=pool, train_y=(pool[:, 0] + 0.3 * pool[:, 1] > 0).astype(np.int32),
+                        test_x=test, test_y=(test[:, 0] + 0.3 * test[:, 1] > 0).astype(np.int32),
+                        name=name)
+    cfg = ExperimentConfig(
+        data=DataConfig(name=name),
+        forest=ForestConfig(n_trees=args.trees, max_depth=args.depth, kernel=args.kernel,
+                            fit="device",
+                            fit_budget=1 << (window + (rounds + 1) * window).bit_length()),
+        strategy=StrategyConfig(name=strategy, window_size=window),
+        n_start=window, max_rounds=rounds, rounds_per_launch=K, log_every=0,
+    )
+    return bundle, cfg
+
+
+def _baseline_skip(args) -> Optional[dict]:
+    return {"reason": "no_baseline_flag"} if args.no_baseline else None
+
+
+def bench_sweep(args, dev) -> dict:
+    """E experiments over one shared pool, K rounds, two ways through the
+    production drivers: ``run_sweep`` (one launch stream, one CUDA graph a
+    chunk, the E forests walked by one stacked K1 launch a pass) against
+    the E serial ``run_experiment`` calls (each capturing its own chunk
+    graph). Both arms share the bundle; experiments x rounds per second is
+    the headline."""
+    from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
+    from distributed_active_learning_tpu_torch.runtime.sweep import run_sweep
+
+    E, K, n = args.sweep_experiments, args.rounds_per_launch, args.sweep_pool
+    window = min(args.window, max(n // (4 * K), 1))
+    bundle, cfg = _batched_setup(args, n, window, K, K, "bench_sweep", "uncertainty")
+    seeds = list(range(E))
+    _flight("bench_timing_start", label="sweep/run_sweep", experiments=E)
+    sweep_sec = _wall(lambda: run_sweep(cfg, seeds, bundle=bundle, device=dev), dev)
+    _flight("bench_timing_end", label="sweep/run_sweep", seconds=round(sweep_sec, 3))
+    er = E * K
+    out = {
+        "metric": "sweep_experiments_rounds_per_second",
+        "value": round(er / sweep_sec, 2),
+        "unit": f"experiment-rounds/s ({E} experiments x {K} rounds, {n} pool, {args.trees} "
+                f"trees of depth {args.depth}, {args.kernel} kernel, capture included)",
+        "sweep_experiments": E,
+        "sweep_rounds_per_launch": K,
+        "sweep_pool": n,
+        "sweep_window": window,
+        "sweep_experiments_rounds_per_second": round(er / sweep_sec, 2),
+    }
+    skip = _baseline_skip(args)
+    if skip is None:
+        _flight("bench_timing_start", label="sweep/serial_loop", experiments=E)
+        serial_sec = _wall(lambda: [run_experiment(dataclasses.replace(cfg, seed=s), bundle=bundle,
+                                                   device=dev) for s in seeds], dev)
+        _flight("bench_timing_end", label="sweep/serial_loop", seconds=round(serial_sec, 3))
+        out["serial_experiments_rounds_per_second"] = round(er / serial_sec, 2)
+        out["sweep_speedup"] = round(serial_sec / sweep_sec, 2)
+    else:
+        out["baseline_skipped"] = out["sweep_baseline_skipped"] = skip
+    return out
+
+
+def bench_grid(args, dev) -> dict:
+    """The strategies x seeds grid over one shared pool, 2 chunks of K = 2
+    rounds (two launches, so ``recompiles_after_warmup`` means something),
+    through ``run_grid`` against the serial S x E ``run_experiment`` loop;
+    ``grid_cells_rounds_per_second`` is the headline. The JAX bench's
+    scenario leg is reported skipped by name."""
+    from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
+    from distributed_active_learning_tpu_torch.runtime.sweep import run_grid
+
+    strategies = [x.strip() for x in args.grid_strategies.split(",") if x.strip()]
+    E, K = args.grid_experiments, 2
+    n = args.sweep_pool
+    window = min(args.window, max(n // (8 * K), 1))
+    rounds = 2 * K
+    bundle, cfg = _batched_setup(args, n, window, rounds, K, "bench_grid", strategies[0])
+    seeds = list(range(E))
+    cells = len(strategies) * E
+    _flight("bench_timing_start", label="grid/run_grid", cells=cells)
+    t0 = time.perf_counter()
+    grid = run_grid(cfg, strategies, seeds, bundles={"bench_grid": bundle}, device=dev)
+    _sync(dev)
+    grid_sec = time.perf_counter() - t0
+    _flight("bench_timing_end", label="grid/run_grid", seconds=round(grid_sec, 3))
+    out = {
+        "metric": "grid_cells_rounds_per_second",
+        "value": round(cells * rounds / grid_sec, 2),
+        "unit": f"cell-rounds/s ({len(strategies)} strategies x {E} seeds x {rounds} rounds, "
+                f"{n} pool, {args.trees} trees of depth {args.depth}, {args.kernel} kernel, "
+                "capture included)",
+        "grid_strategies": strategies,
+        "grid_seeds": E,
+        "grid_cells": cells,
+        "grid_rounds_per_launch": K,
+        "grid_rounds": rounds,
+        "grid_pool": n,
+        "grid_window": window,
+        "grid_seconds": round(grid_sec, 3),
+        "grid_cells_rounds_per_second": round(cells * rounds / grid_sec, 2),
+        "grid_launches": grid.launches,
+        "recompiles_after_warmup": grid.recompiles_after_warmup,
+        "grid_recompiles_after_warmup": grid.recompiles_after_warmup,
+        "grid_graph": grid.graph_stats,
+    }
+    skip = _baseline_skip(args)
+    if skip is None:
+        _flight("bench_timing_start", label="grid/serial_loop", cells=cells)
+
+        def serial():
+            for st in strategies:
+                scfg = dataclasses.replace(cfg, strategy=dataclasses.replace(cfg.strategy, name=st))
+                for e in seeds:
+                    run_experiment(dataclasses.replace(scfg, seed=e), bundle=bundle, device=dev)
+
+        serial_sec = _wall(serial, dev)
+        _flight("bench_timing_end", label="grid/serial_loop", seconds=round(serial_sec, 3))
+        out["serial_cells_rounds_per_second"] = round(cells * rounds / serial_sec, 2)
+        out["grid_speedup"] = round(serial_sec / grid_sec, 2)
+    else:
+        out["baseline_skipped"] = out["grid_baseline_skipped"] = skip
+    out["scenario_skipped"] = ("the grid's scenario axis comes with the scenario slice "
+                               "(ROADMAP queue 1 item 4)")
+    return out
+
+
 _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
-          "variants": bench_variants, "lal": bench_lal}
+          "variants": bench_variants, "lal": bench_lal, "sweep": bench_sweep, "grid": bench_grid}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -700,6 +857,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lal-model", default=None, metavar="PATH",
                     help="lal mode: the regressor as a forest file (models/forest_io.py); "
                     "without it the regressor is fitted with scikit-learn")
+    ap.add_argument("--sweep-experiments", type=int, default=None,
+                    help="sweep mode: experiments in the batch (default 8)")
+    ap.add_argument("--sweep-pool", type=int, default=None,
+                    help="sweep and grid modes: shared pool rows (default 284,807 on CUDA, 500 "
+                    "under --device cpu)")
+    ap.add_argument("--grid-experiments", type=int, default=None,
+                    help="grid mode: seeds per strategy (default 8; cells = strategies x seeds)")
+    ap.add_argument("--grid-strategies", default="uncertainty,margin,density", metavar="A,B,...",
+                    help="grid mode: the strategy groups of the one launch stream")
+    ap.add_argument("--no-baseline", action="store_true",
+                    help="sweep and grid modes: skip the serial arm (the speedup denominator); "
+                    "baseline_skipped says so")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")

@@ -61,14 +61,54 @@ class EvaluatedForest:
 def evaluated(forest: Forest, x: torch.Tensor) -> EvaluatedForest:
     """``forest`` with its leaf values on ``x`` computed once (a
     :class:`~.trees_multi.MultiForest` plane by plane, one evaluation a
-    plane). A mesh's sharded forest counts votes per shard and is refused."""
+    plane); a forest already evaluated on this very ``x`` is returned as it
+    is. A mesh's sharded forest counts votes per shard and is refused."""
     from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
 
     if isinstance(forest, MultiForest):
         return MultiForest(planes=tuple(evaluated(p, x) for p in forest.planes))
     if isinstance(forest, trees_pallas.ShardedPallasForest):
         raise TypeError("a sharded forest evaluates per shard; evaluated() takes one device's form")
+    if isinstance(forest, EvaluatedForest) and forest.x is x:
+        return forest
     return EvaluatedForest(forest, x, leaves(forest, x))
+
+
+def evaluated_many(forests, x: torch.Tensor) -> list:
+    """:func:`evaluated` of each forest over one shared ``x`` (a batched
+    round's E fits over its pool, or over its test set).
+
+    :class:`~.trees_pallas.PallasForest` s that share their shape are
+    walked together: their heap operands are concatenated along the tree
+    axis and K1 runs ONE launch over the stacked forest
+    (:func:`~.trees_pallas.predict_leaves_many`; its plain version on the
+    CPU), where the JAX package runs its Pallas kernel under ``vmap`` over
+    the experiments. Each :class:`EvaluatedForest` holds its own trees'
+    rows of that launch, bit for bit what its own launch gives. Forests that
+    differ in depth, node count, leaf pitch or payload are refused by name.
+    :class:`~.trees_multi.MultiForest` s are stacked plane by plane (one
+    launch a plane). The gemm and gather forms (and forests past K1's tile
+    limits) are evaluated one by one: no kernel exists there, in the JAX
+    package either."""
+    from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
+
+    forests = list(forests)
+    if not forests:
+        return []
+    if all(isinstance(f, MultiForest) for f in forests):
+        n_planes = {f.n_classes for f in forests}
+        if len(n_planes) != 1:
+            raise ValueError(f"multiclass forests of one batch disagree on the class count: "
+                             f"{sorted(n_planes)}")
+        planes = [evaluated_many([f.planes[c] for f in forests], x)
+                  for c in range(forests[0].n_classes)]
+        return [MultiForest(planes=tuple(p[e] for p in planes)) for e in range(len(forests))]
+    n, d = x.shape
+    if all(type(f) is trees_pallas.PallasForest for f in forests) and all(
+            trees_pallas.tile_dims(f.gf, n, d) is not None for f in forests):
+        return [EvaluatedForest(f, x, lv)
+                for f, lv in zip(forests, trees_pallas.predict_leaves_many(forests, x))]
+    return [evaluated(f, x) for f in forests]
 
 
 def _cached_leaves(forest, x):

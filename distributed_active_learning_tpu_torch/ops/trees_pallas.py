@@ -440,6 +440,53 @@ def _predict_leaves_sharded(f: ShardedPallasForest, x) -> torch.Tensor:
     return torch.cat([r.to(first) for r in rows])[:n]
 
 
+def stack_heaps(heaps) -> HeapOperands:
+    """Heap forests of one shape as one forest, their trees concatenated in
+    order: the walk of tree ``t`` reads only tree ``t``'s words, so the
+    stacked forest's leaves are each forest's own, rows ``[a, a + T)`` for
+    the forest whose trees start at ``a``. Forests that differ in depth,
+    node count ``N``, leaf pitch ``Lp``, payload or device are refused,
+    naming the difference."""
+    first = heaps[0]
+    for h in heaps[1:]:
+        for what, a, b in (("depth", first.depth, h.depth),
+                           ("node count N", first.nodes.shape[1], h.nodes.shape[1]),
+                           ("leaf pitch Lp", first.val.shape[1], h.val.shape[1]),
+                           ("payload", first.val.dtype, h.val.dtype),
+                           ("device", first.nodes.device, h.nodes.device)):
+            if a != b:
+                raise ValueError(f"forests of one stacked K1 launch must share their {what}: "
+                                 f"{a} != {b}")
+    if len(heaps) == 1:
+        return first
+    return HeapOperands(nodes=torch.cat([h.nodes for h in heaps]),
+                        val=torch.cat([h.val for h in heaps]), depth=first.depth)
+
+
+def predict_leaves_many(forests, x: torch.Tensor):
+    """Per-tree leaf values ``[n, T]`` of each :class:`PallasForest` (or
+    :class:`GemmForest` of heap trees) over one ``x``, from ONE walk of all
+    their trees stacked (:func:`stack_heaps`): one kernel launch for a CUDA
+    tensor, the walk's plain version (:func:`walk_leaves_plain`) for a CPU
+    tensor. Each result equals :func:`predict_leaves_pallas` of its forest
+    bit for bit (on the card a slice of the launch's ``[sum T, n]`` output,
+    laid out as one forest's launch; on the CPU a contiguous ``[n, T]``, as
+    the plain version's). Forests past the kernel's tile limits are not
+    taken (``ValueError``): evaluate them one by one."""
+    n, d = x.shape
+    if any(tile_dims(_unwrap(f), n, d) is None for f in forests):
+        raise ValueError("a forest past the leaf kernel's tile limits takes the gemm form; "
+                         "evaluate such forests one by one")
+    heaps = [heap_operands_of(f) for f in forests]
+    sizes = [h.n_trees for h in heaps]
+    ops = stack_heaps(heaps)
+    if x.device.type == "cuda":
+        return [v.T for v in torch.split(_launch_leaves(ops, x), sizes)]
+    if x.device.type == "cpu":
+        return [v.contiguous() for v in torch.split(walk_leaves_plain(ops, x), sizes, dim=1)]
+    raise ValueError(f"unsupported device {x.device}")
+
+
 def predict_leaves(f, x: torch.Tensor) -> torch.Tensor:
     if isinstance(f, ShardedPallasForest):
         return _predict_leaves_sharded(f, x)

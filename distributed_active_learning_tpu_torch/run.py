@@ -27,6 +27,15 @@ Observability and resume, as in the JAX package's CLI: ``--metrics-out``
 (``/metrics``, ``/healthz``, ``/varz``, ``/flightz`` on localhost) and
 ``--checkpoint-dir`` with ``--checkpoint-every`` (a checkpoint of either
 package resumes in the other). ``--roofline`` is refused by name.
+
+Sweeps and grids (``runtime/sweep.py``): ``--sweep-seeds N`` runs seeds
+``--seed`` .. ``--seed + N - 1`` as one batched launch stream (each seed's
+log under a ``# sweep seed`` header; ``--out`` writes ``out_s<seed>.txt``),
+``--strategies A,B,...`` and ``--datasets A,B,...`` run the grid of those
+strategies x datasets x seeds (each cell's log under a ``# grid cell``
+header). The batched path needs ``--fit device``; a host fit runs the
+experiments one after another. ``--plot`` waits (the card's machine has no
+matplotlib).
 """
 
 from __future__ import annotations
@@ -51,8 +60,21 @@ def build_parser() -> argparse.ArgumentParser:
         description="pool-based active learning, PyTorch/CUDA port",
     )
     ap.add_argument("--dataset", default="checkerboard2x2")
+    ap.add_argument(
+        "--datasets", default=None, metavar="A,B,...",
+        help="comma-separated dataset list: with --sweep-seeds/--strategies this adds a batched "
+        "dataset axis to the grid launch (pools padded to one slab width, real rows marked by "
+        "the fill watermark; runtime/sweep.py run_grid). Overrides --dataset",
+    )
     ap.add_argument("--n-samples", type=int, default=None, help="pool size")
     ap.add_argument("--strategy", default="uncertainty")
+    ap.add_argument(
+        "--strategies", default=None, metavar="A,B,...",
+        help="comma-separated strategy list: run the strategies x seeds (x datasets) grid as ONE "
+        "pipelined launch stream, one CUDA graph a chunk on the card (runtime/sweep.py "
+        "run_grid); per-cell records equal the serial runs'. Overrides --strategy; the batched "
+        "path needs --fit device (a host fit runs the cells one after another)",
+    )
     ap.add_argument("--window", type=int, default=10)
     ap.add_argument(
         "--strategy-option", action="append", default=[], metavar="K=V",
@@ -107,6 +129,14 @@ def build_parser() -> argparse.ArgumentParser:
         "1 = strict serial launch -> block -> touchdown order",
     )
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument(
+        "--sweep-seeds", type=int, default=1, metavar="N",
+        help="run N seeds (--seed .. --seed+N-1) as ONE batched launch stream over the shared "
+        "pool (runtime/sweep.py run_sweep): per round step the N fits, one stacked leaf-kernel "
+        "launch on the pool and one on the test set, N rounds; per-seed results equal N serial "
+        "runs. stdout prints each seed's log under a '# sweep seed' header, --out writes "
+        "out_s<seed>.txt. Needs --fit device for the batched path",
+    )
     # Observability (runtime/telemetry.py, runtime/obs.py) and resume
     # (runtime/checkpoint.py).
     ap.add_argument(
@@ -177,6 +207,24 @@ def main(argv=None) -> int:
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
 
+    grid_strategies = ([_STRATEGY_ALIASES.get(x.strip(), x.strip())
+                        for x in args.strategies.split(",") if x.strip()]
+                       if args.strategies else None)
+    grid_datasets = ([x.strip() for x in args.datasets.split(",") if x.strip()]
+                     if args.datasets else None)
+    if grid_strategies is not None:
+        from distributed_active_learning_tpu_torch.strategies import available_strategies
+
+        unknown = [x for x in grid_strategies if x not in available_strategies()]
+        if unknown:
+            ap.error(f"unknown strategies {unknown}; the grid launcher drives the classic "
+                     f"registry: {', '.join(available_strategies())}")
+        if len(set(grid_strategies)) != len(grid_strategies):
+            # Duplicates would run identical groups and overwrite each
+            # other's per-cell output files.
+            ap.error(f"duplicate strategies in --strategies: {grid_strategies}")
+    if grid_datasets is not None and len(set(grid_datasets)) != len(grid_datasets):
+        ap.error(f"duplicate datasets in --datasets: {grid_datasets}")
     if args.roofline:
         ap.error("--roofline needs analysis/roofline.py, which comes with the pre-flight slice "
                  "(ROADMAP queue 1, \"Pre-flight equivalents\")")
@@ -200,18 +248,21 @@ def main(argv=None) -> int:
               file=sys.stderr, flush=True)
 
     cfg = ExperimentConfig(
-        data=DataConfig(name=args.dataset, n_samples=args.n_samples, seed=args.seed),
+        data=DataConfig(name=grid_datasets[0] if grid_datasets else args.dataset,
+                        n_samples=args.n_samples, seed=args.seed),
         forest=ForestConfig(
             n_trees=args.trees, max_depth=args.depth, kernel=args.kernel, fit=args.fit,
             quantize=args.quantize,
         ),
-        strategy=StrategyConfig(name=args.strategy, window_size=args.window,
+        strategy=StrategyConfig(name=grid_strategies[0] if grid_strategies else args.strategy,
+                                window_size=args.window,
                                 options=_parse_strategy_options(args.strategy_option)),
         mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         n_start=args.n_start,
         max_rounds=args.rounds,
         rounds_per_launch=args.rounds_per_launch,
         pipeline_depth=args.pipeline_depth,
+        sweep_seeds=args.sweep_seeds,
         stream_round_events=args.stream_rounds,
         fused_round=args.fused_round,
         seed=args.seed,
@@ -222,10 +273,23 @@ def main(argv=None) -> int:
         enabled=not args.quiet,
         printer=lambda *a: print(*a, file=sys.stderr),
     )
+    use_grid = grid_strategies is not None or grid_datasets is not None
+    seeds = list(range(args.seed, args.seed + args.sweep_seeds))
     writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
     try:
         with telemetry.profile_session(args.profile_dir):
-            result = run_experiment(cfg, debugger=dbg, metrics=writer, device=args.device)
+            if use_grid:
+                from distributed_active_learning_tpu_torch.runtime.sweep import run_grid
+
+                grid = run_grid(cfg, grid_strategies or [cfg.strategy.name], seeds,
+                                datasets=grid_datasets, debugger=dbg, metrics=writer,
+                                device=args.device)
+            elif args.sweep_seeds > 1:
+                from distributed_active_learning_tpu_torch.runtime.sweep import run_sweep
+
+                results = run_sweep(cfg, seeds, debugger=dbg, metrics=writer, device=args.device)
+            else:
+                result = run_experiment(cfg, debugger=dbg, metrics=writer, device=args.device)
     finally:
         if writer is not None:
             writer.close()
@@ -233,6 +297,16 @@ def main(argv=None) -> int:
             ops_server.stop()
     if args.flight_recorder:
         telemetry.flight_dump("exit")
+    if use_grid:
+        _emit_grid(args, grid, dbg)
+    elif args.sweep_seeds > 1:
+        _emit_sweep(args, results, seeds, dbg)
+    else:
+        _emit(args, result, dbg)
+    return 0
+
+
+def _emit(args, result, dbg) -> None:
     sys.stdout.write(result.to_reference_log())
     if args.out:
         result.save(args.out, fmt="reference")
@@ -243,7 +317,50 @@ def main(argv=None) -> int:
             f"total {dbg.total_time():.1f}s",
             file=sys.stderr,
         )
-    return 0
+
+
+def _emit_sweep(args, results, seeds, dbg) -> None:
+    """A sweep's logs: each seed's under a '# sweep seed' header on stdout,
+    ``--out`` as per-seed files."""
+    import numpy as np
+
+    from distributed_active_learning_tpu_torch.runtime.sweep import _sweep_result_path
+
+    for seed, result in zip(seeds, results):
+        sys.stdout.write(f"# sweep seed {seed}\n")
+        sys.stdout.write(result.to_reference_log())
+        if args.out:
+            result.save(_sweep_result_path(args.out, seed), fmt="reference")
+    finals = [r.final_accuracy for r in results if r.final_accuracy is not None]
+    if finals and not args.quiet:
+        print(f"# sweep final: {len(seeds)} seeds, accuracy {np.mean(finals) * 100:.2f}% +/- "
+              f"{np.std(finals) * 100:.2f}%, total {dbg.total_time():.1f}s", file=sys.stderr)
+
+
+def _emit_grid(args, grid, dbg) -> None:
+    """A grid's logs: each cell's under a '# grid cell' header on stdout,
+    ``--out`` as per-cell files."""
+    import numpy as np
+
+    from distributed_active_learning_tpu_torch.runtime.sweep import _grid_result_path
+
+    datasets = sorted({c.dataset for c in grid.cells})
+    for cell in grid.cells:
+        sys.stdout.write(f"# grid cell {cell.strategy}/{cell.dataset}/seed {cell.seed}\n")
+        sys.stdout.write(cell.result.to_reference_log())
+        if args.out:
+            cell.result.save(_grid_result_path(args.out, cell.strategy, cell.dataset, cell.seed,
+                                               len(datasets) > 1), fmt="reference")
+    if not args.quiet:
+        finals = [c.result.final_accuracy for c in grid.cells
+                  if c.result.final_accuracy is not None]
+        acc = (f"accuracy {np.mean(finals) * 100:.2f}% +/- {np.std(finals) * 100:.2f}%"
+               if finals else "no accuracy records")
+        strategies = sorted({c.strategy for c in grid.cells})
+        print(f"# grid final: {len(grid.cells)} cells ({len(strategies)} strategies x "
+              f"{len(datasets)} datasets), {acc}, launches={grid.launches} "
+              f"recompiles_after_warmup={grid.recompiles_after_warmup}, "
+              f"total {dbg.total_time():.1f}s", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -27,8 +27,15 @@ per-round drivers give bit-identical state, so a checkpoint written by one
 resumes under the other, at any chunk size. The chunked driver writes at
 the first chunk boundary at or after each multiple of ``checkpoint_every``.
 
-The sweep, grid, serve and neural formats of the JAX module come with their
-slices (ROADMAP queue 1).
+The batched half (``runtime/sweep.py``): one ``sweepstate_<round>.npz`` a
+sweep and one ``gridstate_<round>.npz`` a grid, each holding every
+experiment's (or cell's) ``labeled_mask`` ``[E, n]``, ``key`` ``uint32[E,
+2]``, ``round`` ``int32[E]`` and records (a list of record lists), with the
+fingerprint of the whole batch (:func:`sweep_fingerprint`,
+:func:`grid_fingerprint`): the JAX package's format, so either package
+resumes the other's. The grid's scenario axis comes with the scenario slice.
+The serve and neural formats of the JAX module come with their slices
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -204,3 +211,146 @@ def restore_latest(ckpt_dir: str, state: PoolState, result: ExperimentResult,
         return None
     with np.load(os.path.join(ckpt_dir, f"alstate_{step}.npz")) as z:
         return _restore_base(z, step, state, result, fingerprint, kernel)
+
+
+# ---------------------------------------------------------------------------
+# Batched launches: sweeps and grids
+# ---------------------------------------------------------------------------
+
+_SWEEP_STEP_RE = re.compile(r"^sweepstate_(\d+)\.npz$")
+_GRID_STEP_RE = re.compile(r"^gridstate_(\d+)\.npz$")
+
+
+def sweep_fingerprint(cfg, seeds, windows) -> str:
+    """Identity hash of a batched sweep: the experiment's identity plus the
+    seed and window vectors. The file stores every experiment's state by
+    position, so it resumes only the same batch (the same seeds in the same
+    order, the same windows)."""
+    ident = _forest_ident(cfg, with_mesh=False)
+    ident["sweep"] = {"seeds": [int(s) for s in seeds], "windows": [int(w) for w in windows]}
+    return fingerprint_from_ident(ident)
+
+
+def grid_fingerprint(cfg, strategies, seeds, datasets, windows) -> str:
+    """Identity hash of a grid launch: the sweep's extended with the strategy
+    and dataset axes. The strategy and dataset names, the window and the
+    seed of the anchoring config live in the axes, so they leave the base
+    identity; the shared knobs (options, data path and sampling, forest,
+    n_start) stay."""
+    ident = _forest_ident(cfg, with_mesh=False)
+    ident["strategy"].pop("name", None)
+    ident["strategy"].pop("window_size", None)
+    ident["data"].pop("name", None)
+    ident.pop("seed", None)
+    ident["grid"] = {
+        "strategies": [str(s) for s in strategies],
+        "seeds": [int(s) for s in seeds],
+        "datasets": [str(d) for d in datasets],
+        "windows": [int(w) for w in windows],
+    }
+    return fingerprint_from_ident(ident)
+
+
+def _save_batched(ckpt_dir: str, prefix: str, masks, keys, rounds, results, n_cols: int,
+                  fingerprint: Optional[str]) -> str:
+    """One npz file covering every row (experiment or grid cell) of a batched
+    launch, named after the largest round of its rows (a finished row's
+    round freezes, so once every row has stopped later saves overwrite the
+    same file). ``masks [rows, n]`` are cut to their first ``n_cols``
+    columns (a grid's common width)."""
+    from distributed_active_learning_tpu_torch.utils.io import atomic_savez
+
+    rounds_np = np.asarray(torch.as_tensor(rounds).cpu(), dtype=np.int32)
+    payload = {
+        "labeled_mask": torch.as_tensor(masks).cpu().numpy().astype(bool)[:, :n_cols],
+        "key": torch.as_tensor(keys).cpu().numpy().astype(np.uint32),
+        "round": rounds_np,
+        "records_json": _as_bytes(json.dumps(
+            [[dataclasses.asdict(r) for r in res.records] for res in results])),
+    }
+    if fingerprint is not None:
+        payload["config_fingerprint"] = _as_bytes(fingerprint)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    return atomic_savez(os.path.join(ckpt_dir, f"{prefix}_{int(rounds_np.max())}.npz"), **payload)
+
+
+def _latest_batched_step(ckpt_dir: str, step_re) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for fn in os.listdir(ckpt_dir) if (m := step_re.match(fn))]
+    return max(steps) if steps else None
+
+
+def _restore_latest_batched(ckpt_dir: str, prefix: str, step_re, n_cols: int, n_rows: int,
+                            fingerprint: Optional[str], kind: str, row_noun: str,
+                            width_noun: str, width_target: str):
+    """``(masks [rows, n_cols] bool, keys [rows, 2] int64, rounds [rows]
+    int32, results)`` of the newest file, or None without one. A fingerprint
+    or shape that is not this launch's raises: resuming another launch's
+    state by position would cross-wire every row."""
+    step = _latest_batched_step(ckpt_dir, step_re)
+    if step is None:
+        return None
+    with np.load(os.path.join(ckpt_dir, f"{prefix}_{step}.npz")) as z:
+        stored_fp = (bytes(z["config_fingerprint"]).decode()
+                     if "config_fingerprint" in z.files else None)
+        if fingerprint is not None and stored_fp is not None and stored_fp != fingerprint:
+            raise ValueError(
+                f"{kind} checkpoint fingerprint {stored_fp} != current {kind} "
+                f"{fingerprint}: refusing to resume a different {kind}'s state")
+        masks = np.asarray(z["labeled_mask"]).astype(bool)
+        keys = np.asarray(z["key"]).astype(np.int64)
+        rounds = np.asarray(z["round"]).astype(np.int32)
+        records = json.loads(bytes(z["records_json"]).decode())
+    if masks.shape[0] != n_rows:
+        raise ValueError(
+            f"{kind} checkpoint holds {masks.shape[0]} {row_noun}, the current {kind} has "
+            f"{n_rows}")
+    if masks.shape[1] != n_cols:
+        raise ValueError(
+            f"{kind} checkpoint {width_noun} ({masks.shape[1]},) != {width_target} ({n_cols},)")
+    return masks, keys, rounds, [ExperimentResult.from_record_dicts(r) for r in records]
+
+
+def save_sweep(ckpt_dir: str, masks, keys, rounds, results, n_valid: int,
+               fingerprint: Optional[str] = None) -> str:
+    """One checkpoint of all E experiments of a sweep: ``masks [E, n]``,
+    ``keys [E, 2]`` and ``rounds [E]`` are the dispatch-time snapshot of the
+    sweep's carry (``runtime.loop.ckpt_snapshot``)."""
+    return _save_batched(ckpt_dir, "sweepstate", masks, keys, rounds, results, n_valid,
+                         fingerprint)
+
+
+def latest_sweep_step(ckpt_dir: str) -> Optional[int]:
+    return _latest_batched_step(ckpt_dir, _SWEEP_STEP_RE)
+
+
+def restore_latest_sweep(ckpt_dir: str, n_valid: int, n_experiments: int,
+                         fingerprint: Optional[str] = None):
+    """The newest sweep checkpoint as ``(masks [E, n_valid], keys [E, 2],
+    rounds [E], results)``; None without one."""
+    return _restore_latest_batched(
+        ckpt_dir, "sweepstate", _SWEEP_STEP_RE, n_valid, n_experiments, fingerprint,
+        kind="sweep", row_noun="experiments", width_noun="pool size",
+        width_target="experiment pool")
+
+
+def save_grid(ckpt_dir: str, masks, keys, rounds, results, n_store: int,
+              fingerprint: Optional[str] = None) -> str:
+    """One checkpoint of every cell of a grid: ``masks [C, n]`` cut to
+    ``n_store``, the common width of its datasets' pools."""
+    return _save_batched(ckpt_dir, "gridstate", masks, keys, rounds, results, n_store,
+                         fingerprint)
+
+
+def latest_grid_step(ckpt_dir: str) -> Optional[int]:
+    return _latest_batched_step(ckpt_dir, _GRID_STEP_RE)
+
+
+def restore_latest_grid(ckpt_dir: str, n_store: int, n_cells: int,
+                        fingerprint: Optional[str] = None):
+    """The newest grid checkpoint as ``(masks [C, n_store], keys [C, 2],
+    rounds [C], results)``; None without one."""
+    return _restore_latest_batched(
+        ckpt_dir, "gridstate", _GRID_STEP_RE, n_store, n_cells, fingerprint,
+        kind="grid", row_noun="cells", width_noun="pool width", width_target="grid slab")

@@ -46,18 +46,27 @@ With ``checkpoint_dir`` and ``checkpoint_every`` a run resumes from the
 newest ``alstate_<round>.npz`` (either package's) and writes one every
 ``checkpoint_every`` rounds, at chunk boundaries in the chunked driver.
 
+The batched drivers (``runtime/sweep.py``: sweeps and grids) run the padded
+round (:func:`make_padded_round_fn`: selection at the widest window, each
+experiment's own window revealed), the fit body with the edges an argument
+(:func:`_device_fit_core`) and the masked accuracy
+(:func:`_accuracy_masked`), and capture their chunks with the same
+:class:`GraphedChunk`.
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing them: under a mesh the chunked driver, round metrics,
-``kernel`` "gemm" and "gather", depths past 10, the host fit and the density
-and lal strategies; roofline attribution and scenarios. What the JAX package
-refuses of quantized storage (:func:`_validate_quantize`) the port refuses
-with the same reasons.
+slice bringing them: under a mesh the chunked driver (and so sweeps and
+grids), round metrics, ``kernel`` "gemm" and "gather", depths past 10, the
+host fit and the density and lal strategies; roofline attribution and
+scenarios (and a grid's scenario axis). What the JAX package refuses of
+quantized storage (:func:`_validate_quantize`) the port refuses with the
+same reasons.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import time
 from typing import Optional
 
 import numpy as np
@@ -68,7 +77,12 @@ from distributed_active_learning_tpu_torch.config import ExperimentConfig
 from distributed_active_learning_tpu_torch.data.datasets import DataBundle, get_dataset
 from distributed_active_learning_tpu_torch.device import resolve_device, synchronize
 from distributed_active_learning_tpu_torch.ops import forest_eval
-from distributed_active_learning_tpu_torch.ops.topk import select_bottom_k, select_top_k
+from distributed_active_learning_tpu_torch.ops.topk import (
+    NEG_INF,
+    POS_INF,
+    select_bottom_k,
+    select_top_k,
+)
 from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
@@ -85,6 +99,7 @@ def _round_core(
     state: state_lib.PoolState,
     aux: StrategyAux,
     fused: bool = False,
+    window=None,
 ):
     """One AL round: split the key, score + select (or the fused round),
     reveal, and with ``with_metrics`` the round's
@@ -94,7 +109,14 @@ def _round_core(
     With metrics the pool's leaf values are computed once
     (:func:`~..ops.forest_eval.evaluated`) and read by both the score and
     the pool entropy: the JAX package gets the same sharing from XLA, which
-    merges the two identical evaluations of one program."""
+    merges the two identical evaluations of one program.
+
+    ``window`` (a 0-d int tensor <= ``window_size``, the padded round of a
+    sweep or grid) reveals only the first ``window`` picks of the top
+    ``window_size`` selection: the selection is sorted, so they are exactly
+    the top ``window`` selection. The picks past it are neutralized as a
+    short window's sentinels are (values to -inf or +inf, indices onto the
+    first pick), so the metrics see what a run at that window sees."""
     keys = prng.split(state.key)
     key, k_score = keys[0], keys[1]
     state = state.replace(key=key)
@@ -115,7 +137,13 @@ def _round_core(
             vals, picked = select_top_k(scores, unlabeled, window_size)
         else:
             vals, picked = select_bottom_k(scores, unlabeled, window_size)
-    new_state = state_lib.reveal(state, picked)
+    if window is None:
+        new_state = state_lib.reveal(state, picked)
+    else:
+        keep = torch.arange(window_size, device=picked.device) < window
+        vals = torch.where(keep, vals, NEG_INF if strategy.higher_is_better else POS_INF)
+        picked = torch.where(keep, picked, picked[0])
+        new_state = state_lib.reveal_masked(state, picked, keep)
     if not with_metrics:
         return new_state, picked, scores
     from distributed_active_learning_tpu_torch.runtime import telemetry
@@ -146,6 +174,23 @@ def make_round_fn(strategy: Strategy, window_size: int, with_metrics: bool = Fal
     def round_fn(forest, state, aux):
         return _round_core(strategy, window_size, with_metrics, n_classes, forest, state, aux,
                            fused=fused)
+
+    return round_fn
+
+
+def make_padded_round_fn(strategy: Strategy, window_pad: int, with_metrics: bool = False,
+                         n_classes: int = 2):
+    """:func:`make_round_fn` with a per-call reveal width: ``round_fn(forest,
+    state, aux, window)`` selects at ``window_pad`` and reveals the first
+    ``window`` picks (a 0-d int tensor). A batched sweep runs it per
+    experiment, so experiments of other windows share one program; at
+    ``window == window_pad`` it is :func:`make_round_fn`'s round bit for
+    bit. It is never fused: the JAX package's padded round has no fused
+    form."""
+
+    def round_fn(forest, state, aux, window):
+        return _round_core(strategy, window_pad, with_metrics, n_classes, forest, state, aux,
+                           window=window)
 
     return round_fn
 
@@ -201,10 +246,24 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
 _MESH_SLICE = "the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and pod\")"
 
 
-def _not_ported(cfg: ExperimentConfig, metrics) -> None:
-    """Refuse what this slice does not carry, naming the slice that will."""
+def _not_ported(cfg: ExperimentConfig, metrics, batched: Optional[str] = None,
+                scenario_axis: bool = False) -> None:
+    """Refuse what this slice does not carry, naming the slice that will.
+    ``batched`` ("sweep" or "grid") adds the batched drivers' refusals:
+    under a mesh (their chunk is the chunk under a mesh) and with a
+    scenario, ``scenario_axis`` being a grid's scenario axis."""
     mesh = cfg.mesh.data * cfg.mesh.model > 1
+    scenario_on = cfg.scenario is not None and cfg.scenario.active
     refusals = [
+        (batched is not None and mesh,
+         f"a {batched} under a device mesh runs its chunk under the mesh, which needs "
+         "constrain_forest (the fit sharded by trees inside the chunk); it comes with "
+         f"{_MESH_SLICE}, item 8"),
+        (batched is not None and (scenario_axis or scenario_on),
+         f"a {batched}'s scenario axis, and a scenario run as a {batched}, come with the "
+         "scenario slice (ROADMAP queue 1, \"Scenarios\", item 4)"),
+    ]
+    refusals += [
         (cfg.rounds_per_launch > 1 and mesh,
          "rounds_per_launch > 1 under a device mesh needs constrain_forest "
          "(the fit sharded by trees inside the chunk); it comes with "
@@ -282,6 +341,22 @@ def _accuracy(forest, test_x, test_y: torch.Tensor) -> torch.Tensor:
     else:
         pred = (forest_eval.proba(forest, test_x) > 0.5).to(torch.int32)
     return div_const((pred == test_y).to(torch.float32).sum(), test_y.shape[0])
+
+
+def _accuracy_masked(forest, test_x, test_y: torch.Tensor, test_n: torch.Tensor) -> torch.Tensor:
+    """:func:`_accuracy` over the first ``test_n`` rows (a 0-d int tensor) of
+    a padded test set: a grid pads its datasets' test sets to one width, and
+    the padding must not dilute the mean. A true division by the count, as
+    the JAX package's (a grid whose test sets share one width takes
+    :func:`_accuracy`)."""
+    from distributed_active_learning_tpu_torch.ops import trees_multi
+
+    if trees_multi.is_multi(forest):
+        pred = trees_multi.predict_class(forest, test_x)
+    else:
+        pred = (forest_eval.proba(forest, test_x) > 0.5).to(torch.int32)
+    ok = (pred == test_y) & (torch.arange(test_y.shape[0], device=test_y.device) < test_n)
+    return ok.to(torch.float32).sum() / test_n.to(torch.float32)
 
 
 def _resolve_fit_budget(cfg: ExperimentConfig, n_pool: int, n_labeled: int) -> int:
@@ -453,24 +528,45 @@ def _kernel_launch_counts() -> dict:
             (round_fused, "launches"): round_fused.launches}
 
 
+# The carry of every chunk program: the fields of a PoolState (one
+# experiment) or of a sweep's SweepState ([E] experiments, or a grid's [C]
+# cells) that a round changes.
+CARRY_FIELDS = ("labeled_mask", "key", "round")
+
+
 class GraphedChunk:
     """A chunk function as one CUDA graph: the counterpart of the jitted
     launch with a donated carry.
 
-    The first call runs one step of the body eagerly (it builds and loads
-    the kernels and fills the per-device constant caches, none of which may
-    happen while capturing), copies the carry into static buffers and
-    captures the whole chunk on them; that call and every later one replay
-    the graph. The graph ends by writing the new carry back into the static
-    buffers, so the returned state aliases the one passed to the next call
-    (pass it on; any other state is copied in first). The ys and extras are
-    static buffers too, overwritten by every replay: copy them out on the
-    same stream before the next call (``pipeline.start_host_copy``).
+    ``chunk_fn(*args) -> (new_carry, extras, ys)`` takes its carry as
+    ``args[carry_arg]`` (an object with the :data:`CARRY_FIELDS` tensors
+    and ``replace``: a :class:`~.state.PoolState` for one experiment, a
+    ``runtime.sweep.SweepState`` for a sweep or grid), the per-call inputs
+    at the positions ``input_args`` (tensors that may change from call to
+    call: the single chunk's end round, a sweep's end rounds, a grid's end
+    rounds, label caps and real widths), and its constants everywhere else.
+
+    The first call runs one step of the body eagerly (``chunk_fn.step``,
+    same arguments: it builds and loads the kernels and fills the
+    per-device constant caches, none of which may happen while capturing),
+    copies the carry and the inputs into static buffers and captures the
+    whole chunk on them; that call and every later one replay the graph.
+    The graph ends by writing the new carry back into the static buffers,
+    so the returned carry aliases the one passed to the next call (pass it
+    on; any other carry is copied in first). Each call copies its inputs
+    into their buffers before the replay, so a resumed run never replays
+    stale stop rounds. A constant tensor must be the very tensor of the
+    capture (the graph reads it where it lay): another one raises. The ys
+    and extras are static buffers too, overwritten by every replay: copy
+    them out on the same stream before the next call
+    (``pipeline.start_host_copy``).
 
     A capture that fails raises: nothing here falls back to the eager body.
 
     Counters. ``captures`` and ``replays`` count this object's graph
-    captures and replays. The kernel wrappers count a launch where they
+    captures and replays, ``capture_seconds`` the host time of the capture
+    (warm-up step excluded) and ``pool_bytes`` the device memory its
+    private pool reserved. The kernel wrappers count a launch where they
     launch, which during a capture records the launch into the graph instead
     of running it: the capture's counts are therefore taken back, kept as
     ``launches_per_replay``, and added to the wrappers' counters at every
@@ -478,22 +574,32 @@ class GraphedChunk:
     replay).
     """
 
-    def __init__(self, chunk_fn):
+    def __init__(self, chunk_fn, carry_arg: int = 1, input_args=(6,)):
         self._fn = chunk_fn
+        self._carry_arg = carry_arg
+        self._input_args = tuple(input_args)
         self._graph = None
         self.captures = 0
         self.replays = 0
         self.pool_bytes = 0  # device memory the graph's private pool reserved
+        self.capture_seconds = 0.0
         self.launches_per_replay: dict = {}
 
-    def _capture(self, codes, state, aux, fit_key, test_x, test_y, end_round):
-        dev = state.x.device
-        self._fn.step(codes, state, aux, fit_key, test_x, test_y, end_round)  # warm-up
-        self._mask = state.labeled_mask.clone()
-        self._key = state.key.clone()
-        self._round = state.round.clone()
-        self._end = end_round.clone()
-        static = state.replace(labeled_mask=self._mask, key=self._key, round=self._round)
+    def _consts(self, args) -> dict:
+        skip = (self._carry_arg, *self._input_args)
+        return {i: a.data_ptr() for i, a in enumerate(args) if torch.is_tensor(a) and i not in skip}
+
+    def _capture(self, args):
+        carry = args[self._carry_arg]
+        dev = carry.labeled_mask.device
+        self._fn.step(*args)  # warm-up
+        self._carry = {f: getattr(carry, f).clone() for f in CARRY_FIELDS}
+        self._inputs = {i: args[i].clone() for i in self._input_args}
+        static_args = list(args)
+        static_args[self._carry_arg] = carry.replace(**self._carry)
+        for i, buf in self._inputs.items():
+            static_args[i] = buf
+        self._const_ptrs = self._consts(args)
         torch.cuda.synchronize(dev)
         before = _kernel_launch_counts()
         # Entering the capture empties the allocator's cache; do it first, so
@@ -501,38 +607,48 @@ class GraphedChunk:
         gc.collect()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            out, extras, ys = self._fn(codes, static, aux, fit_key, test_x, test_y, self._end)
-            self._mask.copy_(out.labeled_mask)
-            self._key.copy_(out.key)
-            self._round.copy_(out.round)
+            out, extras, ys = self._fn(*static_args)
+            for f, buf in self._carry.items():
+                buf.copy_(getattr(out, f))
+        self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         for (mod, name), n in before.items():
             self.launches_per_replay[(mod, name)] = getattr(mod, name) - n
             setattr(mod, name, n)
-        self._graph, self._static, self._extras, self._ys = graph, static, extras, ys
+        self._graph, self._extras, self._ys = graph, extras, ys
+        self._static = static_args[self._carry_arg]
         self.captures += 1
 
     def stats(self) -> dict:
-        """Counts for a report: captures, replays, the private pool's bytes,
-        and the kernel launches one replay stands for."""
+        """Counts for a report: captures, replays, the capture's host
+        seconds, the private pool's bytes, and the kernel launches one
+        replay stands for."""
         return {
             "captures": self.captures,
             "replays": self.replays,
+            "capture_seconds": self.capture_seconds,
             "pool_bytes": self.pool_bytes,
             "launches_per_replay": {f"{mod.__name__.rsplit('.', 1)[-1]}.{name}": n
                                     for (mod, name), n in self.launches_per_replay.items()},
         }
 
-    def __call__(self, codes, state, aux, fit_key, test_x, test_y, end_round):
+    def __call__(self, *args):
         if self._graph is None:
-            self._capture(codes, state, aux, fit_key, test_x, test_y, end_round)
-        elif state.labeled_mask.data_ptr() != self._mask.data_ptr():
-            self._mask.copy_(state.labeled_mask)
-            self._key.copy_(state.key)
-            self._round.copy_(state.round)
-        self._end.copy_(end_round)
+            self._capture(args)
+        else:
+            if self._consts(args) != self._const_ptrs:
+                raise ValueError(
+                    "a graphed chunk replays on the constant tensors of its capture; it was "
+                    "called with others (build a new GraphedChunk for new pool arrays)")
+            carry = args[self._carry_arg]
+            if carry.labeled_mask.data_ptr() != self._carry["labeled_mask"].data_ptr():
+                for f, buf in self._carry.items():
+                    buf.copy_(getattr(carry, f))
+        for i, buf in self._inputs.items():
+            buf.copy_(args[i])
         self._graph.replay()
         self.replays += 1
         for (mod, name), n in self.launches_per_replay.items():

@@ -1,5 +1,8 @@
 """Per-round experiment records and the reference-format results log (the
-port of ``runtime/results.py``; same line format, byte for byte)."""
+port of ``runtime/results.py``; same line format, byte for byte), and the
+seed-stacked learning curves of a sweep or grid (:func:`strategy_curves`,
+:func:`grid_curves`). The ``plot_*`` helpers wait: the card's machine has no
+matplotlib (ROADMAP)."""
 
 from __future__ import annotations
 
@@ -96,3 +99,33 @@ class ExperimentResult:
             raise ValueError(f"only the reference log format is ported, got {fmt!r}")
         with open(path, "w") as f:
             f.write(self.to_reference_log())
+
+
+def strategy_curves(results):
+    """Per-seed accuracy curves stacked on their shared labeled-count axis:
+    ``(axis, accs [seeds, rounds])`` from one :class:`ExperimentResult` per
+    seed (a sweep's output), the aggregation the paper's mean +/- sd
+    learning curves are built from. Seeds whose labeled counts differ
+    (other windows or stops) share no axis and raise."""
+    import numpy as np
+
+    if not results:
+        raise ValueError("strategy_curves needs at least one result")
+    axis = [r.n_labeled for r in results[0].records]
+    for res in results[1:]:
+        other = [r.n_labeled for r in res.records]
+        if other != axis:
+            raise ValueError(
+                f"seed curves disagree on the labeled-count grid ({other[:3]}... vs "
+                f"{axis[:3]}...): stack only same-window, same-stop runs")
+    return axis, np.array([[r.accuracy for r in res.records] for res in results])
+
+
+def grid_curves(grid):
+    """``{(strategy, dataset): (axis, accs [seeds, rounds])}`` of a grid
+    run (anything with ``.cells`` carrying ``strategy``, ``dataset`` and
+    ``result``), each group through :func:`strategy_curves`."""
+    groups = {}
+    for cell in grid.cells:
+        groups.setdefault((cell.strategy, cell.dataset), []).append(cell.result)
+    return {key: strategy_curves(results) for key, results in groups.items()}

@@ -5,14 +5,20 @@ The pool is one dense tensor on the device and the labeled/unlabeled split is
 a boolean mask over it: fixed shapes, no per-round host round-trips. On a
 device mesh the pool's arrays are :class:`~..parallel.mesh.Sharded` row
 blocks (``parallel.mesh.shard_pool_state``, after :func:`pad_for_sharding`);
-the functions here take either form. The streaming fill watermark
-(``n_filled``) waits for the serving slice.
+the functions here take either form.
+
+A grid of pools of unequal widths pads every pool to one slab width and
+marks the real rows with the scalar fill watermark ``n_filled`` (a 0-d int32
+tensor on the device): rows at or past it are padding, labeled, excluded
+from the fit window, the counts and the metrics, as in the JAX package. The
+per-shard ``[S]`` spelling of the watermark waits for the mesh-and-pod
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -41,6 +47,10 @@ class PoolState:
     key: prng.Key               # [2] int64 key words
     round: Union[int, torch.Tensor] = 0  # a 0-d int32 device tensor in the carry form
     n_valid_static: int = -1
+    # The scalar fill watermark (a 0-d int32 tensor on the device): rows
+    # [0, n_filled) are filled. None keeps every mask and count on the
+    # static path, bit for bit the code without it.
+    n_filled: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "PoolState":
         return dataclasses.replace(self, **kw)
@@ -54,13 +64,26 @@ class PoolState:
         return self.n_pool if self.n_valid_static < 0 else self.n_valid_static
 
     @property
+    def fill_mask(self) -> torch.Tensor:
+        """Rows below the fill watermark; all True without one."""
+        rows = torch.arange(self.n_pool, device=self.x.device)
+        if self.n_filled is None:
+            return torch.ones_like(rows, dtype=torch.bool)
+        return rows < self.n_filled
+
+    @property
     def valid_mask(self) -> torch.Tensor:
-        return torch.arange(self.n_pool, device=self.x.device) < self.n_valid
+        mask = torch.arange(self.n_pool, device=self.x.device) < self.n_valid
+        if self.n_filled is not None:
+            mask = mask & self.fill_mask
+        return mask
 
     @property
     def unlabeled_mask(self):
         if isinstance(self.labeled_mask, Sharded):
             return self.labeled_mask.map(torch.logical_not)
+        if self.n_filled is not None:
+            return ~self.labeled_mask & self.fill_mask
         return ~self.labeled_mask
 
 
@@ -75,9 +98,17 @@ def labeled_count(state: PoolState) -> torch.Tensor:
                              < state.n_valid)
             for s in range(len(mask.blocks))
         ])
-    if state.n_valid == state.n_pool:
+    if state.n_filled is None and state.n_valid == state.n_pool:
         return mask.sum(dtype=torch.int32)
     return (mask & state.valid_mask).sum(dtype=torch.int32)
+
+
+def filled_count(state: PoolState) -> torch.Tensor:
+    """The filled rows as a 0-d int32 tensor: the watermark, or the real
+    row count without one."""
+    if state.n_filled is None:
+        return torch.full((), state.n_valid, dtype=torch.int32, device=state.x.device)
+    return state.n_filled.to(torch.int32)
 
 
 def init_pool_state(x, y, key: prng.Key, device) -> PoolState:
@@ -158,6 +189,18 @@ def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
     else:
         new = _reveal_rows(mask, picked_idx)
     return state.replace(labeled_mask=new, round=state.round + 1)
+
+
+def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor) -> PoolState:
+    """:func:`reveal` of the picks where ``keep`` is True only (the JAX
+    package's ``labeled_mask.at[picked].max(keep)``): a batched round selects
+    at the widest window of its experiments and reveals each experiment's
+    own first ``window`` picks. With ``keep`` all True this is
+    :func:`reveal`. The probabilistic reveal of the noisy-oracle scenario
+    comes with the scenario slice."""
+    dropped = torch.where(keep, picked_idx.to(torch.int64), -1)
+    return state.replace(labeled_mask=_reveal_rows(state.labeled_mask, dropped),
+                         round=state.round + 1)
 
 
 def as_carry(state: PoolState) -> PoolState:

@@ -129,21 +129,31 @@ def compute_round_metrics(
     score_max = torch.where(torch.isfinite(hi), hi, 0.0)
     margin = torch.where(torch.isfinite(margin), margin, 0.0)
 
-    # The real-row count is static (the watermark of streaming pools waits
-    # for the serving slice): the JAX code divides by a constant, which XLA
-    # turns into a multiplication by its f32 reciprocal.
-    n_real = state.n_valid
     if trees_multi.is_multi(forest):
         ent = _entropy_sum_multi([forest_eval.leaves(p, state.x) for p in forest.planes], valid)
     else:
         ent = _entropy_sum(forest_eval.leaves(forest, state.x), valid)
-    ent_mean = div_const(ent, n_real)
+    # The real-row count: static for a batch pool, where the JAX code divides
+    # by a constant (XLA multiplies by its f32 reciprocal); behind a fill
+    # watermark (a grid's padded pool) the count of the valid rows, and a
+    # true division, as the JAX code's.
+    if state.n_filled is None:
+        n_real = state.n_valid
+
+        def per_row(v):
+            return div_const(v, n_real)
+    else:
+        n_real = torch.clamp_min(valid.sum(dtype=torch.int32), 1).to(torch.float32)
+
+        def per_row(v):
+            return v / n_real
+    ent_mean = per_row(ent)
     # A one-hot sum into a fixed [n_classes] buffer (no bincount: its length
     # would depend on the data); sentinel picks count nothing.
     classes = torch.arange(n_classes, device=picked.device, dtype=torch.int32)
     one_hot = (state.oracle_y[picked.long()][:, None] == classes).to(torch.int32)
     hist = (one_hot * finite[:, None].to(torch.int32)).sum(dim=0, dtype=torch.int32)
-    labeled_frac = div_const(state_lib.labeled_count(state).to(torch.float32), n_real)
+    labeled_frac = per_row(state_lib.labeled_count(state).to(torch.float32))
     f32 = torch.float32
     return RoundMetrics(
         score_min=score_min.to(f32),
@@ -233,6 +243,21 @@ def stacked_metrics_to_dicts(rm_stacked: RoundMetrics, active: np.ndarray) -> Li
     return [
         {name: _field_to_py(host, name, int(i)) for name in fields}
         for i in np.flatnonzero(np.asarray(active))
+    ]
+
+
+def stacked_sweep_metrics_to_dicts(rm_stacked: RoundMetrics,
+                                   active: np.ndarray) -> List[List[Dict[str, Any]]]:
+    """Sweep-touchdown conversion: ``[K, E, ...]`` metrics (host copies at a
+    touchdown) -> one dict list per EXPERIMENT (or grid cell), each holding
+    that experiment's active rounds in order."""
+    host = _to_host(rm_stacked)
+    active = np.asarray(active)
+    fields = _present_fields(host)
+    return [
+        [{name: _field_to_py(host, name, (int(i), e)) for name in fields}
+         for i in np.flatnonzero(active[:, e])]
+        for e in range(active.shape[1])
     ]
 
 
@@ -570,6 +595,8 @@ class LaunchTracker:
         self.fn = fn
         self.calls = 0
         self.vetoes = 0
+        self.seconds_total = 0.0
+        self.first_seconds: Optional[float] = None  # the capturing call's wall
         self._last_cache = None
         self._obs_launches, self._obs_seconds, self._obs_recompiles = program_obs_feeds(program)
 
@@ -586,6 +613,9 @@ class LaunchTracker:
     def record(self, seconds: float, **extra) -> None:
         """One launch observation; ``extra`` rides the JSONL event."""
         self.calls += 1
+        self.seconds_total += seconds
+        if self.calls == 1:
+            self.first_seconds = seconds
         cache = jit_cache_size(self.fn) if self.fn is not None else None
         recompiled = (self.calls > 1 and cache is not None and self._last_cache is not None
                       and cache > self._last_cache)
@@ -601,3 +631,13 @@ class LaunchTracker:
             return
         self.writer.launch(self.program, seconds, first_call=self.calls == 1, cache_size=cache,
                            recompiled=recompiled, **extra)
+
+    def steady_seconds_mean(self) -> Optional[float]:
+        """Mean wall a launch, the first call (warm-up and graph capture)
+        left out; the first call itself when it is all there is; None before
+        any launch."""
+        if self.calls == 0:
+            return None
+        if self.calls == 1 or self.first_seconds is None:
+            return self.seconds_total / self.calls
+        return (self.seconds_total - self.first_seconds) / (self.calls - 1)

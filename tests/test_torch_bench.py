@@ -1,7 +1,8 @@
 """The port's bench prints one parseable JSON line per mode (``--device cpu``
 at tiny sizes; score and density also under ``--kernel gather``; lal with
 its regressor fitted from the fixture, and from a forest file with and
-without scikit-learn) with the keys the JAX bench uses for the same legs, and the
+without scikit-learn; sweep and grid, with and without the serial arm) with
+the keys the JAX bench uses for the same legs, and the
 port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
 of ``tests/test_pipeline.py`` on a fake, host-only dispatch)."""
 
@@ -132,6 +133,30 @@ def test_bench_modes_print_one_json_line(tmp_path):
     assert rc == 0 and lal["lal_trees"] == 11 and lal["lal_query_seconds"] > 0, lal
     assert lal["lal_query_seconds_host_fit"] is None
     assert "scikit-learn" in lal["lal_host_fit_skipped"]
+
+    # sweep and grid: the batched stream against the serial runs, with the
+    # JAX bench's keys; the grid's scenario leg is reported skipped by name.
+    batched = ["--sweep-pool", "200", "--trees", "4", "--depth", "3", "--rounds-per-launch", "2"]
+    rc, sw = _line(["--mode", "sweep", *_TINY, *batched, "--sweep-experiments", "3"])
+    assert rc == 0 and sw["metric"] == "sweep_experiments_rounds_per_second", sw
+    assert (sw["sweep_experiments"], sw["sweep_rounds_per_launch"], sw["sweep_pool"]) == (3, 2, 200)
+    for key in ("sweep_experiments_rounds_per_second", "serial_experiments_rounds_per_second",
+                "sweep_speedup", "sweep_window"):
+        assert sw[key] > 0, key
+    rc, gr = _line(["--mode", "grid", *_TINY, *batched, "--grid-experiments", "2",
+                    "--grid-strategies", "uncertainty,margin"])
+    assert rc == 0 and gr["metric"] == "grid_cells_rounds_per_second", gr
+    assert gr["grid_cells"] == 4 and gr["grid_strategies"] == ["uncertainty", "margin"]
+    assert gr["grid_launches"] == 2 and gr["grid_rounds"] == 4
+    assert gr["recompiles_after_warmup"] == gr["grid_recompiles_after_warmup"] == 0
+    for key in ("grid_cells_rounds_per_second", "serial_cells_rounds_per_second", "grid_speedup",
+                "grid_seconds"):
+        assert gr[key] > 0, key
+    assert "scenario slice" in gr["scenario_skipped"]
+    rc, gr = _line(["--mode", "grid", *_TINY, *batched, "--grid-experiments", "1",
+                    "--grid-strategies", "uncertainty", "--no-baseline"])
+    assert rc == 0 and gr["baseline_skipped"] == {"reason": "no_baseline_flag"}
+    assert "grid_speedup" not in gr
 
     rc, var = _line(["--mode", "variants", "--variants", "v0,v1,w12,r1,wf", *_TINY])
     assert rc == 0 and [r["variant"] for r in var["variants"]] == ["v0", "v1", "w12", "r1", "wf"]

@@ -20,7 +20,22 @@ written by the port resumes in JAX, each resumed curve and final mask equal
 to the other package's uninterrupted run; a chunked checkpoint resumes under
 the per-round driver; a checkpoint written on a 2 x 1 mesh resumes on
 one device; and an int8-storage chunked run stopped and resumed equals its
-uninterrupted run (the fingerprint holds the storage mode, as JAX's)."""
+uninterrupted run (the fingerprint holds the storage mode, as JAX's).
+
+Sweeps and grids (``runtime/sweep.py``), at the sizes of the JAX package's
+``tests/test_grid.py`` (checkerboard2x2 of 160 rows, 6 trees of depth 3,
+``fit_budget`` pinned, K = 2): ``run_sweep`` over 3 seeds with windows
+[10, 6, 10], metrics on, kernels "pallas" and "gemm", each seed's records
+(metrics included) and final mask equal to the port's serial
+``run_experiment``, and to the JAX package's ``run_sweep`` and serial runs
+(pool_entropy to ``POOL_ENTROPY_RTOL``); ``run_grid`` over uncertainty,
+margin and density x 2 seeds against the serial cells of both packages
+(density's score fields to ``similarity.MASS_RTOL``); a grid of two datasets
+of unequal widths (120 and 200 rows, the fill watermark) against the JAX
+package's ``run_grid`` and both packages' serial cells; sweep and grid
+checkpoints written by either package resumed by the other to the same
+records; a ``gridstate_`` resume refused for another strategy axis; the
+batched fingerprints equal in both packages."""
 
 import dataclasses
 import os
@@ -38,6 +53,7 @@ from distributed_active_learning_tpu.ops import trees_train as j_train
 from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
 from distributed_active_learning_tpu.runtime import loop as j_loop
 from distributed_active_learning_tpu.runtime import state as j_state
+from distributed_active_learning_tpu.runtime import sweep as j_sweep
 from distributed_active_learning_tpu.strategies import StrategyAux as JAux
 from distributed_active_learning_tpu.strategies import get_strategy as j_strategy
 from distributed_active_learning_tpu_torch import config as t_config
@@ -48,6 +64,7 @@ from distributed_active_learning_tpu_torch.ops import trees_train as t_train
 from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
 from distributed_active_learning_tpu_torch.runtime import state as t_state
+from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
 from distributed_active_learning_tpu_torch.strategies import StrategyAux as TAux
 from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
 
@@ -281,6 +298,9 @@ def test_chunked_matches_jax(tmp_path):
     _fingerprints_agree()
     _checkpoints_cross_packages(tmp_path)
     _quantized_resume(tmp_path)
+    _sweep_matches_serial_and_jax(tmp_path)
+    _grid_matches_serial_cells()
+    _grid_unequal_widths_and_checkpoints(tmp_path)
 
 
 def _quantized_resume(tmp_path):
@@ -307,3 +327,221 @@ def _four_classes(seed=3, n=300, m=128):
 _LAL_OPTIONS = {"lal_data_path": os.path.join(os.path.dirname(__file__), "fixtures",
                                               "lal_simulatedunbalanced_big.txt"),
                 "lal_trees": 12, "lal_depth": 6}
+
+
+def _grid_cfgs(kernel="pallas", **kw):
+    """The JAX package's tests/test_grid.py configuration, in both packages."""
+    data = kw.pop("data", j_config.DataConfig(name="checkerboard2x2", n_samples=160, seed=2))
+    j = j_config.ExperimentConfig(
+        data=data,
+        forest=j_config.ForestConfig(n_trees=6, max_depth=3, fit="device", kernel=kernel,
+                                     fit_budget=kw.pop("fit_budget", 160)),
+        strategy=j_config.StrategyConfig(name=kw.pop("strategy", "uncertainty"), window_size=10),
+        n_start=10, max_rounds=kw.pop("max_rounds", 3), rounds_per_launch=2, log_every=0, **kw)
+    return j, t_config.from_dict(dataclasses.asdict(j))
+
+
+def _rounds(res):
+    return [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+
+
+def _metrics_close(got, want, density=False):
+    """RoundMetrics of two runs, as ``test_chunked_matches_jax`` holds them
+    against JAX's: pool_entropy to ``POOL_ENTROPY_RTOL``, under density the
+    four score fields to twice ``MASS_RTOL`` of the largest |score|, every
+    other field bit-equal. Under density the picked window's class
+    histogram may differ only in a round whose selection boundary is a tie
+    at score 0 in both runs (``score_margin`` 0.0): rows of zero one-sided
+    entropy score 0 whatever their mass, and a row's mass near 0 can clamp
+    to 0 in one package and stay a few ulps above it in the other (the mass
+    agrees to ``MASS_RTOL``, not bit for bit), so which tied rows are
+    picked can differ (ROADMAP queue 3)."""
+    from distributed_active_learning_tpu_torch.ops.similarity import MASS_RTOL
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    assert len(got.records) == len(want.records)
+    for a, b in zip(got.records, want.records):
+        assert list(a.metrics) == list(b.metrics)
+        scale = max(abs(b.metrics["score_min"]), abs(b.metrics["score_max"]))
+        for field, v in b.metrics.items():
+            if density and field in ("score_min", "score_mean", "score_max", "score_margin"):
+                assert abs(a.metrics[field] - v) <= 2 * MASS_RTOL * scale, (a.round, field)
+            elif field == "pool_entropy":
+                assert abs(a.metrics[field] - v) <= POOL_ENTROPY_RTOL * abs(v), a.round
+            elif (density and field == "picked_hist" and a.metrics[field] != v):
+                assert a.metrics["score_margin"] == b.metrics["score_margin"] == 0.0, a.round
+                assert sum(a.metrics[field]) == sum(v), a.round
+            else:
+                assert a.metrics[field] == v, (a.round, field)
+
+
+_SEEDS, _WINDOWS = [0, 1, 2], [10, 6, 10]
+
+
+def _serial_cfg(cfg, seed, window=None, strategy=None, dataset=None):
+    return dataclasses.replace(
+        cfg, seed=seed, rounds_per_launch=1, checkpoint_dir=None, checkpoint_every=0,
+        data=dataclasses.replace(cfg.data, name=dataset or cfg.data.name),
+        strategy=dataclasses.replace(cfg.strategy, name=strategy or cfg.strategy.name,
+                                     window_size=window or cfg.strategy.window_size))
+
+
+def _drop_last(ckpt_dir, prefix):
+    """Remove the newest ``<prefix>_<round>.npz``: the run then resumes from
+    the one before, mid-run."""
+    steps = sorted(int(f[len(prefix) + 1:-4]) for f in os.listdir(ckpt_dir))
+    assert len(steps) >= 2, steps
+    os.remove(os.path.join(ckpt_dir, f"{prefix}_{steps[-1]}.npz"))
+    return steps[-2]
+
+
+def _sweep_matches_serial_and_jax(tmp_path):
+    """run_sweep over 3 seeds of windows [10, 6, 10], metrics on, at kernels
+    pallas and gemm: each seed equals the port's serial run exactly (records,
+    metrics, final mask) and the JAX package's run_sweep, and the seed of the
+    narrower window (the padded path) the JAX package's serial run too. The
+    pallas runs checkpoint every round: with each package's last file
+    removed, the other package resumes from its round-2 file to the same
+    records."""
+    full = {}
+    ck = lambda name, r: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1,
+                              max_rounds=r)
+    for kernel in ("pallas", "gemm"):
+        jcfg, tcfg = _grid_cfgs(kernel, collect_metrics=True)
+        if kernel == "pallas":  # checkpointed every round, for the resumes below
+            jcfg, tcfg = (dataclasses.replace(jcfg, **ck("sw_j", 3)),
+                          dataclasses.replace(tcfg, **ck("sw_t", 3)))
+        got = t_sweep.run_sweep(tcfg, _SEEDS, windows=_WINDOWS, device="cpu")
+        want = j_sweep.run_sweep(jcfg, _SEEDS, windows=_WINDOWS)
+        full[kernel] = (got, want)
+        for s, w, res, jres in zip(_SEEDS, _WINDOWS, got, want):
+            serial = t_loop.run_experiment(_serial_cfg(tcfg, s, w), device="cpu")
+            assert _key(res) == _key(serial) and len(res.records) == 3, (kernel, s)
+            assert [r.metrics for r in res.records] == [r.metrics for r in serial.records]
+            assert torch.equal(res.final_labeled_mask, serial.final_labeled_mask), (kernel, s)
+            assert res.final_labeled_mask.sum() == 10 + 3 * w
+            assert _rounds(res) == _rounds(jres), (kernel, s)
+            _metrics_close(res, jres)
+            if kernel == "pallas" and w < max(_WINDOWS):  # the padded path
+                jser = j_loop.run_experiment(_serial_cfg(jcfg, s, w))
+                assert _rounds(res) == _rounds(jser), s
+                _metrics_close(res, jser)
+    assert t_ckpt.sweep_fingerprint(tcfg, _SEEDS, _WINDOWS) == j_ckpt.sweep_fingerprint(
+        jcfg, _SEEDS, _WINDOWS)
+
+    # Resumed for 1 round from the other package's round-2 file.
+    jcfg, tcfg = _grid_cfgs(collect_metrics=True)
+    t_full, j_full = full["pallas"]
+    assert sorted(os.listdir(tmp_path / "sw_j")) == ["sweepstate_2.npz", "sweepstate_3.npz"]
+    assert _drop_last(tmp_path / "sw_j", "sweepstate") == 2
+    resumed = t_sweep.run_sweep(dataclasses.replace(tcfg, **ck("sw_j", 1)), _SEEDS,
+                                windows=_WINDOWS, device="cpu")
+    for res, want in zip(resumed, t_full):
+        assert _rounds(res) == _rounds(want)
+        _metrics_close(res, want)
+        assert torch.equal(res.final_labeled_mask, want.final_labeled_mask)
+    assert _drop_last(tmp_path / "sw_t", "sweepstate") == 2
+    resumed = j_sweep.run_sweep(dataclasses.replace(jcfg, **ck("sw_t", 1)), _SEEDS,
+                                windows=_WINDOWS)
+    for res, want in zip(resumed, j_full):
+        assert _rounds(res) == _rounds(want)
+        _metrics_close(res, want)
+    # Another batch (other windows) refuses the file.
+    with pytest.raises(ValueError, match="refusing to resume a different sweep"):
+        t_sweep.run_sweep(dataclasses.replace(tcfg, **ck("sw_t", 1)), _SEEDS, device="cpu")
+
+
+def _grid_matches_serial_cells():
+    """run_grid over uncertainty, margin and density x 2 seeds, metrics on:
+    each cell equals the port's serial run exactly and the JAX package's
+    serial cell (density's score fields to MASS_RTOL)."""
+    jcfg, tcfg = _grid_cfgs(collect_metrics=True)
+    grid = t_sweep.run_grid(tcfg, ["uncertainty", "margin", "density"], [0, 1], device="cpu")
+    assert not grid.serial_fallback and grid.launches == 2
+    assert [(c.strategy, c.seed) for c in grid.cells] == [
+        (s, e) for s in ("uncertainty", "margin", "density") for e in (0, 1)]
+    for cell in grid.cells:
+        serial = t_loop.run_experiment(_serial_cfg(tcfg, cell.seed, strategy=cell.strategy),
+                                       device="cpu")
+        assert _key(cell.result) == _key(serial), (cell.strategy, cell.seed)
+        assert [r.metrics for r in cell.result.records] == [r.metrics for r in serial.records]
+        assert torch.equal(cell.result.final_labeled_mask, serial.final_labeled_mask)
+        jser = j_loop.run_experiment(_serial_cfg(jcfg, cell.seed, strategy=cell.strategy))
+        assert _rounds(cell.result) == _rounds(jser), (cell.strategy, cell.seed)
+        _metrics_close(cell.result, jser, density=cell.strategy == "density")
+    from distributed_active_learning_tpu_torch.runtime import obs as t_obs
+    from distributed_active_learning_tpu_torch.runtime.results import grid_curves
+
+    assert t_obs.gauge("grid_cells").value == 6 and t_obs.gauge("grid_eta_seconds").value == 0.0
+    axis, accs = grid_curves(grid)[("margin", "checkerboard2x2")]
+    assert axis == [10, 20, 30] and accs.shape == (2, 3)
+
+
+def _unequal_bundle(n, seed, d=6):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(n, d)).astype(np.float32)
+    tx = r.normal(size=(100, d)).astype(np.float32)
+    return (x, (x[:, 0] + 0.3 * x[:, 1] > 0).astype(np.int32), tx,
+            (tx[:, 0] + 0.3 * tx[:, 1] > 0).astype(np.int32), f"p{n}")
+
+
+def _grid_unequal_widths_and_checkpoints(tmp_path):
+    """Two datasets of 120 and 200 rows in one grid (the pools padded to one
+    slab, the real rows marked by the fill watermark), 3 rounds, metrics
+    on: equal to the JAX package's run_grid (records, RoundMetrics), to its
+    serial cells and to the port's (records, and the final mask over each
+    dataset's real rows; RoundMetrics but for the watermark's two divisions,
+    within one ulp). Both grids checkpoint every round: with each package's
+    last file removed, the other package resumes from its round-2 file to
+    the uninterrupted records; another strategy axis refuses the file."""
+    raw = {"p120": _unequal_bundle(120, 1), "p200": _unequal_bundle(200, 2)}
+    jb = {k: JBundle(*v) for k, v in raw.items()}
+    tb = {k: TBundle(*v) for k, v in raw.items()}
+    jcfg, tcfg = _grid_cfgs(data=j_config.DataConfig(name="p120"), fit_budget=96,
+                            collect_metrics=True)
+    axes = (["uncertainty"], [0])
+    ds = dict(datasets=["p120", "p200"])
+    ck = lambda name, r: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1,
+                              max_rounds=r)
+    j_full = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("g_j", 3)), *axes, bundles=jb, **ds)
+    t_full = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("g_t", 3)), *axes, bundles=tb,
+                              device="cpu", **ds)
+    for tc, jc in zip(t_full.cells, j_full.cells, strict=True):
+        assert (tc.dataset, tc.seed) == (jc.dataset, jc.seed)
+        assert _rounds(tc.result) == _rounds(jc.result), tc.dataset
+        _metrics_close(tc.result, jc.result)
+        assert [r.n_unlabeled for r in tc.result.records][0] == int(tc.dataset[1:]) - 10
+        serial = t_loop.run_experiment(_serial_cfg(tcfg, 0, dataset=tc.dataset),
+                                       bundle=tb[tc.dataset], device="cpu")
+        assert _key(tc.result) == _key(serial)
+        assert torch.equal(tc.result.final_labeled_mask, serial.final_labeled_mask)
+        # The watermark's two divisions are true divisions by the count of
+        # valid rows (JAX's grid spelling); a serial run multiplies by the
+        # f32 reciprocal of its constant row count: one ulp apart at most.
+        for a, b in zip(tc.result.records, serial.records):
+            for field, v in b.metrics.items():
+                if field in ("labeled_frac", "pool_entropy"):
+                    assert abs(a.metrics[field] - v) <= np.spacing(np.float32(v)), field
+                else:
+                    assert a.metrics[field] == v, field
+        jser = j_loop.run_experiment(_serial_cfg(jcfg, 0, dataset=jc.dataset),
+                                     bundle=jb[jc.dataset])
+        assert _rounds(tc.result) == _rounds(jser)
+    assert t_ckpt.grid_fingerprint(tcfg, ["uncertainty", "margin"], [0, 3], ["p120", "p200"],
+                                   [10, 12]) == j_ckpt.grid_fingerprint(
+        jcfg, ["uncertainty", "margin"], [0, 3], ["p120", "p200"], [10, 12])
+
+    assert sorted(os.listdir(tmp_path / "g_j")) == ["gridstate_2.npz", "gridstate_3.npz"]
+    assert _drop_last(tmp_path / "g_j", "gridstate") == 2
+    resumed = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("g_j", 1)), *axes, bundles=tb,
+                               device="cpu", **ds)
+    for tc, want in zip(resumed.cells, t_full.cells):
+        assert _rounds(tc.result) == _rounds(want.result)
+        assert torch.equal(tc.result.final_labeled_mask, want.result.final_labeled_mask)
+    assert _drop_last(tmp_path / "g_t", "gridstate") == 2
+    resumed = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("g_t", 1)), *axes, bundles=jb, **ds)
+    for jc, want in zip(resumed.cells, j_full.cells):
+        assert _rounds(jc.result) == _rounds(want.result)
+    with pytest.raises(ValueError, match="refusing to resume a different grid"):
+        t_sweep.run_grid(dataclasses.replace(tcfg, **ck("g_t", 1)), ["margin"], [0],
+                         bundles=tb, device="cpu", **ds)

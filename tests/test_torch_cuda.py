@@ -618,3 +618,68 @@ def _to_cpu(gf):
 
     return dataclasses.replace(
         gf, **{f.name: getattr(gf, f.name).cpu() for f in dataclasses.fields(gf)})
+
+
+def test_sweep_and_grid_on_the_card(cuda):
+    """Sweeps and grids on the card (one CUDA graph a chunk): records and
+    final masks equal the same runs on the CPU and the card's serial runs;
+    one graph capture a run; K1 launches twice a round step per dataset
+    (pool and test set) whatever the number of experiments, so a replay of
+    K rounds stands for 2 x K launches of one dataset's sweep or grid and
+    4 x K of a two-dataset grid (unequal widths: the fill watermark)."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+    from distributed_active_learning_tpu_torch.runtime import loop, sweep
+
+    K = 2
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=160, seed=2),
+        forest=config.ForestConfig(n_trees=6, max_depth=3, fit="device", kernel="pallas",
+                                   fit_budget=160),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=10),
+        n_start=10, max_rounds=3, rounds_per_launch=K, collect_metrics=True)
+
+    def rounds(res):
+        return [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+
+    for seeds, windows in (([0, 1], None), ([0, 1, 2], [10, 6, 10])):
+        got = sweep.run_sweep(base, seeds, windows=windows, device=cuda)
+        on_cpu = sweep.run_sweep(base, seeds, windows=windows, device="cpu")
+        g = got[0].graph_stats
+        assert g["captures"] == 1 and g["launches_per_replay"]["trees_pallas.launches"] == 2 * K
+        for i, (res, cpu_res) in enumerate(zip(got, on_cpu, strict=True)):
+            assert rounds(res) == rounds(cpu_res)
+            assert torch.equal(res.final_labeled_mask.cpu(), cpu_res.final_labeled_mask)
+            w = windows[i] if windows else 10
+            serial = loop.run_experiment(dataclasses.replace(
+                base, seed=seeds[i], rounds_per_launch=1,
+                strategy=dataclasses.replace(base.strategy, window_size=w)), device=cuda)
+            assert rounds(res) == rounds(serial)
+            assert [r.metrics for r in res.records] == [r.metrics for r in serial.records]
+            assert torch.equal(res.final_labeled_mask, serial.final_labeled_mask)
+
+    grid = sweep.run_grid(base, ["uncertainty", "margin"], [0, 1], device=cuda)
+    on_cpu = sweep.run_grid(base, ["uncertainty", "margin"], [0, 1], device="cpu")
+    assert grid.recompiles_after_warmup == 0 and grid.graph_stats["captures"] == 1
+    assert grid.graph_stats["launches_per_replay"]["trees_pallas.launches"] == 2 * K
+    for a, b in zip(grid.cells, on_cpu.cells, strict=True):
+        assert rounds(a.result) == rounds(b.result)
+        assert torch.equal(a.result.final_labeled_mask.cpu(), b.result.final_labeled_mask)
+
+    rng = np.random.default_rng(3)
+    bundles = {}
+    for n in (120, 200):
+        x = rng.normal(size=(n, 6)).astype(np.float32)
+        tx = rng.normal(size=(100 + n // 10, 6)).astype(np.float32)
+        bundles[f"p{n}"] = DataBundle(x, (x[:, 0] + 0.3 * x[:, 1] > 0).astype(np.int32), tx,
+                                      (tx[:, 0] + 0.3 * tx[:, 1] > 0).astype(np.int32), f"p{n}")
+    wide = dataclasses.replace(base, data=config.DataConfig(name="p120"), max_rounds=2,
+                               forest=dataclasses.replace(base.forest, fit_budget=96))
+    grids = [sweep.run_grid(wide, ["uncertainty", "margin"], [0], datasets=["p120", "p200"],
+                            bundles=bundles, device=dev) for dev in (cuda, "cpu")]
+    assert grids[0].graph_stats["launches_per_replay"]["trees_pallas.launches"] == 4 * K
+    for a, b in zip(grids[0].cells, grids[1].cells, strict=True):
+        assert rounds(a.result) == rounds(b.result)
+        assert torch.equal(a.result.final_labeled_mask.cpu(), b.result.final_labeled_mask)

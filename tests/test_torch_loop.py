@@ -324,7 +324,7 @@ from distributed_active_learning_tpu_torch.benches import pallas_variants
 from distributed_active_learning_tpu_torch.models import forest_io
 from distributed_active_learning_tpu_torch.ops import ring_topk
 from distributed_active_learning_tpu_torch.parallel import collectives, kernels, mesh
-from distributed_active_learning_tpu_torch.runtime import checkpoint, obs, pipeline, telemetry
+from distributed_active_learning_tpu_torch.runtime import checkpoint, obs, pipeline, sweep, telemetry
 small = ["--device", "cpu", "--n-samples", "200", "--trees", "4", "--window", "5",
          "--rounds", "2", "--quiet"]
 tmp = tempfile.mkdtemp()
@@ -358,6 +358,10 @@ for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round"],
                "--strategy-option", "lal_data_path=tests/fixtures/lal_simulatedunbalanced_big.txt",
                "--strategy-option", "lal_trees=4", "--strategy-option", "lal_depth=4"]):
     assert run.main(small + extra) == 0, extra
+# A 2-seed sweep and a 2-cell grid, each one batched launch stream.
+for extra in (["--sweep-seeds", "2"], ["--strategies", "uncertainty,margin"]):
+    assert run.main(small + ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "2",
+                             *extra]) == 0, extra
 assert "sklearn" in sys.modules  # the host fit ran
 try:
     run.main(small + ["--fit", "host", "--kernel", "pallas", "--mesh-data", "2"])
@@ -374,14 +378,16 @@ print("ISOLATED")
 
 def test_port_runs_without_jax_in_a_fresh_interpreter():
     """The CLI's paths (fused, mesh, chunked, host fit, deep gather form,
-    density, int8 storage, lal) run in a fresh interpreter, and neither the port nor
-    scikit-learn pulls in JAX or the JAX package."""
+    density, int8 storage, lal, a 2-seed sweep and a 2-cell grid) run in a
+    fresh interpreter, and neither the port nor scikit-learn pulls in JAX or
+    the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 18
+    assert out.stdout.count("Iteration") == 26
+    assert out.stdout.count("# sweep seed") == 2 and out.stdout.count("# grid cell") == 2
     assert "REFUSED" in out.stdout and "mesh-and-pod slice" in out.stdout
     # The ops plane: one sequence of counter, gauge, histogram and heartbeat
     # calls renders the same Prometheus text in both packages (JAX's obs.py
@@ -459,6 +465,24 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
             with pytest.raises(SystemExit):
                 t_run.main(["--device", "cpu", *argv])
             assert why in capsys.readouterr().err
+    # Sweeps and grids refuse, before any work: a mesh (their chunk under a
+    # mesh), a scenario or a grid's scenario axis, and stream_round_events
+    # (the JAX package's ValueError).
+    from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+
+    scenario = t_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
+    for kind, run in (("sweep", lambda c: t_sweep.run_sweep(c, [0, 1], device="cpu")),
+                      ("grid", lambda c: t_sweep.run_grid(c, ["uncertainty"], [0, 1],
+                                                          device="cpu"))):
+        with pytest.raises(NotImplementedError,
+                           match=f"a {kind} under a device mesh .* mesh-and-pod slice .* item 8"):
+            run(dataclasses.replace(base, mesh=mesh))
+        with pytest.raises(NotImplementedError, match="scenario slice .* item 4"):
+            run(dataclasses.replace(base, scenario=scenario))
+        with pytest.raises(ValueError, match=f"not supported by the batched {kind} chunk"):
+            run(dataclasses.replace(base, stream_round_events=True))
+    with pytest.raises(NotImplementedError, match="grid's scenario axis"):
+        t_sweep.run_grid(base, ["uncertainty"], [0], scenarios=["noisy_oracle"], device="cpu")
     # The fused round refuses metrics with the JAX package's reason.
     with pytest.raises(ValueError, match="fused_round unavailable: RoundMetrics consume"):
         t_loop.run_experiment(dataclasses.replace(base, fused_round=True, collect_metrics=True),
