@@ -159,6 +159,27 @@ and prints no result:
    too, but for ``labeled_frac`` and ``pool_entropy``, which the watermark
    divides by its count (JAX's spelling) and which agree to one f32 ulp;
    printed: ``grid_cells_rounds_per_second`` beside the serial cells';
+4l. scenarios: phase 4's configuration, unfused, entropy, RoundMetrics on,
+   8 rounds, for each family (``noisy_oracle`` flip 0.1 abstain 0.25,
+   ``cost_budget`` 250 with spread 4, ``rare_event`` class 1, ``drift``
+   ``mean_shift`` and ``rotation`` at 0.2, and none) a per-round run and a
+   chunked run (K = 4, depth 2): records, every RoundMetrics field
+   (``rare_recall``, ``cost_spent``) and final mask equal, one capture and
+   two replays, K1 twice a round (16 per round, 18 chunked); the chunk
+   bodies of the noisy oracle, the cost budget and both drifts eagerly
+   under ``set_sync_debug_mode("error")``; the scenario grid (none,
+   noisy_oracle, cost_budget, rare_event, drift x entropy x 2 seeds, one
+   stream at pipeline depth 1, so a chunk's wall is its own), each
+   seed-``--seed`` cell equal to its serial chunked run, K1
+   4 a round step (pool, steady test sets, the 2 drift cells' own),
+   ``recompiles_after_warmup`` 0; at the CPU tests' size every family
+   chunked and the scenario grid card == CPU, and the scenario draws
+   (flips, costs, the drift direction through ``erfinv_f32``, a normal draw
+   of the pool's size, ``drift_apply`` of both kinds) and the knapsack over
+   the pool (at budget 250, and at 60, where the budget runs out) card ==
+   CPU; printed: seconds a chunked round per family beside
+   phase 4c's, the knapsack's device ms at k = 100 over the pool (graph
+   replayed), K1 launches a round;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -199,7 +220,9 @@ times and the fit / round / eval split of each round of phases 4d and 4e;
 configurations and largest differences; ``multiclass`` and ``lal`` phases
 4h and 4i's numbers; K1's ``sweep_launches`` and ``grid_launches`` and its
 stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
-numbers; ``bench_batched`` phase 6's sweep and grid lines),
+numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
+``bench_batched`` phase 6's sweep and grid lines, the grid's with its
+scenario leg, whose ``scenario_recompiles_after_warmup`` must be 0),
 the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
 
@@ -1661,6 +1684,8 @@ def main() -> int:
                 fail(f"{path} cell {cell.strategy}/{cell.dataset}/seed {cell.seed} differs from "
                      f"its serial chunked run: {full_records(cell.result)} vs {full_records(ser)}")
         cr = len(grid.cells) * rounds_
+        if not grid_cells_4k:
+            grid_cells_4k.extend(grid.cells)
         return dict(cells=len(grid.cells), rounds=rounds_, wall_seconds=wall,
                     serial_wall_seconds=serial_sec,
                     grid_cells_rounds_per_second=cr / wall,
@@ -1673,6 +1698,7 @@ def main() -> int:
                     k1_launches_per_replay=g["launches_per_replay"]["trees_pallas.launches"],
                     capture_seconds=g["capture_seconds"], pool_bytes=g["pool_bytes"])
 
+    grid_cells_4k = []
     grid_numbers = drive_grid("grid", GRID_STRATEGIES, grid_seeds, ["bench_pool"],
                               {"bench_pool": bundle}, n_grid_chunks, GRID_ROUNDS)
     # Two pools of unequal widths: padded to one slab, the real rows marked by
@@ -1702,6 +1728,281 @@ def main() -> int:
           f"pool_entropy, divided by the watermark's count, within one f32 ulp), K1 "
           f"{grid_numbers['two_datasets']['k1_launches_per_replay']} a replay ({kind}, {smi})")
     print(f"# phase 4k: {time.perf_counter() - t_phase:.1f}s")
+
+    # -- phase 4l: scenarios ---------------------------------------------------
+    t_phase = time.perf_counter()
+    from distributed_active_learning_tpu_torch.config import ScenarioConfig
+    from distributed_active_learning_tpu_torch.ops.topk import knapsack_top_k
+    from distributed_active_learning_tpu_torch.scenarios import engine as scn_engine
+
+    SCN_ROUNDS = 8
+    n_scn_chunks = SCN_ROUNDS // K
+    families = {
+        "noisy_oracle": ScenarioConfig(kind="noisy_oracle", flip_prob=0.1, abstain_prob=0.25),
+        "cost_budget": ScenarioConfig(kind="cost_budget", cost_budget=2.5 * WINDOW,
+                                      cost_spread=4.0),
+        "rare_event": ScenarioConfig(kind="rare_event", rare_class=1),
+        "drift": ScenarioConfig(kind="drift", drift_rate=0.2),
+        "drift_rotation": ScenarioConfig(kind="drift", drift_rate=0.2, drift_kind="rotation"),
+        "none": ScenarioConfig(),
+    }
+    scn_cfg = cfg(False, collect_metrics=True, max_rounds=SCN_ROUNDS,
+                  strategy=StrategyConfig(name="entropy", window_size=WINDOW),
+                  data=DataConfig(name="bench_pool"))
+
+    def scn_drive(path, scn, **kw):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = loop.run_experiment(dataclasses.replace(scn_cfg, scenario=scn, **kw), bundle=bundle,
+                                  device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = counts()
+        return res, wall
+
+    # (a) One run a family, per round and chunked (K = 4, depth 2).
+    scn_runs, scenario_numbers = {}, {}
+    for name, scn in families.items():
+        pr_path, ch_path = f"scenario_{name}_per_round", f"scenario_{name}_chunked"
+        per_round, pr_wall = scn_drive(pr_path, scn)
+        chunked, ch_wall = scn_drive(ch_path, scn, rounds_per_launch=K, pipeline_depth=2)
+        scn_runs[name] = chunked
+        want_launches[pr_path] = dict(zero, forest_leaves=2 * SCN_ROUNDS)
+        want_launches[ch_path] = dict(zero, forest_leaves=2 * (1 + n_scn_chunks * K))
+        g = chunked.graph_stats
+        for path in (pr_path, ch_path):
+            if launches[path] != want_launches[path]:
+                fail(f"{path} launched {launches[path]}, want {want_launches[path]}")
+        if g is None or (g["captures"], g["replays"]) != (1, n_scn_chunks):
+            fail(f"{ch_path}: graph {g}, want 1 capture and {n_scn_chunks} replays")
+        if full_records(chunked) != full_records(per_round) or not torch.equal(
+                chunked.final_labeled_mask, per_round.final_labeled_mask):
+            fail(f"{ch_path} differs from its per-round run: {full_records(chunked)} vs "
+                 f"{full_records(per_round)}")
+        if len(chunked.records) != SCN_ROUNDS or not all(
+                np.isfinite(v) for r in chunked.records for k_, v in r.metrics.items()
+                if k_ != "picked_hist"):
+            fail(f"{ch_path}: {len(chunked.records)} records, or a metric is not finite")
+        keys = set(chunked.records[0].metrics)
+        if ("rare_recall" in keys) != (scn.kind == "rare_event") or (
+                "cost_spent" in keys) != (scn.kind == "cost_budget"):
+            fail(f"{ch_path}: metric keys {sorted(keys)}")
+        labeled = [r.n_labeled for r in chunked.records]
+        scenario_numbers[name] = dict(
+            chunked_steady_seconds_per_round=steady(chunked),
+            per_round_seconds_per_round=statistics.mean(r.total_time for r in per_round.records[1:]),
+            chunked_wall_seconds=ch_wall, per_round_wall_seconds=pr_wall,
+            k1_launches_chunked=launches[ch_path]["forest_leaves"],
+            k1_launches_per_round_driver=launches[pr_path]["forest_leaves"],
+            k1_launches_per_replay=g["launches_per_replay"]["trees_pallas.launches"],
+            labels_per_round=[b - a for a, b in zip(labeled, labeled[1:])],
+            final_accuracy=chunked.records[-1].accuracy,
+            capture_seconds=g["capture_seconds"], pool_bytes=g["pool_bytes"])
+        if scn.kind == "rare_event":
+            scenario_numbers[name]["rare_recall"] = [r.metrics["rare_recall"]
+                                                     for r in chunked.records]
+        if scn.kind == "cost_budget":
+            scenario_numbers[name]["cost_spent"] = [r.metrics["cost_spent"]
+                                                    for r in chunked.records]
+        print(f"#   scenario {name}: chunked == per round (records, RoundMetrics, final mask); "
+              f"steady {scenario_numbers[name]['chunked_steady_seconds_per_round']:.5f} s a "
+              f"chunked round (per round "
+              f"{scenario_numbers[name]['per_round_seconds_per_round']:.5f} s); K1 "
+              f"{launches[ch_path]['forest_leaves']} chunked, "
+              f"{launches[pr_path]['forest_leaves']} per round; labels a round "
+              f"{scenario_numbers[name]['labels_per_round']}")
+
+    # The scenario chunk bodies, eagerly, with host syncs turned into errors:
+    # the knapsack, the abstaining reveal and the drifted eval stay on the card.
+    st0 = state_lib.set_start_state(
+        state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev),
+        N_START)
+    binned0 = trees_train.make_bins(st0.x, BINS)
+    tx_dev = torch.from_numpy(test_np).to(dev)
+    ty_dev = torch.from_numpy(labels(test_np)).to(dev)
+    costs_dev = scn_engine.make_costs(families["cost_budget"], N_POOL, "bench_pool", dev)
+    for name in ("noisy_oracle", "cost_budget", "drift", "drift_rotation"):
+        scn = families[name]
+        direction = (scn_engine.drift_direction(scn, N_FEAT, dev)
+                     if scn.kind == "drift" and scn.drift_kind == "mean_shift" else None)
+        body = loop.make_chunk_fn(
+            get_strategy(scn_cfg.strategy), WINDOW, 2,
+            loop.make_device_fit(scn_cfg, binned0.edges, N_START + 4 * WINDOW), N_POOL,
+            with_metrics=True, scenario=scn, drift_direction=direction)
+        body_args = (binned0.codes, state_lib.as_carry(st0),
+                     StrategyAux(seed_mask=st0.labeled_mask.clone()), prng.key(7, dev),
+                     tx_dev, ty_dev, torch.as_tensor(99, dtype=torch.int32).to(dev),
+                     costs_dev if scn.kind == "cost_budget" else None)
+        body(*body_args)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, extras, _ = body(*body_args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if int(extras.n_active) != 2:
+            fail(f"the eager {name} chunk body did not run two active rounds")
+    print("# scenario chunk bodies (noisy_oracle, cost_budget, drift mean_shift and rotation), "
+          "eager, torch.cuda.set_sync_debug_mode('error'): no host sync")
+
+    # (b) The scenario grid: JAX's bench axis (the axis refuses two drift
+    # kinds, so rotation ran above only) x entropy x 2 seeds in one stream.
+    scn_axis = [families[k_] for k_ in ("none", "noisy_oracle", "cost_budget", "rare_event",
+                                        "drift")]
+    scn_seeds = [args.seed, args.seed + 1]
+    zero_counts()
+    t0 = time.perf_counter()
+    # Pipeline depth 1: each chunk's wall is its own dispatch -> touchdown,
+    # so the second chunk's rounds time a steady cell-round.
+    scn_grid = sweep_lib.run_grid(dataclasses.replace(scn_cfg, rounds_per_launch=K,
+                                                      pipeline_depth=1), ["entropy"],
+                                  scn_seeds, scenarios=scn_axis, bundles={"bench_pool": bundle},
+                                  device=dev)
+    torch.cuda.synchronize()
+    scn_grid_wall = time.perf_counter() - t0
+    launches["scenario_grid"] = counts()
+    # A round step: one K1 over the 10 cells' forests on the pool, one over
+    # the 8 steady cells' on the test set, one each for the 2 drift cells on
+    # their drifted test sets.
+    want_launches["scenario_grid"] = dict(zero, forest_leaves=4 * (1 + n_scn_chunks * K))
+    g = scn_grid.graph_stats
+    if launches["scenario_grid"] != want_launches["scenario_grid"] or (
+            scn_grid.recompiles_after_warmup != 0 or (g["captures"], g["replays"])
+            != (1, n_scn_chunks)):
+        fail(f"scenario grid: launches {launches['scenario_grid']} (want "
+             f"{want_launches['scenario_grid']}), graph {g}, recompiles_after_warmup "
+             f"{scn_grid.recompiles_after_warmup}")
+    for cell in scn_grid.cells:
+        if cell.seed != args.seed:
+            continue
+        ser = scn_runs[cell.scenario]
+        if full_records(cell.result) != full_records(ser) or not torch.equal(
+                cell.result.final_labeled_mask, ser.final_labeled_mask):
+            fail(f"scenario grid cell {cell.scenario}/seed {cell.seed} differs from its serial "
+                 f"chunked run: {full_records(cell.result)} vs {full_records(ser)}")
+    scenario_numbers["grid"] = dict(
+        cells=len(scn_grid.cells), rounds=SCN_ROUNDS, wall_seconds=scn_grid_wall,
+        cells_rounds_per_second=len(scn_grid.cells) * SCN_ROUNDS / scn_grid_wall,
+        steady_seconds_per_cell_round=statistics.mean(steady(c.result) for c in scn_grid.cells),
+        recompiles_after_warmup=scn_grid.recompiles_after_warmup,
+        k1_launches=launches["scenario_grid"]["forest_leaves"],
+        k1_launches_per_replay=g["launches_per_replay"]["trees_pallas.launches"],
+        capture_seconds=g["capture_seconds"], pool_bytes=g["pool_bytes"],
+        seconds_per_cell_round_by_round=[r.total_time for r in scn_grid.cells[0].result.records],
+        launch_seconds=scn_grid.pipeline_stats.launch_seconds,
+        chunks=scn_grid.pipeline_stats.chunks)
+    print(f"# scenario grid: a cell's seconds a cell-round by round "
+          f"{scenario_numbers['grid']['seconds_per_cell_round_by_round']}, launch seconds "
+          f"{scn_grid.pipeline_stats.launch_seconds:.3f} over {scn_grid.pipeline_stats.chunks} "
+          f"chunks, capture {g['capture_seconds']:.2f}s; phase 4k's grid, a cell's "
+          f"{[r.total_time for r in grid_cells_4k[0].result.records]}")
+    print(f"# scenario grid ({len(scn_axis)} scenarios x entropy x {len(scn_seeds)} seeds, K = {K},"
+          f" {SCN_ROUNDS} rounds, metrics on): the seed-{args.seed} cells == their serial chunked "
+          f"runs; {scn_grid_wall:.2f}s wall, "
+          f"{scenario_numbers['grid']['cells_rounds_per_second']:.2f} cell-rounds/s, steady "
+          f"{scenario_numbers['grid']['steady_seconds_per_cell_round']:.5f} s a cell-round; K1 "
+          f"{scenario_numbers['grid']['k1_launches_per_replay']} a replay; recompiles_after_warmup "
+          f"{scn_grid.recompiles_after_warmup}")
+
+    # (c) The card against the CPU at the CPU tests' size, every family
+    # chunked (K = 2), and the scenario grid; then the scenario draws. The
+    # pool entropy is native float32 (telemetry.POOL_ENTROPY_RTOL between
+    # the devices); every other field is bit-equal.
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    def card_is_cpu(a, b):
+        if [(r.round, r.n_labeled, r.accuracy) for r in a.records] != [
+                (r.round, r.n_labeled, r.accuracy) for r in b.records]:
+            return False
+        for ra, rb in zip(a.records, b.records):
+            for field, v in rb.metrics.items():
+                if field == "pool_entropy":
+                    if abs(ra.metrics[field] - v) > POOL_ENTROPY_RTOL * abs(v):
+                        return False
+                elif ra.metrics[field] != v:
+                    return False
+        return torch.equal(a.final_labeled_mask.cpu(), b.final_labeled_mask)
+
+    small_scn = ExperimentConfig(
+        data=DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+        forest=ForestConfig(n_trees=4, max_depth=3, fit="device", kernel="pallas", fit_budget=96),
+        strategy=StrategyConfig(name="entropy", window_size=8), n_start=8, max_rounds=3,
+        rounds_per_launch=2, collect_metrics=True, log_every=0)
+    small_families = {
+        "noisy_oracle": ScenarioConfig(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+        "rare_event": ScenarioConfig(kind="rare_event", rare_class=1),
+        "drift": ScenarioConfig(kind="drift", drift_rate=0.3),
+        "drift_rotation": ScenarioConfig(kind="drift", drift_rate=0.3, drift_kind="rotation"),
+        "cost_budget": ScenarioConfig(kind="cost_budget", cost_budget=6.0),
+    }
+    for name, scn in small_families.items():
+        c = dataclasses.replace(small_scn, scenario=scn)
+        on_card = loop.run_experiment(c, device=dev)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if not card_is_cpu(on_card, on_cpu):
+            fail(f"small {name} run on the card != CPU: {full_records(on_card)} vs "
+                 f"{full_records(on_cpu)}")
+    small_axis = [ScenarioConfig()] + [small_families[k_] for k_ in
+                                       ("noisy_oracle", "rare_event", "drift", "cost_budget")]
+    grid_card = sweep_lib.run_grid(small_scn, ["entropy"], [0, 1], scenarios=small_axis,
+                                   device=dev)
+    grid_cpu = sweep_lib.run_grid(small_scn, ["entropy"], [0, 1], scenarios=small_axis,
+                                  device="cpu")
+    for a, b in zip(grid_card.cells, grid_cpu.cells):
+        if not card_is_cpu(a.result, b.result):
+            fail(f"small scenario grid cell {a.scenario}/seed {a.seed}: card != CPU")
+    draws = dict(
+        flips=lambda d_: scn_engine.flip_mask(families["noisy_oracle"], args.seed, N_POOL, d_),
+        costs=lambda d_: scn_engine.make_costs(families["cost_budget"], N_POOL, "bench_pool", d_),
+        direction=lambda d_: scn_engine.drift_direction(families["drift"], N_FEAT, d_),
+        normal=lambda d_: prng.normal(prng.key(args.seed), (N_POOL,), d_))
+    for name, draw in draws.items():
+        if not torch.equal(draw(dev).cpu(), draw("cpu")):
+            fail(f"the scenario draw {name} on the card != CPU")
+    test_cpu = torch.from_numpy(test_np)
+    for name in ("drift", "drift_rotation"):
+        scn = families[name]
+        for r_ in range(6):
+            a = scn_engine.drift_apply(scn, tx_dev, torch.tensor(r_, dtype=torch.int32, device=dev))
+            b = scn_engine.drift_apply(scn, test_cpu, torch.tensor(r_, dtype=torch.int32))
+            if not torch.equal(a.cpu(), b):
+                fail(f"drift_apply {name} round {r_}: card != CPU")
+    print("# scenarios at the CPU tests' size (checkerboard 96 rows, 4 trees of depth 3, window 8),"
+          " every family chunked and the scenario grid: card == CPU plain versions; the flips, "
+          "costs, drift direction (erfinv_f32), a pool-size normal draw and drift_apply of both "
+          "kinds at rounds 0-5: card == CPU")
+
+    # (d) The knapsack over the pool at k = 100, captured in a graph.
+    ent = torch.rand(N_POOL, generator=torch.Generator(device=dev).manual_seed(args.seed),
+                     device=dev)
+    unl = ~st0.labeled_mask
+    knap = knapsack_top_k(ent, costs_dev, unl, WINDOW, 2.5 * WINDOW)
+    for budget in (2.5 * WINDOW, 0.6 * WINDOW):  # 0.6: the budget runs out, sentinels follow
+        got_ = knapsack_top_k(ent, costs_dev, unl, WINDOW, budget)
+        want_ = knapsack_top_k(ent.cpu(), costs_dev.cpu(), unl.cpu(), WINDOW, budget)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got_, want_)):
+            fail(f"knapsack_top_k over the pool at budget {budget}: card != CPU")
+        scenario_numbers[f"knapsack_kept_at_{budget:g}"] = int(got_[2].sum())
+    knap_ms = graph_ms(lambda: knapsack_top_k(ent, costs_dev, unl, WINDOW, 2.5 * WINDOW),
+                       reps=5, inner=5)
+    scenario_numbers["knapsack_device_ms"] = knap_ms
+    scenario_numbers["knapsack_kept"] = int(knap[2].sum())
+    if scenario_numbers[f"knapsack_kept_at_{0.6 * WINDOW:g}"] >= WINDOW:
+        fail("the knapsack at budget 0.6 x window kept the whole window: no sentinel was checked")
+    scenario_numbers["clean_chunked_seconds_per_round"] = chunk_times["unfused_chunked_depth2"]
+    del st0, binned0, tx_dev, ty_dev, costs_dev, ent, unl
+    per_family = ", ".join(
+        f"{k_} {v['chunked_steady_seconds_per_round']:.5f}" for k_, v in scenario_numbers.items()
+        if isinstance(v, dict) and "chunked_steady_seconds_per_round" in v)
+    print(f"# scenarios, seconds a chunked round (entropy, metrics on, rounds {K + 1}-{SCN_ROUNDS}):"
+          f" {per_family}; phase 4c's clean unfused chunked round "
+          f"{chunk_times['unfused_chunked_depth2']:.5f}. Knapsack over the pool at k = {WINDOW} "
+          f"(budget {2.5 * WINDOW}): {knap_ms:.3f} ms device, {scenario_numbers['knapsack_kept']} "
+          f"picks kept. K1 launches a round (per-round driver): " + ", ".join(
+              f"{name} {launches[f'scenario_{name}_per_round']['forest_leaves'] / SCN_ROUNDS:g}"
+              for name in families) + f" ({kind}, {smi})")
+    print(f"# phase 4l: {time.perf_counter() - t_phase:.1f}s")
 
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
@@ -2042,7 +2343,8 @@ def main() -> int:
         if mode in ("sweep", "grid"):
             bench_batched[mode] = payload
             if payload.get("baseline_skipped") != {"reason": "no_baseline_flag"} or (
-                    mode == "grid" and payload["recompiles_after_warmup"] != 0):
+                    mode == "grid" and (payload["recompiles_after_warmup"] != 0
+                                        or payload["scenario_recompiles_after_warmup"] != 0)):
                 fail(f"bench --mode {mode}: {payload}")
     variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
                         "forest_leaves_segmented": lv.segmented_launches}
@@ -2066,6 +2368,8 @@ def main() -> int:
          "grid_launches": launches["grid"]["forest_leaves"],
          "grid_launches_per_replay": grid_numbers["k1_launches_per_replay"],
          "grid_two_datasets_launches": launches["grid_two_datasets"]["forest_leaves"],
+         "scenario_launches": {p[len("scenario_"):]: launches[p]["forest_leaves"]
+                               for p in launches if p.startswith("scenario_")},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
          "by_shape": k1, "launch_config": k1_cfg, "by_payload": by_payload["forest_leaves"]},
@@ -2112,7 +2416,8 @@ def main() -> int:
          "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
     ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
-        "sweep": sweep_numbers, "grid": grid_numbers, "bench_batched": bench_batched,
+        "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
+        "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,
         "merge_tile_topk_device_ms": merge_dev}))

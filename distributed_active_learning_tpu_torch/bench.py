@@ -56,9 +56,12 @@ as it is) for what the port carries:
   the serial cells (``grid_cells_rounds_per_second``,
   ``serial_cells_rounds_per_second``, ``grid_speedup``,
   ``recompiles_after_warmup``: graph captures after the first, must be 0).
-  The JAX bench's scenario leg is reported skipped by name
-  (``scenario_skipped``). ``--no-baseline`` skips the serial arm of both
-  modes (``baseline_skipped`` says so).
+  Then the JAX bench's scenario leg: the axis none, ``noisy_oracle`` (flip
+  0.1, abstain 0.25), ``cost_budget`` (2.5 x window), ``rare_event`` (class
+  1) and ``drift`` (0.2) x entropy x the seeds as one stream
+  (``scenario_cells_rounds_per_second``, ``scenario_launches``,
+  ``scenario_recompiles_after_warmup``: must be 0). ``--no-baseline`` skips
+  the serial arm of both modes (``baseline_skipped`` says so).
 
 Sizes default to the JAX bench's: its accelerator table on CUDA (pool
 284,807 x 30, 100 trees, 5,000 labeled rows, 10 iterations, 8 rounds per
@@ -756,8 +759,8 @@ def bench_grid(args, dev) -> dict:
     """The strategies x seeds grid over one shared pool, 2 chunks of K = 2
     rounds (two launches, so ``recompiles_after_warmup`` means something),
     through ``run_grid`` against the serial S x E ``run_experiment`` loop;
-    ``grid_cells_rounds_per_second`` is the headline. The JAX bench's
-    scenario leg is reported skipped by name."""
+    ``grid_cells_rounds_per_second`` is the headline. Then the JAX bench's
+    scenario leg over the same pool (``scenario_*`` keys)."""
     from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
     from distributed_active_learning_tpu_torch.runtime.sweep import run_grid
 
@@ -811,8 +814,37 @@ def bench_grid(args, dev) -> dict:
         out["grid_speedup"] = round(serial_sec / grid_sec, 2)
     else:
         out["baseline_skipped"] = out["grid_baseline_skipped"] = skip
-    out["scenario_skipped"] = ("the grid's scenario axis comes with the scenario slice "
-                               "(ROADMAP queue 1 item 4)")
+
+    # The scenario leg: the JAX bench's axis (none, a noisy oracle, a cost
+    # budget, a rare class, drift) x entropy x the seeds, one launch stream;
+    # one graph captured for the whole table (recompiles after warm-up 0).
+    from distributed_active_learning_tpu_torch.config import ScenarioConfig
+
+    scenario_axis = [
+        ScenarioConfig(),
+        ScenarioConfig(kind="noisy_oracle", flip_prob=0.1, abstain_prob=0.25),
+        ScenarioConfig(kind="cost_budget", cost_budget=2.5 * window),
+        ScenarioConfig(kind="rare_event", rare_class=1),
+        ScenarioConfig(kind="drift", drift_rate=0.2),
+    ]
+    scn_cfg = dataclasses.replace(cfg, strategy=dataclasses.replace(cfg.strategy, name="entropy"))
+    scn_cells = len(scenario_axis) * E
+    _flight("bench_timing_start", label="grid/scenario_axis", cells=scn_cells)
+    t0 = time.perf_counter()
+    scn_grid = run_grid(scn_cfg, ["entropy"], seeds, scenarios=scenario_axis,
+                        bundles={"bench_grid": bundle}, device=dev)
+    _sync(dev)
+    scn_sec = time.perf_counter() - t0
+    _flight("bench_timing_end", label="grid/scenario_axis", seconds=round(scn_sec, 3))
+    out.update({
+        "scenario_axis": [sc.kind for sc in scenario_axis],
+        "scenario_cells": scn_cells,
+        "scenario_seconds": round(scn_sec, 3),
+        "scenario_cells_rounds_per_second": round(scn_cells * rounds / scn_sec, 2),
+        "scenario_launches": scn_grid.launches,
+        "scenario_recompiles_after_warmup": scn_grid.recompiles_after_warmup,
+        "scenario_graph": scn_grid.graph_stats,
+    })
     return out
 
 

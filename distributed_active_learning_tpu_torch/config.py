@@ -70,7 +70,11 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ScenarioConfig:
-    """Scenario engine knobs; only ``kind="none"`` is ported."""
+    """Scenario-engine knobs (``scenarios/``): ``kind`` one of ``none``,
+    ``noisy_oracle`` (``flip_prob``, ``abstain_prob``), ``cost_budget``
+    (``cost_budget`` a round, costs in ``[1, 1 + cost_spread]``),
+    ``rare_event`` (``rare_class``) and ``drift`` (``drift_kind``,
+    ``drift_rate``); ``seed`` keys the scenario draws."""
 
     kind: str = "none"
     flip_prob: float = 0.0

@@ -58,3 +58,38 @@ def merge_tile_topk(
     flat_idx = tile_idx.reshape(-1)
     vals, pos = stable_top_k(flat_vals, k)
     return vals, flat_idx[pos]
+
+
+def knapsack_top_k(scores: torch.Tensor, costs: torch.Tensor, unlabeled_mask: torch.Tensor,
+                   k: int, budget: float):
+    """Greedy budget-constrained selection (the cost_budget scenario's):
+    ``k`` steps, each taking the highest ``scores / costs`` among the
+    unlabeled points still affordable under the remaining budget and paying
+    its cost. Once nothing affordable remains a step emits a sentinel
+    (``keep`` False, value ``NEG_INF``, index redirected onto the first
+    pick). Ties go to the lowest index (``torch.argmax`` returns the first
+    maximum on every device). Plain PyTorch, as the JAX package's is plain
+    XLA (a ``lax.scan`` of argmax steps): every step stays on the device, so
+    a graphed chunk runs it without a host sync.
+
+    Returns ``(vals [k], idx [k], keep [k] bool, spent)``, ``spent`` a 0-d
+    float32 tensor, ``budget`` minus what remains."""
+    dev = scores.device
+    ratio = scores / costs
+    rows = torch.arange(scores.shape[0], device=dev)
+    avail = unlabeled_mask
+    budget_t = torch.full((), budget, dtype=torch.float32, device=dev)
+    remaining = budget_t
+    neg = torch.full((), NEG_INF, dtype=scores.dtype, device=dev)
+    vals, idx, keep = [], [], []
+    for _ in range(k):
+        cand = avail & (costs <= remaining)
+        i = torch.argmax(torch.where(cand, ratio, neg)).view(1)
+        ok = cand.index_select(0, i)[0]  # False iff nothing was affordable
+        avail = avail & ~((rows == i) & ok)
+        remaining = remaining - torch.where(ok, costs.index_select(0, i)[0], 0.0)
+        vals.append(torch.where(ok, scores.index_select(0, i)[0], neg))
+        idx.append(i[0])
+        keep.append(ok)
+    vals, idx, keep = torch.stack(vals), torch.stack(idx), torch.stack(keep)
+    return vals, torch.where(keep, idx, idx[0]), keep, budget_t - remaining

@@ -12,7 +12,9 @@ written out here:
   rewrites the reduce into windows of 32 (:func:`row_sum`);
 - ``log`` is XLA's own float32 polynomial (Cephes' ``logf``, with its FMAs),
   not the C library's, and ``log2(x)`` is ``log(x) * f32(1 / ln 2)``
-  (:func:`log_f32`, :func:`log2_f32`).
+  (:func:`log_f32`, :func:`log2_f32`); ``log1p`` and ``erf_inv`` are XLA's
+  own too (:func:`log1p_f32`, :func:`erfinv_f32`, which ``prng.normal``
+  reads).
 
 Each spelling was found by holding the jitted JAX expression against the
 candidates over every input the port feeds it (``tests/test_torch_scoring.py``
@@ -138,3 +140,70 @@ def log2_f32(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log2`` on XLA's CPU: ``log(x) / log(2)``, the division folded
     into a multiplication by ``f32(1 / ln 2)``."""
     return log_f32(x) * _INV_LN2
+
+
+# XLA's log1p for |x| < sqrt(2) - 1: Cephes' rational approximation, its two
+# polynomials evaluated by Horner's rule in ascending order of the lists.
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _horner_f32(x: torch.Tensor, coeffs) -> torch.Tensor:
+    """XLA's ``EvaluatePolynomial``: ``p = x * 0 + c0``, then ``p = p * x +
+    c_i`` contracted into FMAs (the first product has another use, so it
+    stays a separate multiply)."""
+    p = x * 0.0 + float(np.float32(coeffs[0]))
+    for c in coeffs[1:]:
+        p = fma_f32(p, x, float(np.float32(c)))
+    return p
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's float32 ``log1p``: :func:`log_f32` of ``1 + x`` for large
+    ``|x|``, else ``x + (x^2 * -0.5 + x^3 * num(x) / den(x))`` with the
+    first product fused into the final sum."""
+    x = x.to(torch.float32)
+    x2 = x * x
+    ratio = _horner_f32(x, _LOG1P_NUM) / _horner_f32(x, _LOG1P_DEN)
+    small = x + fma_f32(x2, -0.5, (x * x2) * ratio)
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, log_f32(x + 1.0))
+
+
+# XLA's single-precision erf_inv (Giles' approximation): coefficients for
+# w < 5 and for w >= 5, highest degree first.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+               1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+               2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` as XLA's CPU code computes it in float32: ``w =
+    -log1p(-x * x)``, a degree-8 polynomial in ``w - 2.5`` (``w < 5``) or
+    ``sqrt(w) - 3`` evaluated with FMAs, times ``x``; ``+-1`` give
+    ``+-inf``. Subnormal inputs and results flush to a signed zero, as
+    XLA's CPU code runs with denormals off."""
+    x = _flush(x.to(torch.float32))
+    w = -log1p_f32(x * -x)
+    lt = w < 5.0
+    # XLA's sqrt is the IEEE one; PyTorch's vectorized float32 sqrt on the
+    # CPU is not correctly rounded everywhere, so it is taken in float64 and
+    # rounded once (exact for a square root).
+    t = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(torch.float32)
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = fma_f32(t, p, torch.where(lt, float(np.float32(a)), float(np.float32(b))).to(torch.float32))
+    return _flush(x * torch.where(torch.abs(x) == 1.0, math.inf, p))
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal values to a zero of their sign."""
+    return torch.where(torch.abs(x) < _MIN_NORMAL, x * 0.0, x)

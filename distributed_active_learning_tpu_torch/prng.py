@@ -6,7 +6,7 @@ that stream. Reproducing it exactly is what lets the port's runs equal the
 JAX package's end to end. Definitions follow ``jax/_src/prng.py``
 (``threefry_2x32``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
 ``_threefry_random_bits_partitionable``, ``iota_2x32_shape``) and
-``jax/_src/random.py::_uniform``.
+``jax/_src/random.py`` (``_uniform``, ``_normal_real``, ``_randint``).
 
 A key is an ``int64`` tensor whose last axis holds the two ``uint32`` words
 of ``jax.random.key_data`` (leading axes batch several keys). A key may
@@ -24,10 +24,12 @@ from __future__ import annotations
 import math
 from typing import Sequence, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
 
 Key = torch.Tensor
 
@@ -108,3 +110,48 @@ def uniform(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     one_bits = 0x3F800000
     f = ((bits >> 9) | one_bits).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def _uniform_range(k: Key, shape: Sequence[int], minval: float, maxval: float,
+                   device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the unit
+    draw times ``f32(maxval - minval)`` plus ``minval``, floored at
+    ``minval``. The unit draw has at most 23 significant bits, so whether
+    XLA fuses the multiply-add or not (it does) changes nothing when the
+    span is a power of two, the only spans used here."""
+    span = float(torch.tensor(maxval, dtype=torch.float32) - torch.tensor(minval, dtype=torch.float32))
+    lo = torch.tensor(minval, dtype=torch.float32).item()
+    u = uniform(k, shape, device)
+    return torch.clamp_min(u * span + lo, lo)
+
+
+def normal(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 (``_normal_real``): a
+    uniform draw on ``[nextafter(-1, 0), 1)``, then ``f32(sqrt 2) *
+    erf_inv(u)`` with XLA's single-precision ``erf_inv``
+    (:func:`~.ops.xla_f32.erfinv_f32`)."""
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import erfinv_f32
+
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = _uniform_range(k, shape, lo, 1.0, device)
+    return erfinv_f32(u) * _SQRT2_F32
+
+
+def randint(k: Key, shape: Sequence[int], minval: int, maxval: int, device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32
+    (``_randint``): two 32-bit draws from a split of the key, folded into
+    ``[minval, maxval)`` by JAX's unsigned arithmetic, ``(hi % span) *
+    (2^32 % span) + lo % span``, modulo the span, all mod 2^32."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
+        raise ValueError("randint here covers int32 bounds only")
+    keys = split(k)
+    hi = random_bits(keys[..., 0, :], shape, device)
+    lo = random_bits(keys[..., 1, :], shape, device)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = (2 ** 16) % span
+    mult = (mult * mult) % span
+    off = (((hi % span) * mult) & _MASK) + (lo % span)
+    off = (off & _MASK) % span
+    out = (off + minval) & _MASK
+    return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)

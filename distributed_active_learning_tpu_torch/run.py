@@ -36,6 +36,14 @@ strategies x datasets x seeds (each cell's log under a ``# grid cell``
 header). The batched path needs ``--fit device``; a host fit runs the
 experiments one after another. ``--plot`` waits (the card's machine has no
 matplotlib).
+
+Scenarios (``scenarios/``): ``--scenario KIND`` with its knobs
+(``--flip-prob``, ``--abstain-prob``, ``--cost-budget``, ``--cost-spread``,
+``--rare-class``, ``--drift-kind``, ``--drift-rate``, ``--scenario-seed``)
+runs one experiment under a scenario (with ``--sweep-seeds`` through the
+grid launcher), ``--scenarios A,B,...`` adds a scenario axis to the grid
+(cells under ``# grid cell strategy/dataset/scenario/seed`` headers). They
+need ``--fit device`` and refuse ``--fused-round``, as the JAX package's.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from distributed_active_learning_tpu_torch.config import (
     ExperimentConfig,
     ForestConfig,
     MeshConfig,
+    ScenarioConfig,
     StrategyConfig,
 )
 
@@ -109,6 +118,38 @@ def build_parser() -> argparse.ArgumentParser:
         "paths are those of f32 storage (the thresholds are bf16-snapped bin "
         "edges), int8 moves leaf probabilities by at most 1/254",
     )
+    # The scenario engine (scenarios/): the JAX package's flags.
+    ap.add_argument(
+        "--scenario", default="none",
+        choices=["none", "noisy_oracle", "cost_budget", "rare_event", "drift"],
+        help="run under a scenario: noisy_oracle (label flips and an abstaining reveal; "
+        "counts are of revealed labels, and --rounds is required when abstaining), "
+        "cost_budget (per-point costs, greedy knapsack under a per-round spend cap), "
+        "rare_event (recall of the rare class in RoundMetrics), drift (the test set drifts "
+        "a round). Needs --fit device; with --sweep-seeds it runs through the grid launcher",
+    )
+    ap.add_argument(
+        "--scenarios", default=None, metavar="A,B,...",
+        help="comma-separated scenario list: a scenario axis of the grid launch (scenario x "
+        "strategy x seed [x dataset] as one launch stream, runtime/sweep.py run_grid), the "
+        "entries sharing the knobs below; 'none' cells equal the clean grid's. Overrides "
+        "--scenario",
+    )
+    ap.add_argument("--flip-prob", type=float, default=0.0,
+                    help="noisy_oracle: per-point label-flip probability")
+    ap.add_argument("--abstain-prob", type=float, default=0.0,
+                    help="noisy_oracle: per-reveal abstain probability")
+    ap.add_argument("--cost-budget", type=float, default=0.0,
+                    help="cost_budget: per-round labeling spend cap")
+    ap.add_argument("--cost-spread", type=float, default=4.0,
+                    help="cost_budget: synthetic costs in [1, 1+spread]")
+    ap.add_argument("--rare-class", type=int, default=1, help="rare_event: the hunted class id")
+    ap.add_argument("--drift-kind", choices=["mean_shift", "rotation"], default="mean_shift")
+    ap.add_argument("--drift-rate", type=float, default=0.0,
+                    help="drift: per-round drift magnitude")
+    ap.add_argument("--scenario-seed", type=int, default=0,
+                    help="seed of the scenario draws (flips, costs, drift direction), apart "
+                    "from --seed so that clean cells keep their streams")
     # Device mesh for the sharded round (1x1 = single device). Pool rows ride
     # the data axis, trees the model axis; non-divisible pools are padded.
     ap.add_argument("--mesh-data", type=int, default=1)
@@ -237,6 +278,7 @@ def main(argv=None) -> int:
             telemetry.prepare_profile_dir(args.profile_dir)
         except ValueError as e:
             ap.error(str(e))
+    base_scenario, scenario_cfgs = _scenarios(ap, args)
     if args.flight_recorder:
         telemetry.install_flight_recorder(args.flight_recorder)
     ops_server = None
@@ -258,6 +300,9 @@ def main(argv=None) -> int:
                                 window_size=args.window,
                                 options=_parse_strategy_options(args.strategy_option)),
         mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
+        # One scenario rides the config; a --scenarios axis rides run_grid.
+        scenario=(base_scenario if base_scenario.active and scenario_cfgs is None
+                  else ScenarioConfig()),
         n_start=args.n_start,
         max_rounds=args.rounds,
         rounds_per_launch=args.rounds_per_launch,
@@ -273,7 +318,12 @@ def main(argv=None) -> int:
         enabled=not args.quiet,
         printer=lambda *a: print(*a, file=sys.stderr),
     )
-    use_grid = grid_strategies is not None or grid_datasets is not None
+    # A scenario with a seed sweep runs through the grid launcher: the seed
+    # sweep has no scenario wiring, and the grid's one-strategy shape is a
+    # scenario x seed sweep.
+    use_grid = (grid_strategies is not None or grid_datasets is not None
+                or scenario_cfgs is not None
+                or (base_scenario.active and args.sweep_seeds > 1))
     seeds = list(range(args.seed, args.seed + args.sweep_seeds))
     writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
     try:
@@ -282,8 +332,8 @@ def main(argv=None) -> int:
                 from distributed_active_learning_tpu_torch.runtime.sweep import run_grid
 
                 grid = run_grid(cfg, grid_strategies or [cfg.strategy.name], seeds,
-                                datasets=grid_datasets, debugger=dbg, metrics=writer,
-                                device=args.device)
+                                datasets=grid_datasets, scenarios=scenario_cfgs, debugger=dbg,
+                                metrics=writer, device=args.device)
             elif args.sweep_seeds > 1:
                 from distributed_active_learning_tpu_torch.runtime.sweep import run_sweep
 
@@ -304,6 +354,39 @@ def main(argv=None) -> int:
     else:
         _emit(args, result, dbg)
     return 0
+
+
+def _scenarios(ap, args):
+    """The scenario flags: one base :class:`ScenarioConfig` carrying the
+    knobs, and the ``--scenarios`` axis (None when absent or all ``none``),
+    with the JAX package's refusals."""
+    from distributed_active_learning_tpu_torch.scenarios import SCENARIO_KINDS, scenario_from_name
+
+    base = ScenarioConfig(
+        kind=args.scenario, flip_prob=args.flip_prob, abstain_prob=args.abstain_prob,
+        cost_budget=args.cost_budget, cost_spread=args.cost_spread, rare_class=args.rare_class,
+        drift_kind=args.drift_kind, drift_rate=args.drift_rate, seed=args.scenario_seed)
+    axis = None
+    if args.scenarios:
+        names = [x.strip() for x in args.scenarios.split(",") if x.strip()]
+        unknown = [x for x in names if x not in SCENARIO_KINDS]
+        if unknown:
+            ap.error(f"unknown scenarios {unknown}; one of {list(SCENARIO_KINDS)}")
+        if len(set(names)) != len(names):
+            ap.error(f"duplicate scenarios in --scenarios: {names}")
+        axis = [scenario_from_name(x, base) for x in names]
+        if not any(sc.active for sc in axis):
+            axis = None  # `--scenarios none` is the clean grid
+    if axis is not None or base.active:
+        if args.fused_round:
+            ap.error(
+                "--fused-round fuses the CLEAN eval->score->top-k chain; "
+                "scenarios perturb the round body (probabilistic reveal / "
+                "knapsack select / drifted eval) — drop one of the two"
+            )
+        if args.fit != "device":
+            ap.error("scenarios run inside the jitted round and need --fit device")
+    return base, axis
 
 
 def _emit(args, result, dbg) -> None:
@@ -345,12 +428,15 @@ def _emit_grid(args, grid, dbg) -> None:
     from distributed_active_learning_tpu_torch.runtime.sweep import _grid_result_path
 
     datasets = sorted({c.dataset for c in grid.cells})
+    with_scn = sorted({c.scenario for c in grid.cells}) != ["none"]
     for cell in grid.cells:
-        sys.stdout.write(f"# grid cell {cell.strategy}/{cell.dataset}/seed {cell.seed}\n")
+        sc = f"/{cell.scenario}" if with_scn else ""
+        sys.stdout.write(f"# grid cell {cell.strategy}/{cell.dataset}{sc}/seed {cell.seed}\n")
         sys.stdout.write(cell.result.to_reference_log())
         if args.out:
             cell.result.save(_grid_result_path(args.out, cell.strategy, cell.dataset, cell.seed,
-                                               len(datasets) > 1), fmt="reference")
+                                               len(datasets) > 1, cell.scenario, with_scn),
+                             fmt="reference")
     if not args.quiet:
         finals = [c.result.final_accuracy for c in grid.cells
                   if c.result.final_accuracy is not None]

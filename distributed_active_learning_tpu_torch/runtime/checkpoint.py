@@ -33,7 +33,7 @@ experiment's (or cell's) ``labeled_mask`` ``[E, n]``, ``key`` ``uint32[E,
 2]``, ``round`` ``int32[E]`` and records (a list of record lists), with the
 fingerprint of the whole batch (:func:`sweep_fingerprint`,
 :func:`grid_fingerprint`): the JAX package's format, so either package
-resumes the other's. The grid's scenario axis comes with the scenario slice.
+resumes the other's; a scenario grid's fingerprint carries its scenario axis.
 The serve and neural formats of the JAX module come with their slices
 (ROADMAP queue 1).
 """
@@ -231,12 +231,13 @@ def sweep_fingerprint(cfg, seeds, windows) -> str:
     return fingerprint_from_ident(ident)
 
 
-def grid_fingerprint(cfg, strategies, seeds, datasets, windows) -> str:
+def grid_fingerprint(cfg, strategies, seeds, datasets, windows, scenarios=None) -> str:
     """Identity hash of a grid launch: the sweep's extended with the strategy
     and dataset axes. The strategy and dataset names, the window and the
     seed of the anchoring config live in the axes, so they leave the base
     identity; the shared knobs (options, data path and sampling, forest,
-    n_start) stay."""
+    n_start) stay. A scenario axis (its kinds, in order) joins the identity
+    only when present, so a clean grid's fingerprint is unchanged."""
     ident = _forest_ident(cfg, with_mesh=False)
     ident["strategy"].pop("name", None)
     ident["strategy"].pop("window_size", None)
@@ -248,6 +249,8 @@ def grid_fingerprint(cfg, strategies, seeds, datasets, windows) -> str:
         "datasets": [str(d) for d in datasets],
         "windows": [int(w) for w in windows],
     }
+    if scenarios:
+        ident["grid"]["scenarios"] = [str(s) for s in scenarios]
     return fingerprint_from_ident(ident)
 
 

@@ -53,13 +53,21 @@ experiment's own window revealed), the fit body with the edges an argument
 (:func:`_accuracy_masked`), and capture their chunks with the same
 :class:`GraphedChunk`.
 
+Scenarios (``scenarios/``, ``ExperimentConfig.scenario``): a noisy oracle
+(flips applied to the oracle after the start state is drawn; an abstaining
+reveal from a third split of the round key), a cost budget (the greedy
+knapsack over a per-point cost vector), a rare class (``rare_recall`` in the
+metrics) and a drifting test set (the accuracy of round r measured on
+``drift_apply(test_x, r - 1)``), in both drivers, each run equal to the JAX
+package's. A scenario needs the device fit and refuses the fused round, as
+in the JAX package.
+
 Not ported yet, and refused with a ``NotImplementedError`` that names the
 slice bringing them: under a mesh the chunked driver (and so sweeps and
-grids), round metrics, ``kernel`` "gemm" and "gather", depths past 10, the
-host fit and the density and lal strategies; roofline attribution and
-scenarios (and a grid's scenario axis). What the JAX package refuses of
-quantized storage (:func:`_validate_quantize`) the port refuses with the
-same reasons.
+grids), round metrics, scenarios, ``kernel`` "gemm" and "gather", depths
+past 10, the host fit and the density and lal strategies; roofline
+attribution. What the JAX package refuses of quantized storage
+(:func:`_validate_quantize`) the port refuses with the same reasons.
 """
 
 from __future__ import annotations
@@ -80,9 +88,11 @@ from distributed_active_learning_tpu_torch.ops import forest_eval
 from distributed_active_learning_tpu_torch.ops.topk import (
     NEG_INF,
     POS_INF,
+    knapsack_top_k,
     select_bottom_k,
     select_top_k,
 )
+from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
@@ -100,6 +110,10 @@ def _round_core(
     aux: StrategyAux,
     fused: bool = False,
     window=None,
+    scenario=None,
+    costs=None,
+    emit_rare: bool = False,
+    emit_cost: bool = False,
 ):
     """One AL round: split the key, score + select (or the fused round),
     reveal, and with ``with_metrics`` the round's
@@ -116,11 +130,30 @@ def _round_core(
     ``window_size`` selection: the selection is sorted, so they are exactly
     the top ``window`` selection. The picks past it are neutralized as a
     short window's sentinels are (values to -inf or +inf, indices onto the
-    first pick), so the metrics see what a run at that window sees."""
-    keys = prng.split(state.key)
-    key, k_score = keys[0], keys[1]
+    first pick), so the metrics see what a run at that window sees.
+
+    ``scenario`` (an active :class:`~..config.ScenarioConfig`, or None) is
+    the scenario engine's hook, as in the JAX package: ``cost_budget`` takes
+    the greedy knapsack (``ops.topk.knapsack_top_k``) over ``costs`` instead
+    of the top-k, its unaffordable picks neutralized like sentinels and the
+    round's spend summed over the picks finally kept; ``noisy_oracle`` with
+    ``abstain_prob > 0`` splits the key three ways and reveals through the
+    abstain draw of the third key (the two-way split is untouched
+    otherwise); ``rare_event`` (or ``emit_rare``) adds ``rare_recall`` and
+    ``cost_budget`` (or ``emit_cost``) adds ``cost_spent`` to the metrics.
+    The emit flags give a mixed-scenario grid one set of metric fields
+    across its groups. ``scenario=None`` is the clean round."""
+    scn_active = scenario is not None and scenario.active
+    abstain = scenario.abstain_prob if scn_active and scenario.kind == "noisy_oracle" else 0.0
+    if abstain > 0.0:
+        keys = prng.split(state.key, 3)
+        key, k_score, k_abstain = keys[..., 0, :], keys[..., 1, :], keys[..., 2, :]
+    else:
+        keys = prng.split(state.key)
+        key, k_score, k_abstain = keys[0], keys[1], None
     state = state.replace(key=key)
     unlabeled = state.unlabeled_mask
+    spent = cost_keep = None
     if fused:
         from distributed_active_learning_tpu_torch.ops import round_fused
 
@@ -133,17 +166,33 @@ def _round_core(
             forest = forest_eval.evaluated(forest, state.x)
         scores = strategy.score(forest, state, k_score, aux)
         unlabeled = gather(unlabeled)  # a mesh's global select runs on its first device
-        if strategy.higher_is_better:
+        if scn_active and scenario.kind == "cost_budget":
+            vals, picked, cost_keep, spent = knapsack_top_k(
+                scores, costs, unlabeled, window_size, scenario.cost_budget)
+        elif strategy.higher_is_better:
             vals, picked = select_top_k(scores, unlabeled, window_size)
         else:
             vals, picked = select_bottom_k(scores, unlabeled, window_size)
-    if window is None:
-        new_state = state_lib.reveal(state, picked)
-    else:
+    keep = None
+    if window is not None:
         keep = torch.arange(window_size, device=picked.device) < window
+    if cost_keep is not None:
+        keep = cost_keep if keep is None else keep & cost_keep
+        # Spend over the picks finally kept: under a padded window the
+        # knapsack ran at the pad width, and a pick past a cell's own window
+        # is never revealed, so it must not count (one formula for serial
+        # and grid keeps cost_spent equal between them).
+        spent = row_sum(torch.where(keep, costs[picked], 0.0)[None])[0]
+    if keep is not None:
         vals = torch.where(keep, vals, NEG_INF if strategy.higher_is_better else POS_INF)
         picked = torch.where(keep, picked, picked[0])
-        new_state = state_lib.reveal_masked(state, picked, keep)
+    if keep is None and k_abstain is None:
+        new_state = state_lib.reveal(state, picked)
+    else:
+        if keep is None:
+            keep = torch.ones(picked.shape, dtype=torch.bool, device=picked.device)
+        new_state = state_lib.reveal_masked(state, picked, keep, abstain_key=k_abstain,
+                                            abstain_prob=abstain)
     if not with_metrics:
         return new_state, picked, scores
     from distributed_active_learning_tpu_torch.runtime import telemetry
@@ -152,18 +201,29 @@ def _round_core(
         forest, state, picked, vals, scores,
         higher_is_better=strategy.higher_is_better, n_classes=n_classes,
     )
+    if emit_rare or (scn_active and scenario.kind == "rare_event"):
+        from distributed_active_learning_tpu_torch.scenarios.engine import rare_recall
+
+        rm = rm._replace(rare_recall=rare_recall(
+            new_state.labeled_mask, state.oracle_y, state.valid_mask,
+            scenario.rare_class if scn_active else 1))
+    if emit_cost or (scn_active and scenario.kind == "cost_budget"):
+        rm = rm._replace(cost_spent=spent if spent is not None else torch.zeros(
+            (), dtype=torch.float32, device=picked.device))
     return new_state, picked, scores, rm
 
 
 def make_round_fn(strategy: Strategy, window_size: int, with_metrics: bool = False,
-                  n_classes: int = 2, fused: bool = False):
+                  n_classes: int = 2, fused: bool = False, scenario=None):
     """The AL round ``round_fn(forest, state, aux) -> (new_state, picked,
     scores)``; with ``with_metrics`` a fourth output, the round's
     :class:`~.telemetry.RoundMetrics` (both drivers run this same body, so
     their metrics agree bit for bit). ``fused`` routes score + select
     through the round megakernel (``scores`` is then None); it cannot
     compute metrics, which reduce the full score vector the megakernel never
-    materializes."""
+    materializes. ``scenario`` runs the scenario round (:func:`_round_core`);
+    a ``cost_budget`` scenario appends the per-point cost vector to the
+    signature, ``round_fn(forest, state, aux, costs)``."""
     if fused and with_metrics:
         raise ValueError(
             "fused_round cannot compute RoundMetrics: the metrics reductions "
@@ -171,26 +231,28 @@ def make_round_fn(strategy: Strategy, window_size: int, with_metrics: bool = Fal
             "materializing; drop collect_metrics/--metrics-out or fused_round"
         )
 
-    def round_fn(forest, state, aux):
+    def round_fn(forest, state, aux, costs=None):
         return _round_core(strategy, window_size, with_metrics, n_classes, forest, state, aux,
-                           fused=fused)
+                           fused=fused, scenario=scenario, costs=costs)
 
     return round_fn
 
 
 def make_padded_round_fn(strategy: Strategy, window_pad: int, with_metrics: bool = False,
-                         n_classes: int = 2):
+                         n_classes: int = 2, scenario=None, emit_rare: bool = False,
+                         emit_cost: bool = False):
     """:func:`make_round_fn` with a per-call reveal width: ``round_fn(forest,
-    state, aux, window)`` selects at ``window_pad`` and reveals the first
-    ``window`` picks (a 0-d int tensor). A batched sweep runs it per
+    state, aux, window[, costs])`` selects at ``window_pad`` and reveals the
+    first ``window`` picks (a 0-d int tensor). A batched sweep runs it per
     experiment, so experiments of other windows share one program; at
     ``window == window_pad`` it is :func:`make_round_fn`'s round bit for
     bit. It is never fused: the JAX package's padded round has no fused
-    form."""
+    form. ``scenario`` and the emit flags as :func:`_round_core`."""
 
-    def round_fn(forest, state, aux, window):
+    def round_fn(forest, state, aux, window, costs=None):
         return _round_core(strategy, window_pad, with_metrics, n_classes, forest, state, aux,
-                           window=window)
+                           window=window, scenario=scenario, costs=costs,
+                           emit_rare=emit_rare, emit_cost=emit_cost)
 
     return round_fn
 
@@ -249,19 +311,21 @@ _MESH_SLICE = "the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and pod\")"
 def _not_ported(cfg: ExperimentConfig, metrics, batched: Optional[str] = None,
                 scenario_axis: bool = False) -> None:
     """Refuse what this slice does not carry, naming the slice that will.
-    ``batched`` ("sweep" or "grid") adds the batched drivers' refusals:
-    under a mesh (their chunk is the chunk under a mesh) and with a
-    scenario, ``scenario_axis`` being a grid's scenario axis."""
+    ``batched`` ("sweep" or "grid") adds the batched drivers' refusal under
+    a mesh (their chunk is the chunk under a mesh); ``scenario_axis`` is a
+    grid's active scenario axis, which a mesh refuses as an active
+    ``cfg.scenario`` is."""
     mesh = cfg.mesh.data * cfg.mesh.model > 1
-    scenario_on = cfg.scenario is not None and cfg.scenario.active
+    scenario_on = (cfg.scenario is not None and cfg.scenario.active) or scenario_axis
     refusals = [
+        (mesh and scenario_on,
+         "a scenario under a device mesh (the per-shard reveal and flip_mask_block of "
+         "noisy_oracle, the knapsack, drift and rare-recall plumbing on sharded pools) "
+         f"comes with {_MESH_SLICE}, item 8"),
         (batched is not None and mesh,
          f"a {batched} under a device mesh runs its chunk under the mesh, which needs "
          "constrain_forest (the fit sharded by trees inside the chunk); it comes with "
          f"{_MESH_SLICE}, item 8"),
-        (batched is not None and (scenario_axis or scenario_on),
-         f"a {batched}'s scenario axis, and a scenario run as a {batched}, come with the "
-         "scenario slice (ROADMAP queue 1, \"Scenarios\", item 4)"),
     ]
     refusals += [
         (cfg.rounds_per_launch > 1 and mesh,
@@ -289,8 +353,6 @@ def _not_ported(cfg: ExperimentConfig, metrics, batched: Optional[str] = None,
         (bool(cfg.roofline) and metrics is not None,
          "roofline attribution (--roofline) comes with the pre-flight slice "
          "(ROADMAP queue 1, \"Pre-flight equivalents\")"),
-        (cfg.scenario is not None and cfg.scenario.active,
-         "scenarios come with the scenario slice"),
     ]
     for refused, why in refusals:
         if refused:
@@ -432,6 +494,8 @@ def make_chunk_fn(
     with_metrics: bool = False,
     n_classes: int = 2,
     stream_cb=None,
+    scenario=None,
+    drift_direction=None,
 ):
     """``chunk_size`` AL rounds as one launch, on a single device.
 
@@ -462,26 +526,40 @@ def make_chunk_fn(
     n_labeled, accuracy, active)`` (the JAX package calls it from inside
     the scan) is called at the chunk's touchdown instead, once per round in
     round order: ``chunk_fn.stream(ys)`` on the host copies of the ys.
-    Scenarios and a device mesh wait for their slices.
+
+    ``scenario`` (an active :class:`~..config.ScenarioConfig`, or None) runs
+    the scenario round (:func:`_round_core`) and, under ``drift``, measures
+    the accuracy on ``drift_apply(test_x, carry.round)``, the JAX package's
+    spelling; the chunk then takes a trailing ``costs`` argument (the
+    per-point cost vector of a ``cost_budget`` scenario, else None; a
+    constant of the graph). ``drift_direction`` is the mean-shift direction,
+    drawn once before the chunk is built (its draw uploads the scenario key,
+    which a graph capture cannot). A device mesh waits for its slice.
     """
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
     round_fn = make_round_fn(strategy, window_size, with_metrics=with_metrics,
-                             n_classes=n_classes, fused=fused_round)
+                             n_classes=n_classes, fused=fused_round, scenario=scenario)
+    drift = scenario is not None and scenario.kind == "drift"
 
-    def step(codes, carry: state_lib.PoolState, aux, fit_key, test_x, test_y, end_round):
+    def step(codes, carry: state_lib.PoolState, aux, fit_key, test_x, test_y, end_round,
+             costs=None):
         n_labeled = state_lib.labeled_count(carry)
         active = (n_labeled < label_cap) & (carry.round < end_round)
         forest = fit_fn(codes, carry, prng.fold_in(fit_key, carry.round + 1))
-        new_state, picked, _, *rm = round_fn(forest, carry, aux)
+        new_state, picked, _, *rm = round_fn(forest, carry, aux, costs)
+        if drift:
+            from distributed_active_learning_tpu_torch.scenarios.engine import drift_apply
+
+            test_x = drift_apply(scenario, test_x, carry.round, direction=drift_direction)
         acc = _accuracy(forest, test_x, test_y)
         out = state_lib.select_state(active, new_state, carry)
         return out, (carry.round + 1, n_labeled, acc, picked.to(torch.int32), active, *rm)
 
-    def chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round):
+    def chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round, costs=None):
         ys = []
         for _ in range(chunk_size):
-            state, y = step(codes, state, aux, fit_key, test_x, test_y, end_round)
+            state, y = step(codes, state, aux, fit_key, test_x, test_y, end_round, costs)
             ys.append(y)
         cols = list(zip(*ys))
         ys = tuple(torch.stack(col) for col in cols[:5])
@@ -657,10 +735,12 @@ class GraphedChunk:
 
 
 def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
-                 fit_budget, result, dbg, start_round, metrics=None, n_classes=2, ckpt=None):
+                 fit_budget, result, dbg, start_round, metrics=None, n_classes=2, ckpt=None,
+                 scn=None, costs=None, drift_dir=None):
     """The chunked branch of :func:`run_experiment`: K rounds per launch
     through ``pipeline.run_pipelined``. ``ckpt`` is ``(fingerprint,
-    kernel)`` when the run checkpoints. Returns the final state."""
+    kernel)`` when the run checkpoints; ``scn`` the active scenario (with its
+    ``costs`` and drift direction), or None. Returns the final state."""
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
     from distributed_active_learning_tpu_torch.runtime import telemetry
 
@@ -677,7 +757,8 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
                 metrics.event("round_stream", round=int(round_), n_labeled=int(n_labeled_cb),
                               accuracy=float(acc_cb))
     body = make_chunk_fn(strategy, window, K, device_fit, label_cap, fused_round=cfg.fused_round,
-                         with_metrics=want_metrics, n_classes=n_classes, stream_cb=stream_cb)
+                         with_metrics=want_metrics, n_classes=n_classes, stream_cb=stream_cb,
+                         scenario=scn, drift_direction=drift_dir)
     chunk_fn = GraphedChunk(body) if dev.type == "cuda" else body
     # The chunk updates the carried mask in place; at round 0 aux.seed_mask
     # is that mask, so it gets its own copy once up front.
@@ -689,7 +770,13 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     # One sync at loop entry; afterwards the loop blocks only on each
     # chunk's two stop scalars.
     n_known = int(state_lib.labeled_count(state))
-    ctl = pipeline_lib.ChunkDriveControl(K, window, label_cap, cfg.max_rounds, n_known, start_round)
+    # An abstaining oracle reveals fewer than `window` labels a round, so
+    # the label-cap lattice (window-sized steps) would overestimate progress
+    # and veto chunks while the run still has work: lattice window 0 turns
+    # that veto off, and the stop comes from the revealed count alone.
+    abstaining = scn is not None and scn.kind == "noisy_oracle" and scn.abstain_prob > 0.0
+    ctl = pipeline_lib.ChunkDriveControl(K, 0 if abstaining else window, label_cap,
+                                         cfg.max_rounds, n_known, start_round)
     if ctl.already_done:
         return state
     # Projected upper bound on any ACTIVE fit's labeled rows over the whole
@@ -718,8 +805,10 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     # touchdown writes the copy, never the carry (ckpt_snapshot).
     snapshots = pipeline_lib.CarrySnapshots(ckpt_snapshot)
 
+    tail = (costs,) if scn is not None else ()
+
     def dispatch(st, idx):
-        out = chunk_fn(codes, st, aux, fit_key_dev, test_x, test_y, end_dev)
+        out = chunk_fn(codes, st, aux, fit_key_dev, test_x, test_y, end_dev, *tail)
         if ckpt is not None:
             new_state = out[0]
             snapshots.take(idx, new_state.labeled_mask, new_state.key, new_state.round)
@@ -869,6 +958,29 @@ def run_experiment(
     state = state_lib.init_pool_state(host_x, host_y, prng.key(cfg.seed), dev)
     state = state_lib.set_start_state(state, cfg.n_start, n_classes=n_classes)
     strategy = get_strategy(cfg.strategy)
+    # The scenario engine, as the JAX package wires it: validated up front;
+    # the start state is drawn on the clean labels above (as the grid seeds
+    # its cells) and the flips replace the oracle after it; the costs are a
+    # per-point vector of the dataset; the drift moves the test batch a round.
+    scn = cfg.scenario if cfg.scenario is not None and cfg.scenario.active else None
+    costs = drift_dir = None
+    if scn is not None:
+        from distributed_active_learning_tpu_torch.scenarios import engine as scn_engine
+
+        scn_engine.validate_scenario(scn, strategy=strategy, max_rounds=cfg.max_rounds)
+        if cfg.forest.fit != "device":
+            raise ValueError(
+                f"scenario {scn.kind!r} runs inside the jitted round and "
+                "needs the device fit; use --fit device"
+            )
+        if scn.kind == "noisy_oracle" and scn.flip_prob > 0.0:
+            flips = scn_engine.flip_mask(scn, cfg.seed, state.n_pool, dev)
+            state = state.replace(
+                oracle_y=scn_engine.apply_flips(state.oracle_y, flips, n_classes))
+        if scn.kind == "cost_budget":
+            costs = scn_engine.make_costs(scn, state.n_pool, cfg.data.name, dev)
+        if scn.kind == "drift" and scn.drift_kind == "mean_shift":
+            drift_dir = scn_engine.drift_direction(scn, test_x.shape[-1], dev)
     if cfg.fused_round:
         reason = _fused_round_reason(cfg, want_metrics, n_classes)
         if reason is not None:
@@ -919,7 +1031,7 @@ def run_experiment(
             return attach_mesh(shard_forest(f, mesh), mesh)
     else:
         round_fn = make_round_fn(strategy, cfg.strategy.window_size, with_metrics=want_metrics,
-                                 n_classes=n_classes, fused=cfg.fused_round)
+                                 n_classes=n_classes, fused=cfg.fused_round, scenario=scn)
 
         def place_forest(f):
             return f
@@ -969,7 +1081,7 @@ def run_experiment(
         state = _run_chunked(
             cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
             fit_budget, result, dbg, start_round, metrics=metrics, n_classes=n_classes,
-            ckpt=ckpt)
+            ckpt=ckpt, scn=scn, costs=costs, drift_dir=drift_dir)
         result.final_labeled_mask = state_lib.global_labeled_mask(state).clone()
         if cfg.results_path:
             result.save(cfg.results_path, fmt="reference")
@@ -998,11 +1110,17 @@ def run_experiment(
         train_time = dbg.records[-1][1]
 
         with dbg.phase("round"):
-            state, picked, _, *rm = round_fn(forest, state, aux)
+            state, picked, _, *rm = round_fn(forest, state, aux, *(
+                (costs,) if costs is not None else ()))
             sync()
         score_time = dbg.records[-1][1]
         with dbg.phase("eval"):
-            acc = float(_accuracy(forest, test_x, test_y))
+            eval_x = test_x
+            if scn is not None and scn.kind == "drift":
+                # round_idx - 1 is the chunk's pre-reveal carry.round for this
+                # round: both drivers drift the same batch for a round.
+                eval_x = scn_engine.drift_apply(scn, test_x, round_idx - 1, direction=drift_dir)
+            acc = float(_accuracy(forest, eval_x, test_y))
         eval_time = dbg.records[-1][1]
         round_dict = None
         if want_metrics:

@@ -191,13 +191,22 @@ def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
     return state.replace(labeled_mask=new, round=state.round + 1)
 
 
-def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor) -> PoolState:
+def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor, *,
+                  abstain_key: Optional[prng.Key] = None, abstain_prob: float = 0.0) -> PoolState:
     """:func:`reveal` of the picks where ``keep`` is True only (the JAX
     package's ``labeled_mask.at[picked].max(keep)``): a batched round selects
     at the widest window of its experiments and reveals each experiment's
     own first ``window`` picks. With ``keep`` all True this is
-    :func:`reveal`. The probabilistic reveal of the noisy-oracle scenario
-    comes with the scenario slice."""
+    :func:`reveal`.
+
+    ``abstain_key`` and ``abstain_prob`` make the reveal probabilistic (the
+    noisy-oracle scenario): each kept pick is revealed only where
+    ``uniform(abstain_key, picked.shape) >= abstain_prob``. An abstained
+    pick writes nothing and re-enters the pool, so every count downstream
+    counts revealed labels, never picks."""
+    if abstain_key is not None:
+        keep = keep & (prng.uniform(abstain_key, picked_idx.shape, picked_idx.device)
+                       >= abstain_prob)
     dropped = torch.where(keep, picked_idx.to(torch.int64), -1)
     return state.replace(labeled_mask=_reveal_rows(state.labeled_mask, dropped),
                          round=state.round + 1)

@@ -52,9 +52,10 @@ Fallbacks, as the JAX package's: a host fit runs the experiments as serial
 ``run_experiment`` calls (one after another, each on the requested device),
 and so does a grid whose datasets disagree on feature width or class count.
 Refused by name: a sweep or grid under a device mesh (its chunk under a
-mesh comes with the mesh-and-pod slice), a grid's scenario axis or an active
-scenario (the scenario slice), and ``stream_round_events`` (the JAX
-package's own ``ValueError``).
+mesh comes with the mesh-and-pod slice), a scenario run as a seed sweep
+(it runs as a grid's scenario axis: :func:`run_grid` with ``scenarios=``,
+one scenario round a group inside the same graph), and
+``stream_round_events`` (the JAX package's own ``ValueError``).
 
 Checkpoints: one ``sweepstate_<round>.npz`` a sweep, one
 ``gridstate_<round>.npz`` a grid (``runtime/checkpoint.py``), the JAX
@@ -119,13 +120,13 @@ def _stack_ys(rows: list, with_metrics: bool) -> tuple:
 
 
 def _experiment_round(round_fn, forest, test_forest, state, aux, window, cap, end_round,
-                      accuracy):
-    """One experiment's round on its evaluated forests: the padded round,
-    the accuracy, and the masked no-op past its own stop; ``(out_state,
-    ys)``."""
+                      accuracy, costs=None):
+    """One experiment's round on its evaluated forests: the padded round
+    (with its cost vector under ``cost_budget``), the accuracy, and the
+    masked no-op past its own stop; ``(out_state, ys)``."""
     n_labeled = state_lib.labeled_count(state)
     active = (n_labeled < cap) & (state.round < end_round)
-    new_state, picked, _, *rm = round_fn(forest, state, aux, window)
+    new_state, picked, _, *rm = round_fn(forest, state, aux, window, costs)
     acc = accuracy(test_forest)
     out = state_lib.select_state(active, new_state, state)
     return out, (state.round + 1, n_labeled, acc, picked.to(torch.int32), active, *rm)
@@ -143,6 +144,8 @@ def make_grid_chunk_fn(
     use_test_fill: bool = False,
     with_metrics: bool = False,
     n_classes: int = 2,
+    scenarios=None,
+    drift_dirs=None,
 ):
     """``chunk_size`` rounds of the whole S x D x E grid as one launch; a
     sweep is the grid of one strategy and one dataset.
@@ -171,7 +174,20 @@ def make_grid_chunk_fn(
     padded round and a masked no-op past its own stop. The body reads
     nothing back to the host, so :class:`~.loop.GraphedChunk` captures it
     (``carry_arg=3``, ``input_args=(10, 11, 13, 14)``);
-    ``grid_chunk_fn.step`` is one round step, the graph's eager warm-up."""
+    ``grid_chunk_fn.step`` is one round step, the graph's eager warm-up.
+
+    ``scenarios`` (one :class:`~..config.ScenarioConfig` a group, the JAX
+    package's grid spelling) gives each group its own scenario round, and
+    the chunk two more arguments: ``flip_masks [C, n]`` (each cell's oracle
+    view, read by its fit and its round, is the dataset's labels with its
+    flips applied) and ``costs_ds [D, n]`` (each dataset's cost vector, read
+    by the knapsack of a ``cost_budget`` group). A ``drift`` group's cells
+    measure their accuracy on their own drifted test set, at their own round
+    (``drift_dirs``: the mean-shift direction of each group, or None), one K1
+    launch a cell; every other cell's test set stays in its dataset's
+    stacked launch. The scenario metrics are emitted by every group alike
+    (one set of metric fields across the cells); ``run_grid`` keeps each
+    cell's own."""
     from distributed_active_learning_tpu_torch.runtime.loop import (
         _accuracy,
         _accuracy_masked,
@@ -181,41 +197,65 @@ def make_grid_chunk_fn(
 
     G, D, E = len(strategies), n_datasets, n_seeds
     C = G * D * E
+    scn_on = scenarios is not None
+    if scn_on and len(scenarios) != G:
+        raise ValueError(f"{len(scenarios)} scenarios for {G} strategy groups")
+    scns = list(scenarios) if scn_on else [None] * G
+    emit_rare = any(s is not None and s.kind == "rare_event" for s in scns)
+    emit_cost = any(s is not None and s.kind == "cost_budget" for s in scns)
     round_fns = [make_padded_round_fn(s, window_pad, with_metrics=with_metrics,
-                                      n_classes=n_classes) for s in strategies]
+                                      n_classes=n_classes, scenario=scns[g],
+                                      emit_rare=emit_rare, emit_cost=emit_cost)
+                 for g, s in enumerate(strategies)]
+    drifts = [s is not None and s.kind == "drift" and s.drift_rate > 0.0 for s in scns]
+    costed = [s is not None and s.kind == "cost_budget" for s in scns]
+    drift_dirs = list(drift_dirs) if drift_dirs is not None else [None] * G
     cells_of = [[c for c in range(C) if (c // E) % D == d] for d in range(D)]
 
     def step(codes, x, oracle_y, grid: SweepState, seed_masks, lal_forests, fit_keys, windows,
-             test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns):
+             test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns, flip_masks=None,
+             costs_ds=None):
+        from distributed_active_learning_tpu_torch.scenarios import engine as scn_engine
+
         xs, oys, txs, tys = ([t[d] for d in range(D)] for t in (x, oracle_y, test_x, test_y))
         states = []
         for c in range(C):
             d = (c // E) % D
+            oy = oys[d] if not scn_on else scn_engine.apply_flips(oys[d], flip_masks[c],
+                                                                  n_classes)
             states.append(state_lib.PoolState(
-                x=xs[d], oracle_y=oys[d], labeled_mask=grid.labeled_mask[c], key=grid.key[c],
+                x=xs[d], oracle_y=oy, labeled_mask=grid.labeled_mask[c], key=grid.key[c],
                 round=grid.round[c], n_filled=n_valids[d] if use_fill else None))
         forests = [fit_fn(codes[(c // E) % D], edges[(c // E) % D], st,
                           prng.fold_in(fit_keys[c], st.round + 1))
                    for c, st in enumerate(states)]
-        pool_forests, test_forests = [None] * C, [None] * C
+        pool_forests, test_forests = [None] * C, list(forests)
         for d, cells in enumerate(cells_of):
-            group = [forests[c] for c in cells]
-            for c, pf, tf in zip(cells, forest_eval.evaluated_many(group, xs[d]),
-                                 forest_eval.evaluated_many(group, txs[d])):
-                pool_forests[c], test_forests[c] = pf, tf
+            for c, pf in zip(cells, forest_eval.evaluated_many([forests[c] for c in cells], xs[d])):
+                pool_forests[c] = pf
+            # A drift cell's test set is its own (drifted at its round): it
+            # is walked alone, inside its accuracy below.
+            steady = [c for c in cells if not drifts[c // (D * E)]]
+            for c, tf in zip(steady, forest_eval.evaluated_many([forests[c] for c in steady],
+                                                                txs[d])):
+                test_forests[c] = tf
         outs, per_cell = [], []
         for c, st in enumerate(states):
             g, d = c // (D * E), (c // E) % D
 
-            def accuracy(f, d=d):
+            def accuracy(f, d=d, g=g, rnd=st.round):
+                tx = txs[d]
+                if drifts[g]:
+                    tx = scn_engine.drift_apply(scns[g], tx, rnd, direction=drift_dirs[g])
                 if use_test_fill:
-                    return _accuracy_masked(f, txs[d], tys[d], test_ns[d])
-                return _accuracy(f, txs[d], tys[d])
+                    return _accuracy_masked(f, tx, tys[d], test_ns[d])
+                return _accuracy(f, tx, tys[d])
 
             out, ys = _experiment_round(
                 round_fns[g], pool_forests[c], test_forests[c], st,
                 StrategyAux(lal_forest=lal_forests[g], seed_mask=seed_masks[c]), windows[c],
-                label_caps[c], end_rounds[c], accuracy)
+                label_caps[c], end_rounds[c], accuracy,
+                costs=costs_ds[d] if costed[g] else None)
             outs.append(out)
             per_cell.append(ys)
         new = SweepState(labeled_mask=torch.stack([o.labeled_mask for o in outs]),
@@ -224,11 +264,13 @@ def make_grid_chunk_fn(
         return new, _stack_ys(per_cell, with_metrics)
 
     def grid_chunk_fn(codes, x, oracle_y, grid, seed_masks, lal_forests, fit_keys, windows,
-                      test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns):
+                      test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns,
+                      flip_masks=None, costs_ds=None):
         steps = []
         for _ in range(chunk_size):
             grid, ys = step(codes, x, oracle_y, grid, seed_masks, lal_forests, fit_keys, windows,
-                            test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns)
+                            test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns,
+                            flip_masks, costs_ds)
             steps.append(ys)
         ys = _stack_ys(steps, with_metrics)
         n_valids_cell = torch.repeat_interleave(n_valids, E).repeat(G)
@@ -297,12 +339,15 @@ def _meta(metrics, cfg, dev, **extra) -> None:
 
 
 def _append_rows(ys, results, n_pools, wall: float, want_metrics: bool, metrics, dbg,
-                 log_every: int, tags, labels) -> int:
+                 log_every: int, tags, labels, kinds=None) -> int:
     """A batched touchdown's host bookkeeping: each row's (experiment's or
     cell's) active rounds appended to its result, with the launch's wall
     split over every active row-round; one ``round`` event a row-round
     (``tags[i]`` first); the log lines; the transfer counter and memory
-    gauges. Returns the last round appended (-1 for none)."""
+    gauges. ``kinds`` (a scenario grid's cell scenarios) keeps each cell's
+    own scenario metrics only: every group emits both, so that a ``none``
+    cell's records carry a clean run's keys. Returns the last round appended
+    (-1 for none)."""
     from distributed_active_learning_tpu_torch.runtime import telemetry
 
     rounds_y, labeled_y, acc_y, _picked_y, active_y = ys[:5]
@@ -310,6 +355,13 @@ def _append_rows(ys, results, n_pools, wall: float, want_metrics: bool, metrics,
     rounds_np, labeled_np, acc_np = rounds_y.numpy(), labeled_y.numpy(), acc_y.numpy()
     total_active = int(active.sum())
     md = telemetry.stacked_sweep_metrics_to_dicts(ys[5], active) if want_metrics else None
+    if md is not None and kinds is not None:
+        for i, kind in enumerate(kinds):
+            for m in md[i]:
+                if kind != "rare_event":
+                    m.pop("rare_recall", None)
+                if kind != "cost_budget":
+                    m.pop("cost_spent", None)
     last = -1
     for i, res in enumerate(results):
         act = active[:, i]
@@ -366,8 +418,9 @@ def run_sweep(
     package's documented behaviour (each seed checkpoints into its own
     ``seed_<s>`` directory). ``fused_round`` is ignored: the padded round is
     unfused, as in the JAX package. Refused by name before any work: a
-    device mesh, an active scenario, and ``stream_round_events`` (with a
-    device fit). With ``checkpoint_dir`` and ``checkpoint_every`` one
+    device mesh, an active scenario (with a device fit: a scenario sweep is
+    :func:`run_grid` with ``scenarios=``, the JAX package's ``ValueError``),
+    and ``stream_round_events`` (with a device fit). With ``checkpoint_dir`` and ``checkpoint_every`` one
     ``sweepstate_<round>.npz`` covers every experiment, and a resumed sweep
     continues each experiment from its own round."""
     from distributed_active_learning_tpu_torch.data.datasets import get_dataset
@@ -410,6 +463,15 @@ def run_sweep(
             out.append(run_experiment(scfg, bundle=bundle, debugger=debugger, metrics=metrics,
                                       device=dev))
         return out
+    if cfg.scenario is not None and cfg.scenario.active:
+        # Scenario runs sweep through the grid launcher (a seed sweep is its
+        # one-strategy shape), as in the JAX package.
+        raise ValueError(
+            f"scenario {cfg.scenario.kind!r} is not wired into the batched "
+            "seed sweep; run it as a grid axis (runtime.sweep.run_grid "
+            "scenarios=..., or run.py --scenario with --sweep-seeds, which "
+            "routes there)"
+        )
     _refuse_stream_events(cfg, "sweep")
 
     if bundle is None:
@@ -541,12 +603,13 @@ def run_sweep(
 
 @dataclasses.dataclass
 class GridCell:
-    """One (strategy, dataset, seed) cell of a grid run."""
+    """One (strategy, dataset, seed[, scenario]) cell of a grid run."""
 
     strategy: str
     dataset: str
     seed: int
     window: int
+    scenario: str = "none"
     result: ExperimentResult = dataclasses.field(default_factory=ExperimentResult)
 
 
@@ -566,14 +629,35 @@ class GridResult:
     pipeline_stats: Optional[object] = None
     graph_stats: Optional[dict] = None
 
+    def cell(self, strategy: str, dataset: str, seed: int,
+             scenario: Optional[str] = None) -> GridCell:
+        """The cell of (strategy, dataset, seed), of ``scenario`` when the
+        grid has a scenario axis (else the first such cell)."""
+        for c in self.cells:
+            if (c.strategy, c.dataset, c.seed) == (strategy, dataset, int(seed)):
+                if scenario is None or c.scenario == scenario:
+                    return c
+        raise KeyError(f"no grid cell ({strategy}, {dataset}, {seed}, {scenario})")
+
+    def results_for(self, strategy: str, dataset: Optional[str] = None,
+                    scenario: Optional[str] = None) -> List[ExperimentResult]:
+        """One strategy's results in seed order (optionally of one dataset
+        and one scenario): what ``results.strategy_curves`` stacks."""
+        return [c.result for c in self.cells
+                if c.strategy == strategy and (dataset is None or c.dataset == dataset)
+                and (scenario is None or c.scenario == scenario)]
+
 
 def _grid_result_path(path: str, strategy: str, dataset: str, seed: int,
-                      with_dataset: bool) -> str:
+                      with_dataset: bool, scenario: str = "none",
+                      with_scenario: bool = False) -> str:
     """Per-cell results file: ``curve.txt`` -> ``curve_margin_s3.txt`` (with
-    the dataset's name too once the grid has a dataset axis)."""
+    the dataset's name once the grid has a dataset axis, and the scenario's
+    once it has a scenario axis)."""
     stem, ext = os.path.splitext(path)
     ds = f"_{dataset}" if with_dataset else ""
-    return f"{stem}_{strategy}{ds}_s{seed}{ext}"
+    sc = f"_{scenario}" if with_scenario else ""
+    return f"{stem}_{strategy}{ds}{sc}_s{seed}{ext}"
 
 
 def run_grid(
@@ -605,9 +689,16 @@ def run_grid(
     ``DataBundle`` s (else the registry loads them). A host fit, or datasets
     that disagree on feature width or class count, fall back to the serial
     S x D x E loop of ``run_experiment`` calls (``serial_fallback`` is then
-    True), as in the JAX package. Refused by name before any work: a device
-    mesh, a scenario axis (``scenarios`` with an active entry) or an active
-    ``cfg.scenario``, and ``stream_round_events`` (with a device fit). The
+    True), as in the JAX package. ``scenarios`` (kind names or
+    :class:`~..config.ScenarioConfig` s; by default ``cfg.scenario`` when it
+    is active) is the scenario axis, crossed with the strategies into
+    scenario-major groups (cells in (scenario, strategy, dataset, seed)
+    order, ``GridCell.scenario`` naming each); an axis of ``none`` only is
+    the clean grid, and duplicate kinds are refused. Each cell equals its
+    serial ``run_experiment`` under its scenario. Refused by name before any
+    work: a device mesh (with a scenario axis too, naming item 8 of the
+    mesh slice), a scenario axis with a host fit (the JAX package's
+    ``ValueError``), and ``stream_round_events`` (with a device fit). The
     ops plane shows the gauges ``grid_cells``, ``grid_cells_frozen``,
     ``grid_eta_seconds`` (0 once the stream is over) and the counter
     ``grid_cell_rounds``. Checkpoints write one ``gridstate_<round>.npz``
@@ -639,14 +730,47 @@ def run_grid(
         raise ValueError(f"{len(windows)} windows for {S} strategies")
     window_pad = max(windows)
     dbg = debugger or Debugger(enabled=False)
-    scenario_axis = scenarios is not None and any(
-        (s if isinstance(s, str) else getattr(s, "kind", "none")) != "none" for s in scenarios)
+
+    # The scenario axis, normalized as the JAX package's: None (the clean
+    # grid, its program unchanged) or ScenarioConfigs crossed with the
+    # strategies into scenario-major groups.
+    from distributed_active_learning_tpu_torch.config import ScenarioConfig
+
+    if scenarios is None and cfg.scenario is not None and cfg.scenario.active:
+        scenarios = [cfg.scenario]
+    scn_list = None
+    if scenarios is not None:
+        scn_list = [s if isinstance(s, ScenarioConfig) else ScenarioConfig(kind=str(s))
+                    for s in scenarios]
+        if not scn_list:
+            raise ValueError("run_grid scenarios axis must not be empty")
+        kinds = [s.kind for s in scn_list]
+        if len(set(kinds)) != len(kinds):
+            raise ValueError(f"duplicate scenario kinds in grid axis: {kinds}")
+        if not any(s.active for s in scn_list):
+            scn_list = None  # an all-none axis is the clean grid
+    scenario_axis = scn_list is not None
     _not_ported(cfg, metrics, batched="grid", scenario_axis=scenario_axis)
     _validate_quantize(cfg)
+    group_scns = None
+    if scenario_axis:
+        if cfg.forest.fit != "device":
+            raise ValueError(
+                "scenario grid axes run inside the jitted round and need "
+                "the device fit; use --fit device"
+            )
+        base_strategies, base_windows = list(strategies), list(windows)
+        strategies = [st for _ in scn_list for st in base_strategies]
+        windows = [w for _ in scn_list for w in base_windows]
+        group_scns = [sc for sc in scn_list for _ in base_strategies]
+        S = len(strategies)
+    scn_by_kind = {sc.kind: sc for sc in scn_list} if scenario_axis else {}
 
     def cells_in_order():
-        return [GridCell(strategy=s, dataset=d, seed=e, window=w)
-                for s, w in zip(strategies, windows) for d in datasets for e in seeds]
+        return [GridCell(strategy=s, dataset=d, seed=e, window=w,
+                         scenario=group_scns[g].kind if scenario_axis else "none")
+                for g, (s, w) in enumerate(zip(strategies, windows))
+                for d in datasets for e in seeds]
 
     bundle_cache = {}
 
@@ -662,13 +786,17 @@ def run_grid(
         dbg.debug(f"grid launcher falling back to serial cells: {reason}")
         cells = cells_in_order()
         for c in cells:
+            scn = scn_by_kind.get(c.scenario)
+            sc_tag = f"_{scn.kind}" if scn is not None and scn.active else ""
             ccfg = dataclasses.replace(
                 cfg, seed=c.seed, data=dataclasses.replace(cfg.data, name=c.dataset),
                 strategy=dataclasses.replace(cfg.strategy, name=c.strategy, window_size=c.window),
+                scenario=scn if scn is not None else ScenarioConfig(),
                 results_path=(_grid_result_path(cfg.results_path, c.strategy, c.dataset, c.seed,
-                                                 D > 1) if cfg.results_path else None),
+                                                 D > 1, c.scenario, scenario_axis)
+                              if cfg.results_path else None),
                 checkpoint_dir=(os.path.join(cfg.checkpoint_dir,
-                                             f"{c.strategy}_{c.dataset}_seed_{c.seed}")
+                                             f"{c.strategy}_{c.dataset}{sc_tag}_seed_{c.seed}")
                                 if cfg.checkpoint_dir else None))
             c.result = run_experiment(ccfg, bundle=bundle_of(c.dataset), debugger=debugger,
                                       metrics=metrics, device=dev)
@@ -754,8 +882,34 @@ def run_grid(
         else:
             lal_forests.append(None)
     lal_forests = tuple(lal_forests)
+
+    # The scenario inputs: a flip mask a cell, a cost vector a dataset (each
+    # padded to the slab) and the mean-shift direction of each drift group.
+    scn_tail, drift_dirs = (), None
+    if scenario_axis:
+        from distributed_active_learning_tpu_torch.scenarios import engine as scn_engine
+
+        for sc, so in zip(group_scns, strat_objs):
+            scn_engine.validate_scenario(sc, strategy=so, max_rounds=cfg.max_rounds)
+        flip_masks = torch.stack([
+            torch.nn.functional.pad(
+                scn_engine.flip_mask(group_scns[g], seeds[e], n_valids_host[d], dev),
+                (0, n_slab - n_valids_host[d]))
+            for g, d, e in order])
+        cost_scn = next((sc for sc in scn_list if sc.kind == "cost_budget"), None)
+        costs_ds = torch.stack([
+            torch.nn.functional.pad(
+                scn_engine.make_costs(cost_scn, n_valids_host[d], name, dev)
+                if cost_scn is not None else torch.ones(n_valids_host[d], device=dev),
+                (0, n_slab - n_valids_host[d]), value=1.0)
+            for d, name in enumerate(datasets)])
+        scn_tail = (flip_masks, costs_ds)
+        drift_dirs = [scn_engine.drift_direction(sc, x.shape[-1], dev)
+                      if sc.kind == "drift" and sc.drift_kind == "mean_shift" else None
+                      for sc in group_scns]
     _meta(metrics, cfg, dev, grid_strategies=strategies, grid_seeds=seeds,
-          grid_datasets=datasets, grid_windows=windows, grid_scenarios=None)
+          grid_datasets=datasets, grid_windows=windows,
+          grid_scenarios=[sc.kind for sc in group_scns] if scenario_axis else None)
 
     cells = cells_in_order()
     start_rounds = [0] * C
@@ -764,7 +918,9 @@ def run_grid(
     if ckpt_enabled:
         from distributed_active_learning_tpu_torch.runtime import checkpoint as ckpt_lib
 
-        ckpt_fp = ckpt_lib.grid_fingerprint(cfg, strategies, seeds, datasets, windows)
+        ckpt_fp = ckpt_lib.grid_fingerprint(
+            cfg, strategies, seeds, datasets, windows,
+            scenarios=[sc.kind for sc in scn_list] if scenario_axis else None)
         restored = ckpt_lib.restore_latest_grid(cfg.checkpoint_dir, n_store=n_slab, n_cells=C,
                                                 fingerprint=ckpt_fp)
         if restored is not None:
@@ -789,16 +945,21 @@ def run_grid(
     body = make_grid_chunk_fn(strat_objs, window_pad, K,
                               _device_fit_core(cfg, fit_budget, n_classes), n_datasets=D,
                               n_seeds=E, use_fill=use_fill, use_test_fill=use_test_fill,
-                              with_metrics=want_metrics, n_classes=n_classes)
+                              with_metrics=want_metrics, n_classes=n_classes,
+                              scenarios=group_scns, drift_dirs=drift_dirs)
     chunk = (GraphedChunk(body, carry_arg=3, input_args=(10, 11, 13, 14))
              if dev.type == "cuda" else body)
     launches = telemetry.LaunchTracker(metrics, "grid_chunk_scan", fn=chunk)
     # label_cap = 0 and n_known = -max remaining: "every cell reached its
     # cap" is ChunkDriveControl's >= test; the min-window lattice
-    # under-estimates every cell's progress, so its vetoes stay safe.
+    # under-estimates every cell's progress, so its vetoes stay safe. An
+    # abstaining group reveals less than a window a round, the other way:
+    # its grids run with the lattice off (window 0).
     rem0 = max(cap - c0 for cap, c0 in zip(caps_host, counts0))
-    ctl = pipeline_lib.ChunkDriveControl(K, min(windows), 0, cfg.max_rounds, -rem0,
-                                         max(start_rounds))
+    abstaining = scenario_axis and any(
+        sc.kind == "noisy_oracle" and sc.abstain_prob > 0.0 for sc in group_scns)
+    ctl = pipeline_lib.ChunkDriveControl(K, 0 if abstaining else min(windows), 0,
+                                         cfg.max_rounds, -rem0, max(start_rounds))
     if not ctl.already_done:
         _fit_guard(counts0, caps_host, windows_by_cell, cfg.max_rounds, fit_budget)
 
@@ -836,13 +997,14 @@ def run_grid(
 
     def dispatch(gs, idx):
         out = chunk(codes, x, oracle_y, gs, seed_masks, lal_forests, fit_keys, windows_cell,
-                    test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns)
+                    test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns, *scn_tail)
         if ckpt_enabled:
             snapshots.take(idx, out[0].labeled_mask, out[0].key, out[0].round)
         return out
 
     results = [c.result for c in cells]
-    tags = [dict(exp=c, strategy=cell.strategy, dataset=cell.dataset, seed=cell.seed)
+    tags = [dict(exp=c, strategy=cell.strategy, dataset=cell.dataset, seed=cell.seed,
+                 **({"scenario": cell.scenario} if scenario_axis else {}))
             for c, cell in enumerate(cells)]
     labels = [f"{cell.strategy}/{cell.dataset}/seed {cell.seed}" for cell in cells]
 
@@ -851,7 +1013,8 @@ def run_grid(
         if n_active == 0:
             return
         last = _append_rows(ys, results, nv_cell_host, wall, want_metrics, metrics, dbg,
-                            cfg.log_every, tags, labels)
+                            cfg.log_every, tags, labels,
+                            kinds=[cell.scenario for cell in cells] if scenario_axis else None)
         ctl.note_round(max(ctl.round_idx, last))
         obs_grid_progress(int(ys[4].sum()))
         if ckpt_enabled and ctl.checkpoint_due(cfg.checkpoint_every):
@@ -875,7 +1038,8 @@ def run_grid(
     if cfg.results_path:
         for cell in cells:
             cell.result.save(_grid_result_path(cfg.results_path, cell.strategy, cell.dataset,
-                                               cell.seed, D > 1), fmt="reference")
+                                               cell.seed, D > 1, cell.scenario, scenario_axis),
+                             fmt="reference")
     captures = getattr(chunk, "captures", 0)
     return GridResult(
         cells=cells,

@@ -63,8 +63,10 @@ class RoundMetrics(NamedTuple):
 
     Every field is a 0-d tensor except ``picked_hist`` (``[n_classes]``
     int32); stacked over a chunk each gains a leading ``[K]``.
-    ``rare_recall`` and ``cost_spent`` belong to scenarios, which are not
-    ported: they stay None.
+    ``rare_recall`` (a ``rare_event`` run's recall of its rare class) and
+    ``cost_spent`` (a ``cost_budget`` run's spend this round) are None
+    outside their scenario; the dict converters emit a key only for a field
+    that is there.
     """
 
     score_min: torch.Tensor     # worst picked score (selection-order sense)

@@ -1,8 +1,10 @@
 """The port's bench prints one parseable JSON line per mode (``--device cpu``
 at tiny sizes; score and density also under ``--kernel gather``; lal with
 its regressor fitted from the fixture, and from a forest file with and
-without scikit-learn; sweep and grid, with and without the serial arm) with
-the keys the JAX bench uses for the same legs, and the
+without scikit-learn; sweep and grid, with and without the serial arm, the
+grid with its scenario leg) with the keys the JAX bench uses for the same
+legs; the scenario grid against the JAX package's ``run_grid`` and the serial
+cells, its fingerprint and its checkpoints across both packages; and the
 port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
 of ``tests/test_pipeline.py`` on a fake, host-only dispatch)."""
 
@@ -60,6 +62,100 @@ def _drive(depth, total_rounds, k=3, may_dispatch=None, on_veto=None):
         0, dispatch=dispatch, touchdown=touchdown, continue_after=continue_after,
         depth=depth, may_dispatch=may_dispatch, on_veto=on_veto)
     return calls, touched, final, stats
+
+
+def _scenario_grid_matches_jax(tmp_path):
+    """The scenario grid: the JAX package's scenario families (its
+    ``tests/test_scenarios.py`` SCENARIOS and configuration) x entropy and
+    density x seeds 0 and 1, 20 cells in one stream, metrics on. Each cell
+    equals its serial ``run_experiment`` in the port (records, every metric,
+    final mask). Against the JAX package's ``run_grid``: the entropy cells
+    bit-equal (records; metrics but pool_entropy, which is held to
+    ``POOL_ENTROPY_RTOL``), the density cells in their first round and their
+    metric keys (a density pick can differ from JAX's at a tie at score 0,
+    where the similarity mass clamps to 0 in one package and not in the other:
+    ROADMAP queue 3; the mass agrees only to ``MASS_RTOL``). The scenario
+    grid's fingerprint is JAX's, and its ``gridstate_`` files resume across
+    both packages to the uninterrupted records."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from distributed_active_learning_tpu import config as j_config
+    from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
+    from distributed_active_learning_tpu.runtime import sweep as j_sweep
+    from distributed_active_learning_tpu_torch import config as t_config
+    from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+    from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    kinds = [dict(), dict(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+             dict(kind="rare_event", rare_class=1), dict(kind="drift", drift_rate=0.3),
+             dict(kind="cost_budget", cost_budget=6.0)]
+    j_axis = [j_config.ScenarioConfig(**kw) for kw in kinds]
+    t_axis = [t_config.ScenarioConfig(**kw) for kw in kinds]
+    jcfg = j_config.ExperimentConfig(
+        data=j_config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+        forest=j_config.ForestConfig(n_trees=4, max_depth=3, fit="device", fit_budget=96),
+        strategy=j_config.StrategyConfig(name="entropy", window_size=8), n_start=8,
+        max_rounds=3, rounds_per_launch=2, log_every=0, collect_metrics=True)
+    tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+    axes = (["entropy", "density"], [0, 1])
+    want = j_sweep.run_grid(jcfg, *axes, scenarios=j_axis)
+    got = t_sweep.run_grid(tcfg, *axes, scenarios=t_axis, device="cpu")
+    assert not got.serial_fallback and len(got.cells) == 20
+    rounds = lambda res: [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+    for tc, jc in zip(got.cells, want.cells, strict=True):
+        assert (tc.strategy, tc.seed, tc.scenario) == (jc.strategy, jc.seed, jc.scenario)
+        scn = t_axis[[kw.get("kind", "none") for kw in kinds].index(tc.scenario)]
+        serial = t_loop.run_experiment(dataclasses.replace(
+            tcfg, seed=tc.seed, rounds_per_launch=1, scenario=scn,
+            strategy=dataclasses.replace(tcfg.strategy, name=tc.strategy)), device="cpu")
+        assert rounds(tc.result) == rounds(serial), (tc.strategy, tc.scenario, tc.seed)
+        assert [r.metrics for r in tc.result.records] == [r.metrics for r in serial.records]
+        assert torch.equal(tc.result.final_labeled_mask, serial.final_labeled_mask)
+        assert [list(r.metrics) for r in tc.result.records] == [
+            list(r.metrics) for r in jc.result.records]
+        n = None if tc.strategy == "entropy" else 1
+        assert rounds(tc.result)[:n] == rounds(jc.result)[:n], (tc.strategy, tc.scenario)
+        if tc.strategy == "entropy":
+            for a, b in zip(tc.result.records, jc.result.records):
+                for field, v in b.metrics.items():
+                    if field == "pool_entropy":
+                        assert abs(a.metrics[field] - v) <= POOL_ENTROPY_RTOL * abs(v)
+                    else:
+                        assert a.metrics[field] == v, (tc.scenario, a.round, field)
+    assert got.cell("entropy", "checkerboard2x2", 1, scenario="drift").scenario == "drift"
+    assert len(got.results_for("density", scenario="cost_budget")) == 2
+    names = [kw.get("kind", "none") for kw in kinds]
+    fp_args = (["entropy"] * 5, [0, 1], ["checkerboard2x2"], [8] * 5)
+    assert t_ckpt.grid_fingerprint(tcfg, *fp_args, scenarios=names) == j_ckpt.grid_fingerprint(
+        jcfg, *fp_args, scenarios=names)
+    assert t_ckpt.grid_fingerprint(tcfg, *fp_args) != t_ckpt.grid_fingerprint(
+        tcfg, *fp_args, scenarios=names)
+
+    # gridstate_ files across the packages: a noisy oracle and a cost budget
+    # x entropy x 2 seeds, 3 rounds; each package's round-2 file resumed by
+    # the other to the uninterrupted records.
+    j_small, t_small = j_axis[1::3], t_axis[1::3]
+    ck = lambda name, r: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1,
+                              max_rounds=r)
+    j_full = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_j", 3)), ["entropy"], [0, 1],
+                              scenarios=j_small)
+    t_full = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_t", 3)), ["entropy"], [0, 1],
+                              scenarios=t_small, device="cpu")
+    assert [rounds(c.result) for c in t_full.cells] == [rounds(c.result) for c in j_full.cells]
+    for name in ("s_j", "s_t"):
+        os.remove(tmp_path / name / "gridstate_3.npz")
+    resumed_t = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_j", 1)), ["entropy"], [0, 1],
+                                 scenarios=t_small, device="cpu")
+    resumed_j = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_t", 1)), ["entropy"], [0, 1],
+                                 scenarios=j_small)
+    for a, b, c in zip(resumed_t.cells, resumed_j.cells, t_full.cells, strict=True):
+        assert rounds(a.result) == rounds(b.result) == rounds(c.result), c.scenario
+        assert torch.equal(a.result.final_labeled_mask, c.result.final_labeled_mask)
 
 
 def test_bench_modes_print_one_json_line(tmp_path):
@@ -152,11 +248,17 @@ def test_bench_modes_print_one_json_line(tmp_path):
     for key in ("grid_cells_rounds_per_second", "serial_cells_rounds_per_second", "grid_speedup",
                 "grid_seconds"):
         assert gr[key] > 0, key
-    assert "scenario slice" in gr["scenario_skipped"]
+    # The scenario leg: the JAX bench's axis x entropy x the seeds, one stream.
+    assert gr["scenario_axis"] == ["none", "noisy_oracle", "cost_budget", "rare_event", "drift"]
+    assert gr["scenario_cells"] == 10 and gr["scenario_launches"] == 2
+    assert gr["scenario_recompiles_after_warmup"] == 0
+    assert gr["scenario_seconds"] > 0 and gr["scenario_cells_rounds_per_second"] > 0
     rc, gr = _line(["--mode", "grid", *_TINY, *batched, "--grid-experiments", "1",
                     "--grid-strategies", "uncertainty", "--no-baseline"])
     assert rc == 0 and gr["baseline_skipped"] == {"reason": "no_baseline_flag"}
     assert "grid_speedup" not in gr
+
+    _scenario_grid_matches_jax(tmp_path)
 
     rc, var = _line(["--mode", "variants", "--variants", "v0,v1,w12,r1,wf", *_TINY])
     assert rc == 0 and [r["variant"] for r in var["variants"]] == ["v0", "v1", "w12", "r1", "wf"]

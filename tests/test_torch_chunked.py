@@ -35,7 +35,11 @@ of unequal widths (120 and 200 rows, the fill watermark) against the JAX
 package's ``run_grid`` and both packages' serial cells; sweep and grid
 checkpoints written by either package resumed by the other to the same
 records; a ``gridstate_`` resume refused for another strategy axis; the
-batched fingerprints equal in both packages."""
+batched fingerprints equal in both packages.
+
+Scenarios: each family of the JAX package's scenario tests (and the rotation
+drift) chunked at K = 2 with metrics equals the port's per-round run and the
+JAX package's chunked run."""
 
 import dataclasses
 import os
@@ -159,7 +163,8 @@ def _metrics_chunk_parity():
 
 
 def _fingerprints_agree():
-    """The same experiment hashes to the same fingerprint in both packages."""
+    """The same experiment hashes to the same fingerprint in both packages,
+    a scenario's included."""
     variants = [
         {},
         dict(max_depth=11),
@@ -177,6 +182,17 @@ def _fingerprints_agree():
             == t_ckpt.config_fingerprint(_cfgs(False, max_rounds=9, rounds_per_launch=3)[1]))
     assert (t_ckpt.config_fingerprint(_cfgs(False)[1])
             != t_ckpt.config_fingerprint(_cfgs(False, strategy="margin")[1]))
+    # An active scenario widens the identity as in JAX; "none" leaves it.
+    jbase, tbase = _cfgs(False)
+    prints = set()
+    for kw in _SCENARIO_KW:
+        jcfg = dataclasses.replace(jbase, scenario=j_config.ScenarioConfig(**kw))
+        tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+        assert t_ckpt.config_fingerprint(tcfg) == j_ckpt.config_fingerprint(jcfg), kw
+        prints.add(t_ckpt.config_fingerprint(tcfg))
+    assert len(prints) == len(_SCENARIO_KW)
+    assert t_ckpt.config_fingerprint(tbase) == t_ckpt.config_fingerprint(
+        dataclasses.replace(tbase, scenario=t_config.ScenarioConfig()))
 
 
 def _final_mask(ckpt_dir):
@@ -301,6 +317,51 @@ def test_chunked_matches_jax(tmp_path):
     _sweep_matches_serial_and_jax(tmp_path)
     _grid_matches_serial_cells()
     _grid_unequal_widths_and_checkpoints(tmp_path)
+    _scenario_chunks_match()
+
+
+# The JAX package's scenario families (tests/test_scenarios.py SCENARIOS) and
+# the rotation drift.
+_SCENARIO_KW = [
+    dict(),
+    dict(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+    dict(kind="rare_event", rare_class=1),
+    dict(kind="drift", drift_rate=0.3),
+    dict(kind="cost_budget", cost_budget=6.0),
+    dict(kind="drift", drift_rate=0.3, drift_kind="rotation"),
+]
+
+
+def _scenario_chunks_match():
+    """Each scenario family chunked (K = 2, metrics on, the JAX package's
+    scenario test configuration) equals the port's per-round run (records,
+    every metric, final mask) and the JAX package's chunked run (records;
+    metrics but pool_entropy bit-equal, pool_entropy to
+    ``POOL_ENTROPY_RTOL``)."""
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    for kw in _SCENARIO_KW:
+        jcfg = j_config.ExperimentConfig(
+            data=j_config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+            forest=j_config.ForestConfig(n_trees=4, max_depth=3, fit="device", fit_budget=96),
+            strategy=j_config.StrategyConfig(name="entropy", window_size=8), n_start=8,
+            max_rounds=3, rounds_per_launch=2, log_every=0, collect_metrics=True,
+            scenario=j_config.ScenarioConfig(**kw))
+        tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+        got = t_loop.run_experiment(tcfg, device="cpu")
+        per_round = t_loop.run_experiment(dataclasses.replace(tcfg, rounds_per_launch=1),
+                                          device="cpu")
+        assert got.pipeline_stats is not None and per_round.pipeline_stats is None
+        assert _key(got) == _key(per_round), kw
+        assert [r.metrics for r in got.records] == [r.metrics for r in per_round.records], kw
+        assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask), kw
+        want = j_loop.run_experiment(jcfg)
+        assert got.to_reference_log() == want.to_reference_log(), kw
+        for a, b in zip(got.records, want.records, strict=True):
+            assert {k: v for k, v in a.metrics.items() if k != "pool_entropy"} == {
+                k: v for k, v in b.metrics.items() if k != "pool_entropy"}, (kw, a.round)
+            assert abs(a.metrics["pool_entropy"] - b.metrics["pool_entropy"]) <= (
+                POOL_ENTROPY_RTOL * abs(b.metrics["pool_entropy"])), (kw, a.round)
 
 
 def _quantized_resume(tmp_path):

@@ -683,3 +683,101 @@ def test_sweep_and_grid_on_the_card(cuda):
     for a, b in zip(grids[0].cells, grids[1].cells, strict=True):
         assert rounds(a.result) == rounds(b.result)
         assert torch.equal(a.result.final_labeled_mask.cpu(), b.result.final_labeled_mask)
+
+
+def test_scenarios_on_the_card(cuda):
+    """The scenario engine on the card at the CPU tests' size (checkerboard
+    of 96 rows, 4 trees of depth 3, window 8, entropy, metrics on), for each
+    family (a noisy oracle flipping and abstaining, a rare class, a
+    mean-shift and a rotation drift, a cost budget, and none): the graphed
+    chunk (K = 2) equals the per-round driver on the card (records, every
+    metric, final mask), and both equal the CPU's plain versions (the pool
+    entropy, native float32 on each device, to POOL_ENTROPY_RTOL); the
+    scenario grid (the families but rotation x 2 seeds, one CUDA graph a
+    chunk) equals its serial cells and the CPU's grid, K1 launching 4 times a
+    round step (pool, steady test sets, the two drift cells' own) and no
+    graph captured again. The scenario draws (flips, costs, the drift
+    direction through erfinv_f32, drift_apply) and the knapsack are the
+    CPU's bits."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.ops.topk import knapsack_top_k
+    from distributed_active_learning_tpu_torch.runtime import loop, sweep
+    from distributed_active_learning_tpu_torch.scenarios import engine
+
+    K = 2
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+        forest=config.ForestConfig(n_trees=4, max_depth=3, fit="device", kernel="pallas",
+                                   fit_budget=96),
+        strategy=config.StrategyConfig(name="entropy", window_size=8), n_start=8, max_rounds=3,
+        rounds_per_launch=K, collect_metrics=True, log_every=0)
+    families = [
+        config.ScenarioConfig(),
+        config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+        config.ScenarioConfig(kind="rare_event", rare_class=1),
+        config.ScenarioConfig(kind="drift", drift_rate=0.3),
+        config.ScenarioConfig(kind="cost_budget", cost_budget=6.0),
+        config.ScenarioConfig(kind="drift", drift_rate=0.3, drift_kind="rotation"),
+    ]
+
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    def full(res):
+        return [(r.round, r.n_labeled, r.accuracy, r.metrics) for r in res.records]
+
+    def same_as_cpu(res, cpu_res):
+        """Records and final mask equal; metrics equal but the pool entropy,
+        native float32 on each device, to POOL_ENTROPY_RTOL."""
+        assert [x[:3] for x in full(res)] == [x[:3] for x in full(cpu_res)]
+        for a, b in zip(res.records, cpu_res.records, strict=True):
+            for field, v in b.metrics.items():
+                if field == "pool_entropy":
+                    assert abs(a.metrics[field] - v) <= POOL_ENTROPY_RTOL * abs(v)
+                else:
+                    assert a.metrics[field] == v, (a.round, field)
+        assert torch.equal(res.final_labeled_mask.cpu(), cpu_res.final_labeled_mask)
+
+    for scn in families:
+        c = dataclasses.replace(base, scenario=scn)
+        chunked = loop.run_experiment(c, device=cuda)
+        per_round = loop.run_experiment(dataclasses.replace(c, rounds_per_launch=1), device=cuda)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        assert chunked.graph_stats["captures"] == 1, scn
+        assert full(chunked) == full(per_round), scn
+        assert torch.equal(chunked.final_labeled_mask, per_round.final_labeled_mask)
+        same_as_cpu(chunked, on_cpu)
+
+    axis = families[:5]
+    grid = sweep.run_grid(base, ["entropy"], [0, 1], scenarios=axis, device=cuda)
+    grid_cpu = sweep.run_grid(base, ["entropy"], [0, 1], scenarios=axis, device="cpu")
+    assert grid.recompiles_after_warmup == 0 and grid.graph_stats["captures"] == 1
+    assert grid.graph_stats["launches_per_replay"]["trees_pallas.launches"] == 4 * K
+    for a, b in zip(grid.cells, grid_cpu.cells, strict=True):
+        same_as_cpu(a.result, b.result)
+        serial = loop.run_experiment(dataclasses.replace(
+            base, seed=a.seed, scenario=axis[[s.kind for s in axis].index(a.scenario)]),
+            device=cuda)
+        assert full(a.result) == full(serial), a.scenario
+        assert torch.equal(a.result.final_labeled_mask, serial.final_labeled_mask)
+
+    for draw in (lambda d: engine.flip_mask(families[1], 3, 5000, d),
+                 lambda d: engine.make_costs(dataclasses.replace(families[4], cost_spread=3.3),
+                                             5000, "x", d),
+                 lambda d: engine.drift_direction(families[3], 30, d),
+                 lambda d: prng.normal(prng.key(11), (5000,), d)):
+        assert torch.equal(draw(cuda).cpu(), draw("cpu"))
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(500, 30)).astype(np.float32))
+    for scn in (families[3], families[5]):
+        for r in range(6):
+            a = engine.drift_apply(scn, x.to(cuda), torch.tensor(r, dtype=torch.int32,
+                                                                 device=cuda))
+            assert torch.equal(a.cpu(), engine.drift_apply(scn, x, torch.tensor(r)))
+    rng = np.random.default_rng(1)
+    scores = torch.from_numpy(rng.choice([0.0, 0.5, 1.0], 5000).astype(np.float32))
+    costs = engine.make_costs(families[4], 5000, "x")
+    mask = torch.from_numpy(rng.random(5000) < 0.7)
+    got = knapsack_top_k(scores.to(cuda), costs.to(cuda), mask.to(cuda), 100, 60.0)
+    want = knapsack_top_k(scores, costs, mask, 100, 60.0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

@@ -10,13 +10,17 @@ picks, the final mask and the test-set probabilities (a mean over trees in
 XLA's summation order) are identical. Unfused, the RoundMetrics of every
 round equal the JAX package's field by field (bit-equal), the MetricsWriter
 JSONL has the JAX writer's event kinds and keys, and a checkpointed run
-resumes to the uninterrupted run's records, metrics and final mask. Also:
+resumes to the uninterrupted run's records, metrics and final mask. Each
+scenario family of the JAX package's scenario tests (and the rotation
+drift) runs per round with metrics equal to the JAX package's run, and the
+fused round refuses a scenario with JAX's reason. Also:
 the port runs in a fresh interpreter without importing JAX or the JAX
 package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
 the kernel-variant sweep included; its metrics JSONL renders through
 ``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
 registry's Prometheus text, and it refuses what it does not carry yet by
-name."""
+name (a scenario under a mesh naming item 8 of the mesh slice), and refuses
+what the JAX package refuses of scenarios with its messages."""
 
 import dataclasses
 import json
@@ -100,6 +104,25 @@ _UNFUSED_ONLY = {
     "4 classes, host fit, entropy": dict(bundle=_FOUR, fit="host", strategy="entropy"),
     "lal, regressor fitted from the fixture": dict(strategy="lal", options=_LAL_OPTIONS),
 }
+
+
+# The JAX package's scenario families and their configuration
+# (tests/test_scenarios.py: SCENARIOS, _cfg).
+_SCENARIOS = [
+    j_config.ScenarioConfig(),
+    j_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+    j_config.ScenarioConfig(kind="rare_event", rare_class=1),
+    j_config.ScenarioConfig(kind="drift", drift_rate=0.3),
+    j_config.ScenarioConfig(kind="cost_budget", cost_budget=6.0),
+]
+
+
+def _scenario_cfg(scenario, **kw):
+    return j_config.ExperimentConfig(
+        data=j_config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+        forest=j_config.ForestConfig(n_trees=4, max_depth=3, fit="device", fit_budget=96),
+        strategy=j_config.StrategyConfig(name=kw.pop("strategy", "entropy"), window_size=8),
+        n_start=8, max_rounds=3, log_every=0, scenario=scenario, **kw)
 
 
 def _n_classes(y):
@@ -315,6 +338,52 @@ def test_run_experiment_matches_jax(fused, tmp_path):
     if not fused:
         _metrics_match_jax(tmp_path)
         _per_round_resume(tmp_path)
+        _scenarios_match_jax(tmp_path)
+    else:
+        # The fused round refuses a scenario with the JAX package's reason.
+        from distributed_active_learning_tpu.config import ScenarioConfig as JScn
+
+        jcfg, _ = _cfgs(True)
+        jcfg = dataclasses.replace(jcfg, scenario=JScn(kind="drift", drift_rate=0.2))
+        with pytest.raises(ValueError) as want:
+            j_loop.run_experiment(jcfg)
+        with pytest.raises(ValueError) as got:
+            t_loop.run_experiment(t_config.from_dict(dataclasses.asdict(jcfg)), device="cpu")
+        assert str(got.value) == str(want.value)
+        assert "fused_round unavailable: scenario 'drift'" in str(got.value)
+
+
+def _scenarios_match_jax(tmp_path):
+    """Each scenario family of the JAX package's tests (``SCENARIOS`` on its
+    ``_cfg``: the clean run, a noisy oracle flipping and abstaining, a rare
+    class, a mean-shift drift and a cost budget; and the rotation drift),
+    run per round with RoundMetrics against the JAX package's run:
+    records, every metric field (``rare_recall`` and ``cost_spent`` where
+    they belong) but pool_entropy bit-equal, pool_entropy to
+    ``POOL_ENTROPY_RTOL``, final masks equal (JAX's from its last
+    checkpoint)."""
+    from distributed_active_learning_tpu.config import ScenarioConfig as JScn
+    from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
+
+    for i, scn in enumerate(_SCENARIOS + [JScn(kind="drift", drift_rate=0.3,
+                                                drift_kind="rotation")]):
+        ck = str(tmp_path / f"scn{i}")
+        jcfg = _scenario_cfg(scn, rounds_per_launch=1, collect_metrics=True)
+        want = j_loop.run_experiment(dataclasses.replace(jcfg, checkpoint_dir=ck,
+                                                         checkpoint_every=1))
+        got = t_loop.run_experiment(t_config.from_dict(dataclasses.asdict(jcfg)), device="cpu")
+        assert got.to_reference_log() == want.to_reference_log(), scn
+        for a, b in zip(got.records, want.records, strict=True):
+            assert list(a.metrics) == list(b.metrics), scn
+            for field, v in b.metrics.items():
+                if field == "pool_entropy":
+                    assert abs(a.metrics[field] - v) <= t_telemetry.POOL_ENTROPY_RTOL * abs(v)
+                else:
+                    assert a.metrics[field] == v, (scn.kind, a.round, field)
+        assert ("rare_recall" in got.records[0].metrics) == (scn.kind == "rare_event")
+        assert ("cost_spent" in got.records[0].metrics) == (scn.kind == "cost_budget")
+        with np.load(os.path.join(ck, f"alstate_{j_ckpt.latest_step(ck)}.npz")) as z:
+            np.testing.assert_array_equal(got.final_labeled_mask.numpy(), z["labeled_mask"])
 
 
 _ISOLATION = """
@@ -358,8 +427,11 @@ for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round"],
                "--strategy-option", "lal_data_path=tests/fixtures/lal_simulatedunbalanced_big.txt",
                "--strategy-option", "lal_trees=4", "--strategy-option", "lal_depth=4"]):
     assert run.main(small + extra) == 0, extra
-# A 2-seed sweep and a 2-cell grid, each one batched launch stream.
-for extra in (["--sweep-seeds", "2"], ["--strategies", "uncertainty,margin"]):
+# A 2-seed sweep and a 2-cell grid, each one batched launch stream; a
+# scenario run, and a scenario axis crossed with 2 seeds.
+for extra in (["--sweep-seeds", "2"], ["--strategies", "uncertainty,margin"],
+              ["--scenario", "noisy_oracle", "--flip-prob", "0.1", "--abstain-prob", "0.25"],
+              ["--scenarios", "none,drift", "--drift-rate", "0.2", "--sweep-seeds", "2"]):
     assert run.main(small + ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "2",
                              *extra]) == 0, extra
 assert "sklearn" in sys.modules  # the host fit ran
@@ -378,16 +450,17 @@ print("ISOLATED")
 
 def test_port_runs_without_jax_in_a_fresh_interpreter():
     """The CLI's paths (fused, mesh, chunked, host fit, deep gather form,
-    density, int8 storage, lal, a 2-seed sweep and a 2-cell grid) run in a
-    fresh interpreter, and neither the port nor scikit-learn pulls in JAX or
-    the JAX package."""
+    density, int8 storage, lal, a 2-seed sweep, a 2-cell grid, a noisy
+    oracle and a 2-scenario x 2-seed grid) run in a fresh interpreter, and
+    neither the port nor scikit-learn pulls in JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
-    assert out.stdout.count("Iteration") == 26
-    assert out.stdout.count("# sweep seed") == 2 and out.stdout.count("# grid cell") == 2
+    assert out.stdout.count("Iteration") == 36
+    assert out.stdout.count("# sweep seed") == 2 and out.stdout.count("# grid cell") == 6
+    assert out.stdout.count("# grid cell uncertainty/checkerboard2x2/drift/seed") == 2
     assert "REFUSED" in out.stdout and "mesh-and-pod slice" in out.stdout
     # The ops plane: one sequence of counter, gauge, histogram and heartbeat
     # calls renders the same Prometheus text in both packages (JAX's obs.py
@@ -466,23 +539,59 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
                 t_run.main(["--device", "cpu", *argv])
             assert why in capsys.readouterr().err
     # Sweeps and grids refuse, before any work: a mesh (their chunk under a
-    # mesh), a scenario or a grid's scenario axis, and stream_round_events
-    # (the JAX package's ValueError).
+    # mesh) and stream_round_events (the JAX package's ValueError).
+    from distributed_active_learning_tpu.runtime import sweep as j_sweep
     from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
 
-    scenario = t_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
     for kind, run in (("sweep", lambda c: t_sweep.run_sweep(c, [0, 1], device="cpu")),
                       ("grid", lambda c: t_sweep.run_grid(c, ["uncertainty"], [0, 1],
                                                           device="cpu"))):
         with pytest.raises(NotImplementedError,
                            match=f"a {kind} under a device mesh .* mesh-and-pod slice .* item 8"):
             run(dataclasses.replace(base, mesh=mesh))
-        with pytest.raises(NotImplementedError, match="scenario slice .* item 4"):
-            run(dataclasses.replace(base, scenario=scenario))
         with pytest.raises(ValueError, match=f"not supported by the batched {kind} chunk"):
             run(dataclasses.replace(base, stream_round_events=True))
-    with pytest.raises(NotImplementedError, match="grid's scenario axis"):
-        t_sweep.run_grid(base, ["uncertainty"], [0], scenarios=["noisy_oracle"], device="cpu")
+    # A scenario under a mesh is refused naming item 8 of the mesh slice
+    # (noisy_oracle too: its per-shard reveal and flip_mask_block come
+    # there), in a run, a grid's scenario axis and the CLI.
+    scenario = t_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
+    with pytest.raises(NotImplementedError, match="scenario under a device mesh .* item 8"):
+        t_loop.run_experiment(dataclasses.replace(base, mesh=mesh, scenario=scenario),
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="scenario under a device mesh .* item 8"):
+        t_sweep.run_grid(dataclasses.replace(base, mesh=mesh), ["uncertainty"], [0],
+                         scenarios=["none", scenario], device="cpu")
+    # What the JAX package refuses of a scenario, the port refuses with its
+    # message: a host fit (a run and a grid's axis), a scenario as a batched
+    # seed sweep, duplicate kinds on the axis.
+    jbase, _ = _cfgs(False)
+    jscn = j_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
+    host_j = dataclasses.replace(jbase, forest=dataclasses.replace(jbase.forest, fit="host"))
+    refusals = (
+        (lambda c: c, dataclasses.replace(host_j, scenario=jscn), "run"),
+        (lambda c: c, dataclasses.replace(jbase, scenario=jscn), "sweep"),
+        (lambda c: c, host_j, "grid axis"),
+        (lambda c: c, jbase, "duplicate"),
+    )
+    for _, jcfg, what in refusals:
+        tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+        if what == "run":
+            calls = (lambda: j_loop.run_experiment(jcfg),
+                     lambda: t_loop.run_experiment(tcfg, device="cpu"))
+        elif what == "sweep":
+            calls = (lambda: j_sweep.run_sweep(jcfg, [0, 1]),
+                     lambda: t_sweep.run_sweep(tcfg, [0, 1], device="cpu"))
+        else:
+            axis = ["noisy_oracle"] if what == "grid axis" else ["drift", "drift"]
+            calls = (lambda: j_sweep.run_grid(jcfg, ["uncertainty"], [0], scenarios=axis),
+                     lambda: t_sweep.run_grid(tcfg, ["uncertainty"], [0], scenarios=axis,
+                                              device="cpu"))
+        errs = []
+        for call in calls:
+            with pytest.raises(ValueError) as err:
+                call()
+            errs.append(str(err.value))
+        assert errs[0] == errs[1], what
     # The fused round refuses metrics with the JAX package's reason.
     with pytest.raises(ValueError, match="fused_round unavailable: RoundMetrics consume"):
         t_loop.run_experiment(dataclasses.replace(base, fused_round=True, collect_metrics=True),

@@ -1,14 +1,98 @@
 """The port's threefry (distributed_active_learning_tpu_torch/prng.py) against
-jax.random in partitionable mode: split, fold_in, raw bits and uniform must be
-bit-identical, since every pick and bootstrap weight of the AL loop derives
-from them."""
+jax.random in partitionable mode: split, fold_in, raw bits, uniform, normal
+and randint must be bit-identical, since every pick, bootstrap weight and
+scenario draw of the AL loop derives from them. Also XLA's float32 erf_inv
+(``ops.xla_f32.erfinv_f32``, which ``normal`` reads) against the jitted
+``jax.scipy.special.erfinv`` on a grid with 0, the smallest normals and
+subnormals and +-(1 - ulp), and the scenario engine's draws (flip masks,
+costs, the abstain draw, the dataset fold, the mean-shift direction and
+``drift_apply`` of both kinds at rounds 0-5, the drifting stream) against the
+JAX package's. The drift is held to the jitted JAX drift (the spelling of
+the JAX package's chunked round and grid) bit for bit; the mean-shift
+direction of a 30-feature set to ``DRIFT_DIRECTION_RTOL``; the rotation to
+``DRIFT_ROTATION_ATOL`` of the JAX package's eager drift (its per-round
+driver's), which rounds each product where the jitted drift fuses one."""
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 import torch
 
 import distributed_active_learning_tpu  # noqa: F401  (pins partitionable threefry)
+from distributed_active_learning_tpu.config import ScenarioConfig as JScn
+from distributed_active_learning_tpu.data import synthetic as j_synth
+from distributed_active_learning_tpu.scenarios import engine as j_scn
 from distributed_active_learning_tpu_torch import prng
+from distributed_active_learning_tpu_torch.config import ScenarioConfig as TScn
+from distributed_active_learning_tpu_torch.data import synthetic as t_synth
+from distributed_active_learning_tpu_torch.ops.xla_f32 import erfinv_f32
+from distributed_active_learning_tpu_torch.scenarios import engine as t_scn
+
+# The rotation drift against the JAX package's eager drift: a fused and an
+# unfused product differ by at most one rounding of |x| ~ 4.
+DRIFT_ROTATION_ATOL = 1e-6
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _scenario_draws_match_jax():
+    """The scenario engine's draws and drifts, both packages."""
+    rng = np.random.default_rng(0)
+    unit = jax.jit(lambda u: u / jnp.maximum(jnp.linalg.norm(u), 1e-6))
+    for seed in (0, 3, 0x5CE7A410):
+        noisy = dict(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3, seed=seed)
+        for n in (1, 96, 4099):
+            np.testing.assert_array_equal(
+                np.asarray(j_scn.flip_mask(JScn(**noisy), 5, n)),
+                t_scn.flip_mask(TScn(**noisy), 5, n).numpy())
+            for spread in (4.0, 3.3):
+                cost = dict(kind="cost_budget", cost_budget=6.0, cost_spread=spread, seed=seed)
+                np.testing.assert_array_equal(
+                    _bits(j_scn.make_costs(JScn(**cost), n, "checkerboard2x2")),
+                    _bits(t_scn.make_costs(TScn(**cost), n, "checkerboard2x2").numpy()))
+        np.testing.assert_array_equal(
+            np.asarray(j_scn.abstain_draw(JScn(**noisy), jax.random.key(seed), (8,))),
+            t_scn.abstain_draw(TScn(**noisy), prng.key(seed), (8,)).numpy())
+        assert j_scn.dataset_fold(f"ds{seed}") == t_scn.dataset_fold(f"ds{seed}")
+        for d in (2, 30):
+            x = rng.normal(size=(500, d)).astype(np.float32)
+            for kind in ("mean_shift", "rotation"):
+                kw = dict(kind="drift", drift_rate=0.3, drift_kind=kind, seed=seed)
+                js, ts = JScn(**kw), TScn(**kw)
+                jitted = jax.jit(lambda xx, rr, js=js: j_scn.drift_apply(js, xx, rr))
+                for r in range(6):
+                    jit = np.asarray(jitted(jnp.asarray(x), jnp.int32(r)))
+                    got = t_scn.drift_apply(ts, torch.from_numpy(x),
+                                            torch.tensor(r, dtype=torch.int32)).numpy()
+                    if kind == "mean_shift" and d > 3:
+                        # The direction's squared norm: XLA may vectorize a
+                        # 30-term reduce (drift_direction).
+                        np.testing.assert_allclose(got, jit, rtol=0, atol=(
+                            t_scn.DRIFT_DIRECTION_RTOL * 0.3 * r + 1e-6))
+                        continue
+                    np.testing.assert_array_equal(_bits(got), _bits(jit), (d, kind, r))
+                    eager = np.asarray(j_scn.drift_apply(js, jnp.asarray(x), r))
+                    if kind == "rotation":
+                        np.testing.assert_allclose(got, eager, rtol=0, atol=DRIFT_ROTATION_ATOL)
+                    else:
+                        np.testing.assert_array_equal(_bits(got), _bits(eager))
+            u = jax.random.normal(j_scn._base_key(JScn(kind="drift", seed=seed)), (d,))
+            want = np.asarray(unit(u))
+            got = t_scn.drift_direction(TScn(kind="drift", seed=seed), d).numpy()
+            if d <= 3:
+                np.testing.assert_array_equal(_bits(got), _bits(want))
+            else:
+                np.testing.assert_allclose(got, want, rtol=t_scn.DRIFT_DIRECTION_RTOL, atol=0)
+    for kind in ("mean_shift", "rotation"):
+        for (jx, jy), (tx, ty) in zip(
+                j_synth.make_drifting_stream(jax.random.key(4), 4, 50, d=4, kind=kind,
+                                             warm_blocks=1),
+                t_synth.make_drifting_stream(prng.key(4), 4, 50, d=4, kind=kind, warm_blocks=1)):
+            np.testing.assert_array_equal(_bits(jx), _bits(tx.numpy()))
+            np.testing.assert_array_equal(np.asarray(jy), ty.numpy())
 
 
 def test_prng_bits_split_fold_in_uniform_match_jax():
@@ -35,3 +119,30 @@ def test_prng_bits_split_fold_in_uniform_match_jax():
     for i, k in enumerate(keys_j):
         np.testing.assert_array_equal(np.asarray(jax.random.uniform(k, (2, 3))), batched[i])
     assert prng.uniform(prng.key(0), (4,)).dtype == torch.float32
+
+    # normal and randint, the scenario salt's key included.
+    for seed in (0, 7, 0x5CE7A410, 2**31 + 5):
+        kj, kt = jax.random.key(seed), prng.key(seed)
+        for shape in ((1,), (30,), (100_000,)):
+            np.testing.assert_array_equal(_bits(jax.random.normal(kj, shape)),
+                                          _bits(prng.normal(kt, shape).numpy()))
+            for lo, hi in ((0, 2), (-5, 1000), (3, 3)):
+                got = prng.randint(kt, shape, lo, hi)
+                assert got.dtype == torch.int32
+                np.testing.assert_array_equal(np.asarray(jax.random.randint(kj, shape, lo, hi)),
+                                              got.numpy())
+
+    # XLA's erf_inv: a dense grid, the tails and the edges.
+    f32 = np.float32
+    tiny, one_minus = np.finfo(f32).tiny, np.nextafter(f32(1), f32(0))
+    grid = np.concatenate([
+        np.linspace(-1, 1, 200_001, dtype=f32),
+        1 - np.geomspace(1e-7, 1e-2, 20_000).astype(f32),
+        np.array([0, -0.0, tiny, -tiny, tiny / 4, -tiny / 4, 1e-45, one_minus, -one_minus,
+                  1, -1], f32),
+    ]).astype(f32)
+    grid = np.concatenate([grid, -grid])
+    want = np.asarray(jax.jit(jax.scipy.special.erfinv)(grid))
+    np.testing.assert_array_equal(_bits(erfinv_f32(torch.from_numpy(grid)).numpy()), _bits(want))
+
+    _scenario_draws_match_jax()

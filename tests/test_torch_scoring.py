@@ -16,7 +16,10 @@ largest magnitude (float sums in another order). The multiclass scores
 (``trees_multi``: class probabilities, top-2 margin, entropy in XLA's
 spelling) at C = 3, 4, 10 and 32, the LAL features, and a LAL regressor
 fitted from the committed fixture (its values in the gather form and through
-K1's plain version) are bit-equal to the jitted JAX expressions.
+K1's plain version) are bit-equal to the jitted JAX expressions. The
+scenario engine's round pieces (the greedy knapsack, label flips, rare
+recall, the abstaining reveal) equal the JAX package's, and its validation
+refuses with the same messages.
 """
 
 import numpy as np
@@ -147,6 +150,105 @@ def test_score_tables_match_jax():
         np.testing.assert_array_equal(np.asarray(vj).view(np.int32), vt.numpy().view(np.int32))
 
     _multiclass_and_lal_match_jax()
+    _scenario_ops_match_jax()
+
+
+def _scenario_ops_match_jax():
+    """The scenario engine's round pieces against the JAX package's: the
+    greedy knapsack (the host-reference and tie cases of
+    ``tests/test_scenarios.py`` and random pools with value ties and an
+    unaffordable tail: picks, values, keep, spent), the label flips (2 and 4
+    classes), rare recall, the abstaining reveal and the scenario
+    validation's refusals, message for message."""
+    import dataclasses
+    import functools
+
+    import pytest
+
+    from distributed_active_learning_tpu import config as j_config
+    from distributed_active_learning_tpu.ops import topk as j_topk
+    from distributed_active_learning_tpu.scenarios import engine as j_scn
+    from distributed_active_learning_tpu.strategies import get_strategy as j_strategy
+    from distributed_active_learning_tpu_torch import config as t_config
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.ops import topk as t_topk
+    from distributed_active_learning_tpu_torch.runtime import state as t_state
+    from distributed_active_learning_tpu_torch.scenarios import engine as t_scn
+    from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
+
+    rng = np.random.default_rng(7)
+    cases = [(rng.uniform(0.0, 1.0, 64).astype(np.float32),
+              rng.uniform(1.0, 5.0, 64).astype(np.float32), rng.uniform(size=64) < 0.7,
+              10, 12.0) for _ in range(5)]
+    cases.append((np.ones(8, np.float32), np.ones(8, np.float32), np.ones(8, bool), 4, 3.0))
+    for _ in range(6):  # value ties, costs of three sizes, budgets that run out early
+        n = int(rng.integers(2, 60))
+        cases.append((rng.choice([0.0, 0.25, 0.5, 1.0], n).astype(np.float32),
+                      rng.choice([1.0, 2.0, 3.0], n).astype(np.float32), rng.random(n) < 0.7,
+                      int(rng.integers(1, 12)), float(rng.choice([2.5, 6.0, 100.0]))))
+    for scores, costs, mask, k, budget in cases:
+        want = jax.jit(functools.partial(j_topk.knapsack_top_k, k=k, budget=budget))(
+            jnp.asarray(scores), jnp.asarray(costs), jnp.asarray(mask))
+        got = t_topk.knapsack_top_k(torch.from_numpy(scores), torch.from_numpy(costs),
+                                    torch.from_numpy(mask), k, budget)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+    y = rng.integers(0, 4, 500).astype(np.int32)
+    flips = rng.random(500) < 0.3
+    for c in (2, 4):
+        yc = y % c
+        np.testing.assert_array_equal(
+            t_scn.apply_flips(torch.from_numpy(yc), torch.from_numpy(flips), c).numpy(),
+            np.asarray(j_scn.apply_flips(jnp.asarray(yc), jnp.asarray(flips), c)))
+    labeled, valid = rng.random(500) < 0.4, rng.random(500) < 0.9
+    for rare in (1, 3, 7):  # 7: an empty class reports 0
+        np.testing.assert_array_equal(
+            t_scn.rare_recall(torch.from_numpy(labeled), torch.from_numpy(y),
+                              torch.from_numpy(valid), rare).numpy(),
+            np.asarray(j_scn.rare_recall(jnp.asarray(labeled), jnp.asarray(y),
+                                         jnp.asarray(valid), rare)))
+
+    x = rng.normal(size=(40, 2)).astype(np.float32)
+    picked = rng.permutation(40)[:12].astype(np.int32)
+    keep = rng.random(12) < 0.8
+    for seed in (0, 1, 5):
+        js = j_state.init_pool_state(x, y[:40] % 2, jax.random.key(seed))
+        ts = t_state.init_pool_state(x, y[:40] % 2, prng.key(seed), "cpu")
+        want = j_state.reveal_masked(js, jnp.asarray(picked), jnp.asarray(keep),
+                                     abstain_key=jax.random.key(seed + 9), abstain_prob=0.4)
+        got = t_state.reveal_masked(ts, torch.from_numpy(picked), torch.from_numpy(keep),
+                                    abstain_key=prng.key(seed + 9), abstain_prob=0.4)
+        np.testing.assert_array_equal(got.labeled_mask.numpy(), np.asarray(want.labeled_mask))
+        assert got.round == int(want.round)
+
+    refused = [
+        dict(kind="bogus"),
+        dict(kind="noisy_oracle", flip_prob=1.5),
+        dict(kind="noisy_oracle"),
+        dict(kind="noisy_oracle", abstain_prob=0.2),
+        dict(kind="cost_budget"),
+        dict(kind="cost_budget", cost_budget=3.0, cost_spread=-1.0),
+        dict(kind="cost_budget", cost_budget=3.0, strategy="uncertainty"),
+        dict(kind="rare_event", rare_class=-1),
+        dict(kind="drift"),
+        dict(kind="drift", drift_rate=0.1, drift_kind="spin"),
+    ]
+    for case in refused:
+        case = dict(case)
+        name = case.pop("strategy", "entropy")
+        jc = j_config.ScenarioConfig(**case)
+        tc = t_config.ScenarioConfig(**dataclasses.asdict(jc))
+        with pytest.raises(ValueError) as want_err:
+            j_scn.validate_scenario(jc, strategy=j_strategy(j_config.StrategyConfig(name=name)))
+        with pytest.raises(ValueError) as got_err:
+            t_scn.validate_scenario(tc, strategy=t_strategy(t_config.StrategyConfig(name=name)))
+        assert str(got_err.value) == str(want_err.value), case
+    t_scn.validate_scenario(t_config.ScenarioConfig(kind="noisy_oracle", abstain_prob=0.2),
+                            max_rounds=3)
+    assert t_scn.scenario_from_name("drift", t_config.ScenarioConfig(drift_rate=0.2)).kind == "drift"
+    with pytest.raises(ValueError, match="unknown scenario"):
+        t_scn.scenario_from_name("bogus")
 
 
 def _bits(a):
