@@ -180,6 +180,23 @@ and prints no result:
    CPU; printed: seconds a chunked round per family beside
    phase 4c's, the knapsack's device ms at k = 100 over the pool (graph
    replayed), K1 launches a round;
+4m. data from files: a credit-card CSV in the Kaggle file's layout written
+   from ``--seed`` (284,807 rows, ``Time``, ``V1..V28`` as float64 reprs,
+   ``Amount``, 492 quoted positives), parsed by the native loader (built
+   from ``cpp/loader.cpp`` with the host C++ compiler) and by the numpy
+   route (both timed; the tokens they round differently counted, each at
+   most one ulp apart), then ``get_dataset(credit_card_fraud)``: a
+   standardized 199,364 x 30 pool and 85,443 x 30 test set; K1 and K2 at
+   those shapes against their plain versions (bit-equal) and timed; phase
+   4's configuration on that pool (the reference's 100 trees, depth 8)
+   fused, unfused and chunked (K = 4, fused), records and final masks
+   equal, launches counted under ``files``, ``files_unfused`` and
+   ``files_chunked``; ``striatum_like`` at its scale-run configuration
+   (10,000 x 50, 20 trees of depth 8, window 10, fused, seed 3), ``blobs4``
+   (four classes, unfused: K1 2 x C a round) and ``checkerboard2x2_file``
+   on the committed fixtures, each card == CPU; ``generate_lal_dataset`` at
+   the JAX package's defaults (60 experiments x 8 candidates) timed on the
+   card, and card == CPU on its rows at 4 experiments;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -221,6 +238,7 @@ configurations and largest differences; ``multiclass`` and ``lal`` phases
 4h and 4i's numbers; K1's ``sweep_launches`` and ``grid_launches`` and its
 stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
 numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
+``files`` phase 4m's numbers;
 ``bench_batched`` phase 6's sweep and grid lines, the grid's with its
 scenario leg, whose ``scenario_recompiles_after_warmup`` must be 0),
 the card's name
@@ -2004,6 +2022,209 @@ def main() -> int:
               for name in families) + f" ({kind}, {smi})")
     print(f"# phase 4l: {time.perf_counter() - t_phase:.1f}s")
 
+    # -- phase 4m: data from files ---------------------------------------------
+    t_phase = time.perf_counter()
+    from distributed_active_learning_tpu_torch.data import _native, formats
+    from distributed_active_learning_tpu_torch.models import lal_training
+
+    files_numbers = {}
+    data_dir = tempfile.mkdtemp(prefix="chip_smoke_4m_")
+    csv = os.path.join(data_dir, "creditcard.csv")
+    t0 = time.perf_counter()
+    formats.write_credit_card_csv(csv, seed=args.seed)
+    files_numbers["csv_write_seconds"] = time.perf_counter() - t0
+    files_numbers["csv_bytes"] = os.path.getsize(csv)
+    t0 = time.perf_counter()
+    _native.load()  # built from cpp/loader.cpp into build/kernels/ (host C++ compiler)
+    files_numbers["loader_build_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat_x, nat_y = formats.load_credit_card_csv(csv)
+    files_numbers["native_parse_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pl_x, pl_y = formats.load_credit_card_csv(csv, native=False)
+    files_numbers["plain_parse_seconds"] = time.perf_counter() - t0
+    if nat_x.shape != (N_POOL, N_FEAT) or pl_x.shape != nat_x.shape:
+        fail(f"credit-card CSV parsed to {nat_x.shape} (native) and {pl_x.shape} (plain)")
+    if not np.array_equal(nat_y, pl_y) or int(nat_y.sum()) != formats.CREDIT_CARD_FRAUD:
+        fail(f"credit-card labels: native {int(nat_y.sum())} positives, routes equal "
+             f"{np.array_equal(nat_y, pl_y)}")
+    # The routes round a token differently only where the numpy route's
+    # double lands next to a float32 midpoint: at most one ulp, same sign.
+    ulps = np.abs(nat_x.view(np.int32).astype(np.int64) - pl_x.view(np.int32).astype(np.int64))
+    files_numbers["tokens_differing"] = int((ulps != 0).sum())
+    files_numbers["max_ulps"] = int(ulps.max())
+    if ulps.max() > 1 or not np.array_equal(np.sign(nat_x), np.sign(pl_x)):
+        fail(f"native and plain parses differ by up to {int(ulps.max())} ulps")
+    del pl_x, pl_y
+    t0 = time.perf_counter()
+    cc = get_dataset(DataConfig(name="credit_card_fraud", path=csv, seed=args.seed))
+    files_numbers["get_dataset_seconds"] = time.perf_counter() - t0
+    n_tr, n_te = int(0.7 * N_POOL), N_POOL - int(0.7 * N_POOL)
+    if cc.train_x.shape != (n_tr, N_FEAT) or cc.test_x.shape != (n_te, N_FEAT):
+        fail(f"credit_card_fraud bundle {cc.train_x.shape} / {cc.test_x.shape}")
+    if not (np.isfinite(cc.train_x).all() and np.isfinite(cc.test_x).all()) or \
+            np.abs(cc.train_x.mean(0)).max() > 1e-3 or np.abs(cc.train_x.std(0) - 1).max() > 1e-3:
+        fail("the credit_card_fraud pool is not finite and standardized")
+    if int(cc.train_y.sum()) + int(cc.test_y.sum()) != formats.CREDIT_CARD_FRAUD:
+        fail("the 70/30 split lost positives")
+    print(f"# credit-card file ({files_numbers['csv_bytes'] / 1e6:.1f} MB, {N_POOL} rows): "
+          f"written {files_numbers['csv_write_seconds']:.2f}s; native loader built "
+          f"{files_numbers['loader_build_seconds']:.2f}s; parse native "
+          f"{files_numbers['native_parse_seconds']:.3f}s, plain "
+          f"{files_numbers['plain_parse_seconds']:.3f}s; {files_numbers['tokens_differing']} "
+          f"tokens differ (at most {files_numbers['max_ulps']} ulp); get_dataset "
+          f"{files_numbers['get_dataset_seconds']:.3f}s -> pool {cc.train_x.shape}, test "
+          f"{cc.test_x.shape}, {int(cc.train_y.sum())} positives in the pool")
+
+    # K1 and K2 at the file pool's shapes against their plain versions.
+    pool_f = torch.from_numpy(cc.train_x).to(dev)
+    test_f = torch.from_numpy(cc.test_x).to(dev)
+    lab_f = torch.zeros(n_tr, dtype=torch.bool, device=dev)
+    lab_f[torch.from_numpy(np.random.default_rng(args.seed).choice(n_tr, N_START,
+                                                                    replace=False)).to(dev)] = True
+    binned_f = trees_train.make_bins(pool_f, BINS)
+    ff, fth, fv = trees_train.fit_forest_device(
+        binned_f.codes, torch.from_numpy(cc.train_y).to(dev), lab_f.to(torch.float32),
+        binned_f.edges, prng.key(args.seed + 12), n_trees=TREES, max_depth=DEPTH, n_bins=BINS)
+    gf_file = trees_train.heap_gemm_forest(ff, fth, fv, DEPTH)
+    for label, x in (("file pool", pool_f), ("file test", test_f)):
+        check_k1(gf_file, x, label)
+    heap_f = trees_pallas.heap_operands(gf_file)
+    table_f = round_fused.score_table(TREES, "uncertainty", dev)
+    sel_f = ~lab_f
+    tv, ti = round_fused._launch_megakernel(heap_f, pool_f, sel_f, table_f, WINDOW)
+    pv, pi = round_fused.megakernel_plain(gf_file, pool_f, sel_f, table_f, WINDOW)
+    torch.cuda.synchronize()
+    if not (torch.equal(tv, pv) and torch.equal(ti, pi)):
+        fail("round_megakernel != plain per-tile candidates at the file pool")
+    finite = torch.isfinite(pv)
+    k2_err = max(k2_err, float(torch.where(finite, tv - pv, 0.0).abs().max()))
+    # Times at these shapes; bounds as phase 5 states them (the heap forest,
+    # the rows and the outputs moved once; a compare a level, K2 one more).
+    k1_file = {}
+    for label, x in (("pool", pool_f), ("test", test_f)):
+        lim, by = bound(nbytes(x, heap_f.nodes, heap_f.val) + TREES * x.shape[0] * 4,
+                        x.shape[0] * TREES * DEPTH)
+        k1_file[label] = dict(
+            ms=cuda_ms(lambda: trees_pallas._launch_leaves(heap_f, x), reps=9),
+            device_ms=graph_ms(lambda: trees_pallas._launch_leaves(heap_f, x)),
+            plain_ms=cuda_ms(lambda: trees_pallas.predict_leaves_plain(gf_file, x), reps=3),
+            bound_ms=lim, bound_by=by)
+    kk_f = tv.shape[1]
+    lim, by = bound(nbytes(pool_f, heap_f.nodes, heap_f.val, sel_f, table_f)
+                    + -(-n_tr // round_fused.TILE_ROWS) * kk_f * 8, n_tr * TREES * (DEPTH + 1))
+    k2_file = dict(
+        ms=cuda_ms(lambda: round_fused._launch_megakernel(heap_f, pool_f, sel_f, table_f, WINDOW),
+                   reps=9),
+        device_ms=graph_ms(lambda: round_fused._launch_megakernel(heap_f, pool_f, sel_f, table_f,
+                                                                  WINDOW)),
+        plain_ms=cuda_ms(lambda: round_fused.megakernel_plain(gf_file, pool_f, sel_f, table_f,
+                                                              WINDOW), reps=3),
+        bound_ms=lim, bound_by=by)
+    files_numbers["k1_ms"], files_numbers["k2_ms"] = k1_file, k2_file
+    print(f"# forest_leaves and round_megakernel at the file pool ({n_tr} x {N_FEAT}) and test "
+          f"set ({n_te}): bit-equal to plain; K1 pool {k1_file['pool']['device_ms']:.4f} ms "
+          f"device (plain {k1_file['pool']['plain_ms']:.4f}, bound "
+          f"{k1_file['pool']['bound_ms']:.4f} by {k1_file['pool']['bound_by']}), test "
+          f"{k1_file['test']['device_ms']:.4f} (bound {k1_file['test']['bound_ms']:.4f}); K2 pool "
+          f"{k2_file['device_ms']:.4f} ms device (plain {k2_file['plain_ms']:.4f}, bound "
+          f"{k2_file['bound_ms']:.4f} by {k2_file['bound_by']}) ({kind}, {smi})")
+    del pool_f, test_f, binned_f, gf_file, heap_f, tv, ti, pv, pi
+
+    # The reference's forest on the file pool: fused (K2, K1 for eval),
+    # unfused (K1 twice a round) and chunked (K = 4, fused; one eager warm-up
+    # round, then K rounds a replay).
+    n_file_chunks = -(-ROUNDS // K)
+    want_launches["files"] = dict(want_launches["fused"])
+    want_launches["files_unfused"] = dict(want_launches["unfused"])
+    rounds_run = 1 + n_file_chunks * K
+    want_launches["files_chunked"] = {"forest_leaves": rounds_run, "round_megakernel": rounds_run,
+                                      "fused_votes": 0, "ring_hop": 0}
+    drive("files", True, data=cc)
+    drive("files_unfused", False, data=cc)
+    drive("files_chunked", True, data=cc, rounds_per_launch=K, pipeline_depth=1)
+    file_recs = {p: [(r.round, r.n_labeled, r.accuracy) for r in runs[p].records]
+                 for p in ("files", "files_unfused", "files_chunked")}
+    if len({tuple(v) for v in file_recs.values()}) != 1:
+        fail(f"file-pool records differ across fused, unfused and chunked: {file_recs}")
+    if [r[1] for r in file_recs["files"]] != want:
+        fail(f"file-pool n_labeled {[r[1] for r in file_recs['files']]} != {want}")
+    if not all(np.isfinite(r[2]) and 0.0 <= r[2] <= 1.0 for r in file_recs["files"]):
+        fail("file-pool accuracy records are not finite fractions")
+    file_mask = runs["files"].final_labeled_mask
+    for p in ("files_unfused", "files_chunked"):
+        if not torch.equal(runs[p].final_labeled_mask, file_mask):
+            fail(f"{p} final labeled mask differs from the fused run's")
+    if int(file_mask.sum()) != n_final:
+        fail(f"the file-pool final mask holds {int(file_mask.sum())} rows, want {n_final}")
+    files_numbers["rounds"] = {p: [dict(fit=r.train_time, round=r.score_time, eval=r.eval_time,
+                                        total=r.total_time) for r in runs[p].records]
+                               for p in ("files", "files_unfused", "files_chunked")}
+    files_numbers["accuracy"] = [r[2] for r in file_recs["files"]]
+    print(f"# file pool ({n_tr} x {N_FEAT}, {TREES} trees, depth {DEPTH}): fused == unfused == "
+          f"chunked (records and final {n_tr}-row mask); launches {launches['files']} fused, "
+          f"{launches['files_unfused']} unfused, {launches['files_chunked']} chunked")
+
+    # Small runs of the other registry entries: the card equals the CPU.
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                            "reference_data")
+    small_runs = {
+        # The committed striatum_like scale runs' configuration (seed 3).
+        "striatum_like": (ExperimentConfig(
+            data=DataConfig(name="striatum_like", seed=3),
+            forest=ForestConfig(n_trees=20, max_depth=8, fit="device", kernel="pallas"),
+            strategy=StrategyConfig(name="uncertainty", window_size=10),
+            n_start=10, max_rounds=3, fused_round=True, seed=3), {"forest_leaves": 3,
+                                                                   "round_megakernel": 3}),
+        # Four classes: the fused round refuses them (as in JAX); K1 2 x C a round.
+        "blobs4": (ExperimentConfig(
+            data=DataConfig(name="blobs4", seed=1),
+            forest=ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+            strategy=StrategyConfig(name="uncertainty", window_size=15),
+            n_start=10, max_rounds=3, seed=1), {"forest_leaves": 24, "round_megakernel": 0}),
+        "checkerboard2x2_file": (ExperimentConfig(
+            data=DataConfig(name="checkerboard2x2_file", path=fixtures),
+            forest=ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+            strategy=StrategyConfig(name="uncertainty", window_size=15),
+            n_start=10, max_rounds=3, fused_round=True), {"forest_leaves": 3,
+                                                          "round_megakernel": 3}),
+    }
+    for name, (c, want_k) in small_runs.items():
+        path = f"files_{name}"
+        zero_counts()
+        on_card = loop.run_experiment(c, device=dev)
+        launches[path] = counts()
+        if {k_: launches[path][k_] for k_ in want_k} != want_k:
+            fail(f"{path} launched {launches[path]}, want {want_k}")
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+            fail(f"{name} on the card != the CPU run:\n{on_card.to_reference_log()}\n"
+                 f"{on_cpu.to_reference_log()}")
+        print(f"# {name}: card == CPU (records and final mask), launches {launches[path]}, "
+              f"final accuracy {on_card.final_accuracy:.4f}")
+
+    # The LAL regressor's training rows: JAX's defaults on the card, timed;
+    # card == CPU at 4 experiments.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lal_x, lal_t = lal_training.generate_lal_dataset(device=dev)
+    files_numbers["lal_generate_seconds"] = time.perf_counter() - t0
+    files_numbers["lal_rows"] = int(lal_x.shape[0])
+    if lal_x.shape[1] != 5 or not (np.isfinite(lal_x).all() and np.isfinite(lal_t).all()):
+        fail(f"generate_lal_dataset gave {lal_x.shape} rows, or non-finite values")
+    few = dict(seed=args.seed, n_experiments=4)
+    card_rows = lal_training.generate_lal_dataset(**few, device=dev)
+    cpu_rows = lal_training.generate_lal_dataset(**few, device="cpu")
+    for a_, b_ in zip(card_rows, cpu_rows):
+        if a_.shape != b_.shape or not np.array_equal(a_.view(np.int32), b_.view(np.int32)):
+            fail("generate_lal_dataset rows on the card != the CPU's")
+    print(f"# generate_lal_dataset (60 experiments x 8 candidates, pool 200, 10 trees of depth "
+          f"6): {files_numbers['lal_rows']} rows in {files_numbers['lal_generate_seconds']:.2f}s "
+          f"on the card; 4 experiments card == CPU ({kind}, {smi})")
+    shutil.rmtree(data_dir)
+    print(f"# phase 4m: {time.perf_counter() - t_phase:.1f}s")
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -2417,6 +2638,7 @@ def main() -> int:
     ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
         "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
+        "files": files_numbers,
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

@@ -10,7 +10,8 @@ the device fit or the host (scikit-learn) fit, per round or chunked, on one
 device or a ``(data, model)`` mesh; the gather, path-matrix and kernel forms
 of a forest (``ops/trees.py``, ``ops/trees_gemm.py``, ``ops/trees_pallas.py``)
 and forest files (``models/forest_io.py``); the core strategies and density;
-and the port's bench. Every Pallas kernel of the JAX package is rewritten as
+the data layer (``data/``: every dataset registry entry, the file parsers on
+the native loader built from ``cpp/loader.cpp``); and the port's bench. Every Pallas kernel of the JAX package is rewritten as
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``), among them:
 
 - ``csrc/forest_leaves.cu``: per-tree leaf values (``ForestConfig.kernel=

@@ -207,3 +207,99 @@ def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 def _flush(x: torch.Tensor) -> torch.Tensor:
     """Subnormal values to a zero of their sign."""
     return torch.where(torch.abs(x) < _MIN_NORMAL, x * 0.0, x)
+
+
+# Cephes' ndtri coefficients, as JAX's ``jax.scipy.special.ndtri`` carries
+# them (highest degree first).
+_NDTRI_P0 = (-5.99633501014107895267E1, 9.80010754185999661536E1, -5.66762857469070293439E1,
+             1.39312609387279679503E1, -1.23916583867381258016E0)
+_NDTRI_Q0 = (1.0, 1.95448858338141759834E0, 4.67627912898881538453E0, 8.63602421390890590575E1,
+             -2.25462687854119370527E2, 2.00260212380060660359E2, -8.20372256168333339912E1,
+             1.59056225126211695515E1, -1.18331621121330003142E0)
+_NDTRI_P1 = (4.05544892305962419923E0, 3.15251094599893866154E1, 5.71628192246421288162E1,
+             4.40805073893200834700E1, 1.46849561928858024014E1, 2.18663306850790267539E0,
+             -1.40256079171354495875E-1, -3.50424626827848203418E-2, -8.57456785154685413611E-4)
+_NDTRI_Q1 = (1.0, 1.57799883256466749731E1, 4.53907635128879210584E1, 4.13172038254672030440E1,
+             1.50425385692907503408E1, 2.50464946208309415979E0, -1.42182922854787788574E-1,
+             -3.80806407691578277194E-2, -9.33259480895457427372E-4)
+_NDTRI_P2 = (3.23774891776946035970E0, 6.91522889068984211695E0, 3.93881025292474443415E0,
+             1.33303460815807542389E0, 2.01485389549179081538E-1, 1.23716634817820021358E-2,
+             3.01581553508235416007E-4, 2.65806974686737550832E-6, 6.23974539184983293730E-9)
+_NDTRI_Q2 = (1.0, 6.02427039364742014255E0, 3.67983563856160859403E0, 1.37702099489081330271E0,
+             2.16236993594496635890E-1, 1.34204006088543189037E-2, 3.28014464682127739104E-4,
+             2.89247864745380683936E-6, 6.79019408009981274425E-9)
+
+
+def _polyval_f32(coeffs, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.polyval`` (a jitted scan from ``y = 0``): ``y = y * x + c`` for
+    each coefficient, highest degree first, each step one fused
+    multiply-add."""
+    y = torch.zeros_like(x)
+    for c in coeffs:
+        y = fma_f32(y, x, float(np.float32(c)))
+    return y
+
+
+def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """IEEE float32 square root (taken in float64 and rounded once: exact;
+    PyTorch's vectorized float32 CPU root is not correctly rounded
+    everywhere)."""
+    return torch.sqrt(x.double()).float()
+
+
+def ndtri_f32(p: torch.Tensor) -> torch.Tensor:
+    """``jax.scipy.special.ndtri`` (``norm.ppf``) in float32 as JAX computes
+    it on the CPU: Cephes' three rational approximations, each operation
+    outside the polynomials its own eagerly dispatched (IEEE) operation,
+    ``log`` XLA's (:func:`log_f32`), the polynomials ``jnp.polyval``'s fused
+    multiply-adds. JAX's result is not correctly rounded (``ndtri(0.75)``
+    is ``0.6744898``, the float32 nearest the true quantile
+    ``0.67448974``), which is why it is written out."""
+    p = p.to(torch.float32)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    mcp = torch.where(p > f32(-np.expm1(-2.0)), 1.0 - p, p)
+    mcp = torch.where(mcp == 0.0, torch.full_like(mcp, 0.5), mcp)
+    w = mcp - 0.5
+    ww = w * w
+    big = w + (w * ww) * (_polyval_f32(_NDTRI_P0, ww) / _polyval_f32(_NDTRI_Q0, ww))
+    big = big * -f32(np.sqrt(2.0 * np.pi))
+    z = _sqrt_f32(-2.0 * log_f32(mcp))
+    first = z - log_f32(z) / z
+    rz = 1.0 / z
+    small = first - _polyval_f32(_NDTRI_P2, rz) / _polyval_f32(_NDTRI_Q2, rz) / z
+    other = first - _polyval_f32(_NDTRI_P1, rz) / _polyval_f32(_NDTRI_Q1, rz) / z
+    x = torch.where(mcp > f32(np.exp(-2.0)), big, torch.where(z >= 8.0, small, other))
+    x = torch.where(p > f32(1.0 - np.exp(-2.0)), x, -x)
+    x = torch.where(p == 0.0, -math.inf, x)
+    return torch.where(p == 1.0, math.inf, x)
+
+
+def small_matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for an inner dimension of 2 as XLA's CPU code computes an
+    eagerly dispatched small product: ``fma(a_1, b_1, a_0 * b_0)`` (held
+    against ``jnp`` on 3,000 random 2 x 2 products). Another inner
+    dimension falls back to ``torch.matmul``, within ``CHOLESKY_RTOL``."""
+    if a.shape[-1] != 2:
+        return a @ b
+    return fma_f32(a[..., :, 1:2], b[..., 1:2, :], a[..., :, 0:1] * b[..., 0:1, :])
+
+
+# How far a Cholesky factor (or small product) of a dimension other than 2
+# may lie from the JAX package's, relative to the factor's largest entry.
+CHOLESKY_RTOL = 1e-5
+
+
+def cholesky_f32(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.linalg.cholesky`` of a symmetric positive definite matrix. At
+    2 x 2 (the only size the registry and the LAL generator use) it is XLA's
+    CPU spelling, bit for bit: ``l00 = sqrt(a00)``, ``l10 = a10 *
+    f32(1 / l00)``, ``l11 = sqrt(a11 - l10 * l10)`` with no fused
+    multiply-add, zeros above the diagonal. Larger matrices take
+    ``torch.linalg.cholesky``, which agrees to ``CHOLESKY_RTOL``."""
+    if a.shape[-1] != 2:
+        return torch.linalg.cholesky(a)
+    l00 = _sqrt_f32(a[..., 0, 0])
+    l10 = a[..., 1, 0] * (1.0 / l00)
+    l11 = _sqrt_f32(a[..., 1, 1] - l10 * l10)
+    zero = torch.zeros_like(l00)
+    return torch.stack([torch.stack([l00, zero], -1), torch.stack([l10, l11], -1)], -2)

@@ -30,6 +30,7 @@ import torch
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _SQRT2_F32 = float(np.float32(math.sqrt(2.0)))
+_TINY_F32 = float(np.finfo(np.float32).tiny)
 
 Key = torch.Tensor
 
@@ -103,26 +104,29 @@ def random_bits(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits as the mantissa of a float in ``[1, 2)``, minus one."""
+def uniform(k: Key, shape: Sequence[int], device=None, *, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits as the mantissa of a float in ``[1, 2)``, minus one, then times
+    ``f32(maxval) - f32(minval)`` plus ``f32(minval)`` as one fused
+    multiply-add (XLA contracts the two inside JAX's jitted ``_uniform``),
+    floored at ``minval``."""
     bits = random_bits(k, shape, device)
     one_bits = 0x3F800000
-    f = ((bits >> 9) | one_bits).to(torch.int32).view(torch.float32)
-    return f - 1.0
+    f = ((bits >> 9) | one_bits).to(torch.int32).view(torch.float32) - 1.0
+    if (minval, maxval) == (0.0, 1.0):
+        return f
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    if math.frexp(span)[0] == 0.5:
+        # A power-of-two span: the product is exact, so the fused and the
+        # rounded multiply-add agree, and the cheaper one runs.
+        scaled = f * span + lo
+    else:
+        from distributed_active_learning_tpu_torch.ops.xla_f32 import fma_f32
 
-
-def _uniform_range(k: Key, shape: Sequence[int], minval: float, maxval: float,
-                   device=None) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the unit
-    draw times ``f32(maxval - minval)`` plus ``minval``, floored at
-    ``minval``. The unit draw has at most 23 significant bits, so whether
-    XLA fuses the multiply-add or not (it does) changes nothing when the
-    span is a power of two, the only spans used here."""
-    span = float(torch.tensor(maxval, dtype=torch.float32) - torch.tensor(minval, dtype=torch.float32))
-    lo = torch.tensor(minval, dtype=torch.float32).item()
-    u = uniform(k, shape, device)
-    return torch.clamp_min(u * span + lo, lo)
+        scaled = fma_f32(f, span, lo)
+    return torch.clamp_min(scaled, lo)
 
 
 def normal(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
@@ -133,8 +137,27 @@ def normal(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
     from distributed_active_learning_tpu_torch.ops.xla_f32 import erfinv_f32
 
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-    u = _uniform_range(k, shape, lo, 1.0, device)
+    u = uniform(k, shape, device, minval=lo, maxval=1.0)
     return erfinv_f32(u) * _SQRT2_F32
+
+
+def gumbel(k: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32 (the "low" mode, JAX's
+    default): ``-log(-log(u))`` of a uniform draw on ``[tiny, 1)``, both
+    logs XLA's (:func:`~.ops.xla_f32.log_f32`)."""
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import log_f32
+
+    u = uniform(k, shape, device, minval=_TINY_F32, maxval=1.0)
+    return -log_f32(-log_f32(u))
+
+
+def categorical(k: Key, logits: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` for a 1-D
+    ``logits`` of C classes: the Gumbel-max trick, the argmax (first index
+    on a tie) of ``gumbel(key, shape + (C,)) + logits``, as int32 on the
+    logits' device."""
+    g = gumbel(k, tuple(shape) + (logits.shape[-1],), logits.device)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)
 
 
 def randint(k: Key, shape: Sequence[int], minval: int, maxval: int, device=None) -> torch.Tensor:

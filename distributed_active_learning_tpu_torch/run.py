@@ -34,8 +34,16 @@ log under a ``# sweep seed`` header; ``--out`` writes ``out_s<seed>.txt``),
 ``--strategies A,B,...`` and ``--datasets A,B,...`` run the grid of those
 strategies x datasets x seeds (each cell's log under a ``# grid cell``
 header). The batched path needs ``--fit device``; a host fit runs the
-experiments one after another. ``--plot`` waits (the card's machine has no
-matplotlib).
+experiments one after another. ``--plot PATH`` saves a PNG: one run's
+accuracy and round-time curves, a sweep's mean +/- sd band, or a grid's
+bands (matplotlib; the card's machine has none, and there it raises naming
+it).
+
+Files: ``--data-path`` names a file-backed dataset's file or directory
+(``--dataset credit_card_fraud --data-path creditcard.csv``, ``striatum``,
+the ``*_file`` checkerboards, ``cifar10``, ``agnews``), read through the
+native loader (built from ``cpp/loader.cpp`` into ``build/kernels/`` at
+first use).
 
 Scenarios (``scenarios/``): ``--scenario KIND`` with its knobs
 (``--flip-prob``, ``--abstain-prob``, ``--cost-budget``, ``--cost-spread``,
@@ -75,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
         "dataset axis to the grid launch (pools padded to one slab width, real rows marked by "
         "the fill watermark; runtime/sweep.py run_grid). Overrides --dataset",
     )
+    ap.add_argument("--data-path", default=None, help="path for file-backed datasets")
     ap.add_argument("--n-samples", type=int, default=None, help="pool size")
     ap.add_argument("--strategy", default="uncertainty")
     ap.add_argument(
@@ -216,6 +225,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--out", default=None, help="write the reference-format results log")
+    ap.add_argument("--plot", default=None, help="save accuracy/time curves as PNG")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--quiet", action="store_true")
     return ap
@@ -291,7 +301,7 @@ def main(argv=None) -> int:
 
     cfg = ExperimentConfig(
         data=DataConfig(name=grid_datasets[0] if grid_datasets else args.dataset,
-                        n_samples=args.n_samples, seed=args.seed),
+                        path=args.data_path, n_samples=args.n_samples, seed=args.seed),
         forest=ForestConfig(
             n_trees=args.trees, max_depth=args.depth, kernel=args.kernel, fit=args.fit,
             quantize=args.quantize,
@@ -393,6 +403,10 @@ def _emit(args, result, dbg) -> None:
     sys.stdout.write(result.to_reference_log())
     if args.out:
         result.save(args.out, fmt="reference")
+    if args.plot:
+        from distributed_active_learning_tpu_torch.runtime.results import plot_result
+
+        plot_result(result, args.plot, title=f"{args.dataset} / {args.strategy}")
     if result.final_accuracy is not None and not args.quiet:
         print(
             f"# final: {result.records[-1].n_labeled} labeled, "
@@ -414,6 +428,11 @@ def _emit_sweep(args, results, seeds, dbg) -> None:
         sys.stdout.write(result.to_reference_log())
         if args.out:
             result.save(_sweep_result_path(args.out, seed), fmt="reference")
+    if args.plot:
+        from distributed_active_learning_tpu_torch.runtime.results import plot_seed_band
+
+        plot_seed_band(results, args.plot,
+                       title=f"{args.dataset} / {args.strategy} ({len(seeds)} seeds)")
     finals = [r.final_accuracy for r in results if r.final_accuracy is not None]
     if finals and not args.quiet:
         print(f"# sweep final: {len(seeds)} seeds, accuracy {np.mean(finals) * 100:.2f}% +/- "
@@ -437,6 +456,10 @@ def _emit_grid(args, grid, dbg) -> None:
             cell.result.save(_grid_result_path(args.out, cell.strategy, cell.dataset, cell.seed,
                                                len(datasets) > 1, cell.scenario, with_scn),
                              fmt="reference")
+    if args.plot:
+        from distributed_active_learning_tpu_torch.runtime.results import plot_grid_bands
+
+        plot_grid_bands(grid, args.plot, title=f"grid ({len(grid.cells)} cells)")
     if not args.quiet:
         finals = [c.result.final_accuracy for c in grid.cells
                   if c.result.final_accuracy is not None]

@@ -1,8 +1,9 @@
 """Per-round experiment records and the reference-format results log (the
-port of ``runtime/results.py``; same line format, byte for byte), and the
-seed-stacked learning curves of a sweep or grid (:func:`strategy_curves`,
-:func:`grid_curves`). The ``plot_*`` helpers wait: the card's machine has no
-matplotlib (ROADMAP)."""
+port of ``runtime/results.py``; same line format, byte for byte, and
+:func:`parse_reference_log` reads it back), the seed-stacked learning curves
+of a sweep or grid (:func:`strategy_curves`, :func:`grid_curves`) and their
+PNG figures (the ``plot_*`` functions, matplotlib; where it is missing, as
+on the card's machine, each raises an ImportError naming it)."""
 
 from __future__ import annotations
 
@@ -101,6 +102,23 @@ class ExperimentResult:
             f.write(self.to_reference_log())
 
 
+def parse_reference_log(text: str) -> ExperimentResult:
+    """The records of a reference-format results log (the inverse of
+    :meth:`ExperimentResult.to_reference_log`, accuracies to its two
+    decimals)."""
+    result = ExperimentResult()
+    n_labeled = n_unlabeled = None
+    for line in text.splitlines():
+        parts = line.split()
+        if line.startswith("labeled"):
+            n_labeled, n_unlabeled = int(parts[2]), int(parts[5])
+        elif line.startswith("Iteration") and n_labeled is not None:
+            result.append(RoundRecord(round=int(parts[1]), n_labeled=n_labeled,
+                                      n_unlabeled=n_unlabeled,
+                                      accuracy=float(parts[-1]) / 100.0))
+    return result
+
+
 def strategy_curves(results):
     """Per-seed accuracy curves stacked on their shared labeled-count axis:
     ``(axis, accs [seeds, rounds])`` from one :class:`ExperimentResult` per
@@ -129,3 +147,123 @@ def grid_curves(grid):
     for cell in grid.cells:
         groups.setdefault((cell.strategy, cell.dataset), []).append(cell.result)
     return {key: strategy_curves(results) for key, results in groups.items()}
+
+
+def _pyplot():
+    """matplotlib's pyplot on the headless Agg backend, or an ImportError
+    naming matplotlib."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        raise ImportError("the plot_* functions need matplotlib, which is not installed "
+                          "here (the records and logs need nothing)") from e
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+def _finish(fig, ax, plt, path: str, title: str, legend: bool = True) -> str:
+    ax.set_xlabel("labeled points")
+    ax.set_ylabel("test accuracy (%)")
+    ax.grid(True, alpha=0.3)
+    if legend:
+        ax.legend()
+    if title:
+        ax.set_title(title)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
+def _band(ax, axis, accs, label: str) -> None:
+    """A mean +/- 1 sd band of ``accs [seeds, rounds]`` (fractions)."""
+    accs = accs * 100
+    mean, sd = accs.mean(axis=0), accs.std(axis=0)
+    (line,) = ax.plot(axis, mean, marker="o", ms=3, label=f"{label} (n={accs.shape[0]})")
+    ax.fill_between(axis, mean - sd, mean + sd, alpha=0.2, color=line.get_color())
+
+
+def plot_seed_band(results, path: str, title: str = "", label: str = "sweep") -> str:
+    """A PNG of the mean +/- 1 sd accuracy band over a sweep's per-seed
+    results (the in-memory twin of :func:`plot_mean_band`)."""
+    plt = _pyplot()
+    axis, accs = strategy_curves(results)
+    fig, ax = plt.subplots(figsize=(7.5, 4.5))
+    _band(ax, axis, accs, label)
+    return _finish(fig, ax, plt, path, title)
+
+
+def plot_grid_bands(grid, path: str, title: str = "") -> str:
+    """A PNG of the mean +/- 1 sd accuracy band of every (strategy,
+    dataset) group of a grid run: the strategy-comparison figure from one
+    launch stream."""
+    plt = _pyplot()
+    curves = grid_curves(grid)
+    multi_ds = len({ds for _s, ds in curves}) > 1
+    fig, ax = plt.subplots(figsize=(7.5, 4.5))
+    for (strat, ds), (axis, accs) in sorted(curves.items()):
+        _band(ax, axis, accs, f"{strat}/{ds}" if multi_ds else strat)
+    return _finish(fig, ax, plt, path, title)
+
+
+def plot_result(result: ExperimentResult, path: str, title: str = "") -> str:
+    """A PNG of one run's curves (the reference's per-run matplotlib
+    artifact, ``classes/active_learner.py:369-384``): accuracy against
+    labeled points, and the time of each round."""
+    plt = _pyplot()
+    labels = [r.n_labeled for r in result.records]
+    accs = [r.accuracy * 100 for r in result.records]
+    times = [r.total_time for r in result.records]
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(10, 4))
+    ax1.plot(labels, accs, marker="o", ms=3)
+    ax1.set_xlabel("labeled points")
+    ax1.set_ylabel("test accuracy (%)")
+    ax1.set_title("accuracy vs labels")
+    ax1.grid(True, alpha=0.3)
+    ax2.plot(range(1, len(times) + 1), times, marker="o", ms=3, color="tab:orange")
+    ax2.set_xlabel("iteration")
+    ax2.set_ylabel("round time (s)")
+    ax2.set_title("per-iteration time")
+    ax2.grid(True, alpha=0.3)
+    if title:
+        fig.suptitle(title)
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    return path
+
+
+def _read_log(path: str) -> ExperimentResult:
+    with open(path) as f:
+        return parse_reference_log(f.read())
+
+
+def plot_mean_band(named_groups, path: str, title: str = "") -> str:
+    """A PNG of each group's mean +/- 1 sd accuracy band, from
+    reference-format logs: ``[(label, [log_path, ...]), ...]``, one group a
+    strategy's seeds on one labeled-count grid."""
+    import numpy as np
+
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(7.5, 4.5))
+    for label, log_paths in named_groups:
+        runs = [_read_log(p) for p in log_paths]
+        axis = [r.n_labeled for r in runs[0].records]
+        accs = np.array([[r.accuracy for r in run.records] for run in runs])
+        _band(ax, axis, accs, label)
+    return _finish(fig, ax, plt, path, title)
+
+
+def plot_comparison(named_logs, path: str, title: str = "") -> str:
+    """A PNG overlaying accuracy-vs-labels curves from reference-format
+    logs: ``[(label, log_path), ...]`` (the reference's distUS-vs-distRAND
+    evidence, which it drew by hand)."""
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(7, 4.5))
+    for label, log_path in named_logs:
+        res = _read_log(log_path)
+        ax.plot([r.n_labeled for r in res.records], [r.accuracy * 100 for r in res.records],
+                marker="o", ms=3, label=label)
+    return _finish(fig, ax, plt, path, title)

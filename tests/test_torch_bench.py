@@ -6,7 +6,10 @@ grid with its scenario leg) with the keys the JAX bench uses for the same
 legs; the scenario grid against the JAX package's ``run_grid`` and the serial
 cells, its fingerprint and its checkpoints across both packages; and the
 port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
-of ``tests/test_pipeline.py`` on a fake, host-only dispatch)."""
+of ``tests/test_pipeline.py`` on a fake, host-only dispatch). Also the CLI on
+a file: ``--dataset credit_card_fraud --data-path`` prints the JAX CLI's log
+line for line, and ``--plot`` and the five ``plot_*`` functions render PNGs
+(each raising an ImportError naming matplotlib without it)."""
 
 import contextlib
 import io
@@ -257,6 +260,52 @@ def test_bench_modes_print_one_json_line(tmp_path):
                     "--grid-strategies", "uncertainty", "--no-baseline"])
     assert rc == 0 and gr["baseline_skipped"] == {"reason": "no_baseline_flag"}
     assert "grid_speedup" not in gr
+    _cli_on_a_file_and_plots(tmp_path)
+
+
+def _cli_on_a_file_and_plots(tmp_path):
+    from distributed_active_learning_tpu import run as j_run
+    from distributed_active_learning_tpu_torch import run as t_run
+    from distributed_active_learning_tpu_torch.data import formats
+    from distributed_active_learning_tpu_torch.runtime import results
+
+    csv = str(tmp_path / "creditcard.csv")
+    formats.write_credit_card_csv(csv, n_rows=1000, n_fraud=40, seed=3)
+    argv = ["--dataset", "credit_card_fraud", "--data-path", csv, "--fit", "device", "--kernel",
+            "pallas", "--fused-round", "--n-samples", "600", "--trees", "8", "--window", "15",
+            "--rounds", "3", "--seed", "1", "--quiet"]
+    logs = []
+    for main, extra in ((j_run.main, []),
+                        (t_run.main, ["--device", "cpu", "--plot", str(tmp_path / "run.png")])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert not main(argv + extra)
+        logs.append(out.getvalue())
+    assert logs[0] == logs[1] and logs[1].count("Iteration") == 3, logs
+    # The plot functions: one run (the CLI's --plot above), a sweep's band,
+    # a grid's bands, and bands and curves from reference-format logs.
+    run = results.parse_reference_log(logs[1])
+    assert run.to_reference_log() == logs[1]
+    other = results.parse_reference_log(logs[1].replace("95.00", "93.50"))
+    cells = [type("Cell", (), dict(strategy=s, dataset="cc", result=r))
+             for s, r in (("uncertainty", run), ("uncertainty", other), ("random", other))]
+    grid = type("Grid", (), dict(cells=cells))
+    for i, r in enumerate((run, other)):
+        r.save(str(tmp_path / f"log{i}.txt"))
+    logs_ = [str(tmp_path / f"log{i}.txt") for i in range(2)]
+    pngs = [str(tmp_path / "run.png"),
+            results.plot_seed_band([run, other], str(tmp_path / "band.png")),
+            results.plot_grid_bands(grid, str(tmp_path / "grid.png"), title="grid"),
+            results.plot_mean_band([("us", logs_)], str(tmp_path / "mean.png")),
+            results.plot_comparison([("a", logs_[0]), ("b", logs_[1])],
+                                    str(tmp_path / "cmp.png"))]
+    for png in pngs:
+        with open(png, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n", png
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(__import__("sys").modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            results.plot_result(run, str(tmp_path / "none.png"))
 
     _scenario_grid_matches_jax(tmp_path)
 

@@ -781,3 +781,47 @@ def test_scenarios_on_the_card(cuda):
     got = knapsack_top_k(scores.to(cuda), costs.to(cuda), mask.to(cuda), 100, 60.0)
     want = knapsack_top_k(scores, costs, mask, 100, 60.0)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_file_path_on_the_card(cuda, tmp_path):
+    """The data slice on the card: a credit-card CSV in the Kaggle layout
+    (2,000 rows) read by the native loader into ``credit_card_fraud``; the
+    fused (K2, K1 for eval), unfused and chunked (K = 2, one CUDA graph)
+    runs of 8 trees of depth 4 give equal records and final masks, equal to
+    the CPU's plain versions; the ``checkerboard2x2_file`` fixtures and a
+    4-experiment ``generate_lal_dataset`` give the CPU's records and rows."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.data import formats
+    from distributed_active_learning_tpu_torch.models import lal_training
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    csv = str(tmp_path / "creditcard.csv")
+    formats.write_credit_card_csv(csv, n_rows=2000, n_fraud=60, seed=4)
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="credit_card_fraud", path=csv, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15), n_start=10,
+        max_rounds=3, fused_round=True)
+
+    def recs(res):
+        return [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+
+    cpu = loop.run_experiment(base, device="cpu")
+    trees_pallas.launches = round_fused.launches = 0
+    fused = loop.run_experiment(base, device=cuda)
+    assert (trees_pallas.launches, round_fused.launches) == (3, 3)
+    unfused = loop.run_experiment(dataclasses.replace(base, fused_round=False), device=cuda)
+    chunked = loop.run_experiment(dataclasses.replace(base, rounds_per_launch=2), device=cuda)
+    assert chunked.graph_stats["captures"] == 1
+    for res in (fused, unfused, chunked):
+        assert recs(res) == recs(cpu)
+        assert torch.equal(res.final_labeled_mask.cpu(), cpu.final_labeled_mask)
+    fixtures = config.DataConfig(name="checkerboard2x2_file", path="tests/fixtures/reference_data")
+    c = dataclasses.replace(base, data=fixtures)
+    assert loop.run_experiment(c, device=cuda).to_reference_log() == \
+        loop.run_experiment(c, device="cpu").to_reference_log()
+    for a, b in zip(lal_training.generate_lal_dataset(n_experiments=4, device=cuda),
+                    lal_training.generate_lal_dataset(n_experiments=4, device="cpu")):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))

@@ -1,5 +1,10 @@
 """Data, pool state and the device fit of the port against the JAX package:
-bundles, bin edges and codes (also snapped to bf16 for quantized storage),
+every dataset registry entry's bundle (the generated pools at small sizes,
+the committed fixtures for the ``*_file`` checkerboards, files this test
+writes for striatum, credit_card_fraud, cifar10 and agnews), the file
+parsers (native route against the JAX package's native loader, the numpy
+route against JAX's numpy route, the files both refuse, a failed build
+raising), bin edges and codes (also snapped to bf16 for quantized storage),
 start masks, fitted forests and their gather form (depth 4 and 11), a
 3-class fit's planes (a MultiForest) and quantized storage are
 bit-identical on the same inputs (CPU, plain PyTorch)."""
@@ -37,12 +42,168 @@ def _bits_equal(a, b):
     np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
-def test_checkerboard2x2_bundle_bit_identical():
+def test_checkerboard2x2_bundle_bit_identical(tmp_path):
     for kw in ({}, {"n_samples": 300, "seed": 1}):
         a = j_get_dataset(JDataConfig(name="checkerboard2x2", **kw))
         b = t_get_dataset(TDataConfig(name="checkerboard2x2", **kw))
         for field in ("train_x", "train_y", "test_x", "test_y"):
             _bits_equal(getattr(a, field), getattr(b, field))
+    _registry_matches_jax(tmp_path)
+    _loader_matches_jax(tmp_path)
+
+
+def _write_rows(path, rows):
+    with open(path, "w") as f:
+        f.write("".join(" ".join(repr(float(v)) for v in r) + "\n" for r in rows))
+
+
+def _registry_matches_jax(tmp_path):
+    """All 14 registry names, each entry's bundle bit-equal to the JAX
+    package's for the same DataConfig (striatum_like's labels included: its
+    scores, which never enter the bundle, are held to
+    ``STRIATUM_SCORE_ATOL``)."""
+    import pickle
+
+    from distributed_active_learning_tpu.data import available_datasets as j_available
+    from distributed_active_learning_tpu_torch.data import available_datasets as t_available
+    from distributed_active_learning_tpu_torch.data import formats as t_formats
+    from distributed_active_learning_tpu_torch.data import synthetic as t_synth
+
+    assert t_available() == j_available() and len(t_available()) == 14
+    rng = np.random.default_rng(0)
+    st = np.column_stack([rng.normal(size=(60, 5)), rng.choice([-1, 1], 60)])
+    _write_rows(tmp_path / "striatum_train_mini.txt", st)
+    _write_rows(tmp_path / "striatum_test_mini.txt", st[:40] * 1.5)
+    t_formats.write_credit_card_csv(str(tmp_path / "cc.csv"), n_rows=300, n_fraud=30, seed=2)
+    for fn in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(tmp_path / fn, "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (20, 3072), dtype=np.uint8),
+                         b"labels": [int(v) for v in rng.integers(0, 10, 20)]}, f)
+    for fn in ("train.csv", "test.csv"):
+        (tmp_path / fn).write_text("".join(
+            f'"{rng.integers(1, 5)}","Title {i} stocks","Words about it\'s news, {i}"\n'
+            for i in range(30)))
+    fixtures = "tests/fixtures/reference_data"
+    cases = [dict(name=n, n_samples=ns, seed=s) for n, ns, s in (
+        ("checkerboard4x4", None, 0), ("rotated_checkerboard2x2", 250, 2), ("blobs4", 300, 3),
+        ("xor", 200, 1), ("striatum_like", 400, 3), ("gaussian_unbalanced", 200, 5),
+        ("cifar10", 100, 1), ("agnews", 120, 2))]
+    cases += [dict(name=f"{b}_file", path=fixtures)
+              for b in ("checkerboard2x2", "checkerboard4x4", "rotated_checkerboard2x2")]
+    cases += [dict(name="striatum", path=str(tmp_path)),
+              dict(name="credit_card_fraud", path=str(tmp_path / "cc.csv"), seed=4),
+              dict(name="credit_card_fraud", path=str(tmp_path / "cc.csv"), seed=4, n_samples=100),
+              dict(name="cifar10", path=str(tmp_path)), dict(name="agnews", path=str(tmp_path))]
+    for kw in cases:
+        a, b = j_get_dataset(JDataConfig(**kw)), t_get_dataset(TDataConfig(**kw))
+        for field in ("train_x", "train_y", "test_x", "test_y"):
+            _bits_equal(np.asarray(getattr(a, field)), getattr(b, field))
+        assert (a.name, a.vocab_size, a.n_features) == (b.name, b.vocab_size, b.n_features), kw
+    # striatum_like: the hyperplane's threshold is JAX's bits, the scores
+    # within the named tolerance of XLA's product.
+    x = t_get_dataset(TDataConfig(name="striatum_like", n_samples=400, seed=3,
+                                  standardize=False)).train_x
+    w, t = t_synth.striatum_boundary()
+    want = np.asarray(jnp.asarray(x) @ jnp.asarray(w.numpy()))
+    got = t_synth.striatum_scores(torch.from_numpy(x), w).numpy()
+    assert np.abs(got - want).max() <= t_synth.STRIATUM_SCORE_ATOL
+    from jax.scipy.stats import norm
+
+    w_j = 0.5 ** jnp.arange(50, dtype=jnp.float32) * jnp.where(jnp.arange(50) % 3 == 1, -1.0, 1.0)
+    assert np.float32(t) == np.asarray(jnp.linalg.norm(w_j) * norm.ppf(0.75))
+
+
+def _loader_matches_jax(tmp_path):
+    """The port's native parse equals the JAX package's native loader (a
+    second build of ``cpp/loader.cpp`` with its Makefile's flags, bound by
+    JAX's ``_native``), its numpy route equals JAX's numpy route; a
+    double-rounding token pins which route gives which bits; the files the
+    built parser declines take the numpy route in both packages and are
+    accepted or refused alike; a failed build raises."""
+    import subprocess
+
+    from distributed_active_learning_tpu.data import _native as j_native
+    from distributed_active_learning_tpu.data import formats as j_formats
+    from distributed_active_learning_tpu_torch.data import _native as t_native
+    from distributed_active_learning_tpu_torch.data import formats as t_formats
+
+    lib = tmp_path / "libdal_loader_jax.so"
+    subprocess.run(["g++", "-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared",
+                    "cpp/loader.cpp", "-o", str(lib)], check=True)
+    rng = np.random.default_rng(1)
+    token = "1.00000005960464477539062500000001"  # strtof: 0x3F800001, via a double 0x3F800000
+    mat = tmp_path / "mat.txt"
+    _write_rows(mat, rng.normal(size=(50, 4)))
+    with open(mat, "a") as f:
+        f.write(f"{token} 2.5 -1 0.1\n")
+    cc = tmp_path / "cc.csv"
+    t_formats.write_credit_card_csv(str(cc), n_rows=200, n_fraud=10, seed=5)
+    with open(cc, "a") as f:
+        f.write(f"7,{token}," + ",".join(["0.5"] * 27) + ',1.25,"1"\n')
+    trip = tmp_path / "trip.txt"
+    t_formats.write_triplet_text(str(trip), rng.normal(size=(5, 3)).astype(np.float32))
+    bad = {"ragged.txt": "1 2 3\n4 5\n", "hex.txt": "1.0 0x1A 2.0\n3.0 4.0 5.0\n",
+           "empty.csv": "a,b,c\n1,,2\n3,4,5\n", "trailing.csv": "a,b\n1,2,\n",
+           "commas.csv": "a,b,c\n,,\n1,2,3\n", "hex.csv": "a,b\n1.0,0x1A\n",
+           "special.txt": "inf nan\n-inf 1.0\n"}
+    for name, text in bad.items():
+        (tmp_path / name).write_text(text)
+
+    def parse_all(fm, **kw):
+        out = {"mat": fm._text_to_matrix(str(mat), None, **kw),
+               "labeled": fm.load_labeled_text(str(mat), **kw),
+               "cc": fm.load_credit_card_csv(str(cc), **kw),
+               "trip": fm.load_triplet_text(str(trip), **kw),
+               "space": fm._text_to_matrix(str(mat), " ", **kw)}
+        for name in bad:
+            load = fm.load_credit_card_csv if name.endswith(".csv") else (
+                lambda p, **k: fm._text_to_matrix(p, None, **k))
+            try:
+                out[name] = load(str(tmp_path / name), **kw)
+            except ValueError as e:
+                out[name] = type(e)
+        return out
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            for x, y in zip(a, b, strict=True):
+                same(x, y)
+        elif isinstance(a, type):
+            assert a is b
+        else:
+            _bits_equal(a, b)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("DAL_TPU_LOADER_LIB", str(lib))
+        mp.setattr(j_native, "_LIB", None)
+        mp.setattr(j_native, "_LIB_TRIED", False)
+        j_nat = {k: v for k, v in parse_all(j_formats).items()}
+        assert j_native._LIB is not None  # JAX's native route ran
+        mp.setattr(j_native, "_LIB_TRIED", True)
+        mp.setattr(j_native, "_LIB", None)
+        j_np = parse_all(j_formats)
+    t_nat, t_np = parse_all(t_formats), parse_all(t_formats, native=False)
+    for key in j_nat:
+        same(j_nat[key], t_nat[key])
+        same(j_np[key], t_np[key])
+    # The double-rounding token: one ulp apart, native above.
+    assert t_nat["mat"][-1, 0].view(np.uint32) == 0x3F800001
+    assert t_np["mat"][-1, 0].view(np.uint32) == 0x3F800000
+    assert t_nat["cc"][0][-1, 1].view(np.uint32) == 0x3F800001
+    assert t_np["cc"][0][-1, 1].view(np.uint32) == 0x3F800000
+    for name in ("ragged.txt", "hex.txt", "empty.csv", "trailing.csv", "commas.csv", "hex.csv"):
+        assert t_native.parse(str(tmp_path / name), name.endswith(".csv")) is None, name
+        assert t_nat[name] is ValueError, name
+    assert np.isnan(t_nat["special.txt"][0, 1]) and t_nat["special.txt"][1, 0] == -np.inf
+    # A loader that cannot be built raises with the compiler's output; no
+    # parse falls back to numpy for want of the library.
+    broken = tmp_path / "loader.cpp"
+    broken.write_text("this is not C++\n")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(t_native, "SOURCE", broken)
+        mp.setattr(t_native, "_lib", None)
+        with pytest.raises(RuntimeError, match="building the native loader .* failed"):
+            t_formats.load_credit_card_csv(str(cc))
 
 
 @pytest.mark.parametrize("n,d", [(300, 2), (1000, 5)])

@@ -493,10 +493,6 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
         (dict(mesh=mesh, strategy=t_config.StrategyConfig(
             name="lal", window_size=15, options=_LAL_OPTIONS)),
          "lal strategy under a device mesh .* mesh-and-pod slice"),
-        # A LAL run names its regressor's source: synthesizing the training
-        # rows comes with the data slice.
-        (dict(strategy=t_config.StrategyConfig(name="lal", window_size=15)),
-         "lal_data_path.*Data, the rest"),
         # The mesh halves of the gather form, the host fit and density.
         (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gather")),
          "gather form .* mesh-and-pod slice"),
@@ -510,6 +506,15 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     for change, why in cases:
         with pytest.raises(NotImplementedError, match=why):
             t_loop.run_experiment(dataclasses.replace(base, **change), device="cpu")
+    # A LAL run with neither a data file nor a forest file synthesizes its
+    # regressor's training rows and fits it with scikit-learn: without
+    # scikit-learn (the card's machine) it is refused by name, before the
+    # experiments run.
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "sklearn", None)
+        with pytest.raises(ImportError, match="scikit-learn"):
+            t_loop.run_experiment(dataclasses.replace(base, strategy=t_config.StrategyConfig(
+                name="lal", window_size=15)), device="cpu")
     # Quantized storage: what the JAX package refuses, the port refuses with
     # the same reasons.
     for change, why in ((dict(fit="host"), "requires the device fit"),

@@ -11,7 +11,13 @@ JAX package's. The drift is held to the jitted JAX drift (the spelling of
 the JAX package's chunked round and grid) bit for bit; the mean-shift
 direction of a 30-feature set to ``DRIFT_DIRECTION_RTOL``; the rotation to
 ``DRIFT_ROTATION_ATOL`` of the JAX package's eager drift (its per-round
-driver's), which rounds each product where the jitted drift fuses one."""
+driver's), which rounds each product where the jitted drift fuses one. The
+data layer's draws and arithmetic too: ``uniform`` on a range (a fused
+multiply-add), ``gumbel`` and ``categorical``, JAX's float32 ``ndtri``
+(``ops.xla_f32.ndtri_f32``, not correctly rounded) on a grid, and the 2 x 2
+products and Cholesky factors of ``make_gaussian_unbalanced``
+(``small_matmul_f32``, ``cholesky_f32``), bit for bit; a 3 x 3 factor to
+``CHOLESKY_RTOL``."""
 
 import numpy as np
 import jax
@@ -25,6 +31,7 @@ from distributed_active_learning_tpu.scenarios import engine as j_scn
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import ScenarioConfig as TScn
 from distributed_active_learning_tpu_torch.data import synthetic as t_synth
+from distributed_active_learning_tpu_torch.ops import xla_f32
 from distributed_active_learning_tpu_torch.ops.xla_f32 import erfinv_f32
 from distributed_active_learning_tpu_torch.scenarios import engine as t_scn
 
@@ -146,3 +153,54 @@ def test_prng_bits_split_fold_in_uniform_match_jax():
     np.testing.assert_array_equal(_bits(erfinv_f32(torch.from_numpy(grid)).numpy()), _bits(want))
 
     _scenario_draws_match_jax()
+    _data_draws_match_jax()
+
+
+def _data_draws_match_jax():
+    for seed in (0, 7, 2**31 + 5):
+        kj, kt = jax.random.key(seed), prng.key(seed)
+        for lo, hi in ((0.1, 0.9), (-1.0, 1.0), (-0.3, 2.7), (1e-3, 5.0)):
+            np.testing.assert_array_equal(
+                _bits(jax.random.uniform(kj, (5000,), minval=lo, maxval=hi)),
+                _bits(prng.uniform(kt, (5000,), minval=lo, maxval=hi).numpy()))
+        np.testing.assert_array_equal(_bits(jax.random.gumbel(kj, (3000, 7))),
+                                      _bits(prng.gumbel(kt, (3000, 7)).numpy()))
+        for imbalance in (0.3, 0.35):
+            logp = jnp.arange(10) * jnp.log1p(-imbalance)
+            got = prng.categorical(kt, torch.tensor(np.asarray(logp)), (4000,))
+            assert got.dtype == torch.int32
+            np.testing.assert_array_equal(
+                np.asarray(jax.random.categorical(kj, logp, shape=(4000,))), got.numpy())
+    # JAX's ndtri: the quantile the striatum pool's threshold reads, a dense
+    # grid, both tails and the edges.
+    rng = np.random.default_rng(0)
+    grid = np.concatenate([
+        np.float32([0.75, 0.25, 0.5, 0, 1, 1e-10, 1 - 1e-7]),
+        np.linspace(0, 1, 20_001, dtype=np.float32),
+        np.exp(-rng.uniform(0, 80, 20_000)).astype(np.float32),
+        (1 - np.exp(-rng.uniform(0, 16, 20_000))).astype(np.float32)])
+    np.testing.assert_array_equal(
+        _bits(jax.scipy.special.ndtri(jnp.asarray(grid))),
+        _bits(xla_f32.ndtri_f32(torch.from_numpy(grid)).numpy()))
+    assert xla_f32.ndtri_f32(torch.tensor([0.75])).numpy().view(np.int32)[0] == \
+        np.float32(0.6744898).view(np.int32)
+    # The 2 x 2 covariance, its Cholesky factor and the sample product, as
+    # the JAX package's eager code computes them.
+    a = rng.uniform(-1, 1, size=(3000, 2, 2)).astype(np.float32)
+    z = rng.normal(size=(3000, 64, 2)).astype(np.float32)
+    cov_j = np.asarray(jnp.asarray(a) @ jnp.swapaxes(jnp.asarray(a), -1, -2) +
+                       0.1 * jnp.eye(2))
+    at = torch.from_numpy(a)
+    cov_t = xla_f32.small_matmul_f32(at, at.transpose(-1, -2)) + torch.eye(2) * np.float32(0.1)
+    np.testing.assert_array_equal(_bits(cov_j), _bits(cov_t.numpy()))
+    chol_j = np.asarray(jax.vmap(jnp.linalg.cholesky)(jnp.asarray(cov_j)))
+    chol_t = xla_f32.cholesky_f32(cov_t)
+    np.testing.assert_array_equal(_bits(chol_j), _bits(chol_t.numpy()))
+    np.testing.assert_array_equal(
+        _bits(jnp.asarray(z) @ jnp.swapaxes(jnp.asarray(chol_j), -1, -2)),
+        _bits(xla_f32.small_matmul_f32(torch.from_numpy(z), chol_t.transpose(-1, -2)).numpy()))
+    b = rng.uniform(-1, 1, size=(3, 3)).astype(np.float32)
+    spd = b @ b.T + np.float32(0.1) * np.eye(3, dtype=np.float32)
+    want = np.asarray(jnp.linalg.cholesky(jnp.asarray(spd)))
+    got = xla_f32.cholesky_f32(torch.from_numpy(spd)).numpy()
+    assert np.abs(got - want).max() <= xla_f32.CHOLESKY_RTOL * np.abs(want).max()

@@ -258,8 +258,11 @@ def _bits(a):
 def _multiclass_and_lal_match_jax():
     """The multiclass scores from C probability planes (leaf-like values,
     pure 0s and 1s among them, and their tree means), then the LAL features
-    of a pool and a regressor fitted from the fixture: bit-equal to jitted
-    JAX."""
+    of a pool and a regressor fitted from the fixture (read by the native
+    loader in both packages): bit-equal to jitted JAX; and the regressor's
+    training rows synthesized by ``generate_lal_dataset`` (2 experiments of
+    2 candidates, pool 40, 2 trees of depth 3) bit-equal to the JAX
+    package's vmapped generator."""
     rng = np.random.default_rng(7)
     j_scores = jax.jit(lambda p: (j_multi.margin_score_multi(p), j_multi.entropy_multi(p)))
     for C in (3, 4, 10, 32):
@@ -299,7 +302,11 @@ def _multiclass_and_lal_match_jax():
     # scored over those features in the gather form, and through K1's plain
     # version (the heap packing of its trees) against JAX's Pallas kernel.
     fixture = "tests/fixtures/lal_simulatedunbalanced_big.txt"
-    raw = t_lal._text_to_matrix(fixture)
+    from distributed_active_learning_tpu.data import formats as j_formats
+    from distributed_active_learning_tpu_torch.data import formats as t_formats
+
+    raw = t_formats._text_to_matrix(fixture, None)
+    np.testing.assert_array_equal(_bits(j_formats._text_to_matrix(fixture, None)), _bits(raw))
     jreg = j_lal.train_lal_regressor(raw[:, :-1], raw[:, -1], n_trees=9, max_depth=7)
     treg = t_lal.train_lal_regressor(raw[:, :-1], raw[:, -1], n_trees=9, max_depth=7)
     for field in ("feature", "threshold", "left", "right", "value"):
@@ -312,3 +319,11 @@ def _multiclass_and_lal_match_jax():
         _bits(j_pallas.predict_leaves_pallas(jk.gf, jf, interpret=True)),
         _bits(t_pallas.predict_leaves_pallas(tk, tfeat)))
     np.testing.assert_array_equal(_bits(j_eval.value(jk, jf)), _bits(t_eval.value(tk, tfeat)))
+    for seed in (0, 1):
+        small = dict(seed=seed, n_experiments=2, candidates_per_experiment=2, pool_size=40,
+                     n_trees=2, max_depth=3)
+        jfe, jta = j_lal.generate_lal_dataset(**small)
+        tfe, tta = t_lal.generate_lal_dataset(**small, device="cpu")
+        assert tfe.shape == (4, 5)
+        np.testing.assert_array_equal(_bits(jfe), _bits(tfe))
+        np.testing.assert_array_equal(_bits(jta), _bits(tta))
