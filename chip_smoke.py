@@ -5,7 +5,7 @@
 Run from the root of a checkout. Phases, in order; any failure exits nonzero
 and prints no result:
 
-1. build the six CUDA kernels from ``distributed_active_learning_tpu_torch/
+1. build the seven CUDA kernels from ``distributed_active_learning_tpu_torch/
    csrc`` (one nvcc per source, started together) and print the card's name
    and power limit;
 2. the leaf kernel K1 (csrc/forest_leaves.cu, a heap walk over the forest
@@ -197,6 +197,32 @@ and prints no result:
    on the committed fixtures, each card == CPU; ``generate_lal_dataset`` at
    the JAX package's defaults (60 experiments x 8 candidates) timed on the
    card, and card == CPU on its rows at 4 experiments;
+4n. the neural path (``runtime/neural_loop.py``, ``neural_phase``): K7
+   (csrc/threefry.cu) bit-equal to ``prng`` at the main path's shapes (a
+   dropout site over a 4,096-row chunk, the minibatch draw over the pool,
+   BatchBALD's configuration and class draws) and timed beside the plain
+   versions; config 4, ``SmallCNN`` (dropout 0.25) on the CIFAR-10 stand-in
+   (``get_dataset(cifar10, n_samples=50000)`` drawn on the card, equal to
+   the CPU's draw at 600 rows), entropy and density, window 100, n_start
+   100, 200 steps of batch 64, 8 MC samples, 4 rounds per round (phases
+   timed) and 4 chunked at K = 2 (one capture, two replays): records and
+   final masks equal; config 5, the encoder (vocab 4,096, max_len 64,
+   d_model 128, 4 heads, 2 layers, d_ff 256, dropout 0.1) on the AG-News
+   stand-in (120,000 x 64) with BatchBALD (window 50, max_configs 4,096,
+   candidate pool 512, 256 MC configurations), the same two drivers; the
+   last per-round fit of each split into the draw, forward + backward and
+   adam (CUDA events), every K7 call of the per-round runs timed again at
+   its shape beside the plain ``prng`` draw (the seconds a round of both
+   forms), an MC pass timed against its FLOPs, BatchBALD's 50 picks timed;
+   a 4-seed sweep of the CNN at 10,000 rows (2 rounds, K = 2, 50 steps a
+   fit: the gate compares bits, which the step count leaves as they are),
+   every lane equal to its serial run; a checkpoint written at round 2 by
+   the chunked driver and resumed to 4 (the same learner), equal to the
+   uninterrupted run; a small MLP and CNN card == CPU
+   (picks equal, probabilities within ``NEURAL_TRAIN_RTOL``); every deep
+   strategy's chunk body once under ``set_sync_debug_mode("error")``; the
+   phase's seconds split by the gate or measurement they pay for. No path
+   of the phase launches K1-K6; each launches K7;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -222,8 +248,10 @@ and prints no result:
    query; the host-fit leg reported skipped without scikit-learn), ``--mode
    sweep`` and ``--mode grid`` (``--no-baseline``: the batched arm alone,
    since phases 4j and 4k hold it against its serial runs and time both;
-   the grid's ``recompiles_after_warmup`` must be 0), each JSON line printed
-   on a line of its own. K5's and K6's launch counts are
+   the grid's ``recompiles_after_warmup`` must be 0) and ``--mode neural``
+   (one eager round of each stretch config at a 200-row pool, 25 steps:
+   phase 4n times both at full width), each JSON line printed on a line of
+   its own. K5's and K6's launch counts are
    read over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
@@ -238,7 +266,10 @@ configurations and largest differences; ``multiclass`` and ``lal`` phases
 4h and 4i's numbers; K1's ``sweep_launches`` and ``grid_launches`` and its
 stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
 numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
-``files`` phase 4m's numbers;
+``files`` phase 4m's numbers; ``neural`` phase 4n's numbers (K7 ``threefry``
+is the seventh entry, its ``launches`` the neural main path's: the CNN
+entropy run per round; every kernel's ``launches_by_path`` has the neural
+paths);
 ``bench_batched`` phase 6's sweep and grid lines, the grid's with its
 scenario leg, whose ``scenario_recompiles_after_warmup`` must be 0),
 the card's name
@@ -251,6 +282,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -385,6 +417,400 @@ def profile_round(loop, cfg, bundle, dev, label: str, devices=None) -> None:
         print(f"#   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
+# The neural path's sizes (phase 4n): the registry's CIFAR-10 and AG-News
+# stand-ins at those datasets' train sizes.
+NEURAL_CIFAR, NEURAL_AGNEWS, NEURAL_SMALL = 50_000, 120_000, 10_000
+NEURAL_ROUNDS, NEURAL_K = 4, 2
+NEURAL_SMALL_STEPS = 50  # 4n-c's fits: its gates compare bits at any step count
+# Forward FLOPs per example, from the shapes: SmallCNN on 32 x 32 x 3 (four
+# 3x3 convs, Dense 4096 -> 128 -> 10) and the encoder on 64 tokens (d 128,
+# 2 layers, 4 heads, d_ff 256).
+CNN_FLOP = 2 * (32 * 32 * 32 * 27 + 16 * 16 * 32 * 288 + 16 * 16 * 64 * 288 + 8 * 8 * 64 * 576
+                + 4096 * 128 + 128 * 10)
+ENC_FLOP = 2 * 2 * (64 * 128 * 384 + 2 * 64 * 64 * 128 + 64 * 128 * 128 + 2 * 64 * 128 * 256)
+# 32-bit operations K7 spends on one element: the threefry2x32 hash (20
+# rounds of add, rotate and xor, 5 key injections) and the float conversion;
+# the Gumbel adds two float32 logs (Cephes: 10 FMAs and ~15 other operations
+# each) and the compare.
+K7_OPS_UNIFORM, K7_OPS_GUMBEL = 123, 123 + 60
+
+
+def neural_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> dict:
+    """Phase 4n: the neural path at CIFAR-10 and AG-News width (see the
+    module docstring). Returns its numbers; fails on any gate."""
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.config import DataConfig
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+    from distributed_active_learning_tpu_torch.models.neural import (
+        MLP, NEURAL_TRAIN_RTOL, NeuralLearner, SmallCNN,
+    )
+    from distributed_active_learning_tpu_torch.models.transformer import TransformerClassifier
+    from distributed_active_learning_tpu_torch.ops import threefry
+    from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+    from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
+    from distributed_active_learning_tpu_torch.strategies import deep
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "k7": {}, "split_seconds": {}}
+    t_mark = [t_phase]
+
+    def mark(label):
+        """Charge the seconds since the previous mark to ``label``."""
+        now = time.perf_counter()
+        out["split_seconds"][label] = now - t_mark[0]
+        t_mark[0] = now
+
+    # -- K7 against its plain version, at the main path's shapes --------------
+    ks = prng.split(prng.key(seed + 7, dev), 4)
+    shape = (4096, 16, 16, 32)  # the CNN's first dropout site over one predict chunk
+    got, want = threefry.uniform(ks[0], shape), prng.uniform(ks[0], shape, dev)
+    torch.cuda.synchronize()
+    k7_err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        fail(f"K7 uniform != prng.uniform at {shape}: {(got != want).sum().item()} differ")
+    labeled = torch.zeros(NEURAL_CIFAR, dtype=torch.bool, device=dev)
+    labeled[torch.randperm(NEURAL_CIFAR, device=dev)[:500]] = True
+    logits = torch.where(labeled, 0.0, float("-inf"))
+    cat_cases = {
+        "minibatch": (ks[1], logits, 64),  # the training draw: 64 rows over the pool
+        "batchbald_configs": (ks[2], torch.randn(4096, device=dev), 256),
+        "batchbald_classes": (ks[3], torch.randn(256, 4, device=dev), 256),
+    }
+    for name, (k, lg, rows) in cat_cases.items():
+        g = threefry.categorical(k, lg, rows)
+        w = prng.categorical(k, lg, (rows,) if lg.dim() == 1 else lg.shape[:-1])
+        torch.cuda.synchronize()
+        k7_err = max(k7_err, float((g - w).abs().max()))
+        if not torch.equal(g, w):
+            fail(f"K7 categorical != prng.categorical ({name}): {(g != w).sum().item()} differ")
+    n_u = int(np.prod(shape))
+    k7 = {}
+    k7["uniform"] = dict(
+        ms=cuda_ms(lambda: threefry.uniform(ks[0], shape)),
+        plain_ms=cuda_ms(lambda: prng.uniform(ks[0], shape, dev), reps=3),
+        bound=bound(4 * n_u, K7_OPS_UNIFORM * n_u), elements=n_u)
+    n_c = 64 * NEURAL_CIFAR
+    k7["categorical"] = dict(
+        ms=cuda_ms(lambda: threefry.categorical(ks[1], logits, 64)),
+        plain_ms=cuda_ms(lambda: prng.categorical(ks[1], logits, (64,)), reps=3),
+        bound=bound(4 * NEURAL_CIFAR + 4 * 64, K7_OPS_GUMBEL * n_c), elements=n_c)
+    for name, r in k7.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        print(f"# time K7 {name} ({r['elements']} draws): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({kind}, {smi})")
+    out["k7"] = k7
+    out["k7_max_abs_err"] = k7_err
+    print(f"# K7 (csrc/threefry.cu) == prng bit for bit: uniform {shape}, categorical "
+          f"{list(cat_cases)}")
+    mark("k7_check_and_times")
+
+    def records(res):
+        return [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+
+    class DrawLog:
+        """Counts K7's calls by shape while it is entered (eager runs only)."""
+
+        def __enter__(self):
+            self.calls = collections.Counter()
+            self._u, self._c = threefry._launch_uniform, threefry._launch_categorical
+
+            def u(key, shp):
+                self.calls[("uniform", tuple(shp), 0)] += 1
+                return self._u(key, shp)
+
+            def c(key, logits, rows):
+                self.calls[("categorical", tuple(logits.shape), rows)] += 1
+                return self._c(key, logits, rows)
+
+            threefry._launch_uniform, threefry._launch_categorical = u, c
+            return self
+
+        def __exit__(self, *exc):
+            threefry._launch_uniform, threefry._launch_categorical = self._u, self._c
+
+    def run(path, cfg, learner, b, chunked, **kw):
+        """One run; the per-round driver's also records its K7 calls and
+        its last fit's split (CUDA events around each part of each step)."""
+        zero_counts()
+        threefry.launches = 0
+        dbg = Debugger(enabled=False, phase_detail=not chunked)
+        log = contextlib.nullcontext() if chunked else DrawLog()
+        if not chunked:
+            learner.phase_events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                                    for _ in range(learner.train_steps)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with log:
+                res = nl.run_neural_experiment(
+                    dataclasses.replace(cfg, rounds_per_launch=NEURAL_K if chunked else 1),
+                    learner, b.train_x, b.train_y, b.test_x, b.test_y, debugger=dbg, **kw)
+            torch.cuda.synchronize()
+        finally:
+            ev, learner.phase_events = learner.phase_events, None
+        wall = time.perf_counter() - t0
+        split = None
+        if not chunked:
+            split = dict(draw=0.0, forward_backward=0.0, adam=0.0)
+            for e in ev:
+                split["draw"] += e[0].elapsed_time(e[1]) / 1e3
+                split["forward_backward"] += e[1].elapsed_time(e[2]) / 1e3
+                split["adam"] += e[2].elapsed_time(e[3]) / 1e3
+        c = counts()
+        if any(c.values()):
+            fail(f"neural path {path} launched forest kernels: {c}")
+        out["launches"][path] = dict(c, threefry=threefry.launches)
+        if threefry.launches == 0:
+            fail(f"neural path {path} never launched K7")
+        return res, wall, (split, None if chunked else log.calls)
+
+    def pair(tag, cfg, learner, b):
+        """Per round then chunked at K = 2: records and masks equal."""
+        per, w_per, (split, calls) = run(f"neural_{tag}", cfg, learner, b, chunked=False)
+        chk, w_chk, _ = run(f"neural_{tag}_chunked", cfg, learner, b, chunked=True)
+        if records(per) != records(chk) or not torch.equal(per.final_labeled_mask,
+                                                           chk.final_labeled_mask):
+            fail(f"neural {tag}: chunked != per-round:\n{records(per)}\n{records(chk)}")
+        g = chk.graph_stats
+        if g["captures"] != 1 or g["replays"] != NEURAL_ROUNDS // NEURAL_K:
+            fail(f"neural {tag}: graph stats {g}")
+        phases = [dict(train=r.train_time, acquire=r.score_time, eval=r.eval_time)
+                  for r in per.records]
+        row = dict(per_round_wall=w_per, chunked_wall=w_chk, phases=phases,
+                   fit_split=split, draw_calls=calls,
+                   chunked_seconds_per_round=statistics.median(
+                       r.total_time for r in chk.records[NEURAL_K:]),
+                   capture_seconds=g["capture_seconds"], graph_pool_bytes=g["pool_bytes"],
+                   launches_per_replay=g["launches_per_replay"],
+                   final_accuracy=per.final_accuracy, records=records(per))
+        print(f"# neural {tag}: chunked == per-round ({NEURAL_ROUNDS} rounds, K = {NEURAL_K}); "
+              f"per-round wall {w_per:.2f}s, chunked wall {w_chk:.2f}s "
+              f"({row['chunked_seconds_per_round']:.4f} s/round replayed), capture "
+              f"{g['capture_seconds']:.2f}s, graph pool {g['pool_bytes'] / 2**20:.0f} MiB; "
+              f"final accuracy {per.final_accuracy:.4f} ({kind}, {smi})")
+        for i, p in enumerate(phases):
+            print(f"#   round {i + 1}: train {p['train']:.4f}s acquire {p['acquire']:.4f}s "
+                  f"eval {p['eval']:.4f}s")
+        sp = row["fit_split"]
+        print(f"#   round {NEURAL_ROUNDS}'s fit ({learner.train_steps} steps): draw "
+              f"{sp['draw']:.4f}s, forward+backward {sp['forward_backward']:.4f}s, adam "
+              f"{sp['adam']:.4f}s ({kind}, {smi})")
+        mark(tag)
+        return row
+
+    def draw_seconds(calls, rounds):
+        """Device seconds a round of a run's K7 calls, timed again at their
+        shapes, and of the plain ``prng`` draws at the same shapes."""
+        k = prng.key(seed + 9, dev)
+        k7_s = plain_s = 0.0
+        for (what, shp, rows), n in calls.items():
+            if what == "uniform":
+                f7 = lambda shp=shp: threefry.uniform(k, shp)  # noqa: E731
+                fp = lambda shp=shp: prng.uniform(k, shp, dev)  # noqa: E731
+            else:
+                lg = torch.zeros(shp, device=dev)
+                f7 = lambda lg=lg, rows=rows: threefry.categorical(k, lg, rows)  # noqa: E731
+                fp = lambda lg=lg, rows=rows: prng.categorical(  # noqa: E731
+                    k, lg, (rows,) if lg.dim() == 1 else lg.shape[:-1])
+            k7_s += n * cuda_ms(f7, reps=3) / 1e3
+            plain_s += n * cuda_ms(fp, reps=2) / 1e3
+        dr = dict(calls_per_round=sum(calls.values()) / rounds, k7_seconds=k7_s / rounds,
+                  plain_seconds=plain_s / rounds,
+                  shapes={f"{w} {list(shp)} x{r}": n for (w, shp, r), n in calls.items()})
+        print(f"#   K7's draws a round: {dr['calls_per_round']:.0f} calls, {dr['k7_seconds']:.4f}s; "
+              f"the plain prng draws at the same shapes {dr['plain_seconds']:.4f}s ({kind}, {smi})")
+        return dr
+
+    def mc_pass(learner, b):
+        """An MC pass over the pool on fresh weights (its time does not
+        depend on their values): the samples and their device seconds."""
+        x = torch.as_tensor(b.train_x).to(dev)
+        net = learner.init(prng.key(seed + 2))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        probs = learner.predict_proba_samples(net, x, prng.key(3, dev))
+        end.record()
+        end.synchronize()
+        return probs, start.elapsed_time(end) / 1e3
+
+    # -- 4n-a: config 4, SmallCNN on the CIFAR-10 stand-in ------------------
+    t0 = time.perf_counter()
+    bc = get_dataset(DataConfig(name="cifar10", n_samples=NEURAL_CIFAR, seed=seed), device=dev)
+    gen_c = time.perf_counter() - t0
+    if bc.train_x.shape != (NEURAL_CIFAR, 32, 32, 3) or bc.test_x.shape[1:] != (32, 32, 3):
+        fail(f"cifar10 stand-in shapes {bc.train_x.shape} {bc.test_x.shape}")
+    small = get_dataset(DataConfig(name="cifar10", n_samples=600, seed=seed))
+    small_dev = get_dataset(DataConfig(name="cifar10", n_samples=600, seed=seed), device=dev)
+    if not all(np.array_equal(a, b_) for a, b_ in zip(small[:4], small_dev[:4])):
+        fail("the cifar10 stand-in drawn on the card != the CPU's")
+    cnn = NeuralLearner(SmallCNN(n_classes=10, dropout_rate=0.25), (32, 32, 3), train_steps=200,
+                        batch_size=64, mc_samples=8, device=dev)
+    cfg_c = nl.NeuralExperimentConfig(window_size=100, n_start=100, max_rounds=NEURAL_ROUNDS,
+                                      seed=seed)
+    out["cnn"] = {"data_seconds": gen_c}
+    for strat in ("entropy", "density"):
+        out["cnn"][strat] = pair(f"cnn_{strat}", dataclasses.replace(cfg_c, strategy=strat),
+                                 cnn, bc)
+    # The density runs draw at the entropy runs' shapes: time those once.
+    out["cnn"]["draws"] = draw_seconds(out["cnn"]["entropy"].pop("draw_calls"), NEURAL_ROUNDS)
+    del out["cnn"]["density"]["draw_calls"]
+    mark("cnn_draws_plain_vs_k7")
+    out["launches"]["neural"] = dict(out["launches"]["neural_cnn_entropy"])
+    probs, mc_s = mc_pass(cnn, bc)
+    del probs
+    flop = NEURAL_CIFAR * 8 * CNN_FLOP
+    out["cnn"].update(mc_pass_seconds=mc_s, mc_pass_tflop=flop / 1e12,
+                      mc_tflops=flop / mc_s / 1e12)
+    print(f"# neural cnn: data on the card {gen_c:.2f}s; MC pass {mc_s:.4f}s = "
+          f"{flop / 1e12:.2f} TFLOP at {flop / mc_s / 1e12:.2f} TFLOP/s of the 67 TFLOP/s f32 "
+          f"peak ({kind}, {smi})")
+    mark("cnn_mc_pass")
+
+    # -- 4n-b: config 5, the encoder + BatchBALD on the AG-News stand-in ----
+    t0 = time.perf_counter()
+    ba = get_dataset(DataConfig(name="agnews", n_samples=NEURAL_AGNEWS, seed=seed), device=dev)
+    gen_a = time.perf_counter() - t0
+    if ba.train_x.shape != (NEURAL_AGNEWS, 64) or ba.test_x.shape[1:] != (64,):
+        fail(f"agnews stand-in shapes {ba.train_x.shape} {ba.test_x.shape}")
+    enc = NeuralLearner(TransformerClassifier(vocab_size=4096, max_len=64, d_model=128, n_heads=4,
+                                              n_layers=2, d_ff=256, n_classes=4,
+                                              dropout_rate=0.1),
+                        (64,), train_steps=200, batch_size=64, mc_samples=8, device=dev)
+    cfg_a = nl.NeuralExperimentConfig(strategy="batchbald", window_size=50, n_start=100,
+                                      max_rounds=NEURAL_ROUNDS, batchbald_max_configs=4096,
+                                      batchbald_candidate_pool=512, batchbald_mc_samples=256,
+                                      seed=seed)
+    out["encoder"] = {"data_seconds": gen_a, "batchbald": pair("encoder_batchbald", cfg_a, enc,
+                                                              ba)}
+    out["encoder"]["draws"] = draw_seconds(out["encoder"]["batchbald"].pop("draw_calls"),
+                                           NEURAL_ROUNDS)
+    mark("encoder_draws_plain_vs_k7")
+    probs, mc_s = mc_pass(enc, ba)
+    flop = NEURAL_AGNEWS * 8 * ENC_FLOP
+    unlabeled = torch.arange(NEURAL_AGNEWS, device=dev) >= 500
+    sel_ms = cuda_ms(lambda: deep.batchbald_select(probs, unlabeled, 50, 4096, 512, 256,
+                                                   key=prng.key(4, dev)), reps=1)
+    out["encoder"].update(mc_pass_seconds=mc_s, mc_pass_tflop=flop / 1e12,
+                          mc_tflops=flop / mc_s / 1e12, batchbald_select_ms=sel_ms)
+    print(f"# neural encoder: data on the card {gen_a:.2f}s; MC pass {mc_s:.4f}s = "
+          f"{flop / 1e12:.2f} TFLOP at {flop / mc_s / 1e12:.2f} TFLOP/s; BatchBALD select (50 "
+          f"picks, exact to 4^6 configs, then 256 sampled) {sel_ms:.1f} ms ({kind}, {smi})")
+    del probs, unlabeled, bc, ba
+    mark("encoder_mc_pass_and_select")
+
+    # -- 4n-c: a seed sweep, a checkpoint resume, card == CPU ---------------
+    bs = get_dataset(DataConfig(name="cifar10", n_samples=NEURAL_SMALL, seed=seed), device=dev)
+    cnn = NeuralLearner(SmallCNN(n_classes=10, dropout_rate=0.25), (32, 32, 3),
+                        train_steps=NEURAL_SMALL_STEPS, batch_size=64, mc_samples=8, device=dev)
+    cfg_s = dataclasses.replace(cfg_c, strategy="entropy", max_rounds=2,
+                                rounds_per_launch=NEURAL_K)
+    seeds = [seed + i for i in range(4)]
+    zero_counts()
+    threefry.launches = 0
+    t0 = time.perf_counter()
+    lanes = nl.run_neural_sweep(cfg_s, cnn, bs.train_x, bs.train_y, bs.test_x, bs.test_y, seeds)
+    torch.cuda.synchronize()
+    sweep_wall = time.perf_counter() - t0
+    out["launches"]["neural_sweep"] = dict(counts(), threefry=threefry.launches)
+    if any(counts().values()) or threefry.launches == 0:
+        fail(f"neural sweep launches: {out['launches']['neural_sweep']}")
+    for s, lane in zip(seeds, lanes):
+        serial = nl.run_neural_experiment(dataclasses.replace(cfg_s, seed=s, rounds_per_launch=1),
+                                          cnn, bs.train_x, bs.train_y, bs.test_x, bs.test_y)
+        if records(lane) != records(serial) or not torch.equal(lane.final_labeled_mask,
+                                                               serial.final_labeled_mask):
+            fail(f"neural sweep lane seed {s} != its serial run")
+    print(f"# neural sweep: {len(seeds)} seeds x 2 rounds (K = {NEURAL_K}, {NEURAL_SMALL_STEPS} "
+          f"steps a fit) on {NEURAL_SMALL} rows, every lane == its serial run; {sweep_wall:.2f}s "
+          f"wall, graph "
+          f"{lanes[0].graph_stats['pool_bytes'] / 2**20:.0f} MiB")
+    mark("sweep_and_serial_lanes")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_4n_")
+    cfg_k = dataclasses.replace(cfg_s, max_rounds=4)
+    full = nl.run_neural_experiment(cfg_k, cnn, bs.train_x, bs.train_y, bs.test_x, bs.test_y)
+    half = dataclasses.replace(cfg_k, max_rounds=2, checkpoint_dir=ckpt, checkpoint_every=2)
+    nl.run_neural_experiment(half, cnn, bs.train_x, bs.train_y, bs.test_x, bs.test_y)
+    resumed = nl.run_neural_experiment(half, cnn, bs.train_x, bs.train_y, bs.test_x, bs.test_y)
+    shutil.rmtree(ckpt)
+    if records(resumed) != records(full) or not torch.equal(resumed.final_labeled_mask,
+                                                            full.final_labeled_mask):
+        fail(f"neural resume at round 2 != uninterrupted:\n{records(resumed)}\n{records(full)}")
+    print("# neural checkpoint: written at round 2 (chunked), resumed to 4 == uninterrupted")
+    mark("checkpoint_resume")
+    del bs
+
+    rs = np.random.RandomState(seed)
+    small_cases = {
+        "mlp": (MLP(hidden=(16,)), (4,), rs.randn(200, 4).astype(np.float32)),
+        "cnn": (SmallCNN(n_classes=2, dropout_rate=0.1), (8, 8, 3),
+                rs.randn(200, 8, 8, 3).astype(np.float32)),
+    }
+    card_cpu = {}
+    for name, (module, in_shape, xs) in small_cases.items():
+        flat = xs.reshape(len(xs), -1)
+        ys = (flat[:, 0] + 0.5 * flat[:, 1] > 0).astype(np.int32)
+        probs = {}
+        runs_ = {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            lr = NeuralLearner(module, in_shape, train_steps=10, mc_samples=2, device=d)
+            st = lr.init(prng.key(seed + 2))
+            msk = torch.zeros(200, dtype=torch.bool, device=d)
+            msk[:20] = True
+            fitted = lr.fit_on_mask(st, torch.as_tensor(xs).to(d), torch.as_tensor(ys).to(d), msk,
+                                    prng.key(seed + 3, d))
+            probs[side] = lr.predict_proba(fitted, torch.as_tensor(xs).to(d)).cpu()
+            runs_[side] = nl.run_neural_experiment(
+                nl.NeuralExperimentConfig(strategy="entropy", window_size=5, n_start=10,
+                                          max_rounds=3, seed=seed), lr, xs, ys, xs[:60], ys[:60])
+        err = float(((probs["card"] - probs["cpu"]).abs() / probs["cpu"].abs()).max())
+        if err > NEURAL_TRAIN_RTOL:
+            fail(f"neural {name} probabilities card vs CPU: {err} > {NEURAL_TRAIN_RTOL}")
+        same = torch.equal(runs_["card"].final_labeled_mask.cpu(), runs_["cpu"].final_labeled_mask)
+        if not same or [r.n_labeled for r in runs_["card"].records] != [
+                r.n_labeled for r in runs_["cpu"].records]:
+            fail(f"neural {name}: the card's picks != the CPU's")
+        card_cpu[name] = err
+    out["card_vs_cpu_rel_err"] = card_cpu
+    print(f"# neural small runs card == CPU (picks equal; probabilities within "
+          f"{NEURAL_TRAIN_RTOL}: {card_cpu})")
+
+    mark("card_vs_cpu")
+    # Every strategy's chunk body once, eagerly, under sync-error mode: nothing
+    # reads back to the host, so the graph capture holds.
+    xs = small_cases["mlp"][2]
+    ys = (xs[:, 0] + 0.5 * xs[:, 1] > 0).astype(np.int32)
+    lr = NeuralLearner(MLP(hidden=(16,)), (4,), train_steps=4, mc_samples=2, device=dev)
+    pool_x = torch.as_tensor(xs).to(dev)
+    oracle = torch.as_tensor(ys).to(dev)
+    init = lr.init(prng.key(1))
+    for strat in ("entropy", "bald", "batchbald", "coreset", "badge", "density", "random"):
+        body = nl.make_neural_chunk_fn(lr, strat, 5, 2, 200, batchbald_params=(8, 50, 16))
+        carry = nl.NeuralCarry(labeled_mask=(torch.arange(200, device=dev) < 10),
+                               key=prng.key(2, dev), round=torch.zeros((), dtype=torch.int32,
+                                                                       device=dev), net=init)
+        args_ = (pool_x, carry, oracle, init, pool_x[:60], oracle[:60],
+                 torch.as_tensor(99, dtype=torch.int32).to(dev))
+        body(*args_)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, extras, _ = body(*args_)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if int(extras.n_active) != 2:
+            fail(f"the neural {strat} chunk body did not run two active rounds")
+    print("# neural chunk bodies, eager, set_sync_debug_mode('error'): no host sync for every "
+          "deep strategy")
+    mark("chunk_bodies_sync_free")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 4n: {out['seconds']:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in out["split_seconds"].items()) + ")")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -393,6 +819,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card", file=sys.stderr)
         return 2
+    # Phase 4n's gates compare bits: cuBLAS's fixed per-stream workspace must
+    # be set before the process's first product (device.deterministic_cuda).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distributed_active_learning_tpu_torch import bench, kernels, prng
     from distributed_active_learning_tpu_torch.benches import pallas_variants as lv
@@ -2225,6 +2654,16 @@ def main() -> int:
     shutil.rmtree(data_dir)
     print(f"# phase 4m: {time.perf_counter() - t_phase:.1f}s")
 
+    # -- phase 4n: the neural path -------------------------------------------
+    lv.transposed_launches = lv.segmented_launches = 0
+    neural_numbers = neural_phase(args.seed, dev, kind, smi, counts, zero_counts)
+    neural_k56 = {"forest_leaves_transposed": lv.transposed_launches,
+                  "forest_leaves_segmented": lv.segmented_launches}
+    if any(neural_k56.values()):
+        fail(f"the neural path launched K5 or K6: {neural_k56}")
+    for path, c in neural_numbers["launches"].items():
+        launches[path] = {k: c[k] for k in counts()}
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -2537,7 +2976,8 @@ def main() -> int:
     bench_batched = {}
     for mode, extra in (("score", []), ("round", []), ("variants", ["--variants", "v0,v1,v8,r1"]),
                         ("lal", ["--lal-model", bench_lal_path]), ("sweep", ["--no-baseline"]),
-                        ("grid", ["--no-baseline"])):
+                        ("grid", ["--no-baseline"]),
+                        ("neural", ["--neural-pool", "200", "--train-steps", "25"])):
         if mode == "variants":
             lv.transposed_launches = lv.segmented_launches = 0
         out = io.StringIO()
@@ -2627,15 +3067,30 @@ def main() -> int:
          "max_abs_err": k5_err, "ms": k5_ms, "device_ms": k5_dev, "plain_ms": k5_plain,
          "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None,
          "tree_outer_ms": k5_outer_ms, "tree_outer_device_ms": k5_outer_dev,
-         "call_ms": k5_call_ms, "walk_plain_ms": k5_walk_plain},
+         "call_ms": k5_call_ms, "walk_plain_ms": k5_walk_plain,
+         "launches_by_path": {"bench_variants": variant_launches["forest_leaves_transposed"],
+                              "neural": neural_k56["forest_leaves_transposed"]}},
         {"name": "forest_leaves_segmented", "route": "cuda",
          "source": f"{pkg}/forest_leaves_segmented.cu",
          "replaces": "benches/pallas_variants.py:359",
          "launches": variant_launches["forest_leaves_segmented"],
          "max_abs_err": k6_err, "ms": k6_ms, "device_ms": k6_dev, "plain_ms": k6_plain,
          "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None,
-         "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain},
-    ], "seconds_per_round": chunk_times, "telemetry": telemetry_numbers,
+         "segment_slots": seg_S, "walk_plain_ms": k6_walk_plain,
+         "launches_by_path": {"bench_variants": variant_launches["forest_leaves_segmented"],
+                              "neural": neural_k56["forest_leaves_segmented"]}},
+        {"name": "threefry", "route": "cuda", "source": f"{pkg}/threefry.cu",
+         "replaces": "distributed_active_learning_tpu/models/neural.py:144 (jax.random's "
+                     "threefry under XLA, no Pallas kernel)",
+         "launches": neural_numbers["launches"]["neural"]["threefry"],
+         "launches_by_path": {p: c["threefry"] for p, c in neural_numbers["launches"].items()},
+         "max_abs_err": neural_numbers["k7_max_abs_err"],
+         "ms": neural_numbers["k7"]["categorical"]["ms"],
+         "plain_ms": neural_numbers["k7"]["categorical"]["plain_ms"],
+         "bound_ms": neural_numbers["k7"]["categorical"]["bound_ms"],
+         "bound_by": neural_numbers["k7"]["categorical"]["bound_by"], "library_ms": None,
+         "by_entry": neural_numbers["k7"]},
+    ], "seconds_per_round": chunk_times, "neural": neural_numbers, "telemetry": telemetry_numbers,
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
         "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
         "files": files_numbers,

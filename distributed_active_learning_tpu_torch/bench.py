@@ -1,6 +1,6 @@
 """The port's own bench: one JSON line on stdout, always.
 
-    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants
+    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants|neural
         [--device cpu] [--kernel pallas|gemm|gather] [--pool N] [--trees T] ...
 
 The counterpart of the repo-root ``bench.py`` (the JAX package's, which stays
@@ -63,6 +63,17 @@ as it is) for what the port carries:
   ``scenario_recompiles_after_warmup``: must be 0). ``--no-baseline`` skips
   the serial arm of both modes (``baseline_skipped`` says so).
 
+- ``--mode neural``: one deep-AL round of each BASELINE stretch config
+  (``bench_neural``, the JAX bench's): a SmallCNN over the
+  ``make_synthetic_images`` pool with MC-dropout entropy and window 100
+  (``cnn_round_seconds``), and ``TransformerClassifier(vocab_size=4096,
+  max_len=64, n_classes=4)`` over the ``make_synthetic_tokens`` pool with
+  BatchBALD and window 50 (``transformer_batchbald_round_seconds``): the fit
+  of ``--train-steps`` minibatches, the ``--mc-samples`` MC passes and the
+  select, on ``--neural-pool`` rows (2,000, 300 steps, 8 samples on CUDA),
+  each round's device seconds from CUDA events (median of ``--iters``, at
+  most 3), run eagerly.
+
 Sizes default to the JAX bench's: its accelerator table on CUDA (pool
 284,807 x 30, 100 trees, 5,000 labeled rows, 10 iterations, 8 rounds per
 launch) and its smoke table under ``--device cpu`` (``cpu_smoke_sizes`` is
@@ -88,7 +99,7 @@ host-fit leg (the bench runs where the card is, which has no scikit-learn; a
 host-fit forest would come as a forest file), the roofline section
 (pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
 ``--compare-to`` (pre-flight slice), the grid's scenario leg (scenario
-slice), and the modes neural and serve* (their own slices).
+slice), and the modes serve* (their own slice).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -109,10 +120,10 @@ import torch
 
 _CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8,
                    lal_trees=2000, lal_pool=1000, sweep_experiments=8, sweep_pool=284_807,
-                   grid_experiments=8)
+                   grid_experiments=8, neural_pool=2000, train_steps=300)
 _CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4,
                   lal_trees=50, lal_pool=200, sweep_experiments=8, sweep_pool=500,
-                  grid_experiments=8)
+                  grid_experiments=8, neural_pool=200, train_steps=25)
 # The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
 # bench's baseline.
 SPARK_LAL_QUERY_SEC = 1654.16
@@ -848,8 +859,65 @@ def bench_grid(args, dev) -> dict:
     return out
 
 
+def bench_neural(args, dev) -> dict:
+    """One deep-AL round of configs 4 and 5 (the JAX bench's ``bench_neural``):
+    fit ``train_steps`` minibatches, draw the MC samples over the pool, select
+    (entropy top-k for the CNN, BatchBALD for the encoder)."""
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.data.synthetic import (
+        make_synthetic_images,
+        make_synthetic_tokens,
+    )
+    from distributed_active_learning_tpu_torch.device import deterministic_cuda
+    from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
+    from distributed_active_learning_tpu_torch.models.transformer import TransformerClassifier
+    from distributed_active_learning_tpu_torch.ops.topk import select_top_k
+    from distributed_active_learning_tpu_torch.strategies import deep
+
+    if dev.type == "cuda":
+        deterministic_cuda()
+    n = args.neural_pool
+
+    def round_seconds(learner, x, y, strat, window):
+        n_start = min(args.window, max(1, n // 8))
+        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask[:n_start] = True
+        net = learner.init(prng.key(0))
+
+        def run(seed):
+            k = prng.key(seed, dev)
+            st = learner.fit_on_mask(net, x, y, mask, prng.fold_in(k, 1))
+            probs = learner.predict_proba_samples(st, x, prng.fold_in(k, 2))
+            if strat == "batchbald":
+                return deep.batchbald_select(probs, ~mask, window, 4096, 512)[0]
+            return select_top_k(deep.predictive_entropy(probs), ~mask, window)[1]
+
+        run(1)  # builds K7 and warms the allocator
+        return _median_device(lambda: run(2), min(args.iters, 3), dev)
+
+    kx, kt = prng.split(prng.key(0, dev))  # the stand-ins drawn where the run is
+    ix, iy = make_synthetic_images(kx, n)
+    cnn = NeuralLearner(SmallCNN(n_classes=10), (32, 32, 3), train_steps=args.train_steps,
+                        mc_samples=args.mc_samples, device=dev)
+    cnn_sec = round_seconds(cnn, ix.to(dev), iy.to(dev), "entropy", min(100, max(1, n // 4)))
+    tx, ty = make_synthetic_tokens(kt, n)
+    enc = NeuralLearner(TransformerClassifier(vocab_size=4096, max_len=64, n_classes=4), (64,),
+                        train_steps=args.train_steps, mc_samples=args.mc_samples, device=dev)
+    enc_sec = round_seconds(enc, tx.to(dev), ty.to(dev), "batchbald", min(50, max(1, n // 4)))
+    return {
+        "metric": "neural_round_seconds", "value": round(cnn_sec, 4),
+        "unit": (f"s/round (SmallCNN entropy, {n} pool, {args.train_steps} steps, "
+                 f"{args.mc_samples} MC)"),
+        "neural_pool": n, "train_steps": args.train_steps, "mc_samples": args.mc_samples,
+        "cnn_round_seconds": round(cnn_sec, 4),
+        "transformer_batchbald_round_seconds": round(enc_sec, 4),
+        "time_method": "cuda_events" if dev.type == "cuda" else "host_clock",
+    }
+
+
 _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
-          "variants": bench_variants, "lal": bench_lal, "sweep": bench_sweep, "grid": bench_grid}
+          "variants": bench_variants, "lal": bench_lal, "sweep": bench_sweep, "grid": bench_grid,
+          "neural": bench_neural}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -901,6 +969,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-baseline", action="store_true",
                     help="sweep and grid modes: skip the serial arm (the speedup denominator); "
                     "baseline_skipped says so")
+    ap.add_argument("--neural-pool", type=int, default=None,
+                    help="neural mode: pool rows of both configs (default 2,000 on CUDA, 200 "
+                    "under --device cpu)")
+    ap.add_argument("--train-steps", type=int, default=None,
+                    help="neural mode: minibatch steps a round (default 300 on CUDA, 25 under "
+                    "--device cpu)")
+    ap.add_argument("--mc-samples", type=int, default=8, help="neural mode: MC-dropout samples")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")

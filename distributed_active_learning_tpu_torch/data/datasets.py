@@ -59,10 +59,18 @@ def available_datasets():
     return sorted(_REGISTRY)
 
 
-def get_dataset(cfg: DataConfig) -> DataBundle:
+def get_dataset(cfg: DataConfig, device=None) -> DataBundle:
+    """The bundle of ``cfg``. ``device`` draws a generated image or token
+    stand-in (``cifar10``, ``agnews``) there instead of on the CPU: the same
+    bits (the port's ``prng`` is exact on every device), in seconds where
+    60,000 CIFAR-shaped images take minutes on the host; the bundle is numpy
+    either way. ``run.py --neural`` passes its learner's device."""
     if cfg.name not in _REGISTRY:
         raise KeyError(f"unknown dataset {cfg.name!r}; available: {available_datasets()}")
-    bundle = _REGISTRY[cfg.name](cfg)
+    if device is not None and cfg.name in _DEVICE_DRAWN and cfg.path is None:
+        bundle = _REGISTRY[cfg.name](cfg, device=device)
+    else:
+        bundle = _REGISTRY[cfg.name](cfg)
     if cfg.n_samples is not None and cfg.n_samples < bundle.n_pool:
         rng = np.random.default_rng(cfg.seed)
         idx = rng.permutation(bundle.n_pool)[: cfg.n_samples]
@@ -184,8 +192,13 @@ def _credit_card(cfg: DataConfig) -> DataBundle:
     return _standardize(DataBundle(x[tr], y[tr], x[te], y[te], "credit_card_fraud"), cfg)
 
 
+# The generated stand-ins that can be drawn on a device (get_dataset's
+# ``device``).
+_DEVICE_DRAWN = ("cifar10", "agnews")
+
+
 @register_dataset("cifar10")
-def _cifar10(cfg: DataConfig) -> DataBundle:
+def _cifar10(cfg: DataConfig, device=None) -> DataBundle:
     """The CIFAR-10 image pool. With ``cfg.path``: the python-pickle batches
     (``data_batch_1..5``, ``test_batch``) scaled to ``x / 127.5 - 1``.
     Without: the generated stand-in at CIFAR's shape (32 x 32 x 3 float32,
@@ -203,15 +216,15 @@ def _cifar10(cfg: DataConfig) -> DataBundle:
         return DataBundle(np.concatenate(xs), np.concatenate(ys), test_x, test_y, "cifar10")
     n_train, n_test = _standin_sizes(cfg)
     x, y = synthetic.make_synthetic_images(
-        prng.key(cfg.seed), n_train + n_test,
+        prng.key(cfg.seed, device), n_train + n_test,
         noise=2.2, modes_per_class=4, max_shift=8, imbalance=0.30,
     )
-    x, y = x.numpy(), y.numpy()
+    x, y = x.cpu().numpy(), y.cpu().numpy()
     return DataBundle(x[:n_train], y[:n_train], x[n_train:], y[n_train:], "cifar10")
 
 
 @register_dataset("agnews")
-def _agnews(cfg: DataConfig) -> DataBundle:
+def _agnews(cfg: DataConfig, device=None) -> DataBundle:
     """The AG-News token pool. With ``cfg.path``: ``train.csv`` and
     ``test.csv`` (``"class","title","description"``, class 1..4) hashed to
     token ids (:mod:`.text`). Without: the generated topic pool at its shape
@@ -225,12 +238,13 @@ def _agnews(cfg: DataConfig) -> DataBundle:
         return DataBundle(train_x, train_y, test_x, test_y, "agnews", vocab_size=vocab)
     hard = dict(topic_frac=0.4, overlap=0.25, imbalance=0.35)
     n_train, n_test = _standin_sizes(cfg)
-    keys = prng.split(prng.key(cfg.seed))
+    keys = prng.split(prng.key(cfg.seed, device))
     tx, ty = synthetic.make_synthetic_tokens(keys[0], n_train, vocab_size=vocab, max_len=max_len,
                                              **hard)
     ex, ey = synthetic.make_synthetic_tokens(keys[1], n_test, vocab_size=vocab, max_len=max_len,
                                              **hard)
-    return DataBundle(tx.numpy(), ty.numpy(), ex.numpy(), ey.numpy(), "agnews", vocab_size=vocab)
+    return DataBundle(tx.cpu().numpy(), ty.cpu().numpy(), ex.cpu().numpy(), ey.cpu().numpy(),
+                      "agnews", vocab_size=vocab)
 
 
 @register_dataset("gaussian_unbalanced")

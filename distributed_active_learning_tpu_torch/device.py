@@ -36,3 +36,20 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (phase timing); no-op on the CPU."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def deterministic_cuda() -> None:
+    """Same bits every run on the card for the neural path: cuDNN takes only
+    deterministic convolution algorithms (its default backward ones add with
+    atomics) and does not benchmark, and cuBLAS gets the fixed per-stream
+    workspace PyTorch documents for reproducible products
+    (``CUBLAS_WORKSPACE_CONFIG=:4096:8``; it takes effect only if set before
+    the process's first cuBLAS call, so a script that needs it sets it at
+    start). The embedding gradient is a one-hot product
+    (``models/transformer.py``), so no operation of the path adds with
+    atomics."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

@@ -56,3 +56,59 @@ def pool_state_from_numpy(x, oracle_y, labeled_mask, key_data, round=0, device="
         key=torch.as_tensor(kd),
         round=int(round),
     )
+
+
+def flax_path(name: str) -> tuple:
+    """A port parameter name's flax path: ``"Dense_0.weight"`` ->
+    ``("Dense_0", "kernel")``."""
+    parts = name.split(".")
+    return tuple(parts[:-1]) + ({"weight": "kernel"}.get(parts[-1], parts[-1]),)
+
+
+def flax_leaf_order(names) -> list:
+    """Port parameter names in the order of ``jax.tree_util.tree_leaves`` of
+    the flax params tree (keys sorted at every level)."""
+    return sorted(names, key=flax_path)
+
+
+def neural_params_from_numpy(params, module, device="cpu") -> dict:
+    """A flax params tree of numpy arrays (nested dicts) as the port
+    module's state dict: Dense ``[in, out]`` -> ``[out, in]``, Conv ``HWIO`` ->
+    ``OIHW``, Embed tables and LayerNorm scales and biases as they are. The
+    names must be the module's."""
+    from distributed_active_learning_tpu_torch.models.neural import to_port_layout
+
+    flat = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat[prefix + (k,)] = v
+
+    walk(params, ())
+    out = {}
+    for path, arr in flat.items():
+        name = ".".join(path[:-1] + ({"kernel": "weight"}.get(path[-1], path[-1]),))
+        out[name] = _t(to_port_layout(name, np.asarray(arr, dtype=np.float32)), np.float32, device)
+    expected = set(module.param_names())
+    if set(out) != expected:
+        raise ValueError(f"flax params {sorted(out)} are not those of {type(module).__name__}: "
+                         f"{sorted(expected)}")
+    return out
+
+
+def neural_params_to_numpy(state_dict, module=None) -> dict:
+    """The inverse of :func:`neural_params_from_numpy`: a nested dict of
+    numpy arrays in flax's names and layouts."""
+    from distributed_active_learning_tpu_torch.models.neural import to_flax_layout
+
+    out: dict = {}
+    for name, v in state_dict.items():
+        path = flax_path(name)
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(to_flax_layout(name, v.detach().cpu().numpy()))
+    return out

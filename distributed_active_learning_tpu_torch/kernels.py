@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("forest_leaves", "round_megakernel", "fused_votes", "ring_hop",
-           "forest_leaves_transposed", "forest_leaves_segmented")
+           "forest_leaves_transposed", "forest_leaves_segmented", "threefry")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures (argument types) of each source's entry points.
 _SIGNATURES = {
     "forest_leaves": {
@@ -57,6 +58,10 @@ _SIGNATURES = {
     "forest_leaves_segmented": {
         "forest_leaves_segmented": [_P, _I, _I, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P, _P],
+    },
+    "threefry": {
+        "threefry_uniform": [_P, _L, _P, _P],
+        "threefry_categorical": [_P, _I, _L, _P, _L, _P, _P],
     },
 }
 

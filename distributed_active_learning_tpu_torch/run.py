@@ -45,6 +45,17 @@ the ``*_file`` checkerboards, ``cifar10``, ``agnews``), read through the
 native loader (built from ``cpp/loader.cpp`` into ``build/kernels/`` at
 first use).
 
+Neural (``runtime/neural_loop.py``): ``--neural`` or a ``deep.*`` strategy
+runs the deep-AL loop (a SmallCNN, MLP or transformer encoder, ``--model
+auto`` choosing by the pool: images, tokens or tables) with the JAX
+package's flags (``--train-steps``, ``--mc-samples``,
+``--batchbald-max-configs``, ``--candidate-pool``, ``--batchbald-samples``,
+``--coreset-space``, ``--beta``, ``--hidden``, ``--d-model``,
+``--n-layers``, ``--n-heads``, ``--d-ff``; ``--sweep-seeds`` batches the
+seeds, ``--rounds-per-launch`` chunks the rounds into one CUDA graph a
+chunk) and its refusals; ``--phase-detail`` asks for per-phase timing (the
+per-round driver).
+
 Scenarios (``scenarios/``): ``--scenario KIND`` with its knobs
 (``--flip-prob``, ``--abstain-prob``, ``--cost-budget``, ``--cost-spread``,
 ``--rare-class``, ``--drift-kind``, ``--drift-rate``, ``--scenario-seed``)
@@ -228,6 +239,37 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plot", default=None, help="save accuracy/time curves as PNG")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument(
+        "--phase-detail", action="store_true",
+        help="force per-phase (train/acquire/eval) host wall splits; with --rounds-per-launch "
+        "> 1 this takes the per-round driver (phases cannot be attributed inside one graph)",
+    )
+    # Neural (deep-AL) mode, the JAX package's flags and defaults.
+    ap.add_argument("--neural", action="store_true", help="use the neural-learner path")
+    ap.add_argument(
+        "--model", choices=["auto", "mlp", "cnn", "transformer"], default="auto",
+        help="neural learner (auto: cnn for image pools, transformer for token pools, mlp for "
+        "tabular)",
+    )
+    ap.add_argument("--train-steps", type=int, default=200)
+    ap.add_argument("--mc-samples", type=int, default=8)
+    ap.add_argument("--batchbald-max-configs", type=int, default=4096)
+    ap.add_argument(
+        "--batchbald-samples", "--batchbald-mc-samples", dest="batchbald_samples", type=int,
+        default=256,
+        help="MC configurations carried past the exact-joint cap",
+    )
+    ap.add_argument("--candidate-pool", type=int, default=512)
+    ap.add_argument("--coreset-space", choices=["input", "embedding"], default="input",
+                    help="deep.coreset feature space: raw pool features or the trained "
+                    "network's penultimate representation")
+    ap.add_argument("--beta", type=float, default=1.0,
+                    help="deep.density: entropy x mass ** beta")
+    ap.add_argument("--hidden", default="128,64", help="MLP hidden sizes (neural mode)")
+    ap.add_argument("--d-model", type=int, default=128)
+    ap.add_argument("--n-layers", type=int, default=2)
+    ap.add_argument("--n-heads", type=int, default=4)
+    ap.add_argument("--d-ff", type=int, default=256)
     return ap
 
 
@@ -289,6 +331,17 @@ def main(argv=None) -> int:
         except ValueError as e:
             ap.error(str(e))
     base_scenario, scenario_cfgs = _scenarios(ap, args)
+    from distributed_active_learning_tpu_torch.runtime.neural_loop import is_deep_strategy
+
+    neural = args.neural or args.strategy.startswith("deep.")
+    if neural:
+        _check_neural(ap, args, base_scenario, scenario_cfgs)
+    else:
+        from distributed_active_learning_tpu_torch.strategies import available_strategies
+
+        if args.strategy not in available_strategies() and is_deep_strategy(args.strategy):
+            ap.error(f"{args.strategy!r} is a deep strategy; spell it "
+                     f"'deep.{args.strategy}' (or pass --neural)")
     if args.flight_recorder:
         telemetry.install_flight_recorder(args.flight_recorder)
     ops_server = None
@@ -327,6 +380,7 @@ def main(argv=None) -> int:
     dbg = Debugger(
         enabled=not args.quiet,
         printer=lambda *a: print(*a, file=sys.stderr),
+        phase_detail=args.phase_detail,
     )
     # A scenario with a seed sweep runs through the grid launcher: the seed
     # sweep has no scenario wiring, and the grid's one-strategy shape is a
@@ -338,7 +392,13 @@ def main(argv=None) -> int:
     writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
     try:
         with telemetry.profile_session(args.profile_dir):
-            if use_grid:
+            if neural:
+                out = _run_neural(args, dbg, metrics=writer)
+                if args.sweep_seeds > 1:
+                    results = out
+                else:
+                    result = out
+            elif use_grid:
                 from distributed_active_learning_tpu_torch.runtime.sweep import run_grid
 
                 grid = run_grid(cfg, grid_strategies or [cfg.strategy.name], seeds,
@@ -357,13 +417,121 @@ def main(argv=None) -> int:
             ops_server.stop()
     if args.flight_recorder:
         telemetry.flight_dump("exit")
-    if use_grid:
+    if use_grid and not neural:
         _emit_grid(args, grid, dbg)
     elif args.sweep_seeds > 1:
         _emit_sweep(args, results, seeds, dbg)
     else:
         _emit(args, result, dbg)
     return 0
+
+
+def _check_neural(ap, args, base_scenario, scenario_cfgs) -> None:
+    """The JAX package's refusals of the neural path, with its messages."""
+    from distributed_active_learning_tpu_torch.runtime.neural_loop import (
+        available_deep_strategies,
+        is_deep_strategy,
+    )
+
+    if base_scenario.active or scenario_cfgs is not None:
+        ap.error("scenarios drive the forest loop; the neural path has no "
+                 "scenario wiring yet (a named ROADMAP follow-up)")
+    if args.fused_round:
+        ap.error(
+            "--fused-round serves the single forest experiment only; the "
+            "sweep/grid launchers (--sweep-seeds > 1 / --strategies / "
+            "--datasets) and the neural loop run their own fused chunks "
+            "without it (ROADMAP: serving the megakernel from the batched "
+            "launchers is a follow-up)")
+    if args.strategies or args.datasets:
+        ap.error("--strategies/--datasets drive the forest grid launcher; "
+                 "the neural path batches the seed axis only (--sweep-seeds)")
+    if args.sweep_seeds > 1 and args.checkpoint_dir:
+        ap.error("checkpointing is not supported by the batched neural sweep; run the seeds "
+                 "serially")
+    if args.mesh_model != 1:
+        ap.error("the neural path shards pool rows only (--mesh-data); "
+                 "--mesh-model applies to the forest ensemble axis")
+    if not is_deep_strategy(args.strategy):
+        ap.error(f"--neural needs a deep strategy, got {args.strategy!r}; "
+                 f"pick one of: {', '.join(available_deep_strategies())}")
+
+
+def _run_neural(args, dbg, metrics=None):
+    """The deep-AL path over a registry dataset (the JAX CLI's
+    ``_run_neural``): ``--model auto`` takes the CNN for an image pool, the
+    transformer for a token pool and the MLP otherwise."""
+    import dataclasses
+
+    import numpy as np
+
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+    from distributed_active_learning_tpu_torch.device import resolve_device
+    from distributed_active_learning_tpu_torch.models.neural import MLP, NeuralLearner, SmallCNN
+    from distributed_active_learning_tpu_torch.runtime.neural_loop import (
+        NeuralExperimentConfig,
+        run_neural_experiment,
+        run_neural_sweep,
+    )
+
+    dev = resolve_device(args.device)
+    data_cfg = DataConfig(name=args.dataset, path=args.data_path, n_samples=args.n_samples,
+                          seed=args.seed)
+    bundle = get_dataset(data_cfg, device=dev)
+    n_classes = max(int(bundle.train_y.max()) + 1, 2)
+    kind = args.model
+    if kind == "auto":
+        if bundle.train_x.ndim == 4:
+            kind = "cnn"
+        elif np.issubdtype(np.asarray(bundle.train_x).dtype, np.integer):
+            kind = "transformer"
+        else:
+            kind = "mlp"
+    if kind == "cnn":
+        if bundle.train_x.ndim != 4:
+            raise ValueError(f"--model cnn needs an image pool, got shape {bundle.train_x.shape}")
+        module = SmallCNN(n_classes=n_classes)
+        input_shape = tuple(int(s) for s in bundle.train_x.shape[1:])
+    elif kind == "transformer":
+        from distributed_active_learning_tpu_torch.models.transformer import TransformerClassifier
+
+        if bundle.train_x.ndim != 2:
+            raise ValueError(
+                f"--model transformer needs a token pool, got shape {bundle.train_x.shape}")
+        max_len = int(bundle.train_x.shape[1])
+        vocab = bundle.vocab_size or int(np.asarray(bundle.train_x).max()) + 1
+        module = TransformerClassifier(vocab_size=vocab, max_len=max_len, n_classes=n_classes,
+                                       d_model=args.d_model, n_layers=args.n_layers,
+                                       n_heads=args.n_heads, d_ff=args.d_ff)
+        input_shape = (max_len,)
+    else:
+        module = MLP(n_classes=n_classes, hidden=tuple(int(h) for h in args.hidden.split(",") if h))
+        if bundle.train_x.ndim > 2:
+            flat = int(np.prod(bundle.train_x.shape[1:]))
+            bundle = bundle._replace(
+                train_x=np.asarray(bundle.train_x).reshape(len(bundle.train_x), flat),
+                test_x=np.asarray(bundle.test_x).reshape(len(bundle.test_x), flat))
+        input_shape = (int(bundle.train_x.shape[1]),)
+    learner = NeuralLearner(module, input_shape, train_steps=args.train_steps,
+                            mc_samples=args.mc_samples, device=dev)
+    cfg = NeuralExperimentConfig(
+        strategy=args.strategy, window_size=args.window, n_start=args.n_start,
+        max_rounds=args.rounds, seed=args.seed,
+        batchbald_max_configs=args.batchbald_max_configs,
+        batchbald_candidate_pool=args.candidate_pool,
+        batchbald_mc_samples=args.batchbald_samples, beta=args.beta,
+        coreset_space=args.coreset_space, checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every, rounds_per_launch=args.rounds_per_launch,
+        pipeline_depth=args.pipeline_depth, stream_round_events=args.stream_rounds,
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model))
+    ident = dataclasses.asdict(data_cfg)
+    if args.sweep_seeds > 1:
+        return run_neural_sweep(cfg, learner, bundle.train_x, bundle.train_y, bundle.test_x,
+                                bundle.test_y, seeds=list(range(args.seed,
+                                                                args.seed + args.sweep_seeds)),
+                                debugger=dbg, data_ident=ident, metrics=metrics)
+    return run_neural_experiment(cfg, learner, bundle.train_x, bundle.train_y, bundle.test_x,
+                                 bundle.test_y, debugger=dbg, data_ident=ident, metrics=metrics)
 
 
 def _scenarios(ap, args):

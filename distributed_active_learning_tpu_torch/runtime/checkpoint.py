@@ -34,8 +34,10 @@ experiment's (or cell's) ``labeled_mask`` ``[E, n]``, ``key`` ``uint32[E,
 fingerprint of the whole batch (:func:`sweep_fingerprint`,
 :func:`grid_fingerprint`): the JAX package's format, so either package
 resumes the other's; a scenario grid's fingerprint carries its scenario axis.
-The serve and neural formats of the JAX module come with their slices
-(ROADMAP queue 1).
+A neural experiment's file (:func:`save_neural`) adds the loop key, the
+network's parameters and its adam state in flax's leaf order and layouts,
+as the JAX package writes them. The serve format of the JAX module comes
+with its slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -357,3 +359,95 @@ def restore_latest_grid(ckpt_dir: str, n_store: int, n_cells: int,
     return _restore_latest_batched(
         ckpt_dir, "gridstate", _GRID_STEP_RE, n_store, n_cells, fingerprint,
         kind="grid", row_noun="cells", width_noun="pool width", width_target="grid slab")
+
+
+# ---------------------------------------------------------------------------
+# Neural experiments
+# ---------------------------------------------------------------------------
+
+
+def save_neural(ckpt_dir: str, state: PoolState, result: ExperimentResult, net_state,
+                loop_key: torch.Tensor, fingerprint: Optional[str] = None) -> str:
+    """A neural experiment's checkpoint: the base fields plus the loop's key
+    (``loop_key``), the network's step (``net_step``), its parameters
+    (``net_param_<i>``) and its adam state (``net_opt_<i>``: the count, then
+    the first and the second moments), numbered in the order of the flax
+    tree's leaves and stored in flax's layouts: the JAX package's file, so
+    either package resumes the other's."""
+    from distributed_active_learning_tpu_torch.interop import flax_leaf_order
+    from distributed_active_learning_tpu_torch.models.neural import to_flax_layout
+    from distributed_active_learning_tpu_torch.utils.io import atomic_savez
+
+    payload = _base_payload(state, result, fingerprint)
+    payload["loop_key"] = loop_key.cpu().numpy().astype(np.uint32)
+    payload["net_step"] = np.asarray(int(net_state.step), dtype=np.int32)
+    names = flax_leaf_order(net_state.params)
+
+    def flax_np(name, t):
+        return np.ascontiguousarray(to_flax_layout(name, t.detach().cpu().numpy()))
+
+    for i, k in enumerate(names):
+        payload[f"net_param_{i}"] = flax_np(k, net_state.params[k])
+    opt = net_state.opt_state
+    leaves = ([np.asarray(int(opt.count), dtype=np.int32)]
+              + [flax_np(k, opt.mu[k]) for k in names] + [flax_np(k, opt.nu[k]) for k in names])
+    for i, leaf in enumerate(leaves):
+        payload[f"net_opt_{i}"] = leaf
+    os.makedirs(ckpt_dir, exist_ok=True)
+    return atomic_savez(os.path.join(ckpt_dir, f"alstate_{int(state.round)}.npz"), **payload)
+
+
+def _numbered(z, prefix: str, count: int, step: int) -> list:
+    stored = sorted(int(k[len(prefix):]) for k in z.files if k.startswith(prefix))
+    if stored != list(range(count)):
+        raise ValueError(
+            f"checkpoint alstate_{step}.npz holds {len(stored)} '{prefix}*' arrays but the "
+            f"network has {count}: not a checkpoint of this model (or not a neural checkpoint)")
+    return [z[f"{prefix}{i}"] for i in range(count)]
+
+
+def restore_latest_neural(ckpt_dir: str, state: PoolState, result: ExperimentResult,
+                          template_net_state, fingerprint: Optional[str] = None):
+    """Load the newest neural checkpoint: ``(state, result, net_state,
+    loop_key)``, or None when there is none. The network is rebuilt against
+    ``template_net_state`` (a freshly initialized TrainState, on the device
+    it is to live on): a leaf count or shape that differs raises."""
+    from distributed_active_learning_tpu_torch.interop import flax_leaf_order
+    from distributed_active_learning_tpu_torch.models.neural import (
+        AdamState,
+        TrainState,
+        to_port_layout,
+    )
+
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return None
+    names = flax_leaf_order(template_net_state.params)
+    tmpl = template_net_state.params
+    dev = tmpl[names[0]].device
+    with np.load(os.path.join(ckpt_dir, f"alstate_{step}.npz")) as z:
+        new_state, new_result = _restore_base(z, step, state, result, fingerprint)
+        if "loop_key" not in z.files:
+            raise ValueError(
+                f"alstate_{step}.npz is not a neural checkpoint (no loop_key/network arrays) "
+                "- it was written by the forest loop")
+        loop_key = torch.from_numpy(np.asarray(z["loop_key"]).astype(np.int64))
+        params_np = _numbered(z, "net_param_", len(names), step)
+        opt_np = _numbered(z, "net_opt_", 1 + 2 * len(names), step)
+        net_step = int(z["net_step"])
+
+    def port(name, arr):
+        t = torch.from_numpy(np.ascontiguousarray(to_port_layout(name, np.asarray(arr))))
+        if tuple(t.shape) != tuple(tmpl[name].shape):
+            raise ValueError(f"checkpoint leaf {name} shape {tuple(t.shape)} != network leaf "
+                             f"shape {tuple(tmpl[name].shape)}: different architecture")
+        return t.to(torch.float32).to(dev)
+
+    k = len(names)
+    net = TrainState(
+        params={n: port(n, a) for n, a in zip(names, params_np)},
+        opt_state=AdamState(torch.tensor(int(opt_np[0]), dtype=torch.int32, device=dev),
+                            {n: port(n, a) for n, a in zip(names, opt_np[1:1 + k])},
+                            {n: port(n, a) for n, a in zip(names, opt_np[1 + k:])}),
+        step=torch.tensor(net_step, dtype=torch.int32, device=dev))
+    return new_state, new_result, net, loop_key

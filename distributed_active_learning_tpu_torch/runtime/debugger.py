@@ -13,17 +13,34 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 
 class Debugger:
-    """Phase timer with structured ``(label, seconds)`` records."""
+    """Phase timer with structured ``(label, seconds)`` records.
 
-    def __init__(self, enabled: bool = True, printer=print):
+    ``phase_detail`` asks for per-phase (train / acquire / eval) splits,
+    which a chunked driver cannot attribute inside one launch: the neural
+    driver then takes its per-round loop (as the JAX package's does)."""
+
+    def __init__(self, enabled: bool = True, printer=print, phase_detail=None):
         self.enabled = enabled
         self.printer = printer
+        self.phase_detail = bool(phase_detail) if phase_detail is not None else False
         self.records: List[Tuple[str, float]] = []
         self._start = time.perf_counter()
+        self._last = self._start
+
+    def timestamp(self, label: str) -> float:
+        """Record the seconds since the previous timestamp under ``label``
+        (printed with the running total when enabled) and return them."""
+        now = time.perf_counter()
+        elapsed = now - self._last
+        self._last = now
+        self.records.append((label, elapsed))
+        if self.enabled:
+            self.printer(f"[{label}] {elapsed:.3f}s (total {now - self._start:.3f}s)")
+        return elapsed
 
     def debug(self, *args) -> None:
         if self.enabled:
@@ -42,6 +59,13 @@ class Debugger:
             self.records.append((label, elapsed))
             if self.enabled:
                 self.printer(f"[{label}] {elapsed:.3f}s")
+
+    def totals(self) -> Dict[str, float]:
+        """Seconds summed per label."""
+        out: Dict[str, float] = {}
+        for label, elapsed in self.records:
+            out[label] = out.get(label, 0.0) + elapsed
+        return out
 
     def total_time(self) -> float:
         return time.perf_counter() - self._start

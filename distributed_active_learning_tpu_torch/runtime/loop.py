@@ -96,6 +96,7 @@ from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
 from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
+from distributed_active_learning_tpu_torch.runtime.pipeline import _map_leaves
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult, RoundRecord
 from distributed_active_learning_tpu_torch.strategies import Strategy, StrategyAux, get_strategy
 
@@ -600,10 +601,11 @@ def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
 
 def _kernel_launch_counts() -> dict:
     """The wrappers' launch counters this module's paths can advance."""
-    from distributed_active_learning_tpu_torch.ops import round_fused, trees_pallas
+    from distributed_active_learning_tpu_torch.ops import round_fused, threefry, trees_pallas
 
     return {(trees_pallas, "launches"): trees_pallas.launches,
-            (round_fused, "launches"): round_fused.launches}
+            (round_fused, "launches"): round_fused.launches,
+            (threefry, "launches"): threefry.launches}
 
 
 # The carry of every chunk program: the fields of a PoolState (one
@@ -612,20 +614,35 @@ def _kernel_launch_counts() -> dict:
 CARRY_FIELDS = ("labeled_mask", "key", "round")
 
 
+def _copy_leaves(dst, src) -> None:
+    """Copy every tensor of ``src`` into the matching tensor of ``dst`` (two
+    trees of one structure: a tensor, or dicts, tuples and lists of them)."""
+    pairs = []
+    _map_leaves(lambda d: pairs.append(d), dst)
+    srcs = []
+    _map_leaves(lambda t: srcs.append(t), src)
+    for d, t in zip(pairs, srcs, strict=True):
+        d.copy_(t)
+
+
 class GraphedChunk:
     """A chunk function as one CUDA graph: the counterpart of the jitted
     launch with a donated carry.
 
     ``chunk_fn(*args) -> (new_carry, extras, ys)`` takes its carry as
-    ``args[carry_arg]`` (an object with the :data:`CARRY_FIELDS` tensors
-    and ``replace``: a :class:`~.state.PoolState` for one experiment, a
-    ``runtime.sweep.SweepState`` for a sweep or grid), the per-call inputs
+    ``args[carry_arg]`` (an object with ``replace`` and the
+    ``carry_fields``, each a tensor or a tree of them: a
+    :class:`~.state.PoolState` for one experiment, a
+    ``runtime.sweep.SweepState`` for a sweep or grid, both with
+    :data:`CARRY_FIELDS`; a ``runtime.neural_loop.NeuralCarry``, which also
+    carries the network's TrainState), the per-call inputs
     at the positions ``input_args`` (tensors that may change from call to
     call: the single chunk's end round, a sweep's end rounds, a grid's end
     rounds, label caps and real widths), and its constants everywhere else.
 
-    The first call runs one step of the body eagerly (``chunk_fn.step``,
-    same arguments: it builds and loads the kernels and fills the
+    The first call runs one step of the body eagerly on a side stream
+    (``chunk_fn.step``, same arguments: it builds and loads the kernels,
+    sets up autograd's per-stream state and fills the
     per-device constant caches, none of which may happen while capturing),
     copies the carry and the inputs into static buffers and captures the
     whole chunk on them; that call and every later one replay the graph.
@@ -652,10 +669,11 @@ class GraphedChunk:
     replay).
     """
 
-    def __init__(self, chunk_fn, carry_arg: int = 1, input_args=(6,)):
+    def __init__(self, chunk_fn, carry_arg: int = 1, input_args=(6,), carry_fields=CARRY_FIELDS):
         self._fn = chunk_fn
         self._carry_arg = carry_arg
         self._input_args = tuple(input_args)
+        self._carry_fields = tuple(carry_fields)
         self._graph = None
         self.captures = 0
         self.replays = 0
@@ -670,8 +688,15 @@ class GraphedChunk:
     def _capture(self, args):
         carry = args[self._carry_arg]
         dev = carry.labeled_mask.device
-        self._fn.step(*args)  # warm-up
-        self._carry = {f: getattr(carry, f).clone() for f in CARRY_FIELDS}
+        # The warm-up runs on a side stream, PyTorch's recipe for a capture
+        # (autograd sets up per-stream state at its first backward, which a
+        # capture must not see created).
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._fn.step(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._carry = {f: _map_leaves(torch.clone, getattr(carry, f)) for f in self._carry_fields}
         self._inputs = {i: args[i].clone() for i in self._input_args}
         static_args = list(args)
         static_args[self._carry_arg] = carry.replace(**self._carry)
@@ -690,7 +715,7 @@ class GraphedChunk:
         with torch.cuda.graph(graph):
             out, extras, ys = self._fn(*static_args)
             for f, buf in self._carry.items():
-                buf.copy_(getattr(out, f))
+                _copy_leaves(buf, getattr(out, f))
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         for (mod, name), n in before.items():
@@ -724,7 +749,7 @@ class GraphedChunk:
             carry = args[self._carry_arg]
             if carry.labeled_mask.data_ptr() != self._carry["labeled_mask"].data_ptr():
                 for f, buf in self._carry.items():
-                    buf.copy_(getattr(carry, f))
+                    _copy_leaves(buf, getattr(carry, f))
         for i, buf in self._inputs.items():
             buf.copy_(args[i])
         self._graph.replay()
@@ -1077,7 +1102,7 @@ def run_experiment(
 
     n_pool = state.n_valid
     round_idx = start_round
-    if cfg.rounds_per_launch > 1 and host_fit is None:
+    if cfg.rounds_per_launch > 1 and host_fit is None and not dbg.phase_detail:
         state = _run_chunked(
             cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
             fit_budget, result, dbg, start_round, metrics=metrics, n_classes=n_classes,

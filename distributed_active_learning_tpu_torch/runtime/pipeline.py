@@ -93,6 +93,8 @@ class _InFlight:
 
 
 def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         mapped = [_map_leaves(fn, t) for t in tree]
         return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)

@@ -101,6 +101,41 @@ def compute_round_metrics(
     from, with no second pass over the pool.
     """
     from distributed_active_learning_tpu_torch.ops import forest_eval, trees_multi
+
+    valid = state.valid_mask
+    if trees_multi.is_multi(forest):
+        ent = _entropy_sum_multi([forest_eval.leaves(p, state.x) for p in forest.planes], valid)
+    else:
+        ent = _entropy_sum(forest_eval.leaves(forest, state.x), valid)
+    return _round_metrics(state, picked, picked_vals, scores, higher_is_better, n_classes, ent)
+
+
+def selection_metrics(
+    state,
+    picked: torch.Tensor,
+    picked_vals: torch.Tensor,
+    scores: torch.Tensor,
+    *,
+    higher_is_better: bool,
+    n_classes: int,
+    pool_entropy: torch.Tensor,
+) -> RoundMetrics:
+    """The model-agnostic half of :func:`compute_round_metrics`: everything
+    but the pool-entropy pass is a function of the selection, so the neural
+    round (``runtime/neural_loop.py``) passes its own per-row predictive
+    entropy ``pool_entropy [n]`` (MC-dropout entropy, in nats), summed over
+    the valid rows in XLA's reduce order."""
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
+
+    valid = state.valid_mask
+    ent = row_sum(torch.where(valid, pool_entropy, 0.0)[None])[0]
+    return _round_metrics(state, picked, picked_vals, scores, higher_is_better, n_classes, ent)
+
+
+def _round_metrics(state, picked, picked_vals, scores, higher_is_better: bool, n_classes: int,
+                   ent: torch.Tensor) -> RoundMetrics:
+    """The RoundMetrics of a selection, ``ent`` the valid rows' summed
+    entropy."""
     from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const, row_sum
     from distributed_active_learning_tpu_torch.runtime import state as state_lib
 
@@ -131,10 +166,6 @@ def compute_round_metrics(
     score_max = torch.where(torch.isfinite(hi), hi, 0.0)
     margin = torch.where(torch.isfinite(margin), margin, 0.0)
 
-    if trees_multi.is_multi(forest):
-        ent = _entropy_sum_multi([forest_eval.leaves(p, state.x) for p in forest.planes], valid)
-    else:
-        ent = _entropy_sum(forest_eval.leaves(forest, state.x), valid)
     # The real-row count: static for a batch pool, where the JAX code divides
     # by a constant (XLA multiplies by its f32 reciprocal); behind a fill
     # watermark (a grid's padded pool) the count of the valid rows, and a

@@ -233,6 +233,13 @@ def test_bench_modes_print_one_json_line(tmp_path):
     assert lal["lal_query_seconds_host_fit"] is None
     assert "scikit-learn" in lal["lal_host_fit_skipped"]
 
+    # neural: one round of each stretch config (SmallCNN + entropy, encoder +
+    # BatchBALD) at toy sizes, with the JAX bench's keys.
+    rc, neural = _line(["--mode", "neural", *_TINY, "--neural-pool", "64", "--train-steps", "3",
+                        "--mc-samples", "2"])
+    assert rc == 0 and neural["cnn_round_seconds"] > 0, neural
+    assert neural["transformer_batchbald_round_seconds"] > 0 and neural["neural_pool"] == 64
+
     # sweep and grid: the batched stream against the serial runs, with the
     # JAX bench's keys; the grid's scenario leg is reported skipped by name.
     batched = ["--sweep-pool", "200", "--trees", "4", "--depth", "3", "--rounds-per-launch", "2"]

@@ -13,6 +13,8 @@ the CPU suite's ``-m 'not slow'`` run it would only spend the collection's
 time budget; the command above passes no ``-m`` and runs them all.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -825,3 +827,78 @@ def test_file_path_on_the_card(cuda, tmp_path):
     for a, b in zip(lal_training.generate_lal_dataset(n_experiments=4, device=cuda),
                     lal_training.generate_lal_dataset(n_experiments=4, device="cpu")):
         np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+
+
+def test_neural_path_on_the_card(cuda):
+    """K7 (csrc/threefry.cu) bit-equal to ``prng``; on the card, under
+    deterministic cuDNN, the neural chunk (one CUDA graph a chunk) equal to
+    the per-round driver and a seed sweep's lanes equal to their serial runs
+    bit for bit, for the MLP, the SmallCNN and the encoder; and the small MLP
+    and CNN runs equal to the CPU's (picks equal, the first round's
+    probabilities within ``NEURAL_TRAIN_RTOL``)."""
+    from distributed_active_learning_tpu_torch.models.neural import (
+        MLP, NEURAL_TRAIN_RTOL, NeuralLearner, SmallCNN,
+    )
+    from distributed_active_learning_tpu_torch.models.transformer import TransformerClassifier
+    from distributed_active_learning_tpu_torch.ops import threefry
+    from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+
+    ks = prng.split(prng.key(3, cuda), 3)
+    for shape in ((7,), (64, 16, 16, 32), (3, 1000)):
+        assert torch.equal(threefry.uniform(ks[0], shape), prng.uniform(ks[0], shape, cuda))
+    assert torch.equal(threefry.uniform(ks[1], (33,)), prng.uniform(ks[1], (33,), cuda))
+    with pytest.raises(ValueError, match="one int64 key"):
+        threefry.uniform(prng.split(ks[1], 5), (33,))
+    mask = torch.rand(5000, device=cuda) < 0.05
+    logits = torch.where(mask, 0.0, float("-inf"))
+    assert torch.equal(threefry.categorical(ks[2], logits, 64),
+                       prng.categorical(ks[2], logits, (64,)))
+    per_row = torch.randn(256, 4, device=cuda)
+    assert torch.equal(threefry.categorical(ks[2], per_row, 256),
+                       prng.categorical(ks[2], per_row, (256,)))
+
+    rs = np.random.RandomState(0)
+    cases = [
+        (MLP(hidden=(16,)), (4,), rs.randn(300, 4).astype(np.float32), "entropy"),
+        (SmallCNN(n_classes=2, dropout_rate=0.1), (8, 8, 3),
+         rs.randn(300, 8, 8, 3).astype(np.float32), "density"),
+        (TransformerClassifier(vocab_size=64, max_len=8, d_model=16, n_heads=2, n_layers=1,
+                               d_ff=32), (8,), rs.randint(0, 64, (300, 8)).astype(np.int32),
+         "batchbald"),
+    ]
+    for module, shape, x, strat in cases:
+        flat = x.reshape(len(x), -1).astype(np.float32)
+        y = ((flat[:, 0] < 32) if x.dtype == np.int32
+             else (flat[:, 0] + 0.5 * flat[:, 1] > 0)).astype(np.int32)
+        lr = NeuralLearner(module, shape, train_steps=10, mc_samples=2, device=cuda)
+        cfg = nl.NeuralExperimentConfig(strategy=strat, window_size=5, n_start=10, max_rounds=4,
+                                        seed=1, batchbald_max_configs=8)
+        per = nl.run_neural_experiment(cfg, lr, x, y, x[:80], y[:80])
+        chunked_cfg = dataclasses.replace(cfg, rounds_per_launch=2)
+        chk = nl.run_neural_experiment(chunked_cfg, lr, x, y, x[:80], y[:80])
+        recs = [[(r.round, r.n_labeled, r.accuracy) for r in res.records] for res in (per, chk)]
+        assert recs[0] == recs[1], (type(module).__name__, recs)
+        assert torch.equal(per.final_labeled_mask, chk.final_labeled_mask)
+        assert chk.graph_stats["captures"] == 1 and chk.graph_stats["replays"] == 2
+        lanes = nl.run_neural_sweep(chunked_cfg, lr, x, y, x[:80], y[:80], seeds=[1, 2])
+        serial2 = nl.run_neural_experiment(dataclasses.replace(cfg, seed=2), lr, x, y, x[:80],
+                                           y[:80])
+        for lane, serial in zip(lanes, (per, serial2)):
+            assert [(r.round, r.n_labeled, r.accuracy) for r in lane.records] == \
+                [(r.round, r.n_labeled, r.accuracy) for r in serial.records]
+            assert torch.equal(lane.final_labeled_mask, serial.final_labeled_mask)
+        if isinstance(module, TransformerClassifier):
+            continue
+        on_cpu = nl.run_neural_experiment(
+            cfg, NeuralLearner(module, shape, train_steps=10, mc_samples=2, device="cpu"),
+            x, y, x[:80], y[:80])
+        assert torch.equal(per.final_labeled_mask.cpu(), on_cpu.final_labeled_mask)
+        probs = []
+        for d in (cuda, torch.device("cpu")):
+            lr_d = NeuralLearner(module, shape, train_steps=10, mc_samples=2, device=d)
+            m = torch.zeros(300, dtype=torch.bool, device=d)
+            m[:10] = True
+            st = lr_d.fit_on_mask(lr_d.init(prng.key(3)), torch.as_tensor(x).to(d),
+                                  torch.as_tensor(y).to(d), m, prng.key(4, d))
+            probs.append(lr_d.predict_proba(st, torch.as_tensor(x).to(d)).cpu())
+        assert float(((probs[0] - probs[1]).abs() / probs[1].abs()).max()) < NEURAL_TRAIN_RTOL

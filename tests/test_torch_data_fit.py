@@ -206,16 +206,16 @@ def _loader_matches_jax(tmp_path):
             t_formats.load_credit_card_csv(str(cc))
 
 
-@pytest.mark.parametrize("n,d", [(300, 2), (1000, 5)])
-def test_make_bins_edges_and_codes_bit_identical(n, d):
-    x = np.random.default_rng(n + d).normal(size=(n, d)).astype(np.float32)
-    for quantize in ("none", "int8"):  # int8 storage snaps the edges onto bf16
-        bj = j_train.make_bins(jnp.asarray(x), 32, quantize=quantize)
-        bt = t_train.make_bins(torch.from_numpy(x), 32, quantize=quantize)
-        _bits_equal(bj.edges, bt.edges.numpy())
-        _bits_equal(bj.codes, bt.codes.numpy())
-    snapped = bt.edges.to(torch.bfloat16).to(torch.float32)
-    assert torch.equal(snapped, bt.edges)
+def test_make_bins_edges_and_codes_bit_identical():
+    for n, d in [(300, 2), (1000, 5)]:
+        x = np.random.default_rng(n + d).normal(size=(n, d)).astype(np.float32)
+        for quantize in ("none", "int8"):  # int8 storage snaps the edges onto bf16
+            bj = j_train.make_bins(jnp.asarray(x), 32, quantize=quantize)
+            bt = t_train.make_bins(torch.from_numpy(x), 32, quantize=quantize)
+            _bits_equal(bj.edges, bt.edges.numpy())
+            _bits_equal(bj.codes, bt.codes.numpy())
+        snapped = bt.edges.to(torch.bfloat16).to(torch.float32)
+        assert torch.equal(snapped, bt.edges)
 
 
 def _bf16_bits(t):
@@ -235,8 +235,14 @@ def test_set_start_state_masks_identical():
         assert int(st.labeled_mask.sum()) == n_start
 
 
-@pytest.mark.parametrize("n_trees", [10, 20])  # 20: not a multiple of tree_chunk=16
-def test_fit_forest_device_bit_identical(n_trees):
+def test_fit_forest_device_bit_identical():
+    """Both forest sizes (20 is not a multiple of tree_chunk=16) through
+    :func:`_check_fit_forest_device`."""
+    for n_trees in (10, 20):
+        _check_fit_forest_device(n_trees)
+
+
+def _check_fit_forest_device(n_trees):
     """The fit's heap arrays, then the fit's gather form
     (``heap_packed_forest``) and its leaves, proba, votes and value on rows
     with NaN and infinities, and ``pad_forest``. The 20-tree case fits deep
