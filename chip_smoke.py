@@ -223,6 +223,27 @@ and prints no result:
    strategy's chunk body once under ``set_sync_debug_mode("error")``; the
    phase's seconds split by the gate or measurement they pay for. No path
    of the phase launches K1-K6; each launches K7;
+4o. the streaming service (``serving/``, ``serving_phase``): (a) the JAX
+   bench's serve leg at its sizes (``bench.run_serve``: 8,192 x 30 cold
+   start, 100 trees of depth 4, K1, uncertainty, window 20, slabs of 1,024,
+   2,000 queries of 64, an ingest block of 64 every 4th query, the second
+   half shifted by 2.5), its re-fits, growths, fill and labels those of the
+   JAX bench at the same sizes (staleness re-fits only: the entropy trigger
+   does not fire there), no recapture, at most 2 chunk graphs live; the
+   same leg at the JAX bench's smoke sizes, its counts those of the JAX
+   bench's committed baseline (``benches/baselines/cpu_smoke_serve.json``,
+   ``entropy_shift`` among its re-fit reasons); one query is one K1 launch
+   and a re-fit 2 a round (the graph's count); K1 at [64, 30] and at the
+   slab bit-equal to ``predict_leaves_plain`` and timed with its bound; a
+   checkpoint written at the end resumes with bit-equal scores; the JAX
+   serving test's small service card == CPU (scores, summary, mask,
+   records); (b) the same service cold-started on the headline pool
+   (284,807 x 30, depth 8, 400 queries) with the same gates and K1 at its
+   slab; (c) ``bench_serve_multi`` (4 gemm tenants of 8,192 rows through
+   the frontend: no recapture, no growth-compile event after warmup, a
+   growth precompiled, no score fallback), grouped scores == single scores
+   and the batched re-fit's masks and keys == independent services' (3
+   tenants), and a pallas tenant pair's named fallback and K1 launches;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -266,7 +287,9 @@ configurations and largest differences; ``multiclass`` and ``lal`` phases
 4h and 4i's numbers; K1's ``sweep_launches`` and ``grid_launches`` and its
 stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
 numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
-``files`` phase 4m's numbers; ``neural`` phase 4n's numbers (K7 ``threefry``
+``files`` phase 4m's numbers; K1's ``serving_by_shape`` and ``serving``
+phase 4o's numbers (the paths ``serve``, ``serve_headline`` and
+``serve_multi`` in every ``launches_by_path``); ``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
 paths);
@@ -808,6 +831,309 @@ def neural_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> di
     out["seconds"] = time.perf_counter() - t_phase
     print(f"# phase 4n: {out['seconds']:.1f}s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in out["split_seconds"].items()) + ")")
+    return out
+
+
+def serving_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> dict:
+    """Phase 4o: the streaming service (see the module docstring). Returns
+    its numbers; fails on any gate."""
+    import types
+
+    from distributed_active_learning_tpu_torch import bench, config
+    from distributed_active_learning_tpu_torch.ops import trees_pallas
+    from distributed_active_learning_tpu_torch.serving.service import ALService
+    from distributed_active_learning_tpu_torch.serving.tenants import (
+        TenantManager,
+        make_batched_score_fn,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "k1": {}}
+
+    def bench_args(**kw):
+        base = dict(features=N_FEAT, trees=TREES, window=20, kernel="pallas", serve_pool=8192,
+                    serve_queries=2000, serve_tenants=4, ops_port=None)
+        return types.SimpleNamespace(**{**base, **kw})
+
+    def k1_at(label, forest, x):
+        """K1 at a serving shape: bit-equal to predict_leaves_plain, timed
+        beside it, with its bound."""
+        gf = forest.gf
+        got = trees_pallas.predict_leaves_pallas(forest, x)
+        want = trees_pallas.predict_leaves_plain(gf, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"serving K1 at {label} {tuple(x.shape)}: {(got != want).sum().item()} leaves "
+                 "differ from predict_leaves_plain")
+        h = trees_pallas.heap_operands(gf)
+        depth = gf.value.shape[1].bit_length() - 1
+        lim, by = bound(nbytes(x, h.nodes, h.val) + gf.n_trees * x.shape[0] * 4,
+                        x.shape[0] * gf.n_trees * depth)
+        row = dict(shape=list(x.shape), trees=gf.n_trees, depth=depth,
+                   ms=cuda_ms(lambda: trees_pallas._launch_leaves(h, x), reps=9),
+                   device_ms=graph_ms(lambda: trees_pallas._launch_leaves(h, x)),
+                   plain_ms=cuda_ms(lambda: trees_pallas.predict_leaves_plain(gf, x), reps=3),
+                   bound_ms=lim, bound_by=by, max_abs_err=float((got - want).abs().max()))
+        out["k1"][label] = row
+        print(f"# phase 4o K1 at {label} {tuple(x.shape)} x {gf.n_trees} trees depth {depth}: "
+              f"{row['ms']:.4f} ms ({row['device_ms']:.4f} device), plain {row['plain_ms']:.4f}, "
+              f"bound {lim:.4f} ms by {by}, bit-equal ({kind}, {smi})")
+
+    def serve_gates(label, line, svc, graphs_cap=2):
+        if line["recompiles_after_warmup"] != 0:
+            fail(f"{label}: recompiles_after_warmup {line['recompiles_after_warmup']}")
+        if line["serve_max_live_graphs"] > graphs_cap or svc.manager.live_graphs()["default"] > 2:
+            fail(f"{label}: {line['serve_max_live_graphs']} live chunk graphs")
+        if any(not np.isfinite(v) for v in (line["serve_p50_ms"], line["serve_p99_ms"])):
+            fail(f"{label}: latency not finite: {line}")
+        g = svc._tenant.program_stats()
+        per_refit = [st["launches_per_replay"]["trees_pallas.launches"] for st in g]
+        if not per_refit or set(per_refit) != {2 * svc.serve.refit_rounds}:
+            fail(f"{label}: K1 launches a re-fit {per_refit}, want {2 * svc.serve.refit_rounds}")
+        print(f"# phase 4o {label}: {line['serve_qps']} qps, p50 {line['serve_p50_ms']} ms, p99 "
+              f"{line['serve_p99_ms']} ms (in flight {line['serve_p99_ms_refit_inflight']}, "
+              f"{line['serve_queries_refit_inflight']} queries; without "
+              f"{line['serve_p99_ms_no_refit']}), {line['serve_scores_per_sec']} scores/s, "
+              f"ingest {line['ingest_points_per_sec']} points/s, refits "
+              f"{line['refit_reasons']}, growths {line['slab_growths']} (precompiled "
+              f"{line['serve_growths_precompiled']}, causes {line['serve_latency_causes']}), "
+              f"chunk {line.get('refit_chunk_seconds_per_round')} s a round, capacity "
+              f"{line['slab_capacity']}, fill {line['pool_fill']}, labeled {line['pool_labeled']}, "
+              f"K1 {line['serve_k1_launches']} launches in the window, {per_refit[0]} a re-fit; "
+              f"graphs: capture s {line.get('serve_capture_seconds')}, pool MiB "
+              f"{line.get('serve_graph_pool_mib')}; peak reserved {line.get('peak_reserved_mib')} "
+              f"MiB; most live graphs {line['serve_max_live_graphs']} ({kind}, {smi})")
+        return dict(line, k1_launches_per_refit=per_refit[0], graphs=g)
+
+    # -- (a) the JAX bench's serve leg at its full sizes ----------------------
+    # Its outcome must be the JAX package's: `JAX_PLATFORMS=cpu python
+    # bench.py --mode serve --serve-queries 2000 --serve-pool 8192 --trees 100
+    # --kernel gemm` gives these counts (the drift monitor's entropy trigger
+    # does not fire at these sizes there either; it does at the JAX bench's
+    # smoke sizes, the leg after this one).
+    jax_full = {"refits": 12, "refit_rounds": 48, "refit_reasons": {"warmup": 1, "staleness": 11},
+                "slab_growths": 32, "slab_capacity": 40960, "pool_fill": 40256,
+                "pool_labeled": 980}
+    torch.cuda.empty_cache()  # each leg's peak reserve is its own
+    zero_counts()
+    t0 = time.perf_counter()
+    line_a, svc_a, data_a = bench.run_serve(bench_args(), dev)
+    out["launches"]["serve"] = counts()
+    if {k: line_a[k] for k in jax_full} != jax_full:
+        fail(f"(a): {({k: line_a[k] for k in jax_full})} != the JAX bench's {jax_full}")
+    out["serve"] = serve_gates("(a) serve, 8,192 rows, depth 4", line_a, svc_a)
+    out["serve"]["seconds"] = time.perf_counter() - t0
+    x0, y0, tx, ty = data_a
+    # K1's timings capture CUDA graphs in the global mode: the precompile
+    # worker must be idle first.
+    if not svc_a.manager.wait_precompiles(timeout=600):
+        fail("(a): the precompile worker did not finish")
+    q = torch.from_numpy(tx[:64]).to(dev)
+    zero_counts()
+    svc_a.score(tx[:64])
+    out["k1_launches_per_query"] = counts()["forest_leaves"]
+    if out["k1_launches_per_query"] != 1:
+        fail(f"a query launched K1 {out['k1_launches_per_query']} times, want 1")
+    k1_at("serve score [64, 30]", svc_a._tenant._forest, q)
+    k1_at("serve slab", svc_a._tenant._forest, svc_a._slab.x)
+    # A checkpoint written at the end resumes with bit-equal scores.
+    ck = tempfile.mkdtemp(prefix="serve_ckpt_")
+    svc_a._tenant.checkpoint_dir = ck
+    svc_a.save_checkpoint()
+    resumed = ALService(svc_a.cfg, svc_a.serve, x0, y0, tx, ty, checkpoint_dir=ck, device=dev)
+    qs = np.random.default_rng(seed + 14).normal(size=(128, N_FEAT)).astype(np.float32)
+    if not np.array_equal(resumed.score(qs), svc_a.score(qs)) or (
+            resumed._fill, resumed._labeled) != (svc_a._fill, svc_a._labeled):
+        fail("(a): the resumed service scores differently")
+    resumed.manager.close()
+    svc_a.manager.close()
+    shutil.rmtree(ck, ignore_errors=True)
+    del svc_a, resumed
+
+    # -- (a') the same leg at the JAX bench's smoke sizes: its committed
+    # baseline (benches/baselines/cpu_smoke_serve.json) fires entropy_shift,
+    # and the card must reproduce its counts.
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benches", "baselines",
+                           "cpu_smoke_serve.json")) as f:
+        baseline = json.load(f)
+    keys = ("refits", "refit_rounds", "refit_reasons", "slab_growths", "slab_capacity",
+            "pool_fill", "pool_labeled", "recompiles_after_warmup")
+    line_s, svc_s, _ = bench.run_serve(bench_args(trees=10, serve_pool=256, serve_queries=220),
+                                       dev)
+    svc_s.manager.close()
+    if "entropy_shift" not in line_s["refit_reasons"] or any(
+            line_s[k] != baseline[k] for k in keys):
+        fail(f"(a') the smoke-size leg {({k: line_s[k] for k in keys})} != the JAX bench's "
+             f"baseline {({k: baseline[k] for k in keys})}")
+    out["serve_smoke_sizes"] = {k: line_s[k] for k in keys}
+    print(f"# phase 4o (a') the JAX bench's smoke sizes (256 rows, 220 queries, 10 trees): "
+          f"re-fit reasons {line_s['refit_reasons']}, growths {line_s['slab_growths']}, fill "
+          f"{line_s['pool_fill']}, labeled {line_s['pool_labeled']} == its committed baseline")
+
+    # -- the JAX test's small service: card == CPU ----------------------------
+    def points(n, s, shift=0.0):
+        r = np.random.default_rng(s)
+        x = r.normal(size=(n, 4)).astype(np.float32) + shift
+        return x, (x[:, 0] + 0.3 * x[:, 1] > shift).astype(np.int32)
+
+    small = []
+    for d in (dev, "cpu"):
+        cfg = config.ExperimentConfig(
+            forest=config.ForestConfig(n_trees=6, max_depth=3, max_bins=8, fit="device",
+                                       fit_budget=64, kernel="pallas"),
+            strategy=config.StrategyConfig(window_size=4), n_start=6, log_every=0)
+        serve = config.ServeConfig(slab_rows=64, ingest_block=16, score_width=16, refit_rounds=2,
+                                   drift_entropy_shift=0.2, drift_min_fresh=8, max_staleness=5,
+                                   refit_poll_events=1)
+        sx0, sy0 = points(48, 0)
+        stx, sty = points(32, 1)
+        svc = ALService(cfg, serve, sx0, sy0, stx, sty, device=d)
+        r = np.random.default_rng(2)
+        sx, sy = points(192, 3, 2.0)
+        sc = []
+        for i in range(20):
+            if i % 3 == 0:
+                svc.submit(sx[16 * (i // 3): 16 * (i // 3 + 1)], sy[16 * (i // 3): 16 * (i // 3 + 1)])
+            sc.append(svc.score(stx[r.integers(0, 32, size=8)]))
+        svc.flush()
+        small.append((svc, sc))
+    (g, g_sc), (c, c_sc) = small
+    if not (all(np.array_equal(a, b) for a, b in zip(g_sc, c_sc))
+            and g.summary() == c.summary()
+            and torch.equal(g._slab.labeled_mask.cpu(), c._slab.labeled_mask)
+            and g.result.to_reference_log() == c.result.to_reference_log()):
+        fail(f"the small service differs between the card and the CPU: {g.summary()} vs "
+             f"{c.summary()}")
+    print(f"# phase 4o: the small service card == CPU (scores, summary, mask, records; "
+          f"{g.summary()['slab_growths']} growths, {g.summary()['refits']} re-fits)")
+    for svc, _ in small:
+        svc.manager.close()
+
+    # -- (b) the headline pool: 284,807 rows, depth 8 --------------------------
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    line_b, svc_b, _ = bench.run_serve(bench_args(serve_pool=N_POOL, serve_queries=400), dev,
+                                       depth=DEPTH)
+    out["launches"]["serve_headline"] = counts()
+    out["serve_headline"] = serve_gates("(b) serve, 284,807 rows, depth 8", line_b, svc_b)
+    out["serve_headline"]["seconds"] = time.perf_counter() - t0
+    if not svc_b.manager.wait_precompiles(timeout=600):
+        fail("(b): the precompile worker did not finish")
+    k1_at("headline slab", svc_b._tenant._forest, svc_b._slab.x)
+    k1_at("headline score [64, 30]", svc_b._tenant._forest, q)
+    svc_b.manager.close()
+    del svc_b
+
+    # -- (c) serve-multi: 4 gemm tenants through the frontend ------------------
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    line_c = bench.bench_serve_multi(bench_args(kernel="gemm"), dev)
+    out["launches"]["serve_multi"] = counts()
+    out["serve_multi"] = dict(line_c, seconds=time.perf_counter() - t0)
+    if (line_c["serve_multi_recompiles_after_warmup"] != 0
+            or line_c["serve_multi_growth_compile_events"] != 0
+            or line_c["serve_multi_growths_precompiled"] < 1
+            or line_c["serve_multi_score_fallback_reasons"] != {}
+            or any(n > 2 for t, n in line_c["serve_multi_live_graphs"].items() if t != "_batched")):
+        fail(f"(c) serve-multi gates: {line_c}")
+    print(f"# phase 4o (c) serve-multi: {line_c['serve_multi_qps']} qps over 4 tenants, p50 "
+          f"{line_c['serve_multi_p50_ms']} ms, p99 {line_c['serve_multi_p99_ms']} ms, growths "
+          f"{line_c['serve_multi_slab_growths']} (precompiled "
+          f"{line_c['serve_multi_growths_precompiled']}, growth-compile events "
+          f"{line_c['serve_multi_growth_compile_events']}), batched score launches "
+          f"{line_c['serve_multi_batched_score_launches']}, batched re-fits "
+          f"{line_c['serve_multi_batched_refit_launches']}, precompiles "
+          f"{line_c['serve_multi_precompiles']}, recompiles "
+          f"{line_c['serve_multi_recompiles_after_warmup']}, capture s "
+          f"{line_c.get('serve_capture_seconds')}, pool MiB {line_c.get('serve_graph_pool_mib')}, "
+          f"peak reserved {line_c.get('peak_reserved_mib')} MiB ({kind}, {smi})")
+
+    # Grouped scores == single scores, the batched re-fit's masks == those of
+    # independent services (3 gemm tenants of the bench's configuration at
+    # 2,048 rows).
+    def tenant_cfg(i, kernel="gemm"):
+        cfg = config.ExperimentConfig(
+            forest=config.ForestConfig(n_trees=TREES, max_depth=4, kernel=kernel, fit="device",
+                                       fit_budget=1024),
+            strategy=config.StrategyConfig(window_size=20), n_start=20, log_every=0, seed=i)
+        return cfg, config.ServeConfig(slab_rows=1024, ingest_block=64, score_width=64,
+                                       refit_rounds=4, max_staleness=0, drift_entropy_shift=99.0)
+
+    def tenant_data(i, n=2048):
+        r = np.random.default_rng(seed + 40 + i)
+        x = r.normal(size=(n + 512, N_FEAT)).astype(np.float32) + 0.4 * i
+        y = labels(x - 0.4 * i)
+        return x[:n], y[:n], x[n:], y[n:]
+
+    mgr = TenantManager(device=dev)
+    svcs = []
+    for i in range(3):
+        cfg, serve = tenant_cfg(i)
+        mgr.add_tenant(f"t{i}", cfg, serve, *tenant_data(i))
+        svcs.append(ALService(cfg, serve, *tenant_data(i), device=dev))
+    qq = {f"t{i}": np.random.default_rng(seed + 90 + i).normal(size=(80, N_FEAT)).astype(
+        np.float32) for i in range(3)}
+    batched = mgr.score_many(qq)
+    # On the card a grouped score replays each member's graphed endpoint;
+    # the grouped program itself (the CPU's path) is held here too, on this
+    # thread's stream, behind the members' fits (no device-wide sync: the
+    # precompile worker may be capturing).
+    grouped, _ = make_batched_score_fn()(
+        [mgr.tenant(f"t{i}")._forest for i in range(3)],
+        torch.stack([torch.from_numpy(qq[f"t{i}"][:64]) for i in range(3)]).to(dev))
+    grouped = grouped.cpu().numpy()
+    for i in range(3):
+        single = svcs[i].score(qq[f"t{i}"])
+        if not np.array_equal(batched[f"t{i}"], single):
+            fail(f"grouped scores of t{i} != its single scores")
+        if not np.array_equal(grouped[i], single[:64]):
+            fail(f"make_batched_score_fn's scores of t{i} != its single scores")
+        sx = tenant_data(i, 2048 + 128)[0][2048:2112]
+        mgr.submit(f"t{i}", sx, labels(sx))
+        svcs[i].submit(sx, labels(sx))
+    if mgr.refit_now("check") != 3 or mgr.batched_refit_launches != 1:
+        fail("the batched re-fit did not launch once for 3 tenants")
+    for s_ in svcs:
+        s_.refit_now("check")
+    mgr.flush()
+    for i, s_ in enumerate(svcs):
+        s_.flush()
+        t = mgr.tenant(f"t{i}")
+        if not (torch.equal(t._slab.labeled_mask, s_._slab.labeled_mask)
+                and torch.equal(t._key, s_._tenant._key)):
+            fail(f"the batched re-fit's mask or key of t{i} != an independent service's")
+        s_.manager.close()
+    mgr.close()
+    print("# phase 4o: grouped scores (replayed endpoints and make_batched_score_fn) == single "
+          "scores, batched re-fit masks and keys == 3 independent services (3 gemm tenants, "
+          "2,048 rows)")
+
+    # A pallas-kernel tenant pair: the named per-tenant fallback, and its K1
+    # launches.
+    pair = TenantManager(device=dev)
+    for i in range(2):
+        cfg, serve = tenant_cfg(i, kernel="pallas")
+        pair.add_tenant(f"p{i}", cfg, serve, *tenant_data(i, 8192))
+    # Steady state: the endpoints' graphs captured (a first call's eager
+    # warm-up launches K1 too) and the worker idle.
+    pair.score_many({f"p{i}": qq[f"t{i}"][:64] for i in range(2)})
+    if not pair.wait_precompiles(timeout=600):
+        fail("the pallas pair's precompile worker did not finish")
+    zero_counts()
+    pair.score_many({f"p{i}": qq[f"t{i}"][:64] for i in range(2)})
+    pair_k1 = counts()["forest_leaves"]
+    reasons = dict(pair.score_fallback_reasons)
+    pair.close()
+    if reasons != {"kernel": 4} or pair_k1 != 2:
+        fail(f"the pallas pair: fallback {reasons}, K1 {pair_k1}")
+    out["pallas_pair"] = dict(fallback_reasons=reasons, k1_launches=pair_k1)
+    print(f"# phase 4o: a pallas tenant pair scores per tenant, reason {reasons}, K1 {pair_k1} "
+          "launches (one a tenant)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 4o: {out['seconds']:.1f}s ((a) {out['serve']['seconds']:.1f}, (b) "
+          f"{out['serve_headline']['seconds']:.1f}, (c) {out['serve_multi']['seconds']:.1f})")
     return out
 
 
@@ -2664,6 +2990,10 @@ def main() -> int:
     for path, c in neural_numbers["launches"].items():
         launches[path] = {k: c[k] for k in counts()}
 
+    # -- phase 4o: the streaming service -------------------------------------
+    serving_numbers = serving_phase(args.seed, dev, kind, smi, counts, zero_counts)
+    launches.update(serving_numbers["launches"])
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -3033,7 +3363,10 @@ def main() -> int:
                                for p in launches if p.startswith("scenario_")},
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain,
          "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "by_shape": k1, "launch_config": k1_cfg, "by_payload": by_payload["forest_leaves"]},
+         "by_shape": k1, "launch_config": k1_cfg, "by_payload": by_payload["forest_leaves"],
+         "serving_by_shape": serving_numbers["k1"],
+         "serving_launches_per_query": serving_numbers["k1_launches_per_query"],
+         "serving_launches_per_refit": serving_numbers["serve"]["k1_launches_per_refit"]},
         {"name": "round_megakernel", "route": "cuda", "source": f"{pkg}/round_megakernel.cu",
          "replaces": "distributed_active_learning_tpu/ops/round_fused.py:166",
          "launches": launches["fused"]["round_megakernel"],
@@ -3094,6 +3427,7 @@ def main() -> int:
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
         "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
         "files": files_numbers,
+        "serving": {k: v for k, v in serving_numbers.items() if k not in ("launches", "k1")},
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

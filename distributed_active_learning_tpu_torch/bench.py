@@ -1,6 +1,6 @@
 """The port's own bench: one JSON line on stdout, always.
 
-    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants|neural
+    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants|neural|serve|serve-multi
         [--device cpu] [--kernel pallas|gemm|gather] [--pool N] [--trees T] ...
 
 The counterpart of the repo-root ``bench.py`` (the JAX package's, which stays
@@ -94,12 +94,29 @@ flight recorder (off by default): mode and timing marks (``bench_start``,
 label) and the drive's launches, dumped on SIGTERM, SIGUSR1, a crash and a
 normal exit.
 
+- ``--mode serve``: the streaming service (``bench_serve``, the JAX
+  bench's body and keys): 2,000 queries of 64 against a cold-start pool of
+  8,192 x 30 (100 trees of depth 4, uncertainty, window 20, kernel as
+  ``--kernel``), an ingest block of 64 every 4th query, the second half
+  shifted by 2.5; ``serve_qps``, p50/p99, ``recompiles_after_warmup``
+  (must be 0) and the port's p99 split by an in-flight re-fit, K1
+  launches, a chunk's wall per round and the graphs' capture seconds and
+  pools.
+- ``--mode serve-multi``: 4 tenants through the frontend with concurrent
+  client threads (``bench_serve_multi``, the JAX bench's body and keys;
+  kernel gemm unless ``--kernel gather``): the gates
+  ``serve_multi_recompiles_after_warmup`` and
+  ``serve_multi_growth_compile_events`` (0), ``serve_multi_growths_
+  precompiled`` (>= 1). ``--mode serve-fleet`` is refused by name (the
+  multi-process fleet is not ported yet).
+
 Not carried yet, each with the slice it waits for: the score mode's
 host-fit leg (the bench runs where the card is, which has no scikit-learn; a
 host-fit forest would come as a forest file), the roofline section
 (pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
 ``--compare-to`` (pre-flight slice), the grid's scenario leg (scenario
-slice), and the modes serve* (their own slice).
+slice), and ``--mode serve-fleet`` (the fleet remainder of ROADMAP queue 1
+item 7).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -120,10 +137,12 @@ import torch
 
 _CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8,
                    lal_trees=2000, lal_pool=1000, sweep_experiments=8, sweep_pool=284_807,
-                   grid_experiments=8, neural_pool=2000, train_steps=300)
+                   grid_experiments=8, neural_pool=2000, train_steps=300, serve_queries=2000,
+                   serve_pool=8192, serve_tenants=4)
 _CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4,
                   lal_trees=50, lal_pool=200, sweep_experiments=8, sweep_pool=500,
-                  grid_experiments=8, neural_pool=200, train_steps=25)
+                  grid_experiments=8, neural_pool=200, train_steps=25, serve_queries=220,
+                  serve_pool=256, serve_tenants=4)
 # The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
 # bench's baseline.
 SPARK_LAL_QUERY_SEC = 1654.16
@@ -915,9 +934,399 @@ def bench_neural(args, dev) -> dict:
     }
 
 
+def _serve_k1_launches() -> int:
+    from distributed_active_learning_tpu_torch.ops import trees_pallas
+
+    return trees_pallas.launches
+
+
+def _sync_stream(dev: torch.device) -> None:
+    """Wait for this thread's stream, not the whole device: the serve modes'
+    precompile worker may be capturing a graph on a stream of its own."""
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _split_p99(latencies, inflight) -> dict:
+    """p99 (ms) of the queries served beside an in-flight re-fit and of the
+    others (None where a side holds no query)."""
+    lat, fl = np.asarray(latencies), np.asarray(inflight, dtype=bool)
+    return {
+        "serve_p99_ms_refit_inflight": (round(float(np.percentile(lat[fl], 99)) * 1e3, 3)
+                                        if fl.any() else None),
+        "serve_p99_ms_no_refit": (round(float(np.percentile(lat[~fl], 99)) * 1e3, 3)
+                                  if (~fl).any() else None),
+        "serve_queries_refit_inflight": int(fl.sum()),
+    }
+
+
+def _graph_report(tenants, dev) -> dict:
+    """Chunk-graph counts of the tenants' capacities (captures' host seconds
+    and private pools) and the allocator's peak reserve."""
+    stats = [st for t in tenants for st in t.program_stats()]
+    out = {"serve_graphs_captured": len(stats)}
+    if stats:
+        out["serve_capture_seconds"] = [round(st["capture_seconds"], 4) for st in stats]
+        out["serve_graph_pool_mib"] = [round(st["pool_bytes"] / 2**20, 1) for st in stats]
+    if dev.type == "cuda":
+        out["peak_reserved_mib"] = round(torch.cuda.max_memory_reserved(dev) / 2**20, 1)
+    return out
+
+
+def bench_serve(args, dev) -> dict:
+    """The streaming service (``serving/``, the JAX bench's ``bench_serve``
+    body and key set): sustained queries/s and p50/p99 scoring latency
+    under concurrent ingest, over a stream whose second half is shifted by
+    2.5 so the drift monitor's entropy trigger fires for real. Warmup (the
+    first score, ingest and a forced re-fit) is reported apart;
+    ``recompiles_after_warmup`` must stay 0. Slab growths happen inside the
+    timed window, as in production. Beside JAX's keys: p99 with and without
+    a re-fit in flight, the K1 launches of the timed window, the most chunk
+    graphs the tenant held, the re-fit chunks' time per active round
+    (device time on the card), the chunk graphs' capture seconds and
+    private pools per capacity, and the peak reserve."""
+    out, service, _ = run_serve(args, dev)
+    service.manager.close()
+    return out
+
+
+def run_serve(args, dev, depth: int = 4):
+    """:func:`bench_serve`'s drive at forest depth ``depth`` (the JAX
+    bench's 4); returns ``(line, service, (x0, y0, test_x, test_y))``, the
+    service still open, with its cold-start corpus and test set."""
+    from distributed_active_learning_tpu_torch.config import (
+        ExperimentConfig,
+        ForestConfig,
+        ServeConfig,
+        StrategyConfig,
+    )
+    from distributed_active_learning_tpu_torch.serving.service import ALService
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)  # the peak reserve of this drive
+    rng = np.random.default_rng(0)
+    d = args.features
+    n0 = args.serve_pool
+    queries = args.serve_queries
+
+    def make(n, shift=0.0):
+        x = rng.normal(size=(n, d)).astype(np.float32) + shift
+        y = (x[:, 0] + 0.3 * x[:, 1] > shift).astype(np.int32)
+        return x, y
+
+    x0, y0 = make(n0)
+    test_x, test_y = make(min(n0, 1024))
+    window = min(args.window, 20)
+    serve = ServeConfig(slab_rows=1024, ingest_block=64, score_width=64, refit_rounds=4,
+                        drift_entropy_shift=0.15, drift_min_fresh=64, max_staleness=100)
+    cfg = ExperimentConfig(
+        forest=ForestConfig(n_trees=args.trees, max_depth=depth, kernel=args.kernel, fit="device",
+                            fit_budget=serve.slab_rows),
+        strategy=StrategyConfig(name="uncertainty", window_size=window),
+        n_start=min(20, max(n0 // 8, 4)),
+        log_every=0,
+    )
+    service = ALService(cfg, serve, x0, y0, test_x, test_y, device=dev)
+    live_graphs = service.manager.live_graphs
+    ingest_every = 4
+    n_stream = (queries // ingest_every + 1) * serve.ingest_block
+    sx1, sy1 = make(n_stream // 2)
+    sx2, sy2 = make(n_stream - n_stream // 2, shift=2.5)
+    stream_x = np.concatenate([sx1, sx2])
+    stream_y = np.concatenate([sy1, sy2])
+    test_shift_x, _ = make(min(n0, 1024), shift=2.5)
+
+    t0 = time.perf_counter()
+    service.score(test_x[: serve.score_width])
+    service.submit(stream_x[: serve.ingest_block], stream_y[: serve.ingest_block])
+    service.refit_now("warmup")
+    service.flush()
+    _sync_stream(dev)
+    warmup_sec = time.perf_counter() - t0
+
+    stream_pos = serve.ingest_block
+    latencies, inflight = [], []
+    max_graphs = live_graphs()["default"]
+    k1_before = _serve_k1_launches()
+    t0 = time.perf_counter()
+    for i in range(queries):
+        if i % ingest_every == 0 and stream_pos < stream_x.shape[0]:
+            hi = stream_pos + serve.ingest_block
+            service.submit(stream_x[stream_pos:hi], stream_y[stream_pos:hi])
+            stream_pos = hi
+            max_graphs = max(max_graphs, live_graphs()["default"])
+        src = test_x if i < queries // 2 else test_shift_x
+        idx = rng.integers(0, src.shape[0], size=serve.score_width)
+        tq = time.perf_counter()
+        service.score(src[idx])
+        latencies.append(time.perf_counter() - tq)
+        inflight.append(service._tenant.last_query_inflight)
+    service.flush()
+    _sync_stream(dev)
+    wall = time.perf_counter() - t0
+    k1_window = _serve_k1_launches() - k1_before
+
+    lat = np.asarray(latencies)
+    summary = service.summary()
+    out = {
+        "metric": "serve_qps", "value": round(queries / wall, 2),
+        "unit": f"score queries/s ({queries} queries of {serve.score_width} under ingest)",
+        "serve_qps": round(queries / wall, 2),
+        "serve_queries": queries,
+        "serve_p50_ms": round(float(np.percentile(lat, 50)) * 1e3, 3),
+        "serve_p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3),
+        "serve_scores_per_sec": round(queries * serve.score_width / wall, 1),
+        "ingest_points_per_sec": round((summary["ingested_points"] - serve.ingest_block) / wall, 1),
+        "serve_warmup_seconds": round(warmup_sec, 3),
+        "recompiles_after_warmup": summary["recompiles_after_warmup"],
+        "refits": summary["refits"],
+        "refit_rounds": summary["refit_rounds"],
+        "refit_reasons": summary["refit_reasons"],
+        "slab_growths": summary["slab_growths"],
+        "slab_capacity": summary["capacity"],
+        "pool_fill": summary["fill"],
+        "pool_labeled": summary["labeled"],
+        **_split_p99(latencies, inflight),
+        "serve_k1_launches": k1_window,
+        "serve_growths_precompiled": service.stats.growths_precompiled,
+        "serve_latency_causes": dict(service._tenant.cause_counts),
+        "serve_kernel": args.kernel,
+        "serve_depth": depth,
+        "serve_max_live_graphs": max_graphs,
+    }
+    # The re-fit chunks' own time (device time on the card), per active round.
+    rounds = sum(n for n, _ in service._tenant.chunk_seconds)
+    if rounds:
+        out["refit_chunk_seconds_per_round"] = round(
+            sum(sec for _, sec in service._tenant.chunk_seconds) / rounds, 6)
+    out.update(_graph_report([service._tenant], dev))
+    return out, service, (x0, y0, test_x, test_y)
+
+
+def bench_serve_multi(args, dev) -> dict:
+    """Multi-tenant serving (the JAX bench's ``bench_serve_multi`` body and
+    key set): ``--serve-tenants`` tenants of one forest configuration under
+    mixed ingest and re-fit load, driven by concurrent client threads
+    through the frontend (``serving/frontend.py``), with the ops plane
+    served on ``--ops-port`` (ephemeral when unset) and scraped on
+    localhost while the clients contend. Warmup waits for the cold start's
+    precompiles, runs a grouped score, an ingest block a tenant and a
+    batched re-fit, and waits out the background precompiles; the gates are ``recompiles_after_warmup == 0``
+    (graph recaptures, and captures on the request path after warmup) and
+    ``serve_multi_growth_compile_events == 0`` (no post-warmup query paid
+    for a growth whose next capacity was not precompiled). The kernel is
+    gemm or gather, as the JAX bench forces (a pallas tenant scores
+    per-tenant, named)."""
+    import threading
+    import urllib.request
+
+    from distributed_active_learning_tpu_torch.config import (
+        ExperimentConfig,
+        ForestConfig,
+        ServeConfig,
+        StrategyConfig,
+    )
+    from distributed_active_learning_tpu_torch.runtime.obs import OpsServer
+    from distributed_active_learning_tpu_torch.serving.frontend import (
+        AdmissionError,
+        ServiceFrontend,
+    )
+    from distributed_active_learning_tpu_torch.serving.tenants import TenantManager
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)  # the peak reserve of this drive
+    d = args.features
+    n0 = args.serve_pool
+    T = max(int(args.serve_tenants), 2)
+    per_tenant_queries = max(args.serve_queries // T, 40)
+    kernel = args.kernel if args.kernel in ("gemm", "gather") else "gemm"
+    window = min(args.window, 20)
+    serve = ServeConfig(
+        slab_rows=1024, ingest_block=64, score_width=64, refit_rounds=4,
+        drift_entropy_shift=0.15, drift_min_fresh=64, max_staleness=100,
+        precompile_ahead=True, precompile_headroom_slabs=1.0,
+        max_pending=max(per_tenant_queries, 64),
+        slo_latency_ms=10_000.0, slo_target=0.95,
+    )
+    ops_server = OpsServer(port=args.ops_port or 0).start()
+
+    def make(n, shift=0.0, seed_off=0):
+        r = np.random.default_rng(seed_off)
+        x = r.normal(size=(n, d)).astype(np.float32) + shift
+        y = (x[:, 0] + 0.3 * x[:, 1] > shift).astype(np.int32)
+        return x, y
+
+    manager = TenantManager(device=dev)
+    tids = [f"t{i}" for i in range(T)]
+    data = {}
+    ingest_every = 4
+    n_stream = (per_tenant_queries // ingest_every + 1) * serve.ingest_block
+    for i, tid in enumerate(tids):
+        shift = 0.4 * i
+        x0, y0 = make(n0, shift, seed_off=10 + i)
+        test_x, test_y = make(min(n0, 1024), shift, seed_off=40 + i)
+        cfg = ExperimentConfig(
+            forest=ForestConfig(n_trees=args.trees, max_depth=4, kernel=kernel, fit="device",
+                                fit_budget=serve.slab_rows),
+            strategy=StrategyConfig(name="uncertainty", window_size=window),
+            n_start=min(20, max(n0 // 8, 4)),
+            log_every=0,
+            seed=i,
+        )
+        manager.add_tenant(tid, cfg, serve, x0, y0, test_x, test_y)
+        sx1, sy1 = make(n_stream // 2, shift, seed_off=70 + i)
+        sx2, sy2 = make(n_stream - n_stream // 2, shift + 2.5, seed_off=100 + i)
+        shifted_x, _ = make(min(n0, 1024), shift + 2.5, seed_off=130 + i)
+        data[tid] = {"test_x": test_x, "shift_x": shifted_x,
+                     "stream_x": np.concatenate([sx1, sx2]),
+                     "stream_y": np.concatenate([sy1, sy2])}
+
+    t0 = time.perf_counter()
+    # The cold start scheduled each tenant's next capacity, and the warmup's
+    # first ingest block grows into it: the warmup waits for those sets
+    # first. A growth that finds none leaves its slab_growth_compile cause
+    # pending for the next query, here the first measured one (the
+    # counter's meaning in both packages).
+    manager.wait_precompiles(timeout=300)
+    manager.score_many({tid: data[tid]["test_x"][: serve.score_width] for tid in tids})
+    for tid in tids:
+        manager.submit(tid, data[tid]["stream_x"][: serve.ingest_block],
+                       data[tid]["stream_y"][: serve.ingest_block])
+    manager.refit_now("warmup")
+    manager.flush()
+    manager.wait_precompiles(timeout=300)
+    manager.mark_warmup_complete()
+    _sync_stream(dev)
+    warmup_sec = time.perf_counter() - t0
+
+    latencies = {tid: [] for tid in tids}
+    ingest_futures = []
+    admission_rejections = [0]
+    frontend = ServiceFrontend(manager)
+    scrapes = [0]
+    stop_scrape = threading.Event()
+
+    def scraper():
+        base = f"http://127.0.0.1:{ops_server.port}"
+        while not stop_scrape.is_set():
+            try:
+                with urllib.request.urlopen(f"{base}/metrics", timeout=5) as r:
+                    r.read()
+                with urllib.request.urlopen(f"{base}/healthz", timeout=5) as r:
+                    r.read()
+                scrapes[0] += 1
+            except Exception:  # noqa: BLE001 — a missed scrape is a count, not a crash
+                pass
+            stop_scrape.wait(0.25)
+
+    def client(tid):
+        r = np.random.default_rng(1000 + tids.index(tid))
+        stream_pos = serve.ingest_block
+        dt = data[tid]
+        for q in range(per_tenant_queries):
+            if q % ingest_every == 0 and stream_pos < dt["stream_x"].shape[0]:
+                hi = stream_pos + serve.ingest_block
+                try:
+                    ingest_futures.append(frontend.submit_ingest(
+                        tid, dt["stream_x"][stream_pos:hi], dt["stream_y"][stream_pos:hi]))
+                    stream_pos = hi
+                except AdmissionError:
+                    admission_rejections[0] += 1
+            src = dt["test_x"] if q < per_tenant_queries // 2 else dt["shift_x"]
+            idx = r.integers(0, src.shape[0], size=serve.score_width)
+            tq = time.perf_counter()
+            frontend.score(tid, src[idx])
+            latencies[tid].append(time.perf_counter() - tq)
+
+    t0 = time.perf_counter()
+    scrape_thread = threading.Thread(target=scraper, name="ops-scraper", daemon=True)
+    scrape_thread.start()
+    with frontend:
+        threads = [threading.Thread(target=client, args=(tid,), name=f"client-{tid}")
+                   for tid in tids]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    stop_scrape.set()
+    scrape_thread.join(timeout=10)
+    manager.flush()
+    _sync_stream(dev)
+    wall = time.perf_counter() - t0
+    ingest_failed = sum(1 for f in ingest_futures if f.exception() is not None)
+
+    summary = manager.summary()
+    all_lat = np.concatenate([np.asarray(latencies[tid]) for tid in tids])
+    per_p50 = {tid: round(float(np.percentile(latencies[tid], 50)) * 1e3, 3) for tid in tids}
+    per_p99 = {tid: round(float(np.percentile(latencies[tid], 99)) * 1e3, 3) for tid in tids}
+    total_queries = T * per_tenant_queries
+    graphs = _graph_report([manager.tenant(tid) for tid in tids], dev)
+    live = manager.live_graphs()
+    manager.close()
+    ops_server.stop()
+    slo = summary.get("slo") or {}
+    if slo.get("compliance") is None:
+        raise RuntimeError(
+            "serve-multi SLO accounting produced no compliance ratio "
+            f"(slo summary: {slo!r}) despite configured objectives and "
+            f"{total_queries} served queries")
+    return {
+        "metric": "serve_multi_qps", "value": round(total_queries / wall, 2),
+        "unit": f"score queries/s over {T} tenants (frontend, concurrent clients)",
+        "serve_multi_qps": round(total_queries / wall, 2),
+        "serve_multi_tenants": T,
+        "serve_multi_queries": total_queries,
+        "serve_multi_p50_ms": round(float(np.percentile(all_lat, 50)) * 1e3, 3),
+        "serve_multi_p99_ms": round(float(np.percentile(all_lat, 99)) * 1e3, 3),
+        "serve_multi_tenant_p50_ms": per_p50,
+        "serve_multi_tenant_p99_ms": per_p99,
+        "serve_multi_worst_tenant_p99_ms": max(per_p99.values()),
+        "serve_multi_scores_per_sec": round(total_queries * serve.score_width / wall, 1),
+        "serve_multi_ingest_points_per_sec": round(
+            (summary["ingested_points"] - T * serve.ingest_block) / wall, 1),
+        "serve_multi_warmup_seconds": round(warmup_sec, 3),
+        "serve_multi_batched_score_launches": summary["batched_score_launches"],
+        "serve_multi_batched_refit_launches": summary["batched_refit_launches"],
+        "serve_multi_score_fallback_reasons": summary["score_fallback_reasons"],
+        "serve_multi_refits": summary["refits"],
+        "serve_multi_refit_rounds": summary["refit_rounds"],
+        "serve_multi_slab_growths": summary["slab_growths"],
+        "serve_multi_growths_precompiled": summary["growths_precompiled"],
+        "serve_multi_precompiles": summary["precompiles"],
+        "serve_multi_precompile_errors": summary["precompile_errors"],
+        "recompiles_after_warmup": summary["recompiles_after_warmup"],
+        "serve_multi_recompiles_after_warmup": summary["recompiles_after_warmup"],
+        "serve_multi_growth_compile_events": summary["post_warmup_growth_compile_events"],
+        "serve_multi_admission_rejections": admission_rejections[0],
+        "serve_multi_ingest_failures": ingest_failed,
+        "slo_compliance": slo.get("compliance"),
+        "serve_multi_slo_per_tenant": {tid: snap.get("compliance")
+                                       for tid, snap in slo.get("per_tenant", {}).items()},
+        "ops_scrapes": scrapes[0],
+        "ops_port": ops_server.port,
+        "serve_multi_tenant_summaries": {
+            tid: {k: summary["per_tenant"][tid][k]
+                  for k in ("queries", "ingested_points", "refits", "slab_growths",
+                            "growths_precompiled", "fill", "capacity", "labeled",
+                            "latency_causes")}
+            for tid in tids
+        },
+        "serve_multi_kernel": kernel,
+        "serve_multi_live_graphs": live,
+        **graphs,
+    }
+
+
+def bench_serve_fleet(args, dev) -> dict:
+    raise NotImplementedError(
+        "--mode serve-fleet is the multi-process fleet (serving/fleet.py of the JAX package), "
+        "not ported yet: ROADMAP queue 1 item 7, the fleet remainder")
+
+
 _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
           "variants": bench_variants, "lal": bench_lal, "sweep": bench_sweep, "grid": bench_grid,
-          "neural": bench_neural}
+          "neural": bench_neural, "serve": bench_serve, "serve-multi": bench_serve_multi,
+          "serve-fleet": bench_serve_fleet}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -976,6 +1385,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="neural mode: minibatch steps a round (default 300 on CUDA, 25 under "
                     "--device cpu)")
     ap.add_argument("--mc-samples", type=int, default=8, help="neural mode: MC-dropout samples")
+    ap.add_argument("--serve-queries", type=int, default=None,
+                    help="serve modes: score queries (default 2,000 on CUDA, 220 under "
+                    "--device cpu; serve-multi splits them over the tenants)")
+    ap.add_argument("--serve-pool", type=int, default=None,
+                    help="serve modes: cold-start pool rows a tenant (default 8,192 on CUDA, "
+                    "256 under --device cpu)")
+    ap.add_argument("--serve-tenants", type=int, default=None,
+                    help="serve-multi mode: resident tenants (default 4)")
+    ap.add_argument("--ops-port", type=int, default=None,
+                    help="serve-multi mode: the ops plane's localhost port (default ephemeral)")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")
@@ -995,7 +1414,8 @@ def main(argv=None) -> int:
         from distributed_active_learning_tpu_torch.device import resolve_device
 
         dev = resolve_device(args.device)
-        if args.kernel == "gather" and args.mode not in ("score", "density"):
+        if args.kernel == "gather" and args.mode not in ("score", "density", "serve",
+                                                         "serve-multi"):
             raise ValueError(f"--kernel gather is carried by --mode score and density, "
                              f"not by --mode {args.mode}")
         cpu = dev.type == "cpu"

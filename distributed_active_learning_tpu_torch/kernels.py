@@ -14,6 +14,7 @@ Nothing here runs at import: the CPU tests import every module of the port.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,6 +145,41 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _loaded[name] = lib
         return _loaded[name]
+
+
+# Launch counting. Each wrapper counts one launch of its kernel where it
+# launches it (:func:`count_launch`). A launch made while this thread
+# captures a CUDA graph is recorded into the graph, not run: it goes to the
+# capture's own tally (:func:`capture_tally`), which ``runtime.loop.
+# GraphedChunk`` adds to the counters at every replay. The tally is per
+# thread, so a capture on a background thread (the service's precompile
+# worker) never takes launches that another thread made meanwhile.
+_counting = threading.local()
+_count_lock = threading.Lock()
+
+
+def count_launch(module, name: str = "launches", n: int = 1) -> None:
+    """Add ``n`` launches to ``module.<name>``, or to this thread's capture
+    tally while it captures a graph."""
+    tally = getattr(_counting, "tally", None)
+    if tally is not None:
+        tally[(module, name)] = tally.get((module, name), 0) + n
+        return
+    with _count_lock:
+        setattr(module, name, getattr(module, name) + n)
+
+
+@contextlib.contextmanager
+def capture_tally(keys=()):
+    """Count this thread's launches into a fresh dict ``{(module, name):
+    n}`` (``keys`` start at 0) instead of the modules' counters."""
+    tally = {k: 0 for k in keys}
+    prev = getattr(_counting, "tally", None)
+    _counting.tally = tally
+    try:
+        yield tally
+    finally:
+        _counting.tally = prev
 
 
 def check(name: str, err: int) -> None:

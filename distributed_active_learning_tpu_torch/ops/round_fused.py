@@ -37,6 +37,7 @@ entropy scores cannot drift between the kernel and its plain version.
 
 from __future__ import annotations
 
+import sys
 from typing import Dict, Tuple
 
 import torch
@@ -218,7 +219,6 @@ def launch_config(name: str, ops: trees_pallas.HeapOperands, n: int, d: int, dev
 def _launch_megakernel(ops: trees_pallas.HeapOperands, x, selectable, table, k: int):
     """Launch csrc/round_megakernel.cu: ``([n_tiles, kk] f32, [n_tiles, kk]
     int32)`` per-tile candidates."""
-    global launches
     sel = selectable.to(torch.bool).contiguous()
     table = table.to(torch.float32).contiguous()
     x = trees_pallas._check_x(x, ops, sel, table)
@@ -236,7 +236,7 @@ def _launch_megakernel(ops: trees_pallas.HeapOperands, x, selectable, table, k: 
             vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("round_megakernel", err)
-    launches += 1
+    kernels.count_launch(sys.modules[__name__])
     return vals, idx
 
 

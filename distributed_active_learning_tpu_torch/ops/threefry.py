@@ -16,6 +16,7 @@ counts the kernel's launches (both entry points).
 
 from __future__ import annotations
 
+import sys
 from typing import Sequence
 
 import torch
@@ -49,7 +50,6 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, rows: int) -> torch.Ten
 
 
 def _launch_uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    global launches
     key = key.contiguous()
     out = torch.empty(shape, dtype=torch.float32, device=key.device)
     lib = kernels.load("threefry")
@@ -57,12 +57,11 @@ def _launch_uniform(key: torch.Tensor, shape) -> torch.Tensor:
         err = lib.threefry_uniform(key.data_ptr(), out.numel(), out.data_ptr(),
                                    torch.cuda.current_stream(key.device).cuda_stream)
     kernels.check("threefry_uniform", err)
-    launches += 1
+    kernels.count_launch(sys.modules[__name__])
     return out
 
 
 def _launch_categorical(key: torch.Tensor, logits: torch.Tensor, rows: int) -> torch.Tensor:
-    global launches
     if key.dtype != torch.int64 or key.shape != (2,) or logits.dtype != torch.float32:
         raise ValueError("K7's categorical takes one int64 key [2] and float32 logits")
     if logits.dim() == 2 and logits.shape[0] != rows:
@@ -78,5 +77,5 @@ def _launch_categorical(key: torch.Tensor, logits: torch.Tensor, rows: int) -> t
                                        out.data_ptr(),
                                        torch.cuda.current_stream(logits.device).cuda_stream)
     kernels.check("threefry_categorical", err)
-    launches += 1
+    kernels.count_launch(sys.modules[__name__])
     return out

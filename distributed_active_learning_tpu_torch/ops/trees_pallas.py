@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 
 import numpy as np
 import torch
@@ -366,7 +367,6 @@ def _check_x(x: torch.Tensor, ops, *others: torch.Tensor) -> torch.Tensor:
 
 def _launch_leaves(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
     """Launch csrc/forest_leaves.cu: ``[T, n]`` f32 leaf values."""
-    global launches
     x = _check_x(x, ops)
     n, d = x.shape
     out = torch.empty(ops.n_trees, n, dtype=torch.float32, device=x.device)
@@ -378,7 +378,7 @@ def _launch_leaves(ops: HeapOperands, x: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("forest_leaves", err)
-    launches += 1
+    kernels.count_launch(sys.modules[__name__])
     return out
 
 

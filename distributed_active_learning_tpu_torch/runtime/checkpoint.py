@@ -36,8 +36,15 @@ fingerprint of the whole batch (:func:`sweep_fingerprint`,
 resumes the other's; a scenario grid's fingerprint carries its scenario axis.
 A neural experiment's file (:func:`save_neural`) adds the loop key, the
 network's parameters and its adam state in flax's leaf order and layouts,
-as the JAX package writes them. The serve format of the JAX module comes
-with its slice (ROADMAP queue 1).
+as the JAX package writes them.
+
+The serve half (``serving/``): one ``servestate_<round>.npz`` series a
+single-tenant service, ``servestate_<tenant>_<round>.npz`` a tenant of a
+multi-tenant manager (:func:`save_serve`), holding the filled rows of the
+slab (features, labels, mask), the watermark, key, round, records, the
+resident forest's arrays as ``forest_leaf_<i>`` in the JAX package's
+``tree_flatten`` order (:func:`forest_leaves`), the bin edges and their
+epoch: the JAX package's format, so either package resumes the other's.
 """
 
 from __future__ import annotations
@@ -451,3 +458,194 @@ def restore_latest_neural(ckpt_dir: str, state: PoolState, result: ExperimentRes
                             {n: port(n, a) for n, a in zip(names, opt_np[1 + k:])}),
         step=torch.tensor(net_step, dtype=torch.int32, device=dev))
     return new_state, new_result, net, loop_key
+
+
+# -- the serve half ------------------------------------------------------------
+
+_SERVE_STEP_RE = re.compile(r"^servestate_(\d+)\.npz$")
+# The multi-tenant axis: one file series a tenant, the id in both the name
+# (which routes) and the payload (which verifies).
+_SERVE_TENANT_RE = re.compile(r"^[A-Za-z0-9._-]+$")
+
+
+def _serve_step_re(tenant: Optional[str]) -> "re.Pattern[str]":
+    if tenant is None:
+        return _SERVE_STEP_RE
+    if not _SERVE_TENANT_RE.fullmatch(tenant):
+        raise ValueError(f"serve checkpoint tenant id {tenant!r} must match "
+                         f"{_SERVE_TENANT_RE.pattern} (it names files)")
+    return re.compile(rf"^servestate_{re.escape(tenant)}_(\d+)\.npz$")
+
+
+def _serve_stem(step: int, tenant: Optional[str]) -> str:
+    return f"servestate_{step}.npz" if tenant is None else f"servestate_{tenant}_{step}.npz"
+
+
+def forest_leaves(forest) -> list:
+    """The forest's tensors in the order of the JAX package's
+    ``jax.tree_util.tree_leaves``: a flax dataclass flattens its fields in
+    declaration order, which the port's forest dataclasses share
+    (``GemmForest``: feat_ids, thresholds, path, target, value;
+    ``PallasForest``: its ``gf``; ``MultiForest``: plane by plane;
+    ``PackedForest``: feature, threshold, left, right, value). What is not a
+    tensor (a depth, the heap operands a ``PallasForest`` keeps beside its
+    forest) is not a leaf."""
+    if torch.is_tensor(forest):
+        return [forest]
+    if isinstance(forest, (tuple, list)):
+        return [leaf for f in forest for leaf in forest_leaves(f)]
+    if dataclasses.is_dataclass(forest):
+        return [leaf for f in dataclasses.fields(forest) if f.name != "prepacked"
+                for leaf in forest_leaves(getattr(forest, f.name))]
+    return []
+
+
+def forest_from_leaves(template, arrays: list):
+    """``template``'s forest with its leaves replaced, in
+    :func:`forest_leaves` order, by ``arrays``: tensors, taken as they are,
+    or host arrays, cast to each leaf's dtype and placed on its device. A
+    host array equal to a broadcast constant of the template (a device
+    fit's path matrix and targets, ``trees_train.heap_path_target``) keeps
+    that very view, so the leaf kernel recognizes the restored forest from
+    storage as it does a fitted one."""
+    it = iter(arrays)
+
+    def rebuild(node):
+        if torch.is_tensor(node):
+            arr = next(it)
+            if torch.is_tensor(arr):
+                return arr
+            if 0 in node.stride() and np.array_equal(np.asarray(arr),
+                                                     node.detach().cpu().numpy()):
+                return node
+            if node.dtype == torch.bfloat16:
+                return torch.as_tensor(np.asarray(arr, dtype=np.float32)).to(node.device,
+                                                                             torch.bfloat16)
+            return torch.as_tensor(np.asarray(arr)).to(node.device, node.dtype)
+        if isinstance(node, (tuple, list)):
+            return type(node)(rebuild(n) for n in node)
+        if dataclasses.is_dataclass(node):
+            kw = {f.name: rebuild(getattr(node, f.name)) for f in dataclasses.fields(node)
+                  if f.name != "prepacked"}
+            if any(f.name == "prepacked" for f in dataclasses.fields(node)):
+                kw["prepacked"] = None
+            return dataclasses.replace(node, **kw)
+        return node
+
+    return rebuild(template)
+
+
+def _leaf_np(t: torch.Tensor) -> np.ndarray:
+    """A forest leaf for the file: bfloat16 is written widened to float32
+    (exact; either package casts it back to its template's dtype)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()
+
+
+def save_serve(ckpt_dir: str, state: PoolState, forest, result: ExperimentResult,
+               fingerprint: Optional[str] = None, tenant: Optional[str] = None,
+               edges=None, edges_epoch: Optional[int] = None) -> str:
+    """Streaming-service checkpoint: the slab's filled rows, mask, watermark,
+    key, round, records and the resident forest (``state`` is the slab's
+    ``PoolState`` view, ``n_filled`` set). The pool's features are stored:
+    a service's pool arrived over the wire and cannot be rebuilt from a
+    config. Capacity is not stored (the restore re-pads to its own
+    ``slab_rows``). ``edges`` and ``edges_epoch`` are the live bin-refresh
+    state; ``tenant`` selects the tenant's file series, its id stored in
+    the payload too."""
+    from distributed_active_learning_tpu_torch.utils.io import atomic_savez
+
+    _serve_step_re(tenant)  # validates the id before any work
+    if state.n_filled is None:
+        raise ValueError("save_serve needs a slab-paged state (n_filled set)")
+    fill = int(state_lib.filled_count(state))
+    payload = {
+        "x": state.x[:fill].cpu().numpy(),
+        "oracle_y": state.oracle_y[:fill].cpu().numpy(),
+        "labeled_mask": state.labeled_mask[:fill].cpu().numpy(),
+        "n_filled": np.asarray(fill, dtype=np.int32),
+        "key": state.key.cpu().numpy().astype(np.uint32),
+        "round": np.asarray(int(state.round), dtype=np.int32),
+        "records_json": _as_bytes(json.dumps([dataclasses.asdict(r) for r in result.records])),
+    }
+    for i, leaf in enumerate(forest_leaves(forest)):
+        payload[f"forest_leaf_{i}"] = _leaf_np(leaf)
+    if edges is not None:
+        payload["bin_edges"] = np.asarray(
+            edges.cpu().numpy() if torch.is_tensor(edges) else edges, dtype=np.float32)
+        payload["edges_epoch"] = np.asarray(0 if edges_epoch is None else int(edges_epoch),
+                                            dtype=np.int32)
+    elif edges_epoch:
+        raise ValueError(f"save_serve got edges_epoch={edges_epoch} without the edges array; "
+                         "a restore could not re-code the slab from an epoch alone")
+    if fingerprint is not None:
+        payload["config_fingerprint"] = _as_bytes(fingerprint)
+    if tenant is not None:
+        payload["tenant_id"] = _as_bytes(tenant)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    return atomic_savez(os.path.join(ckpt_dir, _serve_stem(int(state.round), tenant)), **payload)
+
+
+def latest_serve_step(ckpt_dir: str, tenant: Optional[str] = None) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    pat = _serve_step_re(tenant)
+    steps = [int(m.group(1)) for fn in os.listdir(ckpt_dir) if (m := pat.match(fn))]
+    return max(steps) if steps else None
+
+
+def restore_latest_serve(ckpt_dir: str, forest_template, fingerprint: Optional[str] = None,
+                         tenant: Optional[str] = None):
+    """Load the newest service checkpoint (either package's); ``None`` if
+    none exists.
+
+    Returns ``(x, y, labeled_mask, n_filled, key_data, round, forest,
+    result, edges, edges_epoch)``: host arrays, the forest rebuilt on
+    ``forest_template`` (the service's own fit's forest: a leaf count or
+    shape that differs means another forest configuration and raises), and
+    ``(None, 0)`` for the edges of a file written without them. A
+    fingerprint mismatch raises; so does a file whose stored tenant is not
+    ``tenant`` (a renamed file must not cross-wire tenants)."""
+    step = latest_serve_step(ckpt_dir, tenant=tenant)
+    if step is None:
+        return None
+    stem = _serve_stem(step, tenant)
+    with np.load(os.path.join(ckpt_dir, stem)) as z:
+        stored_fp = (bytes(z["config_fingerprint"]).decode()
+                     if "config_fingerprint" in z.files else None)
+        if fingerprint is not None and stored_fp is not None and stored_fp != fingerprint:
+            raise ValueError(f"serve checkpoint fingerprint {stored_fp} != current service "
+                             f"{fingerprint}: refusing to resume a different service's pool")
+        stored_tenant = bytes(z["tenant_id"]).decode() if "tenant_id" in z.files else None
+        if tenant is not None and stored_tenant != tenant:
+            raise ValueError(f"serve checkpoint {stem} stores tenant {stored_tenant!r}, not "
+                             f"{tenant!r}: refusing to cross-wire tenants from a renamed file")
+        x, y, mask = z["x"], z["oracle_y"], z["labeled_mask"]
+        n_filled = int(z["n_filled"])
+        key_data, rnd = z["key"], z["round"]
+        edges = z["bin_edges"] if "bin_edges" in z.files else None
+        edges_epoch = int(z["edges_epoch"]) if "edges_epoch" in z.files else 0
+        records = json.loads(bytes(z["records_json"]).decode())
+        leaves = forest_leaves(forest_template)
+        stored = sorted(int(k[len("forest_leaf_"):]) for k in z.files
+                        if k.startswith("forest_leaf_"))
+        if stored != list(range(len(leaves))):
+            raise ValueError(f"{stem} holds {len(stored)} forest arrays but this "
+                             f"configuration's forest has {len(leaves)} — not a checkpoint of "
+                             "this forest shape")
+        arrays = []
+        for i, tmpl in enumerate(leaves):
+            arr = z[f"forest_leaf_{i}"]
+            if tuple(arr.shape) != tuple(tmpl.shape):
+                raise ValueError(f"serve checkpoint forest leaf {i} shape {arr.shape} != "
+                                 f"expected {tuple(tmpl.shape)}: different forest configuration")
+            arrays.append(np.asarray(arr, dtype=np.float32)
+                          if arr.dtype.name == "bfloat16" else arr)
+    forest = forest_from_leaves(forest_template, arrays)
+    if x.shape[0] != n_filled:
+        raise ValueError(f"serve checkpoint stores {x.shape[0]} rows but watermark is "
+                         f"{n_filled}: truncated or corrupt file")
+    return (x, y, mask, n_filled, key_data, rnd, forest, ExperimentResult.from_record_dicts(records),
+            edges, edges_epoch)

@@ -28,8 +28,8 @@ With ``rounds_per_launch = K > 1`` the run is chunked
 (:func:`make_chunk_fn`): K rounds per launch, each a masked no-op once the
 label cap or the round quota is reached, driven by
 ``runtime/pipeline.py::run_pipelined`` with up to ``pipeline_depth`` chunks
-in flight. On CUDA a chunk is one CUDA graph (:class:`GraphedChunk`),
-captured at the first call and replayed by every later one; on the CPU the
+in flight. On CUDA a chunk replays one CUDA graph of its round step K
+times (:class:`GraphedChunk`; captured at the first call); on the CPU the
 same body runs eagerly. Records and the final mask equal the per-round run's.
 
 The host fit re-enters the host every round, so it always takes the
@@ -45,6 +45,13 @@ round, one ``launch`` event a chunk, transfer counters and memory gauges.
 With ``checkpoint_dir`` and ``checkpoint_every`` a run resumes from the
 newest ``alstate_<round>.npz`` (either package's) and writes one every
 ``checkpoint_every`` rounds, at chunk boundaries in the chunked driver.
+
+Every chunked driver runs on :class:`GraphedChunk`: one CUDA graph of a
+round step, replayed K times a call. The streaming service
+(``serving/tenants.py``) captures its re-fit chunk once a slab capacity,
+beside live traffic: every capture runs on a side stream in thread-local
+mode. A graphed chunk refuses a carry whose tensors outside its carry fields moved (the
+service writes arrivals into them in place).
 
 The batched drivers (``runtime/sweep.py``: sweeps and grids) run the padded
 round (:func:`make_padded_round_fn`: selection at the widest window, each
@@ -73,7 +80,6 @@ attribution. What the JAX package refuses of quantized storage
 from __future__ import annotations
 
 import dataclasses
-import gc
 import time
 from typing import Optional
 
@@ -485,6 +491,27 @@ def make_device_fit(cfg: ExperimentConfig, edges: torch.Tensor, budget: int, n_c
     return fit
 
 
+def chunk_of(step, finish, chunk_size: int, carry_arg: int = 1):
+    """A chunk function of ``chunk_size`` round steps: ``chunk_fn(*args) ->
+    (carry, extras, ys)`` calls ``step(*args) -> (new_carry, y)`` that many
+    times, each on the carry the last returned (``args[carry_arg]``), then
+    ``finish(rows, *args) -> (extras, ys)`` on the steps' ys with the final
+    carry in its place. Its ``step``, ``finish``, ``chunk_size`` and
+    ``carry_arg`` are what :class:`GraphedChunk` graphs: one step, replayed
+    ``chunk_size`` times a call."""
+
+    def chunk_fn(*args):
+        args, rows = list(args), []
+        for _ in range(chunk_size):
+            args[carry_arg], y = step(*args)
+            rows.append(y)
+        return (args[carry_arg], *finish(rows, *args))
+
+    chunk_fn.step, chunk_fn.finish = step, finish
+    chunk_fn.chunk_size, chunk_fn.carry_arg = chunk_size, carry_arg
+    return chunk_fn
+
+
 def make_chunk_fn(
     strategy: Strategy,
     window_size: int,
@@ -522,7 +549,8 @@ def make_chunk_fn(
     more in the touchdown copy, no extra sync).
 
     The body reads nothing back to the host and uploads nothing: that is
-    what lets :class:`GraphedChunk` capture it into a CUDA graph. A Python
+    what lets :class:`GraphedChunk` capture its round step into a CUDA
+    graph (:func:`chunk_of`). A Python
     callback cannot run inside a replayed graph, so ``stream_cb(round,
     n_labeled, accuracy, active)`` (the JAX package calls it from inside
     the scan) is called at the chunk's touchdown instead, once per round in
@@ -557,12 +585,8 @@ def make_chunk_fn(
         out = state_lib.select_state(active, new_state, carry)
         return out, (carry.round + 1, n_labeled, acc, picked.to(torch.int32), active, *rm)
 
-    def chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round, costs=None):
-        ys = []
-        for _ in range(chunk_size):
-            state, y = step(codes, state, aux, fit_key, test_x, test_y, end_round, costs)
-            ys.append(y)
-        cols = list(zip(*ys))
+    def finish(rows, codes, state, *_):
+        cols = list(zip(*rows))
         ys = tuple(torch.stack(col) for col in cols[:5])
         if with_metrics:
             from distributed_active_learning_tpu_torch.runtime.telemetry import stack_metrics
@@ -572,7 +596,7 @@ def make_chunk_fn(
             n_labeled_after=state_lib.labeled_count(state),
             n_active=ys[4].sum(dtype=torch.int32),
         )
-        return state, extras, ys
+        return extras, ys
 
     def stream(ys) -> None:
         if stream_cb is None:
@@ -580,7 +604,7 @@ def make_chunk_fn(
         for r, nl, acc, act in zip(*(y.tolist() for y in (ys[0], ys[1], ys[2], ys[4]))):
             stream_cb(r, nl, acc, act)
 
-    chunk_fn.step = step
+    chunk_fn = chunk_of(step, finish, chunk_size)
     chunk_fn.stream = stream
     return chunk_fn
 
@@ -599,13 +623,68 @@ def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
     return mask.clone(), key.clone(), rnd.clone()
 
 
-def _kernel_launch_counts() -> dict:
-    """The wrappers' launch counters this module's paths can advance."""
+def _kernel_launch_counters() -> tuple:
+    """The wrappers' launch counters this module's paths can advance, as
+    ``(module, name)`` pairs."""
     from distributed_active_learning_tpu_torch.ops import round_fused, threefry, trees_pallas
 
-    return {(trees_pallas, "launches"): trees_pallas.launches,
-            (round_fused, "launches"): round_fused.launches,
-            (threefry, "launches"): threefry.launches}
+    return ((trees_pallas, "launches"), (round_fused, "launches"), (threefry, "launches"))
+
+
+def _carry_tensor_ptrs(carry, carry_fields) -> dict:
+    """``{field: data_ptr}`` of the carry's tensor fields outside
+    ``carry_fields`` (a single experiment's pool features, labels and fill
+    watermark): a graph reads them where they lay at its capture."""
+    if not dataclasses.is_dataclass(carry):
+        return {}
+    return {f.name: getattr(carry, f.name).data_ptr() for f in dataclasses.fields(carry)
+            if f.name not in carry_fields and torch.is_tensor(getattr(carry, f.name))}
+
+
+def capture_thread_local(graph, body):
+    """Record ``body()`` into ``graph`` on the current stream (a side
+    stream) in thread-local capture mode, so that other threads may work on
+    the device, and capture, meanwhile. The kernel wrappers' launches during
+    the capture go to this thread's tally (``kernels.capture_tally``), not to
+    their counters: returns ``(body()'s outputs, {(module, name): launches
+    a replay})``, the second for :func:`replay_counted`.
+    ``torch.cuda.graph``'s context is not used: it synchronizes the device
+    and empties the allocator's cache on entry, which live work on other
+    threads must not see."""
+    from distributed_active_learning_tpu_torch import kernels
+
+    with kernels.capture_tally(_kernel_launch_counters()) as tally:
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = body()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture is invalid already; the body's error says why
+            raise
+        graph.capture_end()
+    return out, dict(tally)
+
+
+def replay_counted(graph, launches: dict) -> None:
+    """Replay ``graph`` and add the launches its capture recorded
+    (:func:`capture_thread_local`) to the wrappers' counters: a replay is
+    where the kernels really run."""
+    from distributed_active_learning_tpu_torch import kernels
+
+    graph.replay()
+    for (mod, name), n in launches.items():
+        kernels.count_launch(mod, name, n)
+
+
+def _graph_pool_bytes(graph, dev) -> int:
+    """Bytes of the segments the allocator holds in ``graph``'s private
+    pool (read from the allocator's snapshot, so allocations other threads
+    make meanwhile do not count)."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == dev.index and tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 # The carry of every chunk program: the fields of a PoolState (one
@@ -626,52 +705,69 @@ def _copy_leaves(dst, src) -> None:
 
 
 class GraphedChunk:
-    """A chunk function as one CUDA graph: the counterpart of the jitted
-    launch with a donated carry.
+    """A chunk function as one CUDA graph of its round step, replayed K
+    times a call: the counterpart of the jitted launch with a donated
+    carry.
 
-    ``chunk_fn(*args) -> (new_carry, extras, ys)`` takes its carry as
-    ``args[carry_arg]`` (an object with ``replace`` and the
-    ``carry_fields``, each a tensor or a tree of them: a
+    ``chunk_fn`` is a :func:`chunk_of` function: ``chunk_fn.step(*args) ->
+    (new_carry, y)`` is one round, ``chunk_fn.finish(rows, *args) ->
+    (extras, ys)`` stacks K rounds' ys, K is ``chunk_fn.chunk_size`` and the
+    carry is ``args[chunk_fn.carry_arg]`` (an object with ``replace`` and
+    the ``carry_fields``, each a tensor or a tree of them: a
     :class:`~.state.PoolState` for one experiment, a
     ``runtime.sweep.SweepState`` for a sweep or grid, both with
     :data:`CARRY_FIELDS`; a ``runtime.neural_loop.NeuralCarry``, which also
-    carries the network's TrainState), the per-call inputs
-    at the positions ``input_args`` (tensors that may change from call to
-    call: the single chunk's end round, a sweep's end rounds, a grid's end
-    rounds, label caps and real widths), and its constants everywhere else.
+    carries the network's TrainState). The per-call inputs sit at the
+    positions ``input_args`` (tensors that may change from call to call:
+    the single chunk's end round, a sweep's end rounds, a grid's end rounds,
+    label caps and real widths), its constants everywhere else.
 
-    The first call runs one step of the body eagerly on a side stream
-    (``chunk_fn.step``, same arguments: it builds and loads the kernels,
-    sets up autograd's per-stream state and fills the
-    per-device constant caches, none of which may happen while capturing),
-    copies the carry and the inputs into static buffers and captures the
-    whole chunk on them; that call and every later one replay the graph.
-    The graph ends by writing the new carry back into the static buffers,
-    so the returned carry aliases the one passed to the next call (pass it
-    on; any other carry is copied in first). Each call copies its inputs
-    into their buffers before the replay, so a resumed run never replays
-    stale stop rounds. A constant tensor must be the very tensor of the
-    capture (the graph reads it where it lay): another one raises. The ys
-    and extras are static buffers too, overwritten by every replay: copy
-    them out on the same stream before the next call
-    (``pipeline.start_host_copy``).
+    The first call runs one step eagerly on a side stream (it builds and
+    loads the kernels, sets up autograd's and cuBLAS's per-stream state and
+    fills the per-device constant caches, none of which may happen while
+    capturing), copies the carry and the inputs into static buffers and
+    captures one step on them, ending by writing the new carry back into
+    the carry buffers. Every call then replays that graph K times, which
+    advances the carry K rounds exactly as the chunk's loop of K steps
+    does, cloning the step's ys out of the graph's buffers after each
+    replay, and runs ``finish`` on the current stream behind the replays:
+    the returned ys and extras are fresh tensors that no later replay
+    overwrites. A capture costs one round (and the warm-up round), not K,
+    and the private pool holds one round's temporaries. The returned carry
+    aliases the one passed to the next call (pass it on; any other carry is
+    copied in first). Each call copies its inputs into their buffers before
+    the replays, so a resumed run never replays stale stop rounds. A
+    constant tensor must be the very tensor of the capture (the graph reads
+    it where it lay): another one raises. A capture that fails raises:
+    nothing here falls back to the eager body.
 
-    A capture that fails raises: nothing here falls back to the eager body.
+    The carry's tensor fields outside ``carry_fields`` (a
+    :class:`~.state.PoolState`'s ``x``, ``oracle_y`` and ``n_filled``) are
+    read where they lay at the capture too: the service writes its arrivals
+    into them in place (``serving/slab.py``). A replay whose carry holds
+    another tensor there raises, as for the constants.
 
-    Counters. ``captures`` and ``replays`` count this object's graph
-    captures and replays, ``capture_seconds`` the host time of the capture
-    (warm-up step excluded) and ``pool_bytes`` the device memory its
-    private pool reserved. The kernel wrappers count a launch where they
-    launch, which during a capture records the launch into the graph instead
-    of running it: the capture's counts are therefore taken back, kept as
-    ``launches_per_replay``, and added to the wrappers' counters at every
-    replay, which is where the kernels really run (K rounds' worth per
-    replay).
+    A capture may run beside live work on other threads (the service's
+    precompile worker): the warm-up and the capture run on a side stream in
+    thread-local capture mode (:func:`capture_thread_local`), nothing
+    synchronizes the whole device or empties the allocator's cache, and
+    ``pool_bytes`` is read from the allocator's snapshot of the graph's
+    pool. :meth:`capture` captures without replaying.
+
+    Counters. ``captures`` counts this object's graph captures, ``replays``
+    its chunk replays (calls; K graph launches each), ``capture_seconds``
+    the host time of the capture (warm-up step excluded) and ``pool_bytes``
+    the device memory its private pool reserved. The kernel wrappers count
+    a launch where they launch, which during a capture records the launch
+    into the graph instead of running it: the capture counts them into its
+    own per-thread tally (``kernels.capture_tally``), added to the wrappers'
+    counters at every graph replay, which is where the kernels really run;
+    ``launches_per_replay`` is a call's (K rounds') worth.
     """
 
-    def __init__(self, chunk_fn, carry_arg: int = 1, input_args=(6,), carry_fields=CARRY_FIELDS):
+    def __init__(self, chunk_fn, input_args=(6,), carry_fields=CARRY_FIELDS):
         self._fn = chunk_fn
-        self._carry_arg = carry_arg
+        self._carry_arg = chunk_fn.carry_arg
         self._input_args = tuple(input_args)
         self._carry_fields = tuple(carry_fields)
         self._graph = None
@@ -685,17 +781,20 @@ class GraphedChunk:
         skip = (self._carry_arg, *self._input_args)
         return {i: a.data_ptr() for i, a in enumerate(args) if torch.is_tensor(a) and i not in skip}
 
-    def _capture(self, args):
+    def _capture(self, args, stream=None, warm_up: bool = True):
         carry = args[self._carry_arg]
         dev = carry.labeled_mask.device
         # The warm-up runs on a side stream, PyTorch's recipe for a capture
-        # (autograd sets up per-stream state at its first backward, which a
-        # capture must not see created).
-        side = torch.cuda.Stream(dev)
+        # (autograd sets up per-stream state at its first backward, and
+        # cuBLAS its per-stream workspace, which a capture must not see
+        # created); the capture runs on the same one. A caller that captures
+        # on one stream of its own again and again (``stream``) may skip the
+        # warm-up once that stream has run the same body.
+        side = stream if stream is not None else torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._fn.step(*args)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        if warm_up:
+            with torch.cuda.stream(side):
+                self._fn.step(*args)
         self._carry = {f: _map_leaves(torch.clone, getattr(carry, f)) for f in self._carry_fields}
         self._inputs = {i: args[i].clone() for i in self._input_args}
         static_args = list(args)
@@ -703,32 +802,39 @@ class GraphedChunk:
         for i, buf in self._inputs.items():
             static_args[i] = buf
         self._const_ptrs = self._consts(args)
-        torch.cuda.synchronize(dev)
-        before = _kernel_launch_counts()
-        # Entering the capture empties the allocator's cache; do it first, so
-        # that what is reserved afterwards is the graph's private pool.
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out, extras, ys = self._fn(*static_args)
+        self._carry_ptrs = _carry_tensor_ptrs(carry, self._carry_fields)
+        side.synchronize()  # the warm-up, on this thread only
+
+        def body():
+            out, y = self._fn.step(*static_args)
             for f, buf in self._carry.items():
                 _copy_leaves(buf, getattr(out, f))
+            return y
+
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            y, self._step_launches = capture_thread_local(graph, body)
         self.capture_seconds = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        for (mod, name), n in before.items():
-            self.launches_per_replay[(mod, name)] = getattr(mod, name) - n
-            setattr(mod, name, n)
-        self._graph, self._extras, self._ys = graph, extras, ys
-        self._static = static_args[self._carry_arg]
+        self.pool_bytes = _graph_pool_bytes(graph, dev)
+        self.launches_per_replay = {k: n * self._fn.chunk_size
+                                    for k, n in self._step_launches.items()}
+        self._graph, self._y = graph, y
+        self._static_args = static_args
         self.captures += 1
+
+    def capture(self, *args, stream=None, warm_up: bool = True) -> None:
+        """Capture the graph on these arguments without replaying it (a
+        chunk built ahead of its first use), on ``stream`` if given, with
+        the eager warm-up step unless ``warm_up`` is False; a later call
+        replays."""
+        if self._graph is None:
+            self._capture(args, stream=stream, warm_up=warm_up)
 
     def stats(self) -> dict:
         """Counts for a report: captures, replays, the capture's host
         seconds, the private pool's bytes, and the kernel launches one
-        replay stands for."""
+        replay (a call, K rounds) stands for."""
         return {
             "captures": self.captures,
             "replays": self.replays,
@@ -747,16 +853,25 @@ class GraphedChunk:
                     "a graphed chunk replays on the constant tensors of its capture; it was "
                     "called with others (build a new GraphedChunk for new pool arrays)")
             carry = args[self._carry_arg]
+            moved = sorted(f for f, ptr in _carry_tensor_ptrs(carry, self._carry_fields).items()
+                           if ptr != self._carry_ptrs.get(f))
+            if moved:
+                raise ValueError(
+                    f"a graphed chunk replays on the carry tensors of its capture outside "
+                    f"{self._carry_fields}; it was called with others for {moved} (write "
+                    "into those tensors in place, or build a new GraphedChunk)")
             if carry.labeled_mask.data_ptr() != self._carry["labeled_mask"].data_ptr():
                 for f, buf in self._carry.items():
                     _copy_leaves(buf, getattr(carry, f))
         for i, buf in self._inputs.items():
             buf.copy_(args[i])
-        self._graph.replay()
+        rows = []
+        for _ in range(self._fn.chunk_size):
+            replay_counted(self._graph, self._step_launches)
+            rows.append(_map_leaves(lambda t: t.clone() if torch.is_tensor(t) else t, self._y))
         self.replays += 1
-        for (mod, name), n in self.launches_per_replay.items():
-            setattr(mod, name, getattr(mod, name) + n)
-        return self._static, self._extras, self._ys
+        extras, ys = self._fn.finish(rows, *self._static_args)
+        return self._static_args[self._carry_arg], extras, ys
 
 
 def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,

@@ -19,10 +19,10 @@ Three drivers share one round body (:func:`_make_neural_round_core`):
   debugger asks for ``phase_detail``;
 - the chunk (:func:`make_neural_chunk_fn`): K rounds per launch, each a
   masked no-op past the label cap or the round quota, driven by
-  ``runtime/pipeline.py``; on CUDA one CUDA graph a chunk
-  (``runtime/loop.py::GraphedChunk``) holding the training steps, the adam
-  updates, the MC passes and the greedy selects; on the CPU the same body
-  eagerly. ``stream_round_events`` fire at the chunk's touchdown, in round
+  ``runtime/pipeline.py``; on CUDA one CUDA graph of a round, replayed K
+  times a chunk (``runtime/loop.py::GraphedChunk``), holding the training
+  steps, the adam updates, the MC passes and the greedy selects; on the
+  CPU the same body eagerly. ``stream_round_events`` fire at the chunk's touchdown, in round
   order (the forest chunk's rule);
 - the seed sweep (:func:`run_neural_sweep`): E seeds over one shared pool
   as one launch stream, the lanes one after another inside each round
@@ -298,8 +298,9 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
     ``[chunk_size, ...]``. Every round splits its four keys from the carried
     loop key, as the per-round driver does, so the two drivers agree bit for
     bit; an inactive round keeps the carry exactly. The body reads nothing
-    back to the host, so :class:`~.loop.GraphedChunk` captures it.
-    ``chunk_fn.step`` runs one round (the graph's warm-up)."""
+    back to the host, so :class:`~.loop.GraphedChunk` captures its round
+    step (:func:`~.loop.chunk_of`)."""
+    from distributed_active_learning_tpu_torch.runtime.loop import chunk_of
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
     round_core = _make_neural_round_core(learner, strat, window_size, beta, with_metrics,
@@ -312,18 +313,13 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
             end_round)
         return carry.replace(labeled_mask=mask, key=key, round=rnd, net=net), ys
 
-    def chunk_fn(pool_x, carry, oracle_y, init_net, test_x, test_y, end_round):
-        rows = []
-        for _ in range(chunk_size):
-            carry, ys = one(pool_x, carry, oracle_y, init_net, test_x, test_y, end_round)
-            rows.append(ys)
+    def finish(rows, pool_x, carry, *_):
         ys = _stack_ys(rows, with_metrics)
         extras = ChunkExtras(n_labeled_after=carry.labeled_mask.sum(dtype=torch.int32),
                              n_active=ys[4].sum(dtype=torch.int32))
-        return carry, extras, ys
+        return extras, ys
 
-    chunk_fn.step = one
-    return chunk_fn
+    return chunk_of(one, finish, chunk_size)
 
 
 def make_neural_sweep_chunk_fn(learner: NeuralLearner, strat: str, window_size: int,
@@ -339,6 +335,7 @@ def make_neural_sweep_chunk_fn(learner: NeuralLearner, strat: str, window_size: 
     one after another through the serial round body, so every lane equals
     its serial run by construction. ``extras`` reduce over the batch: the
     fewest labels of any lane, the most active rounds of any lane."""
+    from distributed_active_learning_tpu_torch.runtime.loop import chunk_of
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
     round_core = _make_neural_round_core(learner, strat, window_size, beta, with_metrics,
@@ -358,19 +355,14 @@ def make_neural_sweep_chunk_fn(learner: NeuralLearner, strat: str, window_size: 
                             round=torch.stack(rnds), net=tuple(nets))
         return new, _stack_ys(rows, with_metrics)
 
-    def chunk_fn(pool_x, carry, oracle_y, init_nets, test_x, test_y, end_rounds):
-        rows = []
-        for _ in range(chunk_size):
-            carry, ys = one(pool_x, carry, oracle_y, init_nets, test_x, test_y, end_rounds)
-            rows.append(ys)
+    def finish(rows, pool_x, carry, *_):
         ys = _stack_ys(rows, with_metrics)
         extras = ChunkExtras(
             n_labeled_after=carry.labeled_mask.sum(1, dtype=torch.int32).min(),
             n_active=ys[4].sum(0, dtype=torch.int32).max())
-        return carry, extras, ys
+        return extras, ys
 
-    chunk_fn.step = one
-    return chunk_fn
+    return chunk_of(one, finish, chunk_size)
 
 
 def _setup(cfg: NeuralExperimentConfig, learner: NeuralLearner, train_x, train_y, test_x,
@@ -543,7 +535,7 @@ def _graphed(body, dev, n_inputs_arg: int = 6):
         return body
     from distributed_active_learning_tpu_torch.runtime.loop import GraphedChunk
 
-    return GraphedChunk(body, carry_arg=1, input_args=(n_inputs_arg,),
+    return GraphedChunk(body, input_args=(n_inputs_arg,),
                         carry_fields=NEURAL_CARRY_FIELDS)
 
 

@@ -37,6 +37,7 @@ the HTTP listener, never the (cheap, bounded) counting.
 from __future__ import annotations
 
 import bisect
+import collections
 import json
 import math
 import re
@@ -56,6 +57,7 @@ __all__ = [
     "gauge",
     "histogram",
     "heartbeat",
+    "SLOTracker",
 ]
 
 #: Metric-name prefix on every exported series — one namespace to scrape-
@@ -457,6 +459,124 @@ def histogram(name: str, help: str = "", buckets=None, **labels) -> Histogram:
 
 def heartbeat(name: str, max_age_seconds: Optional[float] = None) -> None:
     _DEFAULT.heartbeat(name, max_age_seconds)
+
+
+# ---------------------------------------------------------------------------
+# SLO accounting
+# ---------------------------------------------------------------------------
+
+#: Burn-rate windows (seconds) and their display names — the SRE-workbook
+#: short/medium/long alerting trio, bounded at one hour so the windowed
+#: state stays a few hundred slots per tenant.
+SLO_WINDOWS: Tuple[Tuple[str, float], ...] = (
+    ("1m", 60.0), ("5m", 300.0), ("1h", 3600.0),
+)
+
+
+class SLOTracker:
+    """One tenant's latency/availability objective and its burn accounting.
+
+    A query is GOOD when it succeeded AND answered within
+    ``objective_seconds`` (the combined latency+availability SLI — a failed
+    query can never be good, however fast it failed). Tracked two ways:
+
+    - lifetime ``good/total`` -> :meth:`compliance` (the ratio the service
+      summary and the bench's ``slo_compliance`` key report);
+    - time-sloted window counts -> :meth:`burn_rate`: the window's bad
+      fraction divided by the error budget ``1 - target``. Burn 1.0 means
+      the budget is being spent exactly at the sustainable rate; >> 1 is the
+      page. Slots are ``slot_seconds`` wide and pruned past the longest
+      window, so memory is bounded regardless of query rate.
+    """
+
+    def __init__(
+        self,
+        objective_seconds: float,
+        target: float = 0.99,
+        windows: Tuple[Tuple[str, float], ...] = SLO_WINDOWS,
+        slot_seconds: float = 5.0,
+        clock=time.monotonic,
+    ):
+        if objective_seconds <= 0:
+            raise ValueError(
+                f"SLO objective must be > 0 seconds, got {objective_seconds}"
+            )
+        if not 0.0 < target < 1.0:
+            raise ValueError(
+                f"SLO target must be a fraction in (0, 1), got {target} — "
+                "1.0 leaves no error budget to burn"
+            )
+        self.objective_seconds = float(objective_seconds)
+        self.target = float(target)
+        self.windows = tuple(windows)
+        self.slot_seconds = float(slot_seconds)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self.good = 0
+        self.total = 0
+        # (slot_index, good, total) triples, oldest first
+        self._slots: collections.deque = collections.deque()
+        self._horizon_slots = int(
+            math.ceil(max(w for _, w in self.windows) / self.slot_seconds)
+        ) + 1
+
+    def observe(self, seconds: Optional[float], ok: bool = True) -> bool:
+        """Record one query; returns whether it counted as good. ``seconds``
+        None means the query never produced a latency (it failed before
+        completing) — always bad."""
+        good = bool(ok) and seconds is not None and seconds <= self.objective_seconds
+        slot = int(self._clock() / self.slot_seconds)
+        with self._lock:
+            self.total += 1
+            self.good += int(good)
+            if self._slots and self._slots[-1][0] == slot:
+                _s, g, t = self._slots[-1]
+                self._slots[-1] = (slot, g + int(good), t + 1)
+            else:
+                self._slots.append((slot, int(good), 1))
+            while self._slots and self._slots[0][0] < slot - self._horizon_slots:
+                self._slots.popleft()
+        return good
+
+    def compliance(self) -> Optional[float]:
+        with self._lock:
+            return self.good / self.total if self.total else None
+
+    def window_counts(self, window_seconds: float) -> Tuple[int, int]:
+        now_slot = int(self._clock() / self.slot_seconds)
+        first = now_slot - int(math.ceil(window_seconds / self.slot_seconds))
+        g = t = 0
+        with self._lock:
+            for slot, sg, st in self._slots:
+                if slot > first:
+                    g += sg
+                    t += st
+        return g, t
+
+    def burn_rate(self, window_seconds: float) -> Optional[float]:
+        """``bad_fraction / (1 - target)`` over the window; None when the
+        window holds no queries (no data is not the same as no burn)."""
+        g, t = self.window_counts(window_seconds)
+        if t == 0:
+            return None
+        return ((t - g) / t) / (1.0 - self.target)
+
+    def burn_rates(self) -> Dict[str, Optional[float]]:
+        return {name: self.burn_rate(w) for name, w in self.windows}
+
+    def snapshot(self) -> dict:
+        comp = self.compliance()
+        return {
+            "objective_ms": round(self.objective_seconds * 1e3, 3),
+            "target": self.target,
+            "good": self.good,
+            "total": self.total,
+            "compliance": round(comp, 6) if comp is not None else None,
+            "burn": {
+                name: (round(b, 4) if b is not None else None)
+                for name, b in self.burn_rates().items()
+            },
+        }
 
 
 class OpsServer:

@@ -112,6 +112,11 @@ class HostCopy:
         self._tree = tree
         self._event = event
 
+    def ready(self) -> bool:
+        """Whether the copies have landed, without blocking (always, for a
+        tree with no CUDA leaf)."""
+        return self._event is None or self._event.query()
+
     def wait(self) -> Any:
         """Block until the copies have landed (on their event, not on the
         device) and return the host-side tree."""

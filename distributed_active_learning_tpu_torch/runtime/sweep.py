@@ -15,13 +15,13 @@ Design, and where it departs from the JAX package's:
   axis. A grid stacks its datasets' pools ``[D, ...]`` and shares each one
   among that dataset's cells.
 - **The chunk is the unit of batching.** JAX vmaps its chunk body over the
-  experiments. Here each round step of a chunk runs, inside one CUDA graph
-  on the card: the E device fits one after another (each the serial fit on
-  its own key, so exact by construction), ONE stacked launch of the leaf
-  kernel K1 over every experiment's forest on the pool and one on the test
-  set (``forest_eval.evaluated_many``: the forests' heap operands
-  concatenated along the tree axis, where JAX runs its Pallas kernel under
-  ``vmap``), each experiment's score, select and reveal on its own rows of
+  experiments. Here each round step of a chunk runs, as one CUDA graph
+  replayed K times a chunk on the card: the E device fits one after
+  another (each the serial fit on its own key, so exact by construction),
+  ONE stacked launch of the leaf kernel K1 over every experiment's forest
+  on the pool and one on the test set (``forest_eval.evaluated_many``: the
+  forests' heap operands concatenated along the tree axis, where JAX runs
+  its Pallas kernel under ``vmap``), each experiment's score, select and reveal on its own rows of
   those leaves, and a masked no-op past each experiment's own stop. K1 runs
   twice a round step per dataset whatever E is. The round is always the
   unfused padded round (``runtime.loop.make_padded_round_fn``), as in JAX,
@@ -172,9 +172,9 @@ def make_grid_chunk_fn(
     dataset's cells' forests in one stacked K1 launch on its pool and one on
     its test set (``forest_eval.evaluated_many``), then runs each cell's
     padded round and a masked no-op past its own stop. The body reads
-    nothing back to the host, so :class:`~.loop.GraphedChunk` captures it
-    (``carry_arg=3``, ``input_args=(10, 11, 13, 14)``);
-    ``grid_chunk_fn.step`` is one round step, the graph's eager warm-up.
+    nothing back to the host, so :class:`~.loop.GraphedChunk` captures its
+    round step (:func:`~.loop.chunk_of`, the carry at 3; ``input_args=(10,
+    11, 13, 14)``).
 
     ``scenarios`` (one :class:`~..config.ScenarioConfig` a group, the JAX
     package's grid spelling) gives each group its own scenario round, and
@@ -191,6 +191,7 @@ def make_grid_chunk_fn(
     from distributed_active_learning_tpu_torch.runtime.loop import (
         _accuracy,
         _accuracy_masked,
+        chunk_of,
         make_padded_round_fn,
     )
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
@@ -263,15 +264,9 @@ def make_grid_chunk_fn(
                          round=torch.stack([o.round for o in outs]))
         return new, _stack_ys(per_cell, with_metrics)
 
-    def grid_chunk_fn(codes, x, oracle_y, grid, seed_masks, lal_forests, fit_keys, windows,
-                      test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns,
-                      flip_masks=None, costs_ds=None):
-        steps = []
-        for _ in range(chunk_size):
-            grid, ys = step(codes, x, oracle_y, grid, seed_masks, lal_forests, fit_keys, windows,
-                            test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns,
-                            flip_masks, costs_ds)
-            steps.append(ys)
+    def finish(steps, codes, x, oracle_y, grid, seed_masks, lal_forests, fit_keys, windows,
+               test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns,
+               flip_masks=None, costs_ds=None):
         ys = _stack_ys(steps, with_metrics)
         n_valids_cell = torch.repeat_interleave(n_valids, E).repeat(G)
         remaining = label_caps - _grid_counts(grid.labeled_mask, n_valids_cell)
@@ -279,10 +274,9 @@ def make_grid_chunk_fn(
             n_labeled_after=-remaining.max(),
             n_active=ys[4].sum(dim=0, dtype=torch.int32).max(),
         )
-        return grid, extras, ys
+        return extras, ys
 
-    grid_chunk_fn.step = step
-    return grid_chunk_fn
+    return chunk_of(step, finish, chunk_size, carry_arg=3)
 
 
 def _resolve_sweep_fit_budget(cfg: ExperimentConfig, n_pool: int, n_labeled_max: int,
@@ -536,7 +530,7 @@ def run_sweep(
     body = make_grid_chunk_fn([strategy], window_pad, K,
                               _device_fit_core(cfg, fit_budget, n_classes), n_datasets=1,
                               n_seeds=E, with_metrics=want_metrics, n_classes=n_classes)
-    chunk = (GraphedChunk(body, carry_arg=3, input_args=(10, 11, 13, 14))
+    chunk = (GraphedChunk(body, input_args=(10, 11, 13, 14))
              if dev.type == "cuda" else body)
     launches = telemetry.LaunchTracker(metrics, "sweep_chunk_scan", fn=chunk)
     # The stop/veto arithmetic over the batch-reduced scalars, shifted by the
@@ -947,7 +941,7 @@ def run_grid(
                               n_seeds=E, use_fill=use_fill, use_test_fill=use_test_fill,
                               with_metrics=want_metrics, n_classes=n_classes,
                               scenarios=group_scns, drift_dirs=drift_dirs)
-    chunk = (GraphedChunk(body, carry_arg=3, input_args=(10, 11, 13, 14))
+    chunk = (GraphedChunk(body, input_args=(10, 11, 13, 14))
              if dev.type == "cuda" else body)
     launches = telemetry.LaunchTracker(metrics, "grid_chunk_scan", fn=chunk)
     # label_cap = 0 and n_known = -max remaining: "every cell reached its

@@ -369,21 +369,35 @@ def device_memory_gauges() -> Dict[str, int]:
 
 class MetricsWriter:
     """Rank-tagged JSONL event stream, one line per event: ``{"ts": <unix
-    s>, "kind": ..., "rank": 0, ...payload}``. The port runs one process,
-    rank 0, and flushes every event (a crash loses nothing written).
+    s>, "kind": ..., "rank": <rank>, ...payload}``. The port runs one
+    process, rank 0 unless ``rank`` says otherwise; only rank 0 holds the
+    file (another rank counts and writes nothing).
 
     The file opens in APPEND mode: a checkpoint-resumed run with the same
     ``--metrics-out`` extends the interrupted run's stream; each run starts
     with a ``meta`` event, so consumers can segment runs.
+
+    ``flush_every`` batches flushes: the default 1 flushes every event (a
+    crash loses nothing written); the streaming service, which emits one
+    ``serve_latency`` event a query, passes a larger value and relies on
+    :func:`install_exit_flush` (SIGTERM and atexit) to keep the buffered
+    tail on a kill.
     """
 
-    rank = 0
-
-    def __init__(self, path: str):
+    def __init__(self, path: str, rank: Optional[int] = None, flush_every: int = 1):
         self.path = path
+        self.rank = 0 if rank is None else int(rank)
+        self.flush_every = max(int(flush_every), 1)
+        self._since_flush = 0
         self.counters: Dict[str, float] = {}
-        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        self._f = open(path, "a")
+        self._f = None
+        # Serializes line writes between threads (the service's dispatcher
+        # and its precompile worker). Reentrant: install_exit_flush's SIGTERM
+        # handler may interrupt an event() that holds it.
+        self._lock = threading.RLock()
+        if self.rank == 0:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            self._f = open(path, "a")
 
     @staticmethod
     def _json_safe(v):
@@ -401,8 +415,15 @@ class MetricsWriter:
             return
         line = {"ts": round(time.time(), 3), "kind": kind, "rank": self.rank}
         line.update(fields)
-        self._f.write(json.dumps(self._json_safe(line)) + "\n")
-        self._f.flush()
+        text = json.dumps(self._json_safe(line)) + "\n"
+        with self._lock:
+            if self._f is None:  # closed between the fast check and here
+                return
+            self._f.write(text)
+            self._since_flush += 1
+            if self._since_flush >= self.flush_every:
+                self._f.flush()
+                self._since_flush = 0
 
     # -- the event vocabulary ------------------------------------------------
 
@@ -441,16 +462,59 @@ class MetricsWriter:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def flush(self) -> None:
+        with self._lock:
+            if self._f is not None:
+                self._f.flush()
+                self._since_flush = 0
+
     def close(self) -> None:
-        if self._f is not None:
-            self._f.close()
-            self._f = None
+        with self._lock:
+            if self._f is not None:
+                self._f.flush()
+                self._f.close()
+                self._f = None
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+
+def install_exit_flush(writer: MetricsWriter) -> None:
+    """Flush ``writer`` on SIGTERM and at interpreter exit (a buffered
+    stream, ``flush_every > 1``, would otherwise lose its tail to an
+    orchestrator's kill). The SIGTERM handler flushes and then chains to the
+    handler installed before it, so the process's shutdown is unchanged.
+    Idempotent per writer."""
+    import atexit
+    import signal
+
+    if getattr(writer, "_exit_flush_installed", False):
+        return
+    writer._exit_flush_installed = True
+    atexit.register(writer.flush)
+
+    prev = signal.getsignal(signal.SIGTERM)
+    if prev is None:
+        return  # a handler installed from C: leave it; atexit still flushes
+
+    def _flush_and_chain(signum, frame):
+        try:
+            writer.flush()
+        except RuntimeError:
+            pass  # the signal landed inside the io stack's own write
+        if callable(prev):
+            prev(signum, frame)
+        elif prev == signal.SIG_DFL:
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            signal.raise_signal(signal.SIGTERM)
+
+    try:
+        signal.signal(signal.SIGTERM, _flush_and_chain)
+    except ValueError:
+        pass  # not the main thread: atexit still covers clean exits
 
 
 # ---------------------------------------------------------------------------
@@ -465,10 +529,9 @@ class FlightRecorder:
     artifact. Library code records through :func:`flight_record`, a no-op
     until :func:`install_flight_recorder` runs."""
 
-    capacity = 256
-
-    def __init__(self, path: Optional[str] = None):
+    def __init__(self, path: Optional[str] = None, capacity: int = 256):
         self.path = path
+        self.capacity = int(capacity)
         self._events: collections.deque = collections.deque(maxlen=self.capacity)
         # Reentrant: dump() runs from signal handlers, which may interrupt
         # record()'s locked block.
@@ -541,9 +604,32 @@ def flight_dump(reason: str) -> Optional[str]:
     return rec.dump(reason) if rec is not None else None
 
 
-def install_flight_recorder(path: Optional[str], signals: bool = True) -> FlightRecorder:
+#: Default ring capacity; ``DAL_FLIGHT_RING`` overrides it process-wide.
+_DEFAULT_FLIGHT_RING = 256
+
+
+def flight_ring_capacity(capacity: Optional[int] = None) -> int:
+    """The ring's capacity: an explicit argument, else the
+    ``DAL_FLIGHT_RING`` environment variable, else 256. A value that is not
+    a positive integer raises (a zero ring would record nothing)."""
+    if capacity is None:
+        raw = os.environ.get("DAL_FLIGHT_RING", "")
+        if raw.strip():
+            try:
+                capacity = int(raw)
+            except ValueError:
+                raise ValueError(f"DAL_FLIGHT_RING={raw!r} is not an integer") from None
+        else:
+            capacity = _DEFAULT_FLIGHT_RING
+    if capacity <= 0:
+        raise ValueError(f"flight ring capacity must be positive, got {capacity}")
+    return int(capacity)
+
+
+def install_flight_recorder(path: Optional[str], signals: bool = True,
+                            capacity: Optional[int] = None) -> FlightRecorder:
     """Install the process-wide flight recorder (replacing any previous
-    one). With ``signals=True`` also arm the dump triggers: SIGUSR1 dumps
+    one), its ring :func:`flight_ring_capacity` events long. With ``signals=True`` also arm the dump triggers: SIGUSR1 dumps
     and keeps running; SIGTERM dumps, then chains to the previous handler;
     ``sys.excepthook`` dumps on an unhandled crash, then chains. A handler
     only writes the ring's host-side dicts: it never touches the device."""
@@ -551,7 +637,7 @@ def install_flight_recorder(path: Optional[str], signals: bool = True) -> Flight
     import sys
 
     global _FLIGHT_RECORDER
-    rec = FlightRecorder(path)
+    rec = FlightRecorder(path, flight_ring_capacity(capacity))
     _FLIGHT_RECORDER = rec
     if not signals:
         return rec

@@ -268,6 +268,48 @@ def test_bench_modes_print_one_json_line(tmp_path):
     assert rc == 0 and gr["baseline_skipped"] == {"reason": "no_baseline_flag"}
     assert "grid_speedup" not in gr
     _cli_on_a_file_and_plots(tmp_path)
+    _serve_modes()
+
+
+# The keys of the JAX bench's serve and serve-multi lines (bench.py).
+_JAX_SERVE_KEYS = (
+    "serve_qps", "serve_queries", "serve_p50_ms", "serve_p99_ms", "serve_scores_per_sec",
+    "ingest_points_per_sec", "serve_warmup_seconds", "recompiles_after_warmup", "refits",
+    "refit_rounds", "refit_reasons", "slab_growths", "slab_capacity", "pool_fill",
+    "pool_labeled")
+_JAX_SERVE_MULTI_KEYS = (
+    "serve_multi_qps", "serve_multi_tenants", "serve_multi_queries", "serve_multi_p50_ms",
+    "serve_multi_p99_ms", "serve_multi_tenant_p50_ms", "serve_multi_tenant_p99_ms",
+    "serve_multi_worst_tenant_p99_ms", "serve_multi_scores_per_sec",
+    "serve_multi_ingest_points_per_sec", "serve_multi_warmup_seconds",
+    "serve_multi_batched_score_launches", "serve_multi_batched_refit_launches",
+    "serve_multi_score_fallback_reasons", "serve_multi_refits", "serve_multi_refit_rounds",
+    "serve_multi_slab_growths", "serve_multi_growths_precompiled", "serve_multi_precompiles",
+    "serve_multi_precompile_errors", "recompiles_after_warmup",
+    "serve_multi_recompiles_after_warmup", "serve_multi_growth_compile_events",
+    "serve_multi_admission_rejections", "serve_multi_ingest_failures", "slo_compliance",
+    "serve_multi_slo_per_tenant", "ops_scrapes", "ops_port", "serve_multi_tenant_summaries")
+
+
+def _serve_modes():
+    """``--mode serve`` and ``--mode serve-multi`` at CPU smoke sizes: the
+    JAX bench's keys, the gates, and ``serve-fleet`` refused by name."""
+    small = ["--device", "cpu", "--trees", "4"]
+    rc, sv = _line(["--mode", "serve", *small, "--serve-queries", "60", "--serve-pool", "200"])
+    assert rc == 0 and sv["metric"] == "serve_qps" and sv["value"] > 0, sv
+    assert set(_JAX_SERVE_KEYS) <= set(sv) and sv["serve_queries"] == 60
+    assert sv["recompiles_after_warmup"] == 0 and "entropy_shift" in sv["refit_reasons"]
+    assert sv["slab_growths"] >= 1 and sv["refit_chunk_seconds_per_round"] > 0
+    rc, sm = _line(["--mode", "serve-multi", *small, "--serve-queries", "160",
+                    "--serve-pool", "900"])
+    assert rc == 0 and sm["metric"] == "serve_multi_qps" and set(_JAX_SERVE_MULTI_KEYS) <= set(sm)
+    assert sm["serve_multi_tenants"] == 4 and sm["serve_multi_kernel"] == "gemm"
+    assert sm["serve_multi_recompiles_after_warmup"] == 0
+    assert sm["serve_multi_growth_compile_events"] == 0
+    assert sm["serve_multi_growths_precompiled"] >= 1 and sm["slo_compliance"] == 1.0
+    assert sm["serve_multi_score_fallback_reasons"] == {} and sm["ops_scrapes"] >= 1
+    rc, fl = _line(["--mode", "serve-fleet", "--device", "cpu"])
+    assert rc == 1 and "fleet remainder" in fl["error"]
 
 
 def _cli_on_a_file_and_plots(tmp_path):

@@ -385,11 +385,17 @@ def test_variant_kernels_match_plain(cuda):
 
 def test_chunked_graph_matches_per_round(cuda):
     """The chunked driver on the card (one CUDA graph per chunk, replayed)
-    against the per-round driver there and the eager chunk on the CPU."""
+    against the per-round driver there and the eager chunk on the CPU; and
+    a graphed chunk refuses a replay whose carry holds another tensor
+    outside its carry fields (the pool's ``x``, ``oracle_y``, ``n_filled``,
+    which the graph reads where they lay at its capture), while the same
+    tensors written in place replay."""
     import dataclasses
 
     from distributed_active_learning_tpu_torch import config
     from distributed_active_learning_tpu_torch.runtime import loop
+    from distributed_active_learning_tpu_torch.runtime import state as state_lib
+    from distributed_active_learning_tpu_torch.strategies import StrategyAux, get_strategy
 
     base = config.ExperimentConfig(
         data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
@@ -407,6 +413,30 @@ def test_chunked_graph_matches_per_round(cuda):
             assert got.graph_stats["captures"] == 1 and got.graph_stats["replays"] == 2
             on_cpu = loop.run_experiment(c, device="cpu")
             assert on_cpu.to_reference_log() == got.to_reference_log()
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(256, 4)).astype(np.float32)).to(cuda)
+    y = (x[:, 0] > 0).to(torch.int32)
+    b = trees_train.make_bins(x, 8)
+    fc = config.ExperimentConfig(forest=config.ForestConfig(n_trees=4, max_depth=3, max_bins=8,
+                                                            fit="device", kernel="pallas"))
+    body = loop.make_chunk_fn(get_strategy(config.StrategyConfig(window_size=4)), 4, 2,
+                              loop.make_device_fit(fc, b.edges, 64), label_cap=256)
+    mask = torch.zeros(256, dtype=torch.bool, device=cuda)
+    mask[:8] = True
+    carry = state_lib.PoolState(x=x, oracle_y=y, labeled_mask=mask, key=prng.key(1, cuda),
+                                round=torch.zeros((), dtype=torch.int32, device=cuda),
+                                n_filled=torch.full((), 200, dtype=torch.int32, device=cuda))
+    end = torch.full((), 10, dtype=torch.int32, device=cuda)
+    fit_key = prng.key(2, cuda)
+    graphed = loop.GraphedChunk(body)
+    out, _, ys = graphed(b.codes, carry, StrategyAux(), fit_key, x, y, end)
+    x.mul_(1.0)  # an in-place write keeps the tensor: the replay reads it
+    carry.n_filled.add_(8)
+    out, _, ys = graphed(b.codes, out, StrategyAux(), fit_key, x, y, end)
+    assert int(ys[4].sum()) == 2
+    with pytest.raises(ValueError, match=r"carry tensors .* \['x'\]"):
+        graphed(b.codes, out.replace(x=x.clone()), StrategyAux(), fit_key, x, y, end)
 
 
 def test_metrics_chunk_and_resume_on_the_card(cuda, tmp_path):
@@ -902,3 +932,102 @@ def test_neural_path_on_the_card(cuda):
                                   torch.as_tensor(y).to(d), m, prng.key(4, d))
             probs.append(lr_d.predict_proba(st, torch.as_tensor(x).to(d)).cpu())
         assert float(((probs[0] - probs[1]).abs() / probs[1].abs()).max()) < NEURAL_TRAIN_RTOL
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The streaming service on the card (K1 at the score width, the
+    re-fit chunk as one graph a capacity, captured ahead by the precompile
+    worker) against the same service on the CPU: a small pallas service's
+    scores, summary, mask, key and records bit-equal through a stream that
+    crosses slab growths, and its checkpoint resuming on the other device;
+    three gemm tenants' grouped scores and batched re-fit bit-equal, a
+    growth that swaps in a precompiled graph, at most two chunk graphs a
+    tenant, no capture on the request path after warmup."""
+    import os
+    import shutil
+
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.serving.service import ALService
+    from distributed_active_learning_tpu_torch.serving.tenants import TenantManager
+
+    def points(n, seed, shift=0.0):
+        r = np.random.default_rng(seed)
+        x = r.normal(size=(n, 4)).astype(np.float32) + shift
+        return x, (x[:, 0] + 0.3 * x[:, 1] > shift).astype(np.int32)
+
+    def cfgs(kernel, seed=0, **kw):
+        cfg = config.ExperimentConfig(
+            forest=config.ForestConfig(n_trees=6, max_depth=3, max_bins=8, fit="device",
+                                       fit_budget=64, kernel=kernel),
+            strategy=config.StrategyConfig(window_size=4), n_start=6, log_every=0, seed=seed)
+        return cfg, config.ServeConfig(**{**dict(
+            slab_rows=64, ingest_block=16, score_width=16, refit_rounds=2,
+            drift_entropy_shift=0.2, drift_min_fresh=8, max_staleness=5, refit_poll_events=1),
+            **kw})
+
+    x0, y0 = points(48, 0)
+    tx, ty = points(32, 1)
+    runs = []
+    for dev in (cuda, "cpu"):
+        cfg, serve = cfgs("pallas")
+        ck = str(tmp_path / f"ck_{len(runs)}")
+        svc = ALService(cfg, serve, x0, y0, tx, ty, checkpoint_dir=ck, device=dev)
+        rng = np.random.default_rng(2)
+        sx, sy = points(192, 3, 2.0)
+        scores = []
+        for i in range(20):
+            if i % 3 == 0:
+                svc.submit(sx[16 * (i // 3): 16 * (i // 3 + 1)], sy[16 * (i // 3): 16 * (i // 3 + 1)])
+            scores.append(svc.score(tx[rng.integers(0, 32, size=8)]))
+        svc.flush()
+        svc.save_checkpoint()
+        runs.append((svc, scores, ck))
+    (gs, g_scores, g_ck), (cs, c_scores, c_ck) = runs
+    for a, b in zip(g_scores, c_scores, strict=True):
+        np.testing.assert_array_equal(a, b)
+    assert gs.summary() == cs.summary() and gs.summary()["slab_growths"] >= 2
+    assert torch.equal(gs._slab.labeled_mask.cpu(), cs._slab.labeled_mask)
+    assert torch.equal(gs._tenant._key.cpu(), cs._tenant._key)
+    assert gs.result.to_reference_log() == cs.result.to_reference_log()
+    assert gs.manager.live_graphs()["default"] <= 2
+    q = points(16, 77)[0]
+    for src, ref, dev in ((g_ck, cs, "cpu"), (c_ck, gs, cuda)):
+        dst = str(tmp_path / f"x_{os.path.basename(src)}")
+        shutil.copytree(src, dst)
+        cfg, serve = cfgs("pallas")
+        other = ALService(cfg, serve, x0, y0, tx, ty, checkpoint_dir=dst, device=dev)
+        np.testing.assert_array_equal(other.score(q), ref.score(q))
+        other.manager.close()
+    gs.manager.close()
+
+    mgrs = []
+    for dev in (cuda, "cpu"):
+        mgr = TenantManager(device=dev)
+        for i in range(3):
+            cfg, serve = cfgs("gemm", seed=i, max_staleness=0, drift_entropy_shift=99.0)
+            mgr.add_tenant(f"t{i}", cfg, serve, *points(40, 10 + i, 0.3 * i),
+                           *points(24, 50 + i, 0.3 * i))
+        out = [mgr.score_many({f"t{i}": points(10, 90 + i)[0] for i in range(3)})]
+        for i in range(3):
+            mgr.submit(f"t{i}", *points(16, 70 + i, 0.3 * i))
+        assert mgr.refit_now("test") == 3 and mgr.batched_refit_launches == 1
+        mgr.flush()
+        assert mgr.wait_precompiles(timeout=300)
+        mgr.mark_warmup_complete()
+        mgr.submit("t0", *points(64, 200))
+        out.append(mgr.score_many({f"t{i}": points(8, 120 + i)[0] for i in range(3)}))
+        s = mgr.summary()
+        assert s["recompiles_after_warmup"] == 0 and s["post_warmup_growth_compile_events"] == 0
+        assert s["per_tenant"]["t0"]["growths_precompiled"] == s["per_tenant"]["t0"]["slab_growths"] >= 1
+        assert all(n <= 2 for tid, n in mgr.live_graphs().items() if tid != "_batched")
+        mgrs.append((mgr, out))
+    (gm, g_out), (cm, c_out) = mgrs
+    for a, b in zip(g_out, c_out, strict=True):
+        for tid in a:
+            np.testing.assert_array_equal(a[tid], b[tid])
+    for tid in gm.tenant_ids:
+        assert torch.equal(gm.tenant(tid)._slab.labeled_mask.cpu(),
+                           cm.tenant(tid)._slab.labeled_mask)
+    assert gm.tenant("t0").program_stats()  # the captured graphs' counts
+    for mgr, _ in mgrs:
+        mgr.close()

@@ -50,6 +50,21 @@ def test_checkerboard2x2_bundle_bit_identical(tmp_path):
             _bits_equal(getattr(a, field), getattr(b, field))
     _registry_matches_jax(tmp_path)
     _loader_matches_jax(tmp_path)
+    _start_masks_match_jax()
+
+
+def _start_masks_match_jax():
+    """The start state's labeled mask and carried key, at two seeds."""
+    b = t_get_dataset(TDataConfig(name="checkerboard2x2", n_samples=300, seed=1))
+    for seed, n_start in ((0, 10), (3, 57)):
+        sj = j_state.set_start_state(
+            j_state.init_pool_state(b.train_x, b.train_y, jax.random.key(seed)), n_start)
+        st = t_state.set_start_state(
+            t_state.init_pool_state(b.train_x, b.train_y, prng.key(seed), "cpu"), n_start)
+        np.testing.assert_array_equal(np.asarray(sj.labeled_mask), st.labeled_mask.numpy())
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.key_data(sj.key)).astype(np.int64), st.key.numpy())
+        assert int(st.labeled_mask.sum()) == n_start
 
 
 def _write_rows(path, rows):
@@ -220,19 +235,6 @@ def test_make_bins_edges_and_codes_bit_identical():
 
 def _bf16_bits(t):
     return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
-
-
-def test_set_start_state_masks_identical():
-    b = t_get_dataset(TDataConfig(name="checkerboard2x2", n_samples=300, seed=1))
-    for seed, n_start in ((0, 10), (3, 57)):
-        sj = j_state.set_start_state(
-            j_state.init_pool_state(b.train_x, b.train_y, jax.random.key(seed)), n_start)
-        st = t_state.set_start_state(
-            t_state.init_pool_state(b.train_x, b.train_y, prng.key(seed), "cpu"), n_start)
-        np.testing.assert_array_equal(np.asarray(sj.labeled_mask), st.labeled_mask.numpy())
-        np.testing.assert_array_equal(
-            np.asarray(jax.random.key_data(sj.key)).astype(np.int64), st.key.numpy())
-        assert int(st.labeled_mask.sum()) == n_start
 
 
 def test_fit_forest_device_bit_identical():

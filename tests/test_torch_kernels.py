@@ -64,14 +64,19 @@ def _forest(n_trees, depth, seed, n_fit=400, d=5):
     return gf, interop.gemm_forest_from_numpy(*arrays), rng
 
 
-@pytest.mark.parametrize("n_trees,n", [
-    (10, 300), (13, 1700),
-    pytest.param(10, 1700, marks=pytest.mark.slow),
-    pytest.param(13, 300, marks=pytest.mark.slow),
-])
-def test_k1_plain_matches_pallas_interpret(n_trees, n):
+@pytest.mark.parametrize("cases", [
+    [(10, 300), (13, 1700)],
+    pytest.param([(10, 1700), (13, 300)], marks=pytest.mark.slow),
+], ids=["fast", "slow"])
+def test_k1_plain_matches_pallas_interpret(cases):
     # 13 trees: not a multiple of the TPU kernel's 8-tree block; n = 1700:
-    # above the 1536-row switch to its 2048-row tile.
+    # above the 1536-row switch to its 2048-row tile. The (trees, rows)
+    # cases run in a loop, one test item a case list.
+    for n_trees, n in cases:
+        _check_k1_plain_matches_pallas_interpret(n_trees, n)
+
+
+def _check_k1_plain_matches_pallas_interpret(n_trees, n):
     gf, tf, rng = _forest(n_trees, 4, seed=n_trees)
     x = rng.normal(size=(n, 5)).astype(np.float32)
     want = np.asarray(j_pallas.predict_leaves_pallas(gf, jnp.asarray(x), interpret=True))

@@ -435,6 +435,33 @@ for extra in (["--sweep-seeds", "2"], ["--strategies", "uncertainty,margin"],
     assert run.main(small + ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "2",
                              *extra]) == 0, extra
 assert "sklearn" in sys.modules  # the host fit ran
+# The streaming service's CLI, as `python -m ...serving --device cpu`: a
+# short stream, saved and resumed from its checkpoint; without a card and
+# without --device cpu it refuses to start.
+serve_argv = ["serving", "--device", "cpu", "--queries", "12", "--slab-rows", "64",
+              "--ingest-block", "16", "--score-width", "16", "--refit-rounds", "2",
+              "--max-staleness", "5", "--trees", "4", "--window", "4",
+              "--checkpoint-dir", os.path.join(tmp, "serve_ckpt")]
+lines = []
+for _ in range(2):
+    served = io.StringIO()
+    with contextlib.redirect_stdout(served):
+        sys.argv = serve_argv
+        try:
+            runpy.run_module("distributed_active_learning_tpu_torch.serving", run_name="__main__")
+        except SystemExit as e:
+            assert not e.code, e.code
+    lines.append(json.loads(served.getvalue().splitlines()[-1]))
+assert lines[0]["queries"] == 12 and lines[0]["recompiles_after_warmup"] == 0, lines
+assert lines[1]["fill"] > lines[0]["fill"], lines  # resumed, then ingested more
+from distributed_active_learning_tpu_torch.serving import __main__ as serving_cli
+try:
+    serving_cli.main(serve_argv[3:])
+except RuntimeError as e:
+    assert "no CUDA device" in str(e), e
+    print("SERVED", lines[0]["refits"], lines[1]["fill"])
+else:
+    raise AssertionError("the serving CLI started without a card and without --device cpu")
 try:
     run.main(small + ["--fit", "host", "--kernel", "pallas", "--mesh-data", "2"])
 except NotImplementedError as e:
@@ -451,13 +478,14 @@ print("ISOLATED")
 def test_port_runs_without_jax_in_a_fresh_interpreter():
     """The CLI's paths (fused, mesh, chunked, host fit, deep gather form,
     density, int8 storage, lal, a 2-seed sweep, a 2-cell grid, a noisy
-    oracle and a 2-scenario x 2-seed grid) run in a fresh interpreter, and
-    neither the port nor scikit-learn pulls in JAX or the JAX package."""
+    oracle and a 2-scenario x 2-seed grid) and the streaming service's CLI
+    (a stream, and its resume) run in a fresh interpreter, and neither the
+    port nor scikit-learn pulls in JAX or the JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert "ISOLATED" in out.stdout
+    assert "ISOLATED" in out.stdout and "SERVED" in out.stdout
     assert out.stdout.count("Iteration") == 36
     assert out.stdout.count("# sweep seed") == 2 and out.stdout.count("# grid cell") == 6
     assert out.stdout.count("# grid cell uncertainty/checkerboard2x2/drift/seed") == 2

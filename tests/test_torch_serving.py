@@ -1,0 +1,316 @@
+"""The port's streaming service (``distributed_active_learning_tpu_torch/
+serving/``) against the JAX package's, on the CPU, with the same inputs.
+
+- ``ALService``: the JAX serving test's small service (re-fit touchdown at
+  the first poll on both sides, ``refit_poll_events=1``, so both packages
+  see the same resident forest at every query) through one 14-query stream
+  that crosses a slab growth: every query's scores, the refit reasons, fill,
+  labeled count, capacity, growths, final mask, key and records are
+  bit-equal, RoundMetrics within ``telemetry.POOL_ENTROPY_RTOL``, for
+  ``kernel="gemm"`` and ``kernel="pallas"`` (JAX's Pallas kernel on the CPU,
+  K1's plain version in the port). A serve checkpoint written by either
+  package resumes in the other with bit-equal scores; a host fit, an
+  oversized arrival and another service's checkpoint are refused.
+- ``TenantManager`` and ``ServiceFrontend``: three tenants, grouped scores
+  equal to JAX's and to the single endpoint's, the tenant-axis batched
+  re-fit's masks and keys equal to JAX's and to independent services', a
+  warmup growth without a precompiled set counted at the first query after
+  warmup in both packages, a growth that swaps in a precompiled program set
+  with no capture on the request path, the frontend's admission refusal and the cross-wired
+  tenant checkpoint refusal.
+"""
+
+import dataclasses
+import os
+import shutil
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distributed_active_learning_tpu import config as j_config
+from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
+from distributed_active_learning_tpu.serving import drift as j_drift
+from distributed_active_learning_tpu.serving.service import ALService as JALService
+from distributed_active_learning_tpu.serving.tenants import TenantManager as JTenantManager
+from distributed_active_learning_tpu_torch import config as t_config
+from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
+from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
+from distributed_active_learning_tpu_torch.serving import drift as t_drift
+from distributed_active_learning_tpu_torch.serving import slab as t_slab
+from distributed_active_learning_tpu_torch.serving.frontend import AdmissionError, ServiceFrontend
+from distributed_active_learning_tpu_torch.serving.service import ALService as TALService
+from distributed_active_learning_tpu_torch.serving.tenants import TenantManager as TTenantManager
+
+
+def _points(n, d=4, seed=0, shift=0.0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32) + shift
+    y = (x[:, 0] + 0.3 * x[:, 1] > shift).astype(np.int32)
+    return x, y
+
+
+def _cfgs(pkg, kernel="gemm", seed=0, strategy="uncertainty", **serve_kw):
+    """The JAX serving test's ``_service_cfg`` in ``pkg``'s config classes,
+    with the touchdown at the first poll."""
+    cfg = pkg.ExperimentConfig(
+        forest=pkg.ForestConfig(n_trees=6, max_depth=3, max_bins=8, fit="device", fit_budget=64,
+                                kernel=kernel),
+        strategy=pkg.StrategyConfig(name=strategy, window_size=4),
+        n_start=6, log_every=0, seed=seed)
+    serve = pkg.ServeConfig(**{**dict(
+        slab_rows=64, ingest_block=16, score_width=16, refit_rounds=2, drift_entropy_shift=0.2,
+        drift_min_fresh=8, max_staleness=5, refit_poll_events=1), **serve_kw})
+    return cfg, serve
+
+
+def _drive(svc, tx):
+    """The JAX serving test's stream: 14 queries, a 16-row block of the
+    shifted stream every third, across the 64-row slab boundaries."""
+    rng = np.random.default_rng(2)
+    sx, sy = _points(128, seed=3, shift=2.0)
+    pos, scores = 0, []
+    for i in range(14):
+        if i % 3 == 0 and pos < sx.shape[0]:
+            svc.submit(sx[pos: pos + 16], sy[pos: pos + 16])
+            pos += 16
+        scores.append(svc.score(tx[rng.integers(0, 32, size=8)]))
+    svc.flush()
+    return scores
+
+
+def _records(result):
+    return [(r.round, r.n_labeled, r.n_unlabeled, np.float32(r.accuracy)) for r in result.records]
+
+
+def _assert_metrics_close(a, b):
+    for ra, rb in zip(a.records, b.records, strict=True):
+        assert ra.metrics.keys() == rb.metrics.keys()
+        for k in ra.metrics:
+            np.testing.assert_allclose(ra.metrics[k], rb.metrics[k],
+                                       rtol=t_telemetry.POOL_ENTROPY_RTOL, err_msg=k)
+
+
+def test_service_matches_jax(tmp_path):
+    x0, y0 = _points(48, seed=0)
+    tx, ty = _points(32, seed=1)
+    for kernel in ("gemm", "pallas"):
+        jcfg, jserve = _cfgs(j_config, kernel)
+        tcfg, tserve = _cfgs(t_config, kernel)
+        jdir, tdir = str(tmp_path / f"j_{kernel}"), str(tmp_path / f"t_{kernel}")
+        js = JALService(jcfg, jserve, x0, y0, tx, ty, checkpoint_dir=jdir)
+        ts = TALService(tcfg, tserve, x0, y0, tx, ty, checkpoint_dir=tdir, device="cpu")
+        j_scores, t_scores = _drive(js, tx), _drive(ts, tx)
+        for a, b in zip(j_scores, t_scores, strict=True):
+            np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32), kernel)
+        js_sum, ts_sum = js.summary(), ts.summary()
+        assert js_sum == ts_sum, kernel  # the key set and every count
+        assert ts_sum["slab_growths"] >= 1 and ts_sum["refits"] >= 1
+        assert ts_sum["recompiles_after_warmup"] == 0
+        np.testing.assert_array_equal(np.asarray(js._slab.labeled_mask),
+                                      ts._slab.labeled_mask.numpy())
+        np.testing.assert_array_equal(np.asarray(jax.random.key_data(js._tenant._key)),
+                                      ts._tenant._key.numpy().astype(np.uint32))
+        assert _records(js.result) == _records(ts.result)
+        _assert_metrics_close(js.result, ts.result)
+
+        # Checkpoints across the packages, both ways: a JAX-written file
+        # resumes in the port and a port-written one in JAX, scoring alike.
+        js.save_checkpoint()
+        ts.save_checkpoint()
+        q = _points(16, seed=77)[0]
+        for src, ref in ((jdir, js), (tdir, ts)):
+            dst = str(tmp_path / f"x_{kernel}_{os.path.basename(src)}")
+            shutil.copytree(src, dst)
+            if src == jdir:
+                other = TALService(tcfg, tserve, x0, y0, tx, ty, checkpoint_dir=dst, device="cpu")
+            else:
+                other = JALService(jcfg, jserve, x0, y0, tx, ty, checkpoint_dir=dst)
+            assert (other._fill, other._labeled) == (ref._fill, ref._labeled)
+            np.testing.assert_array_equal(np.asarray(other.score(q)), np.asarray(ref.score(q)))
+        ts.manager.close()
+
+    # The refusals: a host fit, an arrival wider than the ingest block, and
+    # a checkpoint of another service.
+    with pytest.raises(ValueError, match="fit='device'"):
+        TALService(dataclasses.replace(tcfg, forest=dataclasses.replace(tcfg.forest, fit="host")),
+                   tserve, x0, y0, tx, ty, device="cpu")
+    with pytest.raises(ValueError, match="exceeds ingest block"):
+        t_slab.pad_block(*_points(17), 16)
+    other_cfg = dataclasses.replace(tcfg, strategy=dataclasses.replace(tcfg.strategy,
+                                                                       window_size=5))
+    with pytest.raises(ValueError, match="refusing to resume a different service"):
+        TALService(other_cfg, tserve, x0, y0, tx, ty, checkpoint_dir=tdir, device="cpu")
+
+    # The slab writes arrivals in place: a chunk graph captured on its
+    # tensors reads them at the next replay.
+    ts = TALService(tcfg, dataclasses.replace(tserve, max_staleness=0), x0, y0, tx, ty,
+                    device="cpu")
+    slab = ts._slab
+    ptrs = [t.data_ptr() for t in (slab.x, slab.codes, slab.oracle_y, slab.n_filled)]
+    ts.submit(*_points(16, seed=9))
+    assert [t.data_ptr() for t in (ts._slab.x, ts._slab.codes, ts._slab.oracle_y,
+                                   ts._slab.n_filled)] == ptrs
+    assert int(ts._slab.n_filled) == 64 and ts._fill == 64
+    ts.manager.close()
+
+    # The drift monitor is the JAX package's (pure Python, copied).
+    for mon in (j_drift.DriftMonitor(entropy_shift=0.2, min_fresh=10, max_staleness=3, ema=0.5),
+                t_drift.DriftMonitor(entropy_shift=0.2, min_fresh=10, max_staleness=3, ema=0.5)):
+        mon.observe_chunk([{"pool_entropy": 1.0, "score_margin": 0.5}])
+        seen = []
+        for ent, fresh in ((2.0, 0), (2.0, 10), (1.1, 0), (1.0, 5), (1.0, 5)):
+            mon.observe_serve(ent)
+            mon.observe_ingest(fresh)
+            seen.append(mon.should_refit())
+        mon.observe_chunk([{"pool_entropy": 1.0, "score_margin": 0.05}])
+        mon.observe_ingest(10)
+        seen.append(mon.should_refit())
+        if isinstance(mon, j_drift.DriftMonitor):
+            want = seen
+    assert seen == want and "entropy_shift" in seen and "margin_shift" in seen
+
+
+T = 3
+
+
+def _tenant_cfgs(pkg, i):
+    return _cfgs(pkg, seed=i, max_staleness=0, drift_entropy_shift=99.0, refit_poll_events=1,
+                 slo_latency_ms=60_000.0, slo_target=0.9)
+
+
+def _tenant_data(i):
+    x0, y0 = _points(40, seed=10 + i, shift=0.3 * i)
+    tx, ty = _points(24, seed=50 + i, shift=0.3 * i)
+    return x0, y0, tx, ty
+
+
+def test_tenants_and_frontend_match_jax(tmp_path):
+    jmgr = JTenantManager()
+    tmgr = TTenantManager(checkpoint_dir=str(tmp_path / "ck"), device="cpu")
+    svcs = []
+    for i in range(T):
+        jcfg, jserve = _tenant_cfgs(j_config, i)
+        tcfg, tserve = _tenant_cfgs(t_config, i)
+        # the JAX manager's ahead-of-time compiles change no result; off, to
+        # keep the test short
+        jmgr.add_tenant(f"t{i}", jcfg, dataclasses.replace(jserve, precompile_ahead=False),
+                        *_tenant_data(i))
+        tmgr.add_tenant(f"t{i}", tcfg, tserve, *_tenant_data(i))
+        svcs.append(TALService(tcfg, tserve, *_tenant_data(i), device="cpu"))
+    try:
+        # grouped scores == JAX's == the single endpoint's
+        q1 = {f"t{i}": _points(10, seed=90 + i)[0] for i in range(T)}
+        j_b, t_b = jmgr.score_many(q1), tmgr.score_many(q1)
+        for i, tid in enumerate(q1):
+            np.testing.assert_array_equal(np.asarray(j_b[tid]), t_b[tid])
+            np.testing.assert_array_equal(t_b[tid], svcs[i].score(q1[tid]))
+        assert tmgr.batched_score_launches >= 1 and tmgr.score_fallback_reasons == {}
+        assert tmgr.score_groups() == [["t0", "t1", "t2"]]
+
+        # one tenant-axis batched re-fit == JAX's == three independent ones
+        for i in range(T):
+            sx, sy = _points(16, seed=70 + i, shift=0.3 * i)
+            jmgr.submit(f"t{i}", sx, sy)
+            tmgr.submit(f"t{i}", sx, sy)
+            svcs[i].submit(sx, sy)
+        assert jmgr.refit_now("test") == tmgr.refit_now("test") == T
+        assert tmgr.batched_refit_launches == 1
+        for s in svcs:
+            assert s.refit_now("test")
+        for m in (jmgr, tmgr, *svcs):
+            m.flush()
+        for i in range(T):
+            jt, tt, st = jmgr.tenant(f"t{i}"), tmgr.tenant(f"t{i}"), svcs[i]._tenant
+            mask = tt._slab.labeled_mask.numpy()
+            np.testing.assert_array_equal(np.asarray(jt._slab.labeled_mask), mask)
+            np.testing.assert_array_equal(st._slab.labeled_mask.numpy(), mask)
+            key = tt._key.numpy().astype(np.uint32)
+            np.testing.assert_array_equal(np.asarray(jax.random.key_data(jt._key)), key)
+            np.testing.assert_array_equal(st._key.numpy().astype(np.uint32), key)
+            assert jt._labeled == tt._labeled == st._labeled > 6
+            assert _records(jt.result) == _records(tt.result) == _records(st.result)
+        q2 = {f"t{i}": _points(8, seed=120 + i)[0] for i in range(T)}
+        j_b, t_b = jmgr.score_many(q2), tmgr.score_many(q2)
+        for i, tid in enumerate(q2):
+            np.testing.assert_array_equal(np.asarray(j_b[tid]), t_b[tid])
+            np.testing.assert_array_equal(t_b[tid], svcs[i].score(q2[tid]))
+
+        # a growth inside warmup that finds no precompiled set leaves its
+        # cause pending: the first query after mark_warmup_complete counts
+        # it, in both packages
+        pmgr = TTenantManager(device="cpu")
+        try:
+            tcfg, tserve = _tenant_cfgs(t_config, 0)
+            pmgr.add_tenant("t0", tcfg, dataclasses.replace(tserve, precompile_ahead=False),
+                            *_tenant_data(0))
+            gx, gy = _points(32, seed=300)
+            for m in (jmgr, pmgr):
+                m.submit("t0", gx, gy)
+                m.flush()
+                assert m.tenant("t0").stats.slab_growths == 1
+                assert m.tenant("t0").stats.growths_precompiled == 0
+                m.mark_warmup_complete()
+                assert m.post_warmup_growth_compile_events() == 0
+                m.score_many({"t0": _points(4, seed=301)[0]})
+                m.score_many({"t0": _points(4, seed=302)[0]})
+            assert jmgr.post_warmup_growth_compile_events() == 1
+            assert pmgr.post_warmup_growth_compile_events() == 1
+            assert (jmgr.tenant("t0").cause_counts["slab_growth_compile"]
+                    == pmgr.tenant("t0").cause_counts["slab_growth_compile"] == 1)
+        finally:
+            pmgr.close()
+
+        # growth swaps in the precompiled set: no capture or build on the
+        # request path after warmup
+        assert tmgr.wait_precompiles(timeout=120)
+        tmgr.mark_warmup_complete()
+        t0 = tmgr.tenant("t0")
+        tmgr.submit("t0", *_points(64, seed=200))
+        tmgr.score_many({"t0": _points(6, seed=201)[0]})
+        assert t0.stats.slab_growths >= 1
+        assert t0.stats.growths_precompiled == t0.stats.slab_growths
+        assert "slab_growth_compile" not in t0.cause_counts
+        assert tmgr.post_warmup_growth_compile_events() == 0
+        assert tmgr.recompiles_after_warmup() == 0
+        assert tmgr.request_path_builds_after_warmup == 0
+        assert tmgr.precompiles >= 1 and tmgr.precompile_errors == 0
+        assert all(p.precompiled for c, p in t0._programs.items() if c > 64)
+        assert all(n <= 2 for tid, n in tmgr.live_graphs().items() if tid != "_batched")
+        s = tmgr.summary()
+        assert s["slo"]["total"] == s["queries"] and s["slo"]["compliance"] == 1.0
+
+        # the frontend: a held ingest (re-fit in flight) and a flood past the
+        # admission cap
+        tt = tmgr.tenant("t1")
+        tt._poll_refit, tt._inflight = (lambda force=False: None), object()
+        fe = ServiceFrontend(tmgr, max_pending=2).start()
+        try:
+            bx, by = _points(4, seed=400)
+            held = [fe.submit_ingest("t1", bx, by) for _ in range(2)]
+            with pytest.raises(AdmissionError, match="backpressure"):
+                fe.submit_ingest("t1", bx, by)
+            assert fe.rejected == {"t1": 1} and not any(f.done() for f in held)
+            out = fe.score("t0", _points(5, seed=401)[0], timeout=60)
+            assert out.shape == (5,) and np.isfinite(out).all()
+        finally:
+            del tt._poll_refit
+            tt._inflight = None
+            fe.stop(drain=True)
+        assert all(f.result(timeout=60)["points"] == 4 for f in held)
+
+        # the tenant axis of the checkpoint: a renamed file is refused
+        paths = tmgr.save_checkpoints()
+        step = os.path.basename(paths["t0"]).rsplit("_", 1)[1]
+        cross = tmp_path / "cross"
+        cross.mkdir()
+        shutil.copy(paths["t0"], cross / f"servestate_t9_{step}")
+        for ckpt in (t_ckpt, j_ckpt):
+            with pytest.raises(ValueError, match="cross-wire"):
+                ckpt.restore_latest_serve(str(cross), None, tenant="t9")
+    finally:
+        jmgr.close()
+        tmgr.close()
+        for s in svcs:
+            s.manager.close()
