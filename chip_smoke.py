@@ -111,7 +111,12 @@ and prints no result:
    without metrics; every metric is finite, ``picked_hist`` sums to the
    window, ``labeled_frac`` times the pool is ``n_labeled``; its metrics
    equal the per-round driver's; the JSONL holds one ``round`` event a round
-   and one ``launch`` event a chunk; K1 launches twice a round. A run
+   and one ``launch`` event a chunk; K1 launches twice a round. The same
+   run with ``stream_round_events``: the same records, mask and launches,
+   one ``round_stream`` event a round equal to the touchdown's record, every
+   event of a chunk written before its touchdown's first ``round`` event and
+   the chunk's first at least one measured chunked round-time before it
+   (``stream_leads``). A run
    stopped at 4 rounds and resumed to 8, chunked and per round from the
    chunk's checkpoint, equals the uninterrupted run (records, and the mask of
    its round-8 checkpoint). Printed: seconds per round with and without
@@ -214,6 +219,9 @@ and prints no result:
    adam (CUDA events), every K7 call of the per-round runs timed again at
    its shape beside the plain ``prng`` draw (the seconds a round of both
    forms), an MC pass timed against its FLOPs, BatchBALD's 50 picks timed;
+   one chunk (K = 2) of the CNN entropy run with ``stream_round_events``:
+   the flag-off records, its first ``round_stream`` event at least 0.5 s
+   before the chunk's touchdown;
    a 4-seed sweep of the CNN at 10,000 rows (2 rounds, K = 2, 50 steps a
    fit: the gate compares bits, which the step count leaves as they are),
    every lane equal to its serial run; a checkpoint written at round 2 by
@@ -244,6 +252,24 @@ and prints no result:
    growth precompiled, no score fallback), grouped scores == single scores
    and the batched re-fit's masks and keys == independent services' (3
    tenants), and a pallas tenant pair's named fallback and K1 launches;
+4p. the serve fleet (``serving/fleet.py``, ``fleet_phase``): (a)
+   ``bench_serve_fleet`` at the JAX bench's TPU sizes (8 gemm tenants of
+   256 x 30, 24 trees of depth 6, score width 128, 2,000 queries a leg on 1
+   then 4 spawned worker processes on the card, a concurrency-1 client
+   through the router): every query served in each leg, each worker's
+   scraped ``dal_recompiles_after_warmup_total`` 0, no shared-signature
+   fallback, nothing unroutable or rerouted, the router's ``/metrics``
+   carrying every worker and its ``/healthz`` 200; printed: qps by workers,
+   the ratio, p50/p99, warmup by leg, each worker's peak reserved MiB;
+   (b) a 4-worker fleet's scores (3 blocks of 128 a tenant) bit-equal to
+   each worker's manager built in process on the card, its score groups
+   the ring's placement; (c) a 2-worker fleet of 4 pallas tenants: each
+   worker launches K1 once a query a tenant (as the in-process manager on
+   the card counts), its fallback reasons those of the same managers on
+   the CPU, its scores the in-process ones; (d) one worker of a 2-worker
+   fleet terminated: the router's ``/healthz`` stays 200, the dead worker's
+   tenants get a 404 from the failover walk within the health timeout, the
+   other's are served;
 5. per-kernel median times at the phase-2/2b/2c/3/3b shapes beside the plain
    versions' and the bound (one call between CUDA events; for K1, K2, K3,
    K5 and K6 also the device time of the call captured in a CUDA graph and
@@ -289,7 +315,9 @@ stacked call under ``by_shape``; ``sweep`` and ``grid`` phases 4j and 4k's
 numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
 ``files`` phase 4m's numbers; K1's ``serving_by_shape`` and ``serving``
 phase 4o's numbers (the paths ``serve``, ``serve_headline`` and
-``serve_multi`` in every ``launches_by_path``); ``neural`` phase 4n's numbers (K7 ``threefry``
+``serve_multi`` in every ``launches_by_path``); ``fleet`` phase 4p's
+numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
+``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
 paths);
@@ -306,6 +334,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -676,6 +705,24 @@ def neural_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> di
     for strat in ("entropy", "density"):
         out["cnn"][strat] = pair(f"cnn_{strat}", dataclasses.replace(cfg_c, strategy=strat),
                                  cnn, bc)
+    # round_stream as each round finishes: one chunk of the CNN entropy run
+    # with the flag on writes its first event at least 0.5 s before its
+    # touchdown, with the records of the flag-off runs.
+    stream_dir = tempfile.mkdtemp(prefix="chip_smoke_4n_stream_")
+    sw = timed_writer(os.path.join(stream_dir, "stream.jsonl"))
+    streamed = nl.run_neural_experiment(
+        dataclasses.replace(cfg_c, strategy="entropy", max_rounds=NEURAL_K,
+                            rounds_per_launch=NEURAL_K, stream_round_events=True),
+        cnn, bc.train_x, bc.train_y, bc.test_x, bc.test_y, metrics=sw)
+    sw.close()
+    shutil.rmtree(stream_dir)
+    if records(streamed) != out["cnn"]["entropy"]["records"][:NEURAL_K]:
+        fail(f"neural round_stream run: records {records(streamed)} != the flag-off runs'")
+    out["cnn"]["round_stream_lead_seconds"] = stream_leads("4n", sw, streamed, NEURAL_K, 0.5)
+    print(f"# neural cnn round_stream (K = {NEURAL_K}): the first event "
+          f"{out['cnn']['round_stream_lead_seconds'][0]:.3f}s before the chunk's touchdown, "
+          f"records == the flag-off runs' ({kind}, {smi})")
+    mark("cnn_round_stream")
     # The density runs draw at the entropy runs' shapes: time those once.
     out["cnn"]["draws"] = draw_seconds(out["cnn"]["entropy"].pop("draw_calls"), NEURAL_ROUNDS)
     del out["cnn"]["density"]["draw_calls"]
@@ -831,6 +878,238 @@ def neural_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> di
     out["seconds"] = time.perf_counter() - t_phase
     print(f"# phase 4n: {out['seconds']:.1f}s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in out["split_seconds"].items()) + ")")
+    return out
+
+
+def timed_writer(path: str):
+    """A ``MetricsWriter`` that also keeps ``(kind, fields, perf_counter)``
+    of every event it writes."""
+    from distributed_active_learning_tpu_torch.runtime import telemetry
+
+    class TimedWriter(telemetry.MetricsWriter):
+        def __init__(self, p):
+            super().__init__(p)
+            self.log = []
+
+        def event(self, kind, **fields):
+            self.log.append((kind, fields, time.perf_counter()))
+            super().event(kind, **fields)
+
+    return TimedWriter(path)
+
+
+def stream_leads(label: str, writer, res, k: int, min_lead: float) -> list:
+    """The ``round_stream`` gate of a chunked run written through
+    :func:`timed_writer`: one event an active round in round order, equal
+    to the touchdown's records; every event of a chunk written before the
+    chunk's first ``round`` event (its touchdown), the chunk's first event
+    at least ``min_lead`` seconds before it. Returns each chunk's lead."""
+    stream = [(f["round"], f["n_labeled"], f["accuracy"], t) for kd, f, t in writer.log
+              if kd == "round_stream"]
+    t_round = {f["round"]: t for kd, f, t in writer.log if kd == "round"}
+    want = [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+    if [e[:3] for e in stream] != want:
+        fail(f"{label}: round_stream events {[e[:3] for e in stream]} != the records {want}")
+    t_stream = {e[0]: e[3] for e in stream}
+    first, last = want[0][0], want[-1][0]
+    leads = []
+    for c0 in range(first, last + 1, k):
+        members = range(c0, min(c0 + k - 1, last) + 1)
+        if max(t_stream[r] for r in members) > t_round[c0]:
+            fail(f"{label}: a round_stream event of the chunk from round {c0} was written after "
+                 "its touchdown")
+        leads.append(t_round[c0] - t_stream[c0])
+        if leads[-1] < min_lead:
+            fail(f"{label}: the chunk from round {c0} wrote its first round_stream event "
+                 f"{leads[-1]:.4f}s before its touchdown, want >= {min_lead:.4f}s")
+    return leads
+
+
+def fleet_phase(seed: int, dev, kind: str, smi: str) -> dict:
+    """Phase 4p: the serve fleet (see the module docstring). Returns its
+    numbers and the launches its workers counted; fails on any gate."""
+    import types
+    import urllib.error
+
+    from distributed_active_learning_tpu_torch import bench
+    from distributed_active_learning_tpu_torch.ops import trees_pallas
+    from distributed_active_learning_tpu_torch.serving import fleet as fleet_lib
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    seconds = {}
+
+    # -- (a) bench --mode serve-fleet at the JAX bench's TPU sizes -------------
+    t0 = time.perf_counter()
+    a = bench.bench_serve_fleet(types.SimpleNamespace(
+        features=N_FEAT, serve_pool=8192, serve_queries=2000, kernel="gemm", fleet_workers=4,
+        fleet_linger=0.0, ops_port=None, metrics_out=None), dev)
+    seconds["a"] = time.perf_counter() - t0
+    legs = a["serve_fleet_by_workers"]
+    bad = []
+    if a["serve_fleet_worker_counts"] != [1, 4] or a["serve_fleet_queries"] != 2000:
+        bad.append("legs or queries")
+    for n, leg in legs.items():
+        r = leg["router"]
+        if leg["served"] != 2000:
+            bad.append(f"{leg['served']} served at {n} workers")
+        if len(leg["worker_recompile_metric"]) != int(n) or any(
+                v != 0 for v in leg["worker_recompile_metric"].values()):
+            bad.append(f"scraped recompiles at {n} workers: {leg['worker_recompile_metric']}")
+        if r is None or r["unroutable"] != 0 or r["rerouted"] != 0:
+            bad.append(f"router at {n} workers: {r}")
+    if a["serve_fleet_recompiles_after_warmup"] != 0 or a["serve_fleet_shared_sig_fallbacks"]:
+        bad.append("recompiles or shared-signature fallbacks")
+    if not (a["serve_fleet_router_metrics_aggregated"] and a["serve_fleet_router_healthy"]):
+        bad.append("router /metrics or /healthz")
+    if bad:
+        fail(f"4p (a) serve-fleet gates: {bad}: {a}")
+    out["serve_fleet"] = a
+    print(f"# phase 4p (a) serve-fleet (8 tenants, {N_FEAT} features, 256-row pools, 24 trees of "
+          f"depth 6, gemm, width 128; 2,000 queries a leg, concurrency 1): qps by workers "
+          f"{a['serve_fleet_qps_by_workers']}, ratio {a['fleet_qps_scaling_ratio']}, p50 "
+          f"{a['serve_fleet_p50_ms']} ms, p99 {a['serve_fleet_p99_ms']} ms (4 workers), warmup s "
+          f"{a['serve_fleet_warmup_seconds_by_workers']}, groups {a['serve_fleet_groups']}; "
+          f"scraped recompiles 0, fallbacks 0, unroutable 0, rerouted 0 ({kind}, {smi})")
+    for n, leg in legs.items():
+        print(f"#   {n} worker(s): client p50 {leg['p50_ms']} ms; each worker's own p50/p99 ms, "
+              f"peak reserved MiB, spawn-to-ready s (context, build s): " + ", ".join(
+                  f"{wid} {w['p50_ms']}/{w['p99_ms']}, {w['peak_reserved_mib']}, "
+                  f"{w['ready_seconds']} ({w['boot_seconds']['cuda_context']}, "
+                  f"{w['boot_seconds']['build_manager']})"
+                  for wid, w in leg["workers"].items()))
+
+    def specs_of(n, kernel, features=N_FEAT, pool=256, trees=24, depth=6, width=128):
+        return [fleet_lib.TenantSpec(f"u{i}", features=features, pool_rows=pool, shift=0.4 * i,
+                                     seed=10 + i, n_trees=trees, max_depth=depth, kernel=kernel,
+                                     slab_rows=pool, score_width=width) for i in range(n)]
+
+    def queries_for(spec, n=3):
+        r = np.random.default_rng(seed + 700 + int(spec.tenant_id[1:]))
+        return [(r.normal(size=(spec.score_width, spec.features)) + spec.shift).astype(np.float32)
+                for _ in range(n)]
+
+    def in_process(fleet, device):
+        """Each worker's manager built here as the worker builds it, on
+        ``device``: ``{worker: manager}``."""
+        return {wid: fleet_lib.build_manager(fleet.specs_for(wid), device=device)
+                for wid in fleet.worker_ids}
+
+    # (b)-(d) boot together: a worker's boot is its own interpreter's work
+    # (torch, a CUDA context, its fits and captures), so the three fleets'
+    # boots overlap; each is then checked, and stopped, in turn.
+    t0 = time.perf_counter()
+    fleets = {"b": fleet_lib.Fleet(specs_of(8, "gemm"), n_workers=4, device=str(dev)),
+              "c": fleet_lib.Fleet(specs_of(4, "pallas"), n_workers=2, device=str(dev)),
+              "d": fleet_lib.Fleet(specs_of(4, "gemm", features=4, pool=64, trees=6, depth=3,
+                                            width=16), n_workers=2, device=str(dev))}
+    finals = {}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(len(fleets)) as ex:
+            for fut in [ex.submit(f.start) for f in fleets.values()]:
+                fut.result()
+        seconds["boot (b)-(d)"] = time.perf_counter() - t0
+
+        # -- (b) 4 workers == the in-process managers on the card --------------
+        t0 = time.perf_counter()
+        fleet = fleets["b"]
+        got = {s.tenant_id: [fleet.score(s.tenant_id, q) for q in queries_for(s)]
+               for s in fleet.specs}
+        finals["b"] = final = fleet.stop()
+        for wid, mgr in in_process(fleet, dev).items():
+            placed = [s.tenant_id for s in fleet.specs_for(wid)]
+            if final["workers"][wid]["score_groups"] != [placed]:
+                fail(f"4p (b): {wid}'s score groups {final['workers'][wid]['score_groups']} != "
+                     f"the ring's placement {placed}")
+            for s in fleet.specs_for(wid):
+                for q, g in zip(queries_for(s), got[s.tenant_id]):
+                    if not np.array_equal(mgr.score_many({s.tenant_id: q})[s.tenant_id], g):
+                        fail(f"4p (b): {s.tenant_id}'s fleet scores != the in-process manager's")
+            mgr.close()
+        seconds["b"] = time.perf_counter() - t0
+        print(f"# phase 4p (b) 4 workers: every tenant's fleet scores (3 blocks of 128) bit-equal "
+              f"to the in-process managers on the card; score groups == the ring's placement "
+              f"{fleet.assignment}")
+
+        # -- (c) 2 workers of 4 pallas tenants: K1 in every worker -------------
+        t0 = time.perf_counter()
+        fleet = fleets["c"]
+        got = {s.tenant_id: [fleet.score(s.tenant_id, q) for q in queries_for(s)]
+               for s in fleet.specs}
+        finals["c"] = final = fleet.stop()
+        k1_by_worker = {}
+        for device in (dev, "cpu"):
+            for wid, mgr in in_process(fleet, device).items():
+                f, mine = final["workers"][wid], fleet.specs_for(wid)
+                k1_0 = trees_pallas.launches
+                for s in mine:
+                    for q, g in zip(queries_for(s), got[s.tenant_id]):
+                        sc = mgr.score_many({s.tenant_id: q})[s.tenant_id]
+                        if device == dev and not np.array_equal(sc, g):
+                            fail(f"4p (c): {s.tenant_id}'s fleet scores != the in-process "
+                                 "manager's")
+                if device == dev:
+                    want_k1 = trees_pallas.launches - k1_0
+                    k1_by_worker[wid] = f["kernel_launches"]["forest_leaves"]
+                    if not (k1_by_worker[wid] == want_k1 == 3 * len(mine) > 0):
+                        fail(f"4p (c): {wid} launched K1 {k1_by_worker[wid]} times, the "
+                             f"in-process manager {want_k1}, want one a query a tenant "
+                             f"({3 * len(mine)})")
+                elif f["score_fallback_reasons"] != dict(mgr.score_fallback_reasons) or set(
+                        f["score_fallback_reasons"]) != {"kernel"}:
+                    fail(f"4p (c): {wid}'s fallback reasons {f['score_fallback_reasons']} != the "
+                         f"CPU run's {dict(mgr.score_fallback_reasons)}")
+                mgr.close()
+        out["launches"]["serve_fleet_pallas"] = {
+            name: sum(f["kernel_launches"][name] for f in final["workers"].values())
+            for name in next(iter(final["workers"].values()))["kernel_launches"]}
+        out["pallas_fleet"] = dict(k1_by_worker=k1_by_worker, fallback_reasons={
+            wid: f["score_fallback_reasons"] for wid, f in final["workers"].items()})
+        seconds["c"] = time.perf_counter() - t0
+        print(f"# phase 4p (c) 2 workers of 4 pallas tenants: K1 launches by worker "
+              f"{k1_by_worker} (one a query a tenant, as in process), fallback reasons "
+              f"{out['pallas_fleet']['fallback_reasons']} == the CPU run's, scores == in process")
+
+        # -- (d) one worker of two terminated: the failover walk answers -------
+        t0 = time.perf_counter()
+        fleet = fleets["d"]
+        for s in fleet.specs:
+            fleet.score(s.tenant_id, queries_for(s, 1)[0])
+        dead = fleet.assignment[fleet.specs[0].tenant_id]
+        fleet._procs[dead].terminate()
+        fleet._procs[dead].join(timeout=30)
+        answers = {}
+        for s in fleet.specs:
+            t1 = time.perf_counter()
+            try:
+                fleet.score(s.tenant_id, queries_for(s, 1)[0])
+                answers[s.tenant_id] = 200
+            except urllib.error.HTTPError as e:
+                answers[s.tenant_id] = e.code
+            wait = time.perf_counter() - t1
+            if wait > fleet_lib._HEALTH_TIMEOUT:
+                fail(f"4p (d): {s.tenant_id} took {wait:.2f}s after the kill")
+        with urllib.request.urlopen(f"http://127.0.0.1:{fleet.router_port}/healthz",
+                                    timeout=10) as r:
+            health = (r.status, json.loads(r.read()))
+        finals["d"] = final = fleet.stop()
+    finally:
+        for k, f in fleets.items():
+            if k not in finals:
+                f.stop()
+    want = {s.tenant_id: 404 if fleet.assignment[s.tenant_id] == dead else 200
+            for s in fleet.specs}
+    if answers != want or health[0] != 200 or health[1]["workers"][dead]:
+        fail(f"4p (d): answers {answers} (want {want}), /healthz {health}")
+    out["failover"] = dict(dead=dead, answers=answers, healthz=health[1],
+                           router=final["router"])
+    seconds["d"] = time.perf_counter() - t0
+    print(f"# phase 4p (d) {dead} of 2 terminated: answers {answers} (its tenants 404 from the "
+          f"failover walk, each within {fleet_lib._HEALTH_TIMEOUT:.0f}s), router /healthz "
+          f"{health[0]} {health[1]['workers']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["split_seconds"] = seconds
+    print(f"# phase 4p: {out['seconds']:.1f}s ({', '.join(f'({k}) {v:.1f}' for k, v in seconds.items())})")
     return out
 
 
@@ -2060,6 +2339,27 @@ def main() -> int:
     # Seconds per round, rounds 5-12 (as phase 4c): metrics on against off.
     tel_times = {name: sum(r.total_time for r in res.records[K:]) / (TIMED - K)
                  for name, res in (("metrics_on", on), ("metrics_off", off))}
+    # round_stream as each round finishes: the metrics-on run again with the
+    # flag on picks the same and launches the same; every chunk's events are
+    # written before its touchdown, the first one a measured round-time or
+    # more before it.
+    sw = timed_writer(os.path.join(work, "stream.jsonl"))
+    streamed = run_4f("metrics_streamed", tel_cfg(max_rounds=TIMED, stream_round_events=True),
+                      metrics=sw)
+    sw.close()
+    if rec4(streamed) != rec4(on) or not torch.equal(streamed.final_labeled_mask,
+                                                     on.final_labeled_mask):
+        fail("round_stream changed a pick: the streamed run's records or final mask differ")
+    if launches["metrics_streamed"] != launches["metrics_chunked"]:
+        fail(f"the streamed run launched {launches['metrics_streamed']}, the same run without "
+             f"the flag {launches['metrics_chunked']}")
+    stream_lead = stream_leads("4f", sw, streamed, K, tel_times["metrics_on"])
+    tel_times["metrics_streamed"] = sum(r.total_time for r in streamed.records[K:]) / (TIMED - K)
+    print(f"# round_stream (K = {K}, depth 2, {TIMED} rounds): every event before its chunk's "
+          f"touchdown, the first of each chunk {', '.join(f'{v:.4f}' for v in stream_lead)}s "
+          f"before it (a round: {tel_times['metrics_on']:.5f}s); launches and records == the "
+          f"flag-off run; s/round streamed {tel_times['metrics_streamed']:.5f} vs off "
+          f"{tel_times['metrics_on']:.5f} ({kind}, {smi})")
     # The dispatch-time snapshot (device time, CUDA events) and a save (host).
     st0_4f = state_lib.set_start_state(
         state_lib.init_pool_state(bundle.train_x, bundle.train_y, prng.key(args.seed), dev),
@@ -2101,7 +2401,7 @@ def main() -> int:
         xla_spelled_entropy_device_ms=xla_entropy_ms,
         snapshot_ms=snap_ms, save_ms=save_ms,
         save_bytes=os.path.getsize(os.path.join(work, "ck_time", "alstate_104.npz")),
-        device_memory=mem, graph=g)
+        device_memory=mem, graph=g, round_stream_lead_seconds=stream_lead)
     del st_bench, st0_4f
     shutil.rmtree(work)
     print(f"# telemetry and checkpoints (K = {K}, depth 2, {TIMED} rounds, fit window {budget}): "
@@ -2994,6 +3294,11 @@ def main() -> int:
     serving_numbers = serving_phase(args.seed, dev, kind, smi, counts, zero_counts)
     launches.update(serving_numbers["launches"])
 
+    # -- phase 4p: the serve fleet -------------------------------------------
+    fleet_numbers = fleet_phase(args.seed, dev, kind, smi)
+    for path, c in fleet_numbers["launches"].items():
+        launches[path] = {k: c[k] for k in counts()}
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -3428,6 +3733,7 @@ def main() -> int:
         "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
         "files": files_numbers,
         "serving": {k: v for k, v in serving_numbers.items() if k not in ("launches", "k1")},
+        "fleet": {k: v for k, v in fleet_numbers.items() if k != "launches"},
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

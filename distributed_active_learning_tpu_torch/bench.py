@@ -107,16 +107,21 @@ normal exit.
   kernel gemm unless ``--kernel gather``): the gates
   ``serve_multi_recompiles_after_warmup`` and
   ``serve_multi_growth_compile_events`` (0), ``serve_multi_growths_
-  precompiled`` (>= 1). ``--mode serve-fleet`` is refused by name (the
-  multi-process fleet is not ported yet).
+  precompiled`` (>= 1).
+- ``--mode serve-fleet``: the shared-nothing fleet (``bench_serve_fleet``,
+  the JAX bench's body and keys): 8 tenants behind the consistent-hash
+  router on 1, then ``--fleet-workers`` (default 4) spawned worker
+  processes on the one device, a closed-loop client at concurrency 1; the
+  gates ``serve_fleet_recompiles_after_warmup``, each worker's scraped
+  ``dal_recompiles_after_warmup_total`` and
+  ``serve_fleet_shared_sig_fallbacks`` (0). Not part of any "all" mode.
 
 Not carried yet, each with the slice it waits for: the score mode's
 host-fit leg (the bench runs where the card is, which has no scikit-learn; a
 host-fit forest would come as a forest file), the roofline section
 (pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
-``--compare-to`` (pre-flight slice), the grid's scenario leg (scenario
-slice), and ``--mode serve-fleet`` (the fleet remainder of ROADMAP queue 1
-item 7).
+``--compare-to`` (pre-flight slice) and the grid's scenario leg (scenario
+slice).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -138,11 +143,11 @@ import torch
 _CUDA_SIZES = dict(pool=284_807, trees=100, train_rows=5000, iters=10, rounds_per_launch=8,
                    lal_trees=2000, lal_pool=1000, sweep_experiments=8, sweep_pool=284_807,
                    grid_experiments=8, neural_pool=2000, train_steps=300, serve_queries=2000,
-                   serve_pool=8192, serve_tenants=4)
+                   serve_pool=8192, serve_tenants=4, fleet_workers=4)
 _CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_launch=4,
                   lal_trees=50, lal_pool=200, sweep_experiments=8, sweep_pool=500,
                   grid_experiments=8, neural_pool=200, train_steps=25, serve_queries=220,
-                  serve_pool=256, serve_tenants=4)
+                  serve_pool=256, serve_tenants=4, fleet_workers=4)
 # The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
 # bench's baseline.
 SPARK_LAL_QUERY_SEC = 1654.16
@@ -1317,10 +1322,193 @@ def bench_serve_multi(args, dev) -> dict:
     }
 
 
+def _fleet_device(dev: torch.device) -> str:
+    """The fleet workers' device, as the string that crosses the spawn
+    boundary."""
+    return "cpu" if dev.type == "cpu" else str(dev)
+
+
 def bench_serve_fleet(args, dev) -> dict:
-    raise NotImplementedError(
-        "--mode serve-fleet is the multi-process fleet (serving/fleet.py of the JAX package), "
-        "not ported yet: ROADMAP queue 1 item 7, the fleet remainder")
+    """The shared-nothing fleet's scaling leg (the JAX bench's
+    ``bench_serve_fleet`` body and key set): 8 tenants ``u0..u7`` behind the
+    consistent-hash router (``serving/fleet.py``), first on 1 worker process,
+    then on ``--fleet-workers`` (default 4), all on ``dev``, driven over the
+    binary keep-alive score path by a closed-loop concurrency-1 client,
+    round-robin over the tenants. A grouped score replays every member's
+    graphed endpoint, absent members included, so 1 worker pays 8 replays a
+    request and each of 4 workers 2. The hard zeros: every worker's
+    ``recompiles_after_warmup`` (the in-process tally, and
+    ``dal_recompiles_after_warmup_total`` scraped from each worker's own
+    ``/metrics``) and ``serve_fleet_shared_sig_fallbacks``. ``--ops-port``
+    pins the router port of the largest leg; ``--fleet-linger`` holds that
+    leg up after its traffic for an external scraper. Beside the JAX keys,
+    ``serve_fleet_by_workers`` holds each leg's queries served, client
+    p50, scraped recompiles and routing counters, and each worker's own
+    p50/p99 (its frontend's time, without the two HTTP hops), peak reserved
+    device memory, kernel launches since warmup, seconds from spawn to ready
+    and its boot's split. Not part of any "all"
+    mode: each leg spawns N + 1 interpreters."""
+    import re as re_lib
+    import urllib.request
+
+    from distributed_active_learning_tpu_torch.runtime import telemetry
+    from distributed_active_learning_tpu_torch.serving.fleet import Fleet, TenantSpec
+
+    d = args.features
+    T = 8
+    tids = [f"u{i}" for i in range(T)]
+    max_workers = max(int(args.fleet_workers or 4), 1)
+    worker_counts = sorted({1, max_workers})
+    per_tenant_queries = max(args.serve_queries // T, 40)
+    total_queries = T * per_tenant_queries
+    # The grouped path needs a stackable eval form (a pallas tenant scores
+    # per tenant, named): the JAX bench's rule.
+    kernel = args.kernel if args.kernel in ("gemm", "gather") else "gemm"
+    pool_rows = min(args.serve_pool, 256)
+    score_width = 128
+    n_trees = 24
+    specs = [TenantSpec(tenant_id=tid, features=d, pool_rows=pool_rows, shift=0.4 * i,
+                        seed=10 + i, n_trees=n_trees, max_depth=6, kernel=kernel,
+                        slab_rows=pool_rows, score_width=score_width)
+             for i, tid in enumerate(tids)]
+
+    legs = {}
+    for n in worker_counts:
+        router_port = (args.ops_port or 0) if n == max_workers else 0
+        fleet = Fleet(specs, n_workers=n, router_port=router_port, device=_fleet_device(dev))
+        t0 = time.perf_counter()
+        fleet.start()
+        warmup_sec = time.perf_counter() - t0
+        _flight("serve_fleet_leg_start", workers=n, router_port=fleet.router_port)
+        try:
+            # Closed loop, concurrency 1, round-robin: each request's latency
+            # is its service time, so qps reads what each topology charges a
+            # request.
+            latencies = {tid: [] for tid in tids}
+            rngs = {tid: np.random.default_rng(500 + i) for i, tid in enumerate(tids)}
+            queries_by_tid = {
+                tid: [(rngs[tid].normal(size=(score_width, d)) + 0.4 * i).astype(np.float32)
+                      for _ in range(per_tenant_queries)]
+                for i, tid in enumerate(tids)}
+            t0 = time.perf_counter()
+            for k in range(per_tenant_queries):
+                for tid in tids:
+                    t1 = time.perf_counter()
+                    fleet.score(tid, queries_by_tid[tid][k])
+                    latencies[tid].append(time.perf_counter() - t1)
+            wall = time.perf_counter() - t0
+            # The per-worker gate reads each worker's OWN /metrics over HTTP.
+            worker_recompile_metric = {}
+            for wid in fleet.worker_ids:
+                m = re_lib.search(r"^dal_recompiles_after_warmup_total (\d+)$",
+                                  fleet.worker_metrics(wid), re_lib.M)
+                worker_recompile_metric[wid] = int(m.group(1)) if m else None
+            base = f"http://127.0.0.1:{fleet.router_port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+                agg = r.read().decode()
+            with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+                health_ok = r.status == 200
+            agg_ok = all(f'worker="{wid}"' in agg for wid in fleet.worker_ids)
+            linger = float(args.fleet_linger or 0)
+            if n == max_workers and linger > 0:
+                time.sleep(linger)  # an external scraper's window
+        finally:
+            final = fleet.stop()
+        legs[n] = {
+            "qps": round(total_queries / wall, 2),
+            "wall": wall,
+            "warmup": round(warmup_sec, 3),
+            "final": final,
+            "served": sum(f.get("queries", 0) for f in final["workers"].values()),
+            "worker_recompile_metric": worker_recompile_metric,
+            "agg_ok": agg_ok,
+            "health_ok": health_ok,
+            "router_port": fleet.router_port,
+            "ready_seconds": fleet.ready_seconds,
+            "latencies": latencies,
+        }
+
+    big = legs[max_workers]
+    workers_final = big["final"]["workers"]
+    ratio = (round(big["qps"] / legs[1]["qps"], 3)
+             if len(worker_counts) > 1 and legs[1]["qps"] > 0 else None)
+    total_recompiles = sum(f.get("recompiles_after_warmup", 0)
+                           for leg in legs.values() for f in leg["final"]["workers"].values())
+    merged_fallbacks = {}
+    shared_sig_fallbacks = 0
+    for f in workers_final.values():
+        for reason, cnt in f.get("score_fallback_reasons", {}).items():
+            merged_fallbacks[reason] = merged_fallbacks.get(reason, 0) + cnt
+        # every spec shares one signature: a worker hosting >= 2 tenants
+        # must hold them all in one group
+        if len(f.get("tenants", [])) >= 2:
+            shared_sig_fallbacks += sum(f.get("score_fallback_reasons", {}).values())
+    def _pct_of(latencies, q):
+        lat = sorted(v for per in latencies.values() for v in per)
+        return round(lat[min(int(q * len(lat)), len(lat) - 1)] * 1e3, 3)
+
+    def _pct(q):
+        return _pct_of(big["latencies"], q)
+
+    if args.metrics_out:
+        writer = telemetry.MetricsWriter(args.metrics_out)
+        for wid, f in sorted(workers_final.items()):
+            writer.event("fleet_worker", worker=wid, workers=max_workers,
+                         tenants=len(f.get("tenants", [])),
+                         qps=round(f.get("queries", 0) / big["wall"], 2), p99_ms=f.get("p99_ms"),
+                         groups=len(f.get("score_groups", [])),
+                         fallbacks=sum(f.get("score_fallback_reasons", {}).values()))
+        writer.close()
+
+    router = big["final"]["router"] or {}
+    return {
+        "metric": "serve_fleet_qps",
+        "value": big["qps"],
+        "unit": (f"score queries/s through the consistent-hash router across {max_workers} "
+                 f"worker processes ({T} tenants, {total_queries} queries)"),
+        "serve_fleet_qps": big["qps"],
+        "serve_fleet_workers": max_workers,
+        "serve_fleet_worker_counts": worker_counts,
+        "serve_fleet_tenants": T,
+        "serve_fleet_queries": total_queries,
+        "serve_fleet_queries_served": big["served"],
+        "serve_fleet_qps_by_workers": {str(n): legs[n]["qps"] for n in worker_counts},
+        "fleet_qps_scaling_ratio": ratio,
+        "serve_fleet_p50_ms": _pct(0.50),
+        "serve_fleet_p99_ms": _pct(0.99),
+        "serve_fleet_warmup_seconds_by_workers": {str(n): legs[n]["warmup"]
+                                                  for n in worker_counts},
+        "serve_fleet_recompiles_after_warmup": total_recompiles,
+        "serve_fleet_worker_recompiles": {wid: f.get("recompiles_after_warmup")
+                                          for wid, f in sorted(workers_final.items())},
+        "serve_fleet_worker_recompile_metric": big["worker_recompile_metric"],
+        "serve_fleet_score_fallback_reasons": merged_fallbacks,
+        "serve_fleet_shared_sig_fallbacks": shared_sig_fallbacks,
+        "serve_fleet_groups": {wid: f.get("score_groups", [])
+                               for wid, f in sorted(workers_final.items())},
+        "serve_fleet_group_count": sum(len(f.get("score_groups", []))
+                                       for f in workers_final.values()),
+        "serve_fleet_batched_score_launches": sum(f.get("batched_score_launches", 0)
+                                                  for f in workers_final.values()),
+        "serve_fleet_router": big["final"]["router"],
+        "serve_fleet_rerouted": router.get("rerouted"),
+        "serve_fleet_unroutable": router.get("unroutable"),
+        "serve_fleet_router_metrics_aggregated": big["agg_ok"],
+        "serve_fleet_router_healthy": big["health_ok"],
+        "ops_port": big["router_port"],
+        # Beside the JAX keys, each leg's own gates and numbers.
+        "serve_fleet_by_workers": {str(n): {
+            "served": legs[n]["served"],
+            "p50_ms": _pct_of(legs[n]["latencies"], 0.50),
+            "worker_recompile_metric": legs[n]["worker_recompile_metric"],
+            "router": legs[n]["final"]["router"],
+            "workers": {wid: {**{k: f.get(k) for k in ("p50_ms", "p99_ms", "peak_reserved_mib",
+                                                       "kernel_launches", "boot_seconds")},
+                              "ready_seconds": legs[n]["ready_seconds"].get(wid)}
+                        for wid, f in sorted(legs[n]["final"]["workers"].items())},
+        } for n in worker_counts},
+        "serve_fleet_kernel": kernel,
+    }
 
 
 _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
@@ -1394,7 +1582,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--serve-tenants", type=int, default=None,
                     help="serve-multi mode: resident tenants (default 4)")
     ap.add_argument("--ops-port", type=int, default=None,
-                    help="serve-multi mode: the ops plane's localhost port (default ephemeral)")
+                    help="serve-multi mode: the ops plane's localhost port; serve-fleet mode: "
+                    "the router's port of the largest leg (default ephemeral)")
+    ap.add_argument("--fleet-workers", type=int, default=None,
+                    help="serve-fleet mode: worker processes of the second leg (default 4; the "
+                    "first leg has 1)")
+    ap.add_argument("--fleet-linger", type=float, default=0.0, metavar="SECONDS",
+                    help="serve-fleet mode: hold the largest leg's fleet up this long after its "
+                    "traffic (an external scraper's window)")
     ap.add_argument("--variants", default=None,
                     help="variants mode: names from benches.pallas_variants.VARIANTS "
                     "(default: its DEFAULT_VARIANTS)")
@@ -1415,7 +1610,7 @@ def main(argv=None) -> int:
 
         dev = resolve_device(args.device)
         if args.kernel == "gather" and args.mode not in ("score", "density", "serve",
-                                                         "serve-multi"):
+                                                         "serve-multi", "serve-fleet"):
             raise ValueError(f"--kernel gather is carried by --mode score and density, "
                              f"not by --mode {args.mode}")
         cpu = dev.type == "cpu"

@@ -79,7 +79,9 @@ attribution. What the JAX package refuses of quantized storage
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import time
 from typing import Optional
 
@@ -491,25 +493,136 @@ def make_device_fit(cfg: ExperimentConfig, edges: torch.Tensor, budget: int, n_c
     return fit
 
 
-def chunk_of(step, finish, chunk_size: int, carry_arg: int = 1):
+def chunk_of(step, finish, chunk_size: int, carry_arg: int = 1, stream_cb=None):
     """A chunk function of ``chunk_size`` round steps: ``chunk_fn(*args) ->
     (carry, extras, ys)`` calls ``step(*args) -> (new_carry, y)`` that many
     times, each on the carry the last returned (``args[carry_arg]``), then
     ``finish(rows, *args) -> (extras, ys)`` on the steps' ys with the final
-    carry in its place. Its ``step``, ``finish``, ``chunk_size`` and
-    ``carry_arg`` are what :class:`GraphedChunk` graphs: one step, replayed
-    ``chunk_size`` times a call."""
+    carry in its place. With ``stream_cb(round, n_labeled, accuracy,
+    active)``, ``chunk_fn.stream`` is a :class:`RoundStream` that gets each
+    step's y as soon as the step has been queued (else None). Its ``step``,
+    ``finish``, ``chunk_size``, ``carry_arg`` and ``stream`` are what
+    :class:`GraphedChunk` graphs: one step, replayed ``chunk_size`` times a
+    call, the stream fed after each replay."""
+    stream = None if stream_cb is None else RoundStream(stream_cb, chunk_size)
 
     def chunk_fn(*args):
         args, rows = list(args), []
         for _ in range(chunk_size):
             args[carry_arg], y = step(*args)
             rows.append(y)
+            if stream is not None:
+                stream.row(y)
         return (args[carry_arg], *finish(rows, *args))
 
     chunk_fn.step, chunk_fn.finish = step, finish
-    chunk_fn.chunk_size, chunk_fn.carry_arg = chunk_size, carry_arg
+    chunk_fn.chunk_size, chunk_fn.carry_arg, chunk_fn.stream = chunk_size, carry_arg, stream
     return chunk_fn
+
+
+def round_stream_cb(metrics):
+    """The drivers' ``stream_cb``: one ``round_stream`` event on ``metrics``
+    an active round (the JAX package's)."""
+    def stream_cb(round_, n_labeled, accuracy, active):
+        if bool(active):
+            metrics.event("round_stream", round=int(round_), n_labeled=int(n_labeled),
+                          accuracy=float(accuracy))
+
+    return stream_cb
+
+
+class RoundStream:
+    """``stream_cb(round, n_labeled, accuracy, active)`` called as each round
+    of a chunk finishes, in round order (the JAX package calls it from
+    inside its scan, ``jax.debug.callback``).
+
+    :meth:`row` takes one round step's ys (``y[0]``, ``y[1]``, ``y[2]`` and
+    ``y[4]``: the round, the pre-reveal labeled count, the accuracy and the
+    active flag, 0-d tensors). On the CPU the step has run when the eager
+    chunk hands its y over, so the callback runs right there, before the
+    next step. On CUDA it queues a non-blocking copy of the four into a
+    pinned host slot of their own (a slot outlives the replay that fills
+    it: one per round, never one buffer) and records an event behind it on
+    the current stream; one streamer thread waits on each event in turn and
+    calls ``stream_cb``. Nothing else is queued on the device.
+
+    Every chunk call hands over exactly ``chunk_size`` rows, and the
+    driver's touchdowns run in chunk order: :meth:`wait_chunk`, at the top
+    of each touchdown, waits until that chunk's rounds have all been
+    delivered (a later chunk's rounds, in flight at ``pipeline_depth > 1``,
+    are not waited for), so every event of a chunk is written before its
+    touchdown writes its records, and re-raises an error of the callback.
+    :meth:`close` stops the thread.
+    """
+
+    def __init__(self, stream_cb, chunk_size: int):
+        self._cb = stream_cb
+        self._k = int(chunk_size)
+        self._cond = threading.Condition()
+        self._slots: collections.deque = collections.deque()
+        self._delivered = 0
+        self._touchdowns = 0
+        self._error: Optional[BaseException] = None
+        self._closed = False
+        self._thread: Optional[threading.Thread] = None
+
+    def _deliver(self, values, event=None) -> None:
+        try:
+            if event is not None:
+                event.synchronize()
+            r, nl, acc, act = (v.item() for v in values)
+            self._cb(r, nl, acc, act)
+        except BaseException as e:  # noqa: BLE001 (re-raised at the next touchdown)
+            self._error = self._error or e
+        with self._cond:
+            self._delivered += 1
+            self._cond.notify_all()
+
+    def row(self, y) -> None:
+        values = (y[0], y[1], y[2], y[4])
+        if not values[0].is_cuda:
+            self._deliver(values)
+            return
+        slot = tuple(torch.empty(v.shape, dtype=v.dtype, pin_memory=True) for v in values)
+        for dst, src in zip(slot, values):
+            dst.copy_(src, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(values[0].device))
+        with self._cond:
+            self._slots.append((slot, event))
+            self._cond.notify_all()
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._run, name="dal-round-stream",
+                                                daemon=True)
+                self._thread.start()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._slots and not self._closed:
+                    self._cond.wait()
+                if not self._slots:
+                    return
+                slot, event = self._slots.popleft()
+            self._deliver(slot, event)
+
+    def wait_chunk(self) -> None:
+        self._touchdowns += 1
+        want = self._touchdowns * self._k
+        with self._cond:
+            while self._delivered < want:
+                self._cond.wait()
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise error
+
+    def close(self) -> None:
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
 
 def make_chunk_fn(
@@ -550,11 +663,13 @@ def make_chunk_fn(
 
     The body reads nothing back to the host and uploads nothing: that is
     what lets :class:`GraphedChunk` capture its round step into a CUDA
-    graph (:func:`chunk_of`). A Python
-    callback cannot run inside a replayed graph, so ``stream_cb(round,
-    n_labeled, accuracy, active)`` (the JAX package calls it from inside
-    the scan) is called at the chunk's touchdown instead, once per round in
-    round order: ``chunk_fn.stream(ys)`` on the host copies of the ys.
+    graph (:func:`chunk_of`). ``stream_cb(round, n_labeled, accuracy,
+    active)`` (the JAX package calls it from inside the scan) is called as
+    each round finishes, once per round in round order, from a
+    :class:`RoundStream` (``chunk_fn.stream``; None without ``stream_cb``):
+    after each eager step on the CPU, after each graph replay's copy lands
+    on CUDA. The driver calls ``chunk_fn.stream.wait_chunk()`` at each
+    touchdown and ``close()`` at its end.
 
     ``scenario`` (an active :class:`~..config.ScenarioConfig`, or None) runs
     the scenario round (:func:`_round_core`) and, under ``drift``, measures
@@ -598,15 +713,7 @@ def make_chunk_fn(
         )
         return extras, ys
 
-    def stream(ys) -> None:
-        if stream_cb is None:
-            return
-        for r, nl, acc, act in zip(*(y.tolist() for y in (ys[0], ys[1], ys[2], ys[4]))):
-            stream_cb(r, nl, acc, act)
-
-    chunk_fn = chunk_of(step, finish, chunk_size)
-    chunk_fn.stream = stream
-    return chunk_fn
+    return chunk_of(step, finish, chunk_size, stream_cb=stream_cb)
 
 
 def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
@@ -730,7 +837,8 @@ class GraphedChunk:
     the carry buffers. Every call then replays that graph K times, which
     advances the carry K rounds exactly as the chunk's loop of K steps
     does, cloning the step's ys out of the graph's buffers after each
-    replay, and runs ``finish`` on the current stream behind the replays:
+    replay (and handing the clone to the chunk's ``stream``, when it has
+    one), and runs ``finish`` on the current stream behind the replays:
     the returned ys and extras are fresh tensors that no later replay
     overwrites. A capture costs one round (and the warm-up round), not K,
     and the private pool holds one round's temporaries. The returned carry
@@ -866,9 +974,12 @@ class GraphedChunk:
         for i, buf in self._inputs.items():
             buf.copy_(args[i])
         rows = []
+        stream = self._fn.stream
         for _ in range(self._fn.chunk_size):
             replay_counted(self._graph, self._step_launches)
             rows.append(_map_leaves(lambda t: t.clone() if torch.is_tensor(t) else t, self._y))
+            if stream is not None:
+                stream.row(rows[-1])
         self.replays += 1
         extras, ys = self._fn.finish(rows, *self._static_args)
         return self._static_args[self._carry_arg], extras, ys
@@ -890,12 +1001,8 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     label_cap = n_pool if cfg.label_budget is None else min(cfg.label_budget, n_pool)
     depth = max(int(cfg.pipeline_depth or 1), 1)
     want_metrics = metrics is not None or cfg.collect_metrics
-    stream_cb = None
-    if metrics is not None and cfg.stream_round_events:
-        def stream_cb(round_, n_labeled_cb, acc_cb, active_cb):
-            if bool(active_cb):
-                metrics.event("round_stream", round=int(round_), n_labeled=int(n_labeled_cb),
-                              accuracy=float(acc_cb))
+    stream_cb = (round_stream_cb(metrics) if metrics is not None and cfg.stream_round_events
+                 else None)
     body = make_chunk_fn(strategy, window, K, device_fit, label_cap, fused_round=cfg.fused_round,
                          with_metrics=want_metrics, n_classes=n_classes, stream_cb=stream_cb,
                          scenario=scn, drift_direction=drift_dir)
@@ -958,9 +1065,10 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
         # ys are this chunk's host copies. Runs overlapped with the next
         # chunk's execution when depth > 1.
         snap = snapshots.pop(idx)
+        if body.stream is not None:
+            body.stream.wait_chunk()  # this chunk's round_stream events are written
         if n_active == 0:
             return  # a wholly inactive (speculative tail) chunk
-        body.stream(ys)
         rounds_y, labeled_y, acc_y, _picked_y, active_y = ys[:5]
         active_np = active_y.numpy()
         rounds_np = rounds_y.numpy()[active_np]
@@ -1003,16 +1111,20 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
                           kernel=ckpt[1])
             ctl.checkpoint_done()
 
-    carry, stats = pipeline_lib.run_pipelined(
-        carry,
-        dispatch=dispatch,
-        touchdown=touchdown,
-        continue_after=ctl.continue_after,
-        depth=depth,
-        on_launch=launches.record,
-        may_dispatch=ctl.may_dispatch,
-        on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)),
-    )
+    try:
+        carry, stats = pipeline_lib.run_pipelined(
+            carry,
+            dispatch=dispatch,
+            touchdown=touchdown,
+            continue_after=ctl.continue_after,
+            depth=depth,
+            on_launch=launches.record,
+            may_dispatch=ctl.may_dispatch,
+            on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)),
+        )
+    finally:
+        if body.stream is not None:
+            body.stream.close()
     result.pipeline_stats = stats
     if isinstance(chunk_fn, GraphedChunk):
         result.graph_stats = chunk_fn.stats()

@@ -22,8 +22,8 @@ Three drivers share one round body (:func:`_make_neural_round_core`):
   ``runtime/pipeline.py``; on CUDA one CUDA graph of a round, replayed K
   times a chunk (``runtime/loop.py::GraphedChunk``), holding the training
   steps, the adam updates, the MC passes and the greedy selects; on the
-  CPU the same body eagerly. ``stream_round_events`` fire at the chunk's touchdown, in round
-  order (the forest chunk's rule);
+  CPU the same body eagerly. ``stream_round_events`` fire as each round
+  finishes, in round order (``loop.RoundStream``, the forest chunk's);
 - the seed sweep (:func:`run_neural_sweep`): E seeds over one shared pool
   as one launch stream, the lanes one after another inside each round
   step of the chunk's graph, so a lane is its serial run by construction.
@@ -289,7 +289,8 @@ def _stack_ys(rows, with_metrics: bool):
 def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, chunk_size: int,
                          label_cap: int, retrain_from_scratch: bool = True, beta: float = 1.0,
                          with_metrics: bool = False, n_classes: int = 2,
-                         coreset_space: str = "input", batchbald_params=_BATCHBALD_DEFAULTS):
+                         coreset_space: str = "input", batchbald_params=_BATCHBALD_DEFAULTS,
+                         stream_cb=None):
     """``chunk_size`` neural rounds as one launch.
 
     ``chunk_fn(pool_x, carry, oracle_y, init_net, test_x, test_y, end_round)
@@ -299,7 +300,10 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
     loop key, as the per-round driver does, so the two drivers agree bit for
     bit; an inactive round keeps the carry exactly. The body reads nothing
     back to the host, so :class:`~.loop.GraphedChunk` captures its round
-    step (:func:`~.loop.chunk_of`)."""
+    step (:func:`~.loop.chunk_of`). ``stream_cb(round, n_labeled, accuracy,
+    active)`` is called as each round finishes, through
+    ``chunk_fn.stream`` (a :class:`~.loop.RoundStream`; None without it),
+    as in the forest chunk."""
     from distributed_active_learning_tpu_torch.runtime.loop import chunk_of
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
@@ -319,7 +323,7 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
                              n_active=ys[4].sum(dtype=torch.int32))
         return extras, ys
 
-    return chunk_of(one, finish, chunk_size)
+    return chunk_of(one, finish, chunk_size, stream_cb=stream_cb)
 
 
 def make_neural_sweep_chunk_fn(learner: NeuralLearner, strat: str, window_size: int,
@@ -544,16 +548,19 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
     """The chunked driver: K rounds a launch through ``run_pipelined``."""
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
     from distributed_active_learning_tpu_torch.runtime import telemetry
+    from distributed_active_learning_tpu_torch.runtime.loop import round_stream_cb
     dev = pool_x.device
     n_pool = state.n_valid
     K, window = cfg.rounds_per_launch, cfg.window_size
     label_cap = n_pool if cfg.label_budget is None else min(cfg.label_budget, n_pool)
     want_metrics = metrics is not None
+    stream_cb = (round_stream_cb(metrics) if metrics is not None and cfg.stream_round_events
+                 else None)
     body = make_neural_chunk_fn(learner, strat, window, K, label_cap,
                                 retrain_from_scratch=cfg.retrain_from_scratch, beta=cfg.beta,
                                 with_metrics=want_metrics, n_classes=max(n_classes, 2),
                                 coreset_space=cfg.coreset_space,
-                                batchbald_params=_batchbald_params(cfg))
+                                batchbald_params=_batchbald_params(cfg), stream_cb=stream_cb)
     chunk_fn = _graphed(body, dev)
     launches = telemetry.LaunchTracker(metrics, "neural_chunk_scan", fn=chunk_fn)
     end_round = (start_round + cfg.max_rounds if cfg.max_rounds is not None
@@ -567,7 +574,6 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
                         round=torch.as_tensor(int(state.round), dtype=torch.int32).to(dev),
                         net=net_state)
     snapshots = pipeline_lib.CarrySnapshots(_snapshot)
-    stream = metrics is not None and cfg.stream_round_events
 
     def dispatch(c, idx):
         out = chunk_fn(pool_x, c, state.oracle_y, init_net_state, test_x, test_y, end_dev)
@@ -577,6 +583,8 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
 
     def touchdown(idx, _n_after, n_active, ys, _out, wall):
         snap = snapshots.pop(idx)
+        if body.stream is not None:
+            body.stream.wait_chunk()  # this chunk's round_stream events are written
         if n_active == 0:
             return
         rounds_y, labeled_y, acc_y, _picked_y, active_y = ys[:5]
@@ -584,9 +592,6 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
         rounds_np = rounds_y.numpy()[active_np]
         labeled_np = labeled_y.numpy()[active_np]
         acc_np = acc_y.numpy()[active_np]
-        if stream:
-            for r, nl, a in zip(rounds_np, labeled_np, acc_np):
-                metrics.event("round_stream", round=int(r), n_labeled=int(nl), accuracy=float(a))
         round_dicts = (telemetry.stacked_metrics_to_dicts(ys[5], active_np)
                        if want_metrics else None)
         result.extend_from_arrays(rounds_np, labeled_np, n_pool - labeled_np, acc_np,
@@ -606,11 +611,15 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
                                  key_s, fingerprint=ckpt_fp)
             ctl.checkpoint_done()
 
-    carry, stats = pipeline_lib.run_pipelined(
-        carry, dispatch=dispatch, touchdown=touchdown, continue_after=ctl.continue_after,
-        depth=max(int(cfg.pipeline_depth or 1), 1), on_launch=launches.record,
-        may_dispatch=ctl.may_dispatch,
-        on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)))
+    try:
+        carry, stats = pipeline_lib.run_pipelined(
+            carry, dispatch=dispatch, touchdown=touchdown, continue_after=ctl.continue_after,
+            depth=max(int(cfg.pipeline_depth or 1), 1), on_launch=launches.record,
+            may_dispatch=ctl.may_dispatch,
+            on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)))
+    finally:
+        if body.stream is not None:
+            body.stream.close()
     result.pipeline_stats = stats
     if chunk_fn is not body:
         result.graph_stats = chunk_fn.stats()

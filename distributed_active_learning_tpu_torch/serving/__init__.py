@@ -13,17 +13,26 @@
   control, per-tenant fairness, re-fit backpressure, one dispatcher thread
   owning all device work;
 - :mod:`serving.service` — the single-tenant front (:class:`ALService`
-  routes through a 1-tenant manager).
+  routes through a 1-tenant manager);
+- :mod:`serving.fleet` — the shared-nothing multi-process fleet: N spawned
+  worker processes (each a whole manager, frontend and ops plane on its
+  device) behind a consistent-hash router with health-gated forwarding.
 
 Entry points: ``python -m distributed_active_learning_tpu_torch.serving``
 (a simulated stream over a registry dataset) and ``python -m
-distributed_active_learning_tpu_torch.bench --mode serve|serve-multi``. The
-multi-process fleet (``serving/fleet.py`` of the JAX package, ``bench
---mode serve-fleet``) is not ported yet (ROADMAP queue 1 item 7's fleet
-remainder); importing its names raises, naming it.
+distributed_active_learning_tpu_torch.bench --mode
+serve|serve-multi|serve-fleet``. The pod-sharded slab pool's
+``RebalanceHysteresis`` comes with the mesh-and-pod slice; importing it
+raises, naming it.
 """
 
 from distributed_active_learning_tpu_torch.serving.drift import DriftMonitor  # noqa: F401
+from distributed_active_learning_tpu_torch.serving.fleet import (  # noqa: F401
+    Fleet,
+    HashRing,
+    RouterServer,
+    TenantSpec,
+)
 from distributed_active_learning_tpu_torch.serving.frontend import (  # noqa: F401
     AdmissionError,
     ServiceFrontend,
@@ -44,14 +53,8 @@ from distributed_active_learning_tpu_torch.serving.tenants import (  # noqa: F40
     make_batched_score_fn,
 )
 
-_FLEET = ("Fleet", "HashRing", "RouterServer", "TenantSpec", "fleet")
-
 
 def __getattr__(name: str):
-    if name in _FLEET:
-        raise NotImplementedError(
-            f"serving.{name} is the multi-process fleet, which is not ported yet "
-            "(ROADMAP queue 1 item 7, the fleet remainder)")
     if name == "RebalanceHysteresis":
         raise NotImplementedError(
             "serving.RebalanceHysteresis is the pod-sharded slab pool's, which comes with the "

@@ -2,14 +2,13 @@
 at tiny sizes; score and density also under ``--kernel gather``; lal with
 its regressor fitted from the fixture, and from a forest file with and
 without scikit-learn; sweep and grid, with and without the serial arm, the
-grid with its scenario leg) with the keys the JAX bench uses for the same
-legs; the scenario grid against the JAX package's ``run_grid`` and the serial
-cells, its fingerprint and its checkpoints across both packages; and the
-port's ``run_pipelined`` schedules as the JAX one does (the scheduling facts
-of ``tests/test_pipeline.py`` on a fake, host-only dispatch). Also the CLI on
-a file: ``--dataset credit_card_fraud --data-path`` prints the JAX CLI's log
-line for line, and ``--plot`` and the five ``plot_*`` functions render PNGs
-(each raising an ImportError naming matplotlib without it)."""
+grid with its scenario leg; serve, serve-multi and serve-fleet, the last
+with spawned worker processes) with the keys the JAX bench uses for the
+same legs; and the port's ``run_pipelined`` schedules as the JAX one does
+(the scheduling facts of ``tests/test_pipeline.py`` on a fake, host-only
+dispatch). The scenario grid against the JAX package's ``run_grid`` lives
+in ``test_torch_scoring.py``, the CLI on a file and the plots in
+``test_torch_data_fit.py`` (each file runs on one worker of the suite)."""
 
 import contextlib
 import io
@@ -17,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from distributed_active_learning_tpu_torch import bench
 from distributed_active_learning_tpu_torch.runtime import telemetry
@@ -67,101 +67,19 @@ def _drive(depth, total_rounds, k=3, may_dispatch=None, on_veto=None):
     return calls, touched, final, stats
 
 
-def _scenario_grid_matches_jax(tmp_path):
-    """The scenario grid: the JAX package's scenario families (its
-    ``tests/test_scenarios.py`` SCENARIOS and configuration) x entropy and
-    density x seeds 0 and 1, 20 cells in one stream, metrics on. Each cell
-    equals its serial ``run_experiment`` in the port (records, every metric,
-    final mask). Against the JAX package's ``run_grid``: the entropy cells
-    bit-equal (records; metrics but pool_entropy, which is held to
-    ``POOL_ENTROPY_RTOL``), the density cells in their first round and their
-    metric keys (a density pick can differ from JAX's at a tie at score 0,
-    where the similarity mass clamps to 0 in one package and not in the other:
-    ROADMAP queue 3; the mass agrees only to ``MASS_RTOL``). The scenario
-    grid's fingerprint is JAX's, and its ``gridstate_`` files resume across
-    both packages to the uninterrupted records."""
-    import dataclasses
-    import os
-
-    import torch
-
-    from distributed_active_learning_tpu import config as j_config
-    from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
-    from distributed_active_learning_tpu.runtime import sweep as j_sweep
-    from distributed_active_learning_tpu_torch import config as t_config
-    from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
-    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
-    from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
-    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
-
-    kinds = [dict(), dict(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
-             dict(kind="rare_event", rare_class=1), dict(kind="drift", drift_rate=0.3),
-             dict(kind="cost_budget", cost_budget=6.0)]
-    j_axis = [j_config.ScenarioConfig(**kw) for kw in kinds]
-    t_axis = [t_config.ScenarioConfig(**kw) for kw in kinds]
-    jcfg = j_config.ExperimentConfig(
-        data=j_config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
-        forest=j_config.ForestConfig(n_trees=4, max_depth=3, fit="device", fit_budget=96),
-        strategy=j_config.StrategyConfig(name="entropy", window_size=8), n_start=8,
-        max_rounds=3, rounds_per_launch=2, log_every=0, collect_metrics=True)
-    tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
-    axes = (["entropy", "density"], [0, 1])
-    want = j_sweep.run_grid(jcfg, *axes, scenarios=j_axis)
-    got = t_sweep.run_grid(tcfg, *axes, scenarios=t_axis, device="cpu")
-    assert not got.serial_fallback and len(got.cells) == 20
-    rounds = lambda res: [(r.round, r.n_labeled, r.accuracy) for r in res.records]
-    for tc, jc in zip(got.cells, want.cells, strict=True):
-        assert (tc.strategy, tc.seed, tc.scenario) == (jc.strategy, jc.seed, jc.scenario)
-        scn = t_axis[[kw.get("kind", "none") for kw in kinds].index(tc.scenario)]
-        serial = t_loop.run_experiment(dataclasses.replace(
-            tcfg, seed=tc.seed, rounds_per_launch=1, scenario=scn,
-            strategy=dataclasses.replace(tcfg.strategy, name=tc.strategy)), device="cpu")
-        assert rounds(tc.result) == rounds(serial), (tc.strategy, tc.scenario, tc.seed)
-        assert [r.metrics for r in tc.result.records] == [r.metrics for r in serial.records]
-        assert torch.equal(tc.result.final_labeled_mask, serial.final_labeled_mask)
-        assert [list(r.metrics) for r in tc.result.records] == [
-            list(r.metrics) for r in jc.result.records]
-        n = None if tc.strategy == "entropy" else 1
-        assert rounds(tc.result)[:n] == rounds(jc.result)[:n], (tc.strategy, tc.scenario)
-        if tc.strategy == "entropy":
-            for a, b in zip(tc.result.records, jc.result.records):
-                for field, v in b.metrics.items():
-                    if field == "pool_entropy":
-                        assert abs(a.metrics[field] - v) <= POOL_ENTROPY_RTOL * abs(v)
-                    else:
-                        assert a.metrics[field] == v, (tc.scenario, a.round, field)
-    assert got.cell("entropy", "checkerboard2x2", 1, scenario="drift").scenario == "drift"
-    assert len(got.results_for("density", scenario="cost_budget")) == 2
-    names = [kw.get("kind", "none") for kw in kinds]
-    fp_args = (["entropy"] * 5, [0, 1], ["checkerboard2x2"], [8] * 5)
-    assert t_ckpt.grid_fingerprint(tcfg, *fp_args, scenarios=names) == j_ckpt.grid_fingerprint(
-        jcfg, *fp_args, scenarios=names)
-    assert t_ckpt.grid_fingerprint(tcfg, *fp_args) != t_ckpt.grid_fingerprint(
-        tcfg, *fp_args, scenarios=names)
-
-    # gridstate_ files across the packages: a noisy oracle and a cost budget
-    # x entropy x 2 seeds, 3 rounds; each package's round-2 file resumed by
-    # the other to the uninterrupted records.
-    j_small, t_small = j_axis[1::3], t_axis[1::3]
-    ck = lambda name, r: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1,
-                              max_rounds=r)
-    j_full = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_j", 3)), ["entropy"], [0, 1],
-                              scenarios=j_small)
-    t_full = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_t", 3)), ["entropy"], [0, 1],
-                              scenarios=t_small, device="cpu")
-    assert [rounds(c.result) for c in t_full.cells] == [rounds(c.result) for c in j_full.cells]
-    for name in ("s_j", "s_t"):
-        os.remove(tmp_path / name / "gridstate_3.npz")
-    resumed_t = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_j", 1)), ["entropy"], [0, 1],
-                                 scenarios=t_small, device="cpu")
-    resumed_j = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_t", 1)), ["entropy"], [0, 1],
-                                 scenarios=j_small)
-    for a, b, c in zip(resumed_t.cells, resumed_j.cells, t_full.cells, strict=True):
-        assert rounds(a.result) == rounds(b.result) == rounds(c.result), c.scenario
-        assert torch.equal(a.result.final_labeled_mask, c.result.final_labeled_mask)
-
-
 def test_bench_modes_print_one_json_line(tmp_path):
+    # The modes run in this process at tiny sizes: many small ops, which a
+    # pool of every core's threads does not speed up and which, on a host
+    # loaded by the suite's other workers, it slows about threefold.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _bench_modes(tmp_path)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _bench_modes(tmp_path):
     rc, score = _line(["--mode", "score", *_TINY])
     assert rc == 0 and score["metric"] == "acquisition_scores_per_sec"
     assert score["value"] > 0 and score["kernel"] == "pallas"
@@ -267,7 +185,7 @@ def test_bench_modes_print_one_json_line(tmp_path):
                     "--grid-strategies", "uncertainty", "--no-baseline"])
     assert rc == 0 and gr["baseline_skipped"] == {"reason": "no_baseline_flag"}
     assert "grid_speedup" not in gr
-    _cli_on_a_file_and_plots(tmp_path)
+    _variants_failures_and_scheduling()
     _serve_modes()
 
 
@@ -291,9 +209,22 @@ _JAX_SERVE_MULTI_KEYS = (
     "serve_multi_slo_per_tenant", "ops_scrapes", "ops_port", "serve_multi_tenant_summaries")
 
 
+# The keys of the JAX bench's serve-fleet line (bench.py's bench_serve_fleet).
+_JAX_SERVE_FLEET_KEYS = (
+    "serve_fleet_qps", "serve_fleet_workers", "serve_fleet_worker_counts", "serve_fleet_tenants",
+    "serve_fleet_queries", "serve_fleet_queries_served", "serve_fleet_qps_by_workers",
+    "fleet_qps_scaling_ratio", "serve_fleet_p50_ms", "serve_fleet_p99_ms",
+    "serve_fleet_warmup_seconds_by_workers", "serve_fleet_recompiles_after_warmup",
+    "serve_fleet_worker_recompiles", "serve_fleet_worker_recompile_metric",
+    "serve_fleet_score_fallback_reasons", "serve_fleet_shared_sig_fallbacks", "serve_fleet_groups",
+    "serve_fleet_group_count", "serve_fleet_batched_score_launches", "serve_fleet_router",
+    "serve_fleet_rerouted", "serve_fleet_unroutable", "serve_fleet_router_metrics_aggregated",
+    "serve_fleet_router_healthy", "ops_port")
+
+
 def _serve_modes():
-    """``--mode serve`` and ``--mode serve-multi`` at CPU smoke sizes: the
-    JAX bench's keys, the gates, and ``serve-fleet`` refused by name."""
+    """``--mode serve``, ``--mode serve-multi`` and ``--mode serve-fleet``
+    at CPU smoke sizes: the JAX bench's keys and the gates."""
     small = ["--device", "cpu", "--trees", "4"]
     rc, sv = _line(["--mode", "serve", *small, "--serve-queries", "60", "--serve-pool", "200"])
     assert rc == 0 and sv["metric"] == "serve_qps" and sv["value"] > 0, sv
@@ -308,56 +239,23 @@ def _serve_modes():
     assert sm["serve_multi_growth_compile_events"] == 0
     assert sm["serve_multi_growths_precompiled"] >= 1 and sm["slo_compliance"] == 1.0
     assert sm["serve_multi_score_fallback_reasons"] == {} and sm["ops_scrapes"] >= 1
-    rc, fl = _line(["--mode", "serve-fleet", "--device", "cpu"])
-    assert rc == 1 and "fleet remainder" in fl["error"]
+    # serve-fleet: spawned worker processes behind the router, the 1- and
+    # 2-worker legs, with the JAX bench's keys and its hard zeros.
+    rc, fl = _line(["--mode", "serve-fleet", "--device", "cpu", "--fleet-workers", "2",
+                    "--serve-queries", "8"])
+    assert rc == 0 and fl["metric"] == "serve_fleet_qps" and set(_JAX_SERVE_FLEET_KEYS) <= set(fl)
+    assert fl["serve_fleet_worker_counts"] == [1, 2] and fl["serve_fleet_queries"] == 320
+    assert {n: leg["served"] for n, leg in fl["serve_fleet_by_workers"].items()} == {
+        "1": 320, "2": 320}
+    assert fl["serve_fleet_by_workers"]["1"]["worker_recompile_metric"] == {"w0": 0}
+    assert fl["serve_fleet_recompiles_after_warmup"] == 0
+    assert fl["serve_fleet_worker_recompile_metric"] == {"w0": 0, "w1": 0}
+    assert fl["serve_fleet_shared_sig_fallbacks"] == 0 and fl["serve_fleet_unroutable"] == 0
+    assert fl["serve_fleet_rerouted"] == 0 and fl["serve_fleet_router_healthy"]
+    assert fl["serve_fleet_router_metrics_aggregated"] and fl["serve_fleet_group_count"] == 2
 
 
-def _cli_on_a_file_and_plots(tmp_path):
-    from distributed_active_learning_tpu import run as j_run
-    from distributed_active_learning_tpu_torch import run as t_run
-    from distributed_active_learning_tpu_torch.data import formats
-    from distributed_active_learning_tpu_torch.runtime import results
-
-    csv = str(tmp_path / "creditcard.csv")
-    formats.write_credit_card_csv(csv, n_rows=1000, n_fraud=40, seed=3)
-    argv = ["--dataset", "credit_card_fraud", "--data-path", csv, "--fit", "device", "--kernel",
-            "pallas", "--fused-round", "--n-samples", "600", "--trees", "8", "--window", "15",
-            "--rounds", "3", "--seed", "1", "--quiet"]
-    logs = []
-    for main, extra in ((j_run.main, []),
-                        (t_run.main, ["--device", "cpu", "--plot", str(tmp_path / "run.png")])):
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            assert not main(argv + extra)
-        logs.append(out.getvalue())
-    assert logs[0] == logs[1] and logs[1].count("Iteration") == 3, logs
-    # The plot functions: one run (the CLI's --plot above), a sweep's band,
-    # a grid's bands, and bands and curves from reference-format logs.
-    run = results.parse_reference_log(logs[1])
-    assert run.to_reference_log() == logs[1]
-    other = results.parse_reference_log(logs[1].replace("95.00", "93.50"))
-    cells = [type("Cell", (), dict(strategy=s, dataset="cc", result=r))
-             for s, r in (("uncertainty", run), ("uncertainty", other), ("random", other))]
-    grid = type("Grid", (), dict(cells=cells))
-    for i, r in enumerate((run, other)):
-        r.save(str(tmp_path / f"log{i}.txt"))
-    logs_ = [str(tmp_path / f"log{i}.txt") for i in range(2)]
-    pngs = [str(tmp_path / "run.png"),
-            results.plot_seed_band([run, other], str(tmp_path / "band.png")),
-            results.plot_grid_bands(grid, str(tmp_path / "grid.png"), title="grid"),
-            results.plot_mean_band([("us", logs_)], str(tmp_path / "mean.png")),
-            results.plot_comparison([("a", logs_[0]), ("b", logs_[1])],
-                                    str(tmp_path / "cmp.png"))]
-    for png in pngs:
-        with open(png, "rb") as f:
-            assert f.read(8) == b"\x89PNG\r\n\x1a\n", png
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(__import__("sys").modules, "matplotlib", None)
-        with pytest.raises(ImportError, match="matplotlib"):
-            results.plot_result(run, str(tmp_path / "none.png"))
-
-    _scenario_grid_matches_jax(tmp_path)
-
+def _variants_failures_and_scheduling():
     rc, var = _line(["--mode", "variants", "--variants", "v0,v1,w12,r1,wf", *_TINY])
     assert rc == 0 and [r["variant"] for r in var["variants"]] == ["v0", "v1", "w12", "r1", "wf"]
     assert all(r["seconds"] > 0 and r["vote_agree"] == 1.0 for r in var["variants"])

@@ -42,6 +42,7 @@ drift) chunked at K = 2 with metrics equals the port's per-round run and the
 JAX package's chunked run."""
 
 import dataclasses
+import json
 import os
 
 import numpy as np
@@ -58,6 +59,7 @@ from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
 from distributed_active_learning_tpu.runtime import loop as j_loop
 from distributed_active_learning_tpu.runtime import state as j_state
 from distributed_active_learning_tpu.runtime import sweep as j_sweep
+from distributed_active_learning_tpu.runtime import telemetry as j_telemetry
 from distributed_active_learning_tpu.strategies import StrategyAux as JAux
 from distributed_active_learning_tpu.strategies import get_strategy as j_strategy
 from distributed_active_learning_tpu_torch import config as t_config
@@ -69,6 +71,7 @@ from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
 from distributed_active_learning_tpu_torch.runtime import loop as t_loop
 from distributed_active_learning_tpu_torch.runtime import state as t_state
 from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.strategies import StrategyAux as TAux
 from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
 
@@ -112,9 +115,18 @@ def _raw_chunk_parity(fused):
     ts = t_state.set_start_state(
         t_state.init_pool_state(tb.train_x, tb.train_y, prng.key(0), "cpu"), tcfg.n_start)
     tbins = t_train.make_bins(ts.x, tcfg.forest.max_bins)
+    # A probe stream_cb: round r's event fires after step r (its fit) and
+    # before step r + 1 runs.
+    log = []
+    fit = t_loop.make_device_fit(tcfg, tbins.edges, budget)
+
+    def logged_fit(codes, carry, key):
+        log.append(("step", int(carry.round) + 1))
+        return fit(codes, carry, key)
+
     t_chunk = t_loop.make_chunk_fn(
-        t_strategy(tcfg.strategy), window, K, t_loop.make_device_fit(tcfg, tbins.edges, budget),
-        label_cap=ts.n_valid, fused_round=fused)
+        t_strategy(tcfg.strategy), window, K, logged_fit, label_cap=ts.n_valid,
+        fused_round=fused, stream_cb=lambda *row: log.append(("event", *row)))
     t_out, t_extras, t_ys = t_chunk(
         tbins.codes, t_state.as_carry(ts), TAux(seed_mask=ts.labeled_mask.clone()),
         prng.key(0x5EED), torch.from_numpy(tb.test_x), torch.from_numpy(tb.test_y),
@@ -127,6 +139,8 @@ def _raw_chunk_parity(fused):
         np.testing.assert_array_equal(jy.view(np.int32) if jy.dtype == np.float32 else jy,
                                       ty.view(np.int32) if ty.dtype == np.float32 else ty, name)
     assert t_ys[4].tolist() == [True, True, False]
+    rows = list(zip(*(y.tolist() for y in (t_ys[0], t_ys[1], t_ys[2], t_ys[4]))))
+    assert log == [e for r, row in enumerate(rows) for e in (("step", r + 1), ("event", *row))]
     assert int(t_extras.n_active) == int(j_extras.n_active) == 2
     assert int(t_extras.n_labeled_after) == int(j_extras.n_labeled_after) == 40
     np.testing.assert_array_equal(np.asarray(j_out.labeled_mask), t_out.labeled_mask.numpy())
@@ -160,6 +174,26 @@ def _metrics_chunk_parity():
         assert [r.metrics for r in got.records] == [r.metrics for r in per_round.records], depth
         assert torch.equal(got.final_labeled_mask, plain.final_labeled_mask)
     assert all(sum(r.metrics["picked_hist"]) == 15 for r in got.records)
+
+
+def _stream_events_match(t_path, j_path, got):
+    """The port's ``round_stream`` events are JAX's, one an active round in
+    round order, and each chunk's are all written before its touchdown
+    writes its first ``round`` event."""
+    def read(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    t_ev, j_ev = read(t_path), read(j_path)
+    seq = [(e["round"], e["n_labeled"], e["accuracy"]) for e in t_ev if e["kind"] == "round_stream"]
+    assert seq == [(e["round"], e["n_labeled"], e["accuracy"])
+                   for e in j_ev if e["kind"] == "round_stream"]
+    assert seq == [(r.round, r.n_labeled, r.accuracy) for r in got.records]
+    at = {(e["kind"], e["round"]): i for i, e in enumerate(t_ev) if "round" in e}
+    last = got.records[-1].round
+    for r in range(1, last + 1):
+        chunk_end = min(-(-r // K) * K, last)
+        assert at[("round_stream", chunk_end)] < at[("round", r)], r
 
 
 def _fingerprints_agree():
@@ -267,10 +301,17 @@ def test_chunked_matches_jax(tmp_path):
             assert per_round.pipeline_stats is None
             want_labeled = [10, 25, 40, 55, 70][: len(per_round.records)]
             assert [r.n_labeled for r in per_round.records] == want_labeled, what
+            # round_stream events in one case, written by both packages.
+            stream = not fused and "max_rounds" in what
             for depth in (1, 2):
+                writer = (t_telemetry.MetricsWriter(str(tmp_path / "t_stream.jsonl"))
+                          if stream and depth == 2 else None)
                 got = t_loop.run_experiment(
-                    dataclasses.replace(tcfg, rounds_per_launch=K, pipeline_depth=depth),
-                    device="cpu")
+                    dataclasses.replace(tcfg, rounds_per_launch=K, pipeline_depth=depth,
+                                        stream_round_events=writer is not None),
+                    device="cpu", metrics=writer)
+                if writer is not None:
+                    writer.close()
                 assert _key(got) == _key(per_round), (fused, what, depth)
                 assert got.to_reference_log() == per_round.to_reference_log()
                 assert torch.equal(got.final_labeled_mask, per_round.final_labeled_mask)
@@ -281,9 +322,17 @@ def test_chunked_matches_jax(tmp_path):
             # case once: it compiles a program per call).
             if fused and "budget" in what:
                 continue
-            want = j_loop.run_experiment(dataclasses.replace(jcfg, rounds_per_launch=K))
+            jwriter = (j_telemetry.MetricsWriter(str(tmp_path / "j_stream.jsonl"))
+                       if stream else None)
+            want = j_loop.run_experiment(
+                dataclasses.replace(jcfg, rounds_per_launch=K, stream_round_events=stream),
+                metrics=jwriter)
             assert _key(got) == _key(want), (fused, what)
             assert got.to_reference_log() == want.to_reference_log()
+            if stream:
+                jwriter.close()
+                _stream_events_match(str(tmp_path / "t_stream.jsonl"),
+                                     str(tmp_path / "j_stream.jsonl"), got)
         _raw_chunk_parity(fused)
 
     # The gather form (a depth-11 device fit), density, quantized storage, a

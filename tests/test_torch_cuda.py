@@ -442,15 +442,22 @@ def test_chunked_graph_matches_per_round(cuda):
 def test_metrics_chunk_and_resume_on_the_card(cuda, tmp_path):
     """RoundMetrics in the graphed chunk (depth 1 and 2) equal the per-round
     driver's on the card, and the CPU's (pool_entropy, a sum in another
-    order, to ``telemetry.POOL_ENTROPY_RTOL``), and metrics change no pick; a run
+    order, to ``telemetry.POOL_ENTROPY_RTOL``), and metrics change no pick;
+    ``round_stream`` events (depth 2) are each chunk's records, written
+    before its touchdown, with the launches of the run without them; a run
     stopped at 2 rounds and resumed to 5 on the card, chunked and per round
     from the chunk's checkpoint, equals the uninterrupted run."""
     import dataclasses
     import os
 
+    import json
+
     from distributed_active_learning_tpu_torch import config
     from distributed_active_learning_tpu_torch.runtime import loop
-    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+    from distributed_active_learning_tpu_torch.runtime.telemetry import (
+        POOL_ENTROPY_RTOL,
+        MetricsWriter,
+    )
 
     base = config.ExperimentConfig(
         data=config.DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
@@ -468,14 +475,30 @@ def test_metrics_chunk_and_resume_on_the_card(cuda, tmp_path):
         assert abs(a.metrics["pool_entropy"] - b.metrics["pool_entropy"]) <= (
             POOL_ENTROPY_RTOL * abs(b.metrics["pool_entropy"])), a.round
     for depth in (1, 2):
-        c = dataclasses.replace(base, rounds_per_launch=3, pipeline_depth=depth)
+        # At depth 2 with round_stream events: the same launches, and each
+        # chunk's events (the records' values) written before its touchdown
+        # writes its first round event.
+        stream = depth == 2
+        writer = MetricsWriter(str(tmp_path / "m.jsonl")) if stream else None
+        c = dataclasses.replace(base, rounds_per_launch=3, pipeline_depth=depth,
+                                stream_round_events=stream)
         before = trees_pallas.launches
-        got = loop.run_experiment(c, device=cuda)
+        got = loop.run_experiment(c, device=cuda, metrics=writer)
         # One eager warm-up round and two replays of 3: K1 twice a round.
         assert trees_pallas.launches - before == 2 * (1 + 2 * 3)
         assert got.graph_stats["captures"] == 1 and got.graph_stats["replays"] == 2
         assert [r.metrics for r in got.records] == [r.metrics for r in per_round.records]
         assert torch.equal(got.final_labeled_mask, plain.final_labeled_mask)
+        if stream:
+            writer.close()
+            with open(tmp_path / "m.jsonl") as f:
+                events = [json.loads(line) for line in f]
+            ev = [(e["round"], e["n_labeled"], e["accuracy"]) for e in events
+                  if e["kind"] == "round_stream"]
+            assert ev == [(r.round, r.n_labeled, r.accuracy) for r in got.records]
+            at = {(e["kind"], e["round"]): i for i, e in enumerate(events) if "round" in e}
+            assert at[("round_stream", 3)] < at[("round", 1)]
+            assert at[("round_stream", 5)] < at[("round", 4)]
     ck = str(tmp_path / "ck")
     chunked = dataclasses.replace(base, rounds_per_launch=3, checkpoint_dir=ck,
                                   checkpoint_every=1)
@@ -1031,3 +1054,36 @@ def test_serving_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert gm.tenant("t0").program_stats()  # the captured graphs' counts
     for mgr, _ in mgrs:
         mgr.close()
+
+
+def test_fleet_on_the_card_matches_in_process_and_the_cpu(cuda):
+    """A spawned 2-worker fleet on the card (``serving/fleet.py``): 4 small
+    gemm tenants' scores through the router bit-equal to each worker's
+    manager built in process on the card and on the CPU; every worker on
+    the card, no recompile after warmup, its groups the ring's placement."""
+    from distributed_active_learning_tpu_torch.serving import fleet as fleet_lib
+
+    specs = [fleet_lib.TenantSpec(f"u{i}", features=4, pool_rows=64, shift=0.3 * i, seed=20 + i,
+                                  n_trees=6, max_depth=3, slab_rows=64, score_width=16,
+                                  ingest_block=16) for i in range(4)]
+    queries = {s.tenant_id: np.random.default_rng(600 + i).normal(size=(21, 4)).astype(np.float32)
+               for i, s in enumerate(specs)}
+    fleet = fleet_lib.Fleet(specs, n_workers=2, device="cuda").start()
+    try:
+        got = {tid: fleet.score(tid, q) for tid, q in queries.items()}
+    finally:
+        final = fleet.stop()
+    for dev in (cuda, "cpu"):
+        for wid in fleet.worker_ids:
+            mgr = fleet_lib.build_manager(fleet.specs_for(wid), device=dev)
+            try:
+                for s in fleet.specs_for(wid):
+                    want = mgr.score_many({s.tenant_id: queries[s.tenant_id]})[s.tenant_id]
+                    np.testing.assert_array_equal(got[s.tenant_id], want)
+            finally:
+                mgr.close()
+    for wid, f in final["workers"].items():
+        assert f["device"].startswith("cuda") and f["recompiles_after_warmup"] == 0, f
+        placed = [s.tenant_id for s in fleet.specs_for(wid)]
+        assert f["score_groups"] == ([placed] if len(placed) > 1 else []), f
+    assert final["router"]["unroutable"] == 0

@@ -7,7 +7,13 @@ route against JAX's numpy route, the files both refuse, a failed build
 raising), bin edges and codes (also snapped to bf16 for quantized storage),
 start masks, fitted forests and their gather form (depth 4 and 11), a
 3-class fit's planes (a MultiForest) and quantized storage are
-bit-identical on the same inputs (CPU, plain PyTorch)."""
+bit-identical on the same inputs (CPU, plain PyTorch). The CLI on a file
+(``--dataset credit_card_fraud --data-path``) prints the JAX CLI's log line
+for line, and ``--plot`` and the five ``plot_*`` functions render PNGs (each
+raising an ImportError naming matplotlib without it)."""
+
+import contextlib
+import io
 
 import numpy as np
 import jax
@@ -50,6 +56,7 @@ def test_checkerboard2x2_bundle_bit_identical(tmp_path):
             _bits_equal(getattr(a, field), getattr(b, field))
     _registry_matches_jax(tmp_path)
     _loader_matches_jax(tmp_path)
+    _cli_on_a_file_and_plots(tmp_path)
     _start_masks_match_jax()
 
 
@@ -328,3 +335,48 @@ def _check_fit_forest_device(n_trees):
         t_train.quantize_forest(t_train.heap_packed_forest(*ft, depth).planes[0], "int8")
     with pytest.raises(ValueError, match="unknown quantize mode"):
         t_train.quantize_forest(mt, "fp4")
+
+
+def _cli_on_a_file_and_plots(tmp_path):
+    from distributed_active_learning_tpu import run as j_run
+    from distributed_active_learning_tpu_torch import run as t_run
+    from distributed_active_learning_tpu_torch.data import formats
+    from distributed_active_learning_tpu_torch.runtime import results
+
+    csv = str(tmp_path / "creditcard.csv")
+    formats.write_credit_card_csv(csv, n_rows=1000, n_fraud=40, seed=3)
+    argv = ["--dataset", "credit_card_fraud", "--data-path", csv, "--fit", "device", "--kernel",
+            "pallas", "--fused-round", "--n-samples", "600", "--trees", "8", "--window", "15",
+            "--rounds", "3", "--seed", "1", "--quiet"]
+    logs = []
+    for main, extra in ((j_run.main, []),
+                        (t_run.main, ["--device", "cpu", "--plot", str(tmp_path / "run.png")])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert not main(argv + extra)
+        logs.append(out.getvalue())
+    assert logs[0] == logs[1] and logs[1].count("Iteration") == 3, logs
+    # The plot functions: one run (the CLI's --plot above), a sweep's band,
+    # a grid's bands, and bands and curves from reference-format logs.
+    run = results.parse_reference_log(logs[1])
+    assert run.to_reference_log() == logs[1]
+    other = results.parse_reference_log(logs[1].replace("95.00", "93.50"))
+    cells = [type("Cell", (), dict(strategy=s, dataset="cc", result=r))
+             for s, r in (("uncertainty", run), ("uncertainty", other), ("random", other))]
+    grid = type("Grid", (), dict(cells=cells))
+    for i, r in enumerate((run, other)):
+        r.save(str(tmp_path / f"log{i}.txt"))
+    logs_ = [str(tmp_path / f"log{i}.txt") for i in range(2)]
+    pngs = [str(tmp_path / "run.png"),
+            results.plot_seed_band([run, other], str(tmp_path / "band.png")),
+            results.plot_grid_bands(grid, str(tmp_path / "grid.png"), title="grid"),
+            results.plot_mean_band([("us", logs_)], str(tmp_path / "mean.png")),
+            results.plot_comparison([("a", logs_[0]), ("b", logs_[1])],
+                                    str(tmp_path / "cmp.png"))]
+    for png in pngs:
+        with open(png, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n", png
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(__import__("sys").modules, "matplotlib", None)
+        with pytest.raises(ImportError, match="matplotlib"):
+            results.plot_result(run, str(tmp_path / "none.png"))

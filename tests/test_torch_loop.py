@@ -394,6 +394,9 @@ from distributed_active_learning_tpu_torch.models import forest_io
 from distributed_active_learning_tpu_torch.ops import ring_topk
 from distributed_active_learning_tpu_torch.parallel import collectives, kernels, mesh
 from distributed_active_learning_tpu_torch.runtime import checkpoint, obs, pipeline, sweep, telemetry
+from distributed_active_learning_tpu_torch.serving import fleet
+import torch
+assert not torch.cuda.is_initialized()  # the fleet's router process imports this much
 small = ["--device", "cpu", "--n-samples", "200", "--trees", "4", "--window", "5",
          "--rounds", "2", "--quiet"]
 tmp = tempfile.mkdtemp()
@@ -480,7 +483,8 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
     density, int8 storage, lal, a 2-seed sweep, a 2-cell grid, a noisy
     oracle and a 2-scenario x 2-seed grid) and the streaming service's CLI
     (a stream, and its resume) run in a fresh interpreter, and neither the
-    port nor scikit-learn pulls in JAX or the JAX package."""
+    port nor scikit-learn pulls in JAX or the JAX package; importing the
+    fleet (``serving.fleet``) initializes no CUDA."""
     out = subprocess.run(
         [sys.executable, "-c", _ISOLATION], capture_output=True, text=True, timeout=300,
     )

@@ -30,6 +30,7 @@ from distributed_active_learning_tpu import run as j_run
 from distributed_active_learning_tpu.models import neural as j_neural
 from distributed_active_learning_tpu.models import transformer as j_transformer
 from distributed_active_learning_tpu.runtime import neural_loop as j_loop
+from distributed_active_learning_tpu.runtime import telemetry as j_telemetry
 from distributed_active_learning_tpu.strategies import deep as j_deep
 from distributed_active_learning_tpu_torch import interop, prng
 from distributed_active_learning_tpu_torch import run as t_run
@@ -273,19 +274,36 @@ def test_neural_loop_matches_jax(tmp_path):
 
     # A chunked run with a metrics writer: one round event a round with the
     # RoundMetrics computed inside the chunk, the pool entropy from the MC
-    # samples; stream events at the touchdown.
-    m = str(tmp_path / "m.jsonl")
+    # samples; round_stream events as each round finishes, each chunk's
+    # before its touchdown's round events, in the sequence of JAX's chunked
+    # run (its accuracy to ACC_ATOL).
+    m, jm = str(tmp_path / "m.jsonl"), str(tmp_path / "jm.jsonl")
+    streamed = dict(base, strategy="entropy", rounds_per_launch=2, stream_round_events=True)
     with t_telemetry.MetricsWriter(m) as w:
-        rm = t_loop.run_neural_experiment(
-            t_loop.NeuralExperimentConfig(rounds_per_launch=2, stream_round_events=True,
-                                          **dict(base, strategy="entropy")), tl, x, y, tx, ty,
-            metrics=w)
+        rm = t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(**streamed), tl, x, y,
+                                          tx, ty, metrics=w)
+    jw = j_telemetry.MetricsWriter(jm)
+    j_loop.run_neural_experiment(j_loop.NeuralExperimentConfig(**streamed), jl, x, y, tx, ty,
+                                 metrics=jw)
+    jw.close()
     assert _records(rm) == _records(t_loop.run_neural_experiment(
         t_loop.NeuralExperimentConfig(**dict(base, strategy="entropy")), tl, x, y, tx, ty))
     assert all(r.metrics is not None and r.metrics["pool_entropy"] > 0 for r in rm.records)
     with open(m) as f:
-        kinds = [json.loads(line)["kind"] for line in f]
+        events = [json.loads(line) for line in f]
+    with open(jm) as f:
+        j_stream = [e for e in map(json.loads, f) if e["kind"] == "round_stream"]
+    kinds = [e["kind"] for e in events]
     assert kinds.count("round") == 3 and kinds.count("round_stream") == 3
+    t_stream = [e for e in events if e["kind"] == "round_stream"]
+    assert [(e["round"], e["n_labeled"]) for e in t_stream] == \
+        [(e["round"], e["n_labeled"]) for e in j_stream] == \
+        [(r.round, r.n_labeled) for r in rm.records]
+    assert all(abs(a["accuracy"] - b["accuracy"]) <= ACC_ATOL for a, b in zip(t_stream, j_stream))
+    assert [e["accuracy"] for e in t_stream] == [r.accuracy for r in rm.records]
+    # chunks {1, 2} and {3}: a chunk's events come before its first record
+    at = {(e["kind"], e["round"]): i for i, e in enumerate(events) if "round" in e}
+    assert at[("round_stream", 2)] < at[("round", 1)] and at[("round_stream", 3)] < at[("round", 3)]
 
     # Refusals: a model axis with JAX's message, a data axis by name.
     with pytest.raises(ValueError, match="model parallelism of the network"):

@@ -19,7 +19,9 @@ fitted from the committed fixture (its values in the gather form and through
 K1's plain version) are bit-equal to the jitted JAX expressions. The
 scenario engine's round pieces (the greedy knapsack, label flips, rare
 recall, the abstaining reveal) equal the JAX package's, and its validation
-refuses with the same messages.
+refuses with the same messages; and the scenario grid (every family x
+entropy and density x 2 seeds in one stream) against the JAX package's
+``run_grid``, its serial cells, its fingerprint and its checkpoints.
 """
 
 import numpy as np
@@ -91,7 +93,7 @@ def _forest(n_trees, depth, seed, n_fit=400, d=5):
     return gf, interop.gemm_forest_from_numpy(*arrays), rng
 
 
-def test_score_tables_match_jax():
+def test_score_tables_match_jax(tmp_path):
     for strategy in _STRATEGY_FN:
         j_fused_t, j_unfused_t = _jax_tables(strategy)
         np.testing.assert_array_equal(j_fused_t.view(np.int32), j_unfused_t.view(np.int32))
@@ -151,6 +153,7 @@ def test_score_tables_match_jax():
 
     _multiclass_and_lal_match_jax()
     _scenario_ops_match_jax()
+    _scenario_grid_matches_jax(tmp_path)
 
 
 def _scenario_ops_match_jax():
@@ -327,3 +330,97 @@ def _multiclass_and_lal_match_jax():
         assert tfe.shape == (4, 5)
         np.testing.assert_array_equal(_bits(jfe), _bits(tfe))
         np.testing.assert_array_equal(_bits(jta), _bits(tta))
+
+
+def _scenario_grid_matches_jax(tmp_path):
+    """The scenario grid: the JAX package's scenario families (its
+    ``tests/test_scenarios.py`` SCENARIOS and configuration) x entropy and
+    density x seeds 0 and 1, 20 cells in one stream, metrics on. Each cell
+    equals its serial ``run_experiment`` in the port (records, every metric,
+    final mask). Against the JAX package's ``run_grid``: the entropy cells
+    bit-equal (records; metrics but pool_entropy, which is held to
+    ``POOL_ENTROPY_RTOL``), the density cells in their first round and their
+    metric keys (a density pick can differ from JAX's at a tie at score 0,
+    where the similarity mass clamps to 0 in one package and not in the other:
+    ROADMAP queue 3; the mass agrees only to ``MASS_RTOL``). The scenario
+    grid's fingerprint is JAX's, and its ``gridstate_`` files resume across
+    both packages to the uninterrupted records."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from distributed_active_learning_tpu import config as j_config
+    from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
+    from distributed_active_learning_tpu.runtime import sweep as j_sweep
+    from distributed_active_learning_tpu_torch import config as t_config
+    from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+    from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    kinds = [dict(), dict(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+             dict(kind="rare_event", rare_class=1), dict(kind="drift", drift_rate=0.3),
+             dict(kind="cost_budget", cost_budget=6.0)]
+    j_axis = [j_config.ScenarioConfig(**kw) for kw in kinds]
+    t_axis = [t_config.ScenarioConfig(**kw) for kw in kinds]
+    jcfg = j_config.ExperimentConfig(
+        data=j_config.DataConfig(name="checkerboard2x2", n_samples=96, seed=2),
+        forest=j_config.ForestConfig(n_trees=4, max_depth=3, fit="device", fit_budget=96),
+        strategy=j_config.StrategyConfig(name="entropy", window_size=8), n_start=8,
+        max_rounds=3, rounds_per_launch=2, log_every=0, collect_metrics=True)
+    tcfg = t_config.from_dict(dataclasses.asdict(jcfg))
+    axes = (["entropy", "density"], [0, 1])
+    want = j_sweep.run_grid(jcfg, *axes, scenarios=j_axis)
+    got = t_sweep.run_grid(tcfg, *axes, scenarios=t_axis, device="cpu")
+    assert not got.serial_fallback and len(got.cells) == 20
+    rounds = lambda res: [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+    for tc, jc in zip(got.cells, want.cells, strict=True):
+        assert (tc.strategy, tc.seed, tc.scenario) == (jc.strategy, jc.seed, jc.scenario)
+        scn = t_axis[[kw.get("kind", "none") for kw in kinds].index(tc.scenario)]
+        serial = t_loop.run_experiment(dataclasses.replace(
+            tcfg, seed=tc.seed, rounds_per_launch=1, scenario=scn,
+            strategy=dataclasses.replace(tcfg.strategy, name=tc.strategy)), device="cpu")
+        assert rounds(tc.result) == rounds(serial), (tc.strategy, tc.scenario, tc.seed)
+        assert [r.metrics for r in tc.result.records] == [r.metrics for r in serial.records]
+        assert torch.equal(tc.result.final_labeled_mask, serial.final_labeled_mask)
+        assert [list(r.metrics) for r in tc.result.records] == [
+            list(r.metrics) for r in jc.result.records]
+        n = None if tc.strategy == "entropy" else 1
+        assert rounds(tc.result)[:n] == rounds(jc.result)[:n], (tc.strategy, tc.scenario)
+        if tc.strategy == "entropy":
+            for a, b in zip(tc.result.records, jc.result.records):
+                for field, v in b.metrics.items():
+                    if field == "pool_entropy":
+                        assert abs(a.metrics[field] - v) <= POOL_ENTROPY_RTOL * abs(v)
+                    else:
+                        assert a.metrics[field] == v, (tc.scenario, a.round, field)
+    assert got.cell("entropy", "checkerboard2x2", 1, scenario="drift").scenario == "drift"
+    assert len(got.results_for("density", scenario="cost_budget")) == 2
+    names = [kw.get("kind", "none") for kw in kinds]
+    fp_args = (["entropy"] * 5, [0, 1], ["checkerboard2x2"], [8] * 5)
+    assert t_ckpt.grid_fingerprint(tcfg, *fp_args, scenarios=names) == j_ckpt.grid_fingerprint(
+        jcfg, *fp_args, scenarios=names)
+    assert t_ckpt.grid_fingerprint(tcfg, *fp_args) != t_ckpt.grid_fingerprint(
+        tcfg, *fp_args, scenarios=names)
+
+    # gridstate_ files across the packages: a noisy oracle and a cost budget
+    # x entropy x 2 seeds, 3 rounds; each package's round-2 file resumed by
+    # the other to the uninterrupted records.
+    j_small, t_small = j_axis[1::3], t_axis[1::3]
+    ck = lambda name, r: dict(checkpoint_dir=str(tmp_path / name), checkpoint_every=1,
+                              max_rounds=r)
+    j_full = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_j", 3)), ["entropy"], [0, 1],
+                              scenarios=j_small)
+    t_full = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_t", 3)), ["entropy"], [0, 1],
+                              scenarios=t_small, device="cpu")
+    assert [rounds(c.result) for c in t_full.cells] == [rounds(c.result) for c in j_full.cells]
+    for name in ("s_j", "s_t"):
+        os.remove(tmp_path / name / "gridstate_3.npz")
+    resumed_t = t_sweep.run_grid(dataclasses.replace(tcfg, **ck("s_j", 1)), ["entropy"], [0, 1],
+                                 scenarios=t_small, device="cpu")
+    resumed_j = j_sweep.run_grid(dataclasses.replace(jcfg, **ck("s_t", 1)), ["entropy"], [0, 1],
+                                 scenarios=j_small)
+    for a, b, c in zip(resumed_t.cells, resumed_j.cells, t_full.cells, strict=True):
+        assert rounds(a.result) == rounds(b.result) == rounds(c.result), c.scenario
+        assert torch.equal(a.result.final_labeled_mask, c.result.final_labeled_mask)

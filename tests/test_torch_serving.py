@@ -18,11 +18,24 @@ serving/``) against the JAX package's, on the CPU, with the same inputs.
   warmup in both packages, a growth that swaps in a precompiled program set
   with no capture on the request path, the frontend's admission refusal and the cross-wired
   tenant checkpoint refusal.
+- The fleet (``serving/fleet.py``): ``HashRing`` placement and walk order
+  equal to JAX's for 64 keys over 1-5 nodes; ``_spec_data`` bit-equal; the
+  port's ``RouterServer`` against the JAX fleet test's stub workers (a
+  healthy echo worker and a sick one) gives JAX's statuses, bodies (the
+  binary body byte for byte), ``summary()`` and aggregated ``/metrics``
+  text; and a spawned 2-worker ``Fleet(device="cpu")`` of 4 small specs
+  scores bit-equal to JAX's ``TenantManager`` built as the JAX worker
+  builds it, every worker's ``recompiles_after_warmup`` 0.
 """
 
 import dataclasses
+import json
 import os
 import shutil
+import threading
+import urllib.error
+import urllib.request
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import jax
 import numpy as np
@@ -32,12 +45,14 @@ import torch
 from distributed_active_learning_tpu import config as j_config
 from distributed_active_learning_tpu.runtime import checkpoint as j_ckpt
 from distributed_active_learning_tpu.serving import drift as j_drift
+from distributed_active_learning_tpu.serving import fleet as j_fleet
 from distributed_active_learning_tpu.serving.service import ALService as JALService
 from distributed_active_learning_tpu.serving.tenants import TenantManager as JTenantManager
 from distributed_active_learning_tpu_torch import config as t_config
 from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
 from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.serving import drift as t_drift
+from distributed_active_learning_tpu_torch.serving import fleet as t_fleet
 from distributed_active_learning_tpu_torch.serving import slab as t_slab
 from distributed_active_learning_tpu_torch.serving.frontend import AdmissionError, ServiceFrontend
 from distributed_active_learning_tpu_torch.serving.service import ALService as TALService
@@ -314,3 +329,149 @@ def test_tenants_and_frontend_match_jax(tmp_path):
         tmgr.close()
         for s in svcs:
             s.manager.close()
+    _fleet_matches_jax()
+
+
+# The JAX fleet test's stub workers (tests/test_fleet.py): an echo /score
+# endpoint and an ops plane whose /healthz verdict is fixed.
+def _stub_server(handler_cls):
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler_cls)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, int(httpd.server_address[1])
+
+
+def _stub_worker(healthy: bool):
+    class _Score(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, *_a):
+            pass
+
+        def do_POST(self):  # noqa: N802
+            n = int(self.headers.get("Content-Length", 0))
+            body = self.rfile.read(n)
+            ctype = self.headers.get("Content-Type", "application/json")
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    class _Ops(BaseHTTPRequestHandler):
+        def log_message(self, *_a):
+            pass
+
+        def do_GET(self):  # noqa: N802
+            code = 200 if healthy else 503
+            body = json.dumps({"ok": healthy}).encode()
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    s1, score_port = _stub_server(_Score)
+    s2, ops_port = _stub_server(_Ops)
+    return (s1, s2), {"host": "127.0.0.1", "score_port": score_port, "ops_port": ops_port}
+
+
+def _router_exchange(router_cls, workers):
+    """The same requests through one router: each answer's status and
+    body, the summary and the aggregated /metrics text."""
+    router = router_cls(workers, port=0, health_ttl=0.05).start()
+    base = f"http://127.0.0.1:{router.port}"
+    blob = b"\x02\x00\x00\x00\x03\x00\x00\x00" + np.arange(6, dtype=np.float32).tobytes()
+    reqs = [(f"/score?tenant=u{i}", blob, "application/octet-stream") for i in range(8)]
+    reqs += [("/score", json.dumps({"tenant": f"u{i}", "queries": [[1.0, 2.0]]}).encode(),
+              "application/json") for i in range(8)]
+    reqs += [("/score", b"not json", "application/json"), ("/nope", b"", "application/json")]
+    answers = []
+    try:
+        for path, body, ctype in reqs:
+            req = urllib.request.Request(base + path, data=body, headers={"Content-Type": ctype})
+            try:
+                with urllib.request.urlopen(req, timeout=10) as r:
+                    answers.append((r.status, r.read()))
+            except urllib.error.HTTPError as e:
+                answers.append((e.code, e.read()))
+        gets = {}
+        for route in ("healthz", "workers", "summary", "metrics"):
+            with urllib.request.urlopen(f"{base}/{route}", timeout=10) as r:
+                gets[route] = (r.status, r.read())
+        return answers, router.summary(), gets, [router.route(f"u{i}") for i in range(8)]
+    finally:
+        router.stop()
+
+
+def _fleet_matches_jax():
+    keys = [f"tenant-{i}" for i in range(64)]
+    for n in range(1, 6):
+        nodes = [f"w{i}" for i in range(n)]
+        j_ring, t_ring = j_fleet.HashRing(nodes), t_fleet.HashRing(nodes)
+        assert [t_ring.nodes_for(k) for k in keys] == [j_ring.nodes_for(k) for k in keys]
+        assert [t_ring.lookup(k) for k in keys] == [j_ring.lookup(k) for k in keys]
+    spec = t_fleet.TenantSpec("u0", features=5, pool_rows=700, shift=0.4, seed=3)
+    for a, b in zip(t_fleet._spec_data(spec), j_fleet._spec_data(j_fleet.TenantSpec(
+            **dataclasses.asdict(spec))), strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+    # The router against stub workers, both packages' RouterServer.
+    (a1, a2), ep_ok = _stub_worker(healthy=True)
+    (b1, b2), ep_sick = _stub_worker(healthy=False)
+    workers = {"wok": ep_ok, "wsick": ep_sick}
+    try:
+        t_out = _router_exchange(t_fleet.RouterServer, workers)
+        j_out = _router_exchange(j_fleet.RouterServer, workers)
+    finally:
+        for srv in (a1, a2, b1, b2):
+            srv.shutdown()
+            srv.server_close()
+    assert t_out == j_out
+    answers, summary, gets = t_out[:3]
+    assert [a[0] for a in answers] == [200] * 16 + [400, 404]
+    assert all(body == answers[0][1] for _, body in answers[:8])  # the binary body, relayed
+    assert summary["routed"] == {"wok": 16} and summary["unroutable"] == 0
+    assert summary["rerouted"] > 0 and gets["healthz"][0] == 200
+
+    # A spawned 2-worker fleet on the CPU == JAX's managers, built as the
+    # JAX worker builds them.
+    specs = [t_fleet.TenantSpec(f"u{i}", features=4, pool_rows=64, shift=0.3 * i, seed=20 + i,
+                                n_trees=6, max_depth=3, slab_rows=64, score_width=16,
+                                ingest_block=16) for i in range(4)]
+    fleet = t_fleet.Fleet(specs, n_workers=2, device="cpu").start()
+    jmgrs = []
+    try:
+        got, want = {}, {}
+        for wid in fleet.worker_ids:
+            jmgr = JTenantManager()
+            jmgrs.append(jmgr)
+            for i, spec in enumerate(fleet.specs_for(wid)):
+                tcfg, tserve = t_fleet.spec_configs(spec, i)
+                jcfg = j_config.ExperimentConfig(
+                    forest=j_config.ForestConfig(n_trees=spec.n_trees, max_depth=spec.max_depth,
+                                                 kernel=spec.kernel, fit="device",
+                                                 fit_budget=spec.slab_rows),
+                    strategy=j_config.StrategyConfig(name="uncertainty", window_size=16),
+                    n_start=max(spec.pool_rows // 8, 4), log_every=0, seed=spec.seed + i)
+                jserve = j_config.ServeConfig(**dataclasses.asdict(tserve))
+                assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+                jmgr.add_tenant(spec.tenant_id, jcfg, jserve, *j_fleet._spec_data(
+                    j_fleet.TenantSpec(**dataclasses.asdict(spec))))
+            for spec in fleet.specs_for(wid):
+                q = _points(21, seed=600 + int(spec.tenant_id[1:]), shift=spec.shift)[0]
+                got[spec.tenant_id] = fleet.score(spec.tenant_id, q)
+                want[spec.tenant_id] = np.asarray(jmgr.score_many({spec.tenant_id: q})
+                                                  [spec.tenant_id])
+    finally:
+        final = fleet.stop()
+        for jmgr in jmgrs:
+            jmgr.close()
+    assert sorted(got) == [s.tenant_id for s in specs]
+    for tid in got:
+        np.testing.assert_array_equal(got[tid], want[tid], err_msg=tid)
+    assert sorted(final["workers"]) == ["w0", "w1"]
+    for wid, f in final["workers"].items():
+        assert f["recompiles_after_warmup"] == 0 and f["device"] == "cpu", f
+        assert f["tenants"] == [s.tenant_id for s in fleet.specs_for(wid)]
+    assert final["router"]["unroutable"] == 0 and final["router"]["rerouted"] == 0
