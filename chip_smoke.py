@@ -79,6 +79,28 @@ and prints no result:
    (s, m) on card (s + m) mod n), else a line says it did not run. Then a
    small checkerboard mesh run on the card must equal the same mesh on the
    CPU;
+4q. the mesh, whole (it runs after phase 4m: it reuses phases 4b-4l's
+   single-device runs as its references), every run on the 4 x 2 mesh on
+   ``devices=[cuda:0] * 8`` at the bench width: (a) the chunk (K = 4, 6
+   rounds, 4c's shape), fused and unfused, whose records and final masks
+   must equal 4c's chunked runs (and a 3-round chunk, fitting 4b's window,
+   must equal 4b's per-round mesh runs),
+   counted from 0 (fused K3 8, K4 3 and K1 8 a round, unfused K1 16, no K2),
+   one CUDA graph of a round (mode, captures, replays, launches a replay,
+   capture seconds and graph pool printed), then its steady s/round beside
+   4c's; (b) RoundMetrics: 4f's metrics chunk (unfused: the fused round
+   computes none) equal to 4f's, ``pool_entropy`` to
+   ``POOL_ENTROPY_RTOL``; (c) per round, 3 rounds: the gemm form (against
+   its single-device run made here), depth 12 (4d), density (4e; only the
+   watched tie may differ, and a line reports it), LAL (4i), and 8 rounds
+   of the noisy oracle (4l's run of that family, RoundMetrics too),
+   per-phase seconds printed; the host fit prints a
+   line saying it did not run (no scikit-learn on the card's machine); (d)
+   the E = 8 sweep (4j) and the 12-cell grid (4k), each experiment and cell
+   equal (density's score fields to ``MASS_RTOL``), experiment- and
+   cell-round seconds printed; (e) with two or more cards the chunk spread
+   over them, printing the mode that ran (else a line says it did not
+   run); (f) a small checkerboard chunked mesh run: card == CPU;
 4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
    ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
    ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
@@ -3280,6 +3302,246 @@ def main() -> int:
     shutil.rmtree(data_dir)
     print(f"# phase 4m: {time.perf_counter() - t_phase:.1f}s")
 
+    # -- phase 4q: the mesh, whole -----------------------------------------------
+    # Every path of this slice on the 4 x 2 mesh placed on the one card, each
+    # held against the single-device run an earlier phase made (4b, 4c, 4d,
+    # 4e, 4f, 4i, 4j, 4k, 4l).
+    t_phase = time.perf_counter()
+    M42 = MeshConfig(4, 2)
+    mesh_numbers = {"seconds": {}}
+    q_sec = mesh_numbers["seconds"]
+
+    def recs3(res):
+        return [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+
+    def metrics_close(a, b, mass=False):
+        """RoundMetrics equal field by field, pool_entropy to
+        POOL_ENTROPY_RTOL (a float sum over the pool, padded by one row on
+        the mesh), and with ``mass`` the four score fields to twice
+        MASS_RTOL of the largest |score| (the sharded mass sums its pooled
+        vector in shard order)."""
+        for ra, rb in zip(a, b, strict=True):
+            scale = max(abs(rb.metrics[f]) for f in ("score_min", "score_max")) or 1.0
+            for field, v in rb.metrics.items():
+                got_ = ra.metrics[field]
+                if field == "pool_entropy":
+                    ok_ = abs(got_ - v) <= telemetry.POOL_ENTROPY_RTOL * abs(v)
+                elif mass and field in ("score_min", "score_mean", "score_max", "score_margin"):
+                    ok_ = abs(got_ - v) <= 2 * similarity.MASS_RTOL * scale
+                else:
+                    ok_ = got_ == v
+                if not ok_:
+                    return False
+        return True
+
+    def mesh_drive(path, c, want, data=None):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = loop.run_experiment(c, bundle=data or bundle, device=dev, devices=one_card)
+        torch.cuda.synchronize()
+        q_sec[path] = time.perf_counter() - t0
+        launches[path] = counts()
+        runs[path] = res
+        want_launches[path] = want
+        if launches[path] != want:
+            fail(f"{path} launched {launches[path]}, want {want}")
+        return res
+
+    # (a) The chunk under the mesh, fused and unfused: 4c's shape (K = 4, 6
+    # rounds: one eager warm-up round, then 2 replays of 4 rounds).
+    rounds_run = 1 + n_chunks * K
+    for fused in (True, False):
+        name = "fused" if fused else "unfused"
+        path = f"mesh_chunked_{name}"
+        want = dict(zero, forest_leaves=(8 if fused else 16) * rounds_run,
+                    fused_votes=8 * rounds_run if fused else 0,
+                    ring_hop=3 * rounds_run if fused else 0)
+        res = mesh_drive(path, cfg(fused, mesh=(4, 2), max_rounds=CHUNK_ROUNDS,
+                                   rounds_per_launch=K), want)
+        ref = runs[f"chunked_{name}_depth1"]
+        if recs3(res) != recs3(ref) or not torch.equal(res.final_labeled_mask,
+                                                       ref.final_labeled_mask):
+            fail(f"{path} differs from phase 4c's single-device chunked run: {recs3(res)} vs "
+                 f"{recs3(ref)}")
+        # 4b's runs fit a 3-round window (the fit's bootstrap draw depends on
+        # its size): a 3-round chunk (one replay, 3 rounds active) fits it.
+        three = loop.run_experiment(cfg(fused, mesh=(4, 2), rounds_per_launch=K), bundle=bundle,
+                                    device=dev, devices=one_card)
+        if recs3(three) != recs3(runs[f"mesh_{name}"]) or not torch.equal(
+                three.final_labeled_mask, runs[f"mesh_{name}"].final_labeled_mask):
+            fail(f"the {ROUNDS}-round {path} differs from phase 4b's per-round mesh run")
+        g = res.graph_stats
+        if g is None or g["mode"] != "graph" or (g["captures"], g["replays"]) != (1, n_chunks):
+            fail(f"{path}: graph {g}, want mode 'graph', 1 capture and {n_chunks} replays")
+        per_round = {k_: v / rounds_run for k_, v in launches[path].items()}
+        mesh_numbers[path] = dict(
+            mode=g["mode"], captures=g["captures"], replays=g["replays"],
+            launches_per_replay=g["launches_per_replay"], launches_per_round=per_round,
+            capture_seconds=g["capture_seconds"], pool_mib=g["pool_bytes"] / 2**20)
+        print(f"#   {path}: == phase 4c (records, final {N_POOL}-row mask), and its {ROUNDS}-round "
+              f"twin == phase 4b's per-round mesh run; graph mode {g['mode']}, captures {g['captures']}, replays "
+              f"{g['replays']}, launches a replay {g['launches_per_replay']}, a round "
+              f"{per_round}; capture {g['capture_seconds']:.3f}s, graph pool "
+              f"{g['pool_bytes'] / 2**20:.0f} MiB")
+    # Steady seconds a chunked round, rounds 5-12 of 12, depth 1 (as 4c).
+    for fused in (True, False):
+        name = "fused" if fused else "unfused"
+        res = loop.run_experiment(cfg(fused, mesh=(4, 2), max_rounds=TIMED, rounds_per_launch=K,
+                                      pipeline_depth=1), bundle=bundle, device=dev,
+                                  devices=one_card)
+        s_round = statistics.mean(r.total_time for r in res.records[K:])
+        mesh_numbers[f"chunked_{name}_steady_seconds_per_round"] = s_round
+        print(f"#   mesh chunked {name} steady {s_round:.5f} s a round (rounds {K + 1}-{TIMED}), "
+              f"single device (4c) {chunk_times[f'{name}_chunked_depth1']:.5f} s ({kind}, {smi})")
+
+    # (b) RoundMetrics under the mesh: phase 4f's metrics chunk (unfused, as
+    # the fused round computes no metrics), 12 rounds of K = 4.
+    res = mesh_drive("mesh_metrics_chunked", tel_cfg(max_rounds=TIMED, mesh=(4, 2),
+                                                     collect_metrics=True),
+                     dict(zero, forest_leaves=16 * (1 + n_replays * K)))
+    ref = runs["metrics_chunked"]
+    if recs3(res) != recs3(ref) or not metrics_close(res.records, ref.records) or not torch.equal(
+            res.final_labeled_mask, ref.final_labeled_mask):
+        fail("the mesh metrics chunk differs from phase 4f's (records, RoundMetrics, mask)")
+    pe = max(abs(a.metrics["pool_entropy"] - b.metrics["pool_entropy"])
+             / abs(b.metrics["pool_entropy"]) for a, b in zip(res.records, ref.records))
+    mesh_numbers["metrics_pool_entropy_max_rel"] = pe
+    print(f"#   mesh metrics chunk == phase 4f's (records, mask, RoundMetrics; pool_entropy "
+          f"within {pe:.2e} relative, POOL_ENTROPY_RTOL {telemetry.POOL_ENTROPY_RTOL})")
+
+    # (c) Per round, each against its single-device run: 3 rounds of the
+    # gemm form (its reference run here), depth 12 (4d), density (4e) and
+    # LAL (4i); the noisy oracle's 8 (4l's family).
+    gemm_forest = dataclasses.replace(cfg(False).forest, kernel="gemm")
+    zero_counts()
+    gemm_ref = loop.run_experiment(cfg(False, forest=gemm_forest), bundle=bundle, device=dev)
+    per_round_cases = (
+        ("mesh_gemm", cfg(False, mesh=(4, 2), forest=gemm_forest), gemm_ref, dict(zero)),
+        ("mesh_gather_deep", cfg(False, mesh=(4, 2), forest=deep_forest), runs["gather_deep"],
+         dict(zero)),
+        ("mesh_density", cfg(False, mesh=(4, 2), strategy=density), runs["density"],
+         dict(zero, forest_leaves=16 * ROUNDS)),
+        ("mesh_lal", cfg(False, mesh=(4, 2), strategy=lal_cfg), runs["lal"],
+         dict(zero, forest_leaves=16 * ROUNDS)),
+        # 4l's run: 8 rounds (the fit window is the 8-round run's).
+        ("mesh_noisy_oracle", dataclasses.replace(scn_cfg, mesh=M42,
+                                                  scenario=families["noisy_oracle"]),
+         scn_runs["noisy_oracle"], dict(zero, forest_leaves=16 * SCN_ROUNDS)),
+    )
+    for path, c, ref, want in per_round_cases:
+        res = mesh_drive(path, c, want)
+        ref_recs = recs3(ref)
+        same_mask = torch.equal(res.final_labeled_mask, ref.final_labeled_mask)
+        if recs3(res) != ref_recs or not same_mask:
+            if path == "mesh_density":  # the watched boundary tie (ROADMAP queue 3)
+                print(f"#   {path}: DIFFERS from phase 4e's run (the density tie): "
+                      f"{recs3(res)} vs {ref_recs}")
+                mesh_numbers["density_differs"] = True
+            else:
+                fail(f"{path} differs from its single-device run: {recs3(res)} vs {ref_recs}")
+        if path == "mesh_noisy_oracle" and not metrics_close(res.records, ref.records):
+            fail(f"{path}: RoundMetrics differ from phase 4l's")
+        mesh_numbers[path] = [dict(fit=r.train_time, round=r.score_time, eval=r.eval_time)
+                              for r in res.records]
+        print(f"#   {path}: == its single-device run ({len(res.records)} rounds); launches "
+              f"{launches[path]}; per round (fit, round, eval) s: "
+              + ", ".join(f"({r.train_time:.4f}, {r.score_time:.4f}, {r.eval_time:.4f})"
+                          for r in res.records))
+    import importlib.util
+
+    if importlib.util.find_spec("sklearn") is None:
+        print("#   mesh host fit: NOT RUN (this machine has no scikit-learn; the CPU tests hold "
+              "it against the JAX package)")
+
+    # (d) The sweep (4j: E = 8) and the grid (4k: 12 cells) under the mesh:
+    # 16 K1 launches a round step (8 shards, pool and test set).
+    zero_counts()
+    t0 = time.perf_counter()
+    m_swept = sweep_lib.run_sweep(dataclasses.replace(sweep_cfg, mesh=M42), sweep_seeds,
+                                  bundle=bundle, device=dev, devices=one_card)
+    torch.cuda.synchronize()
+    q_sec["mesh_sweep"] = time.perf_counter() - t0
+    launches["mesh_sweep"] = counts()
+    want_launches["mesh_sweep"] = dict(zero, forest_leaves=16 * (1 + n_sweep_chunks * K))
+    if launches["mesh_sweep"] != want_launches["mesh_sweep"]:
+        fail(f"mesh sweep launched {launches['mesh_sweep']}, want {want_launches['mesh_sweep']}")
+    for s_, a, b in zip(sweep_seeds, m_swept, swept, strict=True):
+        if recs3(a) != recs3(b) or not metrics_close(a.records, b.records) or not torch.equal(
+                a.final_labeled_mask, b.final_labeled_mask):
+            fail(f"mesh sweep seed {s_} differs from phase 4j's sweep")
+    g = m_swept[0].graph_stats
+    mesh_numbers["sweep"] = dict(
+        steady_seconds_per_experiment_round=steady(m_swept[0]), mode=g["mode"],
+        capture_seconds=g["capture_seconds"], pool_mib=g["pool_bytes"] / 2**20,
+        k1_launches_per_replay=g["launches_per_replay"]["trees_pallas.launches"])
+    print(f"#   mesh sweep (E = {E_SWEEP}) == phase 4j (records, RoundMetrics, masks); steady "
+          f"{mesh_numbers['sweep']['steady_seconds_per_experiment_round']:.5f} s an "
+          f"experiment-round (4j: {sweep_numbers['steady_seconds_per_experiment_round']:.5f}); "
+          f"graph {g['mode']}, K1 {mesh_numbers['sweep']['k1_launches_per_replay']} a replay")
+    zero_counts()
+    t0 = time.perf_counter()
+    m_grid = sweep_lib.run_grid(dataclasses.replace(grid_cfg, mesh=M42), GRID_STRATEGIES,
+                                grid_seeds, datasets=["bench_pool"], bundles={"bench_pool": bundle},
+                                device=dev, devices=one_card)
+    torch.cuda.synchronize()
+    q_sec["mesh_grid"] = time.perf_counter() - t0
+    launches["mesh_grid"] = counts()
+    want_launches["mesh_grid"] = dict(zero, forest_leaves=16 * (1 + n_grid_chunks * K))
+    if launches["mesh_grid"] != want_launches["mesh_grid"]:
+        fail(f"mesh grid launched {launches['mesh_grid']}, want {want_launches['mesh_grid']}")
+    for a, b in zip(m_grid.cells, grid_cells_4k, strict=True):
+        dens = a.strategy == "density"
+        same = recs3(a.result) == recs3(b.result) and torch.equal(
+            a.result.final_labeled_mask, b.result.final_labeled_mask)
+        if same and not metrics_close(a.result.records, b.result.records, mass=dens):
+            fail(f"mesh grid cell {a.strategy}/seed {a.seed}: RoundMetrics differ from 4k's")
+        if not same:
+            if not dens:
+                fail(f"mesh grid cell {a.strategy}/seed {a.seed} differs from phase 4k's")
+            print(f"#   mesh grid cell density/seed {a.seed}: DIFFERS from phase 4k's (the "
+                  f"density tie): {recs3(a.result)} vs {recs3(b.result)}")
+            mesh_numbers["density_differs"] = True
+    g = m_grid.graph_stats
+    mesh_numbers["grid"] = dict(
+        steady_seconds_per_cell_round=statistics.mean(steady(c.result) for c in m_grid.cells),
+        mode=g["mode"], capture_seconds=g["capture_seconds"], pool_mib=g["pool_bytes"] / 2**20,
+        recompiles_after_warmup=m_grid.recompiles_after_warmup)
+    print(f"#   mesh grid ({len(m_grid.cells)} cells) == phase 4k (records, masks, RoundMetrics; "
+          f"density's score fields to MASS_RTOL); steady "
+          f"{mesh_numbers['grid']['steady_seconds_per_cell_round']:.5f} s a cell-round (4k: "
+          f"{grid_numbers['steady_seconds_per_cell_round']:.5f}); graph {g['mode']}")
+
+    # (e) The chunk spread over the visible cards (shard (s, m) on card
+    # (s + m) mod n): the mode that ran.
+    if n_cards >= 2:
+        spread = [torch.device("cuda", (s_ + m) % n_cards) for s_ in range(4) for m in range(2)]
+        for fused in (True, False):
+            res = loop.run_experiment(cfg(fused, mesh=(4, 2), max_rounds=CHUNK_ROUNDS,
+                                          rounds_per_launch=K), bundle=bundle, device=dev,
+                                      devices=spread)
+            ref = runs[f"chunked_{'fused' if fused else 'unfused'}_depth1"]
+            if recs3(res) != recs3(ref) or not torch.equal(res.final_labeled_mask.to(dev),
+                                                           ref.final_labeled_mask):
+                fail(f"the chunk spread over {n_cards} cards (fused={fused}) differs")
+            mesh_numbers[f"cards_{'fused' if fused else 'unfused'}_mode"] = (
+                res.graph_stats["mode"], res.graph_stats["mode_reason"])
+            print(f"#   mesh chunk across {n_cards} cards (fused={fused}) == 4c; mode "
+                  f"{res.graph_stats['mode']}: {res.graph_stats['mode_reason']}")
+    else:
+        print("#   mesh chunk across cards: NOT RUN (one card visible)")
+
+    # (f) A small checkerboard chunked mesh run: card == CPU (plain versions).
+    for fused in (True, False):
+        c = dataclasses.replace(small_mesh, fused_round=fused, rounds_per_launch=2)
+        on_card = loop.run_experiment(c, device=dev, devices=one_card)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        if on_card.to_reference_log() != on_cpu.to_reference_log() or not torch.equal(
+                on_card.final_labeled_mask.cpu(), on_cpu.final_labeled_mask):
+            fail(f"small chunked mesh run (fused={fused}) on the card != CPU")
+    print("#   small checkerboard chunked mesh run 4 x 2 (K = 2): card == CPU, fused and unfused")
+    q_sec["total"] = time.perf_counter() - t_phase
+    print(f"# phase 4q: {q_sec['total']:.1f}s ({', '.join(f'{k_} {v:.1f}' for k_, v in q_sec.items() if k_ != 'total')})")
+
     # -- phase 4n: the neural path -------------------------------------------
     lv.transposed_launches = lv.segmented_launches = 0
     neural_numbers = neural_phase(args.seed, dev, kind, smi, counts, zero_counts)
@@ -3642,6 +3904,21 @@ def main() -> int:
                     mode == "grid" and (payload["recompiles_after_warmup"] != 0
                                         or payload["scenario_recompiles_after_warmup"] != 0)):
                 fail(f"bench --mode {mode}: {payload}")
+    # Scoring through the mesh (the JAX bench's --mesh-data/--mesh-model): the
+    # pool padded to the data axis, every shard on the one card.
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(["--mode", "score", "--mesh-data", "4", "--mesh-model", "2",
+                         "--mesh-devices", ",".join(["cuda:0"] * 8)])
+    lines = out.getvalue().splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"bench --mode score through the mesh exited {rc}: {lines[-1:]}")
+    print(lines[0])
+    payload = json.loads(lines[0])
+    if payload.get("kernel") != "pallas+mesh4x2" or payload.get("mesh_devices") != 8 or not (
+            payload.get("value", 0) > 0):
+        fail(f"bench --mode score through the mesh: {payload}")
+    bench_batched["score_mesh4x2"] = payload
     variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
                         "forest_leaves_segmented": lv.segmented_launches}
     print(f"# bench --mode variants launches, counted from 0: {variant_launches}")
@@ -3731,6 +4008,7 @@ def main() -> int:
     ], "seconds_per_round": chunk_times, "neural": neural_numbers, "telemetry": telemetry_numbers,
         "multiclass": mc_numbers, "lal": lal_numbers, "lal_bench_k1_launches": lal_bench_launches,
         "sweep": sweep_numbers, "grid": grid_numbers, "scenarios": scenario_numbers,
+        "mesh": mesh_numbers,
         "files": files_numbers,
         "serving": {k: v for k, v in serving_numbers.items() if k not in ("launches", "k1")},
         "fleet": {k: v for k, v in fleet_numbers.items() if k != "launches"},

@@ -9,6 +9,11 @@ as it is) for what the port carries:
 - ``--mode score``: votes, uncertainty score and masked bottom-k over the
   pool (``bench_score``). ``value`` is scores per second from device time.
   ``--kernel gather`` scores through the gather form (``ops/trees.py``).
+  ``--mesh-data D --mesh-model M`` scores through the mesh, as the JAX
+  bench does: the pool padded to the data axis (its padding rows
+  unselectable) and sharded over it, the trees over ``model``, every shard
+  on the first D x M cards or on ``--mesh-devices``' list; ``kernel`` gains
+  ``+meshDxM`` and ``mesh_devices`` counts the shards.
 - ``--mode density``: the density acquisition (``bench_density``): votes,
   one-sided entropy times the similarity mass over the unlabeled pool, then
   the masked top-k; ``value`` is scores per second from device time. Its
@@ -242,6 +247,21 @@ def bench_score(args, dev) -> dict:
     forest = _fit_bench_forest(args, dev, train_x, train_y)
     pool_dev = torch.from_numpy(pool).to(dev)
     unlabeled = torch.ones(args.pool, dtype=torch.bool, device=dev)
+    kernel_used, n_mesh = args.kernel, args.mesh_data * args.mesh_model
+    if n_mesh > 1:
+        from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
+        from distributed_active_learning_tpu_torch.parallel import make_mesh, shard_forest, shard_rows
+
+        mesh = make_mesh(data=args.mesh_data, model=args.mesh_model, device=dev,
+                         devices=args.mesh_devices.split(",") if args.mesh_devices else None)
+        forest = attach_mesh(shard_forest(forest, mesh), mesh)
+        # The pool padded to the data axis (its padding rows unselectable);
+        # throughput counts the real rows only.
+        row_pad = (-args.pool) % args.mesh_data
+        pool_dev = shard_rows(torch.nn.functional.pad(pool_dev, (0, 0, 0, row_pad)), mesh,
+                              replicate=True)
+        unlabeled = torch.nn.functional.pad(unlabeled, (0, row_pad))
+        kernel_used += f"+mesh{args.mesh_data}x{args.mesh_model}"
 
     def acquisition():
         votes = forest_eval.votes(forest, pool_dev)
@@ -257,12 +277,13 @@ def bench_score(args, dev) -> dict:
         "metric": "acquisition_scores_per_sec",
         "value": round(args.pool / device_sec, 1),
         "unit": f"scores/s from device time ({args.pool}x{args.features} pool, {args.trees} "
-                f"trees, depth {args.depth}, {args.kernel} kernel)",
-        "kernel": args.kernel,
+                f"trees, depth {args.depth}, {kernel_used} kernel)",
+        "kernel": kernel_used,
         "device_time_method": "cuda_events" if dev.type == "cuda" else "host_clock",
         "device_seconds_per_query": device_sec,
         "wall_seconds_per_query": round(wall_sec, 6),
         "wall_scores_per_sec": round(args.pool / wall_sec, 1),
+        **({"mesh_devices": n_mesh} if n_mesh > 1 else {}),
     }
 
 
@@ -1535,6 +1556,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="forest evaluation: pallas (the hand-written CUDA kernels), gemm "
                     "(the plain path-matrix form) or gather (the traversal form; score and "
                     "density modes)")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="score mode: pool rows over this many data shards (with --mesh-model)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="score mode: trees over this many model shards")
+    ap.add_argument("--mesh-devices", default=None, metavar="D0,D1,...",
+                    help="score mode: the mesh's devices, filled row by row (a list may repeat "
+                    "a card: cuda:0,cuda:0,...); default the first data x model cards, or every "
+                    "shard on the CPU")
     ap.add_argument("--rounds-per-launch", type=int, default=None,
                     help="round mode: AL rounds per chunk launch (default 8 on CUDA, 4 under "
                     "--device cpu)")
@@ -1614,6 +1643,9 @@ def main(argv=None) -> int:
             raise ValueError(f"--kernel gather is carried by --mode score and density, "
                              f"not by --mode {args.mode}")
         cpu = dev.type == "cpu"
+        if args.mesh_data * args.mesh_model > 1 and args.mode != "score":
+            raise ValueError(f"--mesh-data/--mesh-model are carried by --mode score, not by "
+                             f"--mode {args.mode}")
         for name, value in (_CPU_SIZES if cpu else _CUDA_SIZES).items():
             if getattr(args, name) is None:
                 setattr(args, name, value)

@@ -392,12 +392,15 @@ _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 class NeuralLearner:
-    """Trainer and MC predictor around a :class:`FlaxModule`, on ``device``
-    (a ``torch.device``; the caller resolves it)."""
+    """Trainer and MC predictor around a :class:`FlaxModule`, on ``device``:
+    the card by default (``device.resolve_device``: without one it raises,
+    naming ``device="cpu"``), the CPU when the caller asks for it."""
 
     def __init__(self, module: FlaxModule, input_shape, learning_rate: float = 1e-3,
                  batch_size: int = 64, train_steps: int = 200, mc_samples: int = 8,
-                 predict_chunk: int = 4096, device="cpu"):
+                 predict_chunk: int = 4096, device=None):
+        from distributed_active_learning_tpu_torch.device import resolve_device
+
         self.module = module
         self.input_shape = tuple(input_shape)
         self.batch_size = batch_size
@@ -405,7 +408,7 @@ class NeuralLearner:
         self.mc_samples = mc_samples
         self.predict_chunk = predict_chunk
         self.learning_rate = learning_rate
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # Per-phase device split of the last fit, when a caller asks for it
         # (chip_smoke.py's draw / forward+backward / adam timing).
         self.phase_events = None

@@ -6,7 +6,8 @@ is a config knob (``ForestConfig.kernel``), not a code path:
 :class:`~.trees_gemm.GemmForest` the plain path-matrix form,
 :class:`~.trees_pallas.PallasForest` the hand-written leaf kernel, and
 :class:`~.trees_pallas.ShardedPallasForest` that kernel once per shard of a
-device mesh. :func:`for_kernel` turns a packed forest (a host fit's, a
+device mesh (and a ``parallel.mesh.ShardedForest`` the gemm or gather form
+per shard). :func:`for_kernel` turns a packed forest (a host fit's, a
 forest file's) into the form a kernel names. A multiclass
 :class:`~.trees_multi.MultiForest` is evaluated plane by plane by
 ``ops/trees_multi.py``; the entry points here take one plane.
@@ -20,12 +21,13 @@ from typing import Union
 import torch
 
 from distributed_active_learning_tpu_torch.ops import trees, trees_gemm, trees_pallas
+from distributed_active_learning_tpu_torch.parallel.mesh import ShardedForest
 
 Forest = Union[
     trees.PackedForest,
     trees_gemm.GemmForest,
     trees_pallas.PallasForest,
-    trees_pallas.ShardedPallasForest,
+    ShardedForest,
 ]
 
 # Deepest forest converted to path-matrix form (the JAX package's limit):
@@ -62,13 +64,12 @@ def evaluated(forest: Forest, x: torch.Tensor) -> EvaluatedForest:
     """``forest`` with its leaf values on ``x`` computed once (a
     :class:`~.trees_multi.MultiForest` plane by plane, one evaluation a
     plane); a forest already evaluated on this very ``x`` is returned as it
-    is. A mesh's sharded forest counts votes per shard and is refused."""
+    is. A mesh's sharded forest keeps the leaves joined on the mesh's first
+    device (one evaluation a shard)."""
     from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
 
     if isinstance(forest, MultiForest):
         return MultiForest(planes=tuple(evaluated(p, x) for p in forest.planes))
-    if isinstance(forest, trees_pallas.ShardedPallasForest):
-        raise TypeError("a sharded forest evaluates per shard; evaluated() takes one device's form")
     if isinstance(forest, EvaluatedForest) and forest.x is x:
         return forest
     return EvaluatedForest(forest, x, leaves(forest, x))
@@ -87,9 +88,13 @@ def evaluated_many(forests, x: torch.Tensor) -> list:
     rows of that launch, bit for bit what its own launch gives. Forests that
     differ in depth, node count, leaf pitch or payload are refused by name.
     :class:`~.trees_multi.MultiForest` s are stacked plane by plane (one
-    launch a plane). The gemm and gather forms (and forests past K1's tile
-    limits) are evaluated one by one: no kernel exists there, in the JAX
-    package either."""
+    launch a plane). On a mesh, :class:`~.trees_pallas.ShardedPallasForest`
+    s of one mesh are stacked shard by shard: one launch a (data, model)
+    shard over its row block of ``x`` (a row-sharded array), each forest's
+    leaves then joined as :func:`~..parallel.kernels.sharded_leaves` joins
+    them. The gemm and gather forms (and forests past K1's tile limits) are
+    evaluated one by one: no kernel exists there, in the JAX package
+    either."""
     from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
 
     forests = list(forests)
@@ -103,12 +108,39 @@ def evaluated_many(forests, x: torch.Tensor) -> list:
         planes = [evaluated_many([f.planes[c] for f in forests], x)
                   for c in range(forests[0].n_classes)]
         return [MultiForest(planes=tuple(p[e] for p in planes)) for e in range(len(forests))]
+    if all(type(f) is trees_pallas.ShardedPallasForest for f in forests) and len(
+            {id(f.mesh) for f in forests}) == 1:
+        return _evaluated_many_sharded(forests, x)
     n, d = x.shape
     if all(type(f) is trees_pallas.PallasForest for f in forests) and all(
             trees_pallas.tile_dims(f.gf, n, d) is not None for f in forests):
         return [EvaluatedForest(f, x, lv)
                 for f, lv in zip(forests, trees_pallas.predict_leaves_many(forests, x))]
     return [evaluated(f, x) for f in forests]
+
+
+def _evaluated_many_sharded(forests, x) -> list:
+    """:func:`evaluated_many` of sharded pallas forests of one mesh: one
+    stacked K1 launch a (data, model) shard (shards past the tile limits
+    are evaluated one by one)."""
+    from distributed_active_learning_tpu_torch.parallel import kernels as par_kernels
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = forests[0].mesh
+    xs = mesh_lib.shard_rows(x, mesh, replicate=True)
+    grids = [[[None] * len(row) for row in forests[0].shards] for _ in forests]
+    for s, row in enumerate(forests[0].shards):
+        for m in range(len(row)):
+            xb = xs.block(s, m)
+            local = [f.shards[s][m] for f in forests]
+            if all(trees_pallas.tile_dims(f.gf, *xb.shape) is not None for f in local):
+                leaves_sm = trees_pallas.predict_leaves_many(local, xb)
+            else:
+                leaves_sm = [leaves(f, xb) for f in local]
+            for e, lv in enumerate(leaves_sm):
+                grids[e][s][m] = lv
+    return [EvaluatedForest(f, x, par_kernels.join_leaf_grid(g, mesh, xs.n_rows))
+            for f, g in zip(forests, grids)]
 
 
 def _cached_leaves(forest, x):
@@ -124,7 +156,9 @@ def _cached_leaves(forest, x):
 
 
 def _kind(forest) -> str:
-    if isinstance(forest, (trees_pallas.PallasForest, trees_pallas.ShardedPallasForest)):
+    if isinstance(forest, ShardedForest):
+        return "sharded"
+    if isinstance(forest, trees_pallas.PallasForest):
         return "pallas"
     if isinstance(forest, trees_gemm.GemmForest):
         return "gemm"
@@ -140,7 +174,7 @@ def _kind(forest) -> str:
             "ops.trees_multi (proba_multi, predict_class), or one of its planes")
     raise TypeError(
         f"unsupported forest {type(forest).__name__}: the port evaluates PackedForest, "
-        "GemmForest, PallasForest and ShardedPallasForest"
+        "GemmForest, PallasForest and their sharded forms"
     )
 
 
@@ -150,6 +184,10 @@ def leaves(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     if cached is not None:
         return cached
     kind = _kind(forest)
+    if kind == "sharded":
+        from distributed_active_learning_tpu_torch.parallel.kernels import sharded_leaves
+
+        return sharded_leaves(forest, x)
     if kind == "pallas":
         return trees_pallas.predict_leaves(forest, x)
     if kind == "gemm":
@@ -163,6 +201,8 @@ def proba(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     if cached is not None:
         return trees_gemm.tree_mean(cached)
     kind = _kind(forest)
+    if kind == "sharded":
+        return trees_gemm.tree_mean(leaves(forest, x))
     if kind == "pallas":
         return trees_pallas.predict_proba(forest, x)
     if kind == "gemm":
@@ -176,6 +216,10 @@ def votes(forest: Forest, x: torch.Tensor) -> torch.Tensor:
     if cached is not None:
         return (cached > 0.5).sum(dim=1, dtype=torch.int32)
     kind = _kind(forest)
+    if kind == "sharded":
+        from distributed_active_learning_tpu_torch.parallel.kernels import sharded_votes
+
+        return sharded_votes(forest.mesh)(forest, x)
     if kind == "pallas":
         return trees_pallas.predict_votes(forest, x)
     if kind == "gemm":

@@ -29,6 +29,7 @@ the plain version, tensor copies (:func:`ring_step_plain`).
 from __future__ import annotations
 
 import ctypes
+import sys
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -93,7 +94,6 @@ def _launch_ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
     window of ``src`` (all on one CUDA device) into its ``dst`` buffers (on
     that card or a peer), ``MAX_WINDOWS`` to a launch. It orders no stream:
     :func:`ring_step` does, where devices differ."""
-    global launches
     dev = src[0][0].device
     k = src[0][0].shape[0]
     for v, i in (*src, *dst):
@@ -115,7 +115,7 @@ def _launch_ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
         with torch.cuda.device(dev):
             err = lib.ring_step(ptrs, m, k, stream)
         kernels.check("ring_step", err)
-        launches += 1
+        kernels.count_launch(sys.modules[__name__])
 
 
 def ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:

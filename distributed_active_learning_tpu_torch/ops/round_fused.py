@@ -15,7 +15,8 @@ in one pass over the pool (the port of ``ops/round_fused.py``).
   then the packed vote bits), for holding them on the card.
 - ``GemmForest`` (and pallas forests past the tile limits):
   :func:`_xla_streamed`, the exact gemm tile body per row tile.
-- ``ShardedPallasForest`` (a device mesh): :func:`_sharded_score_select`.
+- ``ShardedPallasForest`` (a device mesh): :func:`_sharded_score_select`
+  (a gemm forest on a mesh takes the same path with its exact votes).
   Each (data, model) shard counts its tree shard's votes on its row block
   with ``csrc/fused_votes.cu`` (K3, replacing the Pallas ``_votes_kernel``:
   the same heap walk as K2, its votes stored as ``[n]`` int32),
@@ -269,7 +270,6 @@ def fused_votes_plain(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
 
 def _launch_votes(ops: trees_pallas.HeapOperands, x: torch.Tensor):
     """Launch csrc/fused_votes.cu: ``[n]`` int32 hard votes."""
-    global votes_launches
     x = trees_pallas._check_x(x, ops)
     n, d = x.shape
     out = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -280,7 +280,7 @@ def _launch_votes(ops: trees_pallas.HeapOperands, x: torch.Tensor):
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check("fused_votes", err)
-    votes_launches += 1
+    kernels.count_launch(sys.modules[__name__], "votes_launches")
     return out
 
 
@@ -303,11 +303,22 @@ def fused_votes(forest, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported device {x.device}")
 
 
-def _vote_blocks(f: ShardedPallasForest, x):
-    """K3 on each (row block, tree shard), one sum over ``model`` per row
+def _exact_votes(forest, x: torch.Tensor) -> torch.Tensor:
+    """Hard votes of a gemm or gather form: the exact f32 compare of the
+    JAX package's streamed gemm round (no kernel there either)."""
+    from distributed_active_learning_tpu_torch.ops import forest_eval
+
+    return forest_eval.votes(forest, x)
+
+
+def _vote_blocks(f, x):
+    """Votes on each (row block, tree shard), one sum over ``model`` per row
     block: the votes of each data shard on its first device, and the
-    logical row count."""
-    grid, n = per_shard(f, x, fused_votes)
+    logical row count. K3 for the leaf kernel's shards; a gemm forest's
+    shards count their exact votes (the JAX package runs its streamed gemm
+    round on such a forest)."""
+    local = fused_votes if isinstance(f, ShardedPallasForest) else _exact_votes
+    grid, n = per_shard(f, x, local)
     return [vector_accumulate(row) for row in grid], n
 
 
@@ -318,7 +329,7 @@ def _sharded_fused_votes(f: ShardedPallasForest, x) -> torch.Tensor:
     return join_blocks(blocks, f.mesh, n)
 
 
-def _sharded_score_select(f: ShardedPallasForest, x, selectable, strategy_name: str, k: int):
+def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     """Fully distributed fused selection: per-shard K3 votes, one sum over
     ``model``, then per data shard the score (the strategy's table), the
     masked stable top-``min(k, n_local)`` of its block with global indices,
@@ -358,7 +369,7 @@ def fused_score_select(
             f"{sorted(FUSED_STRATEGIES)}"
         )
     _, higher = FUSED_STRATEGIES[strategy_name]
-    if isinstance(forest, ShardedPallasForest):
+    if isinstance(forest, mesh_lib.ShardedForest):
         vals, idx = _sharded_score_select(forest, x, selectable_mask, strategy_name, k)
         return (vals, idx) if higher else (-vals, idx)
     gf = forest.gf if isinstance(forest, PallasForest) else forest

@@ -38,9 +38,33 @@ def _ieee_f32():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def _sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(x * x, -1)`` of float32 rows in the order the JAX package's
+    jitted code adds the squares on an AVX-512 host: a fused multiply-add
+    chain for d = 1-4 and 9-32, a sequential sum of rounded squares for
+    d = 5-8, and ``xla_f32.row_sum``'s 32-term windows past 32. The order
+    below 33 moves with the host's vector instruction set (an AVX2 host
+    contracts at d = 5 and 7 too, SSE4.2 and AVX hosts nowhere: ROADMAP
+    queue 3); past 32 it is the same under every one. Elementwise
+    operations only, so the card gives the CPU's bits."""
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import fma_f32, row_sum
+
+    d = x.shape[-1]
+    if d > 32:
+        return row_sum((x * x).reshape(-1, d)).reshape(x.shape[:-1])
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for i in range(d):
+        xi = x[..., i]
+        acc = acc + xi * xi if 5 <= d <= 8 else fma_f32(xi, xi, acc)
+    return acc
+
+
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
-    """Rows scaled to unit L2 norm (norms below ``eps`` divide by ``eps``)."""
-    norm = torch.sqrt((x * x).sum(dim=-1, keepdim=True))
+    """Rows scaled to unit L2 norm (norms below ``eps`` divide by ``eps``):
+    the squares summed in the JAX package's order (:func:`_sum_squares`),
+    the root taken in float64 and rounded once (correctly rounded, as
+    XLA's; PyTorch's float32 root on the CPU is not everywhere)."""
+    norm = torch.sqrt(_sum_squares(x).double()).float()[..., None]
     return x / torch.clamp_min(norm, eps)
 
 

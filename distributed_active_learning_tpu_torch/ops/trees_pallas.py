@@ -42,7 +42,7 @@ Routes, each with its own counter:
   reaches it.
 
 On a device mesh a :class:`ShardedPallasForest` launches the kernel once per
-(data, model) shard, each on its own device (:func:`_predict_leaves_sharded`).
+(data, model) shard, each on its own device (``parallel.kernels``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,7 @@ from distributed_active_learning_tpu_torch.ops.trees_gemm import (
     tree_mean,
 )
 from distributed_active_learning_tpu_torch.ops.trees_train import heap_constant, heap_path_target
+from distributed_active_learning_tpu_torch.parallel.mesh import ShardedForest
 
 # Launches of csrc/forest_leaves.cu, counted where the kernel is launched.
 launches = 0
@@ -106,39 +107,32 @@ PAYLOAD_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 @dataclasses.dataclass(frozen=True)
-class ShardedPallasForest:
+class ShardedPallasForest(ShardedForest):
     """Mesh-aware twin of :class:`PallasForest`: ``shards[s][m]`` is model
     shard ``m``'s trees on ``mesh.devices[s][m]`` (``parallel.mesh.
     shard_forest``), and evaluation launches the kernel per shard on the
-    shard's row block, as the JAX package's ``shard_map`` does."""
-
-    shards: tuple
-    mesh: object
-
-    @property
-    def n_trees(self) -> int:
-        return sum(f.n_trees for f in self.shards[0])
+    shard's row block, as the JAX package's ``shard_map`` does; the fused
+    round runs K3 per shard on it."""
 
 
 def attach_mesh(forest, mesh):
-    """Wrap pallas forests for per-shard evaluation on ``mesh``: a
-    ``[data][model]`` grid from ``parallel.mesh.shard_forest``, a global
-    :class:`PallasForest` (sharded here), or a :class:`ShardedPallasForest`
-    (re-wrapped), and each plane of a multiclass
-    :class:`~.trees_multi.MultiForest`; other forests pass through
-    untouched."""
+    """Wrap a forest for per-shard evaluation on ``mesh``: a ``[data][model]``
+    grid from ``parallel.mesh.shard_forest`` or a global forest (sharded
+    here) becomes a :class:`ShardedPallasForest` for the leaf kernel's form
+    and a ``parallel.mesh.ShardedForest`` for the gemm and gather forms; a
+    sharded forest is re-wrapped on ``mesh``, and a multiclass
+    :class:`~.trees_multi.MultiForest` is wrapped plane by plane."""
     from distributed_active_learning_tpu_torch.ops.trees_multi import MultiForest
     from distributed_active_learning_tpu_torch.parallel.mesh import shard_forest
 
     if isinstance(forest, MultiForest):
         return MultiForest(planes=tuple(attach_mesh(p, mesh) for p in forest.planes))
-    if isinstance(forest, ShardedPallasForest):
-        return ShardedPallasForest(shards=forest.shards, mesh=mesh)
-    if isinstance(forest, PallasForest):
+    if isinstance(forest, ShardedForest):
+        return type(forest)(shards=forest.shards, mesh=mesh)
+    if not isinstance(forest, tuple):
         forest = shard_forest(forest, mesh)
-    if isinstance(forest, tuple) and isinstance(forest[0][0], PallasForest):
-        return ShardedPallasForest(shards=forest, mesh=mesh)
-    return forest
+    cls = ShardedPallasForest if isinstance(forest[0][0], PallasForest) else ShardedForest
+    return cls(shards=forest, mesh=mesh)
 
 
 # The JAX package's tile limits, kept so both packages route the same
@@ -425,21 +419,6 @@ def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported device {x.device}")
 
 
-def _predict_leaves_sharded(f: ShardedPallasForest, x) -> torch.Tensor:
-    """``[n, T]`` leaves on the mesh's first device, one kernel launch per
-    (data, model) shard. Each row block's model shards are joined in tree
-    order before the blocks are joined in row order, so a reduction over
-    trees afterwards (``proba``) adds in the single-device order and gives
-    its bits. ``x`` is a row-sharded pool or a plain tensor (the test set),
-    padded to the data axis here and cut back."""
-    from distributed_active_learning_tpu_torch.parallel.kernels import per_shard
-
-    grid, n = per_shard(f, x, predict_leaves_pallas)
-    first = f.mesh.first
-    rows = [torch.cat([leaves.to(row[0].device) for leaves in row], dim=1) for row in grid]
-    return torch.cat([r.to(first) for r in rows])[:n]
-
-
 def stack_heaps(heaps) -> HeapOperands:
     """Heap forests of one shape as one forest, their trees concatenated in
     order: the walk of tree ``t`` reads only tree ``t``'s words, so the
@@ -488,8 +467,6 @@ def predict_leaves_many(forests, x: torch.Tensor):
 
 
 def predict_leaves(f, x: torch.Tensor) -> torch.Tensor:
-    if isinstance(f, ShardedPallasForest):
-        return _predict_leaves_sharded(f, x)
     return predict_leaves_pallas(f, x)
 
 
@@ -498,8 +475,4 @@ def predict_proba(f, x: torch.Tensor) -> torch.Tensor:
 
 
 def predict_votes(f, x: torch.Tensor) -> torch.Tensor:
-    if isinstance(f, ShardedPallasForest):
-        from distributed_active_learning_tpu_torch.parallel.kernels import sharded_votes
-
-        return sharded_votes(f.mesh)(f, x)
     return (predict_leaves(f, x) > 0.5).sum(dim=1, dtype=torch.int32)

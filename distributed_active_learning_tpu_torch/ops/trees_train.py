@@ -417,26 +417,30 @@ def gather_fit_window(
     return codes[idx], y[idx], sel.to(torch.float32)
 
 
-def gather_fit_window_sharded(codes, y, labeled, n_valid: int, budget: int):
-    """:func:`gather_fit_window` over a row-sharded pool (``Sharded`` codes,
-    labels and labeled mask; rows past ``n_valid`` are padding and never
-    enter): each data shard's labeled rows, in index order, move to the
-    mesh's first device, and the shards are joined in shard order, which is
-    global index order. The window, unfilled slots included (global row 0 at
-    weight 0), equals the single-device window bit for bit."""
+def gather_fit_window_sharded(codes, y, masks, budget: int):
+    """:func:`gather_fit_window` over a row-sharded pool: ``codes`` and
+    ``y`` are ``Sharded``, ``masks`` each data shard's rows that enter the
+    fit (labeled and real) on its device. Each shard places its rows at
+    their global window slots (a cumulative count offset by the earlier
+    shards' counts, added in shard order) and the blocks are joined on the
+    mesh's first device; slots no row fills read global row 0 at weight 0.
+    The window equals the single-device window bit for bit, and nothing is
+    read back to the host, so a CUDA graph can capture it."""
     dev = codes.device
-    n_local = codes.n_local
-    parts_c, parts_y = [], []
-    for s in range(len(codes.blocks)):
-        m = labeled.block(s)
-        m = m & (torch.arange(s * n_local, (s + 1) * n_local, device=m.device) < n_valid)
-        parts_c.append(codes.block(s)[m].to(dev))
-        parts_y.append(y.block(s)[m].to(dev))
-    c = torch.cat(parts_c)
-    yy = torch.cat(parts_y)
-    n_labeled = c.shape[0]
-    fill = max(budget - n_labeled, 0)
-    c = torch.cat([c[:budget], codes.block(0)[:1].to(dev).expand(fill, -1)])
-    yy = torch.cat([yy[:budget], y.block(0)[:1].to(dev).expand(fill)])
-    sel = torch.arange(budget, device=dev) < n_labeled
+    c = codes.block(0)[:1].to(dev).expand(budget, -1)
+    yy = y.block(0)[:1].to(dev).expand(budget)
+    offset = torch.zeros((), dtype=torch.int64, device=dev)
+    for s, m in enumerate(masks):
+        cb, yb = codes.block(s), y.block(s)
+        pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + offset.to(m.device)
+        slot = torch.where(m & (pos < budget), pos, torch.full_like(pos, budget))
+        idx = torch.full((budget + 1,), -1, dtype=torch.int64, device=m.device)
+        idx.scatter_(0, slot, torch.arange(m.shape[0], device=m.device))
+        idx = idx[:budget]
+        hit = (idx >= 0).to(dev)
+        safe = torch.clamp_min(idx, 0)
+        c = torch.where(hit[:, None], cb[safe].to(dev), c)
+        yy = torch.where(hit, yb[safe].to(dev), yy)
+        offset = offset + m.sum(dtype=torch.int64).to(dev)
+    sel = torch.arange(budget, device=dev) < offset
     return c, yy, sel.to(torch.float32)

@@ -7,7 +7,6 @@ Axes, as in the JAX package:
 
 One process drives every shard of the mesh, as JAX's single controller does.
 ``multihost.py`` (``torch.distributed`` across processes), ``global_put``,
-``constrain_forest``, ``sharded_similarity_mass``, ``masked_mean``,
 ``gather_fills`` and ``exchange_blocks`` wait for their slices (ROADMAP).
 """
 
@@ -16,9 +15,13 @@ from distributed_active_learning_tpu_torch.parallel.mesh import (
     AXIS_MODEL,
     Mesh,
     Sharded,
+    ShardedForest,
+    constrain_forest,
     forest_tree_specs,
     gather,
     make_mesh,
+    mesh_of,
+    shard_fill_watermark,
     shard_forest,
     shard_pool_state,
     shard_rows,
@@ -26,9 +29,12 @@ from distributed_active_learning_tpu_torch.parallel.mesh import (
 from distributed_active_learning_tpu_torch.parallel.kernels import (
     make_sharded_round_fn,
     per_shard,
+    sharded_leaves,
+    sharded_similarity_mass,
     sharded_votes,
 )
 from distributed_active_learning_tpu_torch.parallel.collectives import (
     global_count,
+    masked_mean,
     vector_accumulate,
 )

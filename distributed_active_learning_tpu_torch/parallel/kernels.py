@@ -3,12 +3,12 @@
 
 The JAX package spells its hot reductions out with ``shard_map`` (each
 device evaluates its pool block against its tree shard, one ``psum`` over
-``model``) and lets GSPMD partition the rest of the round. Here one process
-launches each shard's work on the shard's device (:func:`per_shard`), adds
-the model shards in order (``collectives.vector_accumulate``) and joins the
+``model``; the similarity mass's pooled vector, one ``psum`` over ``data``)
+and lets GSPMD partition the rest of the round. Here one process launches
+each shard's work on the shard's device (:func:`per_shard`), adds the
+shards of an axis in order (``collectives.vector_accumulate``) and joins the
 row blocks in shard order on the mesh's first device, where the round's
-global steps run (:func:`make_sharded_round_fn`). ``sharded_similarity_mass``
-waits for the density slice.
+global steps run (:func:`make_sharded_round_fn`).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from distributed_active_learning_tpu_torch.parallel.collectives import vector_ac
 
 def per_shard(forest, x, fn: Callable):
     """``fn(local_forest, x_block)`` on every (data, model) shard of a
-    ``ShardedPallasForest``, each on the shard's device: returns the
+    :class:`~.mesh.ShardedForest`, each on the shard's device: returns the
     ``[data][model]`` grid of results and the logical row count of ``x`` (a
     row-sharded pool, or a plain tensor that is padded and split here)."""
     xs = mesh_lib.shard_rows(x, forest.mesh, replicate=True)
@@ -41,54 +41,105 @@ def join_blocks(blocks, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     return torch.cat([b.to(mesh.first) for b in blocks])[:n]
 
 
+def join_leaf_grid(grid, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
+    """A ``[data][model]`` grid of ``[n_local, T / model]`` leaf blocks as
+    the global ``[n, T]``: each row block's model shards joined in tree
+    order, then the row blocks in row order, so a reduction over trees
+    afterwards (``tree_mean``) adds in the single-device order and gives its
+    bits."""
+    rows = [torch.cat([lv.to(row[0].device) for lv in row], dim=1) for row in grid]
+    return join_blocks(rows, mesh, n)
+
+
+def sharded_leaves(forest, x) -> torch.Tensor:
+    """``[n, T]`` leaf values of a :class:`~.mesh.ShardedForest` on the
+    mesh's first device: each shard's own form (K1 for the leaf kernel's
+    shards, the plain gemm or gather form otherwise) on its row block."""
+    from distributed_active_learning_tpu_torch.ops import forest_eval
+
+    grid, n = per_shard(forest, x, forest_eval.leaves)
+    return join_leaf_grid(grid, forest.mesh, n)
+
+
 def sharded_votes(mesh: mesh_lib.Mesh):
     """Per-point positive-vote counts with the pool's rows over ``data`` and
-    the trees over ``model``: each shard evaluates its tree shard on its row
-    block with the forest's kernel (K1), one sum over ``model`` completes the
-    counts, and the blocks are joined in shard order on the first device.
+    the trees over ``model``: each shard counts its tree shard's votes on
+    its row block with the forest's own form (K1 for a pallas forest, the
+    plain path-matrix or gather walk otherwise, as the JAX package's
+    ``shard_map`` body evaluates any form), one sum over ``model`` completes
+    the counts, and the blocks are joined in shard order on the first
+    device.
 
-    Returns ``(forest, x) -> votes [n] int32`` for a pallas forest, global or
-    already sharded."""
-    from distributed_active_learning_tpu_torch.ops.trees_pallas import (
-        attach_mesh,
-        predict_leaves_pallas,
-    )
-
-    def local_votes(f, xb):
-        return (predict_leaves_pallas(f, xb) > 0.5).sum(dim=1, dtype=torch.int32)
+    Returns ``(forest, x) -> votes [n] int32`` for a forest global or
+    already placed on ``mesh``."""
+    from distributed_active_learning_tpu_torch.ops import forest_eval
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
 
     def votes_fn(forest, x) -> torch.Tensor:
-        grid, n = per_shard(attach_mesh(forest, mesh), x, local_votes)
+        grid, n = per_shard(attach_mesh(forest, mesh), x, forest_eval.votes)
         return join_blocks([vector_accumulate(row) for row in grid], mesh, n)
 
     return votes_fn
 
 
-def make_sharded_round_fn(strategy, window_size: int, mesh: mesh_lib.Mesh, fused: bool = False):
-    """The AL round over a device mesh: ``(forest, state, aux) -> (new_state,
-    picked, scores)`` for a pool placed by ``parallel.mesh.shard_pool_state``
-    and a forest placed by ``shard_forest`` + ``attach_mesh``.
+def sharded_similarity_mass(mesh: mesh_lib.Mesh):
+    """The similarity mass with the pool sharded over ``data``: each shard
+    normalizes its block and folds its masked rows into one ``[d]`` vector,
+    the vectors are added over ``data`` in shard order (the JAX package's
+    one ``psum``: ``d`` floats a shard cross the mesh), and each shard
+    finishes with its local matvec; the blocks are joined on the first
+    device. Products in IEEE float32, as ``ops.similarity`` runs them.
 
-    The explicit counterpart of the GSPMD round: the unfused round's votes
-    are counted per shard and added over ``model`` (:func:`sharded_votes`),
-    the block scores are joined in shard order on the first device (scores
-    are elementwise in the votes, so joining votes or scores gives the same
-    bits), and the global ``select_top_k``/``select_bottom_k`` runs there on
-    the gathered mask: the all-gather GSPMD inserts for ``lax.top_k``. The
-    fused round selects per shard and merges on the ring
-    (``ops.round_fused._sharded_score_select``).
-    """
+    Returns ``(x, count_mask) -> mass [n]`` for a row-sharded (or plain)
+    ``x`` and a mask, sharded or global."""
+    from distributed_active_learning_tpu_torch.ops import similarity
+
+    def mass(x, count_mask) -> torch.Tensor:
+        xs = mesh_lib.shard_rows(x, mesh, replicate=True)
+        ms = mesh_lib.shard_rows(count_mask, mesh)
+        with similarity._ieee_f32():
+            xn = [similarity.l2_normalize(xs.block(s)) for s in range(len(xs.blocks))]
+            local = [torch.mv(b.T, ms.block(s).to(b.device, b.dtype)) for s, b in enumerate(xn)]
+            pooled = vector_accumulate(local)
+            out = [torch.mv(b, pooled.to(b.device)) for b in xn]
+        return join_blocks(out, mesh, xs.n_rows)
+
+    return mass
+
+
+def make_sharded_round_fn(strategy, window_size: int, mesh: mesh_lib.Mesh,
+                          with_metrics: bool = False, n_classes: int = 2, fused: bool = False,
+                          scenario=None):
+    """The AL round over a device mesh: ``(forest, state, aux) -> (new_state,
+    picked, scores[, metrics])`` for a pool placed by
+    ``parallel.mesh.shard_pool_state`` and a forest placed by
+    ``shard_forest`` + ``attach_mesh``.
+
+    The explicit counterpart of the GSPMD round, the same body as the
+    single-device round (``runtime.loop._round_core``): the forest is
+    evaluated per shard (:func:`sharded_votes`, :func:`sharded_leaves`; the
+    density mass by :func:`sharded_similarity_mass`), the scores, the masks
+    and the labels are joined in shard order on the first device, where the
+    global ``select_top_k``/``select_bottom_k`` and every ``RoundMetrics``
+    reduction run (the all-gathers GSPMD inserts), and the reveal writes
+    each shard's own block (``state.reveal_masked_local``). The fused round
+    selects per shard and merges on the ring
+    (``ops.round_fused._sharded_score_select``). ``with_metrics``,
+    ``n_classes`` and ``scenario`` as in ``runtime.loop.make_round_fn``; of
+    the scenarios a mesh takes the noisy oracle only (``run_experiment``
+    refuses the others)."""
     from distributed_active_learning_tpu_torch.runtime.loop import make_round_fn
 
-    round_fn = make_round_fn(strategy, window_size, fused=fused)
+    round_fn = make_round_fn(strategy, window_size, with_metrics=with_metrics,
+                             n_classes=n_classes, fused=fused, scenario=scenario)
 
-    def sharded_round(forest, state, aux):
+    def sharded_round(forest, state, aux, *costs):
         x = state.x
         if not isinstance(x, mesh_lib.Sharded) or len(x.blocks) != mesh.shape[mesh_lib.AXIS_DATA]:
             raise ValueError(
                 f"the pool is not sharded over this mesh's {mesh.shape[mesh_lib.AXIS_DATA]} data "
                 "shards; place it with parallel.mesh.shard_pool_state"
             )
-        return round_fn(forest, state, aux)
+        return round_fn(forest, state, aux, *costs)
 
     return sharded_round

@@ -11,14 +11,16 @@ grid of forests holding each model shard's trees (:func:`shard_forest`).
 A mesh may name one card several times (``make_mesh(4, 2, devices=[cuda:0]
 * 8)``): every shard then lies on that card and moving a block to a shard is
 free. That is how one card, or the CPU, runs a mesh; on distinct cards the
-same code moves real bytes. ``global_put`` (multi-process meshes),
-``shard_fill_watermark`` (serving) and ``constrain_forest`` (the chunked
-driver) wait for their slices.
+same code moves real bytes. A forest fitted inside a chunk's round step
+is placed there by :func:`constrain_forest`, and wrapped for per-shard
+evaluation as a :class:`ShardedForest` (``ops.trees_pallas.attach_mesh``).
+``global_put`` (multi-process meshes) waits for its slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
@@ -66,6 +68,7 @@ def make_mesh(
     shard to its right neighbour (the ring hop writes there) and its absence
     raises.
     """
+    refuse_multi_process()
     kind = torch.device(device).type
     if devices is not None:
         devs = [_indexed(torch.device(d)) for d in devices]
@@ -92,6 +95,19 @@ def make_mesh(
 
         ring_topk.enable_peer_access(mesh.ring)
     return mesh
+
+
+def refuse_multi_process() -> None:
+    """One process drives every shard here. A launch of several processes
+    (``WORLD_SIZE``, as ``torchrun`` sets it, or the JAX package's
+    ``JAX_NUM_PROCESSES``, above 1) asks for a multi-process mesh, which is
+    refused by name."""
+    for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES"):
+        if int(os.environ.get(var, "1") or 1) > 1:
+            raise NotImplementedError(
+                f"a multi-process mesh ({var}={os.environ[var]}: torch.distributed across "
+                "processes) comes with the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and "
+                "pod\"), item 8; one process drives every shard of a mesh")
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -133,7 +149,8 @@ class Sharded:
 
     def gather(self) -> torch.Tensor:
         """The global array on the first device: blocks in shard order (the
-        all-gather GSPMD inserts where a global value is needed)."""
+        all-gather GSPMD inserts where a global value is needed). Always a
+        fresh tensor."""
         dev = self.device
         return torch.cat([reps[0].to(dev) for reps in self.blocks])[: self.n_rows]
 
@@ -164,11 +181,34 @@ def shard_rows(a: torch.Tensor, mesh: Mesh, replicate: bool = False) -> Sharded:
     return Sharded(tuple(blocks), n)
 
 
+def mesh_of(x: Sharded) -> Mesh:
+    """The mesh a pool's features lie on (one replica a model device)."""
+    return Mesh(tuple(tuple(b.device for b in reps) for reps in x.blocks))
+
+
+def shard_fill_watermark(n_filled, n_pool: int, n_shards: int) -> torch.Tensor:
+    """A global fill watermark split into the per-shard ``[S]`` int32 leaf.
+
+    Shard ``s`` owns rows ``[s * rows, (s + 1) * rows)`` (``rows = n_pool //
+    n_shards``), so a contiguously filled pool fills shard ``s`` to
+    ``clip(n_filled - s * rows, 0, rows)``. The masks it induces
+    (``PoolState.fill_mask``) equal the scalar's, and the global count is
+    the sum (``runtime.state.filled_count``)."""
+    rows = n_pool // n_shards
+    n_filled = torch.as_tensor(n_filled, dtype=torch.int32)
+    base = torch.arange(n_shards, dtype=torch.int32, device=n_filled.device) * rows
+    return torch.clamp(n_filled - base, 0, rows).to(torch.int32)
+
+
 def shard_pool_state(state, mesh: Mesh):
     """Place the pool's rows over the data axis: each data shard's block of
     ``x`` on every device of its row, of ``oracle_y`` and ``labeled_mask`` on
     its first device. Pool sizes not divisible by the axis must be padded
-    first (``runtime.state.pad_for_sharding``); this raises otherwise."""
+    first (``runtime.state.pad_for_sharding``); this raises otherwise.
+
+    A scalar fill watermark ``n_filled`` becomes the per-shard ``[S]`` leaf
+    (:func:`shard_fill_watermark`) on the mesh's first device; an ``[S]``
+    leaf is checked against the data axis and kept."""
     n = state.n_pool
     n_data = mesh.shape[AXIS_DATA]
     if n % n_data:
@@ -176,10 +216,20 @@ def shard_pool_state(state, mesh: Mesh):
             f"pool size {n} not divisible by data axis {n_data}; call "
             "runtime.state.pad_for_sharding first"
         )
+    n_filled = state.n_filled
+    if n_filled is not None:
+        if n_filled.ndim == 0:
+            n_filled = shard_fill_watermark(n_filled, n, n_data)
+        elif tuple(n_filled.shape) != (n_data,):
+            raise ValueError(
+                f"per-shard n_filled leaf {tuple(n_filled.shape)} does not match the data "
+                f"axis ({n_data} shards)")
+        n_filled = n_filled.to(mesh.first)
     return state.replace(
         x=shard_rows(gather(state.x), mesh, replicate=True),
         oracle_y=shard_rows(gather(state.oracle_y), mesh),
         labeled_mask=shard_rows(gather(state.labeled_mask), mesh),
+        n_filled=n_filled,
     )
 
 
@@ -208,6 +258,24 @@ def _map_fields(forest, fn):
     return dataclasses.replace(forest, **changes)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardedForest:
+    """A forest placed on a mesh for per-shard evaluation: ``shards[s][m]``
+    is model shard ``m``'s trees on ``mesh.devices[s][m]`` (a grid from
+    :func:`shard_forest`), each of one evaluation form (gemm or gather;
+    ``ops.trees_pallas.ShardedPallasForest`` is the leaf kernel's). Each
+    shard evaluates its trees on its row block (``parallel.kernels``), as
+    the JAX package's ``shard_map`` does; GSPMD partitions the plain forms
+    the same way there."""
+
+    shards: tuple
+    mesh: Mesh
+
+    @property
+    def n_trees(self) -> int:
+        return sum(f.n_trees for f in self.shards[0])
+
+
 def shard_forest(forest, mesh: Mesh):
     """A ``[data][model]`` grid of forests: model shard ``m``'s trees on
     ``mesh.devices[s][m]`` for every data shard ``s`` (replicated over
@@ -226,3 +294,13 @@ def shard_forest(forest, mesh: Mesh):
               for m, dev in enumerate(row))
         for row in mesh.devices
     )
+
+
+def constrain_forest(forest, mesh: Mesh):
+    """:func:`shard_forest` for a forest fitted inside a round step (the
+    chunked driver's in-step fit, ``runtime/loop.py`` ``make_chunk_fn``):
+    the same placement, spelled with no host sync and no upload, so a CUDA
+    graph can capture it. On one card every shard's trees are views of the
+    fitted forest; across cards they are device-to-device copies queued on
+    the current streams."""
+    return shard_forest(forest, mesh)

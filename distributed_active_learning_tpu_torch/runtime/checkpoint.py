@@ -60,6 +60,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from distributed_active_learning_tpu_torch.parallel.mesh import gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
 from distributed_active_learning_tpu_torch.runtime.state import PoolState
@@ -560,11 +561,23 @@ def save_serve(ckpt_dir: str, state: PoolState, forest, result: ExperimentResult
     _serve_step_re(tenant)  # validates the id before any work
     if state.n_filled is None:
         raise ValueError("save_serve needs a slab-paged state (n_filled set)")
+    # The global watermark of either spelling (the scalar, or a mesh's
+    # per-shard [S] leaf). The [:fill] slices need a contiguous fill, which
+    # a per-shard leaf split by shard_fill_watermark is; one with gaps is
+    # refused rather than cut.
     fill = int(state_lib.filled_count(state))
+    if state.n_filled.ndim:
+        from distributed_active_learning_tpu_torch.parallel.mesh import shard_fill_watermark
+
+        want = shard_fill_watermark(fill, state.n_pool, state.n_filled.shape[0])
+        if not torch.equal(state.n_filled.cpu(), want):
+            raise ValueError(
+                "save_serve needs a contiguously-filled pool; this per-shard "
+                f"watermark {state.n_filled.cpu().numpy()} has gaps")
     payload = {
-        "x": state.x[:fill].cpu().numpy(),
-        "oracle_y": state.oracle_y[:fill].cpu().numpy(),
-        "labeled_mask": state.labeled_mask[:fill].cpu().numpy(),
+        "x": gather(state.x)[:fill].cpu().numpy(),
+        "oracle_y": gather(state.oracle_y)[:fill].cpu().numpy(),
+        "labeled_mask": gather(state.labeled_mask)[:fill].cpu().numpy(),
         "n_filled": np.asarray(fill, dtype=np.int32),
         "key": state.key.cpu().numpy().astype(np.uint32),
         "round": np.asarray(int(state.round), dtype=np.int32),

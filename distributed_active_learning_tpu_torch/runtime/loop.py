@@ -20,9 +20,12 @@ bit for bit on the same configuration (``tests/test_torch_loop.py``).
 
 With ``ExperimentConfig.mesh`` of ``data x model > 1`` the pool's rows
 shard over ``data`` and the trees over ``model`` (``parallel/``): the pool is
-padded to the data axis, every fit is sharded by trees, and the round runs
-per shard (:func:`~..parallel.kernels.make_sharded_round_fn`). The records
-and the final mask equal the single-device run's.
+padded to the data axis, every fit (device or host, every forest form) is
+sharded by trees, and the round runs per shard
+(:func:`~..parallel.kernels.make_sharded_round_fn`), in both drivers, with
+metrics, and under the noisy oracle (the one scenario a mesh takes, as in
+the JAX package). The records and the final mask equal the single-device
+run's.
 
 With ``rounds_per_launch = K > 1`` the run is chunked
 (:func:`make_chunk_fn`): K rounds per launch, each a masked no-op once the
@@ -70,11 +73,9 @@ package's. A scenario needs the device fit and refuses the fused round, as
 in the JAX package.
 
 Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing them: under a mesh the chunked driver (and so sweeps and
-grids), round metrics, scenarios, ``kernel`` "gemm" and "gather", depths
-past 10, the host fit and the density and lal strategies; roofline
-attribution. What the JAX package refuses of quantized storage
-(:func:`_validate_quantize`) the port refuses with the same reasons.
+slice bringing it: roofline attribution. What the JAX package refuses (of
+quantized storage, :func:`_validate_quantize`; every scenario under a mesh
+but the noisy oracle) the port refuses with the same reasons.
 """
 
 from __future__ import annotations
@@ -141,6 +142,11 @@ def _round_core(
     short window's sentinels are (values to -inf or +inf, indices onto the
     first pick), so the metrics see what a run at that window sees.
 
+    On a device mesh (a row-sharded ``state``) the score, the selection and
+    the metrics read the mask and the labels joined on the mesh's first
+    device (the all-gathers GSPMD inserts), the forest is evaluated per
+    shard, and the reveal writes each shard's own block.
+
     ``scenario`` (an active :class:`~..config.ScenarioConfig`, or None) is
     the scenario engine's hook, as in the JAX package: ``cost_budget`` takes
     the greedy knapsack (``ops.topk.knapsack_top_k``) over ``costs`` instead
@@ -162,6 +168,12 @@ def _round_core(
         key, k_score, k_abstain = keys[0], keys[1], None
     state = state.replace(key=key)
     unlabeled = state.unlabeled_mask
+    view = state
+    if isinstance(state.labeled_mask, Sharded):
+        view = state.replace(labeled_mask=gather(state.labeled_mask),
+                             oracle_y=gather(state.oracle_y))
+        if aux.seed_mask is not None:
+            aux = dataclasses.replace(aux, seed_mask=gather(aux.seed_mask))
     spent = cost_keep = None
     if fused:
         from distributed_active_learning_tpu_torch.ops import round_fused
@@ -173,7 +185,7 @@ def _round_core(
     else:
         if with_metrics:
             forest = forest_eval.evaluated(forest, state.x)
-        scores = strategy.score(forest, state, k_score, aux)
+        scores = strategy.score(forest, view, k_score, aux)
         unlabeled = gather(unlabeled)  # a mesh's global select runs on its first device
         if scn_active and scenario.kind == "cost_budget":
             vals, picked, cost_keep, spent = knapsack_top_k(
@@ -207,14 +219,14 @@ def _round_core(
     from distributed_active_learning_tpu_torch.runtime import telemetry
 
     rm = telemetry.compute_round_metrics(
-        forest, state, picked, vals, scores,
+        forest, view, picked, vals, scores,
         higher_is_better=strategy.higher_is_better, n_classes=n_classes,
     )
     if emit_rare or (scn_active and scenario.kind == "rare_event"):
         from distributed_active_learning_tpu_torch.scenarios.engine import rare_recall
 
         rm = rm._replace(rare_recall=rare_recall(
-            new_state.labeled_mask, state.oracle_y, state.valid_mask,
+            gather(new_state.labeled_mask), view.oracle_y, view.valid_mask,
             scenario.rare_class if scn_active else 1))
     if emit_cost or (scn_active and scenario.kind == "cost_budget"):
         rm = rm._replace(cost_spent=spent if spent is not None else torch.zeros(
@@ -313,59 +325,18 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
     return None
 
 
-# Where what a mesh does not carry yet is queued.
+# Where what a mesh does not carry yet is queued (the neural path under a
+# data mesh, the pod slab, multi-process meshes).
 _MESH_SLICE = "the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and pod\")"
 
 
-def _not_ported(cfg: ExperimentConfig, metrics, batched: Optional[str] = None,
-                scenario_axis: bool = False) -> None:
-    """Refuse what this slice does not carry, naming the slice that will.
-    ``batched`` ("sweep" or "grid") adds the batched drivers' refusal under
-    a mesh (their chunk is the chunk under a mesh); ``scenario_axis`` is a
-    grid's active scenario axis, which a mesh refuses as an active
-    ``cfg.scenario`` is."""
-    mesh = cfg.mesh.data * cfg.mesh.model > 1
-    scenario_on = (cfg.scenario is not None and cfg.scenario.active) or scenario_axis
-    refusals = [
-        (mesh and scenario_on,
-         "a scenario under a device mesh (the per-shard reveal and flip_mask_block of "
-         "noisy_oracle, the knapsack, drift and rare-recall plumbing on sharded pools) "
-         f"comes with {_MESH_SLICE}, item 8"),
-        (batched is not None and mesh,
-         f"a {batched} under a device mesh runs its chunk under the mesh, which needs "
-         "constrain_forest (the fit sharded by trees inside the chunk); it comes with "
-         f"{_MESH_SLICE}, item 8"),
-    ]
-    refusals += [
-        (cfg.rounds_per_launch > 1 and mesh,
-         "rounds_per_launch > 1 under a device mesh needs constrain_forest "
-         "(the fit sharded by trees inside the chunk); it comes with "
-         f"{_MESH_SLICE}"),
-        (mesh and cfg.forest.kernel == "gemm",
-         "kernel 'gemm' under a device mesh (GSPMD-partitioned plain XLA in "
-         "the JAX package, no kernel) is not ported yet; use kernel 'pallas'"),
-        (mesh and (cfg.forest.kernel == "gather"
-                   or cfg.forest.max_depth > forest_eval._GEMM_MAX_DEPTH),
-         "the gather form (kernel 'gather', or max_depth > "
-         f"{forest_eval._GEMM_MAX_DEPTH}) under a device mesh comes with {_MESH_SLICE}"),
-        (mesh and cfg.forest.fit == "host",
-         f"the host fit under a device mesh comes with {_MESH_SLICE}; use fit='device'"),
-        (mesh and cfg.strategy.name == "density",
-         "the density strategy under a device mesh (sharded_similarity_mass) "
-         f"comes with {_MESH_SLICE}"),
-        (mesh and cfg.strategy.name == "lal",
-         f"the lal strategy under a device mesh comes with {_MESH_SLICE}"),
-        (mesh and (metrics is not None or cfg.collect_metrics),
-         "RoundMetrics under a device mesh (the metrics reductions over the "
-         f"sharded pool) come with {_MESH_SLICE}; per-round records and "
-         "checkpoints do run on the mesh"),
-        (bool(cfg.roofline) and metrics is not None,
-         "roofline attribution (--roofline) comes with the pre-flight slice "
-         "(ROADMAP queue 1, \"Pre-flight equivalents\")"),
-    ]
-    for refused, why in refusals:
-        if refused:
-            raise NotImplementedError(why)
+def _not_ported(cfg: ExperimentConfig, metrics) -> None:
+    """Refuse what the port does not carry yet, naming the slice that will:
+    roofline attribution (the pre-flight slice)."""
+    if cfg.roofline and metrics is not None:
+        raise NotImplementedError(
+            "roofline attribution (--roofline) comes with the pre-flight slice "
+            "(ROADMAP queue 1, \"Pre-flight equivalents\")")
 
 
 def _validate_quantize(cfg: ExperimentConfig) -> None:
@@ -462,8 +433,9 @@ def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
 
     def fit_body(codes, edges, state: state_lib.PoolState, key: prng.Key):
         if isinstance(codes, Sharded):
-            c, yy, w = trees_train.gather_fit_window_sharded(
-                codes, state.oracle_y, state.labeled_mask, state.n_valid, budget)
+            lab = state.labeled_mask
+            masks = [lab.block(s) & v for s, v in enumerate(state_lib.valid_blocks(state))]
+            c, yy, w = trees_train.gather_fit_window_sharded(codes, state.oracle_y, masks, budget)
         else:
             mask = state.labeled_mask & state.valid_mask
             c, yy, w = trees_train.gather_fit_window(codes, state.oracle_y, mask, budget)
@@ -637,8 +609,10 @@ def make_chunk_fn(
     stream_cb=None,
     scenario=None,
     drift_direction=None,
+    mesh=None,
 ):
-    """``chunk_size`` AL rounds as one launch, on a single device.
+    """``chunk_size`` AL rounds as one launch, on a single device or a
+    device mesh.
 
     ``chunk_fn(codes, state, aux, fit_key, test_x, test_y, end_round) ->
     (new_state, extras, (rounds, n_labeled, accuracy, picked, active[,
@@ -678,19 +652,28 @@ def make_chunk_fn(
     per-point cost vector of a ``cost_budget`` scenario, else None; a
     constant of the graph). ``drift_direction`` is the mean-shift direction,
     drawn once before the chunk is built (its draw uploads the scenario key,
-    which a graph capture cannot). A device mesh waits for its slice.
+    which a graph capture cannot).
+
+    Under a ``mesh`` (a :class:`~..parallel.mesh.Mesh`; the carry, the
+    codes and the test set placed by ``parallel.mesh``) the step places the
+    fitted forest by trees over ``model`` (``parallel.mesh.
+    constrain_forest``) and wraps it for per-shard evaluation
+    (``ops.trees_pallas.attach_mesh``) before the sharded round and the
+    accuracy, as the JAX package's ``constrain_forest`` + ``attach_mesh``
+    do inside its scan. On one card the whole step is one CUDA graph.
     """
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
     round_fn = make_round_fn(strategy, window_size, with_metrics=with_metrics,
                              n_classes=n_classes, fused=fused_round, scenario=scenario)
     drift = scenario is not None and scenario.kind == "drift"
+    place = _mesh_placement(mesh)
 
     def step(codes, carry: state_lib.PoolState, aux, fit_key, test_x, test_y, end_round,
              costs=None):
         n_labeled = state_lib.labeled_count(carry)
         active = (n_labeled < label_cap) & (carry.round < end_round)
-        forest = fit_fn(codes, carry, prng.fold_in(fit_key, carry.round + 1))
+        forest = place(fit_fn(codes, carry, prng.fold_in(fit_key, carry.round + 1)))
         new_state, picked, _, *rm = round_fn(forest, carry, aux, costs)
         if drift:
             from distributed_active_learning_tpu_torch.scenarios.engine import drift_apply
@@ -716,7 +699,19 @@ def make_chunk_fn(
     return chunk_of(step, finish, chunk_size, stream_cb=stream_cb)
 
 
-def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
+def _mesh_placement(mesh):
+    """The placement of a forest fitted inside a round step: on a mesh,
+    sharded by trees and wrapped for per-shard evaluation; else the forest
+    as it is."""
+    if mesh is None:
+        return lambda forest: forest
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
+    from distributed_active_learning_tpu_torch.parallel.mesh import constrain_forest
+
+    return lambda forest: attach_mesh(constrain_forest(forest, mesh), mesh)
+
+
+def ckpt_snapshot(mask, key: torch.Tensor, rnd: torch.Tensor):
     """Fresh-buffer copies of the carry fields a checkpoint needs, queued on
     the current stream.
 
@@ -726,26 +721,58 @@ def ckpt_snapshot(mask: torch.Tensor, key: torch.Tensor, rnd: torch.Tensor):
     checkpointing touchdown cannot read the carry itself. This copy, made
     right after chunk N's dispatch and ordered by the stream before chunk
     N + 1's replay, holds chunk N's (mask, key, round) (the JAX package's
-    ``ckpt_snapshot`` does the same against buffer donation)."""
-    return mask.clone(), key.clone(), rnd.clone()
+    ``ckpt_snapshot`` does the same against buffer donation). A row-sharded
+    mask is joined into one fresh tensor, as are the cells of a sweep on a
+    mesh (a tuple of them, stacked)."""
+    if isinstance(mask, Sharded):
+        mask = mask.gather()
+    elif isinstance(mask, tuple):
+        mask = torch.stack([gather(m) for m in mask])
+    else:
+        mask = mask.clone()
+    return mask, key.clone(), rnd.clone()
 
 
 def _kernel_launch_counters() -> tuple:
     """The wrappers' launch counters this module's paths can advance, as
     ``(module, name)`` pairs."""
-    from distributed_active_learning_tpu_torch.ops import round_fused, threefry, trees_pallas
+    from distributed_active_learning_tpu_torch.ops import ring_topk, round_fused, threefry, trees_pallas
 
-    return ((trees_pallas, "launches"), (round_fused, "launches"), (threefry, "launches"))
+    return ((trees_pallas, "launches"), (round_fused, "launches"), (round_fused, "votes_launches"),
+            (ring_topk, "launches"), (threefry, "launches"))
+
+
+def _ptr(a):
+    """Where a graph reads ``a``: a tensor's ``data_ptr``, every block's of a
+    row-sharded array, else None."""
+    if torch.is_tensor(a):
+        return a.data_ptr()
+    if isinstance(a, Sharded):
+        return _leaf_ptrs(a)
+    return None
 
 
 def _carry_tensor_ptrs(carry, carry_fields) -> dict:
-    """``{field: data_ptr}`` of the carry's tensor fields outside
-    ``carry_fields`` (a single experiment's pool features, labels and fill
-    watermark): a graph reads them where they lay at its capture."""
+    """``{field: pointer}`` of the carry's tensor (or row-sharded) fields
+    outside ``carry_fields`` (a single experiment's pool features, labels
+    and fill watermark): a graph reads them where they lay at its capture."""
     if not dataclasses.is_dataclass(carry):
         return {}
-    return {f.name: getattr(carry, f.name).data_ptr() for f in dataclasses.fields(carry)
-            if f.name not in carry_fields and torch.is_tensor(getattr(carry, f.name))}
+    ptrs = {f.name: _ptr(getattr(carry, f.name)) for f in dataclasses.fields(carry)
+            if f.name not in carry_fields}
+    return {k: v for k, v in ptrs.items() if v is not None}
+
+
+def _leaf_ptrs(tree) -> tuple:
+    ptrs = []
+    _map_leaves(lambda t: ptrs.append(t.data_ptr()), tree)
+    return tuple(ptrs)
+
+
+def _devices_of(tree) -> set:
+    devs = set()
+    _map_leaves(lambda t: devs.add(t.device) if torch.is_tensor(t) else None, tree)
+    return devs
 
 
 def capture_thread_local(graph, body):
@@ -871,6 +898,14 @@ class GraphedChunk:
     own per-thread tally (``kernels.capture_tally``), added to the wrappers'
     counters at every graph replay, which is where the kernels really run;
     ``launches_per_replay`` is a call's (K rounds') worth.
+
+    A device mesh on one card (every shard on it) is captured like a single
+    device: the row-sharded carry's blocks are its buffers. A mesh over
+    distinct cards is not captured: its step joins the cards' streams where
+    blocks cross cards, and one graph records one card's stream, so each
+    call runs the eager chunk, K steps, and ``stats()["mode"]`` says
+    ``"eager"`` and why (``"graph"`` otherwise). Nothing falls back
+    silently.
     """
 
     def __init__(self, chunk_fn, input_args=(6,), carry_fields=CARRY_FIELDS):
@@ -884,14 +919,29 @@ class GraphedChunk:
         self.pool_bytes = 0  # device memory the graph's private pool reserved
         self.capture_seconds = 0.0
         self.launches_per_replay: dict = {}
+        self.mode = None  # "graph", or "eager" for a mesh over distinct cards
+        self.mode_reason = ""
 
     def _consts(self, args) -> dict:
         skip = (self._carry_arg, *self._input_args)
-        return {i: a.data_ptr() for i, a in enumerate(args) if torch.is_tensor(a) and i not in skip}
+        ptrs = {i: _ptr(a) for i, a in enumerate(args) if i not in skip}
+        return {i: p for i, p in ptrs.items() if p is not None}
+
+    def _choose_mode(self, args) -> None:
+        carry = args[self._carry_arg]
+        placed = [getattr(carry, f) for f in self._carry_fields]
+        placed += [a for a in args if isinstance(a, Sharded) or torch.is_tensor(a)]
+        cards = sorted({d for d in _devices_of(placed) if d.type == "cuda"}, key=str)
+        if len(cards) > 1:
+            self.mode = "eager"
+            self.mode_reason = (f"the mesh spans {len(cards)} cards "
+                                f"({', '.join(map(str, cards))}); one graph records one card")
+        else:
+            self.mode = "graph"
 
     def _capture(self, args, stream=None, warm_up: bool = True):
         carry = args[self._carry_arg]
-        dev = carry.labeled_mask.device
+        dev = next(iter(_devices_of(carry.labeled_mask)))  # the one card of a graph
         # The warm-up runs on a side stream, PyTorch's recipe for a capture
         # (autograd sets up per-stream state at its first backward, and
         # cuBLAS its per-stream workspace, which a capture must not see
@@ -936,7 +986,9 @@ class GraphedChunk:
         chunk built ahead of its first use), on ``stream`` if given, with
         the eager warm-up step unless ``warm_up`` is False; a later call
         replays."""
-        if self._graph is None:
+        if self.mode is None:
+            self._choose_mode(args)
+        if self._graph is None and self.mode == "graph":
             self._capture(args, stream=stream, warm_up=warm_up)
 
     def stats(self) -> dict:
@@ -944,6 +996,8 @@ class GraphedChunk:
         seconds, the private pool's bytes, and the kernel launches one
         replay (a call, K rounds) stands for."""
         return {
+            "mode": self.mode,
+            "mode_reason": self.mode_reason,
             "captures": self.captures,
             "replays": self.replays,
             "capture_seconds": self.capture_seconds,
@@ -953,6 +1007,11 @@ class GraphedChunk:
         }
 
     def __call__(self, *args):
+        if self.mode is None:
+            self._choose_mode(args)
+        if self.mode == "eager":
+            self.replays += 1
+            return self._fn(*args)
         if self._graph is None:
             self._capture(args)
         else:
@@ -968,7 +1027,7 @@ class GraphedChunk:
                     f"a graphed chunk replays on the carry tensors of its capture outside "
                     f"{self._carry_fields}; it was called with others for {moved} (write "
                     "into those tensors in place, or build a new GraphedChunk)")
-            if carry.labeled_mask.data_ptr() != self._carry["labeled_mask"].data_ptr():
+            if _leaf_ptrs(carry.labeled_mask) != _leaf_ptrs(self._carry["labeled_mask"]):
                 for f, buf in self._carry.items():
                     _copy_leaves(buf, getattr(carry, f))
         for i, buf in self._inputs.items():
@@ -987,11 +1046,13 @@ class GraphedChunk:
 
 def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
                  fit_budget, result, dbg, start_round, metrics=None, n_classes=2, ckpt=None,
-                 scn=None, costs=None, drift_dir=None):
+                 scn=None, costs=None, drift_dir=None, mesh=None):
     """The chunked branch of :func:`run_experiment`: K rounds per launch
     through ``pipeline.run_pipelined``. ``ckpt`` is ``(fingerprint,
     kernel)`` when the run checkpoints; ``scn`` the active scenario (with its
-    ``costs`` and drift direction), or None. Returns the final state."""
+    ``costs`` and drift direction), or None; ``mesh`` the device mesh the
+    state, codes and test set are placed on, or None. Returns the final
+    state."""
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
     from distributed_active_learning_tpu_torch.runtime import telemetry
 
@@ -1005,12 +1066,12 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
                  else None)
     body = make_chunk_fn(strategy, window, K, device_fit, label_cap, fused_round=cfg.fused_round,
                          with_metrics=want_metrics, n_classes=n_classes, stream_cb=stream_cb,
-                         scenario=scn, drift_direction=drift_dir)
+                         scenario=scn, drift_direction=drift_dir, mesh=mesh)
     chunk_fn = GraphedChunk(body) if dev.type == "cuda" else body
     # The chunk updates the carried mask in place; at round 0 aux.seed_mask
     # is that mask, so it gets its own copy once up front.
     if aux.seed_mask is not None:
-        aux = dataclasses.replace(aux, seed_mask=aux.seed_mask.clone())
+        aux = dataclasses.replace(aux, seed_mask=_map_leaves(torch.clone, aux.seed_mask))
     launches = telemetry.LaunchTracker(metrics, "chunk_scan", fn=chunk_fn)
     end_round = (start_round + cfg.max_rounds if cfg.max_rounds is not None
                  else int(np.iinfo(np.int32).max))
@@ -1133,8 +1194,9 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
 
 def _labeled_subset(state: state_lib.PoolState, host_x: np.ndarray, host_y: np.ndarray):
     """The labeled rows of the host-side pool arrays, for the host fit: only
-    the mask crosses from the device."""
-    mask = state.labeled_mask.cpu().numpy()[: state.n_valid]
+    the mask crosses from the device (on a mesh, joined from its shards and
+    cut to the real rows)."""
+    mask = state_lib.global_labeled_mask(state).cpu().numpy()
     return host_x[mask], host_y[mask]
 
 
@@ -1225,6 +1287,16 @@ def run_experiment(
                 f"scenario {scn.kind!r} runs inside the jitted round and "
                 "needs the device fit; use --fit device"
             )
+        if cfg.mesh.data * cfg.mesh.model > 1 and scn.kind != "noisy_oracle":
+            # A mesh takes the noisy oracle only (the JAX package's refusal):
+            # its flips land on the oracle below, before the pool is padded
+            # and placed, and its abstaining reveal is a window-sized draw of
+            # the replicated round key.
+            raise ValueError(
+                f"scenario {scn.kind!r} is single-device for now (only "
+                "noisy_oracle rides the pod mesh); drop "
+                "--mesh-data/--mesh-model"
+            )
         if scn.kind == "noisy_oracle" and scn.flip_prob > 0.0:
             flips = scn_engine.flip_mask(scn, cfg.seed, state.n_pool, dev)
             state = state.replace(
@@ -1252,12 +1324,11 @@ def run_experiment(
     if cfg.mesh.data * cfg.mesh.model > 1:
         # Pad the pool to the data axis, place its rows over data (codes
         # too) and the test set on every shard; each fit lands on the mesh's
-        # first device and is sharded by trees.
-        from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
+        # first device and is sharded by trees (every form: the leaf kernel
+        # or the plain gemm and gather forms run per shard).
         from distributed_active_learning_tpu_torch.parallel import (
             make_mesh,
             make_sharded_round_fn,
-            shard_forest,
             shard_pool_state,
             shard_rows,
         )
@@ -1272,21 +1343,20 @@ def run_experiment(
             raise ValueError(f"mesh devices {mesh.devices} do not match device {dev}")
         state = state_lib.pad_for_sharding(state, cfg.mesh.data)
         state = shard_pool_state(state, mesh)
-        codes = shard_rows(codes, mesh)  # zero codes for the padding rows
-        edges = edges.to(mesh.first)
+        if codes is not None:
+            codes = shard_rows(codes, mesh)  # zero codes for the padding rows
+            edges = edges.to(mesh.first)
         test_x = shard_rows(test_x, mesh, replicate=True)
         test_y = test_y.to(mesh.first)
+        if costs is not None:
+            costs = costs.to(mesh.first)
         round_fn = make_sharded_round_fn(
-            strategy, cfg.strategy.window_size, mesh, fused=cfg.fused_round)
-
-        def place_forest(f):
-            return attach_mesh(shard_forest(f, mesh), mesh)
+            strategy, cfg.strategy.window_size, mesh, with_metrics=want_metrics,
+            n_classes=n_classes, fused=cfg.fused_round, scenario=scn)
     else:
         round_fn = make_round_fn(strategy, cfg.strategy.window_size, with_metrics=want_metrics,
                                  n_classes=n_classes, fused=cfg.fused_round, scenario=scn)
-
-        def place_forest(f):
-            return f
+    place_forest = _mesh_placement(mesh)
 
     aux = build_aux(cfg, state)
     if metrics is not None:
@@ -1333,7 +1403,7 @@ def run_experiment(
         state = _run_chunked(
             cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, strategy,
             fit_budget, result, dbg, start_round, metrics=metrics, n_classes=n_classes,
-            ckpt=ckpt, scn=scn, costs=costs, drift_dir=drift_dir)
+            ckpt=ckpt, scn=scn, costs=costs, drift_dir=drift_dir, mesh=mesh)
         result.final_labeled_mask = state_lib.global_labeled_mask(state).clone()
         if cfg.results_path:
             result.save(cfg.results_path, fmt="reference")

@@ -10,9 +10,10 @@ the functions here take either form.
 A grid of pools of unequal widths pads every pool to one slab width and
 marks the real rows with the scalar fill watermark ``n_filled`` (a 0-d int32
 tensor on the device): rows at or past it are padding, labeled, excluded
-from the fit window, the counts and the metrics, as in the JAX package. The
-per-shard ``[S]`` spelling of the watermark waits for the mesh-and-pod
-slice.
+from the fit window, the counts and the metrics, as in the JAX package. On a
+mesh the watermark is the per-shard ``[S]`` leaf
+(``parallel.mesh.shard_fill_watermark``): shard ``s`` is filled below its
+own ``n_filled[s]`` rows of its block.
 """
 
 from __future__ import annotations
@@ -47,9 +48,10 @@ class PoolState:
     key: prng.Key               # [2] int64 key words
     round: Union[int, torch.Tensor] = 0  # a 0-d int32 device tensor in the carry form
     n_valid_static: int = -1
-    # The scalar fill watermark (a 0-d int32 tensor on the device): rows
-    # [0, n_filled) are filled. None keeps every mask and count on the
-    # static path, bit for bit the code without it.
+    # The fill watermark: a 0-d int32 tensor on the device (rows
+    # [0, n_filled) are filled), or on a mesh the per-shard [S] leaf. None
+    # keeps every mask and count on the static path, bit for bit the code
+    # without it.
     n_filled: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "PoolState":
@@ -65,11 +67,16 @@ class PoolState:
 
     @property
     def fill_mask(self) -> torch.Tensor:
-        """Rows below the fill watermark; all True without one."""
+        """Rows below the fill watermark; all True without one. A per-shard
+        ``[S]`` leaf compares each shard's block-local row against its own
+        watermark (block ``s`` is rows ``[s * rows, (s + 1) * rows)``)."""
         rows = torch.arange(self.n_pool, device=self.x.device)
         if self.n_filled is None:
             return torch.ones_like(rows, dtype=torch.bool)
-        return rows < self.n_filled
+        if self.n_filled.ndim == 0:
+            return rows < self.n_filled
+        per = self.n_pool // self.n_filled.shape[0]
+        return rows % per < torch.repeat_interleave(self.n_filled.to(rows.device), per)
 
     @property
     def valid_mask(self) -> torch.Tensor:
@@ -81,10 +88,35 @@ class PoolState:
     @property
     def unlabeled_mask(self):
         if isinstance(self.labeled_mask, Sharded):
-            return self.labeled_mask.map(torch.logical_not)
+            m = self.labeled_mask
+            if self.n_filled is None:
+                return m.map(torch.logical_not)
+            return Sharded(tuple((~m.block(s) & _block_fill(self, s),)
+                                 for s in range(len(m.blocks))), m.n_rows)
         if self.n_filled is not None:
             return ~self.labeled_mask & self.fill_mask
         return ~self.labeled_mask
+
+
+def _block_fill(state: PoolState, s: int) -> torch.Tensor:
+    """Shard ``s``'s block of :attr:`PoolState.fill_mask` on its device."""
+    blk = state.labeled_mask.block(s)
+    n_local = blk.shape[0]
+    if state.n_filled is None:
+        return torch.ones_like(blk)
+    if state.n_filled.ndim == 0:
+        rows = torch.arange(s * n_local, (s + 1) * n_local, device=blk.device)
+        return rows < state.n_filled.to(blk.device)
+    return torch.arange(n_local, device=blk.device) < state.n_filled[s].to(blk.device)
+
+
+def valid_blocks(state: PoolState) -> list:
+    """Each shard's block of :attr:`PoolState.valid_mask` (real rows below
+    the fill watermark) on its own device, for a row-sharded state."""
+    mask = state.labeled_mask
+    n_local = mask.n_local
+    return [(torch.arange(s * n_local, (s + 1) * n_local, device=mask.block(s).device)
+             < state.n_valid) & _block_fill(state, s) for s in range(len(mask.blocks))]
 
 
 def labeled_count(state: PoolState) -> torch.Tensor:
@@ -92,22 +124,19 @@ def labeled_count(state: PoolState) -> torch.Tensor:
     labeled and not counted; on a mesh, one count per shard is added up)."""
     mask = state.labeled_mask
     if isinstance(mask, Sharded):
-        n_local = mask.n_local
-        return global_count([
-            mask.block(s) & (torch.arange(s * n_local, (s + 1) * n_local, device=mask.block(s).device)
-                             < state.n_valid)
-            for s in range(len(mask.blocks))
-        ])
+        return global_count([mask.block(s) & v for s, v in enumerate(valid_blocks(state))])
     if state.n_filled is None and state.n_valid == state.n_pool:
         return mask.sum(dtype=torch.int32)
     return (mask & state.valid_mask).sum(dtype=torch.int32)
 
 
 def filled_count(state: PoolState) -> torch.Tensor:
-    """The filled rows as a 0-d int32 tensor: the watermark, or the real
-    row count without one."""
+    """The filled rows as a 0-d int32 tensor: the watermark (the sum of a
+    per-shard ``[S]`` leaf), or the real row count without one."""
     if state.n_filled is None:
         return torch.full((), state.n_valid, dtype=torch.int32, device=state.x.device)
+    if state.n_filled.ndim:
+        return state.n_filled.sum(dtype=torch.int32)
     return state.n_filled.to(torch.int32)
 
 
@@ -203,13 +232,34 @@ def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor
     noisy-oracle scenario): each kept pick is revealed only where
     ``uniform(abstain_key, picked.shape) >= abstain_prob``. An abstained
     pick writes nothing and re-enters the pool, so every count downstream
-    counts revealed labels, never picks."""
+    counts revealed labels, never picks.
+
+    On a mesh the window-sized draw is made once and each shard reveals its
+    own block (:func:`reveal_masked_local`), the JAX package's per-shard
+    spelling: the blocks join to the global reveal bit for bit."""
     if abstain_key is not None:
         keep = keep & (prng.uniform(abstain_key, picked_idx.shape, picked_idx.device)
                        >= abstain_prob)
+    mask = state.labeled_mask
+    if isinstance(mask, Sharded):
+        n_local = mask.n_local
+        new = Sharded(tuple((reveal_masked_local(mask.block(s), picked_idx, keep, s, n_local),)
+                            for s in range(len(mask.blocks))), mask.n_rows)
+    else:
+        new = _reveal_rows(mask, torch.where(keep, picked_idx.to(torch.int64), -1))
+    return state.replace(labeled_mask=new, round=state.round + 1)
+
+
+def reveal_masked_local(mask_block: torch.Tensor, picked_idx: torch.Tensor, keep: torch.Tensor,
+                        shard_index: int, rows: int) -> torch.Tensor:
+    """Shard ``shard_index``'s block ``[rows]`` of :func:`reveal_masked`'s
+    mask: the picks (global indices, the whole window) that land in its rows
+    ``[shard_index * rows, (shard_index + 1) * rows)`` and are kept are
+    written at their local positions, the rest write nothing. ``keep``
+    already holds the abstain draw (:func:`reveal_masked` makes it once, the
+    window-sized draw of the replicated round key)."""
     dropped = torch.where(keep, picked_idx.to(torch.int64), -1)
-    return state.replace(labeled_mask=_reveal_rows(state.labeled_mask, dropped),
-                         round=state.round + 1)
+    return _reveal_rows(mask_block, dropped, shard_index * rows)
 
 
 def as_carry(state: PoolState) -> PoolState:
@@ -228,9 +278,16 @@ def select_state(active: torch.Tensor, new: PoolState, old: PoolState) -> PoolSt
     round changes (mask, key, round): the chunked driver's masked no-op.
     Rounds past the label cap or the round quota inside a chunk leave the
     carried state exactly unchanged, so stopping is exact and not quantized
-    to chunks. A select on the device, never a host branch."""
+    to chunks. A select on the device, never a host branch; a row-sharded
+    mask is selected block by block."""
+    if isinstance(old.labeled_mask, Sharded):
+        a, b = new.labeled_mask, old.labeled_mask
+        mask = Sharded(tuple(tuple(torch.where(active.to(y.device), x, y) for x, y in zip(ra, rb))
+                             for ra, rb in zip(a.blocks, b.blocks)), b.n_rows)
+    else:
+        mask = torch.where(active, new.labeled_mask, old.labeled_mask)
     return old.replace(
-        labeled_mask=torch.where(active, new.labeled_mask, old.labeled_mask),
+        labeled_mask=mask,
         key=torch.where(active, new.key, old.key),
         round=torch.where(active, new.round, old.round),
     )

@@ -48,14 +48,24 @@ window is pinned (``ForestConfig.fit_budget``): the device fit's bootstrap
 draw depends on the window's static size, and the batched window covers
 the widest experiment.
 
+- **Under a device mesh** (``cfg.mesh``) the batch axis stays outside the
+  data-sharded pool, as in the JAX package: the pool's rows (features,
+  labels, codes; each dataset's in a grid) are padded to the data axis and
+  sharded over it, each experiment's mask is a row-sharded mask of its own
+  (``[E]`` experiments by ``data`` shards), and each experiment's fitted
+  forest is placed by trees inside the round step
+  (``parallel.mesh.constrain_forest``). K1's stacked launch becomes one
+  launch a (data, model) shard per dataset and input. Padding rows read
+  labeled; equal widths keep the static real-row count
+  (``static_n_valid``), unequal ones the per-shard fill watermark.
+
 Fallbacks, as the JAX package's: a host fit runs the experiments as serial
 ``run_experiment`` calls (one after another, each on the requested device),
 and so does a grid whose datasets disagree on feature width or class count.
-Refused by name: a sweep or grid under a device mesh (its chunk under a
-mesh comes with the mesh-and-pod slice), a scenario run as a seed sweep
-(it runs as a grid's scenario axis: :func:`run_grid` with ``scenarios=``,
-one scenario round a group inside the same graph), and
-``stream_round_events`` (the JAX package's own ``ValueError``).
+Refused, with the JAX package's own ``ValueError`` s: a scenario run as a
+seed sweep (it runs as a grid's scenario axis: :func:`run_grid` with
+``scenarios=``, one scenario round a group inside the same graph), a
+grid's scenario axis under a mesh, and ``stream_round_events``.
 
 Checkpoints: one ``sweepstate_<round>.npz`` a sweep, one
 ``gridstate_<round>.npz`` a grid (``runtime/checkpoint.py``), the JAX
@@ -75,6 +85,7 @@ from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import ExperimentConfig
 from distributed_active_learning_tpu_torch.device import resolve_device
 from distributed_active_learning_tpu_torch.ops import forest_eval
+from distributed_active_learning_tpu_torch.parallel.mesh import gather, shard_fill_watermark, shard_rows
 from distributed_active_learning_tpu_torch.runtime import obs
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
@@ -87,7 +98,7 @@ class SweepState:
     shared pools: the fields of :class:`~.state.PoolState` a round changes,
     with a leading axis."""
 
-    labeled_mask: torch.Tensor  # [E, n] bool
+    labeled_mask: object        # [E, n] bool; on a mesh a tuple of E row-sharded masks
     key: torch.Tensor           # [E, 2] int64 key words
     round: torch.Tensor         # [E] int32
 
@@ -96,7 +107,22 @@ class SweepState:
 
     @property
     def n_experiments(self) -> int:
-        return self.labeled_mask.shape[0]
+        return len(self.labeled_mask)
+
+
+def _global_masks(masks) -> torch.Tensor:
+    """A carry's masks as one ``[E, n]`` tensor (joined from the shards on a
+    mesh)."""
+    if isinstance(masks, tuple):
+        return torch.stack([gather(m) for m in masks])
+    return masks
+
+
+def _shard_masks(masks: torch.Tensor, mesh, n_rows: int) -> tuple:
+    """``[E, n]`` masks padded with labeled rows to ``n_rows`` and placed on
+    ``mesh``, one row-sharded mask an experiment."""
+    masks = torch.nn.functional.pad(masks, (0, n_rows - masks.shape[1]), value=True)
+    return tuple(shard_rows(m, mesh) for m in masks)
 
 
 def _grid_counts(mask: torch.Tensor, n_valids_cell: torch.Tensor) -> torch.Tensor:
@@ -146,6 +172,8 @@ def make_grid_chunk_fn(
     n_classes: int = 2,
     scenarios=None,
     drift_dirs=None,
+    mesh=None,
+    static_n_valid: int = -1,
 ):
     """``chunk_size`` rounds of the whole S x D x E grid as one launch; a
     sweep is the grid of one strategy and one dataset.
@@ -187,10 +215,18 @@ def make_grid_chunk_fn(
     launch a cell; every other cell's test set stays in its dataset's
     stacked launch. The scenario metrics are emitted by every group alike
     (one set of metric fields across the cells); ``run_grid`` keeps each
-    cell's own."""
+    cell's own.
+
+    Under a ``mesh`` the pool arrays are tuples of ``D`` row-sharded arrays
+    (the test sets too), the carry's mask a tuple of ``C`` row-sharded
+    masks, each cell's forest is placed by trees on the mesh inside the step
+    (``runtime.loop._mesh_placement``), and its state reads
+    ``static_n_valid`` real rows (the data-axis pad of equal widths) or the
+    per-shard fill watermark of its dataset (``use_fill``)."""
     from distributed_active_learning_tpu_torch.runtime.loop import (
         _accuracy,
         _accuracy_masked,
+        _mesh_placement,
         chunk_of,
         make_padded_round_fn,
     )
@@ -212,6 +248,7 @@ def make_grid_chunk_fn(
     costed = [s is not None and s.kind == "cost_budget" for s in scns]
     drift_dirs = list(drift_dirs) if drift_dirs is not None else [None] * G
     cells_of = [[c for c in range(C) if (c // E) % D == d] for d in range(D)]
+    place = _mesh_placement(mesh)
 
     def step(codes, x, oracle_y, grid: SweepState, seed_masks, lal_forests, fit_keys, windows,
              test_x, test_y, end_rounds, label_caps, edges, n_valids, test_ns, flip_masks=None,
@@ -219,6 +256,11 @@ def make_grid_chunk_fn(
         from distributed_active_learning_tpu_torch.scenarios import engine as scn_engine
 
         xs, oys, txs, tys = ([t[d] for d in range(D)] for t in (x, oracle_y, test_x, test_y))
+        fills = [None] * D
+        if use_fill:
+            fills = [n_valids[d] if mesh is None else
+                     shard_fill_watermark(n_valids[d], xs[d].shape[0], len(xs[d].blocks))
+                     for d in range(D)]
         states = []
         for c in range(C):
             d = (c // E) % D
@@ -226,9 +268,9 @@ def make_grid_chunk_fn(
                                                                   n_classes)
             states.append(state_lib.PoolState(
                 x=xs[d], oracle_y=oy, labeled_mask=grid.labeled_mask[c], key=grid.key[c],
-                round=grid.round[c], n_filled=n_valids[d] if use_fill else None))
-        forests = [fit_fn(codes[(c // E) % D], edges[(c // E) % D], st,
-                          prng.fold_in(fit_keys[c], st.round + 1))
+                round=grid.round[c], n_valid_static=static_n_valid, n_filled=fills[d]))
+        forests = [place(fit_fn(codes[(c // E) % D], edges[(c // E) % D], st,
+                                prng.fold_in(fit_keys[c], st.round + 1)))
                    for c, st in enumerate(states)]
         pool_forests, test_forests = [None] * C, list(forests)
         for d, cells in enumerate(cells_of):
@@ -259,7 +301,8 @@ def make_grid_chunk_fn(
                 costs=costs_ds[d] if costed[g] else None)
             outs.append(out)
             per_cell.append(ys)
-        new = SweepState(labeled_mask=torch.stack([o.labeled_mask for o in outs]),
+        masks = [o.labeled_mask for o in outs]
+        new = SweepState(labeled_mask=tuple(masks) if mesh is not None else torch.stack(masks),
                          key=torch.stack([o.key for o in outs]),
                          round=torch.stack([o.round for o in outs]))
         return new, _stack_ys(per_cell, with_metrics)
@@ -269,7 +312,7 @@ def make_grid_chunk_fn(
                flip_masks=None, costs_ds=None):
         ys = _stack_ys(steps, with_metrics)
         n_valids_cell = torch.repeat_interleave(n_valids, E).repeat(G)
-        remaining = label_caps - _grid_counts(grid.labeled_mask, n_valids_cell)
+        remaining = label_caps - _grid_counts(_global_masks(grid.labeled_mask), n_valids_cell)
         extras = ChunkExtras(
             n_labeled_after=-remaining.max(),
             n_active=ys[4].sum(dim=0, dtype=torch.int32).max(),
@@ -292,6 +335,29 @@ def _resolve_sweep_fit_budget(cfg: ExperimentConfig, n_pool: int, n_labeled_max:
     if cfg.max_rounds is not None:
         caps.append(n_labeled_max + cfg.max_rounds * window_pad)
     return min(caps)
+
+
+def _sweep_mesh(cfg: ExperimentConfig, dev, devices):
+    """The device mesh of a batched run (``parallel.mesh.make_mesh`` on
+    ``devices``, as ``run_experiment`` builds it), or None without one."""
+    if cfg.mesh.data * cfg.mesh.model <= 1:
+        return None
+    from distributed_active_learning_tpu_torch.parallel.mesh import make_mesh
+
+    if cfg.forest.n_trees % cfg.mesh.model:
+        raise ValueError(f"n_trees={cfg.forest.n_trees} not divisible by mesh model axis "
+                         f"{cfg.mesh.model}")
+    mesh = make_mesh(data=cfg.mesh.data, model=cfg.mesh.model, devices=devices, device=dev)
+    if mesh.first.type != dev.type:
+        raise ValueError(f"mesh devices {mesh.devices} do not match device {dev}")
+    return mesh
+
+
+def _shard_pool_rows(a: torch.Tensor, mesh, n_rows: int, replicate: bool):
+    """A pool array padded with zero rows to ``n_rows`` and sharded over the
+    mesh's data axis (features and codes replicated over ``model``)."""
+    return shard_rows(torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (0, n_rows - a.shape[0])),
+                      mesh, replicate=replicate)
 
 
 def _sweep_result_path(path: str, seed: int) -> str:
@@ -393,6 +459,7 @@ def run_sweep(
     debugger=None,
     metrics=None,
     device=None,
+    devices=None,
 ) -> List[ExperimentResult]:
     """Run E = len(seeds) AL experiments over one shared pool as one batched
     launch stream on ``device`` (default CUDA; raises without a card unless
@@ -416,7 +483,10 @@ def run_sweep(
     :func:`run_grid` with ``scenarios=``, the JAX package's ``ValueError``),
     and ``stream_round_events`` (with a device fit). With ``checkpoint_dir`` and ``checkpoint_every`` one
     ``sweepstate_<round>.npz`` covers every experiment, and a resumed sweep
-    continues each experiment from its own round."""
+    continues each experiment from its own round. Under ``cfg.mesh`` the
+    pool is sharded over the mesh (``devices`` as ``run_experiment`` takes
+    them) and each experiment equals its serial mesh run, which equals the
+    single-device run."""
     from distributed_active_learning_tpu_torch.data.datasets import get_dataset
     from distributed_active_learning_tpu_torch.ops import trees_train
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
@@ -443,7 +513,7 @@ def run_sweep(
         raise ValueError(f"{len(windows)} windows for {E} seeds")
     window_pad = max(windows)
     dbg = debugger or Debugger(enabled=False)
-    _not_ported(cfg, metrics, batched="sweep")
+    _not_ported(cfg, metrics)
     _validate_quantize(cfg)
 
     if cfg.forest.fit != "device":
@@ -455,7 +525,7 @@ def run_sweep(
                 checkpoint_dir=(os.path.join(cfg.checkpoint_dir, f"seed_{s}")
                                 if cfg.checkpoint_dir else None))
             out.append(run_experiment(scfg, bundle=bundle, debugger=debugger, metrics=metrics,
-                                      device=dev))
+                                      device=dev, devices=devices))
         return out
     if cfg.scenario is not None and cfg.scenario.active:
         # Scenario runs sweep through the grid launcher (a seed sweep is its
@@ -524,12 +594,25 @@ def run_sweep(
 
     K = max(int(cfg.rounds_per_launch or 1), 1)
     depth = max(int(cfg.pipeline_depth or 1), 1)
+    mesh = _sweep_mesh(cfg, dev, devices)
     # The sweep's chunk is the grid's of one strategy and one dataset: the
-    # pool arrays as [1, ...] views, the per-seed windows as the per-cell
-    # vector.
+    # pool arrays as [1, ...] views (one-tuples of sharded arrays on a
+    # mesh), the per-seed windows as the per-cell vector.
+    shared = (binned.codes[None], base.x[None], base.oracle_y[None])
+    test_x_d, edges_d = test_x[None], binned.edges[None]
+    static_n_valid = -1
+    if mesh is not None:
+        n_rows = n_pool + (-n_pool) % cfg.mesh.data
+        static_n_valid = n_pool if n_rows != n_pool else -1
+        shared = tuple((_shard_pool_rows(a[0], mesh, n_rows, replicate=i != 2),)
+                       for i, a in enumerate(shared))
+        test_x_d = (shard_rows(test_x, mesh, replicate=True),)
+        masks0 = _shard_masks(masks0, mesh, n_rows)
+        seed_masks = _shard_masks(seed_masks, mesh, n_rows)
     body = make_grid_chunk_fn([strategy], window_pad, K,
                               _device_fit_core(cfg, fit_budget, n_classes), n_datasets=1,
-                              n_seeds=E, with_metrics=want_metrics, n_classes=n_classes)
+                              n_seeds=E, with_metrics=want_metrics, n_classes=n_classes,
+                              mesh=mesh, static_n_valid=static_n_valid)
     chunk = (GraphedChunk(body, input_args=(10, 11, 13, 14))
              if dev.type == "cuda" else body)
     launches = telemetry.LaunchTracker(metrics, "sweep_chunk_scan", fn=chunk)
@@ -544,10 +627,9 @@ def run_sweep(
 
     carry = SweepState(labeled_mask=masks0, key=keys0, round=rounds0)
     snapshots = pipeline_lib.CarrySnapshots(ckpt_snapshot)
-    shared = (binned.codes[None], base.x[None], base.oracle_y[None])
-    tail = (seed_masks, (lal_forest,), fit_keys, windows_dev, test_x[None], test_y[None],
+    tail = (seed_masks, (lal_forest,), fit_keys, windows_dev, test_x_d, test_y[None],
             end_rounds, torch.full((E,), label_cap, dtype=torch.int32, device=dev),
-            binned.edges[None], torch.tensor([n_pool], dtype=torch.int32, device=dev),
+            edges_d, torch.tensor([n_pool], dtype=torch.int32, device=dev),
             torch.tensor([test_y.shape[0]], dtype=torch.int32, device=dev))
 
     def dispatch(sw, idx):
@@ -581,8 +663,9 @@ def run_sweep(
             depth=depth, on_launch=launches.record, may_dispatch=ctl.may_dispatch,
             on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)))
     graph_stats = chunk.stats() if isinstance(chunk, GraphedChunk) else None
+    final = _global_masks(carry.labeled_mask)
     for e, res in enumerate(results):
-        res.final_labeled_mask = carry.labeled_mask[e, :n_pool].clone()
+        res.final_labeled_mask = final[e, :n_pool].clone()
         res.pipeline_stats, res.graph_stats = stats, graph_stats
     if cfg.results_path:
         for s, res in zip(seeds, results):
@@ -665,6 +748,7 @@ def run_grid(
     debugger=None,
     metrics=None,
     device=None,
+    devices=None,
 ) -> GridResult:
     """Run the strategies x datasets x seeds grid as ONE pipelined launch
     stream on ``device`` (default CUDA; ``device="cpu"`` for the plain
@@ -689,10 +773,11 @@ def run_grid(
     scenario-major groups (cells in (scenario, strategy, dataset, seed)
     order, ``GridCell.scenario`` naming each); an axis of ``none`` only is
     the clean grid, and duplicate kinds are refused. Each cell equals its
-    serial ``run_experiment`` under its scenario. Refused by name before any
-    work: a device mesh (with a scenario axis too, naming item 8 of the
-    mesh slice), a scenario axis with a host fit (the JAX package's
-    ``ValueError``), and ``stream_round_events`` (with a device fit). The
+    serial ``run_experiment`` under its scenario. Refused before any work,
+    with the JAX package's ``ValueError`` s: a scenario axis with a host
+    fit or under a mesh, and ``stream_round_events`` (with a device fit).
+    Under ``cfg.mesh`` (``devices`` as ``run_experiment`` takes them) each
+    cell equals its serial mesh run. The
     ops plane shows the gauges ``grid_cells``, ``grid_cells_frozen``,
     ``grid_eta_seconds`` (0 once the stream is over) and the counter
     ``grid_cell_rounds``. Checkpoints write one ``gridstate_<round>.npz``
@@ -744,7 +829,7 @@ def run_grid(
         if not any(s.active for s in scn_list):
             scn_list = None  # an all-none axis is the clean grid
     scenario_axis = scn_list is not None
-    _not_ported(cfg, metrics, batched="grid", scenario_axis=scenario_axis)
+    _not_ported(cfg, metrics)
     _validate_quantize(cfg)
     group_scns = None
     if scenario_axis:
@@ -752,6 +837,11 @@ def run_grid(
             raise ValueError(
                 "scenario grid axes run inside the jitted round and need "
                 "the device fit; use --fit device"
+            )
+        if cfg.mesh.data * cfg.mesh.model > 1:
+            raise ValueError(
+                "scenario grid axes are single-device for now (the sharded "
+                "scenario round rides the pod-sharding ROADMAP item)"
             )
         base_strategies, base_windows = list(strategies), list(windows)
         strategies = [st for _ in scn_list for st in base_strategies]
@@ -793,7 +883,7 @@ def run_grid(
                                              f"{c.strategy}_{c.dataset}{sc_tag}_seed_{c.seed}")
                                 if cfg.checkpoint_dir else None))
             c.result = run_experiment(ccfg, bundle=bundle_of(c.dataset), debugger=debugger,
-                                      metrics=metrics, device=dev)
+                                      metrics=metrics, device=dev, devices=devices)
         return GridResult(cells=cells, serial_fallback=True)
 
     if cfg.forest.fit != "device":
@@ -814,11 +904,15 @@ def run_grid(
     # Every dataset padded to one slab width; equal widths keep the static
     # path (no watermark), unequal ones ride the fill watermark.
     n_valids_host = [int(np.asarray(b.train_y).shape[0]) for b in ds_bundles]
-    n_slab = max(n_valids_host)
+    n_store = max(n_valids_host)  # the checkpoint's mask width (no mesh pad)
+    mesh = _sweep_mesh(cfg, dev, devices)
+    n_slab = n_store + ((-n_store) % cfg.mesh.data if mesh is not None else 0)
     test_ns_host = [int(np.asarray(b.test_y).shape[0]) for b in ds_bundles]
     t_slab = max(test_ns_host)
     use_fill = len(set(n_valids_host)) > 1
     use_test_fill = len(set(test_ns_host)) > 1
+    # Equal widths padded to the data axis keep the static real-row count.
+    static_n_valid = n_valids_host[0] if not use_fill and n_slab != n_store else -1
 
     xs, oys, codes_l, edges_l, txs, tys, starts = [], [], [], [], [], [], []
     for b, n_d, t_d in zip(ds_bundles, n_valids_host, test_ns_host):
@@ -839,8 +933,15 @@ def run_grid(
             torch.as_tensor(np.asarray(b.test_x, dtype=np.float32)).to(dev), (0, 0, 0, t_slab - t_d)))
         tys.append(torch.nn.functional.pad(
             torch.as_tensor(np.asarray(b.test_y, dtype=np.int32)).to(dev), (0, t_slab - t_d)))
-    x, oracle_y, codes = torch.stack(xs), torch.stack(oys), torch.stack(codes_l)
-    edges, test_x, test_y = torch.stack(edges_l), torch.stack(txs), torch.stack(tys)
+    if mesh is None:
+        x, oracle_y, codes = torch.stack(xs), torch.stack(oys), torch.stack(codes_l)
+        test_x = torch.stack(txs)
+    else:  # each dataset's pool sharded over the mesh (already padded to n_slab)
+        x = tuple(shard_rows(a, mesh, replicate=True) for a in xs)
+        oracle_y = tuple(shard_rows(a, mesh) for a in oys)
+        codes = tuple(shard_rows(a, mesh, replicate=True) for a in codes_l)
+        test_x = tuple(shard_rows(a, mesh, replicate=True) for a in txs)
+    edges, test_y = torch.stack(edges_l), torch.stack(tys)
     del xs, oys, codes_l, edges_l, txs, tys
     n_valids = torch.as_tensor(n_valids_host, dtype=torch.int32).to(dev)
     test_ns = torch.as_tensor(test_ns_host, dtype=torch.int32).to(dev)
@@ -915,11 +1016,12 @@ def run_grid(
         ckpt_fp = ckpt_lib.grid_fingerprint(
             cfg, strategies, seeds, datasets, windows,
             scenarios=[sc.kind for sc in scn_list] if scenario_axis else None)
-        restored = ckpt_lib.restore_latest_grid(cfg.checkpoint_dir, n_store=n_slab, n_cells=C,
+        restored = ckpt_lib.restore_latest_grid(cfg.checkpoint_dir, n_store=n_store, n_cells=C,
                                                 fingerprint=ckpt_fp)
         if restored is not None:
             r_masks, r_keys, r_rounds, r_results = restored
-            masks0 = torch.from_numpy(r_masks).to(dev)
+            masks0 = torch.nn.functional.pad(torch.from_numpy(r_masks).to(dev),
+                                             (0, n_slab - n_store), value=True)
             keys0 = torch.from_numpy(r_keys).to(dev)
             rounds0 = torch.from_numpy(r_rounds).to(dev)
             start_rounds = [int(r) for r in r_rounds]
@@ -929,7 +1031,7 @@ def run_grid(
 
     counts0 = [int(c) for c in _grid_counts(
         masks0, torch.as_tensor(nv_cell_host, dtype=torch.int32).to(dev)).cpu()]
-    fit_budget = _resolve_sweep_fit_budget(cfg, n_slab, max(counts0), window_pad)
+    fit_budget = _resolve_sweep_fit_budget(cfg, n_store, max(counts0), window_pad)
     end_rounds = torch.as_tensor(
         [sr + cfg.max_rounds if cfg.max_rounds is not None else int(np.iinfo(np.int32).max)
          for sr in start_rounds], dtype=torch.int32).to(dev)
@@ -940,7 +1042,8 @@ def run_grid(
                               _device_fit_core(cfg, fit_budget, n_classes), n_datasets=D,
                               n_seeds=E, use_fill=use_fill, use_test_fill=use_test_fill,
                               with_metrics=want_metrics, n_classes=n_classes,
-                              scenarios=group_scns, drift_dirs=drift_dirs)
+                              scenarios=group_scns, drift_dirs=drift_dirs, mesh=mesh,
+                              static_n_valid=static_n_valid)
     chunk = (GraphedChunk(body, input_args=(10, 11, 13, 14))
              if dev.type == "cuda" else body)
     launches = telemetry.LaunchTracker(metrics, "grid_chunk_scan", fn=chunk)
@@ -957,6 +1060,9 @@ def run_grid(
     if not ctl.already_done:
         _fit_guard(counts0, caps_host, windows_by_cell, cfg.max_rounds, fit_budget)
 
+    if mesh is not None:
+        masks0 = _shard_masks(masks0, mesh, n_slab)
+        seed_masks = _shard_masks(seed_masks, mesh, n_slab)
     carry = SweepState(labeled_mask=masks0, key=keys0, round=rounds0)
     snapshots = pipeline_lib.CarrySnapshots(ckpt_snapshot)
 
@@ -1016,7 +1122,7 @@ def run_grid(
 
             s_masks, s_keys, s_rounds = snap
             ckpt_lib.save_grid(cfg.checkpoint_dir, s_masks, s_keys, s_rounds,
-                               [c.result for c in cells], n_store=n_slab, fingerprint=ckpt_fp)
+                               [c.result for c in cells], n_store=n_store, fingerprint=ckpt_fp)
             ctl.checkpoint_done()
 
     stats = None
@@ -1027,8 +1133,9 @@ def run_grid(
             on_veto=lambda idx: launches.veto(idx, ctl.veto_reason(idx)))
     # The stream is over: a later scrape reads no remaining wall.
     obs.gauge("grid_eta_seconds", "estimated wall seconds until the slowest cell finishes").set(0.0)
+    final = _global_masks(carry.labeled_mask)
     for c, cell in enumerate(cells):
-        cell.result.final_labeled_mask = carry.labeled_mask[c, :nv_cell_host[c]].clone()
+        cell.result.final_labeled_mask = final[c, :nv_cell_host[c]].clone()
     if cfg.results_path:
         for cell in cells:
             cell.result.save(_grid_result_path(cfg.results_path, cell.strategy, cell.dataset,

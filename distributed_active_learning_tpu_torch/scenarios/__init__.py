@@ -12,6 +12,7 @@ from distributed_active_learning_tpu_torch.scenarios.engine import (  # noqa: F4
     apply_flips,
     drift_apply,
     flip_mask,
+    flip_mask_block,
     make_costs,
     rare_recall,
     scenario_from_name,

@@ -112,6 +112,16 @@ def flip_mask(scn: ScenarioConfig, cell_seed: int, n: int, device=None) -> torch
     return prng.uniform(k, (n,), device) < scn.flip_prob
 
 
+def flip_mask_block(scn: ScenarioConfig, cell_seed: int, n_pool: int, shard_index: int,
+                    rows: int, device=None) -> torch.Tensor:
+    """Shard ``shard_index``'s ``[rows]`` block of :func:`flip_mask` (rows
+    ``[shard_index * rows, (shard_index + 1) * rows)``): the draw is keyed by
+    global row, so each shard draws the whole ``[n_pool]`` vector and keeps
+    its rows, and the blocks join to :func:`flip_mask` at any shard count."""
+    start = int(shard_index) * rows
+    return flip_mask(scn, cell_seed, n_pool, device)[start:start + rows]
+
+
 def abstain_draw(scn: ScenarioConfig, abstain_key: prng.Key, shape) -> torch.Tensor:
     """The noisy oracle's keep-draw for a pick window: True where the oracle
     answers (probability ``1 - abstain_prob``); all True otherwise."""

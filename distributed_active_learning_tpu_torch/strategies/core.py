@@ -13,6 +13,8 @@ from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import StrategyConfig
 from distributed_active_learning_tpu_torch.ops import forest_eval, scoring, similarity, trees_multi
 from distributed_active_learning_tpu_torch.ops.xla_f32 import row_sum
+from distributed_active_learning_tpu_torch.parallel.kernels import sharded_similarity_mass
+from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, mesh_of
 from distributed_active_learning_tpu_torch.strategies.base import Strategy, register_strategy
 
 
@@ -116,7 +118,8 @@ def _density(cfg: StrategyConfig) -> Strategy:
     to the power ``beta``, descending (``density_weighting.py:148-168``).
     The mass counts the current unlabeled rows; ``options={"mass_over":
     "non_seed"}`` (with ``aux.seed_mask``) counts every row but the initial
-    seeds, as the reference does."""
+    seeds, as the reference does. On a mesh the mass is
+    ``parallel.kernels.sharded_similarity_mass``."""
     mass_over = dict(cfg.options).get("mass_over", "unlabeled")
     beta = cfg.beta
 
@@ -130,9 +133,13 @@ def _density(cfg: StrategyConfig) -> Strategy:
             count_mask = ~aux.seed_mask
         else:
             count_mask = ~state.labeled_mask
+        if isinstance(state.x, Sharded):  # a mesh: one [d] vector crosses the data axis
+            raw = sharded_similarity_mass(mesh_of(state.x))(state.x, count_mask)
+        else:
+            raw = similarity.similarity_mass(state.x, count_mask)
         # The mass can dip below 0 for adversarial rows; clamp so the power
         # is defined.
-        mass = torch.clamp_min(similarity.similarity_mass(state.x, count_mask), 0.0)
+        mass = torch.clamp_min(raw, 0.0)
         return ent * torch.pow(mass, beta)
 
     return Strategy(name="density", score=score, higher_is_better=True)

@@ -257,7 +257,9 @@ def test_ring_and_mesh_across_cards(cuda):
     the ring over two and over every visible card equals the CPU ring, one
     launch per sending card and step; a ring step into another card's
     buffers equals the plain copies; and the 4 x 2 mesh spread over the
-    cards equals the CPU mesh, fused and unfused."""
+    cards equals the CPU mesh, fused and unfused, per round and chunked
+    (the chunk runs eagerly across cards: ``graph_stats["mode"]`` says
+    "eager" and names the cards)."""
     import dataclasses
 
     from distributed_active_learning_tpu_torch import config
@@ -299,10 +301,17 @@ def test_ring_and_mesh_across_cards(cuda):
         strategy=config.StrategyConfig(name="uncertainty", window_size=15),
         mesh=config.MeshConfig(4, 2), n_start=10, max_rounds=3)
     for fused in (True, False):
-        c = dataclasses.replace(base, fused_round=fused)
-        on_cards = loop.run_experiment(c, device=cards[0], devices=spread)
-        on_cpu = loop.run_experiment(c, device="cpu")
-        assert on_cards.to_reference_log() == on_cpu.to_reference_log(), fused
+        for k in (1, 2):
+            c = dataclasses.replace(base, fused_round=fused, rounds_per_launch=k)
+            on_cards = loop.run_experiment(c, device=cards[0], devices=spread)
+            on_cpu = loop.run_experiment(c, device="cpu")
+            assert on_cards.to_reference_log() == on_cpu.to_reference_log(), (fused, k)
+            assert torch.equal(on_cards.final_labeled_mask.cpu(), on_cpu.final_labeled_mask)
+            if k > 1:
+                g = on_cards.graph_stats
+                print(f"chunked mesh across {n_cards} cards (fused={fused}): mode {g['mode']}: "
+                      f"{g['mode_reason']}")
+                assert g["mode"] == "eager" and g["captures"] == 0
 
 
 def test_variant_kernels_match_plain(cuda):
@@ -437,6 +446,43 @@ def test_chunked_graph_matches_per_round(cuda):
     assert int(ys[4].sum()) == 2
     with pytest.raises(ValueError, match=r"carry tensors .* \['x'\]"):
         graphed(b.codes, out.replace(x=x.clone()), StrategyAux(), fit_key, x, y, end)
+
+
+def test_chunked_mesh_on_the_card_matches_the_cpu(cuda):
+    """The chunk under a 4 x 2 mesh on one card (``devices=[cuda:0] * 8``,
+    300 rows padded to 304) is ONE CUDA graph of a round, replayed: fused
+    and unfused, its records and final mask equal the same chunked mesh run
+    on the CPU (plain versions) and the single-device run on the card; a
+    replay (K = 3 rounds) launches K3 8, K4 3 and K1 8 times a round fused,
+    K1 16 times unfused. The graph mode is printed."""
+    from distributed_active_learning_tpu_torch import config
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    base = config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=301, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        mesh=config.MeshConfig(4, 2), n_start=10, max_rounds=5, rounds_per_launch=3)
+    K = base.rounds_per_launch
+    for fused in (True, False):
+        c = dataclasses.replace(base, fused_round=fused)
+        got = loop.run_experiment(c, device=cuda, devices=[cuda] * 8)
+        on_cpu = loop.run_experiment(c, device="cpu")
+        single = loop.run_experiment(dataclasses.replace(c, mesh=config.MeshConfig()), device=cuda)
+        assert got.to_reference_log() == on_cpu.to_reference_log() == single.to_reference_log()
+        assert torch.equal(got.final_labeled_mask.cpu(), on_cpu.final_labeled_mask)
+        assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
+        g = got.graph_stats
+        print(f"chunked mesh 4 x 2 on one card (fused={fused}): mode {g['mode']}, captures "
+              f"{g['captures']}, replays {g['replays']}, launches a replay "
+              f"{g['launches_per_replay']}")
+        assert (g["mode"], g["captures"], g["replays"]) == ("graph", 1, 2)
+        want = ({"trees_pallas.launches": 8 * K, "round_fused.votes_launches": 8 * K,
+                 "ring_topk.launches": 3 * K} if fused else
+                {"trees_pallas.launches": 16 * K, "round_fused.votes_launches": 0,
+                 "ring_topk.launches": 0})
+        assert {k: g["launches_per_replay"][k] for k in want} == want
+        assert g["launches_per_replay"]["round_fused.launches"] == 0  # no K2 on the mesh
 
 
 def test_metrics_chunk_and_resume_on_the_card(cuda, tmp_path):

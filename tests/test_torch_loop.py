@@ -19,8 +19,10 @@ package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
 the kernel-variant sweep included; its metrics JSONL renders through
 ``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
 registry's Prometheus text, and it refuses what it does not carry yet by
-name (a scenario under a mesh naming item 8 of the mesh slice), and refuses
-what the JAX package refuses of scenarios with its messages."""
+name (the pod slab and multi-process meshes naming item 8 of the mesh
+slice; roofline naming the pre-flight slice), and refuses what the JAX
+package refuses of scenarios with its messages (under a mesh, every kind
+but the noisy oracle, and a grid's scenario axis)."""
 
 import dataclasses
 import json
@@ -465,12 +467,17 @@ except RuntimeError as e:
     print("SERVED", lines[0]["refits"], lines[1]["fill"])
 else:
     raise AssertionError("the serving CLI started without a card and without --device cpu")
-try:
-    run.main(small + ["--fit", "host", "--kernel", "pallas", "--mesh-data", "2"])
-except NotImplementedError as e:
-    print("REFUSED", e)
-else:
-    raise AssertionError("the host fit under a mesh was not refused")
+# Under a mesh: the chunk with metrics and the gemm form, the host fit with
+# density, a 2-seed sweep and the noisy oracle.
+for extra in (["--fit", "device", "--kernel", "gemm", "--rounds-per-launch", "2",
+               "--metrics-out", os.path.join(tmp, "mesh.jsonl")],
+              ["--fit", "host", "--kernel", "pallas", "--strategy", "density"],
+              ["--fit", "device", "--kernel", "pallas", "--sweep-seeds", "2",
+               "--rounds-per-launch", "2"],
+              ["--fit", "device", "--kernel", "pallas", "--scenario", "noisy_oracle",
+               "--flip-prob", "0.1", "--abstain-prob", "0.25", "--rounds-per-launch", "2"]):
+    assert run.main(small + ["--mesh-data", "2", "--mesh-model", "2"] + extra) == 0, extra
+print("MESHED")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "distributed_active_learning_tpu"))
 assert not bad, bad
@@ -481,7 +488,9 @@ print("ISOLATED")
 def test_port_runs_without_jax_in_a_fresh_interpreter():
     """The CLI's paths (fused, mesh, chunked, host fit, deep gather form,
     density, int8 storage, lal, a 2-seed sweep, a 2-cell grid, a noisy
-    oracle and a 2-scenario x 2-seed grid) and the streaming service's CLI
+    oracle and a 2-scenario x 2-seed grid; on a 2 x 2 mesh a chunk with
+    metrics in the gemm form, the host fit with density, a 2-seed sweep and
+    the noisy oracle) and the streaming service's CLI
     (a stream, and its resume) run in a fresh interpreter, and neither the
     port nor scikit-learn pulls in JAX or the JAX package; importing the
     fleet (``serving.fleet``) initializes no CUDA."""
@@ -490,10 +499,10 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
     )
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout and "SERVED" in out.stdout
-    assert out.stdout.count("Iteration") == 36
-    assert out.stdout.count("# sweep seed") == 2 and out.stdout.count("# grid cell") == 6
+    assert out.stdout.count("Iteration") == 46
+    assert out.stdout.count("# sweep seed") == 4 and out.stdout.count("# grid cell") == 6
     assert out.stdout.count("# grid cell uncertainty/checkerboard2x2/drift/seed") == 2
-    assert "REFUSED" in out.stdout and "mesh-and-pod slice" in out.stdout
+    assert "MESHED" in out.stdout
     # The ops plane: one sequence of counter, gauge, histogram and heartbeat
     # calls renders the same Prometheus text in both packages (JAX's obs.py
     # imports no JAX, but its package does: this runs outside the isolated
@@ -517,27 +526,20 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
 def test_unported_features_are_refused_by_name(tmp_path, capsys):
     _, base = _cfgs(False)
     mesh = t_config.MeshConfig(data=2)
-    cases = [
-        (dict(rounds_per_launch=4, mesh=mesh), "under a device mesh needs"),
-        (dict(mesh=mesh, collect_metrics=True), "RoundMetrics under a device mesh .* mesh-and-pod"),
-        (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gemm")),
-         "under a device mesh"),
-        (dict(mesh=mesh, strategy=t_config.StrategyConfig(
-            name="lal", window_size=15, options=_LAL_OPTIONS)),
-         "lal strategy under a device mesh .* mesh-and-pod slice"),
-        # The mesh halves of the gather form, the host fit and density.
-        (dict(mesh=mesh, forest=dataclasses.replace(base.forest, kernel="gather")),
-         "gather form .* mesh-and-pod slice"),
-        (dict(mesh=mesh, forest=dataclasses.replace(base.forest, max_depth=12)),
-         "gather form .* mesh-and-pod slice"),
-        (dict(mesh=mesh, forest=dataclasses.replace(base.forest, fit="host")),
-         "host fit under a device mesh .* mesh-and-pod slice"),
-        (dict(mesh=mesh, strategy=t_config.StrategyConfig(name="density", window_size=15)),
-         "density strategy under a device mesh .* mesh-and-pod slice"),
-    ]
-    for change, why in cases:
-        with pytest.raises(NotImplementedError, match=why):
-            t_loop.run_experiment(dataclasses.replace(base, **change), device="cpu")
+    # What the mesh-and-pod slice (item 8) has not carried yet is refused by
+    # name: the pod half of the slab pool and multi-process meshes (the
+    # neural path under a data mesh: tests/test_torch_neural.py).
+    from distributed_active_learning_tpu_torch import serving as t_serving
+    from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
+    from distributed_active_learning_tpu_torch.serving import slab as t_slab_mod
+
+    for get in (lambda: t_serving.RebalanceHysteresis, lambda: t_slab_mod.shard_slab_pool):
+        with pytest.raises(NotImplementedError, match="mesh-and-pod slice .* item 8"):
+            get()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "2")
+        with pytest.raises(NotImplementedError, match="multi-process mesh .* item 8"):
+            t_mesh.make_mesh(2, 1, device="cpu")
     # A LAL run with neither a data file nor a forest file synthesizes its
     # regressor's training rows and fits it with scikit-learn: without
     # scikit-learn (the card's machine) it is refused by name, before the
@@ -557,16 +559,14 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
         for run in (j_loop.run_experiment, lambda c: t_loop.run_experiment(c, device="cpu")):
             with pytest.raises(ValueError, match=why):
                 run(jcfg if run is j_loop.run_experiment else tcfg)
-    # With a writer: metrics under a mesh, and --roofline (the pre-flight
-    # slice), in the loop and in the CLI.
+    # With a writer: --roofline (the pre-flight slice), in the loop and in
+    # the CLI.
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(tmp_path)
         writer = t_telemetry.MetricsWriter("m.jsonl")
-        for change, why in ((dict(mesh=mesh), "RoundMetrics under a device mesh"),
-                            (dict(roofline=True, rounds_per_launch=4), "pre-flight slice")):
-            with pytest.raises(NotImplementedError, match=why):
-                t_loop.run_experiment(dataclasses.replace(base, **change), metrics=writer,
-                                      device="cpu")
+        with pytest.raises(NotImplementedError, match="pre-flight slice"):
+            t_loop.run_experiment(dataclasses.replace(base, roofline=True, rounds_per_launch=4),
+                                  metrics=writer, device="cpu")
         writer.close()
         from distributed_active_learning_tpu_torch import run as t_run
 
@@ -575,40 +575,36 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
             with pytest.raises(SystemExit):
                 t_run.main(["--device", "cpu", *argv])
             assert why in capsys.readouterr().err
-    # Sweeps and grids refuse, before any work: a mesh (their chunk under a
-    # mesh) and stream_round_events (the JAX package's ValueError).
+    # Sweeps and grids refuse stream_round_events before any work (the JAX
+    # package's ValueError); under a mesh they run (tests/test_torch_scoring.py).
     from distributed_active_learning_tpu.runtime import sweep as j_sweep
     from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
 
     for kind, run in (("sweep", lambda c: t_sweep.run_sweep(c, [0, 1], device="cpu")),
                       ("grid", lambda c: t_sweep.run_grid(c, ["uncertainty"], [0, 1],
                                                           device="cpu"))):
-        with pytest.raises(NotImplementedError,
-                           match=f"a {kind} under a device mesh .* mesh-and-pod slice .* item 8"):
-            run(dataclasses.replace(base, mesh=mesh))
         with pytest.raises(ValueError, match=f"not supported by the batched {kind} chunk"):
             run(dataclasses.replace(base, stream_round_events=True))
-    # A scenario under a mesh is refused naming item 8 of the mesh slice
-    # (noisy_oracle too: its per-shard reveal and flip_mask_block come
-    # there), in a run, a grid's scenario axis and the CLI.
-    scenario = t_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
-    with pytest.raises(NotImplementedError, match="scenario under a device mesh .* item 8"):
-        t_loop.run_experiment(dataclasses.replace(base, mesh=mesh, scenario=scenario),
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="scenario under a device mesh .* item 8"):
-        t_sweep.run_grid(dataclasses.replace(base, mesh=mesh), ["uncertainty"], [0],
-                         scenarios=["none", scenario], device="cpu")
     # What the JAX package refuses of a scenario, the port refuses with its
     # message: a host fit (a run and a grid's axis), a scenario as a batched
-    # seed sweep, duplicate kinds on the axis.
+    # seed sweep, duplicate kinds on the axis; under a mesh every kind but
+    # the noisy oracle (a run) and a grid's scenario axis (the noisy oracle
+    # on a mesh runs: tests/test_torch_serving.py).
     jbase, _ = _cfgs(False)
     jscn = j_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.1)
     host_j = dataclasses.replace(jbase, forest=dataclasses.replace(jbase.forest, fit="host"))
+    j_mesh_cfg = dataclasses.replace(jbase, mesh=j_config.MeshConfig(data=2))
     refusals = (
         (lambda c: c, dataclasses.replace(host_j, scenario=jscn), "run"),
         (lambda c: c, dataclasses.replace(jbase, scenario=jscn), "sweep"),
         (lambda c: c, host_j, "grid axis"),
         (lambda c: c, jbase, "duplicate"),
+        (lambda c: c, dataclasses.replace(j_mesh_cfg, scenario=j_config.ScenarioConfig(
+            kind="drift", drift_rate=0.1)), "run"),
+        (lambda c: c, dataclasses.replace(j_mesh_cfg, scenario=j_config.ScenarioConfig(
+            kind="cost_budget", cost_budget=20.0), strategy=dataclasses.replace(
+                jbase.strategy, name="entropy")), "run"),
+        (lambda c: c, j_mesh_cfg, "grid axis"),
     )
     for _, jcfg, what in refusals:
         tcfg = t_config.from_dict(dataclasses.asdict(jcfg))

@@ -15,7 +15,15 @@ numpy arrays made from a seed and handed to both packages.
   and the port's single-device run, with a fit that is bit-identical to the
   single-device fit; so do int8 and bf16 storage on the fused mesh (K3 on
   the narrow payloads) and a 4-class pool on the unfused mesh (K1 per shard
-  and plane), whose records also equal the JAX package's 4 x 2 mesh run.
+  and plane), whose records also equal the JAX package's 4 x 2 mesh run;
+- the chunk under the 4 x 2 mesh (``rounds_per_launch=4``, JAX's
+  ``tests/test_chunked_driver.py`` configuration): unfused, its records and
+  final mask equal the JAX single-device run's (JAX pins its mesh chunk to
+  it); fused, they equal the JAX package's own 4 x 2 mesh chunk (whose
+  mesh round divides ``votes / T``; at 8 trees both spellings agree);
+- RoundMetrics under the mesh (JAX's ``tests/test_telemetry.py``
+  configuration), per round and chunked, equal the JAX single-device
+  run's, ``pool_entropy`` to ``telemetry.POOL_ENTROPY_RTOL``.
 """
 
 import dataclasses
@@ -224,12 +232,13 @@ def _fit_matches_single_device(tcfg, mesh_shape):
     m = t_mesh.make_mesh(*mesh_shape, device="cpu")
     sh = t_mesh.shard_pool_state(t_state.pad_for_sharding(st, mesh_shape[0]), m)
     codes = t_mesh.shard_rows(binned.codes, m)
+    for budget in (40, 8):  # a window past the labeled rows, and one they overflow
+        single = t_train.gather_fit_window(binned.codes, st.oracle_y, st.labeled_mask, budget)
+        masks = [sh.labeled_mask.block(s) & v for s, v in enumerate(t_state.valid_blocks(sh))]
+        sharded = t_train.gather_fit_window_sharded(codes, sh.oracle_y, masks, budget)
+        for a, c in zip(single, sharded):
+            assert a.dtype == c.dtype and torch.equal(a, c)
     budget = 40
-    single = t_train.gather_fit_window(binned.codes, st.oracle_y, st.labeled_mask, budget)
-    sharded = t_train.gather_fit_window_sharded(codes, sh.oracle_y, sh.labeled_mask, sh.n_valid,
-                                                budget)
-    for a, c in zip(single, sharded):
-        assert a.dtype == c.dtype and torch.equal(a, c)
     fit = t_loop.make_device_fit(tcfg, binned.edges, budget)
     key = prng.fold_in(prng.key(1), 1)
     f1 = fit(binned.codes, st, key).gf
@@ -243,10 +252,12 @@ def _check_mesh_run(fused, strategy="uncertainty", mesh=(4, 2), window=10):
     want = j_loop.run_experiment(jcfg)
     single = t_loop.run_experiment(tcfg, device="cpu")
     _, tmesh_cfg = _cfgs(mesh, fused, strategy, window)
-    got = t_loop.run_experiment(tmesh_cfg, device="cpu")
-    assert _records(got) == _records(want) == _records(single)
-    assert got.final_labeled_mask.shape == (250,)
-    assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
+    for k in (1, 4):  # per round, and the chunk under the mesh
+        got = t_loop.run_experiment(dataclasses.replace(tmesh_cfg, rounds_per_launch=k),
+                                    device="cpu")
+        assert _records(got) == _records(want) == _records(single), k
+        assert got.final_labeled_mask.shape == (250,)
+        assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
     np.testing.assert_array_equal(got.final_labeled_mask.numpy(), _jax_final_mask(jcfg))
 
 
@@ -279,6 +290,53 @@ def test_mesh_run_experiment_matches_jax(devices):
     # partitionable threefry element i's bits depend on i alone.
     key = prng.key(3)
     assert torch.equal(prng.uniform(key, (252,))[:250], prng.uniform(key, (250,)))
+    _mesh_chunk_and_metrics_match_jax()
+
+
+def _metric_dicts(res):
+    return [r.metrics for r in res.records]
+
+
+def _metrics_equal(got, want):
+    from distributed_active_learning_tpu_torch.runtime.telemetry import POOL_ENTROPY_RTOL
+
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in g:
+            if k == "pool_entropy":
+                assert abs(g[k] - w[k]) <= POOL_ENTROPY_RTOL * abs(w[k]), (k, g[k], w[k])
+            else:
+                assert g[k] == w[k], (k, g[k], w[k])
+
+
+def _mesh_chunk_and_metrics_match_jax():
+    """The chunk and RoundMetrics under the 4 x 2 mesh against the JAX
+    package's runs of its own tests' configurations."""
+    def cfgs(mesh, k, fused=False, rounds=5, metrics=False):
+        j = j_config.ExperimentConfig(
+            data=j_config.DataConfig(name="checkerboard2x2", n_samples=250, seed=2),
+            forest=j_config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+            strategy=j_config.StrategyConfig(name="uncertainty", window_size=10),
+            mesh=j_config.MeshConfig(*mesh), n_start=10, max_rounds=rounds, seed=7,
+            rounds_per_launch=k, fused_round=fused, collect_metrics=metrics)
+        return j, t_config.from_dict(dataclasses.asdict(j))
+
+    for fused in (False, True):
+        j1, _ = cfgs((1, 1), 1, fused)
+        jm, tm = cfgs((4, 2), 4, fused)
+        want = j_loop.run_experiment(jm if fused else j1)
+        got = t_loop.run_experiment(tm, device="cpu")
+        assert _records(got) == _records(want), fused
+        assert got.pipeline_stats is not None  # the chunked driver ran
+        np.testing.assert_array_equal(got.final_labeled_mask.numpy(), _jax_final_mask(j1))
+    j1, _ = cfgs((1, 1), 1, rounds=4, metrics=True)
+    want = j_loop.run_experiment(j1)
+    for k in (1, 4):
+        _, tm = cfgs((4, 2), k, rounds=4, metrics=True)
+        got = t_loop.run_experiment(tm, device="cpu")
+        assert _records(got) == _records(want), k
+        _metrics_equal(_metric_dicts(got), _metric_dicts(want))
 
 
 @pytest.mark.slow

@@ -90,7 +90,7 @@ def test_neural_modules_match_jax():
         jl = j_neural.NeuralLearner(jm, shape, train_steps=5, batch_size=8, mc_samples=3,
                                     predict_chunk=7)
         tl = t_neural.NeuralLearner(tm, shape, train_steps=5, batch_size=8, mc_samples=3,
-                                    predict_chunk=7)
+                                    predict_chunk=7, device="cpu")
         js, ts = jl.init(jax.random.key(5)), tl.init(prng.key(5))
         # Init bit for bit, and the carry-across function both ways.
         carried = interop.neural_params_from_numpy(jax.device_get(js.params), tm)
@@ -146,8 +146,15 @@ def test_neural_modules_match_jax():
     long_ids = torch.zeros((2, 9), dtype=torch.int32)
     tm = _models()[2][2]
     with pytest.raises(ValueError, match="exceeds max_len=8"):
-        t_neural.NeuralLearner(tm, (9,)).predict_proba(
-            t_neural.NeuralLearner(tm, (8,)).init(prng.key(0)), long_ids)
+        t_neural.NeuralLearner(tm, (9,), device="cpu").predict_proba(
+            t_neural.NeuralLearner(tm, (8,), device="cpu").init(prng.key(0)), long_ids)
+    # A learner built without a device runs on the card; with no card it
+    # raises, naming device="cpu".
+    if torch.cuda.is_available():
+        assert t_neural.NeuralLearner(tm, (8,)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_neural.NeuralLearner(tm, (8,))
 
     # Every deep function on the same probabilities and embeddings.
     S, n, C = 4, 120, 3
@@ -205,7 +212,8 @@ def _close_records(rj, rt):
 def test_neural_loop_matches_jax(tmp_path):
     x, y, tx, ty = _pool()
     jl = j_neural.NeuralLearner(j_neural.MLP(hidden=(16,)), (4,), train_steps=10, mc_samples=2)
-    tl = t_neural.NeuralLearner(t_neural.MLP(hidden=(16,)), (4,), train_steps=10, mc_samples=2)
+    tl = t_neural.NeuralLearner(t_neural.MLP(hidden=(16,)), (4,), train_steps=10, mc_samples=2,
+                                device="cpu")
     base = dict(window_size=5, n_start=10, max_rounds=3, seed=1, batchbald_max_configs=8)
     assert (t_loop.neural_fingerprint(t_loop.NeuralExperimentConfig(**base), tl)
             == j_loop.neural_fingerprint(j_loop.NeuralExperimentConfig(**base), jl))

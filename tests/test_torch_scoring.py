@@ -12,7 +12,20 @@ in interpret mode. And the tree mean and the soft uncertainty score equal
 the jitted ``jnp.mean`` expressions at 100 trees and four more tree counts.
 The density strategy's similarity mass, the cosine matrix and its blocked
 reduction agree with the JAX package's to ``similarity.MASS_RTOL`` of the
-largest magnitude (float sums in another order). The multiclass scores
+largest magnitude (float sums in another order); the normalized rows
+(``l2_normalize``) are the jitted JAX function's bit for bit at d = 2, 17,
+30 and at 5,000 x 30; the mass sharded over 8 data shards
+(``parallel.kernels.sharded_similarity_mass``) agrees with JAX's sharded
+mass and the port's own to ``MASS_RTOL``, and ``collectives.masked_mean``
+over them equals JAX's. A sweep (JAX's
+``tests/test_sweep.py`` mesh configuration) and a grid (``tests/test_grid.py``'s)
+under the 4 x 2 mesh give each experiment and cell the JAX single-device
+serial run's records and the port's final masks; every forest form, fit
+and strategy under the mesh (250 rows padded to 252, JAX's
+``tests/test_parallel.py`` configuration: the gemm form, the gather form
+and depth 12, the host fit with gemm and pallas, density and LAL), per
+round and chunked, gives the JAX single-device run's records and the
+port's single-device final mask. The multiclass scores
 (``trees_multi``: class probabilities, top-2 margin, entropy in XLA's
 spelling) at C = 3, 4, 10 and 32, the LAL features, and a LAL regressor
 fitted from the committed fixture (its values in the gather form and through
@@ -127,6 +140,44 @@ def test_score_tables_match_jax(tmp_path):
         want = np.asarray(jax.jit(j_sim.similarity_mass)(jnp.asarray(xs), jnp.asarray(m)))
         got = t_sim.similarity_mass(torch.from_numpy(xs), torch.from_numpy(m)).numpy()
         np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+    # The normalized rows bit for bit (the squares summed in XLA's order),
+    # then the sharded mass over 8 data shards.
+    j_norm = jax.jit(j_sim.l2_normalize)
+    for n, d in ((300, 2), (96, 17), (1000, 30), (5000, 30)):
+        xn = rng.normal(size=(n, d)).astype(np.float32)
+        np.testing.assert_array_equal(
+            t_sim.l2_normalize(torch.from_numpy(xn)).numpy().view(np.int32),
+            np.asarray(j_norm(jnp.asarray(xn))).view(np.int32))
+    from distributed_active_learning_tpu.parallel import kernels as j_par
+    from distributed_active_learning_tpu.parallel import make_mesh as j_make_mesh
+    from distributed_active_learning_tpu_torch.parallel import kernels as t_par
+    from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
+
+    xs8, m8 = xs[:4000], m[:4000]
+    want = np.asarray(jax.jit(j_par.sharded_similarity_mass(j_make_mesh(data=8, model=1)))(
+        jnp.asarray(xs8), jnp.asarray(m8)))
+    t_m = t_mesh.make_mesh(8, 1, device="cpu")
+    got = t_par.sharded_similarity_mass(t_m)(
+        t_mesh.shard_rows(torch.from_numpy(xs8), t_m, replicate=True), torch.from_numpy(m8))
+    single = t_sim.similarity_mass(torch.from_numpy(xs8), torch.from_numpy(m8))
+    for other in (want, single.numpy()):
+        np.testing.assert_allclose(got.numpy(), other, rtol=0, atol=rtol * np.abs(want).max())
+    # masked_mean over the 8 shards: JAX's under shard_map, bit for bit.
+    from jax.sharding import PartitionSpec as P
+
+    from distributed_active_learning_tpu.parallel import collectives as j_coll
+    from distributed_active_learning_tpu.utils.compat import shard_map
+    from distributed_active_learning_tpu_torch.parallel import collectives as t_coll
+
+    vals = rng.random(4000).astype(np.float32)
+    want = shard_map(lambda v, mk: j_coll.masked_mean(v, mk, "data"),
+                     mesh=j_make_mesh(data=8, model=1), in_specs=(P("data"), P("data")),
+                     out_specs=P())(jnp.asarray(vals), jnp.asarray(m8))
+    got = t_coll.masked_mean(torch.from_numpy(vals).chunk(8), torch.from_numpy(m8).chunk(8))
+    assert np.float32(want).view(np.int32) == got.numpy().view(np.int32)
+    _mesh_sweep_and_grid_match_jax()
+    _forms_under_the_mesh_match_jax()
+
     xs = xs[:700]
     want = np.asarray(j_sim.pairwise_cosine(jnp.asarray(xs)))
     np.testing.assert_allclose(t_sim.pairwise_cosine(torch.from_numpy(xs)).numpy(), want,
@@ -154,6 +205,103 @@ def test_score_tables_match_jax(tmp_path):
     _multiclass_and_lal_match_jax()
     _scenario_ops_match_jax()
     _scenario_grid_matches_jax(tmp_path)
+
+
+def _forms_under_the_mesh_match_jax():
+    """Every forest form, fit and strategy on the 4 x 2 mesh, per round and
+    chunked where the fit is the device's, against the JAX single-device
+    run of the same configuration (records) and the port's (final mask)."""
+    import dataclasses
+
+    from distributed_active_learning_tpu import config as j_config
+    from distributed_active_learning_tpu.runtime import loop as j_loop
+    from distributed_active_learning_tpu_torch import config as t_config
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+
+    lal = {"lal_data_path": "tests/fixtures/lal_simulatedunbalanced_big.txt", "lal_trees": 12,
+           "lal_depth": 6}
+    cases = [dict(kernel="gemm", fit="host"), dict(kernel="pallas", fit="host"),
+             dict(kernel="gemm"), dict(kernel="gather"), dict(kernel="pallas", depth=12),
+             dict(strategy="density"), dict(strategy="lal")]
+    for case in cases:
+        strategy = case.get("strategy", "uncertainty")
+        j = j_config.ExperimentConfig(
+            data=j_config.DataConfig(name="checkerboard2x2", n_samples=250, seed=2),
+            forest=j_config.ForestConfig(n_trees=8, max_depth=case.get("depth", 4),
+                                         kernel=case.get("kernel", "pallas"),
+                                         fit=case.get("fit", "device")),
+            strategy=j_config.StrategyConfig(name=strategy, window_size=10,
+                                             options=lal if strategy == "lal" else {}),
+            n_start=10, max_rounds=3, seed=7)
+        want = [(r.round, r.n_labeled, r.accuracy) for r in j_loop.run_experiment(j).records]
+        t = t_config.from_dict(dataclasses.asdict(j))
+        single = t_loop.run_experiment(t, device="cpu")
+        for k in ((1, 4) if case.get("fit", "device") == "device" else (1,)):
+            got = t_loop.run_experiment(dataclasses.replace(
+                t, mesh=t_config.MeshConfig(4, 2), rounds_per_launch=k), device="cpu")
+            assert [(r.round, r.n_labeled, r.accuracy) for r in got.records] == want, (case, k)
+            assert torch.equal(got.final_labeled_mask, single.final_labeled_mask), (case, k)
+
+
+def _mesh_sweep_and_grid_match_jax():
+    """A sweep and a grid under the 4 x 2 mesh against the JAX single-device
+    serial runs (the JAX package pins its mesh sweep and grid to them), at
+    JAX's own tests' configurations; and with the leaf kernel, on a pool
+    padded to the data axis (250 rows to 252), against the port's serial
+    mesh runs."""
+    import dataclasses
+
+    from distributed_active_learning_tpu import config as jc
+    from distributed_active_learning_tpu.runtime import loop as j_loop
+    from distributed_active_learning_tpu_torch import config as tc
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+    from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+
+    def rec(res):
+        return [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+
+    sw = jc.ExperimentConfig(
+        data=jc.DataConfig(name="checkerboard2x2", n_samples=200, seed=2),
+        forest=jc.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="gemm",
+                               fit_budget=256),
+        strategy=jc.StrategyConfig(name="uncertainty", window_size=10),
+        n_start=10, max_rounds=3, seed=0, rounds_per_launch=3)
+    gr = jc.ExperimentConfig(
+        data=jc.DataConfig(name="checkerboard2x2", n_samples=160, seed=2),
+        forest=jc.ForestConfig(n_trees=8, max_depth=3, fit="device", kernel="gemm",
+                               fit_budget=160),
+        strategy=jc.StrategyConfig(name="uncertainty", window_size=10),
+        n_start=10, max_rounds=2, seed=0, rounds_per_launch=2, log_every=0)
+    mesh = tc.MeshConfig(data=4, model=2)
+    t_sw = dataclasses.replace(tc.from_dict(dataclasses.asdict(sw)), mesh=mesh)
+    for s, res in zip((5, 6), t_sweep.run_sweep(t_sw, [5, 6], device="cpu")):
+        j1 = dataclasses.replace(sw, seed=s, rounds_per_launch=1)
+        assert rec(res) == rec(j_loop.run_experiment(j1)), s
+        t1 = tc.from_dict(dataclasses.asdict(j1))
+        assert torch.equal(res.final_labeled_mask,
+                           t_loop.run_experiment(t1, device="cpu").final_labeled_mask)
+    t_gr = dataclasses.replace(tc.from_dict(dataclasses.asdict(gr)), mesh=mesh)
+    grid = t_sweep.run_grid(t_gr, ["uncertainty", "entropy"], [5], device="cpu")
+    for cell in grid.cells:
+        j1 = dataclasses.replace(gr, seed=cell.seed, rounds_per_launch=1, strategy=dataclasses.replace(
+            gr.strategy, name=cell.strategy, window_size=cell.window))
+        assert rec(cell.result) == rec(j_loop.run_experiment(j1)), cell.strategy
+    # The leaf kernel on a padded pool, with metrics: each experiment and
+    # cell equals its serial run on the mesh (records, metrics, final mask).
+    pal = dataclasses.replace(
+        t_gr, data=dataclasses.replace(t_gr.data, n_samples=250), collect_metrics=True,
+        forest=dataclasses.replace(t_gr.forest, kernel="pallas"))
+    for strategies, seeds in ((["uncertainty"], [5, 6]), (["uncertainty", "margin"], [5])):
+        runs = (t_sweep.run_sweep(pal, seeds, device="cpu") if len(strategies) == 1 else
+                [c.result for c in t_sweep.run_grid(pal, strategies, seeds, device="cpu").cells])
+        cells = [(st, sd) for st in strategies for sd in seeds]
+        for (st, sd), res in zip(cells, runs):
+            serial = t_loop.run_experiment(dataclasses.replace(
+                pal, seed=sd, rounds_per_launch=1,
+                strategy=dataclasses.replace(pal.strategy, name=st)), device="cpu")
+            assert [(r.round, r.n_labeled, r.accuracy, r.metrics) for r in res.records] == [
+                (r.round, r.n_labeled, r.accuracy, r.metrics) for r in serial.records], (st, sd)
+            assert torch.equal(res.final_labeled_mask, serial.final_labeled_mask)
 
 
 def _scenario_ops_match_jax():

@@ -26,6 +26,17 @@ serving/``) against the JAX package's, on the CPU, with the same inputs.
   text; and a spawned 2-worker ``Fleet(device="cpu")`` of 4 small specs
   scores bit-equal to JAX's ``TenantManager`` built as the JAX worker
   builds it, every worker's ``recompiles_after_warmup`` 0.
+- Under the 4 x 2 mesh: the noisy oracle (JAX's ``tests/test_pod_pool.py``
+  configuration), per round and chunked, gives the JAX single-device run's
+  records (JAX pins its mesh run to it), its flips landing before the pool
+  is placed and each shard revealing its own block; ``flip_mask_block``
+  equals JAX's and joins to ``flip_mask`` at any shard count; a checkpoint
+  written by a chunked run on a 3-shard mesh resumes on one device as the
+  JAX package's per-round mesh run does (JAX's
+  ``test_checkpoint_mesh_switch_resumes``); the per-shard ``[S]`` fill
+  watermark equals JAX's and its masks and count equal the scalar's, and
+  ``save_serve`` writes the scalar's file from it and refuses one with gaps
+  with JAX's message.
 """
 
 import dataclasses
@@ -49,7 +60,9 @@ from distributed_active_learning_tpu.serving import fleet as j_fleet
 from distributed_active_learning_tpu.serving.service import ALService as JALService
 from distributed_active_learning_tpu.serving.tenants import TenantManager as JTenantManager
 from distributed_active_learning_tpu_torch import config as t_config
+from distributed_active_learning_tpu.runtime.results import ExperimentResult as JResult
 from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
+from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult as TResult
 from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.serving import drift as t_drift
 from distributed_active_learning_tpu_torch.serving import fleet as t_fleet
@@ -185,6 +198,94 @@ def test_service_matches_jax(tmp_path):
         if isinstance(mon, j_drift.DriftMonitor):
             want = seen
     assert seen == want and "entropy_shift" in seen and "margin_shift" in seen
+    _mesh_scenario_resume_and_watermark_match_jax(tmp_path)
+
+
+def _mesh_scenario_resume_and_watermark_match_jax(tmp_path):
+    import jax.numpy as jnp
+
+    from distributed_active_learning_tpu.parallel import make_mesh as j_make_mesh
+    from distributed_active_learning_tpu.parallel import mesh as j_mesh
+    from distributed_active_learning_tpu.runtime import loop as j_loop
+    from distributed_active_learning_tpu.runtime import state as j_state
+    from distributed_active_learning_tpu.scenarios import engine as j_engine
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+    from distributed_active_learning_tpu_torch.runtime import state as t_state
+    from distributed_active_learning_tpu_torch.scenarios import engine as t_engine
+
+    def rec(res):
+        return [(r.round, r.n_labeled, r.accuracy) for r in res.records]
+
+    # The noisy oracle on the mesh, per round and chunked.
+    j = j_config.ExperimentConfig(
+        data=j_config.DataConfig(name="checkerboard2x2", n_samples=250, seed=2),
+        forest=j_config.ForestConfig(n_trees=8, max_depth=4, fit="device"),
+        strategy=j_config.StrategyConfig(name="uncertainty", window_size=10),
+        scenario=j_config.ScenarioConfig(kind="noisy_oracle", flip_prob=0.2, abstain_prob=0.3),
+        n_start=10, max_rounds=3, seed=7)
+    want = rec(j_loop.run_experiment(j))
+    t = t_config.from_dict(dataclasses.asdict(j))
+    single = t_loop.run_experiment(t, device="cpu")
+    for k in (1, 4):
+        got = t_loop.run_experiment(dataclasses.replace(
+            t, mesh=t_config.MeshConfig(4, 2), rounds_per_launch=k), device="cpu")
+        assert rec(got) == want, k
+        assert torch.equal(got.final_labeled_mask, single.final_labeled_mask)
+    full = t_engine.flip_mask(t.scenario, 7, 252)
+    for shards in (1, 3, 4, 7):
+        rows = 252 // shards
+        blocks = [t_engine.flip_mask_block(t.scenario, 7, 252, s, rows) for s in range(shards)]
+        assert torch.equal(torch.cat(blocks), full[:rows * shards])
+        np.testing.assert_array_equal(blocks[-1].numpy(), np.asarray(j_engine.flip_mask_block(
+            j.scenario, 7, 252, jnp.asarray(shards - 1), rows)))
+
+    # A chunked run on a 3-shard mesh (1,000 rows padded to 1,002)
+    # checkpoints; one device resumes it, as after the JAX package's mesh run.
+    def ckpt_cfg(pkg, **kw):
+        return pkg.ExperimentConfig(
+            data=pkg.DataConfig(name="checkerboard2x2", seed=3),
+            forest=pkg.ForestConfig(n_trees=10, max_depth=4),
+            strategy=pkg.StrategyConfig(name="uncertainty", window_size=20),
+            n_start=10, seed=0, checkpoint_every=1, **kw)
+
+    resumed = []
+    for pkg, run, k in ((j_config, j_loop.run_experiment, 1),
+                        (t_config, lambda c: t_loop.run_experiment(c, device="cpu"), 2)):
+        ck = str(tmp_path / f"mesh_ckpt_{pkg.__name__.split('.')[0]}")
+        run(ckpt_cfg(pkg, max_rounds=2, checkpoint_dir=ck, mesh=pkg.MeshConfig(data=3),
+                     rounds_per_launch=k))
+        resumed.append(run(ckpt_cfg(pkg, max_rounds=1, checkpoint_dir=ck)))
+    assert resumed[1].records[-1].round == 3  # continued across the mesh switch
+    assert rec(resumed[1]) == rec(resumed[0])
+
+    # The per-shard fill watermark.
+    x = np.random.default_rng(5).normal(size=(256, 3)).astype(np.float32)
+    y = (x[:, 0] > 0).astype(np.int32)
+    jm = j_make_mesh(data=4, model=2)
+    js = j_mesh.shard_pool_state(j_state.set_start_state(
+        j_state.init_pool_state(x, y, jax.random.key(6)), 8).replace(
+        n_filled=jnp.asarray(37, jnp.int32)), jm)
+    scalar = t_state.set_start_state(t_state.init_pool_state(x, y, prng.key(6), "cpu"), 8)
+    scalar = scalar.replace(n_filled=torch.tensor(37, dtype=torch.int32))
+    sh = t_mesh.shard_pool_state(scalar, t_mesh.make_mesh(4, 2, device="cpu"))
+    np.testing.assert_array_equal(sh.n_filled.numpy(), np.asarray(js.n_filled))
+    assert torch.equal(sh.fill_mask, scalar.fill_mask)
+    assert int(t_state.filled_count(sh)) == 37 == int(j_state.filled_count(js))
+    assert int(t_state.labeled_count(sh)) == int(t_state.labeled_count(scalar))
+    forest = torch.arange(4, dtype=torch.float32)
+    files = [t_ckpt.save_serve(str(tmp_path / f"serve_{i}"), st, forest, TResult())
+             for i, st in enumerate((scalar, sh))]
+    a, b = np.load(files[0]), np.load(files[1])
+    assert a.files == b.files and all(np.array_equal(a[f], b[f]) for f in a.files)
+    gaps = sh.replace(n_filled=torch.tensor([64, 0, 64, 0], dtype=torch.int32))
+    with pytest.raises(ValueError) as t_err:
+        t_ckpt.save_serve(str(tmp_path / "serve_gaps"), gaps, forest, TResult())
+    with pytest.raises(ValueError) as j_err:
+        j_ckpt.save_serve(str(tmp_path / "serve_gaps_j"), js.replace(
+            n_filled=jnp.asarray([64, 0, 64, 0], jnp.int32)), jnp.arange(4.0), JResult())
+    assert str(t_err.value) == str(j_err.value)
 
 
 T = 3
