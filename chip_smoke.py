@@ -101,6 +101,36 @@ and prints no result:
    cell-round seconds printed; (e) with two or more cards the chunk spread
    over them, printing the mode that ran (else a line says it did not
    run); (f) a small checkerboard chunked mesh run: card == CPU;
+4r. (after phase 4p) the rest of the single-process mesh:
+   (a) the neural mesh: phase 4n's CNN entropy run (the CIFAR-10 stand-in,
+   50,000 images, ``SmallCNN(10)``, 200 steps, 8 MC samples, 4 rounds) on
+   ``MeshConfig(data=8)`` over ``devices=[cuda:0] * 8``, per round and
+   chunked at K = 2 (one CUDA graph of a round of the whole mesh): records
+   and final mask equal to phase 4n's single-device run, accuracy within
+   1e-5; K7 only; seconds a round, capture seconds and graph pool against
+   4n's;
+   (b) ring attention: the AG-News encoder (d_model 128, 4 heads, 2
+   layers, 64 tokens) with ``attention_fn=ring_attention`` over an 8-shard
+   ring on the card and the same parameters as with ``full_attention``:
+   the logits of the 24,000 test sequences within 2e-4; one MC pass timed
+   with each;
+   (c) the pod at the serving headline width: phase 4o (b)'s 291,840 x 30
+   slab pool (284,807 rows filled) over 8 shards of 36,480 rows; 100
+   routed 64-row ingest blocks (``route_to_shard``), one
+   ``grow_sharded_slab`` (a slab a shard: the room shard 0 is skewed
+   into), 16 direct appends to shard 0, then rebalance epochs of <= 256
+   rows under ``RebalanceHysteresis`` (enter 1.02, exit 1.005: the skew of
+   a nearly full pool) and until the plan is empty, then one more epoch,
+   which must be a no-op. Gates: every row bit for bit where the host map
+   says (content, label, mask, codes), the fills after each epoch equal to
+   ``rebalance_plan``'s arithmetic and the index map as long as the plan,
+   ``fused_score_select`` over the pod (phase 2's forest, uncertainty,
+   window 100; K3 8 launches, K4 7) equal to K2 over the same contents on
+   one device, and its picks mapped by ``remap_indices`` to their rows
+   before the last moving epoch. Ingest points/s, epoch ms and the select's
+   ms against K2's are printed; the pod runs eagerly: the CUDA graphs
+   captured during (c) (``runtime.loop.graph_captures``, set to 0 at its
+   start) must be 0.
 4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
    ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
    ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
@@ -320,7 +350,8 @@ and prints no result:
    the grid's ``recompiles_after_warmup`` must be 0) and ``--mode neural``
    (one eager round of each stretch config at a 200-row pool, 25 steps:
    phase 4n times both at full width), each JSON line printed on a line of
-   its own. K5's and K6's launch counts are
+   its own; the round mode's line must carry the pod legs' keys and
+   ``recompiles_after_warmup`` 0. K5's and K6's launch counts are
    read over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
@@ -339,6 +370,8 @@ numbers; K1's ``scenario_launches`` and ``scenarios`` phase 4l's numbers;
 phase 4o's numbers (the paths ``serve``, ``serve_headline`` and
 ``serve_multi`` in every ``launches_by_path``); ``fleet`` phase 4p's
 numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
+``mesh_pod`` phase 4r's numbers (its paths ``neural_mesh``,
+``neural_mesh_chunked`` and ``pod_select`` in every ``launches_by_path``);
 ``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
@@ -658,6 +691,7 @@ def neural_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> di
                    capture_seconds=g["capture_seconds"], graph_pool_bytes=g["pool_bytes"],
                    launches_per_replay=g["launches_per_replay"],
                    final_accuracy=per.final_accuracy, records=records(per))
+        NEURAL_MASKS[tag] = per.final_labeled_mask
         print(f"# neural {tag}: chunked == per-round ({NEURAL_ROUNDS} rounds, K = {NEURAL_K}); "
               f"per-round wall {w_per:.2f}s, chunked wall {w_chk:.2f}s "
               f"({row['chunked_seconds_per_round']:.4f} s/round replayed), capture "
@@ -1132,6 +1166,322 @@ def fleet_phase(seed: int, dev, kind: str, smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     out["split_seconds"] = seconds
     print(f"# phase 4p: {out['seconds']:.1f}s ({', '.join(f'({k}) {v:.1f}' for k, v in seconds.items())})")
+    return out
+
+
+# Phase 4r's sizes: the serving headline pool (phase 4o (b): 291,840 rows of
+# 30 features, 284,807 of them filled) over 8 shards, 64-row ingest blocks.
+POD_SHARDS, POD_SLAB, POD_BLOCK, POD_INGEST_BLOCKS, POD_EPOCH_ROWS = 8, 1024, 64, 100, 256
+POD_CAPACITY = 291_840
+# 4r (b): ring attention against full attention, the JAX test's bound.
+RING_VS_FULL_ATOL = 2e-4
+# 4r (a): the mesh run's accuracy against the single-device run's, the JAX
+# package's bound (tests/test_neural_runtime.py).
+MESH_ACC_ATOL = 1e-5
+# The single-device runs of phase 4n that 4r (a) is held against: final
+# labeled masks by path.
+NEURAL_MASKS: dict = {}
+
+
+def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neural_numbers,
+                   gf, pool_np) -> dict:
+    """Phase 4r: the neural path under a data mesh, ring attention for the
+    encoder, and the pod slab pool (see the module docstring). Returns its
+    numbers; fails on any gate."""
+    import functools
+
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.config import DataConfig, MeshConfig
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+    from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
+    from distributed_active_learning_tpu_torch.models.transformer import TransformerClassifier
+    from distributed_active_learning_tpu_torch.ops import ring_topk, round_fused, threefry, trees_train
+    from distributed_active_learning_tpu_torch.ops.ring_attention import ring_attention
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest, attach_mesh
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+    from distributed_active_learning_tpu_torch.runtime import loop as loop_lib
+    from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+    from distributed_active_learning_tpu_torch.serving import slab
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "seconds": {}}
+    ring8 = [dev] * POD_SHARDS
+
+    # -- (a) the neural mesh: phase 4n's CNN entropy run on MeshConfig(data=8)
+    t0 = time.perf_counter()
+    bc = get_dataset(DataConfig(name="cifar10", n_samples=NEURAL_CIFAR, seed=seed), device=dev)
+    cnn = NeuralLearner(SmallCNN(n_classes=10, dropout_rate=0.25), (32, 32, 3), train_steps=200,
+                        batch_size=64, mc_samples=8, device=dev)
+    cfg = nl.NeuralExperimentConfig(strategy="entropy", window_size=100, n_start=100,
+                                    max_rounds=NEURAL_ROUNDS, seed=seed,
+                                    mesh=MeshConfig(data=POD_SHARDS))
+    ref = neural_numbers["cnn"]["entropy"]
+    ref_mask = NEURAL_MASKS["cnn_entropy"]
+    a = {}
+    for path, K in (("neural_mesh", 1), ("neural_mesh_chunked", NEURAL_K)):
+        zero_counts()
+        threefry.launches = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = nl.run_neural_experiment(dataclasses.replace(cfg, rounds_per_launch=K), cnn,
+                                       bc.train_x, bc.train_y, bc.test_x, bc.test_y,
+                                       devices=ring8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        c = dict(counts(), threefry=threefry.launches)
+        out["launches"][path] = c
+        if any(v for k_, v in c.items() if k_ != "threefry") or c["threefry"] == 0:
+            fail(f"4r {path} launches {c}: K7 only, and at least once")
+        recs = [(r.round, r.n_labeled, r.n_unlabeled, r.accuracy) for r in res.records]
+        same_picks = [r[:3] for r in recs] == [r[:3] for r in ref["records"]]
+        acc_gap = max(abs(x[3] - y[3]) for x, y in zip(recs, ref["records"]))
+        if not same_picks or not torch.equal(res.final_labeled_mask, ref_mask) or \
+                acc_gap > MESH_ACC_ATOL:
+            moved = int((res.final_labeled_mask != ref_mask).sum())
+            fail(f"4r {path} != phase 4n's single-device run: {recs} vs {ref['records']} "
+                 f"({moved} mask rows differ, accuracy gap {acc_gap})")
+        row = dict(wall=wall, launches=c, accuracy_gap=acc_gap,
+                   seconds_per_round=[r.total_time for r in res.records])
+        if K > 1:
+            g = res.graph_stats
+            if g["mode"] != "graph" or g["captures"] != 1 or \
+                    g["replays"] != NEURAL_ROUNDS // NEURAL_K:
+                fail(f"4r {path}: graph stats {g}")
+            row.update(chunked_seconds_per_round=statistics.median(
+                r.total_time for r in res.records[NEURAL_K:]),
+                capture_seconds=g["capture_seconds"], graph_pool_bytes=g["pool_bytes"])
+            print(f"# phase 4r (a) {path}: == phase 4n (records, final mask; accuracy gap "
+                  f"{acc_gap:.2e}); {row['chunked_seconds_per_round']:.4f} s/round replayed "
+                  f"(4n {ref['chunked_seconds_per_round']:.4f}), capture "
+                  f"{g['capture_seconds']:.2f}s (4n {ref['capture_seconds']:.2f}), graph pool "
+                  f"{g['pool_bytes'] / 2**20:.0f} MiB (4n {ref['graph_pool_bytes'] / 2**20:.0f}); "
+                  f"launches {c} ({kind}, {smi})")
+        else:
+            per = [p["train"] + p["acquire"] + p["eval"] for p in ref["phases"]]
+            print(f"# phase 4r (a) {path}: == phase 4n (records, final mask; accuracy gap "
+                  f"{acc_gap:.2e}); {wall:.2f}s wall, s/round "
+                  f"{[round(s, 4) for s in row['seconds_per_round']]} (4n "
+                  f"{[round(s, 4) for s in per]}); launches {c} ({kind}, {smi})")
+        a[path] = row
+    out["neural_mesh"] = a
+    del bc
+    out["seconds"]["a"] = time.perf_counter() - t0
+
+    # -- (b) ring attention for the encoder at AG-News width ----------------
+    t0 = time.perf_counter()
+    ids = torch.as_tensor(get_dataset(DataConfig(name="agnews", n_samples=NEURAL_AGNEWS,
+                                                 seed=seed), device=dev).test_x).to(dev)
+    mesh8 = mesh_lib.make_mesh(POD_SHARDS, 1, devices=ring8)
+    kw = dict(vocab_size=4096, max_len=64, d_model=128, n_heads=4, n_layers=2, d_ff=256,
+              n_classes=4, dropout_rate=0.1)
+    learners = {
+        "full": NeuralLearner(TransformerClassifier(**kw), (64,), mc_samples=8, device=dev),
+        "ring": NeuralLearner(TransformerClassifier(
+            **kw, attention_fn=functools.partial(ring_attention, mesh=mesh8)), (64,),
+            mc_samples=8, device=dev),
+    }
+    net = learners["full"].init(prng.key(seed + 2))
+    with torch.no_grad():
+        logits = {name: lr._chunked(lambda xc, r, lo, lr=lr: lr._forward(net.params, xc, None, r),
+                                    ids) for name, lr in learners.items()}
+    torch.cuda.synchronize()
+    ring_err = float((logits["ring"] - logits["full"]).abs().max())
+    if not (ring_err <= RING_VS_FULL_ATOL) or not torch.isfinite(logits["ring"]).all():
+        fail(f"4r ring attention logits differ from full attention's by {ring_err} > "
+             f"{RING_VS_FULL_ATOL}")
+    mc = {}
+    for name, lr in learners.items():
+        lr.predict_proba_samples(net, ids[:512], prng.key(3, dev))  # warm-up
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        lr.predict_proba_samples(net, ids, prng.key(3, dev))
+        end.record()
+        end.synchronize()
+        mc[name] = start.elapsed_time(end) / 1e3
+    out["ring_attention"] = dict(max_abs_err=ring_err, mc_pass_seconds=mc, rows=ids.shape[0])
+    print(f"# phase 4r (b) ring attention over {POD_SHARDS} shards (8 tokens a shard): the "
+          f"encoder's logits of {ids.shape[0]} test sequences within {ring_err:.2e} of full "
+          f"attention's (<= {RING_VS_FULL_ATOL}); one MC pass (8 samples) {mc['ring']:.4f}s "
+          f"ring, {mc['full']:.4f}s full ({kind}, {smi})")
+    del ids, logits, learners
+    out["seconds"]["b"] = time.perf_counter() - t0
+
+    # -- (c) the pod at the serving headline width --------------------------
+    t0 = time.perf_counter()
+    loop_lib.graph_captures = 0  # the pod runs eagerly: (c) must capture no graph
+    rng = np.random.default_rng(seed + 17)
+    pool = torch.from_numpy(pool_np).to(dev)
+    edges = trees_train.make_bins(pool, BINS).edges
+    y_np = labels(pool_np)
+    mask_np = np.zeros(N_POOL, dtype=bool)
+    mask_np[rng.choice(N_POOL, size=N_START, replace=False)] = True
+    skew_blocks = POD_SLAB // POD_BLOCK  # shard 0 filled to the top of its grown block
+    n_new = (POD_INGEST_BLOCKS + skew_blocks) * POD_BLOCK
+    new_x = rng.normal(size=(n_new, N_FEAT)).astype(np.float32)
+    all_x = np.concatenate([pool_np, new_x])
+    all_y = np.concatenate([y_np, labels(new_x)])
+    all_mask = np.concatenate([mask_np, np.zeros(n_new, dtype=bool)])
+    base = slab.init_slab_pool(pool_np, y_np, mask_np, edges, POD_SLAB)
+    base = slab.grow_slab(base, n_slabs=POD_CAPACITY // POD_SLAB - base.n_slabs)
+    mesh = mesh_lib.make_mesh(POD_SHARDS, 1, devices=ring8)
+    pod = slab.shard_slab_pool(base, mesh)
+    del base
+    cap = pod.capacity
+    arrival = np.full(cap, -1, dtype=np.int64)
+    arrival[:N_POOL] = np.arange(N_POOL)
+    fills0 = pod.n_filled.cpu().clone().numpy()
+    print(f"# phase 4r (c) pod: {cap} x {N_FEAT} over {POD_SHARDS} shards of {cap // POD_SHARDS} "
+          f"rows, fills {fills0.tolist()}")
+    ingest = slab.make_sharded_ingest_fn(mesh)
+    nxt = N_POOL
+
+    def append(shard=None):
+        nonlocal pod, nxt
+        fills = pod.n_filled.cpu().clone().numpy()
+        s = slab.route_to_shard(fills) if shard is None else shard
+        rows = cap // POD_SHARDS
+        bx = torch.from_numpy(all_x[nxt:nxt + POD_BLOCK]).to(dev)
+        by = torch.from_numpy(all_y[nxt:nxt + POD_BLOCK]).to(dev)
+        pod, _ = ingest(pod, edges, bx, by, POD_BLOCK, s)
+        g0 = s * rows + int(fills[s])
+        arrival[g0:g0 + POD_BLOCK] = np.arange(nxt, nxt + POD_BLOCK)
+        nxt += POD_BLOCK
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(POD_INGEST_BLOCKS):
+        append()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t1
+    ingest_pps = POD_INGEST_BLOCKS * POD_BLOCK / ingest_s
+    # One growth: every shard's block gains a slab, so global indices
+    # renumber; the host map is re-anchored shard by shard.
+    old_rows = cap // POD_SHARDS
+    pod = slab.grow_sharded_slab(pod, mesh)
+    cap = pod.capacity
+    rows = cap // POD_SHARDS
+    grown = np.full(cap, -1, dtype=np.int64)
+    for s in range(POD_SHARDS):
+        grown[s * rows:s * rows + old_rows] = arrival[s * old_rows:(s + 1) * old_rows]
+    arrival = grown
+    for _ in range(skew_blocks):  # skew shard 0 with direct appends
+        append(0)
+    fills_skewed = pod.n_filled.cpu().clone().numpy()
+    hyst = slab.RebalanceHysteresis(enter_ratio=1.02, exit_ratio=1.005, min_interval=1)
+    rebalance = slab.make_rebalance_fn(mesh, POD_EPOCH_ROWS)
+    epoch_ms, epochs, last_map = [], 0, None
+
+    def epoch():
+        nonlocal pod, arrival, last_map
+        before = pod.n_filled.cpu().clone()
+        plan = slab.rebalance_plan(before, POD_EPOCH_ROWS)
+        want = (before - plan.sum(1) + plan.sum(0)).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pod, msrc, mdst = rebalance(pod)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t2) * 1e3)
+        after = pod.n_filled.cpu().clone()
+        if not torch.equal(after, want):
+            fail(f"4r rebalance: fills {after.tolist()} != the plan's arithmetic {want.tolist()}")
+        src, dst = msrc.cpu().numpy().reshape(-1), mdst.cpu().numpy().reshape(-1)
+        ok = src >= 0
+        if not np.array_equal(ok, dst >= 0) or int(ok.sum()) != int(plan.sum()):
+            fail(f"4r rebalance: the map holds {int(ok.sum())} moves, the plan {int(plan.sum())}")
+        if ok.any():
+            prev = arrival.copy()
+            moved = arrival[src[ok]]
+            if (moved < 0).any():
+                fail("4r rebalance shipped an unfilled row")
+            arrival[src[ok]] = -1
+            arrival[dst[ok]] = moved
+            last_map = (prev, msrc, mdst)
+        return bool(ok.any())
+
+    while hyst.update(pod.n_filled.cpu().clone()) and epochs < 32:
+        epoch()
+        epochs += 1
+    fired = hyst.fired
+    while slab.rebalance_plan(pod.n_filled.cpu().clone(), POD_EPOCH_ROWS).any() and epochs < 64:
+        epoch()
+        epochs += 1
+    snap = [mesh_lib.gather(getattr(pod, f)).clone() for f in ("x", "labeled_mask", "codes")]
+    if epoch():
+        fail("4r: an epoch of a balanced pod moved rows")
+    if not all(torch.equal(s_, mesh_lib.gather(getattr(pod, f)))
+               for s_, f in zip(snap, ("x", "labeled_mask", "codes"))):
+        fail("4r: an epoch of a balanced pod changed the pool")
+    del snap
+    fills_final = pod.n_filled.cpu().clone().numpy()
+    # Every ingested (and start) row, bit for bit, where the host map says.
+    xg = mesh_lib.gather(pod.x).cpu().numpy()
+    yg = mesh_lib.gather(pod.oracle_y).cpu().numpy()
+    mg = mesh_lib.gather(pod.labeled_mask).cpu().numpy()
+    cg = mesh_lib.gather(pod.codes)
+    local = np.arange(cap) % rows
+    filled = local < np.repeat(fills_final, rows)
+    if not np.array_equal(filled, arrival >= 0) or mg[~filled].any():
+        fail("4r pod: the host map and the per-shard fills disagree, or a tail row is labeled")
+    src_rows = arrival[filled]
+    want_codes = trees_train.code_features(torch.from_numpy(all_x[src_rows]).to(dev), edges)
+    if not (np.array_equal(xg[filled], all_x[src_rows]) and np.array_equal(yg[filled],
+                                                                          all_y[src_rows])
+            and np.array_equal(mg[filled], all_mask[src_rows])
+            and torch.equal(cg[torch.from_numpy(filled).to(dev)], want_codes)):
+        fail("4r pod: a row's content, label, mask bit or codes moved or changed")
+    del xg, cg, want_codes
+    # The fused select over the pod (K3 a shard, K4 on the ring) == K2 over
+    # the same contents on one device; the picks map back to the rows they
+    # were before the last moving epoch.
+    sel = mesh_lib.Sharded(tuple(
+        (~pod.labeled_mask.block(s) & (torch.arange(rows, device=dev) < int(fills_final[s])),)
+        for s in range(POD_SHARDS)), cap)
+    sel_g = mesh_lib.gather(sel)
+    pod_forest = attach_mesh(PallasForest(gf=gf), mesh)
+    x_g = mesh_lib.gather(pod.x)
+    zero_counts()
+    pv, pi = round_fused.fused_score_select(pod_forest, pod.x, sel, "uncertainty", WINDOW)
+    torch.cuda.synchronize()
+    c_sel = counts()
+    if c_sel != {"forest_leaves": 0, "round_megakernel": 0, "fused_votes": POD_SHARDS,
+                 "ring_hop": POD_SHARDS - 1}:
+        fail(f"4r pod select launches {c_sel}: want K3 {POD_SHARDS}, K4 {POD_SHARDS - 1}")
+    out["launches"]["pod_select"] = c_sel
+    rv, ri = round_fused.fused_score_select(PallasForest(gf=gf), x_g, sel_g, "uncertainty",
+                                            WINDOW)
+    if not (torch.equal(pv, rv) and torch.equal(pi, ri)):
+        fail(f"4r pod select != K2 over the same contents: {(pi != ri).sum().item()} picks differ")
+    prev, msrc, mdst = last_map
+    back = ring_topk.remap_indices(pi, msrc, mdst).cpu().numpy()
+    if not np.array_equal(prev[back], arrival[pi.cpu().numpy()]):
+        fail("4r pod: remap_indices did not name the picks' rows before the last epoch")
+    pod_ms = cuda_ms(lambda: round_fused.fused_score_select(pod_forest, pod.x, sel,
+                                                           "uncertainty", WINDOW))
+    k2_ms = cuda_ms(lambda: round_fused.fused_score_select(PallasForest(gf=gf), x_g, sel_g,
+                                                          "uncertainty", WINDOW))
+    captures = loop_lib.graph_captures
+    if captures:
+        fail(f"4r pod: {captures} CUDA graphs captured after warmup, want 0")
+    out["pod"] = dict(capacity=cap, shard_rows=rows, fills_start=fills0.tolist(),
+                      fills_skewed=fills_skewed.tolist(), fills_final=fills_final.tolist(),
+                      ingest_points_per_second=ingest_pps, ingest_blocks=POD_INGEST_BLOCKS,
+                      epochs=epochs, hysteresis_fired=fired, epoch_ms=epoch_ms,
+                      epoch_ms_median=statistics.median(epoch_ms), select_ms=pod_ms,
+                      k2_ms=k2_ms, captures=captures)
+    print(f"# phase 4r (c) pod: {POD_INGEST_BLOCKS} routed {POD_BLOCK}-row blocks at "
+          f"{ingest_pps:.1f} points/s (host clock, a fills read a block); one growth to {cap} "
+          f"rows; shard 0 skewed {fills_skewed.tolist()}; {epochs} epochs of <= {POD_EPOCH_ROWS} "
+          f"rows ({fired} fired by the hysteresis), median {out['pod']['epoch_ms_median']:.3f} "
+          f"ms, each == the plan's arithmetic, fills {fills_final.tolist()}, then a no-op epoch; "
+          f"every row bit for bit; select (K3 x {POD_SHARDS}, K4 x {POD_SHARDS - 1}) == K2 over "
+          f"the same contents and remaps to the pre-epoch rows: {pod_ms:.4f} ms vs K2 "
+          f"{k2_ms:.4f} ms; {captures} graphs captured ({kind}, {smi})")
+    del pod, x_g, sel, sel_g, pool
+    out["seconds"]["c"] = time.perf_counter() - t0
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"# phase 4r: {out['seconds']['total']:.1f}s ((a) {out['seconds']['a']:.1f}, (b) "
+          f"{out['seconds']['b']:.1f}, (c) {out['seconds']['c']:.1f})")
     return out
 
 
@@ -3561,6 +3911,14 @@ def main() -> int:
     for path, c in fleet_numbers["launches"].items():
         launches[path] = {k: c[k] for k in counts()}
 
+    # -- phase 4r: the neural mesh, ring attention, the pod --------------------
+    pod_numbers = mesh_pod_phase(args.seed, dev, kind, smi, counts, zero_counts, neural_numbers,
+                                 gf, pool_np)
+    for path, c in pod_numbers["launches"].items():
+        launches[path] = {k: c[k] for k in counts()}
+        if "threefry" in c:
+            neural_numbers["launches"][path] = c
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -3898,6 +4256,18 @@ def main() -> int:
                 fail(f"bench --mode lal: {payload}")
             print(f"# bench --mode lal: K1 {lal_bench_launches} launches a query; host-fit leg: "
                   f"{skipped or payload['lal_query_seconds_host_fit']}")
+        if mode == "round":
+            pod_keys = ("pod_select_seconds_by_shards", "pod_select_points_per_second",
+                        "pod_recompiles_after_warmup", "pod_ingest_seconds_by_shards",
+                        "pod_ingest_points_per_second", "pod_ingest_recompiles_after_warmup",
+                        "pod_rebalance_seconds")
+            if any(k_ not in payload for k_ in pod_keys) or payload["recompiles_after_warmup"]:
+                fail(f"bench --mode round: the pod keys or recompiles_after_warmup: {payload}")
+            bench_batched["round_pod"] = {k_: payload[k_] for k_ in pod_keys}
+            print(f"# bench --mode round pod legs: select s by shards "
+                  f"{payload['pod_select_seconds_by_shards']}, ingest s by shards "
+                  f"{payload['pod_ingest_seconds_by_shards']}, rebalance "
+                  f"{payload['pod_rebalance_seconds']} s")
         if mode in ("sweep", "grid"):
             bench_batched[mode] = payload
             if payload.get("baseline_skipped") != {"reason": "no_baseline_flag"} or (
@@ -4012,6 +4382,7 @@ def main() -> int:
         "files": files_numbers,
         "serving": {k: v for k, v in serving_numbers.items() if k not in ("launches", "k1")},
         "fleet": {k: v for k, v in fleet_numbers.items() if k != "launches"},
+        "mesh_pod": {k: v for k, v in pod_numbers.items() if k != "launches"},
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

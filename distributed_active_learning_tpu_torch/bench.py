@@ -32,7 +32,22 @@ as it is) for what the port carries:
   ``pipelined_serial_seconds_per_round``, ``touchdown_hidden_fraction``); and
   the fused round against the unfused one through the same chunk program
   (``fused_scan_seconds_per_round``, ``unfused_scan_seconds_per_round``,
-  ``fused_round_speedup``).
+  ``fused_round_speedup``). Then the JAX bench's two pod legs, over 1, 2,
+  4 and 8 data shards (on as many visible cards, or on the one card
+  repeated; the CPU repeated under ``--device cpu``): the pod select
+  (``_bench_pod_select``: the round's forest on an (S, 1) mesh at 512 rows
+  a shard, one ``fused_score_select`` a leg, K3 on each shard and S - 1 K4
+  ring steps; ``pod_select_seconds_by_shards``,
+  ``pod_select_points_per_second``, ``pod_select_flat_ratio``; skipped at
+  depth > 10) and the pod ingest (``_bench_pod_ingest``: a router-addressed
+  64-row append into an S x 512-row slab pool, then one rebalance epoch at
+  the largest S after skewing shard 0; ``pod_ingest_seconds_by_shards``,
+  ``pod_ingest_points_per_second``, ``pod_rebalance_seconds``).
+  ``recompiles_after_warmup`` counts the round chunk graphs' captures after
+  the first, with ``pod_recompiles_after_warmup`` and
+  ``pod_ingest_recompiles_after_warmup`` folded in, as in the JAX bench:
+  the CUDA graphs captured (``runtime.loop.graph_captures``) in each pod
+  leg after its warm-up calls (the legs run eagerly, so any is a fault).
 - ``--mode variants``: the leaf-eval kernel variants side by side
   (``benches/pallas_variants.py``).
 - ``--mode lal``: one LAL query at the reference's scale (``bench_lal``: a
@@ -123,10 +138,9 @@ normal exit.
 
 Not carried yet, each with the slice it waits for: the score mode's
 host-fit leg (the bench runs where the card is, which has no scikit-learn; a
-host-fit forest would come as a forest file), the roofline section
-(pre-flight slice), the pod legs (mesh-and-pod slice), ``--audit`` and
-``--compare-to`` (pre-flight slice) and the grid's scenario leg (scenario
-slice).
+host-fit forest would come as a forest file), the roofline section,
+``--audit`` and ``--compare-to`` (the pre-flight slice, ROADMAP queue 1
+item 9).
 ``--kernel gather`` is carried by the score and density modes.
 """
 
@@ -614,7 +628,212 @@ def bench_round(args, dev) -> dict:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    graphs = [result.get(k) for k in ("chunk_graph", "chunk_graph_metrics_off")]
+    result["recompiles_after_warmup"] = sum(max(g["captures"] - 1, 0) for g in graphs if g)
+    result.update(_bench_pod_select(args, dev, pool, binned, y_host=pool_y, mask0=mask0))
+    result.update(_bench_pod_ingest(args, dev, pool, pool_y, mask0, binned))
+    # The recompile gate covers every round-mode leg (the JAX bench folds
+    # the pod legs' counts in the same way).
+    for key in ("pod_recompiles_after_warmup", "pod_ingest_recompiles_after_warmup"):
+        if isinstance(result.get(key), int):
+            result["recompiles_after_warmup"] += result[key]
     return result
+
+
+def _pod_devices(dev: torch.device, n_shards: int):
+    """The devices of an S-shard pod leg: the first S cards when that many
+    are visible, else the one device repeated."""
+    if dev.type == "cuda" and torch.cuda.device_count() >= n_shards:
+        return [torch.device("cuda", i) for i in range(n_shards)]
+    return [dev] * n_shards
+
+
+def _sync_all(devs) -> None:
+    for d in sorted(set(devs), key=str):
+        _sync(d)
+
+
+def _pod_events(args, kind: str, rows) -> None:
+    """``--metrics-out``: the pod legs' JSONL events, one a shard count."""
+    if not args.metrics_out:
+        return
+    from distributed_active_learning_tpu_torch.runtime.telemetry import MetricsWriter
+
+    with MetricsWriter(args.metrics_out) as writer:
+        for fields in rows:
+            writer.event(kind, **fields)
+
+
+def _bench_pod_select(args, dev, pool, binned, y_host, mask0) -> dict:
+    """The pod select (the JAX bench's ``_bench_pod_select``): the round's
+    device-fit forest as a ``ShardedPallasForest`` on an (S, 1) mesh for S in
+    1, 2, 4, 8, a pool of 512 rows a shard (weak scaling: the pool grows with
+    S), and one ``fused_score_select`` a leg: K3 on each shard, the
+    per-shard window, S - 1 K4 ring steps. Interleaved reps, the best rep's
+    host-clock seconds a leg."""
+    from distributed_active_learning_tpu_torch import prng
+    from distributed_active_learning_tpu_torch.ops import round_fused, trees_train
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest, attach_mesh
+    from distributed_active_learning_tpu_torch.parallel import make_mesh, shard_rows
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    window = args.window
+    if args.depth > 10:
+        return {"pod_select_skipped": f"depth {args.depth} has no gemm form"}
+    budget = 1 << (args.train_rows + window - 1).bit_length()
+    y_dev = torch.from_numpy(y_host).to(dev)
+    mask_dev = torch.from_numpy(mask0).to(dev)
+    c, yy, w = trees_train.gather_fit_window(binned.codes, y_dev, mask_dev, budget)
+    f, th, v = trees_train.fit_forest_device(c, yy, w, binned.edges, prng.key(11),
+                                             n_trees=args.trees, max_depth=args.depth)
+    gf = trees_train.heap_gemm_forest(f, th, v, args.depth)
+    del y_dev, mask_dev
+    rows = 512
+    shard_counts = [1, 2, 4, 8]
+    rng = np.random.default_rng(3)
+    runs, legs = {}, {}
+    for S in shard_counts:
+        devs = _pod_devices(dev, S)
+        mesh = make_mesh(S, 1, devices=devs, device=dev)
+        forest = attach_mesh(PallasForest(gf=gf), mesh)
+        n = rows * S
+        x_np = np.tile(pool, (-(-n // pool.shape[0]), 1))[:n]
+        x = shard_rows(torch.from_numpy(x_np), mesh, replicate=True)
+        sel = shard_rows(torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)), mesh)
+
+        def run(forest=forest, x=x, sel=sel, devs=devs):
+            round_fused.fused_score_select(forest, x, sel, "uncertainty", window)
+            _sync_all(devs)
+
+        runs[S] = run
+        _flight("bench_compile", label=f"round/pod_select/s{S}")
+        t0 = time.perf_counter()
+        run()  # builds and loads the kernels at the first leg
+        legs[S] = {"first_call": time.perf_counter() - t0}
+    captures0 = loop.graph_captures  # graph captures after the warm-up legs
+    reps = 3
+    times = {S: [] for S in shard_counts}
+    _flight("bench_timing_start", label="round/pod_select/interleaved", iters=reps)
+    for _ in range(reps):
+        for S, run in runs.items():
+            t0 = time.perf_counter()
+            run()
+            times[S].append(time.perf_counter() - t0)
+    _flight("bench_timing_end", label="round/pod_select/interleaved",
+            seconds=round(sum(map(sum, times.values())), 4))
+    for S in shard_counts:
+        legs[S]["seconds"] = min(times[S])
+    s_max = shard_counts[-1]
+    sec_max = legs[s_max]["seconds"]
+    _pod_events(args, "pod_select", [dict(
+        shards=S, per_shard_rows=rows, per_shard_candidates=min(window, rows), ring_hops=S - 1,
+        select_seconds=round(legs[S]["seconds"], 6),
+        points_per_second=round(rows * S / legs[S]["seconds"], 1)) for S in shard_counts])
+    return {
+        "pod_select_shard_counts": shard_counts,
+        "pod_select_per_shard_rows": rows,
+        "pod_select_devices": len({d for d in _pod_devices(dev, s_max)}),
+        "pod_select_seconds_by_shards": {str(S): round(legs[S]["seconds"], 6)
+                                         for S in shard_counts},
+        "pod_select_points_per_second": round(rows * s_max / sec_max, 1),
+        "pod_select_flat_ratio": round(sec_max / legs[shard_counts[0]]["seconds"], 3),
+        "pod_recompiles_after_warmup": loop.graph_captures - captures0,
+    }
+
+
+def _bench_pod_ingest(args, dev, pool, pool_y, mask0, binned) -> dict:
+    """The pod ingest (the JAX bench's ``_bench_pod_ingest``): for S in 1, 2,
+    4, 8 an S x 512-row slab pool over an (S, 1) mesh, holding 32 start
+    rows, and one router-addressed 64-row append a call (the host reads the
+    ``[S]`` fills, routes to the least filled shard, the append writes that
+    shard's block in place); then, at the largest S, shard 0 skewed with two
+    direct appends and one rebalance epoch, its second call timed."""
+    from distributed_active_learning_tpu_torch.parallel import make_mesh
+    from distributed_active_learning_tpu_torch.runtime import loop
+    from distributed_active_learning_tpu_torch.serving import slab
+
+    rows, block, n0 = 512, 64, 32
+    shard_counts = [1, 2, 4, 8]
+    rng = np.random.default_rng(5)
+    edges = binned.edges
+
+    def _block(i):
+        idx = (np.arange(block) + i * 79) % pool.shape[0]
+        return (torch.from_numpy(pool[idx]).to(dev),
+                torch.from_numpy(rng.integers(0, 2, size=block).astype(np.int32)).to(dev))
+
+    fns, pools, runs, legs, meshes = {}, {}, {}, {}, {}
+    for S in shard_counts:
+        devs = _pod_devices(dev, S)
+        meshes[S] = make_mesh(S, 1, devices=devs, device=dev)
+        base = slab.init_slab_pool(pool[:n0], pool_y[:n0], mask0[:n0], edges, slab_rows=rows * S)
+        pools[S] = slab.shard_slab_pool(base, meshes[S])
+        fns[S] = slab.make_sharded_ingest_fn(meshes[S])
+
+        def run(S=S, devs=devs):
+            p = pools[S]
+            fills = p.n_filled.cpu().numpy().copy()
+            bx, by = _block(int(fills.sum()) // block)
+            p, _ = fns[S](p, edges, bx, by, block, slab.route_to_shard(fills))
+            _sync_all(devs)
+            pools[S] = p
+
+        runs[S] = run
+        _flight("bench_compile", label=f"round/pod_ingest/s{S}")
+        t0 = time.perf_counter()
+        run()
+        legs[S] = {"first_call": time.perf_counter() - t0}
+    captures0 = loop.graph_captures  # graph captures after the warm-up appends
+    reps = 3
+    times = {S: [] for S in shard_counts}
+    _flight("bench_timing_start", label="round/pod_ingest/interleaved", iters=reps)
+    for _ in range(reps):
+        for S, run in runs.items():
+            t0 = time.perf_counter()
+            run()
+            times[S].append(time.perf_counter() - t0)
+    _flight("bench_timing_end", label="round/pod_ingest/interleaved",
+            seconds=round(sum(map(sum, times.values())), 4))
+    for S in shard_counts:
+        legs[S]["seconds"] = min(times[S])
+        legs[S]["fills"] = pools[S].n_filled.cpu().numpy().copy()
+    s_max = shard_counts[-1]
+    devs = _pod_devices(dev, s_max)
+    for i in range(2):
+        bx, by = _block(i)
+        pools[s_max], _ = fns[s_max](pools[s_max], edges, bx, by, block, 0)
+    rebalance = slab.make_rebalance_fn(meshes[s_max], block_rows=block)
+    p, _, _ = rebalance(pools[s_max])  # the moving epoch
+    _sync_all(devs)
+    t0 = time.perf_counter()
+    p, _, _ = rebalance(p)
+    _sync_all(devs)
+    rebalance_sec = time.perf_counter() - t0
+    captures = loop.graph_captures - captures0
+    fills = p.n_filled.cpu().numpy().copy()
+    sec_max = legs[s_max]["seconds"]
+    _pod_events(args, "pod_ingest", [dict(
+        shards=S, per_shard_rows=rows, block_rows=block,
+        ingest_seconds=round(legs[S]["seconds"], 6),
+        points_per_second=round(block / legs[S]["seconds"], 1),
+        fill_max=int(legs[S]["fills"].max()), fill_min=int(legs[S]["fills"].min()))
+        for S in shard_counts])
+    _pod_events(args, "rebalance", [dict(
+        shards=s_max, per_shard_rows=rows, block_rows=block,
+        rebalance_seconds=round(rebalance_sec, 6), fill_max=int(fills.max()),
+        fill_min=int(fills.min()))])
+    return {
+        "pod_ingest_shard_counts": shard_counts,
+        "pod_ingest_per_shard_rows": rows,
+        "pod_ingest_block_rows": block,
+        "pod_ingest_seconds_by_shards": {str(S): round(legs[S]["seconds"], 6)
+                                         for S in shard_counts},
+        "pod_ingest_points_per_second": round(block / sec_max, 1),
+        "pod_ingest_flat_ratio": round(sec_max / legs[shard_counts[0]]["seconds"], 3),
+        "pod_ingest_recompiles_after_warmup": captures,
+        "pod_rebalance_seconds": round(rebalance_sec, 6),
+        "pod_rebalance_fills": [int(f) for f in fills],
+    }
 
 
 def bench_variants(args, dev) -> dict:

@@ -35,6 +35,17 @@ flax's ``SAME`` padding at stride 2 is asymmetric (0 before, 1 after) and is
 padded explicitly. On the card every random draw goes through K7
 (``ops/threefry.py``) and nothing reads back to the host, so a whole round
 can be captured into a CUDA graph.
+
+**A sharded pool.** Every method that reads the pool also takes it as a
+row-sharded :class:`~..parallel.mesh.Sharded` (``runtime/neural_loop.py``
+places it over a mesh's ``data`` axis): rows are independent, so each shard
+runs its own rows on its own device and the results are joined in shard
+order on the first. A shard's rows are cut at the global chunk boundaries
+(the chunks the single-device pass takes), and each piece reads the dropout
+mask rows of its global positions, so a row sees the mask it sees on one
+device (the JAX package draws the masks for the whole padded pool and
+partitions them; threefry is partitionable). The fit draws its minibatch
+over the global mask and gathers the drawn rows from their shards.
 """
 
 from __future__ import annotations
@@ -51,6 +62,7 @@ from torch import nn
 from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.ops import threefry
 from distributed_active_learning_tpu_torch.ops.xla_f32 import div_const, erfinv_f32
+from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, gather
 
 #: Relative tolerance of trained parameters and probabilities against the
 #: JAX learner's: the same draws and the same steps, but XLA sums products in
@@ -118,7 +130,8 @@ def flax_repr(obj, fields) -> str:
     lines = [f"{type(obj).__name__}(", "    # attributes"]
     for name in fields:
         v = getattr(obj, name)
-        lines.append(f"    {name} = {v.__name__ if callable(v) else repr(v)}")
+        shown = getattr(v, "__name__", None) if callable(v) else None
+        lines.append(f"    {name} = {shown or repr(v)}")
     return "\n".join(lines + [")"])
 
 
@@ -131,19 +144,30 @@ class DropoutRng:
     """The ``dropout`` rng of one apply: ``keys`` maps each ``Dropout``'s
     path to its key, ``fold_path(apply key, path + (1,))``
     (:func:`batched_dropout_keys`), and the ``Dropout`` at ``path`` keeps
-    ``uniform(key, shape) < keep``. Masks are cached by (path, shape), so
-    the chunks of one MC sample reuse them."""
+    ``uniform(key, shape) < keep``. Masks are cached by (path, shape,
+    device), so the chunks of one MC sample reuse them; on another device
+    than the key's the mask is drawn there (K7 on each card).
+    :meth:`at` gives the view a piece of a sharded pool reads: the mask rows
+    from ``lo`` on, on the piece's device."""
 
-    def __init__(self, keys: Dict[Tuple, torch.Tensor]):
+    def __init__(self, keys: Dict[Tuple, torch.Tensor], lo: int = 0, device=None,
+                 masks: Optional[dict] = None):
         self._keys = keys
-        self._masks: Dict[Tuple, torch.Tensor] = {}
+        self._lo = lo
+        self._device = device
+        self._masks: Dict[Tuple, torch.Tensor] = {} if masks is None else masks
+
+    def at(self, lo: int, device) -> "DropoutRng":
+        return DropoutRng(self._keys, lo, torch.device(device), self._masks)
 
     def mask(self, path: Tuple, shape, keep: float) -> torch.Tensor:
-        cached = self._masks.get((path, tuple(shape)))
+        key = self._keys[path]
+        dev = key.device if self._device is None else self._device
+        cached = self._masks.get((path, tuple(shape), dev))
         if cached is None:
-            cached = threefry.uniform(self._keys[path], shape) < float(np.float32(keep))
-            self._masks[(path, tuple(shape))] = cached
-        return cached
+            cached = threefry.uniform(key.to(dev), shape) < float(np.float32(keep))
+            self._masks[(path, tuple(shape), dev)] = cached
+        return cached[self._lo:] if self._lo else cached
 
 
 def batched_dropout_keys(key_batch: torch.Tensor, paths) -> Dict[Tuple, torch.Tensor]:
@@ -352,6 +376,25 @@ class MLP(FlaxModule):
 # ---------------------------------------------------------------------------
 
 
+def take_rows(x, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` on ``idx``'s device. For a row-sharded ``x`` each shard
+    gathers the indices that fall in its block (the others read a clamped
+    row) and the blocks' rows are merged by ownership: no host read, so a
+    CUDA graph captures it."""
+    if not isinstance(x, Sharded):
+        return x[idx]
+    out = None
+    for s in range(len(x.blocks)):
+        blk = x.block(s)
+        rows = blk.shape[0]
+        local = idx - s * rows
+        mine = (local >= 0) & (local < rows)
+        got = blk.index_select(0, torch.clamp(local, 0, rows - 1).to(blk.device)).to(idx.device)
+        mine = mine.reshape(-1, *([1] * (got.dim() - 1)))
+        out = got if out is None else torch.where(mine, got, out)
+    return out
+
+
 class AdamState(NamedTuple):
     """``optax.adam``'s state: the int32 step count and both moments."""
 
@@ -431,30 +474,51 @@ class NeuralLearner:
                  return_features: bool = False):
         return self.module.apply(params, x, _Ctx(rng, mask_rows), return_features=return_features)
 
-    def _chunked(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
-        """``fn(x_chunk, mask_rows)`` over ``predict_chunk``-row chunks: one
-        call when the pool fits a chunk (masks at the pool's row count),
+    def _chunked(self, fn: Callable, x) -> torch.Tensor:
+        """``fn(x_chunk, mask_rows, lo)`` over ``predict_chunk``-row chunks:
+        one call when the pool fits a chunk (masks at the pool's row count),
         else every chunk's masks at ``predict_chunk`` rows (JAX pads the tail
-        chunk; its real rows see the same masks)."""
-        n, chunk = x.shape[0], self.predict_chunk
-        if n <= chunk:
-            return fn(x, n)
-        return torch.cat([fn(x[lo:lo + chunk], chunk) for lo in range(0, n, chunk)])
+        chunk; its real rows see the same masks). ``lo`` is the first mask
+        row the piece reads. A row-sharded pool
+        (:class:`~..parallel.mesh.Sharded`) has its shards' real rows cut at
+        the same global chunk boundaries, each piece run on its shard's
+        device with the mask rows of its global positions, and the pieces
+        joined in row order on the first shard's device; a tensor is one
+        block."""
+        if isinstance(x, Sharded):
+            blocks, n = [x.block(s) for s in range(len(x.blocks))], x.n_rows
+        else:
+            blocks, n = [x], x.shape[0]
+        mask_rows, first = min(n, self.predict_chunk), blocks[0].device
+        out, lo_g = [], 0
+        for blk in blocks:
+            g, hi_g = lo_g, min(lo_g + blk.shape[0], n)
+            while g < hi_g:
+                end = min(hi_g, (g // mask_rows + 1) * mask_rows)
+                out.append(fn(blk[g - lo_g:end - lo_g], mask_rows, g % mask_rows).to(first))
+                g = end
+            lo_g += blk.shape[0]
+        return out[0] if len(out) == 1 else torch.cat(out)
+
+    def _params_on(self, params, device) -> Dict[str, torch.Tensor]:
+        """The network's parameters on ``device`` (the tensors themselves on
+        their own device; a copy for a shard on another card)."""
+        return {k: v.to(device) for k, v in params.items()}
 
     @torch.no_grad()
-    def predict_proba(self, state: TrainState, x: torch.Tensor) -> torch.Tensor:
+    def predict_proba(self, state: TrainState, x) -> torch.Tensor:
         """Deterministic class probabilities ``[n, C]`` (dropout off)."""
-        return self._chunked(
-            lambda xc, r: torch.softmax(self._forward(state.params, xc, None, r), -1), x)
+        return self._chunked(lambda xc, r, lo: torch.softmax(
+            self._forward(self._params_on(state.params, xc.device), xc, None, r), -1), x)
 
     @torch.no_grad()
-    def embed(self, state: TrainState, x: torch.Tensor) -> torch.Tensor:
+    def embed(self, state: TrainState, x) -> torch.Tensor:
         """Penultimate representation ``[n, D]`` (dropout off)."""
-        return self._chunked(
-            lambda xc, r: self._forward(state.params, xc, None, r, return_features=True), x)
+        return self._chunked(lambda xc, r, lo: self._forward(
+            self._params_on(state.params, xc.device), xc, None, r, return_features=True), x)
 
     @torch.no_grad()
-    def predict_proba_samples(self, state: TrainState, x: torch.Tensor, key: prng.Key) -> torch.Tensor:
+    def predict_proba_samples(self, state: TrainState, x, key: prng.Key) -> torch.Tensor:
         """MC-dropout predictive samples ``[S, n, C]``: sample ``s`` runs with
         dropout key ``split(key, S)[s]``."""
         keys = prng.split(key.to(self.device), self.mc_samples)
@@ -463,8 +527,8 @@ class NeuralLearner:
         out = []
         for s in range(self.mc_samples):
             rng = DropoutRng({p: k[s] for p, k in path_keys.items()})
-            out.append(self._chunked(
-                lambda xc, r: torch.softmax(self._forward(state.params, xc, rng, r), -1), x))
+            out.append(self._chunked(lambda xc, r, lo: torch.softmax(self._forward(
+                self._params_on(state.params, xc.device), xc, rng.at(lo, xc.device), r), -1), x))
         return torch.stack(out)
 
     def accuracy_tensor(self, state: TrainState, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -486,11 +550,13 @@ class NeuralLearner:
         kk = prng.split(keys, 2)
         return kk[:, 0], batched_dropout_keys(kk[:, 1], self.module.dropout_paths())
 
-    def fit_on_mask(self, state: TrainState, x: torch.Tensor, y: torch.Tensor,
-                    labeled_mask: torch.Tensor, key: prng.Key) -> TrainState:
+    def fit_on_mask(self, state: TrainState, x, y, labeled_mask, key: prng.Key) -> TrainState:
         """``train_steps`` minibatch adam steps on the labeled rows; each
         batch is ``batch_size`` indices drawn with replacement from the
-        masked categorical."""
+        masked categorical. ``x``, ``y`` and the mask may be row-sharded:
+        the draw runs over the global mask on the first device and the batch
+        gathers its rows from their shards (:func:`take_rows`)."""
+        y, labeled_mask = gather(y), gather(labeled_mask)
         logits_mask = torch.where(labeled_mask, torch.zeros((), device=x.device),
                                   torch.full((), -math.inf, device=x.device))
         k_idx, drop_keys = self.step_keys(key)
@@ -504,7 +570,7 @@ class NeuralLearner:
             if ev is not None:
                 ev[t][0].record()
             idx = threefry.categorical(k_idx[t], logits_mask, self.batch_size).long()
-            xb, yb = x[idx], y[idx].long()
+            xb, yb = take_rows(x, idx), y[idx].long()
             if ev is not None:
                 ev[t][1].record()
             rng = DropoutRng({p: k[t] for p, k in drop_keys.items()})

@@ -3,7 +3,8 @@
 
 ``TransformerClassifier`` maps token ids ``[B, T]`` to class logits: token
 and position ``Embed`` tables, a dropout, ``n_layers`` pre-norm encoder
-blocks (attention through :func:`~..ops.attention.full_attention`, then a
+blocks (attention through ``attention_fn``, by default
+:func:`~..ops.ring_attention.full_attention`, then a
 gelu MLP, each with dropout and a residual), a final LayerNorm, a mean over
 the sequence and the head. It follows flax's modules to the letter:
 
@@ -33,7 +34,7 @@ from distributed_active_learning_tpu_torch.models.neural import (
     _dense_plan,
     dropout,
 )
-from distributed_active_learning_tpu_torch.ops.attention import full_attention
+from distributed_active_learning_tpu_torch.ops.ring_attention import full_attention
 
 _LN_EPS = 1e-6
 

@@ -23,7 +23,8 @@ receiver's has enqueued every earlier merge, the receiver's waits for the
 copy), and on one card stream order is the whole handshake. A window on
 another card is stored through a peer pointer under UVA. CPU windows take
 the plain version, tensor copies (:func:`ring_step_plain`).
-``remap_indices`` waits for serving's rebalance.
+:func:`remap_indices` maps picks over a rebalanced pod pool back to the
+rows they were before the epoch (``serving/slab.py``).
 """
 
 from __future__ import annotations
@@ -212,3 +213,19 @@ def enable_peer_access(ring: Sequence[torch.device]) -> None:
                 f"cuda:{a} cannot write to cuda:{b}'s memory (cudaError {err}): the ring "
                 "hop needs peer access between neighbouring cards"
             )
+
+
+def remap_indices(idx: torch.Tensor, moved_src: torch.Tensor,
+                  moved_dst: torch.Tensor) -> torch.Tensor:
+    """Selection indices over a rebalanced pool mapped back to the rows they
+    were before the epoch: every index found in ``moved_dst`` (negative
+    entries are padding) becomes its ``moved_src`` twin, the rest pass
+    through. An O(k x moved) equality compare, window-sized on both axes
+    (``serving.slab.make_rebalance_fn`` returns the map); the first match
+    wins, as ``argmax`` over the hits does in the JAX package."""
+    src = moved_src.reshape(-1).to(idx.device)
+    dst = moved_dst.reshape(-1).to(idx.device)
+    hit = (idx[..., None].to(dst.dtype) == dst) & (dst >= 0)
+    found = hit.any(-1)
+    at = torch.argmax(hit.to(torch.int8), dim=-1)
+    return torch.where(found, src[at].to(idx.dtype), idx)

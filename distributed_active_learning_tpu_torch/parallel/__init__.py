@@ -6,8 +6,8 @@ Axes, as in the JAX package:
   ``model`` — the tree (ensemble) axis
 
 One process drives every shard of the mesh, as JAX's single controller does.
-``multihost.py`` (``torch.distributed`` across processes), ``global_put``,
-``gather_fills`` and ``exchange_blocks`` wait for their slices (ROADMAP).
+``multihost.py`` (``torch.distributed`` across processes) and ``global_put``
+wait for the multi-process mesh (ROADMAP).
 """
 
 from distributed_active_learning_tpu_torch.parallel.mesh import (
@@ -34,6 +34,8 @@ from distributed_active_learning_tpu_torch.parallel.kernels import (
     sharded_votes,
 )
 from distributed_active_learning_tpu_torch.parallel.collectives import (
+    exchange_blocks,
+    gather_fills,
     global_count,
     masked_mean,
     vector_accumulate,

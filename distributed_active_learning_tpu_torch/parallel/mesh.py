@@ -14,7 +14,8 @@ free. That is how one card, or the CPU, runs a mesh; on distinct cards the
 same code moves real bytes. A forest fitted inside a chunk's round step
 is placed there by :func:`constrain_forest`, and wrapped for per-shard
 evaluation as a :class:`ShardedForest` (``ops.trees_pallas.attach_mesh``).
-``global_put`` (multi-process meshes) waits for its slice.
+``global_put`` waits for multi-process meshes, the last entry of ROADMAP
+queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -106,8 +107,8 @@ def refuse_multi_process() -> None:
         if int(os.environ.get(var, "1") or 1) > 1:
             raise NotImplementedError(
                 f"a multi-process mesh ({var}={os.environ[var]}: torch.distributed across "
-                "processes) comes with the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and "
-                "pod\"), item 8; one process drives every shard of a mesh")
+                "processes) is the remaining entry of ROADMAP queue 1 item 8 (\"Mesh and "
+                "pod\"); one process drives every shard of a mesh")
 
 
 def _indexed(d: torch.device) -> torch.device:

@@ -325,11 +325,6 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
     return None
 
 
-# Where what a mesh does not carry yet is queued (the neural path under a
-# data mesh, the pod slab, multi-process meshes).
-_MESH_SLICE = "the mesh-and-pod slice (ROADMAP queue 1, \"Mesh and pod\")"
-
-
 def _not_ported(cfg: ExperimentConfig, metrics) -> None:
     """Refuse what the port does not carry yet, naming the slice that will:
     roofline attribution (the pre-flight slice)."""
@@ -775,17 +770,29 @@ def _devices_of(tree) -> set:
     return devs
 
 
+#: CUDA graphs captured in this process, every capture of the port counted
+#: (:func:`capture_thread_local`). A caller that gates "no capture after
+#: warmup" sets it to 0 and reads it back.
+graph_captures = 0
+_captures_lock = threading.Lock()
+
+
 def capture_thread_local(graph, body):
     """Record ``body()`` into ``graph`` on the current stream (a side
     stream) in thread-local capture mode, so that other threads may work on
     the device, and capture, meanwhile. The kernel wrappers' launches during
     the capture go to this thread's tally (``kernels.capture_tally``), not to
     their counters: returns ``(body()'s outputs, {(module, name): launches
-    a replay})``, the second for :func:`replay_counted`.
+    a replay})``, the second for :func:`replay_counted`. Each capture adds
+    one to :data:`graph_captures`.
     ``torch.cuda.graph``'s context is not used: it synchronizes the device
     and empties the allocator's cache on entry, which live work on other
     threads must not see."""
+    global graph_captures
     from distributed_active_learning_tpu_torch import kernels
+
+    with _captures_lock:
+        graph_captures += 1
 
     with kernels.capture_tally(_kernel_launch_counters()) as tally:
         graph.capture_begin(capture_error_mode="thread_local")

@@ -30,8 +30,21 @@ Three drivers share one round body (:func:`_make_neural_round_core`):
 
 On CUDA the drivers switch cuDNN to deterministic algorithms
 (``device.deterministic_cuda``): the chunked == per-round and sweep ==
-serial gates compare bits. A device mesh is refused (item 8), and a model
-axis with the JAX package's own message.
+serial gates compare bits.
+
+Under ``MeshConfig(data=D)`` the pool rows shard over a data mesh
+(:func:`_place_on_mesh`, the JAX package's): the pool is padded to a
+multiple of D (padding rows labeled, so never selectable, and outside every
+real-row count through ``n_valid``), its mask, labels and images split into
+D row blocks, and the network, the test arrays and the loop key stay on the
+mesh's first device. The learner runs each shard's rows on the shard's
+device (``models/neural.py``), the scores, masks and selects are global on
+the first device, and each shard reveals its own block. The picks and
+records are the single-device run's. The chunk on one card (a mesh of one
+card repeated) is still ONE CUDA graph of a round; a mesh over distinct
+cards runs its chunks eagerly (``graph_stats["mode"] == "eager"``). A seed
+sweep under a mesh runs its seeds serially, as in JAX; a model axis is
+refused with the JAX package's message.
 """
 
 from __future__ import annotations
@@ -52,6 +65,7 @@ from distributed_active_learning_tpu_torch.models.neural import (
 )
 from distributed_active_learning_tpu_torch.ops import threefry
 from distributed_active_learning_tpu_torch.ops.topk import select_top_k
+from distributed_active_learning_tpu_torch.parallel.mesh import gather
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult, RoundRecord
@@ -136,16 +150,50 @@ def neural_fingerprint(cfg: NeuralExperimentConfig, learner: NeuralLearner,
 
 
 def _refuse_mesh(mesh: MeshConfig) -> None:
-    from distributed_active_learning_tpu_torch.runtime.loop import _MESH_SLICE
-
     if mesh.model > 1:
         raise ValueError(
             "the neural path shards pool rows only (--mesh-data); model "
             f"parallelism of the network (mesh model={mesh.model}) is out of scope")
-    if mesh.data > 1:
-        raise NotImplementedError(
-            f"the neural path under a device mesh (pool rows over data) comes with {_MESH_SLICE}, "
-            "item 8")
+
+
+def _sharded(mesh: MeshConfig) -> bool:
+    return mesh.data * mesh.model > 1
+
+
+def _place_on_mesh(cfg: MeshConfig, state: state_lib.PoolState, pool_x: torch.Tensor, devices,
+                   device):
+    """Data-parallel placement (the JAX package's ``_place_on_mesh``): pad
+    the pool to a multiple of the data axis (``state.pad_for_sharding``:
+    padding rows labeled, zero images), shard the state's rows and the
+    images over ``data`` (``parallel.mesh.shard_pool_state``,
+    ``shard_rows``). The network, the test arrays and the loop key stay on
+    the mesh's first device, which must be the learner's. Returns ``(mesh,
+    state, pool_x)``."""
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+
+    _refuse_mesh(cfg)
+    mesh = mesh_lib.make_mesh(data=cfg.data, model=1, devices=devices, device=device)
+    if mesh.first != mesh_lib._indexed(torch.device(device)):
+        raise ValueError(f"mesh devices {mesh.devices} do not start on the learner's "
+                         f"device {device}")
+    state = state_lib.pad_for_sharding(state, cfg.data)
+    state = mesh_lib.shard_pool_state(state, mesh)
+    pad = state.n_pool - pool_x.shape[0]
+    if pad:
+        pool_x = torch.cat([pool_x, pool_x.new_zeros((pad, *pool_x.shape[1:]))])
+    return mesh, state, mesh_lib.shard_rows(pool_x, mesh)
+
+
+def _global_view(st: state_lib.PoolState):
+    """``(labeled mask, labels, fit mask)`` as global tensors on the first
+    device (joined from the shards on a mesh): the fit mask is the labeled
+    real rows (padding rows are labeled and excluded, the JAX package's
+    guard)."""
+    mask, y = gather(st.labeled_mask), gather(st.oracle_y)
+    fit_mask = mask
+    if st.n_valid != st.n_pool:
+        fit_mask = mask & (torch.arange(st.n_pool, device=mask.device) < st.n_valid)
+    return mask, y, fit_mask
 
 
 _BATCHBALD_DEFAULTS = (4096, 512, 256)
@@ -165,7 +213,8 @@ class _RoundParts:
         self.coreset_space, self.batchbald_params = coreset_space, batchbald_params
 
     def train(self, st: state_lib.PoolState, net_in: TrainState, pool_x, k_fit) -> TrainState:
-        return self.learner.fit_on_mask(net_in, pool_x, st.oracle_y, st.labeled_mask, k_fit)
+        _, y, fit_mask = _global_view(st)
+        return self.learner.fit_on_mask(net_in, pool_x, y, fit_mask, k_fit)
 
     def acquire(self, st: state_lib.PoolState, net: TrainState, pool_x, k_mc, k_rand):
         """``(picked, picked_vals, scores, probs)``: the window, its values,
@@ -173,13 +222,15 @@ class _RoundParts:
         JAX) and the MC samples (None where the strategy and the metrics do
         not need them)."""
         learner, strat, window = self.learner, self.strat, self.window
-        unlabeled = ~st.labeled_mask
+        # Padding rows read as labeled: never selectable, never centers.
+        mask, _, centers = _global_view(st)
+        unlabeled = ~mask
         probs = None
         if strat not in ("random", "coreset", "badge") or self.with_metrics:
             probs = learner.predict_proba_samples(net, pool_x, k_mc)
         picked = vals = None
         if strat == "random":
-            scores = threefry.uniform(k_rand.to(pool_x.device), (st.n_pool,))
+            scores = threefry.uniform(k_rand.to(unlabeled.device), (st.n_pool,))
         elif strat == "density":
             from distributed_active_learning_tpu_torch.ops.similarity import similarity_mass
 
@@ -188,10 +239,10 @@ class _RoundParts:
             mass = torch.clamp_min(similarity_mass(emb, unlabeled), 0.0)
             scores = ent * torch.pow(mass, self.beta)
         elif strat == "coreset":
-            space = learner.embed(net, pool_x) if self.coreset_space == "embedding" else pool_x
-            picked, vals = deep.coreset_select(space, st.labeled_mask, window,
-                                               selectable_mask=unlabeled)
-            scores = deep.coreset_min_dists(space, st.labeled_mask)
+            space = (learner.embed(net, pool_x) if self.coreset_space == "embedding"
+                     else gather(pool_x))
+            picked, vals = deep.coreset_select(space, centers, window, selectable_mask=unlabeled)
+            scores = deep.coreset_min_dists(space, centers)
         elif strat == "badge":
             mean_probs = learner.predict_proba(net, pool_x)
             emb = learner.embed(net, pool_x)
@@ -212,6 +263,8 @@ class _RoundParts:
     def metrics(self, st, picked, vals, scores, probs):
         from distributed_active_learning_tpu_torch.runtime import telemetry
 
+        mask, y, _ = _global_view(st)
+        st = st.replace(labeled_mask=mask, oracle_y=y)
         return telemetry.selection_metrics(
             st, picked, vals, scores, higher_is_better=True, n_classes=self.n_classes,
             pool_entropy=deep.predictive_entropy(probs))
@@ -256,21 +309,29 @@ class NeuralCarry:
 NEURAL_CARRY_FIELDS = ("labeled_mask", "key", "round", "net")
 
 
+def _lane_state(pool_x, oracle_y, mask, key, rnd, n_valid: int = -1) -> state_lib.PoolState:
+    """A lane's state: ``[n, 0]`` features on the first device (the network
+    reads ``pool_x``), the loop key in the pool key's place (the round reads
+    neither) and the real row count of a padded pool."""
+    return state_lib.PoolState(
+        x=torch.zeros((pool_x.shape[0], 0), dtype=torch.float32, device=pool_x.device),
+        oracle_y=oracle_y, labeled_mask=mask, key=key, round=rnd, n_valid_static=n_valid)
+
+
 def _lane_step(round_core, retrain_from_scratch: bool, label_cap: int, pool_x, oracle_y,
-               mask, key, rnd, net_c, init_net, test_x, test_y, end_round):
+               mask, key, rnd, net_c, init_net, test_x, test_y, end_round, n_valid: int = -1):
     """One round of one experiment as a masked no-op past its stop:
-    returns ``(mask, key, round, net)`` and the ys. The lane's state holds
-    ``[n, 0]`` features (the network reads ``pool_x``) and the loop key in
-    the pool key's place (the round reads neither)."""
-    st = state_lib.PoolState(x=pool_x.new_zeros((pool_x.shape[0], 0), dtype=torch.float32),
-                             oracle_y=oracle_y, labeled_mask=mask, key=key, round=rnd)
+    returns ``(mask, key, round, net)`` and the ys (:func:`_lane_state`; on
+    a mesh the mask and labels are row-sharded)."""
+    st = _lane_state(pool_x, oracle_y, mask, key, rnd, n_valid)
     n_labeled = state_lib.labeled_count(st)
     active = (n_labeled < label_cap) & (rnd < end_round)
     ks = prng.split(key, 4)
     net_in = init_net if retrain_from_scratch else net_c
     net, new_st, acc, picked, rm = round_core(st, net_in, pool_x, test_x, test_y,
                                               ks[1], ks[2], ks[3])
-    out = (torch.where(active, new_st.labeled_mask, mask), torch.where(active, ks[0], key),
+    out = (state_lib.select_state(active, new_st, st).labeled_mask,
+           torch.where(active, ks[0], key),
            torch.where(active, rnd + 1, rnd), select_train_state(active, net, net_c))
     ys = (rnd + 1, n_labeled, acc, picked.to(torch.int32), active)
     return out, (ys + (rm,) if rm is not None else ys)
@@ -290,7 +351,7 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
                          label_cap: int, retrain_from_scratch: bool = True, beta: float = 1.0,
                          with_metrics: bool = False, n_classes: int = 2,
                          coreset_space: str = "input", batchbald_params=_BATCHBALD_DEFAULTS,
-                         stream_cb=None):
+                         stream_cb=None, n_valid: int = -1):
     """``chunk_size`` neural rounds as one launch.
 
     ``chunk_fn(pool_x, carry, oracle_y, init_net, test_x, test_y, end_round)
@@ -303,7 +364,9 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
     step (:func:`~.loop.chunk_of`). ``stream_cb(round, n_labeled, accuracy,
     active)`` is called as each round finishes, through
     ``chunk_fn.stream`` (a :class:`~.loop.RoundStream`; None without it),
-    as in the forest chunk."""
+    as in the forest chunk. On a mesh the carry's mask and ``oracle_y`` are
+    row-sharded (``pool_x`` too) and ``n_valid`` is the padded pool's real
+    row count."""
     from distributed_active_learning_tpu_torch.runtime.loop import chunk_of
     from distributed_active_learning_tpu_torch.runtime.pipeline import ChunkExtras
 
@@ -314,12 +377,13 @@ def make_neural_chunk_fn(learner: NeuralLearner, strat: str, window_size: int, c
         (mask, key, rnd, net), ys = _lane_step(
             round_core, retrain_from_scratch, label_cap, pool_x, oracle_y,
             carry.labeled_mask, carry.key, carry.round, carry.net, init_net, test_x, test_y,
-            end_round)
+            end_round, n_valid)
         return carry.replace(labeled_mask=mask, key=key, round=rnd, net=net), ys
 
-    def finish(rows, pool_x, carry, *_):
+    def finish(rows, pool_x, carry, oracle_y, *_):
         ys = _stack_ys(rows, with_metrics)
-        extras = ChunkExtras(n_labeled_after=carry.labeled_mask.sum(dtype=torch.int32),
+        st = _lane_state(pool_x, oracle_y, carry.labeled_mask, carry.key, carry.round, n_valid)
+        extras = ChunkExtras(n_labeled_after=state_lib.labeled_count(st),
                              n_active=ys[4].sum(dtype=torch.int32))
         return extras, ys
 
@@ -405,14 +469,19 @@ def _resolve_strategy(cfg) -> str:
 
 def run_neural_experiment(cfg: NeuralExperimentConfig, learner: NeuralLearner, train_x, train_y,
                           test_x, test_y, debugger: Optional[Debugger] = None,
-                          data_ident: Optional[dict] = None, metrics=None) -> ExperimentResult:
+                          data_ident: Optional[dict] = None, metrics=None,
+                          devices=None) -> ExperimentResult:
     """Run one deep-AL experiment on the learner's device; returns the
-    per-round records and the final labeled mask. ``metrics`` (a
-    ``telemetry.MetricsWriter``) gets one ``round`` event a round (with the
-    chunk's RoundMetrics when chunked) and memory gauges; with
-    ``checkpoint_dir`` and ``checkpoint_every`` the run resumes from the
-    newest ``alstate_<round>.npz`` (either package's) and writes one every
-    ``checkpoint_every`` rounds (chunk boundaries when chunked)."""
+    per-round records and the final labeled mask (over the real rows).
+    ``metrics`` (a ``telemetry.MetricsWriter``) gets one ``round`` event a
+    round (with the chunk's RoundMetrics when chunked) and memory gauges;
+    with ``checkpoint_dir`` and ``checkpoint_every`` the run resumes from
+    the newest ``alstate_<round>.npz`` (either package's, written sharded or
+    not) and writes one every ``checkpoint_every`` rounds (chunk boundaries
+    when chunked). ``cfg.mesh`` with ``data > 1`` shards the pool over a
+    data mesh of ``devices`` (``parallel.mesh.make_mesh``'s list, starting
+    with the learner's device; without it the first cards on CUDA, the CPU
+    repeated on the CPU)."""
     dbg = debugger or Debugger(enabled=False)
     strat = _resolve_strategy(cfg)
     _refuse_mesh(cfg.mesh)
@@ -439,11 +508,14 @@ def run_neural_experiment(cfg: NeuralExperimentConfig, learner: NeuralLearner, t
             key = key.to(dev)
             start_round = int(state.round)
             dbg.debug(f"resumed at round {start_round}")
+    if _sharded(cfg.mesh):
+        # Placed after a resume: the checkpoint's mask is over the real rows.
+        _, state, pool_x = _place_on_mesh(cfg.mesh, state, pool_x, devices, dev)
 
     if metrics is not None:
         metrics.meta(config=dataclasses.asdict(cfg), loop="neural", backend=dev.type,
-                     n_devices=1, process_count=1)
-    n_pool = state.n_valid
+                     n_devices=cfg.mesh.data if _sharded(cfg.mesh) else 1, process_count=1)
+    n_pool = state.n_valid  # real rows; mesh padding is never selectable
     use_chunked = cfg.rounds_per_launch > 1 and not dbg.phase_detail
     if use_chunked:
         state = _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_state,
@@ -453,7 +525,7 @@ def run_neural_experiment(cfg: NeuralExperimentConfig, learner: NeuralLearner, t
         state = _run_neural_rounds(cfg, learner, strat, state, key, net_state, init_net_state,
                                    pool_x, test_x, test_y, n_classes, result, start_round, dbg,
                                    metrics, ckpt_fp, n_pool)
-    result.final_labeled_mask = state.labeled_mask
+    result.final_labeled_mask = state_lib.global_labeled_mask(state)
     if metrics is not None:
         from distributed_active_learning_tpu_torch.runtime import telemetry
 
@@ -525,11 +597,12 @@ def _run_neural_rounds(cfg, learner, strat, state, key, net_state, init_net_stat
 def _snapshot(carry: NeuralCarry):
     """Fresh copies of the carry a checkpoint writes, queued on the chunk's
     stream right after its dispatch (the graph rewrites its carry buffers at
-    the next replay; ``loop.ckpt_snapshot`` for the forest)."""
+    the next replay; ``loop.ckpt_snapshot`` for the forest, which also joins
+    a row-sharded mask)."""
     from distributed_active_learning_tpu_torch.models.neural import clone_state
+    from distributed_active_learning_tpu_torch.runtime.loop import ckpt_snapshot
 
-    return (carry.labeled_mask.clone(), carry.key.clone(), carry.round.clone(),
-            clone_state(carry.net))
+    return (*ckpt_snapshot(carry.labeled_mask, carry.key, carry.round), clone_state(carry.net))
 
 
 def _graphed(body, dev, n_inputs_arg: int = 6):
@@ -549,6 +622,8 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
     from distributed_active_learning_tpu_torch.runtime import telemetry
     from distributed_active_learning_tpu_torch.runtime.loop import round_stream_cb
+    from distributed_active_learning_tpu_torch.runtime.pipeline import _map_leaves
+
     dev = pool_x.device
     n_pool = state.n_valid
     K, window = cfg.rounds_per_launch, cfg.window_size
@@ -560,7 +635,8 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
                                 retrain_from_scratch=cfg.retrain_from_scratch, beta=cfg.beta,
                                 with_metrics=want_metrics, n_classes=max(n_classes, 2),
                                 coreset_space=cfg.coreset_space,
-                                batchbald_params=_batchbald_params(cfg), stream_cb=stream_cb)
+                                batchbald_params=_batchbald_params(cfg), stream_cb=stream_cb,
+                                n_valid=state.n_valid_static)
     chunk_fn = _graphed(body, dev)
     launches = telemetry.LaunchTracker(metrics, "neural_chunk_scan", fn=chunk_fn)
     end_round = (start_round + cfg.max_rounds if cfg.max_rounds is not None
@@ -570,7 +646,8 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
                                          int(state_lib.labeled_count(state)), start_round)
     if ctl.already_done:
         return state
-    carry = NeuralCarry(labeled_mask=state.labeled_mask.clone(), key=key.to(dev),
+    carry = NeuralCarry(labeled_mask=_map_leaves(torch.clone, state.labeled_mask),
+                        key=key.to(dev),
                         round=torch.as_tensor(int(state.round), dtype=torch.int32).to(dev),
                         net=net_state)
     snapshots = pipeline_lib.CarrySnapshots(_snapshot)
@@ -623,16 +700,19 @@ def _run_neural_chunked(cfg, learner, strat, state, key, net_state, init_net_sta
     result.pipeline_stats = stats
     if chunk_fn is not body:
         result.graph_stats = chunk_fn.stats()
-    return state.replace(labeled_mask=carry.labeled_mask.clone(), round=int(carry.round))
+    return state.replace(labeled_mask=_map_leaves(torch.clone, carry.labeled_mask),
+                         round=int(carry.round))
 
 
 def run_neural_sweep(cfg: NeuralExperimentConfig, learner: NeuralLearner, train_x, train_y,
                      test_x, test_y, seeds, debugger: Optional[Debugger] = None,
-                     data_ident: Optional[dict] = None, metrics=None) -> List[ExperimentResult]:
+                     data_ident: Optional[dict] = None, metrics=None,
+                     devices=None) -> List[ExperimentResult]:
     """E = len(seeds) deep-AL experiments over one shared pool as one launch
     stream; one :class:`ExperimentResult` per seed, each equal to the serial
-    :func:`run_neural_experiment` with ``seed=s``. Per-phase debugging runs
-    the seeds serially; checkpointing is refused, as in JAX."""
+    :func:`run_neural_experiment` with ``seed=s``. Per-phase debugging and a
+    device mesh (``devices`` as there) run the seeds serially, as in JAX;
+    checkpointing is refused, as in JAX."""
     dbg = debugger or Debugger(enabled=False)
     seeds = [int(s) for s in seeds]
     if not seeds:
@@ -643,10 +723,11 @@ def run_neural_sweep(cfg: NeuralExperimentConfig, learner: NeuralLearner, train_
             "checkpointing is not supported by the batched neural sweep; "
             "run the seeds serially or drop --checkpoint-dir")
     _refuse_mesh(cfg.mesh)
-    if dbg.phase_detail:
+    if dbg.phase_detail or _sharded(cfg.mesh):
         return [run_neural_experiment(dataclasses.replace(cfg, seed=s), learner, train_x,
                                       train_y, test_x, test_y, debugger=debugger,
-                                      data_ident=data_ident, metrics=metrics) for s in seeds]
+                                      data_ident=data_ident, metrics=metrics, devices=devices)
+                for s in seeds]
     from distributed_active_learning_tpu_torch.runtime import pipeline as pipeline_lib
     from distributed_active_learning_tpu_torch.runtime import telemetry
 

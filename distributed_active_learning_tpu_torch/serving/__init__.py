@@ -21,9 +21,9 @@
 Entry points: ``python -m distributed_active_learning_tpu_torch.serving``
 (a simulated stream over a registry dataset) and ``python -m
 distributed_active_learning_tpu_torch.bench --mode
-serve|serve-multi|serve-fleet``. The pod-sharded slab pool's
-``RebalanceHysteresis`` comes with the mesh-and-pod slice; importing it
-raises, naming it.
+serve|serve-multi|serve-fleet``. The pod-sharded slab pool (a pool over a
+mesh's data axis, its sharded ingest and its rebalance epochs) is in
+:mod:`serving.slab`; ``--mode round`` of the bench times its pod legs.
 """
 
 from distributed_active_learning_tpu_torch.serving.drift import DriftMonitor  # noqa: F401
@@ -39,6 +39,7 @@ from distributed_active_learning_tpu_torch.serving.frontend import (  # noqa: F4
 )
 from distributed_active_learning_tpu_torch.serving.service import ALService  # noqa: F401
 from distributed_active_learning_tpu_torch.serving.slab import (  # noqa: F401
+    RebalanceHysteresis,
     SlabPool,
     flat_state,
     grow_slab,
@@ -53,10 +54,3 @@ from distributed_active_learning_tpu_torch.serving.tenants import (  # noqa: F40
     make_batched_score_fn,
 )
 
-
-def __getattr__(name: str):
-    if name == "RebalanceHysteresis":
-        raise NotImplementedError(
-            "serving.RebalanceHysteresis is the pod-sharded slab pool's, which comes with the "
-            "mesh-and-pod slice (ROADMAP queue 1 item 8)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -25,15 +25,30 @@ how much memory is allocated from how much of it is real:
 - **Scoring is capacity-independent.** :func:`make_score_fn` evaluates the
   resident forest over a fixed-width query batch.
 
-The pod-sharded half of the JAX module (``shard_slab_pool`` and the
-rebalancing epochs) comes with the mesh-and-pod slice (ROADMAP queue 1
-item 8).
+- **The pod.** At pod scale the pool is S contiguous row blocks over a
+  mesh's ``data`` axis (:func:`shard_slab_pool`): each of ``x``,
+  ``oracle_y``, ``labeled_mask`` and ``codes`` is a
+  :class:`~..parallel.mesh.Sharded` (block ``s`` on ``mesh.devices[s][0]``)
+  and ``n_filled`` is the per-shard ``[S]`` watermark on the mesh's first
+  device. Ingest writes each block at ONE shard's watermark
+  (:func:`make_sharded_ingest_fn`, the shard picked by
+  :func:`route_to_shard`); a rebalance epoch (:func:`make_rebalance_fn`)
+  moves at most ``block_rows`` rows a shard from the fullest shards to the
+  emptiest with one window-sized all-to-all
+  (``parallel.collectives.exchange_blocks``) and returns the move as a
+  global-index map, which ``ops.ring_topk.remap_indices`` reads. Global row
+  identity is positional, ``shard * rows + local`` with ``rows = capacity //
+  S``: :func:`grow_sharded_slab` pads every shard's block, so it renumbers
+  global indices, and every map held across a growth is stale (as in the
+  JAX package, ``serving/slab.py:218-223``). These are plain PyTorch: the
+  JAX package runs them as XLA programs under ``shard_map``, with no
+  Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -318,14 +333,290 @@ def pad_block(x: np.ndarray, y: np.ndarray, block_rows: int) -> Tuple[np.ndarray
     return bx, by, n
 
 
-_POD_HALF = ("shard_slab_pool", "route_to_shard", "make_sharded_ingest_fn", "grow_sharded_slab",
-             "rebalance_plan", "rebalance_trigger", "RebalanceHysteresis", "make_rebalance_fn",
-             "MOVED_SENTINEL")
+# --------------------------------------------------------------------------
+# The pod: the pool over a mesh's data axis
+# --------------------------------------------------------------------------
+
+#: Invalid-slot marker in rebalance index maps (valid global indices are >= 0).
+MOVED_SENTINEL = -1
+
+_POOL_FIELDS = ("x", "oracle_y", "labeled_mask", "codes")
 
 
-def __getattr__(name: str):
-    if name in _POD_HALF:
-        raise NotImplementedError(
-            f"serving.slab.{name} is the pod-sharded slab pool, which comes with the "
-            "mesh-and-pod slice (ROADMAP queue 1 item 8)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+def _n_data(mesh) -> int:
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+
+    return mesh.shape[mesh_lib.AXIS_DATA]
+
+
+def shard_slab_pool(pool: SlabPool, mesh) -> SlabPool:
+    """Place a slab pool over ``mesh``'s data axis with a per-shard
+    watermark: each field a :class:`~..parallel.mesh.Sharded` of the
+    contiguous blocks ``[s * rows, (s + 1) * rows)``, ``n_filled`` the
+    ``[S]`` int32 leaf on the mesh's first device. A scalar ``n_filled`` is
+    split with ``parallel.mesh.shard_fill_watermark`` (a single-slab pool
+    fills contiguously, so the split is exact); a ``[S]`` leaf is checked
+    and kept. The capacity must divide by the data axis."""
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+
+    n_shards = _n_data(mesh)
+    if pool.capacity % n_shards:
+        raise ValueError(
+            f"slab capacity {pool.capacity} not divisible by data axis {n_shards}")
+    nf = pool.n_filled
+    if nf.ndim == 0:
+        nf = mesh_lib.shard_fill_watermark(nf, pool.capacity, n_shards)
+    elif tuple(nf.shape) != (n_shards,):
+        raise ValueError(
+            f"per-shard n_filled leaf {tuple(nf.shape)} does not match the data axis "
+            f"({n_shards} shards)")
+    # Fresh blocks: a block on the pool's own device would otherwise be a
+    # view of it, and the in-place ingest would write through.
+    placed = {f: mesh_lib.shard_rows(mesh_lib.gather(getattr(pool, f)), mesh).map(torch.clone)
+              for f in _POOL_FIELDS}
+    return pool.replace(n_filled=nf.to(mesh.first, torch.int32).clone(), **placed)
+
+
+def route_to_shard(fills) -> int:
+    """The ingest router: the least-filled shard's index (ties to the
+    lowest). Host-side and O(S): it reads the ``[S]`` watermark vector only."""
+    return int(np.argmin(_host(fills)))
+
+
+def make_sharded_ingest_fn(mesh):
+    """Build the per-shard append.
+
+    ``ingest(pool, edges, block_x, block_y, count, shard) -> (pool,
+    global_fill)`` writes the block at shard ``shard``'s own watermark into
+    that shard's block tensors, in place, bins it against ``edges`` on the
+    shard's device, and advances ``n_filled[shard]`` by ``count``; no other
+    shard's rows change. The write position is read on the device
+    (``n_filled[shard]``, clamped so that the block fits, as
+    ``dynamic_update_slice`` clamps), so nothing goes to the host.
+    ``global_fill`` is the post-ingest total, a 0-d int32 on the mesh's first
+    device. The same contract as :func:`make_ingest_fn`: each call returns a
+    fresh closure for one capacity, and the caller must guarantee the shard
+    has room (``fills[shard] + block_rows <= capacity // S``; grow first)."""
+    from distributed_active_learning_tpu_torch.ops import trees_train
+
+    n_shards = _n_data(mesh)
+
+    def ingest(pool: SlabPool, edges: torch.Tensor, block_x: torch.Tensor,
+               block_y: torch.Tensor, count, shard) -> Tuple[SlabPool, torch.Tensor]:
+        shard = int(shard)
+        if not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} is not one of the mesh's {n_shards} data shards")
+        xb = pool.x.block(shard)
+        rows, b = xb.shape[0], block_x.shape[0]
+        if b > rows:
+            raise ValueError(f"a block of {b} rows exceeds a shard's {rows} rows")
+        dev = xb.device
+        start = torch.clamp(pool.n_filled[shard].to(dev, torch.int64), 0, rows - b)
+        pos = start + torch.arange(b, device=dev)
+        bx = block_x.to(dev, torch.float32)
+        xb.index_copy_(0, pos, bx)
+        pool.oracle_y.block(shard).index_copy_(0, pos, block_y.to(dev, torch.int32))
+        pool.codes.block(shard).index_copy_(0, pos, trees_train.code_features(bx, edges.to(dev)))
+        pool.n_filled[shard] += count
+        return pool, pool.n_filled.sum(dtype=torch.int32)
+
+    return ingest
+
+
+def grow_sharded_slab(pool: SlabPool, mesh, n_slabs: int = 1) -> SlabPool:
+    """Extend EVERY shard's block by ``n_slabs`` fresh slabs, shard-locally:
+    each block is padded at its tail (zeros, mask False) on its own device,
+    the global capacity grows by ``S * n_slabs * slab_rows`` and the
+    per-shard watermark carries over (local fills are positions within a
+    block, which grew only at its tail). Global row indices RENUMBER (the
+    ``shard * rows`` strides widen): every index map held across a growth is
+    stale."""
+    from distributed_active_learning_tpu_torch.parallel.mesh import Sharded
+
+    pad = n_slabs * pool.slab_rows
+    n_shards = _n_data(mesh)
+
+    def grow(a: Sharded) -> Sharded:
+        if len(a.blocks) != n_shards:
+            raise ValueError(f"the pool is sharded over {len(a.blocks)} data shards, the mesh "
+                             f"has {n_shards}")
+        grown = a.map(lambda blk: torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))]))
+        return Sharded(grown.blocks, a.n_rows + n_shards * pad)
+
+    return pool.replace(**{f: grow(getattr(pool, f)) for f in _POOL_FIELDS})
+
+
+def rebalance_plan(fills, block_rows: int) -> torch.Tensor:
+    """The epoch's move matrix ``[S, S]`` int32: ``plan[i, j]`` rows go from
+    shard ``i`` to shard ``j``. Donors are shards above the floor target
+    ``total // S``, receivers below it; each shard moves at most
+    ``block_rows`` rows an epoch, and the matching is the interval overlap of
+    the donors' and the receivers' cumulative runs: exact, order-stable,
+    and never more than the smaller of the total excess and deficit."""
+    fills = torch.as_tensor(fills).to(torch.int32)
+    n_shards = fills.shape[0]
+    target = torch.div(fills.sum(dtype=torch.int32), n_shards, rounding_mode="floor")
+    excess = torch.clamp(fills - target, 0, block_rows)
+    deficit = torch.clamp(target - fills, 0, block_rows)
+    dc = torch.cumsum(excess, 0)
+    rc = torch.cumsum(deficit, 0)
+    dlo, rlo = dc - excess, rc - deficit
+    overlap = (torch.minimum(dc[:, None], rc[None, :])
+               - torch.maximum(dlo[:, None], rlo[None, :]))
+    return torch.clamp(overlap, 0, block_rows).to(torch.int32)
+
+
+def rebalance_trigger(fills, ratio: float = 2.0) -> bool:
+    """Host-side epoch trigger: fire when max/min shard fill exceeds
+    ``ratio`` (an empty shard next to a non-empty one always fires)."""
+    r = _fill_ratio(fills)
+    return r is not None and r > ratio
+
+
+def _host(fills) -> np.ndarray:
+    return fills.cpu().numpy() if torch.is_tensor(fills) else np.asarray(fills)
+
+
+def _fill_ratio(fills) -> Optional[float]:
+    """max/min shard fill as a float (inf when an empty shard sits next to a
+    non-empty one), or None when the vector cannot be imbalanced."""
+    f = _host(fills)
+    if f.size <= 1 or f.max() == 0:
+        return None
+    if f.min() == 0:
+        return float("inf")
+    return float(f.max()) / float(f.min())
+
+
+class RebalanceHysteresis:
+    """Thrash-proof epoch trigger around :func:`rebalance_trigger`, the JAX
+    package's: the trigger becomes active when the fill ratio exceeds
+    ``enter_ratio`` and stays active until it drops to ``exit_ratio`` or
+    below, and while active it fires at most once every ``min_interval``
+    calls of :meth:`update` (one call a step). ``fired``,
+    ``suppressed_interval`` and ``suppressed_band`` count its decisions."""
+
+    def __init__(self, enter_ratio: float = 2.0, exit_ratio: float = 1.5,
+                 min_interval: int = 4):
+        if exit_ratio > enter_ratio:
+            raise ValueError(
+                f"exit_ratio ({exit_ratio}) must not exceed enter_ratio ({enter_ratio}) "
+                "— the band would invert")
+        self.enter_ratio = float(enter_ratio)
+        self.exit_ratio = float(exit_ratio)
+        self.min_interval = int(min_interval)
+        self._active = False
+        # Primed so that the first excursion past enter_ratio fires at once.
+        self._since_fire = self.min_interval
+        self.fired = 0
+        self.suppressed_interval = 0
+        self.suppressed_band = 0
+
+    @property
+    def active(self) -> bool:
+        """True between entering above ``enter_ratio`` and dropping to
+        ``exit_ratio``."""
+        return self._active
+
+    def update(self, fills) -> bool:
+        """Advance one step with the current ``[S]`` fill vector; True means
+        run a rebalance epoch now."""
+        self._since_fire += 1
+        ratio = _fill_ratio(fills)
+        if ratio is None:
+            self._active = False
+            return False
+        if self._active and ratio <= self.exit_ratio:
+            self._active = False
+        if not self._active and ratio > self.enter_ratio:
+            self._active = True
+        if not self._active:
+            if ratio > self.exit_ratio:
+                self.suppressed_band += 1
+            return False
+        if self._since_fire < self.min_interval:
+            self.suppressed_interval += 1
+            return False
+        self._since_fire = 0
+        self.fired += 1
+        return True
+
+
+def make_rebalance_fn(mesh, block_rows: int):
+    """Build the rebalance epoch.
+
+    ``rebalance(pool) -> (pool, moved_src, moved_dst)`` runs one epoch: the
+    shards' fills are gathered (``collectives.gather_fills``) and read on
+    the host once, every shard takes the same :func:`rebalance_plan`, each
+    donor packs its TOPMOST filled rows (content, label, mask bit, codes)
+    into a per-target ``[S, block_rows]`` buffer (slot ``(j, b)`` holds its
+    row ``fill - sent + off[j] + b``), ONE window-sized all-to-all
+    (``collectives.exchange_blocks``) swaps the buffers, and each receiver
+    appends the valid rows at its watermark in the JAX package's stable
+    order: valid slots first, in sender order (``argsort(~valid,
+    stable=True)``), the invalid ones dropped. Donor rows past the shrunk
+    watermark get their labeled bits cleared. Every write is in place.
+
+    ``moved_src`` / ``moved_dst`` ``[S, S * block_rows]`` int32 (on the
+    mesh's first device) are the epoch's global-index map, padded with
+    :data:`MOVED_SENTINEL`: row ``s`` lists the rows shard ``s`` received as
+    ``old global index -> new global index``. A balanced pool gives an
+    all-zero plan, and the epoch changes nothing."""
+    from distributed_active_learning_tpu_torch.parallel import collectives
+
+    n_shards = _n_data(mesh)
+    b = int(block_rows)
+    flat = n_shards * b
+
+    def rebalance(pool: SlabPool):
+        rows = pool.capacity // n_shards
+        fills_dev = collectives.gather_fills([pool.n_filled[s] for s in range(n_shards)])
+        fills = fills_dev.cpu()
+        plan = rebalance_plan(fills, b)
+        fl = [int(v) for v in fills.tolist()]
+        sent = [int(v) for v in plan.sum(1).tolist()]
+        recv = [int(v) for v in plan.sum(0).tolist()]
+        pl = plan.tolist()
+        # Pack: slot (j, t) of shard i holds its row fill - sent + off[j] + t
+        # where t < plan[i, j] (clamped into the block, as the JAX gather
+        # reads a clamped row for the invalid slots).
+        send = {f: [] for f in _POOL_FIELDS + ("g", "valid")}
+        for i in range(n_shards):
+            dev = pool.x.block(i).device
+            counts = torch.tensor(pl[i], dtype=torch.int64)
+            off = torch.cumsum(counts, 0) - counts
+            slot = torch.arange(b, dtype=torch.int64)
+            valid = slot[None, :] < counts[:, None]
+            src = torch.clamp(fl[i] - sent[i] + off[:, None] + slot[None, :], 0, rows - 1)
+            g = torch.where(valid, i * rows + src, MOVED_SENTINEL).to(torch.int32)
+            src_d = src.reshape(-1).to(dev)
+            for f in _POOL_FIELDS:
+                blk = getattr(pool, f).block(i)
+                send[f].append(blk.index_select(0, src_d).reshape(n_shards, b, *blk.shape[1:]))
+            send["g"].append(g.to(dev))
+            send["valid"].append(valid.to(dev))
+        recv_blocks = {f: collectives.exchange_blocks(v) for f, v in send.items()}
+        moved_src = torch.full((n_shards, flat), MOVED_SENTINEL, dtype=torch.int32)
+        moved_dst = torch.full((n_shards, flat), MOVED_SENTINEL, dtype=torch.int32)
+        new_fill = [fl[s] - sent[s] + recv[s] for s in range(n_shards)]
+        for j in range(n_shards):
+            dev = pool.x.block(j).device
+            valid = recv_blocks["valid"][j].reshape(flat)
+            # Valid slots first, stable in sender order; the rest dropped.
+            order = torch.argsort((~valid).to(torch.int32), stable=True)[: recv[j]]
+            if recv[j]:
+                pos = fl[j] + torch.arange(recv[j], device=dev)
+                for f in _POOL_FIELDS:
+                    got = recv_blocks[f][j]
+                    getattr(pool, f).block(j).index_copy_(
+                        0, pos, got.reshape(flat, *got.shape[2:]).index_select(0, order))
+                moved_src[j, : recv[j]] = recv_blocks["g"][j].reshape(flat)[order].cpu()
+                moved_dst[j, : recv[j]] = j * rows + pos.cpu().to(torch.int32)
+            # The tail contract: no labeled bit past a watermark (a donor's
+            # shipped rows fall past its shrunk one).
+            pool.labeled_mask.block(j)[new_fill[j]:].fill_(False)
+        pool.n_filled.copy_(torch.tensor(new_fill, dtype=torch.int32))
+        first = mesh.first
+        return pool, moved_src.to(first), moved_dst.to(first)
+
+    return rebalance

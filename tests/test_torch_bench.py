@@ -128,6 +128,21 @@ def _bench_modes(tmp_path):
     assert rnd["scan_seconds_per_round_metrics_off"] > 0.0
     assert rnd["serial_touchdown_hidden_fraction"] == 0.0  # depth 1 hides nothing
     assert 0.0 <= rnd["touchdown_hidden_fraction"] <= 1.0
+    # The JAX bench's pod legs, with its keys, their recompile counts folded
+    # into the headline one, their events in the metrics stream.
+    for key in ("pod_select_shard_counts", "pod_select_per_shard_rows",
+                "pod_select_seconds_by_shards", "pod_select_points_per_second",
+                "pod_select_flat_ratio", "pod_recompiles_after_warmup",
+                "pod_ingest_shard_counts", "pod_ingest_per_shard_rows", "pod_ingest_block_rows",
+                "pod_ingest_seconds_by_shards", "pod_ingest_points_per_second",
+                "pod_ingest_flat_ratio", "pod_ingest_recompiles_after_warmup",
+                "pod_rebalance_seconds"):
+        assert key in rnd, key
+    assert rnd["pod_select_shard_counts"] == rnd["pod_ingest_shard_counts"] == [1, 2, 4, 8]
+    assert rnd["recompiles_after_warmup"] == rnd["pod_recompiles_after_warmup"] == \
+        rnd["pod_ingest_recompiles_after_warmup"] == 0
+    assert len(set(rnd["pod_rebalance_fills"])) == 1  # the epochs balanced the skew
+    assert {"pod_select", "pod_ingest", "rebalance"} <= set(kinds)
 
     # lal: the regressor fitted from the committed fixture, then read from a
     # forest file (the card's way: it has no scikit-learn), and without

@@ -1133,3 +1133,87 @@ def test_fleet_on_the_card_matches_in_process_and_the_cpu(cuda):
         placed = [s.tenant_id for s in fleet.specs_for(wid)]
         assert f["score_groups"] == ([placed] if len(placed) > 1 else []), f
     assert final["router"]["unroutable"] == 0
+
+
+def test_pod_ring_attention_and_neural_mesh_across_cards(cuda):
+    """The rest of the single-process mesh with its shards spread over the
+    visible cards (peer copies between them), each equal to the CPU: the
+    pod slab pool (routed ingest, a rebalance epoch, a growth, the fused
+    select: K3 on each card, K4 across them), ring attention over an
+    8-shard ring, and the neural loop under ``MeshConfig(data=8)``, per
+    round and chunked (the chunk runs eagerly across cards:
+    ``graph_stats["mode"]`` says "eager")."""
+    from distributed_active_learning_tpu_torch.config import MeshConfig
+    from distributed_active_learning_tpu_torch.models.neural import MLP, NeuralLearner
+    from distributed_active_learning_tpu_torch.ops import ring_attention as ra
+    from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+    from distributed_active_learning_tpu_torch.serving import slab
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs two or more cards: the shards' blocks cross cards")
+    cards = [torch.device("cuda", s % n_cards) for s in range(8)]
+    rng = np.random.default_rng(11)
+
+    # The pod: 4 shards (test_pod_pool.py's sizes) on the cards and on the CPU.
+    x0 = rng.normal(size=(32, 4)).astype(np.float32)
+    y0 = (x0[:, 0] > 0).astype(np.int32)
+    m0 = rng.random(32) < 0.4
+    xa = rng.normal(size=(40, 4)).astype(np.float32)
+    ya = (xa[:, 0] > 0).astype(np.int32)
+    gf = _forest(8, 3, 4, torch.device("cpu"), seed=3)[0]
+    pods = {}
+    for side, devs in (("cards", cards[:4]), ("cpu", [torch.device("cpu")] * 4)):
+        d0 = devs[0]
+        mesh = mesh_lib.make_mesh(4, 1, devices=devs, device=d0.type)
+        edges = trees_train.make_bins(torch.from_numpy(x0).to(d0), 8).edges
+        pod = slab.shard_slab_pool(slab.init_slab_pool(x0, y0, m0, edges, 64), mesh)
+        ingest = slab.make_sharded_ingest_fn(mesh)
+        for lo, hi in ((0, 8), (8, 16), (16, 24)):
+            pod, _ = ingest(pod, edges, torch.from_numpy(xa[lo:hi]).to(d0),
+                            torch.from_numpy(ya[lo:hi]).to(d0), hi - lo,
+                            slab.route_to_shard(pod.n_filled.cpu().clone()))
+        pod, msrc, mdst = slab.make_rebalance_fn(mesh, 8)(pod)
+        sel = mesh_lib.Sharded(tuple(
+            (~pod.labeled_mask.block(s) & (torch.arange(16, device=devs[s]) < int(pod.n_filled[s])),)
+            for s in range(4)), pod.capacity)
+        picked = round_fused.fused_score_select(
+            trees_pallas.attach_mesh(trees_pallas.PallasForest(gf=gf).to(d0), mesh), pod.x, sel,
+            "uncertainty", 7)
+        grown = slab.grow_sharded_slab(pod, mesh)
+        pods[side] = [mesh_lib.gather(getattr(grown, f)).cpu() for f in
+                      ("x", "oracle_y", "labeled_mask", "codes", "n_filled")]
+        pods[side] += [msrc.cpu(), mdst.cpu(), picked[0].cpu(), picked[1].cpu()]
+    for a, b in zip(pods["cards"], pods["cpu"]):
+        assert torch.equal(a, b)
+
+    # Ring attention over 8 shards on the cards, against the CPU's ring and
+    # full attention (the JAX test's 2e-4).
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 32, 4, 8)).astype(np.float32))
+               for _ in range(3))
+    mesh8 = mesh_lib.make_mesh(8, 1, devices=cards)
+    for causal in (False, True):
+        got = ra.ring_attention(q.to(cuda), k.to(cuda), v.to(cuda), mesh8, causal=causal).cpu()
+        want = ra.ring_attention(q, k, v, mesh_lib.make_mesh(8, 1, device="cpu"), causal=causal)
+        assert torch.allclose(got, want, rtol=0, atol=1e-5)
+        assert torch.allclose(got, ra.full_attention(q, k, v, causal=causal), rtol=0, atol=2e-4)
+
+    # The neural loop under MeshConfig(data=8) over the cards == the CPU.
+    x = rng.normal(size=(250, 4)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+    for strat in ("entropy", "coreset"):
+        for K in (1, 2):
+            cfg = nl.NeuralExperimentConfig(strategy=strat, window_size=5, n_start=10,
+                                            max_rounds=3, seed=1, rounds_per_launch=K,
+                                            mesh=MeshConfig(data=8))
+            res = {}
+            for side, dev, devs in (("cards", cuda, cards), ("cpu", torch.device("cpu"), None)):
+                lr = NeuralLearner(MLP(hidden=(16,)), (4,), train_steps=10, mc_samples=2,
+                                   device=dev)
+                res[side] = nl.run_neural_experiment(cfg, lr, x, y, x[:60], y[:60], devices=devs)
+            assert [(r.round, r.n_labeled) for r in res["cards"].records] == \
+                [(r.round, r.n_labeled) for r in res["cpu"].records], (strat, K)
+            assert torch.equal(res["cards"].final_labeled_mask.cpu(),
+                               res["cpu"].final_labeled_mask), (strat, K)
+            if K > 1:
+                assert res["cards"].graph_stats["mode"] == "eager"

@@ -19,7 +19,7 @@ package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
 the kernel-variant sweep included; its metrics JSONL renders through
 ``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
 registry's Prometheus text, and it refuses what it does not carry yet by
-name (the pod slab and multi-process meshes naming item 8 of the mesh
+name (multi-process meshes naming item 8 of the mesh
 slice; roofline naming the pre-flight slice), and refuses what the JAX
 package refuses of scenarios with its messages (under a mesh, every kind
 but the noisy oracle, and a grid's scenario axis)."""
@@ -526,16 +526,16 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
 def test_unported_features_are_refused_by_name(tmp_path, capsys):
     _, base = _cfgs(False)
     mesh = t_config.MeshConfig(data=2)
-    # What the mesh-and-pod slice (item 8) has not carried yet is refused by
-    # name: the pod half of the slab pool and multi-process meshes (the
-    # neural path under a data mesh: tests/test_torch_neural.py).
+    # What item 8 has not carried yet is refused by name: multi-process
+    # meshes. The pod half of the slab pool is ported (its parity with the
+    # JAX package: tests/test_torch_serving.py) and exported as JAX exports
+    # it.
     from distributed_active_learning_tpu_torch import serving as t_serving
     from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
     from distributed_active_learning_tpu_torch.serving import slab as t_slab_mod
 
-    for get in (lambda: t_serving.RebalanceHysteresis, lambda: t_slab_mod.shard_slab_pool):
-        with pytest.raises(NotImplementedError, match="mesh-and-pod slice .* item 8"):
-            get()
+    assert t_serving.RebalanceHysteresis is t_slab_mod.RebalanceHysteresis
+    assert callable(t_slab_mod.shard_slab_pool) and t_slab_mod.MOVED_SENTINEL == -1
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("WORLD_SIZE", "2")
         with pytest.raises(NotImplementedError, match="multi-process mesh .* item 8"):

@@ -9,7 +9,10 @@ run's labeled counts, masks and keys. What is held to a stated tolerance:
 forward passes (``FORWARD_RTOL``, float sums in another order), trained
 parameters (``NEURAL_TRAIN_RTOL``) and accuracies (``ACC_ATOL``). Within the
 port the per-round driver, the chunked driver and a seed sweep's lanes are
-held bit for bit.
+held bit for bit. Ring attention and the encoder running it are held to JAX's
+``ring_attention`` on 8 host devices (``RING_ATOL``) and to full attention
+(``RING_VS_FULL_ATOL``); the loop under ``MeshConfig(data=8)`` to JAX's same
+run, as above (``_mesh_loop_matches_jax``).
 """
 
 import contextlib
@@ -143,6 +146,8 @@ def test_neural_modules_match_jax():
             assert err < t_neural.NEURAL_TRAIN_RTOL, (kind, name, err)
         assert _rel(jl.predict_proba(js2, xj), tl.predict_proba(ts2, xt)) < t_neural.NEURAL_TRAIN_RTOL
 
+    _ring_attention_matches_jax(rs)
+
     long_ids = torch.zeros((2, 9), dtype=torch.int32)
     tm = _models()[2][2]
     with pytest.raises(ValueError, match="exceeds max_len=8"):
@@ -189,6 +194,72 @@ def test_neural_modules_match_jax():
     assert np.asarray(jp).tolist() == tp.tolist()
 
 
+# Ring attention against the JAX package's on 8 host devices: the same
+# online-softmax arithmetic in the same order, float sums in another order.
+RING_ATOL = 1e-5
+# Ring attention (and the encoder running it) against full attention: the
+# JAX test's own bound (tests/test_ring_attention.py).
+RING_VS_FULL_ATOL = 2e-4
+# The learner's passes over a row-sharded pool against one device's: JAX's
+# own bound (tests/test_neural_runtime.py).
+SHARDED_PREDICT_ATOL = 1e-6
+
+
+def _ring_attention_matches_jax(rs):
+    import functools
+
+    from jax.sharding import Mesh
+
+    from distributed_active_learning_tpu.ops import ring_attention as j_ra
+    from distributed_active_learning_tpu_torch.ops import ring_attention as t_ra
+    from distributed_active_learning_tpu_torch.parallel import make_mesh, shard_rows
+
+    jmesh = Mesh(np.asarray(jax.devices()[:8]).reshape(8), ("sp",))
+    tmesh = make_mesh(8, 1, device="cpu")
+    q, k, v = (rs.randn(2, 32, 4, 8).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.as_tensor(a) for a in (q, k, v))
+    for causal in (False, True):
+        want = np.asarray(j_ra.ring_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                              jmesh, causal=causal))
+        got = t_ra.ring_attention(tq, tk, tv, tmesh, causal=causal).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=RING_ATOL, err_msg=str(causal))
+        np.testing.assert_allclose(got, t_ra.full_attention(tq, tk, tv, causal=causal).numpy(),
+                                   rtol=0, atol=RING_VS_FULL_ATOL)
+    with pytest.raises(ValueError, match="not divisible"):
+        t_ra.ring_attention(tq[:, :30], tk[:, :30], tv[:, :30], tmesh)
+    # The encoder with the same parameters over the ring: JAX's logits (its
+    # ring encoder) and the port's full-attention logits.
+    kw = dict(vocab_size=64, max_len=32, d_model=16, n_heads=2, n_layers=1, d_ff=32,
+              n_classes=4)
+    jm = j_transformer.TransformerClassifier(
+        **kw, attention_fn=functools.partial(j_ra.ring_attention, mesh=jmesh))
+    tm_full = t_transformer.TransformerClassifier(**kw)
+    tm_ring = t_transformer.TransformerClassifier(
+        **kw, attention_fn=functools.partial(t_ra.ring_attention, mesh=tmesh))
+    ids = rs.randint(0, 64, size=(2, 32)).astype(np.int32)
+    params = jm.init({"params": jax.random.key(4)}, jnp.asarray(ids))["params"]
+    want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids)))
+    tp = interop.neural_params_from_numpy(jax.device_get(params), tm_full)
+    ctx = t_neural._Ctx(None, 2)
+    got = tm_ring.apply(tp, torch.as_tensor(ids), ctx).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=RING_VS_FULL_ATOL)
+    np.testing.assert_allclose(got, tm_full.apply(tp, torch.as_tensor(ids), ctx).detach().numpy(),
+                               rtol=0, atol=RING_VS_FULL_ATOL)
+    # The learner on a row-sharded pool: each shard's rows, its MC masks at
+    # their global rows (chunks crossing the shard boundaries), equal to the
+    # single-device pass to JAX's bound for the same check
+    # (test_sharded_mc_predict_matches_single_device: the products batch
+    # other row counts, so their sums may round apart).
+    tl = t_neural.NeuralLearner(tm_full, (32,), mc_samples=3, predict_chunk=5, device="cpu")
+    net = tl.init(prng.key(3))
+    pool = torch.as_tensor(rs.randint(0, 64, size=(36, 32)).astype(np.int32))
+    sharded = shard_rows(pool, make_mesh(4, 1, device="cpu"), replicate=True)
+    for fn in (lambda p: tl.predict_proba_samples(net, p, prng.key(4)),
+               lambda p: tl.embed(net, p)):
+        np.testing.assert_allclose(fn(sharded).numpy(), fn(pool).numpy(), rtol=0,
+                                   atol=SHARDED_PREDICT_ATOL)
+
+
 def _pool():
     rs = np.random.RandomState(0)
     x = rs.randn(200, 4).astype(np.float32)
@@ -207,6 +278,72 @@ def _close_records(rj, rt):
         [(r.round, r.n_labeled) for r in rt.records]
     for a, b in zip(rj.records, rt.records):
         assert abs(a.accuracy - b.accuracy) <= ACC_ATOL
+
+
+def _mesh_loop_matches_jax(tmp_path, jl, tl, base):
+    """The neural loop under ``MeshConfig(data=8)`` against the JAX
+    package's same run on 8 host devices: records (accuracy to ACC_ATOL),
+    and the last checkpoint's mask and keys bit for bit, its network to
+    NEURAL_TRAIN_RTOL. A 200-row pool (no padding; the mesh run equals the
+    single-device run) and a 250-row one (padded to 256: the padding rows
+    are never picked, never centers of coreset, and outside every count);
+    chunked at K = 2 equal to per round; a checkpoint written on the mesh
+    over the padded pool resumes on one device, and the reverse, as in
+    JAX."""
+    from distributed_active_learning_tpu.config import MeshConfig as JMeshConfig
+
+    rs = np.random.RandomState(1)
+    for strat, n in (("entropy", 200), ("coreset", 250), ("badge", 250)):
+        if n == 200:
+            x, y, tx, ty = _pool()
+        else:
+            x = rs.randn(n, 4).astype(np.float32)
+            y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+            tx, ty = _pool()[2:]
+        kw = dict(base, strategy=strat)
+        dj, dt = str(tmp_path / f"mesh_j_{strat}"), str(tmp_path / f"mesh_t_{strat}")
+        rj = j_loop.run_neural_experiment(j_loop.NeuralExperimentConfig(
+            mesh=JMeshConfig(data=8), checkpoint_dir=dj, checkpoint_every=1, **kw),
+            jl, x, y, tx, ty)
+        rt = t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(
+            mesh=MeshConfig(data=8), checkpoint_dir=dt, checkpoint_every=1, **kw),
+            tl, x, y, tx, ty)
+        _close_records(rj, rt)
+        assert [r.n_unlabeled for r in rt.records] == [n - r.n_labeled for r in rt.records]
+        with np.load(os.path.join(dj, "alstate_3.npz")) as zj, \
+                np.load(os.path.join(dt, "alstate_3.npz")) as zt:
+            for k in ("labeled_mask", "key", "loop_key", "round", "net_step"):
+                np.testing.assert_array_equal(zj[k], zt[k], err_msg=f"mesh {strat} {k}")
+            for k in zj.files:
+                if k.startswith("net_"):
+                    np.testing.assert_allclose(zt[k], zj[k], rtol=t_neural.NEURAL_TRAIN_RTOL,
+                                               atol=1e-6, err_msg=f"mesh {strat} {k}")
+            assert torch.equal(rt.final_labeled_mask, torch.as_tensor(zj["labeled_mask"]))
+        rc = t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(
+            mesh=MeshConfig(data=8), rounds_per_launch=2, **kw), tl, x, y, tx, ty)
+        assert _records(rc) == _records(rt), strat
+        assert torch.equal(rc.final_labeled_mask, rt.final_labeled_mask)
+        if n == 200:
+            single = t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(**kw), tl, x, y,
+                                                  tx, ty)
+            assert _records(single) == _records(rt)
+            assert torch.equal(single.final_labeled_mask, rt.final_labeled_mask)
+    # Resume across placements on the padded pool (bald): written on the
+    # mesh, resumed on one device, and the reverse; JAX's resumed records.
+    kw = dict(base, strategy="bald", checkpoint_every=1)
+    for first, second in ((8, 1), (1, 8)):
+        out = []
+        for loop, mesh_cls, learner, tag in ((j_loop, JMeshConfig, jl, "j"),
+                                              (t_loop, MeshConfig, tl, "t")):
+            d = str(tmp_path / f"place_{first}_{second}_{tag}")
+            for data, rounds in ((first, 2), (second, 2)):
+                res = loop.run_neural_experiment(loop.NeuralExperimentConfig(
+                    mesh=mesh_cls(data=data), checkpoint_dir=d, max_rounds=rounds,
+                    **{k: v for k, v in kw.items() if k != "max_rounds"}), learner, x, y, tx, ty)
+            out.append(res)
+        _close_records(out[0], out[1])
+        assert [r.round for r in out[1].records] == [1, 2, 3, 4]
+        assert [r.n_labeled for r in out[1].records] == [10, 15, 20, 25]
 
 
 def test_neural_loop_matches_jax(tmp_path):
@@ -313,13 +450,12 @@ def test_neural_loop_matches_jax(tmp_path):
     at = {(e["kind"], e["round"]): i for i, e in enumerate(events) if "round" in e}
     assert at[("round_stream", 2)] < at[("round", 1)] and at[("round_stream", 3)] < at[("round", 3)]
 
-    # Refusals: a model axis with JAX's message, a data axis by name.
+    # A model axis is refused with JAX's message; a data axis runs
+    # (_mesh_loop_matches_jax).
     with pytest.raises(ValueError, match="model parallelism of the network"):
         t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(mesh=MeshConfig(1, 2)), tl,
                                      x, y, tx, ty)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(mesh=MeshConfig(2, 1)), tl,
-                                     x, y, tx, ty)
+    _mesh_loop_matches_jax(tmp_path, jl, tl, base)
 
     # The CLI: the JAX package's run.py log for the same flags; without a
     # card and without --device cpu it raises.
@@ -328,12 +464,15 @@ def test_neural_loop_matches_jax(tmp_path):
              "--mc-samples", "2", "--window", "5", "--rounds", "3", "--seed", "1", "--quiet"]
     outs = []
     for main, extra in ((j_run.main, []), (t_run.main, ["--device", "cpu"]),
-                        (t_run.main, ["--device", "cpu", "--rounds-per-launch", "2"])):
+                        (t_run.main, ["--device", "cpu", "--rounds-per-launch", "2"]),
+                        (j_run.main, ["--mesh-data", "8"]),
+                        (t_run.main, ["--device", "cpu", "--mesh-data", "8"])):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             assert main(flags + extra) == 0
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] == outs[2] and outs[0].count("Iteration") == 3
+    assert outs[3] == outs[4] == outs[0]  # 200 rows over 8 shards: no padding
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_run.main(flags)

@@ -37,6 +37,11 @@ serving/``) against the JAX package's, on the CPU, with the same inputs.
   watermark equals JAX's and its masks and count equal the scalar's, and
   ``save_serve`` writes the scalar's file from it and refuses one with gaps
   with JAX's message.
+- The pod (``serving/slab.py``'s pod half, ``ops/ring_topk.remap_indices``)
+  on a (4, 1) mesh against JAX's, bit for bit: placement and refusals, the
+  rebalance plan, ingest, an epoch and its index map, growth, the
+  hysteresis, and the fused select over the ingest-built pool (K3 and K4's
+  plain versions here).
 """
 
 import dataclasses
@@ -120,6 +125,158 @@ def _assert_metrics_close(a, b):
                                        rtol=t_telemetry.POOL_ENTROPY_RTOL, err_msg=k)
 
 
+def _pod_parity():
+    """The pod half of the slab pool against the JAX package's on a (4, 1)
+    mesh of host devices, at ``tests/test_pod_pool.py``'s sizes (4
+    features, 8 bins, 64-row slab, 32 start rows). Everything is compared
+    bit for bit: the placement and its two refusals, ``rebalance_plan`` on
+    seeded fill vectors, every leaf after interleaved routed ingest, one
+    epoch and one growth, the epoch's ``moved_src``/``moved_dst`` and
+    ``remap_indices`` over them, ``RebalanceHysteresis``'s decisions and
+    counters, and the fused select over the ingest-built pool (values and
+    indices; the port's shards on the CPU take K3's and K4's plain
+    versions)."""
+    import jax.numpy as jnp
+
+    from distributed_active_learning_tpu.ops import ring_topk as j_ring
+    from distributed_active_learning_tpu.ops import round_fused as j_rf
+    from distributed_active_learning_tpu.ops import trees_train as j_tt
+    from distributed_active_learning_tpu.ops.trees_pallas import ShardedPallasForest as JSPF
+    from distributed_active_learning_tpu.parallel import make_mesh as j_make_mesh
+    from distributed_active_learning_tpu.serving import slab as j_slab
+    from distributed_active_learning_tpu_torch import interop, serving as t_serving
+    from distributed_active_learning_tpu_torch.ops import ring_topk as t_ring
+    from distributed_active_learning_tpu_torch.ops import round_fused as t_rf
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import attach_mesh
+    from distributed_active_learning_tpu_torch.parallel import make_mesh as t_make_mesh
+    from distributed_active_learning_tpu_torch.parallel import gather as t_gather
+
+    rng = np.random.default_rng(11)
+    x0 = rng.normal(size=(32, 4)).astype(np.float32)
+    y0 = (x0[:, 0] > 0).astype(np.int32)
+    mask0 = np.zeros(32, bool)
+    mask0[rng.permutation(32)[:12]] = True
+    xa = rng.normal(size=(40, 4)).astype(np.float32)
+    ya = (xa[:, 0] > 0).astype(np.int32)
+    j_edges = j_tt.make_bins(jnp.asarray(x0), 8).edges
+    t_edges = torch.as_tensor(np.array(j_edges))
+    jmesh = j_make_mesh(data=4, model=1, devices=jax.devices()[:4])
+    tmesh = t_make_mesh(4, 1, device="cpu")
+
+    def start(pkg_slab, edges, to):
+        return pkg_slab.init_slab_pool(to(x0), to(y0), to(mask0), edges, 64)
+
+    jp = j_slab.shard_slab_pool(start(j_slab, j_edges, jnp.asarray), jmesh)
+    tp = t_slab.shard_slab_pool(start(t_slab, t_edges, torch.as_tensor), tmesh)
+
+    def leaves_equal(j, t, what):
+        for f in ("x", "oracle_y", "labeled_mask", "codes", "n_filled"):
+            np.testing.assert_array_equal(np.asarray(jax.device_get(getattr(j, f))),
+                                          t_gather(getattr(t, f)).numpy(), err_msg=f"{what} {f}")
+        assert j.capacity == t.capacity
+
+    leaves_equal(jp, tp, "placed")
+    odd = t_slab.init_slab_pool(np.zeros((66, 4), np.float32), np.zeros(66, np.int32),
+                                np.zeros(66, bool), t_edges, 66)
+    with pytest.raises(ValueError, match="not divisible"):
+        t_slab.shard_slab_pool(odd, tmesh)
+    with pytest.raises(ValueError, match="does not match the data axis"):
+        t_slab.shard_slab_pool(start(t_slab, t_edges, torch.as_tensor).replace(
+            n_filled=torch.zeros(3, dtype=torch.int32)), tmesh)
+    for _ in range(6):
+        fills = rng.integers(0, 40, size=int(rng.integers(1, 9)))
+        for block in (1, 4, 16):
+            np.testing.assert_array_equal(np.asarray(j_slab.rebalance_plan(jnp.asarray(fills), block)),
+                                          t_slab.rebalance_plan(torch.as_tensor(fills), block).numpy())
+        assert t_slab.route_to_shard(fills) == j_slab.route_to_shard(fills)
+        for ratio in (1.5, 2.0):
+            assert t_slab.rebalance_trigger(fills, ratio) == j_slab.rebalance_trigger(fills, ratio)
+
+    # Interleaved routed ingest (a partial block too), one epoch, one growth
+    # and two more appends, leaf by leaf after each step.
+    j_ing, t_ing = j_slab.make_sharded_ingest_fn(jmesh), t_slab.make_sharded_ingest_fn(tmesh)
+    blocks = [(xa[0:8], ya[0:8], 8), (xa[8:16], ya[8:16], 8),
+              (np.concatenate([xa[16:21], np.zeros((3, 4), np.float32)]),
+               np.concatenate([ya[16:21], np.zeros(3, np.int32)]), 5)]
+
+    def ingest(jp, tp, blocks):
+        for bx, by, count in blocks:
+            shard = t_slab.route_to_shard(tp.n_filled)
+            assert shard == j_slab.route_to_shard(np.asarray(jax.device_get(jp.n_filled)))
+            jp, jg = j_ing(jp, j_edges, jnp.asarray(bx), jnp.asarray(by), count, shard)
+            tp, tg = t_ing(tp, t_edges, torch.as_tensor(bx), torch.as_tensor(by), count, shard)
+            assert int(jg) == int(tg)
+        return jp, tp
+
+    jp, tp = ingest(jp, tp, blocks)
+    leaves_equal(jp, tp, "ingest")
+    np.testing.assert_array_equal(tp.n_filled.numpy(), [16, 16, 13, 8])
+    j_reb, t_reb = j_slab.make_rebalance_fn(jmesh, 8), t_slab.make_rebalance_fn(tmesh, 8)
+    jp, jsrc, jdst = j_reb(jp)
+    tp, tsrc, tdst = t_reb(tp)
+    leaves_equal(jp, tp, "epoch")
+    np.testing.assert_array_equal(np.asarray(jsrc), tsrc.numpy())
+    np.testing.assert_array_equal(np.asarray(jdst), tdst.numpy())
+    assert (tsrc >= 0).sum() > 0
+    idx = np.concatenate([np.asarray(jdst).reshape(-1)[:3], [0, 5, 63]]).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(j_ring.remap_indices(jnp.asarray(idx), jsrc, jdst)),
+                                  t_ring.remap_indices(torch.as_tensor(idx), tsrc, tdst).numpy())
+
+    # The fused select over the ingest-built pool: a forest fitted on the
+    # contents, K3 per shard and the ring merge, against JAX's.
+    x, y, m = (np.asarray(jax.device_get(getattr(jp, f))) for f in ("x", "oracle_y", "labeled_mask"))
+    fills = np.asarray(jax.device_get(jp.n_filled))
+    valid = np.concatenate([np.arange(16) < f for f in fills])
+    sel = valid & ~m
+    binned = j_tt.make_bins(jnp.asarray(x), 8)
+    c, yy, w = j_tt.gather_fit_window(binned.codes, jnp.asarray(y), jnp.asarray(m & valid), 128)
+    f, th, v = j_tt.fit_forest_device(c, yy, w, binned.edges, jax.random.key(0), n_trees=8,
+                                      max_depth=3, n_bins=8)
+    jgf = j_tt.heap_gemm_forest(f, th, v, 3)
+    tforest = attach_mesh(interop.gemm_forest_from_numpy(
+        jgf.feat_ids, jgf.thresholds, jgf.path, jgf.target, jgf.value, pallas=True), tmesh)
+    for name in ("uncertainty",):
+        jv, ji = j_rf.fused_score_select(JSPF(gf=jgf, mesh=jmesh), jp.x, jnp.asarray(sel), name, 7)
+        tv, ti = t_rf.fused_score_select(tforest, tp.x, torch.as_tensor(sel), name, 7)
+        np.testing.assert_array_equal(np.asarray(jv), tv.numpy(), err_msg=name)
+        np.testing.assert_array_equal(np.asarray(ji), ti.numpy(), err_msg=name)
+
+    jg, tg = j_slab.grow_sharded_slab(jp, jmesh), t_slab.grow_sharded_slab(tp, tmesh)
+    leaves_equal(jg, tg, "grown")
+    assert tg.capacity == tp.capacity + 4 * 64
+    j_ing2, t_ing = j_slab.make_sharded_ingest_fn(jmesh), t_slab.make_sharded_ingest_fn(tmesh)
+    j_ing = j_ing2
+    jg, tg = ingest(jg, tg, [(xa[21:29], ya[21:29], 8), (xa[29:37], ya[29:37], 8)])
+    leaves_equal(jg, tg, "grown ingest")
+    # Epochs until the plan is empty; then an epoch is a no-op: no map
+    # entries, nothing moved.
+    bal = t_slab.make_rebalance_fn(tmesh, 8)
+    for _ in range(8):
+        if not t_slab.rebalance_plan(tg.n_filled, 8).any():
+            break
+        tg, _, _ = bal(tg)
+    before = [t_gather(getattr(tg, f)).clone() for f in ("x", "labeled_mask", "n_filled")]
+    tg, s2, d2 = bal(tg)
+    assert (s2 < 0).all() and (d2 < 0).all()
+    for a, f in zip(before, ("x", "labeled_mask", "n_filled")):
+        assert torch.equal(a, t_gather(getattr(tg, f))), f
+
+    # The hysteresis over one fill sequence: every decision and counter.
+    seq = [[8, 8, 8, 8], [17, 10, 10, 10], [17, 8, 8, 8], [17, 8, 8, 8], [16, 9, 9, 9],
+           [12, 10, 10, 10],
+           [30, 8, 8, 8], [30, 8, 8, 8], [30, 8, 8, 8], [30, 8, 8, 8], [30, 8, 8, 8],
+           [14, 8, 8, 8], [0, 0, 0, 0], [9, 0, 4, 4], [5, 5, 5, 5]]
+    jh, th = j_slab.RebalanceHysteresis(), t_serving.RebalanceHysteresis()
+    for fl in seq:
+        assert jh.update(fl) == th.update(torch.as_tensor(fl)), fl
+        assert jh.active == th.active
+    assert (jh.fired, jh.suppressed_interval, jh.suppressed_band) == \
+        (th.fired, th.suppressed_interval, th.suppressed_band)
+    assert th.fired >= 2 and th.suppressed_interval >= 1 and th.suppressed_band >= 1
+    with pytest.raises(ValueError, match="band would invert"):
+        t_serving.RebalanceHysteresis(enter_ratio=1.5, exit_ratio=2.0)
+
+
 def test_service_matches_jax(tmp_path):
     x0, y0 = _points(48, seed=0)
     tx, ty = _points(32, seed=1)
@@ -199,6 +356,7 @@ def test_service_matches_jax(tmp_path):
             want = seen
     assert seen == want and "entropy_shift" in seen and "margin_shift" in seen
     _mesh_scenario_resume_and_watermark_match_jax(tmp_path)
+    _pod_parity()
 
 
 def _mesh_scenario_resume_and_watermark_match_jax(tmp_path):
