@@ -131,6 +131,26 @@ and prints no result:
    ms against K2's are printed; the pod runs eagerly: the CUDA graphs
    captured during (c) (``runtime.loop.graph_captures``, set to 0 at its
    start) must be 0.
+4s. (after phase 4r) the mesh over processes (``parallel/multihost.py``):
+   this script's ranks (``--rank-job``) spawned under the port's launcher
+   contract (the env trio; ``LOCAL_RANK=0``, so every rank on ``cuda:0``),
+   each printing its numbers as one JSON line, each group under its own
+   timeout that kills every rank. (a) the forest main path at full width:
+   phase 4b's fused run on ``MeshConfig(4, 2)`` over 4 processes (one data
+   row of 2 model shards each), checkpointing every round, then chunked at
+   K = 2. Gates: every rank's records and final mask equal phases 4 and 4b;
+   rank 0 alone writes exactly 3 checkpoints, whose payload equals a
+   single-device run's (records without their wall times); each rank
+   launches K3 twice a round, K4 once a ring step and K1 twice a round
+   (its test-set shards); K4's windows through CUDA IPC equal the plain
+   gloo hop's, bit for bit, over one round's whole ring (replayed from the
+   run's first round); the chunk runs "eager". Per-round fit / round / eval
+   seconds and the ring step's time (IPC and gloo) are printed. (b) the
+   neural leg: phase 4n's CNN entropy run on ``MeshConfig(data=2)`` over 2
+   processes for 2 rounds: records and final mask equal 4n's first two
+   records and a single-process run of the same two rounds, bit for bit;
+   K7 counted a rank. Four processes time-slice one card: the seconds
+   show the launch structure, not scaling;
 4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
    ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
    ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
@@ -372,6 +392,9 @@ phase 4o's numbers (the paths ``serve``, ``serve_headline`` and
 numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
 ``mesh_pod`` phase 4r's numbers (its paths ``neural_mesh``,
 ``neural_mesh_chunked`` and ``pod_select`` in every ``launches_by_path``);
+``multi_process`` phase 4s's numbers (its paths ``procs4_fused``,
+``procs4_chunked`` and ``procs2_neural``, summed over the ranks, in every
+``launches_by_path``; K4's ``ipc_step_ms``);
 ``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
@@ -392,6 +415,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -1788,9 +1812,327 @@ def serving_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> d
     return out
 
 
+# Phase 4s: the ranks of each spawned group, its rounds, and each group's
+# time limit (a missed collective must not hold the script).
+MP_FOREST_RANKS, MP_NEURAL_RANKS, MP_NEURAL_ROUNDS = 4, 2, 2
+MP_TIMEOUT_S = 420
+
+
+def spawn_ranks(job: str, n: int, job_dir: str, seed: int) -> list:
+    """``n`` ranks of this script's ``--rank-job job``, joined by the env
+    trio over a TCP rendezvous on localhost, every rank on ``cuda:0``;
+    returns each rank's JSON record in rank order. Fails (killing every
+    rank) on a rank's error or at ``MP_TIMEOUT_S``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r), LOCAL_RANK="0")
+        log = open(os.path.join(job_dir, f"rank{r}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed), "--rank-job", job,
+             "--job-dir", job_dir], env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.perf_counter() + MP_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        failed = any(p.poll() not in (None, 0) for p in procs)
+        if failed or time.perf_counter() > deadline:
+            for p in procs:  # a rank that failed leaves the others in a collective
+                p.kill()
+                p.wait()
+            if not failed:
+                fail(f"4s {job}: a rank of {n} ran past {MP_TIMEOUT_S}s (a missed collective?)")
+            break
+        time.sleep(0.2)
+    got = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not lines:
+            fail(f"4s {job}: rank {r} exited {p.returncode}:\n{text[-6000:]}")
+        got.append(json.loads(lines[-1].split(" ", 1)[1]))
+    return got
+
+
+def sha(t) -> str:
+    return hashlib.sha256(np.ascontiguousarray(
+        t.cpu().numpy() if torch.is_tensor(t) else t).tobytes()).hexdigest()
+
+
+def rank_job(args) -> int:
+    """One rank of phase 4s (``--rank-job forest|neural``): joins the gloo
+    group through the env trio, runs its leg on the rank's card and prints
+    ``RANK_RESULT {json}``."""
+    from distributed_active_learning_tpu_torch.config import DataConfig, MeshConfig
+    from distributed_active_learning_tpu_torch.device import resolve_device
+    from distributed_active_learning_tpu_torch.ops import ring_topk, round_fused, threefry
+    from distributed_active_learning_tpu_torch.ops import trees_pallas
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    if not multihost.maybe_initialize():
+        fail("a rank job needs the multi-process env (JAX_NUM_PROCESSES above 1)")
+    dev = resolve_device(None)
+    rank, n = multihost.process_index(), multihost.process_count()
+    out = {"rank": rank, "device": str(dev), "processes": n}
+
+    def zero():
+        trees_pallas.launches = round_fused.launches = 0
+        round_fused.votes_launches = ring_topk.launches = threefry.launches = 0
+
+    def counted():
+        return {"forest_leaves": trees_pallas.launches, "round_megakernel": round_fused.launches,
+                "fused_votes": round_fused.votes_launches, "ring_hop": ring_topk.launches,
+                "threefry": threefry.launches}
+
+    if args.rank_job == "forest":
+        from distributed_active_learning_tpu_torch.config import (
+            ExperimentConfig, ForestConfig, StrategyConfig,
+        )
+        from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+        from distributed_active_learning_tpu_torch.runtime import loop
+        from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
+
+        rng = np.random.default_rng(args.seed)  # phase 2's draws, in its order
+        pool_np = rng.normal(size=(N_POOL, N_FEAT)).astype(np.float32)
+        rng.normal(size=(N_START, N_FEAT))
+        test_np = rng.normal(size=(N_TEST, N_FEAT)).astype(np.float32)
+        bundle = DataBundle(train_x=pool_np, train_y=labels(pool_np), test_x=test_np,
+                            test_y=labels(test_np), name="bench_pool")
+        cfg = ExperimentConfig(
+            forest=ForestConfig(n_trees=TREES, max_depth=DEPTH, max_bins=BINS, fit="device",
+                                kernel="pallas"),
+            strategy=StrategyConfig(name="uncertainty", window_size=WINDOW),
+            mesh=MeshConfig(4, 2), n_start=N_START, max_rounds=ROUNDS, fused_round=True,
+            seed=args.seed)
+        seen = []
+        ring_processes = ring_topk._ring_topk_processes
+
+        def first_ring(windows, k, procs, plain, received):  # keeps round 1's windows
+            if not seen:
+                seen.append(([(v.clone(), i.clone()) for v, i in windows], k))
+            return ring_processes(windows, k, procs, plain, received)
+
+        ring_topk._ring_topk_processes = first_ring
+        for path, kw in (("procs4_fused", dict(checkpoint_dir=os.path.join(args.job_dir, "ckpt"),
+                                               checkpoint_every=1)),
+                         ("procs4_chunked", dict(rounds_per_launch=2))):
+            zero()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            res = loop.run_experiment(dataclasses.replace(cfg, **kw), bundle=bundle,
+                                      debugger=Debugger(enabled=False), device=dev)
+            torch.cuda.synchronize(dev)
+            out[path] = dict(
+                wall=time.perf_counter() - t0, launches=counted(),
+                records=[[r.round, r.n_labeled, r.accuracy] for r in res.records],
+                split=[[r.train_time, r.score_time, r.eval_time] for r in res.records],
+                mask_sha=sha(res.final_labeled_mask),
+                mask_count=int(res.final_labeled_mask.sum()),
+                graph=(None if res.graph_stats is None else
+                       {k: res.graph_stats[k] for k in ("mode", "mode_reason")}))
+        ring_topk._ring_topk_processes = ring_processes
+        # Round 1's ring again: through CUDA IPC (K4) and through the plain
+        # gloo hop, every received window and the merge compared; then each
+        # route timed a step (the ring's 3 steps a call).
+        windows, k = seen[0]
+        got_ipc, got_gloo = [], []
+        m_ipc = ring_topk.ring_topk(windows, k, procs=n, received=got_ipc)[0]
+        m_gloo = ring_topk.ring_topk(windows, k, procs=n, plain=True, received=got_gloo)[0]
+        pairs = list(zip(got_ipc + [m_ipc], got_gloo + [m_gloo]))
+        out["ring_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                                for a, b in pairs)
+        out["ring_max_abs_err"] = max(float((a[0] - b[0]).abs().max()) for a, b in pairs)
+        out["ring_windows"] = len(got_ipc)
+        steps = len(got_ipc)
+        for route, plain in (("ipc", False), ("gloo", True)):
+            times = []
+            for _ in range(7):
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                ring_topk.ring_topk(windows, k, procs=n, plain=plain)
+                torch.cuda.synchronize(dev)
+                times.append((time.perf_counter() - t0) / steps * 1e3)
+            out[f"ring_{route}_step_ms"] = statistics.median(times)
+    else:
+        from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+        from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
+        from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+
+        bc = get_dataset(DataConfig(name="cifar10", n_samples=NEURAL_CIFAR, seed=args.seed),
+                         device=dev)
+        cnn = NeuralLearner(SmallCNN(n_classes=10, dropout_rate=0.25), (32, 32, 3),
+                            train_steps=200, batch_size=64, mc_samples=8, device=dev)
+        cfg = nl.NeuralExperimentConfig(strategy="entropy", window_size=100, n_start=100,
+                                        max_rounds=MP_NEURAL_ROUNDS, seed=args.seed,
+                                        mesh=MeshConfig(data=n))
+        zero()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = nl.run_neural_experiment(cfg, cnn, bc.train_x, bc.train_y, bc.test_x, bc.test_y)
+        torch.cuda.synchronize(dev)
+        out["procs2_neural"] = dict(
+            wall=time.perf_counter() - t0, launches=counted(),
+            records=[[r.round, r.n_labeled, r.n_unlabeled, r.accuracy] for r in res.records],
+            seconds_per_round=[r.total_time for r in res.records],
+            mask_sha=sha(res.final_labeled_mask))
+    print("RANK_RESULT " + json.dumps(out), flush=True)
+    return 0
+
+
+def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_records,
+                        want_mask, neural_numbers) -> dict:
+    """Phase 4s (see the module docstring): spawns the ranks, holds their
+    records against the single-process runs, returns the numbers. Fails on
+    any gate. ``run_single(**cfg_changes)`` runs phase 4's fused
+    configuration on one device; ``want_records`` and ``want_mask`` are
+    phase 4's, which phase 4b's mesh runs equal."""
+    from distributed_active_learning_tpu_torch.config import DataConfig
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+    from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
+    from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "seconds": {}}
+    torch.cuda.empty_cache()  # the ranks share this card
+    work = tempfile.mkdtemp(prefix="chip_smoke_4s_")
+    try:
+        # -- (a) the forest main path over 4 processes --------------------------
+        ck_single = os.path.join(work, "single_ckpt")
+        single = run_single(checkpoint_dir=ck_single, checkpoint_every=1)
+        if [(r.round, r.n_labeled, r.accuracy) for r in single.records] != want_records:
+            fail("4s: the checkpointing single-device run differs from phase 4's")
+        job = os.path.join(work, "forest")
+        os.makedirs(job)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("forest", MP_FOREST_RANKS, job, seed)
+        out["seconds"]["a"] = time.perf_counter() - t0
+        steps = {"procs4_fused": ROUNDS, "procs4_chunked": 2 * -(-ROUNDS // 2)}
+        for r, g in enumerate(ranks):
+            if g["device"] != "cuda:0":
+                fail(f"4s rank {r} ran on {g['device']}, not cuda:0")
+            for path, n_steps in steps.items():
+                p = g[path]
+                if [tuple(x) for x in p["records"]] != want_records:
+                    fail(f"4s {path} rank {r} records {p['records']} != phases 4/4b's "
+                         f"{want_records}")
+                if p["mask_sha"] != sha(want_mask) or p["mask_count"] != int(want_mask.sum()):
+                    fail(f"4s {path} rank {r}: final mask != phases 4/4b's")
+                want_l = {"forest_leaves": 2 * n_steps, "round_megakernel": 0,
+                          "fused_votes": 2 * n_steps, "ring_hop": 3 * n_steps, "threefry": 0}
+                if p["launches"] != want_l:
+                    fail(f"4s {path} rank {r} launched {p['launches']}, want {want_l}")
+            if g["procs4_chunked"]["graph"]["mode"] != "eager":
+                fail(f"4s rank {r}: the chunk over processes ran {g['procs4_chunked']['graph']}")
+            if not g["ring_equal"] or g["ring_windows"] != MP_FOREST_RANKS - 1:
+                fail(f"4s rank {r}: K4's IPC windows != the gloo hop's "
+                     f"({g['ring_windows']} windows, max abs err {g['ring_max_abs_err']})")
+        files = sorted(os.listdir(os.path.join(job, "ckpt")))
+        want_files = [f"alstate_{i}.npz" for i in range(1, ROUNDS + 1)]
+        if files != want_files or sorted(os.listdir(ck_single)) != want_files:
+            fail(f"4s checkpoints {files}, single-device {sorted(os.listdir(ck_single))}; "
+                 f"want {want_files} from rank 0 alone")
+        for f in files:
+            za, zb = np.load(os.path.join(job, "ckpt", f)), np.load(os.path.join(ck_single, f))
+            if sorted(za.files) != sorted(zb.files):
+                fail(f"4s checkpoint {f} fields {za.files} != {zb.files}")
+            for key in za.files:
+                if key == "records_json":
+                    ra, rb = (json.loads(bytes(z[key]).decode()) for z in (za, zb))
+                    ra, rb = ([{k_: v for k_, v in x.items() if not k_.endswith("_time")}
+                               for x in rs] for rs in (ra, rb))
+                    same = ra == rb
+                else:
+                    same = np.array_equal(za[key], zb[key])
+                if not same:
+                    fail(f"4s checkpoint {f}: {key} != the single-device run's")
+        for path in steps:
+            out["launches"][path] = {k_: sum(g[path]["launches"][k_] for g in ranks)
+                                     for k_ in ranks[0][path]["launches"]}
+        r0 = ranks[0]
+        out["forest"] = {
+            "per_rank_launches": {p: [g[p]["launches"] for g in ranks] for p in steps},
+            "split_seconds": {p: [g[p]["split"] for g in ranks] for p in steps},
+            "wall": {p: [g[p]["wall"] for g in ranks] for p in steps},
+            "ring_ipc_step_ms": [g["ring_ipc_step_ms"] for g in ranks],
+            "ring_gloo_step_ms": [g["ring_gloo_step_ms"] for g in ranks],
+            "ring_max_abs_err": max(g["ring_max_abs_err"] for g in ranks),
+            "chunk_mode": r0["procs4_chunked"]["graph"]}
+        for i, (fit_s, round_s, eval_s) in enumerate(r0["procs4_fused"]["split"]):
+            print(f"#   4s (a) round {i + 1} on rank 0: fit {fit_s:.4f}s round {round_s:.4f}s "
+                  f"eval {eval_s:.4f}s (single device: fit {single.records[i].train_time:.4f}s "
+                  f"round {single.records[i].score_time:.4f}s eval "
+                  f"{single.records[i].eval_time:.4f}s)")
+        print(f"# phase 4s (a) {MP_FOREST_RANKS} processes on cuda:0, MeshConfig(4, 2), fused: "
+              f"every rank == phases 4 and 4b (records, final {N_POOL}-row mask), {ROUNDS} "
+              f"checkpoints from rank 0 == the single-device run's, per rank K3 "
+              f"{2 * ROUNDS} K4 {3 * ROUNDS} K1 {2 * ROUNDS}; chunked K = 2 eager == too; "
+              f"K4 through CUDA IPC == the gloo hop ({MP_FOREST_RANKS - 1} windows a rank, max "
+              f"abs err {out['forest']['ring_max_abs_err']}); a ring step "
+              f"{statistics.median(out['forest']['ring_ipc_step_ms']):.4f} ms by IPC, "
+              f"{statistics.median(out['forest']['ring_gloo_step_ms']):.4f} ms by gloo (median "
+              f"of the ranks); walls {[round(w, 2) for w in out['forest']['wall']['procs4_fused']]}"
+              f" s ({kind}, {smi})")
+
+        # -- (b) the neural leg over 2 processes ---------------------------------
+        t0 = time.perf_counter()
+        bc = get_dataset(DataConfig(name="cifar10", n_samples=NEURAL_CIFAR, seed=seed), device=dev)
+        cnn = NeuralLearner(SmallCNN(n_classes=10, dropout_rate=0.25), (32, 32, 3),
+                            train_steps=200, batch_size=64, mc_samples=8, device=dev)
+        cfg = nl.NeuralExperimentConfig(strategy="entropy", window_size=100, n_start=100,
+                                        max_rounds=MP_NEURAL_ROUNDS, seed=seed)
+        ref = nl.run_neural_experiment(cfg, cnn, bc.train_x, bc.train_y, bc.test_x, bc.test_y)
+        ref_recs = [[r.round, r.n_labeled, r.n_unlabeled, r.accuracy] for r in ref.records]
+        four_n = [list(x) for x in neural_numbers["cnn"]["entropy"]["records"][:MP_NEURAL_ROUNDS]]
+        if ref_recs != four_n:
+            fail(f"4s (b): the single-process {MP_NEURAL_ROUNDS}-round run {ref_recs} != 4n's "
+                 f"first records {four_n}")
+        del bc, cnn
+        torch.cuda.empty_cache()
+        job = os.path.join(work, "neural")
+        os.makedirs(job)
+        ranks_n = spawn_ranks("neural", MP_NEURAL_RANKS, job, seed)
+        out["seconds"]["b"] = time.perf_counter() - t0
+        for r, g in enumerate(ranks_n):
+            p = g["procs2_neural"]
+            if p["records"] != ref_recs or p["mask_sha"] != sha(ref.final_labeled_mask):
+                fail(f"4s (b) rank {r}: records {p['records']} or mask != the single-process "
+                     f"run's {ref_recs}")
+            if p["launches"]["threefry"] == 0 or any(
+                    v for k_, v in p["launches"].items() if k_ != "threefry"):
+                fail(f"4s (b) rank {r} launches {p['launches']}: K7 only, and at least once")
+        out["launches"]["procs2_neural"] = {
+            k_: sum(g["procs2_neural"]["launches"][k_] for g in ranks_n)
+            for k_ in ranks_n[0]["procs2_neural"]["launches"]}
+        out["neural"] = {
+            "per_rank_threefry": [g["procs2_neural"]["launches"]["threefry"] for g in ranks_n],
+            "seconds_per_round": [g["procs2_neural"]["seconds_per_round"] for g in ranks_n],
+            "single_seconds_per_round": [r.total_time for r in ref.records],
+            "wall": [g["procs2_neural"]["wall"] for g in ranks_n]}
+        print(f"# phase 4s (b) {MP_NEURAL_RANKS} processes on cuda:0, CNN entropy "
+              f"MeshConfig(data=2), {MP_NEURAL_ROUNDS} rounds: every rank == 4n's first records "
+              f"== the single-process run (records, final mask); K7 a rank "
+              f"{out['neural']['per_rank_threefry']}; s/round {out['neural']['seconds_per_round']}"
+              f" (single process {out['neural']['single_seconds_per_round']}) ({kind}, {smi})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"]["total"] = time.perf_counter() - t_phase
+    print(f"# phase 4s: {out['seconds']['total']:.1f}s ((a) {out['seconds']['a']:.1f}, (b) "
+          f"{out['seconds']['b']:.1f})")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-job", choices=("forest", "neural"), default=None,
+                    help="run one rank of phase 4s (spawned by phase 4s itself)")
+    ap.add_argument("--job-dir", default=None, help="the rank job's working directory")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1800,6 +2142,8 @@ def main() -> int:
     # be set before the process's first product (device.deterministic_cuda).
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.rank_job:
+        return rank_job(args)
     from distributed_active_learning_tpu_torch import bench, kernels, prng
     from distributed_active_learning_tpu_torch.benches import pallas_variants as lv
     from distributed_active_learning_tpu_torch.config import (
@@ -3919,6 +4263,17 @@ def main() -> int:
         if "threefry" in c:
             neural_numbers["launches"][path] = c
 
+    # -- phase 4s: the mesh over processes --------------------------------------
+    mp_numbers = multi_process_phase(
+        args.seed, dev, kind, smi,
+        lambda **kw: loop.run_experiment(cfg(True, **kw), bundle=bundle,
+                                         debugger=Debugger(enabled=False), device=dev),
+        recs[True], masks[True], neural_numbers)
+    for path, c in mp_numbers["launches"].items():
+        launches[path] = {k: c[k] for k in counts()}
+        if path == "procs2_neural":
+            neural_numbers["launches"][path] = c
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -4344,7 +4699,9 @@ def main() -> int:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib,
          "step_ms": step_ms, "library_step_ms": lib_step_ms, "hop_ms": hop_ms,
-         "peer_path_run": peer_run},
+         "peer_path_run": peer_run,
+         "ipc_step_ms": statistics.median(mp_numbers["forest"]["ring_ipc_step_ms"]),
+         "gloo_step_ms": statistics.median(mp_numbers["forest"]["ring_gloo_step_ms"])},
         {"name": "forest_leaves_transposed", "route": "cuda",
          "source": f"{pkg}/forest_leaves_transposed.cu",
          "replaces": "benches/pallas_variants.py:116",
@@ -4383,6 +4740,7 @@ def main() -> int:
         "serving": {k: v for k, v in serving_numbers.items() if k not in ("launches", "k1")},
         "fleet": {k: v for k, v in fleet_numbers.items() if k != "launches"},
         "mesh_pod": {k: v for k, v in pod_numbers.items() if k != "launches"},
+        "multi_process": {k: v for k, v in mp_numbers.items() if k != "launches"},
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

@@ -610,12 +610,13 @@ def bench_round(args, dev) -> dict:
     del pool_dev, y_dev, mask_dev
     writer = None
     if args.metrics_out:
+        from distributed_active_learning_tpu_torch.parallel import multihost
         from distributed_active_learning_tpu_torch.runtime.telemetry import MetricsWriter
 
         writer = MetricsWriter(args.metrics_out)
         writer.meta(bench_mode="round", sizes={k: getattr(args, k) for k in (
             "pool", "features", "trees", "depth", "window", "train_rows", "rounds_per_launch")},
-            backend=dev.type, n_devices=1, process_count=1)
+            backend=dev.type, n_devices=1, **multihost.run_meta())
     try:
         result.update(_bench_scan_fusion(args, dev, pool, pool_y, mask0, binned, writer=writer))
     finally:
@@ -1393,7 +1394,11 @@ def bench_serve_multi(args, dev) -> dict:
         max_pending=max(per_tenant_queries, 64),
         slo_latency_ms=10_000.0, slo_target=0.95,
     )
-    ops_server = OpsServer(port=args.ops_port or 0).start()
+    # The primary binds (run.py's --ops-port contract): in a multi-process
+    # job every rank runs this body, and N ranks binding one port collide.
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    ops_server = OpsServer(port=args.ops_port or 0).start() if multihost.is_primary() else None
 
     def make(n, shift=0.0, seed_off=0):
         r = np.random.default_rng(seed_off)
@@ -1452,6 +1457,8 @@ def bench_serve_multi(args, dev) -> dict:
     stop_scrape = threading.Event()
 
     def scraper():
+        if ops_server is None:
+            return
         base = f"http://127.0.0.1:{ops_server.port}"
         while not stop_scrape.is_set():
             try:
@@ -1508,7 +1515,8 @@ def bench_serve_multi(args, dev) -> dict:
     graphs = _graph_report([manager.tenant(tid) for tid in tids], dev)
     live = manager.live_graphs()
     manager.close()
-    ops_server.stop()
+    if ops_server is not None:
+        ops_server.stop()
     slo = summary.get("slo") or {}
     if slo.get("compliance") is None:
         raise RuntimeError(
@@ -1548,7 +1556,7 @@ def bench_serve_multi(args, dev) -> dict:
         "serve_multi_slo_per_tenant": {tid: snap.get("compliance")
                                        for tid, snap in slo.get("per_tenant", {}).items()},
         "ops_scrapes": scrapes[0],
-        "ops_port": ops_server.port,
+        "ops_port": ops_server.port if ops_server is not None else None,
         "serve_multi_tenant_summaries": {
             tid: {k: summary["per_tenant"][tid][k]
                   for k in ("queries", "ingested_points", "refits", "slab_growths",

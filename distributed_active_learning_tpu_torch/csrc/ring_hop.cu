@@ -5,13 +5,16 @@
 // The TPU kernel signals a barrier semaphore on both ring neighbours, waits
 // for theirs, then DMAs its k-row window (k f32 values, k i32 indices) into
 // the right neighbour's output buffers over ICI; the ring runs S - 1 such
-// hops per shard. Here one process drives every shard, so the handshake is
+// hops per shard. Where one process drives every shard the handshake is
 // stream order kept by the wrapper (events only between distinct cards),
 // and one launch copies every window that the shards on one card send in
 // one ring step: a mesh on one card runs one launch per step, a mesh over
 // cards one launch per card per step. A receiving buffer on another card is
 // written through a peer pointer under unified addressing (peer access is
-// enabled once per neighbour pair by ring_hop_enable_peer).
+// enabled once per neighbour pair by ring_hop_enable_peer). Between
+// processes the receiving buffer is the neighbour's IPC-mapped window
+// (ring_hop_ipc_*, below), and the wrapper's handshake is a stream
+// synchronisation and a gloo barrier on each side of the launch.
 //
 // What bounds it on an H100: a hop reads 8 k bytes and writes 8 k (1,600
 // at k = 100), half a nanosecond at 3.35 TB/s, so a step costs its launch
@@ -23,6 +26,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -72,6 +76,49 @@ extern "C" int ring_step(void* const* ptrs, int n_windows, int k, void* stream) 
   ring_step_kernel<<<n_windows, THREADS, 0, (cudaStream_t)stream>>>(w, k);
   return (int)cudaGetLastError();
 }
+
+// Receive windows shared between processes (CUDA IPC). Each rank of a
+// multi-process mesh allocates its receive window with cudaMalloc here (not
+// from PyTorch's caching allocator, whose blocks are sub-allocations of a
+// base that a handle would name) and exports a cudaIpcMemHandle_t; its left
+// neighbour opens the handle and ring_step stores through the mapped
+// pointer, as the TPU kernel's remote DMA writes into the neighbour's
+// buffer. Between distinct cards the open enables peer access lazily. Each
+// function sets `device` current for its call and restores the caller's.
+
+// Allocate `bytes` on `device` and write its IPC handle
+// (CUDA_IPC_HANDLE_SIZE bytes) into `handle`.
+extern "C" int ring_hop_ipc_alloc(int device, long long bytes, void** ptr, void* handle) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  err = cudaMalloc(ptr, (size_t)bytes);
+  if (err == cudaSuccess) err = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (err == cudaSuccess) {
+    cudaIpcMemHandle_t h;
+    err = cudaIpcGetMemHandle(&h, *ptr);
+    if (err == cudaSuccess) memcpy(handle, &h, sizeof(h));
+  }
+  cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+// Map another process's allocation (its handle) into this one, for stores
+// from `device`.
+extern "C" int ring_hop_ipc_open(int device, const void* handle, void** ptr) {
+  int prev = 0;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if ((err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  err = cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+  cudaError_t restore = cudaSetDevice(prev);
+  return (int)(err != cudaSuccess ? err : restore);
+}
+
+extern "C" int ring_hop_ipc_handle_size() { return (int)sizeof(cudaIpcMemHandle_t); }
 
 // Let `device` store into `peer`'s memory. Returns 0 when it can (or already
 // could), cudaErrorPeerAccessUnsupported when the cards cannot reach each

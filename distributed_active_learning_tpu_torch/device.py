@@ -13,7 +13,9 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` means CUDA. A CUDA device without a card raises."""
+    """``None`` means CUDA. A CUDA device without a card raises. In a
+    process launched as one rank of several (``parallel.multihost``),
+    ``cuda`` means the rank's own card, ``cuda:(LOCAL_RANK % cards)``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -21,6 +23,11 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "no CUDA device is available; pass device='cpu' (CLI: "
                 "--device cpu) to run the port's plain PyTorch versions"
             )
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        if dev.index is None and multihost.launched():
+            dev = torch.device("cuda", multihost.local_device_index())
+            torch.cuda.set_device(dev)
         # The device fit relies on f32 products and sums of small integers
         # being exact (histogram counts, prefix sums, one-hot contractions);
         # TF32 keeps 10 mantissa bits and would round them. Both switches are

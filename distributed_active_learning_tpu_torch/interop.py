@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from distributed_active_learning_tpu_torch.device import resolve_device
 from distributed_active_learning_tpu_torch.ops.trees_gemm import GemmForest
 from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest
 from distributed_active_learning_tpu_torch.runtime.state import PoolState
@@ -30,11 +31,13 @@ def _stored(a, device) -> torch.Tensor:
 
 
 def gemm_forest_from_numpy(
-    feat_ids, thresholds, path, target, value, device="cpu", pallas: bool = False
+    feat_ids, thresholds, path, target, value, device=None, pallas: bool = False
 ):
     """A :class:`GemmForest` (or a :class:`PallasForest` with ``pallas``)
     from the arrays of a JAX ``GemmForest``; a quantized forest keeps its
-    storage dtypes."""
+    storage dtypes. On the card unless ``device`` says otherwise
+    (``device.resolve_device``)."""
+    device = resolve_device(device)
     gf = GemmForest(
         feat_ids=_t(feat_ids, np.int32, device),
         thresholds=_stored(thresholds, device),
@@ -45,9 +48,12 @@ def gemm_forest_from_numpy(
     return PallasForest(gf=gf) if pallas else gf
 
 
-def pool_state_from_numpy(x, oracle_y, labeled_mask, key_data, round=0, device="cpu") -> PoolState:
+def pool_state_from_numpy(x, oracle_y, labeled_mask, key_data, round=0,
+                          device=None) -> PoolState:
     """A :class:`PoolState` from a JAX ``PoolState``'s arrays; ``key_data``
-    is ``jax.random.key_data(state.key)`` (two uint32 words)."""
+    is ``jax.random.key_data(state.key)`` (two uint32 words). On the card
+    unless ``device`` says otherwise."""
+    device = resolve_device(device)
     kd = np.asarray(key_data, dtype=np.uint32).astype(np.int64)
     return PoolState(
         x=_t(x, np.float32, device),
@@ -71,11 +77,13 @@ def flax_leaf_order(names) -> list:
     return sorted(names, key=flax_path)
 
 
-def neural_params_from_numpy(params, module, device="cpu") -> dict:
+def neural_params_from_numpy(params, module, device=None) -> dict:
     """A flax params tree of numpy arrays (nested dicts) as the port
     module's state dict: Dense ``[in, out]`` -> ``[out, in]``, Conv ``HWIO`` ->
     ``OIHW``, Embed tables and LayerNorm scales and biases as they are. The
-    names must be the module's."""
+    names must be the module's. On the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
     from distributed_active_learning_tpu_torch.models.neural import to_port_layout
 
     flat = {}

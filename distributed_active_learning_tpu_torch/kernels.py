@@ -51,7 +51,9 @@ _SIGNATURES = {
         "fused_votes": [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
         "fused_votes_config": [_I, _I, _I, _I, _I, _I, _I, _P],
     },
-    "ring_hop": {"ring_step": [_P, _I, _I, _P], "ring_hop_enable_peer": [_I, _I]},
+    "ring_hop": {"ring_step": [_P, _I, _I, _P], "ring_hop_enable_peer": [_I, _I],
+                 "ring_hop_ipc_alloc": [_I, _L, _P, _P], "ring_hop_ipc_open": [_I, _P, _P],
+                 "ring_hop_ipc_handle_size": []},
     "forest_leaves_transposed": {
         "forest_leaves_transposed": [_P, _I, _I, _I, _P, _P, _P, _P,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],

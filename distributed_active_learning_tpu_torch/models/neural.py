@@ -384,7 +384,7 @@ def take_rows(x, idx: torch.Tensor) -> torch.Tensor:
     if not isinstance(x, Sharded):
         return x[idx]
     out = None
-    for s in range(len(x.blocks)):
+    for s in x.local_ids:
         blk = x.block(s)
         rows = blk.shape[0]
         local = idx - s * rows
@@ -392,6 +392,17 @@ def take_rows(x, idx: torch.Tensor) -> torch.Tensor:
         got = blk.index_select(0, torch.clamp(local, 0, rows - 1).to(blk.device)).to(idx.device)
         mine = mine.reshape(-1, *([1] * (got.dim() - 1)))
         out = got if out is None else torch.where(mine, got, out)
+    if x.spans_processes:
+        # Each rank's fixed-size block holds the rows it owns; one all-gather,
+        # then each row is taken from its owner (the index says which).
+        from distributed_active_learning_tpu_torch.parallel.multihost import all_gather
+
+        owner = idx // (x.n_local * len(x.blocks))
+        owner = owner.reshape(-1, *([1] * (out.dim() - 1)))
+        blocks = all_gather(out.contiguous())
+        out = blocks[0]
+        for r, got in enumerate(blocks[1:], start=1):
+            out = torch.where(owner == r, got, out)
     return out
 
 
@@ -484,13 +495,15 @@ class NeuralLearner:
         the same global chunk boundaries, each piece run on its shard's
         device with the mask rows of its global positions, and the pieces
         joined in row order on the first shard's device; a tensor is one
-        block."""
+        block. Over processes each rank runs its own shards and the pieces
+        are all-gathered (COLLECTIVE)."""
         if isinstance(x, Sharded):
-            blocks, n = [x.block(s) for s in range(len(x.blocks))], x.n_rows
+            blocks, n = [x.block(s) for s in x.local_ids], x.n_rows
+            lo_g = x.first * x.n_local
         else:
-            blocks, n = [x], x.shape[0]
+            blocks, n, lo_g = [x], x.shape[0], 0
         mask_rows, first = min(n, self.predict_chunk), blocks[0].device
-        out, lo_g = [], 0
+        out = []
         for blk in blocks:
             g, hi_g = lo_g, min(lo_g + blk.shape[0], n)
             while g < hi_g:
@@ -498,6 +511,18 @@ class NeuralLearner:
                 out.append(fn(blk[g - lo_g:end - lo_g], mask_rows, g % mask_rows).to(first))
                 g = end
             lo_g += blk.shape[0]
+        if isinstance(x, Sharded) and x.spans_processes:
+            # This rank's real rows in a block of its whole row range (a rank
+            # past the real rows computes one row for the shape only), then
+            # one all-gather of the ranks' blocks in row order.
+            from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
+
+            if not out:
+                out.append(fn(blocks[0][:1], mask_rows, 0).to(first)[:0])
+            mine = torch.cat(out)
+            span = x.n_local * len(blocks)
+            mine = torch.cat([mine, mine.new_zeros((span - mine.shape[0], *mine.shape[1:]))])
+            return gather_rows(mine, n)
         return out[0] if len(out) == 1 else torch.cat(out)
 
     def _params_on(self, params, device) -> Dict[str, torch.Tensor]:

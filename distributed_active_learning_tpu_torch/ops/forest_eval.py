@@ -129,16 +129,16 @@ def _evaluated_many_sharded(forests, x) -> list:
     mesh = forests[0].mesh
     xs = mesh_lib.shard_rows(x, mesh, replicate=True)
     grids = [[[None] * len(row) for row in forests[0].shards] for _ in forests]
-    for s, row in enumerate(forests[0].shards):
+    for i, (s, row) in enumerate(zip(xs.local_ids, forests[0].shards)):
         for m in range(len(row)):
             xb = xs.block(s, m)
-            local = [f.shards[s][m] for f in forests]
+            local = [f.shards[i][m] for f in forests]
             if all(trees_pallas.tile_dims(f.gf, *xb.shape) is not None for f in local):
                 leaves_sm = trees_pallas.predict_leaves_many(local, xb)
             else:
                 leaves_sm = [leaves(f, xb) for f in local]
             for e, lv in enumerate(leaves_sm):
-                grids[e][s][m] = lv
+                grids[e][i][m] = lv
     return [EvaluatedForest(f, x, par_kernels.join_leaf_grid(g, mesh, xs.n_rows))
             for f, g in zip(forests, grids)]
 

@@ -12,8 +12,8 @@ tie.
 
 The copy (K4) is ``csrc/ring_hop.cu``, which replaces the Pallas
 ``_hop_kernel`` (a barrier-semaphore handshake with both neighbours, then a
-remote DMA of the window to the right neighbour). Here one process drives
-every shard, so the handshake becomes stream order, and one launch per
+remote DMA of the window to the right neighbour). Where one process drives
+every shard, the handshake becomes stream order, and one launch per
 (sending device, ring step) copies every window that device's shards send
 (:func:`ring_step`): a mesh on one card runs ``S - 1`` launches per merge,
 not ``S (S - 1)``. :func:`ring_topk` allocates one ``[S, k]`` receive pair
@@ -23,6 +23,19 @@ receiver's has enqueued every earlier merge, the receiver's waits for the
 copy), and on one card stream order is the whole handshake. A window on
 another card is stored through a peer pointer under UVA. CPU windows take
 the plain version, tensor copies (:func:`ring_step_plain`).
+
+Over several processes (``ring_topk(..., procs=N)``; ``parallel/
+multihost.py``) each rank holds its own shards' windows, and the window of
+its last shard goes to the next rank's first. On the card that hop is the
+TPU kernel's remote write again: each rank's receive window is
+``cudaMalloc``'d inside the ring-hop library and shared by CUDA IPC, the
+handles are exchanged once over gloo, and K4 stores through the mapped
+pointer of the right neighbour's window (:class:`IpcWindow`). A step is
+eager and simple: the stream is synchronised, a gloo barrier, one K4 launch
+carrying every window the rank sends, a synchronise, a barrier, then the
+merges. A failed IPC open raises; nothing falls back to gloo on the card.
+The plain version, and K4's oracle there, is a gloo ``isend``/``irecv`` of
+the window (:func:`hop_processes_plain`).
 :func:`remap_indices` maps picks over a rebalanced pod pool back to the
 rows they were before the epoch (``serving/slab.py``).
 """
@@ -31,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -105,14 +118,20 @@ def _launch_ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
                              "and [k] int32 indices")
     if any(v.device != dev for v, _ in src) or len(src) != len(dst):
         raise ValueError("a ring step launches for the windows one device sends")
+    _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in src],
+                 [(v.data_ptr(), i.data_ptr()) for v, i in dst])
+
+
+def _launch_ptrs(dev: torch.device, k: int, src, dst) -> None:
+    """K4 over raw ``(values, indices)`` pointer pairs of k-row windows,
+    ``MAX_WINDOWS`` to a launch, each launch counted."""
     lib = kernels.load("ring_hop")
     stream = torch.cuda.current_stream(dev).cuda_stream
     for lo in range(0, len(src), MAX_WINDOWS):
         s_, d_ = src[lo:lo + MAX_WINDOWS], dst[lo:lo + MAX_WINDOWS]
         m = len(s_)
         ptrs = (ctypes.c_void_p * (4 * m))(
-            *[v.data_ptr() for v, _ in s_], *[i.data_ptr() for _, i in s_],
-            *[v.data_ptr() for v, _ in d_], *[i.data_ptr() for _, i in d_])
+            *[v for v, _ in s_], *[i for _, i in s_], *[v for v, _ in d_], *[i for _, i in d_])
         with torch.cuda.device(dev):
             err = lib.ring_step(ptrs, m, k, stream)
         kernels.check("ring_step", err)
@@ -157,20 +176,29 @@ def hop(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
     return out
 
 
-def ring_topk(windows: Sequence[Window], k: int) -> List[Window]:
+def ring_topk(windows: Sequence[Window], k: int, procs: int = 1, plain: bool = False,
+              received: Optional[list] = None) -> List[Window]:
     """Merge the shards' ``k``-row windows (``pad_window``-normalized,
     global indices; shard ``s``'s on the ring's device ``s``) into the global
     top-k: each shard's original window travels right ``S - 1`` steps, and
     each shard merges every window that arrives into its accumulator. Each
     step is one :func:`ring_step` per sending device into that step's
     receive buffers. Returns every shard's merged window, all equal; with
-    one shard, the window itself."""
+    one shard, the window itself.
+
+    With ``procs > 1`` the ring spans that many processes, ``windows`` are
+    this rank's shards' (:func:`_ring_topk_processes`; COLLECTIVE):
+    ``plain`` takes the gloo hop on the card too (K4's oracle), and
+    ``received`` (a list) collects a copy of each window this rank's first
+    shard receives from the previous rank."""
     for v, i in windows:
         if v.shape != (k,) or i.shape != (k,):
             raise ValueError(
                 f"ring_topk needs k-row windows, got {tuple(v.shape)}/{tuple(i.shape)} "
                 f"for k={k}; normalize with pad_window first"
             )
+    if procs > 1:
+        return _ring_topk_processes(windows, k, procs, plain, received)
     n = len(windows)
     if n == 1:
         return list(windows)
@@ -191,6 +219,148 @@ def ring_topk(windows: Sequence[Window], k: int) -> List[Window]:
         for shards in senders.values():
             ring_step([cur[s] for s in shards], [nxt[(s + 1) % n] for s in shards])
         for s in range(n):
+            acc[s] = merge_windows(*acc[s], *nxt[s], k)
+        cur = nxt
+    return acc
+
+
+def hop_processes_plain(vals: torch.Tensor, idx: torch.Tensor, tag: int = 0) -> Window:
+    """The plain hop between processes: this rank's window to the next
+    rank, the previous rank's window back, as one gloo ``isend``/``irecv``
+    of ``[2k]`` int32 words staged through the host (the values' bits, then
+    the indices). Fresh buffers on ``vals``' device. COLLECTIVE."""
+    import torch.distributed as dist
+
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    n, r = multihost.process_count(), multihost.process_index()
+    k = vals.shape[0]
+    msg = torch.cat([vals.contiguous().view(torch.int32), idx.to(torch.int32)]).cpu()
+    got = torch.empty_like(msg)
+    reqs = [dist.isend(msg, (r + 1) % n, tag=tag), dist.irecv(got, (r - 1) % n, tag=tag)]
+    for q in reqs:
+        q.wait()
+    got = got.to(vals.device)
+    return got[:k].view(torch.float32), got[k:]
+
+
+class _CudaArray:
+    """A raw device pointer as a 1-D array PyTorch can view
+    (``__cuda_array_interface__``; no copy, no ownership)."""
+
+    def __init__(self, ptr: int, n: int, typestr: str):
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": typestr,
+                                         "data": (ptr, False), "strides": None,
+                                         "version": 2}
+
+
+class IpcWindow:
+    """This rank's two receive slots of k-row windows, ``cudaMalloc``'d in
+    the ring-hop library and exported by CUDA IPC, and the right
+    neighbour's two slots mapped here. Made once per (card, k) by every rank
+    together (the handles cross over gloo); kept for the process's life.
+    A failed allocation, export or open raises, naming the cause."""
+
+    def __init__(self, dev: torch.device, k: int):
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        lib = kernels.load("ring_hop")
+        self.vals_bytes = -(-4 * k // 256) * 256
+        self.slot_bytes = 2 * self.vals_bytes
+        size = lib.ring_hop_ipc_handle_size()
+        handle = ctypes.create_string_buffer(size)
+        base = ctypes.c_void_p()
+        err = lib.ring_hop_ipc_alloc(dev.index, 2 * self.slot_bytes, ctypes.byref(base), handle)
+        if err != 0:
+            raise RuntimeError(f"ring hop: cudaMalloc or cudaIpcGetMemHandle of the receive "
+                               f"window failed on {dev} (cudaError {err})")
+        self.local_base = base.value
+        mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
+        handles = multihost.all_gather(mine)
+        right = (multihost.process_index() + 1) % multihost.process_count()
+        theirs = ctypes.create_string_buffer(bytes(handles[right].numpy().tobytes()), size)
+        mapped = ctypes.c_void_p()
+        err = lib.ring_hop_ipc_open(dev.index, theirs, ctypes.byref(mapped))
+        if err != 0:
+            raise RuntimeError(
+                f"ring hop: cudaIpcOpenMemHandle of rank {right}'s receive window failed on "
+                f"{dev} (cudaError {err}): CUDA IPC needs the ranks to share an IPC namespace "
+                "(and, across cards, peer access); the ring does not fall back to gloo on the "
+                "card")
+        self.remote_base = mapped.value
+        # Views of this rank's own slots, read by the merges.
+        self._local = [(torch.as_tensor(_CudaArray(self._vals(self.local_base, j), k, "<f4"),
+                                        device=dev),
+                        torch.as_tensor(_CudaArray(self._idx(self.local_base, j), k, "<i4"),
+                                        device=dev)) for j in range(2)]
+
+    def _vals(self, base: int, slot: int) -> int:
+        return base + slot * self.slot_bytes
+
+    def _idx(self, base: int, slot: int) -> int:
+        return base + slot * self.slot_bytes + self.vals_bytes
+
+    def remote(self, slot: int) -> Tuple[int, int]:
+        """The right neighbour's slot as a ``(values, indices)`` pointer pair."""
+        return self._vals(self.remote_base, slot), self._idx(self.remote_base, slot)
+
+    def local(self, slot: int) -> Window:
+        """This rank's slot as tensors (views of the shared window)."""
+        return self._local[slot]
+
+
+_ipc_windows: Dict[Tuple[int, int], IpcWindow] = {}
+
+
+def ipc_window(dev: torch.device, k: int) -> IpcWindow:
+    """The :class:`IpcWindow` of (``dev``, ``k``), made on first use
+    (COLLECTIVE then: every rank asks at the same point)."""
+    key = (dev.index, k)
+    if key not in _ipc_windows:
+        _ipc_windows[key] = IpcWindow(dev, k)
+    return _ipc_windows[key]
+
+
+def _ring_topk_processes(windows: Sequence[Window], k: int, procs: int, plain: bool,
+                         received: Optional[list]) -> List[Window]:
+    """:func:`ring_topk` over ``procs`` processes, ``windows`` this rank's
+    shards' (the same count on every rank). Within a rank a window moves to
+    the next local shard; the last local shard's goes to the next rank's
+    first, by K4 through the IPC window on the card (one launch a step for
+    every window the rank sends) or by the gloo hop on the CPU or with
+    ``plain``. Every rank returns the same merged windows."""
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    if multihost.process_count() != procs:
+        raise ValueError(f"a ring over {procs} processes in a job of "
+                         f"{multihost.process_count()}")
+    n_local = len(windows)
+    dev = windows[0][0].device
+    on_card = dev.type == "cuda" and not plain
+    win = ipc_window(dev, k) if on_card else None
+    acc = list(windows)
+    cur = [(v.contiguous(), i.contiguous()) for v, i in windows]
+    bufs = [tuple((torch.empty(k, dtype=torch.float32, device=dev),
+                   torch.empty(k, dtype=torch.int32, device=dev)) for _ in range(n_local))
+            for _ in range(2)]
+    for step in range(n_local * procs - 1):
+        slot = step % 2
+        nxt = [None] + list(bufs[slot][1:])
+        if on_card:
+            stream = torch.cuda.current_stream(dev)
+            stream.synchronize()
+            multihost.barrier()  # every receiving slot of this step is free
+            _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in cur],
+                         [(v.data_ptr(), i.data_ptr()) for v, i in nxt[1:]] + [win.remote(slot)])
+            stream.synchronize()
+            multihost.barrier()  # every window of this step has landed
+            nxt[0] = win.local(slot)
+        else:
+            ring_step_plain(cur[:-1], nxt[1:])
+            nxt[0] = hop_processes_plain(*cur[-1], tag=step)
+        if received is not None:
+            received.append((nxt[0][0].clone(), nxt[0][1].clone()))
+        for s in range(n_local):
             acc[s] = merge_windows(*acc[s], *nxt[s], k)
         cur = nxt
     return acc

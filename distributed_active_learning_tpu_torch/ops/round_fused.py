@@ -349,12 +349,12 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     kk = min(k, n_local)
     table = score_table(f.n_trees, strategy_name, f.mesh.first)
     windows = []
-    for s, votes in enumerate(blocks):
+    for s, votes in zip(sel.local_ids, blocks):
         work = torch.where(sel.block(s), table.to(votes.device)[votes.long()], NEG_INF)
         loc_v, loc_i = stable_top_k(work, kk)
         glob_i = (loc_i + s * n_local).to(torch.int32)
         windows.append(ring_topk.pad_window(loc_v, glob_i, k))
-    return ring_topk.ring_topk(windows, k)[0]
+    return ring_topk.ring_topk(windows, k, procs=f.mesh.n_procs)[0]
 
 
 def fused_score_select(

@@ -420,17 +420,33 @@ def gather_fit_window(
 def gather_fit_window_sharded(codes, y, masks, budget: int):
     """:func:`gather_fit_window` over a row-sharded pool: ``codes`` and
     ``y`` are ``Sharded``, ``masks`` each data shard's rows that enter the
-    fit (labeled and real) on its device. Each shard places its rows at
-    their global window slots (a cumulative count offset by the earlier
-    shards' counts, added in shard order) and the blocks are joined on the
-    mesh's first device; slots no row fills read global row 0 at weight 0.
-    The window equals the single-device window bit for bit, and nothing is
-    read back to the host, so a CUDA graph can capture it."""
+    fit (labeled and real) on its device, for the shards held here. Each
+    shard places its rows at their global window slots (a cumulative count
+    offset by the earlier shards' counts, added in shard order) and the
+    blocks are joined on the mesh's first device; slots no row fills read
+    global row 0 at weight 0. The window equals the single-device window bit
+    for bit, and nothing is read back to the host, so a CUDA graph can
+    capture it.
+
+    Over processes (``codes.spans_processes``) each rank's offset starts at
+    the earlier ranks' counts (one all-gather of the per-shard counts), each
+    rank fills the slots of its own rows, and the ranks' windows are
+    all-gathered and overlaid in rank order on rank 0's, whose unfilled
+    slots read global row 0: every rank gets the same window, in global
+    index order, so every rank fits the same forest. COLLECTIVE."""
     dev = codes.device
-    c = codes.block(0)[:1].to(dev).expand(budget, -1)
-    yy = y.block(0)[:1].to(dev).expand(budget)
+    c = codes.block(codes.first)[:1].to(dev).expand(budget, -1)
+    yy = y.block(y.first)[:1].to(dev).expand(budget)
     offset = torch.zeros((), dtype=torch.int64, device=dev)
-    for s, m in enumerate(masks):
+    counts = [m.sum(dtype=torch.int64).to(dev) for m in masks]
+    spans = codes.spans_processes
+    if spans:
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        every = torch.cat(multihost.all_gather(torch.stack(counts)))
+        offset = every[:codes.first].sum()
+        hit_any = torch.zeros(budget, dtype=torch.bool, device=dev)
+    for s, m, cnt in zip(codes.local_ids, masks, counts):
         cb, yb = codes.block(s), y.block(s)
         pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + offset.to(m.device)
         slot = torch.where(m & (pos < budget), pos, torch.full_like(pos, budget))
@@ -441,6 +457,16 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
         safe = torch.clamp_min(idx, 0)
         c = torch.where(hit[:, None], cb[safe].to(dev), c)
         yy = torch.where(hit, yb[safe].to(dev), yy)
-        offset = offset + m.sum(dtype=torch.int64).to(dev)
+        offset = offset + cnt
+        if spans:
+            hit_any = hit_any | hit
+    if spans:
+        offset = every.sum()
+        parts = zip(multihost.all_gather(c.contiguous()), multihost.all_gather(yy.contiguous()),
+                    multihost.all_gather(hit_any))
+        c, yy, _ = next(parts)
+        for cr, yr, hr in parts:
+            c = torch.where(hr[:, None], cr, c)
+            yy = torch.where(hr, yr, yy)
     sel = torch.arange(budget, device=dev) < offset
     return c, yy, sel.to(torch.float32)

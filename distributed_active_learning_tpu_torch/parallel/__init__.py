@@ -5,9 +5,11 @@ Axes, as in the JAX package:
   ``data``  — pool rows (the reference's RDD partitioning of the pool)
   ``model`` — the tree (ensemble) axis
 
-One process drives every shard of the mesh, as JAX's single controller does.
-``multihost.py`` (``torch.distributed`` across processes) and ``global_put``
-wait for the multi-process mesh (ROADMAP).
+One process drives every shard of the mesh, as JAX's single controller does,
+or, in a multi-process job (``multihost.py``: a gloo process group, the
+launch contract of the JAX package's env trio or ``torchrun``), each process
+drives its own rows of the global mesh and ``global_put`` places the same
+host value on every rank.
 """
 
 from distributed_active_learning_tpu_torch.parallel.mesh import (
@@ -19,6 +21,7 @@ from distributed_active_learning_tpu_torch.parallel.mesh import (
     constrain_forest,
     forest_tree_specs,
     gather,
+    global_put,
     make_mesh,
     mesh_of,
     shard_fill_watermark,
@@ -39,4 +42,12 @@ from distributed_active_learning_tpu_torch.parallel.collectives import (
     global_count,
     masked_mean,
     vector_accumulate,
+)
+from distributed_active_learning_tpu_torch.parallel.multihost import (
+    gather_scalar_gauges,
+    host_np,
+    is_primary,
+    maybe_initialize,
+    process_count,
+    process_index,
 )

@@ -8,7 +8,10 @@ and lets GSPMD partition the rest of the round. Here one process launches
 each shard's work on the shard's device (:func:`per_shard`), adds the
 shards of an axis in order (``collectives.vector_accumulate``) and joins the
 row blocks in shard order on the mesh's first device, where the round's
-global steps run (:func:`make_sharded_round_fn`).
+global steps run (:func:`make_sharded_round_fn`). Over several processes
+each runs its own shards only; the sums over ``data`` and the joins
+all-gather the other ranks' shards (``collectives``, ``multihost``), so
+every rank runs the round's global steps on the same values.
 """
 
 from __future__ import annotations
@@ -31,14 +34,20 @@ def per_shard(forest, x, fn: Callable):
         raise ValueError(
             f"x is sharded over {len(xs.blocks)} data shards, the forest over {len(forest.shards)}")
     grid = [[fn(f, xs.block(s, m)) for m, f in enumerate(row)]
-            for s, row in enumerate(forest.shards)]
+            for s, row in zip(xs.local_ids, forest.shards)]
     return grid, xs.n_rows
 
 
 def join_blocks(blocks, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     """Per-data-shard blocks joined in shard order on the mesh's first
-    device, cut to the logical ``n`` rows."""
-    return torch.cat([b.to(mesh.first) for b in blocks])[:n]
+    device, cut to the logical ``n`` rows (over processes, this rank's
+    blocks all-gathered with the others': COLLECTIVE)."""
+    local = torch.cat([b.to(mesh.first) for b in blocks])
+    if mesh.n_procs > 1:
+        from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
+
+        return gather_rows(local, n)
+    return local[:n]
 
 
 def join_leaf_grid(grid, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
@@ -98,9 +107,10 @@ def sharded_similarity_mass(mesh: mesh_lib.Mesh):
         xs = mesh_lib.shard_rows(x, mesh, replicate=True)
         ms = mesh_lib.shard_rows(count_mask, mesh)
         with similarity._ieee_f32():
-            xn = [similarity.l2_normalize(xs.block(s)) for s in range(len(xs.blocks))]
-            local = [torch.mv(b.T, ms.block(s).to(b.device, b.dtype)) for s, b in enumerate(xn)]
-            pooled = vector_accumulate(local)
+            xn = [similarity.l2_normalize(xs.block(s)) for s in xs.local_ids]
+            local = [torch.mv(b.T, ms.block(s).to(b.device, b.dtype))
+                     for s, b in zip(xs.local_ids, xn)]
+            pooled = vector_accumulate(local, across_processes=mesh.n_procs > 1)
             out = [torch.mv(b, pooled.to(b.device)) for b in xn]
         return join_blocks(out, mesh, xs.n_rows)
 
@@ -135,7 +145,7 @@ def make_sharded_round_fn(strategy, window_size: int, mesh: mesh_lib.Mesh,
 
     def sharded_round(forest, state, aux, *costs):
         x = state.x
-        if not isinstance(x, mesh_lib.Sharded) or len(x.blocks) != mesh.shape[mesh_lib.AXIS_DATA]:
+        if not isinstance(x, mesh_lib.Sharded) or len(x.blocks) != len(mesh.devices):
             raise ValueError(
                 f"the pool is not sharded over this mesh's {mesh.shape[mesh_lib.AXIS_DATA]} data "
                 "shards; place it with parallel.mesh.shard_pool_state"

@@ -14,16 +14,21 @@ free. That is how one card, or the CPU, runs a mesh; on distinct cards the
 same code moves real bytes. A forest fitted inside a chunk's round step
 is placed there by :func:`constrain_forest`, and wrapped for per-shard
 evaluation as a :class:`ShardedForest` (``ops.trees_pallas.attach_mesh``).
-``global_put`` waits for multi-process meshes, the last entry of ROADMAP
-queue 1 item 8.
+Over several processes (``parallel/multihost.py``) the mesh is the global
+one, filled row by row as JAX fills ``jax.devices()``: each process owns
+whole rows of the data axis (``Mesh.devices`` holds this process's rows,
+``Mesh.row0`` the first one's global index), a :class:`Sharded` holds only
+this process's blocks, and :func:`global_put` places the same logical host
+value on every rank by keeping the rank's own shards. A model axis across
+processes is refused by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch.ops.trees_train import to_device
@@ -34,22 +39,33 @@ AXIS_MODEL = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A ``[data][model]`` grid of devices."""
+    """A ``[data][model]`` grid of devices. Over several processes
+    (``n_procs > 1``) ``devices`` holds this process's rows of the global
+    grid, ``rank`` the process's index; each process owns as many rows."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
+    n_procs: int = 1
+    rank: int = 0
 
     @property
     def shape(self):
-        return {AXIS_DATA: len(self.devices), AXIS_MODEL: len(self.devices[0])}
+        return {AXIS_DATA: len(self.devices) * self.n_procs, AXIS_MODEL: len(self.devices[0])}
+
+    @property
+    def row0(self) -> int:
+        """The global data index of this process's first row."""
+        return self.rank * len(self.devices)
 
     @property
     def first(self) -> torch.device:
-        """The mesh's first device, where global results are gathered."""
+        """This process's first device, where global results are gathered
+        (on every process of a multi-process mesh)."""
         return self.devices[0][0]
 
     @property
     def ring(self) -> Tuple[torch.device, ...]:
-        """The data ring: model column 0's device of every data shard."""
+        """This process's part of the data ring: model column 0's device of
+        each of its data shards."""
         return tuple(row[0] for row in self.devices)
 
 
@@ -68,47 +84,55 @@ def make_mesh(
     repeat a card; on distinct cards, peer access is enabled from each ring
     shard to its right neighbour (the ring hop writes there) and its absence
     raises.
+
+    In a multi-process job (``parallel.multihost``: joined here if the
+    launch asks for one) the mesh spans the processes: each owns ``data /
+    processes`` whole rows, every shard of them on the rank's own card
+    (``multihost.local_device_index``) or on ``devices``, which then lists
+    this process's devices. ``data`` defaults to one row a process. A mesh
+    whose model axis (or one data row) would span processes is refused by
+    name.
     """
-    refuse_multi_process()
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    multihost.maybe_initialize()
+    n_procs = multihost.process_count()
     kind = torch.device(device).type
+    if n_procs > 1:
+        data = n_procs if data is None else data
+        if data % n_procs:
+            raise NotImplementedError(
+                f"mesh {data}x{model} over {n_procs} processes: each process owns whole rows "
+                "of the data axis, and a model axis (or a data row) across processes is the "
+                "remaining entry of ROADMAP queue 1 item 8 (\"Mesh and pod\")")
+    rows = None if data is None else data // n_procs  # this process's data rows
     if devices is not None:
         devs = [_indexed(torch.device(d)) for d in devices]
     elif kind == "cpu":
-        devs = [torch.device("cpu")] * ((data or 1) * model)
+        devs = [torch.device("cpu")] * ((rows or 1) * model)
+    elif kind == "cuda" and n_procs > 1:
+        devs = [torch.device("cuda", multihost.local_device_index())] * (rows * model)
     elif kind == "cuda":
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
-    if data is None:
+    if rows is None:
         if len(devs) % model:
             raise ValueError(f"{len(devs)} devices not divisible by model={model}")
-        data = len(devs) // model
-    if data < 1 or model < 1:
+        rows = data = len(devs) // model
+    if rows < 1 or model < 1:
         raise ValueError(f"mesh {data}x{model} needs positive axes")
-    if data * model > len(devs):
+    if rows * model > len(devs):
         raise ValueError(f"mesh {data}x{model} exceeds {len(devs)} devices")
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"a mesh lies on one kind of device, got {devs}")
-    grid = tuple(tuple(devs[s * model:(s + 1) * model]) for s in range(data))
-    mesh = Mesh(grid)
+    grid = tuple(tuple(devs[s * model:(s + 1) * model]) for s in range(rows))
+    mesh = Mesh(grid, n_procs=n_procs, rank=multihost.process_index())
     if devs[0].type == "cuda":
         from distributed_active_learning_tpu_torch.ops import ring_topk
 
         ring_topk.enable_peer_access(mesh.ring)
     return mesh
-
-
-def refuse_multi_process() -> None:
-    """One process drives every shard here. A launch of several processes
-    (``WORLD_SIZE``, as ``torchrun`` sets it, or the JAX package's
-    ``JAX_NUM_PROCESSES``, above 1) asks for a multi-process mesh, which is
-    refused by name."""
-    for var in ("WORLD_SIZE", "JAX_NUM_PROCESSES"):
-        if int(os.environ.get(var, "1") or 1) > 1:
-            raise NotImplementedError(
-                f"a multi-process mesh ({var}={os.environ[var]}: torch.distributed across "
-                "processes) is the remaining entry of ROADMAP queue 1 item 8 (\"Mesh and "
-                "pod\"); one process drives every shard of a mesh")
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -120,14 +144,18 @@ def _indexed(d: torch.device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Sharded:
-    """A row-sharded array: ``blocks[s]`` holds data shard ``s``'s
+    """A row-sharded array: ``blocks[i]`` holds data shard ``first + i``'s
     contiguous row block, once per device it is placed on (one replica per
     model device for the pool's features, as ``P(data, None)`` replicates
     them; one for masks and labels). ``n_rows`` is the logical row count;
-    the last blocks may carry padding rows past it."""
+    the last blocks may carry padding rows past it. In one process
+    ``blocks`` are every shard's (``first`` 0); over several processes they
+    are this process's, and ``n_shards`` counts the global data axis."""
 
     blocks: Tuple[Tuple[torch.Tensor, ...], ...]
     n_rows: int
+    first: int = 0
+    n_shards: Optional[int] = None
 
     @property
     def shape(self):
@@ -141,19 +169,39 @@ class Sharded:
     def n_local(self) -> int:
         return self.blocks[0][0].shape[0]
 
+    @property
+    def local_ids(self) -> range:
+        """The global data indices of the blocks held here."""
+        return range(self.first, self.first + len(self.blocks))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.n_shards is not None and self.n_shards > len(self.blocks)
+
     def block(self, s: int, m: int = 0) -> torch.Tensor:
-        reps = self.blocks[s]
+        """Data shard ``s``'s block (a global index) on model device ``m``."""
+        reps = self.blocks[s - self.first]
         return reps[m] if len(reps) > 1 else reps[0]
 
+    def with_blocks(self, blocks) -> "Sharded":
+        """The same placement over new blocks (``blocks[i]`` for shard
+        ``first + i``)."""
+        return dataclasses.replace(self, blocks=tuple(tuple(reps) for reps in blocks))
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "Sharded":
-        return Sharded(tuple(tuple(fn(b) for b in reps) for reps in self.blocks), self.n_rows)
+        return self.with_blocks(tuple(fn(b) for b in reps) for reps in self.blocks)
 
     def gather(self) -> torch.Tensor:
         """The global array on the first device: blocks in shard order (the
-        all-gather GSPMD inserts where a global value is needed). Always a
-        fresh tensor."""
+        all-gather GSPMD inserts where a global value is needed; over
+        processes a gloo all-gather, COLLECTIVE). Always a fresh tensor."""
         dev = self.device
-        return torch.cat([reps[0].to(dev) for reps in self.blocks])[: self.n_rows]
+        local = torch.cat([reps[0].to(dev) for reps in self.blocks])
+        if self.spans_processes:
+            from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
+
+            return gather_rows(local, self.n_rows)
+        return local[: self.n_rows]
 
 
 def gather(a) -> torch.Tensor:
@@ -165,7 +213,8 @@ def shard_rows(a: torch.Tensor, mesh: Mesh, replicate: bool = False) -> Sharded:
     """Split ``a``'s rows into ``data`` contiguous blocks, padding the end
     with zeros (False for masks) to a multiple of the axis. Block ``s`` lies
     on ``mesh.devices[s][0]``, or on every device of row ``s`` with
-    ``replicate``."""
+    ``replicate``. Over several processes ``a`` is the same logical value
+    on every rank, and each keeps its own rows' blocks (:func:`global_put`)."""
     if isinstance(a, Sharded):
         return a
     n = a.shape[0]
@@ -175,16 +224,46 @@ def shard_rows(a: torch.Tensor, mesh: Mesh, replicate: bool = False) -> Sharded:
         a = torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
     n_local = a.shape[0] // n_data
     blocks = []
-    for s, row in enumerate(mesh.devices):
+    for i, row in enumerate(mesh.devices):
+        s = mesh.row0 + i
         blk = a[s * n_local:(s + 1) * n_local]
         devs = row if replicate else row[:1]
         blocks.append(tuple(blk.to(d) for d in devs))
+    if mesh.n_procs > 1:
+        return Sharded(tuple(blocks), n, first=mesh.row0, n_shards=n_data)
     return Sharded(tuple(blocks), n)
+
+
+#: The placements :func:`global_put` takes, named after the JAX package's
+#: specs: ``pool`` is ``P(data, None)`` (rows over data, each block on
+#: every device of its row), ``mask`` is ``P(data)`` (each block on its
+#: row's first device), ``replicated`` is ``P()``.
+SPECS = ("pool", "mask", "replicated")
+
+
+def global_put(a, mesh: Mesh, spec: str):
+    """Place the host (or device) value ``a`` on ``mesh`` with ``spec`` (one
+    of :data:`SPECS`), for a mesh over processes too: every rank holds the
+    same logical value (the multi-controller model) and materialises only
+    its own shards (the JAX package's ``make_array_from_callback``); a
+    replicated value lies on this rank's first device. A PRNG key rides as
+    its key data (the port's keys are their two uint32 words), so it is
+    placed as any other tensor."""
+    if spec not in SPECS:
+        raise ValueError(f"unknown placement {spec!r}; one of {SPECS}")
+    if isinstance(a, Sharded):
+        return a
+    t = torch.as_tensor(np.asarray(a)) if not torch.is_tensor(a) else a
+    if spec == "replicated":
+        return t.to(mesh.first)
+    return shard_rows(t, mesh, replicate=spec == "pool")
 
 
 def mesh_of(x: Sharded) -> Mesh:
     """The mesh a pool's features lie on (one replica a model device)."""
-    return Mesh(tuple(tuple(b.device for b in reps) for reps in x.blocks))
+    rows = len(x.blocks)
+    return Mesh(tuple(tuple(b.device for b in reps) for reps in x.blocks),
+                n_procs=(x.n_shards or rows) // rows, rank=x.first // rows)
 
 
 def shard_fill_watermark(n_filled, n_pool: int, n_shards: int) -> torch.Tensor:

@@ -342,15 +342,28 @@ def main(argv=None) -> int:
         if args.strategy not in available_strategies() and is_deep_strategy(args.strategy):
             ap.error(f"{args.strategy!r} is a deep strategy; spell it "
                      f"'deep.{args.strategy}' (or pass --neural)")
+    # Join a multi-process job before any device use, iff the launch asks
+    # for one (the env trio or torchrun's WORLD_SIZE; parallel/multihost.py):
+    # after the argument checks, so a bad command line never waits at the
+    # process group's rendezvous. JAX_NUM_PROCESSES=1 opts a worker out.
+    from distributed_active_learning_tpu_torch.parallel import multihost
+
+    multihost.maybe_initialize()
     if args.flight_recorder:
         telemetry.install_flight_recorder(args.flight_recorder)
     ops_server = None
     if args.ops_port:
-        from distributed_active_learning_tpu_torch.runtime.obs import OpsServer
+        # The primary binds; every rank of a multi-process job runs this
+        # main(), and N ranks binding one port would collide.
+        if multihost.is_primary():
+            from distributed_active_learning_tpu_torch.runtime.obs import OpsServer
 
-        ops_server = OpsServer(port=args.ops_port).start()
-        print(f"# ops plane: http://127.0.0.1:{ops_server.port}/metrics (/healthz /varz /flightz)",
-              file=sys.stderr, flush=True)
+            ops_server = OpsServer(port=args.ops_port).start()
+            print(f"# ops plane: http://127.0.0.1:{ops_server.port}/metrics "
+                  "(/healthz /varz /flightz)", file=sys.stderr, flush=True)
+        else:
+            print(f"# ops plane: skipped on host {multihost.process_index()} "
+                  "(primary host binds --ops-port)", file=sys.stderr, flush=True)
 
     cfg = ExperimentConfig(
         data=DataConfig(name=grid_datasets[0] if grid_datasets else args.dataset,

@@ -38,6 +38,10 @@ A neural experiment's file (:func:`save_neural`) adds the loop key, the
 network's parameters and its adam state in flax's leaf order and layouts,
 as the JAX package writes them.
 
+In a multi-process job (``parallel/multihost.py``) every save gathers its
+payload on every rank, a collective, and only the primary writes; the other
+ranks return None, as the JAX package's do.
+
 The serve half (``serving/``): one ``servestate_<round>.npz`` series a
 single-tenant service, ``servestate_<tenant>_<round>.npz`` a tenant of a
 multi-tenant manager (:func:`save_serve`), holding the filled rows of the
@@ -61,6 +65,7 @@ import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch.parallel.mesh import gather
+from distributed_active_learning_tpu_torch.parallel.multihost import is_primary
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
 from distributed_active_learning_tpu_torch.runtime.state import PoolState
@@ -152,12 +157,16 @@ def _base_payload(state: PoolState, result: ExperimentResult, fingerprint: Optio
 
 
 def save(ckpt_dir: str, state: PoolState, result: ExperimentResult,
-         fingerprint: Optional[str] = None, kernel: Optional[str] = None) -> str:
+         fingerprint: Optional[str] = None, kernel: Optional[str] = None) -> Optional[str]:
     """Write the checkpoint of the state's current round; returns its path.
-    A write that fails raises."""
+    A write that fails raises. In a multi-process job the payload is
+    gathered on every rank (COLLECTIVE) and only the primary writes: the
+    other ranks return None."""
     from distributed_active_learning_tpu_torch.utils.io import atomic_savez
 
     payload = _base_payload(state, result, fingerprint, kernel)
+    if not is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     return atomic_savez(os.path.join(ckpt_dir, f"alstate_{int(state.round)}.npz"), **payload)
 
@@ -265,7 +274,7 @@ def grid_fingerprint(cfg, strategies, seeds, datasets, windows, scenarios=None) 
 
 
 def _save_batched(ckpt_dir: str, prefix: str, masks, keys, rounds, results, n_cols: int,
-                  fingerprint: Optional[str]) -> str:
+                  fingerprint: Optional[str]) -> Optional[str]:
     """One npz file covering every row (experiment or grid cell) of a batched
     launch, named after the largest round of its rows (a finished row's
     round freezes, so once every row has stopped later saves overwrite the
@@ -283,6 +292,8 @@ def _save_batched(ckpt_dir: str, prefix: str, masks, keys, rounds, results, n_co
     }
     if fingerprint is not None:
         payload["config_fingerprint"] = _as_bytes(fingerprint)
+    if not is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     return atomic_savez(os.path.join(ckpt_dir, f"{prefix}_{int(rounds_np.max())}.npz"), **payload)
 
@@ -326,7 +337,7 @@ def _restore_latest_batched(ckpt_dir: str, prefix: str, step_re, n_cols: int, n_
 
 
 def save_sweep(ckpt_dir: str, masks, keys, rounds, results, n_valid: int,
-               fingerprint: Optional[str] = None) -> str:
+               fingerprint: Optional[str] = None) -> Optional[str]:
     """One checkpoint of all E experiments of a sweep: ``masks [E, n]``,
     ``keys [E, 2]`` and ``rounds [E]`` are the dispatch-time snapshot of the
     sweep's carry (``runtime.loop.ckpt_snapshot``)."""
@@ -349,7 +360,7 @@ def restore_latest_sweep(ckpt_dir: str, n_valid: int, n_experiments: int,
 
 
 def save_grid(ckpt_dir: str, masks, keys, rounds, results, n_store: int,
-              fingerprint: Optional[str] = None) -> str:
+              fingerprint: Optional[str] = None) -> Optional[str]:
     """One checkpoint of every cell of a grid: ``masks [C, n]`` cut to
     ``n_store``, the common width of its datasets' pools."""
     return _save_batched(ckpt_dir, "gridstate", masks, keys, rounds, results, n_store,
@@ -375,7 +386,7 @@ def restore_latest_grid(ckpt_dir: str, n_store: int, n_cells: int,
 
 
 def save_neural(ckpt_dir: str, state: PoolState, result: ExperimentResult, net_state,
-                loop_key: torch.Tensor, fingerprint: Optional[str] = None) -> str:
+                loop_key: torch.Tensor, fingerprint: Optional[str] = None) -> Optional[str]:
     """A neural experiment's checkpoint: the base fields plus the loop's key
     (``loop_key``), the network's step (``net_step``), its parameters
     (``net_param_<i>``) and its adam state (``net_opt_<i>``: the count, then
@@ -401,6 +412,8 @@ def save_neural(ckpt_dir: str, state: PoolState, result: ExperimentResult, net_s
               + [flax_np(k, opt.mu[k]) for k in names] + [flax_np(k, opt.nu[k]) for k in names])
     for i, leaf in enumerate(leaves):
         payload[f"net_opt_{i}"] = leaf
+    if not is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     return atomic_savez(os.path.join(ckpt_dir, f"alstate_{int(state.round)}.npz"), **payload)
 
@@ -547,7 +560,7 @@ def _leaf_np(t: torch.Tensor) -> np.ndarray:
 
 def save_serve(ckpt_dir: str, state: PoolState, forest, result: ExperimentResult,
                fingerprint: Optional[str] = None, tenant: Optional[str] = None,
-               edges=None, edges_epoch: Optional[int] = None) -> str:
+               edges=None, edges_epoch: Optional[int] = None) -> Optional[str]:
     """Streaming-service checkpoint: the slab's filled rows, mask, watermark,
     key, round, records and the resident forest (``state`` is the slab's
     ``PoolState`` view, ``n_filled`` set). The pool's features are stored:
@@ -597,6 +610,8 @@ def save_serve(ckpt_dir: str, state: PoolState, forest, result: ExperimentResult
         payload["config_fingerprint"] = _as_bytes(fingerprint)
     if tenant is not None:
         payload["tenant_id"] = _as_bytes(tenant)
+    if not is_primary():
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     return atomic_savez(os.path.join(ckpt_dir, _serve_stem(int(state.round), tenant)), **payload)
 

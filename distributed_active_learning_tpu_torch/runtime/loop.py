@@ -429,7 +429,7 @@ def _device_fit_core(cfg: ExperimentConfig, budget: int, n_classes: int):
     def fit_body(codes, edges, state: state_lib.PoolState, key: prng.Key):
         if isinstance(codes, Sharded):
             lab = state.labeled_mask
-            masks = [lab.block(s) & v for s, v in enumerate(state_lib.valid_blocks(state))]
+            masks = [lab.block(s) & v for s, v in zip(lab.local_ids, state_lib.valid_blocks(state))]
             c, yy, w = trees_train.gather_fit_window_sharded(codes, state.oracle_y, masks, budget)
         else:
             mask = state.labeled_mask & state.valid_mask
@@ -764,6 +764,15 @@ def _leaf_ptrs(tree) -> tuple:
     return tuple(ptrs)
 
 
+def _sharded_leaves(tree) -> list:
+    """The row-sharded arrays in ``tree`` (a list, a carry's fields)."""
+    if isinstance(tree, Sharded):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [a for t in tree for a in _sharded_leaves(t)]
+    return []
+
+
 def _devices_of(tree) -> set:
     devs = set()
     _map_leaves(lambda t: devs.add(t.device) if torch.is_tensor(t) else None, tree)
@@ -909,10 +918,11 @@ class GraphedChunk:
     A device mesh on one card (every shard on it) is captured like a single
     device: the row-sharded carry's blocks are its buffers. A mesh over
     distinct cards is not captured: its step joins the cards' streams where
-    blocks cross cards, and one graph records one card's stream, so each
-    call runs the eager chunk, K steps, and ``stats()["mode"]`` says
-    ``"eager"`` and why (``"graph"`` otherwise). Nothing falls back
-    silently.
+    blocks cross cards, and one graph records one card's stream; nor is a
+    mesh over processes, whose step all-gathers over gloo and hops the
+    ring through CUDA IPC between synchronisations. Each call then runs the
+    eager chunk, K steps, and ``stats()["mode"]`` says ``"eager"`` and why
+    (``"graph"`` otherwise). Nothing falls back silently.
     """
 
     def __init__(self, chunk_fn, input_args=(6,), carry_fields=CARRY_FIELDS):
@@ -926,7 +936,7 @@ class GraphedChunk:
         self.pool_bytes = 0  # device memory the graph's private pool reserved
         self.capture_seconds = 0.0
         self.launches_per_replay: dict = {}
-        self.mode = None  # "graph", or "eager" for a mesh over distinct cards
+        self.mode = None  # "graph", or "eager" for a mesh over cards or processes
         self.mode_reason = ""
 
     def _consts(self, args) -> dict:
@@ -939,7 +949,13 @@ class GraphedChunk:
         placed = [getattr(carry, f) for f in self._carry_fields]
         placed += [a for a in args if isinstance(a, Sharded) or torch.is_tensor(a)]
         cards = sorted({d for d in _devices_of(placed) if d.type == "cuda"}, key=str)
-        if len(cards) > 1:
+        if any(a.spans_processes for a in _sharded_leaves(placed)):
+            from distributed_active_learning_tpu_torch.parallel.multihost import process_count
+
+            self.mode = "eager"
+            self.mode_reason = (f"the mesh spans {process_count()} processes; no capture "
+                                "spans processes")
+        elif len(cards) > 1:
             self.mode = "eager"
             self.mode_reason = (f"the mesh spans {len(cards)} cards "
                                 f"({', '.join(map(str, cards))}); one graph records one card")
@@ -1201,9 +1217,12 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
 
 def _labeled_subset(state: state_lib.PoolState, host_x: np.ndarray, host_y: np.ndarray):
     """The labeled rows of the host-side pool arrays, for the host fit: only
-    the mask crosses from the device (on a mesh, joined from its shards and
-    cut to the real rows)."""
-    mask = state_lib.global_labeled_mask(state).cpu().numpy()
+    the mask crosses from the device (on a mesh, joined from its shards, over
+    processes too, and cut to the real rows), so every rank fits the same
+    rows in global row order."""
+    from distributed_active_learning_tpu_torch.parallel.multihost import host_np
+
+    mask = host_np(state.labeled_mask)[: state.n_valid]
     return host_x[mask], host_y[mask]
 
 
@@ -1334,10 +1353,10 @@ def run_experiment(
         # first device and is sharded by trees (every form: the leaf kernel
         # or the plain gemm and gather forms run per shard).
         from distributed_active_learning_tpu_torch.parallel import (
+            global_put,
             make_mesh,
             make_sharded_round_fn,
             shard_pool_state,
-            shard_rows,
         )
 
         if cfg.forest.n_trees % cfg.mesh.model:
@@ -1351,12 +1370,12 @@ def run_experiment(
         state = state_lib.pad_for_sharding(state, cfg.mesh.data)
         state = shard_pool_state(state, mesh)
         if codes is not None:
-            codes = shard_rows(codes, mesh)  # zero codes for the padding rows
-            edges = edges.to(mesh.first)
-        test_x = shard_rows(test_x, mesh, replicate=True)
-        test_y = test_y.to(mesh.first)
+            codes = global_put(codes, mesh, "mask")  # zero codes for the padding rows
+            edges = global_put(edges, mesh, "replicated")
+        test_x = global_put(test_x, mesh, "pool")
+        test_y = global_put(test_y, mesh, "replicated")
         if costs is not None:
-            costs = costs.to(mesh.first)
+            costs = global_put(costs, mesh, "replicated")
         round_fn = make_sharded_round_fn(
             strategy, cfg.strategy.window_size, mesh, with_metrics=want_metrics,
             n_classes=n_classes, fused=cfg.fused_round, scenario=scn)
@@ -1367,11 +1386,13 @@ def run_experiment(
 
     aux = build_aux(cfg, state)
     if metrics is not None:
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
         metrics.meta(
             config=dataclasses.asdict(cfg),
             backend=dev.type,
             n_devices=torch.cuda.device_count() if dev.type == "cuda" else 1,
-            process_count=1,
+            **multihost.run_meta(),
         )
     result = ExperimentResult()
     start_round = state.round
@@ -1398,6 +1419,8 @@ def run_experiment(
         fit_budget = _resolve_fit_budget(cfg, state.n_valid, int(state_lib.labeled_count(state)))
         device_fit = make_device_fit(cfg, edges, fit_budget, n_classes)
     fit_key = prng.key(cfg.seed + 0x5EED)
+    if mesh is not None:
+        fit_key = global_put(fit_key, mesh, "replicated")
     sync_devs = {d for row in mesh.devices for d in row} if mesh else {dev}
 
     def sync():  # keep phase timings honest

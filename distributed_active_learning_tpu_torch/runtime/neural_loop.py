@@ -167,8 +167,11 @@ def _place_on_mesh(cfg: MeshConfig, state: state_lib.PoolState, pool_x: torch.Te
     padding rows labeled, zero images), shard the state's rows and the
     images over ``data`` (``parallel.mesh.shard_pool_state``,
     ``shard_rows``). The network, the test arrays and the loop key stay on
-    the mesh's first device, which must be the learner's. Returns ``(mesh,
-    state, pool_x)``."""
+    the mesh's first device, which must be the learner's. Over processes
+    (``parallel.multihost``) each rank keeps its own rows
+    (``parallel.mesh.global_put``), its first device is the rank's card, and
+    the network, the test arrays and the key are replicated on every rank.
+    Returns ``(mesh, state, pool_x)``."""
     from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
 
     _refuse_mesh(cfg)
@@ -181,7 +184,7 @@ def _place_on_mesh(cfg: MeshConfig, state: state_lib.PoolState, pool_x: torch.Te
     pad = state.n_pool - pool_x.shape[0]
     if pad:
         pool_x = torch.cat([pool_x, pool_x.new_zeros((pad, *pool_x.shape[1:]))])
-    return mesh, state, mesh_lib.shard_rows(pool_x, mesh)
+    return mesh, state, mesh_lib.global_put(pool_x, mesh, "pool")
 
 
 def _global_view(st: state_lib.PoolState):
@@ -513,8 +516,10 @@ def run_neural_experiment(cfg: NeuralExperimentConfig, learner: NeuralLearner, t
         _, state, pool_x = _place_on_mesh(cfg.mesh, state, pool_x, devices, dev)
 
     if metrics is not None:
+        from distributed_active_learning_tpu_torch.parallel.multihost import run_meta
+
         metrics.meta(config=dataclasses.asdict(cfg), loop="neural", backend=dev.type,
-                     n_devices=cfg.mesh.data if _sharded(cfg.mesh) else 1, process_count=1)
+                     n_devices=cfg.mesh.data if _sharded(cfg.mesh) else 1, **run_meta())
     n_pool = state.n_valid  # real rows; mesh padding is never selectable
     use_chunked = cfg.rounds_per_launch > 1 and not dbg.phase_detail
     if use_chunked:
@@ -742,8 +747,10 @@ def run_neural_sweep(cfg: NeuralExperimentConfig, learner: NeuralLearner, train_
     label_cap = n if cfg.label_budget is None else min(cfg.label_budget, n)
     init_nets = tuple(learner.init(prng.key(s + 2)) for s in seeds)
     if metrics is not None:
+        from distributed_active_learning_tpu_torch.parallel.multihost import run_meta
+
         metrics.meta(config=dataclasses.asdict(cfg), loop="neural_sweep", backend=dev.type,
-                     n_devices=1, process_count=1, sweep_seeds=seeds)
+                     n_devices=1, **run_meta(), sweep_seeds=seeds)
     want_metrics = metrics is not None
     body = make_neural_sweep_chunk_fn(learner, strat, window, K, label_cap, E,
                                       retrain_from_scratch=cfg.retrain_from_scratch,

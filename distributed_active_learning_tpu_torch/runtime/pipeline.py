@@ -96,7 +96,7 @@ def _map_leaves(fn, tree):
     from distributed_active_learning_tpu_torch.parallel.mesh import Sharded
 
     if isinstance(tree, Sharded):  # a row-sharded array: every block, in order
-        return Sharded(tuple(tuple(fn(b) for b in reps) for reps in tree.blocks), tree.n_rows)
+        return tree.map(fn)
     if isinstance(tree, dict):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):

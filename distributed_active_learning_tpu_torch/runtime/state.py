@@ -91,8 +91,7 @@ class PoolState:
             m = self.labeled_mask
             if self.n_filled is None:
                 return m.map(torch.logical_not)
-            return Sharded(tuple((~m.block(s) & _block_fill(self, s),)
-                                 for s in range(len(m.blocks))), m.n_rows)
+            return m.with_blocks((~m.block(s) & _block_fill(self, s),) for s in m.local_ids)
         if self.n_filled is not None:
             return ~self.labeled_mask & self.fill_mask
         return ~self.labeled_mask
@@ -116,7 +115,7 @@ def valid_blocks(state: PoolState) -> list:
     mask = state.labeled_mask
     n_local = mask.n_local
     return [(torch.arange(s * n_local, (s + 1) * n_local, device=mask.block(s).device)
-             < state.n_valid) & _block_fill(state, s) for s in range(len(mask.blocks))]
+             < state.n_valid) & _block_fill(state, s) for s in mask.local_ids]
 
 
 def labeled_count(state: PoolState) -> torch.Tensor:
@@ -124,7 +123,8 @@ def labeled_count(state: PoolState) -> torch.Tensor:
     labeled and not counted; on a mesh, one count per shard is added up)."""
     mask = state.labeled_mask
     if isinstance(mask, Sharded):
-        return global_count([mask.block(s) & v for s, v in enumerate(valid_blocks(state))])
+        return global_count([mask.block(s) & v for s, v in zip(mask.local_ids, valid_blocks(state))],
+                            across_processes=mask.spans_processes)
     if state.n_filled is None and state.n_valid == state.n_pool:
         return mask.sum(dtype=torch.int32)
     return (mask & state.valid_mask).sum(dtype=torch.int32)
@@ -213,8 +213,8 @@ def reveal(state: PoolState, picked_idx: torch.Tensor) -> PoolState:
     mask = state.labeled_mask
     if isinstance(mask, Sharded):
         n_local = mask.n_local
-        new = Sharded(tuple((_reveal_rows(mask.block(s), picked_idx, s * n_local),)
-                            for s in range(len(mask.blocks))), mask.n_rows)
+        new = mask.with_blocks((_reveal_rows(mask.block(s), picked_idx, s * n_local),)
+                               for s in mask.local_ids)
     else:
         new = _reveal_rows(mask, picked_idx)
     return state.replace(labeled_mask=new, round=state.round + 1)
@@ -243,8 +243,8 @@ def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor
     mask = state.labeled_mask
     if isinstance(mask, Sharded):
         n_local = mask.n_local
-        new = Sharded(tuple((reveal_masked_local(mask.block(s), picked_idx, keep, s, n_local),)
-                            for s in range(len(mask.blocks))), mask.n_rows)
+        new = mask.with_blocks((reveal_masked_local(mask.block(s), picked_idx, keep, s, n_local),)
+                               for s in mask.local_ids)
     else:
         new = _reveal_rows(mask, torch.where(keep, picked_idx.to(torch.int64), -1))
     return state.replace(labeled_mask=new, round=state.round + 1)
@@ -282,8 +282,8 @@ def select_state(active: torch.Tensor, new: PoolState, old: PoolState) -> PoolSt
     mask is selected block by block."""
     if isinstance(old.labeled_mask, Sharded):
         a, b = new.labeled_mask, old.labeled_mask
-        mask = Sharded(tuple(tuple(torch.where(active.to(y.device), x, y) for x, y in zip(ra, rb))
-                             for ra, rb in zip(a.blocks, b.blocks)), b.n_rows)
+        mask = b.with_blocks(tuple(torch.where(active.to(y.device), x, y) for x, y in zip(ra, rb))
+                             for ra, rb in zip(a.blocks, b.blocks))
     else:
         mask = torch.where(active, new.labeled_mask, old.labeled_mask)
     return old.replace(

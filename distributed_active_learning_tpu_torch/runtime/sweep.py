@@ -85,7 +85,11 @@ from distributed_active_learning_tpu_torch import prng
 from distributed_active_learning_tpu_torch.config import ExperimentConfig
 from distributed_active_learning_tpu_torch.device import resolve_device
 from distributed_active_learning_tpu_torch.ops import forest_eval
-from distributed_active_learning_tpu_torch.parallel.mesh import gather, shard_fill_watermark, shard_rows
+from distributed_active_learning_tpu_torch.parallel.mesh import (
+    gather,
+    global_put,
+    shard_fill_watermark,
+)
 from distributed_active_learning_tpu_torch.runtime import obs
 from distributed_active_learning_tpu_torch.runtime import state as state_lib
 from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
@@ -122,7 +126,7 @@ def _shard_masks(masks: torch.Tensor, mesh, n_rows: int) -> tuple:
     """``[E, n]`` masks padded with labeled rows to ``n_rows`` and placed on
     ``mesh``, one row-sharded mask an experiment."""
     masks = torch.nn.functional.pad(masks, (0, n_rows - masks.shape[1]), value=True)
-    return tuple(shard_rows(m, mesh) for m in masks)
+    return tuple(global_put(m, mesh, "mask") for m in masks)
 
 
 def _grid_counts(mask: torch.Tensor, n_valids_cell: torch.Tensor) -> torch.Tensor:
@@ -259,7 +263,7 @@ def make_grid_chunk_fn(
         fills = [None] * D
         if use_fill:
             fills = [n_valids[d] if mesh is None else
-                     shard_fill_watermark(n_valids[d], xs[d].shape[0], len(xs[d].blocks))
+                     shard_fill_watermark(n_valids[d], xs[d].shape[0], mesh.shape["data"])
                      for d in range(D)]
         states = []
         for c in range(C):
@@ -356,8 +360,8 @@ def _sweep_mesh(cfg: ExperimentConfig, dev, devices):
 def _shard_pool_rows(a: torch.Tensor, mesh, n_rows: int, replicate: bool):
     """A pool array padded with zero rows to ``n_rows`` and sharded over the
     mesh's data axis (features and codes replicated over ``model``)."""
-    return shard_rows(torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (0, n_rows - a.shape[0])),
-                      mesh, replicate=replicate)
+    return global_put(torch.nn.functional.pad(a, (0, 0) * (a.ndim - 1) + (0, n_rows - a.shape[0])),
+                      mesh, "pool" if replicate else "mask")
 
 
 def _sweep_result_path(path: str, seed: int) -> str:
@@ -393,9 +397,11 @@ def _refuse_stream_events(cfg: ExperimentConfig, kind: str) -> None:
 
 def _meta(metrics, cfg, dev, **extra) -> None:
     if metrics is not None:
+        from distributed_active_learning_tpu_torch.parallel.multihost import run_meta
+
         metrics.meta(config=dataclasses.asdict(cfg), backend=dev.type,
                      n_devices=torch.cuda.device_count() if dev.type == "cuda" else 1,
-                     process_count=1, **extra)
+                     **run_meta(), **extra)
 
 
 def _append_rows(ys, results, n_pools, wall: float, want_metrics: bool, metrics, dbg,
@@ -606,7 +612,7 @@ def run_sweep(
         static_n_valid = n_pool if n_rows != n_pool else -1
         shared = tuple((_shard_pool_rows(a[0], mesh, n_rows, replicate=i != 2),)
                        for i, a in enumerate(shared))
-        test_x_d = (shard_rows(test_x, mesh, replicate=True),)
+        test_x_d = (global_put(test_x, mesh, "pool"),)
         masks0 = _shard_masks(masks0, mesh, n_rows)
         seed_masks = _shard_masks(seed_masks, mesh, n_rows)
     body = make_grid_chunk_fn([strategy], window_pad, K,
@@ -937,10 +943,10 @@ def run_grid(
         x, oracle_y, codes = torch.stack(xs), torch.stack(oys), torch.stack(codes_l)
         test_x = torch.stack(txs)
     else:  # each dataset's pool sharded over the mesh (already padded to n_slab)
-        x = tuple(shard_rows(a, mesh, replicate=True) for a in xs)
-        oracle_y = tuple(shard_rows(a, mesh) for a in oys)
-        codes = tuple(shard_rows(a, mesh, replicate=True) for a in codes_l)
-        test_x = tuple(shard_rows(a, mesh, replicate=True) for a in txs)
+        x = tuple(global_put(a, mesh, "pool") for a in xs)
+        oracle_y = tuple(global_put(a, mesh, "mask") for a in oys)
+        codes = tuple(global_put(a, mesh, "pool") for a in codes_l)
+        test_x = tuple(global_put(a, mesh, "pool") for a in txs)
     edges, test_y = torch.stack(edges_l), torch.stack(tys)
     del xs, oys, codes_l, edges_l, txs, tys
     n_valids = torch.as_tensor(n_valids_host, dtype=torch.int32).to(dev)

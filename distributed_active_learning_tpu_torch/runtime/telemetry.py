@@ -32,8 +32,9 @@ Four layers, as in the JAX module:
    SIGUSR1, SIGTERM, an unhandled crash or a normal exit (``run.py
    --flight-recorder``).
 
-The port runs one process, so the writer is rank 0 and its gauges are the
-process's own, as the JAX writer's are when ``process_count() == 1``.
+The writer's rank is the process index: in a multi-process job only rank 0
+writes, and ``gauges(allgather=True)`` gathers every rank's values first, as
+the JAX writer does.
 """
 
 from __future__ import annotations
@@ -369,9 +370,9 @@ def device_memory_gauges() -> Dict[str, int]:
 
 class MetricsWriter:
     """Rank-tagged JSONL event stream, one line per event: ``{"ts": <unix
-    s>, "kind": ..., "rank": <rank>, ...payload}``. The port runs one
-    process, rank 0 unless ``rank`` says otherwise; only rank 0 holds the
-    file (another rank counts and writes nothing).
+    s>, "kind": ..., "rank": <rank>, ...payload}``. ``rank`` defaults to the
+    process index (``parallel.multihost``); only rank 0 holds the file
+    (another rank counts and writes nothing).
 
     The file opens in APPEND mode: a checkpoint-resumed run with the same
     ``--metrics-out`` extends the interrupted run's stream; each run starts
@@ -386,7 +387,11 @@ class MetricsWriter:
 
     def __init__(self, path: str, rank: Optional[int] = None, flush_every: int = 1):
         self.path = path
-        self.rank = 0 if rank is None else int(rank)
+        if rank is None:
+            from distributed_active_learning_tpu_torch.parallel.multihost import process_index
+
+            rank = process_index()
+        self.rank = int(rank)
         self.flush_every = max(int(flush_every), 1)
         self._since_flush = 0
         self.counters: Dict[str, float] = {}
@@ -443,8 +448,17 @@ class MetricsWriter:
     def gauge(self, name: str, value) -> None:
         self.event("gauge", name=name, value=value)
 
-    def gauges(self, values: Dict[str, float]) -> None:
-        """Emit a dict of gauges."""
+    def gauges(self, values: Dict[str, float], allgather: bool = False) -> None:
+        """Emit a dict of gauges. With ``allgather=True`` in a multi-process
+        job the values are all-gathered first (COLLECTIVE: every rank calls
+        it), and the primary writes one event a gauge carrying the sum and
+        the per-rank vector (``per_host``); in one process, plain gauges."""
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        if allgather and multihost.process_count() > 1:
+            for name, vec in multihost.gather_scalar_gauges(values).items():
+                self.event("gauge", name=name, value=sum(vec), per_host=vec)
+            return
         for name, value in values.items():
             self.gauge(name, value)
 

@@ -14,6 +14,11 @@ time budget; the command above passes no ``-m`` and runs them all.
 """
 
 import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -1217,3 +1222,149 @@ def test_pod_ring_attention_and_neural_mesh_across_cards(cuda):
                                res["cpu"].final_labeled_mask), (strat, K)
             if K > 1:
                 assert res["cards"].graph_stats["mode"] == "eager"
+
+
+# -- the mesh over processes (parallel/multihost.py) --------------------------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_ranks(n, mode, tmp_path, local_ranks, timeout=600):
+    """This file's ``__main__`` as ``n`` ranks of a gloo job (the JAX
+    package's env trio, a ``file://`` rendezvous), rank ``r`` on
+    ``cuda:local_ranks[r]``; every rank's JSON result, in rank order. A rank
+    past ``timeout`` kills them all and fails."""
+    from distributed_active_learning_tpu_torch import kernels
+
+    kernels.build_all()  # once here, not once a rank
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"file://{tmp_path}/rendezvous",
+                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r), LOCAL_RANK=str(local_ranks[r]),
+                   PYTHONPATH=os.pathsep.join([_REPO, os.environ.get("PYTHONPATH", "")]))
+        logs.append(tmp_path / f"rank{r}.log")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), mode],
+                                          env=env, cwd=_REPO, stdout=log,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        failed = any(p.poll() not in (None, 0) for p in procs)
+        if failed or time.monotonic() > deadline:  # the others would wait in a collective
+            for p in procs:
+                p.kill()
+                p.wait()
+            if not failed:
+                pytest.fail(f"a rank of {n} hung past {timeout}s")
+            break
+        time.sleep(0.05)
+    got = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        out = log.read_text()
+        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+        got.append(json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith(f"RANK_OK {r} ")).split(" ", 2)[2]))
+    return got
+
+
+def _mp_forest_cfg(n, K):
+    from distributed_active_learning_tpu_torch import config
+
+    return config.ExperimentConfig(
+        data=config.DataConfig(name="checkerboard2x2", n_samples=301, seed=1),
+        forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
+        strategy=config.StrategyConfig(name="uncertainty", window_size=15),
+        mesh=config.MeshConfig(n, 2), n_start=10, max_rounds=3, fused_round=True,
+        rounds_per_launch=K)
+
+
+def _check_multi_process(cuda, tmp_path, n, local_ranks):
+    """K4 through CUDA IPC against the plain gloo hop, and the fused mesh run
+    (per round, and chunked at K = 2: eager) against the single-process
+    mesh run on the card."""
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    for r, g in enumerate(_run_ranks(n, "ring", tmp_path / "ring", local_ranks)):
+        assert g["ipc_equals_gloo"] and g["equals_single_process"], (r, g)
+        assert g["launches"] == n - 1, (r, g)  # one K4 a step the rank sends
+        assert g["device"] == f"cuda:{local_ranks[r]}", (r, g)
+    got = _run_ranks(n, "forest", tmp_path / "forest", local_ranks)
+    for K in (1, 2):
+        want = loop.run_experiment(_mp_forest_cfg(n, K), device=cuda, devices=[cuda] * (2 * n))
+        for r, g in enumerate(got):
+            assert g[f"records_{K}"] == [[x.round, x.n_labeled, x.accuracy] for x in want.records]
+            assert g[f"mask_{K}"] == torch.nonzero(want.final_labeled_mask).flatten().tolist()
+            steps = K * -(-3 // K)  # a chunk's inactive tail steps run too
+            assert g[f"launches_{K}"]["fused_votes"] == 2 * steps, (r, K, g)
+            assert g[f"launches_{K}"]["ring_hop"] == (n - 1) * steps, (r, K, g)
+        assert got[0]["mode_2"] == "eager" and "processes" in got[0]["mode_reason_2"]
+
+
+def test_multi_process_mesh_on_one_card(cuda, tmp_path):
+    """Two processes on one card, as a one-card machine has it: K4's
+    cross-process hop through CUDA IPC equals the plain gloo hop bit for
+    bit, and a short forest run over the 2 x 2 mesh of the two processes
+    equals the single-process run."""
+    _check_multi_process(cuda, tmp_path, 2, [0, 0])
+
+
+def test_multi_process_mesh_across_cards(cuda, tmp_path):
+    """Four processes on four cards (``LOCAL_RANK`` r on ``cuda:r``): the
+    IPC hop crosses cards with peer access, and the run equals the
+    single-process run."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one rank a card, the IPC hop crossing cards")
+    _check_multi_process(cuda, tmp_path, 4, [0, 1, 2, 3])
+
+
+def _rank_main(mode):
+    """One rank of :func:`_run_ranks`: prints ``RANK_OK <rank> {json}``."""
+    from distributed_active_learning_tpu_torch.device import resolve_device
+    from distributed_active_learning_tpu_torch.parallel import multihost
+    from distributed_active_learning_tpu_torch.runtime import loop
+
+    assert multihost.maybe_initialize()
+    rank, n = multihost.process_index(), multihost.process_count()
+    dev = resolve_device(None)
+    out = {"device": str(dev)}
+    if mode == "ring":
+        k, rows = 100, 3000
+        windows = []
+        for s in range(n):  # every rank's window, from one seed: rank s's on the card
+            rng = np.random.default_rng(100 + s)
+            v = torch.from_numpy(np.round(rng.normal(size=rows), 1).astype(np.float32))
+            top = torch.sort(v, descending=True, stable=True)
+            windows.append((top.values[:k].contiguous(),
+                            (top.indices[:k] + s * rows).to(torch.int32)))
+        mine = [(windows[rank][0].to(dev), windows[rank][1].to(dev))]
+        ring_topk.launches = 0
+        got_ipc, got_gloo = [], []
+        merged = ring_topk.ring_topk(mine, k, procs=n, received=got_ipc)[0]
+        out["launches"] = ring_topk.launches
+        plain = ring_topk.ring_topk(mine, k, procs=n, plain=True, received=got_gloo)[0]
+        out["ipc_equals_gloo"] = all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(got_ipc + [merged], got_gloo + [plain]))
+        want = ring_topk.ring_topk(windows, k)[0]  # one process, the CPU's copies
+        out["equals_single_process"] = (torch.equal(merged[0].cpu(), want[0])
+                                        and torch.equal(merged[1].cpu(), want[1]))
+    else:
+        for K in (1, 2):
+            for m in (trees_pallas, round_fused, ring_topk):
+                m.launches = 0
+            round_fused.votes_launches = 0
+            res = loop.run_experiment(_mp_forest_cfg(n, K), device=dev)
+            out[f"records_{K}"] = [[r.round, r.n_labeled, r.accuracy] for r in res.records]
+            out[f"mask_{K}"] = torch.nonzero(res.final_labeled_mask).flatten().tolist()
+            out[f"launches_{K}"] = {"forest_leaves": trees_pallas.launches,
+                                    "fused_votes": round_fused.votes_launches,
+                                    "ring_hop": ring_topk.launches}
+            if K > 1:
+                out["mode_2"] = res.graph_stats["mode"]
+                out["mode_reason_2"] = res.graph_stats["mode_reason"]
+    print(f"RANK_OK {rank} {json.dumps(out)}", flush=True)
+
+
+if __name__ == "__main__":
+    _rank_main(sys.argv[1])

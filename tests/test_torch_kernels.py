@@ -61,7 +61,7 @@ def _forest(n_trees, depth, seed, n_fit=400, d=5):
         c, yy, w, b.edges, jax.random.key(seed), n_trees=n_trees, max_depth=depth)
     gf = j_train.heap_gemm_forest(f, th, v, depth)
     arrays = [np.array(a) for a in (gf.feat_ids, gf.thresholds, gf.path, gf.target, gf.value)]
-    return gf, interop.gemm_forest_from_numpy(*arrays), rng
+    return gf, interop.gemm_forest_from_numpy(*arrays, device="cpu"), rng
 
 
 @pytest.mark.parametrize("cases", [
@@ -89,7 +89,8 @@ def _check_k1_plain_matches_pallas_interpret(n_trees, n):
     for mode in ("int8", "bf16"):
         qj = j_train.quantize_forest(gf, mode)
         qt = interop.gemm_forest_from_numpy(
-            *(np.asarray(a) for a in (qj.feat_ids, qj.thresholds, qj.path, qj.target, qj.value)))
+            *(np.asarray(a) for a in (qj.feat_ids, qj.thresholds, qj.path, qj.target, qj.value)),
+            device="cpu")
         assert qt.value.dtype == {"int8": torch.int8, "bf16": torch.bfloat16}[mode]
         want = np.asarray(j_pallas.predict_leaves_pallas(qj, jnp.asarray(x), interpret=True))
         got = t_pallas.predict_leaves_pallas(qt, torch.from_numpy(x))
@@ -285,7 +286,7 @@ def test_kernel_operands_reproduce_the_plain_version():
                 prep()
     swapped = interop.gemm_forest_from_numpy(
         tf8.feat_ids.numpy(), tf8.thresholds.numpy(), tf8.path.numpy()[:, :, [1, 0, *range(2, 256)]],
-        tf8.target.numpy(), tf8.value.numpy())
+        tf8.target.numpy(), tf8.value.numpy(), device="cpu")
     with pytest.raises(ValueError, match="not a complete heap|host fit"):
         t_pallas.heap_operands(swapped)
     x = torch.zeros(3, 5)

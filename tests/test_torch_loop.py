@@ -526,20 +526,40 @@ def test_port_runs_without_jax_in_a_fresh_interpreter():
 def test_unported_features_are_refused_by_name(tmp_path, capsys):
     _, base = _cfgs(False)
     mesh = t_config.MeshConfig(data=2)
-    # What item 8 has not carried yet is refused by name: multi-process
-    # meshes. The pod half of the slab pool is ported (its parity with the
-    # JAX package: tests/test_torch_serving.py) and exported as JAX exports
-    # it.
+    # A multi-process launch runs a mesh over processes (its parity with the
+    # JAX package's runs: tests/test_torch_mesh.py): here the CLI on 2 ranks
+    # over gloo, where the primary alone binds --ops-port. What item 8 has
+    # not carried is refused by name: a model axis across processes. The pod
+    # half of the slab pool is ported (its parity with the JAX package:
+    # tests/test_torch_serving.py) and exported as JAX exports it.
+    import socket
+
+    from tests.test_torch_mesh import spawn_ranks, wait_ranks
+
     from distributed_active_learning_tpu_torch import serving as t_serving
-    from distributed_active_learning_tpu_torch.parallel import mesh as t_mesh
     from distributed_active_learning_tpu_torch.serving import slab as t_slab_mod
 
     assert t_serving.RebalanceHysteresis is t_slab_mod.RebalanceHysteresis
     assert callable(t_slab_mod.shard_slab_pool) and t_slab_mod.MOVED_SENTINEL == -1
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="multi-process mesh .* item 8"):
-            t_mesh.make_mesh(2, 1, device="cpu")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        ops_port = sock.getsockname()[1]
+    cli = ["-m", "distributed_active_learning_tpu_torch.run", "--device", "cpu", "--dataset",
+           "checkerboard2x2", "--n-samples", "120", "--trees", "4", "--depth", "3", "--window",
+           "5", "--rounds", "2", "--seed", "3"]
+    jobs = {}
+    for name, extra in (("run", ["--mesh-data", "2", "--ops-port", str(ops_port)]),
+                        ("refused", ["--mesh-data", "1", "--mesh-model", "2"])):
+        (tmp_path / name).mkdir()
+        jobs[name] = spawn_ranks(2, cli + extra, tmp_path / name)
+    runs = wait_ranks(jobs["run"])
+    assert [rc for rc, _ in runs] == [0, 0], runs
+    logs = [[ln for ln in out.splitlines() if ln.startswith("Iteration")] for _, out in runs]
+    assert len(logs[0]) == 2 and logs[0] == logs[1], logs
+    assert "# ops plane: http://127.0.0.1:" in runs[0][1]
+    assert "# ops plane: skipped on host 1 (primary host binds --ops-port)" in runs[1][1]
+    for rc, out in wait_ranks(jobs["refused"]):
+        assert rc != 0 and "NotImplementedError" in out and "queue 1 item 8" in out, out
     # A LAL run with neither a data file nor a forest file synthesizes its
     # regressor's training rows and fits it with scikit-learn: without
     # scikit-learn (the card's machine) it is refused by name, before the

@@ -23,10 +23,29 @@ numpy arrays made from a seed and handed to both packages.
   mesh round divides ``votes / T``; at 8 trees both spellings agree);
 - RoundMetrics under the mesh (JAX's ``tests/test_telemetry.py``
   configuration), per round and chunked, equal the JAX single-device
-  run's, ``pool_entropy`` to ``telemetry.POOL_ENTROPY_RTOL``.
+  run's, ``pool_entropy`` to ``telemetry.POOL_ENTROPY_RTOL``;
+- the mesh over processes (``parallel/multihost.py``): JAX's four forest
+  cases of ``tests/test_multihost_2proc.py`` (2 processes with the device
+  fit, 2 with the host fit, 4 with the device fit, 2 with the device fit
+  and ``kernel="pallas"``) run on 2 or 4 port processes over gloo
+  (:func:`spawn_ranks`; this file's ``__main__`` is the rank): every rank's
+  records and final mask equal JAX's single-process run, every rank fits
+  the same forest bytes, rank 0 alone writes the 3 checkpoints, whose
+  payload equals JAX's single-process checkpoints, another rank's ``save``
+  returns None, ``gauges(allgather=True)`` carries every rank's value, the
+  run's metadata names the gloo backend, every collective over processes
+  equals the one-process collective over every shard, and a model axis
+  across processes is refused by name; a 2-seed chunked sweep on the
+  2-process mesh equals the single-process sweep.
 """
 
 import dataclasses
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import time
 
 import numpy as np
 import jax
@@ -74,7 +93,7 @@ def _forest(n_trees, depth, seed, n_fit=400, d=5):
         c, yy, w, b.edges, jax.random.key(seed), n_trees=n_trees, max_depth=depth)
     gf = j_train.heap_gemm_forest(f, th, v, depth)
     arrays = [np.array(a) for a in (gf.feat_ids, gf.thresholds, gf.path, gf.target, gf.value)]
-    return gf, interop.gemm_forest_from_numpy(*arrays), rng
+    return gf, interop.gemm_forest_from_numpy(*arrays, device="cpu"), rng
 
 
 def _meshes(data, model):
@@ -261,7 +280,7 @@ def _check_mesh_run(fused, strategy="uncertainty", mesh=(4, 2), window=10):
     np.testing.assert_array_equal(got.final_labeled_mask.numpy(), _jax_final_mask(jcfg))
 
 
-def test_mesh_run_experiment_matches_jax(devices):
+def test_mesh_run_experiment_matches_jax(devices, tmp_path):
     for fused in (False, True):
         _check_mesh_run(fused)
     # Quantized storage on the fused mesh; a 4-class pool on the unfused one
@@ -291,6 +310,242 @@ def test_mesh_run_experiment_matches_jax(devices):
     key = prng.key(3)
     assert torch.equal(prng.uniform(key, (252,))[:250], prng.uniform(key, (250,)))
     _mesh_chunk_and_metrics_match_jax()
+    _multi_process_runs_match_jax(tmp_path)
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: The four forest cases of JAX's tests/test_multihost_2proc.py.
+_MP_CASES = ((2, "device", "gather"), (2, "host", "gather"), (4, "device", "gather"),
+             (2, "device", "pallas"))
+
+
+def spawn_ranks(n, argv, rdv_dir):
+    """Start ``argv`` (a Python command line) as ``n`` ranks of one gloo job
+    on the CPU, under the JAX package's env trio with a ``file://``
+    rendezvous in ``rdv_dir`` (no port to race for under ``pytest -n``),
+    each rank's output in ``rdv_dir/rank<r>.log``. Returns the running
+    processes; :func:`wait_ranks` collects them."""
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+                   JAX_COORDINATOR_ADDRESS=f"file://{rdv_dir}/rendezvous",
+                   JAX_NUM_PROCESSES=str(n), JAX_PROCESS_ID=str(r),
+                   PYTHONPATH=os.pathsep.join([_REPO, os.environ.get("PYTHONPATH", "")]))
+        env.pop("XLA_FLAGS", None)
+        with open(os.path.join(rdv_dir, f"rank{r}.log"), "w") as log:
+            procs.append(subprocess.Popen([sys.executable, *argv], env=env, cwd=_REPO,
+                                          stdout=log, stderr=subprocess.STDOUT))
+        procs[-1].log = os.path.join(rdv_dir, f"rank{r}.log")
+    return procs
+
+
+def wait_ranks(procs, timeout=240):
+    """Every rank's ``(returncode, output)``. A rank that fails stops the
+    others (they would wait in a collective), as does ``timeout`` seconds
+    (a missed collective), which fails the test."""
+    deadline = time.monotonic() + timeout
+    while any(p.poll() is None for p in procs):
+        failed = any(p.poll() not in (None, 0) for p in procs)
+        if failed or time.monotonic() > deadline:
+            for p in procs:
+                p.kill()
+                p.wait()
+            if not failed:
+                pytest.fail(f"a rank of {len(procs)} hung past {timeout}s (a missed collective?)")
+            break
+        time.sleep(0.05)
+    outs = []
+    for p in procs:
+        with open(p.log) as f:
+            outs.append((p.returncode, f.read()))
+    return outs
+
+
+def rank_results(outs, tag):
+    """Each rank's JSON result line ``<tag> <rank> {...}``, in rank order."""
+    got = []
+    for r, (rc, out) in enumerate(outs):
+        assert rc == 0, f"rank {r} failed:\n{out}"
+        line = next(ln for ln in out.splitlines() if ln.startswith(f"{tag} {r} "))
+        got.append(json.loads(line.split(" ", 2)[2]))
+    return got
+
+
+def _ckpt_payload(path):
+    """A checkpoint's fields, its records without their wall times."""
+    z = np.load(path)
+    out = {k: z[k] for k in z.files if k != "records_json"}
+    recs = json.loads(bytes(z["records_json"]).decode())
+    out["records"] = [{k: v for k, v in r.items() if not k.endswith("_time")} for r in recs]
+    return out
+
+
+def _multi_process_runs_match_jax(tmp_path):
+    """JAX's four forest cases on N port processes against JAX's
+    single-process runs (module docstring)."""
+    from tests.multihost_expcfg import experiment_cfg
+
+    running = {}
+    for case in _MP_CASES:
+        n, fit, kernel = case
+        d = tmp_path / f"mp_{n}_{fit}_{kernel}"
+        d.mkdir()
+        running[case] = spawn_ranks(n, [__file__, "forest", str(d), fit, kernel], d)
+    wants = {}
+    for fit, kernel in {(f, k) for _, f, k in _MP_CASES}:  # meanwhile, JAX's references
+        ck = tmp_path / f"jax_{fit}_{kernel}"
+        res = j_loop.run_experiment(experiment_cfg(mesh_data=1, fit=fit, kernel=kernel,
+                                                   checkpoint_dir=str(ck), checkpoint_every=1))
+        wants[fit, kernel] = (res, ck)
+    for case, procs in running.items():
+        n, fit, kernel = case
+        got = rank_results(wait_ranks(procs), "RANK_OK")
+        want, jck = wants[fit, kernel]
+        jfiles = sorted(os.listdir(jck))
+        final = np.flatnonzero(np.load(jck / jfiles[-1])["labeled_mask"]).tolist()
+        for r, g in enumerate(got):
+            assert g["accs"] == [x.accuracy for x in want.records], (case, r)
+            assert g["labeled"] == [x.n_labeled for x in want.records], (case, r)
+            assert g["mask"] == final, (case, r)
+            assert (g["probe"] is not None) == (r == 0), (case, r, g["probe"])
+            assert "item 8" in g["refused"], (case, r, g["refused"])
+            assert all(g["collectives"].values()), (case, r, g["collectives"])
+            assert g["fits"] == got[0]["fits"], (case, r)  # the same forest bytes on every rank
+        assert (len(got[0]["fits"]) == 3) == (fit == "device"), case
+        if "sweep" in got[0]:  # == the single-process sweep, lane by lane
+            from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+
+            single = t_config.from_dict(dataclasses.asdict(experiment_cfg(mesh_data=1)))
+            lanes = t_sweep.run_sweep(_sweep_cfg(single), [0, 1], device="cpu")
+            assert all(g["sweep"] == [[list(x) for x in _records(r)] for r in lanes] for g in got)
+        d = tmp_path / f"mp_{n}_{fit}_{kernel}"
+        files = sorted(f for f in os.listdir(d / "ckpt") if f.endswith(".npz"))
+        assert files == jfiles == ["alstate_1.npz", "alstate_2.npz", "alstate_3.npz"], case
+        for f in files:
+            a, b = _ckpt_payload(d / "ckpt" / f), _ckpt_payload(jck / f)
+            assert a.keys() == b.keys(), (case, f)
+            for k in a:
+                assert np.array_equal(a[k], b[k]) if k != "records" else a[k] == b[k], (case, f, k)
+        events = [json.loads(ln) for ln in open(d / "metrics.jsonl")]
+        gauge = next(e for e in events if e["kind"] == "gauge" and "per_host" in e)
+        assert gauge["per_host"] == [10.0 * r + 7 for r in range(n)], gauge
+        assert gauge["value"] == sum(gauge["per_host"]) and gauge["rank"] == 0
+        meta = next(e for e in events if e["kind"] == "meta")
+        assert (meta["process_count"], meta["process_group_backend"]) == (n, "gloo"), meta
+
+
+def _sweep_cfg(cfg):
+    return dataclasses.replace(cfg, checkpoint_dir=None, checkpoint_every=0, rounds_per_launch=2)
+
+
+def neural_case():
+    """JAX's 2-process neural case (``tests/multihost_expcfg.
+    neural_experiment``): its MLP BALD run's pool, test set, learner
+    arguments and config fields, for both packages."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(128, 4)).astype(np.float32)
+    y = (x[:, 0] + 0.5 * x[:, 1] > 0).astype(np.int32)
+    tx = rng.normal(size=(64, 4)).astype(np.float32)
+    ty = (tx[:, 0] + 0.5 * tx[:, 1] > 0).astype(np.int32)
+    learner = dict(input_shape=(4,), train_steps=20, mc_samples=3)
+    cfg = dict(strategy="bald", window_size=8, n_start=10, max_rounds=2, seed=3)
+    return (x, y, tx, ty), learner, cfg
+
+
+def _collectives_match_one_process(rank, n):
+    """Each collective over processes (this rank passing its one shard's
+    input) against one process holding every shard's: bit for bit."""
+    from distributed_active_learning_tpu_torch.parallel import collectives as c
+
+    rng = np.random.default_rng(3)
+    vecs = [torch.from_numpy(rng.normal(size=7).astype(np.float32)) for _ in range(n)]
+    masks = [torch.from_numpy(rng.random(7) < 0.5) for _ in range(n)]
+    fills = [torch.tensor(5 * s + 1, dtype=torch.int32) for s in range(n)]
+    blocks = [torch.from_numpy(rng.integers(0, 99, size=(n, 3)).astype(np.int32))
+              for _ in range(n)]
+    mine = slice(rank, rank + 1)
+    return {
+        "vector_accumulate": torch.equal(c.vector_accumulate(vecs[mine], across_processes=True),
+                                         c.vector_accumulate(vecs)),
+        "global_count": torch.equal(c.global_count(masks[mine], across_processes=True),
+                                    c.global_count(masks)),
+        "gather_fills": torch.equal(c.gather_fills(fills[mine], across_processes=True),
+                                    c.gather_fills(fills)),
+        "exchange_blocks": torch.equal(c.exchange_blocks(blocks[mine], across_processes=True)[0],
+                                       c.exchange_blocks(blocks)[rank]),
+        "masked_mean": torch.equal(c.masked_mean(vecs[mine], masks[mine], across_processes=True),
+                                   c.masked_mean(vecs, masks)),
+    }
+
+
+def _rank_main(mode, out_dir, *rest):
+    """One rank of a spawned job (:func:`spawn_ranks`): joins the gloo group
+    through the env trio and prints ``RANK_OK <rank> {json}``."""
+    from tests.multihost_expcfg import experiment_cfg
+
+    from distributed_active_learning_tpu_torch.parallel import multihost
+    from distributed_active_learning_tpu_torch.runtime import checkpoint as t_ckpt
+    from distributed_active_learning_tpu_torch.runtime.results import ExperimentResult
+    from distributed_active_learning_tpu_torch.runtime.telemetry import MetricsWriter
+
+    assert multihost.maybe_initialize()
+    rank, n = multihost.process_index(), multihost.process_count()
+    assert multihost.is_primary() == (rank == 0)
+    out = {}
+    if mode == "forest":
+        fit, kernel = rest
+        fits = []
+        fit_device = t_train.fit_forest_device
+
+        def recorded(*a, **k):  # every fit's forest bytes, to compare across ranks
+            arrays = fit_device(*a, **k)
+            fits.append(hashlib.sha256(b"".join(
+                t.contiguous().numpy().tobytes() for t in arrays)).hexdigest())
+            return arrays
+
+        t_train.fit_forest_device = recorded
+        cfg = t_config.from_dict(dataclasses.asdict(experiment_cfg(
+            mesh_data=n, checkpoint_dir=os.path.join(out_dir, "ckpt"), checkpoint_every=1,
+            fit=fit, kernel=kernel)))
+        res = t_loop.run_experiment(cfg, device="cpu")
+        t_train.fit_forest_device = fit_device
+        if (n, fit, kernel) == (2, "device", "gather"):  # a seed sweep on the mesh, chunked
+            from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
+
+            lanes = t_sweep.run_sweep(_sweep_cfg(cfg), [0, 1], device="cpu")
+            out["sweep"] = [_records(r) for r in lanes]
+        out.update(accs=[r.accuracy for r in res.records],
+                   labeled=[r.n_labeled for r in res.records],
+                   mask=torch.nonzero(res.final_labeled_mask).flatten().tolist(), fits=fits)
+        # The primary-only gate outside the loop, as JAX's worker probes it.
+        st = t_state.init_pool_state(np.zeros((8, 2), np.float32), np.zeros(8, np.int32),
+                                     prng.key(0), "cpu")
+        out["probe"] = t_ckpt.save(os.path.join(out_dir, "probe"), st, ExperimentResult())
+        writer = MetricsWriter(os.path.join(out_dir, "metrics.jsonl"))
+        t_loop.run_experiment(dataclasses.replace(cfg, checkpoint_dir=None, checkpoint_every=0,
+                                                  max_rounds=1), metrics=writer, device="cpu")
+        writer.gauges({"probe_gauge": 10.0 * rank + 7}, allgather=True)
+        writer.close()
+        try:
+            t_mesh.make_mesh(1, 2, device="cpu")
+            out["refused"] = ""
+        except NotImplementedError as e:
+            out["refused"] = str(e)
+        out["collectives"] = _collectives_match_one_process(rank, n)
+    elif mode == "neural":
+        from distributed_active_learning_tpu_torch.models.neural import MLP, NeuralLearner
+        from distributed_active_learning_tpu_torch.runtime import neural_loop as t_nloop
+
+        data, lkw, ckw = neural_case()
+        learner = NeuralLearner(MLP(n_classes=2, hidden=(16,)), device="cpu", **lkw)
+        res = t_nloop.run_neural_experiment(
+            t_nloop.NeuralExperimentConfig(mesh=t_config.MeshConfig(data=n),
+                                           checkpoint_dir=os.path.join(out_dir, "ckpt"),
+                                           checkpoint_every=1, **ckw), learner, *data)
+        out.update(accs=[r.accuracy for r in res.records],
+                   labeled=[r.n_labeled for r in res.records],
+                   mask=torch.nonzero(res.final_labeled_mask).flatten().tolist())
+    print(f"RANK_OK {rank} {json.dumps(out)}", flush=True)
 
 
 def _metric_dicts(res):
@@ -355,3 +610,7 @@ def test_mesh_window_past_shard_rows_matches_jax(devices):
     # shard's window is padded with sentinels before the ring merge.
     for fused in (False, True):
         _check_mesh_run(fused, mesh=(8, 1), window=40)
+
+
+if __name__ == "__main__":
+    _rank_main(*sys.argv[1:])

@@ -96,7 +96,7 @@ def test_neural_modules_match_jax():
                                     predict_chunk=7, device="cpu")
         js, ts = jl.init(jax.random.key(5)), tl.init(prng.key(5))
         # Init bit for bit, and the carry-across function both ways.
-        carried = interop.neural_params_from_numpy(jax.device_get(js.params), tm)
+        carried = interop.neural_params_from_numpy(jax.device_get(js.params), tm, device="cpu")
         assert set(carried) == set(ts.params) == set(tm.param_names()), kind
         for name, v in carried.items():
             assert torch.equal(v, ts.params[name]), (kind, name)
@@ -140,7 +140,8 @@ def test_neural_modules_match_jax():
         ts2 = tl.fit_on_mask(ts, xt, torch.as_tensor(y, dtype=torch.int32),
                              torch.as_tensor(mask), prng.key(11))
         assert int(ts2.step) == int(js2.step) == 5 and int(ts2.opt_state.count) == 5
-        for name, v in interop.neural_params_from_numpy(jax.device_get(js2.params), tm).items():
+        for name, v in interop.neural_params_from_numpy(jax.device_get(js2.params), tm,
+                                                         device="cpu").items():
             scale = float(v.abs().max()) or 1.0
             err = float((v - ts2.params[name]).abs().max()) / scale
             assert err < t_neural.NEURAL_TRAIN_RTOL, (kind, name, err)
@@ -160,6 +161,20 @@ def test_neural_modules_match_jax():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_neural.NeuralLearner(tm, (8,))
+    # So do the converters that carry the JAX package's arrays across.
+    state_of = lambda: interop.pool_state_from_numpy(  # noqa: E731
+        np.zeros((2, 1)), np.zeros(2), np.zeros(2, bool), np.zeros(2, np.uint32))
+    forest_of = lambda: interop.gemm_forest_from_numpy(  # noqa: E731
+        np.zeros((1, 1)), np.zeros((1, 1)), np.zeros((1, 1, 2)), np.zeros((1, 2)),
+        np.zeros((1, 2)))
+    if torch.cuda.is_available():
+        assert state_of().x.device.type == forest_of().path.device.type == "cuda"
+        with pytest.raises(ValueError, match="are not those of"):
+            interop.neural_params_from_numpy({}, tm)
+    else:
+        for convert in (state_of, forest_of, lambda: interop.neural_params_from_numpy({}, tm)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                convert()
 
     # Every deep function on the same probabilities and embeddings.
     S, n, C = 4, 120, 3
@@ -239,7 +254,7 @@ def _ring_attention_matches_jax(rs):
     ids = rs.randint(0, 64, size=(2, 32)).astype(np.int32)
     params = jm.init({"params": jax.random.key(4)}, jnp.asarray(ids))["params"]
     want = np.asarray(jm.apply({"params": params}, jnp.asarray(ids)))
-    tp = interop.neural_params_from_numpy(jax.device_get(params), tm_full)
+    tp = interop.neural_params_from_numpy(jax.device_get(params), tm_full, device="cpu")
     ctx = t_neural._Ctx(None, 2)
     got = tm_ring.apply(tp, torch.as_tensor(ids), ctx).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=RING_VS_FULL_ATOL)
@@ -278,6 +293,42 @@ def _close_records(rj, rt):
         [(r.round, r.n_labeled) for r in rt.records]
     for a, b in zip(rj.records, rt.records):
         assert abs(a.accuracy - b.accuracy) <= ACC_ATOL
+
+
+def _multi_process_loop_matches_jax(tmp_path):
+    """JAX's 2-process neural case (MLP BALD, tests/test_multihost_2proc.py)
+    on 2 port processes over gloo against JAX's single-process run: every
+    rank's picks and final mask bit-equal, accuracy to ACC_ATOL; rank 0
+    alone writes the 2 checkpoints, their masks and keys bit-equal to JAX's,
+    the network to NEURAL_TRAIN_RTOL."""
+    from tests.test_torch_mesh import neural_case, rank_results, spawn_ranks, wait_ranks
+
+    d = tmp_path / "mp_neural"
+    d.mkdir()
+    procs = spawn_ranks(2, [os.path.join(_REPO, "tests", "test_torch_mesh.py"), "neural", str(d)],
+                        d)
+    data, lkw, ckw = neural_case()
+    jd = str(tmp_path / "mp_neural_jax")
+    jl = j_neural.NeuralLearner(j_neural.MLP(n_classes=2, hidden=(16,)), lkw["input_shape"],
+                                train_steps=lkw["train_steps"], mc_samples=lkw["mc_samples"])
+    rj = j_loop.run_neural_experiment(
+        j_loop.NeuralExperimentConfig(checkpoint_dir=jd, checkpoint_every=1, **ckw), jl, *data)
+    got = rank_results(wait_ranks(procs), "RANK_OK")
+    files = sorted(os.listdir(d / "ckpt"))
+    assert files == sorted(os.listdir(jd)) == ["alstate_1.npz", "alstate_2.npz"]
+    final = np.flatnonzero(np.load(os.path.join(jd, files[-1]))["labeled_mask"]).tolist()
+    for r, g in enumerate(got):
+        assert g["labeled"] == [x.n_labeled for x in rj.records] and g["mask"] == final, r
+        assert all(abs(a - x.accuracy) <= ACC_ATOL for a, x in zip(g["accs"], rj.records)), r
+    for f in files:
+        with np.load(d / "ckpt" / f) as zt, np.load(os.path.join(jd, f)) as zj:
+            assert sorted(zj.files) == sorted(zt.files)
+            for k in zj.files:
+                if k.startswith("net_"):
+                    np.testing.assert_allclose(zt[k], zj[k], rtol=t_neural.NEURAL_TRAIN_RTOL,
+                                               atol=1e-6, err_msg=f"{f} {k}")
+                elif k != "records_json":
+                    np.testing.assert_array_equal(zt[k], zj[k], err_msg=f"{f} {k}")
 
 
 def _mesh_loop_matches_jax(tmp_path, jl, tl, base):
@@ -456,6 +507,7 @@ def test_neural_loop_matches_jax(tmp_path):
         t_loop.run_neural_experiment(t_loop.NeuralExperimentConfig(mesh=MeshConfig(1, 2)), tl,
                                      x, y, tx, ty)
     _mesh_loop_matches_jax(tmp_path, jl, tl, base)
+    _multi_process_loop_matches_jax(tmp_path)
 
     # The CLI: the JAX package's run.py log for the same flags; without a
     # card and without --device cpu it raises.

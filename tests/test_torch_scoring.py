@@ -103,7 +103,7 @@ def _forest(n_trees, depth, seed, n_fit=400, d=5):
         c, yy, w, b.edges, jax.random.key(seed), n_trees=n_trees, max_depth=depth)
     gf = j_train.heap_gemm_forest(f, th, v, depth)
     arrays = [np.array(a) for a in (gf.feat_ids, gf.thresholds, gf.path, gf.target, gf.value)]
-    return gf, interop.gemm_forest_from_numpy(*arrays), rng
+    return gf, interop.gemm_forest_from_numpy(*arrays, device="cpu"), rng
 
 
 def test_score_tables_match_jax(tmp_path):
@@ -445,7 +445,7 @@ def _multiclass_and_lal_match_jax():
     mask = np.zeros(700, dtype=bool)
     mask[rng.choice(700, 137, replace=False)] = True
     js = j_state.init_pool_state(x, y, jax.random.key(0)).replace(labeled_mask=jnp.asarray(mask))
-    ts = interop.pool_state_from_numpy(x, y, mask, np.zeros(2, np.uint32))
+    ts = interop.pool_state_from_numpy(x, y, mask, np.zeros(2, np.uint32), device="cpu")
     jf = jax.jit(j_lal_strategy.lal_features)(gf, js)
     tfeat = t_lal_strategy.lal_features(tf, ts)
     np.testing.assert_array_equal(_bits(jf), _bits(tfeat))

@@ -234,7 +234,8 @@ def _pod_parity():
                                       max_depth=3, n_bins=8)
     jgf = j_tt.heap_gemm_forest(f, th, v, 3)
     tforest = attach_mesh(interop.gemm_forest_from_numpy(
-        jgf.feat_ids, jgf.thresholds, jgf.path, jgf.target, jgf.value, pallas=True), tmesh)
+        jgf.feat_ids, jgf.thresholds, jgf.path, jgf.target, jgf.value, pallas=True,
+        device="cpu"), tmesh)
     for name in ("uncertainty",):
         jv, ji = j_rf.fused_score_select(JSPF(gf=jgf, mesh=jmesh), jp.x, jnp.asarray(sel), name, 7)
         tv, ti = t_rf.fused_score_select(tforest, tp.x, torch.as_tensor(sel), name, 7)

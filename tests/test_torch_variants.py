@@ -47,7 +47,7 @@ def _forest(rng, n_trees, depth, d):
         value=rng.random((n_trees, I + 1)).astype(np.float32),
     )
     jgf = JGemmForest(**{k: jnp.asarray(v) for k, v in arrays.items()})
-    return jgf, interop.gemm_forest_from_numpy(**arrays)
+    return jgf, interop.gemm_forest_from_numpy(**arrays, device="cpu")
 
 
 def _same_bits(got: torch.Tensor, want, what):
