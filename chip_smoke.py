@@ -151,6 +151,27 @@ and prints no result:
    records and a single-process run of the same two rounds, bit for bit;
    K7 counted a rank. Four processes time-slice one card: the seconds
    show the launch structure, not scaling;
+4t. (after phase 4s) the pre-flight (``analysis/``; ``preflight_phase``):
+   (a) the headline fused
+   round step (phase 4's width, K1 on the test draw, K2 on the pool) counted
+   on the card, its FLOPs, bytes and kernel rows equal to the count on the
+   meta device and K1's and K2's rows equal to their declared costs at
+   PERF.md section 6's shapes, timed as a graph replay and attributed (no
+   share of a peak above 1.0); the chunk (K = 4, 6 rounds, RoundMetrics on,
+   unfused) through ``run_experiment`` with ``roofline``: its one
+   ``roofline`` event carries no error and no share above 1.0; (b) the
+   forest chunk's round step, phase 4n's CNN chunk step and phase 4o (b)'s
+   serving capacity (291,840 rows, depth 8) priced on the meta device
+   against ``max_memory_allocated`` over an eager step and the private pool
+   of its ``GraphedChunk`` capture: a prediction below a measurement fails,
+   each ratio is printed; (c) ``run.py --audit`` with a 64 MiB budget table
+   refuses with ``hbm-over-budget`` and launches no kernel, the K = 4 chunk
+   with a budget between its eager peak and its resident inputs + captured
+   pool refuses too (the graph's footprint), and with the card's budget the
+   run prints the records of the same run without ``--audit``;
+   (d) the Python mirrors of K1's, K2's and K3's launch configuration equal
+   the C answer at the headline pool, the mesh shard, 256 streamed trees and
+   the serving endpoint ``[64, 30]`` (depths 4 and 8), each payload;
 4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
    ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
    ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
@@ -371,7 +392,11 @@ and prints no result:
    (one eager round of each stretch config at a 200-row pool, 25 steps:
    phase 4n times both at full width), each JSON line printed on a line of
    its own; the round mode's line must carry the pod legs' keys and
-   ``recompiles_after_warmup`` 0. K5's and K6's launch counts are
+   ``recompiles_after_warmup`` 0, and its ``roofline`` section every phase
+   (fit, round, score_select, chunk, fused_round) with no share above 1.0;
+   then ``--mode all --deadline 1`` (its line names ``modes_skipped``) and
+   ``--mode score --profile-dir`` (``device_seconds_by_phase`` under
+   ``bench/score``). K5's and K6's launch counts are
    read over the variants run, counted from 0.
 
 The last three lines are a JSON object of per-kernel numbers (``launches``
@@ -392,6 +417,8 @@ phase 4o's numbers (the paths ``serve``, ``serve_headline`` and
 numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
 ``mesh_pod`` phase 4r's numbers (its paths ``neural_mesh``,
 ``neural_mesh_chunked`` and ``pod_select`` in every ``launches_by_path``);
+``preflight`` phase 4t's numbers (its passing ``--audit`` run's launches
+under the path ``preflight_audit``);
 ``multi_process`` phase 4s's numbers (its paths ``procs4_fused``,
 ``procs4_chunked`` and ``procs2_neural``, summed over the ranks, in every
 ``launches_by_path``; K4's ``ipc_step_ms``);
@@ -415,10 +442,12 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1985,6 +2014,290 @@ def rank_job(args) -> int:
     return 0
 
 
+def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> dict:
+    """Phase 4t: the pre-flight (``analysis/``) on the card. (a) roofline:
+    the headline fused round step counted on the card, equal to its count on
+    the meta device, timed as a graph replay and attributed (no share above
+    1.0; K1's and K2's rows at their declared bytes); the chunk (K = 4,
+    RoundMetrics on, so unfused) through ``run_experiment`` with
+    ``cfg.roofline``, whose ``roofline`` event must carry no error and no
+    share above 1.0. (b) memory: the forest chunk's round step, 4n's CNN
+    chunk step and 4o (b)'s serving capacity (291,840 rows, depth 8), each
+    priced on the meta device, then run eagerly (``max_memory_allocated``
+    after ``reset_peak_memory_stats``) and captured (``GraphedChunk``'s
+    private pool): a prediction below a measurement fails. (c) ``run.py
+    --audit`` with a 64 MiB budget table refuses with ``hbm-over-budget``
+    and launches nothing, and so does the K = 4 chunk with a budget between
+    its eager peak and its resident inputs + captured pool; with the card's
+    budget the run prints the records of the same run without ``--audit``.
+    (d) the shared-memory mirrors of K1,
+    K2 and K3 equal the C configuration at the headline pool, the mesh
+    shard, 256 streamed trees and the serving endpoint, for each payload."""
+    import ctypes
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch import kernels
+    from distributed_active_learning_tpu_torch import run as run_cli
+    from distributed_active_learning_tpu_torch.analysis import costs, memory, programs, roofline
+    from distributed_active_learning_tpu_torch.device import deterministic_cuda
+    from distributed_active_learning_tpu_torch.runtime import loop, neural_loop
+
+    t_phase = time.perf_counter()
+    out = {"roofline": {}, "memory": {}}
+
+    def check_shares(name, attr):
+        if "error" in attr:
+            fail(f"4t roofline {name}: {attr['error']}")
+        over = {k: v for k, v in roofline.shares(attr).items() if v > 1.0}
+        if over:
+            fail(f"4t roofline {name}: a share above 1.0 ({over}): the count is wrong")
+
+    def graphed(unit, carry_fields=loop.CARRY_FIELDS):
+        return loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1),
+                                 carry_fields=carry_fields)
+
+    # (a) the headline fused round step, counted on the card and on meta.
+    head = programs.forest_program("chunk", programs.BENCH_CONFIG, programs.BENCH_SHAPES,
+                                   seed=seed)
+    # Counted on a warm call: a device's constants (bin edges' Poisson CDF,
+    # the heap path matrices) are uploaded once, at its first call.
+    unit, meta_unit = head(dev), head(torch.device("meta"))
+    unit.fn(*unit.args)
+    meta_unit.fn(*meta_unit.args)
+    card_cost = roofline.program_cost(unit.fn, *unit.args)
+    meta_cost = roofline.program_cost(meta_unit.fn, *meta_unit.args)
+    del meta_unit
+    for key in ("flops", "bytes_accessed", "kernels"):
+        if card_cost[key] != meta_cost[key]:
+            fail(f"4t: the round step's {key} on the card {card_cost[key]} != on the meta "
+                 f"device {meta_cost[key]}")
+    step = graphed(unit)
+    step(*unit.args)  # capture and a first replay
+    reps = []
+    for _ in range(7):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*unit.args)
+        end.record()
+        end.synchronize()
+        reps.append(start.elapsed_time(end) / 1e3)
+    attr = roofline.attribute_card(card_cost, statistics.median(reps))
+    check_shares("round", attr)
+    want = {"forest_leaves": costs.forest_leaves(N_TEST, N_FEAT, TREES, DEPTH),
+            "round_megakernel": costs.round_megakernel(N_POOL, N_FEAT, TREES, DEPTH, WINDOW)}
+    for name, (flops, nbytes) in want.items():
+        row = card_cost["kernels"].get(name)
+        if row is None or row["calls"] != 1 or row["bytes"] != nbytes or row["flops"] != flops:
+            fail(f"4t: {name}'s row {row} != its declared cost at PERF.md section 6's shape "
+                 f"({flops} FLOPs, {nbytes} bytes)")
+        lim, by = bound(nbytes, flops)
+        print(f"# 4t roofline {name}: {row['bytes']:.0f} bytes, {row['flops']:.0f} FLOPs, bound "
+              f"{lim:.4f} ms by {by}")
+    out["roofline"]["round"] = attr
+    print(f"# 4t roofline round (fused, headline): {attr['flops']:.4g} FLOPs, "
+          f"{attr['bytes_accessed']:.4g} bytes, {attr['seconds']:.6f} s (graph replay), mfu "
+          f"{attr['mfu']} (bf16), mfu_f32 {attr['mfu_f32']}, bandwidth_util "
+          f"{attr['bandwidth_util']}, {attr['bound']}; card == meta count ({kind}, {smi})")
+    del step, unit
+    # The chunk (K = 4) with --roofline semantics: the loop's own event.
+    cfg = dataclasses.replace(programs.BENCH_CONFIG, fused_round=False, roofline=True)
+    rng = np.random.default_rng(seed)
+    pool_np = rng.normal(size=(N_POOL, N_FEAT)).astype(np.float32)
+    test_np = rng.normal(size=(N_TEST, N_FEAT)).astype(np.float32)
+    from distributed_active_learning_tpu_torch.data.datasets import DataBundle
+    from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
+    from distributed_active_learning_tpu_torch.runtime.telemetry import MetricsWriter
+
+    bundle = DataBundle(pool_np, labels(pool_np), test_np, labels(test_np), "bench")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m.jsonl")
+        writer = MetricsWriter(path)
+        loop.run_experiment(cfg, bundle=bundle, debugger=Debugger(enabled=False),
+                            metrics=writer, device=dev)
+        writer.close()
+        with open(path) as f:
+            events = [e for e in map(json.loads, f) if e["kind"] == "roofline"]
+    if len(events) != 1:
+        fail(f"4t: the chunked run emitted {len(events)} roofline events, want 1")
+    event = events[0]
+    check_shares("chunk", event)
+    out["roofline"]["chunk"] = {k: event[k] for k in (
+        "program", "calls", "flops", "bytes_accessed", "seconds", "mfu", "mfu_f32",
+        "bandwidth_util", "bound", "peak_tables")}
+    print(f"# 4t roofline chunk (K = 4, unfused, metrics on; the loop's event): "
+          f"{event['flops']:.4g} FLOPs, {event['bytes_accessed']:.4g} bytes, "
+          f"{event['seconds']} s a launch over {event['calls']} launches, mfu {event['mfu']}, "
+          f"mfu_f32 {event['mfu_f32']}, bandwidth_util {event['bandwidth_util']}, "
+          f"{event['bound']} ({kind}, {smi})")
+
+    # (b) memory: predicted on meta, measured eagerly and at capture.
+    deterministic_cuda()
+    under = []
+    cases = (
+        ("forest chunk step", head, loop.CARRY_FIELDS),
+        ("CNN chunk step (4n)", programs.neural_chunk_program(programs.CNN_SHAPES, seed=seed),
+         neural_loop.NEURAL_CARRY_FIELDS),
+        ("serving capacity 291,840 (4o b)", programs.serve_program(
+            "serve_chunk", programs.serve_config(DEPTH), programs.SERVE_CONFIG, 291_840,
+            N_FEAT, N_TEST, seed=seed), loop.CARRY_FIELDS),
+    )
+    for name, make, fields in cases:
+        t0 = time.perf_counter()
+        pred = memory.program_memory(*(lambda u: (u.fn, *u.args))(make(torch.device("meta"))))
+        t_pred = time.perf_counter() - t0
+        unit = make(dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            unit.fn(*unit.args)  # warm-up: kernels, library state
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        inputs = sum(memory.block_bytes(n) for n in {
+            t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in memory.tensor_leaves(unit.args) if t.is_cuda}.values())
+        torch.cuda.reset_peak_memory_stats()
+        with torch.cuda.stream(side):
+            res = unit.fn(*unit.args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base + inputs
+        del res
+        g = graphed(unit, fields)
+        g.capture(*unit.args)
+        pool_measured = g.pool_bytes
+        del g, unit
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = {"predicted_peak_bytes": pred["peak_hbm_bytes"], "measured_peak_bytes": measured,
+               "predicted_pool_bytes": pred["pool_bytes"], "measured_pool_bytes": pool_measured,
+               "peak_ratio": pred["peak_hbm_bytes"] / measured,
+               "pool_ratio": pred["pool_bytes"] / pool_measured if pool_measured else None,
+               "predicted": pred, "pricing_seconds": t_pred}
+        out["memory"][name] = row
+        print(f"# 4t memory {name}: predicted peak {pred['peak_hbm_bytes'] / 2**20:.1f} MiB "
+              f"(inputs {pred['argument_bytes'] / 2**20:.1f}, transient "
+              f"{pred['temp_bytes'] / 2**20:.1f}, slack {pred['slack_bytes'] / 2**20:.1f}) against "
+              f"max_memory_allocated {measured / 2**20:.1f} MiB (ratio {row['peak_ratio']:.3f}); "
+              f"graph pool predicted {pred['pool_bytes'] / 2**20:.1f} MiB against "
+              f"{pool_measured / 2**20:.1f} MiB at capture (ratio {row['pool_ratio']:.3f}); "
+              f"priced in {t_pred:.1f} s ({kind}, {smi})")
+        if pred["peak_hbm_bytes"] < measured or pred["pool_bytes"] < pool_measured:
+            under.append(name)
+        for key in ("peak_ratio", "pool_ratio"):
+            if row[key] > 1.5:
+                print(f"# 4t memory {name}: {key} {row[key]:.3f} above 1.5 (ROADMAP queue 3)")
+
+    if under:
+        fail(f"4t memory: the prediction is below the measurement for {under}")
+
+    # (c) the --audit gate through the CLI.
+    argv = ["--dataset", "checkerboard2x2", "--n-samples", "200000", "--fit", "device",
+            "--kernel", "pallas", "--fused-round", "--trees", str(TREES), "--depth", str(DEPTH),
+            "--window", str(WINDOW), "--n-start", str(N_START), "--rounds", "2", "--seed",
+            str(seed)]
+
+    def cli(extra):
+        o, e = io.StringIO(), io.StringIO()
+        rc = 0
+        with contextlib.redirect_stdout(o), contextlib.redirect_stderr(e):
+            try:
+                rc = run_cli.main(argv + extra)
+            except SystemExit as exc:
+                rc = exc.code if isinstance(exc.code, int) else 1
+                print(exc.code, file=e)
+        return rc, o.getvalue(), e.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "budget.json")
+        with open(table, "w") as f:
+            json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
+        zero_counts()
+        rc, so, se = cli(["--audit", "--budget-table", table])
+        refused_counts = counts()
+    if rc == 0 or "hbm-over-budget" not in se or so.strip():
+        fail(f"4t: --audit with a 64 MiB table did not refuse (rc {rc}): {se[-600:]}")
+    if any(refused_counts.values()):
+        fail(f"4t: the refused --audit run launched kernels {refused_counts}")
+    over = [ln for ln in se.splitlines() if "hbm-over-budget" in ln][0]
+    # The graphed chunk (K = 4): a budget above its eager peak but below its
+    # resident inputs + captured pool refuses too, naming the graph's
+    # footprint (both read off the 64 MiB table's finding).
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "budget.json")
+        with open(table, "w") as f:
+            json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
+        zero_counts()
+        rc, _, se = cli(["--rounds-per-launch", "4", "--audit", "--budget-table", table])
+        found = re.search(r"eager peak ([\d.]+) MiB.*as a CUDA graph ([\d.]+) MiB", se)
+        if rc == 0 or found is None:
+            fail(f"4t: --audit of the K = 4 chunk with a 64 MiB table (rc {rc}) named no eager "
+                 f"peak and graph footprint: {se[-600:]}")
+        eager, graph = (float(v) for v in found.groups())
+        if graph <= eager:
+            fail(f"4t: the chunk's graph footprint {graph} MiB is not above its eager peak "
+                 f"{eager} MiB: the between-budget check needs a gap")
+        mid = (eager + graph) / 2
+        with open(table, "w") as f:
+            json.dump({"hbm_bytes": mid * 2**20, "source": "between table"}, f)
+        rc, so, se = cli(["--rounds-per-launch", "4", "--audit", "--budget-table", table])
+        chunk_counts = counts()
+    if rc == 0 or so.strip() or "the graph's footprint" not in se:
+        fail(f"4t: --audit of the K = 4 chunk with {mid:.1f} MiB (above its eager peak {eager} "
+             f"MiB, below its graph {graph} MiB) did not refuse (rc {rc}): {se[-600:]}")
+    if any(chunk_counts.values()):
+        fail(f"4t: the refused --audit runs of the chunk launched kernels {chunk_counts}")
+    print(f"# 4t audit: the K = 4 chunk with {mid:.1f} MiB (eager peak {eager} MiB, as a graph "
+          f"{graph} MiB) refused, 0 launches")
+    zero_counts()
+    rc_a, so_a, se_a = cli(["--audit"])
+    audit_counts = counts()
+    rc_b, so_b, _ = cli([])
+    if rc_a != 0 or rc_b != 0 or so_a != so_b or "# audit clean:" not in se_a:
+        fail(f"4t: --audit with the card's budget (rc {rc_a}) must print the records of the run "
+             f"without it (rc {rc_b}): {se_a[-400:]}")
+    out["audit"] = {"refused": over.strip(), "refused_launches": refused_counts,
+                    "graph_refused": {"eager_mib": eager, "graph_mib": graph, "budget_mib": mid},
+                    "clean": [ln for ln in se_a.splitlines() if "# audit clean" in ln][0],
+                    "launches": audit_counts}
+    print(f"# 4t audit: 64 MiB table refused, 0 launches: {over.strip()[:200]}")
+    print(f"# 4t audit: the card's budget: {out['audit']['clean']}; records == without "
+          f"--audit; launches {audit_counts}")
+
+    # (d) shared memory: the Python mirrors against the C configuration.
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    checked = 0
+    for n, d, T, depth in ((N_POOL, N_FEAT, TREES, DEPTH), (71_202, N_FEAT, TREES // 2, DEPTH),
+                           (N_POOL, N_FEAT, 256, DEPTH), (64, N_FEAT, TREES, 4),
+                           (64, N_FEAT, TREES, DEPTH)):
+        for item, code in ((4, 0), (2, 1), (1, 2)):
+            L = 1 << depth
+            N, Lp = max(L, 2), -(-L // (16 // item)) * (16 // item)
+            got = (ctypes.c_int * 6)()
+            kernels.check("forest_leaves_config", kernels.load("forest_leaves").forest_leaves_config(
+                n, d, code, T, depth, N, Lp, got))
+            mine = memory.smem_for_launch("forest_leaves", n, d, T, depth, item, optin)
+            if [mine["rows"], mine["trees_per_chunk"], mine["smem_bytes"]] != list(got)[:3]:
+                fail(f"4t smem: K1's mirror {mine} != the C {list(got)[:3]} at {(n, d, T, depth)}")
+            for name in ("round_megakernel", "fused_votes"):
+                err = getattr(kernels.load(name), f"{name}_config")(n, d, code, T, depth, N, Lp,
+                                                                    got)
+                kernels.check(f"{name}_config", err)
+                mine = memory.smem_for_launch(name, n, d, T, depth, item, optin)
+                c_cfg = [("resident", "streamed")[got[0]], got[1], got[2], got[3]]
+                if [mine["mode"], mine["groups"], mine["trees_per_chunk"],
+                        mine["smem_bytes"]] != c_cfg:
+                    fail(f"4t smem: {name}'s mirror {mine} != the C {c_cfg} at "
+                         f"{(n, d, T, depth, item)}")
+            checked += 3
+    out["smem_checked"] = checked
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"# 4t shared memory: {checked} mirrors == the C configuration (opt-in {optin} bytes a "
+          f"block); phase 4t {out['seconds']:.1f} s ({kind}, {smi})")
+    return out
+
+
+
 def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_records,
                         want_mask, neural_numbers) -> dict:
     """Phase 4s (see the module docstring): spawns the ranks, holds their
@@ -2145,6 +2458,7 @@ def main() -> int:
     if args.rank_job:
         return rank_job(args)
     from distributed_active_learning_tpu_torch import bench, kernels, prng
+    from distributed_active_learning_tpu_torch.analysis import roofline as roofline_lib
     from distributed_active_learning_tpu_torch.benches import pallas_variants as lv
     from distributed_active_learning_tpu_torch.config import (
         DataConfig, ExperimentConfig, ForestConfig, MeshConfig, StrategyConfig,
@@ -2181,6 +2495,14 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(f"# card: {kind} | nvidia-smi: {smi}")
+
+    def counts():
+        return {"forest_leaves": trees_pallas.launches, "round_megakernel": round_fused.launches,
+                "fused_votes": round_fused.votes_launches, "ring_hop": ring_topk.launches}
+
+    def zero_counts():
+        trees_pallas.launches = round_fused.launches = 0
+        round_fused.votes_launches = ring_topk.launches = 0
 
     # -- phase 2: the leaf kernel against its plain version ----------------
     rng = np.random.default_rng(args.seed)
@@ -2658,14 +2980,6 @@ def main() -> int:
             mesh=MeshConfig(*mesh),
             n_start=N_START, max_rounds=ROUNDS, fused_round=fused, seed=args.seed,
         )
-
-    def counts():
-        return {"forest_leaves": trees_pallas.launches, "round_megakernel": round_fused.launches,
-                "fused_votes": round_fused.votes_launches, "ring_hop": ring_topk.launches}
-
-    def zero_counts():
-        trees_pallas.launches = round_fused.launches = 0
-        round_fused.votes_launches = ring_topk.launches = 0
 
     # Each path's launches are counted from 0 over its own run. Single
     # device: the fused round launches K2 to score and K1 for test accuracy,
@@ -4274,6 +4588,10 @@ def main() -> int:
         if path == "procs2_neural":
             neural_numbers["launches"][path] = c
 
+    # -- phase 4t: the pre-flight ------------------------------------------------
+    preflight_numbers = preflight_phase(args.seed, dev, kind, smi, counts, zero_counts)
+    launches["preflight_audit"] = preflight_numbers["audit"]["launches"]
+
     # -- phase 5: times ----------------------------------------------------
     x_full = pool.contiguous()
     out_bytes = TREES * N_POOL * 4
@@ -4612,6 +4930,18 @@ def main() -> int:
             print(f"# bench --mode lal: K1 {lal_bench_launches} launches a query; host-fit leg: "
                   f"{skipped or payload['lal_query_seconds_host_fit']}")
         if mode == "round":
+            roof = payload.get("roofline")
+            phases = ("fit", "round", "score_select", "chunk", "fused_round")
+            if not isinstance(roof, dict) or any(p not in roof for p in phases):
+                fail(f"bench --mode round: the roofline section lacks a phase: {roof}")
+            for p in phases:
+                over = {k: v for k, v in roofline_lib.shares(roof[p]).items() if v > 1.0}
+                if "error" in roof[p] or over:
+                    fail(f"bench --mode round: roofline {p}: {roof[p].get('error') or over}")
+            bench_batched["round_roofline"] = roof
+            print("# bench --mode round roofline: " + "; ".join(
+                f"{p} bandwidth_util {roof[p]['bandwidth_util']}, mfu_f32 {roof[p]['mfu_f32']}, "
+                f"{roof[p]['bound']}" for p in phases))
             pod_keys = ("pod_select_seconds_by_shards", "pod_select_points_per_second",
                         "pod_recompiles_after_warmup", "pod_ingest_seconds_by_shards",
                         "pod_ingest_points_per_second", "pod_ingest_recompiles_after_warmup",
@@ -4644,6 +4974,30 @@ def main() -> int:
             payload.get("value", 0) > 0):
         fail(f"bench --mode score through the mesh: {payload}")
     bench_batched["score_mesh4x2"] = payload
+    # --mode all under a deadline it cannot meet: the line lands for what
+    # completed, naming what was skipped; then one --profile-dir call.
+    for extra in (["--mode", "all", "--deadline", "1", "--pool", "50000", "--iters", "2"],
+                  ["--mode", "score", "--profile-dir", os.path.join(tempfile.mkdtemp(), "prof")]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = bench.main(extra)
+        lines = out.getvalue().splitlines()
+        if rc != 0 or len(lines) != 1:
+            fail(f"bench {' '.join(extra)} exited {rc} and printed {len(lines)} lines: {lines[-1:]}")
+        payload = json.loads(lines[0])
+        if "--deadline" in extra:
+            if not payload.get("modes_skipped") or payload.get("error"):
+                fail(f"bench --mode all --deadline 1: no modes_skipped: {payload}")
+            bench_batched["all_deadline"] = {k: payload[k] for k in ("modes", "modes_skipped")}
+            print(f"# bench --mode all --deadline 1: ran {list(payload['modes'])}, skipped "
+                  f"{[m['mode'] for m in payload['modes_skipped']]}")
+        else:
+            phase_s = payload.get("device_seconds_by_phase", {})
+            if not phase_s.get("bench/score", 0) > 0:
+                fail(f"bench --profile-dir: no device seconds under bench/score: {payload}")
+            bench_batched["profile_dir"] = {k: payload[k] for k in (
+                "device_seconds_by_phase", "device_seconds_total")}
+            print(f"# bench --mode score --profile-dir: device_seconds_by_phase {phase_s}")
     variant_launches = {"forest_leaves_transposed": lv.transposed_launches,
                         "forest_leaves_segmented": lv.segmented_launches}
     print(f"# bench --mode variants launches, counted from 0: {variant_launches}")
@@ -4741,6 +5095,7 @@ def main() -> int:
         "fleet": {k: v for k, v in fleet_numbers.items() if k != "launches"},
         "mesh_pod": {k: v for k, v in pod_numbers.items() if k != "launches"},
         "multi_process": {k: v for k, v in mp_numbers.items() if k != "launches"},
+        "preflight": preflight_numbers,
         "bench_batched": bench_batched,
         "half_leaves_f32": half_leaves,
         "new_paths": new_paths, "merge_tile_topk_ms": merge_ms,

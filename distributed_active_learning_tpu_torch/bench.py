@@ -1,7 +1,8 @@
 """The port's own bench: one JSON line on stdout, always.
 
-    python -m distributed_active_learning_tpu_torch.bench --mode score|density|round|variants|neural|serve|serve-multi
-        [--device cpu] [--kernel pallas|gemm|gather] [--pool N] [--trees T] ...
+    python -m distributed_active_learning_tpu_torch.bench [--mode all|score|density|round|...]
+        [--device cpu] [--kernel pallas|gemm|gather] [--pool N] [--trees T] [--deadline S]
+        [--audit] [--profile-dir DIR] [--compare-to BASELINE.json] ...
 
 The counterpart of the repo-root ``bench.py`` (the JAX package's, which stays
 as it is) for what the port carries:
@@ -136,12 +137,32 @@ normal exit.
   ``dal_recompiles_after_warmup_total`` and
   ``serve_fleet_shared_sig_fallbacks`` (0). Not part of any "all" mode.
 
-Not carried yet, each with the slice it waits for: the score mode's
-host-fit leg (the bench runs where the card is, which has no scikit-learn; a
-host-fit forest would come as a forest file), the roofline section,
-``--audit`` and ``--compare-to`` (the pre-flight slice, ROADMAP queue 1
-item 9).
-``--kernel gather`` is carried by the score and density modes.
+- ``--mode all`` (the default, as in the JAX bench): score, density,
+  round, sweep, grid, serve, serve-multi, lal and neural in turn, each
+  gated on ``--deadline`` (seconds from the start; default the
+  ``DAL_BENCH_DEADLINE`` variable, else 420; 0 disables): a mode the
+  deadline would cut is skipped and named under ``modes_skipped``, and the
+  line lands for what completed: each finished mode's keys are kept as it
+  finishes, so a later mode that raises, or a SIGTERM or SIGINT (an outer
+  ``timeout``), still prints them beside the ``error``.
+
+The round mode's ``roofline`` section attributes each phase (``fit``,
+``round``, ``score_select`` = round - fit, ``chunk`` and ``fused_round``, a
+launch of K rounds): the program's counted FLOPs and bytes
+(``analysis/roofline.py``, the kernels at their declared work) joined with
+its measured seconds into achieved rates, the shares of the card's peaks
+(``mfu`` of the bf16 table, ``mfu_f32`` of the float32 one,
+``bandwidth_util``) and the bound verdict. ``--audit`` prices the programs
+the mode launches before it runs (``analysis/memory.py``; the verdict under
+``audit``), ``--profile-dir DIR`` traces the run with ``torch.profiler`` on
+the card and adds ``device_seconds_by_phase`` (kernel time under each
+``bench/`` range; a trace without device time is an error), and
+``--compare-to PATH`` adds the regression sentinel's verdict against a
+baseline line (``benches/compare_bench.py``, the port's copy).
+
+Not carried: the score mode's host-fit leg (the bench runs where the card
+is, which has no scikit-learn; a host-fit forest would come as a forest
+file). ``--kernel gather`` is carried by the score and density modes.
 """
 
 from __future__ import annotations
@@ -150,6 +171,8 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -170,6 +193,16 @@ _CPU_SIZES = dict(pool=10_000, trees=10, train_rows=500, iters=2, rounds_per_lau
 # The reference's one LAL query on Spark (classes/RESULTS.txt), the JAX
 # bench's baseline.
 SPARK_LAL_QUERY_SEC = 1654.16
+
+# What ``--mode all`` has finished so far, kept as each mode completes, so
+# that main() prints it if a later mode raises or a signal ends the run.
+_PARTIAL: dict = {}
+
+
+class BenchInterrupted(BaseException):
+    """Raised by the SIGTERM/SIGINT handler, so that an outer ``timeout``
+    (which sends SIGTERM before SIGKILL) unwinds through main()'s JSON
+    line."""
 
 
 def card_line(dev: torch.device) -> Optional[str]:
@@ -442,6 +475,8 @@ def _bench_scan_fusion(args, dev, pool, pool_y, mask0, binned, writer=None) -> d
         out["chunk_graph"] = chunk_fn.stats()
         out["chunk_graph_metrics_off"] = off_fn.stats()
     del off_fn
+    out["roofline_chunk"] = _roofline_launch(chunk_fn, (binned.codes, state0, aux, fit_key, tx, ty,
+                                                        end), chunk_sec * K, K)
     out.update(_bench_pipelined(args, dev, chunk_fn, state0, aux, binned, fit_key, tx, ty,
                                 writer=writer))
     out.update(telemetry.device_memory_gauges())
@@ -535,6 +570,9 @@ def _bench_fused_round(args, dev, pool, pool_y, mask0, binned) -> dict:
             pipeline.start_host_copy((extras, ys)).wait()
 
         runs[name] = run
+        if fused:
+            fused_inputs = {"fn": chunk_fn,
+                            "args": (binned.codes, state0, aux, fit_key, tx, ty, end)}
         _flight("bench_compile", label=f"round/fused_round/{name}")
         legs[name] = {"first_call": _wall(run, dev)}
     reps = 5
@@ -548,13 +586,64 @@ def _bench_fused_round(args, dev, pool, pool_y, mask0, binned) -> dict:
     for name in runs:
         legs[name]["seconds_per_round"] = min(times[name]) / K
     speedup = statistics.median(u / f for u, f in zip(times["unfused"], times["fused"]))
+    fused_args = fused_inputs["args"]
     return {
+        "roofline_fused_round": _roofline_launch(
+            fused_inputs["fn"], fused_args, legs["fused"]["seconds_per_round"] * K, K),
         "fused_round_kernel": args.kernel,
         "fused_scan_seconds_per_round": round(legs["fused"]["seconds_per_round"], 6),
         "unfused_scan_seconds_per_round": round(legs["unfused"]["seconds_per_round"], 6),
         "fused_round_speedup": round(speedup, 3),
         "fused_round_compile_seconds": round(legs["fused"]["first_call"], 4),
     }
+
+
+def _roofline_launch(chunk_fn, args, seconds: float, K: int) -> dict:
+    """The roofline row of one chunk launch (K rounds): the chunk's eager
+    body (what its CUDA graph replays) counted on copies of its carry,
+    joined with the launch's seconds; an error becomes ``{"error": ...}``."""
+    from distributed_active_learning_tpu_torch.analysis import roofline as roofline_lib
+    from distributed_active_learning_tpu_torch.runtime import loop
+    from distributed_active_learning_tpu_torch.runtime.pipeline import _map_leaves
+
+    body = getattr(chunk_fn, "_fn", chunk_fn)
+    args = list(args)
+    args[1] = args[1].replace(**{f: _map_leaves(torch.clone, getattr(args[1], f))
+                                 for f in loop.CARRY_FIELDS})
+    try:
+        attr = roofline_lib.attribute_card(roofline_lib.program_cost(body, *args), seconds)
+    except Exception as e:  # noqa: BLE001 — attribution must not kill a bench
+        return {"error": f"{type(e).__name__}: {e}"}
+    attr["rounds_per_launch"] = K
+    attr["time_method"] = "wall_median_per_launch"
+    return attr
+
+
+def _roofline_round(fit_fn, round_fn, fit_sec: float, round_sec: float, score_sec: float,
+                    dev) -> dict:
+    """The round mode's per-phase roofline table, the JAX bench's: the fit,
+    the whole round and the score + select half (round minus fit), each
+    naming its time basis."""
+    from distributed_active_learning_tpu_torch.analysis import roofline as roofline_lib
+
+    try:
+        fit_cost = roofline_lib.program_cost(fit_fn)
+        round_cost = roofline_lib.program_cost(round_fn)
+    except Exception as e:  # noqa: BLE001 — attribution must not kill a bench
+        return {"error": f"{type(e).__name__}: {e}"}
+    out = {"fit": roofline_lib.attribute_card(fit_cost, fit_sec),
+           "round": roofline_lib.attribute_card(round_cost, round_sec)}
+    out["fit"]["time_method"] = "wall_median"
+    out["round"]["time_method"] = "cuda_events" if dev.type == "cuda" else "host_clock"
+    flops = max(round_cost["flops"] - fit_cost["flops"], 0.0) or None
+    nbytes = max(round_cost["bytes_accessed"] - fit_cost["bytes_accessed"], 0.0) or None
+    score_cost = {"flops": flops, "bytes_accessed": nbytes,
+                  "flops_per_byte": round(flops / nbytes, 4) if flops and nbytes else None}
+    out["score_select"] = roofline_lib.attribute_card(score_cost,
+                                                      score_sec if score_sec > 0 else None)
+    out["score_select"]["derived"] = "round - fit"
+    out["score_select"]["time_method"] = "derived_wall"
+    return out
 
 
 def bench_round(args, dev) -> dict:
@@ -596,6 +685,8 @@ def bench_round(args, dev) -> dict:
     round_sec = _median_wall(device_round, args.iters, dev, label="round/device_round")
     round_dev_sec = _median_device(device_round, args.iters, dev)
     fit_sec = _median_wall(fit_heap, args.iters, dev, label="round/fit")
+    roofline = _roofline_round(fit_heap, device_round, fit_sec, round_dev_sec,
+                               max(round_sec - fit_sec, 0.0), dev)
     result = {
         "metric": "al_round_seconds",
         "value": round(round_sec, 6),
@@ -606,6 +697,9 @@ def bench_round(args, dev) -> dict:
         "round_time_method": "cuda_events" if dev.type == "cuda" else "host_clock",
         "round_fit_seconds": round(fit_sec, 6),
         "round_score_seconds": round(max(round_sec - fit_sec, 0.0), 6),
+        # Per-phase roofline attribution (fit / round / score_select, then
+        # the chunk and the fused round below).
+        "roofline": roofline,
     }
     del pool_dev, y_dev, mask_dev
     writer = None
@@ -629,6 +723,10 @@ def bench_round(args, dev) -> dict:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+    for key, name in (("roofline_chunk", "chunk"), ("roofline_fused_round", "fused_round")):
+        attr = result.pop(key, None)
+        if attr is not None and isinstance(result["roofline"], dict):
+            result["roofline"][name] = attr
     graphs = [result.get(k) for k in ("chunk_graph", "chunk_graph_metrics_off")]
     result["recompiles_after_warmup"] = sum(max(g["captures"] - 1, 0) for g in graphs if g)
     result.update(_bench_pod_select(args, dev, pool, binned, y_host=pool_y, mask0=mask0))
@@ -1764,13 +1862,193 @@ _MODES = {"score": bench_score, "density": bench_density, "round": bench_round,
           "neural": bench_neural, "serve": bench_serve, "serve-multi": bench_serve_multi,
           "serve-fleet": bench_serve_fleet}
 
+#: ``--mode all``: the JAX bench's set and order of modes.
+ALL_MODES = ("score", "density", "round", "sweep", "grid", "serve", "serve-multi", "lal",
+             "neural")
+
+#: Rough wall seconds of each mode at the CPU smoke sizes (the JAX bench's
+#: table): under ``--mode all`` a mode that cannot finish inside the
+#: ``--deadline`` is skipped up front on the CPU. On the card the modes
+#: take seconds at the bench width, so only the deadline itself skips.
+_CPU_COST = {"score": 30, "density": 25, "round": 380, "sweep": 90, "grid": 170, "serve": 120,
+             "serve-multi": 180, "lal": 30, "neural": 260}
+
+
+def bench_all(args, dev) -> dict:
+    """``--mode all``: the JAX bench's modes one after another, each gated
+    on ``--deadline`` (seconds from the bench's start): a mode the deadline
+    would cut is skipped and recorded under ``modes_skipped`` (mode, reason,
+    seconds elapsed at the skip), so the line always lands for whatever
+    completed. The first completed mode's ``metric`` and ``value`` head the
+    line; every mode's keys are merged in, and ``modes`` keeps each one's
+    headline."""
+    t0, deadline = args._start_time, args.deadline
+    skipped, heads = [], {}
+    _PARTIAL.clear()
+    out = _PARTIAL
+    out["modes"] = heads
+    for mode in ALL_MODES:
+        elapsed = time.perf_counter() - t0
+        est = _CPU_COST[mode] if dev.type == "cpu" else 0
+        if deadline and elapsed + est > deadline:
+            entry = {"mode": mode,
+                     "reason": "deadline_exceeded" if elapsed > deadline else "predicted_overrun",
+                     "elapsed_at_skip_seconds": round(elapsed, 2), "deadline_seconds": deadline}
+            if entry["reason"] == "predicted_overrun":
+                entry["estimated_mode_seconds"] = est
+            skipped.append(entry)
+            out["modes_skipped"] = skipped
+            _flight("bench_mode_skip", **entry)
+            continue
+        with torch.profiler.record_function(f"bench/{mode}"):  # --profile-dir's phases
+            r = _MODES[mode](args, dev)
+        heads[mode] = {k: r.get(k) for k in ("metric", "value", "unit")}
+        for k in ("metric", "value", "unit"):
+            out.setdefault(k, r.get(k))
+        out.update({k: v for k, v in r.items() if k not in ("metric", "value", "unit")})
+    if "metric" not in out:
+        out.update(metric="none_completed_before_deadline", value=None)
+    return dict(out)
+
+
+_MODES["all"] = bench_all
+
+
+def _profiled(args, dev, run) -> dict:
+    """``--profile-dir``: ``run()`` under ``torch.profiler`` on the card,
+    the trace written to the directory, and the device time of the kernels
+    under each ``bench/`` range as ``device_seconds_by_phase``. The
+    profiler's CUPTI path must give device time: a trace without any is an
+    error, never zeros or another clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from distributed_active_learning_tpu_torch.runtime import telemetry
+
+    if dev.type != "cuda":
+        raise ValueError("--profile-dir times the card's kernels (device_seconds_by_phase); "
+                         "the CPU has no device time")
+    telemetry.prepare_profile_dir(args.profile_dir)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(f"bench/{args.mode}"):
+            payload = run()
+        torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(os.path.join(args.profile_dir, f"bench_trace_{os.getpid()}.json"))
+    events = prof.key_averages()
+    total = sum(_device_us(e, "self_") for e in events
+                if e.device_type == DeviceType.CUDA and not e.key.startswith(_RANGES))
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time on this machine (its CUPTI "
+                           "tracing gave no kernel rows): device_seconds_by_phase cannot be "
+                           "measured here; time with CUDA events instead")
+    # A host range's device time is the kernels launched inside it.
+    payload["device_seconds_by_phase"] = {
+        e.key: round(_device_us(e) / 1e6, 6) for e in events
+        if e.device_type == DeviceType.CPU and e.key.startswith(_RANGES)}
+    payload["device_seconds_total"] = round(total / 1e6, 6)
+    return payload
+
+
+_RANGES = ("bench/", "al_phase/")
+
+
+def _device_us(event, prefix: str = "") -> float:
+    """A profiler row's device microseconds (``self_`` for its own)."""
+    value = getattr(event, f"{prefix}device_time_total", None)
+    if value is None:
+        value = getattr(event, f"{prefix}cuda_time_total", 0.0)
+    return float(value)
+
+
+def _audit(args, dev) -> dict:
+    """``--audit``: the memory pre-flight (``analysis/memory.py``) of the
+    programs the selected modes launch, each family at its own sizes (the
+    round's chunk at the bench pool, the sweep's at ``--sweep-pool``, the
+    neural chunk at ``--neural-pool``, the service's at ``--serve-pool``),
+    priced on the meta device before any mode runs. An error finding
+    raises (the line still prints, carrying the error); the verdict and the
+    ``memory`` section ride the line under ``audit``."""
+    import dataclasses as dc
+
+    from distributed_active_learning_tpu_torch.analysis import memory as memory_lib
+    from distributed_active_learning_tpu_torch.analysis import programs as programs_lib
+
+    modes = ALL_MODES if args.mode == "all" else (args.mode,)
+    cfg = dc.replace(programs_lib.BENCH_CONFIG,
+                     forest=dc.replace(programs_lib.BENCH_CONFIG.forest, n_trees=args.trees,
+                                       max_depth=args.depth, kernel=args.kernel),
+                     strategy=dc.replace(programs_lib.BENCH_CONFIG.strategy,
+                                         window_size=args.window),
+                     n_start=args.train_rows, rounds_per_launch=args.rounds_per_launch)
+    specs = []
+    for mode, rows in (("round", args.pool), ("sweep", args.sweep_pool),
+                       ("grid", args.sweep_pool)):
+        if mode in modes or (mode == "round" and any(m in modes for m in ("score", "density"))):
+            shapes = programs_lib.ForestShapes(rows, args.features, min(rows, 2048))
+            specs += [dc.replace(spec, name=f"{mode}:{spec.name}") for spec in
+                      programs_lib.specs_for_experiment(cfg, shapes, kinds=("chunk",))]
+    if "neural" in modes:
+        specs.append(programs_lib.ProgramSpec(
+            "neural:neural_chunk/deep.entropy/cnn", "neural_chunk",
+            programs_lib.neural_chunk_program(programs_lib.NeuralShapes(
+                "cnn", (32, 32, 3), args.neural_pool, max(500, args.neural_pool // 5), 10,
+                train_steps=args.train_steps, mc_samples=args.mc_samples))))
+    if any(m in modes for m in ("serve", "serve-multi", "serve-fleet")):
+        for kind in ("serve_score", "serve_chunk"):
+            specs.append(programs_lib.ProgramSpec(
+                f"serve:{kind}/{args.serve_pool}", kind, programs_lib.serve_program(
+                    kind, programs_lib.serve_config(4), programs_lib.SERVE_CONFIG,
+                    -(-args.serve_pool // 1024) * 1024, args.features, 2048)))
+    budget = memory_lib.budget_from_env_or()
+    table, findings = memory_lib.memory_table(specs, budget)
+    memory = memory_lib.memory_section(table, findings, budget)
+    if any(f.severity == "error" for f in findings):
+        for f in findings:
+            print(str(f), file=sys.stderr)
+        raise RuntimeError(f"memory budget gate failed before benching: {memory['counts']} "
+                           "(findings on stderr; reproduce with `python -m "
+                           "distributed_active_learning_tpu_torch.analysis --memory`)")
+    return {"programs_audited": len(specs), "counts": memory["counts"], "memory": memory}
+
+
+def _compare_to(path: str, payload: dict) -> dict:
+    """``--compare-to``: the port's own copy of the regression sentinel
+    (``benches/compare_bench.py``, stdlib only) on this line against the
+    baseline at ``path``; an error becomes ``{"error": ...}`` (the line must
+    land)."""
+    from distributed_active_learning_tpu_torch.benches import compare_bench
+
+    try:
+        return compare_bench.compare_payloads(compare_bench.load_payload(path), payload,
+                                              baseline_name=path)
+    except BaseException as e:  # noqa: BLE001 — SystemExit from the loader included
+        return {"error": f"{type(e).__name__}: {e}"}
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="distributed_active_learning_tpu_torch.bench",
         description="the PyTorch/CUDA port's bench: one JSON line on stdout",
     )
-    ap.add_argument("--mode", choices=sorted(_MODES), default="score")
+    ap.add_argument("--mode", choices=sorted([*_MODES]), default="all",
+                    help="the bench to run; all (the JAX bench's default) runs "
+                    f"{', '.join(ALL_MODES)} in turn under --deadline")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="wall-seconds budget for --mode all: a mode that would start past it "
+                    "is skipped (modes_skipped) and the line lands for the modes that "
+                    "completed. Default: the DAL_BENCH_DEADLINE variable, else 420; 0 disables")
+    ap.add_argument("--audit", action="store_true",
+                    help="price the programs the mode launches before running it (the memory "
+                    "pre-flight, analysis/memory.py); an error finding fails the bench, the "
+                    "verdict rides the line under 'audit'")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="trace the run with torch.profiler on the card into DIR and fold the "
+                    "kernels' device time under each bench/ and al_phase/ range into the line as "
+                    "device_seconds_by_phase")
+    ap.add_argument("--compare-to", default=None, metavar="PATH",
+                    help="regression sentinel (benches/compare_bench.py, the port's copy): the "
+                    "verdict of this line against the bench JSON at PATH rides under "
+                    "'regression' (the bench itself never fails on it)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--pool", type=int, default=None)
     ap.add_argument("--features", type=int, default=30)
@@ -1854,10 +2132,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    args._start_time = time.perf_counter()
+    if args.deadline is None:
+        args.deadline = float(os.environ.get("DAL_BENCH_DEADLINE", "420"))
+    if args.deadline <= 0:
+        args.deadline = None
     payload = {"mode": args.mode}
     rc = 0
+    _PARTIAL.clear()
     from distributed_active_learning_tpu_torch.runtime import telemetry
 
+    def _interrupted(signum, _frame):
+        # One-shot: a second signal while the line is printed is ignored.
+        for s in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(s, signal.SIG_IGN)
+        raise BenchInterrupted(f"signal {signum}")
+
+    # Armed before the flight recorder, whose SIGTERM hook dumps and then
+    # chains here; restored when the line is out.
+    try:
+        handlers = {s: signal.signal(s, _interrupted) for s in (signal.SIGTERM, signal.SIGINT)}
+    except ValueError:  # not the main thread: no signal unwind
+        handlers = {}
     if args.flight_recorder:
         telemetry.install_flight_recorder(args.flight_recorder)
         _flight("bench_start", mode=args.mode)
@@ -1881,16 +2177,29 @@ def main(argv=None) -> int:
         payload["cpu_smoke_sizes"] = cpu
         payload["sizes"] = {k: getattr(args, k) for k in
                             ("pool", "features", "trees", "depth", "window", "train_rows", "iters")}
+        if args.audit:
+            payload["audit"] = _audit(args, dev)
         t0 = time.perf_counter()
-        payload.update(_MODES[args.mode](args, dev))
+        if args.profile_dir:
+            payload.update(_profiled(args, dev, lambda: _MODES[args.mode](args, dev)))
+        else:
+            payload.update(_MODES[args.mode](args, dev))
         payload["bench_seconds"] = round(time.perf_counter() - t0, 2)
-    except Exception as e:  # the line is printed whatever happened; the exit code says it failed
-        payload["metric"] = "bench_failed"
+    except BaseException as e:  # noqa: BLE001 — the line is printed whatever happened
+        payload.update(_PARTIAL)
         payload["error"] = f"{type(e).__name__}: {e}"
-        rc = 1
+        interrupted = isinstance(e, BenchInterrupted)
+        payload.setdefault("metric", "bench_interrupted" if interrupted else "bench_failed")
+        payload.setdefault("value", None)
+        rc = 0 if interrupted else 1
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
     if args.flight_recorder:
         payload["flight_recorder"] = telemetry.flight_dump(
-            "exit" if rc == 0 else f"crash:{payload['error'].split(':', 1)[0]}")
+            "exit" if "error" not in payload else f"crash:{payload['error'].split(':', 1)[0]}")
+    if args.compare_to and "error" not in payload:
+        payload["regression"] = _compare_to(args.compare_to, payload)
     print(json.dumps(payload))
     sys.stdout.flush()
     return rc

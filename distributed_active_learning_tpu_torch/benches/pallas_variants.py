@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.analysis import costs
 from distributed_active_learning_tpu_torch.ops import trees_pallas
 from distributed_active_learning_tpu_torch.ops.trees_gemm import GemmForest
 
@@ -251,12 +252,23 @@ def predict_leaves_transposed(gf: GemmForest, x: torch.Tensor, bn: int = _BN, bt
         raise ValueError(f"ablate must be one of {ABLATE}, got {ablate!r}")
     if trees_pallas.tile_dims(gf, *x.shape) is None:
         raise ValueError("the forest exceeds the kernels' tile limits (depth > 8 or d > 512)")
-    if x.device.type == "cuda":
-        p = _prep_transposed(gf, x, bn, bt, leaf_f32)
-        return _launch_transposed(p, bn, bt, tree_outer, ablate).T
-    if x.device.type == "cpu":
-        return predict_leaves_transposed_plain(gf, x, leaf_f32, ablate)
+    with kernels.kernel_work("forest_leaves_transposed", lambda: _variant_cost(gf, x, bn)):
+        if x.device.type == "cuda":
+            p = _prep_transposed(gf, x, bn, bt, leaf_f32)
+            return _launch_transposed(p, bn, bt, tree_outer, ablate).T
+        if x.device.type == "cpu":
+            return predict_leaves_transposed_plain(gf, x, leaf_f32, ablate)
     raise ValueError(f"unsupported device {x.device}")
+
+
+def _variant_cost(gf: GemmForest, x: torch.Tensor, bn: int) -> costs.Cost:
+    """K5's and K6's declared work: the feature-major bf16 pool as they
+    read it (features padded to 32, rows to ``bn``), the forest's heap form,
+    ``[T, n]`` f32 leaves."""
+    n = x.shape[0]
+    xt_bytes = 2 * (-(-x.shape[1] // 32) * 32) * (-(-n // bn) * bn)
+    return costs.forest_leaves_variant(xt_bytes, n, gf.n_trees,
+                                       gf.value.shape[1].bit_length() - 1)
 
 
 # ------------------------------------------------------------ segmented
@@ -420,11 +432,12 @@ def predict_leaves_segmented(gf: GemmForest, x: torch.Tensor, bn: int = 2048,
     """Per-tree leaf values ``[n, T]`` through the segmented layout: the CUDA
     kernel for a CUDA tensor (a forest of complete heap trees, else
     ``ValueError``), its plain version for a CPU tensor."""
-    p = _segmented_operands(gf, x, bn, bt)
-    if x.device.type == "cuda":
-        return _launch_segmented(p, bn, bt).T
-    if x.device.type == "cpu":
-        return _segmented_plain(p)
+    with kernels.kernel_work("forest_leaves_segmented", lambda: _variant_cost(gf, x, bn)):
+        p = _segmented_operands(gf, x, bn, bt)
+        if x.device.type == "cuda":
+            return _launch_segmented(p, bn, bt).T
+        if x.device.type == "cpu":
+            return _segmented_plain(p)
     raise ValueError(f"unsupported device {x.device}")
 
 

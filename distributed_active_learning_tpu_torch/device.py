@@ -34,7 +34,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
         # set explicitly: cuDNN's default is TF32 on.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
+        # The meta device runs a program for its shapes only: the memory
+        # pre-flight prices it there (analysis/memory.py).
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 

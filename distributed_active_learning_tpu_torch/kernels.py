@@ -184,6 +184,83 @@ def capture_tally(keys=()):
         _counting.tally = prev
 
 
+# Work accounting. A counting mode (``analysis.roofline.program_cost``, the
+# memory pre-flight of ``analysis.memory``) installs a :class:`WorkTally` on
+# this thread (:func:`work_tally`). Each wrapper declares its kernel's work
+# from the shapes it was given, where it counts its launch
+# (:func:`kernel_work`): the tally adds that declaration and no operation
+# made inside the wrapper, whichever route computes the function there (the
+# CUDA kernel, its plain version on the CPU, the meta stand-in of a priced
+# program). So a program has one cost whatever implements its kernels.
+class WorkTally:
+    """Declared kernel work: ``kernels[name] = {"calls", "flops",
+    "bytes"}``, the distinct launch shapes a wrapper gave (``launches``:
+    ``{"kernel", **shape}``, for the shared-memory pre-flight); ``inside``
+    > 0 while a wrapper's body runs (its operations are the kernel's, not
+    the program's)."""
+
+    def __init__(self):
+        self.kernels: Dict[str, dict] = {}
+        self.launches: list = []
+        self.inside = 0
+
+    def declare(self, name: str, flops: float, nbytes: float, shape=None) -> None:
+        row = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
+        row["calls"] += 1
+        row["flops"] += float(flops)
+        row["bytes"] += float(nbytes)
+        if shape is not None:
+            launch = {"kernel": name, **shape}
+            if launch not in self.launches:
+                self.launches.append(launch)
+
+
+@contextlib.contextmanager
+def work_tally(tally: WorkTally):
+    """Declare this thread's kernel work into ``tally`` for the block."""
+    prev = getattr(_counting, "work", None)
+    _counting.work = tally
+    try:
+        yield tally
+    finally:
+        _counting.work = prev
+
+
+class _Declared:
+    """The body of one wrapper call under a work tally (:func:`kernel_work`)."""
+
+    __slots__ = ("tally", "name", "cost", "shape")
+
+    def __init__(self, tally: WorkTally, name: str, cost, shape):
+        self.tally, self.name, self.cost, self.shape = tally, name, cost, shape
+
+    def __enter__(self):
+        if self.tally.inside == 0:
+            self.tally.declare(self.name, *self.cost(),
+                               shape=self.shape() if self.shape is not None else None)
+        self.tally.inside += 1
+
+    def __exit__(self, *exc):
+        self.tally.inside -= 1
+        return False
+
+
+_NO_WORK = contextlib.nullcontext()
+
+
+def kernel_work(name: str, cost, shape=None):
+    """The body of a wrapper of kernel ``name``: ``cost()`` gives its work
+    (``(flops, bytes)`` from ``analysis.costs``) and ``shape()`` its launch
+    shape (a dict; ``shape`` may be None). Both are called only when this
+    thread has a tally installed, which gets the work once, with the body's
+    own operations left out of it; otherwise the context does nothing. A
+    wrapper called inside another's body declares nothing."""
+    tally = getattr(_counting, "work", None)
+    if tally is None:
+        return _NO_WORK
+    return _Declared(tally, name, cost, shape)
+
+
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:

@@ -221,3 +221,35 @@ def load_or_train_lal_regressor(options: Mapping, device=None) -> PackedForest:
     _CACHE[key] = packed
     return packed
 
+
+
+def _main(argv=None) -> int:
+    """Write a reference-format LAL training file (the JAX package's
+    ``_main``): rows of the 5 features and the error-reduction target,
+    whitespace-separated, the format ``lal_data_path`` loads::
+
+        python -m distributed_active_learning_tpu_torch.models.lal_training \\
+            --seed 0 --experiments 720 --out lal_simulatedunbalanced_big.txt
+
+    The experiments run on ``--device`` (default the card; ``cpu`` for the
+    plain versions)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="lal_training")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--experiments", type=int, default=90)
+    ap.add_argument("--candidates", type=int, default=8)
+    ap.add_argument("--pool-size", type=int, default=200)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    args = ap.parse_args(argv)
+    feats, targets = generate_lal_dataset(
+        seed=args.seed, n_experiments=args.experiments,
+        candidates_per_experiment=args.candidates, pool_size=args.pool_size, device=args.device)
+    np.savetxt(args.out, np.column_stack([feats, targets]), fmt="%.8g")
+    print(f"{feats.shape[0]} rows -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.analysis import costs
 from distributed_active_learning_tpu_torch.ops.topk import NEG_INF
 
 #: Window-padding index: larger than any real pool index, so a padding row
@@ -146,10 +147,18 @@ def ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
     the CPU: the plain copies."""
     if len(src) != len(dst) or not src:
         raise ValueError("a ring step needs one destination per source window")
+    with kernels.kernel_work("ring_hop",
+                            lambda: costs.ring_step([v.shape[0] for v, _ in src])):
+        _ring_step(src, dst)
+
+
+def _ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
     dev = src[0][0].device
     if dev.type == "cpu":
         ring_step_plain(src, dst)
         return
+    if dev.type == "meta":
+        return  # a priced program's stand-in: the buffers exist, nothing moves
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     others = sorted({v.device for v, _ in dst} - {dev}, key=str)
@@ -346,18 +355,20 @@ def _ring_topk_processes(windows: Sequence[Window], k: int, procs: int, plain: b
     for step in range(n_local * procs - 1):
         slot = step % 2
         nxt = [None] + list(bufs[slot][1:])
-        if on_card:
-            stream = torch.cuda.current_stream(dev)
-            stream.synchronize()
-            multihost.barrier()  # every receiving slot of this step is free
-            _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in cur],
-                         [(v.data_ptr(), i.data_ptr()) for v, i in nxt[1:]] + [win.remote(slot)])
-            stream.synchronize()
-            multihost.barrier()  # every window of this step has landed
-            nxt[0] = win.local(slot)
-        else:
-            ring_step_plain(cur[:-1], nxt[1:])
-            nxt[0] = hop_processes_plain(*cur[-1], tag=step)
+        with kernels.kernel_work("ring_hop", lambda: costs.ring_step([k] * n_local)):
+            if on_card:
+                stream = torch.cuda.current_stream(dev)
+                stream.synchronize()
+                multihost.barrier()  # every receiving slot of this step is free
+                _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in cur],
+                             [(v.data_ptr(), i.data_ptr()) for v, i in nxt[1:]]
+                             + [win.remote(slot)])
+                stream.synchronize()
+                multihost.barrier()  # every window of this step has landed
+                nxt[0] = win.local(slot)
+            else:
+                ring_step_plain(cur[:-1], nxt[1:])
+                nxt[0] = hop_processes_plain(*cur[-1], tag=step)
         if received is not None:
             received.append((nxt[0][0].clone(), nxt[0][1].clone()))
         for s in range(n_local):

@@ -44,6 +44,7 @@ from typing import Dict, Tuple
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.analysis import costs
 from distributed_active_learning_tpu_torch.ops import ring_topk, scoring, trees_pallas
 from distributed_active_learning_tpu_torch.ops.topk import NEG_INF, merge_tile_topk, stable_top_k
 from distributed_active_learning_tpu_torch.ops.trees_gemm import (
@@ -255,10 +256,24 @@ def _megakernel(forest: PallasForest, x, selectable, strategy_name: str, k: int)
         # the same configurations.
         raise ValueError(f"window {k} exceeds the row tile ({bn})")
     table = score_table(gf.n_trees, strategy_name, x.device)
-    if x.device.type == "cuda":
-        return _launch_megakernel(forest.heap, x, selectable, table, k)
-    if x.device.type == "cpu":
-        return megakernel_plain(gf, x, selectable, table, k)
+    ni, kk = -(-n // TILE_ROWS), min(k, TILE_ROWS)
+
+    def cost():
+        trees, depth, item = trees_pallas.heap_shape(forest)
+        return costs.round_megakernel(n, d, trees, depth, k, item)
+
+    with kernels.kernel_work("round_megakernel", cost,
+                             lambda: trees_pallas.launch_shape(forest, n, d)):
+        if x.device.type == "cuda":
+            return _launch_megakernel(forest.heap, x, selectable, table, k)
+        if x.device.type == "cpu":
+            # Laid out as the kernel writes them, so what follows runs the
+            # same operations on either route.
+            return tuple(t.contiguous() for t in megakernel_plain(gf, x, selectable, table, k))
+        if x.device.type == "meta":
+            forest.heap
+            return (torch.empty(ni, kk, dtype=torch.float32, device=x.device),
+                    torch.empty(ni, kk, dtype=torch.int32, device=x.device))
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -296,10 +311,16 @@ def fused_votes(forest, x: torch.Tensor) -> torch.Tensor:
     if trees_pallas.tile_dims(gf, n, d) is None:
         votes_gemm_route_calls += 1
         return (predict_leaves_gemm(gf, x) > 0.5).sum(dim=1, dtype=torch.int32)
-    if x.device.type == "cuda":
-        return _launch_votes(trees_pallas.heap_operands_of(forest), x)
-    if x.device.type == "cpu":
-        return fused_votes_plain(gf, x)
+    with kernels.kernel_work("fused_votes",
+                             lambda: costs.fused_votes(n, d, *trees_pallas.heap_shape(forest)),
+                             lambda: trees_pallas.launch_shape(forest, n, d)):
+        if x.device.type == "cuda":
+            return _launch_votes(trees_pallas.heap_operands_of(forest), x)
+        if x.device.type == "cpu":
+            return fused_votes_plain(gf, x)
+        if x.device.type == "meta":
+            trees_pallas.heap_operands_of(forest)
+            return torch.empty(n, dtype=torch.int32, device=x.device)
     raise ValueError(f"unsupported device {x.device}")
 
 

@@ -22,6 +22,7 @@ from typing import Sequence
 import torch
 
 from distributed_active_learning_tpu_torch import kernels, prng
+from distributed_active_learning_tpu_torch.analysis import costs
 
 launches = 0
 
@@ -32,9 +33,15 @@ def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     if key.dtype != torch.int64 or key.shape != (2,):
         raise ValueError("K7's uniform takes one int64 key [2]")
     shape = tuple(int(s) for s in shape)
-    if key.device.type != "cuda":
-        return prng.uniform(key, shape, key.device)
-    return _launch_uniform(key, shape)
+    numel = 1
+    for s in shape:
+        numel *= s
+    with kernels.kernel_work("threefry", lambda: costs.threefry_uniform(numel)):
+        if key.device.type == "meta":
+            return torch.empty(shape, dtype=torch.float32, device=key.device)
+        if key.device.type != "cuda":
+            return prng.uniform(key, shape, key.device)
+        return _launch_uniform(key, shape)
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor, rows: int) -> torch.Tensor:
@@ -42,11 +49,15 @@ def categorical(key: torch.Tensor, logits: torch.Tensor, rows: int) -> torch.Ten
     [n]`` shared by the rows, or ``jax.random.categorical(key, logits)`` for
     per-row ``logits [rows, n]``: the Gumbel-max draw, ``[rows]`` int32 on
     the logits' device."""
-    if logits.device.type != "cuda":
-        if logits.dim() == 1:
-            return prng.categorical(key, logits, (rows,))
-        return prng.categorical(key, logits, logits.shape[:-1])
-    return _launch_categorical(key, logits, rows)
+    with kernels.kernel_work("threefry", lambda: costs.threefry_categorical(
+            rows, logits.shape[-1], logits.dim() == 2)):
+        if logits.device.type == "meta":
+            return torch.empty((rows,), dtype=torch.int32, device=logits.device)
+        if logits.device.type != "cuda":
+            if logits.dim() == 1:
+                return prng.categorical(key, logits, (rows,))
+            return prng.categorical(key, logits, logits.shape[:-1])
+        return _launch_categorical(key, logits, rows)
 
 
 def _launch_uniform(key: torch.Tensor, shape) -> torch.Tensor:

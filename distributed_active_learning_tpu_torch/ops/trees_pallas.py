@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from distributed_active_learning_tpu_torch import kernels
+from distributed_active_learning_tpu_torch.analysis import costs
 from distributed_active_learning_tpu_torch.models.forest import dequantize_leaf_values
 from distributed_active_learning_tpu_torch.ops.trees_gemm import (
     GemmForest,
@@ -402,6 +403,38 @@ def heap_operands_of(f) -> HeapOperands:
     return f.heap if isinstance(f, PallasForest) else heap_operands(f)
 
 
+def heap_shape(f):
+    """``(trees, depth, leaf payload bytes)`` of a forest's heap form, from
+    shapes alone: a host fit's packed heaps where it has them, else the
+    path-matrix forest's (the kernels' declared work, ``analysis.costs``)."""
+    heap = f.prepacked if isinstance(f, PallasForest) else None
+    if heap is not None:
+        return heap.n_trees, heap.depth, heap.val.element_size()
+    gf = _unwrap(f)
+    item = gf.value.element_size() if gf.value.dtype in PAYLOAD_CODES else 4
+    return gf.n_trees, gf.value.shape[1].bit_length() - 1, item
+
+
+def launch_shape(f, n: int, d: int) -> dict:
+    """The shape a walking kernel (K1, K2, K3) launches at over ``n`` rows
+    of ``d`` features: the shared-memory pre-flight's input
+    (``analysis.memory.smem_for_launch``)."""
+    trees, depth, item = heap_shape(f)
+    return {"n": n, "d": d, "n_trees": trees, "depth": depth, "item": item}
+
+
+def leaves_cost(f, n: int, d: int) -> costs.Cost:
+    """K1's declared work over ``n`` rows of ``d`` features."""
+    return costs.forest_leaves(n, d, *heap_shape(f))
+
+
+def _meta_leaves(f, x: torch.Tensor) -> torch.Tensor:
+    """K1's output on the meta device (a priced program's stand-in): the
+    heap form built as on the card, ``[T, n]`` f32 seen as ``[n, T]``."""
+    heap_operands_of(f)
+    return torch.empty(_unwrap(f).n_trees, x.shape[0], dtype=torch.float32, device=x.device).T
+
+
 def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
     """Per-tree leaf values ``[n, T]`` of a :class:`GemmForest` or
     :class:`PallasForest`: the CUDA kernel for a CUDA tensor, its plain
@@ -412,10 +445,14 @@ def predict_leaves_pallas(f, x: torch.Tensor) -> torch.Tensor:
     if tile_dims(gf, n, d) is None:
         gemm_route_calls += 1
         return predict_leaves_gemm(gf, x)
-    if x.device.type == "cuda":
-        return _launch_leaves(heap_operands_of(f), x).T
-    if x.device.type == "cpu":
-        return predict_leaves_plain(gf, x)
+    with kernels.kernel_work("forest_leaves", lambda: leaves_cost(f, n, d),
+                             lambda: launch_shape(f, n, d)):
+        if x.device.type == "cuda":
+            return _launch_leaves(heap_operands_of(f), x).T
+        if x.device.type == "cpu":
+            return predict_leaves_plain(gf, x)
+        if x.device.type == "meta":
+            return _meta_leaves(f, x)
     raise ValueError(f"unsupported device {x.device}")
 
 
@@ -456,13 +493,23 @@ def predict_leaves_many(forests, x: torch.Tensor):
     if any(tile_dims(_unwrap(f), n, d) is None for f in forests):
         raise ValueError("a forest past the leaf kernel's tile limits takes the gemm form; "
                          "evaluate such forests one by one")
-    heaps = [heap_operands_of(f) for f in forests]
-    sizes = [h.n_trees for h in heaps]
-    ops = stack_heaps(heaps)
-    if x.device.type == "cuda":
-        return [v.T for v in torch.split(_launch_leaves(ops, x), sizes)]
-    if x.device.type == "cpu":
-        return [v.contiguous() for v in torch.split(walk_leaves_plain(ops, x), sizes, dim=1)]
+
+    def cost():
+        # One launch: x read once, every forest's heap and leaves.
+        work = [leaves_cost(f, n, d) for f in forests]
+        return sum(w[0] for w in work), sum(w[1] for w in work) - 4 * n * d * (len(work) - 1)
+
+    with kernels.kernel_work("forest_leaves", cost):
+        heaps = [heap_operands_of(f) for f in forests]
+        sizes = [h.n_trees for h in heaps]
+        ops = stack_heaps(heaps)
+        if x.device.type == "cuda":
+            return [v.T for v in torch.split(_launch_leaves(ops, x), sizes)]
+        if x.device.type == "cpu":
+            return [v.contiguous() for v in torch.split(walk_leaves_plain(ops, x), sizes, dim=1)]
+        if x.device.type == "meta":
+            out = torch.empty(ops.n_trees, n, dtype=torch.float32, device=x.device)
+            return [v.T for v in torch.split(out, sizes)]
     raise ValueError(f"unsupported device {x.device}")
 
 

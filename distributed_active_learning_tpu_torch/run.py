@@ -26,7 +26,18 @@ Observability and resume, as in the JAX package's CLI: ``--metrics-out``
 (a ``torch.profiler`` Chrome trace), ``--flight-recorder``, ``--ops-port``
 (``/metrics``, ``/healthz``, ``/varz``, ``/flightz`` on localhost) and
 ``--checkpoint-dir`` with ``--checkpoint-every`` (a checkpoint of either
-package resumes in the other). ``--roofline`` is refused by name.
+package resumes in the other). ``--roofline`` (with ``--metrics-out`` and
+``--rounds-per-launch`` > 1) adds a ``roofline`` event after the run: the
+chunk's counted FLOPs and bytes (``analysis/roofline.py``) joined with its
+steady launch seconds. ``--budget N`` stops at N labels, ``--json`` prints
+the records as JSON lines, ``--list`` the datasets and strategies.
+
+``--audit`` is the memory pre-flight (``analysis/memory.py``): before any
+kernel launch the programs this run launches are priced on the meta device
+at the data's shapes, their peak footprint against the card's memory (or
+``--budget-table``'s, or ``DAL_MEMORY_BUDGET``'s) and their kernels' shared
+memory a block against the card's; an error finding refuses the run with
+the findings printed, a clean one prints ``# audit clean: ...``.
 
 Sweeps and grids (``runtime/sweep.py``): ``--sweep-seeds N`` runs seeds
 ``--seed`` .. ``--seed + N - 1`` as one batched launch stream (each seed's
@@ -68,6 +79,8 @@ need ``--fit device`` and refuse ``--fused-round``, as the JAX package's.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import sys
 
 from distributed_active_learning_tpu_torch.config import (
@@ -176,6 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--n-start", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--budget", type=int, default=None, help="stop at N labeled")
     ap.add_argument(
         "--rounds-per-launch", type=int, default=1,
         help="run this many AL rounds per launch (one CUDA graph per chunk "
@@ -220,7 +234,21 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--roofline", action="store_true",
-        help="roofline attribution of the chunk program; not ported (refused by name)",
+        help="with --metrics-out and --rounds-per-launch > 1: count the launched chunk's FLOPs "
+        "and bytes after the run (analysis/roofline.py; its kernels at their declared work) and "
+        "emit a 'roofline' JSONL event joining them with the steady launch seconds: achieved "
+        "FLOP/s and bytes/s, the shares of the card's peaks and the bound verdict",
+    )
+    ap.add_argument(
+        "--audit", action="store_true",
+        help="price the programs this run launches BEFORE running them (analysis/memory.py, on "
+        "the meta device at the data's shapes): peak device memory against the card's (or "
+        "--budget-table's) and the kernels' shared memory a block; refuse on an error finding",
+    )
+    ap.add_argument(
+        "--budget-table", default=None, metavar="PATH",
+        help="with --audit: a JSON budget {\"hbm_bytes\": N, \"smem_bytes\": N} in place of "
+        "the card's (default: the DAL_MEMORY_BUDGET variable's path, else the card)",
     )
     ap.add_argument(
         "--flight-recorder", default=None, metavar="PATH",
@@ -239,6 +267,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plot", default=None, help="save accuracy/time curves as PNG")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--quiet", action="store_true")
+    ap.add_argument("--json", action="store_true", help="print per-round records as JSON lines")
+    ap.add_argument("--list", action="store_true", help="list datasets and strategies")
     ap.add_argument(
         "--phase-detail", action="store_true",
         help="force per-phase (train/acquire/eval) host wall splits; with --rounds-per-launch "
@@ -296,6 +326,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     args.strategy = _STRATEGY_ALIASES.get(args.strategy, args.strategy)
 
+    if args.list:
+        from distributed_active_learning_tpu_torch.data.datasets import available_datasets
+        from distributed_active_learning_tpu_torch.runtime.neural_loop import (
+            available_deep_strategies,
+        )
+        from distributed_active_learning_tpu_torch.strategies import available_strategies
+
+        print("datasets:", ", ".join(available_datasets()))
+        print("strategies:", ", ".join(available_strategies()))
+        print("deep strategies:", ", ".join(available_deep_strategies()))
+        return 0
+
     from distributed_active_learning_tpu_torch.runtime import telemetry
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import run_experiment
@@ -318,9 +360,6 @@ def main(argv=None) -> int:
             ap.error(f"duplicate strategies in --strategies: {grid_strategies}")
     if grid_datasets is not None and len(set(grid_datasets)) != len(grid_datasets):
         ap.error(f"duplicate datasets in --datasets: {grid_datasets}")
-    if args.roofline:
-        ap.error("--roofline needs analysis/roofline.py, which comes with the pre-flight slice "
-                 "(ROADMAP queue 1, \"Pre-flight equivalents\")")
     # Both drivers gate persistence on dir AND interval; half a request
     # would be silently ignored.
     if bool(args.checkpoint_dir) != bool(args.checkpoint_every):
@@ -381,11 +420,13 @@ def main(argv=None) -> int:
                   else ScenarioConfig()),
         n_start=args.n_start,
         max_rounds=args.rounds,
+        label_budget=args.budget,
         rounds_per_launch=args.rounds_per_launch,
         pipeline_depth=args.pipeline_depth,
         sweep_seeds=args.sweep_seeds,
         stream_round_events=args.stream_rounds,
         fused_round=args.fused_round,
+        roofline=args.roofline,
         seed=args.seed,
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
@@ -402,6 +443,9 @@ def main(argv=None) -> int:
                 or scenario_cfgs is not None
                 or (base_scenario.active and args.sweep_seeds > 1))
     seeds = list(range(args.seed, args.seed + args.sweep_seeds))
+    bundle = None
+    if args.audit:
+        bundle = _audit_or_die(args, cfg, neural, use_grid)
     writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
     try:
         with telemetry.profile_session(args.profile_dir):
@@ -422,7 +466,8 @@ def main(argv=None) -> int:
 
                 results = run_sweep(cfg, seeds, debugger=dbg, metrics=writer, device=args.device)
             else:
-                result = run_experiment(cfg, debugger=dbg, metrics=writer, device=args.device)
+                result = run_experiment(cfg, bundle=bundle, debugger=dbg, metrics=writer,
+                                        device=args.device)
     finally:
         if writer is not None:
             writer.close()
@@ -529,7 +574,7 @@ def _run_neural(args, dbg, metrics=None):
                             mc_samples=args.mc_samples, device=dev)
     cfg = NeuralExperimentConfig(
         strategy=args.strategy, window_size=args.window, n_start=args.n_start,
-        max_rounds=args.rounds, seed=args.seed,
+        max_rounds=args.rounds, label_budget=args.budget, seed=args.seed,
         batchbald_max_configs=args.batchbald_max_configs,
         batchbald_candidate_pool=args.candidate_pool,
         batchbald_mc_samples=args.batchbald_samples, beta=args.beta,
@@ -580,8 +625,95 @@ def _scenarios(ap, args):
     return base, axis
 
 
+def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool):
+    """``--audit``: price the programs this run launches on the meta device
+    at the data's shapes (``analysis/memory.py``) against the budget, and
+    refuse to run on an error finding, the findings printed; launches
+    nothing on the card. Returns the forest run's data bundle (loaded once
+    here for its shapes and handed to the run), else None."""
+    import numpy as np
+
+    from distributed_active_learning_tpu_torch.analysis import memory as memory_lib
+    from distributed_active_learning_tpu_torch.analysis import programs as programs_lib
+    from distributed_active_learning_tpu_torch.analysis.report import Report
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset
+
+    try:
+        budget = memory_lib.budget_from_env_or(args.budget_table)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"audit: {e}") from None
+    bundle = None
+    if neural:
+        specs = [programs_lib.ProgramSpec(f"neural_chunk/{args.strategy}", "neural_chunk",
+                                          programs_lib.neural_chunk_program(
+                                              _neural_shapes(args)))]
+    else:
+        bundle = get_dataset(cfg.data)
+        train_x = np.asarray(bundle.train_x)
+        shapes = programs_lib.ForestShapes(
+            pool_rows=train_x.shape[0], features=train_x.shape[1],
+            test_rows=np.asarray(bundle.test_x).shape[0],
+            n_classes=max(int(np.asarray(bundle.train_y).max()) + 1, 2))
+        one = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, data=1, model=1))
+        if use_grid or args.sweep_seeds > 1 or cfg.mesh.data * cfg.mesh.model > 1:
+            print("# audit: a sweep, grid or mesh is priced as one experiment on one device "
+                  "(its batched or sharded program is not built here)", file=sys.stderr)
+            bundle = None
+        specs = programs_lib.specs_for_experiment(one, shapes,
+                                                  with_metrics=bool(args.metrics_out))
+    table, findings = memory_lib.memory_table(specs, budget)
+    report = Report(findings=list(findings), programs=[s.name for s in specs])
+    if report.findings:
+        print(report.render_table(), file=sys.stderr)
+    if report.gate("error"):
+        raise SystemExit("audit failed: error-severity findings in the priced programs (see "
+                         "above); fix them or re-run without --audit")
+    if not args.quiet:
+        peak = max((max(e.get("peak_hbm_bytes", 0), e.get("graph_hbm_bytes", 0))
+                    for e in table.values()), default=0)
+        print(f"# audit clean: {', '.join(report.programs)} (footprint {peak / 2**20:.1f} MiB of "
+              f"{budget.source}'s {(budget.hbm_bytes or 0) / 2**20:.0f} MiB)", file=sys.stderr)
+    return bundle
+
+
+def _neural_shapes(args):
+    """The neural run's program shapes: the generated CIFAR-10 and AG-News
+    stand-ins' from their sizes (``data.datasets._standin_sizes``: drawing
+    them is the run's own work), any other pool's from its data."""
+    import numpy as np
+
+    from distributed_active_learning_tpu_torch.analysis.programs import NeuralShapes
+    from distributed_active_learning_tpu_torch.data import datasets
+
+    data_cfg = DataConfig(name=args.dataset, path=args.data_path, n_samples=args.n_samples,
+                          seed=args.seed)
+    vocab = 4096
+    if args.dataset in ("cifar10", "agnews") and args.data_path is None:
+        n, n_test = datasets._standin_sizes(data_cfg)
+        shape, n_classes = (((32, 32, 3), 10) if args.dataset == "cifar10" else ((64,), 4))
+    else:
+        bundle = datasets.get_dataset(data_cfg)
+        train_x = np.asarray(bundle.train_x)
+        n, n_test, shape = train_x.shape[0], np.asarray(bundle.test_x).shape[0], train_x.shape[1:]
+        n_classes = max(int(np.asarray(bundle.train_y).max()) + 1, 2)
+        vocab = bundle.vocab_size or (int(train_x.max()) + 1 if len(shape) == 1 else vocab)
+    kind = args.model
+    if kind == "auto":
+        kind = ("cnn" if len(shape) == 3 else "transformer"
+                if args.dataset == "agnews" else "mlp")
+    if kind == "mlp" and len(shape) > 1:
+        shape = (int(np.prod(shape)),)
+    return NeuralShapes(
+        model=kind, input_shape=tuple(int(s) for s in shape), pool_rows=int(n),
+        test_rows=int(n_test), n_classes=n_classes, strategy=args.strategy, window=args.window,
+        train_steps=args.train_steps, mc_samples=args.mc_samples,
+        rounds_per_launch=max(args.rounds_per_launch, 1), vocab_size=int(vocab),
+        hidden=tuple(int(h) for h in args.hidden.split(",") if h), d_model=args.d_model,
+        n_layers=args.n_layers, n_heads=args.n_heads, d_ff=args.d_ff)
+
+
 def _emit(args, result, dbg) -> None:
-    sys.stdout.write(result.to_reference_log())
+    sys.stdout.write(result.to_jsonl() if args.json else result.to_reference_log())
     if args.out:
         result.save(args.out, fmt="reference")
     if args.plot:
@@ -605,8 +737,12 @@ def _emit_sweep(args, results, seeds, dbg) -> None:
     from distributed_active_learning_tpu_torch.runtime.sweep import _sweep_result_path
 
     for seed, result in zip(seeds, results):
-        sys.stdout.write(f"# sweep seed {seed}\n")
-        sys.stdout.write(result.to_reference_log())
+        if args.json:
+            for r in result.records:
+                sys.stdout.write(json.dumps({"seed": seed, **dataclasses.asdict(r)}) + "\n")
+        else:
+            sys.stdout.write(f"# sweep seed {seed}\n")
+            sys.stdout.write(result.to_reference_log())
         if args.out:
             result.save(_sweep_result_path(args.out, seed), fmt="reference")
     if args.plot:
@@ -630,9 +766,17 @@ def _emit_grid(args, grid, dbg) -> None:
     datasets = sorted({c.dataset for c in grid.cells})
     with_scn = sorted({c.scenario for c in grid.cells}) != ["none"]
     for cell in grid.cells:
-        sc = f"/{cell.scenario}" if with_scn else ""
-        sys.stdout.write(f"# grid cell {cell.strategy}/{cell.dataset}{sc}/seed {cell.seed}\n")
-        sys.stdout.write(cell.result.to_reference_log())
+        if args.json:
+            row = {"strategy": cell.strategy, "dataset": cell.dataset, "seed": cell.seed}
+            if with_scn:
+                row["scenario"] = cell.scenario
+            for r in cell.result.records:
+                sys.stdout.write(json.dumps({**row, **dataclasses.asdict(r)}) + "\n")
+        else:
+            sc = f"/{cell.scenario}" if with_scn else ""
+            sys.stdout.write(f"# grid cell {cell.strategy}/{cell.dataset}{sc}/seed "
+                             f"{cell.seed}\n")
+            sys.stdout.write(cell.result.to_reference_log())
         if args.out:
             cell.result.save(_grid_result_path(args.out, cell.strategy, cell.dataset, cell.seed,
                                                len(datasets) > 1, cell.scenario, with_scn),

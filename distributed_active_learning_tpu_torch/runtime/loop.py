@@ -72,10 +72,12 @@ metrics) and a drifting test set (the accuracy of round r measured on
 package's. A scenario needs the device fit and refuses the fused round, as
 in the JAX package.
 
-Not ported yet, and refused with a ``NotImplementedError`` that names the
-slice bringing it: roofline attribution. What the JAX package refuses (of
-quantized storage, :func:`_validate_quantize`; every scenario under a mesh
-but the noisy oracle) the port refuses with the same reasons.
+With a metrics writer and ``cfg.roofline`` the chunked driver emits a
+``roofline`` event after the drive (``telemetry.emit_roofline``: the
+chunk's counted cost, ``analysis/roofline.py``, joined with its steady
+launch seconds). What the JAX package refuses (of quantized storage,
+:func:`_validate_quantize`; every scenario under a mesh but the noisy
+oracle) the port refuses with the same reasons.
 """
 
 from __future__ import annotations
@@ -323,15 +325,6 @@ def _fused_round_reason(cfg: ExperimentConfig, want_metrics: bool, n_classes: in
             "avoids materializing; drop --metrics-out/collect_metrics"
         )
     return None
-
-
-def _not_ported(cfg: ExperimentConfig, metrics) -> None:
-    """Refuse what the port does not carry yet, naming the slice that will:
-    roofline attribution (the pre-flight slice)."""
-    if cfg.roofline and metrics is not None:
-        raise NotImplementedError(
-            "roofline attribution (--roofline) comes with the pre-flight slice "
-            "(ROADMAP queue 1, \"Pre-flight equivalents\")")
 
 
 def _validate_quantize(cfg: ExperimentConfig) -> None:
@@ -1212,6 +1205,21 @@ def _run_chunked(cfg, state, codes, aux, device_fit, fit_key, test_x, test_y, st
     result.pipeline_stats = stats
     if isinstance(chunk_fn, GraphedChunk):
         result.graph_stats = chunk_fn.stats()
+    if metrics is not None and cfg.roofline:
+        # Roofline attribution of the launched chunk (run.py --roofline),
+        # after the drive: its eager body (what the graph replays) counted
+        # on copies of the final carry, joined with the tracker's steady
+        # launch seconds.
+        priced = carry.replace(**{f: _map_leaves(torch.clone, getattr(carry, f))
+                                  for f in CARRY_FIELDS})
+        n_dev = 1
+        if mesh is not None:
+            from distributed_active_learning_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_MODEL
+
+            n_dev = mesh.shape[AXIS_DATA] * mesh.shape[AXIS_MODEL]
+        telemetry.emit_roofline(metrics, launches, body,
+                                (codes, priced, aux, fit_key_dev, test_x, test_y, end_dev, *tail),
+                                n_devices=n_dev)
     return carry
 
 
@@ -1280,7 +1288,6 @@ def run_experiment(
     ``cfg.checkpoint_every`` the run resumes from the newest checkpoint
     there and writes new ones (``runtime/checkpoint.py``)."""
     dev = resolve_device(device)
-    _not_ported(cfg, metrics)
     _validate_quantize(cfg)
     if cfg.forest.fit not in ("host", "device"):
         raise ValueError(f"unknown ForestConfig.fit {cfg.forest.fit!r}; use 'host' or 'device'")

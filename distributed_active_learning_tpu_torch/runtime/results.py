@@ -8,6 +8,7 @@ on the card's machine, each raises an ImportError naming it)."""
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Dict, List, Optional
 
 
@@ -95,11 +96,18 @@ class ExperimentResult:
             lines.append(f"Iteration  {r.round}  -- accu =  {r.accuracy * 100:.2f}")
         return "\n".join(lines) + "\n"
 
+    def to_jsonl(self) -> str:
+        """One JSON object a record (``run.py --json``)."""
+        return "\n".join(json.dumps(dataclasses.asdict(r)) for r in self.records) + "\n"
+
     def save(self, path: str, fmt: str = "reference") -> None:
-        if fmt != "reference":
-            raise ValueError(f"only the reference log format is ported, got {fmt!r}")
+        """Write the records as the reference log (``fmt="reference"``) or
+        as JSON lines (``"jsonl"``)."""
+        if fmt not in ("reference", "jsonl"):
+            raise ValueError(f"fmt must be 'reference' or 'jsonl', got {fmt!r}")
+        text = self.to_reference_log() if fmt == "reference" else self.to_jsonl()
         with open(path, "w") as f:
-            f.write(self.to_reference_log())
+            f.write(text)
 
 
 def parse_reference_log(text: str) -> ExperimentResult:

@@ -500,7 +500,6 @@ def run_sweep(
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import (
         GraphedChunk,
-        _not_ported,
         _validate_quantize,
         build_aux,
         _device_fit_core,
@@ -519,7 +518,6 @@ def run_sweep(
         raise ValueError(f"{len(windows)} windows for {E} seeds")
     window_pad = max(windows)
     dbg = debugger or Debugger(enabled=False)
-    _not_ported(cfg, metrics)
     _validate_quantize(cfg)
 
     if cfg.forest.fit != "device":
@@ -795,7 +793,6 @@ def run_grid(
     from distributed_active_learning_tpu_torch.runtime.debugger import Debugger
     from distributed_active_learning_tpu_torch.runtime.loop import (
         GraphedChunk,
-        _not_ported,
         _validate_quantize,
         _device_fit_core,
         ckpt_snapshot,
@@ -835,7 +832,6 @@ def run_grid(
         if not any(s.active for s in scn_list):
             scn_list = None  # an all-none axis is the clean grid
     scenario_axis = scn_list is not None
-    _not_ported(cfg, metrics)
     _validate_quantize(cfg)
     group_scns = None
     if scenario_axis:

@@ -474,6 +474,14 @@ class MetricsWriter:
             **{k: (round(v, 6) if isinstance(v, float) else v) for k, v in extra.items()},
         )
 
+    def roofline(self, program: str, **fields) -> None:
+        """Per-program roofline attribution (``analysis/roofline.py``): the
+        counted FLOPs and bytes joined with measured seconds into achieved
+        rates, the shares of the card's peaks and the bound verdict, once a
+        program at run end (the count runs the program again, so it never
+        rides the hot path)."""
+        self.event("roofline", program=program, **fields)
+
     # -- lifecycle -----------------------------------------------------------
 
     def flush(self) -> None:
@@ -774,3 +782,30 @@ class LaunchTracker:
         if self.calls == 1 or self.first_seconds is None:
             return self.seconds_total / self.calls
         return (self.seconds_total - self.first_seconds) / (self.calls - 1)
+
+
+def emit_roofline(writer, tracker: LaunchTracker, fn, args, n_devices: int = 1) -> Optional[dict]:
+    """Join ``fn``'s counted cost with ``tracker``'s steady launch seconds
+    and emit one ``roofline`` event (and a flight-recorder echo), the JAX
+    package's. Called after a chunked run (``run.py --roofline``): the count
+    runs ``fn(*args)`` once more, eagerly, so it never sits in a timed
+    region; ``fn`` is the chunk's eager body, which a CUDA graph replays
+    kernel for kernel. ``n_devices`` is the mesh's size (the shares divide
+    by the aggregate peak). A failure becomes an event carrying ``error``:
+    attribution must not kill a finished run. Returns the attribution, or
+    None on failure."""
+    from distributed_active_learning_tpu_torch.analysis import roofline as roofline_lib
+
+    seconds = tracker.steady_seconds_mean()
+    try:
+        cost = roofline_lib.program_cost(fn, *args)
+    except Exception as e:  # noqa: BLE001 — diagnostics must not raise
+        if writer is not None:
+            writer.roofline(tracker.program, error=f"{type(e).__name__}: {e}")
+        flight_record("roofline", program=tracker.program, error=type(e).__name__)
+        return None
+    attr = roofline_lib.attribute_card(cost, seconds, n_devices=n_devices)
+    if writer is not None:
+        writer.roofline(tracker.program, calls=tracker.calls, **attr)
+    flight_record("roofline", program=tracker.program, bound=attr["bound"], mfu=attr["mfu"])
+    return attr

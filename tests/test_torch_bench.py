@@ -8,11 +8,26 @@ same legs; and the port's ``run_pipelined`` schedules as the JAX one does
 (the scheduling facts of ``tests/test_pipeline.py`` on a fake, host-only
 dispatch). The scenario grid against the JAX package's ``run_grid`` lives
 in ``test_torch_scoring.py``, the CLI on a file and the plots in
-``test_torch_data_fit.py`` (each file runs on one worker of the suite)."""
+``test_torch_data_fit.py`` (each file runs on one worker of the suite).
+
+The CLI remainder and the pre-flight's surfaces too: ``--mode all`` under a
+``--deadline`` names the modes it skipped; ``--audit`` carries the
+``memory`` section; ``--profile-dir`` refuses the CPU (it times the card);
+``--compare-to`` rides the port's copy of the comparison tool, whose
+verdicts equal the repo's ``benches/compare_bench.py`` on one synthetic
+pair of lines; ``run.py --budget N --json`` prints the JAX package's
+``run.py`` records for the same flags (times aside) and ``--list`` its
+registries; ``run.py --audit`` with a 1 MiB budget table refuses before the
+first round, naming the overage; ``run.py --roofline`` writes a
+``roofline`` event with the JAX package's keys (``indeterminate:
+no-peak-table`` on the CPU); and ``python -m ...analysis`` lists, prints
+its rules and prices."""
 
 import contextlib
 import io
 import json
+import re
+import signal
 
 import numpy as np
 import pytest
@@ -80,8 +95,12 @@ def test_bench_modes_print_one_json_line(tmp_path):
 
 
 def _bench_modes(tmp_path):
-    rc, score = _line(["--mode", "score", *_TINY])
+    rc, score = _line(["--mode", "score", *_TINY, "--audit"])
     assert rc == 0 and score["metric"] == "acquisition_scores_per_sec"
+    audit = score["audit"]
+    assert audit["counts"] == {"error": 0, "warn": 0, "info": 0}
+    assert audit["memory"]["programs_priced"] == audit["programs_audited"] == 1
+    assert audit["memory"]["max_peak_hbm_bytes"] > 0
     assert score["value"] > 0 and score["kernel"] == "pallas"
     assert score["wall_seconds_per_query"] > 0
     assert score["device"] == "cpu" and score["card"] is None and score["cpu_smoke_sizes"]
@@ -202,6 +221,138 @@ def _bench_modes(tmp_path):
     assert "grid_speedup" not in gr
     _variants_failures_and_scheduling()
     _serve_modes()
+    _cli_remainder(tmp_path, score)
+
+
+def _cli_remainder(tmp_path, score):
+    import importlib.util
+    import os
+    import sys
+
+    from distributed_active_learning_tpu import run as j_run
+    from distributed_active_learning_tpu_torch import run as t_run
+    from distributed_active_learning_tpu_torch.analysis import __main__ as t_analysis
+    from distributed_active_learning_tpu_torch.benches import compare_bench as t_cmp
+
+    # --mode all under a deadline: what would overrun it is skipped by name,
+    # and the line lands (here every mode's CPU estimate overruns 1 s).
+    rc, every = _line(["--mode", "all", *_TINY, "--deadline", "1"])
+    assert rc == 0 and every["metric"] == "none_completed_before_deadline", every
+    assert [m["mode"] for m in every["modes_skipped"]] == list(bench.ALL_MODES)
+    assert all(m["reason"] == "predicted_overrun" and m["estimated_mode_seconds"] > 1
+               for m in every["modes_skipped"])
+    # A mode that raises after score leaves score's keys on the line beside
+    # the error; a SIGTERM unwinds through the line the same way.
+
+    def boom(args, dev):
+        raise RuntimeError("boom")
+
+    def term(args, dev):
+        assert signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, None)
+        signal.raise_signal(signal.SIGTERM)
+
+    handler = signal.getsignal(signal.SIGTERM)
+    for fake, want_rc, want_error in ((boom, 1, "RuntimeError: boom"),
+                                      (term, 0, f"BenchInterrupted: signal {signal.SIGTERM}")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(bench, "ALL_MODES", ("score", "density"))
+            mp.setitem(bench._MODES, "density", fake)
+            rc, part = _line(["--mode", "all", *_TINY, "--deadline", "0"])
+        assert rc == want_rc and part["error"] == want_error, part
+        assert part["metric"] == score["metric"] and part["value"] > 0
+        assert part["modes"] == {"score": {k: part[k] for k in ("metric", "value", "unit")}}
+        assert part["wall_seconds_per_query"] > 0 and "density_scores_per_sec" not in part
+        assert signal.getsignal(signal.SIGTERM) is handler
+    rc, prof = _line(["--mode", "score", *_TINY, "--profile-dir", str(tmp_path / "prof")])
+    assert rc == 1 and "the CPU has no device time" in prof["error"]
+    # --compare-to: the port's copy gives the repo tool's verdicts.
+    path = os.path.join(os.path.dirname(__file__), "..", "benches", "compare_bench.py")
+    spec = importlib.util.spec_from_file_location("repo_compare_bench", path)
+    repo_cmp = importlib.util.module_from_spec(spec)
+    sys.modules["repo_compare_bench"] = repo_cmp
+    spec.loader.exec_module(repo_cmp)
+    base = {"metric": "al_round_seconds", "value": 100.0, "mfu": 0.1, "round_seconds": 1.0,
+            "scan_seconds_per_round": 0.5, "recompiles_after_warmup": 0}
+    cur = {**base, "value": 70.0, "round_seconds": 0.8, "recompiles_after_warmup": 1}
+    assert t_cmp.compare_payloads(base, cur, baseline_name="b") == \
+        repo_cmp.compare_payloads(base, cur, baseline_name="b")
+    baseline = tmp_path / "baseline.json"
+    baseline.write_text(json.dumps({**score, "value": score["value"] * 10}))
+    rc, cmp_line = _line(["--mode", "score", *_TINY, "--compare-to", str(baseline)])
+    assert rc == 0 and cmp_line["regression"]["verdict"].startswith("regression"), cmp_line
+
+    # run.py: --budget/--json against the JAX package's run.py, --list.
+    flags = ["--fit", "device", "--kernel", "pallas", "--n-samples", "300", "--trees", "8",
+             "--window", "15", "--rounds", "4", "--seed", "1", "--budget", "40", "--json",
+             "--quiet"]
+
+    def records(main, argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(argv) == 0
+        rows = [json.loads(line) for line in out.getvalue().splitlines()]
+        return [{k: v for k, v in r.items() if not k.endswith("_time")} for r in rows]
+
+    mine = records(t_run.main, ["--device", "cpu", *flags])
+    assert mine == records(j_run.main, flags) and len(mine) == 2  # the budget stops it
+    out = {}
+    for name, main, argv in (("jax", j_run.main, ["--list"]),
+                             ("port", t_run.main, ["--list"])):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            assert main(argv) == 0
+        out[name] = buf.getvalue()
+    assert out["port"] == out["jax"] and "deep strategies:" in out["port"]
+    # --audit: a 1 MiB table refuses before the first round, naming the
+    # overage; --roofline: the JAX package's event keys.
+    small = ["--device", "cpu", "--fit", "device", "--kernel", "pallas", "--n-samples", "300",
+             "--trees", "8", "--window", "15", "--rounds", "4", "--seed", "1"]
+
+    def refused(hbm_bytes, extra=()):
+        table.write_text(json.dumps({"hbm_bytes": hbm_bytes}))
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()) as so, contextlib.redirect_stderr(err):
+            with pytest.raises(SystemExit, match="audit failed"):
+                t_run.main([*small, *extra, "--audit", "--budget-table", str(table)])
+        assert so.getvalue() == "" and "Iteration" not in err.getvalue()
+        assert "hbm-over-budget" in err.getvalue() and "by " in err.getvalue(), err.getvalue()
+        return err.getvalue()
+
+    table = tmp_path / "budget.json"
+    refused(1 << 20)
+    # A chunk runs as a CUDA graph: a budget above its eager peak but below
+    # its resident inputs + captured pool refuses it, naming the graph.
+    chunk = ("--rounds-per-launch", "2")
+    eager, graph = (float(v) for v in re.search(
+        r"eager peak ([\d.]+) MiB.*as a CUDA graph ([\d.]+) MiB", refused(1 << 20, chunk)).groups())
+    assert graph > eager
+    assert "the graph's footprint" in refused((eager + graph) / 2 * 2**20, chunk)
+    table.write_text(json.dumps({"hbm_bytes": 1 << 20}))
+    m_out = tmp_path / "roof.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert t_run.main([*small, "--rounds-per-launch", "2", "--metrics-out", str(m_out),
+                           "--roofline", "--quiet"]) == 0
+    events = [json.loads(line) for line in m_out.read_text().splitlines()]
+    roof = [e for e in events if e["kind"] == "roofline"]
+    from distributed_active_learning_tpu.analysis import roofline as j_roof
+
+    jax_keys = {"program", "calls", *j_roof.attribute(
+        {"flops": 1.0, "bytes_accessed": 1.0, "flops_per_byte": 1.0}, 1.0,
+        peak_flops_per_sec=1.0, peak_bytes_per_sec=1.0)}
+    assert len(roof) == 1 and jax_keys <= set(roof[0]), roof
+    assert roof[0]["bound"] == "indeterminate:no-peak-table" and roof[0]["flops"] > 0
+    assert roof[0]["program"] == "chunk_scan" and roof[0]["calls"] == 2
+    # The analysis CLI.
+    for argv, want in ((["--list"], "serve_chunk/8192"), (["--rules"], "smem-over-budget")):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            assert t_analysis.main(argv) == 0
+        assert want in buf.getvalue()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:  # the 1 MiB table
+        assert t_analysis.main(["--memory", "--kinds", "serve_score", "--json",
+                                "--budget-table", str(table)]) == 1
+    section = json.loads(buf.getvalue())["memory"]
+    assert section["programs_priced"] == 2 and section["counts"]["error"] == 1
+    assert [(f["rule"], f["program"]) for f in section["findings"]] == [
+        ("hbm-over-budget", "serve_score/291840")]
 
 
 # The keys of the JAX bench's serve and serve-multi lines (bench.py).

@@ -1229,6 +1229,102 @@ def test_pod_ring_attention_and_neural_mesh_across_cards(cuda):
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def test_preflight_on_the_card(cuda):
+    """chip_smoke.py phase 4t (a), (b) and (d) at a reduced size: the
+    fused round step's count on the card equals its count on the CPU and on
+    the meta device (the kernels at their declared work, whatever computes
+    them), and no share of the card's peaks is above 1.0 in a graph
+    replay's time; the memory pre-flight's predictions (meta device) are not
+    below the eager step's ``max_memory_allocated`` nor its graph capture's
+    pool, for the forest round step, a serving capacity and a small CNN
+    chunk step; the shared-memory mirrors equal the C configuration."""
+    import ctypes
+    import gc
+
+    from distributed_active_learning_tpu_torch import kernels
+    from distributed_active_learning_tpu_torch.analysis import memory, programs, roofline
+    from distributed_active_learning_tpu_torch.device import deterministic_cuda
+    from distributed_active_learning_tpu_torch.runtime import loop, neural_loop
+
+    cfg = dataclasses.replace(programs.BENCH_CONFIG, n_start=500)
+    head = programs.forest_program("chunk", cfg, programs.ForestShapes(20_000, 30, 4_000), seed=3)
+    counted = {}
+    for dev in (cuda, torch.device("cpu"), torch.device("meta")):
+        unit = head(dev)
+        unit.fn(*unit.args)  # warm: a device's constants are uploaded at its first call
+        counted[dev.type] = roofline.program_cost(unit.fn, *unit.args)
+    for key in ("flops", "bytes_accessed", "kernels"):
+        assert counted["cuda"][key] == counted["cpu"][key] == counted["meta"][key], key
+    unit = head(cuda)
+    step = loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1))
+    step(*unit.args)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        step(*unit.args)
+    end.record()
+    end.synchronize()
+    attr = roofline.attribute_card(counted["cuda"], start.elapsed_time(end) / 5e3)
+    assert all(v <= 1.0 for v in roofline.shares(attr).values()), attr
+    assert attr["bound"] in ("bandwidth-bound", "compute-bound")
+    del step, unit
+
+    deterministic_cuda()
+    cases = (
+        (head, loop.CARRY_FIELDS),
+        (programs.serve_program("serve_chunk", programs.serve_config(4), programs.SERVE_CONFIG,
+                                8_192, 30, 2_048), loop.CARRY_FIELDS),
+        (programs.neural_chunk_program(programs.NeuralShapes(
+            "cnn", (32, 32, 3), 2_000, 500, 10, train_steps=10, mc_samples=2, window=20)),
+         neural_loop.NEURAL_CARRY_FIELDS),
+    )
+    for make, fields in cases:
+        pred = memory.program_memory(*(lambda u: (u.fn, *u.args))(make(torch.device("meta"))))
+        unit = make(cuda)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            unit.fn(*unit.args)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        inputs = sum(memory.block_bytes(n) for n in {
+            t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+            for t in memory.tensor_leaves(unit.args) if t.is_cuda}.values())
+        torch.cuda.reset_peak_memory_stats()
+        with torch.cuda.stream(side):
+            res = unit.fn(*unit.args)
+        torch.cuda.synchronize()
+        measured = torch.cuda.max_memory_allocated() - base + inputs
+        del res
+        graph = loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1),
+                                  carry_fields=fields)
+        graph.capture(*unit.args)
+        assert pred["peak_hbm_bytes"] >= measured, (pred, measured)
+        assert pred["pool_bytes"] >= graph.pool_bytes, (pred, graph.pool_bytes)
+        del graph, unit
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    for n, d, T, depth in ((20_000, 30, 100, 8), (20_000, 30, 256, 8), (64, 30, 100, 4)):
+        for item, code in ((4, 0), (2, 1), (1, 2)):
+            L = 1 << depth
+            N, Lp = max(L, 2), -(-L // (16 // item)) * (16 // item)
+            got = (ctypes.c_int * 6)()
+            kernels.check("cfg", kernels.load("forest_leaves").forest_leaves_config(
+                n, d, code, T, depth, N, Lp, got))
+            mine = memory.smem_for_launch("forest_leaves", n, d, T, depth, item, optin)
+            assert [mine["rows"], mine["trees_per_chunk"], mine["smem_bytes"]] == list(got)[:3]
+            for name in ("round_megakernel", "fused_votes"):
+                kernels.check("cfg", getattr(kernels.load(name), f"{name}_config")(
+                    n, d, code, T, depth, N, Lp, got))
+                mine = memory.smem_for_launch(name, n, d, T, depth, item, optin)
+                assert [mine["mode"], mine["groups"], mine["trees_per_chunk"],
+                        mine["smem_bytes"]] == [("resident", "streamed")[got[0]], *list(got)[1:4]]
+
+
 def _run_ranks(n, mode, tmp_path, local_ranks, timeout=600):
     """This file's ``__main__`` as ``n`` ranks of a gloo job (the JAX
     package's env trio, a ``file://`` rendezvous), rank ``r`` on

@@ -19,8 +19,8 @@ package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
 the kernel-variant sweep included; its metrics JSONL renders through
 ``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
 registry's Prometheus text, and it refuses what it does not carry yet by
-name (multi-process meshes naming item 8 of the mesh
-slice; roofline naming the pre-flight slice), and refuses what the JAX
+name (a model axis across processes naming item 8 of the mesh
+slice), and refuses what the JAX
 package refuses of scenarios with its messages (under a mesh, every kind
 but the noisy oracle, and a grid's scenario axis)."""
 
@@ -579,22 +579,15 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
         for run in (j_loop.run_experiment, lambda c: t_loop.run_experiment(c, device="cpu")):
             with pytest.raises(ValueError, match=why):
                 run(jcfg if run is j_loop.run_experiment else tcfg)
-    # With a writer: --roofline (the pre-flight slice), in the loop and in
-    # the CLI.
+    # The CLI refuses half a checkpoint request, as the JAX package's does
+    # (--roofline is ported: tests/test_torch_bench.py runs it).
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(tmp_path)
-        writer = t_telemetry.MetricsWriter("m.jsonl")
-        with pytest.raises(NotImplementedError, match="pre-flight slice"):
-            t_loop.run_experiment(dataclasses.replace(base, roofline=True, rounds_per_launch=4),
-                                  metrics=writer, device="cpu")
-        writer.close()
         from distributed_active_learning_tpu_torch import run as t_run
 
-        for argv, why in ((["--roofline"], "pre-flight slice"),
-                          (["--checkpoint-dir", "ck"], "both --checkpoint-dir and")):
-            with pytest.raises(SystemExit):
-                t_run.main(["--device", "cpu", *argv])
-            assert why in capsys.readouterr().err
+        with pytest.raises(SystemExit):
+            t_run.main(["--device", "cpu", "--checkpoint-dir", "ck"])
+        assert "both --checkpoint-dir and" in capsys.readouterr().err
     # Sweeps and grids refuse stream_round_events before any work (the JAX
     # package's ValueError); under a mesh they run (tests/test_torch_scoring.py).
     from distributed_active_learning_tpu.runtime import sweep as j_sweep

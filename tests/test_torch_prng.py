@@ -17,7 +17,9 @@ multiply-add), ``gumbel`` and ``categorical``, JAX's float32 ``ndtri``
 (``ops.xla_f32.ndtri_f32``, not correctly rounded) on a grid, and the 2 x 2
 products and Cholesky factors of ``make_gaussian_unbalanced``
 (``small_matmul_f32``, ``cholesky_f32``), bit for bit; a 3 x 3 factor to
-``CHOLESKY_RTOL``."""
+``CHOLESKY_RTOL``. The LAL row generator's file CLI (``python -m
+...models.lal_training``) writes the JAX package's file for the same flags,
+as the LAL data test holds the rows (bit for bit)."""
 
 import numpy as np
 import jax
@@ -102,7 +104,7 @@ def _scenario_draws_match_jax():
             np.testing.assert_array_equal(np.asarray(jy), ty.numpy())
 
 
-def test_prng_bits_split_fold_in_uniform_match_jax():
+def test_prng_bits_split_fold_in_uniform_match_jax(tmp_path):
     for seed in (0, 1, 7, 0x5EED + 3, 2**31 + 5):
         kj, kt = jax.random.key(seed), prng.key(seed)
         np.testing.assert_array_equal(
@@ -154,6 +156,25 @@ def test_prng_bits_split_fold_in_uniform_match_jax():
 
     _scenario_draws_match_jax()
     _data_draws_match_jax()
+    _lal_cli_matches_jax(tmp_path)
+
+
+def _lal_cli_matches_jax(tmp_path):
+    import contextlib
+    import io
+
+    from distributed_active_learning_tpu.models import lal_training as j_lal
+    from distributed_active_learning_tpu_torch.models import lal_training as t_lal
+
+    flags = ["--experiments", "2", "--candidates", "4", "--pool-size", "40", "--seed", "1"]
+    outs = {}
+    for name, main, extra in (("jax", j_lal._main, []), ("port", t_lal._main,
+                                                          ["--device", "cpu"])):
+        outs[name] = tmp_path / f"lal_{name}.txt"
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            assert main(flags + ["--out", str(outs[name])] + extra) == 0
+        assert printed.getvalue() == f"8 rows -> {outs[name]}\n"
+    assert outs["port"].read_text() == outs["jax"].read_text()
 
 
 def _data_draws_match_jax():
