@@ -149,8 +149,23 @@ and prints no result:
    neural leg: phase 4n's CNN entropy run on ``MeshConfig(data=2)`` over 2
    processes for 2 rounds: records and final mask equal 4n's first two
    records and a single-process run of the same two rounds, bit for bit;
-   K7 counted a rank. Four processes time-slice one card: the seconds
-   show the launch structure, not scaling;
+   K7 counted a rank. (c) the model axis across the processes, by the
+   same 4 ranks after (a), one cell a rank: ``MeshConfig(2, 2)`` fused
+   (checkpointing every round), unfused and chunked at K = 2, and
+   ``MeshConfig(1, 4)`` fused. Gates: every rank's records and final mask
+   equal phases 4 and 4b; rank 0 alone writes the (2, 2) run's 3
+   checkpoints, equal to the single-device run's; each rank's launches a
+   round step as ``multi_process_phase`` states them (fused: K3 1, K1 1 and
+   K4 ``data - 1``, one a step of its column ring; unfused: K1 2); the chunks
+   run "eager"; K4 through the IPC windows of the first column ring equal the
+   gloo hop, bit for bit. Per-rank fit / round / eval seconds and a column
+   ring's step time are printed. (d) the pod over the processes: 4r (c)'s
+   pod sequence (``pod_sequence``) on ``MeshConfig(8, 1)``, 2 rows a rank,
+   phase 2's forest handed over in a file: its fills and index maps after
+   every epoch, its final rows and the select's values and picks equal 4r
+   (c)'s single-process pod on every rank; the select launches K3 2 and K4 7
+   a rank. Four processes time-slice one card: the seconds show the launch
+   structure, not scaling;
 4t. (after phase 4s) the pre-flight (``analysis/``; ``preflight_phase``):
    (a) the headline fused
    round step (phase 4's width, K1 on the test draw, K2 on the pool) counted
@@ -420,8 +435,10 @@ numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
 ``preflight`` phase 4t's numbers (its passing ``--audit`` run's launches
 under the path ``preflight_audit``);
 ``multi_process`` phase 4s's numbers (its paths ``procs4_fused``,
-``procs4_chunked`` and ``procs2_neural``, summed over the ranks, in every
-``launches_by_path``; K4's ``ipc_step_ms``);
+``procs4_chunked``, ``procs4_model_fused``, ``procs4_model_unfused``,
+``procs4_row_fused``, ``procs4_model_chunked``, ``procs4_pod_select`` and
+``procs2_neural``, summed over the ranks, in every ``launches_by_path``;
+K4's ``ipc_step_ms`` and ``column_ring_ipc_step_ms``);
 ``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
@@ -1236,6 +1253,156 @@ MESH_ACC_ATOL = 1e-5
 NEURAL_MASKS: dict = {}
 
 
+def pod_sequence(mesh, dev, pool_np, seed: int, gf, tag: str, counts, zero_counts) -> dict:
+    """Phase 4r (c)'s pod on ``mesh`` (8 shards of one process, or this
+    rank's 2 of a mesh over 4 processes, phase 4s (d)): the 291,840 x 30
+    slab pool from ``pool_np`` and draws from ``seed``, 100 routed 64-row
+    ingest blocks, one growth, 16 direct appends to shard 0, rebalance
+    epochs of <= 256 rows under ``RebalanceHysteresis`` and until the plan
+    is empty, one more epoch (a no-op), then the fused select over the pod
+    (``gf``'s trees, uncertainty, window 100; launches counted from 0 and
+    gated: K3 one a held shard, K4 one a ring step). Every rank makes the
+    same calls. Returns the pod, the host map, the epochs' times and the
+    ``trace`` that the runs on either mesh must share: the fills after
+    each epoch, each epoch's index maps, the final leaves' digests and the
+    select's values and picks."""
+    from distributed_active_learning_tpu_torch.ops import round_fused, trees_train
+    from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest, attach_mesh
+    from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+    from distributed_active_learning_tpu_torch.serving import slab
+
+    rng = np.random.default_rng(seed + 17)
+    pool = torch.from_numpy(pool_np).to(dev)
+    edges = trees_train.make_bins(pool, BINS).edges
+    del pool
+    y_np = labels(pool_np)
+    mask_np = np.zeros(N_POOL, dtype=bool)
+    mask_np[rng.choice(N_POOL, size=N_START, replace=False)] = True
+    skew_blocks = POD_SLAB // POD_BLOCK  # shard 0 filled to the top of its grown block
+    n_new = (POD_INGEST_BLOCKS + skew_blocks) * POD_BLOCK
+    new_x = rng.normal(size=(n_new, N_FEAT)).astype(np.float32)
+    all_x = np.concatenate([pool_np, new_x])
+    all_y = np.concatenate([y_np, labels(new_x)])
+    all_mask = np.concatenate([mask_np, np.zeros(n_new, dtype=bool)])
+    base = slab.init_slab_pool(pool_np, y_np, mask_np, edges, POD_SLAB)
+    base = slab.grow_slab(base, n_slabs=POD_CAPACITY // POD_SLAB - base.n_slabs)
+    pod = slab.shard_slab_pool(base, mesh)
+    del base
+    cap = pod.capacity
+    arrival = np.full(cap, -1, dtype=np.int64)
+    arrival[:N_POOL] = np.arange(N_POOL)
+    fills0 = pod.n_filled.cpu().clone().numpy()
+    ingest = slab.make_sharded_ingest_fn(mesh)
+    nxt = N_POOL
+
+    def append(shard=None):
+        nonlocal pod, nxt
+        fills = pod.n_filled.cpu().clone().numpy()
+        s = slab.route_to_shard(fills) if shard is None else shard
+        rows = cap // POD_SHARDS
+        bx = torch.from_numpy(all_x[nxt:nxt + POD_BLOCK]).to(dev)
+        by = torch.from_numpy(all_y[nxt:nxt + POD_BLOCK]).to(dev)
+        pod, _ = ingest(pod, edges, bx, by, POD_BLOCK, s)
+        g0 = s * rows + int(fills[s])
+        arrival[g0:g0 + POD_BLOCK] = np.arange(nxt, nxt + POD_BLOCK)
+        nxt += POD_BLOCK
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(POD_INGEST_BLOCKS):
+        append()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t1
+    # One growth: every shard's block gains a slab, so global indices
+    # renumber; the host map is re-anchored shard by shard.
+    old_rows = cap // POD_SHARDS
+    pod = slab.grow_sharded_slab(pod, mesh)
+    cap = pod.capacity
+    rows = cap // POD_SHARDS
+    grown = np.full(cap, -1, dtype=np.int64)
+    for s in range(POD_SHARDS):
+        grown[s * rows:s * rows + old_rows] = arrival[s * old_rows:(s + 1) * old_rows]
+    arrival = grown
+    for _ in range(skew_blocks):  # skew shard 0 with direct appends
+        append(0)
+    fills_skewed = pod.n_filled.cpu().clone().numpy()
+    hyst = slab.RebalanceHysteresis(enter_ratio=1.02, exit_ratio=1.005, min_interval=1)
+    rebalance = slab.make_rebalance_fn(mesh, POD_EPOCH_ROWS)
+    epoch_ms, epochs, last_map = [], 0, None
+    trace = {"fills": [], "maps": []}
+
+    def epoch():
+        nonlocal pod, arrival, last_map
+        before = pod.n_filled.cpu().clone()
+        plan = slab.rebalance_plan(before, POD_EPOCH_ROWS)
+        want = (before - plan.sum(1) + plan.sum(0)).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pod, msrc, mdst = rebalance(pod)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t2) * 1e3)
+        after = pod.n_filled.cpu().clone()
+        if not torch.equal(after, want):
+            fail(f"{tag} rebalance: fills {after.tolist()} != the plan's arithmetic "
+                 f"{want.tolist()}")
+        trace["fills"].append(after.tolist())
+        trace["maps"].append([sha(msrc), sha(mdst)])
+        src, dst = msrc.cpu().numpy().reshape(-1), mdst.cpu().numpy().reshape(-1)
+        ok = src >= 0
+        if not np.array_equal(ok, dst >= 0) or int(ok.sum()) != int(plan.sum()):
+            fail(f"{tag} rebalance: the map holds {int(ok.sum())} moves, the plan "
+                 f"{int(plan.sum())}")
+        if ok.any():
+            prev = arrival.copy()
+            moved = arrival[src[ok]]
+            if (moved < 0).any():
+                fail(f"{tag} rebalance shipped an unfilled row")
+            arrival[src[ok]] = -1
+            arrival[dst[ok]] = moved
+            last_map = (prev, msrc, mdst)
+        return bool(ok.any())
+
+    while hyst.update(pod.n_filled.cpu().clone()) and epochs < 32:
+        epoch()
+        epochs += 1
+    fired = hyst.fired
+    while slab.rebalance_plan(pod.n_filled.cpu().clone(), POD_EPOCH_ROWS).any() and epochs < 64:
+        epoch()
+        epochs += 1
+    snap = [mesh_lib.gather(getattr(pod, f)).clone() for f in ("x", "labeled_mask", "codes")]
+    if epoch():
+        fail(f"{tag}: an epoch of a balanced pod moved rows")
+    if not all(torch.equal(s_, mesh_lib.gather(getattr(pod, f)))
+               for s_, f in zip(snap, ("x", "labeled_mask", "codes"))):
+        fail(f"{tag}: an epoch of a balanced pod changed the pool")
+    del snap
+    fills_final = pod.n_filled.cpu().clone().numpy()
+    trace["leaves"] = [sha(mesh_lib.gather(getattr(pod, f)))
+                       for f in ("x", "oracle_y", "labeled_mask", "codes")]
+    mine = pod.labeled_mask.local_ids
+    sel = pod.labeled_mask.with_blocks(
+        (~pod.labeled_mask.block(s) & (torch.arange(rows, device=dev) < int(fills_final[s])),)
+        for s in mine)
+    pod_forest = attach_mesh(PallasForest(gf=gf), mesh)
+    zero_counts()
+    pv, pi = round_fused.fused_score_select(pod_forest, pod.x, sel, "uncertainty", WINDOW)
+    torch.cuda.synchronize()
+    c_sel = {k: counts()[k] for k in ("forest_leaves", "round_megakernel", "fused_votes",
+                                       "ring_hop")}
+    ring_steps = len(mine) * len(mesh.ring_members) - 1
+    if c_sel != {"forest_leaves": 0, "round_megakernel": 0, "fused_votes": len(mine),
+                 "ring_hop": ring_steps}:
+        fail(f"{tag} pod select launches {c_sel}: want K3 {len(mine)}, K4 {ring_steps}")
+    trace["vals"] = pv.cpu().view(torch.int32).tolist()
+    trace["picks"] = pi.cpu().tolist()
+    return dict(pod=pod, capacity=cap, shard_rows=rows, arrival=arrival, all_x=all_x,
+                all_y=all_y, all_mask=all_mask, edges=edges, fills_start=fills0.tolist(),
+                fills_skewed=fills_skewed.tolist(), epochs=epochs, hysteresis_fired=fired,
+                epoch_ms=epoch_ms, ingest_points_per_second=POD_INGEST_BLOCKS * POD_BLOCK / ingest_s,
+                last_map=last_map, sel=sel, forest=pod_forest, vals=pv, picks=pi,
+                select_launches=c_sel, trace=trace)
+
+
 def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neural_numbers,
                    gf, pool_np) -> dict:
     """Phase 4r: the neural path under a data mesh, ring attention for the
@@ -1363,110 +1530,11 @@ def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neu
     # -- (c) the pod at the serving headline width --------------------------
     t0 = time.perf_counter()
     loop_lib.graph_captures = 0  # the pod runs eagerly: (c) must capture no graph
-    rng = np.random.default_rng(seed + 17)
-    pool = torch.from_numpy(pool_np).to(dev)
-    edges = trees_train.make_bins(pool, BINS).edges
-    y_np = labels(pool_np)
-    mask_np = np.zeros(N_POOL, dtype=bool)
-    mask_np[rng.choice(N_POOL, size=N_START, replace=False)] = True
-    skew_blocks = POD_SLAB // POD_BLOCK  # shard 0 filled to the top of its grown block
-    n_new = (POD_INGEST_BLOCKS + skew_blocks) * POD_BLOCK
-    new_x = rng.normal(size=(n_new, N_FEAT)).astype(np.float32)
-    all_x = np.concatenate([pool_np, new_x])
-    all_y = np.concatenate([y_np, labels(new_x)])
-    all_mask = np.concatenate([mask_np, np.zeros(n_new, dtype=bool)])
-    base = slab.init_slab_pool(pool_np, y_np, mask_np, edges, POD_SLAB)
-    base = slab.grow_slab(base, n_slabs=POD_CAPACITY // POD_SLAB - base.n_slabs)
     mesh = mesh_lib.make_mesh(POD_SHARDS, 1, devices=ring8)
-    pod = slab.shard_slab_pool(base, mesh)
-    del base
-    cap = pod.capacity
-    arrival = np.full(cap, -1, dtype=np.int64)
-    arrival[:N_POOL] = np.arange(N_POOL)
-    fills0 = pod.n_filled.cpu().clone().numpy()
-    print(f"# phase 4r (c) pod: {cap} x {N_FEAT} over {POD_SHARDS} shards of {cap // POD_SHARDS} "
-          f"rows, fills {fills0.tolist()}")
-    ingest = slab.make_sharded_ingest_fn(mesh)
-    nxt = N_POOL
-
-    def append(shard=None):
-        nonlocal pod, nxt
-        fills = pod.n_filled.cpu().clone().numpy()
-        s = slab.route_to_shard(fills) if shard is None else shard
-        rows = cap // POD_SHARDS
-        bx = torch.from_numpy(all_x[nxt:nxt + POD_BLOCK]).to(dev)
-        by = torch.from_numpy(all_y[nxt:nxt + POD_BLOCK]).to(dev)
-        pod, _ = ingest(pod, edges, bx, by, POD_BLOCK, s)
-        g0 = s * rows + int(fills[s])
-        arrival[g0:g0 + POD_BLOCK] = np.arange(nxt, nxt + POD_BLOCK)
-        nxt += POD_BLOCK
-
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(POD_INGEST_BLOCKS):
-        append()
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t1
-    ingest_pps = POD_INGEST_BLOCKS * POD_BLOCK / ingest_s
-    # One growth: every shard's block gains a slab, so global indices
-    # renumber; the host map is re-anchored shard by shard.
-    old_rows = cap // POD_SHARDS
-    pod = slab.grow_sharded_slab(pod, mesh)
-    cap = pod.capacity
-    rows = cap // POD_SHARDS
-    grown = np.full(cap, -1, dtype=np.int64)
-    for s in range(POD_SHARDS):
-        grown[s * rows:s * rows + old_rows] = arrival[s * old_rows:(s + 1) * old_rows]
-    arrival = grown
-    for _ in range(skew_blocks):  # skew shard 0 with direct appends
-        append(0)
-    fills_skewed = pod.n_filled.cpu().clone().numpy()
-    hyst = slab.RebalanceHysteresis(enter_ratio=1.02, exit_ratio=1.005, min_interval=1)
-    rebalance = slab.make_rebalance_fn(mesh, POD_EPOCH_ROWS)
-    epoch_ms, epochs, last_map = [], 0, None
-
-    def epoch():
-        nonlocal pod, arrival, last_map
-        before = pod.n_filled.cpu().clone()
-        plan = slab.rebalance_plan(before, POD_EPOCH_ROWS)
-        want = (before - plan.sum(1) + plan.sum(0)).to(torch.int32)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        pod, msrc, mdst = rebalance(pod)
-        torch.cuda.synchronize()
-        epoch_ms.append((time.perf_counter() - t2) * 1e3)
-        after = pod.n_filled.cpu().clone()
-        if not torch.equal(after, want):
-            fail(f"4r rebalance: fills {after.tolist()} != the plan's arithmetic {want.tolist()}")
-        src, dst = msrc.cpu().numpy().reshape(-1), mdst.cpu().numpy().reshape(-1)
-        ok = src >= 0
-        if not np.array_equal(ok, dst >= 0) or int(ok.sum()) != int(plan.sum()):
-            fail(f"4r rebalance: the map holds {int(ok.sum())} moves, the plan {int(plan.sum())}")
-        if ok.any():
-            prev = arrival.copy()
-            moved = arrival[src[ok]]
-            if (moved < 0).any():
-                fail("4r rebalance shipped an unfilled row")
-            arrival[src[ok]] = -1
-            arrival[dst[ok]] = moved
-            last_map = (prev, msrc, mdst)
-        return bool(ok.any())
-
-    while hyst.update(pod.n_filled.cpu().clone()) and epochs < 32:
-        epoch()
-        epochs += 1
-    fired = hyst.fired
-    while slab.rebalance_plan(pod.n_filled.cpu().clone(), POD_EPOCH_ROWS).any() and epochs < 64:
-        epoch()
-        epochs += 1
-    snap = [mesh_lib.gather(getattr(pod, f)).clone() for f in ("x", "labeled_mask", "codes")]
-    if epoch():
-        fail("4r: an epoch of a balanced pod moved rows")
-    if not all(torch.equal(s_, mesh_lib.gather(getattr(pod, f)))
-               for s_, f in zip(snap, ("x", "labeled_mask", "codes"))):
-        fail("4r: an epoch of a balanced pod changed the pool")
-    del snap
-    fills_final = pod.n_filled.cpu().clone().numpy()
+    run = pod_sequence(mesh, dev, pool_np, seed, gf, "4r", counts, zero_counts)
+    pod, cap, rows, arrival = run["pod"], run["capacity"], run["shard_rows"], run["arrival"]
+    all_x, all_y, all_mask = run["all_x"], run["all_y"], run["all_mask"]
+    fills_final = np.asarray(run["trace"]["fills"][-1])
     # Every ingested (and start) row, bit for bit, where the host map says.
     xg = mesh_lib.gather(pod.x).cpu().numpy()
     yg = mesh_lib.gather(pod.oracle_y).cpu().numpy()
@@ -1477,7 +1545,8 @@ def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neu
     if not np.array_equal(filled, arrival >= 0) or mg[~filled].any():
         fail("4r pod: the host map and the per-shard fills disagree, or a tail row is labeled")
     src_rows = arrival[filled]
-    want_codes = trees_train.code_features(torch.from_numpy(all_x[src_rows]).to(dev), edges)
+    want_codes = trees_train.code_features(torch.from_numpy(all_x[src_rows]).to(dev),
+                                           run["edges"])
     if not (np.array_equal(xg[filled], all_x[src_rows]) and np.array_equal(yg[filled],
                                                                           all_y[src_rows])
             and np.array_equal(mg[filled], all_mask[src_rows])
@@ -1487,25 +1556,15 @@ def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neu
     # The fused select over the pod (K3 a shard, K4 on the ring) == K2 over
     # the same contents on one device; the picks map back to the rows they
     # were before the last moving epoch.
-    sel = mesh_lib.Sharded(tuple(
-        (~pod.labeled_mask.block(s) & (torch.arange(rows, device=dev) < int(fills_final[s])),)
-        for s in range(POD_SHARDS)), cap)
+    sel, pod_forest, pv, pi = run["sel"], run["forest"], run["vals"], run["picks"]
     sel_g = mesh_lib.gather(sel)
-    pod_forest = attach_mesh(PallasForest(gf=gf), mesh)
     x_g = mesh_lib.gather(pod.x)
-    zero_counts()
-    pv, pi = round_fused.fused_score_select(pod_forest, pod.x, sel, "uncertainty", WINDOW)
-    torch.cuda.synchronize()
-    c_sel = counts()
-    if c_sel != {"forest_leaves": 0, "round_megakernel": 0, "fused_votes": POD_SHARDS,
-                 "ring_hop": POD_SHARDS - 1}:
-        fail(f"4r pod select launches {c_sel}: want K3 {POD_SHARDS}, K4 {POD_SHARDS - 1}")
-    out["launches"]["pod_select"] = c_sel
+    out["launches"]["pod_select"] = run["select_launches"]
     rv, ri = round_fused.fused_score_select(PallasForest(gf=gf), x_g, sel_g, "uncertainty",
                                             WINDOW)
     if not (torch.equal(pv, rv) and torch.equal(pi, ri)):
         fail(f"4r pod select != K2 over the same contents: {(pi != ri).sum().item()} picks differ")
-    prev, msrc, mdst = last_map
+    prev, msrc, mdst = run["last_map"]
     back = ring_topk.remap_indices(pi, msrc, mdst).cpu().numpy()
     if not np.array_equal(prev[back], arrival[pi.cpu().numpy()]):
         fail("4r pod: remap_indices did not name the picks' rows before the last epoch")
@@ -1516,21 +1575,24 @@ def mesh_pod_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts, neu
     captures = loop_lib.graph_captures
     if captures:
         fail(f"4r pod: {captures} CUDA graphs captured after warmup, want 0")
-    out["pod"] = dict(capacity=cap, shard_rows=rows, fills_start=fills0.tolist(),
-                      fills_skewed=fills_skewed.tolist(), fills_final=fills_final.tolist(),
+    epoch_ms, epochs, fired = run["epoch_ms"], run["epochs"], run["hysteresis_fired"]
+    fills_skewed = run["fills_skewed"]
+    ingest_pps = run["ingest_points_per_second"]
+    out["pod"] = dict(capacity=cap, shard_rows=rows, fills_start=run["fills_start"],
+                      fills_skewed=fills_skewed, fills_final=fills_final.tolist(),
                       ingest_points_per_second=ingest_pps, ingest_blocks=POD_INGEST_BLOCKS,
                       epochs=epochs, hysteresis_fired=fired, epoch_ms=epoch_ms,
                       epoch_ms_median=statistics.median(epoch_ms), select_ms=pod_ms,
-                      k2_ms=k2_ms, captures=captures)
+                      k2_ms=k2_ms, captures=captures, trace=run["trace"])
     print(f"# phase 4r (c) pod: {POD_INGEST_BLOCKS} routed {POD_BLOCK}-row blocks at "
           f"{ingest_pps:.1f} points/s (host clock, a fills read a block); one growth to {cap} "
-          f"rows; shard 0 skewed {fills_skewed.tolist()}; {epochs} epochs of <= {POD_EPOCH_ROWS} "
+          f"rows; shard 0 skewed {fills_skewed}; {epochs} epochs of <= {POD_EPOCH_ROWS} "
           f"rows ({fired} fired by the hysteresis), median {out['pod']['epoch_ms_median']:.3f} "
           f"ms, each == the plan's arithmetic, fills {fills_final.tolist()}, then a no-op epoch; "
           f"every row bit for bit; select (K3 x {POD_SHARDS}, K4 x {POD_SHARDS - 1}) == K2 over "
           f"the same contents and remaps to the pre-epoch rows: {pod_ms:.4f} ms vs K2 "
           f"{k2_ms:.4f} ms; {captures} graphs captured ({kind}, {smi})")
-    del pod, x_g, sel, sel_g, pool
+    del pod, x_g, sel, sel_g, run
     out["seconds"]["c"] = time.perf_counter() - t0
     out["seconds"]["total"] = time.perf_counter() - t_phase
     print(f"# phase 4r: {out['seconds']['total']:.1f}s ((a) {out['seconds']['a']:.1f}, (b) "
@@ -1942,15 +2004,28 @@ def rank_job(args) -> int:
         seen = []
         ring_processes = ring_topk._ring_topk_processes
 
-        def first_ring(windows, k, procs, plain, received):  # keeps round 1's windows
-            if not seen:
-                seen.append(([(v.clone(), i.clone()) for v, i in windows], k))
-            return ring_processes(windows, k, procs, plain, received)
+        keep = [True]  # keep the next ring's windows (each run's first ring)
+
+        def first_ring(windows, k, members, plain, received):
+            if keep[0]:
+                seen.append(([(v.clone(), i.clone()) for v, i in windows], k, members))
+                keep[0] = False
+            return ring_processes(windows, k, members, plain, received)
 
         ring_topk._ring_topk_processes = first_ring
         for path, kw in (("procs4_fused", dict(checkpoint_dir=os.path.join(args.job_dir, "ckpt"),
                                                checkpoint_every=1)),
-                         ("procs4_chunked", dict(rounds_per_launch=2))):
+                         ("procs4_chunked", dict(rounds_per_launch=2)),
+                         # (c) the model axis across the processes, one cell a rank
+                         ("procs4_model_fused", dict(
+                             mesh=MeshConfig(2, 2), checkpoint_every=1,
+                             checkpoint_dir=os.path.join(args.job_dir, "ckpt_model"))),
+                         ("procs4_model_unfused", dict(mesh=MeshConfig(2, 2),
+                                                       fused_round=False)),
+                         ("procs4_row_fused", dict(mesh=MeshConfig(1, 4))),
+                         ("procs4_model_chunked", dict(mesh=MeshConfig(2, 2),
+                                                       rounds_per_launch=2))):
+            keep[0] = keep[0] or path == "procs4_model_fused"
             zero()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -1966,28 +2041,54 @@ def rank_job(args) -> int:
                 graph=(None if res.graph_stats is None else
                        {k: res.graph_stats[k] for k in ("mode", "mode_reason")}))
         ring_topk._ring_topk_processes = ring_processes
-        # Round 1's ring again: through CUDA IPC (K4) and through the plain
-        # gloo hop, every received window and the merge compared; then each
-        # route timed a step (the ring's 3 steps a call).
-        windows, k = seen[0]
-        got_ipc, got_gloo = [], []
-        m_ipc = ring_topk.ring_topk(windows, k, procs=n, received=got_ipc)[0]
-        m_gloo = ring_topk.ring_topk(windows, k, procs=n, plain=True, received=got_gloo)[0]
-        pairs = list(zip(got_ipc + [m_ipc], got_gloo + [m_gloo]))
-        out["ring_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                                for a, b in pairs)
-        out["ring_max_abs_err"] = max(float((a[0] - b[0]).abs().max()) for a, b in pairs)
-        out["ring_windows"] = len(got_ipc)
-        steps = len(got_ipc)
-        for route, plain in (("ipc", False), ("gloo", True)):
-            times = []
-            for _ in range(7):
-                torch.cuda.synchronize(dev)
-                t0 = time.perf_counter()
-                ring_topk.ring_topk(windows, k, procs=n, plain=plain)
-                torch.cuda.synchronize(dev)
-                times.append((time.perf_counter() - t0) / steps * 1e3)
-            out[f"ring_{route}_step_ms"] = statistics.median(times)
+        # Each kept ring again (the whole-row run's over the 4 ranks, the
+        # model-axis run's over this rank's column ring): through CUDA IPC
+        # (K4) and through the plain gloo hop, every received window and the
+        # merge compared; then each route timed a step.
+        for tag, (windows, k, members) in zip(("ring", "column_ring"), seen):
+            got_ipc, got_gloo = [], []
+            m_ipc = ring_topk.ring_topk(windows, k, members=members, received=got_ipc)[0]
+            m_gloo = ring_topk.ring_topk(windows, k, members=members, plain=True,
+                                         received=got_gloo)[0]
+            pairs = list(zip(got_ipc + [m_ipc], got_gloo + [m_gloo]))
+            out[f"{tag}_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                                      for a, b in pairs)
+            out[f"{tag}_max_abs_err"] = max(float((a[0] - b[0]).abs().max()) for a, b in pairs)
+            out[f"{tag}_windows"] = len(got_ipc)
+            out[f"{tag}_members"] = list(members)
+            steps = len(got_ipc)
+            for route, plain in (("ipc", False), ("gloo", True)):
+                times = []
+                for _ in range(7):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    ring_topk.ring_topk(windows, k, members=members, plain=plain)
+                    torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - t0) / steps * 1e3)
+                out[f"{tag}_{route}_step_ms"] = statistics.median(times)
+        # (d) the pod over the processes: 4r (c)'s sequence on MeshConfig(8,
+        # 1), 2 rows a rank, phase 2's forest from the parent's file.
+        from distributed_active_learning_tpu_torch.ops.trees_gemm import GemmForest
+        from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
+
+        gf = GemmForest(**{k_: v.to(dev) for k_, v in torch.load(
+            os.path.join(args.job_dir, "pod_forest.pt")).items()})
+        t0 = time.perf_counter()
+        run = pod_sequence(mesh_lib.make_mesh(POD_SHARDS, 1, device=dev), dev, pool_np,
+                           args.seed, gf, "4s (d)", counted, zero)
+        out["pod"] = dict(trace=run["trace"], epoch_ms=run["epoch_ms"], epochs=run["epochs"],
+                          ingest_points_per_second=run["ingest_points_per_second"],
+                          select_launches=run["select_launches"],
+                          seconds=time.perf_counter() - t0)
+        zero()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            round_fused.fused_score_select(run["forest"], run["pod"].x, run["sel"],
+                                           "uncertainty", WINDOW)
+        torch.cuda.synchronize(dev)
+        out["pod"]["select_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+        del run
     else:
         from distributed_active_learning_tpu_torch.data.datasets import get_dataset
         from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
@@ -2299,12 +2400,24 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
 
 
 def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_records,
-                        want_mask, neural_numbers) -> dict:
+                        want_mask, neural_numbers, gf, pod_trace) -> dict:
     """Phase 4s (see the module docstring): spawns the ranks, holds their
     records against the single-process runs, returns the numbers. Fails on
     any gate. ``run_single(**cfg_changes)`` runs phase 4's fused
     configuration on one device; ``want_records`` and ``want_mask`` are
-    phase 4's, which phase 4b's mesh runs equal."""
+    phase 4's, which phase 4b's mesh runs equal; ``gf`` is phase 2's forest
+    and ``pod_trace`` 4r (c)'s single-process pod, which (d) must equal.
+
+    Launches a rank, gated (``steps`` round steps: 3, or 4 chunked at K = 2,
+    whose last chunk runs an inactive step too). (a) ``MeshConfig(4, 2)``,
+    one row of 2 cells a rank: K3 2 a step, K1 2 a step (the test set's 2
+    cells), K4 3 a step (a ring of 4 members, one window a rank). (c)
+    ``MeshConfig(2, 2)``, one cell a rank: fused K3 1 a step, K1 1 a step,
+    K4 1 a step (``data - 1``: a column ring of 2 members); unfused K1 2 a
+    step (the pool's and the test set's cell), no K3 or K4; ``MeshConfig(1,
+    4)`` fused K3 1, K1 1 and no K4 a step (a column ring of one member). (d)
+    the pod select: K3 2 (a rank's 2 shards), K4 7 (8 shards' windows on a
+    ring of 4 members)."""
     from distributed_active_learning_tpu_torch.config import DataConfig
     from distributed_active_learning_tpu_torch.data.datasets import get_dataset
     from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
@@ -2322,48 +2435,73 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
             fail("4s: the checkpointing single-device run differs from phase 4's")
         job = os.path.join(work, "forest")
         os.makedirs(job)
+        torch.save({f.name: getattr(gf, f.name).cpu() for f in dataclasses.fields(gf)},
+                   os.path.join(job, "pod_forest.pt"))
         t0 = time.perf_counter()
         ranks = spawn_ranks("forest", MP_FOREST_RANKS, job, seed)
-        out["seconds"]["a"] = time.perf_counter() - t0
-        steps = {"procs4_fused": ROUNDS, "procs4_chunked": 2 * -(-ROUNDS // 2)}
+        out["seconds"]["ranks"] = time.perf_counter() - t0
+        chunk_steps = 2 * -(-ROUNDS // 2)
+
+        def per_step(k1, k3, k4):
+            return {"forest_leaves": k1, "round_megakernel": 0, "fused_votes": k3,
+                    "ring_hop": k4, "threefry": 0}
+
+        steps = {"procs4_fused": (ROUNDS, per_step(2, 2, 3)),
+                 "procs4_chunked": (chunk_steps, per_step(2, 2, 3)),
+                 "procs4_model_fused": (ROUNDS, per_step(1, 1, 1)),
+                 "procs4_model_unfused": (ROUNDS, per_step(2, 0, 0)),
+                 "procs4_row_fused": (ROUNDS, per_step(1, 1, 0)),
+                 "procs4_model_chunked": (chunk_steps, per_step(1, 1, 1))}
         for r, g in enumerate(ranks):
             if g["device"] != "cuda:0":
                 fail(f"4s rank {r} ran on {g['device']}, not cuda:0")
-            for path, n_steps in steps.items():
+            for path, (n_steps, each) in steps.items():
                 p = g[path]
                 if [tuple(x) for x in p["records"]] != want_records:
                     fail(f"4s {path} rank {r} records {p['records']} != phases 4/4b's "
                          f"{want_records}")
                 if p["mask_sha"] != sha(want_mask) or p["mask_count"] != int(want_mask.sum()):
                     fail(f"4s {path} rank {r}: final mask != phases 4/4b's")
-                want_l = {"forest_leaves": 2 * n_steps, "round_megakernel": 0,
-                          "fused_votes": 2 * n_steps, "ring_hop": 3 * n_steps, "threefry": 0}
+                want_l = {k_: v * n_steps for k_, v in each.items()}
                 if p["launches"] != want_l:
                     fail(f"4s {path} rank {r} launched {p['launches']}, want {want_l}")
-            if g["procs4_chunked"]["graph"]["mode"] != "eager":
-                fail(f"4s rank {r}: the chunk over processes ran {g['procs4_chunked']['graph']}")
-            if not g["ring_equal"] or g["ring_windows"] != MP_FOREST_RANKS - 1:
-                fail(f"4s rank {r}: K4's IPC windows != the gloo hop's "
-                     f"({g['ring_windows']} windows, max abs err {g['ring_max_abs_err']})")
-        files = sorted(os.listdir(os.path.join(job, "ckpt")))
+            for path in ("procs4_chunked", "procs4_model_chunked"):
+                if g[path]["graph"]["mode"] != "eager":
+                    fail(f"4s rank {r}: the chunk over processes ran {g[path]['graph']}")
+            for tag, members in (("ring", list(range(MP_FOREST_RANKS))),
+                                 ("column_ring", [r % 2, r % 2 + 2])):
+                if (not g[f"{tag}_equal"] or g[f"{tag}_members"] != members
+                        or g[f"{tag}_windows"] != len(members) - 1):
+                    fail(f"4s rank {r}: K4's IPC windows != the gloo hop's on the {tag} "
+                         f"{g[f'{tag}_members']} ({g[f'{tag}_windows']} windows, max abs err "
+                         f"{g[f'{tag}_max_abs_err']})")
+            if g["pod"]["trace"] != pod_trace:
+                diff = [k_ for k_ in pod_trace if g["pod"]["trace"].get(k_) != pod_trace[k_]]
+                fail(f"4s (d) rank {r}: the pod over processes != 4r (c)'s single-process pod "
+                     f"({diff} differ)")
         want_files = [f"alstate_{i}.npz" for i in range(1, ROUNDS + 1)]
-        if files != want_files or sorted(os.listdir(ck_single)) != want_files:
-            fail(f"4s checkpoints {files}, single-device {sorted(os.listdir(ck_single))}; "
-                 f"want {want_files} from rank 0 alone")
-        for f in files:
-            za, zb = np.load(os.path.join(job, "ckpt", f)), np.load(os.path.join(ck_single, f))
-            if sorted(za.files) != sorted(zb.files):
-                fail(f"4s checkpoint {f} fields {za.files} != {zb.files}")
-            for key in za.files:
-                if key == "records_json":
-                    ra, rb = (json.loads(bytes(z[key]).decode()) for z in (za, zb))
-                    ra, rb = ([{k_: v for k_, v in x.items() if not k_.endswith("_time")}
-                               for x in rs] for rs in (ra, rb))
-                    same = ra == rb
-                else:
-                    same = np.array_equal(za[key], zb[key])
-                if not same:
-                    fail(f"4s checkpoint {f}: {key} != the single-device run's")
+        for ck in ("ckpt", "ckpt_model"):
+            files = sorted(os.listdir(os.path.join(job, ck)))
+            if files != want_files or sorted(os.listdir(ck_single)) != want_files:
+                fail(f"4s {ck} {files}, single-device {sorted(os.listdir(ck_single))}; "
+                     f"want {want_files} from rank 0 alone")
+            for f in files:
+                za, zb = np.load(os.path.join(job, ck, f)), np.load(os.path.join(ck_single, f))
+                if sorted(za.files) != sorted(zb.files):
+                    fail(f"4s {ck} {f} fields {za.files} != {zb.files}")
+                for key in za.files:
+                    if key == "records_json":
+                        ra, rb = (json.loads(bytes(z[key]).decode()) for z in (za, zb))
+                        ra, rb = ([{k_: v for k_, v in x.items() if not k_.endswith("_time")}
+                                   for x in rs] for rs in (ra, rb))
+                        same = ra == rb
+                    else:
+                        same = np.array_equal(za[key], zb[key])
+                    if not same:
+                        fail(f"4s {ck} {f}: {key} != the single-device run's")
+        out["launches"]["procs4_pod_select"] = {
+            k_: sum(g["pod"]["select_launches"][k_] for g in ranks)
+            for k_ in ranks[0]["pod"]["select_launches"]}
         for path in steps:
             out["launches"][path] = {k_: sum(g[path]["launches"][k_] for g in ranks)
                                      for k_ in ranks[0][path]["launches"]}
@@ -2375,7 +2513,13 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
             "ring_ipc_step_ms": [g["ring_ipc_step_ms"] for g in ranks],
             "ring_gloo_step_ms": [g["ring_gloo_step_ms"] for g in ranks],
             "ring_max_abs_err": max(g["ring_max_abs_err"] for g in ranks),
+            "column_ring_ipc_step_ms": [g["column_ring_ipc_step_ms"] for g in ranks],
+            "column_ring_gloo_step_ms": [g["column_ring_gloo_step_ms"] for g in ranks],
+            "column_ring_max_abs_err": max(g["column_ring_max_abs_err"] for g in ranks),
             "chunk_mode": r0["procs4_chunked"]["graph"]}
+        out["pod"] = {k_: [g["pod"][k_] for g in ranks]
+                      for k_ in ("epoch_ms", "epochs", "ingest_points_per_second", "select_ms",
+                                 "seconds")}
         for i, (fit_s, round_s, eval_s) in enumerate(r0["procs4_fused"]["split"]):
             print(f"#   4s (a) round {i + 1} on rank 0: fit {fit_s:.4f}s round {round_s:.4f}s "
                   f"eval {eval_s:.4f}s (single device: fit {single.records[i].train_time:.4f}s "
@@ -2391,6 +2535,27 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
               f"{statistics.median(out['forest']['ring_gloo_step_ms']):.4f} ms by gloo (median "
               f"of the ranks); walls {[round(w, 2) for w in out['forest']['wall']['procs4_fused']]}"
               f" s ({kind}, {smi})")
+        for path in ("procs4_model_fused", "procs4_model_unfused", "procs4_row_fused"):
+            for r, g in enumerate(ranks):
+                print(f"#   4s (c) {path} rank {r}: fit / round / eval s a round "
+                      + ", ".join(f"{a:.4f} / {b:.4f} / {c:.4f}" for a, b, c in g[path]["split"]))
+        print(f"# phase 4s (c) {MP_FOREST_RANKS} processes on cuda:0, one cell a rank: "
+              f"MeshConfig(2, 2) fused, unfused and chunked (K = 2, eager) and MeshConfig(1, 4) "
+              f"fused == phases 4 and 4b on every rank, {ROUNDS} checkpoints from rank 0 == the "
+              f"single-device run's; per rank a round K3 1, K4 1 (2, 2) / 0 (1, 4), K1 1 fused, "
+              f"2 unfused; K4 in each column ring through CUDA IPC == the gloo hop (max abs err "
+              f"{out['forest']['column_ring_max_abs_err']}); a column-ring step "
+              f"{statistics.median(out['forest']['column_ring_ipc_step_ms']):.4f} ms by IPC, "
+              f"{statistics.median(out['forest']['column_ring_gloo_step_ms']):.4f} ms by gloo; "
+              f"walls (2, 2) fused {[round(w, 2) for w in out['forest']['wall']['procs4_model_fused']]}"
+              f" s ({kind}, {smi})")
+        print(f"# phase 4s (d) the pod over {MP_FOREST_RANKS} processes, MeshConfig({POD_SHARDS}, "
+              f"1), 2 rows a rank: fills, maps, rows and picks == 4r (c)'s on every rank; "
+              f"ingest {[round(v, 1) for v in out['pod']['ingest_points_per_second']]} points/s, "
+              f"epoch median {[round(statistics.median(v), 3) for v in out['pod']['epoch_ms']]} "
+              f"ms ({out['pod']['epochs'][0]} epochs), select "
+              f"{[round(v, 3) for v in out['pod']['select_ms']]} ms (K3 2, K4 7 a rank) "
+              f"({kind}, {smi})")
 
         # -- (b) the neural leg over 2 processes ---------------------------------
         t0 = time.perf_counter()
@@ -2435,8 +2600,8 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
     finally:
         shutil.rmtree(work, ignore_errors=True)
     out["seconds"]["total"] = time.perf_counter() - t_phase
-    print(f"# phase 4s: {out['seconds']['total']:.1f}s ((a) {out['seconds']['a']:.1f}, (b) "
-          f"{out['seconds']['b']:.1f})")
+    print(f"# phase 4s: {out['seconds']['total']:.1f}s ((a), (c), (d) "
+          f"{out['seconds']['ranks']:.1f}, (b) {out['seconds']['b']:.1f})")
     return out
 
 
@@ -4582,7 +4747,7 @@ def main() -> int:
         args.seed, dev, kind, smi,
         lambda **kw: loop.run_experiment(cfg(True, **kw), bundle=bundle,
                                          debugger=Debugger(enabled=False), device=dev),
-        recs[True], masks[True], neural_numbers)
+        recs[True], masks[True], neural_numbers, gf, pod_numbers["pod"]["trace"])
     for path, c in mp_numbers["launches"].items():
         launches[path] = {k: c[k] for k in counts()}
         if path == "procs2_neural":
@@ -5055,7 +5220,11 @@ def main() -> int:
          "step_ms": step_ms, "library_step_ms": lib_step_ms, "hop_ms": hop_ms,
          "peer_path_run": peer_run,
          "ipc_step_ms": statistics.median(mp_numbers["forest"]["ring_ipc_step_ms"]),
-         "gloo_step_ms": statistics.median(mp_numbers["forest"]["ring_gloo_step_ms"])},
+         "gloo_step_ms": statistics.median(mp_numbers["forest"]["ring_gloo_step_ms"]),
+         "column_ring_ipc_step_ms": statistics.median(
+             mp_numbers["forest"]["column_ring_ipc_step_ms"]),
+         "column_ring_gloo_step_ms": statistics.median(
+             mp_numbers["forest"]["column_ring_gloo_step_ms"])},
         {"name": "forest_leaves_transposed", "route": "cuda",
          "source": f"{pkg}/forest_leaves_transposed.cu",
          "replaces": "benches/pallas_variants.py:116",

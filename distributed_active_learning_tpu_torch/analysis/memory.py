@@ -2,31 +2,33 @@
 its launch, at its configured shapes, and the kernels' shared memory a
 block priced against the card, with findings that refuse what cannot fit.
 
-- **Peak bytes** (:func:`program_memory`): the program runs once on the
-  meta device (its inputs built there at the configured shapes, so a
-  284,807-row pool allocates nothing) under a dispatch mode that tracks
-  live bytes by storage: each storage an operation creates is allocated
-  (rounded up to the CUDA caching allocator's 512-byte blocks) and freed
-  when its last tensor dies (a weakref finalizer); a storage first seen as
-  an input is resident. The port's kernel wrappers return meta outputs of
-  their declared shapes there (``kernels.kernel_work``). What a kernel
-  allocates inside an operation is invisible to the dispatch, so each
-  operation is charged, for its length, the larger of its library scratch
-  (:func:`library_scratch`: a sort's radix buffers, a scan's, cuDNN's
-  convolution workspace) and a second copy of its new outputs (a staging or
-  casting buffer). A request past 1 MiB may get a cached block up to 1 MiB
-  bigger, all of it counted as allocated, so each such live block carries
-  that slack. The result splits the peak into its resident inputs, the
-  transient bytes (scratch given apart) and the slack, and also models the
-  caching allocator's segments (2 MiB for blocks up to 1 MiB, 20 MiB up to
-  10 MiB, larger ones rounded to 2 MiB, best fit with splitting) for the
-  same allocations: the bytes a CUDA graph's private pool reserves when it
-  captures the program (``pool_bytes``). ``chip_smoke.py`` phase 4t holds
-  both against the card's ``max_memory_allocated`` and captured pools. A
-  program that its driver captures as a CUDA graph (a chunk, the neural
-  chunk, a serving capacity's re-fit chunk) holds its resident inputs and
-  its graph's private pool at once, which can exceed its eager peak: the
-  gate takes the larger of the two.
+- **Peak bytes** (:func:`program_memory`): the program runs once on the meta
+  device (its inputs built there at the configured shapes, so a 284,807-row
+  pool allocates nothing) under a dispatch mode that tracks live bytes by
+  storage: each storage an operation creates is allocated (rounded up to the
+  CUDA caching allocator's 512-byte blocks) and freed when its last tensor
+  dies (a weakref finalizer); a storage first seen as an input is resident.
+  The port's kernel wrappers return meta outputs of their declared shapes
+  there (``kernels.kernel_work``). What a kernel allocates inside an
+  operation is invisible to the dispatch, so each operation is charged, for
+  its length, its library scratch (:func:`library_scratch`: a sort's radix
+  buffers, a scan's, cuDNN's convolution workspace, asked of the card's
+  cuDNN where there is a card, and the temporaries the card's allocator
+  trace showed: a casting reduction's input copy, ``index_add_``'s source
+  copy, ``index``'s contiguous broadcast indices). A request past 1 MiB may
+  get a cached block up to 1 MiB bigger, all of it counted as allocated, so
+  each such live block carries that slack. The result splits the peak into
+  its resident inputs, the transient bytes (scratch given apart) and the
+  slack, and also models the caching allocator's segments (2 MiB for blocks
+  up to 1 MiB, 20 MiB up to 10 MiB, larger ones rounded to 2 MiB, best fit
+  with splitting) for the same allocations: the bytes a CUDA graph's private
+  pool reserves when it captures the program (``pool_bytes``, with
+  :data:`POOL_HEADROOM`). ``chip_smoke.py`` phase 4t holds both against the
+  card's ``max_memory_allocated`` and captured pools. A program that its
+  driver captures as a CUDA graph (a chunk, the neural chunk, a serving
+  capacity's re-fit chunk) holds its resident inputs and its graph's private
+  pool at once, which can exceed its eager peak: the gate takes the larger
+  of the two.
 
 - **Shared memory** (:func:`smem_for_launch`): Python mirrors of the C
   configuration of K1 (``forest_leaves_config``, ``csrc/forest_leaves.cu``),
@@ -54,6 +56,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import json
+import math
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -160,6 +163,17 @@ _MIN_LARGE_ALLOC = 10 << 20
 _ROUND_LARGE = 2 << 20
 
 
+#: Headroom on a modelled graph pool. Replaying the card's own allocation
+#: trace of a capture through :class:`PoolModel` gives the captured pool to
+#: within 4 MiB (``benches/alloc_trace.py``: the forest chunk 1,116 MiB
+#: against 1,120 captured, the CNN chunk 2,448 against 2,446-2,448, a
+#: serving capacity's re-fit 1,290 against 1,290; NVIDIA H100 80GB HBM3,
+#: PyTorch 2.11): best fit breaks ties by address there and by creation
+#: order here. The same program's capture moved by one 2 MiB segment
+#: between runs (2,446 and 2,448 MiB). Four times the larger gap.
+POOL_HEADROOM = 16 << 20
+
+
 def block_bytes(nbytes: int) -> int:
     """The caching allocator's block for an allocation of ``nbytes``."""
     return 0 if nbytes <= 0 else -(-nbytes // _BLOCK) * _BLOCK
@@ -236,30 +250,144 @@ _SORTS = frozenset(("sort", "argsort", "msort", "topk", "kthvalue", "median", "m
 _SCANS = frozenset(("cumsum", "cumprod", "logcumsumexp", "cummax", "cummin"))
 
 
+#: Reductions that cast their whole input to the result's dtype first when
+#: the two differ (PyTorch's ``make_reduction_from_out_ty``; on the card a
+#: half or bfloat16 input summed into float32 is read as it is).
+_CASTING_REDUCTIONS = frozenset(("sum", "nansum", "prod", "mean"))
 _CONVS = frozenset(("convolution", "_convolution", "convolution_overrideable",
                     "convolution_backward"))
 
 
+_CUDNN_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_workspaces: Dict[tuple, int] = {}
+
+
+def _conv_layout(x: torch.Tensor, w: torch.Tensor) -> torch.memory_format:
+    """The layout PyTorch hands cuDNN (``cudnn_conv_suggest_memory_format``):
+    channels-last when the input or the weight is channels-last."""
+    def last(t):
+        return (t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last)
+                and not t.is_contiguous())
+
+    return torch.channels_last if last(x) or last(w) else torch.contiguous_format
+
+
+def cudnn_workspace(kind: int, x_shape, w_shape, y_shape, stride, padding, dilation,
+                    dtype: torch.dtype, layout: torch.memory_format) -> int:
+    """The workspace bytes cuDNN's heuristics give the convolution PyTorch
+    runs on the card for these shapes (``kind`` 0 forward, 1 backward data,
+    2 backward filter): the first configuration PyTorch would accept, under
+    the flags of the port's runs there (deterministic, no TF32;
+    ``csrc/cudnn_workspace.cu``; no kernel launches). Cached by its
+    arguments; a failed query raises."""
+    import ctypes
+
+    from distributed_active_learning_tpu_torch import kernels
+
+    # The source asks under the flags of the port's runs on the card:
+    # ``device.resolve_device`` turns TF32 off for every run there, and the
+    # neural drivers make cuDNN deterministic (``device.deterministic_cuda``);
+    # the engine PyTorch picks, and its workspace, follow them.
+    dev = torch.cuda.current_device()
+    key = (kind, tuple(x_shape), tuple(w_shape), tuple(y_shape), tuple(stride), tuple(padding),
+           tuple(dilation), dtype, layout, dev)
+    if key in _workspaces:
+        return _workspaces[key]
+    if dtype not in _CUDNN_DTYPES:
+        raise ValueError(f"no cuDNN workspace query for {dtype}")
+    spatial = len(x_shape) - 2
+
+    def arr(vals):
+        return (ctypes.c_longlong * len(vals))(*[int(v) for v in vals])
+
+    def strides(shape):
+        fmt = layout if len(shape) == 4 else torch.contiguous_format
+        return torch.empty(tuple(shape), device="meta", memory_format=fmt).stride()
+
+    ws, count = ctypes.c_longlong(0), ctypes.c_int(0)
+    err = kernels.load("cudnn_workspace").cudnn_conv_workspace(
+        kind, dev, spatial, arr(x_shape), arr(strides(x_shape)), arr(w_shape),
+        arr(strides(w_shape)), arr(y_shape), arr(strides(y_shape)), arr(stride), arr(padding),
+        arr(dilation), _CUDNN_DTYPES[dtype], ctypes.byref(ws), ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cuDNN's workspace query failed for the convolution {key[:7]} "
+                           f"(status {err}, {count.value} configurations)")
+    _workspaces[key] = int(ws.value)
+    return _workspaces[key]
+
+
+def conv_scratch(name: str, args, out) -> int:
+    """A convolution's cuDNN workspace. On a machine with a card: cuDNN's own
+    answer for its shapes (:func:`cudnn_workspace`; a backward's the larger
+    of its data and filter passes, run one after the other). Without one
+    (the meta device on a host, the CPU): bounded by twice the bytes of the
+    convolution's tensors (the largest seen on the H100 was 1.19 times
+    them: SmallCNN's first layer over a 4,096-row chunk, 705 MB)."""
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    outs = list(roofline._tensors(out))
+    bound = 2 * sum(t.numel() * t.element_size() for t in ins + outs if t.dim() == 4)
+    if not torch.cuda.is_available():
+        return bound
+    if name == "convolution_backward":
+        dy, x, w = args[0], args[1], args[2]
+        stride, padding, dilation, transposed, mask = args[4], args[5], args[6], args[7], args[10]
+        runs = [(1, mask[0]), (2, mask[1])]
+    else:
+        x, w = args[0], args[1]
+        dy = outs[0] if outs else None
+        stride, padding, dilation, transposed = args[3], args[4], args[5], args[6]
+        runs = [(0, True)]
+    if transposed or x.dim() != 4 or dy is None:
+        return bound
+    layout = _conv_layout(x, w)
+    return max([cudnn_workspace(kind, x.shape, w.shape, dy.shape, stride, padding, dilation,
+                                x.dtype, layout) for kind, want in runs if want] or [0])
+
+
+def _index_copies(indices) -> int:
+    """``index`` on the card with two or more index tensors whose strides
+    differ once broadcast (a ``[1, m]`` row index beside a ``[T, m]`` one)
+    makes each that is not contiguous at the broadcast shape contiguous
+    (``AdvancedIndex``): those copies' bytes."""
+    idx = [t for t in indices if isinstance(t, torch.Tensor)]
+    if len(idx) < 2:
+        return 0
+    shape = tuple(torch.broadcast_shapes(*(t.shape for t in idx)))
+    return sum(math.prod(shape) * t.element_size() for t in idx
+               if tuple(t.shape) != shape or not t.is_contiguous())
+
+
 def library_scratch(func, args, out) -> int:
     """Bytes a library kernel allocates inside one operation on the card,
-    beyond its outputs: a sort's radix double buffers of keys and int64
-    indices (and the cub temporary beside them), a scan's temporary, and a
-    convolution's cuDNN workspace, whose size cuDNN's heuristic chooses on
-    the card: bounded here by twice the bytes of the convolution's tensors
-    (the largest seen on the H100 was 1.19 times them: SmallCNN's first
-    layer over a 4,096-row chunk, 705 MB)."""
+    beyond its outputs, which the dispatch does not see: a sort's radix
+    double buffers of keys and int64 indices (and the cub temporary beside
+    them), a scan's temporary, a convolution's cuDNN workspace
+    (:func:`conv_scratch`), an accumulating ``index_put_``'s sorted indices,
+    and what the H100's allocator trace of the forest chunk, the CNN chunk
+    and a serving capacity's re-fit showed besides (PyTorch 2.11): a
+    reduction into another dtype than its input's casts the input first (a
+    boolean ``[n, T]`` summed as int32: its int32 copy), ``index_add_``
+    copies its source, and ``index`` makes broadcast index tensors
+    contiguous (:func:`_index_copies`). No other operation of those
+    programs allocated beside its outputs."""
     name = func.overloadpacket.__name__
     ins = [a for a in args if isinstance(a, torch.Tensor)]
     if not ins:
         return 0
     x = ins[0]
+    outs = list(roofline._tensors(out))
+    if name in _CASTING_REDUCTIONS and outs and outs[0].dtype != x.dtype:
+        return x.numel() * outs[0].element_size()
+    if name == "index" and len(args) > 1:
+        return _index_copies(args[1])
+    if name in ("index_add", "index_add_") and len(args) > 3:
+        return args[3].numel() * args[3].element_size()
     if name in _SORTS:
         return 2 * (x.numel() * (x.element_size() + 8)) + _SMALL
     if name in _SCANS:
         return x.numel() * x.element_size()
     if name in _CONVS:
-        tensors = ins + [t for t in roofline._tensors(out)]
-        return 2 * sum(t.numel() * t.element_size() for t in tensors if t.dim() == 4)
+        return conv_scratch(name, args, out)
     if name in ("index_put_", "_index_put_impl_") and len(args) > 3 and args[3]:
         idx = sum(t.numel() for t in roofline._tensors(args[1]))
         return 4 * idx * 8 + _SMALL  # accumulate sorts its indices
@@ -335,22 +463,11 @@ def _make_tracker(device_type: str):
             for t in roofline._tensors((args, kwargs)):
                 self._note_input(t)
             out = roofline.meta_layout(func, args, func(*args, **kwargs))
-            scratch = library_scratch(func, args, out)
-            live = len(self.live)
-            staged = 0
+            scratch = block_bytes(library_scratch(func, args, out))
             for t in roofline._tensors(out):
                 self._note_output(t)
-                if len(self.live) > live:
-                    staged = max(staged, block_bytes(t.untyped_storage().nbytes()))
-                    live = len(self.live)
-            # A kernel may stage its result once more while it runs (a
-            # temporary the dispatch does not see: a casting buffer, a
-            # contiguous copy): each new output is charged a second time
-            # for the length of the operation, unless library scratch
-            # already covers more.
-            scratch = max(block_bytes(scratch), staged)
+            self._peak(scratch)
             if scratch:
-                self._peak(scratch)
                 self.pool.free(self.pool.alloc(scratch))
             return out
 
@@ -393,7 +510,8 @@ def program_memory(fn, *args) -> Dict[str, Any]:
     past 1 MiB), what is still live when ``fn`` returns, the peak (inputs +
     transient + slack: what ``torch.cuda.max_memory_allocated`` can reach)
     and the caching allocator's segments for the program's own allocations
-    (a graph capture's private pool). Raises what ``fn`` raises."""
+    (a graph capture's private pool), plus :data:`POOL_HEADROOM`. Raises
+    what ``fn`` raises."""
     tracker = _make_tracker("meta")
     for t in tensor_leaves(args):
         tracker._note_input(t)
@@ -407,7 +525,7 @@ def program_memory(fn, *args) -> Dict[str, Any]:
         "slack_bytes": float(tracker.peak_slack),
         "output_bytes": float(tracker.transient),
         "peak_hbm_bytes": resident + tracker.peak_transient + tracker.peak_slack,
-        "pool_bytes": float(tracker.pool.reserved),
+        "pool_bytes": float(tracker.pool.reserved + POOL_HEADROOM),
     }
     del result
     return out

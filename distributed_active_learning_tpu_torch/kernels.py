@@ -66,6 +66,10 @@ _SIGNATURES = {
         "threefry_uniform": [_P, _L, _P, _P],
         "threefry_categorical": [_P, _I, _L, _P, _L, _P, _P],
     },
+    "cudnn_workspace": {
+        "cudnn_conv_workspace": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _P, _P],
+    },
 }
 
 _lock = threading.Lock()
@@ -86,12 +90,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME): the CUDA kernels cannot be built")
 
 
+def _cudnn_args() -> list:
+    """Compile and link flags of ``csrc/cudnn_workspace.cu``: the headers
+    of the cuDNN library PyTorch has loaded (beside it, else the system's)
+    and that library itself, so the query asks the very cuDNN that runs the
+    convolutions. Raises when either is missing."""
+    import torch
+
+    torch.backends.cudnn.version()  # PyTorch loads its cuDNN
+    libs = sorted({ln.split()[-1] for ln in open("/proc/self/maps")
+                   if "/libcudnn.so." in ln.rsplit(None, 1)[-1]})
+    if not libs:
+        raise RuntimeError("no cuDNN library is loaded in this process: PyTorch's cuDNN is "
+                           "needed to ask for a convolution's workspace")
+    lib = Path(libs[0])
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    for inc in (lib.parent.parent / "include", Path("/usr/include"),
+                Path("/usr/include/x86_64-linux-gnu"), home / "include"):
+        if (inc / "cudnn.h").exists():
+            return ["-I", str(inc), "-Xlinker", str(lib), "-Xlinker", "-rpath", "-Xlinker",
+                    str(lib.parent)]
+    raise RuntimeError(f"cuDNN's headers (cudnn.h) are not beside {lib} nor in the system's "
+                       "include directories")
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha1()
     for src in sorted([CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    extra = _cudnn_args() if name == "cudnn_workspace" else []
+    h.update(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -102,7 +131,8 @@ def _start_build(name: str, verbose: bool) -> Optional[subprocess.Popen]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+           "-o", str(tmp), str(CSRC / f"{name}.cu"),
+           *(_cudnn_args() if name == "cudnn_workspace" else ())]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

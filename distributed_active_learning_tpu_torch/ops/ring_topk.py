@@ -24,9 +24,9 @@ copy), and on one card stream order is the whole handshake. A window on
 another card is stored through a peer pointer under UVA. CPU windows take
 the plain version, tensor copies (:func:`ring_step_plain`).
 
-Over several processes (``ring_topk(..., procs=N)``; ``parallel/
+Over several processes (``ring_topk(..., members=ranks)``; ``parallel/
 multihost.py``) each rank holds its own shards' windows, and the window of
-its last shard goes to the next rank's first. On the card that hop is the
+its last shard goes to the next member's first. On the card that hop is the
 TPU kernel's remote write again: each rank's receive window is
 ``cudaMalloc``'d inside the ring-hop library and shared by CUDA IPC, the
 handles are exchanged once over gloo, and K4 stores through the mapped
@@ -185,8 +185,8 @@ def hop(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
     return out
 
 
-def ring_topk(windows: Sequence[Window], k: int, procs: int = 1, plain: bool = False,
-              received: Optional[list] = None) -> List[Window]:
+def ring_topk(windows: Sequence[Window], k: int, members: Optional[Sequence[int]] = None,
+              plain: bool = False, received: Optional[list] = None) -> List[Window]:
     """Merge the shards' ``k``-row windows (``pad_window``-normalized,
     global indices; shard ``s``'s on the ring's device ``s``) into the global
     top-k: each shard's original window travels right ``S - 1`` steps, and
@@ -195,19 +195,21 @@ def ring_topk(windows: Sequence[Window], k: int, procs: int = 1, plain: bool = F
     receive buffers. Returns every shard's merged window, all equal; with
     one shard, the window itself.
 
-    With ``procs > 1`` the ring spans that many processes, ``windows`` are
-    this rank's shards' (:func:`_ring_topk_processes`; COLLECTIVE):
-    ``plain`` takes the gloo hop on the card too (K4's oracle), and
+    With ``members`` (the ring's ranks in ring order: every rank, or a
+    model column's ranks, one a data row: a column ring) the ring spans
+    those processes, and ``windows`` are this rank's shards'
+    (:func:`_ring_topk_processes`; COLLECTIVE); ``None`` keeps it in this
+    process. ``plain`` takes the gloo hop on the card too (K4's oracle), and
     ``received`` (a list) collects a copy of each window this rank's first
-    shard receives from the previous rank."""
+    shard receives from the previous member."""
     for v, i in windows:
         if v.shape != (k,) or i.shape != (k,):
             raise ValueError(
                 f"ring_topk needs k-row windows, got {tuple(v.shape)}/{tuple(i.shape)} "
                 f"for k={k}; normalize with pad_window first"
             )
-    if procs > 1:
-        return _ring_topk_processes(windows, k, procs, plain, received)
+    if members is not None and len(members) > 1:
+        return _ring_topk_processes(windows, k, tuple(members), plain, received)
     n = len(windows)
     if n == 1:
         return list(windows)
@@ -233,20 +235,31 @@ def ring_topk(windows: Sequence[Window], k: int, procs: int = 1, plain: bool = F
     return acc
 
 
-def hop_processes_plain(vals: torch.Tensor, idx: torch.Tensor, tag: int = 0) -> Window:
-    """The plain hop between processes: this rank's window to the next
-    rank, the previous rank's window back, as one gloo ``isend``/``irecv``
-    of ``[2k]`` int32 words staged through the host (the values' bits, then
-    the indices). Fresh buffers on ``vals``' device. COLLECTIVE."""
-    import torch.distributed as dist
-
+def _neighbours(members: Sequence[int]) -> Tuple[int, int]:
+    """This rank's (next, previous) member of a ring of processes."""
     from distributed_active_learning_tpu_torch.parallel import multihost
 
-    n, r = multihost.process_count(), multihost.process_index()
+    r = multihost.process_index()
+    if r not in members:
+        raise ValueError(f"rank {r} is not a member of the ring {list(members)}")
+    i = members.index(r)
+    return members[(i + 1) % len(members)], members[(i - 1) % len(members)]
+
+
+def hop_processes_plain(vals: torch.Tensor, idx: torch.Tensor, members: Sequence[int],
+                        tag: int = 0) -> Window:
+    """The plain hop between processes: this rank's window to the next
+    member of the ring ``members``, the previous member's window back, as
+    one gloo ``isend``/``irecv`` of ``[2k]`` int32 words staged through the
+    host (the values' bits, then the indices). Fresh buffers on ``vals``'
+    device. COLLECTIVE over the ring."""
+    import torch.distributed as dist
+
+    right, left = _neighbours(tuple(members))
     k = vals.shape[0]
     msg = torch.cat([vals.contiguous().view(torch.int32), idx.to(torch.int32)]).cpu()
     got = torch.empty_like(msg)
-    reqs = [dist.isend(msg, (r + 1) % n, tag=tag), dist.irecv(got, (r - 1) % n, tag=tag)]
+    reqs = [dist.isend(msg, right, tag=tag), dist.irecv(got, left, tag=tag)]
     for q in reqs:
         q.wait()
     got = got.to(vals.device)
@@ -265,12 +278,12 @@ class _CudaArray:
 
 class IpcWindow:
     """This rank's two receive slots of k-row windows, ``cudaMalloc``'d in
-    the ring-hop library and exported by CUDA IPC, and the right
-    neighbour's two slots mapped here. Made once per (card, k) by every rank
-    together (the handles cross over gloo); kept for the process's life.
-    A failed allocation, export or open raises, naming the cause."""
+    the ring-hop library and exported by CUDA IPC, and the next ring
+    member's two slots mapped here. Made once per (card, k, ring) by every
+    rank together (the handles cross over gloo); kept for the process's
+    life. A failed allocation, export or open raises, naming the cause."""
 
-    def __init__(self, dev: torch.device, k: int):
+    def __init__(self, dev: torch.device, k: int, members: Sequence[int]):
         from distributed_active_learning_tpu_torch.parallel import multihost
 
         lib = kernels.load("ring_hop")
@@ -286,7 +299,7 @@ class IpcWindow:
         self.local_base = base.value
         mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
         handles = multihost.all_gather(mine)
-        right = (multihost.process_index() + 1) % multihost.process_count()
+        right = _neighbours(tuple(members))[0]
         theirs = ctypes.create_string_buffer(bytes(handles[right].numpy().tobytes()), size)
         mapped = ctypes.c_void_p()
         err = lib.ring_hop_ipc_open(dev.index, theirs, ctypes.byref(mapped))
@@ -310,7 +323,7 @@ class IpcWindow:
         return base + slot * self.slot_bytes + self.vals_bytes
 
     def remote(self, slot: int) -> Tuple[int, int]:
-        """The right neighbour's slot as a ``(values, indices)`` pointer pair."""
+        """The next member's slot as a ``(values, indices)`` pointer pair."""
         return self._vals(self.remote_base, slot), self._idx(self.remote_base, slot)
 
     def local(self, slot: int) -> Window:
@@ -318,41 +331,43 @@ class IpcWindow:
         return self._local[slot]
 
 
-_ipc_windows: Dict[Tuple[int, int], IpcWindow] = {}
+_ipc_windows: Dict[tuple, IpcWindow] = {}
 
 
-def ipc_window(dev: torch.device, k: int) -> IpcWindow:
-    """The :class:`IpcWindow` of (``dev``, ``k``), made on first use
-    (COLLECTIVE then: every rank asks at the same point)."""
-    key = (dev.index, k)
+def ipc_window(dev: torch.device, k: int, members: Sequence[int]) -> IpcWindow:
+    """The :class:`IpcWindow` of (``dev``, ``k``) toward the next process of
+    the ring ``members``, made on first use (COLLECTIVE then: every rank,
+    each for its own ring, asks at the same point)."""
+    key = (dev.index, k, tuple(members))
     if key not in _ipc_windows:
-        _ipc_windows[key] = IpcWindow(dev, k)
+        _ipc_windows[key] = IpcWindow(dev, k, members)
     return _ipc_windows[key]
 
 
-def _ring_topk_processes(windows: Sequence[Window], k: int, procs: int, plain: bool,
-                         received: Optional[list]) -> List[Window]:
-    """:func:`ring_topk` over ``procs`` processes, ``windows`` this rank's
-    shards' (the same count on every rank). Within a rank a window moves to
-    the next local shard; the last local shard's goes to the next rank's
-    first, by K4 through the IPC window on the card (one launch a step for
-    every window the rank sends) or by the gloo hop on the CPU or with
-    ``plain``. Every rank returns the same merged windows."""
+def _ring_topk_processes(windows: Sequence[Window], k: int, members: Tuple[int, ...],
+                         plain: bool, received: Optional[list]) -> List[Window]:
+    """:func:`ring_topk` over the processes ``members`` (in ring order; a
+    column ring, or every rank), ``windows`` this rank's shards' (the same
+    count on every rank). Within a rank a window moves to the next local
+    shard; the last local shard's goes to the next member's first, by K4
+    through the IPC window on the card (one launch a step for every window
+    the rank sends) or by the gloo hop on the CPU or with ``plain``. Every
+    member returns the same merged windows. Where the job runs several
+    column rings, every rank runs its own at the same point: they have as
+    many members each, so they step together under the job's barriers."""
     from distributed_active_learning_tpu_torch.parallel import multihost
 
-    if multihost.process_count() != procs:
-        raise ValueError(f"a ring over {procs} processes in a job of "
-                         f"{multihost.process_count()}")
+    n_members = len(members)
     n_local = len(windows)
     dev = windows[0][0].device
     on_card = dev.type == "cuda" and not plain
-    win = ipc_window(dev, k) if on_card else None
+    win = ipc_window(dev, k, members) if on_card else None
     acc = list(windows)
     cur = [(v.contiguous(), i.contiguous()) for v, i in windows]
     bufs = [tuple((torch.empty(k, dtype=torch.float32, device=dev),
                    torch.empty(k, dtype=torch.int32, device=dev)) for _ in range(n_local))
             for _ in range(2)]
-    for step in range(n_local * procs - 1):
+    for step in range(n_local * n_members - 1):
         slot = step % 2
         nxt = [None] + list(bufs[slot][1:])
         with kernels.kernel_work("ring_hop", lambda: costs.ring_step([k] * n_local)):
@@ -368,7 +383,7 @@ def _ring_topk_processes(windows: Sequence[Window], k: int, procs: int, plain: b
                 nxt[0] = win.local(slot)
             else:
                 ring_step_plain(cur[:-1], nxt[1:])
-                nxt[0] = hop_processes_plain(*cur[-1], tag=step)
+                nxt[0] = hop_processes_plain(*cur[-1], members, tag=step)
         if received is not None:
             received.append((nxt[0][0].clone(), nxt[0][1].clone()))
         for s in range(n_local):

@@ -54,7 +54,7 @@ from distributed_active_learning_tpu_torch.ops.trees_gemm import (
 )
 from distributed_active_learning_tpu_torch.ops.trees_pallas import PallasForest, ShardedPallasForest
 from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
-from distributed_active_learning_tpu_torch.parallel.collectives import vector_accumulate
+from distributed_active_learning_tpu_torch.parallel.collectives import row_accumulate
 from distributed_active_learning_tpu_torch.parallel.kernels import join_blocks, per_shard
 
 # Launches of csrc/round_megakernel.cu, counted where the kernel is launched.
@@ -333,14 +333,15 @@ def _exact_votes(forest, x: torch.Tensor) -> torch.Tensor:
 
 
 def _vote_blocks(f, x):
-    """Votes on each (row block, tree shard), one sum over ``model`` per row
-    block: the votes of each data shard on its first device, and the
-    logical row count. K3 for the leaf kernel's shards; a gemm forest's
-    shards count their exact votes (the JAX package runs its streamed gemm
-    round on such a forest)."""
+    """Votes on each (row block, tree shard) cell this process holds, one
+    sum over ``model`` per row block (across the row group where a row
+    spans processes): the votes of each of this process's data shards on
+    its first device, and the logical row count. K3 for the leaf kernel's
+    shards; a gemm forest's shards count their exact votes (the JAX package
+    runs its streamed gemm round on such a forest)."""
     local = fused_votes if isinstance(f, ShardedPallasForest) else _exact_votes
     grid, n = per_shard(f, x, local)
-    return [vector_accumulate(row) for row in grid], n
+    return [row_accumulate(row, f.mesh.spread) for row in grid], n
 
 
 def _sharded_fused_votes(f: ShardedPallasForest, x) -> torch.Tensor:
@@ -357,8 +358,12 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     ``pad_window`` to ``k`` rows, and the ring merge over ``data``.
 
     In the JAX package every model column runs its own ring, because
-    ``out_specs=P()`` replicates the result on every device; the port needs
-    the result once, so one ring runs, over model column 0's devices.
+    ``out_specs=P()`` replicates the result on every device. In one
+    process, and over processes that hold whole rows, the port needs the
+    result once a process, so one ring runs, over model column 0's devices;
+    where a row spans processes, each process runs the ring of its own
+    model column (``Mesh.ring_members``: one member a row), so every rank
+    ends with the result and no broadcast is needed.
     Returns DIRECTED ``(vals [k], idx [k])`` on the mesh's first device.
     The blocks are contiguous index ranges in shard order, so the result
     equals the stable top-k of the global masked score vector, ties and the
@@ -375,7 +380,7 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
         loc_v, loc_i = stable_top_k(work, kk)
         glob_i = (loc_i + s * n_local).to(torch.int32)
         windows.append(ring_topk.pad_window(loc_v, glob_i, k))
-    return ring_topk.ring_topk(windows, k, procs=f.mesh.n_procs)[0]
+    return ring_topk.ring_topk(windows, k, members=f.mesh.ring_members)[0]
 
 
 def fused_score_select(

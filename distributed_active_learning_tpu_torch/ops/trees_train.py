@@ -429,11 +429,13 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
     capture it.
 
     Over processes (``codes.spans_processes``) each rank's offset starts at
-    the earlier ranks' counts (one all-gather of the per-shard counts), each
+    the earlier rows' counts (one all-gather of the per-shard counts), each
     rank fills the slots of its own rows, and the ranks' windows are
     all-gathered and overlaid in rank order on rank 0's, whose unfilled
     slots read global row 0: every rank gets the same window, in global
-    index order, so every rank fits the same forest. COLLECTIVE."""
+    index order, so every rank fits the same forest. Where a row spans
+    several ranks (``codes.spread``), each gather takes the row from its
+    owner alone, so every row enters the window once. COLLECTIVE."""
     dev = codes.device
     c = codes.block(codes.first)[:1].to(dev).expand(budget, -1)
     yy = y.block(y.first)[:1].to(dev).expand(budget)
@@ -441,9 +443,9 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
     counts = [m.sum(dtype=torch.int64).to(dev) for m in masks]
     spans = codes.spans_processes
     if spans:
-        from distributed_active_learning_tpu_torch.parallel import multihost
+        from distributed_active_learning_tpu_torch.parallel.collectives import owner_gather
 
-        every = torch.cat(multihost.all_gather(torch.stack(counts)))
+        every = torch.cat(owner_gather(torch.stack(counts), codes.spread))
         offset = every[:codes.first].sum()
         hit_any = torch.zeros(budget, dtype=torch.bool, device=dev)
     for s, m, cnt in zip(codes.local_ids, masks, counts):
@@ -462,8 +464,9 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
             hit_any = hit_any | hit
     if spans:
         offset = every.sum()
-        parts = zip(multihost.all_gather(c.contiguous()), multihost.all_gather(yy.contiguous()),
-                    multihost.all_gather(hit_any))
+        parts = zip(owner_gather(c.contiguous(), codes.spread),
+                    owner_gather(yy.contiguous(), codes.spread),
+                    owner_gather(hit_any, codes.spread))
         c, yy, _ = next(parts)
         for cr, yr, hr in parts:
             c = torch.where(hr[:, None], cr, c)

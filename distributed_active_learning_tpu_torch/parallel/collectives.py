@@ -9,13 +9,16 @@ and orders the destination's after it. :func:`gather_fills` and
 (``serving/slab.py``: the rebalance epoch's fill vector and its
 window-sized all-to-all).
 
-Over several processes (``across_processes=True``, for a data axis whose
-shards lie in other processes too; ``parallel/multihost.py``) each rank
-passes its own shards, every rank's are all-gathered over gloo in shard
-order, and each rank adds them in that order itself: never a backend
-``all_reduce`` of floats, whose summation order is its own, since the port
-holds masses and means to XLA's order. Every rank must call these at the
-same point.
+Over several processes each collective takes the placement's ``spread``
+(``parallel/mesh.py``'s ``Spread``: ``Mesh.spread``, ``Sharded.spread``;
+``None`` is one process). Each rank passes its own shards; where other
+ranks hold other rows, the shards of the rows' owners are all-gathered over
+gloo in shard order (:func:`owner_gather`: a row that several ranks hold
+counts once), and each rank adds them in that order itself: never a
+backend ``all_reduce`` of floats, whose summation order is its own, since
+the port holds masses and means to XLA's order. :func:`row_accumulate` is
+the sum over ``model`` of one row's cells, across the row's ranks. Every
+rank must call these at the same point.
 """
 
 from __future__ import annotations
@@ -25,23 +28,32 @@ from typing import List, Sequence
 import torch
 
 
-def _all_shards(local: Sequence[torch.Tensor], across_processes: bool) -> List[torch.Tensor]:
-    """Every shard's tensor of the axis in shard order on ``local[0]``'s
-    device: ``local`` itself in one process, else every rank's ``local``
-    (equal counts and shapes) gathered in rank order."""
-    if not across_processes:
-        return list(local)
+def owner_gather(t: torch.Tensor, spread) -> List[torch.Tensor]:
+    """Every row owner's ``t`` (equal shapes on every rank), in row order on
+    ``t``'s device: one all-gather over the job, of which each row block
+    keeps its owner's part (``spread.owners``), so that a row held by
+    several ranks counts once. COLLECTIVE."""
     from distributed_active_learning_tpu_torch.parallel.multihost import all_gather
 
+    every = all_gather(t)
+    return [every[r] for r in spread.owners]
+
+
+def _all_shards(local: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
+    """Every shard's tensor of the axis in shard order on ``local[0]``'s
+    device: ``local`` itself where this rank holds every row, else every
+    row owner's ``local`` (equal counts and shapes) in row order."""
+    if spread is None or not spread.spans_rows:
+        return list(local)
     dev = local[0].device
     stacked = torch.stack([t.to(dev) for t in local])
-    return [t for rank in all_gather(stacked) for t in rank.unbind(0)]
+    return [t for part in owner_gather(stacked, spread) for t in part.unbind(0)]
 
 
-def vector_accumulate(local: Sequence[torch.Tensor], across_processes: bool = False) -> torch.Tensor:
+def vector_accumulate(local: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
     """Elementwise sum of the per-shard vectors of one axis, added in shard
     order on the first shard's device (``lax.psum`` over the axis)."""
-    shards = _all_shards(local, across_processes)
+    shards = _all_shards(local, spread)
     dev = local[0].device
     acc = shards[0].to(dev)
     for v in shards[1:]:
@@ -49,23 +61,40 @@ def vector_accumulate(local: Sequence[torch.Tensor], across_processes: bool = Fa
     return acc
 
 
-def global_count(local_masks: Sequence[torch.Tensor], across_processes: bool = False) -> torch.Tensor:
+def row_accumulate(cells: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
+    """The sum over ``model`` of one data row's per-cell vectors, in model
+    order (``lax.psum`` over ``model``): ``cells`` are this process's cells
+    of the row; where the row spans processes (``spread.row_ranks``), every
+    rank of the row gathers the others' cells over its row group (made with
+    the mesh, ``multihost.make_groups``) first and
+    adds all of them in model order itself, so every rank of the row gets
+    the same bits. COLLECTIVE over the row group then."""
+    if spread is not None and spread.row_procs > 1:
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        dev = cells[0].device
+        parts = multihost.all_gather(torch.stack([c.to(dev) for c in cells]),
+                                     ranks=spread.row_ranks)
+        cells = [c for p in parts for c in p.unbind(0)]
+    return vector_accumulate(cells)
+
+
+def global_count(local_masks: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
     """Global True-count of per-shard boolean masks: one int32 per shard
     moves to the first shard's device, never the mask."""
-    return vector_accumulate([m.sum(dtype=torch.int32) for m in local_masks], across_processes)
+    return vector_accumulate([m.sum(dtype=torch.int32) for m in local_masks], spread)
 
 
-def gather_fills(local_fills: Sequence[torch.Tensor], across_processes: bool = False) -> torch.Tensor:
+def gather_fills(local_fills: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
     """All shards' fill watermarks as one ``[S]`` int32 vector on the first
     shard's device (``lax.all_gather`` of one scalar a shard): the rebalance
     planner's only global input."""
     dev = local_fills[0].device
     local = [f.reshape(()).to(dev, torch.int32) for f in local_fills]
-    return torch.stack(_all_shards(local, across_processes))
+    return torch.stack(_all_shards(local, spread))
 
 
-def exchange_blocks(blocks: Sequence[torch.Tensor],
-                    across_processes: bool = False) -> List[torch.Tensor]:
+def exchange_blocks(blocks: Sequence[torch.Tensor], spread=None) -> List[torch.Tensor]:
     """The window-sized all-to-all of per-target row blocks
     (``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``): shard
     ``i`` sends ``blocks[i]`` ``[S, b, ...]``, whose slot ``j`` goes to shard
@@ -74,24 +103,20 @@ def exchange_blocks(blocks: Sequence[torch.Tensor],
     across cards each slot is a peer copy to the receiver's device. Over
     processes each rank passes its own shards' blocks and gets its own
     shards' receipts (every block is all-gathered: window-sized)."""
-    shards = _all_shards(blocks, across_processes)
+    shards = _all_shards(blocks, spread)
     n = len(shards)
     for b in shards:
         if b.shape[0] != n:
             raise ValueError(f"exchange_blocks needs [S={n}, b, ...] blocks, got "
                              f"{tuple(b.shape)}")
-    mine = range(n)
-    if across_processes:
-        from distributed_active_learning_tpu_torch.parallel.multihost import process_index
-
-        first = process_index() * len(blocks)
-        mine = range(first, first + len(blocks))
-    return [torch.stack([shards[i][j].to(blocks[j - mine[0]].device) for i in range(n)])
+    first = spread.row_block * len(blocks) if spread is not None and spread.spans_rows else 0
+    mine = range(first, first + len(blocks))
+    return [torch.stack([shards[i][j].to(blocks[j - first].device) for i in range(n)])
             for j in mine]
 
 
 def masked_mean(values: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
-                across_processes: bool = False) -> torch.Tensor:
+                spread=None) -> torch.Tensor:
     """Global mean of the per-shard ``values`` where ``masks`` are set: each
     shard's masked sum and count, each added over the axis in shard order
     (``lax.psum``), then one division (the JAX package's ``masked_mean``,
@@ -101,5 +126,5 @@ def masked_mean(values: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
         mf = m.to(v.dtype)
         sums.append((v * mf).sum())
         counts.append(mf.sum())
-    return (vector_accumulate(sums, across_processes)
-            / torch.clamp_min(vector_accumulate(counts, across_processes), 1.0))
+    return (vector_accumulate(sums, spread)
+            / torch.clamp_min(vector_accumulate(counts, spread), 1.0))

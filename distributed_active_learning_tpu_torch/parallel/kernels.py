@@ -9,9 +9,12 @@ each shard's work on the shard's device (:func:`per_shard`), adds the
 shards of an axis in order (``collectives.vector_accumulate``) and joins the
 row blocks in shard order on the mesh's first device, where the round's
 global steps run (:func:`make_sharded_round_fn`). Over several processes
-each runs its own shards only; the sums over ``data`` and the joins
-all-gather the other ranks' shards (``collectives``, ``multihost``), so
-every rank runs the round's global steps on the same values.
+each runs its own cells only; a row whose cells lie on several ranks is
+completed over the row group (the sum over ``model`` in model order,
+``collectives.row_accumulate``; the leaf blocks joined in tree order), and
+the sums over ``data`` and the joins all-gather the other rows, each from
+its owner (``collectives``, ``multihost``), so every rank runs the round's
+global steps on the same values.
 """
 
 from __future__ import annotations
@@ -21,13 +24,17 @@ from typing import Callable
 import torch
 
 from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
-from distributed_active_learning_tpu_torch.parallel.collectives import vector_accumulate
+from distributed_active_learning_tpu_torch.parallel.collectives import (
+    row_accumulate,
+    vector_accumulate,
+)
 
 
 def per_shard(forest, x, fn: Callable):
-    """``fn(local_forest, x_block)`` on every (data, model) shard of a
-    :class:`~.mesh.ShardedForest`, each on the shard's device: returns the
-    ``[data][model]`` grid of results and the logical row count of ``x`` (a
+    """``fn(local_forest, x_block)`` on every (data, model) cell of a
+    :class:`~.mesh.ShardedForest` that this process holds, each on the
+    cell's device: returns the grid of results (this process's rows, and in
+    each its cells in model order) and the logical row count of ``x`` (a
     row-sharded pool, or a plain tensor that is padded and split here)."""
     xs = mesh_lib.shard_rows(x, forest.mesh, replicate=True)
     if len(xs.blocks) != len(forest.shards):
@@ -41,12 +48,13 @@ def per_shard(forest, x, fn: Callable):
 def join_blocks(blocks, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     """Per-data-shard blocks joined in shard order on the mesh's first
     device, cut to the logical ``n`` rows (over processes, this rank's
-    blocks all-gathered with the others': COLLECTIVE)."""
+    blocks all-gathered with the other rows', each row from its owner:
+    COLLECTIVE)."""
     local = torch.cat([b.to(mesh.first) for b in blocks])
-    if mesh.n_procs > 1:
+    if mesh.spread.spans_rows:
         from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
 
-        return gather_rows(local, n)
+        return gather_rows(local, n, mesh.spread.owners)
     return local[:n]
 
 
@@ -55,8 +63,14 @@ def join_leaf_grid(grid, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     the global ``[n, T]``: each row block's model shards joined in tree
     order, then the row blocks in row order, so a reduction over trees
     afterwards (``tree_mean``) adds in the single-device order and gives its
-    bits."""
+    bits. A row whose cells lie on several processes is joined across its
+    row group first (COLLECTIVE)."""
     rows = [torch.cat([lv.to(row[0].device) for lv in row], dim=1) for row in grid]
+    if mesh.row_procs > 1:
+        from distributed_active_learning_tpu_torch.parallel import multihost
+
+        ranks = mesh.spread.row_ranks
+        rows = [torch.cat(multihost.all_gather(r.contiguous(), ranks=ranks), dim=1) for r in rows]
     return join_blocks(rows, mesh, n)
 
 
@@ -76,8 +90,8 @@ def sharded_votes(mesh: mesh_lib.Mesh):
     its row block with the forest's own form (K1 for a pallas forest, the
     plain path-matrix or gather walk otherwise, as the JAX package's
     ``shard_map`` body evaluates any form), one sum over ``model`` completes
-    the counts, and the blocks are joined in shard order on the first
-    device.
+    the counts (over the row group where a row spans processes), and the
+    blocks are joined in shard order on the first device.
 
     Returns ``(forest, x) -> votes [n] int32`` for a forest global or
     already placed on ``mesh``."""
@@ -86,7 +100,7 @@ def sharded_votes(mesh: mesh_lib.Mesh):
 
     def votes_fn(forest, x) -> torch.Tensor:
         grid, n = per_shard(attach_mesh(forest, mesh), x, forest_eval.votes)
-        return join_blocks([vector_accumulate(row) for row in grid], mesh, n)
+        return join_blocks([row_accumulate(row, mesh.spread) for row in grid], mesh, n)
 
     return votes_fn
 
@@ -94,8 +108,9 @@ def sharded_votes(mesh: mesh_lib.Mesh):
 def sharded_similarity_mass(mesh: mesh_lib.Mesh):
     """The similarity mass with the pool sharded over ``data``: each shard
     normalizes its block and folds its masked rows into one ``[d]`` vector,
-    the vectors are added over ``data`` in shard order (the JAX package's
-    one ``psum``: ``d`` floats a shard cross the mesh), and each shard
+    the vectors are added over ``data`` in shard order, each row once (the
+    JAX package's one ``psum``: ``d`` floats a shard cross the mesh), and
+    each shard
     finishes with its local matvec; the blocks are joined on the first
     device. Products in IEEE float32, as ``ops.similarity`` runs them.
 
@@ -110,7 +125,7 @@ def sharded_similarity_mass(mesh: mesh_lib.Mesh):
             xn = [similarity.l2_normalize(xs.block(s)) for s in xs.local_ids]
             local = [torch.mv(b.T, ms.block(s).to(b.device, b.dtype))
                      for s, b in zip(xs.local_ids, xn)]
-            pooled = vector_accumulate(local, across_processes=mesh.n_procs > 1)
+            pooled = vector_accumulate(local, mesh.spread)
             out = [torch.mv(b, pooled.to(b.device)) for b in xn]
         return join_blocks(out, mesh, xs.n_rows)
 

@@ -15,12 +15,16 @@ same code moves real bytes. A forest fitted inside a chunk's round step
 is placed there by :func:`constrain_forest`, and wrapped for per-shard
 evaluation as a :class:`ShardedForest` (``ops.trees_pallas.attach_mesh``).
 Over several processes (``parallel/multihost.py``) the mesh is the global
-one, filled row by row as JAX fills ``jax.devices()``: each process owns
-whole rows of the data axis (``Mesh.devices`` holds this process's rows,
-``Mesh.row0`` the first one's global index), a :class:`Sharded` holds only
-this process's blocks, and :func:`global_put` places the same logical host
-value on every rank by keeping the rank's own shards. A model axis across
-processes is refused by name.
+one, filled row by row as JAX fills ``jax.devices()``: cell ``(s, m)`` is
+global device ``s * model + m``, and rank ``r`` of ``P`` owns cells ``[r *
+C / P, (r + 1) * C / P)`` of the ``C = data * model``. A rank holds either
+whole rows (``Mesh.devices`` holds its rows, ``Mesh.row0`` the first one's
+global index) or a part of one row (``Mesh.row_procs`` ranks share each
+row, ``Mesh.col0`` is its first model index), as one card a rank always
+gives; a rank whose cells would cross a row boundary partway is refused by
+name. A :class:`Sharded` holds only the blocks of this rank's rows (a
+row's ranks each hold a replica), and :func:`global_put` places the same
+logical host value on every rank by keeping the rank's own shards.
 """
 
 from __future__ import annotations
@@ -38,23 +42,93 @@ AXIS_MODEL = "model"
 
 
 @dataclasses.dataclass(frozen=True)
+class Spread:
+    """How a mesh's data axis lies over the job's processes: all that a
+    collective needs of a placement. ``procs`` ranks in all; the
+    ``row_procs`` ranks ``[g, g + row_procs)`` share the same data rows (a
+    replica each, the first of them the rows' owner); ``rank`` is this
+    process. ``Spread()`` is one process."""
+
+    procs: int = 1
+    row_procs: int = 1
+    rank: int = 0
+
+    @property
+    def spans_rows(self) -> bool:
+        """Whether other processes hold other data rows (a join or a sum
+        over ``data`` then gathers from them)."""
+        return self.procs > self.row_procs
+
+    @property
+    def row_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """Every row block's ranks, in row order: the job's row groups."""
+        return tuple(tuple(range(g, g + self.row_procs))
+                     for g in range(0, self.procs, self.row_procs))
+
+    @property
+    def owners(self) -> Tuple[int, ...]:
+        """The ranks a join over ``data`` takes rows from, in row order: the
+        first of each row's ranks, so that every row counts once."""
+        return tuple(g[0] for g in self.row_groups)
+
+    @property
+    def row_block(self) -> int:
+        """This rank's rows' place among the owners' equal parts of the data
+        axis."""
+        return self.rank // self.row_procs
+
+    @property
+    def row_ranks(self) -> Tuple[int, ...]:
+        """The ranks that share this rank's rows: its row group, over which
+        the sums over ``model`` run."""
+        return self.row_groups[self.row_block]
+
+    @property
+    def column_ring(self) -> Tuple[int, ...]:
+        """The ranks of this rank's model column in row order, one a row
+        block: the ring over ``data`` (every rank when rows are whole)."""
+        return tuple(range(self.rank % self.row_procs, self.procs, self.row_procs))
+
+
+@dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``[data][model]`` grid of devices. Over several processes
-    (``n_procs > 1``) ``devices`` holds this process's rows of the global
-    grid, ``rank`` the process's index; each process owns as many rows."""
+    (``n_procs > 1``) ``devices`` holds this process's cells of the global
+    grid, row by row, ``rank`` the process's index and ``model`` the global
+    model axis (0: a whole row, ``len(devices[0])``). A process holds whole
+    rows, each process as many, or ``row_procs`` processes share each row,
+    one part of it each."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
     n_procs: int = 1
     rank: int = 0
+    model: int = 0
+
+    @property
+    def row_procs(self) -> int:
+        """The processes that share each data row (1: rows are whole)."""
+        return self.model // len(self.devices[0]) if self.model else 1
+
+    @property
+    def spread(self) -> Spread:
+        """How the data axis lies over the processes (the collectives'
+        placement)."""
+        return Spread(self.n_procs, self.row_procs, self.rank)
 
     @property
     def shape(self):
-        return {AXIS_DATA: len(self.devices) * self.n_procs, AXIS_MODEL: len(self.devices[0])}
+        return {AXIS_DATA: len(self.devices) * self.n_procs // self.row_procs,
+                AXIS_MODEL: self.model or len(self.devices[0])}
 
     @property
     def row0(self) -> int:
         """The global data index of this process's first row."""
-        return self.rank * len(self.devices)
+        return self.spread.row_block * len(self.devices)
+
+    @property
+    def col0(self) -> int:
+        """The global model index of this process's first cell in a row."""
+        return self.rank % self.row_procs * len(self.devices[0])
 
     @property
     def first(self) -> torch.device:
@@ -64,9 +138,15 @@ class Mesh:
 
     @property
     def ring(self) -> Tuple[torch.device, ...]:
-        """This process's part of the data ring: model column 0's device of
-        each of its data shards."""
+        """This process's part of the data ring: its first cell's device in
+        each of its data rows."""
         return tuple(row[0] for row in self.devices)
+
+    @property
+    def ring_members(self) -> Tuple[int, ...]:
+        """The processes of this process's data ring in row order: its model
+        column's ranks (every rank when rows are whole)."""
+        return self.spread.column_ring
 
 
 def make_mesh(
@@ -86,32 +166,42 @@ def make_mesh(
     raises.
 
     In a multi-process job (``parallel.multihost``: joined here if the
-    launch asks for one) the mesh spans the processes: each owns ``data /
-    processes`` whole rows, every shard of them on the rank's own card
+    launch asks for one) the mesh spans the processes: the ``data * model``
+    cells divide over them in row-major order (a ``ValueError`` naming the
+    shape when they do not), every cell of a rank on the rank's own card
     (``multihost.local_device_index``) or on ``devices``, which then lists
-    this process's devices. ``data`` defaults to one row a process. A mesh
-    whose model axis (or one data row) would span processes is refused by
-    name.
+    this process's devices. ``data`` defaults to one row a process. A rank
+    holds whole rows or one part of a row; where its cells would cross a
+    row boundary partway (``MeshConfig(2, 3)`` over 3 processes) the mesh is
+    refused by name. When a row spans processes, every rank creates every
+    row's process group here (``multihost.make_groups``).
     """
     from distributed_active_learning_tpu_torch.parallel import multihost
 
     multihost.maybe_initialize()
     n_procs = multihost.process_count()
     kind = torch.device(device).type
+    per_row, rows = model, data  # this process's cells in each of its rows, its rows
     if n_procs > 1:
         data = n_procs if data is None else data
-        if data % n_procs:
+        cells = data * model
+        if data < 1 or model < 1 or cells % n_procs:
+            raise ValueError(f"mesh {data}x{model}: its {cells} cells do not divide over "
+                             f"{n_procs} processes")
+        per = cells // n_procs
+        if per % model and model % per:
             raise NotImplementedError(
-                f"mesh {data}x{model} over {n_procs} processes: each process owns whole rows "
-                "of the data axis, and a model axis (or a data row) across processes is the "
-                "remaining entry of ROADMAP queue 1 item 8 (\"Mesh and pod\")")
-    rows = None if data is None else data // n_procs  # this process's data rows
+                f"mesh {data}x{model} over {n_procs} processes: each would hold {per} cells, "
+                "which cross a data row boundary partway; a rank holds whole rows or one part "
+                "of a row, and this layout is the remaining entry of ROADMAP queue 1 item 8 "
+                "(\"Mesh and pod\")")
+        per_row, rows = min(per, model), max(per // model, 1)
     if devices is not None:
         devs = [_indexed(torch.device(d)) for d in devices]
     elif kind == "cpu":
-        devs = [torch.device("cpu")] * ((rows or 1) * model)
+        devs = [torch.device("cpu")] * ((rows or 1) * per_row)
     elif kind == "cuda" and n_procs > 1:
-        devs = [torch.device("cuda", multihost.local_device_index())] * (rows * model)
+        devs = [torch.device("cuda", multihost.local_device_index())] * (rows * per_row)
     elif kind == "cuda":
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
@@ -122,12 +212,15 @@ def make_mesh(
         rows = data = len(devs) // model
     if rows < 1 or model < 1:
         raise ValueError(f"mesh {data}x{model} needs positive axes")
-    if rows * model > len(devs):
+    if rows * per_row > len(devs):
         raise ValueError(f"mesh {data}x{model} exceeds {len(devs)} devices")
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"a mesh lies on one kind of device, got {devs}")
-    grid = tuple(tuple(devs[s * model:(s + 1) * model]) for s in range(rows))
-    mesh = Mesh(grid, n_procs=n_procs, rank=multihost.process_index())
+    grid = tuple(tuple(devs[s * per_row:(s + 1) * per_row]) for s in range(rows))
+    mesh = Mesh(grid, n_procs=n_procs, rank=multihost.process_index(),
+                model=model if n_procs > 1 else 0)
+    if mesh.row_procs > 1:
+        multihost.make_groups(mesh.spread.row_groups)
     if devs[0].type == "cuda":
         from distributed_active_learning_tpu_torch.ops import ring_topk
 
@@ -150,12 +243,15 @@ class Sharded:
     them; one for masks and labels). ``n_rows`` is the logical row count;
     the last blocks may carry padding rows past it. In one process
     ``blocks`` are every shard's (``first`` 0); over several processes they
-    are this process's, and ``n_shards`` counts the global data axis."""
+    are this process's rows', ``n_shards`` counts the global data axis, and
+    ``spread`` says which processes hold each row (a replica on each of
+    them, written the same way on every one)."""
 
     blocks: Tuple[Tuple[torch.Tensor, ...], ...]
     n_rows: int
     first: int = 0
     n_shards: Optional[int] = None
+    spread: Spread = Spread()
 
     @property
     def shape(self):
@@ -176,11 +272,25 @@ class Sharded:
 
     @property
     def spans_processes(self) -> bool:
+        """Whether other processes hold other rows (a join over ``data``
+        gathers)."""
         return self.n_shards is not None and self.n_shards > len(self.blocks)
 
+    @property
+    def across_processes(self) -> bool:
+        """Whether the array is placed over several processes at all (its
+        rows spread, or each row held by several)."""
+        return self.spread.procs > 1
+
     def block(self, s: int, m: int = 0) -> torch.Tensor:
-        """Data shard ``s``'s block (a global index) on model device ``m``."""
-        reps = self.blocks[s - self.first]
+        """Data shard ``s``'s block (a global index) on this process's
+        ``m``-th device of the row; a shard this process does not hold
+        raises."""
+        i = s - self.first
+        if not 0 <= i < len(self.blocks):
+            raise ValueError(f"data shard {s} is not held by this process (it holds shards "
+                             f"{list(self.local_ids)} of {self.n_shards or len(self.blocks)})")
+        reps = self.blocks[i]
         return reps[m] if len(reps) > 1 else reps[0]
 
     def with_blocks(self, blocks) -> "Sharded":
@@ -194,13 +304,14 @@ class Sharded:
     def gather(self) -> torch.Tensor:
         """The global array on the first device: blocks in shard order (the
         all-gather GSPMD inserts where a global value is needed; over
-        processes a gloo all-gather, COLLECTIVE). Always a fresh tensor."""
+        processes a gloo all-gather taking each row from its owner,
+        COLLECTIVE). Always a fresh tensor."""
         dev = self.device
         local = torch.cat([reps[0].to(dev) for reps in self.blocks])
         if self.spans_processes:
             from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
 
-            return gather_rows(local, self.n_rows)
+            return gather_rows(local, self.n_rows, self.spread.owners)
         return local[: self.n_rows]
 
 
@@ -214,7 +325,9 @@ def shard_rows(a: torch.Tensor, mesh: Mesh, replicate: bool = False) -> Sharded:
     with zeros (False for masks) to a multiple of the axis. Block ``s`` lies
     on ``mesh.devices[s][0]``, or on every device of row ``s`` with
     ``replicate``. Over several processes ``a`` is the same logical value
-    on every rank, and each keeps its own rows' blocks (:func:`global_put`)."""
+    on every rank, and each keeps its own rows' blocks (:func:`global_put`):
+    on each of its cells' devices with ``replicate``, else on its first
+    cell's, so that every rank of a row holds the row."""
     if isinstance(a, Sharded):
         return a
     n = a.shape[0]
@@ -230,7 +343,7 @@ def shard_rows(a: torch.Tensor, mesh: Mesh, replicate: bool = False) -> Sharded:
         devs = row if replicate else row[:1]
         blocks.append(tuple(blk.to(d) for d in devs))
     if mesh.n_procs > 1:
-        return Sharded(tuple(blocks), n, first=mesh.row0, n_shards=n_data)
+        return Sharded(tuple(blocks), n, first=mesh.row0, n_shards=n_data, spread=mesh.spread)
     return Sharded(tuple(blocks), n)
 
 
@@ -260,10 +373,13 @@ def global_put(a, mesh: Mesh, spec: str):
 
 
 def mesh_of(x: Sharded) -> Mesh:
-    """The mesh a pool's features lie on (one replica a model device)."""
-    rows = len(x.blocks)
-    return Mesh(tuple(tuple(b.device for b in reps) for reps in x.blocks),
-                n_procs=(x.n_shards or rows) // rows, rank=x.first // rows)
+    """The mesh a pool's features lie on (one replica a model device of
+    this process's cells)."""
+    devices = tuple(tuple(b.device for b in reps) for reps in x.blocks)
+    if x.n_shards is None:
+        return Mesh(devices)
+    return Mesh(devices, n_procs=x.spread.procs, rank=x.spread.rank,
+                model=len(devices[0]) * x.spread.row_procs)
 
 
 def shard_fill_watermark(n_filled, n_pool: int, n_shards: int) -> torch.Tensor:
@@ -353,13 +469,14 @@ class ShardedForest:
 
     @property
     def n_trees(self) -> int:
-        return sum(f.n_trees for f in self.shards[0])
+        return self.shards[0][0].n_trees * self.mesh.shape[AXIS_MODEL]
 
 
 def shard_forest(forest, mesh: Mesh):
     """A ``[data][model]`` grid of forests: model shard ``m``'s trees on
     ``mesh.devices[s][m]`` for every data shard ``s`` (replicated over
-    data, as ``P(model, None)``). A device-fit forest's heap path and
+    data, as ``P(model, None)``); over processes, this process's cells
+    only, each holding its global model shard's trees. A device-fit forest's heap path and
     targets stay broadcasts of each device's own constant
     (``trees_train.to_device``), so no device checks them by value. A
     multiclass :class:`~..ops.trees_multi.MultiForest` shards plane by
@@ -370,8 +487,8 @@ def shard_forest(forest, mesh: Mesh):
         return MultiForest(planes=tuple(shard_forest(p, mesh) for p in forest.planes))
     specs = forest_tree_specs(forest, mesh)
     return tuple(
-        tuple(_map_fields(forest, lambda t, sl=specs[m], d=dev: to_device(t[sl], d))
-              for m, dev in enumerate(row))
+        tuple(_map_fields(forest, lambda t, sl=specs[mesh.col0 + j], d=dev: to_device(t[sl], d))
+              for j, dev in enumerate(row))
         for row in mesh.devices
     )
 

@@ -20,6 +20,11 @@ Launch contract, as the JAX package's: the env trio
 index), so N processes on a one-card machine share ``cuda:0`` and on four
 cards each rank has its own.
 
+Process subgroups (:func:`make_groups`) are made by rank list; which ranks
+share what is the mesh's to say (``parallel/mesh.py``'s ``Spread``: a
+data row's ranks form its row group, over which the sums over ``model``
+run).
+
 Host-side writes (checkpoints, the metrics stream) belong to the primary
 (:func:`is_primary`); the payload a write needs is gathered collectively
 first, on every rank.
@@ -30,7 +35,7 @@ from __future__ import annotations
 import atexit
 import os
 from datetime import timedelta
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,24 +180,52 @@ def _unwire(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return h.to(like.device)
 
 
-def all_gather(t: torch.Tensor) -> List[torch.Tensor]:
-    """Every rank's ``t`` (equal shapes), in rank order, on ``t``'s device.
-    COLLECTIVE. The copy to the host and back is explicit: gloo moves host
-    memory."""
-    n = process_count()
+#: The job's process subgroups by their ranks (:func:`make_groups`).
+_groups: Dict[Tuple[int, ...], object] = {}
+
+
+def make_groups(rank_lists: Sequence[Sequence[int]]) -> None:
+    """Create the process group of each rank list that has none yet, in
+    order. COLLECTIVE over the whole job: every rank calls it with the same
+    lists, members or not (``parallel.mesh.make_mesh`` does, for a mesh's
+    row groups)."""
+    for ranks in rank_lists:
+        key = tuple(int(r) for r in ranks)
+        if key not in _groups:
+            _groups[key] = _dist().new_group(list(key), backend=BACKEND)
+
+
+def all_gather(t: torch.Tensor, ranks: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """Every rank's ``t`` (equal shapes), in rank order, on ``t``'s device:
+    over the job, or over the group of ``ranks`` (made by
+    :func:`make_groups`; it holds this rank). COLLECTIVE over those ranks.
+    The copy to the host and back is explicit: gloo moves host memory."""
+    n = process_count() if ranks is None else len(ranks)
     if n == 1:
         return [t]
+    group = None
+    if ranks is not None:
+        group = _groups.get(tuple(int(r) for r in ranks))
+        if group is None:
+            raise RuntimeError(f"no process group of ranks {list(ranks)}: every rank makes it "
+                               "first (make_groups)")
     h = _wire(t)
     out = [torch.empty_like(h) for _ in range(n)]
-    _dist().all_gather(out, h)
+    _dist().all_gather(out, h, group=group)
     return [_unwire(o, t) for o in out]
 
 
-def gather_rows(local: torch.Tensor, n_rows: int) -> torch.Tensor:
+def gather_rows(local: torch.Tensor, n_rows: int,
+                owners: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The global array from each rank's row block: this rank's ``local``
     rows (every rank's block padded to one length; padding rows only at the
-    global end) joined in rank order and cut to ``n_rows``. COLLECTIVE."""
-    return torch.cat(all_gather(local))[:n_rows]
+    global end) gathered over the job, joined in rank order from ``owners``
+    (every rank by default; a mesh's ``Spread.owners`` where ranks share
+    rows, so each row counts once) and cut to ``n_rows``. COLLECTIVE."""
+    every = all_gather(local)
+    if owners is not None:
+        every = [every[r] for r in owners]
+    return torch.cat(every)[:n_rows]
 
 
 def gather_scalar_gauges(values: dict) -> dict:

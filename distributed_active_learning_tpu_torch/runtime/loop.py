@@ -942,7 +942,7 @@ class GraphedChunk:
         placed = [getattr(carry, f) for f in self._carry_fields]
         placed += [a for a in args if isinstance(a, Sharded) or torch.is_tensor(a)]
         cards = sorted({d for d in _devices_of(placed) if d.type == "cuda"}, key=str)
-        if any(a.spans_processes for a in _sharded_leaves(placed)):
+        if any(a.across_processes for a in _sharded_leaves(placed)):
             from distributed_active_learning_tpu_torch.parallel.multihost import process_count
 
             self.mode = "eager"

@@ -124,7 +124,7 @@ def labeled_count(state: PoolState) -> torch.Tensor:
     mask = state.labeled_mask
     if isinstance(mask, Sharded):
         return global_count([mask.block(s) & v for s, v in zip(mask.local_ids, valid_blocks(state))],
-                            across_processes=mask.spans_processes)
+                            mask.spread)
     if state.n_filled is None and state.n_valid == state.n_pool:
         return mask.sum(dtype=torch.int32)
     return (mask & state.valid_mask).sum(dtype=torch.int32)

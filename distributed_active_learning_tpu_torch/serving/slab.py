@@ -43,6 +43,11 @@ how much memory is allocated from how much of it is real:
   JAX package, ``serving/slab.py:218-223``). These are plain PyTorch: the
   JAX package runs them as XLA programs under ``shard_map``, with no
   Pallas kernel.
+  Over processes (a mesh from ``parallel.multihost``) every rank makes the
+  same calls with the same arguments, as JAX's multi-controller model does:
+  each holds only its own shards' blocks and writes only those, while the
+  ``[S]`` watermark, the rebalance plan and the epoch's index maps are
+  whole and equal on every rank.
 """
 
 from __future__ import annotations
@@ -396,7 +401,9 @@ def make_sharded_ingest_fn(mesh):
     ``global_fill`` is the post-ingest total, a 0-d int32 on the mesh's first
     device. The same contract as :func:`make_ingest_fn`: each call returns a
     fresh closure for one capacity, and the caller must guarantee the shard
-    has room (``fills[shard] + block_rows <= capacity // S``; grow first)."""
+    has room (``fills[shard] + block_rows <= capacity // S``; grow first).
+    Over processes every rank makes the same call: the ranks that hold
+    ``shard`` write its rows, and every rank advances the watermark."""
     from distributed_active_learning_tpu_torch.ops import trees_train
 
     n_shards = _n_data(mesh)
@@ -406,17 +413,19 @@ def make_sharded_ingest_fn(mesh):
         shard = int(shard)
         if not 0 <= shard < n_shards:
             raise ValueError(f"shard {shard} is not one of the mesh's {n_shards} data shards")
-        xb = pool.x.block(shard)
-        rows, b = xb.shape[0], block_x.shape[0]
+        rows, b = pool.x.n_local, block_x.shape[0]
         if b > rows:
             raise ValueError(f"a block of {b} rows exceeds a shard's {rows} rows")
-        dev = xb.device
-        start = torch.clamp(pool.n_filled[shard].to(dev, torch.int64), 0, rows - b)
-        pos = start + torch.arange(b, device=dev)
-        bx = block_x.to(dev, torch.float32)
-        xb.index_copy_(0, pos, bx)
-        pool.oracle_y.block(shard).index_copy_(0, pos, block_y.to(dev, torch.int32))
-        pool.codes.block(shard).index_copy_(0, pos, trees_train.code_features(bx, edges.to(dev)))
+        if shard in pool.x.local_ids:
+            xb = pool.x.block(shard)
+            dev = xb.device
+            start = torch.clamp(pool.n_filled[shard].to(dev, torch.int64), 0, rows - b)
+            pos = start + torch.arange(b, device=dev)
+            bx = block_x.to(dev, torch.float32)
+            xb.index_copy_(0, pos, bx)
+            pool.oracle_y.block(shard).index_copy_(0, pos, block_y.to(dev, torch.int32))
+            pool.codes.block(shard).index_copy_(0, pos,
+                                                trees_train.code_features(bx, edges.to(dev)))
         pool.n_filled[shard] += count
         return pool, pool.n_filled.sum(dtype=torch.int32)
 
@@ -437,11 +446,11 @@ def grow_sharded_slab(pool: SlabPool, mesh, n_slabs: int = 1) -> SlabPool:
     n_shards = _n_data(mesh)
 
     def grow(a: Sharded) -> Sharded:
-        if len(a.blocks) != n_shards:
-            raise ValueError(f"the pool is sharded over {len(a.blocks)} data shards, the mesh "
-                             f"has {n_shards}")
+        if (a.n_shards or len(a.blocks)) != n_shards:
+            raise ValueError(f"the pool is sharded over {a.n_shards or len(a.blocks)} data "
+                             f"shards, the mesh has {n_shards}")
         grown = a.map(lambda blk: torch.cat([blk, blk.new_zeros((pad, *blk.shape[1:]))]))
-        return Sharded(grown.blocks, a.n_rows + n_shards * pad)
+        return dataclasses.replace(grown, n_rows=a.n_rows + n_shards * pad)
 
     return pool.replace(**{f: grow(getattr(pool, f)) for f in _POOL_FIELDS})
 
@@ -561,16 +570,25 @@ def make_rebalance_fn(mesh, block_rows: int):
     mesh's first device) are the epoch's global-index map, padded with
     :data:`MOVED_SENTINEL`: row ``s`` lists the rows shard ``s`` received as
     ``old global index -> new global index``. A balanced pool gives an
-    all-zero plan, and the epoch changes nothing."""
+    all-zero plan, and the epoch changes nothing.
+
+    Over processes every rank runs the epoch at the same point: the fills
+    are gathered and the all-to-all exchanged across the processes, each
+    rank packs its own shards' donors and appends its own shards' receipts,
+    and every rank takes the same plan and the same index maps (the plan
+    and the fills alone give them: a receiver's valid slots hold, in sender
+    order, each sender's rows from its shrunk watermark on). COLLECTIVE."""
     from distributed_active_learning_tpu_torch.parallel import collectives
 
     n_shards = _n_data(mesh)
     b = int(block_rows)
     flat = n_shards * b
+    spread = mesh.spread
 
     def rebalance(pool: SlabPool):
         rows = pool.capacity // n_shards
-        fills_dev = collectives.gather_fills([pool.n_filled[s] for s in range(n_shards)])
+        mine = pool.x.local_ids
+        fills_dev = collectives.gather_fills([pool.n_filled[s] for s in mine], spread)
         fills = fills_dev.cpu()
         plan = rebalance_plan(fills, b)
         fl = [int(v) for v in fills.tolist()]
@@ -580,38 +598,41 @@ def make_rebalance_fn(mesh, block_rows: int):
         # Pack: slot (j, t) of shard i holds its row fill - sent + off[j] + t
         # where t < plan[i, j] (clamped into the block, as the JAX gather
         # reads a clamped row for the invalid slots).
-        send = {f: [] for f in _POOL_FIELDS + ("g", "valid")}
-        for i in range(n_shards):
+        send = {f: [] for f in _POOL_FIELDS + ("valid",)}
+        for i in mine:
             dev = pool.x.block(i).device
             counts = torch.tensor(pl[i], dtype=torch.int64)
             off = torch.cumsum(counts, 0) - counts
             slot = torch.arange(b, dtype=torch.int64)
             valid = slot[None, :] < counts[:, None]
             src = torch.clamp(fl[i] - sent[i] + off[:, None] + slot[None, :], 0, rows - 1)
-            g = torch.where(valid, i * rows + src, MOVED_SENTINEL).to(torch.int32)
             src_d = src.reshape(-1).to(dev)
             for f in _POOL_FIELDS:
                 blk = getattr(pool, f).block(i)
                 send[f].append(blk.index_select(0, src_d).reshape(n_shards, b, *blk.shape[1:]))
-            send["g"].append(g.to(dev))
             send["valid"].append(valid.to(dev))
-        recv_blocks = {f: collectives.exchange_blocks(v) for f, v in send.items()}
+        recv_blocks = {f: collectives.exchange_blocks(v, spread) for f, v in send.items()}
+        # The map, on the host from the plan: receiver j's rows come, in
+        # sender order, from each sender i's rows fill - sent + off[j] + t.
         moved_src = torch.full((n_shards, flat), MOVED_SENTINEL, dtype=torch.int32)
         moved_dst = torch.full((n_shards, flat), MOVED_SENTINEL, dtype=torch.int32)
-        new_fill = [fl[s] - sent[s] + recv[s] for s in range(n_shards)]
         for j in range(n_shards):
+            src = [i * rows + fl[i] - sent[i] + sum(pl[i][:j]) + t
+                   for i in range(n_shards) for t in range(pl[i][j])]
+            moved_src[j, : recv[j]] = torch.tensor(src, dtype=torch.int32)
+            moved_dst[j, : recv[j]] = j * rows + fl[j] + torch.arange(recv[j], dtype=torch.int32)
+        new_fill = [fl[s] - sent[s] + recv[s] for s in range(n_shards)]
+        for j, got_valid in zip(mine, recv_blocks["valid"]):
             dev = pool.x.block(j).device
-            valid = recv_blocks["valid"][j].reshape(flat)
+            valid = got_valid.reshape(flat)
             # Valid slots first, stable in sender order; the rest dropped.
             order = torch.argsort((~valid).to(torch.int32), stable=True)[: recv[j]]
             if recv[j]:
                 pos = fl[j] + torch.arange(recv[j], device=dev)
                 for f in _POOL_FIELDS:
-                    got = recv_blocks[f][j]
+                    got = recv_blocks[f][j - mine[0]]
                     getattr(pool, f).block(j).index_copy_(
                         0, pos, got.reshape(flat, *got.shape[2:]).index_select(0, order))
-                moved_src[j, : recv[j]] = recv_blocks["g"][j].reshape(flat)[order].cpu()
-                moved_dst[j, : recv[j]] = j * rows + pos.cpu().to(torch.int32)
             # The tail contract: no labeled bit past a watermark (a donor's
             # shipped rows fall past its shrunk one).
             pool.labeled_mask.block(j)[new_fill[j]:].fill_(False)

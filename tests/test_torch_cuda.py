@@ -1237,7 +1237,9 @@ def test_preflight_on_the_card(cuda):
     replay's time; the memory pre-flight's predictions (meta device) are not
     below the eager step's ``max_memory_allocated`` nor its graph capture's
     pool, for the forest round step, a serving capacity and a small CNN
-    chunk step; the shared-memory mirrors equal the C configuration."""
+    chunk step, whose convolutions are priced by cuDNN's own workspace
+    answer (``csrc/cudnn_workspace.cu``) to within 1.15 of the peak and 1.40
+    of the pool; the shared-memory mirrors equal the C configuration."""
     import ctypes
     import gc
 
@@ -1278,7 +1280,8 @@ def test_preflight_on_the_card(cuda):
             "cnn", (32, 32, 3), 2_000, 500, 10, train_steps=10, mc_samples=2, window=20)),
          neural_loop.NEURAL_CARRY_FIELDS),
     )
-    for make, fields in cases:
+    for i, (make, fields) in enumerate(cases):
+        memory._workspaces.clear()
         pred = memory.program_memory(*(lambda u: (u.fn, *u.args))(make(torch.device("meta"))))
         unit = make(cuda)
         side = torch.cuda.Stream()
@@ -1303,6 +1306,10 @@ def test_preflight_on_the_card(cuda):
         graph.capture(*unit.args)
         assert pred["peak_hbm_bytes"] >= measured, (pred, measured)
         assert pred["pool_bytes"] >= graph.pool_bytes, (pred, graph.pool_bytes)
+        if i == 2:  # the CNN: each convolution's workspace is cuDNN's own answer
+            assert memory._workspaces, "no convolution was priced by cuDNN's query"
+            assert pred["peak_hbm_bytes"] <= 1.15 * measured, (pred, measured)
+            assert pred["pool_bytes"] <= 1.40 * graph.pool_bytes, (pred, graph.pool_bytes)
         del graph, unit
         gc.collect()
         torch.cuda.empty_cache()
@@ -1364,21 +1371,28 @@ def _run_ranks(n, mode, tmp_path, local_ranks, timeout=600):
     return got
 
 
-def _mp_forest_cfg(n, K):
+def _mp_forest_cfg(n, K, mesh=None):
     from distributed_active_learning_tpu_torch import config
 
     return config.ExperimentConfig(
         data=config.DataConfig(name="checkerboard2x2", n_samples=301, seed=1),
         forest=config.ForestConfig(n_trees=8, max_depth=4, fit="device", kernel="pallas"),
         strategy=config.StrategyConfig(name="uncertainty", window_size=15),
-        mesh=config.MeshConfig(n, 2), n_start=10, max_rounds=3, fused_round=True,
+        mesh=config.MeshConfig(*(mesh or (n, 2))), n_start=10, max_rounds=3, fused_round=True,
         rounds_per_launch=K)
+
+
+#: The mesh whose model axis spans the job's ranks, one cell a rank: a row
+#: over the 2 ranks of one card, two rows of 2 over 4 cards.
+_MP_MODEL_AXIS = {2: (1, 2), 4: (2, 2)}
 
 
 def _check_multi_process(cuda, tmp_path, n, local_ranks):
     """K4 through CUDA IPC against the plain gloo hop, and the fused mesh run
     (per round, and chunked at K = 2: eager) against the single-process
-    mesh run on the card."""
+    mesh run on the card; then the mesh whose model axis spans the ranks
+    (one cell a rank: K3 once a round, K4 ``data - 1`` times a round in its
+    column ring), against the same run."""
     from distributed_active_learning_tpu_torch.runtime import loop
 
     for r, g in enumerate(_run_ranks(n, "ring", tmp_path / "ring", local_ranks)):
@@ -1395,20 +1409,31 @@ def _check_multi_process(cuda, tmp_path, n, local_ranks):
             assert g[f"launches_{K}"]["fused_votes"] == 2 * steps, (r, K, g)
             assert g[f"launches_{K}"]["ring_hop"] == (n - 1) * steps, (r, K, g)
         assert got[0]["mode_2"] == "eager" and "processes" in got[0]["mode_reason_2"]
+        if K == 1:
+            data = _MP_MODEL_AXIS[n][0]
+            for r, g in enumerate(got):
+                assert g["records_model"] == [[x.round, x.n_labeled, x.accuracy]
+                                              for x in want.records], (r, g)
+                assert g["mask_model"] == torch.nonzero(
+                    want.final_labeled_mask).flatten().tolist()
+                assert g["launches_model"] == {"forest_leaves": 3, "fused_votes": 3,
+                                               "ring_hop": (data - 1) * 3}, (r, g)
 
 
 def test_multi_process_mesh_on_one_card(cuda, tmp_path):
     """Two processes on one card, as a one-card machine has it: K4's
     cross-process hop through CUDA IPC equals the plain gloo hop bit for
-    bit, and a short forest run over the 2 x 2 mesh of the two processes
-    equals the single-process run."""
+    bit, and a short forest run over the 2 x 2 mesh of the two processes,
+    and over ``MeshConfig(1, 2)`` (the model axis across them), equals the
+    single-process run."""
     _check_multi_process(cuda, tmp_path, 2, [0, 0])
 
 
 def test_multi_process_mesh_across_cards(cuda, tmp_path):
     """Four processes on four cards (``LOCAL_RANK`` r on ``cuda:r``): the
     IPC hop crosses cards with peer access, and the run equals the
-    single-process run."""
+    single-process run, also on ``MeshConfig(2, 2)`` (one cell a card, the
+    layout four-card users run: each column ring's hop crosses cards)."""
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four cards: one rank a card, the IPC hop crossing cards")
     _check_multi_process(cuda, tmp_path, 4, [0, 1, 2, 3])
@@ -1436,9 +1461,9 @@ def _rank_main(mode):
         mine = [(windows[rank][0].to(dev), windows[rank][1].to(dev))]
         ring_topk.launches = 0
         got_ipc, got_gloo = [], []
-        merged = ring_topk.ring_topk(mine, k, procs=n, received=got_ipc)[0]
+        merged = ring_topk.ring_topk(mine, k, members=range(n), received=got_ipc)[0]
         out["launches"] = ring_topk.launches
-        plain = ring_topk.ring_topk(mine, k, procs=n, plain=True, received=got_gloo)[0]
+        plain = ring_topk.ring_topk(mine, k, members=range(n), plain=True, received=got_gloo)[0]
         out["ipc_equals_gloo"] = all(
             torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
             for a, b in zip(got_ipc + [merged], got_gloo + [plain]))
@@ -1459,6 +1484,15 @@ def _rank_main(mode):
             if K > 1:
                 out["mode_2"] = res.graph_stats["mode"]
                 out["mode_reason_2"] = res.graph_stats["mode_reason"]
+        for m in (trees_pallas, round_fused, ring_topk):
+            m.launches = 0
+        round_fused.votes_launches = 0
+        res = loop.run_experiment(_mp_forest_cfg(n, 1, _MP_MODEL_AXIS[n]), device=dev)
+        out["records_model"] = [[r.round, r.n_labeled, r.accuracy] for r in res.records]
+        out["mask_model"] = torch.nonzero(res.final_labeled_mask).flatten().tolist()
+        out["launches_model"] = {"forest_leaves": trees_pallas.launches,
+                                 "fused_votes": round_fused.votes_launches,
+                                 "ring_hop": ring_topk.launches}
     print(f"RANK_OK {rank} {json.dumps(out)}", flush=True)
 
 

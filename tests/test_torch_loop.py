@@ -19,8 +19,8 @@ package (the bench, the pipeline, telemetry, checkpoints, the ops plane and
 the kernel-variant sweep included; its metrics JSONL renders through
 ``benches/summarize_metrics.py``), its ops-plane registry renders the JAX
 registry's Prometheus text, and it refuses what it does not carry yet by
-name (a model axis across processes naming item 8 of the mesh
-slice), and refuses what the JAX
+name (a mesh whose ranks' cells cross a data row partway, naming item 8
+of the mesh slice), and refuses what the JAX
 package refuses of scenarios with its messages (under a mesh, every kind
 but the noisy oracle, and a grid's scenario axis)."""
 
@@ -528,9 +528,11 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     mesh = t_config.MeshConfig(data=2)
     # A multi-process launch runs a mesh over processes (its parity with the
     # JAX package's runs: tests/test_torch_mesh.py): here the CLI on 2 ranks
-    # over gloo, where the primary alone binds --ops-port. What item 8 has
-    # not carried is refused by name: a model axis across processes. The pod
-    # half of the slab pool is ported (its parity with the JAX package:
+    # over gloo, where the primary alone binds --ops-port, and with its
+    # model axis across the 2 ranks, which prints the same log. What item 8
+    # has not carried is refused by name: ranks whose cells cross a data row
+    # partway (3 rows of 2 cells over 2 ranks). The pod half of the slab
+    # pool is ported (its parity with the JAX package:
     # tests/test_torch_serving.py) and exported as JAX exports it.
     import socket
 
@@ -549,7 +551,8 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
            "5", "--rounds", "2", "--seed", "3"]
     jobs = {}
     for name, extra in (("run", ["--mesh-data", "2", "--ops-port", str(ops_port)]),
-                        ("refused", ["--mesh-data", "1", "--mesh-model", "2"])):
+                        ("model", ["--mesh-data", "1", "--mesh-model", "2"]),
+                        ("refused", ["--mesh-data", "3", "--mesh-model", "2"])):
         (tmp_path / name).mkdir()
         jobs[name] = spawn_ranks(2, cli + extra, tmp_path / name)
     runs = wait_ranks(jobs["run"])
@@ -558,6 +561,10 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     assert len(logs[0]) == 2 and logs[0] == logs[1], logs
     assert "# ops plane: http://127.0.0.1:" in runs[0][1]
     assert "# ops plane: skipped on host 1 (primary host binds --ops-port)" in runs[1][1]
+    model = wait_ranks(jobs["model"])
+    assert [rc for rc, _ in model] == [0, 0], model
+    assert [[ln for ln in out.splitlines() if ln.startswith("Iteration")]
+            for _, out in model] == logs, model
     for rc, out in wait_ranks(jobs["refused"]):
         assert rc != 0 and "NotImplementedError" in out and "queue 1 item 8" in out, out
     # A LAL run with neither a data file nor a forest file synthesizes its

@@ -34,9 +34,19 @@ numpy arrays made from a seed and handed to both packages.
   payload equals JAX's single-process checkpoints, another rank's ``save``
   returns None, ``gauges(allgather=True)`` carries every rank's value, the
   run's metadata names the gloo backend, every collective over processes
-  equals the one-process collective over every shard, and a model axis
-  across processes is refused by name; a 2-seed chunked sweep on the
-  2-process mesh equals the single-process sweep.
+  equals the one-process collective over every shard (each row once where a
+  row spans 2 ranks), and a mesh whose ranks' cells would cross a row
+  partway is refused by name; a 2-seed chunked sweep on the 2-process mesh
+  equals the single-process sweep;
+- the model axis across processes, in the same jobs: ``MeshConfig(1, 2)``
+  on the 2 ranks of the leaf kernel's case, ``(2, 2)`` and ``(1, 4)`` on the
+  4 ranks, each fused (kernel "pallas", K3's plain version) and unfused:
+  every rank's records and final mask, and rank 0's checkpoints, equal
+  JAX's single-process run of the same configuration;
+- the pod over 2 processes (``pod_sequence``: ``_pod_parity``'s sizes on a
+  (4, 1) mesh, 2 rows a rank): every leaf after each step, the fills, each
+  epoch's index maps and the fused select's picks equal JAX's pod on a
+  (4, 1) host mesh.
 """
 
 import dataclasses
@@ -317,6 +327,9 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: The four forest cases of JAX's tests/test_multihost_2proc.py.
 _MP_CASES = ((2, "device", "gather"), (2, "host", "gather"), (4, "device", "gather"),
              (2, "device", "pallas"))
+#: The meshes whose model axis (or one data row) spans the ranks, run by
+#: the case's job fused (kernel "pallas") and unfused (the case's kernel).
+_MP_MODEL_AXIS = {(2, "device", "pallas"): ((1, 2),), (4, "device", "gather"): ((2, 2), (1, 4))}
 
 
 def spawn_ranks(n, argv, rdv_dir):
@@ -392,15 +405,20 @@ def _multi_process_runs_match_jax(tmp_path):
         d.mkdir()
         running[case] = spawn_ranks(n, [__file__, "forest", str(d), fit, kernel], d)
     wants = {}
-    for fit, kernel in {(f, k) for _, f, k in _MP_CASES}:  # meanwhile, JAX's references
-        ck = tmp_path / f"jax_{fit}_{kernel}"
-        res = j_loop.run_experiment(experiment_cfg(mesh_data=1, fit=fit, kernel=kernel,
-                                                   checkpoint_dir=str(ck), checkpoint_every=1))
-        wants[fit, kernel] = (res, ck)
+    # Meanwhile, JAX's references: each (fit, kernel) per round, and the
+    # fused round of the leaf kernel.
+    for fit, kernel, fused in {(f, k, False) for _, f, k in _MP_CASES} | {("device", "pallas",
+                                                                          True)}:
+        ck = tmp_path / f"jax_{fit}_{kernel}_{fused}"
+        res = j_loop.run_experiment(dataclasses.replace(
+            experiment_cfg(mesh_data=1, fit=fit, kernel=kernel, checkpoint_dir=str(ck),
+                           checkpoint_every=1), fused_round=fused))
+        wants[fit, kernel, fused] = (res, ck)
+    jax_pod = json.loads(json.dumps(pod_sequence("jax")))
     for case, procs in running.items():
         n, fit, kernel = case
         got = rank_results(wait_ranks(procs), "RANK_OK")
-        want, jck = wants[fit, kernel]
+        want, jck = wants[fit, kernel, False]
         jfiles = sorted(os.listdir(jck))
         final = np.flatnonzero(np.load(jck / jfiles[-1])["labeled_mask"]).tolist()
         for r, g in enumerate(got):
@@ -411,7 +429,32 @@ def _multi_process_runs_match_jax(tmp_path):
             assert "item 8" in g["refused"], (case, r, g["refused"])
             assert all(g["collectives"].values()), (case, r, g["collectives"])
             assert g["fits"] == got[0]["fits"], (case, r)  # the same forest bytes on every rank
+            if "pod" in g:
+                assert g["pod"] == jax_pod, (case, r)
         assert (len(got[0]["fits"]) == 3) == (fit == "device"), case
+        assert ("pod" in got[0]) == (case == (2, "device", "pallas")), case
+        model_axis = [f"{d}x{m}_{f}" for d, m in _MP_MODEL_AXIS.get(case, ())
+                      for f in ("unfused", "fused")]
+        assert sorted(got[0]["model_axis"]) == sorted(model_axis), case
+        for name in model_axis:
+            fused = name.endswith("_fused")
+            want_m, jck_m = wants[fit, "pallas" if fused else kernel, fused]
+            jfiles_m = sorted(os.listdir(jck_m))
+            final_m = np.flatnonzero(np.load(jck_m / jfiles_m[-1])["labeled_mask"]).tolist()
+            for r, g in enumerate(got):
+                m = g["model_axis"][name]
+                assert m["accs"] == [x.accuracy for x in want_m.records], (case, name, r)
+                assert m["labeled"] == [x.n_labeled for x in want_m.records], (case, name, r)
+                assert m["mask"] == final_m, (case, name, r)
+            ck_dir = tmp_path / f"mp_{n}_{fit}_{kernel}" / name
+            assert sorted(f for f in os.listdir(ck_dir) if f.endswith(".npz")) == jfiles_m, \
+                (case, name)
+            for f in jfiles_m:
+                a, b = _ckpt_payload(ck_dir / f), _ckpt_payload(jck_m / f)
+                assert a.keys() == b.keys(), (case, name, f)
+                for k in a:
+                    assert (np.array_equal(a[k], b[k]) if k != "records" else a[k] == b[k]), \
+                        (case, name, f, k)
         if "sweep" in got[0]:  # == the single-process sweep, lane by lane
             from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
 
@@ -456,6 +499,8 @@ def _collectives_match_one_process(rank, n):
     """Each collective over processes (this rank passing its one shard's
     input) against one process holding every shard's: bit for bit."""
     from distributed_active_learning_tpu_torch.parallel import collectives as c
+    from distributed_active_learning_tpu_torch.parallel import multihost
+    from distributed_active_learning_tpu_torch.parallel.mesh import Spread
 
     rng = np.random.default_rng(3)
     vecs = [torch.from_numpy(rng.normal(size=7).astype(np.float32)) for _ in range(n)]
@@ -464,18 +509,119 @@ def _collectives_match_one_process(rank, n):
     blocks = [torch.from_numpy(rng.integers(0, 99, size=(n, 3)).astype(np.int32))
               for _ in range(n)]
     mine = slice(rank, rank + 1)
-    return {
-        "vector_accumulate": torch.equal(c.vector_accumulate(vecs[mine], across_processes=True),
+    row = slice(rank // 2, rank // 2 + 1)  # rows of 2 ranks: each row counted once
+    whole, pairs = Spread(n, 1, rank), Spread(n, 2, rank)
+    if n == 4:
+        multihost.make_groups(pairs.row_groups)
+    over_rows = {} if n != 4 else {
+        "vector_accumulate_rows": torch.equal(c.vector_accumulate(vecs[row], pairs),
+                                              c.vector_accumulate(vecs[:2])),
+        "gather_fills_rows": torch.equal(c.gather_fills(fills[row], pairs),
+                                         c.gather_fills(fills[:2])),
+        "row_accumulate": torch.equal(c.row_accumulate(vecs[mine], pairs),
+                                      c.vector_accumulate(vecs[rank - rank % 2:][:2])),
+    }
+    return {**over_rows,
+        "vector_accumulate": torch.equal(c.vector_accumulate(vecs[mine], whole),
                                          c.vector_accumulate(vecs)),
-        "global_count": torch.equal(c.global_count(masks[mine], across_processes=True),
+        "global_count": torch.equal(c.global_count(masks[mine], whole),
                                     c.global_count(masks)),
-        "gather_fills": torch.equal(c.gather_fills(fills[mine], across_processes=True),
+        "gather_fills": torch.equal(c.gather_fills(fills[mine], whole),
                                     c.gather_fills(fills)),
-        "exchange_blocks": torch.equal(c.exchange_blocks(blocks[mine], across_processes=True)[0],
+        "exchange_blocks": torch.equal(c.exchange_blocks(blocks[mine], whole)[0],
                                        c.exchange_blocks(blocks)[rank]),
-        "masked_mean": torch.equal(c.masked_mean(vecs[mine], masks[mine], across_processes=True),
+        "masked_mean": torch.equal(c.masked_mean(vecs[mine], masks[mine], whole),
                                    c.masked_mean(vecs, masks)),
     }
+
+
+def _digest(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def pod_sequence(side: str):
+    """The pod of ``tests/test_torch_serving.py::_pod_parity`` (its sizes
+    and draws) on a (4, 1) mesh, driven by the JAX package in this process
+    (``side="jax"``, the forced host devices) or by the port in a rank of a
+    2-process job (``side="torch"``: 2 rows a rank): placement, three routed
+    ingests, an epoch, the fused select over the ingest-built pool (a forest
+    fitted on its contents by the package's own device fit), a growth, two
+    appends and epochs until the plan is empty. Returns every leaf's digest
+    after each step, the fills, every epoch's index maps and the picks."""
+    if side == "jax":
+        import jax.numpy as jnp
+
+        from distributed_active_learning_tpu.ops.trees_pallas import PallasForest, ShardedPallasForest
+        from distributed_active_learning_tpu.serving import slab
+
+        mesh = j_make_mesh(data=4, model=1, devices=jax.devices()[:4])
+        to, host, train, key = jnp.asarray, lambda a: np.asarray(jax.device_get(a)), j_train, \
+            jax.random.key(0)
+
+        def sharded(gf):
+            return ShardedPallasForest(gf=gf, mesh=mesh)
+    else:
+        from distributed_active_learning_tpu_torch.parallel import gather as t_gather
+        from distributed_active_learning_tpu_torch.serving import slab
+
+        mesh = t_mesh.make_mesh(4, 1, device="cpu")
+        to, host, train, key = torch.as_tensor, lambda a: t_gather(a).numpy(), t_train, prng.key(0)
+
+        def sharded(gf):
+            return t_pallas.attach_mesh(t_pallas.PallasForest(gf=gf), mesh)
+    rng = np.random.default_rng(11)
+    x0 = rng.normal(size=(32, 4)).astype(np.float32)
+    y0 = (x0[:, 0] > 0).astype(np.int32)
+    mask0 = np.zeros(32, bool)
+    mask0[rng.permutation(32)[:12]] = True
+    xa = rng.normal(size=(40, 4)).astype(np.float32)
+    ya = (xa[:, 0] > 0).astype(np.int32)
+    edges = train.make_bins(to(x0), 8).edges
+    pool = slab.shard_slab_pool(slab.init_slab_pool(to(x0), to(y0), to(mask0), edges, 64), mesh)
+    out = {"leaves": [], "fills": [], "maps": []}
+
+    def note(pool):
+        out["leaves"].append([_digest(host(getattr(pool, f))) for f in
+                              ("x", "oracle_y", "labeled_mask", "codes", "n_filled")])
+        out["fills"].append(host(pool.n_filled).tolist())
+
+    def ingest(pool, blocks):
+        fn = slab.make_sharded_ingest_fn(mesh)
+        for bx, by, count in blocks:
+            shard = slab.route_to_shard(host(pool.n_filled))
+            pool, _ = fn(pool, edges, to(bx), to(by), count, shard)
+            note(pool)
+        return pool
+
+    def epoch(pool):
+        pool, src, dst = slab.make_rebalance_fn(mesh, 8)(pool)
+        out["maps"].append([host(src).tolist(), host(dst).tolist()])
+        note(pool)
+        return pool
+
+    note(pool)
+    pool = ingest(pool, [(xa[0:8], ya[0:8], 8), (xa[8:16], ya[8:16], 8),
+                         (np.concatenate([xa[16:21], np.zeros((3, 4), np.float32)]),
+                          np.concatenate([ya[16:21], np.zeros(3, np.int32)]), 5)])
+    pool = epoch(pool)
+    x, y, m = (host(getattr(pool, f)) for f in ("x", "oracle_y", "labeled_mask"))
+    valid = np.concatenate([np.arange(16) < f for f in host(pool.n_filled)])
+    binned = train.make_bins(to(x), 8)
+    c, yy, w = train.gather_fit_window(binned.codes, to(y), to(m & valid), 128)
+    f, th, v = train.fit_forest_device(c, yy, w, binned.edges, key, n_trees=8, max_depth=3,
+                                       n_bins=8)
+    forest = sharded(train.heap_gemm_forest(f, th, v, 3))
+    fused = j_fused if side == "jax" else t_fused
+    vals, picks = fused.fused_score_select(forest, pool.x, to(valid & ~m), "uncertainty", 7)
+    out["select"] = [host(vals).view(np.int32).tolist(), host(picks).tolist()]
+    pool = slab.grow_sharded_slab(pool, mesh)
+    note(pool)
+    pool = ingest(pool, [(xa[21:29], ya[21:29], 8), (xa[29:37], ya[29:37], 8)])
+    for _ in range(8):
+        if not host(slab.rebalance_plan(pool.n_filled, 8)).any():
+            break
+        pool = epoch(pool)
+    return out
 
 
 def _rank_main(mode, out_dir, *rest):
@@ -526,8 +672,23 @@ def _rank_main(mode, out_dir, *rest):
                                                   max_rounds=1), metrics=writer, device="cpu")
         writer.gauges({"probe_gauge": 10.0 * rank + 7}, allgather=True)
         writer.close()
-        try:
-            t_mesh.make_mesh(1, 2, device="cpu")
+        # The model axis across processes: a row over 2 ranks, or 1 of 4.
+        out["model_axis"] = {}
+        for data, model in _MP_MODEL_AXIS.get((n, fit, kernel), ()):
+            for fused in (False, True):
+                name = f"{data}x{model}_{'fused' if fused else 'unfused'}"
+                res = t_loop.run_experiment(dataclasses.replace(
+                    cfg, mesh=t_config.MeshConfig(data, model), fused_round=fused,
+                    forest=dataclasses.replace(cfg.forest, kernel="pallas" if fused else kernel),
+                    checkpoint_dir=os.path.join(out_dir, name)), device="cpu")
+                out["model_axis"][name] = dict(
+                    accs=[r.accuracy for r in res.records],
+                    labeled=[r.n_labeled for r in res.records],
+                    mask=torch.nonzero(res.final_labeled_mask).flatten().tolist())
+        if (n, fit, kernel) == (2, "device", "pallas"):
+            out["pod"] = pod_sequence("torch")
+        try:  # cells that cross a row boundary partway: 3 (or 6) rows of 2
+            t_mesh.make_mesh(3 * n // 2, 2, device="cpu")
             out["refused"] = ""
         except NotImplementedError as e:
             out["refused"] = str(e)
