@@ -164,8 +164,19 @@ and prints no result:
    phase 2's forest handed over in a file: its fills and index maps after
    every epoch, its final rows and the select's values and picks equal 4r
    (c)'s single-process pod on every rank; the select launches K3 2 and K4 7
-   a rank. Four processes time-slice one card: the seconds show the launch
-   structure, not scaling;
+   a rank. (e) cells that cross a data row partway, by the same 4 ranks
+   after (c): ``MeshConfig(6, 2)`` (3 cells a rank: a whole row and half of
+   the next, or the other half and a whole row) and ``MeshConfig(3, 4)`` (3
+   cells a rank, no rank holding a whole row), each fused, unfused and
+   chunked at K = 2. Gates: every rank's records and final mask equal phases
+   4 and 4b; each rank's launches a round step: K3 3 (one a cell), the test
+   set's K1 3 (unfused K1 6), K4 ``data - 1`` (one a step of its rings,
+   whose members repeat a rank); the chunks run "eager"; K4 through the IPC
+   windows of each layout's first fused round's rings equals the gloo hop,
+   bit for bit. Per-rank fit / round / eval seconds, launches a round step
+   and a ring step by IPC and by gloo are printed. Four processes
+   time-slice one card: the seconds show the launch structure, not
+   scaling;
 4t. (after phase 4s) the pre-flight (``analysis/``; ``preflight_phase``):
    (a) the headline fused
    round step (phase 4's width, K1 on the test draw, K2 on the pool) counted
@@ -175,15 +186,21 @@ and prints no result:
    share of a peak above 1.0); the chunk (K = 4, 6 rounds, RoundMetrics on,
    unfused) through ``run_experiment`` with ``roofline``: its one
    ``roofline`` event carries no error and no share above 1.0; (b) the
-   forest chunk's round step, phase 4n's CNN chunk step and phase 4o (b)'s
-   serving capacity (291,840 rows, depth 8) priced on the meta device
-   against ``max_memory_allocated`` over an eager step and the private pool
-   of its ``GraphedChunk`` capture: a prediction below a measurement fails,
-   each ratio is printed; (c) ``run.py --audit`` with a 64 MiB budget table
-   refuses with ``hbm-over-budget`` and launches no kernel, the K = 4 chunk
-   with a budget between its eager peak and its resident inputs + captured
-   pool refuses too (the graph's footprint), and with the card's budget the
-   run prints the records of the same run without ``--audit``;
+   forest chunk's round step, phase 4n's CNN chunk step, phase 4o (b)'s
+   serving capacity (291,840 rows, depth 8), and the programs ``--audit``
+   prices for the other runs (4j's sweep of 8 seeds, 4k's 12-cell grid, a
+   noisy-oracle chunk, 4q's chunk on ``MeshConfig(4, 2)`` over ``[cuda:0] *
+   8``, 4i's LAL round, 4n's CNN neural sweep at 2 lanes) priced on the
+   meta device against ``max_memory_allocated`` over an eager step and the
+   private pool of its ``GraphedChunk`` capture: a prediction below a
+   measurement fails, each ratio is printed; (c) ``run.py --audit`` with a
+   64 MiB budget table refuses with ``hbm-over-budget`` and launches no
+   kernel, the K = 4 chunk with a budget between its eager peak and its
+   resident inputs + captured pool refuses too (the graph's footprint), so
+   does ``--sweep-seeds 8`` with a budget between the one-experiment
+   chunk's graph and the sweep's (naming ``sweep/uncertainty/seeds8``), and
+   with the card's budget the run prints the records of the same run
+   without ``--audit``;
    (d) the Python mirrors of K1's, K2's and K3's launch configuration equal
    the C answer at the headline pool, the mesh shard, 256 streamed trees and
    the serving endpoint ``[64, 30]`` (depths 4 and 8), each payload;
@@ -436,9 +453,10 @@ numbers (its pallas workers' launches under the path ``serve_fleet_pallas``);
 under the path ``preflight_audit``);
 ``multi_process`` phase 4s's numbers (its paths ``procs4_fused``,
 ``procs4_chunked``, ``procs4_model_fused``, ``procs4_model_unfused``,
-``procs4_row_fused``, ``procs4_model_chunked``, ``procs4_pod_select`` and
+``procs4_row_fused``, ``procs4_model_chunked``, (e)'s
+``procs4_cross62_*`` and ``procs4_cross34_*``, ``procs4_pod_select`` and
 ``procs2_neural``, summed over the ranks, in every ``launches_by_path``;
-K4's ``ipc_step_ms`` and ``column_ring_ipc_step_ms``);
+K4's ``ipc_step_ms``, ``column_ring_ipc_step_ms`` and (e)'s ring steps);
 ``neural`` phase 4n's numbers (K7 ``threefry``
 is the seventh entry, its ``launches`` the neural main path's: the CNN
 entropy run per round; every kernel's ``launches_by_path`` has the neural
@@ -1389,7 +1407,7 @@ def pod_sequence(mesh, dev, pool_np, seed: int, gf, tag: str, counts, zero_count
     torch.cuda.synchronize()
     c_sel = {k: counts()[k] for k in ("forest_leaves", "round_megakernel", "fused_votes",
                                        "ring_hop")}
-    ring_steps = len(mine) * len(mesh.ring_members) - 1
+    ring_steps = len(mesh.rings[0]) - 1
     if c_sel != {"forest_leaves": 0, "round_megakernel": 0, "fused_votes": len(mine),
                  "ring_hop": ring_steps}:
         fail(f"{tag} pod select launches {c_sel}: want K3 {len(mine)}, K4 {ring_steps}")
@@ -1906,6 +1924,12 @@ def serving_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) -> d
 # Phase 4s: the ranks of each spawned group, its rounds, and each group's
 # time limit (a missed collective must not hold the script).
 MP_FOREST_RANKS, MP_NEURAL_RANKS, MP_NEURAL_ROUNDS = 4, 2, 2
+#: The rings 4s replays through IPC and gloo, in the order its runs keep
+#: them: (a)'s ring over the 4 ranks, (c)'s column rings of MeshConfig(2, 2),
+#: (e)'s rings of MeshConfig(6, 2) and (3, 4) (members repeated).
+RING_TAGS = ("ring", "column_ring", "cross62_ring", "cross34_ring")
+#: (e)'s meshes: each path's (data, model), 3 cells a rank.
+MP_CROSSING = {"cross62": (6, 2), "cross34": (3, 4)}
 MP_TIMEOUT_S = 420
 
 
@@ -2006,11 +2030,11 @@ def rank_job(args) -> int:
 
         keep = [True]  # keep the next ring's windows (each run's first ring)
 
-        def first_ring(windows, k, members, plain, received):
+        def first_ring(windows, k, rings, plain, received):
             if keep[0]:
-                seen.append(([(v.clone(), i.clone()) for v, i in windows], k, members))
+                seen.append(([(v.clone(), i.clone()) for v, i in windows], k, rings))
                 keep[0] = False
-            return ring_processes(windows, k, members, plain, received)
+            return ring_processes(windows, k, rings, plain, received)
 
         ring_topk._ring_topk_processes = first_ring
         for path, kw in (("procs4_fused", dict(checkpoint_dir=os.path.join(args.job_dir, "ckpt"),
@@ -2024,8 +2048,22 @@ def rank_job(args) -> int:
                                                        fused_round=False)),
                          ("procs4_row_fused", dict(mesh=MeshConfig(1, 4))),
                          ("procs4_model_chunked", dict(mesh=MeshConfig(2, 2),
-                                                       rounds_per_launch=2))):
-            keep[0] = keep[0] or path == "procs4_model_fused"
+                                                       rounds_per_launch=2)),
+                         # (e) cells that cross a row boundary partway: 3
+                         # cells a rank, whole rows and a half, or no
+                         # whole row
+                         ("procs4_cross62_fused", dict(mesh=MeshConfig(6, 2))),
+                         ("procs4_cross62_unfused", dict(mesh=MeshConfig(6, 2),
+                                                         fused_round=False)),
+                         ("procs4_cross62_chunked", dict(mesh=MeshConfig(6, 2),
+                                                         rounds_per_launch=2)),
+                         ("procs4_cross34_fused", dict(mesh=MeshConfig(3, 4))),
+                         ("procs4_cross34_unfused", dict(mesh=MeshConfig(3, 4),
+                                                         fused_round=False)),
+                         ("procs4_cross34_chunked", dict(mesh=MeshConfig(3, 4),
+                                                         rounds_per_launch=2))):
+            keep[0] = keep[0] or path in ("procs4_model_fused", "procs4_cross62_fused",
+                                          "procs4_cross34_fused")
             zero()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
@@ -2042,27 +2080,28 @@ def rank_job(args) -> int:
                        {k: res.graph_stats[k] for k in ("mode", "mode_reason")}))
         ring_topk._ring_topk_processes = ring_processes
         # Each kept ring again (the whole-row run's over the 4 ranks, the
-        # model-axis run's over this rank's column ring): through CUDA IPC
-        # (K4) and through the plain gloo hop, every received window and the
-        # merge compared; then each route timed a step.
-        for tag, (windows, k, members) in zip(("ring", "column_ring"), seen):
+        # model-axis run's column rings, (e)'s rings with repeated members):
+        # through CUDA IPC (K4) and through the plain gloo hop, every
+        # received window and the merges compared; then each route timed a
+        # step.
+        for tag, (windows, k, rings) in zip(RING_TAGS, seen):
             got_ipc, got_gloo = [], []
-            m_ipc = ring_topk.ring_topk(windows, k, members=members, received=got_ipc)[0]
-            m_gloo = ring_topk.ring_topk(windows, k, members=members, plain=True,
-                                         received=got_gloo)[0]
-            pairs = list(zip(got_ipc + [m_ipc], got_gloo + [m_gloo]))
-            out[f"{tag}_equal"] = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-                                      for a, b in pairs)
+            m_ipc = ring_topk.ring_topk(windows, k, members=rings, received=got_ipc)
+            m_gloo = ring_topk.ring_topk(windows, k, members=rings, plain=True,
+                                         received=got_gloo)
+            pairs = list(zip(got_ipc + m_ipc, got_gloo + m_gloo))
+            out[f"{tag}_equal"] = len(got_ipc) == len(got_gloo) and all(
+                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in pairs)
             out[f"{tag}_max_abs_err"] = max(float((a[0] - b[0]).abs().max()) for a, b in pairs)
             out[f"{tag}_windows"] = len(got_ipc)
-            out[f"{tag}_members"] = list(members)
-            steps = len(got_ipc)
+            out[f"{tag}_members"] = [list(r) for r in rings]
+            steps = len(rings[0]) - 1
             for route, plain in (("ipc", False), ("gloo", True)):
                 times = []
                 for _ in range(7):
                     torch.cuda.synchronize(dev)
                     t0 = time.perf_counter()
-                    ring_topk.ring_topk(windows, k, members=members, plain=plain)
+                    ring_topk.ring_topk(windows, k, members=rings, plain=plain)
                     torch.cuda.synchronize(dev)
                     times.append((time.perf_counter() - t0) / steps * 1e3)
                 out[f"{tag}_{route}_step_ms"] = statistics.median(times)
@@ -2153,9 +2192,10 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         if over:
             fail(f"4t roofline {name}: a share above 1.0 ({over}): the count is wrong")
 
-    def graphed(unit, carry_fields=loop.CARRY_FIELDS):
-        return loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1),
-                                 carry_fields=carry_fields)
+    def graphed(unit, carry_fields=loop.CARRY_FIELDS, carry_arg=1, input_args=(6,)):
+        return loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1,
+                                               carry_arg=carry_arg),
+                                 input_args=input_args, carry_fields=carry_fields)
 
     # (a) the headline fused round step, counted on the card and on meta.
     head = programs.forest_program("chunk", programs.BENCH_CONFIG, programs.BENCH_SHAPES,
@@ -2242,7 +2282,49 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
             "serve_chunk", programs.serve_config(DEPTH), programs.SERVE_CONFIG, 291_840,
             N_FEAT, N_TEST, seed=seed), loop.CARRY_FIELDS),
     )
-    for name, make, fields in cases:
+    # The programs --audit prices for the other kinds of run: 4j's sweep (E
+    # = 8) and 4k's grid (3 strategies x 4 seeds), K = 4, RoundMetrics on;
+    # a noisy-oracle chunk; 4q's chunk on MeshConfig(4, 2) over [cuda:0] *
+    # 8; 4i's LAL round (a 200 x depth-10 regressor); 4n's CNN neural sweep
+    # at 2 lanes. Each as its driver launches it (a round step; the round
+    # itself for LAL, captured here as a graph of one round to read its
+    # pool).
+    from distributed_active_learning_tpu_torch.config import (
+        MeshConfig, ScenarioConfig, StrategyConfig,
+    )
+
+    unfused = dataclasses.replace(programs.BENCH_CONFIG, fused_round=False)
+    grid_in = (10, 11, 13, 14)
+
+    def round_step(make):
+        def make_step(device):
+            unit = make(device)
+            return programs.ProgramUnit(
+                lambda *a: (lambda r: (r[0], r[1:]))(unit.fn(*a)), unit.args)
+        return make_step
+
+    cases += (
+        ("sweep E = 8 (4j)", programs.grid_program(
+            unfused, [programs.BENCH_SHAPES], ["uncertainty"], 8, with_metrics=True, seed=seed),
+         loop.CARRY_FIELDS, 3, grid_in),
+        ("grid 12 cells (4k)", programs.grid_program(
+            unfused, [programs.BENCH_SHAPES], ["uncertainty", "margin", "density"], 4,
+            with_metrics=True, seed=seed), loop.CARRY_FIELDS, 3, grid_in),
+        ("noisy-oracle chunk", programs.forest_program(
+            "chunk", dataclasses.replace(unfused, scenario=ScenarioConfig(
+                kind="noisy_oracle", flip_prob=0.1, abstain_prob=0.25)),
+            programs.BENCH_SHAPES, seed=seed), loop.CARRY_FIELDS),
+        ("mesh chunk MeshConfig(4, 2) (4q)", programs.forest_program(
+            "chunk", dataclasses.replace(programs.BENCH_CONFIG, mesh=MeshConfig(4, 2)),
+            programs.BENCH_SHAPES, seed=seed), loop.CARRY_FIELDS),
+        ("LAL round (4i)", round_step(programs.forest_program(
+            "round", dataclasses.replace(unfused, rounds_per_launch=1, strategy=StrategyConfig(
+                name="lal", window_size=WINDOW)), programs.BENCH_SHAPES, seed=seed)),
+         loop.CARRY_FIELDS, 1, ()),
+        ("CNN neural sweep, 2 lanes (4n)", programs.neural_chunk_program(
+            programs.CNN_SHAPES, seed=seed, lanes=2), neural_loop.NEURAL_CARRY_FIELDS),
+    )
+    for name, make, fields, *where in cases:
         t0 = time.perf_counter()
         pred = memory.program_memory(*(lambda u: (u.fn, *u.args))(make(torch.device("meta"))))
         t_pred = time.perf_counter() - t0
@@ -2264,7 +2346,7 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         torch.cuda.synchronize()
         measured = torch.cuda.max_memory_allocated() - base + inputs
         del res
-        g = graphed(unit, fields)
+        g = graphed(unit, fields, *where)
         g.capture(*unit.args)
         pool_measured = g.pool_bytes
         del g, unit
@@ -2350,6 +2432,36 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         fail(f"4t: the refused --audit runs of the chunk launched kernels {chunk_counts}")
     print(f"# 4t audit: the K = 4 chunk with {mid:.1f} MiB (eager peak {eager} MiB, as a graph "
           f"{graph} MiB) refused, 0 launches")
+    # The seed sweep (E = 8) is priced as its own batched program (8 carries,
+    # 800 stacked trees, one graph pool): a budget between the one-experiment
+    # chunk's graph and the sweep's refuses it, launching nothing.
+    sweep_argv = ["--sweep-seeds", "8", "--rounds-per-launch", "4", "--audit", "--budget-table"]
+    with tempfile.TemporaryDirectory() as tmp:
+        table = os.path.join(tmp, "budget.json")
+        with open(table, "w") as f:
+            json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
+        zero_counts()
+        rc, _, se = cli(sweep_argv + [table])
+        found = re.search(r"as a CUDA graph ([\d.]+) MiB", se)
+        if rc == 0 or found is None or "sweep/uncertainty/seeds8" not in se:
+            fail(f"4t: --audit --sweep-seeds 8 with a 64 MiB table (rc {rc}) did not price the "
+                 f"sweep: {se[-600:]}")
+        sweep_graph = float(found.group(1))
+        if sweep_graph <= graph:
+            fail(f"4t: the sweep's graph footprint {sweep_graph} MiB is not above one "
+                 f"experiment's {graph} MiB")
+        sweep_mid = (graph + sweep_graph) / 2
+        with open(table, "w") as f:
+            json.dump({"hbm_bytes": sweep_mid * 2**20, "source": "between table"}, f)
+        rc, so, se = cli(sweep_argv + [table])
+        sweep_counts = counts()
+    if rc == 0 or so.strip() or "sweep/uncertainty/seeds8" not in se or any(
+            sweep_counts.values()):
+        fail(f"4t: --audit --sweep-seeds 8 with {sweep_mid:.1f} MiB (above one experiment's "
+             f"{graph} MiB, below the sweep's {sweep_graph} MiB) did not refuse or launched "
+             f"{sweep_counts} (rc {rc}): {se[-600:]}")
+    print(f"# 4t audit: --sweep-seeds 8 with {sweep_mid:.1f} MiB (one experiment's chunk {graph} "
+          f"MiB as a graph, the sweep's {sweep_graph} MiB) refused, 0 launches")
     zero_counts()
     rc_a, so_a, se_a = cli(["--audit"])
     audit_counts = counts()
@@ -2359,6 +2471,8 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
              f"without it (rc {rc_b}): {se_a[-400:]}")
     out["audit"] = {"refused": over.strip(), "refused_launches": refused_counts,
                     "graph_refused": {"eager_mib": eager, "graph_mib": graph, "budget_mib": mid},
+                    "sweep_refused": {"one_mib": graph, "sweep_mib": sweep_graph,
+                                      "budget_mib": sweep_mid},
                     "clean": [ln for ln in se_a.splitlines() if "# audit clean" in ln][0],
                     "launches": audit_counts}
     print(f"# 4t audit: 64 MiB table refused, 0 launches: {over.strip()[:200]}")
@@ -2417,10 +2531,14 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
     step (the pool's and the test set's cell), no K3 or K4; ``MeshConfig(1,
     4)`` fused K3 1, K1 1 and no K4 a step (a column ring of one member). (d)
     the pod select: K3 2 (a rank's 2 shards), K4 7 (8 shards' windows on a
-    ring of 4 members)."""
+    ring of 4 members). (e) ``MeshConfig(6, 2)`` and ``(3, 4)``, 3 cells a
+    rank: fused K3 3, K1 3 and K4 ``data - 1`` a step (one ring of 6 with
+    repeated members, or two rings of 3); unfused K1 6."""
     from distributed_active_learning_tpu_torch.config import DataConfig
     from distributed_active_learning_tpu_torch.data.datasets import get_dataset
     from distributed_active_learning_tpu_torch.models.neural import NeuralLearner, SmallCNN
+    from distributed_active_learning_tpu_torch.ops import ring_topk
+    from distributed_active_learning_tpu_torch.parallel.mesh import Spread
     from distributed_active_learning_tpu_torch.runtime import neural_loop as nl
 
     t_phase = time.perf_counter()
@@ -2452,6 +2570,14 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
                  "procs4_model_unfused": (ROUNDS, per_step(2, 0, 0)),
                  "procs4_row_fused": (ROUNDS, per_step(1, 1, 0)),
                  "procs4_model_chunked": (chunk_steps, per_step(1, 1, 1))}
+        # (e): 3 cells a rank, so K3 3 and the test set's K1 3 a step
+        # (unfused K1 6), and K4 one a step of its rings (length data).
+        for tag, (d_, m_) in MP_CROSSING.items():
+            steps[f"procs4_{tag}_fused"] = (ROUNDS, per_step(3, 3, d_ - 1))
+            steps[f"procs4_{tag}_unfused"] = (ROUNDS, per_step(6, 0, 0))
+            steps[f"procs4_{tag}_chunked"] = (chunk_steps, per_step(3, 3, d_ - 1))
+        ring_shapes = {"ring": (MP_FOREST_RANKS, 2), "column_ring": (2, 2),
+                       **{f"{t}_ring": dm for t, dm in MP_CROSSING.items()}}
         for r, g in enumerate(ranks):
             if g["device"] != "cuda:0":
                 fail(f"4s rank {r} ran on {g['device']}, not cuda:0")
@@ -2465,13 +2591,15 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
                 want_l = {k_: v * n_steps for k_, v in each.items()}
                 if p["launches"] != want_l:
                     fail(f"4s {path} rank {r} launched {p['launches']}, want {want_l}")
-            for path in ("procs4_chunked", "procs4_model_chunked"):
+            for path in ("procs4_chunked", "procs4_model_chunked", "procs4_cross62_chunked",
+                         "procs4_cross34_chunked"):
                 if g[path]["graph"]["mode"] != "eager":
                     fail(f"4s rank {r}: the chunk over processes ran {g[path]['graph']}")
-            for tag, members in (("ring", list(range(MP_FOREST_RANKS))),
-                                 ("column_ring", [r % 2, r % 2 + 2])):
-                if (not g[f"{tag}_equal"] or g[f"{tag}_members"] != members
-                        or g[f"{tag}_windows"] != len(members) - 1):
+            for tag in RING_TAGS:
+                rings = Spread(MP_FOREST_RANKS, *ring_shapes[tag], r).rings
+                received = (len(rings[0]) - 1) * len(ring_topk.remote_slots(rings, r))
+                if (not g[f"{tag}_equal"] or g[f"{tag}_members"] != [list(x) for x in rings]
+                        or g[f"{tag}_windows"] != received):
                     fail(f"4s rank {r}: K4's IPC windows != the gloo hop's on the {tag} "
                          f"{g[f'{tag}_members']} ({g[f'{tag}_windows']} windows, max abs err "
                          f"{g[f'{tag}_max_abs_err']})")
@@ -2516,6 +2644,8 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
             "column_ring_ipc_step_ms": [g["column_ring_ipc_step_ms"] for g in ranks],
             "column_ring_gloo_step_ms": [g["column_ring_gloo_step_ms"] for g in ranks],
             "column_ring_max_abs_err": max(g["column_ring_max_abs_err"] for g in ranks),
+            **{f"{t}_ring_{k_}": [g[f"{t}_ring_{k_}"] for g in ranks]
+               for t in MP_CROSSING for k_ in ("ipc_step_ms", "gloo_step_ms", "max_abs_err")},
             "chunk_mode": r0["procs4_chunked"]["graph"]}
         out["pod"] = {k_: [g["pod"][k_] for g in ranks]
                       for k_ in ("epoch_ms", "epochs", "ingest_points_per_second", "select_ms",
@@ -2549,6 +2679,30 @@ def multi_process_phase(seed: int, dev, kind: str, smi: str, run_single, want_re
               f"{statistics.median(out['forest']['column_ring_gloo_step_ms']):.4f} ms by gloo; "
               f"walls (2, 2) fused {[round(w, 2) for w in out['forest']['wall']['procs4_model_fused']]}"
               f" s ({kind}, {smi})")
+        for tag, (d_, m_) in MP_CROSSING.items():
+            for r, g in enumerate(ranks):
+                for mode in ("fused", "unfused", "chunked"):
+                    p = g[f"procs4_{tag}_{mode}"]
+                    each = {k_: v // steps[f"procs4_{tag}_{mode}"][0]
+                            for k_, v in p["launches"].items()
+                            if k_ in ("forest_leaves", "fused_votes", "ring_hop")}
+                    split = ("not split" if mode == "chunked" else "fit / round / eval s a "
+                             "round " + ", ".join(f"{a:.4f} / {b:.4f} / {c:.4f}"
+                                                  for a, b, c in p["split"]))
+                    print(f"#   4s (e) MeshConfig({d_}, {m_}) {mode} rank {r}: {split}; a "
+                          f"round step K1 {each['forest_leaves']} K3 {each['fused_votes']} "
+                          f"K4 {each['ring_hop']}; wall {p['wall']:.2f} s")
+                print(f"#   4s (e) MeshConfig({d_}, {m_}) rank {r}: a ring step "
+                      f"{g[f'{tag}_ring_ipc_step_ms']:.4f} ms by IPC, "
+                      f"{g[f'{tag}_ring_gloo_step_ms']:.4f} ms by gloo "
+                      f"(rings {g[f'{tag}_ring_members']}, {g[f'{tag}_ring_windows']} windows "
+                      f"received)")
+        print(f"# phase 4s (e) {MP_FOREST_RANKS} processes on cuda:0, cells crossing a row: "
+              f"MeshConfig(6, 2) and (3, 4), 3 cells a rank, fused, unfused and chunked (K = 2, "
+              f"eager) == phases 4 and 4b on every rank (records, final mask); K4 through CUDA "
+              f"IPC on rings with repeated members == the gloo hop (max abs err "
+              f"{max(max(out['forest'][f'{t}_ring_max_abs_err']) for t in MP_CROSSING)}) "
+              f"({kind}, {smi})")
         print(f"# phase 4s (d) the pod over {MP_FOREST_RANKS} processes, MeshConfig({POD_SHARDS}, "
               f"1), 2 rows a rank: fills, maps, rows and picks == 4r (c)'s on every rank; "
               f"ingest {[round(v, 1) for v in out['pod']['ingest_points_per_second']]} points/s, "

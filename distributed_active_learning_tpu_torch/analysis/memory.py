@@ -357,6 +357,10 @@ def _index_copies(indices) -> int:
                if tuple(t.shape) != shape or not t.is_contiguous())
 
 
+#: Operations whose library scratch is allocated before their outputs.
+_SCRATCH_FIRST = {"index": True}
+
+
 def library_scratch(func, args, out) -> int:
     """Bytes a library kernel allocates inside one operation on the card,
     beyond its outputs, which the dispatch does not see: a sort's radix
@@ -464,10 +468,17 @@ def _make_tracker(device_type: str):
                 self._note_input(t)
             out = roofline.meta_layout(func, args, func(*args, **kwargs))
             scratch = block_bytes(library_scratch(func, args, out))
+            # ``index`` makes its indices contiguous before it allocates its
+            # output (the card's allocator trace of LAL's regressor walk):
+            # the copies' block comes first in the pool, the others' after.
+            first = self.pool.alloc(scratch) if _SCRATCH_FIRST.get(
+                func.overloadpacket.__name__) else None
             for t in roofline._tensors(out):
                 self._note_output(t)
             self._peak(scratch)
-            if scratch:
+            if first is not None:
+                self.pool.free(first)
+            elif scratch:
                 self.pool.free(self.pool.alloc(scratch))
             return out
 

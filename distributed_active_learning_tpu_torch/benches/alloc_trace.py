@@ -1,9 +1,10 @@
-"""The caching allocator's own trace of the pre-flight's three programs,
-beside what the pre-flight prices for them.
+"""The caching allocator's own trace of the pre-flight's programs, beside
+what the pre-flight prices for them.
 
 The programs are ``chip_smoke.py`` phase 4t's: the forest chunk's round
-step at the bench width, 4n's CNN chunk step and 4o (b)'s serving capacity
-of 291,840 rows. Each is priced on the meta device
+step at the bench width, 4n's CNN chunk step, 4o (b)'s serving capacity
+of 291,840 rows and 4i's LAL round (a 200 x depth-10 regressor, captured
+as a graph of one round). Each is priced on the meta device
 (``analysis.memory.program_memory``), built on the card from the seed, run
 once eagerly on a side stream (kernels, cuBLAS's per-stream workspace), then
 run again eagerly and captured as ``GraphedChunk`` does, each under
@@ -18,7 +19,7 @@ pre-flight's pool (with ``memory.POOL_HEADROOM``) and peak against
 up to the most bytes. The last line is one JSON object of the same numbers.
 
 Run: ``python -m distributed_active_learning_tpu_torch.benches.alloc_trace
-[--seed 0] [--programs forest cnn serve]``. Needs a card.
+[--seed 0] [--programs forest cnn serve lal]``. Needs a card.
 """
 
 from __future__ import annotations
@@ -47,7 +48,34 @@ def _programs(seed: int) -> dict:
         "serve": (programs.serve_program("serve_chunk", programs.serve_config(8),
                                          programs.SERVE_CONFIG, 291_840, 30, 85_443, seed=seed),
                   loop.CARRY_FIELDS),
+        "lal": (round_step(programs.forest_program("round", lal_round_config(),
+                                                   programs.BENCH_SHAPES, seed=seed)),
+                loop.CARRY_FIELDS, ()),
     }
+
+
+def lal_round_config():
+    """4i's LAL round: the headline forest unfused, a round a launch, the
+    regressor of the options' defaults (200 trees of depth 10)."""
+    import dataclasses
+
+    from distributed_active_learning_tpu_torch.analysis import programs
+    from distributed_active_learning_tpu_torch.config import StrategyConfig
+
+    return dataclasses.replace(programs.BENCH_CONFIG, fused_round=False, rounds_per_launch=1,
+                               strategy=StrategyConfig(name="lal", window_size=100))
+
+
+def round_step(make):
+    """A round program as a graph's step: ``(new_state, the rest)``."""
+    from distributed_active_learning_tpu_torch.analysis import programs
+
+    def make_step(device):
+        unit = make(device)
+        return programs.ProgramUnit(lambda *a: (lambda r: (r[0], r[1:]))(unit.fn(*a)),
+                                    unit.args)
+
+    return make_step
 
 
 def _line(event: dict) -> str:
@@ -85,7 +113,7 @@ def _replay(events) -> int:
     return pool.reserved
 
 
-def trace_program(name: str, make, fields) -> dict:
+def trace_program(name: str, make, fields, input_args=(6,)) -> dict:
     from distributed_active_learning_tpu_torch.analysis import memory
     from distributed_active_learning_tpu_torch.runtime import loop
 
@@ -115,7 +143,7 @@ def trace_program(name: str, make, fields) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     graph = loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1),
-                              carry_fields=fields)
+                              input_args=input_args, carry_fields=fields)
     snap, captured = _recorded(lambda: graph.capture(*unit.args, stream=side, warm_up=False))
     segments = [(s["address"], s["total_size"]) for s in snap["segments"]
                 if tuple(s.get("segment_pool_id", ())) == tuple(graph._graph.pool())]

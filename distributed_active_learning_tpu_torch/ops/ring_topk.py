@@ -24,18 +24,22 @@ copy), and on one card stream order is the whole handshake. A window on
 another card is stored through a peer pointer under UVA. CPU windows take
 the plain version, tensor copies (:func:`ring_step_plain`).
 
-Over several processes (``ring_topk(..., members=ranks)``; ``parallel/
-multihost.py``) each rank holds its own shards' windows, and the window of
-its last shard goes to the next member's first. On the card that hop is the
-TPU kernel's remote write again: each rank's receive window is
+Over several processes (``ring_topk(..., members=rings)``; ``parallel/
+multihost.py``) each ring names the rank of each of its windows, in ring
+order; a rank may hold several consecutive windows of a ring, and windows
+of several rings (a mesh whose ranks' cells cross a row boundary). A hop
+between two windows of one rank stays on the rank; a hop to another rank is
+the TPU kernel's remote write again on the card: each rank's receive slots
+(one per window it receives from another rank, two parities) are
 ``cudaMalloc``'d inside the ring-hop library and shared by CUDA IPC, the
 handles are exchanged once over gloo, and K4 stores through the mapped
-pointer of the right neighbour's window (:class:`IpcWindow`). A step is
-eager and simple: the stream is synchronised, a gloo barrier, one K4 launch
-carrying every window the rank sends, a synchronise, a barrier, then the
-merges. A failed IPC open raises; nothing falls back to gloo on the card.
-The plain version, and K4's oracle there, is a gloo ``isend``/``irecv`` of
-the window (:func:`hop_processes_plain`).
+pointer of the receiver's slot (:class:`IpcWindow`). A step is eager and
+simple: the stream is synchronised, a gloo barrier, one K4 launch carrying
+every window the rank sends (to its own buffers and through IPC alike), a
+synchronise, a barrier, then the merges. A failed IPC open raises; nothing
+falls back to gloo on the card. The plain version, and K4's oracle there,
+is a gloo ``isend``/``irecv`` of each window that crosses ranks
+(:func:`hop_processes_plain`) and tensor copies within a rank.
 :func:`remap_indices` maps picks over a rebalanced pod pool back to the
 rows they were before the epoch (``serving/slab.py``).
 """
@@ -185,7 +189,7 @@ def hop(vals: torch.Tensor, idx: torch.Tensor, dst: torch.device) -> Window:
     return out
 
 
-def ring_topk(windows: Sequence[Window], k: int, members: Optional[Sequence[int]] = None,
+def ring_topk(windows: Sequence[Window], k: int, members=None,
               plain: bool = False, received: Optional[list] = None) -> List[Window]:
     """Merge the shards' ``k``-row windows (``pad_window``-normalized,
     global indices; shard ``s``'s on the ring's device ``s``) into the global
@@ -195,21 +199,26 @@ def ring_topk(windows: Sequence[Window], k: int, members: Optional[Sequence[int]
     receive buffers. Returns every shard's merged window, all equal; with
     one shard, the window itself.
 
-    With ``members`` (the ring's ranks in ring order: every rank, or a
-    model column's ranks, one a data row: a column ring) the ring spans
-    those processes, and ``windows`` are this rank's shards'
-    (:func:`_ring_topk_processes`; COLLECTIVE); ``None`` keeps it in this
-    process. ``plain`` takes the gloo hop on the card too (K4's oracle), and
-    ``received`` (a list) collects a copy of each window this rank's first
-    shard receives from the previous member."""
+    With ``members`` the rings span processes (:func:`_ring_topk_processes`;
+    COLLECTIVE over the job): one ring, the rank of each of its windows in
+    ring order (``(0, 0, 1)``: rank 0 holds the first two), or a sequence of
+    such rings of one length, which run together. ``windows`` are this
+    rank's, ring by ring in ring order. Every rank of the job calls it with
+    the same rings. ``None`` keeps the ring in this process. ``plain`` takes
+    the gloo hop on the card too (K4's oracle), and ``received`` (a list)
+    collects a copy of each window this rank receives from another rank, in
+    step, ring and position order."""
     for v, i in windows:
         if v.shape != (k,) or i.shape != (k,):
             raise ValueError(
                 f"ring_topk needs k-row windows, got {tuple(v.shape)}/{tuple(i.shape)} "
                 f"for k={k}; normalize with pad_window first"
             )
-    if members is not None and len(members) > 1:
-        return _ring_topk_processes(windows, k, tuple(members), plain, received)
+    if members is not None:
+        rings = _as_rings(members)
+        if len(rings[0]) == 1:
+            return list(windows)
+        return _ring_topk_processes(windows, k, rings, plain, received)
     n = len(windows)
     if n == 1:
         return list(windows)
@@ -235,35 +244,58 @@ def ring_topk(windows: Sequence[Window], k: int, members: Optional[Sequence[int]
     return acc
 
 
-def _neighbours(members: Sequence[int]) -> Tuple[int, int]:
-    """This rank's (next, previous) member of a ring of processes."""
-    from distributed_active_learning_tpu_torch.parallel import multihost
-
-    r = multihost.process_index()
-    if r not in members:
-        raise ValueError(f"rank {r} is not a member of the ring {list(members)}")
-    i = members.index(r)
-    return members[(i + 1) % len(members)], members[(i - 1) % len(members)]
+Rings = Tuple[Tuple[int, ...], ...]
 
 
-def hop_processes_plain(vals: torch.Tensor, idx: torch.Tensor, members: Sequence[int],
-                        tag: int = 0) -> Window:
-    """The plain hop between processes: this rank's window to the next
-    member of the ring ``members``, the previous member's window back, as
-    one gloo ``isend``/``irecv`` of ``[2k]`` int32 words staged through the
-    host (the values' bits, then the indices). Fresh buffers on ``vals``'
-    device. COLLECTIVE over the ring."""
+def _as_rings(members) -> Rings:
+    """``members`` as a tuple of rings: one ring of ranks, or several."""
+    members = tuple(members)
+    if members and not isinstance(members[0], (tuple, list, range)):
+        members = (members,)
+    rings = tuple(tuple(int(r) for r in ring) for ring in members)
+    if len({len(ring) for ring in rings}) != 1:
+        raise ValueError(f"rings of one length run together, got {rings}")
+    return rings
+
+
+def positions(rings: Rings, rank: int) -> List[Tuple[int, int]]:
+    """The ``(ring, position)`` of each window ``rank`` holds, in ring and
+    position order (the order of its ``windows``)."""
+    return [(j, s) for j, ring in enumerate(rings) for s, r in enumerate(ring) if r == rank]
+
+
+def remote_slots(rings: Rings, rank: int) -> List[Tuple[int, int]]:
+    """The positions at which ``rank`` receives from another rank: one
+    receive slot each, in this order (every rank computes every rank's)."""
+    return [(j, s) for j, s in positions(rings, rank) if rings[j][s - 1] != rank]
+
+
+def hop_processes_plain(sends: Sequence[Tuple[Window, int, int]],
+                        recvs: Sequence[Tuple[int, int]], k: int,
+                        device: torch.device) -> List[Window]:
+    """The plain hops of one ring step between processes: each ``(window,
+    rank, tag)`` of ``sends`` to its rank, and one window from each ``(rank,
+    tag)`` of ``recvs``, as gloo ``isend``/``irecv`` of ``[2k]`` int32 words
+    staged through the host (the values' bits, then the indices). Returns
+    the received windows in ``recvs``' order, fresh buffers on ``device``.
+    COLLECTIVE over the ranks named."""
     import torch.distributed as dist
 
-    right, left = _neighbours(tuple(members))
-    k = vals.shape[0]
-    msg = torch.cat([vals.contiguous().view(torch.int32), idx.to(torch.int32)]).cpu()
-    got = torch.empty_like(msg)
-    reqs = [dist.isend(msg, right, tag=tag), dist.irecv(got, left, tag=tag)]
+    reqs, got = [], []
+    for (vals, idx), rank, tag in sends:
+        msg = torch.cat([vals.contiguous().view(torch.int32), idx.to(torch.int32)]).cpu()
+        reqs.append(dist.isend(msg, rank, tag=tag))
+    for rank, tag in recvs:
+        buf = torch.empty(2 * k, dtype=torch.int32)
+        got.append(buf)
+        reqs.append(dist.irecv(buf, rank, tag=tag))
     for q in reqs:
         q.wait()
-    got = got.to(vals.device)
-    return got[:k].view(torch.float32), got[k:]
+    out = []
+    for buf in got:
+        buf = buf.to(device)
+        out.append((buf[:k].view(torch.float32), buf[k:]))
+    return out
 
 
 class _CudaArray:
@@ -277,117 +309,156 @@ class _CudaArray:
 
 
 class IpcWindow:
-    """This rank's two receive slots of k-row windows, ``cudaMalloc``'d in
-    the ring-hop library and exported by CUDA IPC, and the next ring
-    member's two slots mapped here. Made once per (card, k, ring) by every
-    rank together (the handles cross over gloo); kept for the process's
-    life. A failed allocation, export or open raises, naming the cause."""
+    """This rank's receive slots of k-row windows (one per position at which
+    it receives from another rank of ``rings``, two parities),
+    ``cudaMalloc``'d in the ring-hop library and exported by CUDA IPC, and
+    the slots of each rank it sends to mapped here. Made once per (card, k,
+    rings) by every rank together (the handles cross over gloo); kept for
+    the process's life. A failed allocation, export or open raises, naming
+    the cause."""
 
-    def __init__(self, dev: torch.device, k: int, members: Sequence[int]):
+    def __init__(self, dev: torch.device, k: int, rings: Rings):
         from distributed_active_learning_tpu_torch.parallel import multihost
 
         lib = kernels.load("ring_hop")
+        rank = multihost.process_index()
+        self.k = k
         self.vals_bytes = -(-4 * k // 256) * 256
         self.slot_bytes = 2 * self.vals_bytes
+        self.slots = {q: remote_slots(rings, q) for q in range(multihost.process_count())}
         size = lib.ring_hop_ipc_handle_size()
         handle = ctypes.create_string_buffer(size)
         base = ctypes.c_void_p()
-        err = lib.ring_hop_ipc_alloc(dev.index, 2 * self.slot_bytes, ctypes.byref(base), handle)
+        n_mine = max(len(self.slots[rank]), 1)
+        err = lib.ring_hop_ipc_alloc(dev.index, 2 * n_mine * self.slot_bytes,
+                                     ctypes.byref(base), handle)
         if err != 0:
             raise RuntimeError(f"ring hop: cudaMalloc or cudaIpcGetMemHandle of the receive "
                                f"window failed on {dev} (cudaError {err})")
         self.local_base = base.value
-        mine = torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8)
-        handles = multihost.all_gather(mine)
-        right = _neighbours(tuple(members))[0]
-        theirs = ctypes.create_string_buffer(bytes(handles[right].numpy().tobytes()), size)
-        mapped = ctypes.c_void_p()
-        err = lib.ring_hop_ipc_open(dev.index, theirs, ctypes.byref(mapped))
-        if err != 0:
-            raise RuntimeError(
-                f"ring hop: cudaIpcOpenMemHandle of rank {right}'s receive window failed on "
-                f"{dev} (cudaError {err}): CUDA IPC needs the ranks to share an IPC namespace "
-                "(and, across cards, peer access); the ring does not fall back to gloo on the "
-                "card")
-        self.remote_base = mapped.value
+        handles = multihost.all_gather(torch.frombuffer(bytearray(handle.raw), dtype=torch.uint8))
+        L = len(rings[0])
+        peers = sorted({rings[j][(s + 1) % L] for j, s in positions(rings, rank)} - {rank})
+        self.remote_base = {}
+        for q in peers:
+            theirs = ctypes.create_string_buffer(bytes(handles[q].numpy().tobytes()), size)
+            mapped = ctypes.c_void_p()
+            err = lib.ring_hop_ipc_open(dev.index, theirs, ctypes.byref(mapped))
+            if err != 0:
+                raise RuntimeError(
+                    f"ring hop: cudaIpcOpenMemHandle of rank {q}'s receive window failed on "
+                    f"{dev} (cudaError {err}): CUDA IPC needs the ranks to share an IPC "
+                    "namespace (and, across cards, peer access); the ring does not fall back "
+                    "to gloo on the card")
+            self.remote_base[q] = mapped.value
+        self._n = {q: max(len(v), 1) for q, v in self.slots.items()}
         # Views of this rank's own slots, read by the merges.
-        self._local = [(torch.as_tensor(_CudaArray(self._vals(self.local_base, j), k, "<f4"),
-                                        device=dev),
-                        torch.as_tensor(_CudaArray(self._idx(self.local_base, j), k, "<i4"),
-                                        device=dev)) for j in range(2)]
+        self._local = {}
+        for parity in range(2):
+            for i, pos in enumerate(self.slots[rank]):
+                v, x = self._ptrs(self.local_base, rank, i, parity)
+                self._local[parity, pos] = (
+                    torch.as_tensor(_CudaArray(v, k, "<f4"), device=dev),
+                    torch.as_tensor(_CudaArray(x, k, "<i4"), device=dev))
 
-    def _vals(self, base: int, slot: int) -> int:
-        return base + slot * self.slot_bytes
+    def _ptrs(self, base: int, rank: int, slot: int, parity: int) -> Tuple[int, int]:
+        at = base + (parity * self._n[rank] + slot) * self.slot_bytes
+        return at, at + self.vals_bytes
 
-    def _idx(self, base: int, slot: int) -> int:
-        return base + slot * self.slot_bytes + self.vals_bytes
+    def remote(self, rank: int, pos: Tuple[int, int], parity: int) -> Tuple[int, int]:
+        """``rank``'s slot for ring position ``pos`` as a ``(values,
+        indices)`` pointer pair."""
+        return self._ptrs(self.remote_base[rank], rank, self.slots[rank].index(pos), parity)
 
-    def remote(self, slot: int) -> Tuple[int, int]:
-        """The next member's slot as a ``(values, indices)`` pointer pair."""
-        return self._vals(self.remote_base, slot), self._idx(self.remote_base, slot)
-
-    def local(self, slot: int) -> Window:
-        """This rank's slot as tensors (views of the shared window)."""
-        return self._local[slot]
+    def local(self, pos: Tuple[int, int], parity: int) -> Window:
+        """This rank's slot for ring position ``pos`` as tensors (views of
+        the shared window)."""
+        return self._local[parity, pos]
 
 
 _ipc_windows: Dict[tuple, IpcWindow] = {}
 
 
-def ipc_window(dev: torch.device, k: int, members: Sequence[int]) -> IpcWindow:
-    """The :class:`IpcWindow` of (``dev``, ``k``) toward the next process of
-    the ring ``members``, made on first use (COLLECTIVE then: every rank,
-    each for its own ring, asks at the same point)."""
-    key = (dev.index, k, tuple(members))
+def ipc_window(dev: torch.device, k: int, rings: Rings) -> IpcWindow:
+    """The :class:`IpcWindow` of (``dev``, ``k``, ``rings``), made on first
+    use (COLLECTIVE then: every rank asks at the same point)."""
+    key = (dev.index, k, rings)
     if key not in _ipc_windows:
-        _ipc_windows[key] = IpcWindow(dev, k, members)
+        _ipc_windows[key] = IpcWindow(dev, k, rings)
     return _ipc_windows[key]
 
 
-def _ring_topk_processes(windows: Sequence[Window], k: int, members: Tuple[int, ...],
+def _ring_topk_processes(windows: Sequence[Window], k: int, rings: Rings,
                          plain: bool, received: Optional[list]) -> List[Window]:
-    """:func:`ring_topk` over the processes ``members`` (in ring order; a
-    column ring, or every rank), ``windows`` this rank's shards' (the same
-    count on every rank). Within a rank a window moves to the next local
-    shard; the last local shard's goes to the next member's first, by K4
-    through the IPC window on the card (one launch a step for every window
-    the rank sends) or by the gloo hop on the CPU or with ``plain``. Every
-    member returns the same merged windows. Where the job runs several
-    column rings, every rank runs its own at the same point: they have as
-    many members each, so they step together under the job's barriers."""
+    """:func:`ring_topk` over processes: ``rings`` (one length ``L``, each
+    naming the rank of each window in ring order), ``windows`` this rank's
+    in :func:`positions` order. Every rank runs the same ``L - 1`` steps
+    under the job's barriers; at each, the window at every position moves to
+    the next one: to this rank's own buffer where the next position is this
+    rank's, else to the holder's receive slot, by K4 through the IPC window
+    on the card (one launch a step for every window the rank sends) or by
+    the gloo hop on the CPU or with ``plain``. Every position then merges
+    what arrived, so each of this rank's windows ends as the ring's merge,
+    which is every ring's (a stable top-k with index tie-break, whatever
+    the order of the merges)."""
     from distributed_active_learning_tpu_torch.parallel import multihost
 
-    n_members = len(members)
-    n_local = len(windows)
+    rank = multihost.process_index()
+    mine = positions(rings, rank)
+    if not mine or len(windows) != len(mine):
+        raise ValueError(f"rank {rank} holds {len(mine)} windows of the rings {rings}, "
+                         f"got {len(windows)}")
+    L = len(rings[0])
+    at = {pos: i for i, pos in enumerate(mine)}
+    # Each window's next position and its holder, and where a window
+    # arrives from another rank (from the previous position's holder).
+    to = [(j, (s + 1) % L) for j, s in mine]
+    to_rank = [rings[j][t] for j, t in to]
+    from_rank = [rings[j][s - 1] for j, s in mine]
     dev = windows[0][0].device
     on_card = dev.type == "cuda" and not plain
-    win = ipc_window(dev, k, members) if on_card else None
+    win = ipc_window(dev, k, rings) if on_card else None
     acc = list(windows)
     cur = [(v.contiguous(), i.contiguous()) for v, i in windows]
-    bufs = [tuple((torch.empty(k, dtype=torch.float32, device=dev),
-                   torch.empty(k, dtype=torch.int32, device=dev)) for _ in range(n_local))
-            for _ in range(2)]
-    for step in range(n_local * n_members - 1):
-        slot = step % 2
-        nxt = [None] + list(bufs[slot][1:])
-        with kernels.kernel_work("ring_hop", lambda: costs.ring_step([k] * n_local)):
-            if on_card:
+    bufs = [[(torch.empty(k, dtype=torch.float32, device=dev),
+              torch.empty(k, dtype=torch.int32, device=dev)) for _ in mine] for _ in range(2)]
+
+    def tag(step, j, s):
+        return (step * len(rings) + j) * L + s
+
+    for step in range(L - 1):
+        parity = step % 2
+        nxt = [bufs[parity][i] if r == rank else None for i, r in enumerate(from_rank)]
+        with kernels.kernel_work("ring_hop", lambda: costs.ring_step([k] * len(mine))):
+            if dev.type == "meta":  # a priced program: the buffers exist, nothing moves
+                nxt = list(bufs[parity])
+            elif on_card:
+                dst = [win.remote(q, t, parity) if q != rank else
+                       (nxt[at[t]][0].data_ptr(), nxt[at[t]][1].data_ptr())
+                       for q, t in zip(to_rank, to)]
                 stream = torch.cuda.current_stream(dev)
                 stream.synchronize()
                 multihost.barrier()  # every receiving slot of this step is free
-                _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in cur],
-                             [(v.data_ptr(), i.data_ptr()) for v, i in nxt[1:]]
-                             + [win.remote(slot)])
+                _launch_ptrs(dev, k, [(v.data_ptr(), i.data_ptr()) for v, i in cur], dst)
                 stream.synchronize()
                 multihost.barrier()  # every window of this step has landed
-                nxt[0] = win.local(slot)
+                nxt = [b if b is not None else win.local(pos, parity)
+                       for b, pos in zip(nxt, mine)]
             else:
-                ring_step_plain(cur[:-1], nxt[1:])
-                nxt[0] = hop_processes_plain(*cur[-1], members, tag=step)
+                local = [(cur[i], nxt[at[t]]) for i, (q, t) in enumerate(zip(to_rank, to))
+                         if q == rank]
+                ring_step_plain([a for a, _ in local], [b for _, b in local])
+                got = iter(hop_processes_plain(
+                    [(cur[i], q, tag(step, *t)) for i, (q, t) in enumerate(zip(to_rank, to))
+                     if q != rank],
+                    [(r, tag(step, *pos)) for r, pos in zip(from_rank, mine) if r != rank],
+                    k, dev))
+                nxt = [b if b is not None else next(got) for b in nxt]
         if received is not None:
-            received.append((nxt[0][0].clone(), nxt[0][1].clone()))
-        for s in range(n_local):
-            acc[s] = merge_windows(*acc[s], *nxt[s], k)
+            received.extend((v.clone(), i.clone()) for r, (v, i) in zip(from_rank, nxt)
+                            if r != rank)
+        for i in range(len(mine)):
+            acc[i] = merge_windows(*acc[i], *nxt[i], k)
         cur = nxt
     return acc
 

@@ -341,7 +341,8 @@ def _vote_blocks(f, x):
     runs its streamed gemm round on such a forest)."""
     local = fused_votes if isinstance(f, ShardedPallasForest) else _exact_votes
     grid, n = per_shard(f, x, local)
-    return [row_accumulate(row, f.mesh.spread) for row in grid], n
+    sp = f.mesh.spread
+    return [row_accumulate(row, sp, s) for s, row in zip(sp.rows, grid)], n
 
 
 def _sharded_fused_votes(f: ShardedPallasForest, x) -> torch.Tensor:
@@ -360,10 +361,14 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     In the JAX package every model column runs its own ring, because
     ``out_specs=P()`` replicates the result on every device. In one
     process, and over processes that hold whole rows, the port needs the
-    result once a process, so one ring runs, over model column 0's devices;
-    where a row spans processes, each process runs the ring of its own
-    model column (``Mesh.ring_members``: one member a row), so every rank
-    ends with the result and no broadcast is needed.
+    result once a process, so one ring runs, over model column 0's cells;
+    otherwise the rings of the columns ``Mesh.rings`` names run together
+    (``Spread.ring_columns``: column 0, then the first column of each rank
+    that holds no cell of those, so every rank holds a window of some ring
+    and ends with the result, no broadcast needed). A rank puts its row's
+    window in every ring that passes one of its cells; where its cells
+    cross a row boundary it holds consecutive members of a ring, and may sit
+    in two rings.
     Returns DIRECTED ``(vals [k], idx [k])`` on the mesh's first device.
     The blocks are contiguous index ranges in shard order, so the result
     equals the stable top-k of the global masked score vector, ties and the
@@ -374,13 +379,18 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     n_local = sel.n_local
     kk = min(k, n_local)
     table = score_table(f.n_trees, strategy_name, f.mesh.first)
-    windows = []
+    windows = {}
     for s, votes in zip(sel.local_ids, blocks):
         work = torch.where(sel.block(s), table.to(votes.device)[votes.long()], NEG_INF)
         loc_v, loc_i = stable_top_k(work, kk)
         glob_i = (loc_i + s * n_local).to(torch.int32)
-        windows.append(ring_topk.pad_window(loc_v, glob_i, k))
-    return ring_topk.ring_topk(windows, k, members=f.mesh.ring_members)[0]
+        windows[s] = ring_topk.pad_window(loc_v, glob_i, k)
+    if not sel.across_processes:
+        return ring_topk.ring_topk(list(windows.values()), k)[0]
+    rings = f.mesh.rings
+    rank = f.mesh.rank
+    mine = [windows[s] for ring in rings for s, r in enumerate(ring) if r == rank]
+    return ring_topk.ring_topk(mine, k, members=rings)[0]
 
 
 def fused_score_select(

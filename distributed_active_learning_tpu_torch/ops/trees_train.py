@@ -428,27 +428,31 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
     for bit, and nothing is read back to the host, so a CUDA graph can
     capture it.
 
-    Over processes (``codes.spans_processes``) each rank's offset starts at
-    the earlier rows' counts (one all-gather of the per-shard counts), each
-    rank fills the slots of its own rows, and the ranks' windows are
-    all-gathered and overlaid in rank order on rank 0's, whose unfilled
-    slots read global row 0: every rank gets the same window, in global
-    index order, so every rank fits the same forest. Where a row spans
-    several ranks (``codes.spread``), each gather takes the row from its
-    owner alone, so every row enters the window once. COLLECTIVE."""
+    Over processes (``codes.spans_processes``) each rank fills the slots
+    of the rows it owns (``codes.spread``: a row held by several ranks,
+    whose cells cross or share it, enters from its owner alone, so every row
+    enters the window once), its offset starting at the earlier rows'
+    counts (one all-gather of the per-row counts, each from its owner); the
+    ranks' windows are all-gathered and overlaid in rank order on rank 0's,
+    whose unfilled slots read global row 0: every rank gets the same window,
+    in global index order, so every rank fits the same forest. COLLECTIVE."""
     dev = codes.device
     c = codes.block(codes.first)[:1].to(dev).expand(budget, -1)
     yy = y.block(y.first)[:1].to(dev).expand(budget)
     offset = torch.zeros((), dtype=torch.int64, device=dev)
     counts = [m.sum(dtype=torch.int64).to(dev) for m in masks]
+    rows = codes.local_ids
     spans = codes.spans_processes
     if spans:
         from distributed_active_learning_tpu_torch.parallel.collectives import owner_gather
 
-        every = torch.cat(owner_gather(torch.stack(counts), codes.spread))
-        offset = every[:codes.first].sum()
+        sp = codes.spread
+        every = torch.stack(owner_gather(counts, sp))
+        rows = sp.owned(sp.rank)
+        offset = every[:rows.start].sum()
         hit_any = torch.zeros(budget, dtype=torch.bool, device=dev)
-    for s, m, cnt in zip(codes.local_ids, masks, counts):
+    for s in rows:
+        m, cnt = masks[s - codes.first], counts[s - codes.first]
         cb, yb = codes.block(s), y.block(s)
         pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + offset.to(m.device)
         slot = torch.where(m & (pos < budget), pos, torch.full_like(pos, budget))
@@ -463,10 +467,11 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
         if spans:
             hit_any = hit_any | hit
     if spans:
+        from distributed_active_learning_tpu_torch.parallel.multihost import all_gather
+
         offset = every.sum()
-        parts = zip(owner_gather(c.contiguous(), codes.spread),
-                    owner_gather(yy.contiguous(), codes.spread),
-                    owner_gather(hit_any, codes.spread))
+        parts = zip(all_gather(c.contiguous()), all_gather(yy.contiguous()),
+                    all_gather(hit_any))
         c, yy, _ = next(parts)
         for cr, yr, hr in parts:
             c = torch.where(hr[:, None], cr, c)

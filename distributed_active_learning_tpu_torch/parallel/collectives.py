@@ -17,8 +17,9 @@ gloo in shard order (:func:`owner_gather`: a row that several ranks hold
 counts once), and each rank adds them in that order itself: never a
 backend ``all_reduce`` of floats, whose summation order is its own, since
 the port holds masses and means to XLA's order. :func:`row_accumulate` is
-the sum over ``model`` of one row's cells, across the row's ranks. Every
-rank must call these at the same point.
+the sum over ``model`` of one row's cells, across the row's ranks; a rank
+whose cells cross a row boundary holds two rows and calls it for each, in
+row order. Every rank must call these at the same point.
 """
 
 from __future__ import annotations
@@ -28,26 +29,29 @@ from typing import List, Sequence
 import torch
 
 
-def owner_gather(t: torch.Tensor, spread) -> List[torch.Tensor]:
-    """Every row owner's ``t`` (equal shapes on every rank), in row order on
-    ``t``'s device: one all-gather over the job, of which each row block
-    keeps its owner's part (``spread.owners``), so that a row held by
-    several ranks counts once. COLLECTIVE."""
+def owner_gather(rows: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
+    """Every data row's tensor in row order on ``rows[0]``'s device, each
+    from its owner: ``rows`` are this rank's rows' tensors
+    (``spread.rows``, equal shapes on every rank), and each rank sends the
+    rows it owns (owners own different numbers of rows, possibly none) in
+    one all-gather over the job, so every row counts once. COLLECTIVE."""
     from distributed_active_learning_tpu_torch.parallel.multihost import all_gather
 
-    every = all_gather(t)
-    return [every[r] for r in spread.owners]
+    dev = rows[0].device
+    first = spread.rows.start
+    mine = [rows[s - first].to(dev) for s in spread.owned(spread.rank)]
+    stacked = torch.stack(mine) if mine else rows[0].to(dev)[None][:0]
+    counts = [len(spread.owned(r)) for r in range(spread.procs)]
+    return list(torch.cat(all_gather(stacked, counts=counts)).unbind(0))
 
 
 def _all_shards(local: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
-    """Every shard's tensor of the axis in shard order on ``local[0]``'s
-    device: ``local`` itself where this rank holds every row, else every
-    row owner's ``local`` (equal counts and shapes) in row order."""
+    """Every shard's tensor of the axis in shard order: ``local`` itself
+    where one process holds every row, else every row's from its owner
+    (:func:`owner_gather`)."""
     if spread is None or not spread.spans_rows:
         return list(local)
-    dev = local[0].device
-    stacked = torch.stack([t.to(dev) for t in local])
-    return [t for part in owner_gather(stacked, spread) for t in part.unbind(0)]
+    return owner_gather(local, spread)
 
 
 def vector_accumulate(local: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
@@ -61,21 +65,24 @@ def vector_accumulate(local: Sequence[torch.Tensor], spread=None) -> torch.Tenso
     return acc
 
 
-def row_accumulate(cells: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
-    """The sum over ``model`` of one data row's per-cell vectors, in model
-    order (``lax.psum`` over ``model``): ``cells`` are this process's cells
-    of the row; where the row spans processes (``spread.row_ranks``), every
-    rank of the row gathers the others' cells over its row group (made with
-    the mesh, ``multihost.make_groups``) first and
-    adds all of them in model order itself, so every rank of the row gets
-    the same bits. COLLECTIVE over the row group then."""
-    if spread is not None and spread.row_procs > 1:
+def row_accumulate(cells: Sequence[torch.Tensor], spread=None, row: int = 0) -> torch.Tensor:
+    """The sum over ``model`` of data row ``row``'s per-cell vectors, in
+    model order (``lax.psum`` over ``model``): ``cells`` are this process's
+    cells of the row; where the row spans processes (``spread.holders``),
+    every rank of the row gathers the others' cells over the row's group
+    (made with the mesh, ``multihost.make_groups``; the ranks hold different
+    numbers of the row's cells) and adds all of them in model order itself,
+    so every rank of the
+    row gets the same bits. COLLECTIVE over the row group then: a rank that
+    holds two rows calls this for each, in row order, as every rank does."""
+    if spread is not None and spread.procs > 1 and len(spread.holders(row)) > 1:
         from distributed_active_learning_tpu_torch.parallel import multihost
 
+        holders = tuple(spread.holders(row))
         dev = cells[0].device
-        parts = multihost.all_gather(torch.stack([c.to(dev) for c in cells]),
-                                     ranks=spread.row_ranks)
-        cells = [c for p in parts for c in p.unbind(0)]
+        parts = multihost.all_gather(torch.stack([c.to(dev) for c in cells]), ranks=holders,
+                                     counts=[len(spread.cols_of(r, row)) for r in holders])
+        cells = list(torch.cat(parts).unbind(0))
     return vector_accumulate(cells)
 
 
@@ -109,7 +116,7 @@ def exchange_blocks(blocks: Sequence[torch.Tensor], spread=None) -> List[torch.T
         if b.shape[0] != n:
             raise ValueError(f"exchange_blocks needs [S={n}, b, ...] blocks, got "
                              f"{tuple(b.shape)}")
-    first = spread.row_block * len(blocks) if spread is not None and spread.spans_rows else 0
+    first = spread.rows.start if spread is not None and spread.spans_rows else 0
     mine = range(first, first + len(blocks))
     return [torch.stack([shards[i][j].to(blocks[j - first].device) for i in range(n)])
             for j in mine]

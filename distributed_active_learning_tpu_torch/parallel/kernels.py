@@ -9,7 +9,8 @@ each shard's work on the shard's device (:func:`per_shard`), adds the
 shards of an axis in order (``collectives.vector_accumulate``) and joins the
 row blocks in shard order on the mesh's first device, where the round's
 global steps run (:func:`make_sharded_round_fn`). Over several processes
-each runs its own cells only; a row whose cells lie on several ranks is
+each runs its own cells only (whole rows, a part of one, or cells that
+cross a row boundary); a row whose cells lie on several ranks is
 completed over the row group (the sum over ``model`` in model order,
 ``collectives.row_accumulate``; the leaf blocks joined in tree order), and
 the sums over ``data`` and the joins all-gather the other rows, each from
@@ -25,6 +26,7 @@ import torch
 
 from distributed_active_learning_tpu_torch.parallel import mesh as mesh_lib
 from distributed_active_learning_tpu_torch.parallel.collectives import (
+    owner_gather,
     row_accumulate,
     vector_accumulate,
 )
@@ -50,12 +52,10 @@ def join_blocks(blocks, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     device, cut to the logical ``n`` rows (over processes, this rank's
     blocks all-gathered with the other rows', each row from its owner:
     COLLECTIVE)."""
-    local = torch.cat([b.to(mesh.first) for b in blocks])
+    blocks = [b.to(mesh.first) for b in blocks]
     if mesh.spread.spans_rows:
-        from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
-
-        return gather_rows(local, n, mesh.spread.owners)
-    return local[:n]
+        blocks = owner_gather(blocks, mesh.spread)
+    return torch.cat(blocks)[:n]
 
 
 def join_leaf_grid(grid, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
@@ -64,13 +64,20 @@ def join_leaf_grid(grid, mesh: mesh_lib.Mesh, n: int) -> torch.Tensor:
     order, then the row blocks in row order, so a reduction over trees
     afterwards (``tree_mean``) adds in the single-device order and gives its
     bits. A row whose cells lie on several processes is joined across its
-    row group first (COLLECTIVE)."""
+    row group first (COLLECTIVE; a rank holding two rows joins them in row
+    order)."""
     rows = [torch.cat([lv.to(row[0].device) for lv in row], dim=1) for row in grid]
-    if mesh.row_procs > 1:
+    sp = mesh.spread
+    if sp.procs > 1:
         from distributed_active_learning_tpu_torch.parallel import multihost
 
-        ranks = mesh.spread.row_ranks
-        rows = [torch.cat(multihost.all_gather(r.contiguous(), ranks=ranks), dim=1) for r in rows]
+        width = grid[0][0].shape[1]  # trees a cell
+        for i, s in enumerate(sp.rows):
+            holders = tuple(sp.holders(s))
+            if len(holders) > 1:
+                counts = [len(sp.cols_of(r, s)) * width for r in holders]
+                rows[i] = torch.cat(multihost.all_gather(rows[i].contiguous(), ranks=holders,
+                                                         counts=counts, dim=1), dim=1)
     return join_blocks(rows, mesh, n)
 
 
@@ -100,7 +107,8 @@ def sharded_votes(mesh: mesh_lib.Mesh):
 
     def votes_fn(forest, x) -> torch.Tensor:
         grid, n = per_shard(attach_mesh(forest, mesh), x, forest_eval.votes)
-        return join_blocks([row_accumulate(row, mesh.spread) for row in grid], mesh, n)
+        sp = mesh.spread
+        return join_blocks([row_accumulate(row, sp, s) for s, row in zip(sp.rows, grid)], mesh, n)
 
     return votes_fn
 

@@ -17,14 +17,14 @@ evaluation as a :class:`ShardedForest` (``ops.trees_pallas.attach_mesh``).
 Over several processes (``parallel/multihost.py``) the mesh is the global
 one, filled row by row as JAX fills ``jax.devices()``: cell ``(s, m)`` is
 global device ``s * model + m``, and rank ``r`` of ``P`` owns cells ``[r *
-C / P, (r + 1) * C / P)`` of the ``C = data * model``. A rank holds either
-whole rows (``Mesh.devices`` holds its rows, ``Mesh.row0`` the first one's
-global index) or a part of one row (``Mesh.row_procs`` ranks share each
-row, ``Mesh.col0`` is its first model index), as one card a rank always
-gives; a rank whose cells would cross a row boundary partway is refused by
-name. A :class:`Sharded` holds only the blocks of this rank's rows (a
-row's ranks each hold a replica), and :func:`global_put` places the same
-logical host value on every rank by keeping the rank's own shards.
+C / P, (r + 1) * C / P)`` of the ``C = data * model`` (:class:`Spread`).
+A rank holds whole rows, a part of one row, or cells that cross a row
+boundary partway (``Mesh.devices`` holds its cells row by row, ragged then;
+``Mesh.row0`` is its first row's global index, ``Mesh.col_offsets`` each
+row's first model index). A :class:`Sharded` holds the blocks of this
+rank's rows (each rank holding a cell of a row holds a replica of its
+block), and :func:`global_put` places the same logical host value on every
+rank by keeping the rank's own shards.
 """
 
 from __future__ import annotations
@@ -43,92 +43,137 @@ AXIS_MODEL = "model"
 
 @dataclasses.dataclass(frozen=True)
 class Spread:
-    """How a mesh's data axis lies over the job's processes: all that a
-    collective needs of a placement. ``procs`` ranks in all; the
-    ``row_procs`` ranks ``[g, g + row_procs)`` share the same data rows (a
-    replica each, the first of them the rows' owner); ``rank`` is this
-    process. ``Spread()`` is one process."""
+    """How a ``(data, model)`` mesh's cells lie over the job's processes:
+    all that a collective needs of a placement. The ``data * model`` cells
+    are filled row by row, cell ``(s, m)`` global device ``s * model + m``,
+    and rank ``r`` of ``procs`` holds cells ``[r * per, (r + 1) * per)``
+    (``per = data * model / procs``), as JAX fills ``jax.devices()``. A
+    rank may hold whole rows, a part of one row, or parts of two rows and
+    whole ones between (its cells cross a row boundary partway). A rank
+    that holds any cell of a row holds a replica of the row's pool block;
+    the row's **owner** is the holder of its first cell, and joins over
+    ``data`` take each row from its owner. ``rank`` is this process.
+    ``Spread()`` is one process."""
 
     procs: int = 1
-    row_procs: int = 1
+    data: int = 1
+    model: int = 1
     rank: int = 0
 
     @property
-    def spans_rows(self) -> bool:
-        """Whether other processes hold other data rows (a join or a sum
-        over ``data`` then gathers from them)."""
-        return self.procs > self.row_procs
+    def per(self) -> int:
+        """The cells each rank holds."""
+        return self.data * self.model // self.procs
+
+    def holder(self, s: int, m: int) -> int:
+        """The rank that holds cell ``(s, m)``."""
+        return (s * self.model + m) // self.per
+
+    def rows_of(self, r: int) -> range:
+        """The data rows rank ``r`` holds a cell of, in order."""
+        return range(r * self.per // self.model, ((r + 1) * self.per - 1) // self.model + 1)
+
+    def cols_of(self, r: int, s: int) -> range:
+        """The model columns of row ``s`` that rank ``r`` holds."""
+        lo = r * self.per - s * self.model
+        return range(max(lo, 0), min(lo + self.per, self.model))
+
+    def holders(self, s: int) -> range:
+        """The ranks that hold row ``s``'s cells, in model order: its row
+        group, over which the sum over ``model`` runs."""
+        return range(s * self.model // self.per, ((s + 1) * self.model - 1) // self.per + 1)
+
+    def owned(self, r: int) -> range:
+        """The rows rank ``r`` owns (holds the first cell of): contiguous,
+        possibly none, and in rank order over the ranks."""
+        return range(-(-r * self.per // self.model), -(-(r + 1) * self.per // self.model))
 
     @property
-    def row_groups(self) -> Tuple[Tuple[int, ...], ...]:
-        """Every row block's ranks, in row order: the job's row groups."""
-        return tuple(tuple(range(g, g + self.row_procs))
-                     for g in range(0, self.procs, self.row_procs))
+    def rows(self) -> range:
+        """This rank's rows."""
+        return self.rows_of(self.rank)
+
+    @property
+    def spans_rows(self) -> bool:
+        """Whether the data rows lie over several processes, so that a join
+        or a sum over ``data`` gathers from the other ranks (the same on
+        every rank: no rank holds every row then)."""
+        return self.procs > 1 and self.data > 1
 
     @property
     def owners(self) -> Tuple[int, ...]:
-        """The ranks a join over ``data`` takes rows from, in row order: the
-        first of each row's ranks, so that every row counts once."""
-        return tuple(g[0] for g in self.row_groups)
+        """Each row's owner, in row order: the ranks a join over ``data``
+        takes rows from, so that every row counts once."""
+        return tuple(self.holders(s)[0] for s in range(self.data))
 
     @property
-    def row_block(self) -> int:
-        """This rank's rows' place among the owners' equal parts of the data
-        axis."""
-        return self.rank // self.row_procs
+    def row_groups(self) -> Tuple[Tuple[int, ...], ...]:
+        """Every row's holders, in row order. Where a rank's cells cross a
+        row boundary the groups overlap: the rank is in two."""
+        return tuple(tuple(self.holders(s)) for s in range(self.data))
+
+    def column(self, m: int) -> Tuple[int, ...]:
+        """The members of model column ``m``'s ring over ``data``: the
+        holder of each row's cell ``(s, m)``, in row order (a rank holding
+        several consecutive rows' cells appears once for each)."""
+        return tuple(self.holder(s, m) for s in range(self.data))
 
     @property
-    def row_ranks(self) -> Tuple[int, ...]:
-        """The ranks that share this rank's rows: its row group, over which
-        the sums over ``model`` run."""
-        return self.row_groups[self.row_block]
+    def ring_columns(self) -> Tuple[int, ...]:
+        """The model columns whose rings the fused selection runs: column 0,
+        then, for each rank in order that holds no cell of a column taken
+        so far, the column of its first cell; so every rank holds a window
+        of some ring and ends with the merged result. One ring where rows
+        are whole; one a part where ranks split a row evenly."""
+        cols: list = []
+        for r in range(self.procs):
+            if not any(r in self.column(m) for m in cols):
+                cols.append(r * self.per % self.model)
+        return tuple(cols)
 
     @property
-    def column_ring(self) -> Tuple[int, ...]:
-        """The ranks of this rank's model column in row order, one a row
-        block: the ring over ``data`` (every rank when rows are whole)."""
-        return tuple(range(self.rank % self.row_procs, self.procs, self.row_procs))
+    def rings(self) -> Tuple[Tuple[int, ...], ...]:
+        """The members of each ring of :attr:`ring_columns`."""
+        return tuple(self.column(m) for m in self.ring_columns)
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``[data][model]`` grid of devices. Over several processes
     (``n_procs > 1``) ``devices`` holds this process's cells of the global
-    grid, row by row, ``rank`` the process's index and ``model`` the global
-    model axis (0: a whole row, ``len(devices[0])``). A process holds whole
-    rows, each process as many, or ``row_procs`` processes share each row,
-    one part of it each."""
+    grid, row by row (``devices[i]`` the cells of global row ``row0 + i``
+    from model column ``col_offsets[i]`` on: ragged where the rank's cells
+    cross a row boundary), ``rank`` the process's index and ``data`` and
+    ``model`` the global axes (0: one process, the grid's own)."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
     n_procs: int = 1
     rank: int = 0
     model: int = 0
-
-    @property
-    def row_procs(self) -> int:
-        """The processes that share each data row (1: rows are whole)."""
-        return self.model // len(self.devices[0]) if self.model else 1
-
-    @property
-    def spread(self) -> Spread:
-        """How the data axis lies over the processes (the collectives'
-        placement)."""
-        return Spread(self.n_procs, self.row_procs, self.rank)
+    data: int = 0
 
     @property
     def shape(self):
-        return {AXIS_DATA: len(self.devices) * self.n_procs // self.row_procs,
+        return {AXIS_DATA: self.data or len(self.devices),
                 AXIS_MODEL: self.model or len(self.devices[0])}
+
+    @property
+    def spread(self) -> Spread:
+        """How the cells lie over the processes (the collectives'
+        placement)."""
+        return Spread(self.n_procs, self.shape[AXIS_DATA], self.shape[AXIS_MODEL], self.rank)
 
     @property
     def row0(self) -> int:
         """The global data index of this process's first row."""
-        return self.spread.row_block * len(self.devices)
+        return self.spread.rows.start
 
     @property
-    def col0(self) -> int:
-        """The global model index of this process's first cell in a row."""
-        return self.rank % self.row_procs * len(self.devices[0])
+    def col_offsets(self) -> Tuple[int, ...]:
+        """The global model index of this process's first cell in each of
+        its rows."""
+        sp = self.spread
+        return tuple(sp.cols_of(self.rank, s).start for s in sp.rows)
 
     @property
     def first(self) -> torch.device:
@@ -143,10 +188,10 @@ class Mesh:
         return tuple(row[0] for row in self.devices)
 
     @property
-    def ring_members(self) -> Tuple[int, ...]:
-        """The processes of this process's data ring in row order: its model
-        column's ranks (every rank when rows are whole)."""
-        return self.spread.column_ring
+    def rings(self) -> Tuple[Tuple[int, ...], ...]:
+        """The rings over ``data`` the fused selection runs, as member
+        lists (``Spread.rings``)."""
+        return self.spread.rings
 
 
 def make_mesh(
@@ -171,57 +216,61 @@ def make_mesh(
     shape when they do not), every cell of a rank on the rank's own card
     (``multihost.local_device_index``) or on ``devices``, which then lists
     this process's devices. ``data`` defaults to one row a process. A rank
-    holds whole rows or one part of a row; where its cells would cross a
-    row boundary partway (``MeshConfig(2, 3)`` over 3 processes) the mesh is
-    refused by name. When a row spans processes, every rank creates every
-    row's process group here (``multihost.make_groups``).
+    holds whole rows, a part of one row, or cells that cross a row boundary
+    partway (``MeshConfig(3, 2)`` over 2 processes: rank 0 holds row 0 and
+    the first cell of row 1); its ``devices`` are then ragged. Where a row
+    spans processes, every rank creates every such row's process group
+    here, in row order (``multihost.make_groups``).
     """
     from distributed_active_learning_tpu_torch.parallel import multihost
 
     multihost.maybe_initialize()
     n_procs = multihost.process_count()
     kind = torch.device(device).type
-    per_row, rows = model, data  # this process's cells in each of its rows, its rows
+    widths = None  # this process's cells in each of its rows
     if n_procs > 1:
         data = n_procs if data is None else data
         cells = data * model
         if data < 1 or model < 1 or cells % n_procs:
             raise ValueError(f"mesh {data}x{model}: its {cells} cells do not divide over "
                              f"{n_procs} processes")
-        per = cells // n_procs
-        if per % model and model % per:
-            raise NotImplementedError(
-                f"mesh {data}x{model} over {n_procs} processes: each would hold {per} cells, "
-                "which cross a data row boundary partway; a rank holds whole rows or one part "
-                "of a row, and this layout is the remaining entry of ROADMAP queue 1 item 8 "
-                "(\"Mesh and pod\")")
-        per_row, rows = min(per, model), max(per // model, 1)
+        spread = Spread(n_procs, data, model, multihost.process_index())
+        widths = [len(spread.cols_of(spread.rank, s)) for s in spread.rows]
+    n_cells = sum(widths) if widths else (data or 1) * model
     if devices is not None:
         devs = [_indexed(torch.device(d)) for d in devices]
     elif kind == "cpu":
-        devs = [torch.device("cpu")] * ((rows or 1) * per_row)
+        devs = [torch.device("cpu")] * n_cells
     elif kind == "cuda" and n_procs > 1:
-        devs = [torch.device("cuda", multihost.local_device_index())] * (rows * per_row)
+        devs = [torch.device("cuda", multihost.local_device_index())] * n_cells
     elif kind == "cuda":
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
-    if rows is None:
+    if data is None:
         if len(devs) % model:
             raise ValueError(f"{len(devs)} devices not divisible by model={model}")
-        rows = data = len(devs) // model
-    if rows < 1 or model < 1:
+        data = len(devs) // model
+    if data < 1 or model < 1:
         raise ValueError(f"mesh {data}x{model} needs positive axes")
-    if rows * per_row > len(devs):
+    if widths is None:
+        widths = [model] * data
+    if sum(widths) > len(devs):
         raise ValueError(f"mesh {data}x{model} exceeds {len(devs)} devices")
     if len({d.type for d in devs}) > 1:
         raise ValueError(f"a mesh lies on one kind of device, got {devs}")
-    grid = tuple(tuple(devs[s * per_row:(s + 1) * per_row]) for s in range(rows))
-    mesh = Mesh(grid, n_procs=n_procs, rank=multihost.process_index(),
-                model=model if n_procs > 1 else 0)
-    if mesh.row_procs > 1:
-        multihost.make_groups(mesh.spread.row_groups)
-    if devs[0].type == "cuda":
+    ends = np.cumsum([0, *widths])
+    grid = tuple(tuple(devs[a:b]) for a, b in zip(ends[:-1], ends[1:]))
+    if n_procs == 1:
+        return _peered(Mesh(grid))
+    mesh = Mesh(grid, n_procs=n_procs, rank=spread.rank, model=model, data=data)
+    multihost.make_groups(g for g in dict.fromkeys(spread.row_groups) if len(g) > 1)
+    return _peered(mesh)
+
+
+def _peered(mesh: Mesh) -> Mesh:
+    """``mesh``, peer access enabled along its ring on distinct cards."""
+    if mesh.first.type == "cuda":
         from distributed_active_learning_tpu_torch.ops import ring_topk
 
         ring_topk.enable_peer_access(mesh.ring)
@@ -273,8 +322,8 @@ class Sharded:
     @property
     def spans_processes(self) -> bool:
         """Whether other processes hold other rows (a join over ``data``
-        gathers)."""
-        return self.n_shards is not None and self.n_shards > len(self.blocks)
+        gathers; the same on every rank)."""
+        return self.n_shards is not None and self.spread.spans_rows
 
     @property
     def across_processes(self) -> bool:
@@ -307,12 +356,12 @@ class Sharded:
         processes a gloo all-gather taking each row from its owner,
         COLLECTIVE). Always a fresh tensor."""
         dev = self.device
-        local = torch.cat([reps[0].to(dev) for reps in self.blocks])
+        blocks = [reps[0].to(dev) for reps in self.blocks]
         if self.spans_processes:
-            from distributed_active_learning_tpu_torch.parallel.multihost import gather_rows
+            from distributed_active_learning_tpu_torch.parallel.collectives import owner_gather
 
-            return gather_rows(local, self.n_rows, self.spread.owners)
-        return local[: self.n_rows]
+            blocks = owner_gather(blocks, self.spread)
+        return torch.cat(blocks)[: self.n_rows]
 
 
 def gather(a) -> torch.Tensor:
@@ -378,8 +427,8 @@ def mesh_of(x: Sharded) -> Mesh:
     devices = tuple(tuple(b.device for b in reps) for reps in x.blocks)
     if x.n_shards is None:
         return Mesh(devices)
-    return Mesh(devices, n_procs=x.spread.procs, rank=x.spread.rank,
-                model=len(devices[0]) * x.spread.row_procs)
+    sp = x.spread
+    return Mesh(devices, n_procs=sp.procs, rank=sp.rank, model=sp.model, data=sp.data)
 
 
 def shard_fill_watermark(n_filled, n_pool: int, n_shards: int) -> torch.Tensor:
@@ -476,7 +525,8 @@ def shard_forest(forest, mesh: Mesh):
     """A ``[data][model]`` grid of forests: model shard ``m``'s trees on
     ``mesh.devices[s][m]`` for every data shard ``s`` (replicated over
     data, as ``P(model, None)``); over processes, this process's cells
-    only, each holding its global model shard's trees. A device-fit forest's heap path and
+    only, each holding its global model shard's trees (row ``i``'s cells
+    from ``mesh.col_offsets[i]`` on). A device-fit forest's heap path and
     targets stay broadcasts of each device's own constant
     (``trees_train.to_device``), so no device checks them by value. A
     multiclass :class:`~..ops.trees_multi.MultiForest` shards plane by
@@ -487,9 +537,9 @@ def shard_forest(forest, mesh: Mesh):
         return MultiForest(planes=tuple(shard_forest(p, mesh) for p in forest.planes))
     specs = forest_tree_specs(forest, mesh)
     return tuple(
-        tuple(_map_fields(forest, lambda t, sl=specs[mesh.col0 + j], d=dev: to_device(t[sl], d))
+        tuple(_map_fields(forest, lambda t, sl=specs[c0 + j], d=dev: to_device(t[sl], d))
               for j, dev in enumerate(row))
-        for row in mesh.devices
+        for row, c0 in zip(mesh.devices, mesh.col_offsets)
     )
 
 

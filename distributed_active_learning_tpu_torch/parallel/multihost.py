@@ -23,7 +23,10 @@ cards each rank has its own.
 Process subgroups (:func:`make_groups`) are made by rank list; which ranks
 share what is the mesh's to say (``parallel/mesh.py``'s ``Spread``: a
 data row's ranks form its row group, over which the sums over ``model``
-run).
+run; where a rank's cells cross a row boundary the groups overlap, and
+every rank calls its groups in row order). On the meta device (a priced
+program, ``analysis/memory.py``) a collective returns empty tensors of its
+shapes and moves nothing.
 
 Host-side writes (checkpoints, the metrics stream) belong to the primary
 (:func:`is_primary`); the payload a write needs is gathered collectively
@@ -195,14 +198,26 @@ def make_groups(rank_lists: Sequence[Sequence[int]]) -> None:
             _groups[key] = _dist().new_group(list(key), backend=BACKEND)
 
 
-def all_gather(t: torch.Tensor, ranks: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+def all_gather(t: torch.Tensor, ranks: Optional[Sequence[int]] = None,
+               counts: Optional[Sequence[int]] = None, dim: int = 0) -> List[torch.Tensor]:
     """Every rank's ``t`` (equal shapes), in rank order, on ``t``'s device:
     over the job, or over the group of ``ranks`` (made by
-    :func:`make_groups`; it holds this rank). COLLECTIVE over those ranks.
-    The copy to the host and back is explicit: gloo moves host memory."""
+    :func:`make_groups`; it holds this rank). ``counts``, each rank's length
+    along ``dim`` in rank order, lets the ranks' tensors differ there (a
+    mesh's owners own different numbers of rows, a row's ranks hold
+    different numbers of its cells): each is padded to the longest for the
+    gather and cut back. COLLECTIVE over those ranks. The copy to the host
+    and back is explicit: gloo moves host memory."""
     n = process_count() if ranks is None else len(ranks)
     if n == 1:
         return [t]
+    if counts is not None:
+        pad = list(t.shape)
+        pad[dim] = max(counts) - t.shape[dim]
+        parts = all_gather(torch.cat([t, t.new_zeros(pad)], dim=dim), ranks)
+        return [p.narrow(dim, 0, c) for p, c in zip(parts, counts)]
+    if t.device.type == "meta":  # a priced program: the shapes, nothing moves
+        return [torch.empty_like(t) for _ in range(n)]
     group = None
     if ranks is not None:
         group = _groups.get(tuple(int(r) for r in ranks))
@@ -215,17 +230,12 @@ def all_gather(t: torch.Tensor, ranks: Optional[Sequence[int]] = None) -> List[t
     return [_unwire(o, t) for o in out]
 
 
-def gather_rows(local: torch.Tensor, n_rows: int,
-                owners: Optional[Sequence[int]] = None) -> torch.Tensor:
+def gather_rows(local: torch.Tensor, n_rows: int) -> torch.Tensor:
     """The global array from each rank's row block: this rank's ``local``
     rows (every rank's block padded to one length; padding rows only at the
-    global end) gathered over the job, joined in rank order from ``owners``
-    (every rank by default; a mesh's ``Spread.owners`` where ranks share
-    rows, so each row counts once) and cut to ``n_rows``. COLLECTIVE."""
-    every = all_gather(local)
-    if owners is not None:
-        every = [every[r] for r in owners]
-    return torch.cat(every)[:n_rows]
+    global end) gathered over the job, joined in rank order and cut to
+    ``n_rows``. COLLECTIVE."""
+    return torch.cat(all_gather(local))[:n_rows]
 
 
 def gather_scalar_gauges(values: dict) -> dict:

@@ -445,7 +445,8 @@ def main(argv=None) -> int:
     seeds = list(range(args.seed, args.seed + args.sweep_seeds))
     bundle = None
     if args.audit:
-        bundle = _audit_or_die(args, cfg, neural, use_grid)
+        bundle = _audit_or_die(args, cfg, neural, use_grid, grid_strategies, grid_datasets,
+                               scenario_cfgs)
     writer = telemetry.MetricsWriter(args.metrics_out) if args.metrics_out else None
     try:
         with telemetry.profile_session(args.profile_dir):
@@ -625,12 +626,18 @@ def _scenarios(ap, args):
     return base, axis
 
 
-def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool):
-    """``--audit``: price the programs this run launches on the meta device
+def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool, strategies=None,
+                  datasets=None, scenarios=None):
+    """``--audit``: price the program this run launches on the meta device
     at the data's shapes (``analysis/memory.py``) against the budget, and
     refuse to run on an error finding, the findings printed; launches
-    nothing on the card. Returns the forest run's data bundle (loaded once
-    here for its shapes and handed to the run), else None."""
+    nothing on the card. The program is the run's own
+    (``analysis.programs.specs_for_run``): the grid chunk of its exact
+    cells, the batched seed sweep, the neural sweep's lanes, the scenario
+    round, the mesh at its configured shape (this rank's cells over
+    processes), LAL with the regressor its options name. Returns the single
+    forest run's data bundle (loaded once here for its shapes and handed to
+    the run), else None."""
     import numpy as np
 
     from distributed_active_learning_tpu_torch.analysis import memory as memory_lib
@@ -644,23 +651,29 @@ def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool):
         raise SystemExit(f"audit: {e}") from None
     bundle = None
     if neural:
-        specs = [programs_lib.ProgramSpec(f"neural_chunk/{args.strategy}", "neural_chunk",
-                                          programs_lib.neural_chunk_program(
-                                              _neural_shapes(args)))]
+        lanes = args.sweep_seeds if args.sweep_seeds > 1 and args.mesh_data <= 1 else 0
+        if args.mesh_data > 1:
+            print("# audit: a neural run on a data mesh is priced as its chunk on one device",
+                  file=sys.stderr)
+        name = (f"neural_sweep/{args.strategy}/lanes{lanes}" if lanes
+                else f"neural_chunk/{args.strategy}")
+        specs = [programs_lib.ProgramSpec(
+            name, "neural_sweep" if lanes else "neural_chunk",
+            programs_lib.neural_chunk_program(_neural_shapes(args), lanes=lanes))]
     else:
-        bundle = get_dataset(cfg.data)
-        train_x = np.asarray(bundle.train_x)
-        shapes = programs_lib.ForestShapes(
-            pool_rows=train_x.shape[0], features=train_x.shape[1],
-            test_rows=np.asarray(bundle.test_x).shape[0],
-            n_classes=max(int(np.asarray(bundle.train_y).max()) + 1, 2))
-        one = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, data=1, model=1))
-        if use_grid or args.sweep_seeds > 1 or cfg.mesh.data * cfg.mesh.model > 1:
-            print("# audit: a sweep, grid or mesh is priced as one experiment on one device "
-                  "(its batched or sharded program is not built here)", file=sys.stderr)
-            bundle = None
-        specs = programs_lib.specs_for_experiment(one, shapes,
-                                                  with_metrics=bool(args.metrics_out))
+        shapes = []
+        for name in datasets or [cfg.data.name]:
+            b = get_dataset(dataclasses.replace(cfg.data, name=name))
+            train_x = np.asarray(b.train_x)
+            shapes.append(programs_lib.ForestShapes(
+                pool_rows=train_x.shape[0], features=train_x.shape[-1],
+                test_rows=np.asarray(b.test_x).shape[0],
+                n_classes=max(int(np.asarray(b.train_y).max()) + 1, 2)))
+        if not use_grid and args.sweep_seeds <= 1:
+            bundle = b
+        specs = programs_lib.specs_for_run(
+            cfg, shapes, strategies=strategies, n_seeds=args.sweep_seeds,
+            scenarios=scenarios, grid=use_grid, with_metrics=bool(args.metrics_out))
     table, findings = memory_lib.memory_table(specs, budget)
     report = Report(findings=list(findings), programs=[s.name for s in specs])
     if report.findings:

@@ -326,6 +326,47 @@ def _cli_remainder(tmp_path, score):
         r"eager peak ([\d.]+) MiB.*as a CUDA graph ([\d.]+) MiB", refused(1 << 20, chunk)).groups())
     assert graph > eager
     assert "the graph's footprint" in refused((eager + graph) / 2 * 2**20, chunk)
+    # Each kind of run prices the program it launches, named for it: the
+    # batched sweep, the grid of its exact cells, the scenario round, the
+    # mesh at its shape (cells crossing a row), LAL with its regressor.
+    kinds = {"sweep/uncertainty/seeds8": ("--sweep-seeds", "8", *chunk),
+             "grid/uncertainty+margin/1x2": ("--strategies", "uncertainty,margin",
+                                             "--sweep-seeds", "2", *chunk),
+             "chunk/uncertainty/noisy_oracle": ("--scenario", "noisy_oracle", "--flip-prob",
+                                                "0.1", *chunk),
+             "chunk/entropy/cost_budget": ("--scenario", "cost_budget", "--cost-budget", "20",
+                                           "--strategy", "entropy", *chunk),
+             "chunk/uncertainty/mesh3x2": ("--mesh-data", "3", "--mesh-model", "2", *chunk),
+             "chunk/lal": ("--strategy", "lal", "--strategy-option", "lal_trees=20", *chunk)}
+    for name, extra in kinds.items():
+        err = refused(1 << 20, extra)
+        assert name in err and "memory-plan-unavailable" not in err, (name, err)
+        assert "priced as one experiment" not in err, err
+    # A budget above one experiment's price and below the sweep's refuses
+    # the sweep, which holds 8 carries and one pool for the batch.
+    from distributed_active_learning_tpu_torch.analysis import memory as t_memory
+    from distributed_active_learning_tpu_torch.analysis import programs as t_programs
+    from distributed_active_learning_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ForestConfig, StrategyConfig,
+    )
+    from distributed_active_learning_tpu_torch.data.datasets import get_dataset as t_dataset
+
+    one_cfg = ExperimentConfig(  # the CLI's config of `small` + `chunk`
+        data=DataConfig(name="checkerboard2x2", n_samples=300, seed=1),
+        forest=ForestConfig(n_trees=8, max_depth=4, kernel="pallas", fit="device"),
+        strategy=StrategyConfig(name="uncertainty", window_size=15), max_rounds=4,
+        rounds_per_launch=2, seed=1)
+    data = t_dataset(one_cfg.data)
+    shapes = [t_programs.ForestShapes(len(data.train_y), np.asarray(data.train_x).shape[1],
+                                      len(data.test_y))]
+    priced, _ = t_memory.memory_table(
+        t_programs.specs_for_run(one_cfg, shapes) + t_programs.specs_for_run(
+            one_cfg, shapes, n_seeds=8), t_memory.MemoryBudget(None, None, "none"))
+    one, swept = (priced[k]["graph_hbm_bytes"] for k in ("chunk/uncertainty",
+                                                         "sweep/uncertainty/seeds8"))
+    assert swept > one, (one, swept)
+    assert "sweep/uncertainty/seeds8" in refused((one + swept) / 2, kinds[
+        "sweep/uncertainty/seeds8"])
     table.write_text(json.dumps({"hbm_bytes": 1 << 20}))
     m_out = tmp_path / "roof.jsonl"
     with contextlib.redirect_stdout(io.StringIO()):

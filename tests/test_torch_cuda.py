@@ -1388,7 +1388,8 @@ _MP_MODEL_AXIS = {2: (1, 2), 4: (2, 2)}
 
 
 def _check_multi_process(cuda, tmp_path, n, local_ranks):
-    """K4 through CUDA IPC against the plain gloo hop, and the fused mesh run
+    """K4 through CUDA IPC against the plain gloo hop (also on a ring with
+    repeated members, rank 0 holding two consecutive windows), and the fused mesh run
     (per round, and chunked at K = 2: eager) against the single-process
     mesh run on the card; then the mesh whose model axis spans the ranks
     (one cell a rank: K3 once a round, K4 ``data - 1`` times a round in its
@@ -1398,6 +1399,8 @@ def _check_multi_process(cuda, tmp_path, n, local_ranks):
     for r, g in enumerate(_run_ranks(n, "ring", tmp_path / "ring", local_ranks)):
         assert g["ipc_equals_gloo"] and g["equals_single_process"], (r, g)
         assert g["launches"] == n - 1, (r, g)  # one K4 a step the rank sends
+        assert g["repeated_ipc_equals_gloo"] and g["repeated_equals_single_process"], (r, g)
+        assert g["repeated_launches"] == n, (r, g)  # n + 1 windows: n steps
         assert g["device"] == f"cuda:{local_ranks[r]}", (r, g)
     got = _run_ranks(n, "forest", tmp_path / "forest", local_ranks)
     for K in (1, 2):
@@ -1470,6 +1473,31 @@ def _rank_main(mode):
         want = ring_topk.ring_topk(windows, k)[0]  # one process, the CPU's copies
         out["equals_single_process"] = (torch.equal(merged[0].cpu(), want[0])
                                         and torch.equal(merged[1].cpu(), want[1]))
+        # A ring with repeated members, as a mesh whose ranks' cells cross a
+        # row boundary makes (column 0 of (3, 2) over 2 ranks: 0, 0, 1):
+        # rank 0 holds two consecutive windows, its hop between them stays
+        # on the rank, the others cross by K4 through IPC.
+        reps = (0, *range(n))
+        rep_windows = []
+        for s in range(len(reps)):
+            rng = np.random.default_rng(200 + s)
+            v = torch.from_numpy(np.round(rng.normal(size=rows), 1).astype(np.float32))
+            top = torch.sort(v, descending=True, stable=True)
+            rep_windows.append((top.values[:k].contiguous(),
+                                (top.indices[:k] + s * rows).to(torch.int32)))
+        mine = [(v.to(dev), i.to(dev)) for (v, i), r in zip(rep_windows, reps) if r == rank]
+        ring_topk.launches = 0
+        got_ipc, got_gloo = [], []
+        merged = ring_topk.ring_topk(mine, k, members=reps, received=got_ipc)
+        out["repeated_launches"] = ring_topk.launches
+        plain = ring_topk.ring_topk(mine, k, members=reps, plain=True, received=got_gloo)
+        out["repeated_ipc_equals_gloo"] = len(got_ipc) == len(got_gloo) and all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(got_ipc + merged, got_gloo + plain))
+        want = ring_topk.ring_topk(rep_windows, k)[0]
+        out["repeated_equals_single_process"] = all(
+            torch.equal(m[0].cpu(), want[0]) and torch.equal(m[1].cpu(), want[1])
+            for m in merged)
     else:
         for K in (1, 2):
             for m in (trees_pallas, round_fused, ring_topk):

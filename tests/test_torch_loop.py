@@ -529,9 +529,9 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     # A multi-process launch runs a mesh over processes (its parity with the
     # JAX package's runs: tests/test_torch_mesh.py): here the CLI on 2 ranks
     # over gloo, where the primary alone binds --ops-port, and with its
-    # model axis across the 2 ranks, which prints the same log. What item 8
-    # has not carried is refused by name: ranks whose cells cross a data row
-    # partway (3 rows of 2 cells over 2 ranks). The pod half of the slab
+    # model axis across the 2 ranks, and with ranks whose cells cross a data
+    # row partway (3 rows of 2 cells over 2 ranks), each of which prints the
+    # same log. The pod half of the slab
     # pool is ported (its parity with the JAX package:
     # tests/test_torch_serving.py) and exported as JAX exports it.
     import socket
@@ -552,7 +552,7 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     jobs = {}
     for name, extra in (("run", ["--mesh-data", "2", "--ops-port", str(ops_port)]),
                         ("model", ["--mesh-data", "1", "--mesh-model", "2"]),
-                        ("refused", ["--mesh-data", "3", "--mesh-model", "2"])):
+                        ("crossing", ["--mesh-data", "3", "--mesh-model", "2"])):
         (tmp_path / name).mkdir()
         jobs[name] = spawn_ranks(2, cli + extra, tmp_path / name)
     runs = wait_ranks(jobs["run"])
@@ -565,8 +565,10 @@ def test_unported_features_are_refused_by_name(tmp_path, capsys):
     assert [rc for rc, _ in model] == [0, 0], model
     assert [[ln for ln in out.splitlines() if ln.startswith("Iteration")]
             for _, out in model] == logs, model
-    for rc, out in wait_ranks(jobs["refused"]):
-        assert rc != 0 and "NotImplementedError" in out and "queue 1 item 8" in out, out
+    crossing = wait_ranks(jobs["crossing"])
+    assert [rc for rc, _ in crossing] == [0, 0], crossing
+    assert [[ln for ln in out.splitlines() if ln.startswith("Iteration")]
+            for _, out in crossing] == logs, crossing
     # A LAL run with neither a data file nor a forest file synthesizes its
     # regressor's training rows and fits it with scikit-learn: without
     # scikit-learn (the card's machine) it is refused by name, before the

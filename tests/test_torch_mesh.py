@@ -35,14 +35,16 @@ numpy arrays made from a seed and handed to both packages.
   returns None, ``gauges(allgather=True)`` carries every rank's value, the
   run's metadata names the gloo backend, every collective over processes
   equals the one-process collective over every shard (each row once where a
-  row spans 2 ranks), and a mesh whose ranks' cells would cross a row
-  partway is refused by name; a 2-seed chunked sweep on the 2-process mesh
-  equals the single-process sweep;
+  row spans 2 ranks, and where the ranks' cells cross a row partway, their
+  row groups overlapping), and a mesh whose ranks' cells cross a row
+  partway places each rank's cells row-major; a 2-seed chunked sweep on the
+  2-process mesh equals the single-process sweep;
 - the model axis across processes, in the same jobs: ``MeshConfig(1, 2)``
-  on the 2 ranks of the leaf kernel's case, ``(2, 2)`` and ``(1, 4)`` on the
-  4 ranks, each fused (kernel "pallas", K3's plain version) and unfused:
-  every rank's records and final mask, and rank 0's checkpoints, equal
-  JAX's single-process run of the same configuration;
+  and ``(3, 2)`` (cells crossing a row) on the 2 ranks of the leaf kernel's
+  case, ``(2, 2)``, ``(1, 4)`` and ``(3, 4)`` (no rank holding a whole row)
+  on the 4 ranks, each fused (kernel "pallas", K3's plain version) and
+  unfused: every rank's records and final mask, and rank 0's checkpoints,
+  equal JAX's single-process run of the same configuration;
 - the pod over 2 processes (``pod_sequence``: ``_pod_parity``'s sizes on a
   (4, 1) mesh, 2 rows a rank): every leaf after each step, the fills, each
   epoch's index maps and the fused select's picks equal JAX's pod on a
@@ -328,8 +330,16 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _MP_CASES = ((2, "device", "gather"), (2, "host", "gather"), (4, "device", "gather"),
              (2, "device", "pallas"))
 #: The meshes whose model axis (or one data row) spans the ranks, run by
-#: the case's job fused (kernel "pallas") and unfused (the case's kernel).
-_MP_MODEL_AXIS = {(2, "device", "pallas"): ((1, 2),), (4, "device", "gather"): ((2, 2), (1, 4))}
+#: the case's job fused (kernel "pallas") and unfused (the case's kernel);
+#: in (3, 2) over 2 and (3, 4) over 4 the ranks' cells cross a row partway.
+_MP_MODEL_AXIS = {(2, "device", "pallas"): ((1, 2), (3, 2)),
+                  (4, "device", "gather"): ((2, 2), (1, 4), (3, 4))}
+#: Each rank's rows and its columns in each, of make_mesh(3 * n // 2, 2)
+#: over n ranks (3 cells a rank: a whole row and half of the next, or the
+#: other half and a whole row).
+_CROSSING = {2: [[[0, [0, 1]], [1, [0]]], [[1, [1]], [2, [0, 1]]]],
+             4: [[[0, [0, 1]], [1, [0]]], [[1, [1]], [2, [0, 1]]],
+                 [[3, [0, 1]], [4, [0]]], [[4, [1]], [5, [0, 1]]]]}
 
 
 def spawn_ranks(n, argv, rdv_dir):
@@ -426,7 +436,7 @@ def _multi_process_runs_match_jax(tmp_path):
             assert g["labeled"] == [x.n_labeled for x in want.records], (case, r)
             assert g["mask"] == final, (case, r)
             assert (g["probe"] is not None) == (r == 0), (case, r, g["probe"])
-            assert "item 8" in g["refused"], (case, r, g["refused"])
+            assert g["crossing"] == _CROSSING[n][r], (case, r, g["crossing"])
             assert all(g["collectives"].values()), (case, r, g["collectives"])
             assert g["fits"] == got[0]["fits"], (case, r)  # the same forest bytes on every rank
             if "pod" in g:
@@ -510,18 +520,39 @@ def _collectives_match_one_process(rank, n):
               for _ in range(n)]
     mine = slice(rank, rank + 1)
     row = slice(rank // 2, rank // 2 + 1)  # rows of 2 ranks: each row counted once
-    whole, pairs = Spread(n, 1, rank), Spread(n, 2, rank)
-    if n == 4:
-        multihost.make_groups(pairs.row_groups)
+    whole, pairs = Spread(n, n, 1, rank), Spread(n, 2, 2, rank)
+    # Cells that cross a row partway: (3, 2) over 2 ranks, (3, 4) over 4,
+    # whose row groups overlap (a rank holds two rows, owners own unequal
+    # counts, a rank may own none).
+    cross = Spread(n, 3, 2 if n == 2 else 4, rank)
+    multihost.make_groups(g for g in dict.fromkeys(pairs.row_groups + cross.row_groups)
+                          if len(g) > 1)
+    row_vecs = [torch.from_numpy(rng.normal(size=7).astype(np.float32)) for _ in range(3)]
+    row_masks = [torch.from_numpy(rng.random(5) < 0.5) for _ in range(3)]
+    cells = [[torch.from_numpy(rng.integers(0, 9, size=5).astype(np.int32))
+              for _ in range(cross.model)] for _ in range(3)]
+    held = list(cross.rows)
     over_rows = {} if n != 4 else {
         "vector_accumulate_rows": torch.equal(c.vector_accumulate(vecs[row], pairs),
                                               c.vector_accumulate(vecs[:2])),
         "gather_fills_rows": torch.equal(c.gather_fills(fills[row], pairs),
                                          c.gather_fills(fills[:2])),
-        "row_accumulate": torch.equal(c.row_accumulate(vecs[mine], pairs),
+        "row_accumulate": torch.equal(c.row_accumulate(vecs[mine], pairs, rank // 2),
                                       c.vector_accumulate(vecs[rank - rank % 2:][:2])),
     }
-    return {**over_rows,
+    crossing = {
+        "vector_accumulate_cross": torch.equal(
+            c.vector_accumulate([row_vecs[s] for s in held], cross),
+            c.vector_accumulate(row_vecs)),
+        "global_count_cross": torch.equal(c.global_count([row_masks[s] for s in held], cross),
+                                          c.global_count(row_masks)),
+        "row_accumulate_cross": all(torch.equal(
+            c.row_accumulate([cells[s][m] for m in cross.cols_of(rank, s)], cross, s),
+            c.vector_accumulate(cells[s])) for s in held),
+        "owner_gather_cross": all(torch.equal(a, b) for a, b in zip(
+            c.owner_gather([row_vecs[s] for s in held], cross), row_vecs, strict=True)),
+    }
+    return {**over_rows, **crossing,
         "vector_accumulate": torch.equal(c.vector_accumulate(vecs[mine], whole),
                                          c.vector_accumulate(vecs)),
         "global_count": torch.equal(c.global_count(masks[mine], whole),
@@ -687,11 +718,10 @@ def _rank_main(mode, out_dir, *rest):
                     mask=torch.nonzero(res.final_labeled_mask).flatten().tolist())
         if (n, fit, kernel) == (2, "device", "pallas"):
             out["pod"] = pod_sequence("torch")
-        try:  # cells that cross a row boundary partway: 3 (or 6) rows of 2
-            t_mesh.make_mesh(3 * n // 2, 2, device="cpu")
-            out["refused"] = ""
-        except NotImplementedError as e:
-            out["refused"] = str(e)
+        # Cells that cross a row boundary partway: 3 (or 6) rows of 2.
+        crossing = t_mesh.make_mesh(3 * n // 2, 2, device="cpu")
+        out["crossing"] = [[s, [c0 + j for j in range(len(row))]] for s, c0, row in zip(
+            crossing.spread.rows, crossing.col_offsets, crossing.devices)]
         out["collectives"] = _collectives_match_one_process(rank, n)
     elif mode == "neural":
         from distributed_active_learning_tpu_torch.models.neural import MLP, NeuralLearner
