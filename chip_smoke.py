@@ -204,6 +204,13 @@ and prints no result:
    (d) the Python mirrors of K1's, K2's and K3's launch configuration equal
    the C answer at the headline pool, the mesh shard, 256 streamed trees and
    the serving endpoint ``[64, 30]`` (depths 4 and 8), each payload;
+   (e) the program auditor (``analysis/auditor.py``) on the card: (b)'s
+   forest chunk and mesh chunk traced on the card audit clean, their traced
+   kernel launches equal to their capture's tally; every program (c)'s
+   ``--audit`` runs examined, traced on the card, audits clean; ``run.py
+   --audit`` refuses a ``.item()`` in the chunk body, an f64 op and a
+   pool-sized gather on the mesh by rule id, launching nothing; the lint
+   (``analysis/lint.py``) finds nothing in the port;
 4c. the chunked driver at the benchmark width: ``rounds_per_launch = 4``,
    ``max_rounds = 6`` (a stop inside the second chunk), fused and unfused,
    ``pipeline_depth`` 1 and 2. Records and the final mask must equal the
@@ -2172,18 +2179,29 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
     budget the run prints the records of the same run without ``--audit``.
     (d) the shared-memory mirrors of K1,
     K2 and K3 equal the C configuration at the headline pool, the mesh
-    shard, 256 streamed trees and the serving endpoint, for each payload."""
+    shard, 256 streamed trees and the serving endpoint, for each payload.
+    (e) the program auditor on the card: (b)'s forest chunk and 4 x 2 mesh
+    chunk, traced on the card (``analysis/auditor.py``, not on the meta
+    device), audit clean and their traced kernel launches equal their
+    capture's tally; every program (c)'s ``--audit``
+    runs examined is traced on the card and audits clean; ``run.py
+    --audit`` refuses three planted defects by rule id (a ``.item()`` in
+    the chunk body, an f64 op, the pool's mask gathered whole on every
+    shard of the mesh), launching nothing; the lint over the port's
+    ``runtime/``, ``serving/`` and ``strategies/`` finds nothing."""
     import ctypes
     import dataclasses
 
-    from distributed_active_learning_tpu_torch import kernels
+    from distributed_active_learning_tpu_torch import analysis, kernels
     from distributed_active_learning_tpu_torch import run as run_cli
-    from distributed_active_learning_tpu_torch.analysis import costs, memory, programs, roofline
+    from distributed_active_learning_tpu_torch.analysis import (
+        auditor, costs, lint, memory, programs, roofline,
+    )
     from distributed_active_learning_tpu_torch.device import deterministic_cuda
     from distributed_active_learning_tpu_torch.runtime import loop, neural_loop
 
     t_phase = time.perf_counter()
-    out = {"roofline": {}, "memory": {}}
+    out = {"roofline": {}, "memory": {}, "audit_on_card": {}}
 
     def check_shares(name, attr):
         if "error" in attr:
@@ -2346,10 +2364,30 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         torch.cuda.synchronize()
         measured = torch.cuda.max_memory_allocated() - base + inputs
         del res
+        traced = name in ("forest chunk step", "mesh chunk MeshConfig(4, 2) (4q)")
+        if traced:  # (e) the same program traced on the card, after the measurement
+            t0 = time.perf_counter()
+            stats = {}
+            found = auditor.audit_unit(auditor.AuditUnit.of(name, unit), stats=stats)
+            t_trace = time.perf_counter() - t0
         g = graphed(unit, fields, *where)
         g.capture(*unit.args)
         pool_measured = g.pool_bytes
+        captured = auditor.kernel_launches(g.launches_per_replay)
         del g, unit
+        if traced:
+            out["audit_on_card"][name] = {"findings": [str(f) for f in found],
+                                          "traced_launches": stats["launches"],
+                                          "captured_launches": captured,
+                                          "trace_seconds": t_trace}
+            print(f"# 4t (e) {name}: traced on the card in {t_trace:.1f} s, {len(found)} "
+                  f"findings; launches traced {stats['launches']}, captured {captured}")
+            if found:
+                fail(f"4t (e): {name} traced on the card has findings: "
+                     f"{[str(f) for f in found]}")
+            if stats["launches"] != captured or not captured:
+                fail(f"4t (e): {name}'s traced launches {stats['launches']} != its capture's "
+                     f"{captured}")
         gc.collect()
         torch.cuda.empty_cache()
         row = {"predicted_peak_bytes": pred["peak_hbm_bytes"], "measured_peak_bytes": measured,
@@ -2391,12 +2429,27 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
                 print(exc.code, file=e)
         return rc, o.getvalue(), e.getvalue()
 
+    audited = {}  # every program (c)'s --audit runs examined, for (e)
+
+    def cli_audited(extra):
+        preflight = analysis.preflight
+
+        def recorded(specs, *a, **kw):
+            audited.update((spec.name, spec) for spec in specs)
+            return preflight(specs, *a, **kw)
+
+        analysis.preflight = recorded
+        try:
+            return cli(extra)
+        finally:
+            analysis.preflight = preflight
+
     with tempfile.TemporaryDirectory() as tmp:
         table = os.path.join(tmp, "budget.json")
         with open(table, "w") as f:
             json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
         zero_counts()
-        rc, so, se = cli(["--audit", "--budget-table", table])
+        rc, so, se = cli_audited(["--audit", "--budget-table", table])
         refused_counts = counts()
     if rc == 0 or "hbm-over-budget" not in se or so.strip():
         fail(f"4t: --audit with a 64 MiB table did not refuse (rc {rc}): {se[-600:]}")
@@ -2411,7 +2464,7 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         with open(table, "w") as f:
             json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
         zero_counts()
-        rc, _, se = cli(["--rounds-per-launch", "4", "--audit", "--budget-table", table])
+        rc, _, se = cli_audited(["--rounds-per-launch", "4", "--audit", "--budget-table", table])
         found = re.search(r"eager peak ([\d.]+) MiB.*as a CUDA graph ([\d.]+) MiB", se)
         if rc == 0 or found is None:
             fail(f"4t: --audit of the K = 4 chunk with a 64 MiB table (rc {rc}) named no eager "
@@ -2441,7 +2494,7 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
         with open(table, "w") as f:
             json.dump({"hbm_bytes": 64 * 2**20, "source": "64 MiB table"}, f)
         zero_counts()
-        rc, _, se = cli(sweep_argv + [table])
+        rc, _, se = cli_audited(sweep_argv + [table])
         found = re.search(r"as a CUDA graph ([\d.]+) MiB", se)
         if rc == 0 or found is None or "sweep/uncertainty/seeds8" not in se:
             fail(f"4t: --audit --sweep-seeds 8 with a 64 MiB table (rc {rc}) did not price the "
@@ -2463,7 +2516,7 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
     print(f"# 4t audit: --sweep-seeds 8 with {sweep_mid:.1f} MiB (one experiment's chunk {graph} "
           f"MiB as a graph, the sweep's {sweep_graph} MiB) refused, 0 launches")
     zero_counts()
-    rc_a, so_a, se_a = cli(["--audit"])
+    rc_a, so_a, se_a = cli_audited(["--audit"])
     audit_counts = counts()
     rc_b, so_b, _ = cli([])
     if rc_a != 0 or rc_b != 0 or so_a != so_b or "# audit clean:" not in se_a:
@@ -2478,6 +2531,70 @@ def preflight_phase(seed: int, dev, kind: str, smi: str, counts, zero_counts) ->
     print(f"# 4t audit: 64 MiB table refused, 0 launches: {over.strip()[:200]}")
     print(f"# 4t audit: the card's budget: {out['audit']['clean']}; records == without "
           f"--audit; launches {audit_counts}")
+
+    # (e) every program the --audit runs examined, traced on the card.
+    t_e = t0 = time.perf_counter()
+    report = auditor.run_audit(list(audited.values()), device=dev)
+    t_trace = time.perf_counter() - t0
+    out["audit_on_card"]["cli_programs"] = {"programs": report.programs,
+                                            "findings": [str(f) for f in report.findings],
+                                            "launches": {k: v["launches"] for k, v in
+                                                         report.stats.items()},
+                                            "seconds": t_trace}
+    if report.findings or len(report.programs) < 5:
+        fail(f"4t (e): the --audit runs' programs traced on the card: {report.programs}, "
+             f"findings {[str(f) for f in report.findings]}")
+    print(f"# 4t (e) the --audit runs' {len(report.programs)} programs "
+          f"({', '.join(report.programs)}) traced on the card in {t_trace:.1f} s: clean")
+    # Three planted defects, each refused by its rule id before any launch.
+    from distributed_active_learning_tpu_torch.parallel import collectives
+    from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, Spread
+    from distributed_active_learning_tpu_torch.runtime import state as state_lib
+
+    count, accuracy = state_lib.labeled_count, loop._accuracy
+
+    def read_back(state):
+        n = count(state)
+        n.item()
+        return n
+
+    def pool_gather(state):
+        m = state.labeled_mask
+        if isinstance(m, Sharded):
+            collectives.owner_gather([r[0] for r in m.blocks], Spread(1, len(m.blocks), 1))
+        return count(state)
+
+    chunk = ["--rounds-per-launch", "4"]
+    planted = (("host-callback-in-fast-path", state_lib, "labeled_count", read_back, chunk),
+               ("f64-aval", loop, "_accuracy",
+                lambda f, x, y: accuracy(f, x, y).double().float(), chunk),
+               ("collective-in-shard-map", state_lib, "labeled_count", pool_gather,
+                ["--mesh-data", "4", "--mesh-model", "2"] + chunk))
+    out["audit_on_card"]["planted"] = {}
+    for rule, module, attr, fn, extra in planted:
+        original = getattr(module, attr)
+        setattr(module, attr, fn)
+        try:
+            zero_counts()
+            rc, so, se = cli(["--audit"] + extra)
+            launched = counts()
+        finally:
+            setattr(module, attr, original)
+        rules_fired = {ln.split()[1] for ln in se.splitlines() if ln.startswith("error ")}
+        if rc == 0 or so.strip() or rule not in rules_fired or any(launched.values()):
+            fail(f"4t (e): --audit with a planted {rule} (rc {rc}, rules {rules_fired}, launches "
+                 f"{launched}) was not refused by it: {se[-600:]}")
+        out["audit_on_card"]["planted"][rule] = sorted(rules_fired)
+        print(f"# 4t (e) --audit refused the planted {rule} (rules {sorted(rules_fired)}), "
+              f"0 launches")
+    findings = lint.lint_paths(lint.default_lint_targets())
+    if findings:
+        fail(f"4t (e): the lint over the port has findings: {[str(f) for f in findings]}")
+    out["audit_on_card"]["lint_findings"] = 0
+    print(f"# 4t (e) lint over {len(lint.default_lint_targets())} files of runtime/, serving/ "
+          "and strategies/: no findings")
+    out["audit_on_card"]["seconds"] = time.perf_counter() - t_e
+    print(f"# 4t (e) traces, refusals and lint: {out['audit_on_card']['seconds']:.1f} s")
 
     # (d) shared memory: the Python mirrors against the C configuration.
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin

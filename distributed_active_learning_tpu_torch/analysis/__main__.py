@@ -1,9 +1,17 @@
 """CLI of the port's pre-flight:
 
+    python -m distributed_active_learning_tpu_torch.analysis [--kinds chunk,serve_chunk] \
+        [--json] [--fail-on error|warn|info] [--no-lint] [--no-audit]
     python -m distributed_active_learning_tpu_torch.analysis --costs|--memory \
         [--kinds chunk,serve_chunk] [--budget-table F] [--json] [--fail-on error]
     python -m distributed_active_learning_tpu_torch.analysis --list|--rules
 
+With no mode it runs the program auditor over the programs
+(``analysis/auditor.py``: each traced on the meta device, the rules of
+``analysis/rules.py``) and the recompile-hazard lint over the port's
+``runtime/``, ``serving/`` and ``strategies/`` (``analysis/lint.py``), and
+exits 1 when a finding reaches ``--fail-on`` (the JAX package's CLI).
+``--rules`` prints the program rules, the lint rules and the memory rules.
 ``--costs`` prints each program's counted FLOPs, bytes and peak footprint
 (``analysis/roofline.py``), ``--memory`` prices each program's footprint and
 its kernels' shared memory against the budget (``analysis/memory.py``;
@@ -27,12 +35,17 @@ def _csv(value):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="distributed_active_learning_tpu_torch.analysis",
-        description="the port's pre-flight: program costs and the memory gate")
+        description="the port's pre-flight: the program audit and lint, program costs and "
+        "the memory gate")
     ap.add_argument("--json", action="store_true", help="machine-readable output")
     ap.add_argument("--kinds", type=_csv, default=None,
                     help="comma-separated program kinds (analysis.programs.KINDS; default all)")
     ap.add_argument("--fail-on", choices=["info", "warn", "error"], default="error",
-                    help="with --memory: exit 1 when a finding is at or above this severity")
+                    help="exit 1 when a finding is at or above this severity (default error)")
+    ap.add_argument("--no-lint", action="store_true",
+                    help="skip the recompile-hazard lint (program audit only)")
+    ap.add_argument("--no-audit", action="store_true",
+                    help="skip the program audit (lint only; nothing is traced)")
     ap.add_argument("--costs", action="store_true",
                     help="count each program's FLOPs and bytes (its kernels at their declared "
                     "work) and price its peak footprint")
@@ -42,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--budget-table", default=None, metavar="PATH",
                     help='JSON budget {"hbm_bytes": N, "smem_bytes": N} in place of the card\'s')
     ap.add_argument("--list", action="store_true", help="list the programs and exit")
-    ap.add_argument("--rules", action="store_true", help="print the memory rules and exit")
+    ap.add_argument("--rules", action="store_true", help="print the rule tables and exit")
     return ap
 
 
@@ -54,6 +67,15 @@ def main(argv=None) -> int:
     from distributed_active_learning_tpu_torch.analysis.report import Report
 
     if args.rules:
+        from distributed_active_learning_tpu_torch.analysis import lint as lint_lib
+        from distributed_active_learning_tpu_torch.analysis import rules as rules_lib
+
+        print("program rules:")
+        for rule_id, severity, desc in rules_lib.rule_table():
+            print(f"  {rule_id:28s} [{severity}] {desc}")
+        print("lint rules:")
+        for rule_id, severity, desc in lint_lib.iter_rule_table():
+            print(f"  {rule_id:28s} [{severity}] {desc}")
         print("memory rules:")
         for rule_id, (severity, desc) in memory_lib.MEMORY_RULES.items():
             print(f"  {rule_id:28s} [{severity}] {desc}")
@@ -87,9 +109,17 @@ def main(argv=None) -> int:
             for f in findings:
                 print(str(f))
         return 1 if Report(findings=list(findings)).gate(args.fail_on) else 0
-    build_parser().print_usage(sys.stderr)
-    print("one of --costs, --memory, --list or --rules", file=sys.stderr)
-    return 2
+    return audit_and_lint(specs, args)
+
+
+def audit_and_lint(specs, args) -> int:
+    """The default mode: the program audit of ``specs`` and the lint, one
+    report, exit 1 at ``--fail-on``."""
+    from distributed_active_learning_tpu_torch.analysis import preflight
+
+    report, _ = preflight(specs, audit=not args.no_audit, lint=not args.no_lint)
+    print(report.to_json() if args.json else report.render_table())
+    return 1 if report.gate(args.fail_on) else 0
 
 
 if __name__ == "__main__":

@@ -32,8 +32,9 @@ shapes (the JAX package's ``specs_for_experiment``: the grid of the run's
 exact cells, the sweep, the scenario round, the mesh at its configured
 shape, LAL with its regressor; :func:`specs_for_experiment` one
 experiment's); :func:`build_registry` the port's default set, at the widths
-``chip_smoke.py`` drives. Costs and memory only: the port has no traced
-program for the JAX package's jaxpr rules.
+``chip_smoke.py`` drives. Each built :class:`ProgramUnit` also carries what
+the program auditor (``analysis/auditor.py``) holds it to: where its carry
+is, whether it returns RoundMetrics, its forest storage and its pool rows.
 """
 
 from __future__ import annotations
@@ -60,10 +61,18 @@ GRAPHED_KINDS = frozenset(("chunk", "sweep", "grid", "neural_chunk", "neural_swe
 
 @dataclasses.dataclass(frozen=True)
 class ProgramUnit:
-    """A built program: ``fn(*args)`` is one launch of it."""
+    """A built program: ``fn(*args)`` is one launch of it. For the
+    auditor: ``carry_arg`` is the argument holding the carry that output 0
+    returns (None: no carry), ``with_metrics`` whether it returns
+    RoundMetrics, ``quantize`` its forest storage, ``pool_rows`` its pool's
+    rows."""
 
     fn: Callable
     args: tuple
+    carry_arg: Optional[int] = None
+    with_metrics: bool = False
+    quantize: Optional[str] = None
+    pool_rows: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +283,9 @@ def forest_program(kind: str, cfg: ExperimentConfig, shapes: ForestShapes,
     active ``cfg.scenario``, and on its mesh under ``cfg.mesh``."""
     from distributed_active_learning_tpu_torch.runtime import loop
 
+    audit = dict(quantize=None if cfg.forest.quantize == "none" else cfg.forest.quantize,
+                 pool_rows=shapes.pool_rows)
+
     def make(device: torch.device) -> ProgramUnit:
         p = _forest_parts(cfg, shapes, device, seed)
         window = cfg.strategy.window_size
@@ -286,9 +298,10 @@ def forest_program(kind: str, cfg: ExperimentConfig, shapes: ForestShapes,
                                        mesh=p.mesh)
             end = torch.full((), np.iinfo(np.int32).max, dtype=torch.int32).to(device)
             return ProgramUnit(chunk.step, (p.codes, p.state, p.aux, p.fit_key, p.test_x,
-                                            p.test_y, end, *tail))
+                                            p.test_y, end, *tail), carry_arg=1,
+                               with_metrics=with_metrics, **audit)
         if kind == "fit":
-            return ProgramUnit(p.fit, (p.codes, p.state, p.fit_key))
+            return ProgramUnit(p.fit, (p.codes, p.state, p.fit_key), **audit)
         forest = loop._mesh_placement(p.mesh)(p.fit(p.codes, p.state, p.fit_key))
         if kind == "round":
             if p.mesh is not None:
@@ -304,7 +317,8 @@ def forest_program(kind: str, cfg: ExperimentConfig, shapes: ForestShapes,
                                               n_classes=shapes.n_classes, fused=cfg.fused_round,
                                               scenario=p.scenario)
             tail = (p.costs,) if p.costs is not None else ()
-            return ProgramUnit(round_fn, (forest, p.state, p.aux, *tail))
+            return ProgramUnit(round_fn, (forest, p.state, p.aux, *tail), carry_arg=1,
+                               with_metrics=with_metrics, **audit)
         if kind == "eval":
             if p.scenario is not None and p.scenario.kind == "drift":
                 from distributed_active_learning_tpu_torch.scenarios.engine import drift_apply
@@ -312,8 +326,8 @@ def forest_program(kind: str, cfg: ExperimentConfig, shapes: ForestShapes,
                 def drifted_accuracy(f, tx, ty, rnd, scn=p.scenario, direction=p.drift_dir):
                     return loop._accuracy(f, drift_apply(scn, tx, rnd, direction=direction), ty)
 
-                return ProgramUnit(drifted_accuracy, (forest, p.test_x, p.test_y, 0))
-            return ProgramUnit(loop._accuracy, (forest, p.test_x, p.test_y))
+                return ProgramUnit(drifted_accuracy, (forest, p.test_x, p.test_y, 0), **audit)
+            return ProgramUnit(loop._accuracy, (forest, p.test_x, p.test_y), **audit)
         raise ValueError(f"unknown forest program kind {kind!r}")
 
     return make
@@ -411,7 +425,9 @@ def grid_program(cfg: ExperimentConfig, datasets: Sequence[ForestShapes],
                              dtype=torch.int32).to(device),
                 torch.stack(edges), torch.tensor(n_valids, dtype=torch.int32).to(device),
                 torch.tensor(test_ns, dtype=torch.int32).to(device), *scn_tail)
-        return ProgramUnit(body.step, args)
+        return ProgramUnit(body.step, args, carry_arg=3, with_metrics=with_metrics,
+                           quantize=None if cfg.forest.quantize == "none" else cfg.forest.quantize,
+                           pool_rows=n_store)
 
     return make
 
@@ -463,7 +479,7 @@ def neural_chunk_program(shapes: NeuralShapes, seed: int = 0, lanes: int = 0) ->
                 learner, strategy, shapes.window, shapes.rounds_per_launch, label_cap=n,
                 n_experiments=lanes, n_classes=shapes.n_classes)
             return ProgramUnit(body.step, (pool_x, carry, oracle_y, nets, test_x, test_y,
-                                           end.expand(lanes).clone()))
+                                           end.expand(lanes).clone()), carry_arg=1, pool_rows=n)
         init_net = learner.init(_key(device, seed))
         carry = neural_loop.NeuralCarry(
             labeled_mask=_start_mask(n, shapes.window, device, gen), key=_key(device, seed + 1),
@@ -471,7 +487,8 @@ def neural_chunk_program(shapes: NeuralShapes, seed: int = 0, lanes: int = 0) ->
         body = neural_loop.make_neural_chunk_fn(
             learner, strategy, shapes.window, shapes.rounds_per_launch, label_cap=n,
             n_classes=shapes.n_classes)
-        return ProgramUnit(body.step, (pool_x, carry, oracle_y, init_net, test_x, test_y, end))
+        return ProgramUnit(body.step, (pool_x, carry, oracle_y, init_net, test_x, test_y, end),
+                           carry_arg=1, pool_rows=n)
 
     return make
 
@@ -496,12 +513,12 @@ def serve_program(kind: str, cfg: ExperimentConfig, serve: ServeConfig, capacity
             forest = p.fit(p.codes, p.state, p.fit_key)
             queries = _draw((serve.score_width, features), torch.float32, device,
                             np.random.default_rng(seed + 2))
-            return ProgramUnit(slab_lib.score_body, (forest, queries))
+            return ProgramUnit(slab_lib.score_body, (forest, queries), pool_rows=capacity)
         chunk = loop.make_chunk_fn(p.strategy, cfg.strategy.window_size, serve.refit_rounds,
                                    p.fit, label_cap=capacity, with_metrics=True)
         end = torch.full((), np.iinfo(np.int32).max, dtype=torch.int32).to(device)
         return ProgramUnit(chunk.step, (p.codes, p.state, p.aux, p.fit_key, p.test_x, p.test_y,
-                                        end))
+                                        end), carry_arg=1, with_metrics=True, pool_rows=capacity)
 
     return make
 

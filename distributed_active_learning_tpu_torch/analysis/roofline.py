@@ -235,8 +235,18 @@ def op_cost(func, args, kwargs, out) -> Tuple[float, float]:
     return flops, float(reads + writes)
 
 
-def _cost_mode(tally):
-    """The counting dispatch mode over this thread's kernel ``tally``."""
+def _call(func, args, kwargs):
+    return func(*args, **kwargs)
+
+
+def cost_mode(tally, on_op=None, run=_call):
+    """The counting dispatch mode over this thread's kernel ``tally``: the
+    one walk of a program's operations that the cost, and the program
+    auditor's trace (``analysis/auditor.py``), read. ``run(func, args,
+    kwargs)`` computes each operation (the auditor's stands in for the
+    meta device's refusals); ``on_op(func, args, kwargs, out, cost)`` sees
+    each one after it ran, ``cost`` its ``(flops, bytes)``, None inside a
+    kernel's wrapper (not the program's)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class CostMode(TorchDispatchMode):
@@ -248,12 +258,15 @@ def _cost_mode(tally):
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            out = meta_layout(func, args, func(*args, **kwargs))
+            out = meta_layout(func, args, run(func, args, kwargs))
+            cost = None
             if tally.inside == 0:
-                f, b = op_cost(func, args, kwargs, out)
-                self.flops += f
-                self.bytes += b
+                cost = op_cost(func, args, kwargs, out)
+                self.flops += cost[0]
+                self.bytes += cost[1]
                 self.ops += 1
+            if on_op is not None:
+                on_op(func, args, kwargs, out, cost)
             return out
 
     return CostMode()
@@ -270,7 +283,7 @@ def program_cost(fn, *args) -> Dict[str, Any]:
     from distributed_active_learning_tpu_torch import kernels
 
     tally = kernels.WorkTally()
-    mode = _cost_mode(tally)
+    mode = cost_mode(tally)
     with kernels.work_tally(tally), mode:
         fn(*args)
     flops = mode.flops + sum(k["flops"] for k in tally.kernels.values())

@@ -1961,15 +1961,19 @@ def _device_us(event, prefix: str = "") -> float:
 
 
 def _audit(args, dev) -> dict:
-    """``--audit``: the memory pre-flight (``analysis/memory.py``) of the
-    programs the selected modes launch, each family at its own sizes (the
-    round's chunk at the bench pool, the sweep's at ``--sweep-pool``, the
-    neural chunk at ``--neural-pool``, the service's at ``--serve-pool``),
-    priced on the meta device before any mode runs. An error finding
-    raises (the line still prints, carrying the error); the verdict and the
-    ``memory`` section ride the line under ``audit``."""
+    """``--audit``: the pre-flight of ``run.py --audit`` over the programs
+    the selected modes launch, each family at its own sizes (the round's
+    chunk at the bench pool, the sweep's at ``--sweep-pool``, the neural
+    chunk at ``--neural-pool``, the service's at ``--serve-pool``), on the
+    meta device before any mode runs: the program auditor
+    (``analysis/auditor.py``), the recompile-hazard lint
+    (``analysis/lint.py``) and the memory pre-flight
+    (``analysis/memory.py``). An error finding raises (the line still
+    prints, carrying the error); the verdict, its counts and the ``memory``
+    section ride the line under ``audit``."""
     import dataclasses as dc
 
+    from distributed_active_learning_tpu_torch import analysis
     from distributed_active_learning_tpu_torch.analysis import memory as memory_lib
     from distributed_active_learning_tpu_torch.analysis import programs as programs_lib
 
@@ -2000,15 +2004,15 @@ def _audit(args, dev) -> dict:
                     kind, programs_lib.serve_config(4), programs_lib.SERVE_CONFIG,
                     -(-args.serve_pool // 1024) * 1024, args.features, 2048)))
     budget = memory_lib.budget_from_env_or()
-    table, findings = memory_lib.memory_table(specs, budget)
-    memory = memory_lib.memory_section(table, findings, budget)
-    if any(f.severity == "error" for f in findings):
-        for f in findings:
-            print(str(f), file=sys.stderr)
-        raise RuntimeError(f"memory budget gate failed before benching: {memory['counts']} "
-                           "(findings on stderr; reproduce with `python -m "
-                           "distributed_active_learning_tpu_torch.analysis --memory`)")
-    return {"programs_audited": len(specs), "counts": memory["counts"], "memory": memory}
+    report, table = analysis.preflight(specs, budget)
+    memory = memory_lib.memory_section(
+        table, [f for f in report.findings if f.rule in memory_lib.MEMORY_RULES], budget)
+    if report.gate("error"):
+        print(report.render_table(), file=sys.stderr)
+        raise RuntimeError(f"pre-flight failed before benching: {report.counts()} (findings "
+                           "on stderr; reproduce with `python -m "
+                           "distributed_active_learning_tpu_torch.analysis` and `--memory`)")
+    return {"programs_audited": len(specs), "counts": report.counts(), "memory": memory}
 
 
 def _compare_to(path: str, payload: dict) -> dict:

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -227,12 +228,19 @@ class WorkTally:
     "bytes"}``, the distinct launch shapes a wrapper gave (``launches``:
     ``{"kernel", **shape}``, for the shared-memory pre-flight); ``inside``
     > 0 while a wrapper's body runs (its operations are the kernel's, not
-    the program's)."""
+    the program's). A tally made with ``record`` (the program auditor's
+    trace, ``analysis/auditor.py``) also keeps every declaration in order
+    (``log``) and every outermost collective call (``collectives``, from
+    :func:`collective_work`); ``in_collective`` > 0 while one runs."""
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         self.kernels: Dict[str, dict] = {}
         self.launches: list = []
         self.inside = 0
+        self.record = record
+        self.log: list = []
+        self.collectives: list = []
+        self.in_collective = 0
 
     def declare(self, name: str, flops: float, nbytes: float, shape=None) -> None:
         row = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0, "bytes": 0.0})
@@ -243,6 +251,9 @@ class WorkTally:
             launch = {"kernel": name, **shape}
             if launch not in self.launches:
                 self.launches.append(launch)
+        if self.record:
+            self.log.append({"kernel": name, "flops": float(flops), "bytes": float(nbytes),
+                             **(shape or {})})
 
 
 @contextlib.contextmanager
@@ -289,6 +300,72 @@ def kernel_work(name: str, cost, shape=None):
     if tally is None:
         return _NO_WORK
     return _Declared(tally, name, cost, shape)
+
+
+class _Collective:
+    """One collective call under a recording tally (:func:`collective_work`)."""
+
+    __slots__ = ("tally", "entry")
+
+    def __init__(self, tally: WorkTally, entry):
+        self.tally, self.entry = tally, entry
+
+    def __enter__(self):
+        if self.tally.in_collective == 0:
+            self.tally.collectives.append(self.entry())
+        self.tally.in_collective += 1
+
+    def __exit__(self, *exc):
+        self.tally.in_collective -= 1
+        return False
+
+
+def caller(skip) -> str:
+    """``file:line (function)`` of the innermost calling frame whose file is
+    not under one of the paths ``skip`` (nor Python's own ``<...>``), the
+    port's files relative to the checkout."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = frame.f_code.co_filename
+        if not path.startswith(skip) and not path.startswith("<"):
+            rel = (os.path.relpath(path, os.path.dirname(_HERE)) if path.startswith(_HERE)
+                   else os.path.basename(path))
+            return f"{rel}:{frame.f_lineno} ({frame.f_code.co_name})"
+        frame = frame.f_back
+    return "<unknown>"
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+#: The collectives' own files, which :func:`collective_work` names no call in.
+_COLLECTIVE_FILES = tuple(os.path.join(_HERE, *f) for f in (
+    ("kernels.py",), ("parallel", "collectives.py"), ("ops", "ring_topk.py")))
+
+
+def collective_work(name: str, kind: str, parts):
+    """The body of a collective over the mesh's shards (``parallel/
+    collectives.py``, a ring hop of ``ops/ring_topk.py``): ``parts`` are
+    the per-shard operands (tensors, or tuples of them). Under a recording
+    tally the outermost call is logged as ``{"name", "kind", "shards",
+    "operands", "shard_bytes", "location"}``: ``kind`` is ``"reduce"`` (a
+    sum in shard order, the port's ``psum``), ``"gather"`` (every shard's
+    operand to every shard, ``all_gather``), ``"exchange"`` (``all_to_all``)
+    or ``"ring"`` (one hop of windows, ``ppermute``); ``operands`` are one
+    shard's ``(dtype, shape)`` and ``shard_bytes`` their bytes, which is
+    what crosses each link. Otherwise the context does nothing."""
+    tally = getattr(_counting, "work", None)
+    if tally is None or not tally.record:
+        return _NO_WORK
+    where = caller(_COLLECTIVE_FILES)
+
+    def entry():
+        first = parts[0] if len(parts) else ()
+        ts = [first] if hasattr(first, "dtype") else [t for t in first if hasattr(t, "dtype")]
+        return {"name": name, "kind": kind, "shards": len(parts),
+                "operands": [(str(t.dtype).replace("torch.", ""), tuple(t.shape)) for t in ts],
+                "shard_bytes": float(sum(t.numel() * t.element_size() for t in ts)),
+                "location": where}
+
+    return _Collective(tally, entry)
 
 
 def check(name: str, err: int) -> None:

@@ -594,15 +594,17 @@ class NeuralLearner:
         for t in range(self.train_steps):
             if ev is not None:
                 ev[t][0].record()
-            idx = threefry.categorical(k_idx[t], logits_mask, self.batch_size).long()
-            xb, yb = take_rows(x, idx), y[idx].long()
+            idx = threefry.categorical(k_idx[t], logits_mask, self.batch_size)
+            xb, yb = take_rows(x, idx), y[idx]
             if ev is not None:
                 ev[t][1].record()
             rng = DropoutRng({p: k[t] for p, k in drop_keys.items()})
             leaves = [params[k].requires_grad_(True) for k in names]
             with torch.enable_grad():
                 logits = self._forward(params, xb, rng, self.batch_size)
-                loss = F.cross_entropy(logits, yb)
+                # F.cross_entropy with its int64 targets read as a gather:
+                # the same gradient, from the labels' own int32.
+                loss = -torch.gather(F.log_softmax(logits, dim=-1), 1, yb[:, None]).mean()
                 grads = torch.autograd.grad(loss, leaves)
             if ev is not None:
                 ev[t][2].record()

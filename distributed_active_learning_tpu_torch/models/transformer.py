@@ -124,7 +124,7 @@ class TransformerClassifier(FlaxModule):
         return F.linear(out.reshape(B, T, d), p[f"{prefix}.Dense_1.weight"], p[f"{prefix}.Dense_1.bias"])
 
     def apply(self, params, ids, ctx: _Ctx, return_features: bool = False):
-        ids = ids.to(torch.int64)
+        ids = ids.to(torch.int32)
         B, T = ids.shape
         if T > self.max_len:
             raise ValueError(f"sequence length {T} exceeds max_len={self.max_len}")

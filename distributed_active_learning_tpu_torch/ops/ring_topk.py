@@ -151,8 +151,8 @@ def ring_step(src: Sequence[Window], dst: Sequence[Window]) -> None:
     the CPU: the plain copies."""
     if len(src) != len(dst) or not src:
         raise ValueError("a ring step needs one destination per source window")
-    with kernels.kernel_work("ring_hop",
-                            lambda: costs.ring_step([v.shape[0] for v, _ in src])):
+    with kernels.collective_work("ring_hop", "ring", src), kernels.kernel_work(
+            "ring_hop", lambda: costs.ring_step([v.shape[0] for v, _ in src])):
         _ring_step(src, dst)
 
 
@@ -429,7 +429,8 @@ def _ring_topk_processes(windows: Sequence[Window], k: int, rings: Rings,
     for step in range(L - 1):
         parity = step % 2
         nxt = [bufs[parity][i] if r == rank else None for i, r in enumerate(from_rank)]
-        with kernels.kernel_work("ring_hop", lambda: costs.ring_step([k] * len(mine))):
+        with kernels.collective_work("ring_hop", "ring", cur), kernels.kernel_work(
+                "ring_hop", lambda: costs.ring_step([k] * len(mine))):
             if dev.type == "meta":  # a priced program: the buffers exist, nothing moves
                 nxt = list(bufs[parity])
             elif on_card:

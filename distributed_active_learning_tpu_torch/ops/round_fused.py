@@ -381,7 +381,7 @@ def _sharded_score_select(f, x, selectable, strategy_name: str, k: int):
     table = score_table(f.n_trees, strategy_name, f.mesh.first)
     windows = {}
     for s, votes in zip(sel.local_ids, blocks):
-        work = torch.where(sel.block(s), table.to(votes.device)[votes.long()], NEG_INF)
+        work = torch.where(sel.block(s), table.to(votes.device).index_select(0, votes), NEG_INF)
         loc_v, loc_i = stable_top_k(work, kk)
         glob_i = (loc_i + s * n_local).to(torch.int32)
         windows[s] = ring_topk.pad_window(loc_v, glob_i, k)

@@ -64,7 +64,9 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     the squares summed in the JAX package's order (:func:`_sum_squares`),
     the root taken in float64 and rounded once (correctly rounded, as
     XLA's; PyTorch's float32 root on the CPU is not everywhere)."""
-    norm = torch.sqrt(_sum_squares(x).double()).float()[..., None]
+    from distributed_active_learning_tpu_torch.ops.xla_f32 import sqrt_f32
+
+    norm = sqrt_f32(_sum_squares(x))[..., None]
     return x / torch.clamp_min(norm, eps)
 
 

@@ -55,16 +55,22 @@ class PackedForest:
 def predict_leaves(forest: PackedForest, x: torch.Tensor) -> torch.Tensor:
     """Per-tree leaf values ``[n, T]``: ``max_depth`` gather steps from the
     roots (the JAX package's ``_traverse_one``, over every row at once)."""
-    n, T = x.shape[0], forest.n_trees
-    tree = torch.arange(T, device=x.device)[None, :]
-    feature = forest.feature.long()
-    nodes = torch.zeros(n, T, dtype=torch.long, device=x.device)
+    n, T, N = x.shape[0], forest.n_trees, forest.n_nodes
+    # The node ids keep the tables' own dtype, and each level reads the
+    # flattened tables through one int64 index: a broadcast (tree, node)
+    # pair would be expanded, and an int32 index converted to int64, in
+    # hidden [n, T] copies on the card.
+    base = (torch.arange(T, device=x.device) * N)[None, :]
+    feature, threshold = forest.feature.reshape(-1), forest.threshold.reshape(-1)
+    left, right = forest.left.reshape(-1), forest.right.reshape(-1)
+    nodes = torch.zeros(n, T, dtype=forest.left.dtype, device=x.device)
     for _ in range(forest.max_depth):
-        feat = feature[tree, nodes]
-        go_left = torch.gather(x, 1, feat.clamp_min(0)) <= forest.threshold[tree, nodes]
-        nxt = torch.where(go_left, forest.left[tree, nodes], forest.right[tree, nodes]).long()
+        at = base + nodes
+        feat = feature[at]
+        go_left = torch.gather(x, 1, feat.clamp_min(0)) <= threshold[at]
+        nxt = torch.where(go_left, left[at], right[at])
         nodes = torch.where(feat == LEAF, nodes, nxt)
-    return forest.value[tree, nodes]
+    return forest.value.reshape(T * N)[base + nodes]
 
 
 def predict_proba(forest: PackedForest, x: torch.Tensor) -> torch.Tensor:

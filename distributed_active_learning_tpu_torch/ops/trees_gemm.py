@@ -108,7 +108,7 @@ def _predict_chunk(gf: GemmForest, x: torch.Tensor) -> torch.Tensor:
     from distributed_active_learning_tpu_torch.models.forest import dequantize_leaf_values
 
     T, I = gf.feat_ids.shape
-    feat_vals = x[:, gf.feat_ids.reshape(-1).long()]  # [chunk, T*I]
+    feat_vals = x.index_select(1, gf.feat_ids.reshape(-1))  # [chunk, T*I]
     c = (feat_vals <= gf.thresholds.reshape(-1).to(torch.float32)).to(torch.float32)
     c = c.reshape(-1, T, I)
     s = torch.einsum("nti,til->ntl", c, gf.path)

@@ -149,8 +149,6 @@ def fit_forest_device(
     if n_bins > 256:
         raise ValueError(f"fit_forest_device supports n_bins <= 256, got {n_bins}")
     n_feat_sub = max(int(np.ceil(np.sqrt(d))), 1)
-    codes = codes.long()
-    y = y.long()
 
     n_chunks = -(-n_trees // tree_chunk)
     Tc = tree_chunk
@@ -212,7 +210,7 @@ def fit_forest_device(
         f_row = torch.gather(bf, 1, node)
         b_row = torch.gather(bb, 1, node)
         code_at = codes[row_ids[None, :], f_row]
-        node = 2 * node + (code_at > b_row).long()
+        node = 2 * node + (code_at > b_row)
 
     feature = torch.cat(feat_out, dim=1).to(torch.int32)
     threshold = torch.cat(thr_out, dim=1)
@@ -407,7 +405,7 @@ def gather_fit_window(
     weight 0."""
     n = codes.shape[0]
     dev = codes.device
-    pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1
+    pos = torch.cumsum(mask, dim=0, dtype=torch.int32) - 1
     n_labeled = pos[-1] + 1
     slot = torch.where(mask & (pos < budget), pos, torch.full_like(pos, budget))
     idx = torch.zeros(budget + 1, dtype=torch.int64, device=dev)
@@ -454,7 +452,7 @@ def gather_fit_window_sharded(codes, y, masks, budget: int):
     for s in rows:
         m, cnt = masks[s - codes.first], counts[s - codes.first]
         cb, yb = codes.block(s), y.block(s)
-        pos = torch.cumsum(m.to(torch.int64), dim=0) - 1 + offset.to(m.device)
+        pos = torch.cumsum(m, dim=0, dtype=torch.int32) - 1 + offset.to(m.device)
         slot = torch.where(m & (pos < budget), pos, torch.full_like(pos, budget))
         idx = torch.full((budget + 1,), -1, dtype=torch.int64, device=m.device)
         idx.scatter_(0, slot, torch.arange(m.shape[0], device=m.device))

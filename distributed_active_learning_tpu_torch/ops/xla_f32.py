@@ -240,7 +240,7 @@ def _polyval_f32(coeffs, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
     """IEEE float32 square root (taken in float64 and rounded once: exact;
     PyTorch's vectorized float32 CPU root is not correctly rounded
     everywhere)."""
@@ -263,7 +263,7 @@ def ndtri_f32(p: torch.Tensor) -> torch.Tensor:
     ww = w * w
     big = w + (w * ww) * (_polyval_f32(_NDTRI_P0, ww) / _polyval_f32(_NDTRI_Q0, ww))
     big = big * -f32(np.sqrt(2.0 * np.pi))
-    z = _sqrt_f32(-2.0 * log_f32(mcp))
+    z = sqrt_f32(-2.0 * log_f32(mcp))
     first = z - log_f32(z) / z
     rz = 1.0 / z
     small = first - _polyval_f32(_NDTRI_P2, rz) / _polyval_f32(_NDTRI_Q2, rz) / z
@@ -298,8 +298,8 @@ def cholesky_f32(a: torch.Tensor) -> torch.Tensor:
     ``torch.linalg.cholesky``, which agrees to ``CHOLESKY_RTOL``."""
     if a.shape[-1] != 2:
         return torch.linalg.cholesky(a)
-    l00 = _sqrt_f32(a[..., 0, 0])
+    l00 = sqrt_f32(a[..., 0, 0])
     l10 = a[..., 1, 0] * (1.0 / l00)
-    l11 = _sqrt_f32(a[..., 1, 1] - l10 * l10)
+    l11 = sqrt_f32(a[..., 1, 1] - l10 * l10)
     zero = torch.zeros_like(l00)
     return torch.stack([torch.stack([l00, zero], -1), torch.stack([l10, l11], -1)], -2)

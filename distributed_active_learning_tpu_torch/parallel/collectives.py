@@ -20,6 +20,11 @@ the port holds masses and means to XLA's order. :func:`row_accumulate` is
 the sum over ``model`` of one row's cells, across the row's ranks; a rank
 whose cells cross a row boundary holds two rows and calls it for each, in
 row order. Every rank must call these at the same point.
+
+Each collective declares itself to the program auditor's trace
+(``kernels.collective_work``: its name, kind and one shard's operands, the
+bytes that cross each link); outside a trace that costs one thread-local
+read.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+
+from distributed_active_learning_tpu_torch import kernels
 
 
 def owner_gather(rows: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
@@ -37,12 +44,13 @@ def owner_gather(rows: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
     one all-gather over the job, so every row counts once. COLLECTIVE."""
     from distributed_active_learning_tpu_torch.parallel.multihost import all_gather
 
-    dev = rows[0].device
-    first = spread.rows.start
-    mine = [rows[s - first].to(dev) for s in spread.owned(spread.rank)]
-    stacked = torch.stack(mine) if mine else rows[0].to(dev)[None][:0]
-    counts = [len(spread.owned(r)) for r in range(spread.procs)]
-    return list(torch.cat(all_gather(stacked, counts=counts)).unbind(0))
+    with kernels.collective_work("owner_gather", "gather", rows):
+        dev = rows[0].device
+        first = spread.rows.start
+        mine = [rows[s - first].to(dev) for s in spread.owned(spread.rank)]
+        stacked = torch.stack(mine) if mine else rows[0].to(dev)[None][:0]
+        counts = [len(spread.owned(r)) for r in range(spread.procs)]
+        return list(torch.cat(all_gather(stacked, counts=counts)).unbind(0))
 
 
 def _all_shards(local: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
@@ -57,12 +65,13 @@ def _all_shards(local: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
 def vector_accumulate(local: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
     """Elementwise sum of the per-shard vectors of one axis, added in shard
     order on the first shard's device (``lax.psum`` over the axis)."""
-    shards = _all_shards(local, spread)
-    dev = local[0].device
-    acc = shards[0].to(dev)
-    for v in shards[1:]:
-        acc = acc + v.to(dev)
-    return acc
+    with kernels.collective_work("vector_accumulate", "reduce", local):
+        shards = _all_shards(local, spread)
+        dev = local[0].device
+        acc = shards[0].to(dev)
+        for v in shards[1:]:
+            acc = acc + v.to(dev)
+        return acc
 
 
 def row_accumulate(cells: Sequence[torch.Tensor], spread=None, row: int = 0) -> torch.Tensor:
@@ -75,21 +84,25 @@ def row_accumulate(cells: Sequence[torch.Tensor], spread=None, row: int = 0) -> 
     so every rank of the
     row gets the same bits. COLLECTIVE over the row group then: a rank that
     holds two rows calls this for each, in row order, as every rank does."""
-    if spread is not None and spread.procs > 1 and len(spread.holders(row)) > 1:
-        from distributed_active_learning_tpu_torch.parallel import multihost
+    with kernels.collective_work("row_accumulate", "reduce", cells):
+        if spread is not None and spread.procs > 1 and len(spread.holders(row)) > 1:
+            from distributed_active_learning_tpu_torch.parallel import multihost
 
-        holders = tuple(spread.holders(row))
-        dev = cells[0].device
-        parts = multihost.all_gather(torch.stack([c.to(dev) for c in cells]), ranks=holders,
-                                     counts=[len(spread.cols_of(r, row)) for r in holders])
-        cells = list(torch.cat(parts).unbind(0))
-    return vector_accumulate(cells)
+            holders = tuple(spread.holders(row))
+            dev = cells[0].device
+            parts = multihost.all_gather(torch.stack([c.to(dev) for c in cells]),
+                                         ranks=holders,
+                                         counts=[len(spread.cols_of(r, row)) for r in holders])
+            cells = list(torch.cat(parts).unbind(0))
+        return vector_accumulate(cells)
 
 
 def global_count(local_masks: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
     """Global True-count of per-shard boolean masks: one int32 per shard
     moves to the first shard's device, never the mask."""
-    return vector_accumulate([m.sum(dtype=torch.int32) for m in local_masks], spread)
+    counts = [m.sum(dtype=torch.int32) for m in local_masks]
+    with kernels.collective_work("global_count", "reduce", counts):
+        return vector_accumulate(counts, spread)
 
 
 def gather_fills(local_fills: Sequence[torch.Tensor], spread=None) -> torch.Tensor:
@@ -98,7 +111,8 @@ def gather_fills(local_fills: Sequence[torch.Tensor], spread=None) -> torch.Tens
     planner's only global input."""
     dev = local_fills[0].device
     local = [f.reshape(()).to(dev, torch.int32) for f in local_fills]
-    return torch.stack(_all_shards(local, spread))
+    with kernels.collective_work("gather_fills", "gather", local):
+        return torch.stack(_all_shards(local, spread))
 
 
 def exchange_blocks(blocks: Sequence[torch.Tensor], spread=None) -> List[torch.Tensor]:
@@ -110,6 +124,11 @@ def exchange_blocks(blocks: Sequence[torch.Tensor], spread=None) -> List[torch.T
     across cards each slot is a peer copy to the receiver's device. Over
     processes each rank passes its own shards' blocks and gets its own
     shards' receipts (every block is all-gathered: window-sized)."""
+    with kernels.collective_work("exchange_blocks", "exchange", blocks):
+        return _exchange_blocks(blocks, spread)
+
+
+def _exchange_blocks(blocks: Sequence[torch.Tensor], spread) -> List[torch.Tensor]:
     shards = _all_shards(blocks, spread)
     n = len(shards)
     for b in shards:

@@ -32,12 +32,17 @@ chunk's counted FLOPs and bytes (``analysis/roofline.py``) joined with its
 steady launch seconds. ``--budget N`` stops at N labels, ``--json`` prints
 the records as JSON lines, ``--list`` the datasets and strategies.
 
-``--audit`` is the memory pre-flight (``analysis/memory.py``): before any
-kernel launch the programs this run launches are priced on the meta device
-at the data's shapes, their peak footprint against the card's memory (or
+``--audit`` is the pre-flight, before any kernel launch, in the JAX
+package's order: the program auditor traces the programs this run launches
+on the meta device at the data's shapes (``analysis/auditor.py``, the rules
+of ``analysis/rules.py``: host syncs, transfers, 64-bit leaks, carry drift,
+collectives), the recompile-hazard lint reads the port's driver code
+(``analysis/lint.py``), and the memory pre-flight (``analysis/memory.py``)
+prices the same programs' peak footprint against the card's memory (or
 ``--budget-table``'s, or ``DAL_MEMORY_BUDGET``'s) and their kernels' shared
-memory a block against the card's; an error finding refuses the run with
-the findings printed, a clean one prints ``# audit clean: ...``.
+memory a block against the card's; an error finding of any of the three
+refuses the run with the findings printed, a clean one prints ``# audit
+clean: ...``.
 
 Sweeps and grids (``runtime/sweep.py``): ``--sweep-seeds N`` runs seeds
 ``--seed`` .. ``--seed + N - 1`` as one batched launch stream (each seed's
@@ -241,9 +246,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     ap.add_argument(
         "--audit", action="store_true",
-        help="price the programs this run launches BEFORE running them (analysis/memory.py, on "
-        "the meta device at the data's shapes): peak device memory against the card's (or "
-        "--budget-table's) and the kernels' shared memory a block; refuse on an error finding",
+        help="audit the programs this run launches BEFORE running them (on the meta device at "
+        "the data's shapes): the program rules (analysis/auditor.py), the recompile-hazard "
+        "lint (analysis/lint.py), then peak device memory against the card's (or "
+        "--budget-table's) and the kernels' shared memory a block (analysis/memory.py); "
+        "refuse on an error finding",
     )
     ap.add_argument(
         "--budget-table", default=None, metavar="PATH",
@@ -628,10 +635,12 @@ def _scenarios(ap, args):
 
 def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool, strategies=None,
                   datasets=None, scenarios=None):
-    """``--audit``: price the program this run launches on the meta device
-    at the data's shapes (``analysis/memory.py``) against the budget, and
-    refuse to run on an error finding, the findings printed; launches
-    nothing on the card. The program is the run's own
+    """``--audit``: trace the program this run launches on the meta device
+    at the data's shapes against the program rules (``analysis/auditor.py``),
+    lint the driver code (``analysis/lint.py``), price the same program
+    (``analysis/memory.py``) against the budget, and refuse to run on an
+    error finding of any of them, the findings printed; launches nothing on
+    the card. The program is the run's own
     (``analysis.programs.specs_for_run``): the grid chunk of its exact
     cells, the batched seed sweep, the neural sweep's lanes, the scenario
     round, the mesh at its configured shape (this rank's cells over
@@ -640,9 +649,9 @@ def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool, str
     the run), else None."""
     import numpy as np
 
+    from distributed_active_learning_tpu_torch import analysis
     from distributed_active_learning_tpu_torch.analysis import memory as memory_lib
     from distributed_active_learning_tpu_torch.analysis import programs as programs_lib
-    from distributed_active_learning_tpu_torch.analysis.report import Report
     from distributed_active_learning_tpu_torch.data.datasets import get_dataset
 
     try:
@@ -674,12 +683,11 @@ def _audit_or_die(args, cfg: ExperimentConfig, neural: bool, use_grid: bool, str
         specs = programs_lib.specs_for_run(
             cfg, shapes, strategies=strategies, n_seeds=args.sweep_seeds,
             scenarios=scenarios, grid=use_grid, with_metrics=bool(args.metrics_out))
-    table, findings = memory_lib.memory_table(specs, budget)
-    report = Report(findings=list(findings), programs=[s.name for s in specs])
+    report, table = analysis.preflight(specs, budget)
     if report.findings:
         print(report.render_table(), file=sys.stderr)
     if report.gate("error"):
-        raise SystemExit("audit failed: error-severity findings in the priced programs (see "
+        raise SystemExit("audit failed: error-severity findings in the audited programs (see "
                          "above); fix them or re-run without --audit")
     if not args.quiet:
         peak = max((max(e.get("peak_hbm_bytes", 0), e.get("graph_hbm_bytes", 0))

@@ -529,7 +529,7 @@ class RoundStream:
     def _deliver(self, values, event=None) -> None:
         try:
             if event is not None:
-                event.synchronize()
+                event.synchronize()  # audit: ok[DAL101] (the streamer waits for its copy)
             r, nl, acc, act = (v.item() for v in values)
             self._cb(r, nl, acc, act)
         except BaseException as e:  # noqa: BLE001 (re-raised at the next touchdown)
@@ -580,9 +580,9 @@ class RoundStream:
         with self._cond:
             self._closed = True
             self._cond.notify_all()
-        if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join()
 
 
 def make_chunk_fn(
@@ -977,7 +977,7 @@ class GraphedChunk:
             static_args[i] = buf
         self._const_ptrs = self._consts(args)
         self._carry_ptrs = _carry_tensor_ptrs(carry, self._carry_fields)
-        side.synchronize()  # the warm-up, on this thread only
+        side.synchronize()  # audit: ok[DAL101] (the warm-up, on this thread only)
 
         def body():
             out, y = self._fn.step(*static_args)

@@ -542,7 +542,7 @@ def run_neural_experiment(cfg: NeuralExperimentConfig, learner: NeuralLearner, t
 
 def _sync(dev) -> None:
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.synchronize(dev)  # audit: ok[DAL101] (phase timing)
 
 
 def _run_neural_rounds(cfg, learner, strat, state, key, net_state, init_net_state, pool_x,

@@ -125,7 +125,7 @@ class HostCopy:
         """Block until the copies have landed (on their event, not on the
         device) and return the host-side tree."""
         if self._event is not None:
-            self._event.synchronize()
+            self._event.synchronize()  # audit: ok[DAL101] (the wait is the point)
             self._event = None
         return self._tree
 

@@ -195,10 +195,10 @@ def _reveal_rows(mask: torch.Tensor, picked_idx: torch.Tensor, base: int = 0) ->
     """``mask`` holds global rows ``[base, base + len(mask))``: set the picked
     ones, drop the rest."""
     n = mask.shape[0]
-    local = picked_idx.to(mask.device).long() - base
+    local = picked_idx.to(mask.device) - base
     keep = (local >= 0) & (local < n)
     ext = torch.cat([mask, mask.new_zeros(1)])
-    ext.index_fill_(0, torch.where(keep, local, n), True)
+    ext.scatter_(0, torch.where(keep, local, n), True)
     return ext[:n]
 
 
@@ -246,7 +246,7 @@ def reveal_masked(state: PoolState, picked_idx: torch.Tensor, keep: torch.Tensor
         new = mask.with_blocks((reveal_masked_local(mask.block(s), picked_idx, keep, s, n_local),)
                                for s in mask.local_ids)
     else:
-        new = _reveal_rows(mask, torch.where(keep, picked_idx.to(torch.int64), -1))
+        new = _reveal_rows(mask, torch.where(keep, picked_idx, -1))
     return state.replace(labeled_mask=new, round=state.round + 1)
 
 
@@ -258,7 +258,7 @@ def reveal_masked_local(mask_block: torch.Tensor, picked_idx: torch.Tensor, keep
     written at their local positions, the rest write nothing. ``keep``
     already holds the abstain draw (:func:`reveal_masked` makes it once, the
     window-sized draw of the replicated round key)."""
-    dropped = torch.where(keep, picked_idx.to(torch.int64), -1)
+    dropped = torch.where(keep, picked_idx, -1)
     return _reveal_rows(mask_block, dropped, shard_index * rows)
 
 

@@ -154,7 +154,7 @@ def _round_metrics(state, picked, picked_vals, scores, higher_is_better: bool, n
     score_mean = row_sum(torch.where(finite, picked_vals, 0.0)[None])[0] / n_finite.to(torch.float32)
     # Margin to the best unpicked candidate: unlabeled real rows minus the
     # window just picked.
-    remaining = torch.index_fill(~state.labeled_mask, 0, picked.long(), False) & valid
+    remaining = (~state.labeled_mask).scatter(0, picked, False) & valid
     if higher_is_better:
         best_rest = torch.where(remaining, scores, -inf).max()
         margin = lo - best_rest
@@ -185,7 +185,7 @@ def _round_metrics(state, picked, picked_vals, scores, higher_is_better: bool, n
     # A one-hot sum into a fixed [n_classes] buffer (no bincount: its length
     # would depend on the data); sentinel picks count nothing.
     classes = torch.arange(n_classes, device=picked.device, dtype=torch.int32)
-    one_hot = (state.oracle_y[picked.long()][:, None] == classes).to(torch.int32)
+    one_hot = (state.oracle_y[picked][:, None] == classes).to(torch.int32)
     hist = (one_hot * finite[:, None].to(torch.int32)).sum(dim=0, dtype=torch.int32)
     labeled_frac = per_row(state_lib.labeled_count(state).to(torch.float32))
     f32 = torch.float32

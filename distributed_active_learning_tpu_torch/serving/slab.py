@@ -264,7 +264,7 @@ class GraphedScore:
         from distributed_active_learning_tpu_torch.runtime.loop import capture_thread_local
 
         score_body(self._forest, self._q)  # warm-up: per-stream library state
-        torch.cuda.current_stream(self._q.device).synchronize()
+        torch.cuda.current_stream(self._q.device).synchronize()  # audit: ok[DAL101] (pre-capture)
         _forget_heaps(self._forest)
         graph = torch.cuda.CUDAGraph()
         out, launches = capture_thread_local(graph, lambda: score_body(self._forest, self._q))

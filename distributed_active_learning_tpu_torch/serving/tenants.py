@@ -576,7 +576,7 @@ class Tenant:
             # unless this capacity is the live slab's (whose buffers are the
             # ones in use)
             if live:
-                self._programs[capacity] = progs
+                self._programs[capacity] = progs  # audit: ok[DAL203] (the live set wins)
                 return progs
             return self._programs.setdefault(capacity, progs)
 
@@ -1696,7 +1696,7 @@ class TenantManager:
         """Drop tenant-axis chunks (and their graphs) of a capacity below
         their group's current largest one, once no launch of theirs runs."""
         with self._lock:
-            for key, entry in list(self._batched_chunks.items()):
+            for key, entry in list(self._batched_chunks.items()):  # audit: ok[DAL104] (a snapshot)
                 if entry.inflight:
                     continue
                 members = self._group_members(key[0])
@@ -1976,7 +1976,7 @@ class TenantManager:
                                        error=repr(e)[:200])
             finally:
                 with self._lock:
-                    for k, v in list(self._pending.items()):
+                    for k, v in list(self._pending.items()):  # audit: ok[DAL104] (a snapshot)
                         if v is job:
                             del self._pending[k]
                 job.done.set()

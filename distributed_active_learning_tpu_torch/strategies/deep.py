@@ -89,7 +89,7 @@ def _joint_entropy_candidates(joint: torch.Tensor, probs: torch.Tensor) -> torch
 
 def _set(mask: torch.Tensor, j: torch.Tensor, value: bool = True) -> torch.Tensor:
     """``mask.at[j].set(value)`` for a 0-d device index."""
-    return mask.index_fill(0, j.reshape(1), value)
+    return mask.scatter(0, j.reshape(1), value)
 
 
 def _at(t: torch.Tensor, j: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -135,7 +135,7 @@ def batchbald_select(
             log_pm = log_f32(_mean0(joint) + _EPS)
             keys = prng.split(key)
             key, k_cfg = keys[0], keys[1]
-            cfg = threefry.categorical(k_cfg, log_pm, mc_samples).long()
+            cfg = threefry.categorical(k_cfg, log_pm, mc_samples)
             W = joint[:, cfg]
             pm = _mean0(W)
             offs = log_f32(pm + _EPS)
@@ -160,7 +160,7 @@ def batchbald_select(
             cls_logits = log_f32(div_const(torch.einsum("sm,sc->mc", W, p_j), S) + _EPS)
             keys = prng.split(key)
             key, k_cls = keys[0], keys[1]
-            cls = threefry.categorical(k_cls, cls_logits, mc_samples).long()
+            cls = threefry.categorical(k_cls, cls_logits, mc_samples)
             W = W * p_j[:, cls]
             alpha = _mean0(W)
             offs = offs + log_f32(alpha + _EPS)
@@ -231,13 +231,13 @@ def badge_select(probs: torch.Tensor, embeddings: torch.Tensor, selectable_mask:
     def dist_to(j):
         return sq + _at(sq, j) - 2.0 * (g @ _at(g, j)) * (h @ _at(h, j))
 
-    j = threefry.categorical(keys[0], torch.where(selectable_mask, zero, -_INF), 1)[0].long()
+    j = threefry.categorical(keys[0], torch.where(selectable_mask, zero, -_INF), 1)[0]
     picked = [j]
     selectable = _set(selectable_mask, j, False)
     min_d = dist_to(j)
     for t in range(1, k):
         w = torch.where(selectable, torch.clamp_min(min_d, 1e-12), zero)
-        j = threefry.categorical(keys[t], log_f32(w), 1)[0].long()
+        j = threefry.categorical(keys[t], log_f32(w), 1)[0]
         picked.append(j)
         selectable = _set(selectable, j, False)
         min_d = torch.minimum(min_d, dist_to(j))

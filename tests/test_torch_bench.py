@@ -31,7 +31,6 @@ import signal
 
 import numpy as np
 import pytest
-import torch
 
 from distributed_active_learning_tpu_torch import bench
 from distributed_active_learning_tpu_torch.runtime import telemetry
@@ -40,6 +39,7 @@ from distributed_active_learning_tpu_torch.runtime.pipeline import (
     ChunkExtras,
     run_pipelined,
 )
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 _TINY = ["--device", "cpu", "--pool", "1500", "--trees", "6", "--depth", "4",
          "--train-rows", "200", "--window", "10", "--iters", "2"]
@@ -82,19 +82,7 @@ def _drive(depth, total_rounds, k=3, may_dispatch=None, on_veto=None):
     return calls, touched, final, stats
 
 
-def test_bench_modes_print_one_json_line(tmp_path):
-    # The modes run in this process at tiny sizes: many small ops, which a
-    # pool of every core's threads does not speed up and which, on a host
-    # loaded by the suite's other workers, it slows about threefold.
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        _bench_modes(tmp_path)
-    finally:
-        torch.set_num_threads(threads)
-
-
-def _bench_modes(tmp_path):
+def test_bench_modes_print_one_json_line(tmp_path, monkeypatch):
     rc, score = _line(["--mode", "score", *_TINY, "--audit"])
     assert rc == 0 and score["metric"] == "acquisition_scores_per_sec"
     audit = score["audit"]
@@ -221,10 +209,10 @@ def _bench_modes(tmp_path):
     assert "grid_speedup" not in gr
     _variants_failures_and_scheduling()
     _serve_modes()
-    _cli_remainder(tmp_path, score)
+    _cli_remainder(tmp_path, score, monkeypatch)
 
 
-def _cli_remainder(tmp_path, score):
+def _cli_remainder(tmp_path, score, monkeypatch):
     import importlib.util
     import os
     import sys
@@ -315,6 +303,8 @@ def _cli_remainder(tmp_path, score):
                 t_run.main([*small, *extra, "--audit", "--budget-table", str(table)])
         assert so.getvalue() == "" and "Iteration" not in err.getvalue()
         assert "hbm-over-budget" in err.getvalue() and "by " in err.getvalue(), err.getvalue()
+        # The program audit and the lint ran first and found nothing.
+        assert _error_rules(err.getvalue()) == {"hbm-over-budget"}, err.getvalue()
         return err.getvalue()
 
     table = tmp_path / "budget.json"
@@ -367,6 +357,40 @@ def _cli_remainder(tmp_path, score):
     assert swept > one, (one, swept)
     assert "sweep/uncertainty/seeds8" in refused((one + swept) / 2, kinds[
         "sweep/uncertainty/seeds8"])
+    # --audit refuses a planted defect by its rule id, before the first
+    # round: a .item() in the chunk body, an f64 op, the pool's mask
+    # gathered whole on every shard of the mesh.
+    from distributed_active_learning_tpu_torch.parallel import collectives
+    from distributed_active_learning_tpu_torch.parallel.mesh import Sharded, Spread
+    from distributed_active_learning_tpu_torch.runtime import loop as t_loop
+    from distributed_active_learning_tpu_torch.runtime import state as t_state
+
+    count, accuracy = t_state.labeled_count, t_loop._accuracy
+
+    def read_back(state):
+        n = count(state)
+        n.item()
+        return n
+
+    def pool_gather(state):
+        m = state.labeled_mask
+        if isinstance(m, Sharded):
+            collectives.owner_gather([r[0] for r in m.blocks], Spread(1, len(m.blocks), 1))
+        return count(state)
+
+    mesh = ("--mesh-data", "4", "--mesh-model", "2")
+    for rule, attr, fn, extra in (
+            ("host-callback-in-fast-path", "labeled_count", read_back, chunk),
+            ("f64-aval", "_accuracy", lambda f, x, y: accuracy(f, x, y).double().float(), chunk),
+            ("collective-in-shard-map", "labeled_count", pool_gather, mesh + chunk)):
+        with monkeypatch.context() as mp:
+            mp.setattr(t_loop if attr == "_accuracy" else t_state, attr, fn)
+            err = io.StringIO()
+            with contextlib.redirect_stdout(io.StringIO()) as so, contextlib.redirect_stderr(err):
+                with pytest.raises(SystemExit, match="audit failed"):
+                    t_run.main([*small, *extra, "--audit"])
+        assert so.getvalue() == "" and "Iteration" not in err.getvalue()
+        assert rule in _error_rules(err.getvalue()), (rule, err.getvalue())
     table.write_text(json.dumps({"hbm_bytes": 1 << 20}))
     m_out = tmp_path / "roof.jsonl"
     with contextlib.redirect_stdout(io.StringIO()):
@@ -382,11 +406,23 @@ def _cli_remainder(tmp_path, score):
     assert len(roof) == 1 and jax_keys <= set(roof[0]), roof
     assert roof[0]["bound"] == "indeterminate:no-peak-table" and roof[0]["flops"] > 0
     assert roof[0]["program"] == "chunk_scan" and roof[0]["calls"] == 2
-    # The analysis CLI.
-    for argv, want in ((["--list"], "serve_chunk/8192"), (["--rules"], "smem-over-budget")):
+    # The analysis CLI: the rule tables (every program rule and lint rule of
+    # the JAX package's), the lint alone, the audit of a kind with the lint.
+    from distributed_active_learning_tpu.analysis import lint as j_lint
+    from distributed_active_learning_tpu.analysis import rules as j_rules
+
+    for argv, want in ((["--list"], ["serve_chunk/8192"]),
+                       (["--rules"], ["smem-over-budget", *j_rules.RULES, *j_lint.LINT_RULES])):
         with contextlib.redirect_stdout(io.StringIO()) as buf:
             assert t_analysis.main(argv) == 0
-        assert want in buf.getvalue()
+        assert all(w in buf.getvalue() for w in want), buf.getvalue()
+    for argv in (["--no-audit", "--json", "--fail-on", "warn"],
+                 ["--kinds", "eval", "--no-lint", "--json"]):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            assert t_analysis.main(argv) == 0
+        payload = json.loads(buf.getvalue())
+        assert payload["findings"] == [] and payload["programs_audited"] == (
+            [] if "--no-audit" in argv else ["eval/uncertainty-fused"])
     with contextlib.redirect_stdout(io.StringIO()) as buf:  # the 1 MiB table
         assert t_analysis.main(["--memory", "--kinds", "serve_score", "--json",
                                 "--budget-table", str(table)]) == 1
@@ -394,6 +430,11 @@ def _cli_remainder(tmp_path, score):
     assert section["programs_priced"] == 2 and section["counts"]["error"] == 1
     assert [(f["rule"], f["program"]) for f in section["findings"]] == [
         ("hbm-over-budget", "serve_score/291840")]
+
+
+def _error_rules(table: str) -> set:
+    """The rules of a report table's error rows (``Report.render_table``)."""
+    return {line.split()[1] for line in table.splitlines() if line.startswith("error ")}
 
 
 # The keys of the JAX bench's serve and serve-multi lines (bench.py).

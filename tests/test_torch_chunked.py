@@ -74,6 +74,7 @@ from distributed_active_learning_tpu_torch.runtime import sweep as t_sweep
 from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.strategies import StrategyAux as TAux
 from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 K = 3
 

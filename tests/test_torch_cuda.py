@@ -1239,12 +1239,19 @@ def test_preflight_on_the_card(cuda):
     pool, for the forest round step, a serving capacity and a small CNN
     chunk step, whose convolutions are priced by cuDNN's own workspace
     answer (``csrc/cudnn_workspace.cu``) to within 1.15 of the peak and 1.40
-    of the pool; the shared-memory mirrors equal the C configuration."""
+    of the pool; the shared-memory mirrors equal the C configuration. And
+    phase 4t (e): each of those programs traced on the card audits clean
+    (``analysis/auditor.py``), and the forest chunk's and a 4 x 2 mesh
+    chunk's traced launches equal their capture's tally; ``run.py --audit``
+    refuses a planted ``.item()`` in the chunk body by its rule id; the
+    lint over the port finds nothing."""
     import ctypes
     import gc
 
     from distributed_active_learning_tpu_torch import kernels
-    from distributed_active_learning_tpu_torch.analysis import memory, programs, roofline
+    from distributed_active_learning_tpu_torch.analysis import (
+        auditor, lint, memory, programs, roofline,
+    )
     from distributed_active_learning_tpu_torch.device import deterministic_cuda
     from distributed_active_learning_tpu_torch.runtime import loop, neural_loop
 
@@ -1301,9 +1308,14 @@ def test_preflight_on_the_card(cuda):
         torch.cuda.synchronize()
         measured = torch.cuda.max_memory_allocated() - base + inputs
         del res
+        stats = {}
+        found = auditor.audit_unit(auditor.AuditUnit.of(f"case {i}", unit), stats=stats)
+        assert not found, [str(f) for f in found]
         graph = loop.GraphedChunk(loop.chunk_of(unit.fn, lambda rows, *a: (None, rows), 1),
                                   carry_fields=fields)
         graph.capture(*unit.args)
+        if i == 0:  # the forest chunk: what the auditor reads is what the card runs
+            assert stats["launches"] == auditor.kernel_launches(graph.launches_per_replay)
         assert pred["peak_hbm_bytes"] >= measured, (pred, measured)
         assert pred["pool_bytes"] >= graph.pool_bytes, (pred, graph.pool_bytes)
         if i == 2:  # the CNN: each convolution's workspace is cuDNN's own answer
@@ -1313,6 +1325,37 @@ def test_preflight_on_the_card(cuda):
         del graph, unit
         gc.collect()
         torch.cuda.empty_cache()
+
+    from distributed_active_learning_tpu_torch import run as run_cli
+    from distributed_active_learning_tpu_torch.config import MeshConfig
+    from distributed_active_learning_tpu_torch.runtime import state as state_lib
+
+    mesh = programs.forest_program("chunk", dataclasses.replace(cfg, mesh=MeshConfig(4, 2)),
+                                   programs.ForestShapes(20_000, 30, 4_000), seed=3)(cuda)
+    stats = {}
+    assert not auditor.audit_unit(auditor.AuditUnit.of("mesh", mesh), stats=stats)
+    graph = loop.GraphedChunk(loop.chunk_of(mesh.fn, lambda rows, *a: (None, rows), 1))
+    graph.capture(*mesh.args)
+    assert graph.stats()["mode"] == "graph"
+    assert stats["launches"] == auditor.kernel_launches(graph.launches_per_replay) == {
+        "fused_votes": 8, "ring_hop": 3, "forest_leaves": 8}
+    del graph, mesh
+    count = state_lib.labeled_count
+
+    def read_back(state):
+        n = count(state)
+        n.item()
+        return n
+
+    state_lib.labeled_count = read_back
+    try:
+        with pytest.raises(SystemExit, match="audit failed"):
+            run_cli.main(["--fit", "device", "--kernel", "pallas", "--n-samples", "300",
+                          "--trees", "8", "--window", "15", "--rounds", "4",
+                          "--rounds-per-launch", "2", "--quiet", "--audit"])
+    finally:
+        state_lib.labeled_count = count
+    assert lint.lint_paths(lint.default_lint_targets()) == []
 
     optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
     for n, d, T, depth in ((20_000, 30, 100, 8), (20_000, 30, 256, 8), (64, 30, 100, 4)):

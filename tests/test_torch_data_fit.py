@@ -36,6 +36,7 @@ from distributed_active_learning_tpu_torch.ops import trees as t_trees
 from distributed_active_learning_tpu_torch.ops import trees_multi as t_multi
 from distributed_active_learning_tpu_torch.ops import trees_train as t_train
 from distributed_active_learning_tpu_torch.runtime import state as t_state
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _bits_equal(a, b):

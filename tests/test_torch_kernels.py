@@ -47,6 +47,7 @@ from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
 from distributed_active_learning_tpu_torch.ops import round_fused as t_fused
 from distributed_active_learning_tpu_torch.ops import trees as t_trees
 from distributed_active_learning_tpu_torch.ops import trees_pallas as t_pallas
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _forest(n_trees, depth, seed, n_fit=400, d=5):

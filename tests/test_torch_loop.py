@@ -60,6 +60,7 @@ from distributed_active_learning_tpu_torch.runtime import obs as t_obs
 from distributed_active_learning_tpu_torch.runtime import state as t_state
 from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.strategies import get_strategy as t_strategy
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _cfgs(fused, strategy="uncertainty", options=None, **forest):
@@ -390,7 +391,17 @@ def _scenarios_match_jax(tmp_path):
 
 _ISOLATION = """
 import contextlib, io, json, os, runpy, sys, tempfile
+
+
+class _NoJax:  # any import of JAX or the JAX package fails here
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "distributed_active_learning_tpu"):
+            raise ImportError(name + " is blocked")
+
+
+sys.meta_path.insert(0, _NoJax())
 from distributed_active_learning_tpu_torch import bench, parallel, run
+from distributed_active_learning_tpu_torch.analysis import auditor, lint, rules
 from distributed_active_learning_tpu_torch.benches import pallas_variants
 from distributed_active_learning_tpu_torch.models import forest_io
 from distributed_active_learning_tpu_torch.ops import ring_topk
@@ -420,7 +431,7 @@ with contextlib.redirect_stdout(summary):
         assert not e.code, e.code
 assert "== rounds ==" in summary.getvalue() and "chunk_scan" in summary.getvalue()
 telemetry.uninstall_flight_recorder()
-for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round"],
+for extra in (["--fit", "device", "--kernel", "pallas", "--fused-round", "--audit"],
               ["--fit", "device", "--kernel", "pallas", "--mesh-data", "2", "--n-samples", "201"],
               ["--fit", "device", "--kernel", "pallas", "--rounds-per-launch", "3",
                "--pipeline-depth", "2"],

@@ -44,6 +44,7 @@ from distributed_active_learning_tpu_torch.ops import threefry
 from distributed_active_learning_tpu_torch.runtime import neural_loop as t_loop
 from distributed_active_learning_tpu_torch.runtime import telemetry as t_telemetry
 from distributed_active_learning_tpu_torch.strategies import deep as t_deep
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 # Forward passes: the same weights and masks, float sums in another order.
 FORWARD_RTOL = 1e-5

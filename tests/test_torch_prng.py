@@ -36,6 +36,7 @@ from distributed_active_learning_tpu_torch.data import synthetic as t_synth
 from distributed_active_learning_tpu_torch.ops import xla_f32
 from distributed_active_learning_tpu_torch.ops.xla_f32 import erfinv_f32
 from distributed_active_learning_tpu_torch.scenarios import engine as t_scn
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 # The rotation drift against the JAX package's eager drift: a fused and an
 # unfused product differ by at most one rounding of |x| ~ 4.

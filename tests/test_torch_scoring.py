@@ -63,6 +63,7 @@ from distributed_active_learning_tpu_torch.ops import forest_eval as t_eval
 from distributed_active_learning_tpu_torch.ops import trees_multi as t_multi
 from distributed_active_learning_tpu_torch.models import lal_training as t_lal
 from distributed_active_learning_tpu_torch.strategies import lal as t_lal_strategy
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 _MAX_T = 256
 _STRATEGY_FN = {

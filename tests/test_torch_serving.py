@@ -75,6 +75,7 @@ from distributed_active_learning_tpu_torch.serving import slab as t_slab
 from distributed_active_learning_tpu_torch.serving.frontend import AdmissionError, ServiceFrontend
 from distributed_active_learning_tpu_torch.serving.service import ALService as TALService
 from distributed_active_learning_tpu_torch.serving.tenants import TenantManager as TTenantManager
+from tests.torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _points(n, d=4, seed=0, shift=0.0):
